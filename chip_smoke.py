@@ -1,0 +1,862 @@
+"""Chip smoke test of the PyTorch/CUDA port (``tigerbeetle_tpu_torch``) on one
+NVIDIA GPU.  Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device   - requires CUDA; prints the card's name and power limit;
+  2. build    - builds the CUDA kernels from csrc/ (nvcc, sm_90a);
+  3. kernels  - each kernel K1-K5 against its plain PyTorch version on the
+                same CUDA tensors at main-path shapes: outputs must be
+                byte-identical; times both;
+  4. parity   - TorchStateMachine on the card against the scalar oracle
+                (testing/model.py) on small seeded batches;
+  5. main     - the main path at full size: 10,000 accounts, then 10,000,000
+                plain transfers in 8,190-event batches (the flagship
+                bench.py defaults), balances against a closed form, and the
+                digest against its plain version.  Kernel launch counts are
+                read from this phase only.
+Then a ``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
+before the last line is printed.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_OPS_PER_S = 67e12  # the slowest CUDA-core rate the data sheet lists (FP32)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, timeout=60, check=True,
+    )
+    return out.stdout.decode().strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def timed(fn, reps=20, warmup=2, setup=None) -> dict:
+    """Per call of ``fn(*setup())``: ``device_ms``, the device time of all
+    that the call puts on the card (kernels, fills, copies; from
+    torch.profiler), and ``call_ms``, from CUDA events around the call, which
+    also counts the host's launch work while the card waits.  ``setup`` runs
+    outside both."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn(*(setup() if setup else ()))
+    torch.cuda.synchronize()
+    call = 0.0
+    for _ in range(reps):
+        args = setup() if setup else ()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        call += start.elapsed_time(end)
+    inputs = [setup() if setup else () for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in inputs:
+            fn(*args)
+        torch.cuda.synchronize()
+    return {"device_ms": device_us(prof) / 1e3 / reps, "call_ms": call / reps}
+
+
+def device_us(prof, by_name=None) -> float:
+    """Device time in a profile: the events that ran on the card only (a
+    CPU op's device time repeats its kernels')."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += e.self_device_time_total
+            if by_name is not None:
+                by_name[e.key[:60]] = e.self_device_time_total
+    return total
+
+
+def to_np(t):
+    from tigerbeetle_tpu_torch import convert
+
+    return convert.tensor_to_array(t)
+
+
+def max_abs_err(name: str, a: dict, b: dict) -> int:
+    """0 when every array pair is byte-identical; raises otherwise (after
+    computing the largest absolute difference for the message)."""
+    worst = 0
+    bad = []
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.shape != y.shape or x.dtype != y.dtype:
+            bad.append(f"{k}: {x.shape}/{x.dtype} vs {y.shape}/{y.dtype}")
+            continue
+        diff = np.flatnonzero(x.reshape(-1) != y.reshape(-1))
+        if len(diff):
+            xs = x.reshape(-1)[diff].astype(object)
+            ys = y.reshape(-1)[diff].astype(object)
+            worst = max(worst, max(abs(int(p) - int(q)) for p, q in zip(xs, ys)))
+            bad.append(f"{k}: {len(diff)} elements differ, first at {diff[0]}")
+    if bad:
+        raise AssertionError(f"{name}: kernel != plain: {bad} (max abs err {worst})")
+    return worst
+
+
+def table_np(t) -> dict:
+    out = {"key_lo": to_np(t.key_lo), "key_hi": to_np(t.key_hi),
+           "tombstone": to_np(t.tombstone), "count": to_np(t.count),
+           "probe_overflow": to_np(t.probe_overflow)}
+    out.update({"col:" + k: to_np(v) for k, v in t.cols.items()})
+    return out
+
+
+def clone_table(t):
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+
+    return ht.Table(t.key_lo.clone(), t.key_hi.clone(), t.tombstone.clone(),
+                    {k: v.clone() for k, v in t.cols.items()}, t.count.clone(),
+                    t.probe_overflow.clone())
+
+
+def rand_u64(rng, n, hi=1 << 64):
+    return rng.integers(0, hi, size=n, dtype=np.uint64)
+
+
+def t64(a, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(dev)
+
+
+def t32(a, dev):
+    import torch
+
+    return torch.from_numpy(
+        np.ascontiguousarray(a).astype(np.uint32).view(np.int32)).to(dev)
+
+
+def home_np(lo, hi, cap):
+    from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
+
+    with np.errstate(over="ignore"):
+        x = lo ^ (hi * np.uint64(0x9E3779B97F4A7C15))
+    return mix64_np(x, 0) & np.uint64(cap - 1)
+
+
+def probe_steps(table_np_, lo, hi, cap, max_probe) -> int:
+    """Slots the probe of these keys visits (the data-dependent work)."""
+    klo, khi, tomb = table_np_["key_lo"], table_np_["key_hi"], table_np_["tombstone"]
+    home = home_np(lo, hi, cap).astype(np.int64)
+    done = (lo == 0) & (hi == 0)
+    steps = 0
+    for i in range(max_probe):
+        if done.all():
+            break
+        cur = (home + i) & (cap - 1)
+        steps += int((~done).sum())
+        a, b, tb = klo[cur], khi[cur], tomb[cur]
+        done = done | (~tb & (((a == lo) & (b == hi)) | ((a == 0) & (b == 0))))
+    return steps
+
+
+def pair_times(kernel: dict, plain: dict) -> dict:
+    return {"ms": kernel["device_ms"], "plain_ms": plain["device_ms"],
+            "call_ms": kernel["call_ms"], "plain_call_ms": plain["call_ms"]}
+
+
+def bound(bytes_, ops):
+    b_ms = bytes_ / H100_BYTES_PER_S * 1e3
+    o_ms = ops / H100_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+LANES = 8192
+COUNT = 8190
+PROFILE_BATCHES = 20
+N_ACCOUNTS = 10_000
+
+
+def make_accounts_table(rng, dev):
+    """Accounts table of 2^16 with 10,000 accounts (ids 1..10,000) carrying
+    random balances below 2^100, some on ledger 2."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    cap = 1 << 16
+    t = ht.make_table(cap, sm.ACCOUNT_COLS, dev)
+    ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
+    rows = {}
+    for k, dt in sm.ACCOUNT_COLS.items():
+        if dt == torch.int64:
+            hi = 1 << 36 if k.endswith("_hi") else 1 << 64
+            rows[k] = t64(rand_u64(rng, N_ACCOUNTS, hi), dev)
+        else:
+            rows[k] = t32(rng.integers(0, 4, N_ACCOUNTS), dev)
+    rows["ledger"] = t32(np.where(rng.random(N_ACCOUNTS) < 0.03, 2, 1), dev)
+    mask = torch.ones(N_ACCOUNTS, dtype=torch.bool, device=dev)
+    zeros = torch.zeros(N_ACCOUNTS, dtype=torch.int64, device=dev)
+    ht.insert_plain(t, t64(ids, dev), zeros, mask, rows, 1 << 16)
+    return t
+
+
+def same_home_groups(rng, cap, groups, size, base):
+    """``groups`` x ``size`` distinct keys (lo, hi=0) sharing a home slot per
+    group, all above ``base``."""
+    cand = base + np.arange(1, 1 << 22, dtype=np.uint64)
+    homes = home_np(cand, np.zeros_like(cand), cap)
+    order = np.argsort(homes, kind="stable")
+    h = homes[order]
+    starts = np.flatnonzero(np.r_[True, h[1:] != h[:-1]])
+    sizes = np.diff(np.r_[starts, len(h)])
+    pick = starts[sizes >= size]
+    pick = rng.choice(pick, size=groups, replace=False)
+    return np.concatenate([cand[order[s:s + size]] for s in pick])
+
+
+def make_transfers_table(rng, dev):
+    """Transfers table of 2^20 pre-filled to load 0.45 with random rows,
+    same-home clusters and a few tombstones.  Returns (table, prefilled ids)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    cap = 1 << 20
+    n = int(cap * 0.45)
+    t = ht.make_table(cap, sm.TRANSFER_COLS, dev)
+    clusters = same_home_groups(rng, cap, 64, 6, 1 << 40)
+    ids = np.unique(np.concatenate([
+        rng.integers(1 << 41, 1 << 62, size=n - len(clusters), dtype=np.uint64),
+        clusters,
+    ]))
+    rng.shuffle(ids)
+    hi = np.where(rng.random(len(ids)) < 0.1, rng.integers(1, 5, len(ids)), 0)
+    hi = hi.astype(np.uint64)
+    rows = {}
+    for k, dt in sm.TRANSFER_COLS.items():
+        if dt == torch.int64:
+            rows[k] = t64(rand_u64(rng, len(ids), 1 << 20), dev)
+        else:
+            rows[k] = t32(rng.integers(0, 3, len(ids)), dev)
+    mask = torch.ones(len(ids), dtype=torch.bool, device=dev)
+    ht.insert_plain(t, t64(ids, dev), t64(hi, dev), mask, rows, cap)
+    tomb_slots = torch.from_numpy(
+        rng.choice(np.flatnonzero(to_np(t.key_lo) != 0), 64, replace=False)
+    ).to(dev)
+    ht.remove_to_tombstone(t, tomb_slots, torch.ones(64, dtype=torch.bool,
+                                                      device=dev))
+    return t, ids, hi
+
+
+def account_batch(rng, n, count):
+    from tigerbeetle_tpu_torch import types
+
+    b = np.zeros(n, dtype=types.ACCOUNT_DTYPE)
+    lane = np.arange(n, dtype=np.uint64)
+    ids = (1 << 30) + lane
+    r = rng.random(n)
+    ids = np.where(r < 0.15, rng.integers(1, N_ACCOUNTS + 1, n).astype(np.uint64), ids)
+    dup = (r >= 0.15) & (r < 0.3)
+    ids[dup] = ids[rng.integers(0, n, int(dup.sum()))]
+    b["id_lo"] = ids
+    b["id_lo"][rng.random(n) < 0.01] = 0
+    b["ledger"] = np.where(rng.random(n) < 0.05, 0, 1)
+    b["code"] = np.where(rng.random(n) < 0.05, 0, rng.integers(0, 4, n))
+    b["user_data_32"] = rng.integers(0, 4, n)
+    b["user_data_64"] = rng.integers(0, 4, n)
+    b["user_data_128_lo"] = rng.integers(0, 4, n)
+    flags = np.where(rng.random(n) < 0.3, 1, 0)
+    flags |= np.where(rng.random(n) < 0.02, 0x10, 0)
+    flags |= np.where(rng.random(n) < 0.02, 6, 0)
+    b["flags"] = flags
+    b["reserved"] = np.where(rng.random(n) < 0.02, 7, 0)
+    b["timestamp"] = np.where(rng.random(n) < 0.02, 5, 0)
+    b["debits_posted_lo"] = np.where(rng.random(n) < 0.02, 3, 0)
+    b["id_lo"][count:] = 0
+    return b
+
+
+def transfer_batch(rng, n, count, existing_ids, existing_hi, linked_all=False):
+    from tigerbeetle_tpu_torch import types
+
+    b = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+    lane = np.arange(n, dtype=np.uint64)
+    ids = (1 << 63) + lane
+    ids_hi = np.zeros(n, dtype=np.uint64)
+    r = rng.random(n)
+    ex = r < 0.1
+    pick = rng.integers(0, len(existing_ids), int(ex.sum()))
+    ids[ex] = existing_ids[pick]
+    ids_hi[ex] = existing_hi[pick]
+    dup = (r >= 0.1) & (r < 0.3)
+    src = rng.integers(0, n, int(dup.sum()))
+    ids[dup], ids_hi[dup] = ids[src], ids_hi[src]
+    b["id_lo"], b["id_hi"] = ids, ids_hi
+    b["id_lo"][rng.random(n) < 0.01] = 0
+    dr = rng.integers(1, N_ACCOUNTS + 1, n).astype(np.uint64)
+    cr = rng.integers(1, N_ACCOUNTS + 1, n).astype(np.uint64)
+    dr[rng.random(n) < 0.03] = 50_000
+    cr[rng.random(n) < 0.03] = 60_000
+    same = rng.random(n) < 0.02
+    cr[same] = dr[same]
+    b["debit_account_id_lo"], b["credit_account_id_lo"] = dr, cr
+    b["debit_account_id_lo"][rng.random(n) < 0.01] = 0
+    b["amount_lo"] = rand_u64(rng, n)
+    b["amount_lo"][rng.random(n) < 0.02] = 0
+    pending = rng.random(n) < 0.2
+    flags = np.where(pending, 2, 0)
+    flags |= np.where(rng.random(n) < 0.3, 1, 0)
+    flags |= np.where(rng.random(n) < 0.01, 0x40, 0)
+    if linked_all:
+        flags |= 1
+    b["flags"] = flags
+    b["timeout"] = np.where(pending | (rng.random(n) < 0.03),
+                            rng.integers(0, 5000, n), 0)
+    b["pending_id_lo"] = np.where(rng.random(n) < 0.02, 9, 0)
+    b["ledger"] = np.where(rng.random(n) < 0.03, 2, 1)
+    b["ledger"][rng.random(n) < 0.01] = 0
+    b["code"] = np.where(rng.random(n) < 0.02, 0, 10)
+    b["user_data_32"] = rng.integers(0, 3, n)
+    b["timestamp"] = np.where(rng.random(n) < 0.01, 1, 0)
+    b["id_lo"][count:] = 0
+    return b
+
+
+def phase_kernels(seed: int, dev) -> dict:
+    import torch
+    from tigerbeetle_tpu_torch import convert, types
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    rng = np.random.default_rng(seed)
+    acc = make_accounts_table(rng, dev)
+    xfr, xids, xhi = make_transfers_table(rng, dev)
+    results = {}
+
+    # -- K1 probe: 8,192 lanes into the transfers table ----------------------
+    cap = xfr.capacity
+    n_hit = LANES // 2
+    pick = rng.integers(0, len(xids), n_hit)
+    lo = np.concatenate([xids[pick],
+                         same_home_groups(rng, cap, 32, 4, 1 << 40)[:128],
+                         rng.integers(1 << 62, 1 << 63, LANES - n_hit - 128,
+                                      dtype=np.uint64)])
+    hi = np.concatenate([xhi[pick], np.zeros(LANES - n_hit, np.uint64)])
+    lo[rng.random(LANES) < 0.01] = 0
+    klo, khi = t64(lo, dev), t64(hi, dev)
+    names = sm.TRANSFER_EXISTS_COLS
+    errs = 0
+    for max_probe in (1, sm.MAX_PROBE):
+        k = ht.lookup(xfr, klo, khi, max_probe, count=COUNT, cols=names)
+        p = ht.lookup_plain(xfr, klo, khi, max_probe, 0, COUNT, names)
+        errs = max(errs, max_abs_err(
+            f"probe max_probe={max_probe}",
+            {"found": to_np(k.found), "slot": to_np(k.slot),
+             "overflow": to_np(k.overflow),
+             **{c: to_np(v) for c, v in k.cols.items()}},
+            {"found": to_np(p.found), "slot": to_np(p.slot),
+             "overflow": to_np(p.overflow),
+             **{c: to_np(v) for c, v in p.cols.items()}}))
+    if not bool(ht.lookup_plain(xfr, klo, khi, 1, 0, COUNT, ()).overflow):
+        raise AssertionError("probe: the max_probe=1 case did not overflow")
+    xnp = table_np(xfr)
+    steps = probe_steps(xnp, lo, hi, cap, sm.MAX_PROBE)
+    col_bytes = sum(xfr.cols[c].element_size() for c in names)
+    found_n = int(k.found.sum())
+    b_bytes = 16 * LANES + 17 * steps + found_n * col_bytes \
+        + LANES * (1 + 8 + col_bytes)
+    results["probe"] = dict(
+        max_abs_err=errs,
+        **pair_times(
+            timed(lambda: ht.lookup(xfr, klo, khi, sm.MAX_PROBE, count=COUNT,
+                                    cols=names)),
+            timed(lambda: ht.lookup_plain(xfr, klo, khi, sm.MAX_PROBE, 0,
+                                          COUNT, names))),
+        library_ms=None,
+        bound=bound(b_bytes, 40 * LANES + 10 * steps),
+        shape=f"{LANES} lanes, table 2^20 at load 0.45, {steps} slot visits",
+    )
+
+    # -- K2 insert: 8,192 new keys, and grow 2^20 -> 2^21 ----------------
+    ins_lo = np.concatenate([same_home_groups(rng, cap, 64, 8, 1 << 39),
+                             rng.integers(1 << 63, 1 << 64, LANES - 512,
+                                          dtype=np.uint64)])
+    ins_lo = np.unique(ins_lo)
+    ins_lo = np.concatenate([ins_lo, (1 << 38) + np.arange(
+        LANES - len(ins_lo), dtype=np.uint64)])
+    rng.shuffle(ins_lo)
+    ilo = t64(ins_lo, dev)
+    ihi = torch.zeros(LANES, dtype=torch.int64, device=dev)
+    imask = torch.from_numpy(rng.random(LANES) < 0.9).to(dev)
+    irows = {k: (t64(rand_u64(rng, LANES), dev) if v.dtype == torch.int64
+                 else t32(rng.integers(0, 1 << 32, LANES), dev))
+             for k, v in xfr.cols.items()}
+    errs = 0
+    for max_probe in (sm.MAX_PROBE, 2):
+        tk, tp = clone_table(xfr), clone_table(xfr)
+        _, ck = ht.insert(tk, ilo, ihi, imask, irows, max_probe)
+        _, cp = ht.insert_plain(tp, ilo, ihi, imask, irows, max_probe)
+        errs = max(errs, max_abs_err(
+            f"insert max_probe={max_probe}",
+            {"claimed": to_np(ck), **table_np(tk)},
+            {"claimed": to_np(cp), **table_np(tp)}))
+        if max_probe == 2 and not bool(tk.probe_overflow):
+            raise AssertionError("insert: the max_probe=2 case did not overflow")
+        if max_probe == sm.MAX_PROBE:
+            placed = to_np(ck) < cap
+            homes = home_np(ins_lo, np.zeros(LANES, np.uint64), cap)
+            ins_steps = int((((to_np(ck)[placed] - homes[placed])
+                              & np.uint64(cap - 1)) + 1).sum())
+            row_bytes = sum(v.element_size() for v in xfr.cols.values())
+            n_placed = int(placed.sum())
+            ins_bytes = LANES * (16 + 1 + 8) + 17 * ins_steps \
+                + n_placed * (16 + 1 + 2 * row_bytes)
+            del tk, tp
+    grown_k = ht.grow(xfr, cap * 2)
+    grown_p = ht.insert_plain(
+        ht.make_table(cap * 2, {k: v.dtype for k, v in xfr.cols.items()}, dev),
+        xfr.key_lo, xfr.key_hi, (xfr.key_lo != 0) | (xfr.key_hi != 0),
+        xfr.cols, cap * 2)[0]
+    errs = max(errs, max_abs_err("insert (grow 2^20 -> 2^21)",
+                                 table_np(grown_k), table_np(grown_p)))
+    del grown_k, grown_p
+    results["insert"] = dict(
+        max_abs_err=errs,
+        **pair_times(
+            timed(lambda t: ht.insert(t, ilo, ihi, imask, irows, sm.MAX_PROBE),
+                  reps=10, setup=lambda: (clone_table(xfr),)),
+            timed(lambda t: ht.insert_plain(t, ilo, ihi, imask, irows,
+                                            sm.MAX_PROBE),
+                  reps=10, setup=lambda: (clone_table(xfr),))),
+        library_ms=None,
+        bound=bound(ins_bytes, 40 * LANES + 10 * ins_steps),
+        shape=f"{LANES} lanes ({n_placed} placed), table 2^20 at load 0.45; "
+              "also checked: max_probe=2 overflow, grow 2^20->2^21",
+    )
+
+    # -- K3 validate: accounts and transfers variants ------------------------
+    errs = 0
+    ab = account_batch(rng, LANES, COUNT)
+    asoa = convert.soa_to_tensors(types.to_soa(ab), dev)
+    alook = ht.lookup_plain(acc, asoa["id_lo"], asoa["id_hi"], sm.MAX_PROBE, 0,
+                            COUNT, sm.ACCOUNT_EXISTS_COLS)
+    kc, ko = sm.account_codes(asoa, alook.found, alook.cols, COUNT)
+    pc, po = sm.account_codes_plain(asoa, alook.found, alook.cols, COUNT)
+    errs = max(errs, max_abs_err("validate accounts",
+                                 {"codes": to_np(kc), "ok": to_np(ko)},
+                                 {"codes": to_np(pc), "ok": to_np(po)}))
+    ts_normal, ts_high = 10 ** 18, (1 << 64) - 5 * 10 ** 11
+    ctxs = []
+    codes_seen = set()
+    for linked_all, batch_ts in ((False, ts_normal), (False, ts_high),
+                                 (True, ts_normal)):
+        tb = transfer_batch(rng, LANES, COUNT, xids, xhi, linked_all)
+        tsoa = convert.soa_to_tensors(types.to_soa(tb), dev)
+        ctx = transfer_ctx(acc, xfr, tsoa, ht, sm)
+        kc, ko = sm.transfer_codes(tsoa, ctx, COUNT, batch_ts)
+        pc, po = sm.transfer_codes_plain(tsoa, ctx, COUNT, batch_ts)
+        errs = max(errs, max_abs_err(
+            f"validate transfers (linked_all={linked_all}, ts={batch_ts})",
+            {"codes": to_np(kc), "ok": to_np(ko)},
+            {"codes": to_np(pc), "ok": to_np(po)}))
+        codes_seen |= set(to_np(kc)[:COUNT].tolist())
+        ctxs.append((tsoa, ctx, ko, batch_ts))
+    tsoa, ctx, tok, batch_ts = ctxs[0]
+    # Every lane reads its batch columns and lookup flags; the gathered
+    # exists columns are read only where the id was found.
+    in_cols = [tsoa[c] for c in sm.TRANSFER_BATCH_COLS] + [
+        ctx.dr_found, ctx.cr_found, ctx.dr["ledger"], ctx.cr["ledger"],
+        ctx.ex_found]
+    n_found = int(ctx.ex_found.sum())
+    v_bytes = (sum(c.numel() * c.element_size() for c in in_cols)
+               + n_found * sum(ctx.e[c].element_size()
+                               for c in sm.TRANSFER_EXISTS_COLS)
+               + 5 * LANES)
+    results["validate"] = dict(
+        max_abs_err=errs,
+        **pair_times(
+            timed(lambda: sm.transfer_codes(tsoa, ctx, COUNT, batch_ts)),
+            timed(lambda: sm.transfer_codes_plain(tsoa, ctx, COUNT, batch_ts))),
+        library_ms=None,
+        bound=bound(v_bytes, 150 * LANES),
+        shape=f"{LANES} lanes, transfers variant (timed); checked: accounts "
+              "variant, timeout overflow, whole-batch linked chain",
+        codes_seen=sorted(codes_seen),
+    )
+
+    # -- K4 balance ----------------------------------------------------------
+    amt = tsoa["amount_lo"]
+    pend = (tsoa["flags"] & sm.TF_PENDING) != 0
+    ak, ap = clone_table(acc), clone_table(acc)
+    sm.apply_balances(ak, ctx.dr_slot, ctx.cr_slot, tok, amt, pend)
+    sm.apply_balance_plan(ap, sm.balance_plan(ctx.dr_slot, ctx.cr_slot, tok,
+                                              amt, pend, ap.capacity))
+    errs = max_abs_err("balance", table_np(ak), table_np(ap))
+    n_ok = int(tok.sum())
+    touched = int(torch.unique(torch.cat([ctx.dr_slot[tok],
+                                          ctx.cr_slot[tok]])).numel())
+    # The ok flag of every lane; slots, amount and pending flag of the
+    # accepted lanes; one read and one write of the 64 B of balances of each
+    # touched account.
+    bal_bytes = LANES * 1 + n_ok * (8 + 8 + 8 + 1) + touched * 2 * 64
+    legs = torch.cat([ctx.dr_slot[tok], ctx.cr_slot[tok]])
+    limbs = torch.stack([amt[tok] & 0xFFFFFFFF, (amt[tok] >> 32) & 0xFFFFFFFF],
+                        1).repeat(2, 1)
+    scratch = torch.zeros((acc.capacity, 2), dtype=torch.int64, device=dev)
+    results["balance"] = dict(
+        max_abs_err=errs,
+        **pair_times(
+            timed(lambda t: sm.apply_balances(t, ctx.dr_slot, ctx.cr_slot, tok,
+                                              amt, pend),
+                  setup=lambda: (clone_table(acc),)),
+            timed(lambda t: sm.apply_balance_plan(t, sm.balance_plan(
+                ctx.dr_slot, ctx.cr_slot, tok, amt, pend, t.capacity)),
+                setup=lambda: (clone_table(acc),))),
+        library_ms=timed(lambda: scratch.index_add_(0, legs, limbs))["device_ms"],
+        bound=bound(bal_bytes, 30 * n_ok),
+        shape=f"{LANES} lanes ({n_ok} accepted, {touched} accounts touched), "
+              "accounts table 2^16; library: one index_add_ of the leg limbs",
+    )
+
+    # -- K5 digest -----------------------------------------------------------
+    led = sm.Ledger(accounts=acc, transfers=xfr, posted=None, history=None)
+    dcols = [acc.cols[c] for c in sm.BALANCE_COLS] + [acc.cols["timestamp"]]
+    dk = sm.ledger_digest(led)
+    dp = sm.ledger_digest_plain(acc.key_lo, acc.key_hi, dcols)
+    errs = max_abs_err("digest", {"digest": to_np(dk)}, {"digest": to_np(dp)})
+    n_live = int(((acc.key_lo != 0) | (acc.key_hi != 0)).sum())
+    results["digest"] = dict(
+        max_abs_err=errs,
+        **pair_times(
+            timed(lambda: sm.ledger_digest(led)),
+            timed(lambda: sm.ledger_digest_plain(acc.key_lo, acc.key_hi, dcols))),
+        library_ms=None,
+        # The keys of every slot; the nine digested columns of live slots.
+        bound=bound(acc.capacity * 16 + n_live * 9 * 8 + 8, 60 * n_live),
+        shape=f"accounts table 2^16 with {N_ACCOUNTS} accounts",
+    )
+    torch.cuda.synchronize()
+    return results
+
+
+def transfer_ctx(acc, xfr, soa, ht, sm):
+    dr = ht.lookup_plain(acc, soa["debit_account_id_lo"],
+                         soa["debit_account_id_hi"], sm.MAX_PROBE, 0, COUNT,
+                         ("ledger",))
+    cr = ht.lookup_plain(acc, soa["credit_account_id_lo"],
+                         soa["credit_account_id_hi"], sm.MAX_PROBE, 0, COUNT,
+                         ("ledger",))
+    ex = ht.lookup_plain(xfr, soa["id_lo"], soa["id_hi"], sm.MAX_PROBE, 0,
+                         COUNT, sm.TRANSFER_EXISTS_COLS)
+    return sm.TransferCtx(dr.found, cr.found, dr.slot, cr.slot, dr.cols,
+                          cr.cols, ex.found, ex.cols)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: small parity against the scalar oracle
+# ---------------------------------------------------------------------------
+
+
+def phase_parity(seed: int, dev) -> dict:
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.testing import model as M
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    # The bench.run_parity_check shape.
+    cfg = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=11,
+                       posted_capacity_log2=10)
+    m = TorchStateMachine(cfg, batch_lanes=256, device=dev)
+    ref = M.ReferenceStateMachine()
+    accounts = types.accounts_array(
+        [types.account(id=i + 1, ledger=1, code=10) for i in range(64)])
+    got = m.create_accounts(accounts, wall_clock_ns=1)
+    if got != ref.create_accounts(M.accounts_from_batch(accounts), 1):
+        raise AssertionError("parity: accounts")
+    batches = 0
+    for b in range(3):
+        batch = gen_batch_np(b, 200, 200, 64, 1 << 32)
+        if m.create_transfers(batch) != ref.create_transfers(
+                M.transfers_from_batch(batch)):
+            raise AssertionError(f"parity: transfers batch {b}")
+        batches += 1
+    if m.balances_snapshot() != ref.balances_snapshot():
+        raise AssertionError("parity: balances")
+
+    # Seeded batches with validation failures, duplicates, linked account
+    # chains, and a transfers table that grows.
+    rng = np.random.default_rng(seed + 1)
+    cfg = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=10,
+                       posted_capacity_log2=10)
+    m = TorchStateMachine(cfg, batch_lanes=256, device=dev)
+    ref = M.ReferenceStateMachine()
+    n_failed = 0
+    wall = 1000
+    for i in range(3):
+        ab = account_batch(rng, 200, 200)
+        ab["flags"] &= ~np.uint16(6)  # no limit accounts: keep the fast path
+        ab["id_lo"][ab["id_lo"] >= (1 << 30)] += i * 1000
+        if ref.accounts:
+            again = rng.random(len(ab)) < 0.1
+            ab["id_lo"][again] = rng.choice(list(ref.accounts), int(again.sum()))
+        if (ab["flags"] & 1).any():
+            keep = np.unique(ab["id_lo"], return_index=True)[1]
+            ab = ab[np.sort(keep)]
+        wall += 10 ** 6
+        got = m.create_accounts(ab, wall_clock_ns=wall)
+        want = ref.create_accounts(M.accounts_from_batch(ab), wall)
+        if got != want:
+            raise AssertionError(f"parity: seeded accounts batch {i}")
+        n_failed += len(got)
+        batches += 1
+    ids = [a for a in ref.accounts]
+    for i in range(8):
+        n = 200
+        tb = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+        tb["id_lo"] = (1 << 40) + i * n + np.arange(n)
+        dupes = rng.random(n) < 0.1
+        tb["id_lo"][dupes] = tb["id_lo"][rng.integers(0, n, int(dupes.sum()))]
+        tb["debit_account_id_lo"] = rng.choice(ids + [999_999], n)
+        tb["credit_account_id_lo"] = rng.choice(ids, n)
+        tb["amount_lo"] = rng.integers(0, 1000, n)
+        tb["ledger"] = np.where(rng.random(n) < 0.05, 3, 1)
+        tb["code"] = np.where(rng.random(n) < 0.03, 0, 10)
+        pending = rng.random(n) < 0.2
+        tb["flags"] = np.where(pending, 2, 0)
+        tb["timeout"] = np.where(pending, rng.integers(0, 100, n), 0)
+        wall += 10 ** 6
+        got = m.create_transfers(tb, wall_clock_ns=wall)
+        want = ref.create_transfers(M.transfers_from_batch(tb), wall)
+        if got != want:
+            raise AssertionError(f"parity: seeded transfers batch {i}")
+        n_failed += len(got)
+        batches += 1
+    if m.balances_snapshot() != ref.balances_snapshot():
+        raise AssertionError("parity: seeded balances")
+    return {"batches": batches, "failed_events_matched": n_failed,
+            "transfers_capacity_after": m.ledger.transfers.capacity}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path at full size
+# ---------------------------------------------------------------------------
+
+
+def phase_main(dev, n_transfers: int) -> dict:
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    batch_max = 8190
+    torch.cuda.reset_peak_memory_stats()
+    m = TorchStateMachine(LedgerConfig(), batch_lanes=8192, device=dev)
+    caps0 = m.ledger.transfers.capacity
+    for start in range(0, N_ACCOUNTS, batch_max):
+        ids = range(start + 1, min(N_ACCOUNTS, start + batch_max) + 1)
+        batch = types.accounts_array(
+            [types.account(id=i, ledger=1, code=10) for i in ids])
+        if m.create_accounts(batch) != []:
+            raise AssertionError("main: account creation failed")
+
+    debits = np.zeros(N_ACCOUNTS + 1, np.uint64)
+    credits = np.zeros(N_ACCOUNTS + 1, np.uint64)
+    n_batches = (n_transfers + batch_max - 1) // batch_max
+    # A window of full batches near the end runs under torch.profiler,
+    # tracing the card only (host tracing would slow the host side it is
+    # meant to show), and is left out of the throughput figure.  Each
+    # create_transfers call ends in the read of its codes, after all of its
+    # device work, so the device idle share is taken over the calls' wall:
+    # that of the profiled window, and that of the unprofiled full batches
+    # that did not grow the table.
+    window = range(n_batches - 1 - PROFILE_BATCHES, n_batches - 1)
+    if window.start < 0:
+        window = range(0)
+    commit_s = 0.0
+    n_timed = 0
+    prof_commit_ms = 0.0
+    steady_s = 0.0
+    n_steady = 0
+    grow_batches_ms = []
+    prof = None
+    t_wall = time.perf_counter()
+    for b in range(n_batches):
+        count = min(batch_max, n_transfers - b * batch_max)
+        batch = gen_batch_np(b, batch_max, batch_max, N_ACCOUNTS, 1 << 32)[:count]
+        cap = m.ledger.transfers.capacity
+        if window and b == window.start:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        res = m.create_transfers(batch)
+        dt = time.perf_counter() - t0
+        grew = m.ledger.transfers.capacity != cap
+        if grew:
+            grow_batches_ms.append(dt * 1e3)
+        if b in window:
+            prof_commit_ms += dt * 1e3
+        else:
+            commit_s += dt
+            n_timed += count
+            if count == batch_max and not grew:
+                steady_s += dt
+                n_steady += 1
+        if window and b == window.stop - 1:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        if res:
+            raise AssertionError(f"main: batch {b} had failures {res[:5]}")
+        np.add.at(debits, batch["debit_account_id_lo"].astype(np.int64),
+                  batch["amount_lo"])
+        np.add.at(credits, batch["credit_account_id_lo"].astype(np.int64),
+                  batch["amount_lo"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_wall
+
+    rows = m.lookup_accounts(list(range(1, N_ACCOUNTS + 1)))
+    if len(rows) != N_ACCOUNTS:
+        raise AssertionError("main: lookup lost accounts")
+    order = rows["id_lo"].astype(np.int64)
+    for name, want in (("debits_posted", debits), ("credits_posted", credits)):
+        if not np.array_equal(rows[name + "_lo"], want[order]) or rows[name + "_hi"].any():
+            raise AssertionError(f"main: {name} differs from the closed form")
+    for name in ("debits_pending", "credits_pending"):
+        if rows[name + "_lo"].any() or rows[name + "_hi"].any():
+            raise AssertionError(f"main: {name} not zero")
+    total = int(debits.sum(dtype=np.uint64))
+    if total != int(credits.sum(dtype=np.uint64)):
+        raise AssertionError("main: conservation violated")
+    digest = m.digest()
+    a = m.ledger.accounts
+    plain = sm.ledger_digest_plain(
+        a.key_lo, a.key_hi,
+        [a.cols[c] for c in sm.BALANCE_COLS] + [a.cols["timestamp"]])
+    if digest != int(plain.item()) & ((1 << 64) - 1):
+        raise AssertionError("main: digest differs from its plain version")
+    if int(m.ledger.transfers.count.item()) != n_transfers:
+        raise AssertionError("main: transfers count")
+    profile = None
+    if prof is not None:
+        by_name = {}
+        busy = device_us(prof, by_name) / 1e3
+        if busy <= 0:
+            raise AssertionError("main: the profile recorded no device time")
+        steady_ms = steady_s * 1e3 / n_steady if n_steady else None
+        profile = {
+            "batches": len(window), "commit_wall_ms": prof_commit_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / prof_commit_ms,
+            "unprofiled_batches": n_steady,
+            "unprofiled_wall_ms_per_batch": steady_ms,
+            "device_idle_share_unprofiled":
+                1 - busy / len(window) / steady_ms if steady_ms else None,
+            "device_ms_per_batch_by_name": {
+                k: v / 1e3 / len(window) for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:12]},
+        }
+    return {
+        "accounts": N_ACCOUNTS, "transfers": n_transfers, "batches": n_batches,
+        "transfers_capacity": [caps0, m.ledger.transfers.capacity],
+        "grow_batches_ms": grow_batches_ms,
+        "commit_s_unprofiled": commit_s, "wall_s_with_host_generation": wall_s,
+        "transfers_per_s": n_timed / commit_s,
+        "profile": profile,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "digest": digest, "sum_amounts": total,
+    }
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--transfers", type=int, default=10_000_000)
+    args = p.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from tigerbeetle_tpu_torch.ops import _cuda
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    dev = torch.device("cuda")
+
+    emit({"phase": "build", "seconds": _cuda.build_seconds(),
+          "library": str(_cuda.library_path().name)})
+
+    t0 = time.perf_counter()
+    kern = phase_kernels(args.seed, dev)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in kern.items()}})
+
+    t0 = time.perf_counter()
+    parity = phase_parity(args.seed, dev)
+    emit({"phase": "parity", "seconds": time.perf_counter() - t0, **parity})
+
+    _cuda.reset_counts()
+    main_run = phase_main(dev, args.transfers)
+    launches = _cuda.counts()
+    emit({"phase": "main", "launches": launches, **main_run})
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+    rows = []
+    for name, k in _cuda.KERNELS.items():
+        r = kern[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        })
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,278 @@
+"""TorchStateMachine (the port's host seam) against TpuStateMachine and the
+scalar oracle, plus the port's boundaries: no JAX import, copied modules kept
+equal to their sources, the device default, and every route this slice does
+not port raising NotImplementedError."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import tigerbeetle_tpu  # noqa: F401  (enables x64)
+from tigerbeetle_tpu import types
+from tigerbeetle_tpu.config import LedgerConfig
+from tigerbeetle_tpu.machine import TpuStateMachine
+from tigerbeetle_tpu.testing import model as M
+from tigerbeetle_tpu.testing.workload import WorkloadGen
+from tigerbeetle_tpu.types import AccountFlags, TransferFlags as F
+from tigerbeetle_tpu_torch import convert
+from tigerbeetle_tpu_torch import machine as tmachine
+from tigerbeetle_tpu_torch.machine import TorchStateMachine
+from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+ROOT = Path(__file__).resolve().parents[1]
+CFG = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=10,
+                   posted_capacity_log2=10, history_capacity_log2=10)
+
+
+def trio(batch_lanes=256):
+    return (TorchStateMachine(CFG, batch_lanes=batch_lanes, device="cpu"),
+            TpuStateMachine(CFG, batch_lanes=batch_lanes),
+            M.ReferenceStateMachine())
+
+
+def commit3(t, j, ref, op, batch, wall):
+    got = getattr(t, op)(batch, wall_clock_ns=wall)
+    rows = (M.accounts_from_batch if op == "create_accounts"
+            else M.transfers_from_batch)(batch)
+    want = getattr(ref, op)(rows, wall)
+    assert got == want == getattr(j, op)(batch, wall_clock_ns=wall)
+    return got
+
+
+def assert_same_tables(t, j):
+    want = convert.ledger_arrays(j.ledger)
+    got = convert.ledger_to_numpy(t.ledger)
+    for name in ("accounts", "transfers"):
+        for k in ("key_lo", "key_hi", "tombstone", "count", "probe_overflow"):
+            np.testing.assert_array_equal(got[name][k], want[name][k],
+                                          err_msg=f"{name}/{k}")
+        for k in want[name]["cols"]:
+            np.testing.assert_array_equal(got[name]["cols"][k],
+                                          want[name]["cols"][k],
+                                          err_msg=f"{name}/{k}")
+
+
+def test_sequence_across_a_table_growth_matches_jax_and_oracle():
+    t, j, ref = trio()
+    gen = WorkloadGen(seed=21)
+    commit3(t, j, ref, "create_accounts", gen.accounts_batch(24), 1_000)
+    cap0 = t.ledger.transfers.capacity
+    for i in range(5):
+        batch = gen.transfers_batch(120, invalid_rate=0.2, dup_rate=0.1,
+                                    pending_rate=0.2)
+        commit3(t, j, ref, "create_transfers", batch, 10_000 * (i + 1))
+    assert t.ledger.transfers.capacity > cap0  # crossed one growth
+    assert t.ledger.transfers.capacity == j.ledger.transfers.capacity
+    assert t.balances_snapshot() == ref.balances_snapshot() == j.balances_snapshot()
+    assert t.digest() == j.digest()
+    assert (t.prepare_timestamp, t.commit_timestamp) == (
+        j.prepare_timestamp, j.commit_timestamp)
+    assert_same_tables(t, j)
+    ids = gen.transfer_ids[:40] + [123456789]
+    got = t.lookup_transfers(ids)
+    assert [M.transfer_from_row(r) for r in got] == ref.lookup_transfers(ids)
+    np.testing.assert_array_equal(got, j.lookup_transfers(ids))
+    np.testing.assert_array_equal(t.lookup_accounts(gen.account_ids + [0]),
+                                  j.lookup_accounts(gen.account_ids + [0]))
+
+
+def test_bench_parity_check_shape():
+    """bench.run_parity_check's shape: 64 accounts, three 200-transfer
+    batches of the flagship generator."""
+    cfg = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=11,
+                       posted_capacity_log2=10)
+    t = TorchStateMachine(cfg, batch_lanes=256, device="cpu")
+    ref = M.ReferenceStateMachine()
+    accounts = types.accounts_array(
+        [types.account(id=i + 1, ledger=1, code=10) for i in range(64)])
+    assert t.create_accounts(accounts, wall_clock_ns=1) == ref.create_accounts(
+        M.accounts_from_batch(accounts), 1)
+    for b in range(3):
+        batch = gen_batch_np(b, 200, 200, 64, 1 << 32)
+        assert t.create_transfers(batch) == ref.create_transfers(
+            M.transfers_from_batch(batch))
+    assert t.balances_snapshot() == ref.balances_snapshot()
+
+
+def test_benchgen_is_bench_py_generator():
+    sys.path.insert(0, str(ROOT))
+    import bench
+
+    for b in (0, 7):
+        np.testing.assert_array_equal(gen_batch_np(b, 512, 500, 100, 1 << 32),
+                                      bench.gen_batch_np(b, 512, 500, 100, 1 << 32))
+
+
+def test_commit_batch_replay_and_linked_accounts():
+    t, j, ref = trio()
+    rows = [types.account(id=i + 1, ledger=1, code=10,
+                          flags=AccountFlags.LINKED if i % 3 else 0)
+            for i in range(9)]
+    rows[4] = types.account(id=5, ledger=0, code=10, flags=AccountFlags.LINKED)
+    batch = types.accounts_array(rows)
+    ts = 5_000
+    assert t.commit_batch("create_accounts", batch, ts) == j.commit_batch(
+        "create_accounts", batch, ts)
+    assert t.prepare_timestamp == j.prepare_timestamp == ts
+    tb = types.transfers_array([types.transfer(
+        id=1, debit_account_id=1, credit_account_id=4, amount=3, ledger=1,
+        code=1)])
+    assert t.commit_batch("create_transfers", tb, ts + 1) == j.commit_batch(
+        "create_transfers", tb, ts + 1)
+    assert t.balances_snapshot() == j.balances_snapshot()
+    with pytest.raises(ValueError):
+        t.commit_batch("lookup_accounts", batch, ts + 2)
+
+
+def test_state_carried_from_the_jax_machine_commits_identically():
+    """A ledger converted from the JAX package's state continues in step."""
+    t, j, ref = trio()
+    gen = WorkloadGen(seed=5)
+    commit3(t, j, ref, "create_accounts", gen.accounts_batch(16), 100)
+    commit3(t, j, ref, "create_transfers", gen.transfers_batch(60), 200)
+    t.ledger = convert.ledger_from_numpy(convert.ledger_arrays(j.ledger), "cpu")
+    commit3(t, j, ref, "create_transfers", gen.transfers_batch(60), 300)
+    assert_same_tables(t, j)
+
+
+UNPORTED_INIT = {
+    "force_sequential": dict(force_sequential=True),
+    "shards": dict(shards=2),
+    "tiering": dict(hot_transfers_capacity_max=1 << 12),
+    "spill_dir": dict(spill_dir="spill"),
+    "host_engine": dict(host_engine=True),
+}
+
+
+@pytest.mark.parametrize("route", sorted(UNPORTED_INIT))
+def test_unported_constructor_routes_raise(route):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        TorchStateMachine(CFG, device="cpu", **UNPORTED_INIT[route])
+
+
+def _transfer(**kw):
+    base = dict(id=1, debit_account_id=1, credit_account_id=2, amount=1,
+                ledger=1, code=1)
+    base.update(kw)
+    return types.transfers_array([types.transfer(**base)])
+
+
+UNPORTED_BATCHES = {
+    "post_pending": _transfer(flags=F.POST_PENDING_TRANSFER, pending_id=9),
+    "void_pending": _transfer(flags=F.VOID_PENDING_TRANSFER, pending_id=9),
+    "balancing_debit": _transfer(flags=F.BALANCING_DEBIT),
+    "balancing_credit": _transfer(flags=F.BALANCING_CREDIT),
+    "linked_transfers": _transfer(flags=F.LINKED),
+    "u128_amount": _transfer(amount=1 << 64),
+}
+
+
+@pytest.mark.parametrize("route", sorted(UNPORTED_BATCHES))
+def test_batches_the_fast_path_refuses_raise(route):
+    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
+    t.create_accounts(types.accounts_array(
+        [types.account(id=i, ledger=1, code=1) for i in (1, 2)]))
+    before = t.digest()
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        t.create_transfers(UNPORTED_BATCHES[route])
+    assert t.digest() == before and int(t.ledger.transfers.count) == 0
+
+
+@pytest.mark.parametrize("flags", [AccountFlags.HISTORY,
+                                   AccountFlags.DEBITS_MUST_NOT_EXCEED_CREDITS])
+def test_history_and_limit_accounts_end_the_fast_path(flags):
+    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
+    assert t.create_accounts(types.accounts_array(
+        [types.account(id=1, ledger=1, code=1, flags=flags),
+         types.account(id=2, ledger=1, code=1)])) == []
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        t.create_transfers(_transfer())
+
+
+def test_linked_accounts_with_duplicate_ids_raise():
+    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
+    batch = types.accounts_array([
+        types.account(id=1, ledger=1, code=1, flags=AccountFlags.LINKED),
+        types.account(id=1, ledger=1, code=1)])
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        t.create_accounts(batch)
+
+
+@pytest.mark.parametrize("name", sorted(tmachine._UNPORTED))
+def test_unported_entry_points_raise(name):
+    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        getattr(t, name)()
+
+
+def test_default_device_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchStateMachine(CFG)
+    from tigerbeetle_tpu_torch.ops import state_machine as tsm
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsm.make_ledger(1 << 4, 1 << 4, 1 << 4, 1 << 4)
+
+
+def test_wrappers_never_fall_back_for_cuda_tensors(monkeypatch):
+    """A CUDA tensor goes to the kernel wrapper, never to the plain version:
+    here the wrapper is replaced by a marker to show the route."""
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as tht
+
+    class Routed(Exception):
+        pass
+
+    def kernel(*args, **kwargs):
+        raise Routed
+
+    monkeypatch.setattr(_cuda, "probe", kernel)
+    monkeypatch.setattr(tht, "lookup_plain", lambda *a: pytest.fail("plain"))
+
+    class FakeCuda:
+        is_cuda = True
+        shape = (4,)
+
+    with pytest.raises(Routed):
+        tht.lookup(tht.make_table(16, {}, "cpu"), FakeCuda(), FakeCuda(), 8)
+
+
+def test_package_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, tigerbeetle_tpu_torch, tigerbeetle_tpu_torch.machine, "
+        "tigerbeetle_tpu_torch.convert, tigerbeetle_tpu_torch.testing.model, "
+        "tigerbeetle_tpu_torch.utils.benchgen\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'flax', 'tigerbeetle_tpu.')) or m == 'tigerbeetle_tpu')\n"
+        "print(bad)\n"
+        "raise SystemExit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", ["types.py", "config.py", "obs/metrics.py",
+                                  "testing/model.py"])
+def test_copied_module_equals_its_source_apart_from_imports(path):
+    def body(p):
+        return [line for line in (ROOT / p).read_text().splitlines()
+                if not line.lstrip().startswith(("import ", "from "))]
+
+    assert body("tigerbeetle_tpu_torch/" + path) == body("tigerbeetle_tpu/" + path)
+
+
+def test_kernel_sources_are_in_the_repository():
+    from tigerbeetle_tpu_torch.ops import _cuda
+
+    for k in _cuda.KERNELS.values():
+        src = (ROOT / k.source).read_text()
+        # Each source names the JAX function it replaces.
+        path, line = k.replaces.split(":")
+        assert path.split("/", 1)[1] in src
+        assert int(line) > 0

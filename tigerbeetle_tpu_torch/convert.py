@@ -1,0 +1,128 @@
+"""Carry ledger state between the JAX package and the port, losslessly.
+
+The exchange format is a nested dict of numpy arrays, the arrays that
+``np.asarray`` gives for a JAX ``Ledger``:
+
+    {"accounts" | "transfers" | "posted":
+        {"key_lo": u64[C], "key_hi": u64[C], "tombstone": bool[C],
+         "cols": {name: u64[C] | u32[C]}, "count": u64 0-d,
+         "probe_overflow": bool 0-d},
+     "history": {"cols": {name: u64[H]}, "count": u64 0-d}}
+
+On the torch side every u64 is an int64 tensor and every u32 an int32
+tensor holding the same bits, so the round trip is a reinterpretation of the
+bytes in both directions.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .ops import hash_table as ht
+from .ops import state_machine as sm
+
+_TO_TORCH = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32,
+             np.dtype(np.bool_): np.bool_}
+_TO_NUMPY = {torch.int64: np.uint64, torch.int32: np.uint32,
+             torch.bool: np.bool_}
+TABLES = ("accounts", "transfers", "posted")
+
+
+def array_to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A u64/u32/bool numpy array as an int64/int32/bool tensor (same bits)."""
+    a = np.ascontiguousarray(a)
+    try:
+        view = _TO_TORCH[a.dtype]
+    except KeyError:
+        raise TypeError(f"unsupported dtype {a.dtype}") from None
+    return torch.from_numpy(a.view(view).copy()).to(device)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """Inverse of ``array_to_tensor``."""
+    return t.detach().cpu().numpy().view(_TO_NUMPY[t.dtype])
+
+
+def table_arrays(t: Any) -> Dict[str, Any]:
+    """The exchange dict of one table laid out like ``Table`` whose arrays
+    ``np.asarray`` reads (a JAX package table)."""
+    return {
+        "key_lo": np.asarray(t.key_lo), "key_hi": np.asarray(t.key_hi),
+        "tombstone": np.asarray(t.tombstone),
+        "cols": {k: np.asarray(v) for k, v in t.cols.items()},
+        "count": np.asarray(t.count),
+        "probe_overflow": np.asarray(t.probe_overflow),
+    }
+
+
+def table_to_numpy(t: ht.Table) -> Dict[str, Any]:
+    """The exchange dict of one port ``Table``."""
+    return {
+        "key_lo": tensor_to_array(t.key_lo),
+        "key_hi": tensor_to_array(t.key_hi),
+        "tombstone": tensor_to_array(t.tombstone),
+        "cols": {k: tensor_to_array(v) for k, v in t.cols.items()},
+        "count": tensor_to_array(t.count),
+        "probe_overflow": tensor_to_array(t.probe_overflow),
+    }
+
+
+def ledger_arrays(ledger: Any) -> Dict[str, Any]:
+    """The exchange dict of any object laid out like a ``Ledger`` whose
+    arrays ``np.asarray`` reads (a JAX package ledger)."""
+    out = {name: table_arrays(getattr(ledger, name)) for name in TABLES}
+    out["history"] = {
+        "cols": {k: np.asarray(v) for k, v in ledger.history.cols.items()},
+        "count": np.asarray(ledger.history.count),
+    }
+    return out
+
+
+def ledger_from_numpy(arrays: Dict[str, Any], device) -> sm.Ledger:
+    """A port ``Ledger`` on ``device`` from the exchange dict."""
+
+    def table(d):
+        return ht.Table(
+            key_lo=array_to_tensor(d["key_lo"], device),
+            key_hi=array_to_tensor(d["key_hi"], device),
+            tombstone=array_to_tensor(d["tombstone"], device),
+            cols={k: array_to_tensor(v, device) for k, v in d["cols"].items()},
+            count=array_to_tensor(d["count"], device),
+            probe_overflow=array_to_tensor(d["probe_overflow"], device),
+        )
+
+    h = arrays["history"]
+    return sm.Ledger(
+        **{name: table(arrays[name]) for name in TABLES},
+        history=sm.History(
+            cols={k: array_to_tensor(v, device) for k, v in h["cols"].items()},
+            count=array_to_tensor(h["count"], device),
+        ),
+    )
+
+
+def ledger_to_numpy(ledger: sm.Ledger) -> Dict[str, Any]:
+    """The exchange dict of a port ``Ledger``."""
+    out = {name: table_to_numpy(getattr(ledger, name)) for name in TABLES}
+    out["history"] = {
+        "cols": {k: tensor_to_array(v) for k, v in ledger.history.cols.items()},
+        "count": tensor_to_array(ledger.history.count),
+    }
+    return out
+
+
+def soa_to_tensors(soa: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A batch SoA (``types.to_soa``: u64 and u32 columns) as tensors: the
+    columns of one dtype are stacked and copied to ``device`` at once, and
+    each column is a (contiguous) row of that stack."""
+    names_by_dtype: Dict[Any, list] = {}
+    for name, col in soa.items():
+        names_by_dtype.setdefault(col.dtype, []).append(name)
+    out = {}
+    for names in names_by_dtype.values():
+        stacked = array_to_tensor(np.stack([soa[k] for k in names]), device)
+        out.update(zip(names, stacked.unbind(0)))
+    return {name: out[name] for name in soa}

@@ -1,0 +1,379 @@
+"""TorchStateMachine: the host-side seam of the port (counterpart of
+``tigerbeetle_tpu/machine.py``'s ``TpuStateMachine``), reduced to this
+slice: plain ``create_accounts`` and ``create_transfers`` batches on the fast
+path, lookups, the balance snapshot and the digest.
+
+It owns the device-resident ledger, assigns batch timestamps as prepare()
+does, grows the tables from host-side row bounds (load factor <= 0.5), pads
+each batch to ``batch_lanes`` and commits it through
+``ops.state_machine`` (kernels K1-K4 on the card), then reads the result
+codes and the table's probe_overflow flag back in ONE device-to-host copy and
+compresses the codes into the wire's (index, result) pairs.
+
+Routes this slice does not port raise ``NotImplementedError`` naming the
+ROADMAP slice that brings them; none gives a wrong answer or falls back
+quietly.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import convert, types
+from .config import LedgerConfig
+from .device import resolve as resolve_device
+from .ops import hash_table as ht
+from .ops import state_machine as sm
+from .u128 import i64, u64
+
+_LIMIT_FLAGS = (
+    types.AccountFlags.DEBITS_MUST_NOT_EXCEED_CREDITS
+    | types.AccountFlags.CREDITS_MUST_NOT_EXCEED_DEBITS
+)
+_BOUND_CLAMP = 1 << 127
+# Transfer flags that exclude the plain fast-path batch (P2/P4: two-phase,
+# balancing and linked chains run the JAX package's general kernel).
+_SLOW_TRANSFER_FLAGS = (
+    types.TransferFlags.POST_PENDING_TRANSFER
+    | types.TransferFlags.VOID_PENDING_TRANSFER
+    | types.TransferFlags.BALANCING_DEBIT
+    | types.TransferFlags.BALANCING_CREDIT
+    | types.TransferFlags.LINKED
+)
+U64_MAX = (1 << 64) - 1
+
+# Entry points of TpuStateMachine that this slice does not port, with the
+# ROADMAP queue-A slice that brings each.
+_UNPORTED = {
+    "commit_fast_deferred": "A8 (commit pipeline)",
+    "commit_group_fast": "A8 (commit pipeline)",
+    "warmup": "A8 (commit pipeline)",
+    "get_account_transfers": "A10 (queries)",
+    "get_account_history": "A5 (history) and A10 (queries)",
+    "scan_transfers": "A10 (queries)",
+    "scan_accounts": "A10 (queries)",
+    "query_transfers_where": "A10 (queries)",
+    "query_accounts_where": "A10 (queries)",
+    "evict_cold": "A10 (tiering)",
+    "scrub_check": "A9 (scrub)",
+    "scrub_arm": "A9 (scrub)",
+    "merkle_roots": "A9 (Merkle commitments)",
+    "commitment_root": "A9 (Merkle commitments)",
+    "get_proof": "A9 (Merkle commitments)",
+    "reshard_begin": "A11 (sharding)",
+    "host_state": "A6 (persistence)",
+    "restore_host_state": "A6 (persistence)",
+    "checkpoint_ledger": "A6 (persistence)",
+}
+
+
+class TorchStateMachine:
+    def __init__(
+        self,
+        ledger_config: Optional[LedgerConfig] = None,
+        batch_lanes: int = 8192,
+        device=None,
+        *,
+        force_sequential: bool = False,
+        shards: Optional[int] = None,
+        spill_dir: Optional[str] = None,
+        hot_transfers_capacity_max: Optional[int] = None,
+        host_engine: bool = False,
+    ) -> None:
+        if force_sequential:
+            raise NotImplementedError(
+                "force_sequential runs every batch through ops/scan_path, "
+                "not ported yet (ROADMAP A4)"
+            )
+        if shards:
+            raise NotImplementedError("sharding is not ported yet (ROADMAP A11)")
+        if spill_dir is not None or hot_transfers_capacity_max is not None:
+            raise NotImplementedError("tiering is not ported yet (ROADMAP A10)")
+        if host_engine:
+            raise NotImplementedError(
+                "the host engine is not ported yet (ROADMAP A6)"
+            )
+        cfg = ledger_config or LedgerConfig()
+        self.config = cfg
+        self.batch_lanes = batch_lanes
+        self.device = resolve_device(device)
+        self.ledger = sm.make_ledger(
+            cfg.accounts_capacity, cfg.transfers_capacity,
+            cfg.posted_capacity, cfg.history_capacity, device=self.device,
+        )
+        self.prepare_timestamp = 0
+        self.commit_timestamp = 0
+        # Host-side upper bounds on live rows (growth without device syncs).
+        self._accounts_bound = 0
+        self._transfers_bound = 0
+        # Fast-path preconditions P1/P3 (ops/state_machine.py).
+        self._history_accounts_possible = False
+        self._limit_accounts_possible = False
+        self._balance_bound = 0
+
+    def _d2h_codes(self, codes: torch.Tensor, overflow: torch.Tensor):
+        """The one blocking device-to-host read of a commit: the result codes
+        and the table's probe_overflow flag in a single copy."""
+        out = torch.cat([codes, overflow.reshape(1).to(torch.int32)]).cpu()
+        host = out.numpy().view(np.uint32)
+        return host[:-1], bool(host[-1])
+
+    def prepare(self, operation: str, count: int, wall_clock_ns: int = 0) -> int:
+        if wall_clock_ns > self.prepare_timestamp:
+            self.prepare_timestamp = wall_clock_ns
+        if operation in ("create_accounts", "create_transfers"):
+            self.prepare_timestamp += count
+        return self.prepare_timestamp
+
+    # -- batch plumbing ------------------------------------------------------
+
+    def _pad_soa(self, batch: np.ndarray) -> dict:
+        n = len(batch)
+        if n > self.batch_lanes:
+            raise ValueError(f"batch of {n} exceeds {self.batch_lanes} lanes")
+        padded = np.zeros(self.batch_lanes, dtype=batch.dtype)
+        padded[:n] = batch
+        return convert.soa_to_tensors(types.to_soa(padded), self.device)
+
+    @staticmethod
+    def _compress(codes: np.ndarray, count: int) -> List[Tuple[int, int]]:
+        codes = codes[:count]
+        idx = np.flatnonzero(codes)
+        return list(zip(idx.tolist(), codes[idx].tolist()))
+
+    @staticmethod
+    def _has_intra_batch_dup_ids(batch: np.ndarray) -> bool:
+        # id 0 lanes can never insert (id_must_not_be_zero), so repeats of 0
+        # are not order-dependent duplicates.
+        nonzero = (batch["id_lo"] != 0) | (batch["id_hi"] != 0)
+        ids = np.stack([batch["id_hi"][nonzero], batch["id_lo"][nonzero]], axis=1)
+        return len(np.unique(ids, axis=0)) < len(ids)
+
+    def commit_batch(
+        self, operation: str, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
+        """Commit a batch whose prepare timestamp was already assigned (the
+        replica's StateMachine.commit() seam)."""
+        if operation not in ("create_accounts", "create_transfers"):
+            raise ValueError(f"unknown commit operation {operation}")
+        if timestamp > self.prepare_timestamp:
+            self.prepare_timestamp = timestamp
+        if operation == "create_accounts":
+            return self._commit_create_accounts(batch, timestamp)
+        return self._commit_create_transfers(batch, timestamp)
+
+    # -- create_accounts -----------------------------------------------------
+
+    def create_accounts(
+        self, batch: np.ndarray, wall_clock_ns: int = 0
+    ) -> List[Tuple[int, int]]:
+        timestamp = self.prepare("create_accounts", len(batch), wall_clock_ns)
+        return self._commit_create_accounts(batch, timestamp)
+
+    def _commit_create_accounts(
+        self, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
+        count = len(batch)
+        if count == 0:
+            return []
+        any_linked = bool((batch["flags"] & types.AccountFlags.LINKED).any())
+        if any_linked and self._has_intra_batch_dup_ids(batch):
+            raise NotImplementedError(
+                "linked create_accounts with intra-batch duplicate ids need "
+                "the sequential path, not ported yet (ROADMAP A4)"
+            )
+        self._grow_if_needed(accounts=count)
+        if bool((batch["flags"] & types.AccountFlags.HISTORY).any()):
+            self._history_accounts_possible = True
+        if bool((batch["flags"] & _LIMIT_FLAGS).any()):
+            self._limit_accounts_possible = True
+        soa = self._pad_soa(batch)
+        self.ledger, codes = sm.create_accounts(self.ledger, soa, count, timestamp)
+        codes, overflow = self._d2h_codes(codes, self.ledger.accounts.probe_overflow)
+        self._accounts_bound += count
+        if overflow:
+            # Load-factor management keeps this unreachable; losing inserts
+            # silently is the one unacceptable outcome, so fail loud.
+            raise RuntimeError("accounts probe overflow during insert")
+        results = self._compress(codes, count)
+        self._update_commit_timestamp(codes, count, timestamp)
+        return results
+
+    # -- create_transfers ----------------------------------------------------
+
+    def create_transfers(
+        self, batch: np.ndarray, wall_clock_ns: int = 0
+    ) -> List[Tuple[int, int]]:
+        timestamp = self.prepare("create_transfers", len(batch), wall_clock_ns)
+        return self._commit_create_transfers(batch, timestamp)
+
+    def _commit_create_transfers(
+        self, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
+        count = len(batch)
+        if count == 0:
+            return []
+        self._note_balance_bound(batch)
+        if not self._fast_path_ok(batch):
+            raise NotImplementedError(
+                "this create_transfers batch needs the general transfer "
+                "kernel (two-phase post/void, balancing, linked chains, u128 "
+                "amounts, or limit/history accounts), not ported yet "
+                "(ROADMAP A5)"
+            )
+        return self._commit_fast(batch, timestamp, count)
+
+    def _note_balance_bound(self, batch: np.ndarray) -> None:
+        """Over-approximate the largest possible single balance field after
+        this batch (fast-path precondition P3)."""
+        if self._balance_bound >= _BOUND_CLAMP or len(batch) == 0:
+            return
+        mx = (int(batch["amount_hi"].max()) << 64) | int(batch["amount_lo"].max())
+        n_bal = int((
+            (batch["flags"]
+             & (types.TransferFlags.BALANCING_DEBIT
+                | types.TransferFlags.BALANCING_CREDIT)) != 0
+        ).sum())
+        self._balance_bound += len(batch) * mx + n_bal * ((1 << 64) - 1)
+        if self._balance_bound > _BOUND_CLAMP:
+            self._balance_bound = _BOUND_CLAMP
+
+    def _fast_path_ok(self, batch: np.ndarray) -> bool:
+        """Preconditions P1-P4 of ops/state_machine.py, checked host-side."""
+        if (
+            self._history_accounts_possible
+            or self._limit_accounts_possible
+            or self._balance_bound >= (1 << 126)
+        ):
+            return False
+        if bool((batch["flags"] & _SLOW_TRANSFER_FLAGS).any()):
+            return False
+        if bool(batch["amount_hi"].any()):
+            return False
+        return True
+
+    def _commit_fast(
+        self, batch: np.ndarray, timestamp: int, count: int
+    ) -> List[Tuple[int, int]]:
+        self._grow_if_needed(transfers=count)
+        soa = self._pad_soa(batch)
+        self.ledger, codes = sm.create_transfers_fast(
+            self.ledger, soa, count, timestamp
+        )
+        codes, overflow = self._d2h_codes(
+            codes, self.ledger.transfers.probe_overflow
+        )
+        self._transfers_bound += count
+        if overflow:
+            raise RuntimeError("transfers probe overflow during fast insert")
+        results = self._compress(codes, count)
+        self._update_commit_timestamp(codes, count, timestamp)
+        return results
+
+    # -- growth ----------------------------------------------------------------
+
+    @staticmethod
+    def _target_capacity(capacity: int, needed_rows: int) -> int:
+        """Smallest power-of-two capacity keeping load factor <= 0.5."""
+        while needed_rows * 2 > capacity:
+            capacity *= 2
+        return capacity
+
+    def _grow_if_needed(self, accounts: int = 0, transfers: int = 0) -> None:
+        """Keep the accounts and transfers tables' load factor under 0.5
+        using host-side row bounds (no device sync; bounds only overestimate).
+        Each growth is one rehash through kernel K2."""
+        led = self.ledger
+        cap = self._target_capacity(
+            led.accounts.capacity, self._accounts_bound + accounts
+        )
+        if cap != led.accounts.capacity:
+            led.accounts = ht.grow(led.accounts, cap)
+        cap = self._target_capacity(
+            led.transfers.capacity, self._transfers_bound + transfers
+        )
+        if cap != led.transfers.capacity:
+            led.transfers = ht.grow(led.transfers, cap)
+
+    def _update_commit_timestamp(
+        self, codes: np.ndarray, count: int, timestamp: int
+    ) -> None:
+        ok_lanes = np.nonzero(codes[:count] == 0)[0]
+        if len(ok_lanes):
+            self.commit_timestamp = timestamp - count + int(ok_lanes[-1]) + 1
+
+    # -- lookups -------------------------------------------------------------
+
+    def _ids(self, ids: List[int]):
+        lo = torch.tensor([i64(i & U64_MAX) for i in ids], dtype=torch.int64)
+        hi = torch.tensor([i64(i >> 64) for i in ids], dtype=torch.int64)
+        return lo.to(self.device), hi.to(self.device)
+
+    def lookup_accounts(self, ids: List[int]) -> np.ndarray:
+        """Found accounts as an ACCOUNT_DTYPE array (misses omitted)."""
+        if not ids:
+            return np.zeros(0, dtype=types.ACCOUNT_DTYPE)
+        found, cols = sm.lookup_accounts(self.ledger, *self._ids(ids))
+        host = {k: convert.tensor_to_array(v) for k, v in cols.items()}
+        host["reserved"] = np.zeros(len(ids), np.uint32)
+        rows = types.from_soa(host, types.ACCOUNT_DTYPE)
+        return rows[convert.tensor_to_array(found)]
+
+    def lookup_transfers(self, ids: List[int]) -> np.ndarray:
+        """Found transfers as a TRANSFER_DTYPE array (misses omitted)."""
+        if not ids:
+            return np.zeros(0, dtype=types.TRANSFER_DTYPE)
+        found, cols = sm.lookup_transfers(self.ledger, *self._ids(ids))
+        host = {k: convert.tensor_to_array(v) for k, v in cols.items()}
+        rows = types.from_soa(host, types.TRANSFER_DTYPE)
+        return rows[convert.tensor_to_array(found)]
+
+    # -- parity surface ------------------------------------------------------
+
+    def balances_snapshot(self) -> List[Tuple[int, int, int, int, int, int]]:
+        """(id, dp, dpo, cp, cpo, ts) sorted by id — comparable with
+        ReferenceStateMachine.balances_snapshot()."""
+        a = self.ledger.accounts
+        key_lo = convert.tensor_to_array(a.key_lo)
+        key_hi = convert.tensor_to_array(a.key_hi)
+        live = (key_lo != 0) | (key_hi != 0)
+        cols = {k: convert.tensor_to_array(v)[live] for k, v in a.cols.items()}
+        ids = (key_hi[live].astype(object) << 64) | key_lo[live].astype(object)
+
+        def u128_col(name):
+            return (cols[name + "_hi"].astype(object) << 64) | cols[
+                name + "_lo"
+            ].astype(object)
+
+        out = zip(
+            ids,
+            u128_col("debits_pending"),
+            u128_col("debits_posted"),
+            u128_col("credits_pending"),
+            u128_col("credits_posted"),
+            (int(t) for t in cols["timestamp"]),
+        )
+        return sorted(
+            (int(a_), int(b), int(c), int(d), int(e), int(f))
+            for a_, b, c, d, e, f in out
+        )
+
+    def digest(self) -> int:
+        return u64(sm.ledger_digest(self.ledger).item())
+
+
+def _unported(name: str, where: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"TorchStateMachine.{name} is not ported yet (ROADMAP {where})"
+        )
+
+    method.__name__ = name
+    return method
+
+
+for _name, _where in _UNPORTED.items():
+    setattr(TorchStateMachine, _name, _unported(_name, _where))

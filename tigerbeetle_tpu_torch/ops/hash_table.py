@@ -1,0 +1,318 @@
+"""Device-resident open-addressing SoA hash table (port of
+``tigerbeetle_tpu/ops/hash_table.py``).
+
+The layout and placement are the JAX package's, slot for slot, because
+Merkle leaves, checkpoints and state sync depend on them:
+
+- capacity is a power of two; home = (mix64(key) >> hash_shift) & (C-1);
+- an empty slot has key 0; a tombstone keeps ``tombstone=True`` with key 0;
+  probes continue past tombstones and inserts never reuse them;
+- a batched insert runs in rounds: in round t every unplaced lane probes
+  home+t, a lane contends only for a slot free at the start of the round,
+  the lowest batch lane wins a contested slot (contenders always share a
+  home), losers advance, and the batch stops once a lane's offset reaches
+  ``max_probe``.
+
+Tensors: keys are int64 holding u64 bits, ``tombstone`` is bool, u64 columns
+are int64 and u32 columns int32 holding the bits, ``count`` a 0-dim int64 and
+``probe_overflow`` a 0-dim bool, all on one device.  Where the JAX package
+returned a new table from donated buffers, this module updates the table's
+tensors in place and returns the same ``Table``.
+
+``lookup`` (kernel K1) and ``insert`` (kernel K2) take the hand-written CUDA
+kernels for CUDA tensors and their plain PyTorch versions, beside them here,
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..u128 import mix64, srl
+from . import _cuda
+
+
+@dataclasses.dataclass
+class Table:
+    """SoA open-addressing table. ``cols`` holds the value columns."""
+
+    key_lo: torch.Tensor  # int64[C] (u64 bits); 0 = empty/tombstone
+    key_hi: torch.Tensor  # int64[C]
+    tombstone: torch.Tensor  # bool[C]
+    cols: Dict[str, torch.Tensor]
+    count: torch.Tensor  # int64 0-dim: live entries
+    probe_overflow: torch.Tensor  # bool 0-dim: a probe exceeded max_probe
+
+    @property
+    def capacity(self) -> int:
+        return self.key_lo.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.key_lo.device
+
+
+def make_table(
+    capacity: int, col_specs: Dict[str, torch.dtype], device
+) -> Table:
+    if capacity <= 0 or capacity & (capacity - 1):
+        raise ValueError(f"capacity must be a power of two, got {capacity}")
+    return Table(
+        key_lo=torch.zeros(capacity, dtype=torch.int64, device=device),
+        key_hi=torch.zeros(capacity, dtype=torch.int64, device=device),
+        tombstone=torch.zeros(capacity, dtype=torch.bool, device=device),
+        cols={
+            name: torch.zeros(capacity, dtype=dt, device=device)
+            for name, dt in col_specs.items()
+        },
+        count=torch.zeros((), dtype=torch.int64, device=device),
+        probe_overflow=torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+class LookupResult(NamedTuple):
+    found: torch.Tensor  # bool[N], masked to lanes < count
+    slot: torch.Tensor  # int64[N]: the matching slot, 0 where not found
+    overflow: torch.Tensor  # bool 0-dim: some lane exhausted max_probe
+    cols: Dict[str, torch.Tensor]  # gathered columns, zero where not found
+
+
+def _home(key_lo, key_hi, capacity: int, hash_shift: int) -> torch.Tensor:
+    return srl(mix64(key_lo, key_hi), hash_shift) & (capacity - 1)
+
+
+def lookup(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    max_probe: int,
+    hash_shift: int = 0,
+    count: Optional[int] = None,
+    cols: Sequence[str] = (),
+) -> LookupResult:
+    """Batched linear probe for each key, fused with the column gather
+    (``ops/hash_table.py`` ``lookup`` + ``gather_cols``).
+
+    ``found`` is masked to lanes below ``count`` (all lanes when None), as
+    the commit kernels mask it with ``valid``; ``cols`` names the columns
+    to gather at the found slots.  Kernel K1 on CUDA tensors."""
+    n = key_lo.shape[0]
+    count = n if count is None else count
+    if key_lo.is_cuda:
+        found, slot, overflow, gathered = _cuda.probe(
+            table.key_lo, table.key_hi, table.tombstone, table.cols,
+            key_lo, key_hi, max_probe, hash_shift, count, tuple(cols),
+        )
+        return LookupResult(found, slot, overflow, gathered)
+    return lookup_plain(table, key_lo, key_hi, max_probe, hash_shift,
+                        count, cols)
+
+
+def lookup_plain(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    max_probe: int,
+    hash_shift: int,
+    count: int,
+    cols: Sequence[str],
+) -> LookupResult:
+    """Plain PyTorch version of kernel K1 (the JAX ``while_loop``, lane-
+    parallel, run until every lane is done or ``max_probe`` steps)."""
+    capacity = table.capacity
+    mask = capacity - 1
+    home = _home(key_lo, key_hi, capacity, hash_shift)
+    done = (key_lo == 0) & (key_hi == 0)
+    found = torch.zeros_like(done)
+    slot = torch.zeros_like(home)
+    for i in range(max_probe):
+        if bool(done.all()):
+            break
+        cur = (home + i) & mask
+        t_lo = table.key_lo[cur]
+        t_hi = table.key_hi[cur]
+        tomb = table.tombstone[cur]
+        match = ~done & (t_lo == key_lo) & (t_hi == key_hi) & ~tomb
+        empty = ~done & (t_lo == 0) & (t_hi == 0) & ~tomb
+        found = found | match
+        slot = torch.where(match, cur, slot)
+        done = done | match | empty
+    lane = torch.arange(key_lo.shape[0], device=key_lo.device)
+    found = found & (lane < count)
+    return LookupResult(
+        found=found,
+        slot=slot,
+        overflow=(~done).any(),
+        cols=gather_cols(table, slot, found, cols),
+    )
+
+
+def gather_cols(
+    table: Table, slot: torch.Tensor, valid: torch.Tensor,
+    names: Optional[Sequence[str]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Gather value columns at ``slot``, zeroed where ``valid`` is False."""
+    safe = torch.where(valid, slot, torch.zeros_like(slot))
+    names = table.cols.keys() if names is None else names
+    return {
+        name: torch.where(
+            valid, table.cols[name][safe], torch.zeros((), dtype=table.cols[name].dtype,
+                                                       device=slot.device)
+        )
+        for name in names
+    }
+
+
+def scatter_cols(
+    table: Table, slot: torch.Tensor, valid: torch.Tensor,
+    updates: Dict[str, torch.Tensor],
+) -> Table:
+    """Scatter updated columns at ``slot`` where ``valid``, in place.  Slots
+    must be unique among valid lanes."""
+    idx = slot[valid]
+    for name, val in updates.items():
+        table.cols[name][idx] = val[valid]
+    return table
+
+
+def claim_slots(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    insert_mask: torch.Tensor,
+    max_probe: int,
+    hash_shift: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch claim protocol: the insert slot of every masked key,
+    without writing.  Returns (claimed int64[N] with C where unplaced,
+    overflow bool 0-dim).
+
+    The winner of a round is the group's next lane in batch order: all
+    unplaced lanes advance together, so lanes probing one slot share a home,
+    and one stable sort gives each lane its rank within its home group
+    (the JAX package's group-rank form, without its windowing, which only
+    saves work)."""
+    capacity = table.capacity
+    dev = key_lo.device
+    n = key_lo.shape[0]
+    mask = capacity - 1
+    home = _home(key_lo, key_hi, capacity, hash_shift)
+    gkey = torch.where(insert_mask, home, torch.full_like(home, capacity))
+    s_home, order = torch.sort(gkey, stable=True)
+    pos = torch.arange(n, device=dev)
+    s_head = torch.ones(n, dtype=torch.bool, device=dev)
+    s_head[1:] = s_home[1:] != s_home[:-1]
+    gid_sorted = torch.cumsum(s_head.to(torch.int64), 0) - 1
+    gstart = torch.cummax(torch.where(s_head, pos, torch.zeros_like(pos)), 0).values
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[order] = pos - gstart
+    gid = torch.empty(n, dtype=torch.int64, device=dev)
+    gid[order] = gid_sorted
+
+    occ = (table.key_lo != 0) | (table.key_hi != 0) | table.tombstone
+    claimed = torch.full((n,), capacity, dtype=torch.int64, device=dev)
+    unplaced = insert_mask.clone()
+    next_rank = torch.zeros(n, dtype=torch.int64, device=dev)
+    overflow = False
+    t = 0
+    while bool(unplaced.any()):
+        if t >= max_probe:
+            overflow = True
+            break
+        cur = (home + t) & mask
+        win = unplaced & ~occ[cur] & (rank == next_rank[gid])
+        claimed = torch.where(win, cur, claimed)
+        occ[cur[win]] = True
+        next_rank.index_add_(0, gid[win], torch.ones_like(gid[win]))
+        unplaced = unplaced & ~win
+        t += 1
+    return claimed, torch.tensor(overflow, device=dev)
+
+
+def write_rows(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    claimed: torch.Tensor,
+    write_mask: torch.Tensor,
+    rows: Dict[str, torch.Tensor],
+) -> Table:
+    """Write keys and value columns at the slots from ``claim_slots``
+    (unique by construction), in place."""
+    w = write_mask & (claimed < table.capacity)
+    idx = claimed[w]
+    table.key_lo[idx] = key_lo[w]
+    table.key_hi[idx] = key_hi[w]
+    table.tombstone[idx] = False
+    for name in table.cols:
+        table.cols[name][idx] = rows[name][w]
+    table.count += w.sum()
+    return table
+
+
+def insert(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    insert_mask: torch.Tensor,
+    rows: Dict[str, torch.Tensor],
+    max_probe: int,
+    hash_shift: int = 0,
+) -> Tuple[Table, torch.Tensor]:
+    """Batched insert of new, distinct, nonzero keys where ``insert_mask``
+    is set, in place; the probe overflow is recorded on the table.  Returns
+    (table, claimed slots).  Kernel K2 on CUDA tensors."""
+    if key_lo.is_cuda:
+        claimed = _cuda.insert(
+            table.key_lo, table.key_hi, table.tombstone, table.cols,
+            table.count, table.probe_overflow, key_lo, key_hi, insert_mask,
+            rows, max_probe, hash_shift,
+        )
+        return table, claimed
+    return insert_plain(table, key_lo, key_hi, insert_mask, rows, max_probe,
+                        hash_shift)
+
+
+def insert_plain(table, key_lo, key_hi, insert_mask, rows, max_probe,
+                 hash_shift=0):
+    """Plain PyTorch version of kernel K2: claim_slots + write_rows."""
+    claimed, overflow = claim_slots(
+        table, key_lo, key_hi, insert_mask, max_probe, hash_shift
+    )
+    write_rows(table, key_lo, key_hi, claimed, insert_mask, rows)
+    table.probe_overflow |= overflow
+    return table, claimed
+
+
+def grow(table: Table, new_capacity: int, hash_shift: int = 0) -> Table:
+    """Rehash every live entry into a new table of ``new_capacity`` slots:
+    one batched insert with every old slot as a lane (tombstones dropped).
+    The old table's tensors are left as they were."""
+    if new_capacity & (new_capacity - 1) or new_capacity < table.capacity:
+        raise ValueError(f"bad new capacity {new_capacity}")
+    live = (table.key_lo != 0) | (table.key_hi != 0)
+    fresh = make_table(
+        new_capacity, {k: v.dtype for k, v in table.cols.items()}, table.device
+    )
+    grown, _ = insert(
+        fresh, table.key_lo, table.key_hi, live, table.cols,
+        max_probe=new_capacity, hash_shift=hash_shift,
+    )
+    return grown
+
+
+def remove_to_tombstone(
+    table: Table, slot: torch.Tensor, valid: torch.Tensor
+) -> Table:
+    """Clear keys at ``slot`` (rollback of inserts), leaving tombstones, in
+    place.  Plain PyTorch only: linked-chain rollback is off this slice's
+    path (ROADMAP A4)."""
+    idx = slot[valid]
+    table.key_lo[idx] = 0
+    table.key_hi[idx] = 0
+    table.tombstone[idx] = True
+    table.count -= valid.sum()
+    return table

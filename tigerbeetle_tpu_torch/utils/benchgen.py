@@ -1,0 +1,46 @@
+"""Host (numpy) generator of the flagship benchmark's plain-transfer batches.
+
+Copies of ``bench.py``'s ``mix64_np`` and ``gen_batch_np``, bit for bit: the
+same batch index gives the same transfers in both packages.  The batches are
+made on the host because numpy's uint64 ``%`` is exact; torch's int64 ``%``
+is signed and wrong above 2**63.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import types
+
+
+def mix64_np(lo: np.ndarray, hi: int) -> np.ndarray:
+    """Pure-numpy twin of u128.mix64 (identical bits)."""
+    with np.errstate(over="ignore"):
+        x = lo.astype(np.uint64) ^ (
+            np.uint64(hi) * np.uint64(0x9E3779B97F4A7C15)
+        )
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def gen_batch_np(b: int, lanes: int, count: int, n_accounts: int, first_tid: int):
+    """Batch ``b`` of the flagship workload: ``count`` plain transfers between
+    accounts 1..n_accounts (never to the same account), ids from
+    ``first_tid + b * count``, amounts 1..65536, ledger 1, code 10."""
+    gid = np.arange(lanes, dtype=np.uint64) + np.uint64(b * count)
+    h1 = mix64_np(gid, 0x1234)
+    h2 = mix64_np(gid, 0x9876)
+    dr = h1 % np.uint64(n_accounts)
+    off = np.uint64(1) + h2 % np.uint64(n_accounts - 1)
+    cr = (dr + off) % np.uint64(n_accounts)
+    amount = np.uint64(1) + ((h1 >> np.uint64(32)) & np.uint64(0xFFFF))
+
+    batch = np.zeros(lanes, dtype=types.TRANSFER_DTYPE)
+    batch["id_lo"] = first_tid + gid
+    batch["debit_account_id_lo"] = dr + 1
+    batch["credit_account_id_lo"] = cr + 1
+    batch["amount_lo"] = amount
+    batch["ledger"] = 1
+    batch["code"] = 10
+    return batch[:count]
