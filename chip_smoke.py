@@ -14,8 +14,25 @@ Phases, each printing one JSON line:
   5. main     - the main path at full size: 10,000 accounts, then 10,000,000
                 plain transfers in 8,190-event batches (the flagship
                 bench.py defaults), balances against a closed form, and the
-                digest against its plain version.  Kernel launch counts are
-                read from this phase only.
+                digest against its plain version.  K1-K5's launch counts are
+                read from this phase;
+  6. seq_kernels - K6 seq_transfers, K7 seq_accounts and K8 tombstone
+                against their plain versions on the same inputs, byte for
+                byte: tables that hold rows, same-home clusters and
+                tombstones (made on the card through K2 and K8, whose
+                launches there are K8's count), batches of 2,048 lanes of
+                the testing/seqmix.py event mix; then K7 and K6 at the
+                sequential path's shapes (8,190 accounts, two-phase
+                batches), where they are timed and bounded.  The plain K6/K7
+                run on CPU copies (a Python loop over the events); plain K8
+                on the card;
+  7. seq_parity - a force_sequential TorchStateMachine on the card against
+                the scalar oracle at full width (8,190 events per batch);
+  8. sequential - this slice's path at full width: a force_sequential
+                machine, 10,000 accounts, then bench.py's --two-phase shape
+                (4,095 pendings and 4,095 posts of them per batch) for
+                ``--seq-transfers`` transfers (10,000,000, as bench.py);
+                K6/K7's launch counts are read from this phase.
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
@@ -798,12 +815,535 @@ def phase_main(dev, n_transfers: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: K6, K7 and K8 against their plain versions
+# ---------------------------------------------------------------------------
+
+SEQ_LANES = 2048
+SEQ_ACCOUNTS = 400  # accounts the transfer mix draws from
+MAIN_PATH = ("probe", "insert", "validate", "balance", "digest")
+SEQ_PATH = ("probe", "insert", "digest", "seq_transfers", "seq_accounts")
+
+
+class PlainTrace:
+    """While active, records what the plain sequential path reads and writes
+    (its distinct elements: the bytes a kernel must move at least) and the
+    dependent-read chain of its events (probe steps and row gathers)."""
+
+    def __enter__(self):
+        from tigerbeetle_tpu_torch.ops import scan_path as tsp
+
+        self.tsp = tsp
+        self.read, self.written = set(), set()
+        self.steps = self.gathers = 0
+        self._orig = (tsp._get, tsp._put, tsp._slookup, tsp._gather_row)
+        get, put, slookup, gather = self._orig
+
+        def traced_get(col, i):
+            self.read.add((col.data_ptr(), int(i), col.element_size()))
+            return get(col, i)
+
+        def traced_put(col, i, v):
+            self.written.add((col.data_ptr(), int(i), col.element_size()))
+            put(col, i, v)
+
+        def traced_slookup(table, lo, hi):
+            self.steps += self._probe_len(table, lo, hi, get)
+            return slookup(table, lo, hi)
+
+        def traced_gather(table, slot, valid):
+            self.gathers += bool(valid)
+            return gather(table, slot, valid)
+
+        tsp._get, tsp._put = traced_get, traced_put
+        tsp._slookup, tsp._gather_row = traced_slookup, traced_gather
+        return self
+
+    def _probe_len(self, table, lo, hi, get) -> int:
+        if lo == 0 and hi == 0:
+            return 0
+        mask = table.capacity - 1
+        home = self.tsp._mix64(lo, hi) & mask
+        for i in range(self.tsp.MAX_PROBE):
+            cur = (home + i) & mask
+            if get(table.tombstone, cur):
+                continue
+            key = (get(table.key_lo, cur), get(table.key_hi, cur))
+            if key in ((lo, hi), (0, 0)):
+                return i + 1
+        return self.tsp.MAX_PROBE
+
+    def __exit__(self, *exc):
+        tsp = self.tsp
+        tsp._get, tsp._put, tsp._slookup, tsp._gather_row = self._orig
+
+    def table_bytes(self) -> int:
+        return sum(w for _p, _i, w in self.read | self.written)
+
+
+def clone_ledger(led, device=None):
+    from tigerbeetle_tpu_torch import convert
+
+    return convert.ledger_from_numpy(convert.ledger_to_numpy(led),
+                                     device or led.device)
+
+
+def ledger_np(led) -> dict:
+    from tigerbeetle_tpu_torch import convert
+
+    out = {}
+    for name, d in convert.ledger_to_numpy(led).items():
+        for k, v in d.items():
+            if k == "cols":
+                out.update({f"{name}/{c}": a for c, a in v.items()})
+            else:
+                out[f"{name}/{k}"] = v
+    return out
+
+
+def seq_prepared_ledger(rng, dev):
+    """A ledger on the card whose transfers table holds 30 % random rows,
+    some of them pending transfers between the mix's accounts, plus 64
+    same-home clusters of 6 and 256 tombstones (K2 inserts, K8 tombstones);
+    the posted table holds rows and tombstones keyed by some pendings'
+    timestamps; the history log holds 100 rows."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    led = sm.make_ledger(1 << 13, 1 << 15, 1 << 12, 1 << 13, device=dev)
+    xfr = led.transfers
+    cap = xfr.capacity
+    clusters = same_home_groups(rng, cap, 64, 6, 1 << 40)
+    ids = np.unique(np.concatenate([
+        rng.integers(1 << 41, 1 << 50, size=int(cap * 0.3), dtype=np.uint64),
+        clusters]))
+    rng.shuffle(ids)
+    n = len(ids)
+    rows = {}
+    for k, dt in sm.TRANSFER_COLS.items():
+        rows[k] = (t64(rand_u64(rng, n, 1 << 20), dev) if dt == torch.int64
+                   else t32(rng.integers(0, 3, n), dev))
+    pend = rng.random(n) < 0.5
+    rows["flags"] = t32(np.where(pend, 2, 0), dev)
+    rows["debit_account_id_lo"] = t64(rng.integers(1, SEQ_ACCOUNTS + 1, n)
+                                      .astype(np.uint64), dev)
+    rows["credit_account_id_lo"] = t64(
+        (to_np(rows["debit_account_id_lo"]) % np.uint64(SEQ_ACCOUNTS))
+        + np.uint64(1), dev)
+    for k in ("debit_account_id_hi", "credit_account_id_hi", "amount_hi",
+              "pending_id_lo", "pending_id_hi"):
+        rows[k] = torch.zeros(n, dtype=torch.int64, device=dev)
+    rows["ledger"] = t32(np.ones(n), dev)
+    rows["code"] = t32(np.full(n, 10), dev)
+    rows["timeout"] = t32(np.where(pend, rng.integers(0, 3, n), 0), dev)
+    rows["timestamp"] = t64(np.arange(1, n + 1, dtype=np.uint64) * 1000, dev)
+    ht.insert(xfr, t64(ids, dev), torch.zeros(n, dtype=torch.int64, device=dev),
+              torch.ones(n, dtype=torch.bool, device=dev), rows, cap)
+    live = np.flatnonzero(to_np(xfr.key_lo) != 0)
+    gone = torch.from_numpy(rng.choice(live, 256, replace=False)).to(dev)
+    ht.remove_to_tombstone(xfr, gone, torch.ones(256, dtype=torch.bool,
+                                                 device=dev))
+    # Posted rows for a fifth of the pendings (already posted or voided).
+    pts = to_np(rows["timestamp"])[pend][: n // 10]
+    ppos = led.posted
+    m = len(pts)
+    ht.insert(ppos, t64(pts, dev), torch.zeros(m, dtype=torch.int64, device=dev),
+              torch.ones(m, dtype=torch.bool, device=dev),
+              {"fulfillment": t32(rng.integers(1, 3, m), dev)}, ppos.capacity)
+    plive = np.flatnonzero(to_np(ppos.key_lo) != 0)
+    pgone = torch.from_numpy(rng.choice(plive, 32, replace=False)).to(dev)
+    ht.remove_to_tombstone(ppos, pgone, torch.ones(32, dtype=torch.bool,
+                                                   device=dev))
+    for c in led.history.cols.values():
+        c[:100] = t64(rand_u64(rng, 100, 1 << 40), dev)
+    led.history.count.fill_(100)
+    return led, [int(i) for i in ids[pend][:2000]]
+
+
+class SeqPair:
+    """One ledger on the card and its copy on the CPU: each batch goes
+    through the kernel on the card and the plain version on the copy, and
+    the two are compared array by array (codes, overflow flag, every table
+    and the history log)."""
+
+    def __init__(self, gpu, lanes: int):
+        self.gpu = gpu
+        self.cpu = clone_ledger(gpu, "cpu")
+        self.lanes = lanes
+        self.codes_seen = set()
+
+    def soa(self, batch, device):
+        from tigerbeetle_tpu_torch import convert, types
+
+        padded = np.zeros(self.lanes, dtype=batch.dtype)
+        padded[: len(batch)] = batch
+        return convert.soa_to_tensors(types.to_soa(padded), device)
+
+    def run(self, op: str, batch, ts: int) -> dict:
+        from tigerbeetle_tpu_torch.ops import scan_path as tsp
+
+        before = clone_ledger(self.gpu)
+        sg, sc = self.soa(batch, self.gpu.device), self.soa(batch, "cpu")
+        _, kc, kov = getattr(tsp, op)(self.gpu, sg, len(batch), ts)
+        with PlainTrace() as trace:
+            t0 = time.perf_counter()
+            self.cpu, pc, pov = getattr(tsp, op + "_plain")(
+                self.cpu, sc, len(batch), ts)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(f"{op} at ts {ts}",
+                          {"codes": to_np(kc), "overflow": to_np(kov),
+                           **ledger_np(self.gpu)},
+                          {"codes": to_np(pc), "overflow": to_np(pov),
+                           **ledger_np(self.cpu)})
+        self.codes_seen.update(to_np(kc)[: len(batch)].tolist())
+        in_bytes = sum(c.numel() * c.element_size() for c in sc.values())
+        return {
+            "op": op, "ts": ts, "plain_ms": plain_ms, "err": err, "soa": sg,
+            "count": len(batch), "before": before,
+            # The batch and the codes, plus the distinct table elements the
+            # events read and write.
+            "bytes": in_bytes + 4 * self.lanes + trace.table_bytes(),
+            "chain_per_event": 1 + (trace.steps + trace.gathers) / len(batch),
+            "probe_steps": trace.steps, "row_gathers": trace.gathers,
+        }
+
+
+def seq_timing(r: dict, reps: int = 10) -> dict:
+    """Device time per call of the kernel on the batch of run ``r``, each
+    call from a copy of the ledger as it was before that batch."""
+    from tigerbeetle_tpu_torch.ops import scan_path as tsp
+
+    t = timed(lambda led: getattr(tsp, r["op"])(led, r["soa"], r["count"],
+                                                 r["ts"]),
+              reps=reps, setup=lambda: (clone_ledger(r["before"]),))
+    return {"ms": t["device_ms"], "call_ms": t["call_ms"],
+            "plain_ms": r["plain_ms"], "bound": bound(r["bytes"], 0),
+            "chain_per_event": r["chain_per_event"],
+            "probe_steps": r["probe_steps"], "row_gathers": r["row_gathers"],
+            "events": r["count"]}
+
+
+def phase_seq_kernels(seed: int, dev) -> dict:
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.testing import seqmix
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
+
+    rng = np.random.default_rng(seed + 2)
+    _cuda.reset_counts()
+    gpu, prefilled_pending = seq_prepared_ledger(rng, dev)
+    torch.cuda.synchronize()
+    prep_launches = _cuda.counts()
+    mixed = SeqPair(gpu, SEQ_LANES)
+
+    # -- the mix: K7 on a fresh batch, then one with existing ids, chains
+    #    and repeats; K6 on four batches, the last at timestamps near 2**64 --
+    acc_runs = [mixed.run("create_accounts_seq",
+                          seqmix.accounts_batch(rng, 1, 2000), 10 ** 9),
+                mixed.run("create_accounts_seq",
+                          seqmix.accounts_batch(rng, 1800, 2040), 2 * 10 ** 9)]
+    mix = seqmix.TransferMix(rng, list(range(1, SEQ_ACCOUNTS + 1)), 1 << 52)
+    mix.pending.extend(prefilled_pending[:500])
+    tr_runs = []
+    for b in range(4):
+        ts = (1 << 64) - 10 ** 10 if b == 3 else (b + 3) * 10 ** 9
+        batch = mix.batch(SEQ_LANES - 2)
+        if b == 3:
+            batch[-1] = types.transfer(id=1 << 70, debit_account_id=1,
+                                       credit_account_id=7, amount=1,
+                                       ledger=1, code=10,
+                                       flags=int(types.TransferFlags.PENDING),
+                                       timeout=100)
+        tr_runs.append(mixed.run("create_transfers_seq", batch, ts))
+    for need in (0, 1, 25, 33, 35, 53, 54):
+        if need not in mixed.codes_seen:
+            raise AssertionError(f"seq_kernels: the mix produced no code {need}")
+
+    # -- the sequential path's shapes: 8,190 new accounts (K7), then two
+    #    batches of bench.py's two-phase shape (K6), on the default ledger
+    #    capacities --
+    path = SeqPair(sm.make_ledger(1 << 16, 1 << 18, 1 << 16, 1 << 16,
+                                  device=dev), LANES)
+    path_acc = path.run("create_accounts_seq", types.accounts_array(
+        [types.account(id=i, ledger=1, code=10) for i in range(1, COUNT + 1)]),
+        10 ** 9)
+    path_tr = [path.run("create_transfers_seq",
+                        gen_two_phase_np(b, LANES, COUNT, COUNT, 1 << 32),
+                        (b + 2) * 10 ** 9) for b in range(2)]
+    if path.codes_seen != {0}:
+        raise AssertionError(f"seq_kernels: path codes {path.codes_seen}")
+
+    results = {}
+    for name, runs, at_path in (("seq_accounts", acc_runs, path_acc),
+                                ("seq_transfers", tr_runs, path_tr[1])):
+        row = seq_timing(at_path)
+        results[name] = dict(
+            max_abs_err=max(x["err"] for x in runs + [at_path]),
+            ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
+            plain_where="cpu (Python loop over the events, host wall ms)",
+            library_ms=None, bound=row["bound"],
+            chain_per_event=row["chain_per_event"],
+            shape=f"{row['events']} events of the sequential path's shape",
+            mixed_2048=seq_timing(runs[1]),
+        )
+
+    # -- K8: random slots (some out of range, some repeated), some invalid --
+    xfr = gpu.transfers
+    cap = xfr.capacity
+    live = np.flatnonzero(to_np(xfr.key_lo) != 0)
+    slots = rng.choice(live, SEQ_LANES).astype(np.int64)
+    slots[rng.random(SEQ_LANES) < 0.02] = cap + 5
+    slot_t = torch.from_numpy(slots).to(dev)
+    valid = torch.from_numpy(rng.random(SEQ_LANES) < 0.8).to(dev)
+    tk, tp = clone_table(xfr), clone_table(xfr)
+    ht.remove_to_tombstone(tk, slot_t, valid)
+    ht.remove_to_tombstone_plain(tp, slot_t, valid)
+    err = max_abs_err("tombstone", table_np(tk), table_np(tp))
+    n_valid = int(valid.sum())
+    results["tombstone"] = dict(
+        max_abs_err=err,
+        **pair_times(
+            timed(lambda t: ht.remove_to_tombstone(t, slot_t, valid),
+                  setup=lambda: (clone_table(xfr),)),
+            timed(lambda t: ht.remove_to_tombstone_plain(t, slot_t, valid),
+                  setup=lambda: (clone_table(xfr),))),
+        plain_where="cuda",
+        library_ms=None,
+        # The valid flag of every lane; the slot of each valid lane and 17 B
+        # written at it; the count read and written.
+        bound=bound(SEQ_LANES + n_valid * (8 + 17) + 16, 4 * SEQ_LANES),
+        shape=f"{SEQ_LANES} lanes ({n_valid} valid) on a table of 2^15",
+    )
+    torch.cuda.synchronize()
+    return {"results": results, "prep_launches": prep_launches,
+            "codes_seen": sorted(mixed.codes_seen)}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the sequential machine against the scalar oracle at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_seq_parity(seed: int, dev) -> dict:
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.testing import model as M
+    from tigerbeetle_tpu_torch.testing import seqmix
+
+    rng = np.random.default_rng(seed + 3)
+    cfg = LedgerConfig(accounts_capacity_log2=14, transfers_capacity_log2=14,
+                       posted_capacity_log2=12, history_capacity_log2=12)
+    m = TorchStateMachine(cfg, batch_lanes=LANES, device=dev,
+                          force_sequential=True)
+    ref = M.ReferenceStateMachine()
+    wall = 10 ** 9
+    ab = seqmix.accounts_batch(rng, 1, COUNT)
+    got = m.create_accounts(ab, wall_clock_ns=wall)
+    if got != ref.create_accounts(M.accounts_from_batch(ab), wall):
+        raise AssertionError("seq_parity: accounts")
+    failed = len(got)
+    mix = seqmix.TransferMix(rng, list(ref.accounts)[:SEQ_ACCOUNTS], 1 << 40)
+    walls = [wall + 10 ** 9 * (b + 1) for b in range(3)] + [(1 << 64) - 10 ** 12]
+    codes = set()
+    for b, w in enumerate(walls):
+        tb = mix.batch(COUNT)
+        got = m.create_transfers(tb, wall_clock_ns=w)
+        if got != ref.create_transfers(M.transfers_from_batch(tb), w):
+            raise AssertionError(f"seq_parity: transfers batch {b}")
+        failed += len(got)
+        codes.update(c for _, c in got)
+    if m.balances_snapshot() != ref.balances_snapshot():
+        raise AssertionError("seq_parity: balances")
+    ids = sorted(set(mix.used))
+    rows = m.lookup_transfers(ids)
+    if [M.transfer_from_row(r) for r in rows] != ref.lookup_transfers(ids):
+        raise AssertionError("seq_parity: lookup_transfers")
+    if int(m.ledger.history.count.item()) != len(ref.history):
+        raise AssertionError("seq_parity: history count")
+    return {"batches": 1 + len(walls), "events_per_batch": COUNT,
+            "failed_events_matched": failed, "transfers_looked_up": len(ids),
+            "history_rows": len(ref.history), "posted_rows": len(ref.posted),
+            "codes_seen": sorted(codes)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the sequential path at full width (bench.py --two-phase)
+# ---------------------------------------------------------------------------
+
+
+def phase_sequential(dev, n_transfers: int) -> dict:
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
+
+    # Time every table growth on the card (a synchronize on each side of
+    # each rehash; growths are rare, so the rest of the run is untouched).
+    grows = []
+    grow = ht.grow
+
+    def timed_grow(table, capacity, hash_shift=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grow(table, capacity, hash_shift)
+        torch.cuda.synchronize()
+        grows.append({"from": table.capacity, "to": capacity,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    ht.grow = timed_grow
+    try:
+        return _sequential_run(dev, n_transfers, grows)
+    finally:
+        ht.grow = grow
+
+
+def _sequential_run(dev, n_transfers: int, grows: list) -> dict:
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
+
+    batch_max = 8190
+    torch.cuda.reset_peak_memory_stats()
+    m = TorchStateMachine(LedgerConfig(), batch_lanes=LANES, device=dev,
+                          force_sequential=True)
+    caps0 = (m.ledger.transfers.capacity, m.ledger.posted.capacity)
+    for start in range(0, N_ACCOUNTS, batch_max):
+        ids = range(start + 1, min(N_ACCOUNTS, start + batch_max) + 1)
+        batch = types.accounts_array(
+            [types.account(id=i, ledger=1, code=10) for i in ids])
+        if m.create_accounts(batch) != []:
+            raise AssertionError("sequential: account creation failed")
+
+    posted = np.zeros(N_ACCOUNTS + 1, np.uint64)
+    credited = np.zeros(N_ACCOUNTS + 1, np.uint64)
+    # Full batches only (bench.py's generator numbers ids by batch): at
+    # least n_transfers transfers.
+    n_batches = max(1, (n_transfers + batch_max - 1) // batch_max)
+    window = range(n_batches - 1 - PROFILE_BATCHES, n_batches - 1)
+    if window.start < 0:
+        window = range(0)
+    commit_s = 0.0
+    n_timed = 0
+    steady_s = 0.0
+    n_steady = 0
+    prof_commit_ms = 0.0
+    grow_batches_ms = []
+    prof = None
+    for b in range(n_batches):
+        batch = gen_two_phase_np(b, LANES, batch_max, N_ACCOUNTS, 1 << 32)
+        caps = (m.ledger.transfers.capacity, m.ledger.posted.capacity)
+        if window and b == window.start:
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        res = m.create_transfers(batch)
+        dt = time.perf_counter() - t0
+        grew = (m.ledger.transfers.capacity, m.ledger.posted.capacity) != caps
+        if grew:
+            grow_batches_ms.append(
+                {"batch": b, "ms": dt * 1e3,
+                 "capacities": [m.ledger.transfers.capacity,
+                                m.ledger.posted.capacity]})
+        if b in window:
+            prof_commit_ms += dt * 1e3
+        else:
+            commit_s += dt
+            n_timed += len(batch)
+            if not grew:
+                steady_s += dt
+                n_steady += 1
+        if window and b == window.stop - 1:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        if res:
+            raise AssertionError(f"sequential: batch {b} had failures {res[:5]}")
+        half = len(batch) // 2
+        pend = batch[:half]
+        np.add.at(posted, pend["debit_account_id_lo"].astype(np.int64),
+                  pend["amount_lo"])
+        np.add.at(credited, pend["credit_account_id_lo"].astype(np.int64),
+                  pend["amount_lo"])
+    torch.cuda.synchronize()
+
+    rows = m.lookup_accounts(list(range(1, N_ACCOUNTS + 1)))
+    if len(rows) != N_ACCOUNTS:
+        raise AssertionError("sequential: lookup lost accounts")
+    order = rows["id_lo"].astype(np.int64)
+    for name, want in (("debits_posted", posted), ("credits_posted", credited)):
+        if (not np.array_equal(rows[name + "_lo"], want[order])
+                or rows[name + "_hi"].any()):
+            raise AssertionError(f"sequential: {name} differs from the closed form")
+    for name in ("debits_pending", "credits_pending"):
+        if rows[name + "_lo"].any() or rows[name + "_hi"].any():
+            raise AssertionError(f"sequential: {name} not zero")
+    digest = m.digest()
+    a = m.ledger.accounts
+    plain = sm.ledger_digest_plain(
+        a.key_lo, a.key_hi,
+        [a.cols[c] for c in sm.BALANCE_COLS] + [a.cols["timestamp"]])
+    if digest != int(plain.item()) & ((1 << 64) - 1):
+        raise AssertionError("sequential: digest differs from its plain version")
+    committed = int(m.ledger.transfers.count.item())
+    if committed != n_batches * batch_max:
+        raise AssertionError(f"sequential: transfers count {committed}")
+    profile = None
+    if prof is not None:
+        by_name = {}
+        busy = device_us(prof, by_name) / 1e3
+        if busy <= 0:
+            raise AssertionError("sequential: the profile recorded no device time")
+        steady_ms = steady_s * 1e3 / n_steady if n_steady else None
+        profile = {
+            "batches": len(window), "commit_wall_ms": prof_commit_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / prof_commit_ms,
+            "unprofiled_batches": n_steady,
+            "unprofiled_wall_ms_per_batch": steady_ms,
+            "device_idle_share_unprofiled":
+                1 - busy / len(window) / steady_ms if steady_ms else None,
+            "device_ms_per_batch_by_name": {
+                k: v / 1e3 / len(window) for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:8]},
+        }
+    return {
+        "accounts": N_ACCOUNTS, "transfers": committed, "batches": n_batches,
+        "capacities_before": caps0,
+        "capacities_after": [m.ledger.transfers.capacity,
+                             m.ledger.posted.capacity],
+        "posted_rows": int(m.ledger.posted.count.item()),
+        "grow_batches": grow_batches_ms,
+        "table_grows": grows,
+        "commit_s_unprofiled": commit_s,
+        "transfers_per_s": n_timed / commit_s,
+        "wall_ms_per_batch_unprofiled": commit_s * 1e3 / max(
+            1, n_batches - len(window)),
+        "profile": profile,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "digest": digest,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--transfers", type=int, default=10_000_000)
+    # bench.py's --two-phase size; the phase takes under a minute on one
+    # H100 (K6 takes ~34 ms per 8,190-event batch).
+    p.add_argument("--seq-transfers", type=int, default=10_000_000)
     args = p.parse_args()
 
     import torch
@@ -838,19 +1378,54 @@ def main() -> int:
     main_run = phase_main(dev, args.transfers)
     launches = _cuda.counts()
     emit({"phase": "main", "launches": launches, **main_run})
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
+    t0 = time.perf_counter()
+    seqk = phase_seq_kernels(args.seed, dev)
+    kern.update(seqk["results"])
+    emit({"phase": "seq_kernels", "seconds": time.perf_counter() - t0,
+          "prep_launches": seqk["prep_launches"],
+          "codes_seen": seqk["codes_seen"],
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in seqk["results"].items()}})
+    if seqk["prep_launches"]["tombstone"] == 0:
+        raise AssertionError("K8 was not launched making the tables")
+
+    t0 = time.perf_counter()
+    seqp = phase_seq_parity(args.seed, dev)
+    emit({"phase": "seq_parity", "seconds": time.perf_counter() - t0, **seqp})
+
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    seq_run = phase_sequential(dev, args.seq_transfers)
+    seq_launches = _cuda.counts()
+    emit({"phase": "sequential", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "launches": seq_launches, **seq_run})
+    missing = [k for k in SEQ_PATH if seq_launches[k] == 0]
+    if missing:
+        raise AssertionError(
+            f"kernels not launched on the sequential path: {missing}")
+
+    # Each kernel's launches come from the path it serves: K1-K5 from the
+    # main path, K6/K7 from the sequential path, K8 from making the tables
+    # of seq_kernels (its device function runs inside K6/K7's rollbacks).
+    paths = {name: ("main", launches) for name in MAIN_PATH}
+    paths.update({name: ("sequential", seq_launches)
+                  for name in ("seq_transfers", "seq_accounts")})
+    paths["tombstone"] = ("seq_kernels tables", seqk["prep_launches"])
     rows = []
     for name, k in _cuda.KERNELS.items():
         r = kern[name]
+        path, counts = paths[name]
         rows.append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[name],
+            "replaces": k.replaces, "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "launches_path": path,
         })
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

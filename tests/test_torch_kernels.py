@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K5 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K8 against their plain PyTorch versions
 on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere;
 this file imports no JAX, so it runs on a machine without it:
 
@@ -13,7 +13,9 @@ import torch
 
 from tigerbeetle_tpu_torch import convert, types
 from tigerbeetle_tpu_torch.ops import hash_table as ht
+from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
+from tigerbeetle_tpu_torch.testing import seqmix
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -157,3 +159,68 @@ def test_commit_path_on_card_matches_plain_on_cpu(cuda_device):
         for k in want[name]["cols"]:
             np.testing.assert_array_equal(got[name]["cols"][k], want[name]["cols"][k])
     assert sm.ledger_digest(gpu).item() == sm.ledger_digest(cpu).item()
+
+
+def _padded_soa(batch, lanes, dev):
+    padded = np.zeros(lanes, dtype=batch.dtype)
+    padded[: len(batch)] = batch
+    return convert.soa_to_tensors(types.to_soa(padded), dev)
+
+
+def test_sequential_kernels_on_card_match_plain_on_cpu(cuda_device):
+    """K7 and K6 on the card and their plain versions on the CPU, batch by
+    batch from the same ledger: the same codes, the same overflow flag and
+    the same arrays of every table and of the history log."""
+    rng = np.random.default_rng(11)
+    lanes = 512
+    caps = (1 << 12, 1 << 13, 1 << 11, 1 << 12)
+    gpu = sm.make_ledger(*caps, device=cuda_device)
+    cpu = sm.make_ledger(*caps, device="cpu")
+    mix = seqmix.TransferMix(rng, list(range(1, 120)), 1 << 40)
+    steps = [("create_accounts_seq", seqmix.accounts_batch(rng, 1, 100), 10 ** 9),
+             ("create_accounts_seq", seqmix.accounts_batch(rng, 90, 60), 2 * 10 ** 9)]
+    steps += [("create_transfers_seq", mix.batch(lanes - 2), (b + 3) * 10 ** 9)
+              for b in range(4)]
+    steps += [("create_transfers_seq", mix.batch(lanes), (1 << 64) - 10 ** 10)]
+    for op, batch, ts in steps:
+        _, kc, kov = getattr(sp, op)(gpu, _padded_soa(batch, lanes, cuda_device),
+                                     len(batch), ts)
+        _, pc, pov = getattr(sp, op)(cpu, _padded_soa(batch, lanes, "cpu"),
+                                     len(batch), ts)
+        assert torch.equal(kc.cpu(), pc), op
+        assert bool(kov) == bool(pov)
+        want = convert.ledger_to_numpy(cpu)
+        got = convert.ledger_to_numpy(gpu)
+        for name in want:
+            for k, v in want[name].items():
+                if k == "cols":
+                    for c in v:
+                        np.testing.assert_array_equal(got[name]["cols"][c], v[c],
+                                                      err_msg=f"{op} {name}/{c}")
+                else:
+                    np.testing.assert_array_equal(got[name][k], v,
+                                                  err_msg=f"{op} {name}/{k}")
+
+
+def test_tombstone_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(12)
+    cap = 1 << 12
+    lo, rows = keyed_rows(rng, 1500, cuda_device)
+    base = ht.make_table(cap, COLS, cuda_device)
+    ht.insert_plain(base, lo, torch.zeros_like(lo),
+                    torch.ones_like(lo, dtype=torch.bool), rows, cap)
+    live = np.flatnonzero(convert.tensor_to_array(base.key_lo) != 0)
+    slots = rng.choice(live, 700).astype(np.int64)
+    slots[:10] = cap + 3  # dropped, yet counted, as in JAX
+    slot = torch.from_numpy(slots).to(cuda_device)
+    valid = torch.from_numpy(rng.random(700) < 0.7).to(cuda_device)
+    tables = []
+    for fn in (ht.remove_to_tombstone, ht.remove_to_tombstone_plain):
+        t = ht.Table(base.key_lo.clone(), base.key_hi.clone(),
+                     base.tombstone.clone(), {k: v.clone() for k, v in
+                                              base.cols.items()},
+                     base.count.clone(), base.probe_overflow.clone())
+        fn(t, slot, valid)
+        tables.append(t)
+    tables_equal(*tables)
+    assert int(tables[0].count) == 1500 - int(valid.sum())

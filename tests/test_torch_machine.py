@@ -1,7 +1,8 @@
 """TorchStateMachine (the port's host seam) against TpuStateMachine and the
-scalar oracle, plus the port's boundaries: no JAX import, copied modules kept
-equal to their sources, the device default, and every route this slice does
-not port raising NotImplementedError."""
+scalar oracle, on the fast path and on the sequential path, plus the port's
+boundaries: no JAX import, copied modules kept equal to their sources, the
+device default, and every route not ported yet raising
+NotImplementedError."""
 
 import subprocess
 import sys
@@ -21,7 +22,8 @@ from tigerbeetle_tpu.types import AccountFlags, TransferFlags as F
 from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch import machine as tmachine
 from tigerbeetle_tpu_torch.machine import TorchStateMachine
-from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+from tigerbeetle_tpu_torch.ops import state_machine as tsm
+from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np, gen_two_phase_np
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=10,
@@ -43,10 +45,10 @@ def commit3(t, j, ref, op, batch, wall):
     return got
 
 
-def assert_same_tables(t, j):
+def assert_same_tables(t, j, tables=("accounts", "transfers")):
     want = convert.ledger_arrays(j.ledger)
     got = convert.ledger_to_numpy(t.ledger)
-    for name in ("accounts", "transfers"):
+    for name in tables:
         for k in ("key_lo", "key_hi", "tombstone", "count", "probe_overflow"):
             np.testing.assert_array_equal(got[name][k], want[name][k],
                                           err_msg=f"{name}/{k}")
@@ -54,6 +56,18 @@ def assert_same_tables(t, j):
             np.testing.assert_array_equal(got[name]["cols"][k],
                                           want[name]["cols"][k],
                                           err_msg=f"{name}/{k}")
+
+
+def assert_same_ledger(t, j):
+    """Every array of the accounts, transfers and posted tables and of the
+    history log, and the history count."""
+    assert_same_tables(t, j, ("accounts", "transfers", "posted"))
+    want = convert.ledger_arrays(j.ledger)["history"]
+    got = convert.ledger_to_numpy(t.ledger)["history"]
+    np.testing.assert_array_equal(got["count"], want["count"])
+    for k in want["cols"]:
+        np.testing.assert_array_equal(got["cols"][k], want["cols"][k],
+                                      err_msg=f"history/{k}")
 
 
 def test_sequence_across_a_table_growth_matches_jax_and_oracle():
@@ -107,6 +121,35 @@ def test_benchgen_is_bench_py_generator():
                                       bench.gen_batch_np(b, 512, 500, 100, 1 << 32))
 
 
+def test_two_phase_generator_is_bench_py_shape():
+    """gen_two_phase_np: the pendings carry the flagship mix's accounts and
+    amounts (bench.py's shared mix_workload), each post names the pending
+    of its lane, and the batches commit with no failure on the sequential
+    path of both machines."""
+    for b in (0, 5):
+        two = gen_two_phase_np(b, 256, 201, 100, 1 << 32)
+        plain = gen_batch_np(b, 256, 201, 100, 1 << 32)
+        assert len(two) == 200
+        pend, post = two[:100], two[100:]
+        for k in ("debit_account_id_lo", "credit_account_id_lo", "amount_lo",
+                  "id_lo"):
+            np.testing.assert_array_equal(pend[k], plain[k][:100])
+        assert (pend["flags"] == F.PENDING).all()
+        assert (post["flags"] == F.POST_PENDING_TRANSFER).all()
+        np.testing.assert_array_equal(post["pending_id_lo"], pend["id_lo"])
+        np.testing.assert_array_equal(post["id_lo"], plain["id_lo"][100:200])
+        assert not post["amount_lo"].any() and not post["ledger"].any()
+    t, j, ref = seq_trio(batch_lanes=256)
+    commit3(t, j, ref, "create_accounts", types.accounts_array(
+        [types.account(id=i, ledger=1, code=10) for i in range(1, 101)]), 10)
+    for b in range(2):
+        assert commit3(t, j, ref, "create_transfers",
+                       gen_two_phase_np(b, 256, 200, 100, 1 << 32),
+                       10 ** 6 * (b + 1)) == []
+    assert_same_ledger(t, j)
+    assert int(t.ledger.posted.count) == 200
+
+
 def test_commit_batch_replay_and_linked_accounts():
     t, j, ref = trio()
     rows = [types.account(id=i + 1, ledger=1, code=10,
@@ -140,7 +183,6 @@ def test_state_carried_from_the_jax_machine_commits_identically():
 
 
 UNPORTED_INIT = {
-    "force_sequential": dict(force_sequential=True),
     "shards": dict(shards=2),
     "tiering": dict(hot_transfers_capacity_max=1 << 12),
     "spill_dir": dict(spill_dir="spill"),
@@ -194,12 +236,147 @@ def test_history_and_limit_accounts_end_the_fast_path(flags):
 
 
 def test_linked_accounts_with_duplicate_ids_raise():
-    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
+    """Such a batch raised before the sequential path was ported; now both
+    machines route it there (without force_sequential) and agree with the
+    oracle, table for table."""
+    t, j, ref = trio(batch_lanes=64)
     batch = types.accounts_array([
         types.account(id=1, ledger=1, code=1, flags=AccountFlags.LINKED),
-        types.account(id=1, ledger=1, code=1)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        t.create_accounts(batch)
+        types.account(id=1, ledger=1, code=1),
+        types.account(id=2, ledger=1, code=1, flags=AccountFlags.LINKED),
+        types.account(id=3, ledger=0, code=1),
+        types.account(id=2, ledger=1, code=1)])
+    assert commit3(t, j, ref, "create_accounts", batch, 10) == [
+        (0, 1), (1, 15), (2, 1), (3, 13)]
+    assert_same_ledger(t, j)
+    assert t.balances_snapshot() == ref.balances_snapshot()
+
+
+# -- the sequential path (force_sequential) ------------------------------------
+
+# Small posted and history capacities, so that both grow within a few batches.
+CFG_SEQ = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=10,
+                       posted_capacity_log2=6, history_capacity_log2=6)
+
+
+def seq_trio(batch_lanes=128):
+    return (TorchStateMachine(CFG_SEQ, batch_lanes=batch_lanes, device="cpu",
+                              force_sequential=True),
+            TpuStateMachine(CFG_SEQ, batch_lanes=batch_lanes,
+                            force_sequential=True),
+            M.ReferenceStateMachine())
+
+
+def seq_accounts(n=10):
+    """Accounts 1..n: 2 and 3 carry limits, 4 and 5 history."""
+    flags = {2: AccountFlags.DEBITS_MUST_NOT_EXCEED_CREDITS,
+             3: AccountFlags.CREDITS_MUST_NOT_EXCEED_DEBITS,
+             4: AccountFlags.HISTORY,
+             5: AccountFlags.HISTORY | AccountFlags.DEBITS_MUST_NOT_EXCEED_CREDITS}
+    return types.accounts_array([
+        types.account(id=i, ledger=1, code=10, flags=int(flags.get(i, 0)))
+        for i in range(1, n + 1)])
+
+
+def mixed_transfers(rng, n, n_accounts, state):
+    """Plain, pending, post, void and balancing transfers, some linked, some
+    re-using ids; ``state`` carries the next id and the pending pool."""
+    rows = []
+    for _ in range(n):
+        state["next"] += 1
+        tid = state["next"]
+        if state["pool"] and rng.random() < 0.05:
+            tid = int(rng.choice(state["pool"]))
+        linked = int(F.LINKED) if rng.random() < 0.15 else 0
+        dr, cr = (int(x) for x in rng.choice(range(1, n_accounts + 2), 2,
+                                             replace=False))
+        r = rng.random()
+        if r < 0.3 and state["pool"]:
+            kind = int(rng.choice([F.POST_PENDING_TRANSFER,
+                                   F.VOID_PENDING_TRANSFER]))
+            amount = int(rng.integers(0, 30)) if rng.random() < 0.3 else 0
+            rows.append(types.transfer(id=tid, pending_id=int(rng.choice(
+                state["pool"])), amount=amount, flags=kind | linked))
+        elif r < 0.4:
+            kind = int(rng.choice([F.BALANCING_DEBIT, F.BALANCING_CREDIT]))
+            rows.append(types.transfer(
+                id=tid, debit_account_id=dr, credit_account_id=cr,
+                amount=int(rng.integers(0, 80)), ledger=1, code=10,
+                flags=kind | linked))
+        else:
+            pending = int(F.PENDING) if rng.random() < 0.4 else 0
+            rows.append(types.transfer(
+                id=tid, debit_account_id=dr, credit_account_id=cr,
+                amount=int(rng.integers(1, 60)), ledger=1, code=10,
+                flags=pending | linked,
+                timeout=int(rng.integers(0, 3)) if pending else 0))
+            if pending:
+                state["pool"].append(tid)
+    return types.transfers_array(rows)
+
+
+def test_force_sequential_matches_jax_and_oracle_across_growth():
+    """Every kind of event through the sequential path on both machines and
+    the oracle; every table array after each batch, while the transfers
+    table, the posted table and the history log grow."""
+    t, j, ref = seq_trio()
+    commit3(t, j, ref, "create_accounts", seq_accounts(), 1_000)
+    assert_same_ledger(t, j)
+    commit3(t, j, ref, "create_transfers", types.transfers_array([
+        types.transfer(id=1000 + i, debit_account_id=1, credit_account_id=i,
+                       amount=400, ledger=1, code=10) for i in range(2, 11)]),
+            2_000)
+    rng = np.random.default_rng(8)
+    state = {"next": 2_000, "pool": []}
+    caps0 = (t.ledger.posted.capacity, t.ledger.history.capacity)
+    for b in range(6):
+        batch = mixed_transfers(rng, 100, 10, state)
+        commit3(t, j, ref, "create_transfers", batch,
+                10 ** 9 * (b + 2) + int(rng.integers(0, 10 ** 9)))
+        assert_same_ledger(t, j)
+    assert t.ledger.posted.capacity > caps0[0]
+    assert t.ledger.history.capacity > caps0[1]
+    assert int(t.ledger.history.count) == len(ref.history) > 0
+    assert t.balances_snapshot() == ref.balances_snapshot() == j.balances_snapshot()
+    assert t.digest() == j.digest()
+    assert (t.prepare_timestamp, t.commit_timestamp) == (
+        j.prepare_timestamp, j.commit_timestamp)
+    ids = list(range(1000, 1011)) + list(range(2_000, state["next"] + 1))
+    got = t.lookup_transfers(ids)
+    assert [M.transfer_from_row(r) for r in got] == ref.lookup_transfers(ids)
+    np.testing.assert_array_equal(got, j.lookup_transfers(ids))
+
+
+def test_sequential_insert_at_the_probe_cap_raises():
+    """No free slot within MAX_PROBE: the reference writes the row at slot
+    0 and goes on; the port writes it there too, then raises."""
+    t = TorchStateMachine(CFG_SEQ, batch_lanes=64, device="cpu",
+                          force_sequential=True)
+    t.create_accounts(seq_accounts(3))
+    t.ledger.transfers.tombstone[:] = True
+    with pytest.raises(RuntimeError, match="MAX_PROBE"):
+        t.create_transfers(_transfer())
+    assert int(t.ledger.transfers.key_lo[0]) == 1
+
+
+def test_converted_ledger_with_pending_posted_and_history_continues():
+    """A JAX ledger holding pending transfers, posted rows and history rows,
+    converted to the port, commits the next batches identically."""
+    t, j, ref = seq_trio()
+    commit3(t, j, ref, "create_accounts", seq_accounts(), 1_000)
+    rng = np.random.default_rng(12)
+    state = {"next": 5_000, "pool": []}
+    for b in range(2):
+        commit3(t, j, ref, "create_transfers",
+                mixed_transfers(rng, 60, 10, state), 10 ** 6 * (b + 2))
+    led = convert.ledger_arrays(j.ledger)
+    assert int(led["posted"]["count"]) > 0 and int(led["history"]["count"]) > 0
+    t.ledger = convert.ledger_from_numpy(led, "cpu")
+    for b in range(2):
+        commit3(t, j, ref, "create_transfers",
+                mixed_transfers(rng, 60, 10, state), 10 ** 7 * (b + 2))
+        assert_same_ledger(t, j)
+    assert t.balances_snapshot() == ref.balances_snapshot()
 
 
 @pytest.mark.parametrize("name", sorted(tmachine._UNPORTED))
@@ -240,6 +417,43 @@ def test_wrappers_never_fall_back_for_cuda_tensors(monkeypatch):
 
     with pytest.raises(Routed):
         tht.lookup(tht.make_table(16, {}, "cpu"), FakeCuda(), FakeCuda(), 8)
+
+
+@pytest.mark.parametrize("route", ["seq_transfers", "seq_accounts",
+                                   "tombstone"])
+def test_sequential_and_tombstone_wrappers_never_fall_back(monkeypatch, route):
+    """K6, K7 and K8: a CUDA tensor goes to the kernel wrapper, never to the
+    plain version."""
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as tht
+    from tigerbeetle_tpu_torch.ops import scan_path as tsp
+
+    class Routed(Exception):
+        pass
+
+    def kernel(*args, **kwargs):
+        raise Routed
+
+    monkeypatch.setattr(_cuda, route, kernel)
+    for plain in ("create_transfers_seq_plain", "create_accounts_seq_plain"):
+        monkeypatch.setattr(tsp, plain, lambda *a: pytest.fail("plain"))
+    monkeypatch.setattr(tht, "remove_to_tombstone_plain",
+                        lambda *a: pytest.fail("plain"))
+
+    class FakeCuda:
+        is_cuda = True
+        shape = (4,)
+
+    batch = {c: FakeCuda() for c in tsm.TRANSFER_BATCH_COLS
+             + tsm.ACCOUNT_BATCH_COLS}
+    led = tsm.make_ledger(16, 16, 16, 16, device="cpu")
+    with pytest.raises(Routed):
+        if route == "tombstone":
+            tht.remove_to_tombstone(led.accounts, FakeCuda(), FakeCuda())
+        elif route == "seq_transfers":
+            tsp.create_transfers_seq(led, batch, 1, 10)
+        else:
+            tsp.create_accounts_seq(led, batch, 1, 10)
 
 
 def test_package_imports_neither_jax_nor_the_jax_package():

@@ -32,13 +32,15 @@ TABLES = ("accounts", "transfers", "posted")
 
 
 def array_to_tensor(a: np.ndarray, device) -> torch.Tensor:
-    """A u64/u32/bool numpy array as an int64/int32/bool tensor (same bits)."""
+    """A u64/u32/bool numpy array as an int64/int32/bool tensor (same bits
+    and shape; a 0-d array gives a 0-dim tensor)."""
+    shape = np.shape(a)
     a = np.ascontiguousarray(a)
     try:
         view = _TO_TORCH[a.dtype]
     except KeyError:
         raise TypeError(f"unsupported dtype {a.dtype}") from None
-    return torch.from_numpy(a.view(view).copy()).to(device)
+    return torch.from_numpy(a.view(view).copy()).reshape(shape).to(device)
 
 
 def tensor_to_array(t: torch.Tensor) -> np.ndarray:

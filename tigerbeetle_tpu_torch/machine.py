@@ -1,14 +1,17 @@
 """TorchStateMachine: the host-side seam of the port (counterpart of
-``tigerbeetle_tpu/machine.py``'s ``TpuStateMachine``), reduced to this
-slice: plain ``create_accounts`` and ``create_transfers`` batches on the fast
-path, lookups, the balance snapshot and the digest.
+``tigerbeetle_tpu/machine.py``'s ``TpuStateMachine``), reduced to the slices
+ported so far: plain ``create_accounts`` and ``create_transfers`` batches on
+the fast path, every kind of batch on the sequential path (under
+``force_sequential``, and linked ``create_accounts`` batches with duplicate
+ids), lookups, the balance snapshot and the digest.
 
 It owns the device-resident ledger, assigns batch timestamps as prepare()
-does, grows the tables from host-side row bounds (load factor <= 0.5), pads
-each batch to ``batch_lanes`` and commits it through
-``ops.state_machine`` (kernels K1-K4 on the card), then reads the result
-codes and the table's probe_overflow flag back in ONE device-to-host copy and
-compresses the codes into the wire's (index, result) pairs.
+does, grows the tables and the history log from host-side row bounds (load
+factor <= 0.5), pads each batch to ``batch_lanes`` and commits it through
+``ops.state_machine`` (kernels K1-K4 on the card) or ``ops.scan_path``
+(kernels K6 and K7), then reads the result codes and an overflow flag back
+in ONE device-to-host copy and compresses the codes into the wire's (index,
+result) pairs.
 
 Routes this slice does not port raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them; none gives a wrong answer or falls back
@@ -26,6 +29,7 @@ from . import convert, types
 from .config import LedgerConfig
 from .device import resolve as resolve_device
 from .ops import hash_table as ht
+from .ops import scan_path
 from .ops import state_machine as sm
 from .u128 import i64, u64
 
@@ -83,11 +87,6 @@ class TorchStateMachine:
         hot_transfers_capacity_max: Optional[int] = None,
         host_engine: bool = False,
     ) -> None:
-        if force_sequential:
-            raise NotImplementedError(
-                "force_sequential runs every batch through ops/scan_path, "
-                "not ported yet (ROADMAP A4)"
-            )
         if shards:
             raise NotImplementedError("sharding is not ported yet (ROADMAP A11)")
         if spill_dir is not None or hot_transfers_capacity_max is not None:
@@ -99,6 +98,7 @@ class TorchStateMachine:
         cfg = ledger_config or LedgerConfig()
         self.config = cfg
         self.batch_lanes = batch_lanes
+        self.force_sequential = force_sequential
         self.device = resolve_device(device)
         self.ledger = sm.make_ledger(
             cfg.accounts_capacity, cfg.transfers_capacity,
@@ -109,6 +109,8 @@ class TorchStateMachine:
         # Host-side upper bounds on live rows (growth without device syncs).
         self._accounts_bound = 0
         self._transfers_bound = 0
+        self._posted_bound = 0
+        self._history_bound = 0
         # Fast-path preconditions P1/P3 (ops/state_machine.py).
         self._history_accounts_possible = False
         self._limit_accounts_possible = False
@@ -116,7 +118,8 @@ class TorchStateMachine:
 
     def _d2h_codes(self, codes: torch.Tensor, overflow: torch.Tensor):
         """The one blocking device-to-host read of a commit: the result codes
-        and the table's probe_overflow flag in a single copy."""
+        and an overflow flag (the table's probe_overflow, or the sequential
+        path's) in a single copy."""
         out = torch.cat([codes, overflow.reshape(1).to(torch.int32)]).cpu()
         host = out.numpy().view(np.uint32)
         return host[:-1], bool(host[-1])
@@ -180,11 +183,10 @@ class TorchStateMachine:
         if count == 0:
             return []
         any_linked = bool((batch["flags"] & types.AccountFlags.LINKED).any())
-        if any_linked and self._has_intra_batch_dup_ids(batch):
-            raise NotImplementedError(
-                "linked create_accounts with intra-batch duplicate ids need "
-                "the sequential path, not ported yet (ROADMAP A4)"
-            )
+        if self.force_sequential or (
+            any_linked and self._has_intra_batch_dup_ids(batch)
+        ):
+            return self._sequential("create_accounts", batch, timestamp)
         self._grow_if_needed(accounts=count)
         if bool((batch["flags"] & types.AccountFlags.HISTORY).any()):
             self._history_accounts_possible = True
@@ -217,6 +219,8 @@ class TorchStateMachine:
         if count == 0:
             return []
         self._note_balance_bound(batch)
+        if self.force_sequential:
+            return self._sequential("create_transfers", batch, timestamp)
         if not self._fast_path_ok(batch):
             raise NotImplementedError(
                 "this create_transfers batch needs the general transfer "
@@ -273,6 +277,60 @@ class TorchStateMachine:
         self._update_commit_timestamp(codes, count, timestamp)
         return results
 
+    # -- the sequential path ----------------------------------------------------
+
+    def _sequential(
+        self, operation: str, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
+        """Exact in-order execution through ops/scan_path (kernels K6 and
+        K7 on the card), as the JAX machine's ``_sequential_impl`` (without
+        its cold-tier, Merkle and index hooks, which are not ported)."""
+        count = len(batch)
+        if operation == "create_accounts":
+            self._grow_if_needed(accounts=count)
+            if bool((batch["flags"] & types.AccountFlags.HISTORY).any()):
+                self._history_accounts_possible = True
+            if bool((batch["flags"] & _LIMIT_FLAGS).any()):
+                self._limit_accounts_possible = True
+            pv_count = hist_count = 0
+            kernel = scan_path.create_accounts_seq
+        else:
+            pv_count, hist_count = self._transfer_growth_counts(batch)
+            self._grow_if_needed(
+                transfers=count, posted=pv_count, history=hist_count
+            )
+            kernel = scan_path.create_transfers_seq
+        soa = self._pad_soa(batch)
+        self.ledger, codes, overflow = kernel(self.ledger, soa, count, timestamp)
+        codes, overflow = self._d2h_codes(codes, overflow)
+        if operation == "create_accounts":
+            self._accounts_bound += count
+        else:
+            self._transfers_bound += count
+            self._posted_bound += pv_count
+            self._history_bound += hist_count
+        if overflow:
+            # The reference writes such a row at slot 0; load-factor
+            # management keeps this unreachable, so fail loud.
+            raise RuntimeError(
+                f"{operation}: a sequential insert's probe reached MAX_PROBE"
+            )
+        results = self._compress(codes, count)
+        self._update_commit_timestamp(codes, count, timestamp)
+        return results
+
+    def _transfer_growth_counts(self, batch: np.ndarray) -> Tuple[int, int]:
+        """(posted rows, history rows) this batch could append at most."""
+        pv = int(
+            (
+                (batch["flags"]
+                 & (types.TransferFlags.POST_PENDING_TRANSFER
+                    | types.TransferFlags.VOID_PENDING_TRANSFER)) != 0
+            ).sum()
+        )
+        hist = (len(batch) - pv) if self._history_accounts_possible else 0
+        return pv, hist
+
     # -- growth ----------------------------------------------------------------
 
     @staticmethod
@@ -282,10 +340,14 @@ class TorchStateMachine:
             capacity *= 2
         return capacity
 
-    def _grow_if_needed(self, accounts: int = 0, transfers: int = 0) -> None:
-        """Keep the accounts and transfers tables' load factor under 0.5
-        using host-side row bounds (no device sync; bounds only overestimate).
-        Each growth is one rehash through kernel K2."""
+    def _grow_if_needed(
+        self, accounts: int = 0, transfers: int = 0, posted: int = 0,
+        history: int = 0,
+    ) -> None:
+        """Keep every table's load factor under 0.5 using host-side row
+        bounds (no device sync; bounds only overestimate), and the history
+        log's capacity above its bound.  Each table growth is one rehash
+        through kernel K2."""
         led = self.ledger
         cap = self._target_capacity(
             led.accounts.capacity, self._accounts_bound + accounts
@@ -297,6 +359,15 @@ class TorchStateMachine:
         )
         if cap != led.transfers.capacity:
             led.transfers = ht.grow(led.transfers, cap)
+        cap = self._target_capacity(
+            led.posted.capacity, self._posted_bound + posted
+        )
+        if cap != led.posted.capacity:
+            led.posted = ht.grow(led.posted, cap)
+        if history and self._history_bound + history > led.history.capacity:
+            led.history = sm.grow_history(
+                led.history, self._history_bound + history
+            )
 
     def _update_commit_timestamp(
         self, codes: np.ndarray, count: int, timestamp: int

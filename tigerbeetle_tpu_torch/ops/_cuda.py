@@ -20,6 +20,9 @@ add one to their kernel's ``launches`` each time they launch it.
 | validate | csrc/validate.cu       | ops/state_machine.py:349 account_codes, :491 transfer_codes |
 | balance  | csrc/balance.cu        | ops/state_machine.py:574 balance_plan + :644 apply_balance_plan |
 | digest   | csrc/digest.cu         | ops/state_machine.py:828 ledger_digest     |
+| seq_transfers | csrc/sequential.cu | ops/scan_path.py:187 create_transfers_seq |
+| seq_accounts  | csrc/sequential.cu | ops/scan_path.py:690 create_accounts_seq  |
+| tombstone     | csrc/tombstone.cu  | ops/hash_table.py:379 remove_to_tombstone |
 """
 
 from __future__ import annotations
@@ -69,6 +72,12 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/ops/state_machine.py:574"),
         Kernel("digest", "tigerbeetle_tpu_torch/csrc/digest.cu",
                "tigerbeetle_tpu/ops/state_machine.py:828"),
+        Kernel("seq_transfers", "tigerbeetle_tpu_torch/csrc/sequential.cu",
+               "tigerbeetle_tpu/ops/scan_path.py:187"),
+        Kernel("seq_accounts", "tigerbeetle_tpu_torch/csrc/sequential.cu",
+               "tigerbeetle_tpu/ops/scan_path.py:690"),
+        Kernel("tombstone", "tigerbeetle_tpu_torch/csrc/tombstone.cu",
+               "tigerbeetle_tpu/ops/hash_table.py:379"),
     )
 }
 
@@ -163,6 +172,12 @@ def _bind(lib: ctypes.CDLL) -> None:
                                   _P, _P, _P, _I64, _P],
         "tb_balance": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P],
         "tb_digest": [_P, _P, _P, _I64, _P, _P],
+        "tb_seq_transfers": [_P, _INT, _P, _INT, _I64, _P, _INT, _I64,
+                             _P, _INT, _I64, _P, _INT, _I64, _I64, _I64,
+                             ctypes.c_uint64, _P, _P, _P, _P],
+        "tb_seq_accounts": [_P, _INT, _P, _INT, _I64, _I64, _I64,
+                            ctypes.c_uint64, _P, _P, _P, _P],
+        "tb_tombstone": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -417,3 +432,118 @@ def digest(key_lo, key_hi, cols: Sequence[torch.Tensor]) -> torch.Tensor:
     _raise_on(err, "digest")
     KERNELS["digest"].launches += 1
     return out[0]
+
+
+# -- K6/K7 sequential commit -----------------------------------------------
+
+# u64 words of one event's undo record in K6 (csrc/sequential.cu UNDO_WORDS).
+_UNDO_WORDS = 21
+
+
+def _check_cols(cols: Sequence[torch.Tensor], dtypes: Sequence[torch.dtype],
+                n: int, what: str) -> None:
+    if len(cols) != len(dtypes):
+        raise ValueError(f"{what}: {len(cols)} columns, expected {len(dtypes)}")
+    for k, (c, dt) in enumerate(zip(cols, dtypes)):
+        _check(c, dt, n, f"{what} column {k}")
+
+
+def _check_table(t: Sequence[torch.Tensor], dtypes: Sequence[torch.dtype],
+                 what: str) -> int:
+    """``t``: key_lo, key_hi, tombstone, count, then the value columns.
+    Returns the capacity."""
+    cap = t[0].numel()
+    if cap <= 0 or cap & (cap - 1):
+        raise ValueError(f"{what}: capacity {cap} is not a power of two")
+    _check_cols(t[:3], (torch.int64, torch.int64, torch.bool), cap,
+                f"{what} keys")
+    _check(t[3], torch.int64, 1, f"{what} count")
+    _check_cols(t[4:], dtypes, cap, what)
+    return cap
+
+
+def seq_transfers(batch: Sequence[torch.Tensor], batch_dtypes,
+                  accounts: Sequence[torch.Tensor], account_dtypes,
+                  transfers: Sequence[torch.Tensor], transfer_dtypes,
+                  posted: Sequence[torch.Tensor],
+                  history: Sequence[torch.Tensor],
+                  count: int, timestamp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K6: one sequential create_transfers batch, the ledger updated
+    in place.  Each table is key_lo, key_hi, tombstone, count and its
+    columns in the kernel's enum order; ``history`` is its 21 columns then
+    its count.  Returns (codes int32[N], overflow bool 0-dim)."""
+    lib = library()
+    n = batch[0].numel()
+    _check_cols(batch, batch_dtypes, n, "batch")
+    acc_cap = _check_table(accounts, account_dtypes, "accounts")
+    xfr_cap = _check_table(transfers, transfer_dtypes, "transfers")
+    pst_cap = _check_table(posted, (torch.int32,), "posted")
+    hist_cap = history[0].numel()
+    _check_cols(history[:-1], [torch.int64] * (len(history) - 1), hist_cap,
+                "history")
+    _check(history[-1], torch.int64, 1, "history count")
+    if not 0 <= count <= n:
+        raise ValueError(f"count {count} outside 0..{n}")
+    dev = batch[0].device
+    undo = torch.empty(n * _UNDO_WORDS, dtype=torch.int64, device=dev)
+    codes = torch.empty(n, dtype=torch.int32, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lib.tb_seq_transfers(
+        _ptr_array(batch), len(batch), _ptr_array(accounts), len(accounts),
+        acc_cap, _ptr_array(transfers), len(transfers), xfr_cap,
+        _ptr_array(posted), len(posted), pst_cap, _ptr_array(history),
+        len(history), hist_cap, n, count, timestamp & ((1 << 64) - 1),
+        undo.data_ptr(), codes.data_ptr(), overflow.data_ptr(),
+        _stream(batch[0]),
+    )
+    _raise_on(err, "seq_transfers")
+    KERNELS["seq_transfers"].launches += 1
+    return codes, overflow[0] != 0
+
+
+def seq_accounts(batch: Sequence[torch.Tensor], batch_dtypes,
+                 accounts: Sequence[torch.Tensor], account_dtypes,
+                 count: int, timestamp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K7: one sequential create_accounts batch, the accounts table
+    updated in place.  Returns (codes int32[N], overflow bool 0-dim)."""
+    lib = library()
+    n = batch[0].numel()
+    _check_cols(batch, batch_dtypes, n, "batch")
+    acc_cap = _check_table(accounts, account_dtypes, "accounts")
+    if not 0 <= count <= n:
+        raise ValueError(f"count {count} outside 0..{n}")
+    dev = batch[0].device
+    undo = torch.empty(n, dtype=torch.int64, device=dev)
+    codes = torch.empty(n, dtype=torch.int32, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lib.tb_seq_accounts(
+        _ptr_array(batch), len(batch), _ptr_array(accounts), len(accounts),
+        acc_cap, n, count, timestamp & ((1 << 64) - 1), undo.data_ptr(),
+        codes.data_ptr(), overflow.data_ptr(), _stream(batch[0]),
+    )
+    _raise_on(err, "seq_accounts")
+    KERNELS["seq_accounts"].launches += 1
+    return codes, overflow[0] != 0
+
+
+# -- K8 tombstone ------------------------------------------------------------
+
+
+def tombstone(key_lo, key_hi, tomb, count, slot, valid) -> None:
+    """Kernel K8: clear the keys at ``slot`` where ``valid``, leaving
+    tombstones, and subtract the valid lanes from ``count``, in place."""
+    lib = library()
+    cap = key_lo.numel()
+    n = slot.numel()
+    _check(key_lo, torch.int64, cap, "table key_lo")
+    _check(key_hi, torch.int64, cap, "table key_hi")
+    _check(tomb, torch.bool, cap, "table tombstone")
+    _check(count, torch.int64, 1, "table count")
+    _check(slot, torch.int64, n, "slot")
+    _check(valid, torch.bool, n, "valid")
+    err = lib.tb_tombstone(
+        key_lo.data_ptr(), key_hi.data_ptr(), tomb.data_ptr(), cap,
+        slot.data_ptr(), valid.data_ptr(), n, count.data_ptr(), _stream(slot),
+    )
+    _raise_on(err, "tombstone")
+    KERNELS["tombstone"].launches += 1

@@ -19,9 +19,9 @@ are int64 and u32 columns int32 holding the bits, ``count`` a 0-dim int64 and
 returned a new table from donated buffers, this module updates the table's
 tensors in place and returns the same ``Table``.
 
-``lookup`` (kernel K1) and ``insert`` (kernel K2) take the hand-written CUDA
-kernels for CUDA tensors and their plain PyTorch versions, beside them here,
-for CPU tensors.
+``lookup`` (kernel K1), ``insert`` (kernel K2) and ``remove_to_tombstone``
+(kernel K8) take the hand-written CUDA kernels for CUDA tensors and their
+plain PyTorch versions, beside them here, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -307,10 +307,24 @@ def grow(table: Table, new_capacity: int, hash_shift: int = 0) -> Table:
 def remove_to_tombstone(
     table: Table, slot: torch.Tensor, valid: torch.Tensor
 ) -> Table:
-    """Clear keys at ``slot`` (rollback of inserts), leaving tombstones, in
-    place.  Plain PyTorch only: linked-chain rollback is off this slice's
-    path (ROADMAP A4)."""
-    idx = slot[valid]
+    """Clear keys at ``slot`` where ``valid`` (rollback of inserts), leaving
+    tombstones, in place; ``count`` drops by the number of valid lanes.
+    Kernel K8 on CUDA tensors."""
+    if slot.is_cuda:
+        _cuda.tombstone(table.key_lo, table.key_hi, table.tombstone,
+                        table.count, slot, valid)
+        return table
+    return remove_to_tombstone_plain(table, slot, valid)
+
+
+def remove_to_tombstone_plain(
+    table: Table, slot: torch.Tensor, valid: torch.Tensor
+) -> Table:
+    """Plain PyTorch version of kernel K8.  A slot at or above the capacity
+    is dropped, as the JAX scatter's mode="drop" does; ``count`` still drops
+    by every valid lane, as in JAX."""
+    keep = valid & (slot >= 0) & (slot < table.capacity)
+    idx = slot[keep]
     table.key_lo[idx] = 0
     table.key_hi[idx] = 0
     table.tombstone[idx] = True

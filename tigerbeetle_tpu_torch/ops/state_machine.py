@@ -13,8 +13,9 @@ package:
   account.
 
 Preconditions, enforced by the host dispatcher (``machine.py``), which
-refuses any other batch (the JAX package routes those to its general and
-sequential kernels, which this port does not have yet):
+refuses any other batch unless the machine runs every batch through the
+sequential path (``ops/scan_path.py``); the JAX package routes those
+batches to its general kernel, which this port does not have yet:
   P1 no account in the table carries limit or history flags;
   P2 the batch has no balancing_debit/balancing_credit/post/void flags;
   P3 all amounts < 2**64 and every balance is bounded away from 2**128;
@@ -171,8 +172,10 @@ TRANSFER_EXISTS_COLS = (
 
 @dataclasses.dataclass
 class History:
-    """Append-only history rows (the account_history groove).  Carried so a
-    ledger converts both ways; nothing on this slice's path appends."""
+    """Append-only history rows (the account_history groove).  The
+    sequential path (``ops/scan_path.py``) appends a row per accepted
+    regular transfer that touches a HISTORY account; ``count`` is the live
+    length."""
 
     cols: Dict[str, torch.Tensor]
     count: torch.Tensor  # int64 0-dim
@@ -191,6 +194,26 @@ def make_history(capacity: int, device) -> History:
             for name, dt in HISTORY_COLS.items()
         },
         count=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+def grow_history(history: History, min_capacity: int) -> History:
+    """Host-side capacity doubling (keeps power-of-two sizing): a new
+    History whose rows past the old capacity are zero; ``count`` is
+    carried."""
+    cap = history.capacity
+    while cap < min_capacity:
+        cap *= 2
+    if cap == history.capacity:
+        return history
+    return History(
+        cols={
+            name: torch.cat([col, torch.zeros(cap - history.capacity,
+                                              dtype=col.dtype,
+                                              device=col.device)])
+            for name, col in history.cols.items()
+        },
+        count=history.count,
     )
 
 

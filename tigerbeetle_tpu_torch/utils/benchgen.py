@@ -1,7 +1,8 @@
 """Host (numpy) generator of the flagship benchmark's plain-transfer batches.
 
 Copies of ``bench.py``'s ``mix64_np`` and ``gen_batch_np``, bit for bit: the
-same batch index gives the same transfers in both packages.  The batches are
+same batch index gives the same transfers in both packages; and a numpy copy
+of its on-device ``--two-phase`` generator ``gen_two_phase``.  The batches are
 made on the host because numpy's uint64 ``%`` is exact; torch's int64 ``%``
 is signed and wrong above 2**63.
 """
@@ -24,17 +25,24 @@ def mix64_np(lo: np.ndarray, hi: int) -> np.ndarray:
         return x ^ (x >> np.uint64(31))
 
 
-def gen_batch_np(b: int, lanes: int, count: int, n_accounts: int, first_tid: int):
-    """Batch ``b`` of the flagship workload: ``count`` plain transfers between
-    accounts 1..n_accounts (never to the same account), ids from
-    ``first_tid + b * count``, amounts 1..65536, ledger 1, code 10."""
-    gid = np.arange(lanes, dtype=np.uint64) + np.uint64(b * count)
+def _mix_workload(gid: np.ndarray, n_accounts: int):
+    """(debit index, credit index, amount) of workload event ``gid``
+    (bench.py's ``mix_workload``)."""
     h1 = mix64_np(gid, 0x1234)
     h2 = mix64_np(gid, 0x9876)
     dr = h1 % np.uint64(n_accounts)
     off = np.uint64(1) + h2 % np.uint64(n_accounts - 1)
     cr = (dr + off) % np.uint64(n_accounts)
     amount = np.uint64(1) + ((h1 >> np.uint64(32)) & np.uint64(0xFFFF))
+    return dr, cr, amount
+
+
+def gen_batch_np(b: int, lanes: int, count: int, n_accounts: int, first_tid: int):
+    """Batch ``b`` of the flagship workload: ``count`` plain transfers between
+    accounts 1..n_accounts (never to the same account), ids from
+    ``first_tid + b * count``, amounts 1..65536, ledger 1, code 10."""
+    gid = np.arange(lanes, dtype=np.uint64) + np.uint64(b * count)
+    dr, cr, amount = _mix_workload(gid, n_accounts)
 
     batch = np.zeros(lanes, dtype=types.TRANSFER_DTYPE)
     batch["id_lo"] = first_tid + gid
@@ -44,3 +52,33 @@ def gen_batch_np(b: int, lanes: int, count: int, n_accounts: int, first_tid: int
     batch["ledger"] = 1
     batch["code"] = 10
     return batch[:count]
+
+
+def gen_two_phase_np(b: int, lanes: int, count: int, n_accounts: int,
+                     first_tid: int):
+    """Batch ``b`` of bench.py's ``--two-phase`` workload (``gen_two_phase``):
+    ``count // 2`` pending transfers, then a post of each of them, in one
+    batch.  Pending lane i carries event ``b * count + i`` of the flagship
+    mix (its accounts and amount); post lane ``half + i`` posts the pending
+    of lane i in full (amount 0, no accounts, ledger or code).  Ids run from
+    ``first_tid + b * count``; an odd ``count`` leaves its last lane out."""
+    half = count // 2
+    lane = np.arange(lanes, dtype=np.uint64)
+    base = np.uint64(b * count)
+    is_post = lane >= np.uint64(half)
+    pend_lane = np.where(is_post, lane - np.uint64(half), lane)
+    dr, cr, amount = _mix_workload(base + pend_lane, n_accounts)
+    pending = ~is_post
+
+    batch = np.zeros(lanes, dtype=types.TRANSFER_DTYPE)
+    batch["id_lo"] = np.uint64(first_tid) + base + lane
+    batch["debit_account_id_lo"] = np.where(pending, dr + np.uint64(1), 0)
+    batch["credit_account_id_lo"] = np.where(pending, cr + np.uint64(1), 0)
+    batch["amount_lo"] = np.where(pending, amount, 0)
+    batch["pending_id_lo"] = np.where(
+        is_post, np.uint64(first_tid) + base + pend_lane, 0)
+    batch["ledger"] = np.where(pending, 1, 0)
+    batch["code"] = np.where(pending, 10, 0)
+    batch["flags"] = np.where(is_post, types.TransferFlags.POST_PENDING_TRANSFER,
+                              types.TransferFlags.PENDING)
+    return batch[:2 * half]
