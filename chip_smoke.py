@@ -28,11 +28,34 @@ Phases, each printing one JSON line:
                 on the card;
   7. seq_parity - a force_sequential TorchStateMachine on the card against
                 the scalar oracle at full width (8,190 events per batch);
-  8. sequential - this slice's path at full width: a force_sequential
+  8. sequential - the sequential path at full width: a force_sequential
                 machine, 10,000 accounts, then bench.py's --two-phase shape
                 (4,095 pendings and 4,095 posts of them per batch) for
-                ``--seq-transfers`` transfers (10,000,000, as bench.py);
-                K6/K7's launch counts are read from this phase.
+                ``--seq-transfers`` transfers (2,000,000: cut from
+                bench.py's 10,000,000 to keep the script near five minutes);
+                K6/K7's launch counts are read from this phase;
+  9. full_kernels - the general kernel: K9 full_index, K10 full_legs, K12
+                full_waves against their plain versions on the card, byte
+                for byte, and create_transfers_full_impl (K1, K2's claim and
+                write entries, K9-K12) against its plain composition at pass
+                budgets 1, 2, 3 and 8, waves on and off: codes, kflags, the
+                wave vector and every ledger array, on 8,190-event batches of
+                the testing/fullmix.py mix and each FLAG_SEQ kind, on a ledger
+                with rows, same-home clusters and tombstones; then each
+                kernel timed and bounded on a bench.py two-phase batch;
+ 10. full_parity - a default machine (general kernel), a force_sequential
+                machine (K6) and the scalar oracle on the same 8,190-event
+                batches of the mix: codes, balances, history rows, lookups,
+                digest; both routes must be taken;
+ 11. full_twophase - bench.py's --two-phase shape through a default machine:
+                10,000 accounts, ``--full-transfers`` transfers (10,000,000);
+                every batch commits on the general kernel with kflags 0, K6
+                never launches; K9-K12 and K2's entries' launches are read
+                from this phase;
+ 12. full_limits - bench.py's --limits shape: 10,000 limit-flagged accounts
+                and a funder, 10,000 funding transfers, then the flagship
+                plain generator for ``--full-transfers`` transfers, all on
+                the general kernel.
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
@@ -41,6 +64,7 @@ before the last line is printed.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -91,14 +115,34 @@ def timed(fn, reps=20, warmup=2, setup=None) -> dict:
         end.record()
         end.synchronize()
         call += start.elapsed_time(end)
+    # The profiler now and then hands back no device events for a short
+    # window of tiny launches; such a window is taken again, longer.  If it
+    # still records nothing, the device time is taken with CUDA events
+    # around the launches (which also count the gaps between them), and
+    # the result says so.
+    for n in (reps, 5 * reps, 5 * reps):
+        inputs = [setup() if setup else () for _ in range(n)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for args in inputs:
+                fn(*args)
+            torch.cuda.synchronize()
+        busy = device_us(prof)
+        if busy > 0:
+            return {"device_ms": busy / 1e3 / n, "call_ms": call / reps,
+                    "device_ms_from": "profiler"}
     inputs = [setup() if setup else () for _ in range(reps)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for args in inputs:
-            fn(*args)
-        torch.cuda.synchronize()
-    return {"device_ms": device_us(prof) / 1e3 / reps, "call_ms": call / reps}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for args in inputs:
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return {"device_ms": start.elapsed_time(end) / reps, "call_ms": call / reps,
+            "device_ms_from": "cuda events (the profiler recorded nothing)"}
 
 
 def device_us(prof, by_name=None) -> float:
@@ -201,7 +245,9 @@ def probe_steps(table_np_, lo, hi, cap, max_probe) -> int:
 
 def pair_times(kernel: dict, plain: dict) -> dict:
     return {"ms": kernel["device_ms"], "plain_ms": plain["device_ms"],
-            "call_ms": kernel["call_ms"], "plain_call_ms": plain["call_ms"]}
+            "call_ms": kernel["call_ms"], "plain_call_ms": plain["call_ms"],
+            "ms_from": kernel["device_ms_from"],
+            "plain_ms_from": plain["device_ms_from"]}
 
 
 def bound(bytes_, ops):
@@ -1335,15 +1381,662 @@ def _sequential_run(dev, n_transfers: int, grows: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the general kernel's kernels (K9-K12, K2's claim/write) against
+# their plain versions
+# ---------------------------------------------------------------------------
+
+FULL_PATH = ("probe", "claim", "write_claimed", "full_index", "full_legs",
+             "full_pass", "full_waves")
+FULL_ACCOUNTS = COUNT  # accounts the general mix draws from: every account
+
+
+def full_prepared_ledger(rng, dev):
+    """A ledger on the card built through the default machine: 8,190
+    accounts (seqmix's limit and history flags), four 8,190-event batches
+    of the general mix (pendings in the table, posted rows, history rows),
+    64 same-home clusters of 6 transfers and 256 tombstones in the
+    transfers table (K2, K8), then the ``big`` accounts' pendings near
+    2**128 (fullmix.seed_big)."""
+    import torch
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.testing import fullmix, seqmix
+
+    cfg = LedgerConfig(accounts_capacity_log2=14, transfers_capacity_log2=16,
+                       posted_capacity_log2=14, history_capacity_log2=15)
+    m = TorchStateMachine(cfg, batch_lanes=LANES, device=dev)
+    m.create_accounts(seqmix.accounts_batch(rng, 1, COUNT, faults=False), 10 ** 9)
+    mix = fullmix.GeneralMix(rng, list(range(1, FULL_ACCOUNTS + 1)), 1 << 41)
+    wall = 2 * 10 ** 9
+    for _ in range(4):
+        res = m.create_transfers(mix.batch(COUNT), wall)
+        mix.settle(i for i, _ in res)
+        wall += 10 ** 9
+    xfr = m.ledger.transfers
+    cap = xfr.capacity
+    keys = same_home_groups(rng, cap, 64, 6, 1 << 45)
+    n = len(keys)
+    rows = {k: (t64(rand_u64(rng, n, 1 << 20), dev) if dt == torch.int64
+                else t32(rng.integers(0, 3, n), dev))
+            for k, dt in sm.TRANSFER_COLS.items()}
+    ht.insert(xfr, t64(keys, dev), torch.zeros(n, dtype=torch.int64, device=dev),
+              torch.ones(n, dtype=torch.bool, device=dev), rows, sm.MAX_PROBE)
+    live = np.flatnonzero(to_np(xfr.key_lo) != 0)
+    gone = torch.from_numpy(rng.choice(live, 256, replace=False)).to(dev)
+    ht.remove_to_tombstone(xfr, gone, torch.ones(256, dtype=torch.bool, device=dev))
+    m.create_transfers(mix.seed_big(), wall)
+    return m, mix, wall
+
+
+def full_plain(ledger, soa, count, ts, max_passes=8, has_postvoid=True,
+               has_history=True, use_waves=True):
+    """create_transfers_full_impl with the plain versions of K9-K12 and of
+    K2's claim/write (K1 probes, already held against its plain version)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+
+    n = soa["id_lo"].shape[0]
+    valid = torch.arange(n, device=soa["id_lo"].device) < count
+    flags = soa["flags"]
+    postvoid = ((flags & (tf.TF_POST | tf.TF_VOID)) != 0) & valid
+    ctx = tf.build_gather_ctx(ledger, soa, valid, postvoid,
+                              has_postvoid=has_postvoid)
+    plan = tf._kernel_core_plain(ctx, soa, count, ts, max_passes, has_postvoid,
+                                 use_waves)
+    kflags = tf._apply_plain(ledger, soa, ctx, plan, has_postvoid, has_history)
+    wave = torch.cat([plan.passes.reshape(1), plan.wave_bound.reshape(1),
+                      plan.wave_hist])
+    return ledger, plan.codes, kflags, wave
+
+
+def full_inputs(ledger, soa, count, has_postvoid=True):
+    """The kernels' inputs on one batch: its gather context, id index, wave
+    inputs and the legs of an iterate where every valid lane is ok."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+
+    n = soa["id_lo"].shape[0]
+    dev = soa["id_lo"].device
+    valid = torch.arange(n, device=dev) < count
+    flags = soa["flags"]
+    postvoid = ((flags & (tf.TF_POST | tf.TF_VOID)) != 0) & valid
+    ctx = tf.build_gather_ctx(ledger, soa, valid, postvoid,
+                              has_postvoid=has_postvoid)
+    idx = tf._build_id_index_plain(soa["id_lo"], soa["id_hi"],
+                                   soa["pending_id_lo"], soa["pending_id_hi"])
+    waves = tf._wave_inputs(ctx, soa, count, has_postvoid, idx)
+    pick = lambda own, pv: torch.where(postvoid, pv, own)  # noqa: E731
+    legs = dict(
+        start_bal={k: tf._interleave(pick(ctx.drT.bal[k], ctx.pdr.bal[k]),
+                                     pick(ctx.crT.bal[k], ctx.pcr.bal[k]))
+                   for k in tf._BAL_COLS},
+        cap_sentinel=ctx.accounts_capacity, ok_lanes=valid,
+        amt_lo=soa["amount_lo"], pamt_lo=ctx.p_tab["amount_lo"],
+        dr_slot=pick(ctx.drT.slot, ctx.pdr.slot),
+        cr_slot=pick(ctx.crT.slot, ctx.pcr.slot),
+        dr_live=pick(ctx.drT.found, ctx.pdr.found),
+        cr_live=pick(ctx.crT.found, ctx.pcr.found),
+        pending_f=((flags & tf.TF_PENDING) != 0) & valid,
+        post=((flags & tf.TF_POST) != 0) & valid, postvoid=postvoid,
+        has_postvoid=has_postvoid)
+    return ctx, idx, waves, legs, valid
+
+
+def soa_of(batch, dev):
+    from tigerbeetle_tpu_torch import convert, types
+
+    padded = np.zeros(LANES, dtype=batch.dtype)
+    padded[: len(batch)] = batch
+    return convert.soa_to_tensors(types.to_soa(padded), dev)
+
+
+def nbytes(*tensors) -> int:
+    out = 0
+    for t in tensors:
+        if isinstance(t, dict):
+            out += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            out += nbytes(*t)
+        elif hasattr(t, "numel"):
+            out += t.numel() * t.element_size()
+    return out
+
+
+def profile_by_name(fn, reps=5):
+    """Device ms per call of ``fn`` by kernel name, and launches per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key[:60]] = (e.self_device_time_total / 1e3 / reps,
+                               e.count / reps)
+    return out
+
+
+def kernel_ms(by_name, prefix):
+    total = sum(v[0] for k, v in by_name.items() if k.startswith(prefix))
+    calls = sum(v[1] for k, v in by_name.items() if k.startswith(prefix))
+    return total, calls
+
+
+def phase_full_kernels(seed: int, dev) -> dict:
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+    from tigerbeetle_tpu_torch.testing import fullmix
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
+
+    rng = np.random.default_rng(seed + 4)
+    m, mix, wall = full_prepared_ledger(rng, dev)
+    errs = {k: 0 for k in ("full_index", "full_legs", "full_waves",
+                           "full_pass", "claim", "write_claimed")}
+    checked = []
+    kinds = ["general", "general"] + list(fullmix.SEQ_REASONS)
+    for b, kind in enumerate(kinds):
+        batch = mix.batch(COUNT, kind)
+        ts = wall + 10 ** 9 * (b + 1)
+        soa = soa_of(batch, dev)
+        # K9, K10, K12 on their own, on this batch's inputs.
+        ctx, idx, waves, legs, valid = full_inputs(m.ledger, soa, COUNT)
+        k9 = tf._build_id_index(soa["id_lo"], soa["id_hi"], soa["pending_id_lo"],
+                                soa["pending_id_hi"])
+        errs["full_index"] = max(errs["full_index"], max_abs_err(
+            f"full_index ({kind})", {f: to_np(v) for f, v in k9._asdict().items()},
+            {f: to_np(v) for f, v in idx._asdict().items()}))
+        kl = tf._leg_balances(**legs)
+        pl = tf._leg_balances_plain(**legs)
+        errs["full_legs"] = max(errs["full_legs"], max_abs_err(
+            f"full_legs ({kind})", legs_np(kl), legs_np(pl)))
+        kw = tf._wave_schedule(*waves, valid, ctx.accounts_capacity,
+                               tf._MAX_PASSES)
+        pw = tf._wave_schedule_plain(*waves, valid, ctx.accounts_capacity,
+                                     tf._MAX_PASSES)
+        errs["full_waves"] = max(errs["full_waves"], max_abs_err(
+            f"full_waves ({kind})", {str(i): to_np(v) for i, v in enumerate(kw)},
+            {str(i): to_np(v) for i, v in enumerate(pw)}))
+        # The whole kernel: the general batches at pass budgets 1, 2, 3 and 8
+        # (every iterate up to the third), waves on and off; the FLAG_SEQ
+        # batches at 8: codes, kflags, the wave vector and the applied
+        # ledger.
+        budgets = (1, 2, 3, 8) if kind == "general" else (8,)
+        for max_passes in budgets:
+            for waves_on in ((True, False) if kind == "general" else (True,)):
+                gk, gp = clone_ledger(m.ledger), clone_ledger(m.ledger)
+                rk = tf.create_transfers_full_impl(
+                    gk, soa, COUNT, ts, max_passes=max_passes,
+                    use_waves=waves_on)
+                rp = full_plain(gp, soa, COUNT, ts, max_passes=max_passes,
+                                use_waves=waves_on)
+                got = {"codes": to_np(rk[1]), "kflags": to_np(rk[2]),
+                       **ledger_np(gk)}
+                want = {"codes": to_np(rp[1]), "kflags": to_np(rp[2]),
+                        **ledger_np(gp)}
+                if waves_on:
+                    got["wave"], want["wave"] = to_np(rk[3]), to_np(rp[3])
+                err = max_abs_err(f"full kernel ({kind}, {max_passes} passes, "
+                                  f"waves {waves_on})", got, want)
+                for k in ("full_pass", "claim", "write_claimed"):
+                    errs[k] = max(errs[k], err)
+                checked.append((kind, max_passes, waves_on,
+                                int(to_np(rk[2]))))
+                del gk, gp
+        res = m.create_transfers(batch, ts)
+        mix.settle(i for i, _ in res)
+    routed = {kind: [k for kd, mp, w, k in checked if kd == kind and mp == 8]
+              for kind in kinds}
+    for kind in fullmix.SEQ_REASONS:
+        if not all(k & tf.FLAG_SEQ for k in routed[kind]):
+            raise AssertionError(f"full_kernels: {kind} batch not flagged FLAG_SEQ")
+    if not all(k == 0 for k in routed["general"]):
+        raise AssertionError(f"full_kernels: a general batch was flagged {routed}")
+
+    # -- times and bounds at the path's shape: a bench.py two-phase batch --
+    led = m.ledger
+    batch = gen_two_phase_np(0, LANES, COUNT, COUNT, 1 << 50)
+    soa = soa_of(batch, dev)
+    ts = wall + 10 ** 11
+    ctx, idx, waves, legs, valid = full_inputs(led, soa, COUNT)
+    results = {}
+    ids = (soa["id_lo"], soa["id_hi"], soa["pending_id_lo"], soa["pending_id_hi"])
+    stacked = torch.stack([soa["id_hi"], soa["id_lo"]], 1)
+    results["full_index"] = dict(
+        max_abs_err=errs["full_index"],
+        **pair_times(timed(lambda: tf._build_id_index(*ids)),
+                     timed(lambda: tf._build_id_index_plain(*ids))),
+        library_ms=timed(lambda: torch.unique(stacked, dim=0,
+                                              return_inverse=True))["device_ms"],
+        bound=bound(nbytes(*ids) + LANES * (8 + 1 + 8) + 1, 20 * LANES),
+        shape=f"{LANES} lanes of a two-phase batch; library: torch.unique "
+              "of the (hi, lo) id pairs with return_inverse")
+    legs_out = tf._leg_balances(**legs)
+    n2 = 2 * LANES
+    results["full_legs"] = dict(
+        max_abs_err=errs["full_legs"],
+        **pair_times(timed(lambda: tf._leg_balances(**legs)),
+                     timed(lambda: tf._leg_balances_plain(**legs))),
+        library_ms=None,
+        # Inputs read once (start balances of every leg, the lane inputs),
+        # outputs written once (positions, 16 values, slots, flags).
+        bound=bound(nbytes(legs["start_bal"]) + LANES * 38
+                    + n2 * (8 + 16 * 8 + 8 + 1 + 1) + 1,
+                    n2 * 14 * 15 // 2 + 40 * n2),
+        shape=f"{n2} legs of a two-phase batch, every valid lane ok")
+    del legs_out
+    wargs = (*waves, valid, ctx.accounts_capacity, tf._MAX_PASSES)
+    results["full_waves"] = dict(
+        max_abs_err=errs["full_waves"],
+        **pair_times(timed(lambda: tf._wave_schedule(*wargs)),
+                     timed(lambda: tf._wave_schedule_plain(
+                         *waves, valid, ctx.accounts_capacity, tf._MAX_PASSES))),
+        library_ms=None,
+        bound=bound(LANES * (1 + 16 + 2 + 1 + 4) + 36 + 6, n2 * 14 * 15 // 2),
+        shape=f"{LANES} lanes of a two-phase batch")
+    # K11: every launch of one kernel core (passes + aux) on this batch.
+    core = profile_by_name(lambda: tf._kernel_core(ctx, soa, COUNT, ts,
+                                                   use_waves=True))
+    plain_core = timed(lambda: tf._kernel_core_plain(ctx, soa, COUNT, ts,
+                                                     use_waves=True), reps=3)
+    plan = tf._kernel_core(ctx, soa, COUNT, ts, use_waves=True)
+    k11_ms, k11_calls = kernel_ms(core, "full_pass_kernel")
+    k10_ms, k10_calls = kernel_ms(core, "full_legs_kernel")
+    passes = int(plan.passes.item())
+    ins = [soa, ctx.ex_found, ctx.e_tab, ctx.p_tab_found, ctx.p_tab,
+           [v._asdict() for v in (ctx.drT, ctx.crT, ctx.pdr, ctx.pcr)],
+           ctx.postedT_found, ctx.postedT_val, idx._asdict()]
+    outs = [plan.codes, plan.ok, plan.row, plan.posted_key, plan.pv_ok,
+            plan.do_hist, plan.hist_row]
+    results["full_pass"] = dict(
+        max_abs_err=errs["full_pass"], ms=k11_ms, plain_ms=plain_core["device_ms"],
+        call_ms=None, plain_call_ms=plain_core["call_ms"],
+        launches_per_core=k11_calls, passes=passes,
+        k10_in_core_ms=k10_ms, k10_launches_per_core=k10_calls,
+        library_ms=None,
+        bound=bound(nbytes(*ins) + nbytes(*outs), 400 * LANES * (passes + 1)),
+        shape=f"{LANES} lanes of a two-phase batch: every K11 launch of one "
+              f"kernel core ({passes} passes + the aux pass); plain: the whole "
+              "plain kernel core (its index, legs and waves included)")
+    # K2's claim and write on the transfers table.
+    xfr = led.transfers
+    ok = plan.ok
+    kflags = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def claim_once(t):
+        return _cuda.claim(t.key_lo, t.key_hi, t.tombstone, soa["id_lo"],
+                           soa["id_hi"], ok, sm.MAX_PROBE)
+
+    t_claim, _ = claim_once(clone_table(xfr))
+    steps = int((((to_np(t_claim)[to_np(ok)] - home_np(
+        to_np(soa["id_lo"]), to_np(soa["id_hi"]), xfr.capacity)[to_np(ok)])
+        & np.uint64(xfr.capacity - 1)) + 1).sum()) if bool(ok.any()) else 0
+    n_ok = int(ok.sum())
+    results["claim"] = dict(
+        max_abs_err=errs["claim"],
+        **pair_times(
+            timed(lambda t: claim_once(t), reps=10,
+                  setup=lambda: (clone_table(xfr),)),
+            timed(lambda t: ht.claim_slots_plain(t, soa["id_lo"], soa["id_hi"],
+                                                 ok, sm.MAX_PROBE),
+                  reps=10, setup=lambda: (clone_table(xfr),))),
+        library_ms=None,
+        bound=bound(LANES * (16 + 1 + 8) + 17 * steps + 16 * n_ok,
+                    40 * LANES + 10 * steps),
+        shape=f"{LANES} lanes ({n_ok} ok) into the transfers table "
+              f"(2^{xfr.capacity.bit_length() - 1})")
+    row_bytes = sum(v.element_size() for v in xfr.cols.values())
+
+    def write_setup():
+        t = clone_table(xfr)
+        c, _ = claim_once(t)
+        return t, c
+
+    def write_plain_setup():
+        t = clone_table(xfr)
+        c, _ = ht.claim_slots_plain(t, soa["id_lo"], soa["id_hi"], ok,
+                                    sm.MAX_PROBE)
+        return t, c
+
+    results["write_claimed"] = dict(
+        max_abs_err=errs["write_claimed"],
+        **pair_times(
+            timed(lambda t, c: _cuda.write_claimed(
+                t.key_lo, t.key_hi, t.tombstone, t.cols, t.count, soa["id_lo"],
+                soa["id_hi"], c, ok, plan.row, gate=kflags, revert=True),
+                reps=10, setup=write_setup),
+            timed(lambda t, c: ht.write_rows_plain(t, soa["id_lo"], soa["id_hi"],
+                                                   c, ok, plan.row),
+                  reps=10, setup=write_plain_setup)),
+        library_ms=None,
+        bound=bound(LANES * (8 + 1) + n_ok * (16 + 1 + 2 * row_bytes + 16),
+                    10 * LANES),
+        shape=f"{n_ok} rows of a two-phase batch written at claimed slots")
+    torch.cuda.synchronize()
+    return {"results": results, "batches_checked": len(checked),
+            "kflags": {kind: routed[kind] for kind in routed},
+            "core_device_ms_by_name": core}
+
+
+def legs_np(legs) -> dict:
+    out = {}
+    for k, v in legs._asdict().items():
+        if isinstance(v, tuple):
+            out[k + ".lo"], out[k + ".hi"] = to_np(v.lo), to_np(v.hi)
+        else:
+            out[k] = to_np(v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the default machine against K6 and the scalar oracle
+# ---------------------------------------------------------------------------
+
+
+def phase_full_parity(seed: int, dev) -> dict:
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.testing import fullmix
+    from tigerbeetle_tpu_torch.testing import model as M
+    from tigerbeetle_tpu_torch.testing import seqmix
+
+    rng = np.random.default_rng(seed + 5)
+    cfg = LedgerConfig(accounts_capacity_log2=14, transfers_capacity_log2=14,
+                       posted_capacity_log2=12, history_capacity_log2=12)
+    gen = TorchStateMachine(cfg, batch_lanes=LANES, device=dev)
+    seq = TorchStateMachine(cfg, batch_lanes=LANES, device=dev,
+                            force_sequential=True)
+    ref = M.ReferenceStateMachine()
+    routes = []
+    seq_calls = []
+    inner = gen._sequential
+    gen._sequential = lambda *a, **k: seq_calls.append(1) or inner(*a, **k)
+    wall = 10 ** 9
+    ab = seqmix.accounts_batch(rng, 1, COUNT, faults=False)
+    for mch in (gen, seq):
+        if mch.create_accounts(ab, wall) != []:
+            raise AssertionError("full_parity: accounts")
+    ref.create_accounts(M.accounts_from_batch(ab), wall)
+    mix = fullmix.GeneralMix(rng, list(range(1, FULL_ACCOUNTS + 1)), 1 << 40)
+    kinds = ["general"] * 4 + ["seed_big"] + list(fullmix.SEQ_REASONS) + [
+        "general"] * 2
+    failed = 0
+    codes = set()
+    for b, kind in enumerate(kinds):
+        wall += 10 ** 9
+        batch = mix.seed_big() if kind == "seed_big" else mix.batch(COUNT, kind)
+        n_seq = len(seq_calls)
+        got = gen.create_transfers(batch, wall)
+        routed = len(seq_calls) > n_seq
+        routes.append({"kind": kind, "sequential": routed})
+        if got != seq.create_transfers(batch, wall):
+            raise AssertionError(f"full_parity: batch {b} ({kind}): general != K6")
+        if got != ref.create_transfers(M.transfers_from_batch(batch), wall):
+            raise AssertionError(f"full_parity: batch {b} ({kind}): != oracle")
+        mix.settle(i for i, _ in got)
+        failed += len(got)
+        codes.update(c for _, c in got)
+    if not gen.balances_snapshot() == seq.balances_snapshot() == ref.balances_snapshot():
+        raise AssertionError("full_parity: balances")
+    if gen.digest() != seq.digest():
+        raise AssertionError("full_parity: digest")
+    ids = sorted(set(mix.used))
+    rows = gen.lookup_transfers(ids)
+    if not np.array_equal(rows, seq.lookup_transfers(ids)):
+        raise AssertionError("full_parity: lookup_transfers (general vs K6)")
+    if [M.transfer_from_row(r) for r in rows] != ref.lookup_transfers(ids):
+        raise AssertionError("full_parity: lookup_transfers (oracle)")
+    hg = convert.ledger_to_numpy(gen.ledger)["history"]
+    hs = convert.ledger_to_numpy(seq.ledger)["history"]
+    count = int(hg["count"])
+    if count != int(hs["count"]) or count != len(ref.history):
+        raise AssertionError("full_parity: history count")
+    for c in hg["cols"]:
+        if not np.array_equal(hg["cols"][c][:count], hs["cols"][c][:count]):
+            raise AssertionError(f"full_parity: history column {c}")
+    general = sum(1 for r in routes if not r["sequential"])
+    rerouted = {r["kind"]: r["sequential"] for r in routes
+                if r["kind"] in fullmix.SEQ_REASONS}
+    if not general or not all(rerouted.values()):
+        raise AssertionError(f"full_parity: routes {routes}")
+    return {"batches": len(kinds), "events_per_batch": COUNT,
+            "committed_on_general_kernel": general,
+            "rerouted_by_reason": rerouted, "routes": routes,
+            "failed_events_matched": failed, "codes_seen": sorted(codes),
+            "history_rows": count, "transfers_looked_up": len(ids)}
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the general path at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
+    """bench.py's --two-phase (``shape`` "twophase") or --limits ("limits")
+    through a default machine: 10,000 accounts, then ``n_transfers``
+    transfers in 8,190-event batches, every batch committed by the general
+    kernel with kflags 0 on its first attempt."""
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils import benchgen
+
+    grows = []
+    grow = ht.grow
+
+    def timed_grow(table, capacity, hash_shift=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grow(table, capacity, hash_shift)
+        torch.cuda.synchronize()
+        grows.append({"from": table.capacity, "to": capacity,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    batch_max = COUNT
+    gc.collect()  # an earlier phase's machine must not count in this peak
+    torch.cuda.reset_peak_memory_stats()
+    m = TorchStateMachine(LedgerConfig(), batch_lanes=LANES, device=dev)
+    attempts = []  # the first routing word of every readback: kflags
+    d2h = m._d2h_codes
+
+    def spy(codes, *words):
+        out = d2h(codes, *words)
+        attempts.append(int(out[1][0]))
+        return out
+
+    m._d2h_codes = spy
+    flagged = []
+    grow_flagged = m._grow_flagged
+    m._grow_flagged = lambda k: flagged.append(k) or grow_flagged(k)
+    ht.grow = timed_grow
+    try:
+        debits = np.zeros(N_ACCOUNTS + 2, dtype=object)
+        credits = np.zeros(N_ACCOUNTS + 2, dtype=object)
+        if shape == "limits":
+            for b in benchgen.gen_limit_accounts_np(N_ACCOUNTS, batch_max):
+                if m.create_accounts(b) != []:
+                    raise AssertionError("limits: account creation failed")
+            for b in benchgen.gen_funding_np(N_ACCOUNTS, batch_max):
+                if m.create_transfers(b) != []:
+                    raise AssertionError("limits: funding failed")
+                for d, c, a in zip(b["debit_account_id_lo"],
+                                   b["credit_account_id_lo"], b["amount_lo"]):
+                    debits[int(d)] += int(a)
+                    credits[int(c)] += int(a)
+        else:
+            for start in range(0, N_ACCOUNTS, batch_max):
+                ids = range(start + 1, min(N_ACCOUNTS, start + batch_max) + 1)
+                if m.create_accounts(types.accounts_array(
+                        [types.account(id=i, ledger=1, code=10) for i in ids])) != []:
+                    raise AssertionError("twophase: account creation failed")
+        setup_readbacks = len(attempts)
+        dsum = np.zeros(N_ACCOUNTS + 2, np.uint64)
+        csum = np.zeros(N_ACCOUNTS + 2, np.uint64)
+        caps0 = (m.ledger.transfers.capacity, m.ledger.posted.capacity)
+        n_batches = max(1, (n_transfers + batch_max - 1) // batch_max)
+        window = range(n_batches - 1 - PROFILE_BATCHES, n_batches - 1)
+        if window.start < 0:
+            window = range(0)
+        _cuda.reset_counts()
+        commit_s = steady_s = 0.0
+        n_timed = n_steady = 0
+        prof_commit_ms = 0.0
+        prof = None
+        passes, wave_hist, bounds = {}, np.zeros(9, np.int64), {}
+        first_tid = 1 << 32
+        for b in range(n_batches):
+            if shape == "limits":
+                batch = benchgen.gen_batch_np(b, LANES, batch_max, N_ACCOUNTS,
+                                              first_tid)
+            else:
+                batch = benchgen.gen_two_phase_np(b, LANES, batch_max,
+                                                  N_ACCOUNTS, first_tid)
+            caps = (m.ledger.transfers.capacity, m.ledger.posted.capacity)
+            if window and b == window.start:
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            n_att = len(attempts)
+            t0 = time.perf_counter()
+            res = m.create_transfers(batch)
+            dt = time.perf_counter() - t0
+            grew = (m.ledger.transfers.capacity, m.ledger.posted.capacity) != caps
+            if b in window:
+                prof_commit_ms += dt * 1e3
+            else:
+                commit_s += dt
+                n_timed += len(batch)
+                if not grew:
+                    steady_s += dt
+                    n_steady += 1
+            if window and b == window.stop - 1:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+            if res:
+                raise AssertionError(f"{shape}: batch {b} had failures {res[:5]}")
+            if attempts[n_att:] != [0]:
+                raise AssertionError(f"{shape}: batch {b} kflags {attempts[n_att:]}")
+            w = m.last_wave
+            passes[int(w[0])] = passes.get(int(w[0]), 0) + 1
+            bounds[int(w[1])] = bounds.get(int(w[1]), 0) + 1
+            wave_hist += w[2:].astype(np.int64)
+            if shape == "limits":
+                np.add.at(dsum, batch["debit_account_id_lo"].astype(np.int64),
+                          batch["amount_lo"])
+                np.add.at(csum, batch["credit_account_id_lo"].astype(np.int64),
+                          batch["amount_lo"])
+            else:
+                pend = batch[: len(batch) // 2]
+                np.add.at(dsum, pend["debit_account_id_lo"].astype(np.int64),
+                          pend["amount_lo"])
+                np.add.at(csum, pend["credit_account_id_lo"].astype(np.int64),
+                          pend["amount_lo"])
+        torch.cuda.synchronize()
+        launches = _cuda.counts()
+    finally:
+        ht.grow = grow
+        del m._d2h_codes, m._grow_flagged  # the spies refer back to m
+    if flagged:
+        raise AssertionError(f"{shape}: flagged growths {flagged}")
+    n_acc = N_ACCOUNTS + (1 if shape == "limits" else 0)
+    rows = m.lookup_accounts(list(range(1, n_acc + 1)))
+    if len(rows) != n_acc:
+        raise AssertionError(f"{shape}: lookup lost accounts")
+    order = rows["id_lo"].astype(np.int64)
+    for name, run, setup in (("debits_posted", dsum, debits),
+                             ("credits_posted", csum, credits)):
+        want = [int(run[i]) + int(setup[i]) for i in order]
+        got = [(int(h) << 64) | int(lo) for lo, h in zip(rows[name + "_lo"],
+                                                         rows[name + "_hi"])]
+        if got != want:
+            raise AssertionError(f"{shape}: {name} differs from the closed form")
+    for name in ("debits_pending", "credits_pending"):
+        if rows[name + "_lo"].any() or rows[name + "_hi"].any():
+            raise AssertionError(f"{shape}: {name} not zero")
+    digest = m.digest()
+    a = m.ledger.accounts
+    plain = sm.ledger_digest_plain(
+        a.key_lo, a.key_hi,
+        [a.cols[c] for c in sm.BALANCE_COLS] + [a.cols["timestamp"]])
+    if digest != int(plain.item()) & ((1 << 64) - 1):
+        raise AssertionError(f"{shape}: digest differs from its plain version")
+    committed = int(m.ledger.transfers.count.item())
+    setup_transfers = N_ACCOUNTS if shape == "limits" else 0
+    if committed != n_batches * batch_max + setup_transfers:
+        raise AssertionError(f"{shape}: transfers count {committed}")
+    if launches["seq_transfers"]:
+        raise AssertionError(f"{shape}: K6 launched {launches['seq_transfers']}")
+    missing = [k for k in FULL_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{shape}: kernels not launched {missing}")
+    profile = None
+    if prof is not None:
+        by_name = {}
+        busy = device_us(prof, by_name) / 1e3
+        if busy <= 0:
+            raise AssertionError(f"{shape}: the profile recorded no device time")
+        steady_ms = steady_s * 1e3 / n_steady if n_steady else None
+        profile = {
+            "batches": len(window), "commit_wall_ms": prof_commit_ms,
+            "device_busy_ms": busy,
+            "device_busy_ms_per_batch": busy / len(window),
+            "device_idle_share": 1 - busy / prof_commit_ms,
+            "unprofiled_batches": n_steady,
+            "unprofiled_wall_ms_per_batch": steady_ms,
+            "device_idle_share_unprofiled":
+                1 - busy / len(window) / steady_ms if steady_ms else None,
+            "device_ms_per_batch_by_name": {
+                k: v / 1e3 / len(window) for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:14]},
+        }
+    return {
+        "shape": shape, "accounts": n_acc, "transfers": n_batches * batch_max,
+        "batches": n_batches, "setup_readbacks": setup_readbacks,
+        "capacities_before": caps0,
+        "capacities_after": [m.ledger.transfers.capacity,
+                             m.ledger.posted.capacity],
+        "table_grows": grows, "flagged_grows": len(flagged),
+        "commit_s_unprofiled": commit_s,
+        "transfers_per_s": n_timed / commit_s if commit_s else None,
+        "wall_ms_per_batch_unprofiled": commit_s * 1e3 / max(
+            1, n_batches - len(window)),
+        "jacobi_passes": passes, "wave_bounds": bounds,
+        "wave_hist": wave_hist.tolist(), "profile": profile,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "digest": digest, "launches": launches,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--transfers", type=int, default=10_000_000)
-    # bench.py's --two-phase size; the phase takes under a minute on one
-    # H100 (K6 takes ~34 ms per 8,190-event batch).
-    p.add_argument("--seq-transfers", type=int, default=10_000_000)
+    # Cut from bench.py's --two-phase size (10,000,000, under a minute on one
+    # H100 at K6's ~34 ms per 8,190-event batch) to keep the whole script
+    # near five minutes; the general path's two phases run bench.py's size.
+    p.add_argument("--seq-transfers", type=int, default=2_000_000)
+    # bench.py's depth for the general path's two full-size shapes.
+    p.add_argument("--full-transfers", type=int, default=10_000_000)
     args = p.parse_args()
 
     import torch
@@ -1408,13 +2101,39 @@ def main() -> int:
         raise AssertionError(
             f"kernels not launched on the sequential path: {missing}")
 
+    t0 = time.perf_counter()
+    fullk = phase_full_kernels(args.seed, dev)
+    kern.update(fullk["results"])
+    emit({"phase": "full_kernels", "seconds": time.perf_counter() - t0,
+          "batches_checked": fullk["batches_checked"],
+          "kflags_at_8_passes": fullk["kflags"],
+          "core_device_ms_by_name": fullk["core_device_ms_by_name"],
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in fullk["results"].items()}})
+
+    t0 = time.perf_counter()
+    fullp = phase_full_parity(args.seed, dev)
+    emit({"phase": "full_parity", "seconds": time.perf_counter() - t0, **fullp})
+
+    full_launches = {}
+    for shape in ("twophase", "limits"):
+        t0 = time.perf_counter()
+        run = phase_full_path(dev, shape, args.full_transfers)
+        emit({"phase": "full_" + shape, "seconds": time.perf_counter() - t0,
+              "nvidia_smi": smi, **run})
+        full_launches[shape] = run["launches"]
+
     # Each kernel's launches come from the path it serves: K1-K5 from the
     # main path, K6/K7 from the sequential path, K8 from making the tables
-    # of seq_kernels (its device function runs inside K6/K7's rollbacks).
+    # of seq_kernels (its device function runs inside K6/K7's rollbacks),
+    # K9-K12 and K2's claim/write entries from the general path's two-phase
+    # run (the limits run launched each of them too).
     paths = {name: ("main", launches) for name in MAIN_PATH}
     paths.update({name: ("sequential", seq_launches)
                   for name in ("seq_transfers", "seq_accounts")})
     paths["tombstone"] = ("seq_kernels tables", seqk["prep_launches"])
+    paths.update({name: ("full_twophase", full_launches["twophase"])
+                  for name in FULL_PATH if name != "probe"})
     rows = []
     for name, k in _cuda.KERNELS.items():
         r = kern[name]

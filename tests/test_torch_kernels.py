@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K8 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K12 against their plain PyTorch versions
 on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere;
 this file imports no JAX, so it runs on a machine without it:
 
@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from tigerbeetle_tpu_torch import convert, types
+from tigerbeetle_tpu_torch.ops import _cuda
 from tigerbeetle_tpu_torch.ops import hash_table as ht
 from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
-from tigerbeetle_tpu_torch.testing import seqmix
+from tigerbeetle_tpu_torch.ops import transfer_full as tf
+from tigerbeetle_tpu_torch.testing import fullmix, seqmix
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -224,3 +226,172 @@ def test_tombstone_kernel_matches_plain(cuda_device):
         tables.append(t)
     tables_equal(*tables)
     assert int(tables[0].count) == 1500 - int(valid.sum())
+
+
+# -- K2's claim/write entries and the general kernel (K9-K12) -----------------
+
+
+def ledger_to(led, dev):
+    return convert.ledger_from_numpy(convert.ledger_to_numpy(led), dev)
+
+
+def test_claim_and_write_entries_match_plain(cuda_device):
+    """K2's claim leaves the table as it was (claim_slots), the claimed
+    slots equal the plain protocol's, a closed gate clears the marks, an
+    open gate writes what the plain write_rows writes."""
+    rng = np.random.default_rng(41)
+    cap = 1 << 12
+    lo, rows = keyed_rows(rng, 1500, cuda_device)
+    hi = torch.zeros_like(lo)
+    t = ht.make_table(cap, COLS, cuda_device)
+    ht.insert(t, lo, hi, torch.ones_like(lo, dtype=torch.bool), rows, cap)
+    ht.remove_to_tombstone(t, torch.arange(0, cap, 37, device=cuda_device),
+                           torch.ones(len(range(0, cap, 37)), dtype=torch.bool,
+                                      device=cuda_device))
+    new = torch.cat([convert.array_to_tensor(same_home(cap, 5, 6, 1 << 61),
+                                             cuda_device),
+                     lo[:40] + (1 << 40)])
+    nh = torch.zeros_like(new)
+    mask = torch.from_numpy(rng.random(len(new)) < 0.85).to(cuda_device)
+    nrows = {"val": new * 3, "tag": new.to(torch.int32)}
+    for max_probe in (sm.MAX_PROBE, 1):
+        before = ledger_table_copy(t)
+        ck, ok_ = ht.claim_slots(t, new, nh, mask, max_probe)
+        tables_equal(t, before)
+        cp, op = ht.claim_slots_plain(ledger_table_copy(t, "cpu"), new.cpu(),
+                                      nh.cpu(), mask.cpu(), max_probe)
+        assert torch.equal(ck.cpu(), cp) and bool(ok_) == bool(op)
+        for gate in (1, 0):
+            a = ledger_table_copy(t)
+            claimed, word = _cuda.claim(a.key_lo, a.key_hi, a.tombstone, new,
+                                        nh, mask, max_probe)
+            word.fill_(gate)
+            _cuda.write_claimed(a.key_lo, a.key_hi, a.tombstone, a.cols,
+                                a.count, new, nh, claimed, mask, nrows,
+                                gate=word, revert=True)
+            b = ledger_table_copy(t)
+            if gate == 0:
+                ht.write_rows(b, new, nh, ck, mask, nrows)
+                c = ledger_table_copy(t, "cpu")
+                ht.write_rows_plain(c, new.cpu(), nh.cpu(), cp, mask.cpu(),
+                                    {k: v.cpu() for k, v in nrows.items()})
+                tables_equal(ledger_table_copy(b, "cpu"), c)
+            tables_equal(a, b)
+
+
+def ledger_table_copy(t, dev=None):
+    dev = dev or t.key_lo.device
+    return ht.Table(t.key_lo.to(dev, copy=True), t.key_hi.to(dev, copy=True),
+                    t.tombstone.to(dev, copy=True),
+                    {k: v.to(dev, copy=True) for k, v in t.cols.items()},
+                    t.count.to(dev, copy=True),
+                    t.probe_overflow.to(dev, copy=True))
+
+
+def test_full_index_legs_and_waves_match_plain(cuda_device):
+    rng = np.random.default_rng(43)
+    n = 2048
+    lo = rng.integers(1, 600, n).astype(np.uint64)
+    lo[rng.random(n) < 0.05] = 0
+    lo[2000:] = 0
+    pend = rng.integers(0, 700, n).astype(np.uint64)
+    zero = np.zeros(n, np.uint64)
+    args = [convert.array_to_tensor(a, cuda_device) for a in (lo, zero, pend,
+                                                             zero)]
+    k = tf._build_id_index(*args)
+    p = tf._build_id_index_plain(*[a.cpu() for a in args])
+    for x, y in zip(k, p):
+        assert torch.equal(x.cpu(), y)
+
+    slots = rng.integers(0, 300, (2, n)).astype(np.int64)
+    live = rng.random((2, n)) < 0.9
+    flags = rng.integers(0, 4, n)
+    cap = 1 << 10
+    for has_pv in (True, False):
+        start = {c: torch.from_numpy(rng.integers(
+            0, 1 << 62, 2 * n, dtype=np.int64)) for c in tf._BAL_COLS}
+        start["debits_pending_hi"][::7] = -1  # 2**128 - 1: any add overflows
+        start["debits_pending_lo"][::7] = -1
+        cpu = (start, cap, torch.from_numpy(rng.random(n) < 0.7),
+               torch.from_numpy(rng.integers(0, 1 << 62, n, dtype=np.int64)),
+               torch.from_numpy(rng.integers(0, 1 << 40, n, dtype=np.int64)),
+               torch.from_numpy(slots[0]), torch.from_numpy(slots[1]),
+               torch.from_numpy(live[0]), torch.from_numpy(live[1]),
+               torch.from_numpy(flags == 1), torch.from_numpy(flags == 2),
+               torch.from_numpy(flags >= 2), has_pv)
+        gpu = tuple({kk: vv.to(cuda_device) for kk, vv in a.items()}
+                    if isinstance(a, dict) else
+                    a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                    for a in cpu)
+        kl, pl = tf._leg_balances(*gpu), tf._leg_balances(*cpu)
+        for x, y in zip(kl, pl):
+            if isinstance(y, tuple):
+                assert torch.equal(x.lo.cpu(), y.lo)
+                assert torch.equal(x.hi.cpu(), y.hi)
+            else:
+                assert torch.equal(x.cpu(), y)
+        assert bool(pl.arith_broken)
+
+    for max_rounds in (2, 8):
+        hazard = torch.from_numpy(rng.random(n) < 0.3)
+        hs = torch.from_numpy(rng.integers(0, 64, (2, n)).astype(np.int64))
+        valid = torch.arange(n) < 2000
+        cpu = (hazard, torch.tensor([False]), hs[0], torch.from_numpy(live[0]),
+               hs[1], torch.from_numpy(live[1]), valid, cap, max_rounds)
+        gpu = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                    for a in cpu)
+        kw, pw = tf._wave_schedule(*gpu), tf._wave_schedule_plain(
+            cpu[0], cpu[1][0], *cpu[2:])
+        for x, y in zip(kw, pw):
+            assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("waves", [True, False])
+def test_general_kernel_on_card_matches_plain_on_cpu(cuda_device, waves):
+    """create_transfers_full_impl on the card (K1, K2, K9-K12) against the
+    plain version on a CPU copy, batch by batch of the general mix and each
+    FLAG_SEQ kind, with pass budgets of 1, 2 and 8: codes, kflags, the wave
+    vector and every ledger array."""
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    rng = np.random.default_rng(47 + waves)
+    lanes = 512
+    m = TorchStateMachine(LedgerConfig(accounts_capacity_log2=10,
+                                       transfers_capacity_log2=14,
+                                       posted_capacity_log2=12,
+                                       history_capacity_log2=12),
+                          batch_lanes=lanes, device="cpu")
+    m.create_accounts(seqmix.accounts_batch(rng, 1, 200, faults=False), 10)
+    mix = fullmix.GeneralMix(rng, list(range(1, 201)), 1 << 40)
+    m.create_transfers(mix.seed_big(), 10 ** 9)
+    kinds = ["general"] * 3 + list(fullmix.SEQ_REASONS)
+    for b, kind in enumerate(kinds):
+        batch = mix.batch(lanes - 10, kind)
+        padded = np.zeros(lanes, dtype=batch.dtype)
+        padded[:len(batch)] = batch
+        soa = types.to_soa(padded)
+        ts = 10 ** 9 * (b + 2)
+        for max_passes in (1, 2, 8):
+            gk = ledger_to(m.ledger, cuda_device)
+            gp = ledger_to(m.ledger, "cpu")
+            rk = tf.create_transfers_full_impl(
+                gk, convert.soa_to_tensors(soa, cuda_device), len(batch), ts,
+                max_passes=max_passes, use_waves=waves)
+            rp = tf.create_transfers_full_impl(
+                gp, convert.soa_to_tensors(soa, "cpu"), len(batch), ts,
+                max_passes=max_passes, use_waves=waves)
+            for x, y in zip(rk[1:], rp[1:]):
+                assert torch.equal(x.cpu(), y), (kind, max_passes)
+            want = convert.ledger_to_numpy(gp)
+            got = convert.ledger_to_numpy(gk)
+            for name in want:
+                for key, v in want[name].items():
+                    if key == "cols":
+                        for c in v:
+                            np.testing.assert_array_equal(got[name]["cols"][c],
+                                                          v[c])
+                    else:
+                        np.testing.assert_array_equal(got[name][key], v)
+        res = m.create_transfers(batch, ts)
+        mix.settle(i for i, _ in res)

@@ -1,13 +1,15 @@
 """TorchStateMachine (the port's host seam) against TpuStateMachine and the
-scalar oracle, on the fast path and on the sequential path, plus the port's
-boundaries: no JAX import, copied modules kept equal to their sources, the
-device default, and every route not ported yet raising
+scalar oracle, on the fast path, the general kernel (with its FLAG_SEQ
+re-routes, its growth retry and TB_WAVES) and the sequential path, plus the
+port's boundaries: no JAX import, copied modules kept equal to their
+sources, the device default, and every route not ported yet raising
 NotImplementedError."""
 
 import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,8 @@ from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch import machine as tmachine
 from tigerbeetle_tpu_torch.machine import TorchStateMachine
 from tigerbeetle_tpu_torch.ops import state_machine as tsm
+from tigerbeetle_tpu_torch.ops import transfer_full as tf
+from tigerbeetle_tpu_torch.testing import fullmix, seqmix
 from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np, gen_two_phase_np
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -215,24 +219,40 @@ UNPORTED_BATCHES = {
 
 @pytest.mark.parametrize("route", sorted(UNPORTED_BATCHES))
 def test_batches_the_fast_path_refuses_raise(route):
-    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
-    t.create_accounts(types.accounts_array(
-        [types.account(id=i, ledger=1, code=1) for i in (1, 2)]))
-    before = t.digest()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        t.create_transfers(UNPORTED_BATCHES[route])
-    assert t.digest() == before and int(t.ledger.transfers.count) == 0
+    """These batches raised before the general kernel was ported; now the
+    default machine commits each of them as the JAX machine does (general
+    kernel, or its FLAG_SEQ re-route), table for table."""
+    t, j, ref = trio(batch_lanes=64)
+    commit3(t, j, ref, "create_accounts", types.accounts_array(
+        [types.account(id=i, ledger=1, code=1) for i in (1, 2)]), 10)
+    commit3(t, j, ref, "create_transfers", types.transfers_array([
+        types.transfer(id=9, debit_account_id=2, credit_account_id=1,
+                       amount=5, ledger=1, code=1, flags=F.PENDING)]), 20)
+    commit3(t, j, ref, "create_transfers", UNPORTED_BATCHES[route], 30)
+    assert_same_ledger(t, j)
+    assert t.balances_snapshot() == ref.balances_snapshot()
+    assert t.digest() == j.digest()
 
 
 @pytest.mark.parametrize("flags", [AccountFlags.HISTORY,
                                    AccountFlags.DEBITS_MUST_NOT_EXCEED_CREDITS])
 def test_history_and_limit_accounts_end_the_fast_path(flags):
-    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
-    assert t.create_accounts(types.accounts_array(
+    """Once a history or limit account exists, every create_transfers batch
+    takes the general kernel, in both machines, with equal results and
+    history rows."""
+    t, j, ref = trio(batch_lanes=64)
+    commit3(t, j, ref, "create_accounts", types.accounts_array(
         [types.account(id=1, ledger=1, code=1, flags=flags),
-         types.account(id=2, ledger=1, code=1)])) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        t.create_transfers(_transfer())
+         types.account(id=2, ledger=1, code=1)]), 10)
+    calls = []
+    t._commit_fast = lambda *a: calls.append(a)
+    commit3(t, j, ref, "create_transfers", types.transfers_array([
+        types.transfer(id=10 + i, debit_account_id=2 - i % 2,
+                       credit_account_id=1 + i % 2, amount=3 + i, ledger=1,
+                       code=1) for i in range(6)]), 20)
+    assert not calls
+    assert_same_ledger(t, j)
+    assert t.balances_snapshot() == ref.balances_snapshot()
 
 
 def test_linked_accounts_with_duplicate_ids_raise():
@@ -490,3 +510,217 @@ def test_kernel_sources_are_in_the_repository():
         path, line = k.replaces.split(":")
         assert path.split("/", 1)[1] in src
         assert int(line) > 0
+
+
+# -- the general kernel (ops/transfer_full) ------------------------------------
+
+CFG_FULL = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=10,
+                        posted_capacity_log2=8, history_capacity_log2=8)
+
+
+def full_trio(n_accounts=12, waves=True, cfg=CFG_FULL):
+    """Port, JAX and oracle machines (default routing) holding accounts
+    1..n_accounts with seqmix's limit and history flags."""
+    t = TorchStateMachine(cfg, batch_lanes=64, device="cpu")
+    j = TpuStateMachine(cfg, batch_lanes=64)
+    t.waves_enabled = j.waves_enabled = waves
+    ref = M.ReferenceStateMachine()
+    commit3(t, j, ref, "create_accounts", seqmix.accounts_batch(
+        np.random.default_rng(0), 1, n_accounts, faults=False), 10)
+    return t, j, ref
+
+
+def tspec(id, dr, cr, amount, flags=0, **kw):
+    kw.setdefault("ledger", 1)
+    kw.setdefault("code", 1)
+    return types.transfer(id=id, debit_account_id=dr, credit_account_id=cr,
+                          amount=amount, flags=int(flags), **kw)
+
+
+def pvspec(id, pending_id, flags, amount=0):
+    return types.transfer(id=id, pending_id=pending_id, amount=amount,
+                          flags=int(flags))
+
+
+# Scenarios of tests/test_transfer_full.py, test_balancing_vector.py and
+# test_waves.py, as lists of batches (each a list of transfers).
+FULL_SCENARIOS = {
+    "pending_then_post_separate_batches": [
+        [tspec(100 + i, 1 + i % 6, 7 + i % 5, 10 + i, F.PENDING)
+         for i in range(16)],
+        [pvspec(200 + i, 100 + i, F.POST_PENDING_TRANSFER if i % 2
+                else F.VOID_PENDING_TRANSFER) for i in range(16)]],
+    "pending_and_post_same_batch": [
+        [tspec(300 + i, 1 + i % 6, 7 + i % 5, 50, F.PENDING) for i in range(8)]
+        + [pvspec(400 + i, 300 + i, F.POST_PENDING_TRANSFER) for i in range(8)]],
+    "double_post_and_partial_amounts": [
+        [tspec(500, 1, 6, 9, F.PENDING), tspec(600, 1, 6, 100, F.PENDING)],
+        [pvspec(501, 500, F.POST_PENDING_TRANSFER),
+         pvspec(502, 500, F.POST_PENDING_TRANSFER),
+         pvspec(503, 500, F.VOID_PENDING_TRANSFER),
+         pvspec(601, 600, F.POST_PENDING_TRANSFER, 40),
+         pvspec(602, 600, F.POST_PENDING_TRANSFER, 200)]],
+    "duplicate_post_ids": [
+        [tspec(1100, 1, 6, 30, F.PENDING),
+         pvspec(1101, 1100, F.POST_PENDING_TRANSFER),
+         pvspec(1101, 1100, F.POST_PENDING_TRANSFER),
+         pvspec(1101, 1100, F.VOID_PENDING_TRANSFER)]],
+    "balancing_clamps_on_limit_accounts": [
+        [tspec(10 + i, 8, 2 + 7 * (i % 2), 40) for i in range(4)],
+        [tspec(20 + i, 2 + 7 * (i % 2), 6, 0 if i % 3 else 15,
+               F.BALANCING_DEBIT if i % 2 else F.BALANCING_CREDIT)
+         for i in range(10)]
+        + [tspec(40 + i, 2, 6, 25) for i in range(4)]],
+    "history_accounts_and_limits": [
+        [tspec(60 + i, 4 if i % 2 else 1, 5 if i % 3 else 11, 7 + i)
+         for i in range(20)]],
+    "linked_chains_with_limits": [
+        [tspec(70, 8, 2, 100)],
+        [tspec(71, 1, 6, 5, F.LINKED), tspec(72, 6, 8, 5, F.LINKED),
+         tspec(73, 8, 1, 5), tspec(74, 4, 6, 9, F.LINKED),
+         tspec(75, 6, 4, 9, ledger=0), tspec(76, 1, 4, 2)]],
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(FULL_SCENARIOS))
+def test_general_kernel_scenarios_match_jax_and_oracle(scenario):
+    t, j, ref = full_trio()
+    for b, rows in enumerate(FULL_SCENARIOS[scenario]):
+        commit3(t, j, ref, "create_transfers", types.transfers_array(rows),
+                10 ** 9 * (b + 1))
+        assert_same_ledger(t, j)
+    assert t.balances_snapshot() == ref.balances_snapshot()
+    assert t.digest() == j.digest()
+    assert (t.prepare_timestamp, t.commit_timestamp) == (
+        j.prepare_timestamp, j.commit_timestamp)
+
+
+def run_mix(t, j, ref, seed, kinds, lanes=60):
+    """``kinds``: the fullmix batch kind of each batch.  Returns the port
+    machine's route of each batch (the sequential path or not)."""
+    rng = np.random.default_rng(seed)
+    mix = fullmix.GeneralMix(rng, list(range(1, 13)), 10_000)
+    routes = []
+    seq = t._sequential
+    for b, kind in enumerate(kinds):
+        wall = 10 ** 9 * (b + 1)
+        if kind == "seed_big":
+            batch = mix.seed_big()
+        else:
+            batch = mix.batch(lanes, kind)
+        hit = []
+        t._sequential = lambda *a, **k: hit.append(1) or seq(*a, **k)
+        got = commit3(t, j, ref, "create_transfers", batch, wall)
+        t._sequential = seq
+        routes.append(bool(hit))
+        mix.settle(i for i, _ in got)
+        assert_same_ledger(t, j)
+    assert t.balances_snapshot() == ref.balances_snapshot()
+    assert t.digest() == j.digest()
+    return routes
+
+
+@pytest.mark.parametrize("waves", [True, False])
+def test_general_mix_stays_on_the_general_kernel(waves):
+    t, j, ref = full_trio(waves=waves)
+    routes = run_mix(t, j, ref, 3 + waves, ["general"] * 4)
+    assert not any(routes)
+    assert (t.last_wave is not None) == waves
+
+
+@pytest.mark.parametrize("reason", fullmix.SEQ_REASONS)
+def test_each_flag_seq_reason_lands_on_the_sequential_path(reason):
+    """A batch the general kernel flags FLAG_SEQ (nothing applied) is run on
+    the sequential path, and still equals the JAX machine and the oracle."""
+    t, j, ref = full_trio()
+    kinds = ["general", "seed_big", reason] if reason == "arith_broken" \
+        else ["general", reason]
+    routes = run_mix(t, j, ref, 11, kinds)
+    assert routes[-1], reason
+
+
+def test_waves_on_and_off_give_the_same_ledger():
+    """TB_WAVES=0 and the default (on) commit the same codes and tables."""
+    on = full_trio(waves=True)
+    off = full_trio(waves=False)
+    assert on[0].waves_enabled and not off[0].waves_enabled
+    for t, j, ref in (on, off):
+        run_mix(t, j, ref, 21, ["general"] * 3)
+    got_on = convert.ledger_to_numpy(on[0].ledger)
+    got_off = convert.ledger_to_numpy(off[0].ledger)
+    for name in ("accounts", "transfers", "posted", "history"):
+        for k, v in got_on[name].items():
+            if k == "cols":
+                for c in v:
+                    np.testing.assert_array_equal(v[c], got_off[name]["cols"][c])
+            else:
+                np.testing.assert_array_equal(v, got_off[name][k])
+
+
+def test_tb_waves_env_default_on(monkeypatch):
+    monkeypatch.delenv("TB_WAVES", raising=False)
+    assert TorchStateMachine(CFG, device="cpu").waves_enabled
+    monkeypatch.setenv("TB_WAVES", "0")
+    assert not TorchStateMachine(CFG, device="cpu").waves_enabled
+
+
+def test_wave_metrics_equal_the_jax_machine():
+    """The wave occupancy series (the 11-int wave vector read back with the
+    codes) equal the JAX machine's, batch by batch."""
+    from tigerbeetle_tpu.obs.metrics import registry as jreg
+    from tigerbeetle_tpu_torch.obs.metrics import registry as treg
+
+    t, j, ref = full_trio()
+    with jreg.enabled_scope(), treg.enabled_scope():
+        run_mix(t, j, ref, 31, ["general"] * 3)
+        want = {k: v for k, v in jreg.snapshot()["histograms"].items()
+                if k.startswith("waves.")}
+        got = {k: v for k, v in treg.snapshot()["histograms"].items()
+               if k.startswith("waves.")}
+        assert got == want and want
+        for kind in ("counters",):
+            assert ({k: v for k, v in treg.snapshot()[kind].items()
+                     if k.startswith("waves.")}
+                    == {k: v for k, v in jreg.snapshot()[kind].items()
+                        if k.startswith("waves.")})
+
+
+def test_probe_overflow_grows_the_flagged_table_and_retries():
+    """Every free transfers slot tombstoned: the general kernel's probes
+    overflow, both machines double the table and retry, and commit the same
+    batch identically."""
+    t, j, ref = full_trio()
+    commit3(t, j, ref, "create_transfers", types.transfers_array(
+        [tspec(1, 1, 6, 10, F.PENDING)]), 10 ** 9)
+    tomb = convert.tensor_to_array(t.ledger.transfers.tombstone)
+    free = (convert.tensor_to_array(t.ledger.transfers.key_lo) == 0)
+    t.ledger.transfers.tombstone[torch.from_numpy(free)] = True
+    j.ledger = j.ledger.replace(transfers=j.ledger.transfers.replace(
+        tombstone=jnp.asarray(tomb | free)))
+    cap = t.ledger.transfers.capacity
+    grown = []
+    grow = t._grow_flagged
+    t._grow_flagged = lambda k: grown.append(k) or grow(k)
+    commit3(t, j, ref, "create_transfers", types.transfers_array(
+        [tspec(2, 1, 6, 5, F.BALANCING_DEBIT),
+         pvspec(3, 1, F.POST_PENDING_TRANSFER)]), 2 * 10 ** 9)
+    assert grown and grown[0] & tf.FLAG_GROW_TRANSFERS
+    assert t.ledger.transfers.capacity == j.ledger.transfers.capacity > cap
+    assert_same_ledger(t, j)
+
+
+@pytest.mark.parametrize("dtype", ["transfers", "accounts"])
+def test_batch_to_tensors_is_the_padded_soa(dtype):
+    """The machine's batch staging equals soa_to_tensors(to_soa(padded))."""
+    rng = np.random.default_rng(4)
+    if dtype == "transfers":
+        batch = mixed_transfers(rng, 50, 10, {"next": 1, "pool": []})
+    else:
+        batch = seqmix.accounts_batch(rng, 1, 50)
+    padded = np.zeros(64, dtype=batch.dtype)
+    padded[:50] = batch
+    want = convert.soa_to_tensors(types.to_soa(padded), "cpu")
+    got = convert.batch_to_tensors(batch, 64, "cpu")
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k

@@ -116,6 +116,27 @@ def ledger_to_numpy(ledger: sm.Ledger) -> Dict[str, Any]:
     return out
 
 
+def batch_to_tensors(batch: np.ndarray, lanes: int,
+                     device) -> Dict[str, torch.Tensor]:
+    """``soa_to_tensors(types.to_soa(padded))`` of ``batch`` zero-padded to
+    ``lanes``, without the padded structured copy: the fields of one width
+    (u16 widened to u32, as ``to_soa`` does) fill the rows of one zeroed
+    array, copied to ``device`` at once."""
+    groups: Dict[Any, list] = {}
+    for name in batch.dtype.names:
+        dt = batch.dtype.fields[name][0]
+        groups.setdefault(np.dtype(np.uint32) if dt == np.uint16 else dt,
+                          []).append(name)
+    out = {}
+    for wide, names in groups.items():
+        host = np.zeros((len(names), lanes), dtype=wide)
+        for row, name in enumerate(names):
+            host[row, :len(batch)] = batch[name]
+        stacked = torch.from_numpy(host.view(_TO_TORCH[wide])).to(device)
+        out.update(zip(names, stacked.unbind(0)))
+    return {name: out[name] for name in batch.dtype.names}
+
+
 def soa_to_tensors(soa: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A batch SoA (``types.to_soa``: u64 and u32 columns) as tensors: the
     columns of one dtype are stacked and copied to ``device`` at once, and

@@ -30,6 +30,16 @@
 // are read with __ldcg (L2, coherent across SMs).  Then the placed lanes
 // write their columns, clear the tombstone bit and add to `count`.
 //
+// The general transfer kernel claims first and writes only if its batch
+// commits (transfer_full.py:1355-1405), with no host read between: the
+// claim entry (`tb_claim`) runs the same rounds, leaving the claimed slots
+// holding their keys as the round protocol's occupancy marks, and ORs a
+// flag bit into a device word on overflow instead of the table's flag; the
+// write entry (`tb_write_claimed`) then, per placed lane, either writes the
+// row (the gate word is 0 and the lane is in the write mask) or clears the
+// mark back to key 0 (those slots were free: key 0, no tombstone), so a
+// batch that does not commit leaves every table array as it was.
+//
 // What bounds it on the H100: latency of the rounds, not bytes.  Round 0
 // places most lanes; the rounds after it touch only the cluster tails, yet
 // every round pays two barriers and a pass over the lanes.  Compacting the
@@ -61,6 +71,10 @@ struct InsertArgs {
   ull* count;
   uint8_t* probe_overflow;
   ColList rows;
+  int claim_only;  // leave marks, skip the row writes, flag into flag_word
+  int* flag_word;
+  int flag_bit;
+  cudaStream_t stream;
 };
 
 static __device__ __forceinline__ uint64_t lane_home(const InsertArgs& a,
@@ -107,7 +121,13 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
     const int remaining = __ldcg(a.cnt + (t + 2) % 3);
     if (remaining == 0) break;
     if (t >= a.max_probe) {
-      if (tid == 0) *a.probe_overflow = 1;
+      if (tid == 0) {
+        if (a.claim_only) {
+          atomicOr(a.flag_word, a.flag_bit);
+        } else {
+          *a.probe_overflow = 1;
+        }
+      }
       break;
     }
     int* claim = (t & 1) ? a.claim1 : a.claim0;
@@ -141,6 +161,7 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
     barrier();
   }
 
+  if (a.claim_only) return;
   // write_rows: columns and tombstone at the placed slots, and the count.
   ull placed = 0;
   for (int64_t i = tid; i < a.n; i += stride) {
@@ -157,6 +178,50 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
   if (threadIdx.x == 0 && total) atomicAdd(a.count, total);
 }
 
+static int launch_insert(InsertArgs& a) {
+  if (a.n == 0) return 0;
+  if (a.n > INT_MAX) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, insert_kernel,
+                                                      INSERT_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  int64_t blocks = (a.n + INSERT_LANES_PER_BLOCK - 1) / INSERT_LANES_PER_BLOCK;
+  const int64_t resident = (int64_t)sms * per_sm;
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((const void*)insert_kernel, dim3((unsigned)blocks),
+                                  dim3(INSERT_THREADS), args, 0, a.stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+static void fill_args(InsertArgs* a, void* tkey_lo, void* tkey_hi, void* tomb,
+                      int64_t capacity, int hash_shift, int64_t max_probe,
+                      const void* key_lo, const void* key_hi,
+                      const void* insert_mask, int64_t n, void* claimed,
+                      void* claim0, void* claim1, void* cnt, void* stream) {
+  a->tkey_lo = (uint64_t*)tkey_lo;
+  a->tkey_hi = (uint64_t*)tkey_hi;
+  a->tomb = (uint8_t*)tomb;
+  a->mask = (uint64_t)(capacity - 1);
+  a->hash_shift = hash_shift;
+  a->max_probe = max_probe;
+  a->key_lo = (const uint64_t*)key_lo;
+  a->key_hi = (const uint64_t*)key_hi;
+  a->insert_mask = (const uint8_t*)insert_mask;
+  a->n = n;
+  a->claimed = (int64_t*)claimed;
+  a->claim0 = (int*)claim0;
+  a->claim1 = (int*)claim1;
+  a->cnt = (int*)cnt;
+  a->stream = (cudaStream_t)stream;
+}
+
 extern "C" int tb_insert(void* tkey_lo, void* tkey_hi, void* tomb,
                          int64_t capacity, int hash_shift, int64_t max_probe,
                          const void* key_lo, const void* key_hi,
@@ -168,41 +233,89 @@ extern "C" int tb_insert(void* tkey_lo, void* tkey_hi, void* tomb,
   InsertArgs a;
   int err = pack_cols(&a.rows, ncols, src, dst, width);
   if (err) return err;
-  if (n == 0) return 0;
-  if (n > INT_MAX) return (int)cudaErrorInvalidValue;
-  a.tkey_lo = (uint64_t*)tkey_lo;
-  a.tkey_hi = (uint64_t*)tkey_hi;
-  a.tomb = (uint8_t*)tomb;
-  a.mask = (uint64_t)(capacity - 1);
-  a.hash_shift = hash_shift;
-  a.max_probe = max_probe;
-  a.key_lo = (const uint64_t*)key_lo;
-  a.key_hi = (const uint64_t*)key_hi;
-  a.insert_mask = (const uint8_t*)insert_mask;
-  a.n = n;
-  a.claimed = (int64_t*)claimed;
-  a.claim0 = (int*)claim0;
-  a.claim1 = (int*)claim1;
-  a.cnt = (int*)cnt;
+  fill_args(&a, tkey_lo, tkey_hi, tomb, capacity, hash_shift, max_probe, key_lo,
+            key_hi, insert_mask, n, claimed, claim0, claim1, cnt, stream);
   a.count = (ull*)count;
   a.probe_overflow = (uint8_t*)probe_overflow;
+  a.claim_only = 0;
+  a.flag_word = nullptr;
+  a.flag_bit = 0;
+  return launch_insert(a);
+}
 
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, insert_kernel,
-                                                      INSERT_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  int64_t blocks = (n + INSERT_LANES_PER_BLOCK - 1) / INSERT_LANES_PER_BLOCK;
-  const int64_t resident = (int64_t)sms * per_sm;
-  if (blocks > resident) blocks = resident;
-  if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)insert_kernel, dim3((unsigned)blocks),
-                                  dim3(INSERT_THREADS), args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+extern "C" int tb_claim(void* tkey_lo, void* tkey_hi, const void* tomb,
+                        int64_t capacity, int hash_shift, int64_t max_probe,
+                        const void* key_lo, const void* key_hi,
+                        const void* insert_mask, int64_t n, void* claimed,
+                        void* claim0, void* claim1, void* cnt, void* flag_word,
+                        int flag_bit, void* stream) {
+  InsertArgs a;
+  a.rows.n = 0;
+  fill_args(&a, tkey_lo, tkey_hi, const_cast<void*>(tomb), capacity, hash_shift,
+            max_probe, key_lo, key_hi, insert_mask, n, claimed, claim0, claim1,
+            cnt, stream);
+  a.count = nullptr;
+  a.probe_overflow = nullptr;
+  a.claim_only = 1;
+  a.flag_word = (int*)flag_word;
+  a.flag_bit = flag_bit;
+  return launch_insert(a);
+}
+
+// Per lane with a claimed slot: write the row (keys, tombstone cleared,
+// columns, the count) where the gate is open (null or 0) and the lane is in
+// the write mask; otherwise, with `revert`, clear the claim's mark.
+__global__ void write_claimed_kernel(uint64_t* tkey_lo, uint64_t* tkey_hi,
+                                     uint8_t* tomb, int64_t cap,
+                                     const uint64_t* key_lo,
+                                     const uint64_t* key_hi,
+                                     const int64_t* claimed,
+                                     const uint8_t* write_mask, int64_t n,
+                                     const int* gate, int revert, ColList rows,
+                                     ull* count) {
+  __shared__ ull red64[32];
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  ull placed = 0;
+  if (i < n) {
+    const int64_t c = claimed[i];
+    if (c < cap) {
+      const bool open = gate == nullptr || *gate == 0;
+      if (open && write_mask[i]) {
+        tkey_lo[c] = key_lo[i];
+        tkey_hi[c] = key_hi[i];
+        tomb[c] = 0;
+        for (int k = 0; k < rows.n; ++k) {
+          copy_elem(rows.dst[k], c, rows.src[k], i, rows.width[k]);
+        }
+        placed = 1;
+      } else if (revert) {
+        tkey_lo[c] = 0;
+        tkey_hi[c] = 0;
+      }
+    }
+  }
+  const ull total = block_sum(placed, red64);
+  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+}
+
+extern "C" int tb_write_claimed(void* tkey_lo, void* tkey_hi, void* tomb,
+                                int64_t capacity, const void* key_lo,
+                                const void* key_hi, const void* claimed,
+                                const void* write_mask, int64_t n,
+                                const void* gate, int revert, void* count,
+                                int ncols, const void* const* src,
+                                void* const* dst, const int* width,
+                                void* stream) {
+  ColList rows;
+  int err = pack_cols(&rows, ncols, src, dst, width);
+  if (err) return err;
+  if (n == 0) return 0;
+  const int threads = 256;
+  write_claimed_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                         (cudaStream_t)stream>>>(
+      (uint64_t*)tkey_lo, (uint64_t*)tkey_hi, (uint8_t*)tomb, capacity,
+      (const uint64_t*)key_lo, (const uint64_t*)key_hi, (const int64_t*)claimed,
+      (const uint8_t*)write_mask, n, (const int*)gate, revert, rows,
+      (ull*)count);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@
 // (C-1); a lane probes home, home+1, ... for at most max_probe steps; it is
 // done on a slot holding its key and no tombstone (found) or on an empty
 // slot with no tombstone (absent); a lane with key 0 is done at once.
-// `found` is masked to lanes below `valid_count`; `slot` is the matching slot
+// `found` is masked to lanes below `valid_count` and, when `lane_mask` is
+// not null, to the lanes it sets; `slot` is the matching slot
 // or 0; the gathered columns are zero where not found; `overflow` is set when
 // any lane is not done after max_probe steps.
 //
@@ -27,7 +28,9 @@ __global__ void probe_kernel(const uint64_t* __restrict__ tkey_lo,
                              int hash_shift, int64_t max_probe,
                              const uint64_t* __restrict__ key_lo,
                              const uint64_t* __restrict__ key_hi, int64_t n,
-                             int64_t valid_count, uint8_t* __restrict__ found_out,
+                             int64_t valid_count,
+                             const uint8_t* __restrict__ lane_mask,
+                             uint8_t* __restrict__ found_out,
                              int64_t* __restrict__ slot_out,
                              int* __restrict__ overflow, ColList cols) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -50,7 +53,7 @@ __global__ void probe_kernel(const uint64_t* __restrict__ tkey_lo,
     }
   }
   if (!done) atomicOr(overflow, 1);
-  const bool f = found && i < valid_count;
+  const bool f = found && i < valid_count && (!lane_mask || lane_mask[i]);
   found_out[i] = f ? 1 : 0;
   slot_out[i] = (int64_t)slot;
   for (int c = 0; c < cols.n; ++c) {
@@ -66,7 +69,7 @@ extern "C" int tb_probe(const void* tkey_lo, const void* tkey_hi,
                         const void* tomb, int64_t capacity, int hash_shift,
                         int64_t max_probe, const void* key_lo,
                         const void* key_hi, int64_t n, int64_t valid_count,
-                        void* found, void* slot, void* overflow, int ncols,
+                        const void* lane_mask, void* found, void* slot, void* overflow, int ncols,
                         const void* const* src, void* const* dst,
                         const int* width, void* stream) {
   ColList cols;
@@ -79,7 +82,7 @@ extern "C" int tb_probe(const void* tkey_lo, const void* tkey_hi,
       (const uint64_t*)tkey_lo, (const uint64_t*)tkey_hi, (const uint8_t*)tomb,
       (uint64_t)(capacity - 1), hash_shift, max_probe,
       (const uint64_t*)key_lo, (const uint64_t*)key_hi, n, valid_count,
-      (uint8_t*)found, (int64_t*)slot, (int*)overflow, cols);
+      (const uint8_t*)lane_mask, (uint8_t*)found, (int64_t*)slot, (int*)overflow, cols);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,9 @@
 //  2. duplicates: among lanes sharing an id, the first lane whose code is 0
 //     wins; a later lane of the group whose code is 0 takes the exists
 //     ladder against the winner's event.  Lanes are grouped through a
-//     batch-local open-addressing table of lane indices (atomicCAS on the
-//     first lane of each id) and the winner is an atomicMin per group, so no
+//     batch-local open-addressing table of lane indices (batch_hash.cuh:
+//     atomicCAS on the first lane of each id) and the winner is an
+//     atomicMin per group, so no
 //     sort is needed and the result does not depend on thread order;
 //  3. chains: a linked batch-final lane gets linked_event_chain_open (2);
 //     in each chain the first failing lane keeps its code, lanes before it
@@ -28,6 +29,7 @@
 // latency and one SM's share of bandwidth; the batch is about 19 columns by
 // 8,192 lanes (1.2 MB) plus the gathered context, so even one SM streams it
 // in tens of microseconds.  Spreading phase 1 over the card is later work.
+#include "batch_hash.cuh"
 #include "common.cuh"
 
 #define VALIDATE_THREADS 1024
@@ -246,14 +248,10 @@ __global__ void __launch_bounds__(VALIDATE_THREADS, 1)
   for (int64_t i = tid; i < n; i += T) {
     const uint32_t c = V::standalone(P, i, count, batch_ts);
     codes[i] = c;
-    const uint64_t lo = U64(P, V::ID_LO, i), hi = U64(P, V::ID_HI, i);
-    uint64_t h = mix64(lo, hi) & (uint64_t)(hsize - 1);
-    for (;;) {
-      const int prev = atomicCAS(hkey + h, -1, (int)i);
-      if (prev == -1 || (U64(P, V::ID_LO, prev) == lo && U64(P, V::ID_HI, prev) == hi)) break;
-      h = (h + 1) & (uint64_t)(hsize - 1);
-    }
-    grp[i] = (int)h;
+    const int h = batch_hash_insert(
+        hkey, (int)hsize, static_cast<const uint64_t*>(P.p[V::ID_LO]),
+        static_cast<const uint64_t*>(P.p[V::ID_HI]), (int)i);
+    grp[i] = h;
     if (c == 0 && i < count) atomicMin(hwin + h, (int)i);
   }
   __syncthreads();

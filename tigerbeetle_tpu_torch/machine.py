@@ -1,17 +1,20 @@
 """TorchStateMachine: the host-side seam of the port (counterpart of
 ``tigerbeetle_tpu/machine.py``'s ``TpuStateMachine``), reduced to the slices
 ported so far: plain ``create_accounts`` and ``create_transfers`` batches on
-the fast path, every kind of batch on the sequential path (under
-``force_sequential``, and linked ``create_accounts`` batches with duplicate
-ids), lookups, the balance snapshot and the digest.
+the fast path, every other ``create_transfers`` batch on the general kernel
+(``ops.transfer_full``), the batches it flags ``FLAG_SEQ`` and every batch
+under ``force_sequential`` on the sequential path (and linked
+``create_accounts`` batches with duplicate ids), lookups, the balance
+snapshot and the digest.
 
 It owns the device-resident ledger, assigns batch timestamps as prepare()
 does, grows the tables and the history log from host-side row bounds (load
 factor <= 0.5), pads each batch to ``batch_lanes`` and commits it through
-``ops.state_machine`` (kernels K1-K4 on the card) or ``ops.scan_path``
-(kernels K6 and K7), then reads the result codes and an overflow flag back
-in ONE device-to-host copy and compresses the codes into the wire's (index,
-result) pairs.
+``ops.state_machine`` (kernels K1-K4 on the card), ``ops.transfer_full``
+(K1, K2 and K9-K12) or ``ops.scan_path`` (K6 and K7), then reads the result
+codes and its routing word (an overflow flag, or the general kernel's flags
+and wave vector) back in ONE device-to-host copy and compresses the codes
+into the wire's (index, result) pairs.
 
 Routes this slice does not port raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them; none gives a wrong answer or falls back
@@ -20,6 +23,7 @@ quietly.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -28,9 +32,11 @@ import torch
 from . import convert, types
 from .config import LedgerConfig
 from .device import resolve as resolve_device
+from .obs.metrics import registry as _obs
 from .ops import hash_table as ht
 from .ops import scan_path
 from .ops import state_machine as sm
+from .ops import transfer_full as tf
 from .u128 import i64, u64
 
 _LIMIT_FLAGS = (
@@ -39,7 +45,7 @@ _LIMIT_FLAGS = (
 )
 _BOUND_CLAMP = 1 << 127
 # Transfer flags that exclude the plain fast-path batch (P2/P4: two-phase,
-# balancing and linked chains run the JAX package's general kernel).
+# balancing and linked chains run the general kernel).
 _SLOW_TRANSFER_FLAGS = (
     types.TransferFlags.POST_PENDING_TRANSFER
     | types.TransferFlags.VOID_PENDING_TRANSFER
@@ -56,7 +62,7 @@ _UNPORTED = {
     "commit_group_fast": "A8 (commit pipeline)",
     "warmup": "A8 (commit pipeline)",
     "get_account_transfers": "A10 (queries)",
-    "get_account_history": "A5 (history) and A10 (queries)",
+    "get_account_history": "A10 (queries)",
     "scan_transfers": "A10 (queries)",
     "scan_accounts": "A10 (queries)",
     "query_transfers_where": "A10 (queries)",
@@ -115,14 +121,35 @@ class TorchStateMachine:
         self._history_accounts_possible = False
         self._limit_accounts_possible = False
         self._balance_bound = 0
+        self._waves_enabled: Optional[bool] = None
+        # The last committed general-kernel batch's wave vector (passes,
+        # wave_bound, hist[9]), as read back with its codes.
+        self.last_wave: Optional[np.ndarray] = None
 
-    def _d2h_codes(self, codes: torch.Tensor, overflow: torch.Tensor):
+    @property
+    def waves_enabled(self) -> bool:
+        """The conflict-index wave scheduler of the general kernel (TB_WAVES,
+        default on, as the JAX machine): same codes and ledger, fewer Jacobi
+        passes on batches the conflict index certifies.  TB_WAVES=0 runs
+        every batch to the stability exit."""
+        if self._waves_enabled is None:
+            self._waves_enabled = os.environ.get("TB_WAVES", "1") != "0"
+        return self._waves_enabled
+
+    @waves_enabled.setter
+    def waves_enabled(self, value: bool) -> None:
+        self._waves_enabled = bool(value)
+
+    def _d2h_codes(self, codes: torch.Tensor, *words: torch.Tensor):
         """The one blocking device-to-host read of a commit: the result codes
-        and an overflow flag (the table's probe_overflow, or the sequential
-        path's) in a single copy."""
-        out = torch.cat([codes, overflow.reshape(1).to(torch.int32)]).cpu()
-        host = out.numpy().view(np.uint32)
-        return host[:-1], bool(host[-1])
+        and the commit's routing words (a table's probe_overflow, the
+        sequential path's overflow flag, or the general kernel's kflags and
+        wave vector) in a single copy.  Returns (codes u32[N], the words as
+        one int32 array)."""
+        parts = [codes] + [w.reshape(-1).to(torch.int32) for w in words]
+        host = torch.cat(parts).cpu().numpy()
+        n = codes.shape[0]
+        return host[:n].view(np.uint32), host[n:]
 
     def prepare(self, operation: str, count: int, wall_clock_ns: int = 0) -> int:
         if wall_clock_ns > self.prepare_timestamp:
@@ -137,9 +164,7 @@ class TorchStateMachine:
         n = len(batch)
         if n > self.batch_lanes:
             raise ValueError(f"batch of {n} exceeds {self.batch_lanes} lanes")
-        padded = np.zeros(self.batch_lanes, dtype=batch.dtype)
-        padded[:n] = batch
-        return convert.soa_to_tensors(types.to_soa(padded), self.device)
+        return convert.batch_to_tensors(batch, self.batch_lanes, self.device)
 
     @staticmethod
     def _compress(codes: np.ndarray, count: int) -> List[Tuple[int, int]]:
@@ -194,9 +219,10 @@ class TorchStateMachine:
             self._limit_accounts_possible = True
         soa = self._pad_soa(batch)
         self.ledger, codes = sm.create_accounts(self.ledger, soa, count, timestamp)
-        codes, overflow = self._d2h_codes(codes, self.ledger.accounts.probe_overflow)
+        codes, words = self._d2h_codes(codes,
+                                       self.ledger.accounts.probe_overflow)
         self._accounts_bound += count
-        if overflow:
+        if words[0]:
             # Load-factor management keeps this unreachable; losing inserts
             # silently is the one unacceptable outcome, so fail loud.
             raise RuntimeError("accounts probe overflow during insert")
@@ -221,14 +247,9 @@ class TorchStateMachine:
         self._note_balance_bound(batch)
         if self.force_sequential:
             return self._sequential("create_transfers", batch, timestamp)
-        if not self._fast_path_ok(batch):
-            raise NotImplementedError(
-                "this create_transfers batch needs the general transfer "
-                "kernel (two-phase post/void, balancing, linked chains, u128 "
-                "amounts, or limit/history accounts), not ported yet "
-                "(ROADMAP A5)"
-            )
-        return self._commit_fast(batch, timestamp, count)
+        if self._fast_path_ok(batch):
+            return self._commit_fast(batch, timestamp, count)
+        return self._commit_full(batch, timestamp, count)
 
     def _note_balance_bound(self, batch: np.ndarray) -> None:
         """Over-approximate the largest possible single balance field after
@@ -267,15 +288,91 @@ class TorchStateMachine:
         self.ledger, codes = sm.create_transfers_fast(
             self.ledger, soa, count, timestamp
         )
-        codes, overflow = self._d2h_codes(
+        codes, words = self._d2h_codes(
             codes, self.ledger.transfers.probe_overflow
         )
         self._transfers_bound += count
-        if overflow:
+        if words[0]:
             raise RuntimeError("transfers probe overflow during fast insert")
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
+
+    # -- the general kernel -----------------------------------------------------
+
+    def _commit_full(
+        self, batch: np.ndarray, timestamp: int, count: int
+    ) -> List[Tuple[int, int]]:
+        """The JAX machine's general-kernel branch: grow from host bounds,
+        then up to eight attempts; kflags 0 commits, FLAG_SEQ runs the batch
+        on the sequential path, a FLAG_GROW_* bit doubles the flagged tables
+        and retries (the kernel applied nothing)."""
+        pv_count, hist_count = self._transfer_growth_counts(batch)
+        self._grow_if_needed(transfers=count, posted=pv_count, history=hist_count)
+        soa = self._pad_soa(batch)
+        # Static phase hints: no post/void lanes skips the pending-side
+        # probes and the posted write; no HISTORY account skips the append.
+        has_postvoid = pv_count > 0
+        has_history = self._history_accounts_possible
+        use_waves = self.waves_enabled
+        for _attempt in range(8):
+            r = tf.create_transfers_full_impl(
+                self.ledger, soa, count, timestamp,
+                max_passes=self.config.jacobi_max_passes,
+                has_postvoid=has_postvoid, has_history=has_history,
+                use_waves=use_waves,
+            )
+            self.ledger = r[0]
+            codes, words = self._d2h_codes(*r[1:])
+            kflags = int(words[0])
+            wave_host = words[1:] if use_waves else None
+            if kflags == 0:
+                return self._full_commit_success(
+                    codes, count, pv_count, hist_count, timestamp, wave_host)
+            if kflags & tf.FLAG_SEQ:
+                return self._sequential("create_transfers", batch, timestamp)
+            self._grow_flagged(kflags)
+        raise RuntimeError("transfer kernel could not place batch after growth")
+
+    def _full_commit_success(self, codes, count, pv_count, hist_count,
+                             timestamp, wave_host):
+        """Bookkeeping of a committed general-kernel batch (kflags == 0)."""
+        if wave_host is not None:
+            self.last_wave = wave_host
+            if _obs.enabled:
+                self._record_wave_metrics(wave_host)
+        self._transfers_bound += count
+        self._posted_bound += pv_count
+        self._history_bound += hist_count
+        results = self._compress(codes, count)
+        self._update_commit_timestamp(codes, count, timestamp)
+        return results
+
+    def _record_wave_metrics(self, wave_host) -> None:
+        """Wave occupancy series: wave_host is (passes, bound, hist[9])."""
+        passes, bound = int(wave_host[0]), int(wave_host[1])
+        hist = [int(v) for v in wave_host[2:]]
+        if bound > 0:
+            _obs.counter("waves.batches_scheduled").inc()
+            _obs.histogram("waves.bound_passes", "passes").observe(bound)
+        else:
+            _obs.counter("waves.batches_unscheduled").inc()
+        _obs.histogram("waves.jacobi_passes", "passes").observe(passes)
+        total = sum(hist)
+        if total:
+            _obs.histogram("waves.wave0_pct", "%").observe(
+                100 * hist[0] // total
+            )
+
+    def _grow_flagged(self, kflags: int) -> None:
+        """Double each table a probe overflow flagged (one K2 rehash each)."""
+        led = self.ledger
+        if kflags & tf.FLAG_GROW_ACCOUNTS:
+            led.accounts = ht.grow(led.accounts, led.accounts.capacity * 2)
+        if kflags & tf.FLAG_GROW_TRANSFERS:
+            led.transfers = ht.grow(led.transfers, led.transfers.capacity * 2)
+        if kflags & tf.FLAG_GROW_POSTED:
+            led.posted = ht.grow(led.posted, led.posted.capacity * 2)
 
     # -- the sequential path ----------------------------------------------------
 
@@ -302,7 +399,8 @@ class TorchStateMachine:
             kernel = scan_path.create_transfers_seq
         soa = self._pad_soa(batch)
         self.ledger, codes, overflow = kernel(self.ledger, soa, count, timestamp)
-        codes, overflow = self._d2h_codes(codes, overflow)
+        codes, words = self._d2h_codes(codes, overflow)
+        overflow = bool(words[0])
         if operation == "create_accounts":
             self._accounts_bound += count
         else:

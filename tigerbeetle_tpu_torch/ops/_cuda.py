@@ -23,6 +23,16 @@ add one to their kernel's ``launches`` each time they launch it.
 | seq_transfers | csrc/sequential.cu | ops/scan_path.py:187 create_transfers_seq |
 | seq_accounts  | csrc/sequential.cu | ops/scan_path.py:690 create_accounts_seq  |
 | tombstone     | csrc/tombstone.cu  | ops/hash_table.py:379 remove_to_tombstone |
+| claim         | csrc/insert.cu     | ops/hash_table.py:114 claim_slots (claim only) |
+| write_claimed | csrc/insert.cu     | ops/hash_table.py:286 write_rows           |
+| full_index    | csrc/full_index.cu | ops/transfer_full.py:199 _build_id_index (+ :212 _search128's join) |
+| full_legs     | csrc/full_legs.cu  | ops/transfer_full.py:266 _leg_balances (+ the apply's balance scatter) |
+| full_pass     | csrc/full_pass.cu  | ops/transfer_full.py:806 one_pass, the loop, aux pass, routing (+ the history append) |
+| full_waves    | csrc/full_waves.cu | ops/transfer_full.py:422 _wave_schedule    |
+
+The general kernel's launches (K9-K12) take their pointers as one array in
+the order of the kernel's pointer enum (``FULL_PASS_LAYOUT`` and
+``LEGS_LAYOUT`` here; a CPU test compares them with the sources).
 """
 
 from __future__ import annotations
@@ -78,6 +88,18 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/ops/scan_path.py:690"),
         Kernel("tombstone", "tigerbeetle_tpu_torch/csrc/tombstone.cu",
                "tigerbeetle_tpu/ops/hash_table.py:379"),
+        Kernel("claim", "tigerbeetle_tpu_torch/csrc/insert.cu",
+               "tigerbeetle_tpu/ops/hash_table.py:114"),
+        Kernel("write_claimed", "tigerbeetle_tpu_torch/csrc/insert.cu",
+               "tigerbeetle_tpu/ops/hash_table.py:286"),
+        Kernel("full_index", "tigerbeetle_tpu_torch/csrc/full_index.cu",
+               "tigerbeetle_tpu/ops/transfer_full.py:199"),
+        Kernel("full_legs", "tigerbeetle_tpu_torch/csrc/full_legs.cu",
+               "tigerbeetle_tpu/ops/transfer_full.py:266"),
+        Kernel("full_pass", "tigerbeetle_tpu_torch/csrc/full_pass.cu",
+               "tigerbeetle_tpu/ops/transfer_full.py:806"),
+        Kernel("full_waves", "tigerbeetle_tpu_torch/csrc/full_waves.cu",
+               "tigerbeetle_tpu/ops/transfer_full.py:422"),
     )
 }
 
@@ -164,7 +186,7 @@ _INT = ctypes.c_int
 def _bind(lib: ctypes.CDLL) -> None:
     sigs = {
         "tb_probe": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _I64, _I64,
-                     _P, _P, _P, _INT, _P, _P, _P, _P],
+                     _P, _P, _P, _P, _INT, _P, _P, _P, _P],
         "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
                       _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
         "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _P],
@@ -178,6 +200,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tb_seq_accounts": [_P, _INT, _P, _INT, _I64, _I64, _I64,
                             ctypes.c_uint64, _P, _P, _P, _P],
         "tb_tombstone": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
+        "tb_claim": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64, _P, _P,
+                     _P, _P, _P, _INT, _P],
+        "tb_write_claimed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _P,
+                             _INT, _P, _INT, _P, _P, _P, _P],
+        "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
+        "tb_full_legs": [_P, _INT, _I64, _INT, ctypes.c_uint64, _INT, _P],
+        "tb_full_legs_apply": [_P, _I64, _P, _P, _P, _P, _P],
+        "tb_full_waves": [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_uint64,
+                          _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "tb_full_pass": [_P, _INT, _INT, _INT, _I64, _I64, ctypes.c_uint64,
+                         _INT, _INT, _INT, _I64, _P],
+        "tb_full_hist": [_P, _P, _I64, _P, _P, _I64, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -247,10 +281,11 @@ _U64_OR_U32 = (torch.int64, torch.int32, torch.bool)
 
 def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
           key_lo, key_hi, max_probe: int, hash_shift: int, count: int,
-          names: Sequence[str]
+          names: Sequence[str], mask: Optional[torch.Tensor] = None,
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                      Dict[str, torch.Tensor]]:
-    """Kernel K1: (found, slot, overflow, gathered columns)."""
+    """Kernel K1: (found, slot, overflow, gathered columns); ``found`` is
+    masked to lanes below ``count`` and to ``mask`` when given."""
     lib = library()
     cap = tkey_lo.numel()
     n = key_lo.numel()
@@ -259,6 +294,8 @@ def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
     _check(tomb, torch.bool, cap, "table tombstone")
     _check(key_lo, torch.int64, n, "key_lo")
     _check(key_hi, torch.int64, n, "key_hi")
+    if mask is not None:
+        _check(mask, torch.bool, n, "mask")
     src = [table_cols[name] for name in names]
     for name, s in zip(names, src):
         if s.dtype not in _U64_OR_U32:
@@ -273,7 +310,8 @@ def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
     err = lib.tb_probe(
         tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
         hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(), n,
-        count, found.data_ptr(), slot.data_ptr(), overflow.data_ptr(),
+        count, None if mask is None else mask.data_ptr(), found.data_ptr(),
+        slot.data_ptr(), overflow.data_ptr(),
         len(src), _ptr_array(src), _ptr_array(dst), widths, _stream(key_lo),
     )
     _raise_on(err, "probe")
@@ -334,7 +372,8 @@ def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
 # -- K3 validate -----------------------------------------------------------
 
 
-def _hash_size(n: int) -> int:
+def hash_size(n: int) -> int:
+    """Batch-local hash table size for ``n`` lanes (K3, K9, K11)."""
     h = 2
     while h < 2 * n:
         h *= 2
@@ -353,7 +392,7 @@ def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
             raise TypeError(f"validate column {k}: unsupported dtype {c.dtype}")
         _check(c, c.dtype, n, f"validate column {k}")
     dev = columns[0].device
-    hsize = _hash_size(n)
+    hsize = hash_size(n)
     codes = torch.empty(n, dtype=torch.int32, device=dev)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     scratch = torch.empty(2 * hsize + 3 * n, dtype=torch.int32, device=dev)
@@ -547,3 +586,331 @@ def tombstone(key_lo, key_hi, tomb, count, slot, valid) -> None:
     )
     _raise_on(err, "tombstone")
     KERNELS["tombstone"].launches += 1
+
+
+# -- K2 claim / write entries (the general kernel's apply) -------------------
+
+
+def claim(tkey_lo, tkey_hi, tomb, key_lo, key_hi, insert_mask, max_probe: int,
+          hash_shift: int = 0, flag_word: Optional[torch.Tensor] = None,
+          flag_bit: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's claim entry: the insert slot of every masked key (C where
+    unplaced), by the insert's rounds, leaving each claimed slot holding its
+    key as a mark until ``write_claimed``; on probe overflow ``flag_bit`` is
+    ORed into ``flag_word`` (int32[1], a new zero word when None).  Returns
+    (claimed, flag_word)."""
+    lib = library()
+    cap = tkey_lo.numel()
+    n = key_lo.numel()
+    _check(tkey_lo, torch.int64, cap, "table key_lo")
+    _check(tkey_hi, torch.int64, cap, "table key_hi")
+    _check(tomb, torch.bool, cap, "table tombstone")
+    _check(key_lo, torch.int64, n, "key_lo")
+    _check(key_hi, torch.int64, n, "key_hi")
+    _check(insert_mask, torch.bool, n, "insert_mask")
+    dev = key_lo.device
+    if flag_word is None:
+        flag_word = torch.zeros(1, dtype=torch.int32, device=dev)
+    _check(flag_word, torch.int32, 1, "flag_word")
+    claimed = torch.empty(n, dtype=torch.int64, device=dev)
+    claim0 = torch.empty(cap, dtype=torch.int32, device=dev)
+    claim1 = torch.empty(cap, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(3, dtype=torch.int32, device=dev)
+    err = lib.tb_claim(
+        tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
+        hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(),
+        insert_mask.data_ptr(), n, claimed.data_ptr(), claim0.data_ptr(),
+        claim1.data_ptr(), cnt.data_ptr(), flag_word.data_ptr(), flag_bit,
+        _stream(key_lo),
+    )
+    _raise_on(err, "claim")
+    KERNELS["claim"].launches += 1
+    return claimed, flag_word
+
+
+def write_claimed(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
+                  count, key_lo, key_hi, claimed, write_mask,
+                  rows: Dict[str, torch.Tensor],
+                  gate: Optional[torch.Tensor] = None,
+                  revert: bool = False) -> None:
+    """K2's write entry: at each claimed slot, the row (keys, tombstone
+    cleared, the columns named in ``rows``, the count) where ``gate``
+    (int32[1]) is None or 0 and the lane is in ``write_mask``; otherwise,
+    with ``revert``, the claim's mark cleared back to key 0."""
+    lib = library()
+    cap = tkey_lo.numel()
+    n = key_lo.numel()
+    _check(tkey_lo, torch.int64, cap, "table key_lo")
+    _check(tkey_hi, torch.int64, cap, "table key_hi")
+    _check(tomb, torch.bool, cap, "table tombstone")
+    _check(count, torch.int64, 1, "table count")
+    _check(key_lo, torch.int64, n, "key_lo")
+    _check(key_hi, torch.int64, n, "key_hi")
+    _check(claimed, torch.int64, n, "claimed")
+    _check(write_mask, torch.bool, n, "write_mask")
+    if gate is not None:
+        _check(gate, torch.int32, 1, "gate")
+    src, dst = [], []
+    for name, s in rows.items():
+        d = table_cols[name]
+        _check(d, d.dtype, cap, f"column {name}")
+        _check(s, d.dtype, n, f"row {name}")
+        src.append(s)
+        dst.append(d)
+    widths = (ctypes.c_int * max(1, len(src)))(*[_width(s) for s in src])
+    err = lib.tb_write_claimed(
+        tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
+        key_lo.data_ptr(), key_hi.data_ptr(), claimed.data_ptr(),
+        write_mask.data_ptr(), n, None if gate is None else gate.data_ptr(),
+        int(revert), count.data_ptr(), len(src), _ptr_array(src),
+        _ptr_array(dst), widths, _stream(key_lo),
+    )
+    _raise_on(err, "write_claimed")
+    KERNELS["write_claimed"].launches += 1
+
+
+# -- K9-K12: the general transfer kernel ---------------------------------------
+
+# Pointer layouts of csrc/full_pass.cu (FullPtr, prefix F_) and
+# csrc/full_legs.cu (LegPtr, prefix L_): (name, count) in order.
+FULL_PASS_LAYOUT = (
+    ("batch", 19), ("ex_found", 1), ("e_tab", 17), ("p_tab_found", 1),
+    ("p_tab", 17), ("drt", 12), ("crt", 12), ("pdr", 12), ("pcr", 12),
+    ("posted_found", 1), ("posted_val", 1),
+    ("group", 1), ("any_dup", 1), ("pj_hit", 1), ("pj_group", 1),
+    ("ctrl", 1), ("proved", 1), ("needed", 1),
+    ("valid", 1), ("pending", 1), ("post", 1), ("postvoid", 1), ("linked", 1),
+    ("ok_c", 1), ("code_c", 1), ("amt_c_lo", 1), ("amt_c_hi", 1),
+    ("hazard", 1), ("unsched", 1), ("wdr_slot", 1), ("wdr_live", 1),
+    ("wcr_slot", 1), ("wcr_live", 1),
+    ("winner", 1), ("ref", 1), ("leg_start", 8), ("dr_slot", 1),
+    ("cr_slot", 1), ("dr_live", 1), ("cr_live", 1), ("pamt", 1),
+    ("flags_dr", 1), ("flags_cr", 1),
+    ("leg_pos", 1), ("leg_val", 16), ("s_slot", 1), ("s_live", 1),
+    ("is_last", 1), ("arith", 1),
+    ("row", 17), ("code_t", 1), ("pre_chain", 1), ("near_ov", 1), ("fkey", 1),
+    ("fhash", 1), ("chain", 1),
+    ("codes", 1), ("ok", 1), ("pv_ok", 1), ("posted_key", 1), ("do_hist", 1),
+    ("hist", 21), ("route", 1), ("passes", 1), ("wave_bound", 1),
+    ("cache_ok", 1),
+)
+LEGS_LAYOUT = (
+    ("start", 8), ("ok", 1), ("amt", 1), ("pamt", 1), ("dr_slot", 1),
+    ("cr_slot", 1), ("dr_live", 1), ("cr_live", 1), ("pending", 1),
+    ("post", 1), ("postvoid", 1), ("leg_pos", 1), ("val", 16), ("s_slot", 1),
+    ("s_live", 1), ("is_last", 1), ("arith", 1), ("scan", 1), ("head", 1),
+    ("ctrl", 1), ("proved", 1), ("needed", 1),
+    ("cache_keys", 1), ("cache_slot", 1), ("cache_ok", 1),
+)
+FULL_MAX_LANES = 8192  # csrc/full_common.cuh: 16,384 legs in shared memory
+# Modes of one full_pass launch (csrc/full_pass.cu Mode).
+PASS_INIT, PASS_PRE, PASS_POST = 0, 1, 2
+
+
+def layout_array(layout, tensors: Dict[str, Sequence[torch.Tensor]]):
+    """The ctypes pointer array of ``layout`` from named tensor lists (a
+    None entry passes a null pointer)."""
+    ptrs = []
+    for name, count in layout:
+        group = tensors[name]
+        if len(group) != count:
+            raise ValueError(f"{name}: {len(group)} tensors, expected {count}")
+        for t in group:
+            if t is not None and not (t.is_cuda and t.is_contiguous()):
+                raise ValueError(f"{name}: a contiguous CUDA tensor is needed")
+            ptrs.append(None if t is None else t.data_ptr())
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs)
+
+
+def _check_lanes(n: int) -> None:
+    if not 0 < n <= FULL_MAX_LANES:
+        raise ValueError(f"the general kernel takes 1..{FULL_MAX_LANES} lanes, "
+                         f"got {n}")
+
+
+def full_index(id_lo, id_hi, pend_lo, pend_hi):
+    """Kernel K9: (group_of_lane int64[N] (the lowest lane of each id),
+    any_dup bool 0-dim, pj_hit bool[N], pj_group int64[N])."""
+    lib = library()
+    n = id_lo.numel()
+    _check_lanes(n)
+    for t, what in ((id_lo, "id_lo"), (id_hi, "id_hi"), (pend_lo, "pend_lo"),
+                    (pend_hi, "pend_hi")):
+        _check(t, torch.int64, n, what)
+    dev = id_lo.device
+    hsize = hash_size(n)
+    scratch = torch.empty(2 * hsize + n, dtype=torch.int32, device=dev)
+    group = torch.empty(n, dtype=torch.int64, device=dev)
+    any_dup = torch.empty(1, dtype=torch.bool, device=dev)
+    pj_hit = torch.empty(n, dtype=torch.bool, device=dev)
+    pj_group = torch.empty(n, dtype=torch.int64, device=dev)
+    err = lib.tb_full_index(
+        id_lo.data_ptr(), id_hi.data_ptr(), pend_lo.data_ptr(),
+        pend_hi.data_ptr(), n, scratch.data_ptr(), hsize, group.data_ptr(),
+        any_dup.data_ptr(), pj_hit.data_ptr(), pj_group.data_ptr(),
+        _stream(id_lo),
+    )
+    _raise_on(err, "full_index")
+    KERNELS["full_index"].launches += 1
+    return group, any_dup[0], pj_hit, pj_group
+
+
+def legs_buffers(n: int, dev) -> Dict[str, torch.Tensor]:
+    """K10's outputs and scratch for ``n`` lanes."""
+    n2 = 2 * n
+    out = {"leg_pos": torch.empty(n2, dtype=torch.int64, device=dev),
+           "s_slot": torch.empty(n2, dtype=torch.int64, device=dev),
+           "s_live": torch.empty(n2, dtype=torch.bool, device=dev),
+           "is_last": torch.empty(n2, dtype=torch.bool, device=dev),
+           "arith": torch.empty(1, dtype=torch.bool, device=dev),
+           "scan": torch.empty(12 * n2, dtype=torch.int64, device=dev),
+           "head": torch.empty(n2, dtype=torch.int32, device=dev)}
+    vals = torch.empty((16, n2), dtype=torch.int64, device=dev)
+    out["val"] = list(vals.unbind(0))
+    return out
+
+
+def full_legs_launch(ptrs, nptrs: int, n: int, has_postvoid: bool,
+                     cap_sentinel: int, aux: bool, stream: int) -> None:
+    """One K10 launch from a prepared ``LEGS_LAYOUT`` pointer array."""
+    err = library().tb_full_legs(ptrs, nptrs, n, int(has_postvoid),
+                                 cap_sentinel, int(aux), stream)
+    _raise_on(err, "full_legs")
+    KERNELS["full_legs"].launches += 1
+
+
+def full_legs(start_bal: Dict[str, torch.Tensor], cap_sentinel: int, ok,
+              amt_lo, pamt_lo, dr_slot, cr_slot, dr_live, cr_live, pending,
+              post, postvoid, has_postvoid: bool) -> Dict[str, torch.Tensor]:
+    """Kernel K10 on its own: the leg balances (keys of ``legs_buffers``;
+    ``val`` holds {dp, dpo, cp, cpo} x {pre, incl} x {lo, hi})."""
+    n = ok.numel()
+    _check_lanes(n)
+    cols = [start_bal[f + s] for f in ("debits_pending", "debits_posted",
+                                       "credits_pending", "credits_posted")
+            for s in ("_lo", "_hi")]
+    for c in cols:
+        _check(c, torch.int64, 2 * n, "start balance")
+    for t, dt, what in ((ok, torch.bool, "ok"), (amt_lo, torch.int64, "amt_lo"),
+                        (pamt_lo, torch.int64, "pamt_lo"),
+                        (dr_slot, torch.int64, "dr_slot"),
+                        (cr_slot, torch.int64, "cr_slot"),
+                        (dr_live, torch.bool, "dr_live"),
+                        (cr_live, torch.bool, "cr_live"),
+                        (pending, torch.bool, "pending"),
+                        (post, torch.bool, "post"),
+                        (postvoid, torch.bool, "postvoid")):
+        _check(t, dt, n, what)
+    out = legs_buffers(n, ok.device)
+    ptrs, nptrs = layout_array(LEGS_LAYOUT, {
+        "start": cols, "ok": [ok], "amt": [amt_lo], "pamt": [pamt_lo],
+        "dr_slot": [dr_slot], "cr_slot": [cr_slot], "dr_live": [dr_live],
+        "cr_live": [cr_live], "pending": [pending], "post": [post],
+        "postvoid": [postvoid], "leg_pos": [out["leg_pos"]], "val": out["val"],
+        "s_slot": [out["s_slot"]], "s_live": [out["s_live"]],
+        "is_last": [out["is_last"]], "arith": [out["arith"]],
+        "scan": [out["scan"]], "head": [out["head"]], "ctrl": [None],
+        "proved": [None], "needed": [None], "cache_keys": [None],
+        "cache_slot": [None], "cache_ok": [None]})
+    full_legs_launch(ptrs, nptrs, n, has_postvoid, cap_sentinel, False,
+                     _stream(ok))
+    return out
+
+
+def full_legs_apply(gate, scat, s_slot, incl: Sequence[torch.Tensor],
+                    cols: Sequence[torch.Tensor]) -> None:
+    """K10's apply launch: where ``gate`` (int32[1]) is 0, each run tail
+    (``scat``) writes its eight inclusive balance columns at its slot."""
+    lib = library()
+    n2 = scat.numel()
+    _check(gate, torch.int32, 1, "gate")
+    _check(scat, torch.bool, n2, "scat")
+    _check(s_slot, torch.int64, n2, "s_slot")
+    for v in incl:
+        _check(v, torch.int64, n2, "inclusive balance")
+    cap = cols[0].numel()
+    for c in cols:
+        _check(c, torch.int64, cap, "balance column")
+    err = lib.tb_full_legs_apply(gate.data_ptr(), n2, scat.data_ptr(),
+                                 s_slot.data_ptr(), _ptr_array(incl),
+                                 _ptr_array(cols), _stream(scat))
+    _raise_on(err, "full_legs")
+    KERNELS["full_legs"].launches += 1
+
+
+def full_waves(hazard, unschedulable, wdr_slot, wdr_live, wcr_slot, wcr_live,
+               valid, cap_sentinel: int, max_rounds: int,
+               proved: Optional[torch.Tensor] = None,
+               needed: Optional[torch.Tensor] = None,
+               cache: Optional[Sequence[torch.Tensor]] = None):
+    """Kernel K12: (proved bool 0-dim, passes_needed int32 0-dim, depth
+    int32[N], hist int32[9]).  ``proved`` (bool[1]) and ``needed`` (int32[1])
+    may be given to receive them (the Jacobi loop's control words), and
+    ``cache`` (keys, slots, ok word) to leave the leg sort for K10."""
+    lib = library()
+    n = hazard.numel()
+    _check_lanes(n)
+    for t, dt, what in ((hazard, torch.bool, "hazard"),
+                        (wdr_slot, torch.int64, "wdr_slot"),
+                        (wdr_live, torch.bool, "wdr_live"),
+                        (wcr_slot, torch.int64, "wcr_slot"),
+                        (wcr_live, torch.bool, "wcr_live"),
+                        (valid, torch.bool, "valid")):
+        _check(t, dt, n, what)
+    _check(unschedulable, torch.bool, 1, "unschedulable")
+    dev = hazard.device
+    if proved is None:
+        proved = torch.empty(1, dtype=torch.bool, device=dev)
+    if needed is None:
+        needed = torch.empty(1, dtype=torch.int32, device=dev)
+    _check(proved, torch.bool, 1, "proved")
+    _check(needed, torch.int32, 1, "needed")
+    scratch = torch.empty(3 * n, dtype=torch.int64, device=dev)
+    depth = torch.empty(n, dtype=torch.int32, device=dev)
+    hist = torch.empty(9, dtype=torch.int32, device=dev)
+    err = lib.tb_full_waves(
+        hazard.data_ptr(), unschedulable.data_ptr(), wdr_slot.data_ptr(),
+        wdr_live.data_ptr(), wcr_slot.data_ptr(), wcr_live.data_ptr(),
+        valid.data_ptr(), n, cap_sentinel, max_rounds,
+        *((None, None, None) if cache is None else (c.data_ptr() for c in cache)),
+        scratch.data_ptr(), depth.data_ptr(), proved.data_ptr(),
+        needed.data_ptr(), hist.data_ptr(), _stream(hazard),
+    )
+    _raise_on(err, "full_waves")
+    KERNELS["full_waves"].launches += 1
+    return proved[0], needed[0], depth, hist
+
+
+def full_pass_launch(ptrs, nptrs: int, mode: int, aux: bool, n: int,
+                     count: int, timestamp: int, has_postvoid: bool,
+                     use_waves: bool, max_passes: int, hsize: int,
+                     stream: int) -> None:
+    """One K11 launch (``mode`` PASS_INIT, PASS_PRE or PASS_POST) from a
+    prepared ``FULL_PASS_LAYOUT`` pointer array."""
+    err = library().tb_full_pass(
+        ptrs, nptrs, mode, int(aux), n, count, timestamp & ((1 << 64) - 1),
+        int(has_postvoid), int(use_waves), max_passes, hsize, stream)
+    _raise_on(err, "full_pass")
+    KERNELS["full_pass"].launches += 1
+
+
+def full_hist(gate, do_hist, rows: Sequence[torch.Tensor],
+              cols: Sequence[torch.Tensor], count) -> None:
+    """K11's history append: where ``gate`` (int32[1]) is 0, the rows of
+    the lanes in ``do_hist`` at count + their prefix in lane order (dropped
+    past the capacity); the count grows by all of them."""
+    lib = library()
+    n = do_hist.numel()
+    _check_lanes(n)
+    _check(gate, torch.int32, 1, "gate")
+    _check(do_hist, torch.bool, n, "do_hist")
+    _check(count, torch.int64, 1, "history count")
+    cap = cols[0].numel()
+    for r, c in zip(rows, cols):
+        _check(r, torch.int64, n, "history row")
+        _check(c, torch.int64, cap, "history column")
+    err = lib.tb_full_hist(gate.data_ptr(), do_hist.data_ptr(), n,
+                           _ptr_array(rows), _ptr_array(cols), cap,
+                           count.data_ptr(), _stream(do_hist))
+    _raise_on(err, "full_pass")
+    KERNELS["full_pass"].launches += 1

@@ -19,7 +19,8 @@ are int64 and u32 columns int32 holding the bits, ``count`` a 0-dim int64 and
 returned a new table from donated buffers, this module updates the table's
 tensors in place and returns the same ``Table``.
 
-``lookup`` (kernel K1), ``insert`` (kernel K2) and ``remove_to_tombstone``
+``lookup`` (kernel K1), ``insert`` (kernel K2), ``claim_slots`` and
+``write_rows`` (K2's claim and write entries) and ``remove_to_tombstone``
 (kernel K8) take the hand-written CUDA kernels for CUDA tensors and their
 plain PyTorch versions, beside them here, for CPU tensors.
 """
@@ -92,23 +93,25 @@ def lookup(
     hash_shift: int = 0,
     count: Optional[int] = None,
     cols: Sequence[str] = (),
+    mask: Optional[torch.Tensor] = None,
 ) -> LookupResult:
     """Batched linear probe for each key, fused with the column gather
     (``ops/hash_table.py`` ``lookup`` + ``gather_cols``).
 
-    ``found`` is masked to lanes below ``count`` (all lanes when None), as
-    the commit kernels mask it with ``valid``; ``cols`` names the columns
-    to gather at the found slots.  Kernel K1 on CUDA tensors."""
+    ``found`` is masked to lanes below ``count`` (all lanes when None) and,
+    when given, to the bool lane ``mask``, as the commit kernels mask it;
+    ``cols`` names the columns to gather at the found slots.  ``overflow``
+    covers every lane.  Kernel K1 on CUDA tensors."""
     n = key_lo.shape[0]
     count = n if count is None else count
     if key_lo.is_cuda:
         found, slot, overflow, gathered = _cuda.probe(
             table.key_lo, table.key_hi, table.tombstone, table.cols,
-            key_lo, key_hi, max_probe, hash_shift, count, tuple(cols),
+            key_lo, key_hi, max_probe, hash_shift, count, tuple(cols), mask,
         )
         return LookupResult(found, slot, overflow, gathered)
     return lookup_plain(table, key_lo, key_hi, max_probe, hash_shift,
-                        count, cols)
+                        count, cols, mask)
 
 
 def lookup_plain(
@@ -119,6 +122,7 @@ def lookup_plain(
     hash_shift: int,
     count: int,
     cols: Sequence[str],
+    lane_mask: Optional[torch.Tensor] = None,
 ) -> LookupResult:
     """Plain PyTorch version of kernel K1 (the JAX ``while_loop``, lane-
     parallel, run until every lane is done or ``max_probe`` steps)."""
@@ -142,6 +146,8 @@ def lookup_plain(
         done = done | match | empty
     lane = torch.arange(key_lo.shape[0], device=key_lo.device)
     found = found & (lane < count)
+    if lane_mask is not None:
+        found = found & lane_mask
     return LookupResult(
         found=found,
         slot=slot,
@@ -186,9 +192,34 @@ def claim_slots(
     max_probe: int,
     hash_shift: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch claim protocol: the insert slot of every masked key,
-    without writing.  Returns (claimed int64[N] with C where unplaced,
-    overflow bool 0-dim).
+    """The insert slot of every masked key, without writing: (claimed
+    int64[N] with C where unplaced, overflow bool 0-dim).  On CUDA tensors
+    K2's claim entry, which marks the claimed slots with their keys while it
+    runs, then its write entry with a closed gate, which clears the marks:
+    the table is left as it was."""
+    if key_lo.is_cuda:
+        claimed, flag = _cuda.claim(
+            table.key_lo, table.key_hi, table.tombstone, key_lo, key_hi,
+            insert_mask, max_probe, hash_shift)
+        _cuda.write_claimed(
+            table.key_lo, table.key_hi, table.tombstone, table.cols,
+            table.count, key_lo, key_hi, claimed,
+            torch.zeros_like(insert_mask), {}, gate=torch.ones_like(flag),
+            revert=True)
+        return claimed, flag[0] != 0
+    return claim_slots_plain(table, key_lo, key_hi, insert_mask, max_probe,
+                             hash_shift)
+
+
+def claim_slots_plain(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    insert_mask: torch.Tensor,
+    max_probe: int,
+    hash_shift: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch claim protocol (plain version of K2's claim entry).
 
     The winner of a round is the group's next lane in batch order: all
     unplaced lanes advance together, so lanes probing one slot share a home,
@@ -241,7 +272,25 @@ def write_rows(
     rows: Dict[str, torch.Tensor],
 ) -> Table:
     """Write keys and value columns at the slots from ``claim_slots``
-    (unique by construction), in place."""
+    (unique by construction) where ``write_mask``, in place; ``count`` grows
+    by the rows written.  K2's write entry on CUDA tensors."""
+    if key_lo.is_cuda:
+        _cuda.write_claimed(
+            table.key_lo, table.key_hi, table.tombstone, table.cols,
+            table.count, key_lo, key_hi, claimed, write_mask, rows)
+        return table
+    return write_rows_plain(table, key_lo, key_hi, claimed, write_mask, rows)
+
+
+def write_rows_plain(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    claimed: torch.Tensor,
+    write_mask: torch.Tensor,
+    rows: Dict[str, torch.Tensor],
+) -> Table:
+    """Plain version of K2's write entry."""
     w = write_mask & (claimed < table.capacity)
     idx = claimed[w]
     table.key_lo[idx] = key_lo[w]
@@ -279,10 +328,10 @@ def insert(
 def insert_plain(table, key_lo, key_hi, insert_mask, rows, max_probe,
                  hash_shift=0):
     """Plain PyTorch version of kernel K2: claim_slots + write_rows."""
-    claimed, overflow = claim_slots(
+    claimed, overflow = claim_slots_plain(
         table, key_lo, key_hi, insert_mask, max_probe, hash_shift
     )
-    write_rows(table, key_lo, key_hi, claimed, insert_mask, rows)
+    write_rows_plain(table, key_lo, key_hi, claimed, insert_mask, rows)
     table.probe_overflow |= overflow
     return table, claimed
 

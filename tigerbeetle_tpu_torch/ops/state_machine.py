@@ -13,9 +13,9 @@ package:
   account.
 
 Preconditions, enforced by the host dispatcher (``machine.py``), which
-refuses any other batch unless the machine runs every batch through the
-sequential path (``ops/scan_path.py``); the JAX package routes those
-batches to its general kernel, which this port does not have yet:
+sends any other batch to the general kernel (``ops/transfer_full.py``), or
+every batch to the sequential path (``ops/scan_path.py``) under
+``force_sequential``, as the JAX package does:
   P1 no account in the table carries limit or history flags;
   P2 the batch has no balancing_debit/balancing_credit/post/void flags;
   P3 all amounts < 2**64 and every balance is bounded away from 2**128;

@@ -1,8 +1,11 @@
 """Host (numpy) generator of the flagship benchmark's plain-transfer batches.
 
 Copies of ``bench.py``'s ``mix64_np`` and ``gen_batch_np``, bit for bit: the
-same batch index gives the same transfers in both packages; and a numpy copy
-of its on-device ``--two-phase`` generator ``gen_two_phase``.  The batches are
+same batch index gives the same transfers in both packages; a numpy copy of
+its on-device ``--two-phase`` generator ``gen_two_phase``; and of its
+``--limits`` set-up (limit-flagged accounts plus one funder, then a funding
+transfer of 2**40 to each), after which the steady state is
+``gen_batch_np``.  The batches are
 made on the host because numpy's uint64 ``%`` is exact; torch's int64 ``%``
 is signed and wrong above 2**63.
 """
@@ -82,3 +85,42 @@ def gen_two_phase_np(b: int, lanes: int, count: int, n_accounts: int,
     batch["flags"] = np.where(is_post, types.TransferFlags.POST_PENDING_TRANSFER,
                               types.TransferFlags.PENDING)
     return batch[:2 * half]
+
+
+def gen_limit_accounts_np(n_accounts: int, count: int):
+    """bench.py ``--limits`` account batches (``bench.py:2066-2087``):
+    accounts 1..n_accounts with DEBITS_MUST_NOT_EXCEED_CREDITS and one
+    unflagged funder, ``n_accounts + 1``, ledger 1, code 10, in batches of at
+    most ``count``."""
+    lim = types.AccountFlags.DEBITS_MUST_NOT_EXCEED_CREDITS
+    ids = np.arange(1, n_accounts + 2, dtype=np.uint64)
+    out = []
+    for start in range(0, len(ids), count):
+        part = ids[start:start + count]
+        batch = np.zeros(len(part), dtype=types.ACCOUNT_DTYPE)
+        batch["id_lo"] = part
+        batch["ledger"] = 1
+        batch["code"] = 10
+        batch["flags"] = np.where(part <= n_accounts, np.uint16(lim),
+                                  np.uint16(0))
+        out.append(batch)
+    return out
+
+
+def gen_funding_np(n_accounts: int, count: int):
+    """bench.py ``--limits`` funding batches (``bench.py:2091-2117``): the
+    funder (``n_accounts + 1``) credits each limit account 2**40, ids from
+    2**31, in batches of at most ``count``."""
+    out = []
+    for funded in range(0, n_accounts, count):
+        n = min(count, n_accounts - funded)
+        lane = np.arange(n, dtype=np.uint64)
+        batch = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+        batch["id_lo"] = (1 << 31) + funded + lane
+        batch["debit_account_id_lo"] = n_accounts + 1
+        batch["credit_account_id_lo"] = 1 + funded + lane
+        batch["amount_lo"] = 1 << 40
+        batch["ledger"] = 1
+        batch["code"] = 10
+        out.append(batch)
+    return out
