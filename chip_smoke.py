@@ -56,6 +56,41 @@ Phases, each printing one JSON line:
                 and a funder, 10,000 funding transfers, then the flagship
                 plain generator for ``--full-transfers`` transfers, all on
                 the general kernel.
+                Phases 5, 8, 11 and 12 build their machines with
+                ``LedgerConfig(lazy_index=True)``, as bench.py's device runs
+                do: no index maintenance, so their rates compare with the
+                earlier slices' runs;
+ 13. index_kernels - K13 run_sort, K14 run_merge, K15 index_window and K16
+                history_scan against their plain versions on the card, byte
+                for byte on every output (invalid lanes included): build_runs
+                with none, some and all lanes ok, stable ties, a full build
+                of 2^20 entries, carries into levels 1-6, windows and unions
+                in both directions with the four side combinations over
+                levels that are only sentinels, a history log with fewer and
+                more matches than k and a rolled-back tail, and a 2^21-slot
+                log (K16's block-count scan over more than 1,024 blocks);
+                K13 and K14 timed at the main path's shapes, K13's one-launch
+                batch sort beside its chunks-and-K14-rounds form;
+ 14. queries_parity - small, on the card: a default machine (the index
+                appended on the fast, general and sequential routes) against
+                the scalar oracle and a lazy_index machine: every filter
+                flag combination, the invalid filters, limits 1, 7 and
+                8,190, timestamp windows, scan_transfers/scan_accounts/
+                query_*_where with union, intersection and difference;
+ 15. queries  - at full width: (a) the flagship generator on a default
+                machine (index maintained on every commit) for
+                ``--query-transfers`` transfers (10,000,000), 100
+                get_account_transfers at limit 8,190 (debits, credits,
+                both, reversed), a full rebuild and the same queries again;
+                (b) the same transfers on HISTORY accounts (the general
+                path, a history row each), then 100 get_account_history.
+                Every answer against a numpy selection over the table or
+                log on the host.  At this size, on the card, byte for byte
+                against the plain versions: the deepest carried level and
+                the rebuilt level (K13, K14), K15 over the whole pyramid and
+                K16 over the whole log, invalid lanes included; K15/K16
+                timed here, and K1 and K13-K16's launch counts read from
+                this phase.
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
@@ -64,6 +99,7 @@ before the last line is printed.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import subprocess
@@ -186,6 +222,20 @@ def max_abs_err(name: str, a: dict, b: dict) -> int:
     return worst
 
 
+def max_abs_err_card(name: str, a: dict, b: dict) -> int:
+    """``max_abs_err`` of tensors compared where they lie (on the card at
+    full size); they are copied to the host only when they differ, for the
+    message."""
+    import torch
+
+    for k in a:
+        x, y = a[k], b[k]
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+            return max_abs_err(name, {c: to_np(v) for c, v in a.items()},
+                               {c: to_np(v) for c, v in b.items()})
+    return 0
+
+
 def table_np(t) -> dict:
     out = {"key_lo": to_np(t.key_lo), "key_hi": to_np(t.key_hi),
            "tombstone": to_np(t.tombstone), "count": to_np(t.count),
@@ -241,6 +291,40 @@ def probe_steps(table_np_, lo, hi, cap, max_probe) -> int:
         a, b, tb = klo[cur], khi[cur], tomb[cur]
         done = done | (~tb & (((a == lo) & (b == hi)) | ((a == 0) & (b == 0))))
     return steps
+
+
+class uncounted:
+    """Launches made while a kernel is timed against its plain version do
+    not count toward the launches of the path being run."""
+
+    def __enter__(self):
+        from tigerbeetle_tpu_torch.ops import _cuda
+
+        self.saved = _cuda.counts()
+
+    def __exit__(self, *exc):
+        from tigerbeetle_tpu_torch.ops import _cuda
+
+        for name, n in self.saved.items():
+            _cuda.KERNELS[name].launches = n
+
+
+def loop_ms(fn, n=50) -> float:
+    """CUDA events around ``n`` back-to-back calls, per call: the kernel's
+    time when it outlasts the host's launch work, else the launch rate."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def pair_times(kernel: dict, plain: dict) -> dict:
@@ -743,7 +827,10 @@ def phase_main(dev, n_transfers: int) -> dict:
 
     batch_max = 8190
     torch.cuda.reset_peak_memory_stats()
-    m = TorchStateMachine(LedgerConfig(), batch_lanes=8192, device=dev)
+    # lazy_index: no index maintenance (bench.py's device runs), so the
+    # throughput compares with the earlier slices' runs.
+    m = TorchStateMachine(LedgerConfig(lazy_index=True), batch_lanes=8192,
+                          device=dev)
     caps0 = m.ledger.transfers.capacity
     for start in range(0, N_ACCOUNTS, batch_max):
         ids = range(start + 1, min(N_ACCOUNTS, start + batch_max) + 1)
@@ -1260,7 +1347,8 @@ def _sequential_run(dev, n_transfers: int, grows: list) -> dict:
 
     batch_max = 8190
     torch.cuda.reset_peak_memory_stats()
-    m = TorchStateMachine(LedgerConfig(), batch_lanes=LANES, device=dev,
+    m = TorchStateMachine(LedgerConfig(lazy_index=True), batch_lanes=LANES,
+                          device=dev,
                           force_sequential=True)
     caps0 = (m.ledger.transfers.capacity, m.ledger.posted.capacity)
     for start in range(0, N_ACCOUNTS, batch_max):
@@ -1852,7 +1940,8 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
     batch_max = COUNT
     gc.collect()  # an earlier phase's machine must not count in this peak
     torch.cuda.reset_peak_memory_stats()
-    m = TorchStateMachine(LedgerConfig(), batch_lanes=LANES, device=dev)
+    m = TorchStateMachine(LedgerConfig(lazy_index=True), batch_lanes=LANES,
+                          device=dev)
     attempts = []  # the first routing word of every readback: kflags
     d2h = m._d2h_codes
 
@@ -2027,6 +2116,966 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: the transfer index and the queries (K13-K16)
+# ---------------------------------------------------------------------------
+
+INDEX_PATH = ("probe", "run_sort", "run_merge", "index_window", "history_scan")
+U64M = (1 << 64) - 1
+QUERY_K = 8192  # get_account_transfers' candidate cap (QUERY_ROWS_MAX's power of two)
+
+
+def level_np(lvl) -> dict:
+    return {c: to_np(v) for c, v in lvl.items()}
+
+
+def index_runs(rng, n_runs, n, dev):
+    """``n_runs`` batches of ``n`` index entries per side, as a batch's
+    runs before the sort: unique timestamps in commit order, debit and
+    credit accounts 1..64 (never the same), a tenth of the lanes not ok."""
+    import torch
+
+    out = []
+    ts0 = 1
+    for _ in range(n_runs):
+        ts = np.arange(ts0, ts0 + n, dtype=np.uint64)
+        ts0 += n
+        dr = rng.integers(1, 65, n).astype(np.uint64)
+        cr = (dr + rng.integers(1, 64, n).astype(np.uint64) - 1) % 64 + 1
+        tid = rng.integers(1, 1 << 62, n).astype(np.uint64)
+        use = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+        zero = np.zeros(n, np.uint64)
+        sides = [[t64(a, dev) for a in (acct, zero, ts, tid, zero)]
+                 for acct in (dr, cr)]
+        out.append((sides, use))
+    return out
+
+
+def phase_index_kernels(seed: int, dev) -> dict:
+    """K13-K16 against their plain versions on the card, byte for byte on
+    every output array (invalid lanes included); K13 and K14 timed at the
+    main path's shapes (K15 and K16 are timed by ``queries``)."""
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import index as ix
+    from tigerbeetle_tpu_torch.ops import query as q
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.testing import fullmix, seqmix
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    rng = np.random.default_rng(seed + 13)
+    results, checked = {}, {}
+
+    # -- K13: build_runs' sort on a ledger at the main path's shape --------
+    m = TorchStateMachine(LedgerConfig(lazy_index=True), batch_lanes=LANES,
+                          device=dev)
+    for start in range(0, N_ACCOUNTS, COUNT):
+        m.create_accounts(types.accounts_array(
+            [types.account(id=i, ledger=1, code=10)
+             for i in range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)]))
+    for b in range(24):
+        if m.create_transfers(gen_batch_np(b, COUNT, COUNT, N_ACCOUNTS, 1 << 32)):
+            raise AssertionError("index_kernels: a flagship batch failed")
+    led = m.ledger
+    batch = gen_batch_np(23, LANES, COUNT, N_ACCOUNTS, 1 << 32)
+    id_lo = t64(np.concatenate([batch["id_lo"], np.zeros(LANES - COUNT, np.uint64)]), dev)
+    id_hi = torch.zeros_like(id_lo)
+    errs = 0
+    for frac in (0.0, 0.5, 1.0):
+        ok = torch.from_numpy(rng.random(LANES) < frac).to(dev)
+        look = ht.lookup(led.transfers, id_lo, id_hi, sm.MAX_PROBE,
+                         cols=("debit_account_id_lo", "debit_account_id_hi",
+                               "credit_account_id_lo", "credit_account_id_hi",
+                               "timestamp"), mask=ok)
+        sides = [ix._side_cols(look.cols, id_lo, id_hi, f)
+                 for f in ("debit_account_id", "credit_account_id")]
+        got = ix._sort_masked(sides, look.found, LANES)
+        for g, s, name in zip(got, sides, ("dr", "cr")):
+            errs = max(errs, max_abs_err(
+                f"run_sort build_runs ok={frac} {name}", level_np(g),
+                level_np(ix._sort_level_plain(ix._masked(s, look.found)))))
+        got = ix.build_runs(led, id_lo, id_hi, ok)
+        for g, s in zip(got, sides):
+            max_abs_err(f"build_runs ok={frac}", level_np(g),
+                        level_np(ix._sort_level_plain(ix._masked(s, look.found))))
+    checked["run_sort_build_runs"] = 3
+    use = look.found
+    # The batch's run in one K13 launch (its chunks merged after a grid
+    # barrier) against K13's chunks and three K14 rounds, the full builds'
+    # form: the same run, both timed (device and back-to-back calls).
+    one = ix._sort_masked(sides, use, LANES)
+    two = ix._sort_masked(sides, use, LANES, fused=False)
+    for g, p, name in zip(two, one, ("dr", "cr")):
+        errs = max(errs, max_abs_err(f"run_sort chunks and rounds {name}",
+                                     level_np(g), level_np(p)))
+    batch_forms = {}
+    for label, fused in (("one_launch", True), ("chunks_and_rounds", False),
+                         ("chunks_and_rounds_2", False), ("one_launch_2", True)):
+        def form(fused=fused):
+            return ix._sort_masked(sides, use, LANES, fused=fused)
+
+        t = timed(form, reps=50)
+        batch_forms[label] = {"device_ms": t["device_ms"], "call_ms": t["call_ms"],
+                              "loop_ms": loop_ms(form, n=200)}
+    outs = [[torch.empty(LANES, dtype=torch.int64, device=dev) for _ in range(5)]
+            for _ in range(2)]
+    # Ties: repeated keys keep their input order (stable), as lexsort.
+    for n, fill in ((LANES, LANES), (1 << 15, 1 << 14)):
+        block = np.full((5, n), U64M, np.uint64)
+        block[0, :fill] = rng.integers(1, 9, fill)
+        block[1, :fill] = rng.integers(0, 2, fill)
+        block[2, :fill] = rng.integers(1, 50, fill)
+        block[3, :fill] = rng.integers(1, 1 << 62, fill)
+        block[4, :fill] = rng.integers(0, 4, fill)
+        lvl = ix.Level(t64(block[:, rng.permutation(n)], dev))
+        errs = max(errs, max_abs_err(f"run_sort ties n={n}",
+                                     level_np(ix._sort_level(lvl)),
+                                     level_np(ix._sort_level_plain(lvl))))
+    # A full build at 2^20 entries: K13 over 1,024 chunks, then 10 K14 rounds.
+    n_full = 1 << 20
+    fb = [t64(rng.integers(0, 1 << 63, n_full // 2, dtype=np.uint64), dev)
+          for _ in range(5)]
+    fb[1] = fb[1] & 3
+    fb[0] = fb[0] % 5000
+    fuse = torch.from_numpy(rng.random(n_full // 2) < 0.8).to(dev)
+    full_k = ix._sort_masked([fb], fuse, n_full)[0]
+    full_p = ix._sort_level_plain(ix._masked(fb, fuse, n_full))
+    errs = max(errs, max_abs_err("full build 2^20", level_np(full_k),
+                                 level_np(full_p)))
+    full_ms = timed(lambda: ix._sort_masked([fb], fuse, n_full), reps=5)
+    full_plain_ms = timed(lambda: ix._sort_level_plain(ix._masked(fb, fuse, n_full)),
+                          reps=3)
+    # K13's timed row comes from the queries phase (the flagship's last
+    # batch); this one, on a 24-batch ledger's run, is kept beside it.
+    results["run_sort"] = dict(
+        max_abs_err=errs,
+        early_ledger=dict(**pair_times(
+            timed(lambda: _cuda.run_sort(sides, use, outs)),
+            timed(lambda: [ix._sort_level_plain(ix._masked(s, use))
+                           for s in sides])),
+            loop_ms=loop_ms(lambda: _cuda.run_sort(sides, use, outs))),
+        full_build_2p20=dict(ms=full_ms["device_ms"], plain_ms=full_plain_ms["device_ms"],
+                             call_ms=full_ms["call_ms"]),
+        batch_forms=batch_forms,
+    )
+    del m, led
+    gc.collect()
+
+    # -- K14: Bentley-Saxe carries into levels 1..6 (70 appends) -------------
+    errs = 0
+    runs = index_runs(rng, 70, LANES, dev)
+    levels = {"dr": [], "cr": []}
+    occupied = []
+    carries = []
+    for sides, use_r in runs:
+        dr, cr = ix._sort_masked(sides, use_r, LANES)
+        k = 0
+        while k < len(occupied) and occupied[k]:
+            k += 1
+        while len(occupied) <= k:
+            cap = LANES << len(occupied)
+            levels["dr"].append(ix._sentinel_level(cap, dev))
+            levels["cr"].append(ix._sentinel_level(cap, dev))
+            occupied.append(False)
+        if k == 0:
+            levels["dr"][0], levels["cr"][0] = dr, cr
+        else:
+            jobs = [[dr] + levels["dr"][:k], [cr] + levels["cr"][:k]]
+            plain = [ix._merge_plain(j) for j in jobs]
+            got = ix._merge_sides(jobs, outs=[levels["dr"][k], levels["cr"][k]])
+            for g, p, side in zip(got, plain, ("dr", "cr")):
+                errs = max(errs, max_abs_err(f"run_merge carry into {k} {side}",
+                                             level_np(g), level_np(p)))
+            for j in range(k):
+                levels["dr"][j].block.fill_(-1)
+                levels["cr"][j].block.fill_(-1)
+                occupied[j] = False
+            carries.append(k)
+        occupied[k] = True
+    if max(carries) < 6:
+        raise AssertionError(f"index_kernels: carries reached only {max(carries)}")
+    # One launch of the level-6 carry's last step: 32 N + 32 N entries a side.
+    big = [ix._merge_plain([levels["dr"][6]]), ix._merge_plain([levels["cr"][6]])]
+    halves = [(ix.Level(b.block[:, : b.n // 2].contiguous()),
+               ix.Level(b.block[:, b.n // 2:].contiguous())) for b in big]
+    merge_out = [[torch.empty(big[0].n, dtype=torch.int64, device=dev)
+                  for _ in range(5)] for _ in range(2)]
+    ab = [[h[0][c] for c in ix.COLS] for h in halves]
+    bb = [[h[1][c] for c in ix.COLS] for h in halves]
+    results["run_merge"] = dict(
+        max_abs_err=errs,
+        **pair_times(
+            timed(lambda: _cuda.run_merge(ab, bb, merge_out), reps=10),
+            timed(lambda: [ix._merge_plain(list(h)) for h in halves], reps=5)),
+        loop_ms=loop_ms(lambda: _cuda.run_merge(ab, bb, merge_out), n=20),
+        library_ms=None,
+        bound=bound(2 * big[0].n * 40 * 2, 2 * big[0].n * 20),
+        shape=f"the last step of a carry into level 6: two sides of "
+              f"{big[0].n // 2} + {big[0].n // 2} entries in one launch",
+        carries=carries,
+    )
+    checked["run_merge_carries"] = len(carries)
+
+    # -- K15: windows and unions on that pyramid (levels 1, 2, 6 occupied,
+    # the others sentinel only) ------------------------------------------
+    dr_levels, cr_levels = levels["dr"], levels["cr"]
+    errs15 = 0
+    n_q = 0
+    ts_all = 70 * LANES
+    for desc in (False, True):
+        for want in ((True, True), (True, False), (False, True), (False, False)):
+            for acct, lo_ts, hi_ts, k in ((1, 1, U64M - 1, QUERY_K),
+                                          (7, ts_all // 5, ts_all // 2, QUERY_K),
+                                          (33, 1, U64M - 1, 64),
+                                          (64, ts_all - 100, U64M - 1, 256),
+                                          (999, 1, U64M - 1, 64)):
+                g = ix.query_transfers(dr_levels, cr_levels, acct, 0, lo_ts,
+                                       hi_ts, *want, k, desc)
+                p = ix.query_transfers_plain(dr_levels, cr_levels, acct, 0,
+                                             lo_ts, hi_ts, *want, k, desc)
+                errs15 = max(errs15, max_abs_err(
+                    f"index_window union acct={acct} want={want} desc={desc}",
+                    {"valid": to_np(g[0]), "lo": to_np(g[1]), "hi": to_np(g[2])},
+                    {"valid": to_np(p[0]), "lo": to_np(p[1]), "hi": to_np(p[2])}))
+                n_q += 1
+        for acct, lo_ts, hi_ts in ((5, 1, U64M), (9, ts_all // 3, U64M - 1)):
+            g = ix._query_side(dr_levels, acct, 0, lo_ts, hi_ts, 512, desc)
+            p = ix._query_side_plain(dr_levels, acct, 0, lo_ts, hi_ts, 512, desc)
+            errs15 = max(errs15, max_abs_err(
+                f"index_window window acct={acct} desc={desc}",
+                dict(zip("tlh", map(to_np, g))), dict(zip("tlh", map(to_np, p)))))
+            n_q += 1
+    checked["index_window_queries"] = n_q
+    results["index_window"] = dict(max_abs_err=errs15)
+    del levels, dr_levels, cr_levels, runs, big, halves
+    gc.collect()
+
+    # -- K16: a history log from the general path, a rolled-back tail above
+    # its count, both sides, fewer and more matches than k ----------------
+    hm = TorchStateMachine(LedgerConfig(accounts_capacity_log2=10,
+                                        transfers_capacity_log2=14,
+                                        posted_capacity_log2=12,
+                                        history_capacity_log2=12),
+                           batch_lanes=2048, device=dev)
+    hm.create_accounts(seqmix.accounts_batch(rng, 1, 400, faults=False), 10)
+    mix = fullmix.GeneralMix(rng, list(range(1, 401)), 1 << 40)
+    for b in range(4):
+        res = hm.create_transfers(mix.batch(2000), 10 ** 9 * (b + 1))
+        mix.settle(i for i, _ in res)
+    h = hm.ledger.history
+    count = int(h.count.item())
+    if count < 64:
+        raise AssertionError(f"index_kernels: history count {count}")
+    tail = min(300, h.capacity - count)
+    for col in h.cols.values():
+        col[count:count + tail] = col[:tail].clone()
+    hist_acct = [a for a in range(1, 401) if seqmix.account_flags(a) & 8][:6]
+    ts_h = to_np(h.cols["timestamp"][:count])
+    errs16 = 0
+    for desc in (False, True):
+        for want in ((True, True), (True, False), (False, True)):
+            for acct, lo_ts, hi_ts, k in ((hist_acct[0], 1, U64M - 1, 8),
+                                          (hist_acct[1], 1, U64M - 1, h.capacity),
+                                          (hist_acct[2], int(ts_h[10]),
+                                           int(ts_h[-10]), 512),
+                                          (999_999, 1, U64M - 1, 64)):
+                g = q.scan_history(hm.ledger, acct, 0, lo_ts, hi_ts, *want, desc, k)
+                p = q.scan_history_plain(hm.ledger, acct, 0, lo_ts, hi_ts, *want,
+                                         desc, k)
+                errs16 = max(errs16, max_abs_err(
+                    f"history_scan acct={acct} want={want} desc={desc} k={k}",
+                    {"valid": to_np(g[0]), **{c: to_np(v) for c, v in g[1].items()}},
+                    {"valid": to_np(p[0]), **{c: to_np(v) for c, v in p[1].items()}}))
+    more = int(q.scan_history_plain(hm.ledger, hist_acct[0], 0, 1, U64M - 1,
+                                    True, True, False, h.capacity)[0].sum())
+    if more <= 8:
+        raise AssertionError("index_kernels: the k=8 history case has few matches")
+    # A log of 2^21 slots: 2,048 blocks of K16's count pass, so the scan of
+    # the block counts carries across more than one block of 1,024.  The
+    # rows above repeated, with fresh increasing timestamps, 1,500,000 of
+    # them below count.
+    big_cap = 1 << 21
+    reps = -(-big_cap // count)
+    big_cols = {name: col[:count].repeat(reps)[:big_cap].clone()
+                for name, col in h.cols.items()}
+    big_cols["timestamp"] = 3 * torch.arange(1, big_cap + 1, dtype=torch.int64,
+                                             device=dev)
+    big = dataclasses.replace(hm.ledger, history=dataclasses.replace(
+        h, cols=big_cols, count=torch.full_like(h.count, 1_500_000)))
+    for desc, want, lo_ts, hi_ts, k in (
+            (True, (True, True), 1, U64M - 1, 8190),
+            (False, (True, False), 1, U64M - 1, 8190),
+            (True, (False, True), 3_000_000, 4_000_000, 512)):
+        for acct in hist_acct[:2]:
+            g = q.scan_history(big, acct, 0, lo_ts, hi_ts, *want, desc, k)
+            p = q.scan_history_plain(big, acct, 0, lo_ts, hi_ts, *want, desc, k)
+            errs16 = max(errs16, max_abs_err_card(
+                f"history_scan 2^21 log acct={acct} want={want} desc={desc} k={k}",
+                {"valid": g[0], **g[1]}, {"valid": p[0], **p[1]}))
+    del big, big_cols
+    checked["history_scan_queries"] = 30
+    checked["history_rows"] = count
+    checked["history_tail_above_count"] = tail
+    results["history_scan"] = dict(max_abs_err=errs16)
+    del hm
+    gc.collect()
+    torch.cuda.synchronize()
+    return {"results": results, "checked": checked}
+
+
+def phase_queries_parity(seed: int, dev) -> dict:
+    """Small, on the card: a default machine (index appended on every
+    commit of the fast, general and sequential routes) against the scalar
+    oracle and against a ``lazy_index`` machine, over every filter flag
+    combination, the invalid filters, limits 1, 7 and 8,190, timestamp
+    windows and composed scans."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import scan_builder as sb
+    from tigerbeetle_tpu_torch.testing import fullmix, seqmix
+    from tigerbeetle_tpu_torch.testing import model as M
+
+    rng = np.random.default_rng(seed + 14)
+    cfg = LedgerConfig(accounts_capacity_log2=10, transfers_capacity_log2=14,
+                       posted_capacity_log2=12, history_capacity_log2=12)
+    lanes = 1024
+    eager = TorchStateMachine(cfg, batch_lanes=lanes, device=dev)
+    lazy = TorchStateMachine(dataclasses.replace(cfg, lazy_index=True),
+                             batch_lanes=lanes, device=dev)
+    ref = M.ReferenceStateMachine()
+    routes = {"fast": 0, "full": 0, "sequential": 0}
+    for name in routes:
+        attr = {"fast": "_commit_fast", "full": "_commit_full",
+                "sequential": "_sequential"}[name]
+        orig = getattr(eager, attr)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            routes[_name] += 1
+            return _orig(*a, **k)
+
+        setattr(eager, attr, spy)
+    wall = [10]
+
+    def commit(op, batch):
+        wall[0] += 10 ** 9
+        got = getattr(eager, op)(batch, wall_clock_ns=wall[0])
+        if getattr(lazy, op)(batch, wall_clock_ns=wall[0]) != got:
+            raise AssertionError(f"queries_parity: lazy machine {op}")
+        rows = (M.accounts_from_batch if op == "create_accounts"
+                else M.transfers_from_batch)(batch)
+        if getattr(ref, op)(rows, wall[0]) != got:
+            raise AssertionError(f"queries_parity: oracle {op}")
+        return got
+
+    def vary(batch):
+        regular = (batch["flags"] & 12) == 0  # not post/void
+        n = int(regular.sum())
+        batch["user_data_128_hi"][regular] = rng.integers(0, 3, n)
+        batch["user_data_128_lo"][regular] = rng.integers(0, 2, n)
+        batch["code"][regular] = rng.choice([10, 20, 30], n)
+        return batch
+
+    # Plain accounts and plain batches: the fast path.
+    commit("create_accounts", types.accounts_array([
+        types.account(id=i, ledger=1, code=10 + 10 * (i % 2), user_data_32=i % 3)
+        for i in range(1, 41)]))
+    for b in range(3):
+        n = 1000
+        dr = rng.integers(1, 41, n)
+        cr = (dr + rng.integers(1, 40, n) - 1) % 40 + 1
+        commit("create_transfers", vary(types.transfers_array([
+            types.transfer(id=100_000 + 1000 * b + i, debit_account_id=int(dr[i]),
+                           credit_account_id=int(cr[i]), amount=int(rng.integers(1, 99)),
+                           ledger=1, code=10) for i in range(n)])))
+    # Limit and history accounts: the general kernel, and its FLAG_SEQ
+    # re-routes to the sequential path.
+    acc = seqmix.accounts_batch(rng, 41, 200, faults=False)
+    acc["code"] = 10 + 10 * (acc["id_lo"] % 2).astype(np.uint16)
+    commit("create_accounts", acc)
+    mix = fullmix.GeneralMix(rng, list(range(41, 241)), 1 << 40)
+    for kind in ("general", "general", "chain_balance", "general", "u128"):
+        got = commit("create_transfers", vary(mix.batch(1000, kind)))
+        mix.settle(i for i, _ in got)
+    tmix = seqmix.TransferMix(rng, list(range(41, 241)), 1 << 44)
+    for _ in range(2):
+        commit("create_transfers", vary(tmix.batch(1000)))
+    if not all(routes.values()):
+        raise AssertionError(f"queries_parity: a route was not taken {routes}")
+    if eager.index.stale or not lazy.index.stale:
+        raise AssertionError("queries_parity: index staleness")
+
+    def filt(acct, ts_min=0, ts_max=0, limit=8190, flags=3, reserved=0):
+        a = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)
+        size = types.ACCOUNT_FILTER_DTYPE["reserved"].itemsize
+        a["reserved"] = np.void(bytes([reserved]) + bytes(size - 1))
+        f = a[0]
+        f["account_id_lo"], f["account_id_hi"] = acct & U64M, acct >> 64
+        f["timestamp_min"], f["timestamp_max"] = ts_min, ts_max
+        f["limit"], f["flags"] = limit, flags
+        return f
+
+    ts = np.sort([t.timestamp for t in ref.transfers.values()])
+    lo_ts, hi_ts = int(ts[len(ts) // 5]), int(ts[4 * len(ts) // 5])
+    n_transfer_q = n_hist_q = 0
+    hist_accounts = [a for a in range(41, 241) if seqmix.account_flags(a) & 8]
+    for acct in [1, 2, 17, 40, 41, 45] + hist_accounts[:4] + [10 ** 9]:
+        for flags in range(1, 8):
+            for limit, ts_min, ts_max in ((8190, 0, 0), (1, 0, 0), (7, 0, 0),
+                                          (8190, lo_ts, hi_ts), (7, lo_ts, 0),
+                                          (8190, 0, hi_ts)):
+                f = filt(acct, ts_min, ts_max, limit, flags)
+                got = eager.get_account_transfers(f)
+                want = ref.get_account_transfers(acct, ts_min, ts_max, limit, flags)
+                if [int(r["id_lo"]) for r in got] != [t.id for t in want] or \
+                        [int(r["timestamp"]) for r in got] != [t.timestamp for t in want]:
+                    raise AssertionError(f"queries_parity: transfers {acct} {flags} {limit}")
+                if got.tobytes() != lazy.get_account_transfers(f).tobytes():
+                    raise AssertionError("queries_parity: lazy transfers")
+                gh = eager.get_account_history(f)
+                wh = ref.get_account_history(acct, ts_min, ts_max, limit, flags)
+                got_h = [(int(r["timestamp"]),
+                          *((int(r[c + "_hi"]) << 64) | int(r[c + "_lo"])
+                            for c in ("debits_pending", "debits_posted",
+                                      "credits_pending", "credits_posted")))
+                         for r in gh]
+                if got_h != [tuple(w) for w in wh]:
+                    raise AssertionError(f"queries_parity: history {acct} {flags}")
+                if gh.tobytes() != lazy.get_account_history(f).tobytes():
+                    raise AssertionError("queries_parity: lazy history")
+                n_transfer_q += 1
+                n_hist_q += len(wh) > 0
+    invalid = (filt(0), filt(U64M | (U64M << 64)), filt(1, ts_min=U64M),
+               filt(1, ts_max=U64M), filt(1, ts_min=9, ts_max=8), filt(1, limit=0),
+               filt(1, flags=4), filt(1, flags=9), filt(1, reserved=1))
+    for f in invalid:
+        if len(eager.get_account_transfers(f)) or len(eager.get_account_history(f)):
+            raise AssertionError("queries_parity: an invalid filter gave rows")
+
+    # Composed scans against a numpy selection over every transfer.
+    rows = eager.lookup_transfers(list(ref.transfers))
+
+    def u128(r, f):
+        return (r[f + "_hi"].astype(object) << 64) | r[f + "_lo"].astype(object)
+
+    def mask(rs, e, specs):
+        if isinstance(e, sb.Prefix):
+            lo_col, hi_col = specs[e.field]
+            vals = u128(rs, e.field) if hi_col else rs[lo_col].astype(object)
+            return np.asarray(vals == e.value, dtype=bool)
+        if isinstance(e, sb.Union):
+            return np.logical_or.reduce([mask(rs, c, specs) for c in e.children])
+        if isinstance(e, sb.Intersection):
+            return np.logical_and.reduce([mask(rs, c, specs) for c in e.children])
+        return mask(rs, e.include, specs) & ~mask(rs, e.exclude, specs)
+
+    def oracle(rs, e, limit, rev, ts_min=0, ts_max=0, specs=sb.TRANSFER_FIELDS):
+        t = rs["timestamp"]
+        keep = mask(rs, e, specs) & (t >= (ts_min or 1)) & (t <= (ts_max or U64M - 1))
+        hit = rs[keep]
+        order = np.argsort(hit["timestamp"], kind="stable")
+        return hit[order[::-1] if rev else order][:limit]
+
+    exprs = [
+        sb.scan_prefix("ledger", 1),
+        sb.scan_prefix("code", 20),
+        sb.scan_prefix("user_data_128", (1 << 64) | 1),
+        sb.merge_union(sb.scan_prefix("code", 10), sb.scan_prefix("code", 30)),
+        sb.merge_intersection(sb.scan_prefix("ledger", 1), sb.scan_prefix("code", 20),
+                              sb.scan_prefix("user_data_128", 2 << 64)),
+        sb.merge_difference(sb.scan_prefix("user_data_128", 1),
+                            sb.scan_prefix("code", 10)),
+        sb.merge_union(sb.merge_intersection(sb.scan_prefix("code", 10),
+                                             sb.scan_prefix("ledger", 1)),
+                       sb.merge_difference(sb.scan_prefix("user_data_128", 2 << 64),
+                                           sb.scan_prefix("code", 30))),
+    ]
+    n_scans = 0
+    for e in exprs:
+        for limit, rev, ts_min, ts_max in ((8190, False, 0, 0), (5, True, 0, 0),
+                                           (100, False, lo_ts, hi_ts)):
+            got = eager.scan_transfers(e, ts_min, ts_max, limit, rev)
+            want = oracle(rows, e, limit, rev, ts_min, ts_max)
+            if got.tobytes() != want.tobytes():
+                raise AssertionError(f"queries_parity: scan_transfers {e} {limit}")
+            if got.tobytes() != lazy.scan_transfers(e, ts_min, ts_max, limit,
+                                                    rev).tobytes():
+                raise AssertionError("queries_parity: lazy scan_transfers")
+            n_scans += 1
+    # One more batch: the materialized field indexes are appended (eager)
+    # or marked stale (lazy), and the scans stay exact.
+    commit("create_transfers", vary(tmix.batch(500)))
+    rows = eager.lookup_transfers(list(ref.transfers))
+    for e in exprs[:4]:
+        got = eager.scan_transfers(e)
+        if got.tobytes() != oracle(rows, e, 8190, False).tobytes() or \
+                got.tobytes() != lazy.scan_transfers(e).tobytes():
+            raise AssertionError(f"queries_parity: scan after append {e}")
+        n_scans += 1
+    got = eager.query_transfers_where(ledger=1, code=20, limit=50)
+    want = oracle(rows, sb.merge_intersection(sb.scan_prefix("code", 20),
+                                              sb.scan_prefix("ledger", 1)), 50, False)
+    if got.tobytes() != want.tobytes():
+        raise AssertionError("queries_parity: query_transfers_where")
+    acc_rows = eager.lookup_accounts(list(ref.accounts))
+    for e in (sb.scan_prefix("code", 20),
+              sb.merge_difference(sb.scan_prefix("ledger", 1),
+                                  sb.scan_prefix("user_data_32", 1))):
+        got = eager.scan_accounts(e)
+        if got.tobytes() != oracle(acc_rows, e, 8190, False,
+                                   specs=sb.ACCOUNT_FIELDS).tobytes() or \
+                got.tobytes() != lazy.scan_accounts(e).tobytes():
+            raise AssertionError(f"queries_parity: scan_accounts {e}")
+    got = eager.query_accounts_where(ledger=1, code=10)
+    want = oracle(acc_rows, sb.merge_intersection(sb.scan_prefix("code", 10),
+                                                  sb.scan_prefix("ledger", 1)),
+                  8190, False, specs=sb.ACCOUNT_FIELDS)
+    if got.tobytes() != want.tobytes():
+        raise AssertionError("queries_parity: query_accounts_where")
+    return {"routes": routes, "transfer_queries": n_transfer_q,
+            "history_queries_with_rows": n_hist_q, "scans": n_scans,
+            "transfers": len(ref.transfers), "history_rows": int(
+                eager.ledger.history.count.item())}
+
+
+def _side_order(acct_col, ts_col):
+    """numpy: entries sorted by (account, timestamp), and the sorted
+    accounts (for searchsorted)."""
+    order = np.lexsort((ts_col, acct_col))
+    return order, acct_col[order]
+
+
+def phase_queries(dev, n_transfers: int, smi: str) -> dict:
+    """(a) The flagship generator on a default machine (the index appended
+    on every commit), then 100 get_account_transfers at limit 8,190, a full
+    rebuild and the same queries; (b) the same transfers on HISTORY
+    accounts (the general path appends a history row per transfer), then
+    100 get_account_history.  Every answer is held against a numpy selection
+    over the table or log copied to the host."""
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import index as ix
+    from tigerbeetle_tpu_torch.ops import query as q
+    from tigerbeetle_tpu_torch.u128 import INT64_MIN
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    rng = np.random.default_rng(15)
+    n_batches = max(1, (n_transfers + COUNT - 1) // COUNT)
+    flag_cycle = (1, 2, 3, 7)  # DEBITS, CREDITS, both, both REVERSED
+    out = {"nvidia_smi": smi, "transfers": n_transfers, "batches": n_batches}
+
+    def run(m, label):
+        """Commit the flagship batches; a card-only profile over the last
+        64 full batches but one (a whole carry cycle up to level 6)."""
+        window = range(n_batches - 1 - 64, n_batches - 1)
+        if window.start < 0:
+            window = range(0)
+        commit_s, n_timed, prof = 0.0, 0, None
+        # The host's time in the index appends (their launches are
+        # asynchronous, so this is the Python and launch work).
+        append_s = [0.0]
+        index_append = m._index_append
+
+        def timed_append(*a):
+            t0 = time.perf_counter()
+            index_append(*a)
+            append_s[0] += time.perf_counter() - t0
+
+        m._index_append = timed_append
+        for b in range(n_batches):
+            count = min(COUNT, n_transfers - b * COUNT)
+            batch = gen_batch_np(b, COUNT, COUNT, N_ACCOUNTS, 1 << 32)[:count]
+            if window and b == window.start:
+                torch.cuda.synchronize()
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            res = m.create_transfers(batch)
+            dt = time.perf_counter() - t0
+            if b not in window:
+                commit_s += dt
+                n_timed += count
+            if window and b == window.stop - 1:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+            if res:
+                raise AssertionError(f"queries {label}: batch {b} failed {res[:3]}")
+        torch.cuda.synchronize()
+        del m._index_append
+        r = {"commit_s_unprofiled": commit_s,
+             "transfers_per_s": n_timed / commit_s if commit_s else None,
+             "index_append_host_ms_per_batch": append_s[0] * 1e3 / n_batches}
+        if prof is not None:
+            by_name = {}
+            busy = device_us(prof, by_name) / 1e3
+            per = {k: v / 1e3 / len(window) for k, v in by_name.items()}
+            r["profile"] = {
+                "batches": len(window), "device_busy_ms_per_batch": busy / len(window),
+                "k13_run_sort_ms_per_batch": sum(v for k, v in per.items()
+                                                 if "run_sort" in k),
+                "k14_run_merge_ms_per_batch": sum(v for k, v in per.items()
+                                                  if "run_merge" in k),
+                "device_ms_per_batch_by_name": dict(sorted(
+                    per.items(), key=lambda kv: -kv[1])[:12])}
+        return r
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    # -- (a) -------------------------------------------------------------
+    m = TorchStateMachine(LedgerConfig(), batch_lanes=LANES, device=dev)
+    for start in range(0, N_ACCOUNTS, COUNT):
+        if m.create_accounts(types.accounts_array(
+                [types.account(id=i, ledger=1, code=10)
+                 for i in range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)])):
+            raise AssertionError("queries: account creation failed")
+    out["a"] = run(m, "a")
+    out["a"]["index_levels"] = [lv.n for lv in m.index.dr_levels]
+    out["a"]["index_occupied"] = list(m.index.occupied)
+    t = m.ledger.transfers
+    host = {k: to_np(v) for k, v in (
+        ("key_lo", t.key_lo), ("key_hi", t.key_hi), ("tomb", t.tombstone),
+        ("dr", t.cols["debit_account_id_lo"]), ("dr_hi", t.cols["debit_account_id_hi"]),
+        ("cr", t.cols["credit_account_id_lo"]), ("cr_hi", t.cols["credit_account_id_hi"]),
+        ("ts", t.cols["timestamp"]))}
+    live = ((host["key_lo"] != 0) | (host["key_hi"] != 0)) & ~host["tomb"]
+    if host["key_hi"][live].any() or host["dr_hi"][live].any() or host["cr_hi"][live].any():
+        raise AssertionError("queries: the flagship ids fit in 64 bits")
+    ids, ts = host["key_lo"][live], host["ts"][live]
+    sides = {s: _side_order(host[s][live], ts) for s in ("dr", "cr")}
+    del host
+
+    def expected(acct, flags):
+        sel_ts, sel_id = [], []
+        for bit, s in ((1, "dr"), (2, "cr")):
+            if flags & bit:
+                order, keys = sides[s]
+                a, b = np.searchsorted(keys, acct), np.searchsorted(keys, acct, "right")
+                sel_ts.append(ts[order[a:b]])
+                sel_id.append(ids[order[a:b]])
+        st, si = np.concatenate(sel_ts), np.concatenate(sel_id)
+        o = np.argsort(st)
+        if flags & 4:
+            o = o[::-1]
+        return si[o][:8190], st[o][:8190]
+
+    accts = rng.integers(1, N_ACCOUNTS + 1, 100)
+
+    def queries(label):
+        answers, walls = [], []
+        for i, acct in enumerate(accts):
+            f = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)[0]
+            f["account_id_lo"], f["limit"] = int(acct), 8190
+            f["flags"] = flag_cycle[i % 4]
+            t0 = time.perf_counter()
+            got = m.get_account_transfers(f)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            want_id, want_ts = expected(int(acct), int(f["flags"]))
+            if not (np.array_equal(got["id_lo"], want_id)
+                    and np.array_equal(got["timestamp"], want_ts)):
+                raise AssertionError(f"queries {label}: account {acct} flags "
+                                     f"{f['flags']}: {len(got)} rows, want "
+                                     f"{len(want_id)}")
+            if got.tobytes() != m.lookup_transfers([int(x) for x in want_id]).tobytes():
+                raise AssertionError(f"queries {label}: rows of account {acct}")
+            answers.append(got.tobytes())
+        return answers, walls
+
+    first, walls = queries("a")
+    out["a"]["query_rows"] = int(sum(len(x) for x in first) // 128)
+    out["a"]["query_wall_ms"] = {"median": float(np.median(walls)),
+                                 "p99": float(np.percentile(walls, 99)),
+                                 "max": float(np.max(walls))}
+    # The kernels against their plain versions on the card at this size,
+    # every output array (invalid lanes included).  The peak memory of the
+    # path is read before each such check, which adds plain temporaries.
+    peak = torch.cuda.max_memory_allocated()
+    errs = {"run_sort": 0, "run_merge": 0, "index_window": 0, "history_scan": 0}
+    t = m.ledger.transfers
+
+    def side_cols(field):
+        return [t.cols[field + "_lo"], t.cols[field + "_hi"],
+                t.cols["timestamp"], t.key_lo, t.key_hi]
+
+    def check_level(label, side, k, use):
+        """Level k of one side ("dr" or "cr") against the plain sort of the
+        entries of ``use``, which must all fit in it (the rest sentinels)."""
+        levels = m.index.dr_levels if side == "dr" else m.index.cr_levels
+        field = "debit_account_id" if side == "dr" else "credit_account_id"
+        n = m.index.base << k
+        want = ix._sort_level_plain(ix._masked(side_cols(field), use))
+        if not bool((want.block[:, n:] == -1).all()):
+            raise AssertionError(f"queries {label}: entries past level {k}")
+        return max_abs_err_card(f"queries {label} {side} level {k}", levels[k],
+                                {c: want[c][:n] for c in ix.COLS})
+
+    with uncounted():
+        # The deepest carried level: appended in commit order, the highest
+        # occupied level k holds the first 2^k batches' runs, the
+        # transfers with the smallest timestamps (K13, then k K14 merges).
+        k_top = max(j for j, o in enumerate(m.index.occupied) if o)
+        n_real = min((1 << k_top) * COUNT, n_transfers)
+        live = ix._live(t)
+        tsu = t.cols["timestamp"] ^ INT64_MIN
+        first_runs = live & (tsu <= torch.sort(tsu[live]).values[n_real - 1])
+        for side in ("dr", "cr"):
+            errs["run_merge"] = max(errs["run_merge"], check_level(
+                "a", side, k_top, first_runs))
+        out["a"]["deepest_level_checked"] = {"level": k_top,
+                                             "entries": m.index.base << k_top,
+                                             "real": n_real}
+        del live, tsu, first_runs
+        # K15 on the whole pyramid, both directions, every side choice
+        # (none included: all lanes invalid), a timestamp window.
+        t_lo, t_hi = int(ts.min()), int(ts.max())
+        window = (t_lo + (t_hi - t_lo) // 4, t_lo + (t_hi - t_lo) // 2)
+        k15_cases = ((3, False, 1, U64M - 1), (1, True, 1, U64M - 1),
+                     (2, False, 1, U64M - 1), (0, True, 1, U64M - 1),
+                     (3, True, *window))
+
+        def check_k15(label, cases):
+            for j, (flags, desc, lo_ts, hi_ts) in enumerate(cases):
+                a = (m.index.dr_levels, m.index.cr_levels, int(accts[j]), 0,
+                     lo_ts, hi_ts, bool(flags & 1), bool(flags & 2), QUERY_K,
+                     desc)
+                errs["index_window"] = max(errs["index_window"], max_abs_err_card(
+                    f"queries {label}: query_transfers flags {flags} desc {desc}",
+                    dict(zip(("valid", "lo", "hi"), ix.query_transfers(*a))),
+                    dict(zip(("valid", "lo", "hi"), ix.query_transfers_plain(*a)))))
+            return len(cases)
+
+        out["a"]["k15_checked"] = check_k15("a", k15_cases)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    # K15 on the full pyramid: one limit-8,190 query's kernels and plain;
+    # K13 on the last batch's run, timed alone beside its in-path time.
+    acct = int(accts[0])
+
+    def k15_fn():
+        return ix.query_transfers(m.index.dr_levels, m.index.cr_levels, acct,
+                                  0, 1, U64M - 1, True, True, QUERY_K, False)
+
+    with uncounted():
+        k15 = timed(k15_fn)
+        k15_loop = loop_ms(k15_fn)
+        k15p = timed(lambda: ix.query_transfers_plain(
+            m.index.dr_levels, m.index.cr_levels, acct, 0, 1, U64M - 1, True,
+            True, QUERY_K, False), reps=3, warmup=1)
+        last = gen_batch_np(n_batches - 1, LANES, COUNT, N_ACCOUNTS, 1 << 32)
+        lid = t64(last["id_lo"], dev)
+        look = ix.ht.lookup(m.ledger.transfers, lid, torch.zeros_like(lid),
+                            ix.sm.MAX_PROBE, cols=(
+                                "debit_account_id_lo", "debit_account_id_hi",
+                                "credit_account_id_lo", "credit_account_id_hi",
+                                "timestamp"))
+        k13_sides = [ix._side_cols(look.cols, lid, torch.zeros_like(lid), f)
+                     for f in ("debit_account_id", "credit_account_id")]
+        k13_out = [[torch.empty(len(last), dtype=torch.int64, device=dev)
+                    for _ in range(5)] for _ in range(2)]
+
+        def k13_fn():
+            return _cuda.run_sort(k13_sides, look.found, k13_out)
+
+        out["k13"] = dict(
+            **pair_times(timed(k13_fn), timed(lambda: [
+                ix._sort_level_plain(ix._masked(s, look.found))
+                for s in k13_sides])),
+            loop_ms=loop_ms(k13_fn), library_ms=None,
+            # Both sides' five columns and the found mask read, both
+            # sorted runs written; a side's 55 compare-exchange rounds of
+            # n/2 pairs and three merge rounds of n outputs.
+            bound=bound(2 * len(last) * 40 + len(last) + 2 * len(last) * 40,
+                        2 * ((len(last) // 2) * 55 * 8 + 3 * len(last) * 10)),
+            shape=f"build_runs' sort of the last flagship batch: both sides "
+                  f"of {len(last)} lanes in one launch")
+        if "profile" in out["a"]:
+            # A launch's device time in the path (one K13 launch a batch):
+            # a short standalone profiler window of this kernel varies
+            # between runs, the path's 64 launches do not.
+            out["k13"].update(
+                ms_standalone=out["k13"]["ms"],
+                ms=out["a"]["profile"]["k13_run_sort_ms_per_batch"],
+                ms_from="queries (a) profile window, one launch a batch")
+        n_valid = int(k15_fn()[0].sum())
+    n_win = len(m.index.dr_levels) + len(m.index.cr_levels)
+    deepest = max(lv.n for lv in m.index.dr_levels)
+    # What the query must read: each window's binary search (24 B a step),
+    # its valid candidates and the entry that ends each window, and the k
+    # results it writes.
+    out["k15"] = dict(**pair_times(k15, k15p), loop_ms=k15_loop, library_ms=None,
+                      bound=bound(n_win * (deepest.bit_length() * 24 + 40)
+                                  + n_valid * 40 + QUERY_K * 17,
+                                  n_win * deepest.bit_length() * 10
+                                  + n_win * QUERY_K * 4),
+                      shape=f"one limit-8,190 query (k {QUERY_K}, {n_valid} rows) "
+                            f"over {n_win} levels of both sides, window and "
+                            "union launches")
+    # A full rebuild: reset, then the next query rebuilds both sides at
+    # the table's capacity (K13 chunks, then K14 rounds).
+    m.index.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)[0]
+    f["account_id_lo"], f["limit"], f["flags"] = int(accts[0]), 8190, 1
+    m.get_account_transfers(f)
+    torch.cuda.synchronize()
+    out["a"]["rebuild_and_query_ms"] = (time.perf_counter() - t0) * 1e3
+    out["a"]["rebuilt_levels"] = [lv.n for lv in m.index.dr_levels]
+    again, walls2 = queries("a rebuilt")
+    if again != first:
+        raise AssertionError("queries: the rebuilt index answers differently")
+    out["a"]["query_wall_ms_rebuilt"] = {"median": float(np.median(walls2)),
+                                         "p99": float(np.percentile(walls2, 99))}
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    out["a"]["peak_device_bytes"] = peak
+    with uncounted():
+        # The rebuilt level (K13 chunks, then K14 rounds, at the table's
+        # capacity) against the plain full build, and K15 over it.
+        k_top = max(j for j, o in enumerate(m.index.occupied) if o)
+        live = ix._live(t)
+        for side in ("dr", "cr"):
+            errs["run_sort"] = max(errs["run_sort"], check_level(
+                "a rebuilt", side, k_top, live))
+        out["a"]["rebuilt_level_checked"] = m.index.base << k_top
+        del live
+        out["a"]["k15_checked"] += check_k15("a rebuilt", k15_cases[:2])
+    out["full_size_errs"] = errs
+    gc.collect()
+    del m, sides, ids, ts, t
+    gc.collect()
+
+    # -- (b) -------------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    m = TorchStateMachine(LedgerConfig(), batch_lanes=LANES, device=dev)
+    for start in range(0, N_ACCOUNTS, COUNT):
+        if m.create_accounts(types.accounts_array(
+                [types.account(id=i, ledger=1, code=10, flags=8)
+                 for i in range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)])):
+            raise AssertionError("queries: history account creation failed")
+    out["b"] = run(m, "b")
+    h = m.ledger.history
+    count = int(h.count.item())
+    if count != n_transfers:
+        raise AssertionError(f"queries b: {count} history rows")
+    hc = {name: to_np(col[:count]) for name, col in h.cols.items()}
+    if (hc["dr_id_hi"].any() or hc["cr_id_hi"].any()
+            or not (hc["timestamp"][1:] > hc["timestamp"][:-1]).all()):
+        raise AssertionError("queries b: the history log's shape")
+    hsides = {s: np.argsort(hc[s + "_id_lo"], kind="stable") for s in ("dr", "cr")}
+    hkeys = {s: hc[s + "_id_lo"][hsides[s]] for s in ("dr", "cr")}
+    fields = ("dp", "dpo", "cp", "cpo")
+    names = ("debits_pending", "debits_posted", "credits_pending", "credits_posted")
+    hwalls = []
+    for i, acct in enumerate(accts):
+        flags = flag_cycle[i % 4]
+        f = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)[0]
+        f["account_id_lo"], f["limit"], f["flags"] = int(acct), 8190, flags
+        t0 = time.perf_counter()
+        got = m.get_account_history(f)
+        hwalls.append((time.perf_counter() - t0) * 1e3)
+        slots, side = [], []
+        for bit, s in ((1, "dr"), (2, "cr")):
+            if flags & bit:
+                a = np.searchsorted(hkeys[s], acct)
+                b = np.searchsorted(hkeys[s], acct, "right")
+                slots.append(hsides[s][a:b])
+                side.append(np.full(b - a, s == "dr"))
+        sl, sd = np.concatenate(slots), np.concatenate(side)
+        o = np.argsort(sl)
+        if flags & 4:
+            o = o[::-1]
+        sl, sd = sl[o][:8190], sd[o][:8190]
+        ok = len(got) == len(sl) and np.array_equal(got["timestamp"],
+                                                    hc["timestamp"][sl])
+        for fl, nm in zip(fields, names):
+            for half in ("lo", "hi"):
+                want = np.where(sd, hc[f"dr_{fl}_{half}"][sl], hc[f"cr_{fl}_{half}"][sl])
+                ok = ok and np.array_equal(got[f"{nm}_{half}"], want)
+        if not ok:
+            raise AssertionError(f"queries b: history of account {acct} flags {flags}")
+    out["b"]["history_rows"] = count
+    out["b"]["history_capacity"] = h.capacity
+    out["b"]["history_query_wall_ms"] = {"median": float(np.median(hwalls)),
+                                         "p99": float(np.percentile(hwalls, 99))}
+    out["b"]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    k = min(h.capacity, 8190)
+    # K16 against its plain version at this size, every output array
+    # (the invalid fill included): both directions, each side, a
+    # timestamp window, and fewer matches than k (512).
+    t_lo, t_hi = int(hc["timestamp"][0]), int(hc["timestamp"][-1])
+    with uncounted():
+        for j, (flags, desc, lo_ts, hi_ts, kk) in enumerate((
+                (3, True, 1, U64M - 1, k), (1, False, 1, U64M - 1, k),
+                (2, True, 1, U64M - 1, k),
+                (3, False, t_lo + (t_hi - t_lo) // 3, t_hi - (t_hi - t_lo) // 3, k),
+                (3, True, 1, U64M - 1, 512))):
+            a = (m.ledger, int(accts[j]), 0, lo_ts, hi_ts, bool(flags & 1),
+                 bool(flags & 2), desc, kk)
+            g, p = q.scan_history(*a), q.scan_history_plain(*a)
+            errs["history_scan"] = max(errs["history_scan"], max_abs_err_card(
+                f"queries b: scan_history flags {flags} desc {desc} k {kk}",
+                {"valid": g[0], **g[1]}, {"valid": p[0], **p[1]}))
+        out["b"]["k16_checked"] = j + 1
+    # K16 at this size: one query's kernel, its plain version, and one
+    # torch.topk of the same key.  The plain version and the library call
+    # are timed with CUDA events around back-to-back calls (a torch.sort
+    # of 2^24 keys outlasts the launches), the profiler's figures beside.
+    acct = int(accts[0])
+
+    def k16_fn():
+        return q.scan_history(m.ledger, acct, 0, 1, U64M - 1, True, True, True, k)
+
+    def k16_plain():
+        return q.scan_history_plain(m.ledger, acct, 0, 1, U64M - 1, True,
+                                    True, True, k)
+
+    c = h.cols
+    match = ((torch.arange(h.capacity, device=dev) < h.count)
+             & (((c["dr_id_lo"] == acct) & (c["dr_id_hi"] == 0))
+                | ((c["cr_id_lo"] == acct) & (c["cr_id_hi"] == 0))))
+    key = torch.where(match, c["timestamp"], torch.zeros_like(c["timestamp"])) ^ INT64_MIN
+    with uncounted():
+        k16 = timed(k16_fn, reps=10)
+        k16_loop = loop_ms(k16_fn, n=20)
+        k16p = timed(k16_plain, reps=3, warmup=1)
+        k16p_loop = loop_ms(k16_plain, n=5)
+        k16p_kernels = profile_by_name(k16_plain, reps=3)
+        lib = timed(lambda: torch.topk(key, k), reps=10)
+        lib_loop = loop_ms(lambda: torch.topk(key, k), n=10)
+    # What the query must read: the low words of both side ids of every
+    # row below count, the high words and timestamp where a low word
+    # matches, the k result rows' nine columns, and the k results written.
+    n_hit = int(((c["dr_id_lo"][:count] == acct)
+                 | (c["cr_id_lo"][:count] == acct)).sum())
+    out["k16"] = dict(**pair_times(k16, k16p), loop_ms=k16_loop,
+                      bound=bound(count * 16 + n_hit * 24 + k * 9 * 8
+                                  + k * (1 + 9 * 8), count * 4),
+                      shape=f"one history query, k {k}, log capacity {h.capacity} "
+                            f"({count} rows); library: torch.topk of the key")
+    out["k16"].update(
+        plain_ms=k16p_loop, plain_ms_from="cuda events, 5 calls back to back",
+        plain_ms_profiler=k16p["device_ms"],
+        plain_kernels_profiler={n: v[0] for n, v in k16p_kernels.items()},
+        library_ms=lib_loop, library_ms_from="cuda events, 10 calls back to back",
+        library_ms_profiler=lib["device_ms"])
+    torch.cuda.synchronize()
+    out["launches"] = _cuda.counts()
+    del m, hc
+    gc.collect()
+    missing = [k for k in INDEX_PATH if out["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"queries: kernels not launched {missing}")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2037,6 +3086,8 @@ def main() -> int:
     p.add_argument("--seq-transfers", type=int, default=2_000_000)
     # bench.py's depth for the general path's two full-size shapes.
     p.add_argument("--full-transfers", type=int, default=10_000_000)
+    # The queries phase's depth: bench.py's 10,000,000 transfers.
+    p.add_argument("--query-transfers", type=int, default=10_000_000)
     args = p.parse_args()
 
     import torch
@@ -2123,17 +3174,47 @@ def main() -> int:
               "nvidia_smi": smi, **run})
         full_launches[shape] = run["launches"]
 
+    t0 = time.perf_counter()
+    idxk = phase_index_kernels(args.seed, dev)
+    emit({"phase": "index_kernels", "seconds": time.perf_counter() - t0,
+          "checked": idxk["checked"],
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in idxk["results"].items()}})
+
+    t0 = time.perf_counter()
+    qp = phase_queries_parity(args.seed, dev)
+    emit({"phase": "queries_parity", "seconds": time.perf_counter() - t0, **qp})
+
+    t0 = time.perf_counter()
+    qrun = phase_queries(dev, args.query_transfers, smi)
+    emit({"phase": "queries", "seconds": time.perf_counter() - t0,
+          **{k: v for k, v in qrun.items() if k not in ("k13", "k15", "k16")},
+          **{name: {k: v for k, v in qrun[name].items() if k != "bound"}
+             for name in ("k13", "k15", "k16")}})
+    kern.update(idxk["results"])
+    kern["run_sort"].update(qrun["k13"])
+    kern["index_window"].update(qrun["k15"])
+    kern["history_scan"].update(qrun["k16"])
+    # max_abs_err: index_kernels' cases and the queries phase's full-size
+    # comparisons (the deepest carried level, the rebuilt level, K15 over
+    # the whole pyramid, K16 over the whole log).
+    for name, err in qrun["full_size_errs"].items():
+        kern[name]["max_abs_err"] = max(idxk["results"][name]["max_abs_err"], err)
+
     # Each kernel's launches come from the path it serves: K1-K5 from the
     # main path, K6/K7 from the sequential path, K8 from making the tables
     # of seq_kernels (its device function runs inside K6/K7's rollbacks),
     # K9-K12 and K2's claim/write entries from the general path's two-phase
-    # run (the limits run launched each of them too).
+    # run (the limits run launched each of them too), K13-K16 from the
+    # queries phase.
     paths = {name: ("main", launches) for name in MAIN_PATH}
     paths.update({name: ("sequential", seq_launches)
                   for name in ("seq_transfers", "seq_accounts")})
     paths["tombstone"] = ("seq_kernels tables", seqk["prep_launches"])
     paths.update({name: ("full_twophase", full_launches["twophase"])
                   for name in FULL_PATH if name != "probe"})
+    paths.update({name: ("queries", qrun["launches"])
+                  for name in INDEX_PATH if name != "probe"})
     rows = []
     for name, k in _cuda.KERNELS.items():
         r = kern[name]

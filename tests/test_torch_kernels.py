@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K12 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K16 against their plain PyTorch versions
 on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere;
 this file imports no JAX, so it runs on a machine without it:
 
@@ -7,6 +7,10 @@ this file imports no JAX, so it runs on a machine without it:
 (``--noconftest`` because tests/conftest.py sets JAX up.)  The CPU tests
 hold the plain versions against the JAX package; these close the chain."""
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +18,8 @@ import torch
 from tigerbeetle_tpu_torch import convert, types
 from tigerbeetle_tpu_torch.ops import _cuda
 from tigerbeetle_tpu_torch.ops import hash_table as ht
+from tigerbeetle_tpu_torch.ops import index as ix
+from tigerbeetle_tpu_torch.ops import query as q
 from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
@@ -395,3 +401,195 @@ def test_general_kernel_on_card_matches_plain_on_cpu(cuda_device, waves):
                         np.testing.assert_array_equal(got[name][key], v)
         res = m.create_transfers(batch, ts)
         mix.settle(i for i, _ in res)
+
+
+# -- K13-K16: the transfer index and the queries ---------------------------------
+
+U64M = (1 << 64) - 1
+
+
+def level_on(lvl, dev):
+    return ix.Level(lvl.block.to(dev, copy=True))
+
+
+def levels_equal(a, b, what=""):
+    assert torch.equal(a.block.cpu(), b.block.cpu()), what
+
+
+def random_entries(rng, n, fill, dev):
+    """``n`` entries, the first ``fill`` real with repeated accounts and
+    timestamps (so ties occur), the rest sentinels."""
+    block = np.full((5, n), U64M, np.uint64)
+    block[0, :fill] = rng.integers(1, 9, fill)
+    block[1, :fill] = rng.integers(0, 2, fill)
+    block[2, :fill] = rng.integers(1, 3 * n, fill)
+    block[3, :fill] = rng.integers(1, 1 << 62, fill)
+    block[4, :fill] = rng.integers(0, 4, fill)
+    perm = rng.permutation(n)
+    return ix.Level(convert.array_to_tensor(block[:, perm], dev))
+
+
+@pytest.mark.parametrize("n", [64, 8192, 1 << 15])
+def test_run_sort_and_merge_match_plain(cuda_device, n):
+    """K13 (chunks; then K14 rounds past 8,192 entries, or up to 8,192
+    unfused) and K14's carry merges against the plain stable lexsort and
+    concatenate-and-sort."""
+    rng = np.random.default_rng(n)
+    for fill in (0, n // 3, n):
+        lvl = random_entries(rng, n, fill, "cpu")
+        got = ix._sort_level(level_on(lvl, cuda_device))
+        levels_equal(got, ix._sort_level_plain(lvl), f"sort n={n} fill={fill}")
+        if n % 1024 == 0:
+            cols = [level_on(lvl, cuda_device)[c] for c in ix.COLS]
+            got = ix._sort_masked([cols], None, n, fused=False)[0]
+            levels_equal(got, ix._sort_level_plain(lvl),
+                         f"unfused sort n={n} fill={fill}")
+    runs = [ix._sort_level_plain(random_entries(rng, m, m // 2, "cpu"))
+            for m in (64, 64, 128, 256)]
+    got = ix._merge([level_on(r, cuda_device) for r in runs])
+    levels_equal(got, ix._merge_plain(runs), "carry merge")
+
+
+def index_machine(dev, lanes=128, batches=9, history=False):
+    """A port machine (on ``dev``) after plain batches, so its transfer index
+    holds several levels; with ``history``, HISTORY accounts on the
+    sequential path and a rolled-back chain."""
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    m = TorchStateMachine(LedgerConfig(accounts_capacity_log2=8,
+                                       transfers_capacity_log2=12,
+                                       history_capacity_log2=12),
+                          batch_lanes=lanes, device=dev,
+                          force_sequential=history)
+    rng = np.random.default_rng(3)
+    m.create_accounts(seqmix.accounts_batch(rng, 1, 40, faults=False), 10)
+    mix = seqmix.TransferMix(rng, list(range(1, 41)), 1000)
+    for b in range(batches):
+        m.create_transfers(mix.batch(lanes - 8), 10 ** 9 * (b + 1))
+    return m
+
+
+def test_build_runs_full_build_and_queries_match_plain(cuda_device):
+    """K1 + K13 (build_runs), K13 + K14 (full builds), K15 (windows and
+    union, both directions, the four side combinations, a window past the
+    range, sentinel-only levels) on the card against the plain versions on
+    a CPU copy of the same ledger and levels."""
+    cpu = index_machine("cpu")
+    led = ledger_to(cpu.ledger, cuda_device)
+    rng = np.random.default_rng(8)
+    ids = convert.tensor_to_array(cpu.ledger.transfers.key_lo)
+    ids = ids[ids != 0]
+    for frac in (0.0, 0.5, 1.0):
+        lo = rng.choice(ids, 128)
+        lo[:10] = 0
+        ok = rng.random(128) < frac
+        args = [convert.array_to_tensor(x, d) for x in (lo, np.zeros(128, np.uint64))
+                for d in ("cpu",)]
+        want = ix.build_runs(cpu.ledger, *args, torch.from_numpy(ok))
+        got = ix.build_runs(led, *(a.to(cuda_device) for a in args),
+                            torch.from_numpy(ok).to(cuda_device))
+        for g, w in zip(got, want):
+            levels_equal(g, w, f"build_runs ok={frac}")
+    for side in ("debit_account_id", "credit_account_id"):
+        levels_equal(ix._full_build_side(led, side, 1 << 13),
+                     ix._full_build_side(cpu.ledger, side, 1 << 13), side)
+    idx = cpu.index
+    assert sum(idx.occupied) >= 2
+    idx._ensure_level(len(idx.occupied))  # a sentinel-only level on top
+    dr = [level_on(lv, cuda_device) for lv in idx.dr_levels]
+    cr = [level_on(lv, cuda_device) for lv in idx.cr_levels]
+    ts = np.sort(convert.tensor_to_array(cpu.ledger.transfers.cols["timestamp"]))
+    ts = ts[ts != 0]
+    for desc in (False, True):
+        for want in ((True, True), (True, False), (False, True), (False, False)):
+            for acct, lo_ts, hi_ts, k in ((1, 1, U64M - 1, 8192),
+                                          (7, int(ts[50]), int(ts[400]), 64),
+                                          (3, 1, U64M - 1, 16),
+                                          (5, int(ts[-1]) + 1, U64M - 1, 64),
+                                          (99, 1, U64M - 1, 64)):
+                w = ix.query_transfers(idx.dr_levels, idx.cr_levels, acct, 0,
+                                       lo_ts, hi_ts, *want, k, desc)
+                g = ix.query_transfers(dr, cr, acct, 0, lo_ts, hi_ts, *want,
+                                       k, desc)
+                for a, b in zip(g, w):
+                    assert torch.equal(a.cpu(), b), (desc, want, acct)
+            w = ix._query_side(idx.dr_levels, 2, 0, 1, U64M, 256, desc)
+            g = ix._query_side(dr, 2, 0, 1, U64M, 256, desc)
+            for a, b in zip(g, w):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_history_scan_matches_plain(cuda_device):
+    """K16 against the plain scan_history: matches fewer and more than k, a
+    rolled-back tail above count, both sides and directions."""
+    cpu = index_machine("cpu", lanes=256, batches=6, history=True)
+    h = convert.ledger_to_numpy(cpu.ledger)["history"]
+    count = int(h["count"])
+    # Force a tail above the count (a popped chain's rows).
+    led = ledger_to(cpu.ledger, cuda_device)
+    tail = min(40, led.history.capacity - count)
+    for name, col in led.history.cols.items():
+        col[count:count + tail] = cpu.ledger.history.cols[name][:tail].to(cuda_device)
+    cpu_led = ledger_to(led, "cpu")
+    ts = h["cols"]["timestamp"][:count]
+    for desc in (False, True):
+        for want in ((True, True), (True, False), (False, True)):
+            for acct, lo_ts, hi_ts, k in ((4, 1, U64M - 1, 8), (4, 1, U64M - 1,
+                                                                 led.history.capacity),
+                                          (11, int(ts[3]), int(ts[-3]), 64),
+                                          (99, 1, U64M - 1, 32)):
+                w = q.scan_history(cpu_led, acct, 0, lo_ts, hi_ts, *want, desc, k)
+                g = q.scan_history(led, acct, 0, lo_ts, hi_ts, *want, desc, k)
+                assert torch.equal(g[0].cpu(), w[0])
+                for name in w[1]:
+                    assert torch.equal(g[1][name].cpu(), w[1][name]), name
+    # A log whose timestamps below count do not increase is refused.
+    led.history.cols["timestamp"][:count] = led.history.cols["timestamp"][:count].flip(0)
+    with pytest.raises(RuntimeError, match="do not increase"):
+        q.scan_history(led, 4, 0, 1, U64M - 1, True, True, True, 8)
+
+
+def test_machine_queries_on_card_match_cpu(cuda_device):
+    """TorchStateMachine on the card (index appended through K1, K13, K14;
+    queries through K15 and K16) against the same machine on the CPU."""
+    from tigerbeetle_tpu_torch.ops import scan_builder as sb
+
+    cpu = index_machine("cpu", batches=5)
+    gpu = index_machine(cuda_device, batches=5)
+    for a, b in zip(gpu.index.dr_levels + gpu.index.cr_levels,
+                    cpu.index.dr_levels + cpu.index.cr_levels):
+        levels_equal(a, b)
+    assert gpu.index.occupied == cpu.index.occupied
+    f = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)[0]
+    for acct in (1, 4, 9):
+        for flags in (1, 2, 3, 7):
+            f["account_id_lo"], f["limit"], f["flags"] = acct, 8190, flags
+            assert gpu.get_account_transfers(f).tobytes() == \
+                cpu.get_account_transfers(f).tobytes()
+    expr = sb.merge_union(sb.scan_prefix("code", 10),
+                          sb.scan_prefix("user_data_64", 2))
+    assert gpu.scan_transfers(expr).tobytes() == cpu.scan_transfers(expr).tobytes()
+
+
+def test_port_modules_import_neither_jax_nor_the_jax_package():
+    """Importing every module of the port leaves jax and tigerbeetle_tpu
+    out of sys.modules (runs on any machine)."""
+    root = Path(__file__).resolve().parents[1]
+    mods = sorted(
+        "tigerbeetle_tpu_torch." + ".".join(p.relative_to(
+            root / "tigerbeetle_tpu_torch").with_suffix("").parts)
+        for p in (root / "tigerbeetle_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    assert {"tigerbeetle_tpu_torch.ops.index", "tigerbeetle_tpu_torch.ops.query",
+            "tigerbeetle_tpu_torch.ops.scan_builder"} <= set(mods)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'tigerbeetle_tpu.')) or m == 'tigerbeetle_tpu')\n"
+        "raise SystemExit(str(bad) if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -1,7 +1,7 @@
 """Carry ledger state between the JAX package and the port, losslessly.
 
-The exchange format is a nested dict of numpy arrays, the arrays that
-``np.asarray`` gives for a JAX ``Ledger``:
+The exchange format of a ledger is a nested dict of numpy arrays, the
+arrays that ``np.asarray`` gives for a JAX ``Ledger``:
 
     {"accounts" | "transfers" | "posted":
         {"key_lo": u64[C], "key_hi": u64[C], "tombstone": bool[C],
@@ -12,11 +12,17 @@ The exchange format is a nested dict of numpy arrays, the arrays that
 On the torch side every u64 is an int64 tensor and every u32 an int32
 tensor holding the same bits, so the round trip is a reinterpretation of the
 bytes in both directions.
+
+A derived index (``ops/index.TransferIndex``, ``ops/scan_builder.FieldIndex``)
+is exchanged as ``{"dr_levels" and "cr_levels" | "levels": [{column: u64[n]}],
+"occupied": [bool], "stale": bool}``.  The index is not checkpointed (it is
+rebuilt from the table); this is for tests and checks that start both
+packages from the same pyramid.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -46,6 +52,24 @@ def array_to_tensor(a: np.ndarray, device) -> torch.Tensor:
 def tensor_to_array(t: torch.Tensor) -> np.ndarray:
     """Inverse of ``array_to_tensor``."""
     return t.detach().cpu().numpy().view(_TO_NUMPY[t.dtype])
+
+
+def tensors_to_arrays(cols: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """``tensor_to_array`` of every 1-d tensor of ``cols`` (int64, int32 or
+    bool, one device), in one device-to-host copy: each column widens to
+    int64 on the device and the stack comes back at once."""
+    names = list(cols)
+    host = torch.stack([cols[k].to(torch.int64) for k in names]).cpu().numpy()
+    out = {}
+    for row, name in zip(host, names):
+        dt = cols[name].dtype
+        if dt == torch.bool:
+            out[name] = row != 0
+        elif dt == torch.int32:
+            out[name] = row.astype(np.uint32)
+        else:
+            out[name] = row.view(np.uint64)
+    return out
 
 
 def table_arrays(t: Any) -> Dict[str, Any]:
@@ -149,3 +173,46 @@ def soa_to_tensors(soa: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor
         stacked = array_to_tensor(np.stack([soa[k] for k in names]), device)
         out.update(zip(names, stacked.unbind(0)))
     return {name: out[name] for name in soa}
+
+
+# -- derived indexes ---------------------------------------------------------
+
+_PYRAMIDS = ("dr_levels", "cr_levels", "levels")
+
+
+def _levels_of(idx: Any, read) -> Dict[str, Any]:
+    out = {"occupied": [bool(o) for o in idx.occupied],
+           "stale": bool(idx.stale)}
+    for name in _PYRAMIDS:
+        if hasattr(idx, name):
+            out[name] = [{c: read(v) for c, v in lvl.items()}
+                         for lvl in getattr(idx, name)]
+    return out
+
+
+def index_arrays(idx: Any) -> Dict[str, Any]:
+    """The exchange dict of an index whose level arrays ``np.asarray``
+    reads (a JAX package ``TransferIndex`` or ``FieldIndex``)."""
+    return _levels_of(idx, np.asarray)
+
+
+def index_levels_to_numpy(idx: Any) -> Dict[str, Any]:
+    """The exchange dict of a port ``TransferIndex`` or ``FieldIndex``."""
+    return _levels_of(idx, tensor_to_array)
+
+
+def index_from_numpy(arrays: Dict[str, Any], idx: Any) -> Any:
+    """Load the exchange dict into the port index ``idx`` (levels on its
+    device, occupancy and staleness); returns ``idx``."""
+    from .ops import index as ix
+
+    for name in _PYRAMIDS:
+        if name in arrays:
+            levels: List[Any] = []
+            for lvl in arrays[name]:
+                block = np.stack([np.asarray(lvl[c], np.uint64) for c in ix.COLS])
+                levels.append(ix.Level(array_to_tensor(block, idx.device)))
+            setattr(idx, name, levels)
+    idx.occupied = list(arrays["occupied"])
+    idx.stale = bool(arrays["stale"])
+    return idx

@@ -4,8 +4,9 @@ ported so far: plain ``create_accounts`` and ``create_transfers`` batches on
 the fast path, every other ``create_transfers`` batch on the general kernel
 (``ops.transfer_full``), the batches it flags ``FLAG_SEQ`` and every batch
 under ``force_sequential`` on the sequential path (and linked
-``create_accounts`` batches with duplicate ids), lookups, the balance
-snapshot and the digest.
+``create_accounts`` batches with duplicate ids), lookups, the transfer
+index and the queries (``get_account_transfers``, ``get_account_history``,
+the composed scans), the balance snapshot and the digest.
 
 It owns the device-resident ledger, assigns batch timestamps as prepare()
 does, grows the tables and the history log from host-side row bounds (load
@@ -14,7 +15,10 @@ factor <= 0.5), pads each batch to ``batch_lanes`` and commits it through
 (K1, K2 and K9-K12) or ``ops.scan_path`` (K6 and K7), then reads the result
 codes and its routing word (an overflow flag, or the general kernel's flags
 and wave vector) back in ONE device-to-host copy and compresses the codes
-into the wire's (index, result) pairs.
+into the wire's (index, result) pairs.  After every committed batch it
+appends the batch to its derived indexes (``ops.index`` and the scan
+builder's field indexes: K1, K13 and K14 on the card) unless
+``LedgerConfig.lazy_index`` is set, in which case a query rebuilds them.
 
 Routes this slice does not port raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them; none gives a wrong answer or falls back
@@ -34,6 +38,9 @@ from .config import LedgerConfig
 from .device import resolve as resolve_device
 from .obs.metrics import registry as _obs
 from .ops import hash_table as ht
+from .ops import index as ix
+from .ops import query
+from .ops import scan_builder as sb
 from .ops import scan_path
 from .ops import state_machine as sm
 from .ops import transfer_full as tf
@@ -54,6 +61,8 @@ _SLOW_TRANSFER_FLAGS = (
     | types.TransferFlags.LINKED
 )
 U64_MAX = (1 << 64) - 1
+# Largest reply of a query: (message_size_max - header) / row size.
+QUERY_ROWS_MAX = ((1 << 20) - 256) // 128
 
 # Entry points of TpuStateMachine that this slice does not port, with the
 # ROADMAP queue-A slice that brings each.
@@ -61,12 +70,6 @@ _UNPORTED = {
     "commit_fast_deferred": "A8 (commit pipeline)",
     "commit_group_fast": "A8 (commit pipeline)",
     "warmup": "A8 (commit pipeline)",
-    "get_account_transfers": "A10 (queries)",
-    "get_account_history": "A10 (queries)",
-    "scan_transfers": "A10 (queries)",
-    "scan_accounts": "A10 (queries)",
-    "query_transfers_where": "A10 (queries)",
-    "query_accounts_where": "A10 (queries)",
     "evict_cold": "A10 (tiering)",
     "scrub_check": "A9 (scrub)",
     "scrub_arm": "A9 (scrub)",
@@ -96,7 +99,8 @@ class TorchStateMachine:
         if shards:
             raise NotImplementedError("sharding is not ported yet (ROADMAP A11)")
         if spill_dir is not None or hot_transfers_capacity_max is not None:
-            raise NotImplementedError("tiering is not ported yet (ROADMAP A10)")
+            raise NotImplementedError(
+                "tiering is not ported yet (ROADMAP A10 (tiering))")
         if host_engine:
             raise NotImplementedError(
                 "the host engine is not ported yet (ROADMAP A6)"
@@ -125,6 +129,18 @@ class TorchStateMachine:
         # The last committed general-kernel batch's wave vector (passes,
         # wave_bound, hist[9]), as read back with its codes.
         self.last_wave: Optional[np.ndarray] = None
+        # Derived query indexes (ops/index.py, ops/scan_builder.py), rebuilt
+        # from the tables when stale; no cold tier yet, so no extra rows.
+        self.index = ix.TransferIndex(base=batch_lanes, device=self.device)
+        self.index.extra_rows_provider = lambda: []
+        self.scans_transfers = sb.ScanSet(
+            "transfers", sb.TRANSFER_FIELDS, base=batch_lanes,
+            device=self.device)
+        self.scans_transfers.extra_rows_provider = lambda: []
+        self.scans_accounts = sb.ScanSet(
+            "accounts", sb.ACCOUNT_FIELDS, base=batch_lanes,
+            device=self.device)
+        self._lane_ids = torch.arange(batch_lanes, device=self.device)
 
     @property
     def waves_enabled(self) -> bool:
@@ -218,14 +234,16 @@ class TorchStateMachine:
         if bool((batch["flags"] & _LIMIT_FLAGS).any()):
             self._limit_accounts_possible = True
         soa = self._pad_soa(batch)
-        self.ledger, codes = sm.create_accounts(self.ledger, soa, count, timestamp)
-        codes, words = self._d2h_codes(codes,
+        self.ledger, codes_dev = sm.create_accounts(self.ledger, soa, count,
+                                                    timestamp)
+        codes, words = self._d2h_codes(codes_dev,
                                        self.ledger.accounts.probe_overflow)
         self._accounts_bound += count
         if words[0]:
             # Load-factor management keeps this unreachable; losing inserts
             # silently is the one unacceptable outcome, so fail loud.
             raise RuntimeError("accounts probe overflow during insert")
+        self._scan_append_accounts(soa, codes_dev, count)
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
@@ -285,15 +303,16 @@ class TorchStateMachine:
     ) -> List[Tuple[int, int]]:
         self._grow_if_needed(transfers=count)
         soa = self._pad_soa(batch)
-        self.ledger, codes = sm.create_transfers_fast(
+        self.ledger, codes_dev = sm.create_transfers_fast(
             self.ledger, soa, count, timestamp
         )
         codes, words = self._d2h_codes(
-            codes, self.ledger.transfers.probe_overflow
+            codes_dev, self.ledger.transfers.probe_overflow
         )
         self._transfers_bound += count
         if words[0]:
             raise RuntimeError("transfers probe overflow during fast insert")
+        self._index_append(soa, codes_dev, count)
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
@@ -328,15 +347,17 @@ class TorchStateMachine:
             wave_host = words[1:] if use_waves else None
             if kflags == 0:
                 return self._full_commit_success(
-                    codes, count, pv_count, hist_count, timestamp, wave_host)
+                    soa, r[1], codes, count, pv_count, hist_count, timestamp,
+                    wave_host)
             if kflags & tf.FLAG_SEQ:
                 return self._sequential("create_transfers", batch, timestamp)
             self._grow_flagged(kflags)
         raise RuntimeError("transfer kernel could not place batch after growth")
 
-    def _full_commit_success(self, codes, count, pv_count, hist_count,
-                             timestamp, wave_host):
-        """Bookkeeping of a committed general-kernel batch (kflags == 0)."""
+    def _full_commit_success(self, soa, codes_dev, codes, count, pv_count,
+                             hist_count, timestamp, wave_host):
+        """Bookkeeping of a committed general-kernel batch (kflags == 0):
+        ``codes_dev`` the codes on the device, ``codes`` read back."""
         if wave_host is not None:
             self.last_wave = wave_host
             if _obs.enabled:
@@ -344,6 +365,7 @@ class TorchStateMachine:
         self._transfers_bound += count
         self._posted_bound += pv_count
         self._history_bound += hist_count
+        self._index_append(soa, codes_dev, count)
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
@@ -381,7 +403,7 @@ class TorchStateMachine:
     ) -> List[Tuple[int, int]]:
         """Exact in-order execution through ops/scan_path (kernels K6 and
         K7 on the card), as the JAX machine's ``_sequential_impl`` (without
-        its cold-tier, Merkle and index hooks, which are not ported)."""
+        its cold-tier and Merkle hooks, which are not ported)."""
         count = len(batch)
         if operation == "create_accounts":
             self._grow_if_needed(accounts=count)
@@ -398,8 +420,9 @@ class TorchStateMachine:
             )
             kernel = scan_path.create_transfers_seq
         soa = self._pad_soa(batch)
-        self.ledger, codes, overflow = kernel(self.ledger, soa, count, timestamp)
-        codes, words = self._d2h_codes(codes, overflow)
+        self.ledger, codes_dev, overflow = kernel(self.ledger, soa, count,
+                                                  timestamp)
+        codes, words = self._d2h_codes(codes_dev, overflow)
         overflow = bool(words[0])
         if operation == "create_accounts":
             self._accounts_bound += count
@@ -413,6 +436,10 @@ class TorchStateMachine:
             raise RuntimeError(
                 f"{operation}: a sequential insert's probe reached MAX_PROBE"
             )
+        if operation == "create_accounts":
+            self._scan_append_accounts(soa, codes_dev, count)
+        else:
+            self._index_append(soa, codes_dev, count)
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
@@ -474,6 +501,40 @@ class TorchStateMachine:
         if len(ok_lanes):
             self.commit_timestamp = timestamp - count + int(ok_lanes[-1]) + 1
 
+    # -- derived indexes -----------------------------------------------------
+
+    def _ok_mask(self, codes_dev: torch.Tensor, count: int) -> torch.Tensor:
+        """The committed lanes, on the device: code 0 below ``count``."""
+        return (codes_dev == 0) & (self._lane_ids < count)
+
+    def _index_append(self, soa: dict, codes_dev: torch.Tensor,
+                      count: int) -> None:
+        """Append a committed create_transfers batch to the transfer index
+        and the materialized transfer field indexes; with ``lazy_index``
+        (bulk ingest) mark them stale instead, and the next query rebuilds
+        them from the table in one go."""
+        if self.config.lazy_index:
+            if not self.index.stale:
+                self.index.reset()
+            self.scans_transfers.reset()
+            return
+        ok = self._ok_mask(codes_dev, count)
+        self.index.append_batch(self.ledger, soa["id_lo"], soa["id_hi"], ok)
+        if self.scans_transfers.indexes:
+            self.scans_transfers.append_batch(
+                self.ledger, soa["id_lo"], soa["id_hi"], ok)
+
+    def _scan_append_accounts(self, soa: dict, codes_dev: torch.Tensor,
+                              count: int) -> None:
+        if not self.scans_accounts.indexes:
+            return
+        if self.config.lazy_index:
+            self.scans_accounts.reset()
+            return
+        self.scans_accounts.append_batch(
+            self.ledger, soa["id_lo"], soa["id_hi"],
+            self._ok_mask(codes_dev, count))
+
     # -- lookups -------------------------------------------------------------
 
     def _ids(self, ids: List[int]):
@@ -499,6 +560,186 @@ class TorchStateMachine:
         host = {k: convert.tensor_to_array(v) for k, v in cols.items()}
         rows = types.from_soa(host, types.TRANSFER_DTYPE)
         return rows[convert.tensor_to_array(found)]
+
+    # -- queries (state_machine.zig:693-892, 1128-1195) ----------------------
+
+    @staticmethod
+    def _filter_window(filt: np.void) -> Optional[Tuple[int, int, int, int, bool, int]]:
+        """Validate an AccountFilter and resolve its effective window, as
+        get_scan_from_filter (state_machine.zig:823-837): an invalid filter
+        gives None (an empty result, not an error).  Returns (acct_lo,
+        acct_hi, ts_min, ts_max, descending, limit)."""
+        acct_lo = int(filt["account_id_lo"])
+        acct_hi = int(filt["account_id_hi"])
+        ts_min = int(filt["timestamp_min"])
+        ts_max = int(filt["timestamp_max"])
+        limit = int(filt["limit"])
+        flags = int(filt["flags"])
+        valid = (
+            (acct_lo, acct_hi) != (0, 0)
+            and (acct_lo, acct_hi) != (U64_MAX, U64_MAX)
+            and ts_min != U64_MAX
+            and ts_max != U64_MAX
+            and (ts_max == 0 or ts_min <= ts_max)
+            and limit != 0
+            and flags & (types.AccountFilterFlags.DEBITS
+                         | types.AccountFilterFlags.CREDITS)
+            and flags & ~0x7 == 0
+            and not bytes(filt["reserved"]).strip(b"\0")
+        )
+        if not valid:
+            return None
+        # TimestampRange defaults (lsm/timestamp_range.zig:4-5).
+        eff_min = ts_min if ts_min != 0 else 1
+        eff_max = ts_max if ts_max != 0 else U64_MAX - 1
+        descending = bool(flags & types.AccountFilterFlags.REVERSED)
+        return acct_lo, acct_hi, eff_min, eff_max, descending, limit
+
+    def get_account_transfers(self, filt: np.void) -> np.ndarray:
+        """Transfers on either side of the filtered account, timestamp-
+        ordered (prefetch_get_account_transfers, state_machine.zig:693-723),
+        from the sorted-runs index: a binary search and a bounded window per
+        level (K15), flat in the table's capacity."""
+        window = self._filter_window(filt)
+        if window is None:
+            return np.zeros(0, dtype=types.TRANSFER_DTYPE)
+        acct_lo, acct_hi, ts_min, ts_max, descending, limit = window
+        flags = int(filt["flags"])
+        # Candidate cap: the power of two covering the largest reply.
+        k = 1 << (QUERY_ROWS_MAX - 1).bit_length()
+        valid, tid_lo, tid_hi = self.index.query(
+            self.ledger, acct_lo, acct_hi, ts_min, ts_max,
+            bool(flags & types.AccountFilterFlags.DEBITS),
+            bool(flags & types.AccountFilterFlags.CREDITS),
+            k, descending)
+        return self._resolve_transfer_rows(tid_lo, tid_hi, valid, limit)
+
+    def _resolve_transfer_rows(self, tid_lo: torch.Tensor,
+                               tid_hi: torch.Tensor, valid: torch.Tensor,
+                               limit: int) -> np.ndarray:
+        """Timestamp-ordered index hits (transfer ids) as wire rows: one
+        batched lookup (K1) and one read-back, then the dedup of adjacent
+        repeats of an id (a rebuild that indexes a row twice).  There is no
+        cold tier yet, so a hit not in the table is dropped."""
+        found, cols = sm.lookup_transfers(self.ledger, tid_lo, tid_hi)
+        host = convert.tensors_to_arrays(
+            {"_valid": valid, "_found": found, "_tl": tid_lo, "_th": tid_hi,
+             **cols})
+        idx_valid = host.pop("_valid")
+        found = host.pop("_found")
+        tl, th = host.pop("_tl"), host.pop("_th")
+        if len(tl) > 1:
+            dup = np.zeros(len(tl), dtype=bool)
+            dup[1:] = (idx_valid[1:] & idx_valid[:-1]
+                       & (tl[1:] == tl[:-1]) & (th[1:] == th[:-1]))
+            idx_valid = idx_valid & ~dup
+        out = types.from_soa(host, types.TRANSFER_DTYPE)
+        return out[idx_valid & found][: min(limit, QUERY_ROWS_MAX)]
+
+    # -- composed scans (ops/scan_builder.py) ----------------------------------
+
+    @staticmethod
+    def _scan_window(timestamp_min: int, timestamp_max: int) -> Tuple[int, int]:
+        # TimestampRange defaults (lsm/timestamp_range.zig:4-5).
+        return (
+            timestamp_min if timestamp_min else 1,
+            timestamp_max if timestamp_max else U64_MAX - 1,
+        )
+
+    def _id_tensors(self, lo: np.ndarray, hi: np.ndarray, n: int):
+        """``lo``/``hi`` (u64) zero-padded to ``n`` lanes, on the device."""
+        both = np.zeros((2, n), np.uint64)
+        both[0, :len(lo)], both[1, :len(hi)] = lo, hi
+        t = convert.array_to_tensor(both, self.device)
+        return t[0], t[1]
+
+    def scan_transfers(
+        self, expr, timestamp_min: int = 0, timestamp_max: int = 0,
+        limit: int = QUERY_ROWS_MAX, reversed: bool = False,
+    ) -> np.ndarray:
+        """Composed index scan over transfers: any ``ops.scan_builder``
+        expression (prefix conditions on any indexed field, union /
+        intersection / difference to any depth), timestamp-ordered."""
+        ts_min, ts_max = self._scan_window(timestamp_min, timestamp_max)
+        limit = min(limit, QUERY_ROWS_MAX)
+        tid_lo, tid_hi = self.scans_transfers.evaluate(
+            expr, self.ledger, ts_min, ts_max, limit, bool(reversed))
+        n = len(tid_lo)
+        if n == 0:
+            return np.zeros(0, dtype=types.TRANSFER_DTYPE)
+        # Pad the ids to a power of two, as the JAX machine does.
+        cap = 1 << (n - 1).bit_length()
+        lo, hi = self._id_tensors(tid_lo, tid_hi, cap)
+        valid = self._lane_ids.new_zeros(cap, dtype=torch.bool)
+        valid[:n] = True
+        return self._resolve_transfer_rows(lo, hi, valid, limit)
+
+    def scan_accounts(
+        self, expr, timestamp_min: int = 0, timestamp_max: int = 0,
+        limit: int = QUERY_ROWS_MAX, reversed: bool = False,
+    ) -> np.ndarray:
+        """Composed index scan over accounts (one batched lookup)."""
+        ts_min, ts_max = self._scan_window(timestamp_min, timestamp_max)
+        limit = min(limit, QUERY_ROWS_MAX)
+        tid_lo, tid_hi = self.scans_accounts.evaluate(
+            expr, self.ledger, ts_min, ts_max, limit, bool(reversed))
+        ids = [int(lo) | (int(hi) << 64) for lo, hi in zip(tid_lo, tid_hi)]
+        if not ids:
+            return np.zeros(0, dtype=types.ACCOUNT_DTYPE)
+        # Padded to a power of two; id 0 never exists, so the pad lanes drop
+        # out as misses.
+        cap = 1 << (len(ids) - 1).bit_length()
+        return self.lookup_accounts(ids + [0] * (cap - len(ids)))
+
+    def query_transfers_where(
+        self, timestamp_min: int = 0, timestamp_max: int = 0,
+        limit: int = QUERY_ROWS_MAX, reversed: bool = False, **conditions,
+    ) -> np.ndarray:
+        """QueryFilter-style query: the intersection of equality conditions
+        on indexed fields (e.g. ``ledger=1, code=5``)."""
+        if not conditions:
+            raise ValueError("query_transfers_where needs >=1 condition")
+        expr = sb.merge_intersection(
+            *(sb.scan_prefix(f, v) for f, v in sorted(conditions.items())))
+        return self.scan_transfers(expr, timestamp_min, timestamp_max, limit,
+                                   reversed)
+
+    def query_accounts_where(
+        self, timestamp_min: int = 0, timestamp_max: int = 0,
+        limit: int = QUERY_ROWS_MAX, reversed: bool = False, **conditions,
+    ) -> np.ndarray:
+        if not conditions:
+            raise ValueError("query_accounts_where needs >=1 condition")
+        expr = sb.merge_intersection(
+            *(sb.scan_prefix(f, v) for f, v in sorted(conditions.items())))
+        return self.scan_accounts(expr, timestamp_min, timestamp_max, limit,
+                                  reversed)
+
+    def get_account_history(self, filt: np.void) -> np.ndarray:
+        """Balance history of a HISTORY-flagged account
+        (prefetch_get_account_history, state_machine.zig:736-797): empty
+        unless the account exists and carries the flag.  K16 on the card."""
+        window = self._filter_window(filt)
+        if window is None:
+            return np.zeros(0, dtype=types.ACCOUNT_BALANCE_DTYPE)
+        acct_lo, acct_hi, ts_min, ts_max, descending, limit = window
+        account = self.lookup_accounts([acct_lo | (acct_hi << 64)])
+        if len(account) == 0 or not (
+            int(account[0]["flags"]) & types.AccountFlags.HISTORY
+        ):
+            return np.zeros(0, dtype=types.ACCOUNT_BALANCE_DTYPE)
+        flags = int(filt["flags"])
+        k = min(self.ledger.history.capacity, QUERY_ROWS_MAX)
+        valid, rows = query.scan_history(
+            self.ledger, acct_lo, acct_hi, ts_min, ts_max,
+            bool(flags & types.AccountFilterFlags.DEBITS),
+            bool(flags & types.AccountFilterFlags.CREDITS),
+            descending, k)
+        host = convert.tensors_to_arrays({"_valid": valid, **rows})
+        valid = host.pop("_valid")
+        host["reserved"] = np.zeros(len(valid), dtype="V56")
+        out = types.from_soa(host, types.ACCOUNT_BALANCE_DTYPE)
+        return out[valid][: min(limit, k)]
 
     # -- parity surface ------------------------------------------------------
 

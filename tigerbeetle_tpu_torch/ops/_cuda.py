@@ -29,6 +29,10 @@ add one to their kernel's ``launches`` each time they launch it.
 | full_legs     | csrc/full_legs.cu  | ops/transfer_full.py:266 _leg_balances (+ the apply's balance scatter) |
 | full_pass     | csrc/full_pass.cu  | ops/transfer_full.py:806 one_pass, the loop, aux pass, routing (+ the history append) |
 | full_waves    | csrc/full_waves.cu | ops/transfer_full.py:422 _wave_schedule    |
+| run_sort      | csrc/index_sort.cu | ops/index.py:49 _sort_level (in :54 build_runs, the full builds) |
+| run_merge     | csrc/index_merge.cu | ops/index.py:77 _merge (carries; full-build rounds) |
+| index_window  | csrc/index_query.cu | ops/index.py:132 _query_side (+ :111 _search3), :165 query_transfers |
+| history_scan  | csrc/history_scan.cu | ops/query.py:38 scan_history (+ :29 _top_k) |
 
 The general kernel's launches (K9-K12) take their pointers as one array in
 the order of the kernel's pointer enum (``FULL_PASS_LAYOUT`` and
@@ -100,6 +104,14 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/ops/transfer_full.py:806"),
         Kernel("full_waves", "tigerbeetle_tpu_torch/csrc/full_waves.cu",
                "tigerbeetle_tpu/ops/transfer_full.py:422"),
+        Kernel("run_sort", "tigerbeetle_tpu_torch/csrc/index_sort.cu",
+               "tigerbeetle_tpu/ops/index.py:49"),
+        Kernel("run_merge", "tigerbeetle_tpu_torch/csrc/index_merge.cu",
+               "tigerbeetle_tpu/ops/index.py:77"),
+        Kernel("index_window", "tigerbeetle_tpu_torch/csrc/index_query.cu",
+               "tigerbeetle_tpu/ops/index.py:132"),
+        Kernel("history_scan", "tigerbeetle_tpu_torch/csrc/history_scan.cu",
+               "tigerbeetle_tpu/ops/query.py:38"),
     )
 }
 
@@ -181,6 +193,8 @@ def build() -> Path:
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_U64 = ctypes.c_uint64
+_M64 = (1 << 64) - 1
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -212,6 +226,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tb_full_pass": [_P, _INT, _INT, _INT, _I64, _I64, ctypes.c_uint64,
                          _INT, _INT, _INT, _I64, _P],
         "tb_full_hist": [_P, _P, _I64, _P, _P, _I64, _P, _P],
+        "tb_run_sort": [_P, _P, _INT, _P, _I64, _I64, _P,
+                        ctypes.POINTER(ctypes.c_int64), _P],
+        "tb_run_merge": [_P, _P, _INT, _P],
+        "tb_index_window": [_P, _P, _INT, _U64, _U64, _U64, _U64, _I64, _INT,
+                            _P, _P, _P, _P],
+        "tb_index_union": [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64,
+                           _P, _P, _P, _P],
+        "tb_history_scan": [_P, _P, _I64, _I64, _U64, _U64, _U64, _U64, _INT,
+                            _INT, _INT, _P, _P, _P, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -914,3 +937,209 @@ def full_hist(gate, do_hist, rows: Sequence[torch.Tensor],
                            count.data_ptr(), _stream(do_hist))
     _raise_on(err, "full_pass")
     KERNELS["full_pass"].launches += 1
+
+
+# -- K13-K16: the transfer index and the queries ---------------------------------
+
+SORT_RUN_MAX = 8192  # csrc/index_sort.cu: a run K13 sorts whole in one launch
+
+
+def _check_run(cols: Sequence[torch.Tensor], n: int, what: str) -> None:
+    if len(cols) != 5:
+        raise ValueError(f"{what}: five columns, got {len(cols)}")
+    for k, c in enumerate(cols):
+        _check(c, torch.int64, n, f"{what} column {k}")
+
+
+def run_sort(jobs: Sequence[Sequence[torch.Tensor]],
+             use: Optional[torch.Tensor],
+             outs: Sequence[Sequence[torch.Tensor]], fused: bool = True) -> int:
+    """Kernel K13: each job's five columns (n_in entries; sentinels where
+    ``use`` is False and past n_in) sorted stably by (acct_hi, acct_lo, ts)
+    into ``outs`` (n_out >= n_in entries each): whole up to 8,192 entries
+    (unless ``fused`` is False), else (n_out a multiple of 1,024) in sorted
+    chunks of 1,024 for K14 to merge.  Returns the length of the sorted
+    runs written."""
+    lib = library()
+    n_in = jobs[0][0].numel()
+    n_out = outs[0][0].numel()
+    if not 1 <= len(jobs) == len(outs) <= 2:
+        raise ValueError("run_sort takes one or two jobs")
+    for cols in jobs:
+        _check_run(cols, n_in, "run_sort input")
+    for cols in outs:
+        _check_run(cols, n_out, "run_sort output")
+    if use is not None:
+        _check(use, torch.bool, n_in, "use")
+    if n_in > n_out or n_out < 1:
+        raise ValueError(f"run_sort: {n_in} entries into {n_out}")
+    if (n_out > SORT_RUN_MAX or not fused) and n_out > 1024 and n_out % 1024:
+        raise ValueError(f"run_sort: {n_out} entries is not a multiple of 1,024")
+    run = 1 << max(1, (n_out - 1).bit_length())
+    scratch = None
+    if fused and 1024 < n_out <= SORT_RUN_MAX:
+        scratch = torch.empty(len(jobs) * 8 * run, dtype=torch.int64,
+                              device=outs[0][0].device)
+    sorted_run = ctypes.c_int64(0)
+    err = lib.tb_run_sort(
+        _ptr_array([c for cols in jobs for c in cols]),
+        _ptr_array([c for cols in outs for c in cols]), len(jobs),
+        None if use is None else use.data_ptr(), n_in, n_out,
+        None if scratch is None else scratch.data_ptr(),
+        ctypes.byref(sorted_run), _stream(outs[0][0]))
+    _raise_on(err, "run_sort")
+    KERNELS["run_sort"].launches += 1
+    return sorted_run.value
+
+
+def _merge_launch(cols: List[torch.Tensor], sizes: List[int], jobs: int,
+                  stream: int) -> None:
+    arr = (ctypes.c_int64 * len(sizes))(*sizes)
+    err = library().tb_run_merge(_ptr_array(cols), arr, jobs, stream)
+    _raise_on(err, "run_merge")
+    KERNELS["run_merge"].launches += 1
+
+
+def run_merge(a: Sequence[Sequence[torch.Tensor]],
+              b: Sequence[Sequence[torch.Tensor]],
+              out: Sequence[Sequence[torch.Tensor]]) -> None:
+    """Kernel K14: for each job (one or two), the stable merge of the
+    sorted runs a and b (a first on equal keys) into out (len a + len b)."""
+    if not 1 <= len(a) == len(b) == len(out) <= 2:
+        raise ValueError("run_merge takes one or two jobs")
+    cols, sizes = [], []
+    for ja, jb, jo in zip(a, b, out):
+        la, lb = ja[0].numel(), jb[0].numel()
+        _check_run(ja, la, "run_merge a")
+        _check_run(jb, lb, "run_merge b")
+        _check_run(jo, la + lb, "run_merge out")
+        cols += [*ja, *jb, *jo]
+        sizes += [la, lb, 1, 0, 0, 0]
+    _merge_launch(cols, sizes, len(a), _stream(out[0][0]))
+
+
+def run_merge_rounds(src: Sequence[Sequence[torch.Tensor]],
+                     dst: Sequence[Sequence[torch.Tensor]], run: int) -> None:
+    """K14 over adjacent pairs of sorted runs of ``run`` entries: each job's
+    ``src`` (n entries, n a multiple of 2 * run) merged pairwise into
+    ``dst``, giving sorted runs of 2 * run."""
+    if not 1 <= len(src) == len(dst) <= 2:
+        raise ValueError("run_merge takes one or two jobs")
+    cols, sizes = [], []
+    for js, jd in zip(src, dst):
+        n = js[0].numel()
+        if n % (2 * run):
+            raise ValueError(f"run_merge: {n} entries in runs of {run}")
+        _check_run(js, n, "run_merge source")
+        _check_run(jd, n, "run_merge destination")
+        cols += [*js, *(c[run:] for c in js), *jd]
+        sizes += [run, run, n // (2 * run), 2 * run, 2 * run, 2 * run]
+    _merge_launch(cols, sizes, len(src), _stream(dst[0][0]))
+
+
+def _window_launch(levels: Sequence[dict], acct_lo: int, acct_hi: int,
+                   ts_min: int, ts_max: int, k: int, descending: bool):
+    lib = library()
+    cols, ns = [], []
+    for lvl in levels:
+        n = lvl["ts"].numel()
+        run = [lvl[c] for c in ("acct_lo", "acct_hi", "ts", "tid_lo", "tid_hi")]
+        _check_run(run, n, "index level")
+        cols += run
+        ns.append(n)
+    dev = cols[0].device
+    out = torch.empty((3, len(ns) * k), dtype=torch.int64, device=dev)
+    err = lib.tb_index_window(
+        _ptr_array(cols), (ctypes.c_int64 * len(ns))(*ns), len(ns),
+        acct_lo & _M64, acct_hi & _M64, ts_min & _M64, ts_max & _M64, k,
+        int(descending), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), _stream(cols[0]))
+    _raise_on(err, "index_window")
+    KERNELS["index_window"].launches += 1
+    return out
+
+
+def index_window(sides: Sequence[Sequence[dict]], acct_lo: int, acct_hi: int,
+                 ts_min: int, ts_max: int, k: int, descending: bool):
+    """Kernel K15, window mode: (ts, tid_lo, tid_hi), k candidates per level
+    of each side's levels, concatenated level after level (``_query_side``
+    of the JAX package for one side)."""
+    levels = [lvl for side in sides for lvl in side]
+    out = _window_launch(levels, acct_lo, acct_hi, ts_min, ts_max, k,
+                         descending)
+    return out[0], out[1], out[2]
+
+
+def index_union(sides: Sequence[Sequence[dict]], wants: Sequence[bool],
+                acct_lo: int, acct_hi: int, ts_min: int, ts_max: int, k: int,
+                descending: bool):
+    """Kernel K15, both modes: the windows of each side (one or two), then
+    their union in result order: (valid bool[k], tid_lo[k], tid_hi[k])."""
+    if not 1 <= len(sides) == len(wants) <= 2:
+        raise ValueError("index_union takes one or two sides")
+    levels = [lvl for side in sides for lvl in side]
+    cand = _window_launch(levels, acct_lo, acct_hi, ts_min, ts_max, k,
+                          descending)
+    dev = cand.device
+    valid = torch.empty(k, dtype=torch.bool, device=dev)
+    res = torch.empty((2, k), dtype=torch.int64, device=dev)
+    err = library().tb_index_union(
+        cand[0].data_ptr(), cand[1].data_ptr(), cand[2].data_ptr(),
+        len(levels), len(sides[0]), int(bool(wants[0])),
+        int(bool(wants[-1])), int(descending), k, valid.data_ptr(),
+        res[0].data_ptr(), res[1].data_ptr(), _stream(cand))
+    _raise_on(err, "index_window")
+    KERNELS["index_window"].launches += 1
+    return valid, res[0], res[1]
+
+
+# The order of the 21 history columns in csrc/history_scan.cu.
+HISTORY_COL_ORDER = (
+    "dr_id_lo", "dr_id_hi",
+    "dr_dp_lo", "dr_dp_hi", "dr_dpo_lo", "dr_dpo_hi",
+    "dr_cp_lo", "dr_cp_hi", "dr_cpo_lo", "dr_cpo_hi",
+    "cr_id_lo", "cr_id_hi",
+    "cr_dp_lo", "cr_dp_hi", "cr_dpo_lo", "cr_dpo_hi",
+    "cr_cp_lo", "cr_cp_hi", "cr_cpo_lo", "cr_cpo_hi",
+    "timestamp",
+)
+HISTORY_ROW_COLS = ("timestamp",) + tuple(
+    f"{f}_{h}" for f in ("debits_pending", "debits_posted", "credits_pending",
+                         "credits_posted") for h in ("lo", "hi"))
+
+
+def history_scan(cols: Dict[str, torch.Tensor], count: torch.Tensor,
+                 acct_lo: int, acct_hi: int, ts_min: int, ts_max: int,
+                 want_debits: bool, want_credits: bool, descending: bool,
+                 k: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Kernel K16: (valid bool[k], rows) of ``scan_history``.  Raises if the
+    log's timestamps below ``count`` do not increase (the order the kernel
+    relies on); that check reads one word back."""
+    lib = library()
+    src = [cols[name] for name in HISTORY_COL_ORDER]
+    cap = src[0].numel()
+    for name, c in zip(HISTORY_COL_ORDER, src):
+        _check(c, torch.int64, cap, f"history {name}")
+    _check(count.reshape(1), torch.int64, 1, "history count")
+    if not 1 <= k <= cap:
+        raise ValueError(f"history_scan: k {k} outside 1..{cap}")
+    dev = src[0].device
+    nb = (cap + 1023) // 1024
+    scratch = torch.empty(nb + 2, dtype=torch.int64, device=dev)
+    err_word = torch.zeros(1, dtype=torch.int32, device=dev)
+    valid = torch.empty(k, dtype=torch.bool, device=dev)
+    rows = torch.empty((len(HISTORY_ROW_COLS), k), dtype=torch.int64,
+                       device=dev)
+    err = lib.tb_history_scan(
+        _ptr_array(src), count.data_ptr(), cap, k, acct_lo & _M64,
+        acct_hi & _M64, ts_min & _M64, ts_max & _M64, int(bool(want_debits)),
+        int(bool(want_credits)), int(bool(descending)), scratch.data_ptr(),
+        err_word.data_ptr(), valid.data_ptr(), _ptr_array(list(rows.unbind(0))),
+        _stream(valid))
+    _raise_on(err, "history_scan")
+    KERNELS["history_scan"].launches += 1
+    if int(err_word.item()):
+        raise RuntimeError(
+            "history_scan: the history log's timestamps below its count do "
+            "not increase; the kernel's top-k would be wrong")
+    return valid, dict(zip(HISTORY_ROW_COLS, rows.unbind(0)))
