@@ -90,7 +90,24 @@ Phases, each printing one JSON line:
                 the rebuilt level (K13, K14), K15 over the whole pyramid and
                 K16 over the whole log, invalid lanes included; K15/K16
                 timed here, and K1 and K13-K16's launch counts read from
-                this phase.
+                this phase;
+ 16. cold_kernels - K17 bloom_check, K18 evict_threshold, K19 evict_extract
+                and drop_evicted's K2 rebuild against their plain versions on
+                the card, byte for byte: filters of 2^20 and 2^28 bits (each
+                lane's hit, and the general kernel's masked form with its
+                FLAG_COLD word), tables of 2^8, 2^23 and 2^25 slots with
+                tombstones at fractions 0.001-0.999, empty tables and the
+                C-1 clamp; each timed at the tiered path's shapes;
+ 17. tiered   - the cold tier at full width (BASELINE.json config 4, cut in
+                depth): a tiered machine (hot ceiling 2^23 slots, in-memory
+                runs) and an untiered twin, 10,000,000 accounts each, then
+                ``--tier-transfers`` (24,000,000) transfers of the flagship
+                generator with pendings every 8th batch, cold pendings
+                posted or voided after each eviction and 256 evicted ids
+                resubmitted per batch (codes 46 and 39).  Every code equal
+                to the twin's; the accounts tables, lookups across the tiers
+                and 100 get_account_transfers equal; at least one merge of
+                the cold runs.  K17-K19's launch counts read from here.
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
@@ -3076,6 +3093,503 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the cold tier (K17-K19 and drop_evicted's K2 rebuild)
+# ---------------------------------------------------------------------------
+
+TIER_PATH = ("probe", "insert", "claim", "write_claimed", "full_pass",
+             "bloom_check", "evict_threshold", "evict_extract")
+TIER_ACCOUNTS = 10_000_000  # BASELINE.json config 4: 10M accounts
+TIER_HOT_MAX = 1 << 23  # the hot window's ceiling, in slots
+TIER_PENDINGS = 1024  # pending transfers in every 8th batch
+TIER_COLD_POSTS = 512  # cold pendings posted or voided after an eviction
+TIER_RESUBMITS = 256  # evicted ids resubmitted per batch, half with amount + 1
+COLD_FILTER_LOG2 = (20, 28)  # Bloom filter sizes held against the plain version
+COLD_TABLE_LOG2 = (8, 23, 25)  # table sizes held against the plain versions
+COLD_TIMED_LOG2 = 23  # the table size timed (the tiered path's ceiling)
+
+
+def evict_test_table(dev, cap, live_frac=0.5, tomb_frac=1 / 16):
+    """A transfers table of ``cap`` slots on the card: ``live_frac`` of the
+    slots hold rows (distinct ids, one in seven with a high half;
+    timestamps with repeats), then ``tomb_frac`` of the slots tombstoned;
+    made through K2 and K8."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.u128 import mix64
+
+    n = int(cap * live_frac)
+    idx = torch.arange(1, n + 1, device=dev, dtype=torch.int64)
+    ids = mix64(idx, torch.zeros_like(idx))  # a bijection: distinct ids
+    ids = torch.where(ids == 0, -1, ids)
+    hi = (idx % 7 == 0).to(torch.int64) * 3
+    rows = {name: (idx * 2654435761).to(dt) for name, dt in sm.TRANSFER_COLS.items()}
+    rows["timestamp"] = 1 + (idx * 7919) % (n // 2 + 1)
+    t = ht.make_table(cap, sm.TRANSFER_COLS, dev)
+    ht.insert(t, ids, hi, torch.ones(n, dtype=torch.bool, device=dev), rows, cap)
+    dead = int(cap * tomb_frac)
+    if dead:
+        look = ht.lookup(t, ids[:dead], hi[:dead], cap)
+        ht.remove_to_tombstone(t, look.slot, look.found)
+    return t
+
+
+def table_tensors(t) -> dict:
+    return {"key_lo": t.key_lo, "key_hi": t.key_hi, "tombstone": t.tombstone,
+            "count": t.count.reshape(1),
+            "probe_overflow": t.probe_overflow.reshape(1),
+            **{"col:" + k: v for k, v in t.cols.items()}}
+
+
+def phase_cold_kernels(seed: int, dev) -> dict:
+    """K17 bloom_check, K18 evict_threshold, K19 evict_extract and
+    drop_evicted's K2 rebuild against their plain versions on the card,
+    byte for byte on every output array: filters of 2^20 and 2^28 bits
+    (each lane's hit, and the general kernel's masked form with its
+    FLAG_COLD word under every mask), tables of 2^8, 2^23 and 2^25 slots
+    with tombstones at fractions 0.001-0.999, empty tables and the C-1
+    clamp.  Each timed at the tiered path's shapes (8,192 lanes on a 2^28
+    filter; a 2^23-slot table) beside its plain version and bound."""
+    import torch
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.ops import cold
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+    from tigerbeetle_tpu_torch.u128 import INT64_MIN, srl
+
+    rng = np.random.default_rng(seed + 17)
+    results, checked = {}, {}
+
+    # -- K17 ------------------------------------------------------------------
+    lo = t64(rand_u64(rng, LANES), dev)
+    hi = t64(np.where(rng.random(LANES) < 0.1, rand_u64(rng, LANES), 0)
+             .astype(np.uint64), dev)
+    plo, phi = t64(rand_u64(rng, LANES), dev), torch.zeros_like(lo)
+    valid = torch.arange(LANES, device=dev) < COUNT
+    found = torch.from_numpy(rng.random(LANES) < 0.5).to(dev) & valid
+    postvoid = torch.from_numpy(rng.random(LANES) < 0.5).to(dev) & valid
+    p_found = torch.from_numpy(rng.random(LANES) < 0.5).to(dev) & postvoid
+    errs = 0
+    for bits_log2 in COLD_FILTER_LOG2:
+        words = np.zeros((1 << bits_log2) // 32, np.uint32)
+        # A third of the ids and pending ids are in the filter; the others
+        # hit at its false-positive rate.
+        cold.bloom_add_host(words, to_np(lo)[::3], to_np(hi)[::3])
+        cold.bloom_add_host(words, to_np(plo)[::3], to_np(phi)[::3])
+        bloom = convert.bloom_to_tensor(words, dev)
+        errs = max(errs, max_abs_err(
+            f"bloom_check 2^{bits_log2}",
+            {"hits": to_np(cold.bloom_check_impl(bloom, lo, hi))},
+            {"hits": to_np(cold.bloom_check_plain(bloom, lo, hi))}))
+        for ci, certified in enumerate((
+                None, torch.from_numpy(rng.random(LANES) < 0.99).to(dev),
+                torch.ones(LANES, dtype=torch.bool, device=dev))):
+            for pv in (None, postvoid):
+                args = (bloom, lo, hi, valid, found, plo, phi, pv, p_found,
+                        certified)
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                got = cold.bloom_flag(*args, zero.clone(), tf.FLAG_COLD)
+                want = cold.bloom_flag_plain(*args, zero.clone(), tf.FLAG_COLD)
+                errs = max(errs, max_abs_err(
+                    f"bloom_flag 2^{bits_log2}", {"flag": to_np(got.reshape(1))},
+                    {"flag": to_np(want.reshape(1))}))
+                checked[f"flag_2^{bits_log2}_certified{ci}_pv{pv is not None}"] = int(got)
+    # Timed on the 2^28 filter in the general kernel's masked form.  Its
+    # bytes: the five masks, the ids tested (16 B each) and one 32-B sector
+    # of the filter per probe (a probe stops at the first clear bit).
+    probes, n_tested = 0, 0
+    for a_lo, a_hi, mask in ((lo, hi, valid & ~found), (plo, phi, postvoid & ~p_found)):
+        bits = torch.stack([(bloom[srl(pos, 5)] >> (pos & 31).to(torch.int32)) & 1
+                            for pos in cold._bloom_positions(
+                                a_lo, a_hi, 1 << COLD_FILTER_LOG2[-1])])
+        first_clear = torch.where(bits == 0, torch.arange(4, device=dev)[:, None],
+                                  4).min(0).values
+        probes += int((torch.clamp(first_clear + 1, max=4) * mask).sum())
+        n_tested += int(mask.sum())
+    word = torch.zeros((), dtype=torch.int32, device=dev)
+    args = (bloom, lo, hi, valid, found, plo, phi, postvoid, p_found, None,
+            word, tf.FLAG_COLD)
+    results["bloom_check"] = dict(
+        max_abs_err=errs,
+        **pair_times(timed(lambda: cold.bloom_flag(*args)),
+                     timed(lambda: cold.bloom_flag_plain(*args))),
+        library_ms=None,
+        bound=bound(5 * LANES + 16 * n_tested + 32 * probes + 4,
+                    2 * 40 * n_tested),
+        shape=f"{LANES} lanes, the general kernel's masked form on a "
+              f"2^{COLD_FILTER_LOG2[-1]}-bit filter: {n_tested} ids tested, "
+              f"{probes} probes")
+    del bloom
+
+    # -- K18, K19 and drop_evicted's K2 rebuild -------------------------------
+    errs18 = errs19 = errs2 = 0
+    for log2 in COLD_TABLE_LOG2:
+        cap = 1 << log2
+        t = evict_test_table(dev, cap)
+        empty = ht.make_table(cap, sm.TRANSFER_COLS, dev)
+        for table, kind in ((t, "tombstones"), (empty, "empty")):
+            for num in (1, 250, 500, 999):
+                thr = cold.eviction_threshold(table, num, 1000)
+                errs18 = max(errs18, max_abs_err(
+                    f"evict_threshold 2^{log2} {kind} {num}",
+                    {"t": to_np(thr.reshape(1))},
+                    {"t": to_np(cold.eviction_threshold_plain(
+                        table, num, 1000).reshape(1))}))
+                if log2 > COLD_TABLE_LOG2[0] and num in (1, 500):
+                    continue
+                got = cold.extract_evicted(table, thr, cap, keep=True)
+                want = cold.extract_evicted_plain(table, thr, cap)
+                errs19 = max(errs19, max_abs_err_card(
+                    f"evict_extract 2^{log2} {kind} {num}",
+                    {"n": got[0].reshape(1), "lo": got[1], "hi": got[2],
+                     "keep": got[4], **got[3]},
+                    {"n": want[0].reshape(1), "lo": want[1], "hi": want[2],
+                     "keep": cold.keep_mask_plain(table, thr), **want[3]}))
+                checked[f"evicted_2^{log2}_{kind}_{num}"] = int(got[0])
+                if num == 250:
+                    errs2 = max(errs2, max_abs_err_card(
+                        f"drop_evicted 2^{log2} {kind}",
+                        table_tensors(cold.drop_evicted(table, thr, got[4])),
+                        table_tensors(cold.drop_evicted_plain(table, thr))))
+                del got, want
+        saved = t.count.clone()
+        t.count.fill_(4 * cap)  # k = count * 999 // 1000 > C - 1: clamped
+        errs18 = max(errs18, max_abs_err(
+            f"evict_threshold 2^{log2} clamp",
+            {"t": to_np(cold.eviction_threshold(t, 999, 1000).reshape(1))},
+            {"t": to_np(cold.eviction_threshold_plain(t, 999, 1000).reshape(1))}))
+        t.count.copy_(saved)
+        if log2 == COLD_TIMED_LOG2:
+            results.update(time_evict(t, dev))
+        del t, empty
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["evict_threshold"]["max_abs_err"] = errs18
+    results["evict_extract"]["max_abs_err"] = errs19
+    results["drop_evicted_k2"]["max_abs_err"] = errs2
+    torch.cuda.synchronize()
+    return {"results": results, "checked": checked}
+
+
+def time_evict(t, dev) -> dict:
+    """K18, K19 and the K2 rebuild timed on a 2^23-slot table (the tiered
+    path's hot ceiling) at the path's fraction (one half), beside their
+    plain versions and bounds.  ``ms`` and ``plain_ms`` come from CUDA
+    events around back-to-back calls (each call outlasts its host work):
+    a short profiler window can read a kernel below its bytes bound, so the
+    profiler's figure stands beside, as ``ms_profiler``."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import cold
+    from tigerbeetle_tpu_torch.u128 import INT64_MIN
+
+    cap, num = t.capacity, 500
+    thr = cold.eviction_threshold(t, num, 1000)
+    live = int(cold._live(t).sum())
+    got = cold.extract_evicted(t, thr, cap, keep=True)
+    n, keep = int(got[0]), got[4]
+    del got
+    row_bytes = sum(c.element_size() for c in t.cols.values())
+    keys = torch.where(cold._live(t), t.cols["timestamp"],
+                       torch.full_like(t.key_lo, -1)) ^ INT64_MIN
+    kth = min(int(t.count) * num // 1000, cap - 1) + 1
+
+    def events(kernel, plain, reps=20):
+        k, p = timed(kernel, reps=5), timed(plain, reps=5)
+        return {"ms": loop_ms(kernel, reps), "plain_ms": loop_ms(plain, reps),
+                "ms_from": "cuda events, back-to-back calls",
+                "ms_profiler": k["device_ms"], "plain_ms_profiler": p["device_ms"],
+                "call_ms": k["call_ms"], "plain_call_ms": p["call_ms"]}
+
+    return {
+        "evict_threshold": dict(
+            **events(lambda: cold.eviction_threshold(t, num, 1000),
+                     lambda: cold.eviction_threshold_plain(t, num, 1000)),
+            library_ms=loop_ms(lambda: torch.kthvalue(keys, kth), 5),
+            # Keys, tombstone and timestamp read once; the threshold written.
+            bound=bound(cap * 25 + 8, cap * 8 * 4),
+            shape=f"2^{cap.bit_length() - 1} slots, {live} live, frac "
+                  f"{num}/1000; library: torch.kthvalue of the live-masked "
+                  "unsigned keys"),
+        "evict_extract": dict(
+            **events(lambda: cold.extract_evicted(t, thr, cap, keep=True),
+                     lambda: (cold.extract_evicted_plain(t, thr, cap),
+                              cold.keep_mask_plain(t, thr))),
+            library_ms=None,
+            # The masks' 25 B a slot, the evicted rows' columns gathered, C
+            # output lanes of keys and columns, the keep mask and n written.
+            bound=bound(cap * 25 + n * row_bytes + cap * (16 + row_bytes)
+                        + cap + 8, cap * 10),
+            shape=f"2^{cap.bit_length() - 1} slots, {n} of {live} live rows "
+                  "evicted, k = C"),
+        "drop_evicted_k2": dict(
+            **events(lambda: cold.drop_evicted(t, thr, keep),
+                     lambda: cold.drop_evicted_plain(t, thr, keep), reps=5),
+            library_ms=None,
+            # Every slot's keys, tombstone and columns read, and written to
+            # the fresh table.
+            bound=bound(2 * cap * (17 + row_bytes), cap * 10),
+            shape=f"2^{cap.bit_length() - 1} slots, {int(keep.sum())} kept "
+                  "rows reinserted (K2's claim and write entries)"),
+    }
+
+
+def tier_batch(b, m, pendings, cold_posts_due, rng):
+    """Batch ``b`` of the tiered traffic: the flagship generator's plain
+    transfers over TIER_ACCOUNTS accounts; in every 8th batch the first
+    TIER_PENDINGS lanes are pending; after an eviction, TIER_COLD_POSTS
+    lanes post or void pendings that are now cold; once anything is cold,
+    TIER_RESUBMITS lanes resubmit evicted plain transfers (TigerBeetle's
+    client retry), half exactly (code 46) and half with amount + 1 (39).
+    Returns (batch, the expected codes)."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    batch = gen_batch_np(b, LANES, COUNT, TIER_ACCOUNTS, 1 << 32)
+    want = np.zeros(COUNT, np.uint32)
+    if b % 8 == 0:
+        batch["flags"][:TIER_PENDINGS] = types.TransferFlags.PENDING
+        pendings.extend(batch["id_lo"][:TIER_PENDINGS].tolist())
+    lane = TIER_PENDINGS
+    if cold_posts_due and pendings:
+        cand = np.array(pendings[:4 * TIER_COLD_POSTS], np.uint64)
+        is_cold, _ = m.cold.lookup_rows(cand, np.zeros_like(cand))
+        take = cand[is_cold][:TIER_COLD_POSTS]
+        done = set(take.tolist())
+        pendings[:] = [p for p in pendings if p not in done]
+        sl = slice(lane, lane + len(take))
+        for f in ("debit_account_id_lo", "credit_account_id_lo", "amount_lo",
+                  "ledger", "code"):
+            batch[f][sl] = 0
+        batch["pending_id_lo"][sl] = take
+        batch["flags"][sl] = np.where(
+            np.arange(len(take)) % 2 == 0,
+            types.TransferFlags.POST_PENDING_TRANSFER,
+            types.TransferFlags.VOID_PENDING_TRANSFER)
+        lane += len(take)
+    if m.cold.count:
+        run = m.cold.runs[int(rng.integers(len(m.cold.runs)))]
+        pick = np.asarray(run)[rng.integers(0, len(run), 4 * TIER_RESUBMITS)]
+        pick = pick[(pick["flags"] == 0)]
+        pick = pick[np.unique(pick["id_lo"], return_index=True)[1]]
+        pick = pick[:TIER_RESUBMITS]
+        sl = slice(lane, lane + len(pick))
+        for f in ("id_lo", "debit_account_id_lo", "credit_account_id_lo",
+                  "amount_lo", "ledger", "code", "flags", "pending_id_lo"):
+            batch[f][sl] = pick[f]
+        batch["amount_lo"][sl][1::2] += 1
+        want[sl] = np.where(np.arange(len(pick)) % 2 == 0, 46, 39)
+    return batch, want
+
+
+def phase_tiered(dev, n_transfers: int) -> dict:
+    """The cold tier at full width: a tiered machine (hot ceiling 2^23 slots,
+    in-memory runs, lazy index) and an untiered twin, both with 10,000,000
+    accounts, fed the same ``tier_batch`` traffic for ``n_transfers``
+    transfers.  Every code equal to the twin's and to the traffic's
+    expectation; then the accounts tables byte-identical, lookup_transfers
+    of 8,190 ids across hot and cold and 100 get_account_transfers at
+    limit 8,190 equal, and the tiered machine's distinct transfers (hot and
+    cold) equal to the twin's count.  Reports the rate, the FLAG_COLD
+    retries and rehydrated lanes, the host ms of each _resolve_cold, each
+    eviction's wall by step, the Bloom filter's size over time, the device
+    idle share of a profiled window and the peak device memory."""
+    import torch
+    from tigerbeetle_tpu_torch import convert, types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import cold
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LedgerConfig(lazy_index=True)
+    m = TorchStateMachine(cfg, batch_lanes=LANES, device=dev,
+                          hot_transfers_capacity_max=TIER_HOT_MAX)
+    twin = TorchStateMachine(cfg, batch_lanes=LANES, device=dev)
+    t0 = time.perf_counter()
+    for start in range(0, TIER_ACCOUNTS, COUNT):
+        n = min(COUNT, TIER_ACCOUNTS - start)
+        acc = np.zeros(n, dtype=types.ACCOUNT_DTYPE)
+        acc["id_lo"] = np.arange(start + 1, start + n + 1, dtype=np.uint64)
+        acc["ledger"], acc["code"] = 1, 10
+        if m.create_accounts(acc) != [] or twin.create_accounts(acc) != []:
+            raise AssertionError("tiered: account creation failed")
+    accounts_s = time.perf_counter() - t0
+
+    # Timers around each step of an eviction and each cold resolution; they
+    # synchronize, so the steps' walls are the card's and the host's.
+    steps = {}
+
+    def timer(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            steps.setdefault(name, []).append((time.perf_counter() - s) * 1e3)
+            return out
+        return run
+
+    saved = {name: getattr(cold, name) for name in (
+        "eviction_threshold", "extract_evicted", "rows_to_numpy",
+        "drop_evicted", "bloom_add_host")}
+    saved_b2t = convert.bloom_to_tensor
+    for name, fn in saved.items():
+        setattr(cold, name, timer(name, fn))
+    convert.bloom_to_tensor = timer("bloom_to_tensor", saved_b2t)
+    m.cold.append_run = timer("append_run (lexsort)", m.cold.append_run)
+    m._maybe_grow_bloom = timer("maybe_grow_bloom", m._maybe_grow_bloom)
+    m._resolve_cold = timer("resolve_cold", m._resolve_cold)
+    merges = []
+    merge = m.cold._merge_all
+    m.cold._merge_all = lambda: merges.append(m.cold.count) or merge()
+
+    rng = np.random.default_rng(5)
+    pendings = []
+    n_batches = max(1, (n_transfers + COUNT - 1) // COUNT)
+    window = range(n_batches - 1 - PROFILE_BATCHES, n_batches - 1)
+    if window.start < 0:
+        window = range(0)
+    launches = dict.fromkeys(_cuda.KERNELS, 0)
+    tier_s = twin_s = 0.0
+    prof, prof_wall_ms = None, 0.0
+    evictions, bloom_over_time, flagged = [], [], 0
+    cold_posts_due = False
+    twin_due = []
+    try:
+        for b in range(n_batches):
+            batch, want = tier_batch(b, m, pendings, cold_posts_due, rng)
+            ev0, retries0 = m._evictions, m.cold_retries
+            if window and b == window.start:
+                torch.cuda.synchronize()
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            before = _cuda.counts()
+            s = time.perf_counter()
+            got = m.create_transfers(batch)
+            dt = time.perf_counter() - s
+            for k, v in _cuda.counts().items():
+                launches[k] += v - before[k]
+            tier_s += dt
+            if b in window:
+                prof_wall_ms += dt * 1e3
+            exp = TorchStateMachine._compress(want, COUNT)
+            if got != exp:
+                raise AssertionError(f"tiered: batch {b} codes {got[:4]}, "
+                                     f"expected {exp[:4]}")
+            # The profiled window holds the tiered machine's commits only:
+            # the twin takes those batches after it.
+            twin_due.append((b, batch, got))
+            if window and b == window.stop - 1:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+            if b not in window:
+                for tb, tbatch, tgot in twin_due:
+                    s = time.perf_counter()
+                    twin_got = twin.create_transfers(tbatch)
+                    twin_s += time.perf_counter() - s
+                    if tgot != twin_got:
+                        raise AssertionError(
+                            f"tiered: batch {tb} codes differ from the twin's: "
+                            f"{tgot[:4]} vs {twin_got[:4]}")
+                twin_due.clear()
+            flagged += m.cold_retries > retries0
+            cold_posts_due = m._evictions > ev0
+            if cold_posts_due:
+                evictions.append({"batch": b, "cold_rows": m.cold.count,
+                                  "runs": len(m.cold.runs),
+                                  "bloom_bits_log2": m._bloom_log2})
+                bloom_over_time.append((b, m._bloom_log2))
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(cold, name, fn)
+        convert.bloom_to_tensor = saved_b2t
+    if not merges:
+        raise AssertionError("tiered: no merge of the cold runs happened")
+    missing = [k for k in TIER_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"tiered: kernels not launched {missing}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- the checks against the twin ---------------------------------------------
+    errs = max_abs_err_card("tiered accounts", table_tensors(m.ledger.accounts),
+                            table_tensors(twin.ledger.accounts))
+    hot_ids = to_np(m.ledger.transfers.key_lo)[to_np(m.ledger.transfers.key_lo) != 0]
+    cold_ids = np.concatenate([np.asarray(r["id_lo"]) for r in m.cold.runs])
+    distinct = len(np.unique(np.concatenate([hot_ids, cold_ids])))
+    twin_count = int(twin.ledger.transfers.count)
+    if distinct != twin_count:
+        raise AssertionError(f"tiered: {distinct} distinct transfers (hot and "
+                             f"cold), the twin has {twin_count}")
+    last_id = (1 << 32) + n_batches * COUNT
+    ids = rng.integers(1 << 32, last_id, COUNT).tolist()
+    ids[::7] = rng.choice(cold_ids, len(ids[::7])).tolist()
+    s = time.perf_counter()
+    got = m.lookup_transfers(ids)
+    lookup_ms = (time.perf_counter() - s) * 1e3
+    want = twin.lookup_transfers(ids)
+    if got.tobytes() != want.tobytes():
+        raise AssertionError("tiered: lookup_transfers differs from the twin's")
+    f = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)[0]
+    f["limit"] = COUNT
+    q_ms, rows_seen = [], 0
+    for q, acct in enumerate(rng.integers(1, TIER_ACCOUNTS + 1, 100)):
+        f["account_id_lo"], f["flags"] = int(acct), (1, 2, 3, 7)[q % 4]
+        s = time.perf_counter()
+        got = m.get_account_transfers(f)
+        q_ms.append((time.perf_counter() - s) * 1e3)
+        if got.tobytes() != twin.get_account_transfers(f).tobytes():
+            raise AssertionError(f"tiered: get_account_transfers({acct}) differs")
+        rows_seen += len(got)
+    profile = None
+    if prof is not None:
+        by_name = {}
+        busy = device_us(prof, by_name) / 1e3
+        if busy <= 0:
+            raise AssertionError("tiered: the profile recorded no device time")
+        profile = {
+            "batches": len(window), "commit_wall_ms": prof_wall_ms,
+            "device_busy_ms_per_batch": busy / len(window),
+            "device_idle_share": 1 - busy / prof_wall_ms,
+            "device_ms_per_batch_by_name": {
+                k: v / 1e3 / len(window) for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:12]},
+        }
+    ledger_bytes = {
+        name: sum(sum(x.numel() * x.element_size() for x in
+                      [t.key_lo, t.key_hi, t.tombstone, *t.cols.values()])
+                  for t in (mm.ledger.accounts, mm.ledger.transfers, mm.ledger.posted))
+        for name, mm in (("tiered", m), ("twin", twin))}
+    summary = {name: {"calls": len(v), "ms_mean": float(np.mean(v)),
+                      "ms_max": float(np.max(v)), "ms_total": float(np.sum(v))}
+               for name, v in steps.items()}
+    return {
+        "accounts": TIER_ACCOUNTS, "transfers": n_batches * COUNT,
+        "batches": n_batches, "accounts_s": accounts_s,
+        "transfers_per_s": n_batches * COUNT / tier_s,
+        "twin_transfers_per_s": n_batches * COUNT / twin_s,
+        "tiered_wall_ms_per_batch": tier_s * 1e3 / n_batches,
+        "batches_flagged_cold": flagged, "cold_retries": m.cold_retries,
+        "lanes_rehydrated": m.rehydrated_rows, "evictions": evictions,
+        "merges": len(merges), "bloom_over_time": bloom_over_time,
+        "cold_rows": m.cold.count, "hot_rows": int(m.ledger.transfers.count),
+        "distinct_transfers": distinct, "twin_transfers": twin_count,
+        "steps_ms": summary,
+        "lookup_8190_ms": lookup_ms,
+        "query_ms_median": float(np.median(q_ms)),
+        "query_ms_p99": float(np.percentile(q_ms, 99)),
+        "query_rows_mean": rows_seen / 100,
+        "accounts_max_abs_err": errs,
+        "peak_device_bytes": peak, "ledger_bytes": ledger_bytes,
+        "profile": profile, "launches": launches,
+    }
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3088,6 +3602,10 @@ def main() -> int:
     p.add_argument("--full-transfers", type=int, default=10_000_000)
     # The queries phase's depth: bench.py's 10,000,000 transfers.
     p.add_argument("--query-transfers", type=int, default=10_000_000)
+    # The tiered phase's depth: BASELINE.json config 4's 1,000,000,000
+    # transfers cut to 24,000,000 (about ten evictions of the 2^23 hot
+    # window, a merge of the cold runs among them) to fit the run's time.
+    p.add_argument("--tier-transfers", type=int, default=24_000_000)
     args = p.parse_args()
 
     import torch
@@ -3195,6 +3713,20 @@ def main() -> int:
     kern["run_sort"].update(qrun["k13"])
     kern["index_window"].update(qrun["k15"])
     kern["history_scan"].update(qrun["k16"])
+    t0 = time.perf_counter()
+    coldk = phase_cold_kernels(args.seed, dev)
+    emit({"phase": "cold_kernels", "seconds": time.perf_counter() - t0,
+          "checked": coldk["checked"],
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in coldk["results"].items()},
+          "bounds_ms": {k: v["bound"] for k, v in coldk["results"].items()}})
+    kern.update({k: v for k, v in coldk["results"].items() if k in _cuda.KERNELS})
+
+    t0 = time.perf_counter()
+    trun = phase_tiered(dev, args.tier_transfers)
+    emit({"phase": "tiered", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, **trun})
+
     # max_abs_err: index_kernels' cases and the queries phase's full-size
     # comparisons (the deepest carried level, the rebuilt level, K15 over
     # the whole pyramid, K16 over the whole log).
@@ -3206,7 +3738,7 @@ def main() -> int:
     # of seq_kernels (its device function runs inside K6/K7's rollbacks),
     # K9-K12 and K2's claim/write entries from the general path's two-phase
     # run (the limits run launched each of them too), K13-K16 from the
-    # queries phase.
+    # queries phase, K17-K19 from the tiered phase.
     paths = {name: ("main", launches) for name in MAIN_PATH}
     paths.update({name: ("sequential", seq_launches)
                   for name in ("seq_transfers", "seq_accounts")})
@@ -3215,6 +3747,8 @@ def main() -> int:
                   for name in FULL_PATH if name != "probe"})
     paths.update({name: ("queries", qrun["launches"])
                   for name in INDEX_PATH if name != "probe"})
+    paths.update({name: ("tiered", trun["launches"]) for name in
+                  ("bloom_check", "evict_threshold", "evict_extract")})
     rows = []
     for name, k in _cuda.KERNELS.items():
         r = kern[name]

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K16 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K19 against their plain PyTorch versions
 on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere;
 this file imports no JAX, so it runs on a machine without it:
 
@@ -55,6 +55,12 @@ def tables_equal(a: ht.Table, b: ht.Table):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     for name in a.cols:
         assert torch.equal(a.cols[name], b.cols[name]), name
+
+
+def table_to(t: ht.Table, dev) -> ht.Table:
+    return ht.Table(t.key_lo.to(dev), t.key_hi.to(dev), t.tombstone.to(dev),
+                    {k: v.to(dev) for k, v in t.cols.items()}, t.count.to(dev),
+                    t.probe_overflow.to(dev))
 
 
 def keyed_rows(rng, n, dev):
@@ -570,6 +576,142 @@ def test_machine_queries_on_card_match_cpu(cuda_device):
     expr = sb.merge_union(sb.scan_prefix("code", 10),
                           sb.scan_prefix("user_data_64", 2))
     assert gpu.scan_transfers(expr).tobytes() == cpu.scan_transfers(expr).tobytes()
+
+
+# -- K17-K19: the cold tier ----------------------------------------------------------
+
+
+def evict_table(rng, cap, n_live, n_tomb, dev):
+    """A transfers table with live rows (timestamps with repeats) and
+    tombstones, made through K2 and K8."""
+    from tigerbeetle_tpu_torch.ops import cold
+
+    t = ht.make_table(cap, sm.TRANSFER_COLS, dev)
+    ids = np.unique(rng.integers(1, 1 << 62, n_live + 64, dtype=np.uint64))[:n_live]
+    lo = convert.array_to_tensor(ids, dev)
+    hi = convert.array_to_tensor(
+        np.where(rng.random(n_live) < 0.3, 7, 0).astype(np.uint64), dev)
+    rows = {}
+    for name, dt in sm.TRANSFER_COLS.items():
+        vals = rng.integers(0, 1 << 62, n_live, dtype=np.uint64)
+        if name == "timestamp":
+            vals = rng.integers(1, n_live // 3 + 2, n_live, dtype=np.uint64)
+        rows[name] = convert.array_to_tensor(
+            vals if dt == torch.int64 else vals.astype(np.uint32), dev)
+    ht.insert(t, lo, hi, torch.ones_like(lo, dtype=torch.bool), rows, cap)
+    gone = ht.lookup(t, lo[:n_tomb], hi[:n_tomb], cap)
+    ht.remove_to_tombstone(t, gone.slot, gone.found)
+    return t
+
+
+@pytest.mark.parametrize("cap", [1 << 8, 1 << 16])
+def test_evict_kernels_match_plain(cuda_device, cap):
+    """K18's radix select, K19's compaction and keep mask, and
+    drop_evicted's K2 rebuild against their plain versions on the same
+    table, at several fractions, on an empty table and past the C-1
+    clamp."""
+    from tigerbeetle_tpu_torch.ops import cold
+
+    rng = np.random.default_rng(cap)
+    t = evict_table(rng, cap, cap // 2, cap // 16, cuda_device)
+    empty = ht.make_table(cap, sm.TRANSFER_COLS, cuda_device)
+    for table in (t, empty):
+        for num in (1, 250, 500, 999):
+            thr = cold.eviction_threshold(table, num, 1000)
+            assert torch.equal(thr, cold.eviction_threshold_plain(table, num, 1000))
+            for k in (cap, cap // 4):
+                got = cold.extract_evicted(table, thr, k, keep=True)
+                want = cold.extract_evicted_plain(table, thr, k)
+                assert int(got[0]) == int(want[0])
+                assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                for name in want[3]:
+                    assert torch.equal(got[3][name], want[3][name]), name
+                assert torch.equal(got[4], cold.keep_mask_plain(table, thr))
+            tables_equal(cold.drop_evicted(table, thr, got[4]),
+                         cold.drop_evicted_plain(table, thr))
+    clamp = evict_table(rng, cap, cap // 2, 0, cuda_device)
+    clamp.count.fill_(4 * cap)
+    assert torch.equal(cold.eviction_threshold(clamp, 999, 1000),
+                       cold.eviction_threshold_plain(clamp, 999, 1000))
+
+
+def test_bloom_kernel_matches_plain(cuda_device):
+    """K17 against its plain version: filters of 2^10 and 2^20 bits, hits
+    per lane, and the FLAG_COLD word under every mask."""
+    from tigerbeetle_tpu_torch.ops import cold
+
+    rng = np.random.default_rng(17)
+    n = 8192
+    lo = convert.array_to_tensor(rng.integers(0, 1 << 64, n, dtype=np.uint64), cuda_device)
+    hi = convert.array_to_tensor(rng.integers(0, 4, n, dtype=np.uint64), cuda_device)
+    for bits_log2 in (10, 20):
+        words = rng.integers(0, 1 << 32, (1 << bits_log2) // 32, dtype=np.uint64)
+        words &= rng.integers(0, 1 << 32, len(words), dtype=np.uint64)
+        bloom = convert.bloom_to_tensor(words.astype(np.uint32), cuda_device)
+        hits = cold.bloom_check_impl(bloom, lo, hi)
+        assert torch.equal(hits, cold.bloom_check_plain(bloom, lo, hi))
+        masks = [torch.from_numpy(rng.random(n) < f).to(cuda_device)
+                 for f in (0.9, 0.5, 0.3, 0.5, 0.2)]
+        plo, phi = lo.flip(0), hi.flip(0)
+        for checked in (None, masks[4], torch.ones_like(masks[4])):
+            for postvoid in (None, masks[2]):
+                args = (bloom, lo, hi, masks[0], masks[1], plo, phi, postvoid,
+                        masks[3], checked)
+                word = torch.zeros((), dtype=torch.int32, device=cuda_device)
+                got = cold.bloom_flag(*args, word, 16)
+                want = cold.bloom_flag(*[a.cpu() if torch.is_tensor(a) else a
+                                         for a in args],
+                                       torch.zeros((), dtype=torch.int32), 16)
+                assert int(got) == int(want)
+
+
+def test_tiered_machine_on_card_matches_cpu(cuda_device, tmp_path):
+    """A tiered TorchStateMachine on the card (K17 in every general batch,
+    K18, K19 and K2 at each eviction, K1 and K2 in each rehydration)
+    against the same machine on the CPU: codes, every hot table array, the
+    spill's manifest and files, lookups and queries across the tiers."""
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    cfg = LedgerConfig(accounts_capacity_log2=8, transfers_capacity_log2=8,
+                       posted_capacity_log2=8)
+    machines = [TorchStateMachine(cfg, batch_lanes=64, device=d,
+                                  spill_dir=str(tmp_path / str(d)),
+                                  hot_transfers_capacity_max=256)
+                for d in (cuda_device, "cpu")]
+    acc = np.zeros(8, dtype=types.ACCOUNT_DTYPE)
+    acc["id_lo"] = np.arange(1, 9)
+    acc["ledger"], acc["code"] = 1, 10
+    assert [m.create_accounts(acc, 1) for m in machines] == [[], []]
+    rng = np.random.default_rng(9)
+    tid = 1000
+    for b in range(12):
+        batch = np.zeros(50, dtype=types.TRANSFER_DTYPE)
+        batch["id_lo"] = tid + np.arange(50)
+        if b >= 8:  # resubmit evicted ids, some with another amount
+            batch["id_lo"][:10] = rng.integers(1000, 1100, 10)
+        batch["debit_account_id_lo"] = 1 + batch["id_lo"] % 8
+        batch["credit_account_id_lo"] = 1 + (batch["id_lo"] + 3) % 8
+        batch["amount_lo"] = 1 + batch["id_lo"] % 9 + (rng.random(50) < 0.3)
+        batch["ledger"], batch["code"] = 1, 10
+        tid += 50
+        got = [m.create_transfers(batch) for m in machines]
+        assert got[0] == got[1]
+        tables_equal(machines[0].ledger.transfers,
+                     table_to(machines[1].ledger.transfers, cuda_device))
+        assert machines[0].cold.manifest() == machines[1].cold.manifest()
+        assert (machines[0]._evictions, machines[0].cold_retries,
+                machines[0].rehydrated_rows) == (
+            machines[1]._evictions, machines[1].cold_retries,
+            machines[1].rehydrated_rows)
+    assert machines[0]._evictions > 0 and machines[0].cold_retries > 0
+    ids = list(range(990, 1700, 7))
+    assert machines[0].lookup_transfers(ids).tobytes() == \
+        machines[1].lookup_transfers(ids).tobytes()
+    f = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)[0]
+    f["account_id_lo"], f["limit"], f["flags"] = 2, 8190, 3
+    assert machines[0].get_account_transfers(f).tobytes() == \
+        machines[1].get_account_transfers(f).tobytes()
 
 
 def test_port_modules_import_neither_jax_nor_the_jax_package():

@@ -188,8 +188,6 @@ def test_state_carried_from_the_jax_machine_commits_identically():
 
 UNPORTED_INIT = {
     "shards": dict(shards=2),
-    "tiering": dict(hot_transfers_capacity_max=1 << 12),
-    "spill_dir": dict(spill_dir="spill"),
     "host_engine": dict(host_engine=True),
 }
 
@@ -492,7 +490,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("path", ["types.py", "config.py", "obs/metrics.py",
-                                  "testing/model.py"])
+                                  "testing/model.py", "utils/fs.py",
+                                  "vsr/checksum.py"])
 def test_copied_module_equals_its_source_apart_from_imports(path):
     def body(p):
         return [line for line in (ROOT / p).read_text().splitlines()

@@ -233,19 +233,28 @@ class FullPair:
                           self.arrays["history"]["cols"].items()},
                     count=jnp.asarray(self.arrays["history"]["count"])))
 
-    def commit(self, batch, ts=None, keep=True, **kw):
-        """Both kernels on ``batch``; asserts equal codes, flags, wave
-        vectors and ledgers; returns (codes, kflags)."""
+    def commit(self, batch, ts=None, keep=True, bloom=None, cold_checked=None,
+               **kw):
+        """Both kernels on ``batch`` (with the cold tier's filter, u32
+        words, and certified lanes, bool, when given); asserts equal codes,
+        flags, wave vectors and ledgers; returns (codes, kflags)."""
         self.ts = ts if ts is not None else self.ts + 7 * 10 ** 8
         soa = self.soa(batch)
         n = len(batch)
+        jkw, tkw = dict(kw), dict(kw)
+        if bloom is not None:
+            jkw["bloom"] = jnp.asarray(bloom)
+            tkw["bloom"] = convert.bloom_to_tensor(bloom, CPU)
+        if cold_checked is not None:
+            jkw["cold_checked"] = jnp.asarray(cold_checked)
+            tkw["cold_checked"] = torch.from_numpy(cold_checked)
         jr = jtf.create_transfers_full(
             self.jax_ledger(), {k: jnp.asarray(v) for k, v in soa.items()},
-            jnp.uint64(n), jnp.uint64(self.ts), **kw)
+            jnp.uint64(n), jnp.uint64(self.ts), **jkw)
         before = self.arrays
         tled = convert.ledger_from_numpy(before, CPU)
         tr = ttf.create_transfers_full_impl(
-            tled, convert.soa_to_tensors(soa, CPU), n, self.ts, **kw)
+            tled, convert.soa_to_tensors(soa, CPU), n, self.ts, **tkw)
         np.testing.assert_array_equal(convert.tensor_to_array(tr[1]),
                                       np.asarray(jr[1]))
         kflags = int(jr[2])
@@ -443,12 +452,45 @@ def test_unconverged_fixpoint_routes():
     assert kflags == ttf.FLAG_SEQ
 
 
-def test_bloom_filter_raises():
-    tled = convert.ledger_from_numpy(FullPair().arrays, CPU)
-    soa = convert.soa_to_tensors(FullPair.soa(types.transfers_array(
-        [tr(1, 1, 2, 3)])), CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ttf.create_transfers_full_impl(tled, soa, 1, 10, bloom=torch.zeros(8))
+# Cold ids in the filter, whether the batch has post/void lanes, whether
+# every lane is certified, and the flags expected.
+COLD_CASES = {
+    "id": ([50], True, False, ttf.FLAG_COLD),
+    "id_no_postvoid": ([50], False, False, ttf.FLAG_COLD),
+    "pending_id": ([60], True, False, ttf.FLAG_COLD),
+    "certified": ([50, 60], True, True, 0),
+    "hot_ids": ([1, 2], True, False, 0),
+    "miss": ([77], True, False, 0),
+    "empty_filter": ([], True, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COLD_CASES))
+def test_bloom_filter_flags_cold(case):
+    """build_gather_ctx's cold branch (JAX transfer_full.py:638-659, kernel
+    K17 on the card): an id, or a post/void's pending id, that misses the
+    hot table and hits the filter sets FLAG_COLD and applies nothing; lanes
+    certified by cold_checked, ids found hot and ids the filter misses do
+    not.  Codes, flags and every ledger array equal the JAX kernel's."""
+    from tigerbeetle_tpu.ops import cold as jcold
+
+    p = FullPair()
+    p.commit(types.transfers_array([tr(1), tr(2, 3, 4, 5, flags=int(F.PENDING))]),
+             has_postvoid=False)
+    cold_ids, postvoid, certified, want = COLD_CASES[case]
+    bloom = np.zeros((1 << 10) // 32, np.uint32)
+    ids = np.array(cold_ids, np.uint64)
+    jcold.bloom_add_host(bloom, ids, np.zeros_like(ids))
+    rows = [tr(50, 5, 6, 7), tr(51), tr(1)]
+    if postvoid:
+        rows += [types.transfer(id=52, pending_id=60,
+                                flags=int(F.POST_PENDING_TRANSFER)),
+                 types.transfer(id=53, pending_id=2,
+                                flags=int(F.VOID_PENDING_TRANSFER))]
+    checked = np.full(LANES, certified)
+    _, kflags = p.commit(types.transfers_array(rows), bloom=bloom,
+                         cold_checked=checked, has_postvoid=postvoid)
+    assert kflags == want
 
 
 # -- the kernels' pointer layouts -------------------------------------------------

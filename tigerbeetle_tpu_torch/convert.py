@@ -175,6 +175,25 @@ def soa_to_tensors(soa: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor
     return {name: out[name] for name in soa}
 
 
+# -- the cold tier's Bloom filter ---------------------------------------------
+
+
+def bloom_to_tensor(bloom: np.ndarray, device) -> torch.Tensor:
+    """A host Bloom filter (u32 words) as the int32 tensor the kernels read."""
+    if bloom.dtype != np.uint32 or bloom.ndim != 1:
+        raise TypeError(f"a Bloom filter is u32[words], got {bloom.dtype}"
+                        f"{list(bloom.shape)}")
+    return array_to_tensor(bloom, device)
+
+
+def bloom_to_numpy(bloom: torch.Tensor) -> np.ndarray:
+    """Inverse of ``bloom_to_tensor``."""
+    if bloom.dtype != torch.int32 or bloom.dim() != 1:
+        raise TypeError(f"a Bloom filter is int32[words], got {bloom.dtype}"
+                        f"{list(bloom.shape)}")
+    return tensor_to_array(bloom)
+
+
 # -- derived indexes ---------------------------------------------------------
 
 _PYRAMIDS = ("dr_levels", "cr_levels", "levels")

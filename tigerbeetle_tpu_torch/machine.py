@@ -6,7 +6,10 @@ the fast path, every other ``create_transfers`` batch on the general kernel
 under ``force_sequential`` on the sequential path (and linked
 ``create_accounts`` batches with duplicate ids), lookups, the transfer
 index and the queries (``get_account_transfers``, ``get_account_history``,
-the composed scans), the balance snapshot and the digest.
+the composed scans), the cold tier (``ops.cold``: a tiered machine,
+``hot_transfers_capacity_max`` and ``spill_dir``, evicts its oldest
+transfers to id-sorted host runs and resolves ids the Bloom filter flags
+``FLAG_COLD``), the balance snapshot and the digest.
 
 It owns the device-resident ledger, assigns batch timestamps as prepare()
 does, grows the tables and the history log from host-side row bounds (load
@@ -18,7 +21,12 @@ and wave vector) back in ONE device-to-host copy and compresses the codes
 into the wire's (index, result) pairs.  After every committed batch it
 appends the batch to its derived indexes (``ops.index`` and the scan
 builder's field indexes: K1, K13 and K14 on the card) unless
-``LedgerConfig.lazy_index`` is set, in which case a query rebuilds them.
+``LedgerConfig.lazy_index`` is set, in which case a query rebuilds them
+(from the hot table and the cold runs).  A tiered machine commits every
+transfer batch on the general kernel (with its Bloom filter; K17 on the
+card), evicts between batches once the hot table's bound passes half its
+ceiling (K18, K19 and K2's claim and write entries), and merges cold rows
+into lookups and query answers on the host.
 
 Routes this slice does not port raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them; none gives a wrong answer or falls back
@@ -37,6 +45,7 @@ from . import convert, types
 from .config import LedgerConfig
 from .device import resolve as resolve_device
 from .obs.metrics import registry as _obs
+from .ops import cold as cold_mod
 from .ops import hash_table as ht
 from .ops import index as ix
 from .ops import query
@@ -70,7 +79,6 @@ _UNPORTED = {
     "commit_fast_deferred": "A8 (commit pipeline)",
     "commit_group_fast": "A8 (commit pipeline)",
     "warmup": "A8 (commit pipeline)",
-    "evict_cold": "A10 (tiering)",
     "scrub_check": "A9 (scrub)",
     "scrub_arm": "A9 (scrub)",
     "merkle_roots": "A9 (Merkle commitments)",
@@ -98,9 +106,6 @@ class TorchStateMachine:
     ) -> None:
         if shards:
             raise NotImplementedError("sharding is not ported yet (ROADMAP A11)")
-        if spill_dir is not None or hot_transfers_capacity_max is not None:
-            raise NotImplementedError(
-                "tiering is not ported yet (ROADMAP A10 (tiering))")
         if host_engine:
             raise NotImplementedError(
                 "the host engine is not ported yet (ROADMAP A6)"
@@ -130,17 +135,39 @@ class TorchStateMachine:
         # wave_bound, hist[9]), as read back with its codes.
         self.last_wave: Optional[np.ndarray] = None
         # Derived query indexes (ops/index.py, ops/scan_builder.py), rebuilt
-        # from the tables when stale; no cold tier yet, so no extra rows.
+        # from the tables when stale; every rebuild also indexes the cold
+        # runs, or evicted transfers would drop out of query answers.
         self.index = ix.TransferIndex(base=batch_lanes, device=self.device)
-        self.index.extra_rows_provider = lambda: []
+        self.index.extra_rows_provider = (
+            lambda: [np.asarray(r) for r in self.cold.runs])
         self.scans_transfers = sb.ScanSet(
             "transfers", sb.TRANSFER_FIELDS, base=batch_lanes,
             device=self.device)
-        self.scans_transfers.extra_rows_provider = lambda: []
+        self.scans_transfers.extra_rows_provider = (
+            lambda: [np.asarray(r) for r in self.cold.runs])
         self.scans_accounts = sb.ScanSet(
             "accounts", sb.ACCOUNT_FIELDS, base=batch_lanes,
             device=self.device)
         self._lane_ids = torch.arange(batch_lanes, device=self.device)
+        # Tiered transfers store (ops/cold.py): a hot device window and a
+        # cold host spill.  Tiering is driven by the hot-window cap
+        # (evictions never trigger without one); spill_dir None keeps the
+        # runs in memory.
+        self.cold = cold_mod.ColdStore(spill_dir)
+        self.hot_transfers_capacity_max = hot_transfers_capacity_max
+        self._tiering = hot_transfers_capacity_max is not None
+        self._bloom_log2 = cfg.bloom_bits_log2
+        self._bloom_np: Optional[np.ndarray] = None
+        self._bloom_dev: Optional[torch.Tensor] = None
+        self._evictions = 0
+        # Plain-int counters: FLAG_COLD attempts resolved, rows rehydrated.
+        self.cold_retries = 0
+        self.rehydrated_rows = 0
+        if self._tiering:
+            self._bloom_np = np.zeros(((1 << self._bloom_log2) // 32,),
+                                      np.uint32)
+            self._bloom_dev = cold_mod.make_bloom(self._bloom_log2,
+                                                  self.device)
 
     @property
     def waves_enabled(self) -> bool:
@@ -285,9 +312,12 @@ class TorchStateMachine:
             self._balance_bound = _BOUND_CLAMP
 
     def _fast_path_ok(self, batch: np.ndarray) -> bool:
-        """Preconditions P1-P4 of ops/state_machine.py, checked host-side."""
+        """Preconditions P1-P4 of ops/state_machine.py, checked host-side; a
+        tiered machine runs the general kernel, which carries the Bloom
+        filter."""
         if (
-            self._history_accounts_possible
+            self._tiering
+            or self._history_accounts_possible
             or self._limit_accounts_possible
             or self._balance_bound >= (1 << 126)
         ):
@@ -323,12 +353,17 @@ class TorchStateMachine:
         self, batch: np.ndarray, timestamp: int, count: int
     ) -> List[Tuple[int, int]]:
         """The JAX machine's general-kernel branch: grow from host bounds,
-        then up to eight attempts; kflags 0 commits, FLAG_SEQ runs the batch
-        on the sequential path, a FLAG_GROW_* bit doubles the flagged tables
-        and retries (the kernel applied nothing)."""
+        then up to eight attempts; kflags 0 commits (and, tiered, evicts if
+        the hot table is due), FLAG_COLD resolves the batch's ids against
+        the cold store and retries with the lanes certified, FLAG_SEQ runs
+        the batch on the sequential path, a FLAG_GROW_* bit doubles the
+        flagged tables (or evicts, at the hot ceiling) and retries; the
+        kernel applied nothing on any flag, and the flags are taken in that
+        order."""
         pv_count, hist_count = self._transfer_growth_counts(batch)
         self._grow_if_needed(transfers=count, posted=pv_count, history=hist_count)
         soa = self._pad_soa(batch)
+        cold_checked = self._cold_certified(False) if self._tiering else None
         # Static phase hints: no post/void lanes skips the pending-side
         # probes and the posted write; no HISTORY account skips the append.
         has_postvoid = pv_count > 0
@@ -336,8 +371,8 @@ class TorchStateMachine:
         use_waves = self.waves_enabled
         for _attempt in range(8):
             r = tf.create_transfers_full_impl(
-                self.ledger, soa, count, timestamp,
-                max_passes=self.config.jacobi_max_passes,
+                self.ledger, soa, count, timestamp, self._bloom_dev,
+                cold_checked, max_passes=self.config.jacobi_max_passes,
                 has_postvoid=has_postvoid, has_history=has_history,
                 use_waves=use_waves,
             )
@@ -346,12 +381,27 @@ class TorchStateMachine:
             kflags = int(words[0])
             wave_host = words[1:] if use_waves else None
             if kflags == 0:
-                return self._full_commit_success(
+                results = self._full_commit_success(
                     soa, r[1], codes, count, pv_count, hist_count, timestamp,
                     wave_host)
+                # Eviction is only safe between batches: mid-loop it would
+                # void the certification and the batch's hot gathers.
+                self._maybe_evict_between_batches()
+                return results
+            ev0 = self._evictions
+            if kflags & tf.FLAG_COLD:
+                # Possibly-cold ids: resolve them exactly, rehydrate the real
+                # cold rows and certify the batch, so Bloom false positives
+                # end; an eviction meanwhile voids the certificate.
+                self._resolve_cold(batch)
+                cold_checked = self._cold_certified(self._evictions == ev0)
+                self.cold_retries += 1
+                continue
             if kflags & tf.FLAG_SEQ:
                 return self._sequential("create_transfers", batch, timestamp)
             self._grow_flagged(kflags)
+            if self._tiering and self._evictions != ev0:
+                cold_checked = self._cold_certified(False)
         raise RuntimeError("transfer kernel could not place batch after growth")
 
     def _full_commit_success(self, soa, codes_dev, codes, count, pv_count,
@@ -386,13 +436,26 @@ class TorchStateMachine:
                 100 * hist[0] // total
             )
 
+    def _cold_certified(self, value: bool) -> torch.Tensor:
+        """A ``cold_checked`` mask: every lane certified, or none."""
+        fill = torch.ones if value else torch.zeros
+        return fill(self.batch_lanes, dtype=torch.bool, device=self.device)
+
     def _grow_flagged(self, kflags: int) -> None:
-        """Double each table a probe overflow flagged (one K2 rehash each)."""
+        """Double each table a probe overflow flagged (one K2 rehash each);
+        at the hot ceiling the transfers table spills instead."""
         led = self.ledger
         if kflags & tf.FLAG_GROW_ACCOUNTS:
             led.accounts = ht.grow(led.accounts, led.accounts.capacity * 2)
         if kflags & tf.FLAG_GROW_TRANSFERS:
-            led.transfers = ht.grow(led.transfers, led.transfers.capacity * 2)
+            hot_max = self.hot_transfers_capacity_max
+            if hot_max is not None and led.transfers.capacity >= hot_max:
+                # Never allocate past the budget the ceiling encodes: make
+                # room by spilling (the caller resets the certificate).
+                self.evict_cold()
+            else:
+                led.transfers = ht.grow(led.transfers,
+                                        led.transfers.capacity * 2)
         if kflags & tf.FLAG_GROW_POSTED:
             led.posted = ht.grow(led.posted, led.posted.capacity * 2)
 
@@ -403,7 +466,9 @@ class TorchStateMachine:
     ) -> List[Tuple[int, int]]:
         """Exact in-order execution through ops/scan_path (kernels K6 and
         K7 on the card), as the JAX machine's ``_sequential_impl`` (without
-        its cold-tier and Merkle hooks, which are not ported)."""
+        its Merkle hook, which is not ported): the scan path sees only the
+        hot table, so a tiered machine first rehydrates the cold rows the
+        batch names."""
         count = len(batch)
         if operation == "create_accounts":
             self._grow_if_needed(accounts=count)
@@ -414,6 +479,8 @@ class TorchStateMachine:
             pv_count = hist_count = 0
             kernel = scan_path.create_accounts_seq
         else:
+            if self.cold.count:
+                self._resolve_cold(batch)
             pv_count, hist_count = self._transfer_growth_counts(batch)
             self._grow_if_needed(
                 transfers=count, posted=pv_count, history=hist_count
@@ -467,12 +534,15 @@ class TorchStateMachine:
 
     def _grow_if_needed(
         self, accounts: int = 0, transfers: int = 0, posted: int = 0,
-        history: int = 0,
+        history: int = 0, evict_ok: bool = True,
     ) -> None:
         """Keep every table's load factor under 0.5 using host-side row
         bounds (no device sync; bounds only overestimate), and the history
         log's capacity above its bound.  Each table growth is one rehash
-        through kernel K2."""
+        through kernel K2.  At the hot ceiling the transfers table spills
+        its oldest rows instead of growing (unless ``evict_ok`` is False, as
+        in a rehydration mid-commit: then its load may rise until the next
+        eviction between batches)."""
         led = self.ledger
         cap = self._target_capacity(
             led.accounts.capacity, self._accounts_bound + accounts
@@ -483,7 +553,17 @@ class TorchStateMachine:
             led.transfers.capacity, self._transfers_bound + transfers
         )
         if cap != led.transfers.capacity:
-            led.transfers = ht.grow(led.transfers, cap)
+            hot_max = self.hot_transfers_capacity_max
+            if hot_max is not None and cap > hot_max and (
+                led.transfers.capacity >= hot_max
+            ):
+                if evict_ok:
+                    self.evict_cold()
+            else:
+                if hot_max is not None:
+                    cap = min(cap, max(hot_max, led.transfers.capacity))
+                if cap != led.transfers.capacity:
+                    led.transfers = ht.grow(led.transfers, cap)
         cap = self._target_capacity(
             led.posted.capacity, self._posted_bound + posted
         )
@@ -493,6 +573,98 @@ class TorchStateMachine:
             led.history = sm.grow_history(
                 led.history, self._history_bound + history
             )
+
+    # -- the cold tier (ops/cold.py) -------------------------------------------
+
+    def _maybe_evict_between_batches(self) -> None:
+        hot_max = self.hot_transfers_capacity_max
+        if hot_max is not None and self._transfers_bound * 2 > hot_max and (
+            self.ledger.transfers.capacity >= hot_max
+        ):
+            self.evict_cold()
+
+    def _resolve_cold(self, batch: np.ndarray) -> None:
+        """Host-exact resolution of a FLAG_COLD batch: rehydrate every cold
+        row the batch names by id or pending_id into the hot table, in the
+        ids' sorted order (the JAX machine's), skipping ids already hot."""
+        lo = np.concatenate([batch["id_lo"], batch["pending_id_lo"]])
+        hi = np.concatenate([batch["id_hi"], batch["pending_id_hi"]])
+        order = np.lexsort((hi, lo))  # sorted (lo, hi) pairs
+        lo, hi = lo[order], hi[order]
+        first = np.ones(len(lo), dtype=bool)
+        first[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+        first &= (lo != 0) | (hi != 0)
+        found, rows = self.cold.lookup_rows(lo[first], hi[first])
+        if not found.any():
+            return
+        rows = rows[found]
+        # Double-inserting a key would break the hot table's uniqueness.
+        lo, hi = self._id_tensors(rows["id_lo"], rows["id_hi"], len(rows))
+        hot, _ = sm.lookup_transfers(self.ledger, lo, hi)
+        rows = rows[~convert.tensor_to_array(hot)]
+        if len(rows):
+            self._rehydrate(rows)
+
+    def _rehydrate(self, rows: np.ndarray) -> None:
+        """Insert cold rows back into the hot table (K2), as duplicates of
+        their cold copies; a later eviction may spill them again.  No
+        eviction here: mid-commit it would void the batch's certificate."""
+        self._grow_if_needed(transfers=len(rows), evict_ok=False)
+        n = len(rows)
+        lanes = max(self.batch_lanes, 1 << (n - 1).bit_length() if n else 1)
+        soa = convert.batch_to_tensors(rows, lanes, self.device)
+        mask = torch.arange(lanes, device=self.device) < n
+        row_cols = {name: soa[name] for name in sm.TRANSFER_COLS}
+        transfers, _ = ht.insert(self.ledger.transfers, soa["id_lo"],
+                                 soa["id_hi"], mask, row_cols,
+                                 self.config.max_probe)
+        if bool(transfers.probe_overflow):
+            raise RuntimeError("cold rehydration overflowed the hot table")
+        self._transfers_bound += n
+        self.rehydrated_rows += n
+
+    def evict_cold(self, frac: Optional[float] = None) -> int:
+        """Spill the oldest ~frac of live hot transfers to the cold store.
+        Deterministic given the ledger state; called at checkpoint
+        boundaries by the replica, or directly under memory pressure.
+        Returns the number of rows evicted."""
+        return self._evict_cold_impl(frac)
+
+    def _evict_cold_impl(self, frac: Optional[float] = None) -> int:
+        if not self._tiering:
+            self._tiering = True
+            self._bloom_np = np.zeros(((1 << self._bloom_log2) // 32,),
+                                      np.uint32)
+        if frac is None:
+            frac = self.config.eviction_fraction
+        num = max(1, min(999, int(frac * 1000)))
+        t = self.ledger.transfers
+        threshold = cold_mod.eviction_threshold(t, num, 1000)
+        n, key_lo, key_hi, cols, keep = cold_mod.extract_evicted(
+            t, threshold, t.capacity, keep=True)
+        rows = cold_mod.rows_to_numpy(n, key_lo, key_hi, cols)
+        if len(rows) == 0:
+            return 0
+        self.cold.append_run(rows)
+        self.ledger.transfers = cold_mod.drop_evicted(t, threshold, keep)
+        cold_mod.bloom_add_host(
+            self._bloom_np, rows["id_lo"].astype(np.uint64),
+            rows["id_hi"].astype(np.uint64),
+        )
+        self._maybe_grow_bloom()
+        self._bloom_dev = convert.bloom_to_tensor(self._bloom_np, self.device)
+        self._transfers_bound = max(0, self._transfers_bound - len(rows))
+        self._evictions += 1
+        # The query index stores ids, not slots, so it stays valid; evicted
+        # rows are resolved from the cold store at query time.
+        return len(rows)
+
+    def _maybe_grow_bloom(self) -> None:
+        """Keep >= ~12 bits per cold id (false-positive rate ~1e-3 at 4
+        hashes); rebuild from the runs at the next power of two if not."""
+        while self.cold.count * 12 > (1 << self._bloom_log2):
+            self._bloom_log2 += 2
+            self._bloom_np = self.cold.rebuild_bloom(self._bloom_log2)
 
     def _update_commit_timestamp(
         self, codes: np.ndarray, count: int, timestamp: int
@@ -553,13 +725,25 @@ class TorchStateMachine:
         return rows[convert.tensor_to_array(found)]
 
     def lookup_transfers(self, ids: List[int]) -> np.ndarray:
-        """Found transfers as a TRANSFER_DTYPE array (misses omitted)."""
+        """Found transfers as a TRANSFER_DTYPE array (misses omitted), in the
+        order asked; a miss in the hot table may be found in the cold
+        store."""
         if not ids:
             return np.zeros(0, dtype=types.TRANSFER_DTYPE)
-        found, cols = sm.lookup_transfers(self.ledger, *self._ids(ids))
-        host = {k: convert.tensor_to_array(v) for k, v in cols.items()}
+        lo, hi = self._ids(ids)
+        found, cols = sm.lookup_transfers(self.ledger, lo, hi)
+        host = convert.tensors_to_arrays({"_found": found, **cols})
+        found = host.pop("_found")
         rows = types.from_soa(host, types.TRANSFER_DTYPE)
-        return rows[convert.tensor_to_array(found)]
+        if self.cold.count and not found.all():
+            miss = ~found
+            ids_lo = np.array([i & U64_MAX for i in ids], np.uint64)[miss]
+            ids_hi = np.array([i >> 64 for i in ids], np.uint64)[miss]
+            cold_found, cold_rows = self.cold.lookup_rows(ids_lo, ids_hi)
+            rows[miss] = cold_rows
+            found = found.copy()
+            found[miss] = cold_found
+        return rows[found]
 
     # -- queries (state_machine.zig:693-892, 1128-1195) ----------------------
 
@@ -619,8 +803,9 @@ class TorchStateMachine:
                                limit: int) -> np.ndarray:
         """Timestamp-ordered index hits (transfer ids) as wire rows: one
         batched lookup (K1) and one read-back, then the dedup of adjacent
-        repeats of an id (a rebuild that indexes a row twice).  There is no
-        cold tier yet, so a hit not in the table is dropped."""
+        repeats of an id (a rebuild can index a rehydrated transfer from
+        both the hot table and its cold run), and the hits missing from the
+        hot table resolved from the cold store, in place."""
         found, cols = sm.lookup_transfers(self.ledger, tid_lo, tid_hi)
         host = convert.tensors_to_arrays(
             {"_valid": valid, "_found": found, "_tl": tid_lo, "_th": tid_hi,
@@ -634,6 +819,12 @@ class TorchStateMachine:
                        & (tl[1:] == tl[:-1]) & (th[1:] == th[:-1]))
             idx_valid = idx_valid & ~dup
         out = types.from_soa(host, types.TRANSFER_DTYPE)
+        cold = idx_valid & ~found
+        if self.cold.count and cold.any():
+            cold_found, cold_rows = self.cold.lookup_rows(tl[cold], th[cold])
+            out[cold] = cold_rows
+            found = found.copy()
+            found[cold] = cold_found
         return out[idx_valid & found][: min(limit, QUERY_ROWS_MAX)]
 
     # -- composed scans (ops/scan_builder.py) ----------------------------------

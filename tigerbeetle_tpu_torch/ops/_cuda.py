@@ -33,6 +33,9 @@ add one to their kernel's ``launches`` each time they launch it.
 | run_merge     | csrc/index_merge.cu | ops/index.py:77 _merge (carries; full-build rounds) |
 | index_window  | csrc/index_query.cu | ops/index.py:132 _query_side (+ :111 _search3), :165 query_transfers |
 | history_scan  | csrc/history_scan.cu | ops/query.py:38 scan_history (+ :29 _top_k) |
+| bloom_check   | csrc/bloom.cu      | ops/cold.py:72 bloom_check_impl (+ transfer_full.py:638 FLAG_COLD) |
+| evict_threshold | csrc/evict.cu    | ops/cold.py:391 eviction_threshold         |
+| evict_extract | csrc/evict.cu      | ops/cold.py:402 extract_evicted (+ :426 drop_evicted's keep mask) |
 
 The general kernel's launches (K9-K12) take their pointers as one array in
 the order of the kernel's pointer enum (``FULL_PASS_LAYOUT`` and
@@ -112,6 +115,12 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/ops/index.py:132"),
         Kernel("history_scan", "tigerbeetle_tpu_torch/csrc/history_scan.cu",
                "tigerbeetle_tpu/ops/query.py:38"),
+        Kernel("bloom_check", "tigerbeetle_tpu_torch/csrc/bloom.cu",
+               "tigerbeetle_tpu/ops/cold.py:72"),
+        Kernel("evict_threshold", "tigerbeetle_tpu_torch/csrc/evict.cu",
+               "tigerbeetle_tpu/ops/cold.py:391"),
+        Kernel("evict_extract", "tigerbeetle_tpu_torch/csrc/evict.cu",
+               "tigerbeetle_tpu/ops/cold.py:402"),
     )
 }
 
@@ -235,6 +244,12 @@ def _bind(lib: ctypes.CDLL) -> None:
                            _P, _P, _P, _P],
         "tb_history_scan": [_P, _P, _I64, _I64, _U64, _U64, _U64, _U64, _INT,
                             _INT, _INT, _P, _P, _P, _P, _P],
+        "tb_bloom_check": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I64, _P, _P, _INT, _P],
+        "tb_evict_threshold": [_P, _P, _P, _P, _I64, _P, _U64, _U64, _P, _P,
+                               _P, _P, _P],
+        "tb_evict_extract": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P,
+                             _P, _INT, _P, _P, _P, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -1143,3 +1158,121 @@ def history_scan(cols: Dict[str, torch.Tensor], count: torch.Tensor,
             "history_scan: the history log's timestamps below its count do "
             "not increase; the kernel's top-k would be wrong")
     return valid, dict(zip(HISTORY_ROW_COLS, rows.unbind(0)))
+
+
+# -- K17-K19: the cold tier ------------------------------------------------------
+
+
+def _ptr(t: Optional[torch.Tensor], n: int, what: str):
+    if t is None:
+        return None
+    _check(t, torch.bool, n, what)
+    return t.data_ptr()
+
+
+def bloom_check(bloom, id_lo, id_hi, *, valid=None, found=None, p_lo=None,
+                p_hi=None, postvoid=None, p_found=None, checked=None,
+                out: bool = True, flag_word: Optional[torch.Tensor] = None,
+                flag_bit: int = 0) -> Optional[torch.Tensor]:
+    """Kernel K17: each lane's id against the Bloom filter (``bloom``, int32
+    words), under the optional bool masks (``valid`` and not ``found`` for
+    the id, ``postvoid`` and not ``p_found`` for ``p_lo``/``p_hi``, neither
+    where ``checked``); returns the lanes' hits (bool[N]) when ``out``, and
+    ORs ``flag_bit`` into ``flag_word`` (int32, one element) on the card
+    when a lane hits."""
+    lib = library()
+    words = bloom.numel()
+    _check(bloom, torch.int32, words, "bloom")
+    n = id_lo.numel()
+    _check(id_lo, torch.int64, n, "id_lo")
+    _check(id_hi, torch.int64, n, "id_hi")
+    if postvoid is not None:
+        _check(p_lo, torch.int64, n, "pending id_lo")
+        _check(p_hi, torch.int64, n, "pending id_hi")
+    if flag_word is not None:
+        _check(flag_word, torch.int32, 1, "flag_word")
+    hits = torch.empty(n, dtype=torch.bool, device=id_lo.device) if out else None
+    err = lib.tb_bloom_check(
+        bloom.data_ptr(), words * 32, id_lo.data_ptr(), id_hi.data_ptr(),
+        _ptr(valid, n, "valid"), _ptr(found, n, "found"),
+        None if postvoid is None else p_lo.data_ptr(),
+        None if postvoid is None else p_hi.data_ptr(),
+        _ptr(postvoid, n, "postvoid"), _ptr(p_found, n, "p_found"),
+        _ptr(checked, n, "checked"), n,
+        None if hits is None else hits.data_ptr(),
+        None if flag_word is None else flag_word.data_ptr(), flag_bit,
+        _stream(id_lo))
+    _raise_on(err, "bloom_check")
+    KERNELS["bloom_check"].launches += 1
+    return hits
+
+
+def _check_evict_table(key_lo, key_hi, tomb, ts) -> int:
+    cap = key_lo.numel()
+    _check(key_lo, torch.int64, cap, "table key_lo")
+    _check(key_hi, torch.int64, cap, "table key_hi")
+    _check(tomb, torch.bool, cap, "table tombstone")
+    _check(ts, torch.int64, cap, "table timestamp")
+    return cap
+
+
+def evict_threshold(key_lo, key_hi, tomb, ts, count: torch.Tensor, num: int,
+                    den: int) -> torch.Tensor:
+    """Kernel K18: the eviction threshold (int64[1] holding the u64), read
+    from the table and its ``count`` on the card: a radix select, nine
+    launches on the current stream, no host read."""
+    lib = library()
+    cap = _check_evict_table(key_lo, key_hi, tomb, ts)
+    _check(count.reshape(1), torch.int64, 1, "table count")
+    if den <= 0 or num < 0:
+        raise ValueError(f"evict_threshold: bad fraction {num}/{den}")
+    dev = key_lo.device
+    keys = torch.empty(cap, dtype=torch.int64, device=dev)
+    hist = torch.zeros(8 * 256, dtype=torch.int64, device=dev)
+    state = torch.empty(18, dtype=torch.int64, device=dev)
+    out = torch.empty(1, dtype=torch.int64, device=dev)
+    err = lib.tb_evict_threshold(
+        key_lo.data_ptr(), key_hi.data_ptr(), tomb.data_ptr(), ts.data_ptr(),
+        cap, count.data_ptr(), num, den, keys.data_ptr(), hist.data_ptr(),
+        state.data_ptr(), out.data_ptr(), _stream(key_lo))
+    _raise_on(err, "evict_threshold")
+    KERNELS["evict_threshold"].launches += 1
+    return out
+
+
+def evict_extract(key_lo, key_hi, tomb, cols: Dict[str, torch.Tensor],
+                  threshold: torch.Tensor, k: int, keep: bool = False):
+    """Kernel K19: (n int64[1], key_lo[k], key_hi[k], {column: [k]}, keep
+    bool[C] or None): the live rows with timestamp <= ``threshold``, in slot
+    order, in the first lanes, zeros after n; ``keep`` the live rows above
+    the threshold."""
+    lib = library()
+    cap = _check_evict_table(key_lo, key_hi, tomb, cols["timestamp"])
+    _check(threshold.reshape(1), torch.int64, 1, "threshold")
+    if k < 0:
+        raise ValueError(f"evict_extract: k {k} < 0")
+    names = list(cols)
+    src = [cols[name] for name in names]
+    for name, c in zip(names, src):
+        if c.dtype not in _U64_OR_U32:
+            raise TypeError(f"column {name}: unsupported dtype {c.dtype}")
+        _check(c, c.dtype, cap, f"column {name}")
+    dev = key_lo.device
+    tiles = (cap + 4095) // 4096
+    scratch = torch.empty(2 * tiles, dtype=torch.int64, device=dev)
+    n = torch.empty(1, dtype=torch.int64, device=dev)
+    out_lo = torch.empty(k, dtype=torch.int64, device=dev)
+    out_hi = torch.empty(k, dtype=torch.int64, device=dev)
+    dst = [torch.empty(k, dtype=c.dtype, device=dev) for c in src]
+    keep_t = torch.empty(cap, dtype=torch.bool, device=dev) if keep else None
+    widths = (ctypes.c_int * max(1, len(src)))(*[_width(c) for c in src])
+    err = lib.tb_evict_extract(
+        key_lo.data_ptr(), key_hi.data_ptr(), tomb.data_ptr(),
+        cols["timestamp"].data_ptr(), cap, threshold.data_ptr(), k,
+        scratch.data_ptr(), scratch[tiles:].data_ptr(), n.data_ptr(),
+        out_lo.data_ptr(), out_hi.data_ptr(), len(src), _ptr_array(src),
+        _ptr_array(dst), widths,
+        None if keep_t is None else keep_t.data_ptr(), _stream(key_lo))
+    _raise_on(err, "evict_extract")
+    KERNELS["evict_extract"].launches += 1
+    return n, out_lo, out_hi, dict(zip(names, dst)), keep_t

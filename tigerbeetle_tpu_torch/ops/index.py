@@ -342,8 +342,8 @@ class TransferIndex:
         # A fresh machine's empty index matches its empty table; staleness
         # comes from reset() and is cured by a wholesale rebuild on next use.
         self.stale = False
-        # Source of extra host rows to index at rebuild (the cold-tier runs,
-        # once tiering is ported).
+        # Source of extra host rows to index at rebuild (the machine supplies
+        # the cold tier's runs).
         self.extra_rows_provider = None
         # New level allocations (one per power-of-two size), as the JAX
         # index counts them.

@@ -386,8 +386,8 @@ class ScanSet:
         self.base = base
         self.device = device
         self.indexes: Dict[str, FieldIndex] = {}
-        # Supplies host rows to index at rebuild (the cold-tier runs, once
-        # tiering is ported).
+        # Supplies host rows to index at rebuild (the machine supplies the
+        # cold tier's runs).
         self.extra_rows_provider: Optional[Callable[[], Sequence]] = None
 
     def reset(self) -> None:

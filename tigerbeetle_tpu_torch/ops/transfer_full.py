@@ -33,7 +33,7 @@ launches its hand-written kernel, or raises:
 | ``_leg_balances`` (+ the apply's balance scatter) | K10 ``csrc/full_legs.cu`` |
 | ``_kernel_core``'s passes (``_first_code``, ``_group_winner``, ``_exists_*``, the ladders, chain codes, routing, history values; + the history append) | K11 ``csrc/full_pass.cu`` |
 | ``_wave_schedule`` | K12 ``csrc/full_waves.cu`` |
-| ``build_gather_ctx`` | K1 through ``hash_table.lookup`` |
+| ``build_gather_ctx`` | K1 through ``hash_table.lookup``; its cold branch K17 ``csrc/bloom.cu`` |
 | the apply's ``claim_slots`` / ``write_rows`` | K2 claim / write entries |
 
 The port's ``IdIndex`` labels each id group by its lowest lane (the JAX
@@ -50,6 +50,7 @@ import torch
 from .. import u128
 from ..u128 import U128, i64, srl, uge, ult
 from . import _cuda
+from . import cold
 from . import hash_table as ht
 from .state_machine import (
     AF_CREDITS_MUST_NOT_EXCEED_DEBITS,
@@ -78,7 +79,7 @@ FLAG_SEQ = 1  # order-dependent semantics: run the sequential path
 FLAG_GROW_ACCOUNTS = 2  # a probe hit MAX_PROBE: grow the table + retry
 FLAG_GROW_TRANSFERS = 4
 FLAG_GROW_POSTED = 8
-FLAG_COLD = 16  # an id may live in the cold tier (dark until it is ported)
+FLAG_COLD = 16  # an id/pending_id may live in the cold spill: host resolves
 
 _U32MASK = 0xFFFFFFFF
 _U64MAX = -1  # the int64 holding u64 max
@@ -124,7 +125,7 @@ class GatherCtx(NamedTuple):
     pcr: AccountView
     postedT_found: torch.Tensor
     postedT_val: torch.Tensor
-    probe_grow: torch.Tensor  # int32 0-dim: FLAG_GROW_* bits
+    probe_grow: torch.Tensor  # int32 0-dim: FLAG_GROW_* / FLAG_COLD bits
     accounts_capacity: int  # the slot sentinel
 
 
@@ -500,11 +501,10 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
     or seven with post/void lanes (``has_postvoid``, a static host hint).
     Each probe's found flags and gathered columns are masked as the JAX
     package masks them (``valid``, ``postvoid``, the pending's row found);
-    its overflow covers every lane.  The cold tier is not ported: a Bloom
-    filter raises."""
-    if bloom is not None or cold_checked is not None:
-        raise NotImplementedError(
-            "the cold tier (FLAG_COLD) is not ported yet (ROADMAP A10)")
+    its overflow covers every lane.  With ``bloom`` (the cold ids' filter)
+    an id or pending id that misses the hot table, on a lane not
+    ``cold_checked``, and hits the filter ORs ``FLAG_COLD`` into the flags
+    (kernel K17 on CUDA tensors, on the card)."""
     n = batch["id_lo"].shape[0]
     dev = batch["id_lo"].device
     xfr_cols = tuple(TRANSFER_COLS)
@@ -552,6 +552,15 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
     probe_grow = torch.zeros((), dtype=torch.int32, device=dev)
     for ov, bit in overflows:
         probe_grow = probe_grow | (ov.to(torch.int32) * bit)
+    if bloom is not None:
+        # Cold-tier membership: exact exists precedence needs the cold row,
+        # so a possibly-cold lane sends the batch to the host's resolution.
+        probe_grow = cold.bloom_flag(
+            bloom, batch["id_lo"], batch["id_hi"], valid, ex_look.found,
+            batch["pending_id_lo"], batch["pending_id_hi"],
+            postvoid if has_postvoid else None,
+            p_tab_found if has_postvoid else None, cold_checked, probe_grow,
+            FLAG_COLD)
     return GatherCtx(
         ex_found=ex_look.found, e_tab=ex_look.cols, p_tab_found=p_tab_found,
         p_tab=p_tab, drT=_account_view(dr_look), crT=_account_view(cr_look),
@@ -1254,7 +1263,10 @@ def create_transfers_full_impl(
     kflags == 0: the batch was applied (in place) and ``codes`` are final.
     kflags != 0: NOTHING was applied: every table array and the history log
     are as they were; the caller grows the flagged tables and retries, or
-    re-routes the batch to the sequential path (FLAG_SEQ).  On CUDA tensors
+    re-routes the batch to the sequential path (FLAG_SEQ), or resolves its
+    cold ids and retries (FLAG_COLD: ``bloom`` is the cold ids' filter,
+    ``cold_checked`` bool[N] the lanes the host already certified).  On
+    CUDA tensors
     the claims, the commit word and every write stay on the card (K2's claim
     and write entries, K10's and K11's apply launches): the only host read
     of the commit is the caller's."""
