@@ -108,7 +108,36 @@ Phases, each printing one JSON line:
                 to the twin's; the accounts tables, lookups across the tiers
                 and 100 get_account_transfers equal; at least one merge of
                 the cold runs.  K17-K19's launch counts read from here.
-Then a ``{"kernels": [...]}`` line, and as the last line
+ 18. flagship - K20 bench_gen against its plain version on the card, byte
+                for byte (plain, two-phase and the tools' two-phase shape,
+                batch indexes where b * count + lane passes 2^32) and
+                against bench.py's numpy mirrors; then the bench twin
+                (``tigerbeetle_tpu_torch.bench.run``, what ``python -m
+                tigerbeetle_tpu_torch.bench`` calls) at bench.py's defaults
+                (``--bench-transfers``, 10,000,000) in its three shapes, each
+                printing its JSON line, the timed loops under
+                ``torch.cuda.set_sync_debug_mode("error")``; after the plain
+                shape every account's balances equal the main phase's after
+                the same batches.  K20's launches read from the plain shape;
+ 19. scrub_kernels - K21 scrub_fold against its plain version and K5, K22
+                merkle_build (heap and root-only) and K23 merkle_touch
+                (touch and gather_path) against their plain versions on the
+                card, byte for byte, on pads of 2^8, 2^15 and 2^25 slots with
+                tombstones, duplicate touches and post/void lanes whose
+                pendings are found and not found; a Merkle-armed machine's
+                forest after 20 touched flagship batches equal to a fresh
+                K22 build;
+ 20. commitments - Merkle on at scrub interval 1, paranoid (the host mirror
+                kept), through the setters, on the flagship at 10,000
+                accounts beside a Merkle-only machine and an unarmed twin:
+                roots equal a fresh K22 build every ``ROOT_CHECK_EVERY``
+                batches and at the end, 100 account and 100 transfer proofs
+                verify, one SDC flip detected and recovered (digest equal to
+                the twin's), one injected device fault recovered (codes
+                equal).  Cut to ``--commit-transfers`` (500,000) and a root
+                check every 20 batches (printed): the mirror is a Python
+                oracle.  K21-K23 timed here, and their launches read here.
+Then a ``{"kernels": [...]}`` line (K1-K23 and K2's entries), and as the last line
 ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
 """
@@ -146,28 +175,61 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
+# torch.cuda._sleep spins the card for a number of SM clock cycles; at
+# most 1.98 GHz, so a spin of ``ms * SPIN_CYCLES_PER_MS`` lasts ms or more.
+SPIN_CYCLES_PER_MS = 1_980_000
+
+
 def timed(fn, reps=20, warmup=2, setup=None) -> dict:
     """Per call of ``fn(*setup())``: ``device_ms``, the device time of all
-    that the call puts on the card (kernels, fills, copies; from
-    torch.profiler), and ``call_ms``, from CUDA events around the call, which
-    also counts the host's launch work while the card waits.  ``setup`` runs
-    outside both."""
+    that the call puts on the card (kernels, fills, copies), and
+    ``call_ms``, from CUDA events around each call, which also counts the
+    host's launch work while the card waits.  ``setup`` runs outside both.
+
+    ``device_ms`` comes from CUDA events around ``reps`` calls queued
+    behind a GPU spin: the host queues every call while the card spins, so
+    the calls run back to back and the events time the card alone.  A call
+    that waits on the card (a read-back) cannot be queued; its
+    ``device_ms`` comes from torch.profiler, which can record only part of
+    a window's kernels (more often late in a long process) and so read
+    short, and the result says so with the events it recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn(*(setup() if setup else ()))
     torch.cuda.synchronize()
-    call = 0.0
+    call = host = 0.0
     for _ in range(reps):
         args = setup() if setup else ()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         fn(*args)
         end.record()
+        host += time.perf_counter() - t0
         end.synchronize()
         call += start.elapsed_time(end)
+    # Three times the host's queuing time; a host loop of more than a tenth
+    # of a second is not a launcher's and is not spun for.
+    spin_ms = 1.0 + 3e3 * host
+    if spin_ms <= 300:
+        inputs = [setup() if setup else () for _ in range(reps)]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        for args in inputs:
+            fn(*args)
+        end.record()
+        queued = not start.query()  # the spin outlasted the queuing
+        end.synchronize()
+        if queued:
+            return {"device_ms": start.elapsed_time(end) / reps,
+                    "call_ms": call / reps,
+                    "device_ms_from": "cuda events, calls queued behind a spin"}
     # The profiler now and then hands back no device events for a short
     # window of tiny launches; such a window is taken again, longer.  If it
     # still records nothing, the device time is taken with CUDA events
@@ -181,10 +243,12 @@ def timed(fn, reps=20, warmup=2, setup=None) -> dict:
             for args in inputs:
                 fn(*args)
             torch.cuda.synchronize()
-        busy = device_us(prof)
+        calls = {}
+        busy = device_us(prof, None, calls)
         if busy > 0:
             return {"device_ms": busy / 1e3 / n, "call_ms": call / reps,
-                    "device_ms_from": "profiler"}
+                    "device_ms_from": f"profiler ({sum(calls.values())} "
+                                      f"device events recorded, {n} calls)"}
     inputs = [setup() if setup else () for _ in range(reps)]
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -198,9 +262,10 @@ def timed(fn, reps=20, warmup=2, setup=None) -> dict:
             "device_ms_from": "cuda events (the profiler recorded nothing)"}
 
 
-def device_us(prof, by_name=None) -> float:
+def device_us(prof, by_name=None, calls=None) -> float:
     """Device time in a profile: the events that ran on the card only (a
-    CPU op's device time repeats its kernels')."""
+    CPU op's device time repeats its kernels').  ``by_name`` gets each
+    event's time and ``calls`` its count."""
     from torch.autograd import DeviceType
 
     total = 0.0
@@ -209,6 +274,8 @@ def device_us(prof, by_name=None) -> float:
             total += e.self_device_time_total
             if by_name is not None:
                 by_name[e.key[:60]] = e.self_device_time_total
+            if calls is not None:
+                calls[e.key[:60]] = e.count
     return total
 
 
@@ -834,7 +901,11 @@ def phase_parity(seed: int, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_main(dev, n_transfers: int) -> dict:
+def phase_main(dev, n_transfers: int, snapshot_batches: int = 0) -> dict:
+    """The main path at full size.  With ``snapshot_batches``, the accounts
+    table's keys and balance columns are copied on the card (a device copy,
+    no host read) once that many batches have committed: the flagship
+    phase compares the bench twin's balances with them."""
     import torch
     from tigerbeetle_tpu_torch import types
     from tigerbeetle_tpu_torch.config import LedgerConfig
@@ -871,6 +942,7 @@ def phase_main(dev, n_transfers: int) -> dict:
         window = range(0)
     commit_s = 0.0
     n_timed = 0
+    snapshot = None
     prof_commit_ms = 0.0
     steady_s = 0.0
     n_steady = 0
@@ -904,6 +976,11 @@ def phase_main(dev, n_transfers: int) -> dict:
             prof.__exit__(None, None, None)
         if res:
             raise AssertionError(f"main: batch {b} had failures {res[:5]}")
+        if b == snapshot_batches - 1:
+            a = m.ledger.accounts
+            snapshot = {c: a.cols[c].clone() for c in
+                        sm.BALANCE_COLS + ("timestamp",)}
+            snapshot.update(key_lo=a.key_lo.clone(), key_hi=a.key_hi.clone())
         np.add.at(debits, batch["debit_account_id_lo"].astype(np.int64),
                   batch["amount_lo"])
         np.add.at(credits, batch["credit_account_id_lo"].astype(np.int64),
@@ -961,6 +1038,7 @@ def phase_main(dev, n_transfers: int) -> dict:
         "profile": profile,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "digest": digest, "sum_amounts": total,
+        "snapshot": snapshot,
     }
 
 
@@ -3590,6 +3668,677 @@ def phase_tiered(dev, n_transfers: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: the flagship bench twin (K20), scrub and Merkle (K21-K23)
+# ---------------------------------------------------------------------------
+
+# The commitments phase's depth and root-check cadence, cut from the
+# flagship's 2,000,000 transfers and a check every 100 batches: the paranoid
+# mode's host mirror (testing/model.py, a Python oracle) costs about 0.4 s
+# a batch, and its digests about 1 us a transfer at every check.
+COMMIT_TRANSFERS = 500_000
+ROOT_CHECK_EVERY = 20
+SCRUB_SIZES_LOG2 = (8, 15, 25)  # scrub_kernels' pad sizes
+
+FLAGSHIP_PATH = ("bench_gen", "probe", "insert", "validate", "balance")
+COMMIT_PATH = ("scrub_fold", "merkle_build", "merkle_touch", "probe")
+# K20 writes fourteen u64 and five u32 columns a lane.
+GEN_BYTES_PER_LANE = 14 * 8 + 5 * 4
+# mix64 is about ten integer operations.
+MIX64_OPS = 10
+
+
+def cold_l2_ms(fn) -> float:
+    """Device ms of ``fn`` with a 128 MB fill before each call, which
+    overwrites the 50 MB L2 (a scrub or a rebuild finds the tables cold):
+    ``timed`` of fill and call, less ``timed`` of the fill alone."""
+    import torch
+
+    flush = torch.empty(1 << 24, dtype=torch.int64, device="cuda")
+    both = timed(lambda: (flush.fill_(1), fn()))["device_ms"]
+    return both - timed(lambda: flush.fill_(1))["device_ms"]
+
+
+def after_idle_ms(fn, reps: int = 10) -> dict:
+    """Device ms of ``fn`` when each call finds the card idle for 20 ms, as
+    the host leaves it between a path's batches: CUDA events around the
+    call, queued behind a 1 ms spin that covers the host's launch work
+    (5 ms where 1 did not).  ``calls``: the calls so timed."""
+    import torch
+
+    total, held = 0.0, 0
+    for _ in range(reps):
+        for spin_ms in (1.0, 5.0):
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+            start.record()
+            fn()
+            end.record()
+            queued = not start.query()
+            end.synchronize()
+            if queued:
+                total += start.elapsed_time(end)
+                held += 1
+                break
+    return {"ms": total / held if held else None, "calls": held}
+
+
+def touch_keys(batch):
+    """The keys one flagship batch touches, per pad, as the machine's
+    ``_merkle_update_transfers_batches`` gathers them (every id fits the
+    low word): the transfer ids, and the debit and credit ids deduped."""
+    sides = np.concatenate([batch["debit_account_id_lo"],
+                            batch["credit_account_id_lo"]])
+    return (("transfers", batch["id_lo"].astype(np.uint64)),
+            ("accounts", np.unique(sides.astype(np.uint64))))
+
+
+def touch_lookup(table, keys: np.ndarray):
+    """K1's probe of ``keys``, padded as ``TorchStateMachine._merkle_pad``
+    pads them (a power of two of at least 256 lanes, zero keys after)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    lanes = max(256, 1 << (len(keys) - 1).bit_length())
+    ids = torch.zeros(lanes, dtype=torch.int64, device=table.key_lo.device)
+    ids[:len(keys)] = torch.from_numpy(keys.view(np.int64)).to(ids.device)
+    return ht.lookup(table, ids, torch.zeros_like(ids), sm.MAX_PROBE)
+
+
+def touch_bound(table, lk, pad: str):
+    """(bytes, operations) that one K23 touch of the probed lanes ``lk``
+    must move and do: every lane's slot and found words read; each
+    distinct touched row read and its leaf written once; each distinct
+    ancestor (per level, the unique (C + slot) >> level) read as its two
+    children and written once."""
+    import torch
+
+    row_bytes, row_mixes = {"accounts": (16 + 72, 6),
+                            "transfers": (16 + 24, 3)}[pad]
+    lanes = lk.slot.numel()
+    nodes = torch.unique(lk.slot[lk.found]) + table.capacity
+    leaves = nodes.numel()
+    ancestors = 0
+    for _ in range(table.capacity.bit_length() - 1):
+        nodes = torch.unique(nodes >> 1)
+        ancestors += nodes.numel()
+    return (9 * lanes + (row_bytes + 8) * leaves + 24 * ancestors,
+            (row_mixes * leaves + ancestors) * MIX64_OPS)
+
+
+def balances_by_id(keys_lo, cols: dict) -> dict:
+    """{column: u64[n]} of the live slots, ordered by id (u64 numpy)."""
+    lo = to_np(keys_lo)
+    live = np.flatnonzero(lo)
+    order = live[np.argsort(lo[live], kind="stable")]
+    out = {"id": lo[order]}
+    out.update({c: to_np(v)[order] for c, v in cols.items()})
+    return out
+
+
+def phase_flagship(dev, seed: int, main_snapshot, twin_args) -> dict:
+    """K20 against its plain version on the card (byte for byte, where
+    b * count + lane passes 2^32 too) and against bench.py's numpy mirrors;
+    then the bench twin's three shapes at bench.py's defaults through
+    ``tigerbeetle_tpu_torch.bench.run`` (what ``python -m
+    tigerbeetle_tpu_torch.bench`` calls), each printing its JSON line; after
+    the plain shape every account's balances equal the main phase's after
+    the same batches."""
+    import torch
+    from tigerbeetle_tpu_torch import bench
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils import benchgen
+
+    checked = 0
+    first_tid = bench.FIRST_TID
+    with uncounted():
+        for mode in (benchgen.MODE_PLAIN, benchgen.MODE_TWO_PHASE,
+                     benchgen.MODE_TWOP):
+            for b in (0, 1, (1 << 32) // COUNT + 1, 1 << 40):
+                got = benchgen._generate(mode, b, LANES, COUNT, N_ACCOUNTS,
+                                         first_tid, None,
+                                         benchgen.empty_soa(LANES, dev))
+                want = benchgen.gen_batch_plain(mode, b, LANES, COUNT,
+                                                N_ACCOUNTS, first_tid, dev)
+                max_abs_err_card(f"bench_gen mode {mode} b {b}", got, want)
+                if mode != benchgen.MODE_TWOP:
+                    host = (benchgen.gen_batch_np if mode == benchgen.MODE_PLAIN
+                            else benchgen.gen_two_phase_np)(
+                        b, LANES, COUNT, N_ACCOUNTS, first_tid)
+                    full = np.zeros(LANES, dtype=host.dtype)
+                    full[:len(host)] = host
+                    from tigerbeetle_tpu_torch import types
+
+                    max_abs_err(f"bench_gen vs numpy mode {mode} b {b}",
+                                {k: to_np(v) for k, v in got.items()},
+                                types.to_soa(full))
+                checked += 1
+        out = benchgen.empty_soa(LANES, dev)
+        times = pair_times(
+            timed(lambda: benchgen.gen_batch(7, LANES, COUNT, N_ACCOUNTS,
+                                             first_tid, out=out)),
+            timed(lambda: benchgen.gen_batch_plain(
+                benchgen.MODE_PLAIN, 7, LANES, COUNT, N_ACCOUNTS, first_tid,
+                dev)))
+    k20 = {"max_abs_err": 0, **times,
+           "bound": bound(LANES * GEN_BYTES_PER_LANE, 0), "library_ms": None}
+
+    # The twin's timed loop relies on the sync debug mode: show that it
+    # catches a host read on this torch.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.zeros(1, device=dev).item()
+        sync_mode_catches = False
+    except RuntimeError:
+        sync_mode_catches = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not sync_mode_catches:
+        raise AssertionError("the sync debug mode let a host read through")
+
+    runs = {}
+    twin_launches = None
+    for shape in ("plain", "two_phase", "limits"):
+        argv = list(twin_args)
+        if shape != "plain":
+            argv.append("--" + shape.replace("_", "-"))
+        gc.collect()
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        payload, ledger = bench.run(bench.parse_args(argv))
+        payload["seconds"] = time.perf_counter() - t0
+        if shape == "plain":
+            twin_launches = _cuda.counts()
+            if main_snapshot is not None:
+                a = ledger.accounts
+                got = balances_by_id(a.key_lo, {c: a.cols[c] for c in
+                                                sm.BALANCE_COLS + ("timestamp",)})
+                want = balances_by_id(main_snapshot["key_lo"], {
+                    c: main_snapshot[c] for c in sm.BALANCE_COLS + ("timestamp",)})
+                max_abs_err("bench twin balances vs the main phase", got, want)
+                if len(got["id"]) != N_ACCOUNTS:
+                    raise AssertionError("bench twin lost accounts")
+                payload["balances_equal_main_after_batches"] = payload["batches"]
+        emit({"bench_twin": shape, **payload})
+        runs[shape] = payload
+        del ledger
+    missing = [k for k in FLAGSHIP_PATH if twin_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the flagship path: {missing}")
+    return {"k20": k20, "checked": checked, "runs": runs,
+            "launches": twin_launches,
+            "sync_debug_mode_catches_item": sync_mode_catches}
+
+
+def fault_domain_ledger(dev, cap: int, seed: int):
+    """Three pads of ``cap`` slots each, half full through K2 (accounts and
+    transfers with random columns; posted rows keyed by the timestamps of
+    a quarter of the transfers), then the keys of a sixteenth of each pad's
+    slots, the last inserted, tombstoned through K8.  Returns (ledger,
+    transfer ids)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.u128 import mix64
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(n, dt):
+        x = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=dev,
+                          dtype=torch.int64)
+        return x.to(dt)
+
+    n = max(1, cap // 2)
+
+    def table(specs, ids):
+        rows = {name: rnd(n, dt) for name, dt in specs.items()}
+        t = ht.make_table(cap, specs, dev)
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        ht.insert(t, ids, torch.zeros_like(ids), ones, rows, cap)
+        dead = max(1, cap // 16)  # the last keys: the touches hit live ones
+        look = ht.lookup(t, ids[-dead:], torch.zeros_like(ids[-dead:]), cap)
+        ht.remove_to_tombstone(t, look.slot, look.found)
+        return t
+
+    idx = torch.arange(1, n + 1, device=dev, dtype=torch.int64)
+    acc_ids = idx
+    tr_ids = mix64(idx, torch.full_like(idx, 77))  # a bijection: distinct
+    tr_ids = torch.where(tr_ids == 0, -1, tr_ids)
+    accounts = table(sm.ACCOUNT_COLS, acc_ids)
+    transfers = table(sm.TRANSFER_COLS, tr_ids)
+    # Posted keys: the timestamps of live transfers (found pendings).
+    live = transfers.key_lo != 0
+    ts_live = transfers.cols["timestamp"][live]
+    posted_keys = torch.unique(ts_live[ts_live != 0])[:n]
+    pk = torch.zeros(n, dtype=torch.int64, device=dev)
+    pk[:posted_keys.numel()] = posted_keys
+    rows = {"fulfillment": 1 + (rnd(n, torch.int64) & 1).to(torch.int32)}
+    posted = ht.make_table(cap, sm.POSTED_COLS, dev)
+    ht.insert(posted, pk, torch.zeros_like(pk), pk != 0, rows, cap)
+    led = sm.Ledger(accounts=accounts, transfers=transfers, posted=posted,
+                    history=sm.make_history(1 << 4, dev))
+    return led, tr_ids
+
+
+def forest_tensors(f) -> dict:
+    return {name: f.pad(name) for name in ("accounts", "transfers", "posted")}
+
+
+def phase_scrub_kernels(seed: int, dev) -> dict:
+    """K21 against its plain version and K5; K22 (heap and root-only) and
+    K23 (touch and gather_path) against their plain versions on the card,
+    byte for byte, on pads of 2^8, 2^15 and 2^25 slots with tombstones,
+    duplicate touches and post/void lanes whose pendings are found and not
+    found; then a merkle-armed machine's forest after 20 touched flagship
+    batches against a fresh K22 build."""
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import merkle as mk
+    from tigerbeetle_tpu_torch.ops import scrub
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    checked = []
+    with uncounted():
+        for log2 in SCRUB_SIZES_LOG2:
+            cap = 1 << log2
+            gc.collect()
+            led, tr_ids = fault_domain_ledger(dev, cap, seed + log2)
+            got = scrub.scrub_digest(led)
+            want = scrub.scrub_digest_plain(led)
+            max_abs_err_card(f"scrub_fold 2^{log2}", {"d": got}, {"d": want})
+            if int(got[0]) != int(sm.ledger_digest(led)):
+                raise AssertionError("scrub_fold accounts fold != K5 digest")
+            forest = mk.build_forest(led)
+            plain = mk.build_forest_impl(led)
+            max_abs_err_card(f"merkle_build heap 2^{log2}",
+                             forest_tensors(forest), forest_tensors(plain))
+            del plain
+            max_abs_err_card(f"merkle_build roots 2^{log2}",
+                             {"v": mk.verify_roots(forest, led)},
+                             {"v": mk.verify_roots_impl(forest, led)})
+            # Touches from stale (zeroed) heaps: duplicates, misses, and
+            # pendings found (live transfer ids) and not found.
+            n_t = min(8192, cap // 4)
+            # Live keys, duplicates, zero padding and tombstoned keys.
+            ids = torch.cat([tr_ids[:n_t], tr_ids[:n_t // 4],
+                             torch.zeros(16, dtype=torch.int64, device=dev),
+                             tr_ids[-4:]])
+            acc = torch.arange(1, n_t + 1, dtype=torch.int64, device=dev)
+            n_acc = max(1, cap // 2)
+            acc = torch.cat([acc, acc[: n_t // 3],
+                             torch.arange(n_acc - 3, n_acc + 1, device=dev)])
+            pend = torch.cat([tr_ids[: n_t // 2],
+                              tr_ids[: n_t // 8] + 2])  # +2: never an id
+            z = torch.zeros_like
+            stale_k = mk.Forest(**{k: v.clone() for k, v in
+                                   forest_tensors(forest).items()})
+            stale_p = mk.Forest(**{k: v.clone() for k, v in
+                                   forest_tensors(forest).items()})
+            for f in (stale_k, stale_p):
+                for name in mk.PADS:
+                    f.pad(name)[1:].zero_()  # rewritten paths only
+            got_f = mk.update_transfers(stale_k, led, ids, z(ids), acc, z(acc),
+                                        pend, z(pend), max_probe=sm.MAX_PROBE,
+                                        has_postvoid=True)
+            look = {}
+            # The plain touch from the same probes (K1 serves both).
+            from tigerbeetle_tpu_torch.ops import hash_table as ht
+
+            p = ht.lookup(led.transfers, pend, z(pend), sm.MAX_PROBE,
+                          cols=mk._PENDING_COLS).cols
+            for name, k_lo, k_hi in (
+                    ("transfers", ids, z(ids)),
+                    ("posted", p["timestamp"], z(pend)),
+                    ("accounts",
+                     torch.cat([acc, p["debit_account_id_lo"],
+                                p["credit_account_id_lo"]]),
+                     torch.cat([z(acc), p["debit_account_id_hi"],
+                                p["credit_account_id_hi"]]))):
+                t = getattr(led, name)
+                lk = ht.lookup(t, k_lo, k_hi, sm.MAX_PROBE)
+                mk.touch_tree_plain(stale_p.pad(name), t, lk.slot, lk.found,
+                                    name)
+                look[name] = int(lk.found.sum())
+            max_abs_err_card(f"merkle_touch 2^{log2}", forest_tensors(got_f),
+                             forest_tensors(stale_p))
+            del stale_k, stale_p, got_f
+            for name in mk.PADS:
+                levels = cap.bit_length() - 1
+                for slot in (0, 1, cap // 3, cap - 1):
+                    g = mk.gather_path(forest.pad(name), slot, levels)
+                    w = (forest.pad(name)[cap + slot],
+                         forest.pad(name)[[((cap + slot) >> lv) ^ 1
+                                           for lv in range(levels)]]
+                         if levels else forest.pad(name)[:0],
+                         forest.pad(name)[1])
+                    max_abs_err_card(f"gather_path {name} 2^{log2}",
+                                     {"l": g[0].reshape(1), "s": g[1],
+                                      "r": g[2].reshape(1)},
+                                     {"l": w[0].reshape(1), "s": w[1],
+                                      "r": w[2].reshape(1)})
+            checked.append({"slots": cap, "touched_found": look})
+            del led, forest
+
+    # 20 flagship batches on a merkle-armed machine (no scrub due), each
+    # touched by K23: the maintained heaps equal a fresh K22 build.
+    gc.collect()
+    # Tables sized so that no growth (a full rebuild) falls in the 20.
+    m = TorchStateMachine(LedgerConfig(lazy_index=True,
+                                       transfers_capacity_log2=20),
+                          batch_lanes=LANES, device=dev)
+    m.scrub_interval = 1 << 30
+    m.merkle_enabled = True
+    m.scrub_paranoid = False
+    for start in range(0, N_ACCOUNTS, COUNT):
+        ids = range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)
+        m.create_accounts(types.accounts_array(
+            [types.account(id=i, ledger=1, code=10) for i in ids]))
+    if not m.scrub_arm():
+        raise AssertionError("scrub_kernels: the machine did not arm")
+    updates0 = m.merkle_updates
+    for b in range(20):
+        if m.create_transfers(gen_batch_np(b, LANES, COUNT, N_ACCOUNTS,
+                                           1 << 32)):
+            raise AssertionError("scrub_kernels: a flagship batch failed")
+    if m.merkle_updates - updates0 != 20 or m._merkle_dirty:
+        raise AssertionError("scrub_kernels: batches were not touched by K23")
+    with uncounted():
+        fresh = mk.build_forest(m.ledger)
+        err = max_abs_err_card("20 touched batches vs a fresh build",
+                               forest_tensors(m._merkle_forest),
+                               forest_tensors(fresh))
+    return {"checked": checked, "touched_vs_fresh_max_abs_err": err,
+            "touched_batches": 20}
+
+
+def commitments_machine(dev, interval: int, paranoid: bool):
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    m = TorchStateMachine(LedgerConfig(lazy_index=True), batch_lanes=LANES,
+                          device=dev)
+    m.retry_tick_s = 0
+    if interval:
+        m.scrub_interval = interval
+        m.merkle_enabled = True
+        m.scrub_paranoid = paranoid
+        if not m.scrub_arm():
+            raise AssertionError("commitments: the machine did not arm")
+    for start in range(0, N_ACCOUNTS, COUNT):
+        ids = range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)
+        if m.create_accounts(types.accounts_array(
+                [types.account(id=i, ledger=1, code=10) for i in ids])):
+            raise AssertionError("commitments: account creation failed")
+    return m
+
+
+def phase_commitments(dev, n_transfers: int, seed: int) -> dict:
+    """Merkle on at scrub interval 1, set through the setters, paranoid (the
+    host mirror kept), on the flagship workload at 10,000 accounts, beside
+    a Merkle-only machine (interval 1, no mirror) and an unarmed twin, all
+    fed the same batches.  Roots equal a fresh K22 rebuild every
+    ``ROOT_CHECK_EVERY`` batches and at the end; 100 account and 100
+    transfer proofs verify against the roots; one SDC flip is caught by
+    the next check and recovered (the digest then equals the twin's); one
+    injected device fault is retried (the codes equal the twin's).  Rates
+    of the three, the device time of K21-K23 a batch, and K21-K23 timed
+    against their plain versions at this ledger's shapes."""
+    import random
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import merkle as mk
+    from tigerbeetle_tpu_torch.ops import scrub
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    gc.collect()
+    twin = commitments_machine(dev, 0, False)
+    lean = commitments_machine(dev, 1, False)
+    _cuda.reset_counts()
+    m = commitments_machine(dev, 1, True)
+    n_batches = (n_transfers + COUNT - 1) // COUNT
+    sdc_at, fault_at = n_batches // 3, (2 * n_batches) // 3
+    window = range(max(0, n_batches - 6), n_batches - 1)
+    wall = {"paranoid": 0.0, "merkle_only": 0.0, "unarmed": 0.0}
+    n_rate = 0
+    root_checks = 0
+    events = {}
+    by_name = {}
+    calls = {}
+    for b in range(n_batches):
+        batch = gen_batch_np(b, LANES, COUNT, N_ACCOUNTS, 1 << 32)
+        special = b in (sdc_at, fault_at) or b in window
+        if b == sdc_at:
+            if not m.inject_sdc_bitflip(random.Random(seed)):
+                raise AssertionError("commitments: no account to flip")
+        if b == fault_at:
+            m.inject_device_faults(1)
+        res = {}
+        for name, mach in (("unarmed", twin), ("merkle_only", lean),
+                           ("paranoid", m)):
+            profiled = name == "paranoid" and b in window
+            if profiled:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            res[name] = mach.create_transfers(batch)
+            dt = time.perf_counter() - t0
+            if profiled:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                one, n_one = {}, {}
+                device_us(prof, one, n_one)
+                for k, v in one.items():
+                    by_name[k] = by_name.get(k, 0.0) + v
+                    calls[k] = calls.get(k, 0) + n_one[k]
+            if not special:
+                wall[name] += dt
+        if not special:
+            n_rate += COUNT
+        if res["unarmed"] or res["merkle_only"] != res["unarmed"] \
+                or res["paranoid"] != res["unarmed"]:
+            raise AssertionError(f"commitments: codes differ at batch {b}")
+        if b == sdc_at:
+            events["sdc"] = {"batch": b, "scrub_mismatches": m.scrub_mismatches,
+                             "device_recoveries": m.device_recoveries,
+                             "digest_equals_twin": m.digest() == twin.digest()}
+            if m.scrub_mismatches != 1 or m.device_recoveries != 1 \
+                    or m.digest() != twin.digest():
+                raise AssertionError(f"commitments: SDC not recovered {events}")
+        if b == fault_at:
+            # At interval 1 a check runs ahead of every commit, so the fault
+            # lands on the check's read-back; either funnel recovers.
+            events["fault"] = {"batch": b,
+                               "device_recoveries": m.device_recoveries,
+                               "caught_by": "scrub check"
+                               if m.scrub_mismatches == 2 else "commit retry"}
+            if m.device_recoveries != 2:
+                raise AssertionError("commitments: the fault was not retried")
+        if (b + 1) % ROOT_CHECK_EVERY == 0 or b == n_batches - 1:
+            for mach in (m, lean):
+                want = tuple(int(r) & ((1 << 64) - 1) for r in to_np(
+                    mk.forest_roots(mk.build_forest(mach.ledger))))
+                if mach.merkle_roots() != want:
+                    raise AssertionError(f"commitments: roots != rebuild at {b}")
+            root_checks += 1
+    launches = _cuda.counts()
+
+    def path_launch(prefix):
+        """The window's device ms per recorded launch of ``prefix...``."""
+        names = [k for k in by_name if k.startswith(prefix)]
+        n = sum(calls[k] for k in names)
+        return {"ms": sum(by_name[k] for k in names) / 1e3 / n if n else None,
+                "launches_recorded": n}
+
+    if m.digest() != twin.digest() or lean.digest() != twin.digest():
+        raise AssertionError("commitments: final digests differ")
+    canon = m.merkle_canonical_roots()
+    if canon != m.merkle_roots():
+        raise AssertionError("commitments: canonical roots != maintained")
+    # Proofs: 100 accounts and 100 transfers.
+    rng = np.random.default_rng(seed)
+    roots = m.merkle_roots()
+    acc_root = m.commitment_root()
+    for ident in rng.integers(1, N_ACCOUNTS + 1, 100):
+        p = mk.check_proof(m.get_proof(int(ident)))
+        if p["root"] != acc_root or int(p["row"]["id_lo"]) != int(ident):
+            raise AssertionError("commitments: account proof root")
+    for gid in rng.integers(0, n_batches * COUNT, 100):
+        b, lane = divmod(int(gid), COUNT)
+        ident = (1 << 32) + b * COUNT + lane
+        p = mk.check_proof(m.get_proof(ident, kind="transfers"))
+        if p["root"] != roots[1]:
+            raise AssertionError("commitments: transfer proof root")
+
+    # K21-K23 against their plain versions at this ledger's shapes.
+    led = m.ledger
+    caps = {n: getattr(led, n).capacity for n in mk.PADS}
+    lives = {n: int(getattr(led, n).count) for n in mk.PADS}
+    key_bytes = sum(16 * c for c in caps.values())
+    col_bytes = 72 * lives["accounts"] + 24 * lives["transfers"] + 4 * lives["posted"]
+    mixes = 6 * lives["accounts"] + 3 * lives["transfers"] + 2 * lives["posted"]
+    results = {}
+    with uncounted():
+        got = scrub.scrub_digest(led)
+        err21 = max_abs_err_card("scrub_fold (commitments)", {"d": got},
+                                 {"d": scrub.scrub_digest_plain(led)})
+        results["scrub_fold"] = {
+            "max_abs_err": err21, **pair_times(
+                timed(lambda: scrub.scrub_digest(led)),
+                timed(lambda: scrub.scrub_digest_plain(led), reps=5)),
+            "bound": bound(key_bytes + col_bytes, mixes * MIX64_OPS),
+            "library_ms": None}
+        results["scrub_fold"]["ms_warm_l2"] = results["scrub_fold"]["ms"]
+        results["scrub_fold"]["ms"] = cold_l2_ms(
+            lambda: scrub.scrub_digest(led))
+        fresh = mk.build_forest(led)
+        err22 = max_abs_err_card("merkle_build (commitments)",
+                                 forest_tensors(fresh),
+                                 forest_tensors(mk.build_forest_impl(led)))
+        nodes = sum(caps.values())
+        results["merkle_build"] = {
+            "max_abs_err": err22, **pair_times(
+                timed(lambda: mk.build_forest(led), reps=5),
+                timed(lambda: mk.build_forest_impl(led), reps=3)),
+            "bound": bound(key_bytes + col_bytes + 16 * nodes,
+                           (mixes + nodes) * MIX64_OPS),
+            "library_ms": None,
+            "verify": pair_times(
+                timed(lambda: mk.verify_roots(fresh, led), reps=5),
+                timed(lambda: mk.verify_roots_impl(fresh, led), reps=3))}
+        results["merkle_build"]["ms_warm_l2"] = results["merkle_build"]["ms"]
+        results["merkle_build"]["ms"] = cold_l2_ms(
+            lambda: mk.build_forest(led))
+        results["merkle_build"]["verify"]["ms_cold_l2"] = cold_l2_ms(
+            lambda: mk.verify_roots(fresh, led))
+        # K23 on the last batch's two touches, as the machine pads them:
+        # its transfer ids and its deduped account sides.
+        last = gen_batch_np(n_batches - 1, LANES, COUNT, N_ACCOUNTS, 1 << 32)
+        touches = []
+        err23 = 0
+        for pad, keys in touch_keys(last):
+            table = getattr(led, pad)
+            lk = touch_lookup(table, keys)
+            heap_k = getattr(fresh, pad).clone()
+            heap_p = getattr(fresh, pad).clone()
+            _cuda.merkle_touch(pad, table.key_lo, table.key_hi, table.cols,
+                               heap_k, lk.slot, lk.found)
+            mk.touch_tree_plain(heap_p, table, lk.slot, lk.found, pad)
+            err23 = max(err23, max_abs_err_card(
+                f"merkle_touch {pad} (commitments)", {"h": heap_k},
+                {"h": heap_p}))
+            touches.append((pad, table, heap_k, heap_p, lk))
+
+        def touch_kernel(pads=("transfers", "accounts")):
+            for pad, table, heap_k, _hp, lk in touches:
+                if pad in pads:
+                    _cuda.merkle_touch(pad, table.key_lo, table.key_hi,
+                                       table.cols, heap_k, lk.slot, lk.found)
+
+        def touch_plain():
+            for pad, table, _hk, heap_p, lk in touches:
+                mk.touch_tree_plain(heap_p, table, lk.slot, lk.found, pad)
+
+        alone = pair_times(timed(touch_kernel), timed(touch_plain, reps=5))
+        # The path's own launches: the profiled window's K23 device time
+        # per launch, against the bound of the same touches.
+        path = path_launch("merkle_touch")
+        need = np.zeros(2)
+        for b in window:
+            for pad, keys in touch_keys(
+                    gen_batch_np(b, LANES, COUNT, N_ACCOUNTS, 1 << 32)):
+                table = getattr(led, pad)
+                need += touch_bound(table, touch_lookup(table, keys), pad)
+        need /= 2 * len(window)
+
+        def t_only():
+            touch_kernel(("transfers",))
+
+        results["merkle_touch"] = {
+            "max_abs_err": err23,
+            "ms": path["ms"] if path["ms"] else alone["ms"] / 2,
+            "ms_from": f"profiler, per launch in the commitments path "
+                       f"({path['launches_recorded']} launches recorded in "
+                       f"{len(window)} batches of 2)" if path["ms"] else
+                       "the last batch's two touches alone (no launch of "
+                       "the path was recorded)",
+            "plain_ms": alone["plain_ms"] / 2,
+            "plain_ms_from": alone["plain_ms_from"] + ", per touch of the "
+                             "last batch's two",
+            "bound": bound(*need), "library_ms": None,
+            "ms_alone": alone["ms"] / 2, "ms_alone_from": alone["ms_from"],
+            "call_ms_alone": alone["call_ms"] / 2,
+            "lanes": {pad: int(lk.slot.numel())
+                      for pad, _t, _hk, _hp, lk in touches},
+            "found": {pad: int(lk.found.sum())
+                      for pad, _t, _hk, _hp, lk in touches},
+            "transfers_touch_ms": {
+                "back_to_back": timed(t_only)["device_ms"],
+                "after_128mb_fill": cold_l2_ms(t_only),
+                "after_20ms_idle": after_idle_ms(t_only)},
+            "transfers_touch_bound": bound(*touch_bound(
+                touches[0][1], touches[0][4], "transfers"))}
+    for name in ("scrub_fold", "merkle_build"):
+        results[name]["ms_from"] = \
+            "each call after a 128 MB fill (cold_l2_ms)"
+    results["merkle_build"]["ms_per"] = \
+        "forest: three pads, one wrapper call each"
+    return {
+        "accounts": N_ACCOUNTS, "transfers": n_batches * COUNT,
+        "batches": n_batches, "scrub_interval": 1, "paranoid": True,
+        "root_checks": root_checks, "root_check_every": ROOT_CHECK_EVERY,
+        "proofs_checked": {"accounts": 100, "transfers": 100},
+        "events": events, "roots": roots, "commitment_root": acc_root,
+        "transfers_per_s": {k: n_rate / v for k, v in wall.items()},
+        "armed_vs_unarmed": wall["unarmed"] / wall["paranoid"],
+        "merkle_only_vs_unarmed": wall["unarmed"] / wall["merkle_only"],
+        "device_ms_per_launch": {
+            "scrub_fold": path_launch("scrub_fold"),
+            "merkle_build": path_launch("merkle_level"),
+            "merkle_touch": path_launch("merkle_touch"),
+            "window_batches": len(window),
+            "from": "profiler: the mean of the launches it recorded"},
+        "counters": {"scrub_checks": m.scrub_checks,
+                     "merkle_updates": m.merkle_updates,
+                     "merkle_rebuilds": m.merkle_rebuilds},
+        "launches": launches, "kernels": results,
+    }
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3606,6 +4355,9 @@ def main() -> int:
     # transfers cut to 24,000,000 (about ten evictions of the 2^23 hot
     # window, a merge of the cold runs among them) to fit the run's time.
     p.add_argument("--tier-transfers", type=int, default=24_000_000)
+    # The bench twin's depth: bench.py's 10,000,000 transfers.
+    p.add_argument("--bench-transfers", type=int, default=10_000_000)
+    p.add_argument("--commit-transfers", type=int, default=COMMIT_TRANSFERS)
     args = p.parse_args()
 
     import torch
@@ -3636,9 +4388,16 @@ def main() -> int:
     parity = phase_parity(args.seed, dev)
     emit({"phase": "parity", "seconds": time.perf_counter() - t0, **parity})
 
+    from tigerbeetle_tpu_torch import bench
+
+    twin_plan = bench.plan(args.bench_transfers, COUNT)
+    twin_batches = twin_plan[1] + twin_plan[2]
+    if (args.transfers + COUNT - 1) // COUNT < twin_batches:
+        twin_batches = 0  # main runs fewer batches: nothing to compare
     _cuda.reset_counts()
-    main_run = phase_main(dev, args.transfers)
+    main_run = phase_main(dev, args.transfers, twin_batches)
     launches = _cuda.counts()
+    main_snapshot = main_run.pop("snapshot")
     emit({"phase": "main", "launches": launches, **main_run})
     missing = [k for k in MAIN_PATH if launches[k] == 0]
     if missing:
@@ -3727,6 +4486,43 @@ def main() -> int:
     emit({"phase": "tiered", "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi, **trun})
 
+    t0 = time.perf_counter()
+    flag = phase_flagship(dev, args.seed, main_snapshot,
+                          ["--transfers", str(args.bench_transfers)])
+    del main_snapshot
+    emit({"phase": "flagship", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "bench_gen_checked": flag["checked"],
+          "sync_debug_mode_catches_item": flag["sync_debug_mode_catches_item"],
+          "launches": flag["launches"],
+          "twin_batches_compared_with_main": twin_batches,
+          "k20": {k: v for k, v in flag["k20"].items() if k != "bound"},
+          "rates": {k: v["value"] for k, v in flag["runs"].items()},
+          "device_idle_share": {k: v["device_idle_share"]
+                                for k, v in flag["runs"].items()}})
+    kern["bench_gen"] = flag["k20"]
+
+    t0 = time.perf_counter()
+    sk = phase_scrub_kernels(args.seed, dev)
+    emit({"phase": "scrub_kernels", "seconds": time.perf_counter() - t0, **sk})
+
+    t0 = time.perf_counter()
+    com = phase_commitments(dev, args.commit_transfers, args.seed)
+    emit({"phase": "commitments", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi,
+          "cut": {"transfers": [2_000_000, args.commit_transfers],
+                  "root_check_every_batches": [100, ROOT_CHECK_EVERY],
+                  "why": "the paranoid mode's host mirror costs ~0.4 s a "
+                         "batch and ~1 us a transfer at every check"},
+          **{k: v for k, v in com.items() if k != "kernels"},
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in com["kernels"].items()},
+          "bounds_ms": {k: v["bound"] for k, v in com["kernels"].items()}})
+    kern.update(com["kernels"])
+    missing = [k for k in COMMIT_PATH if com["launches"][k] == 0]
+    if missing:
+        raise AssertionError(
+            f"kernels not launched on the commitments path: {missing}")
+
     # max_abs_err: index_kernels' cases and the queries phase's full-size
     # comparisons (the deepest carried level, the rebuilt level, K15 over
     # the whole pyramid, K16 over the whole log).
@@ -3749,6 +4545,9 @@ def main() -> int:
                   for name in INDEX_PATH if name != "probe"})
     paths.update({name: ("tiered", trun["launches"]) for name in
                   ("bloom_check", "evict_threshold", "evict_extract")})
+    paths["bench_gen"] = ("flagship (bench twin, plain)", flag["launches"])
+    paths.update({name: ("commitments", com["launches"]) for name in
+                  ("scrub_fold", "merkle_build", "merkle_touch")})
     rows = []
     for name, k in _cuda.KERNELS.items():
         r = kern[name]

@@ -724,7 +724,10 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
         for p in (root / "tigerbeetle_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
     assert {"tigerbeetle_tpu_torch.ops.index", "tigerbeetle_tpu_torch.ops.query",
-            "tigerbeetle_tpu_torch.ops.scan_builder"} <= set(mods)
+            "tigerbeetle_tpu_torch.ops.scan_builder",
+            "tigerbeetle_tpu_torch.ops.scrub", "tigerbeetle_tpu_torch.ops.merkle",
+            "tigerbeetle_tpu_torch.bench",
+            "tigerbeetle_tpu_torch.vsr.timeout"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -735,3 +738,163 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# -- K20-K23: the bench generator, scrub and Merkle commitments ----------------------
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bench_gen_matches_plain(cuda_device, mode):
+    """K20 writes every column of its SoA as its plain version computes it,
+    byte for byte, where b * count + lane passes 2^32 too."""
+    from tigerbeetle_tpu_torch.utils import benchgen
+
+    for b in (0, 1, (1 << 32) // 8190 + 1):
+        for n in (2, 10_000):
+            out = benchgen.empty_soa(8192, cuda_device)
+            for c in out.values():
+                c.fill_(-1)  # K20 must overwrite every lane
+            benchgen._generate(mode, b, 8192, 8190, n, 1 << 32, None, out)
+            want = benchgen.gen_batch_plain(mode, b, 8192, 8190, n, 1 << 32,
+                                            "cpu")
+            for k in want:
+                assert torch.equal(out[k].cpu(), want[k]), (mode, b, n, k)
+
+
+def fault_domain_machine(dev, lanes=64):
+    """A machine holding pendings, posts, voids, linked rollbacks and
+    tombstones (the general kernel and the sequential path)."""
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    cfg = LedgerConfig(accounts_capacity_log2=8, transfers_capacity_log2=10,
+                       posted_capacity_log2=8)
+    m = TorchStateMachine(cfg, batch_lanes=lanes, device=dev)
+    rng = np.random.default_rng(21)
+    assert m.create_accounts(_accounts(np.random.default_rng(1), 40, 1)[:40], 1) \
+        is not None
+    for i in range(6):
+        m.create_transfers(_transfers(rng, lanes, 10_000 * (i + 1), 40))
+    post = np.zeros(20, dtype=types.TRANSFER_DTYPE)
+    post["id_lo"] = 900_000 + np.arange(20)
+    post["pending_id_lo"] = 10_000 + np.arange(20)
+    post["flags"] = np.where(np.arange(20) % 2, 8, 4)
+    m.create_transfers(post)
+    return m
+
+
+def ledger_on(led, dev):
+    return convert.ledger_from_numpy(convert.ledger_to_numpy(led), dev)
+
+
+def test_scrub_fold_matches_plain_and_digest(cuda_device):
+    from tigerbeetle_tpu_torch.ops import scrub
+
+    m = fault_domain_machine(cuda_device)
+    got = scrub.scrub_digest(m.ledger).cpu()
+    want = scrub.scrub_digest_plain(ledger_on(m.ledger, "cpu"))
+    assert torch.equal(got, want)
+    assert int(got[2]) != 0 and int(got[0]) == int(sm.ledger_digest(m.ledger))
+
+
+def test_merkle_build_touch_and_path_match_plain(cuda_device):
+    from tigerbeetle_tpu_torch.ops import merkle as mk
+
+    m = fault_domain_machine(cuda_device)
+    cpu = ledger_on(m.ledger, "cpu")
+    forest = mk.build_forest(m.ledger)
+    plain = mk.build_forest_impl(cpu)
+    for name in mk.PADS:
+        assert torch.equal(forest.pad(name).cpu(), plain.pad(name)), name
+    assert torch.equal(mk.verify_roots(forest, m.ledger).cpu(),
+                       mk.verify_roots_impl(plain, cpu))
+    stale = mk.Forest(**{n: torch.zeros_like(forest.pad(n)) for n in mk.PADS})
+    stale_cpu = mk.Forest(**{n: torch.zeros_like(plain.pad(n))
+                             for n in mk.PADS})
+    keys = torch.arange(1, 300, dtype=torch.int64)
+    keys[::7] = 0
+    dup = torch.cat([keys, keys[:50]])  # duplicate touches
+    pend = torch.arange(10_000, 10_030, dtype=torch.int64)  # some not found
+    z = torch.zeros_like
+    args_cpu = (dup, z(dup), dup % 40, z(dup), pend, z(pend))
+    got = mk.update_transfers(stale, m.ledger,
+                              *(a.to(cuda_device) for a in args_cpu),
+                              max_probe=sm.MAX_PROBE, has_postvoid=True)
+    want = mk.update_transfers(stale_cpu, cpu, *args_cpu,
+                               max_probe=sm.MAX_PROBE, has_postvoid=True)
+    for name in mk.PADS:
+        assert torch.equal(got.pad(name).cpu(), want.pad(name)), name
+    for name in mk.PADS:
+        cap = getattr(cpu, name).capacity
+        levels = cap.bit_length() - 1
+        for slot in (0, 1, cap - 1):
+            g = mk.gather_path(forest.pad(name), slot, levels)
+            w = mk.gather_path(plain.pad(name), slot, levels)
+            for a, b in zip(g, w):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_bad_launch_raises_cuda_kernel_error(cuda_device):
+    """A launch the kernel's entry point refuses (a slot past the heap)
+    raises CudaKernelError, which the fault domain treats as a device
+    fault."""
+    heap = torch.zeros(2 * 1024, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(_cuda.CudaKernelError):
+        _cuda.merkle_path(heap, 5000, 10)
+
+
+def _function_sources(path: Path):
+    import ast
+
+    text = path.read_text()
+    tree = ast.parse(text)
+    return {node.name: ast.get_source_segment(text, node)
+            for node in tree.body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+
+
+# The numpy twins the port keeps line for line with its sources.
+_TWINS = {
+    "ops/scrub.py": (
+        "mix64_np", "_limbs", "_wrap_sum", "mirror_digests", "_join",
+        "_grown", "_pad_pow2", "_account_arrays", "_transfer_arrays",
+        "_posted_arrays", "_history_arrays", "model_from_ledger",
+        "SimulatedDeviceFault", "DeviceStateUnrecoverable"),
+    "ops/merkle.py": (
+        "_np_row_accounts", "_np_row_transfers", "_np_row_posted",
+        "np_leaves", "np_tree", "np_root", "np_table_leaves",
+        "np_ledger_roots", "np_account_leaf", "np_transfer_leaf",
+        "np_posted_leaf", "canonical_proof_row", "proof_row_dtype",
+        "ProofError", "encode_proof", "check_proof", "_np_combine",
+        "coalesce_touch_records"),
+}
+
+
+@pytest.mark.parametrize("path,name", [(p, n) for p, names in _TWINS.items()
+                                       for n in names])
+def test_numpy_twin_equals_its_source(path, name):
+    """Read from the sources (no import of the JAX package): the code of
+    each twin equals the reference's, apart from comments, import lines
+    and, in model_from_ledger, the one line that reads the port's
+    tensors."""
+    import io
+    import tokenize
+
+    root = Path(__file__).resolve().parents[1]
+
+    def body(src):
+        # The code, line for line: comments dropped, then import lines.
+        toks = [t for t in tokenize.generate_tokens(io.StringIO(src).readline)
+                if t.type != tokenize.COMMENT]
+        return [line.rstrip() for line in tokenize.untokenize(toks).splitlines()
+                if not line.lstrip().startswith(("import ", "from "))
+                and line.strip() != "ledger = _np_ledger(ledger)"]
+
+    got = _function_sources(root / "tigerbeetle_tpu_torch" / path)[name]
+    want = _function_sources(root / "tigerbeetle_tpu" / path)[name]
+    if name in ("SimulatedDeviceFault", "DeviceStateUnrecoverable"):
+        # The exception classes keep their names and bases; their
+        # docstrings name the port's device errors.
+        assert got.splitlines()[0] == want.splitlines()[0]
+        return
+    assert body(got) == body(want)

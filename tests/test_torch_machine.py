@@ -404,6 +404,55 @@ def test_unported_entry_points_raise(name):
         getattr(t, name)()
 
 
+@pytest.mark.parametrize(
+    "name", sorted(n for n in dir(TpuStateMachine) if not n.startswith("_")))
+def test_every_public_reference_name_resolves_on_the_port(name):
+    """Each public name of TpuStateMachine (read from the class) is on
+    TorchStateMachine: ported, or raising NotImplementedError that names
+    its ROADMAP slice, on read and, for a property, on write."""
+    assert hasattr(TorchStateMachine, name), name
+    if name not in tmachine._UNPORTED:
+        return
+    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        getattr(t, name)()
+    if name in tmachine._UNPORTED_PROPERTIES:
+        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+            setattr(t, name, 1)
+
+
+def test_tb_shards_env_raises_naming_a11(monkeypatch):
+    """TB_SHARDS asks for sharding when shards is not given, as in the
+    reference; the port has none yet and says so."""
+    monkeypatch.setenv("TB_SHARDS", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        TorchStateMachine(batch_lanes=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        TorchStateMachine(batch_lanes=64, device="cpu", shards=4)
+    monkeypatch.setenv("TB_SHARDS", "0")
+    TorchStateMachine(batch_lanes=64, device="cpu")
+    TorchStateMachine(batch_lanes=64, device="cpu", shards=0)
+
+
+def test_kernel_failures_raise_cuda_kernel_error(monkeypatch):
+    """A nonzero error from a kernel's C entry point raises CudaKernelError,
+    a RuntimeError that the fault domain counts as a device fault."""
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import scrub as tscrub
+
+    class FakeLib:
+        @staticmethod
+        def tb_error_string(err):
+            return b"an illegal memory access was encountered"
+
+    monkeypatch.setattr(_cuda, "library", lambda: FakeLib)
+    with pytest.raises(_cuda.CudaKernelError, match="probe failed: error 700"):
+        _cuda._raise_on(700, "probe")
+    _cuda._raise_on(0, "probe")
+    assert issubclass(_cuda.CudaKernelError, RuntimeError)
+    assert _cuda.CudaKernelError in tscrub.DEVICE_FAULT_TYPES
+
+
 def test_default_device_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -491,7 +540,7 @@ def test_package_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("path", ["types.py", "config.py", "obs/metrics.py",
                                   "testing/model.py", "utils/fs.py",
-                                  "vsr/checksum.py"])
+                                  "vsr/checksum.py", "vsr/timeout.py"])
 def test_copied_module_equals_its_source_apart_from_imports(path):
     def body(p):
         return [line for line in (ROOT / p).read_text().splitlines()

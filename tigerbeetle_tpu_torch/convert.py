@@ -175,6 +175,25 @@ def soa_to_tensors(soa: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor
     return {name: out[name] for name in soa}
 
 
+# -- the Merkle forest -----------------------------------------------------------
+
+
+def forest_from_numpy(heaps: Dict[str, Any], device):
+    """A port ``merkle.Forest`` on ``device`` from the three heaps (u64
+    numpy arrays, as ``np.asarray`` reads a JAX ``Forest``'s fields)."""
+    from .ops import merkle
+
+    return merkle.Forest(**{name: array_to_tensor(np.asarray(heaps[name]),
+                                                  device)
+                            for name in TABLES})
+
+
+def forest_to_numpy(forest: Any) -> Dict[str, np.ndarray]:
+    """The three heaps of a port ``Forest`` as u64 numpy arrays (the
+    inverse of ``forest_from_numpy``, byte for byte)."""
+    return {name: tensor_to_array(getattr(forest, name)) for name in TABLES}
+
+
 # -- the cold tier's Bloom filter ---------------------------------------------
 
 

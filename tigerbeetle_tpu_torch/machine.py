@@ -28,6 +28,17 @@ card), evicts between batches once the hot table's bound passes half its
 ceiling (K18, K19 and K2's claim and write entries), and merges cold rows
 into lookups and query answers on the host.
 
+The device fault domain (``ops/scrub.py``, ``ops/merkle.py``; off by
+default, ``TB_SCRUB_INTERVAL``, ``TB_MERKLE``, ``TB_SCRUB_PARANOID`` and
+``TB_MERKLE_ASYNC`` or the setters): once ``scrub_arm`` ran, every blocking
+commit goes through ``_guarded_commit``, which checks the at-rest state
+before the commit when a scrub is due (the mirror's digests against K21's
+folds, and/or the maintained Merkle roots against K22's recomputed ones),
+retries a commit whose dispatch raised a device fault (``DEVICE_FAULT_TYPES``)
+after rebuilding the ledger from the host mirror, and advances the mirror
+and the commitment forest (K1 and K23) after each success.  Roots, proofs
+and digests equal the JAX machine's.
+
 Routes this slice does not port raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them; none gives a wrong answer or falls back
 quietly.
@@ -36,6 +47,8 @@ quietly.
 from __future__ import annotations
 
 import os
+import random as _random
+import time as _time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -48,11 +61,16 @@ from .obs.metrics import registry as _obs
 from .ops import cold as cold_mod
 from .ops import hash_table as ht
 from .ops import index as ix
+from .ops import merkle as merkle_ops
 from .ops import query
 from .ops import scan_builder as sb
 from .ops import scan_path
+from .ops import scrub as scrub_ops
 from .ops import state_machine as sm
 from .ops import transfer_full as tf
+from .ops.scrub import (
+    DEVICE_FAULT_TYPES, DeviceStateUnrecoverable, SimulatedDeviceFault,
+)
 from .u128 import i64, u64
 
 _LIMIT_FLAGS = (
@@ -74,21 +92,31 @@ U64_MAX = (1 << 64) - 1
 QUERY_ROWS_MAX = ((1 << 20) - 256) // 128
 
 # Entry points of TpuStateMachine that this slice does not port, with the
-# ROADMAP queue-A slice that brings each.
+# ROADMAP queue-A slice that brings each (the deferred-path fault funnels
+# too); the names in _UNPORTED_PROPERTIES are properties there and raise as
+# properties here, on read and on write.
 _UNPORTED = {
     "commit_fast_deferred": "A8 (commit pipeline)",
     "commit_group_fast": "A8 (commit pipeline)",
     "warmup": "A8 (commit pipeline)",
-    "scrub_check": "A9 (scrub)",
-    "scrub_arm": "A9 (scrub)",
-    "merkle_roots": "A9 (Merkle commitments)",
-    "commitment_root": "A9 (Merkle commitments)",
-    "get_proof": "A9 (Merkle commitments)",
+    "pipeline_depth": "A8 (commit pipeline)",
+    "group_device_commit": "A8 (commit pipeline)",
+    "fuse_batches": "A8 (commit pipeline)",
+    "GROUP_K": "A8 (commit pipeline)",
+    "_device_fault_at_resolve": "A8 (commit pipeline)",
+    "_recover_inflight": "A8 (commit pipeline)",
     "reshard_begin": "A11 (sharding)",
+    "reshard_active": "A11 (sharding)",
+    "reshard_step": "A11 (sharding)",
+    "reshard_abort": "A11 (sharding)",
     "host_state": "A6 (persistence)",
     "restore_host_state": "A6 (persistence)",
     "checkpoint_ledger": "A6 (persistence)",
 }
+_UNPORTED_PROPERTIES = frozenset({
+    "pipeline_depth", "group_device_commit", "fuse_batches", "GROUP_K",
+    "reshard_active",
+})
 
 
 class TorchStateMachine:
@@ -104,6 +132,11 @@ class TorchStateMachine:
         hot_transfers_capacity_max: Optional[int] = None,
         host_engine: bool = False,
     ) -> None:
+        if shards is None:
+            # As the reference: TB_SHARDS asks for sharding when shards is
+            # not given.
+            env = os.environ.get("TB_SHARDS", "")
+            shards = int(env) if env.isdigit() else 0
         if shards:
             raise NotImplementedError("sharding is not ported yet (ROADMAP A11)")
         if host_engine:
@@ -115,7 +148,7 @@ class TorchStateMachine:
         self.batch_lanes = batch_lanes
         self.force_sequential = force_sequential
         self.device = resolve_device(device)
-        self.ledger = sm.make_ledger(
+        self._ledger = sm.make_ledger(
             cfg.accounts_capacity, cfg.transfers_capacity,
             cfg.posted_capacity, cfg.history_capacity, device=self.device,
         )
@@ -168,6 +201,49 @@ class TorchStateMachine:
                                       np.uint32)
             self._bloom_dev = cold_mod.make_bloom(self._bloom_log2,
                                                   self.device)
+        # Device fault domain (ops/scrub.py, ops/merkle.py): off until
+        # scrub_arm() with scrub_interval > 0.  The mirror is the
+        # authoritative host twin (testing.model.ReferenceStateMachine) that
+        # every committed batch also applies to; the forest is the Merkle
+        # commitment tree.  Scrub-off machines take none of these branches.
+        self._scrub_interval: Optional[int] = None  # lazy (TB_SCRUB_INTERVAL)
+        self._scrub_mirror = None
+        self._scrub_suspect = False
+        self._scrub_commits = 0  # create_* commits since the last check
+        self._injected_device_faults = 0
+        self._device_fault_streak = 0  # consecutive failed dispatches
+        self.device_fault_limit = 3  # the streak the reference degrades at
+        # Jittered exponential re-dispatch backoff (vsr/timeout.py): one tick
+        # sleeps retry_tick_s; the prng feeds only the sleep, never state.
+        self.retry_tick_s = 0.01
+        self._retry_prng = _random.Random(0x5C12)
+        self._retry_timeout = None
+        self._merkle_enabled: Optional[bool] = None  # lazy (TB_MERKLE)
+        self._scrub_paranoid: Optional[bool] = None  # lazy (TB_SCRUB_PARANOID)
+        self._merkle_forest: Optional[merkle_ops.Forest] = None
+        self._merkle_dirty = False
+        # Deferred commitment lane (TB_MERKLE_ASYNC): touched-row records of
+        # committed batches whose path refresh has not run yet, drained by
+        # merkle_settle() wherever a maintained root is observed.
+        self._merkle_async: Optional[bool] = None  # lazy (TB_MERKLE_ASYNC)
+        self._merkle_pending: List[Tuple[str, np.ndarray]] = []
+        # Plain-int event counters.
+        self.scrub_checks = 0
+        self.scrub_mismatches = 0
+        self.merkle_updates = 0
+        self.merkle_rebuilds = 0
+        self.merkle_mismatches = 0
+        self.merkle_settles = 0
+        self.device_recoveries = 0
+
+    @property
+    def ledger(self) -> sm.Ledger:
+        """The device-resident ledger."""
+        return self._ledger
+
+    @ledger.setter
+    def ledger(self, value: sm.Ledger) -> None:
+        self._ledger = value
 
     @property
     def waves_enabled(self) -> bool:
@@ -188,7 +264,9 @@ class TorchStateMachine:
         and the commit's routing words (a table's probe_overflow, the
         sequential path's overflow flag, or the general kernel's kflags and
         wave vector) in a single copy.  Returns (codes u32[N], the words as
-        one int32 array)."""
+        one int32 array).  An injected device fault raises here, as a failed
+        dispatch would."""
+        self._injected_fault_check()
         parts = [codes] + [w.reshape(-1).to(torch.int32) for w in words]
         host = torch.cat(parts).cpu().numpy()
         n = codes.shape[0]
@@ -247,6 +325,14 @@ class TorchStateMachine:
     def _commit_create_accounts(
         self, batch: np.ndarray, timestamp: int
     ) -> List[Tuple[int, int]]:
+        return self._guarded_commit(
+            "create_accounts", batch, timestamp,
+            self._commit_create_accounts_impl,
+        )
+
+    def _commit_create_accounts_impl(
+        self, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
         count = len(batch)
         if count == 0:
             return []
@@ -284,6 +370,14 @@ class TorchStateMachine:
         return self._commit_create_transfers(batch, timestamp)
 
     def _commit_create_transfers(
+        self, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
+        return self._guarded_commit(
+            "create_transfers", batch, timestamp,
+            self._commit_create_transfers_impl,
+        )
+
+    def _commit_create_transfers_impl(
         self, batch: np.ndarray, timestamp: int
     ) -> List[Tuple[int, int]]:
         count = len(batch)
@@ -446,7 +540,8 @@ class TorchStateMachine:
         at the hot ceiling the transfers table spills instead."""
         led = self.ledger
         if kflags & tf.FLAG_GROW_ACCOUNTS:
-            led.accounts = ht.grow(led.accounts, led.accounts.capacity * 2)
+            led.accounts = self._table_grow(led.accounts,
+                                            led.accounts.capacity * 2)
         if kflags & tf.FLAG_GROW_TRANSFERS:
             hot_max = self.hot_transfers_capacity_max
             if hot_max is not None and led.transfers.capacity >= hot_max:
@@ -454,10 +549,10 @@ class TorchStateMachine:
                 # room by spilling (the caller resets the certificate).
                 self.evict_cold()
             else:
-                led.transfers = ht.grow(led.transfers,
-                                        led.transfers.capacity * 2)
+                led.transfers = self._table_grow(led.transfers,
+                                                 led.transfers.capacity * 2)
         if kflags & tf.FLAG_GROW_POSTED:
-            led.posted = ht.grow(led.posted, led.posted.capacity * 2)
+            led.posted = self._table_grow(led.posted, led.posted.capacity * 2)
 
     # -- the sequential path ----------------------------------------------------
 
@@ -465,10 +560,11 @@ class TorchStateMachine:
         self, operation: str, batch: np.ndarray, timestamp: int
     ) -> List[Tuple[int, int]]:
         """Exact in-order execution through ops/scan_path (kernels K6 and
-        K7 on the card), as the JAX machine's ``_sequential_impl`` (without
-        its Merkle hook, which is not ported): the scan path sees only the
-        hot table, so a tiered machine first rehydrates the cold rows the
-        batch names."""
+        K7 on the card), as the JAX machine's ``_sequential_impl``: the scan
+        path sees only the hot table, so a tiered machine first rehydrates
+        the cold rows the batch names.  The scan path may tombstone slots
+        (linked-chain rollback), which the touched-key update cannot see, so
+        the commitment forest rebuilds at the next update or check."""
         count = len(batch)
         if operation == "create_accounts":
             self._grow_if_needed(accounts=count)
@@ -487,6 +583,7 @@ class TorchStateMachine:
             )
             kernel = scan_path.create_transfers_seq
         soa = self._pad_soa(batch)
+        self._merkle_mark_dirty()
         self.ledger, codes_dev, overflow = kernel(self.ledger, soa, count,
                                                   timestamp)
         codes, words = self._d2h_codes(codes_dev, overflow)
@@ -525,6 +622,13 @@ class TorchStateMachine:
 
     # -- growth ----------------------------------------------------------------
 
+    def _table_grow(self, table: ht.Table, capacity: int) -> ht.Table:
+        """ht.grow (one K2 rehash).  Growth moves every slot, so the
+        commitment forest rebuilds from the grown layout at the next update
+        or check."""
+        self._merkle_mark_dirty()
+        return ht.grow(table, capacity)
+
     @staticmethod
     def _target_capacity(capacity: int, needed_rows: int) -> int:
         """Smallest power-of-two capacity keeping load factor <= 0.5."""
@@ -548,7 +652,7 @@ class TorchStateMachine:
             led.accounts.capacity, self._accounts_bound + accounts
         )
         if cap != led.accounts.capacity:
-            led.accounts = ht.grow(led.accounts, cap)
+            led.accounts = self._table_grow(led.accounts, cap)
         cap = self._target_capacity(
             led.transfers.capacity, self._transfers_bound + transfers
         )
@@ -563,12 +667,12 @@ class TorchStateMachine:
                 if hot_max is not None:
                     cap = min(cap, max(hot_max, led.transfers.capacity))
                 if cap != led.transfers.capacity:
-                    led.transfers = ht.grow(led.transfers, cap)
+                    led.transfers = self._table_grow(led.transfers, cap)
         cap = self._target_capacity(
             led.posted.capacity, self._posted_bound + posted
         )
         if cap != led.posted.capacity:
-            led.posted = ht.grow(led.posted, cap)
+            led.posted = self._table_grow(led.posted, cap)
         if history and self._history_bound + history > led.history.capacity:
             led.history = sm.grow_history(
                 led.history, self._history_bound + history
@@ -622,6 +726,7 @@ class TorchStateMachine:
             raise RuntimeError("cold rehydration overflowed the hot table")
         self._transfers_bound += n
         self.rehydrated_rows += n
+        self._merkle_mark_dirty()  # rows appeared outside a commit batch
 
     def evict_cold(self, frac: Optional[float] = None) -> int:
         """Spill the oldest ~frac of live hot transfers to the cold store.
@@ -655,6 +760,7 @@ class TorchStateMachine:
         self._bloom_dev = convert.bloom_to_tensor(self._bloom_np, self.device)
         self._transfers_bound = max(0, self._transfers_bound - len(rows))
         self._evictions += 1
+        self._merkle_mark_dirty()  # rows left the hot table wholesale
         # The query index stores ids, not slots, so it stays valid; evicted
         # rows are resolved from the cold store at query time.
         return len(rows)
@@ -965,6 +1071,663 @@ class TorchStateMachine:
     def digest(self) -> int:
         return u64(sm.ledger_digest(self.ledger).item())
 
+    # -- the device fault domain (ops/scrub.py) --------------------------------
+
+    @property
+    def scrub_interval(self) -> int:
+        """Scrub cadence in commit batches (TB_SCRUB_INTERVAL env, or the
+        setter).  0 = the device fault domain is off: no mirror, no checks,
+        no retry."""
+        if self._scrub_interval is None:
+            env = os.environ.get("TB_SCRUB_INTERVAL", "")
+            self._scrub_interval = int(env) if env.isdigit() else 0
+        return self._scrub_interval
+
+    @scrub_interval.setter
+    def scrub_interval(self, value: int) -> None:
+        self._scrub_interval = max(0, int(value))
+
+    @property
+    def merkle_enabled(self) -> bool:
+        """Merkle commitment mode (TB_MERKLE=1 env, or the setter): scrub
+        checks compare maintained against recomputed roots, and replies,
+        proofs and checkpoints carry the roots."""
+        if self._merkle_enabled is None:
+            self._merkle_enabled = os.environ.get("TB_MERKLE", "") == "1"
+        return self._merkle_enabled
+
+    @merkle_enabled.setter
+    def merkle_enabled(self, value: bool) -> None:
+        self._merkle_enabled = bool(value)
+
+    @property
+    def scrub_paranoid(self) -> bool:
+        """Merkle mode's mirror retention: keep the host mirror beside the
+        forest (in-process recovery).  Default: exactly at scrub interval 1;
+        TB_SCRUB_PARANOID=0/1 or the setter override."""
+        if self._scrub_paranoid is None:
+            env = os.environ.get("TB_SCRUB_PARANOID", "")
+            if env in ("0", "1"):
+                return env == "1"
+            return self.scrub_interval == 1
+        return self._scrub_paranoid
+
+    @scrub_paranoid.setter
+    def scrub_paranoid(self, value: Optional[bool]) -> None:
+        self._scrub_paranoid = value if value is None else bool(value)
+
+    @property
+    def merkle_armed(self) -> bool:
+        return self._merkle_forest is not None
+
+    @property
+    def scrub_armed(self) -> bool:
+        return self._scrub_mirror is not None or self._merkle_forest is not None
+
+    @property
+    def scrub_due(self) -> bool:
+        # +1: a check runs BEFORE the commit that would complete the window,
+        # so interval 1 verifies the at-rest state ahead of every commit.
+        armed = self._merkle_forest is not None or (
+            self._scrub_mirror is not None and not self._scrub_suspect
+        )
+        return armed and self._scrub_commits + 1 >= self.scrub_interval
+
+    @property
+    def merkle_async(self) -> bool:
+        """Deferred commitment lane (TB_MERKLE_ASYNC=1 env, or the setter):
+        committed batches queue their touched-row records and
+        ``merkle_settle`` refreshes the paths wherever a maintained root is
+        observed.  The port has no dispatch thread: the queue is drained on
+        the caller's thread."""
+        if self._merkle_async is None:
+            self._merkle_async = os.environ.get("TB_MERKLE_ASYNC", "") == "1"
+        return self._merkle_async
+
+    @merkle_async.setter
+    def merkle_async(self, value: bool) -> None:
+        value = bool(value)
+        if not value and self._merkle_async and self._merkle_pending:
+            self.merkle_settle()  # turning the lane off strands nothing
+        self._merkle_async = value
+
+    def scrub_arm(self) -> bool:
+        """Enable the device fault domain from the CURRENT ledger state (a
+        verified point: genesis, a checked restore, the end of a recovery).
+        Returns False, arming nothing, when scrub_interval is 0.  Mirror
+        mode seeds the host mirror; Merkle mode builds the forest (K22) and
+        keeps the mirror only when ``scrub_paranoid``."""
+        if self.scrub_interval <= 0:
+            self._scrub_mirror = None
+            self._merkle_forest = None
+            return False
+        if self.merkle_enabled:
+            self._merkle_rebuild()
+            keep_mirror = self.scrub_paranoid
+        else:
+            self._merkle_forest = None
+            keep_mirror = True
+        self._scrub_mirror = scrub_ops.model_from_ledger(
+            self.ledger,
+            cold_rows=[np.asarray(r) for r in self.cold.runs],
+            prepare_timestamp=self.prepare_timestamp,
+            commit_timestamp=self.commit_timestamp,
+        ) if keep_mirror else None
+        self._scrub_suspect = False
+        self._scrub_commits = 0
+        return True
+
+    def scrub_disarm(self) -> None:
+        self._scrub_mirror = None
+        self._merkle_forest = None
+        self._merkle_dirty = False
+        self._scrub_suspect = False
+
+    def inject_device_faults(self, n: int = 1) -> None:
+        """Arm ``n`` simulated dispatch failures (tests, fault schedules):
+        the next n device read-backs raise SimulatedDeviceFault through the
+        same funnel a real CUDA error would."""
+        self._injected_device_faults += int(n)
+
+    def _injected_fault_check(self) -> None:
+        if self._injected_device_faults > 0:
+            self._injected_device_faults -= 1
+            raise SimulatedDeviceFault("injected device dispatch fault")
+
+    def _d2h_u64(self, t: torch.Tensor) -> np.ndarray:
+        """The fault domain's read-back funnel (digests, roots): one copy,
+        as u64; an injected device fault raises here."""
+        self._injected_fault_check()
+        return convert.tensor_to_array(t)
+
+    _SDC_COLS = (
+        "debits_pending_lo", "debits_posted_lo",
+        "credits_pending_lo", "credits_posted_lo",
+        "debits_pending_hi", "debits_posted_hi",
+        "credits_pending_hi", "credits_posted_hi",
+    )
+
+    def inject_sdc_bitflip(self, rng) -> bool:
+        """Flip one seeded bit of a live account's balance column on the
+        device (tests and simulation only), as the reference picks it.
+        Returns False when no live account exists yet."""
+        a = self.ledger.accounts
+        live = np.flatnonzero(
+            (convert.tensor_to_array(a.key_lo) != 0)
+            | (convert.tensor_to_array(a.key_hi) != 0)
+        )
+        if live.size == 0:
+            return False
+        slot = int(live[rng.randrange(live.size)])
+        col = self._SDC_COLS[rng.randrange(len(self._SDC_COLS))]
+        bit = rng.randrange(64)
+        arr = a.cols[col]
+        arr[slot] = arr[slot] ^ i64(1 << bit)
+        return True
+
+    def _mirror_apply(self, operation: str, batch: np.ndarray,
+                      timestamp: int) -> None:
+        """Advance the mirror by one committed batch, in commit order.  A
+        failure to apply marks it SUSPECT: checks stand down and a later
+        recovery escalates to checkpoint + WAL replay."""
+        model = self._scrub_mirror
+        if model is None or self._scrub_suspect:
+            return
+        from .testing import model as M
+
+        try:
+            if operation == "create_accounts":
+                events = M.accounts_from_batch(batch)
+            else:
+                events = M.transfers_from_batch(batch)
+            model.execute(operation, int(timestamp), events)
+        except Exception:  # noqa: BLE001 - a broken mirror must stand down
+            self._scrub_suspect = True
+            if _obs.enabled:
+                _obs.counter("scrub.mirror_suspect").inc()
+
+    def _guarded_commit(self, operation, batch, timestamp, impl):
+        """The blocking commits' funnel: the scrub check BEFORE the commit
+        reads device state, dispatch retry with jittered exponential backoff
+        on device faults, and the mirror and forest advanced after success.
+        One armed check and nothing else when the fault domain is off."""
+        if not self.scrub_armed or len(batch) == 0:
+            return impl(batch, timestamp)
+        while True:
+            try:
+                self._scrub_maybe_check()
+                results = impl(batch, timestamp)
+                self._device_fault_streak = 0
+                break
+            except DEVICE_FAULT_TYPES as err:
+                self._on_blocking_device_fault(err)
+        self._scrub_commits += 1
+        self._mirror_apply(operation, batch, timestamp)
+        self._merkle_apply(operation, batch)
+        return results
+
+    def _on_blocking_device_fault(self, err) -> None:
+        """One failed blocking dispatch: quarantine, rebuild the ledger from
+        the mirror and back off (the caller retries).  At
+        ``device_fault_limit`` consecutive failures the reference degrades
+        to the host engine, which the port does not have yet."""
+        if _obs.enabled:
+            _obs.counter("device_recovery.dispatch_faults").inc()
+        self._device_fault_streak += 1
+        if self._device_fault_streak >= self.device_fault_limit:
+            self._degrade_to_host_engine(err)
+        self.quarantine()
+        self._rematerialize_from_mirror()
+        self._retry_backoff()
+        self.device_recoveries += 1
+        if _obs.enabled:
+            _obs.counter("device_recovery.recoveries").inc()
+            _obs.counter("device_recovery.redispatches").inc()
+
+    def _scrub_maybe_check(self) -> None:
+        if self.scrub_due:
+            self.scrub_check()
+
+    def _scrub_digests_match(self, got, want) -> bool:
+        return int(got[0]) == want[0] and int(got[2]) == want[2] and (
+            self.cold.count != 0 or int(got[1]) == want[1])
+
+    def scrub_check(self, boundary: bool = False) -> bool:
+        """Integrity check of the at-rest device state.  Mirror: the folds
+        (K21, one read-back) against the mirror's expected digests.  Merkle:
+        the maintained roots against roots recomputed from the pads (K22,
+        one (2, 3) read-back).  On a mismatch: quarantine, rebuild the
+        ledger from the mirror and verify the rebuild; without a mirror the
+        mismatch raises DeviceStateUnrecoverable (checkpoint + WAL replay is
+        the replica's answer).  True when the state was already clean."""
+        model = self._scrub_mirror
+        mirror_armed = model is not None and not self._scrub_suspect
+        if self._merkle_forest is None and not mirror_armed:
+            return True
+        self._scrub_commits = 0
+        self.scrub_checks += 1
+        if _obs.enabled:
+            _obs.counter("scrub.checks").inc()
+        ok = True
+        if self._merkle_forest is not None:
+            try:
+                ok = self._merkle_verify()
+            except DEVICE_FAULT_TYPES as err:
+                if _obs.enabled:
+                    _obs.counter("device_recovery.dispatch_faults").inc()
+                if not mirror_armed:
+                    self._merkle_dirty = True
+                    raise DeviceStateUnrecoverable(
+                        "device fault during merkle verification "
+                        "(no mirror armed)"
+                    ) from err
+                ok = False
+        want = scrub_ops.mirror_digests(model) if mirror_armed else None
+        if mirror_armed:
+            try:
+                ok = ok and self._scrub_digests_match(
+                    self._scrub_fold_digests(), want)
+            except DEVICE_FAULT_TYPES:
+                if _obs.enabled:
+                    _obs.counter("device_recovery.dispatch_faults").inc()
+                ok = False
+        if ok:
+            return True
+        self.scrub_mismatches += 1
+        if _obs.enabled:
+            _obs.counter("scrub.mismatches").inc()
+            if boundary:
+                _obs.counter("scrub.boundary_mismatches").inc()
+        if not mirror_armed:
+            self._merkle_dirty = True
+            raise DeviceStateUnrecoverable(
+                "merkle root mismatch: device state corrupt and no "
+                "authoritative mirror armed (TB_SCRUB_INTERVAL=1 keeps one)"
+            )
+        self.quarantine()
+        self._rematerialize_from_mirror()
+        if self._merkle_forest is not None:
+            # A fresh layout: rebuild the forest from it.
+            self._merkle_rebuild()
+        try:
+            got = self._scrub_fold_digests()
+        except DEVICE_FAULT_TYPES as err:
+            self._scrub_suspect = True
+            raise DeviceStateUnrecoverable(
+                "device fault during post-recovery scrub verification"
+            ) from err
+        if not self._scrub_digests_match(got, want):
+            self._scrub_suspect = True
+            raise DeviceStateUnrecoverable(
+                "scrub mismatch survived re-materialization: mirror suspect"
+            )
+        self.device_recoveries += 1
+        if _obs.enabled:
+            _obs.counter("device_recovery.recoveries").inc()
+            _obs.counter("device_recovery.scrub").inc()
+        return False
+
+    def _scrub_fold_digests(self) -> np.ndarray:
+        """The (accounts, transfers, posted) folds, K21 on the card, through
+        the read-back funnel (one copy)."""
+        return self._d2h_u64(scrub_ops.scrub_digest(self.ledger))
+
+    # -- Merkle commitments (ops/merkle.py) -------------------------------------
+
+    def _merkle_rebuild(self) -> None:
+        """Full forest rebuild from the current ledger (K22), paid at arm
+        points and after non-incremental mutations (growth, the sequential
+        path, tier moves, recovery).  It subsumes every queued touch."""
+        self._merkle_forest = merkle_ops.build_forest(self.ledger)
+        self._merkle_dirty = False
+        self._merkle_pending.clear()
+        self.merkle_rebuilds += 1
+        if _obs.enabled:
+            _obs.counter("merkle.rebuilds").inc()
+
+    def _merkle_rebuild_if_dirty(self) -> bool:
+        if self._merkle_forest is None or not self._merkle_dirty:
+            return False
+        self._merkle_rebuild()
+        return True
+
+    def _merkle_mark_dirty(self) -> None:
+        if self._merkle_forest is not None:
+            self._merkle_dirty = True
+
+    def _merkle_verify(self) -> bool:
+        """Maintained roots against roots recomputed from the pads: ONE
+        (2, 3) read-back."""
+        self.merkle_settle()  # the check observes settled roots only
+        self._merkle_rebuild_if_dirty()
+        lanes = self._d2h_u64(
+            merkle_ops.verify_roots(self._merkle_forest, self.ledger))
+        ok = bool((lanes[0] == lanes[1]).all())
+        if _obs.enabled:
+            _obs.counter("merkle.checks").inc()
+        if not ok:
+            self.merkle_mismatches += 1
+            if _obs.enabled:
+                _obs.counter("merkle.mismatches").inc()
+        return ok
+
+    _MERKLE_MIN_LANES = 256
+
+    def _merkle_pad(self, lo: np.ndarray, hi: np.ndarray, min_lanes: int):
+        """Key arrays padded to power-of-two lane classes, on the device
+        (zero keys are instant probe misses and touch nothing)."""
+        n = len(lo)
+        lanes = max(min_lanes, 1 << (n - 1).bit_length()) if n else min_lanes
+        return self._id_tensors(lo, hi, lanes)
+
+    def _merkle_apply(self, operation: str, batch: np.ndarray) -> None:
+        """Advance the forest by one committed batch (the blocking paths'
+        post-success hook)."""
+        if self._merkle_forest is None or len(batch) == 0:
+            return
+        if self.merkle_async:
+            self._merkle_lane_enqueue(operation, batch)
+            return
+        if self._merkle_rebuild_if_dirty():
+            return  # the rebuild already reflects this batch
+        if operation == "create_accounts":
+            self._merkle_apply_accounts(batch)
+        else:
+            self._merkle_update_transfers_batches([batch])
+
+    def _merkle_apply_accounts(self, batch: np.ndarray) -> None:
+        lo, hi = self._merkle_pad(
+            batch["id_lo"].astype(np.uint64),
+            batch["id_hi"].astype(np.uint64),
+            self._MERKLE_MIN_LANES,
+        )
+        self._merkle_forest = merkle_ops.update_accounts(
+            self._merkle_forest, self.ledger, lo, hi, max_probe=sm.MAX_PROBE,
+        )
+        self.merkle_updates += 1
+        if _obs.enabled:
+            _obs.counter("merkle.updates").inc()
+
+    def _merkle_lane_enqueue(self, operation: str, batch: np.ndarray) -> None:
+        """Queue one committed batch's touched-row record (TB_MERKLE_ASYNC);
+        batches are immutable after commit, so holding them is safe."""
+        self._merkle_pending.append((operation, batch))
+        if _obs.enabled:
+            _obs.counter("merkle.lane.deferred_updates").inc()
+
+    def merkle_settle(self) -> None:
+        """Settle the deferred commitment lane: replay every queued record
+        into the forest (leaves recompute from the current tables, so the
+        coalesced update equals the batch-at-a-time sequence).  Runs at
+        every point a maintained root is observed."""
+        if not self._merkle_pending:
+            return
+        pending, self._merkle_pending = self._merkle_pending, []
+        if self._merkle_forest is None:
+            return  # disarmed while records were queued
+        if _obs.enabled:
+            _obs.counter("merkle.lane.settle_waits").inc()
+            _obs.histogram("merkle.lane.lag_batches", "batches").observe(
+                len(pending))
+        self.merkle_settles += 1
+        if self._merkle_rebuild_if_dirty():
+            return  # the rebuild subsumes every queued touch
+        for op, batches in merkle_ops.coalesce_touch_records(
+            pending, max_rows=self.batch_lanes
+        ):
+            if op == "create_accounts":
+                self._merkle_apply_accounts(batches[0])
+            else:
+                self._merkle_update_transfers_batches(batches)
+
+    def _merkle_update_transfers_batches(self, batches) -> None:
+        """ONE touched-path update (K1, K23) covering a run of committed
+        create_transfers batches: inserted ids, deduped account sides,
+        pending references (resolved on the device).  Over-approximation
+        is safe: an untouched leaf recomputes to its own value."""
+        if self._merkle_forest is None:
+            return
+        if self._merkle_rebuild_if_dirty():
+            return
+        ids_lo = np.concatenate([b["id_lo"] for b in batches])
+        ids_hi = np.concatenate([b["id_hi"] for b in batches])
+        dr_lo = np.concatenate([b["debit_account_id_lo"] for b in batches])
+        dr_hi = np.concatenate([b["debit_account_id_hi"] for b in batches])
+        cr_lo = np.concatenate([b["credit_account_id_lo"] for b in batches])
+        cr_hi = np.concatenate([b["credit_account_id_hi"] for b in batches])
+        flags = np.concatenate([b["flags"] for b in batches])
+        pv = (
+            flags & (types.TransferFlags.POST_PENDING_TRANSFER
+                     | types.TransferFlags.VOID_PENDING_TRANSFER)
+        ) != 0
+        # Dedupe the account side, sorted by (hi, lo): deterministic.
+        acc = _unique_pairs(
+            np.concatenate([dr_hi, cr_hi]).astype(np.uint64),
+            np.concatenate([dr_lo, cr_lo]).astype(np.uint64),
+        )
+        id_lo, id_hi = self._merkle_pad(
+            ids_lo.astype(np.uint64), ids_hi.astype(np.uint64),
+            self._MERKLE_MIN_LANES,
+        )
+        acc_lo, acc_hi = self._merkle_pad(
+            acc[:, 1], acc[:, 0], self._MERKLE_MIN_LANES
+        )
+        has_pv = bool(pv.any())
+        pend = (
+            np.concatenate([b["pending_id_lo"] for b in batches])[pv],
+            np.concatenate([b["pending_id_hi"] for b in batches])[pv],
+        ) if has_pv else (np.zeros(0, np.uint64), np.zeros(0, np.uint64))
+        pend_lo, pend_hi = self._merkle_pad(
+            pend[0].astype(np.uint64), pend[1].astype(np.uint64),
+            self._MERKLE_MIN_LANES,
+        )
+        self._merkle_forest = merkle_ops.update_transfers(
+            self._merkle_forest, self.ledger, id_lo, id_hi,
+            acc_lo, acc_hi, pend_lo, pend_hi,
+            max_probe=sm.MAX_PROBE, has_postvoid=has_pv,
+        )
+        self.merkle_updates += 1
+        if _obs.enabled:
+            _obs.counter("merkle.updates").inc()
+
+    def merkle_roots(self) -> Optional[Tuple[int, int, int]]:
+        """The maintained commitment roots (accounts, transfers, posted), or
+        None when Merkle mode is not armed."""
+        if self._merkle_forest is None:
+            return None
+        self.merkle_settle()
+        self._merkle_rebuild_if_dirty()
+        triple = self._d2h_u64(merkle_ops.forest_roots(self._merkle_forest))
+        return (int(triple[0]), int(triple[1]), int(triple[2]))
+
+    def merkle_canonical_roots(self) -> Optional[Tuple[int, int, int]]:
+        """Roots over the canonical single-device layout, recomputed on the
+        host from the ledger (what checkpoints serialize and proofs anchor
+        to; equal to merkle_roots() on a clean forest)."""
+        if self._merkle_forest is None:
+            return None
+        if self._merkle_pending:
+            self.merkle_settle()
+        return merkle_ops.np_ledger_roots(self.ledger)
+
+    def commitment_root(self) -> int:
+        """The accounts-pad commitment root of the committed state (the
+        audit anchor a replica stamps into every reply header), or 0 when
+        commitments are not armed or the deferred lane holds records
+        (clients skip a 0)."""
+        if self._merkle_forest is None:
+            return 0
+        if self._merkle_pending:
+            return 0
+        self._merkle_rebuild_if_dirty()
+        return u64(self._merkle_forest.accounts[1].item())
+
+    def get_proof(self, ident: int, kind: str = "accounts") -> Optional[bytes]:
+        """Root-anchored Merkle inclusion proof of one row, verifiable with
+        ``ops.merkle.check_proof``: ``accounts`` (the account row),
+        ``transfers`` (a hot transfer row; an evicted one has no leaf) or
+        ``posted`` (the fulfillment of pending transfer ``ident``, keyed by
+        its timestamp).  None when the row does not exist in the pad or
+        Merkle mode is off."""
+        if self._merkle_forest is None:
+            return None
+        if kind not in merkle_ops.PROOF_KINDS:
+            raise ValueError(f"unknown proof kind {kind!r}")
+        self.merkle_settle()  # proofs anchor to settled roots only
+        lo = np.uint64(ident & U64_MAX)
+        hi = np.uint64(ident >> 64)
+        row_bytes = None
+        if kind == "accounts":
+            rows = self.lookup_accounts([ident])
+            if len(rows) == 0:
+                return None
+            row_bytes = rows[0].tobytes()
+        elif kind == "transfers":
+            rows = self.lookup_transfers([ident])
+            if len(rows) == 0:
+                return None
+            row_bytes = rows[0].tobytes()
+        else:  # posted: resolve the pending id to its pad key (timestamp)
+            rows = self.lookup_transfers([ident])
+            if len(rows) == 0:
+                return None
+            lo = np.uint64(int(rows[0]["timestamp"]))
+            hi = np.uint64(0)
+        self._merkle_rebuild_if_dirty()
+        table = getattr(self.ledger, kind)
+        k_lo, k_hi = self._id_tensors(np.array([lo], np.uint64),
+                                      np.array([hi], np.uint64), 8)
+        look = ht.lookup(table, k_lo, k_hi, sm.MAX_PROBE)
+        if not bool(look.found[0]):
+            return None
+        slot = int(look.slot[0])
+        levels = max(0, table.capacity.bit_length() - 1)
+        leaf_dev, sib_dev, root_dev = merkle_ops.gather_path(
+            self._merkle_forest.pad(kind), slot, levels)
+        path = convert.tensor_to_array(torch.cat(
+            [sib_dev, root_dev.reshape(1)]))
+        siblings, root = path[:levels], int(path[levels])
+        if kind == "posted":
+            prow = np.zeros((), merkle_ops.PROOF_POSTED_DTYPE)
+            prow["pending_timestamp"] = lo
+            prow["fulfillment"] = u64(table.cols["fulfillment"][slot].item())
+            row_bytes = prow.tobytes()
+        if _obs.enabled:
+            _obs.counter("merkle.proofs").inc()
+        return merkle_ops.encode_proof(
+            row_bytes, slot, siblings, root, kind=kind
+        )
+
+    # -- recovery ----------------------------------------------------------------
+
+    def quarantine(self) -> None:
+        """Quarantine the device pipeline: after a failed or corrupted
+        dispatch every cached device buffer is suspect.  The port has no
+        dispatch lane or staging pool yet (ROADMAP A8); it drops its cached
+        buffers (the lane index vector and the Bloom filter's device copy)
+        and makes them anew."""
+        self._lane_ids = torch.arange(self.batch_lanes, device=self.device)
+        if self._bloom_np is not None:
+            self._bloom_dev = convert.bloom_to_tensor(self._bloom_np,
+                                                      self.device)
+
+    def _rematerialize_from_mirror(self) -> None:
+        """Rebuild the ledger (fresh buffers) from the mirror and resync the
+        host-side derived state; the layout is the reference's."""
+        model = self._scrub_mirror
+        if model is None or self._scrub_suspect:
+            raise DeviceStateUnrecoverable("mirror unavailable or suspect")
+        if self._tiering or self.cold.count:
+            # The mirror holds every transfer but cannot reproduce the
+            # hot/cold split the Bloom filter and the spill encode.
+            raise DeviceStateUnrecoverable(
+                "cold tier active: mirror re-materialization unsupported"
+            )
+        self.ledger = scrub_ops.materialize_ledger(model, self.config,
+                                                   self.device)
+        self._merkle_mark_dirty()  # fresh layout: the forest rebuilds
+        self._resync_host_state_from_mirror(model)
+
+    def _resync_host_state_from_mirror(self, model) -> None:
+        self._accounts_bound = len(model.accounts)
+        self._transfers_bound = len(model.transfers)
+        self._posted_bound = len(model.posted)
+        self._history_bound = len(model.history)
+        self._history_accounts_possible = any(
+            a.flags & types.AccountFlags.HISTORY
+            for a in model.accounts.values()
+        )
+        self._limit_accounts_possible = any(
+            a.flags & _LIMIT_FLAGS for a in model.accounts.values()
+        )
+        bound = 0
+        for a in model.accounts.values():
+            bound = max(a.debits_pending, a.debits_posted,
+                        a.credits_pending, a.credits_posted, bound)
+        self._balance_bound = min(bound, _BOUND_CLAMP)
+        self.commit_timestamp = max(
+            self.commit_timestamp, model.commit_timestamp
+        )
+        self.index.reset()
+        self.scans_transfers.reset()
+        self.scans_accounts.reset()
+
+    def reset_device_state(self) -> None:
+        """Genesis reset (the replica's checkpoint-free recovery): a fresh
+        empty ledger, derived state cleared.  The prepare clock is kept:
+        issued prepare timestamps must stay monotone."""
+        cfg = self.config
+        self.ledger = sm.make_ledger(
+            cfg.accounts_capacity, cfg.transfers_capacity,
+            cfg.posted_capacity, cfg.history_capacity, device=self.device,
+        )
+        self._merkle_mark_dirty()
+        self.commit_timestamp = 0
+        self._accounts_bound = self._transfers_bound = 0
+        self._posted_bound = self._history_bound = 0
+        self._history_accounts_possible = False
+        self._limit_accounts_possible = False
+        self._balance_bound = 0
+        self.index.reset()
+        self.scans_transfers.reset()
+        self.scans_accounts.reset()
+
+    def _retry_backoff(self) -> None:
+        """Jittered exponential backoff between re-dispatch attempts
+        (vsr/timeout.py); retry_tick_s 0 skips the sleep."""
+        if self._retry_timeout is None:
+            from .vsr.timeout import Timeout
+
+            self._retry_timeout = Timeout(
+                self._retry_prng, base_ticks=1, max_ticks=64
+            )
+        ticks = self._retry_timeout.next_backoff()
+        if _obs.enabled:
+            _obs.counter("device_recovery.retries").inc()
+        if self.retry_tick_s > 0:
+            _time.sleep(ticks * self.retry_tick_s)
+
+    def _degrade_to_host_engine(self, err) -> None:
+        """The reference serves from the native host engine after
+        ``device_fault_limit`` consecutive failures; the port has no host
+        engine yet."""
+        raise NotImplementedError(
+            "TorchStateMachine cannot degrade to the host engine after "
+            f"{self.device_fault_limit} consecutive device faults: the host "
+            "engine is not ported yet (ROADMAP A6)"
+        ) from err
+
+
+def _unique_pairs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """``np.unique(np.stack([hi, lo], axis=1), axis=0)``: the distinct (hi,
+    lo) rows in the same sorted order, by a lexsort (the axis form sorts a
+    structured view, about 18 ms for 16,380 rows)."""
+    order = np.lexsort((lo, hi))
+    hi, lo = hi[order], lo[order]
+    first = np.ones(len(hi), dtype=bool)
+    first[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    return np.stack([hi[first], lo[first]], axis=1)
+
 
 def _unported(name: str, where: str):
     def method(self, *args, **kwargs):
@@ -973,6 +1736,8 @@ def _unported(name: str, where: str):
         )
 
     method.__name__ = name
+    if name in _UNPORTED_PROPERTIES:
+        return property(method, method)
     return method
 
 

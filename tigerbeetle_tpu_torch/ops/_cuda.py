@@ -36,6 +36,10 @@ add one to their kernel's ``launches`` each time they launch it.
 | bloom_check   | csrc/bloom.cu      | ops/cold.py:72 bloom_check_impl (+ transfer_full.py:638 FLAG_COLD) |
 | evict_threshold | csrc/evict.cu    | ops/cold.py:391 eviction_threshold         |
 | evict_extract | csrc/evict.cu      | ops/cold.py:402 extract_evicted (+ :426 drop_evicted's keep mask) |
+| bench_gen     | csrc/bench_gen.cu  | utils/benchgen.py:22 gen_plain, :54 gen_twop (bench.py:2140 gen_batch, :2169 gen_two_phase) |
+| scrub_fold    | csrc/scrub.cu      | ops/scrub.py:151 scrub_digest (+ :108-147 row_hash_*, _fold_*) |
+| merkle_build  | csrc/merkle_build.cu | ops/merkle.py:125 build_forest_impl (+ :106 tree_from_leaves, :151 verify_roots_impl) |
+| merkle_touch  | csrc/merkle_touch.cu | ops/merkle.py:183 touch_tree (+ :169 _leaf_at, :280 gather_path) |
 
 The general kernel's launches (K9-K12) take their pointers as one array in
 the order of the kernel's pointer enum (``FULL_PASS_LAYOUT`` and
@@ -121,6 +125,14 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/ops/cold.py:391"),
         Kernel("evict_extract", "tigerbeetle_tpu_torch/csrc/evict.cu",
                "tigerbeetle_tpu/ops/cold.py:402"),
+        Kernel("bench_gen", "tigerbeetle_tpu_torch/csrc/bench_gen.cu",
+               "tigerbeetle_tpu/utils/benchgen.py:22"),
+        Kernel("scrub_fold", "tigerbeetle_tpu_torch/csrc/scrub.cu",
+               "tigerbeetle_tpu/ops/scrub.py:151"),
+        Kernel("merkle_build", "tigerbeetle_tpu_torch/csrc/merkle_build.cu",
+               "tigerbeetle_tpu/ops/merkle.py:125"),
+        Kernel("merkle_touch", "tigerbeetle_tpu_torch/csrc/merkle_touch.cu",
+               "tigerbeetle_tpu/ops/merkle.py:183"),
     )
 }
 
@@ -250,6 +262,11 @@ def _bind(lib: ctypes.CDLL) -> None:
                                _P, _P, _P],
         "tb_evict_extract": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P,
                              _P, _INT, _P, _P, _P, _P, _P],
+        "tb_bench_gen": [_P, _I64, _INT, _U64, _U64, _U64, _U64, _P],
+        "tb_scrub_fold": [_P, _P, ctypes.POINTER(ctypes.c_int64), _P, _P],
+        "tb_merkle_build": [_INT, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
+        "tb_merkle_touch": [_INT, _P, _P, _P, _I64, _P, _P, _P, _I64, _P],
+        "tb_merkle_path": [_P, _I64, _I64, _INT, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -305,10 +322,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+class CudaKernelError(RuntimeError):
+    """A hand-written kernel's launch or run failed (a nonzero CUDA error
+    from its C entry point).  The device-fault family of ``ops/scrub.py``
+    counts it as a device fault, as it does no bare ``RuntimeError``."""
+
+
 def _raise_on(err: int, kernel: str) -> None:
     if err != 0:
         msg = library().tb_error_string(err).decode()
-        raise RuntimeError(f"CUDA kernel {kernel} failed: error {err} ({msg})")
+        raise CudaKernelError(
+            f"CUDA kernel {kernel} failed: error {err} ({msg})")
 
 
 _U64_OR_U32 = (torch.int64, torch.int32, torch.bool)
@@ -1276,3 +1300,136 @@ def evict_extract(key_lo, key_hi, tomb, cols: Dict[str, torch.Tensor],
     _raise_on(err, "evict_extract")
     KERNELS["evict_extract"].launches += 1
     return n, out_lo, out_hi, dict(zip(names, dst)), keep_t
+
+
+# -- K20: the flagship generator ---------------------------------------------------
+
+
+def bench_gen(cols: Sequence[torch.Tensor], mode: int, b: int, count: int,
+              n_accounts: int, first_tid: int) -> None:
+    """Kernel K20: overwrites the transfer SoA ``cols`` (utils/benchgen.py
+    ``GEN_COLS`` order: fourteen int64 columns, then five int32) with batch
+    ``b`` of generator ``mode``."""
+    lib = library()
+    if len(cols) != 19:
+        raise ValueError("bench_gen needs the nineteen transfer columns")
+    lanes = cols[0].numel()
+    for k, c in enumerate(cols):
+        _check(c, torch.int64 if k < 14 else torch.int32, lanes,
+               f"bench_gen column {k}")
+    if not 0 <= count <= lanes or n_accounts < 2:
+        raise ValueError("bench_gen: bad count or n_accounts")
+    err = lib.tb_bench_gen(_ptr_array(cols), lanes, mode, b & _M64, count,
+                           n_accounts, first_tid & _M64, _stream(cols[0]))
+    _raise_on(err, "bench_gen")
+    KERNELS["bench_gen"].launches += 1
+
+
+# -- K21-K23: scrub and Merkle commitments ---------------------------------------
+
+PAD_KINDS = {"accounts": 0, "transfers": 1, "posted": 2}
+# Each pad's folded columns in the kernels' order (csrc/leaf.cuh).
+PAD_COLS = {
+    "accounts": (
+        "debits_pending_lo", "debits_pending_hi",
+        "debits_posted_lo", "debits_posted_hi",
+        "credits_pending_lo", "credits_pending_hi",
+        "credits_posted_lo", "credits_posted_hi",
+        "timestamp",
+    ),
+    "transfers": ("amount_lo", "amount_hi", "timestamp"),
+    "posted": ("fulfillment",),
+}
+
+
+def _pad_tensors(pad: str, key_lo, key_hi, cols: Dict[str, torch.Tensor]):
+    """(capacity, [key_lo, key_hi], [folded columns]) of a pad, checked."""
+    cap = key_lo.numel()
+    if cap <= 0 or cap & (cap - 1):
+        raise ValueError(f"{pad}: capacity must be a power of two, got {cap}")
+    _check(key_lo, torch.int64, cap, f"{pad} key_lo")
+    _check(key_hi, torch.int64, cap, f"{pad} key_hi")
+    folded = [cols[name] for name in PAD_COLS[pad]]
+    want = torch.int32 if pad == "posted" else torch.int64
+    for name, c in zip(PAD_COLS[pad], folded):
+        _check(c, want, cap, f"{pad} column {name}")
+    return cap, [key_lo, key_hi], folded
+
+
+def scrub_fold(pads: Dict[str, Tuple[torch.Tensor, torch.Tensor,
+                                     Dict[str, torch.Tensor]]]) -> torch.Tensor:
+    """Kernel K21: int64[3] = the (accounts, transfers, posted) scrub folds;
+    ``pads[name]`` is (key_lo, key_hi, cols) of each pad."""
+    lib = library()
+    keys, cols, caps = [], [], []
+    for pad in ("accounts", "transfers", "posted"):
+        cap, k, c = _pad_tensors(pad, *pads[pad])
+        keys += k
+        cols += c
+        caps.append(cap)
+    out = torch.zeros(3, dtype=torch.int64, device=keys[0].device)
+    caps_arr = (ctypes.c_int64 * 3)(*caps)
+    err = lib.tb_scrub_fold(_ptr_array(keys), _ptr_array(cols), caps_arr,
+                            out.data_ptr(), _stream(out))
+    _raise_on(err, "scrub_fold")
+    KERNELS["scrub_fold"].launches += 1
+    return out
+
+
+def merkle_build(pad: str, key_lo, key_hi, cols: Dict[str, torch.Tensor],
+                 heap: Optional[torch.Tensor] = None,
+                 root_out: Optional[torch.Tensor] = None) -> None:
+    """Kernel K22: writes the pad's whole heap (int64[2C]) into ``heap``, or,
+    with ``heap`` None, only the root into ``root_out`` (a one-element int64
+    tensor); ``root_out`` may be given in heap mode too."""
+    lib = library()
+    cap, _k, folded = _pad_tensors(pad, key_lo, key_hi, cols)
+    if heap is None and root_out is None:
+        raise ValueError("merkle_build: nothing to write")
+    if heap is not None:
+        _check(heap, torch.int64, 2 * cap, f"{pad} heap")
+        heap[:1].zero_()
+    if root_out is not None:
+        _check(root_out, torch.int64, 1, "root_out")
+    tops = torch.empty(2, max(1, cap // 1024), dtype=torch.int64,
+                       device=key_lo.device)
+    err = lib.tb_merkle_build(
+        PAD_KINDS[pad], key_lo.data_ptr(), key_hi.data_ptr(),
+        _ptr_array(folded), cap, None if heap is None else heap.data_ptr(),
+        tops[0].data_ptr(), tops[1].data_ptr(),
+        None if root_out is None else root_out.data_ptr(), _stream(key_lo))
+    _raise_on(err, "merkle_build")
+    KERNELS["merkle_build"].launches += 1
+
+
+def merkle_touch(pad: str, key_lo, key_hi, cols: Dict[str, torch.Tensor],
+                 heap: torch.Tensor, slot: torch.Tensor,
+                 found: torch.Tensor) -> None:
+    """Kernel K23: refreshes, in place, the paths of ``heap`` (int64[2C])
+    from the leaves at the found lanes' slots (K1's probe) to the root."""
+    lib = library()
+    cap, _k, folded = _pad_tensors(pad, key_lo, key_hi, cols)
+    _check(heap, torch.int64, 2 * cap, f"{pad} heap")
+    n = slot.numel()
+    _check(slot, torch.int64, n, "slot")
+    _check(found, torch.bool, n, "found")
+    err = lib.tb_merkle_touch(
+        PAD_KINDS[pad], key_lo.data_ptr(), key_hi.data_ptr(),
+        _ptr_array(folded), cap, heap.data_ptr(), slot.data_ptr(),
+        found.data_ptr(), n, _stream(heap))
+    _raise_on(err, "merkle_touch")
+    KERNELS["merkle_touch"].launches += 1
+
+
+def merkle_path(heap: torch.Tensor, slot: int, levels: int) -> torch.Tensor:
+    """Kernel K23's path entry: int64[levels + 2] = (the leaf at ``slot``,
+    its ``levels`` siblings bottom-up, the root)."""
+    lib = library()
+    cap = heap.numel() // 2
+    _check(heap, torch.int64, 2 * cap, "heap")
+    out = torch.empty(levels + 2, dtype=torch.int64, device=heap.device)
+    err = lib.tb_merkle_path(heap.data_ptr(), cap, slot, levels,
+                             out.data_ptr(), _stream(heap))
+    _raise_on(err, "merkle_path")
+    KERNELS["merkle_touch"].launches += 1
+    return out

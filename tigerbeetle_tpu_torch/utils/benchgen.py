@@ -8,13 +8,29 @@ transfer of 2**40 to each), after which the steady state is
 ``gen_batch_np``.  The batches are
 made on the host because numpy's uint64 ``%`` is exact; torch's int64 ``%``
 is signed and wrong above 2**63.
+
+``gen_batch`` makes the same batches on the device, from the batch index
+alone, as bench.py's timed loop does (``bench.py:2129`` ``mix_workload``,
+``:2140`` ``gen_batch``, ``:2169`` ``gen_two_phase``); ``gen_twop`` is
+``tigerbeetle_tpu/utils/benchgen.py``'s ``gen_twop`` (its ``gen_plain`` is
+``gen_batch`` with ``first_tid`` for ``id_base``).  On a CUDA device they
+launch kernel K20 (``csrc/bench_gen.cu``), which takes the u64 modulo
+natively; on the CPU ``gen_batch_plain`` computes it exactly from the
+hash's 32-bit halves, ``((hi mod n)(2**32 mod n) + lo) mod n``, which fits
+an int64 for every ``n < 2**31``.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import numpy as np
+import torch
 
 from .. import types
+from ..device import resolve as resolve_device
+from ..ops import _cuda
+from ..u128 import i64, mix64, srl
 
 
 def mix64_np(lo: np.ndarray, hi: int) -> np.ndarray:
@@ -124,3 +140,140 @@ def gen_funding_np(n_accounts: int, count: int):
         batch["code"] = 10
         out.append(batch)
     return out
+
+
+# -- the device generator (kernel K20) -----------------------------------------
+
+MODE_PLAIN = 0  # bench.py gen_batch; utils/benchgen.py gen_plain
+MODE_TWO_PHASE = 1  # bench.py gen_two_phase
+MODE_TWOP = 2  # utils/benchgen.py gen_twop
+
+# The transfer SoA in K20's column order: the u64 columns, then the u32 ones.
+GEN_COLS_U64 = (
+    "id_lo", "id_hi", "debit_account_id_lo", "debit_account_id_hi",
+    "credit_account_id_lo", "credit_account_id_hi", "amount_lo", "amount_hi",
+    "pending_id_lo", "pending_id_hi", "user_data_128_lo", "user_data_128_hi",
+    "user_data_64", "timestamp",
+)
+GEN_COLS_U32 = ("user_data_32", "timeout", "ledger", "code", "flags")
+GEN_COLS = GEN_COLS_U64 + GEN_COLS_U32
+
+_TF_PENDING = int(types.TransferFlags.PENDING)
+_TF_POST = int(types.TransferFlags.POST_PENDING_TRANSFER)
+
+
+def empty_soa(lanes: int, device) -> Dict[str, torch.Tensor]:
+    """An uninitialised transfer SoA of ``lanes`` lanes, in
+    ``types.TRANSFER_DTYPE``'s field order (int64 for u64, int32 for u32)."""
+    return {name: torch.empty(lanes, dtype=torch.int64 if name in GEN_COLS_U64
+                              else torch.int32, device=device)
+            for name in types.TRANSFER_DTYPE.names}
+
+
+def _check_args(b: int, lanes: int, count: int, n_accounts: int) -> None:
+    if not 2 <= n_accounts < (1 << 31):
+        raise ValueError(f"n_accounts must be in [2, 2**31), got {n_accounts}")
+    if not 0 <= count <= lanes:
+        raise ValueError(f"count {count} must be in [0, lanes={lanes}]")
+    if b < 0:
+        raise ValueError(f"batch index must be >= 0, got {b}")
+
+
+def _generate(mode: int, b: int, lanes: int, count: int, n_accounts: int,
+              first_tid: int, device, out) -> Dict[str, torch.Tensor]:
+    _check_args(b, lanes, count, n_accounts)
+    if out is None:
+        out = empty_soa(lanes, resolve_device(device))
+    if out["id_lo"].is_cuda:
+        _cuda.bench_gen([out[c] for c in GEN_COLS], mode, b, count,
+                        n_accounts, first_tid)
+        return out
+    plain = gen_batch_plain(mode, b, lanes, count, n_accounts, first_tid,
+                            out["id_lo"].device)
+    for name, col in plain.items():
+        out[name].copy_(col)
+    return out
+
+
+def gen_batch(b: int, lanes: int, count: int, n_accounts: int,
+              first_tid: int, two_phase: bool = False, *, device=None,
+              out: Optional[Dict[str, torch.Tensor]] = None,
+              ) -> Dict[str, torch.Tensor]:
+    """Batch ``b`` of the flagship workload (or of ``--two-phase``) as a
+    transfer SoA of ``lanes`` lanes on ``device`` (``cuda`` when None):
+    ``types.to_soa`` of ``gen_batch_np`` (``gen_two_phase_np``) zero-padded
+    to ``lanes``.  ``out``, a SoA from ``empty_soa``, is overwritten in
+    place and returned.  Kernel K20 on the card."""
+    mode = MODE_TWO_PHASE if two_phase else MODE_PLAIN
+    return _generate(mode, b, lanes, count, n_accounts, first_tid, device, out)
+
+
+def gen_twop(b: int, lanes: int, count: int, n_accounts: int,
+             id_base: int = 1 << 36, *, device=None,
+             out: Optional[Dict[str, torch.Tensor]] = None,
+             ) -> Dict[str, torch.Tensor]:
+    """The measurement tools' two-phase batch (``tigerbeetle_tpu/utils/
+    benchgen.py:54`` ``gen_twop``): half pendings between accounts
+    ``dr = h1 mod n`` and ``dr + 3``, amounts ``1 + (h1 & 0xFF)``, half posts
+    of them.  Kernel K20 on the card."""
+    return _generate(MODE_TWOP, b, lanes, count, n_accounts, id_base, device,
+                     out)
+
+
+def _mod_u64(h: torch.Tensor, n: int) -> torch.Tensor:
+    """Exact ``h mod n`` of the u64 bits in an int64 tensor, for
+    ``0 < n < 2**31``: every term stays below 2**63."""
+    hi = srl(h, 32)
+    lo = h & 0xFFFFFFFF
+    return ((hi % n) * ((1 << 32) % n) + lo) % n
+
+
+def gen_batch_plain(mode: int, b: int, lanes: int, count: int,
+                    n_accounts: int, first_tid: int,
+                    device) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of kernel K20 (every ``MODE_*``)."""
+    _check_args(b, lanes, count, n_accounts)
+    n = n_accounts
+    lane = torch.arange(lanes, dtype=torch.int64, device=device)
+    base = i64(b * count)
+    tid0 = i64(first_tid)
+    half = count // 2
+    if mode == MODE_PLAIN:
+        is_post = torch.zeros(lanes, dtype=torch.bool, device=device)
+        gid = lane + base
+        active = lane < count
+    else:
+        is_post = lane >= half
+        gid = base + torch.where(is_post, lane - half, lane)
+        active = lane < 2 * half
+    h1 = mix64(gid, torch.full_like(gid, 0x1234))
+    dr = _mod_u64(h1, n)
+    if mode == MODE_TWOP:
+        cr = (dr + 3) % n
+        amount = 1 + (h1 & 0xFF)
+    else:
+        h2 = mix64(gid, torch.full_like(gid, 0x9876))
+        off = 1 + _mod_u64(h2, n - 1)
+        cr = (dr + off) % n
+        amount = 1 + (srl(h1, 32) & 0xFFFF)
+    create = active & ~is_post
+    post = active & is_post
+    z64 = torch.zeros(lanes, dtype=torch.int64, device=device)
+    z32 = torch.zeros(lanes, dtype=torch.int32, device=device)
+    if mode == MODE_PLAIN:
+        flags = z32
+    else:
+        flags = torch.where(active, torch.where(is_post, _TF_POST, _TF_PENDING),
+                            0).to(torch.int32)
+    out = {
+        "id_lo": torch.where(active, tid0 + base + lane, z64),
+        "debit_account_id_lo": torch.where(create, dr + 1, z64),
+        "credit_account_id_lo": torch.where(create, cr + 1, z64),
+        "amount_lo": torch.where(create, amount, z64),
+        "pending_id_lo": torch.where(post, tid0 + base + (lane - half), z64),
+        "ledger": torch.where(create, 1, 0).to(torch.int32),
+        "code": torch.where(create, 10, 0).to(torch.int32),
+        "flags": flags,
+    }
+    return {name: out.get(name, z64 if name in GEN_COLS_U64 else z32)
+            for name in types.TRANSFER_DTYPE.names}

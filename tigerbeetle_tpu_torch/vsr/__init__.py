@@ -1,1 +1,2 @@
-"""Replication-side helpers of the port (so far only the checksum)."""
+"""Replication-side helpers of the port (so far the checksum and the
+retry backoff timer)."""
