@@ -118,7 +118,8 @@ Phases, each printing one JSON line:
                 printing its JSON line, the timed loops under
                 ``torch.cuda.set_sync_debug_mode("error")``; after the plain
                 shape every account's balances equal the main phase's after
-                the same batches.  K20's launches read from the plain shape;
+                the same batches.  K20's and K26's launches read from the
+                plain shape;
  19. scrub_kernels - K21 scrub_fold against its plain version and K5, K22
                 merkle_build (heap and root-only) and K23 merkle_touch
                 (touch and gather_path) against their plain versions on the
@@ -137,8 +138,42 @@ Phases, each printing one JSON line:
                 equal).  Cut to ``--commit-transfers`` (500,000) and a root
                 check every 20 batches (printed): the mirror is a Python
                 oracle.  K21-K23 timed here, and their launches read here.
-Then a ``{"kernels": [...]}`` line (K1-K23 and K2's entries), and as the last line
-``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
+ 21. pipeline_kernels - the commit pipeline's kernels (``ops/group.py``):
+                K24 ``group_step`` and K25 ``group_finish`` against their
+                plain versions, K1-K4 in the forms the graph launches (K1
+                and K3 reading the count and timestamp from device words
+                into preallocated outputs, K4 and K2 on preallocated
+                scratch) against their host-int forms, K26 ``group_words``
+                and K20 reading its batch index from a device word against
+                their plain versions at the bench twin's shapes (8,192
+                lanes, its k), and one replay of the grouped commit's CUDA
+                graph (``group_dispatch``: GROUP_K = 32 steps) against 32
+                eager steps on the card and the plain loop on CPU copies,
+                byte for byte (codes [32, 8192], every table array, the
+                run's overflow word) on the phase-kernels ledger, for runs
+                of 1, 2, 17 and 32 batches; a zero-count run leaves the
+                ledger byte-identical.  K24-K26, the forms and a replay
+                timed;
+ 22. pipeline - the commit pipeline at full width (``--pipeline-transfers``,
+                10,000,000 flagship transfers at 10,000 accounts, lazy index,
+                the transfers table sized up front): (a) runs of 32 through
+                ``commit_group_fast(deferred=True)`` at depth 2, (b)
+                ``commit_fast_deferred`` batch by batch, (c) a mirror-armed
+                machine with an injected fault recovered through
+                ``_recover_inflight``, then ``device_fault_limit`` faults
+                degrading to the host engine, which commits the rest.  Every
+                code as the blocking path's, digest and balances equal phase
+                main's; the submits under the sync debug mode "error"; the
+                device idle share from CUDA events around each lane
+                closure.  The pipeline kernels' launches are read from (a);
+ 23. persistence - the commitments phase's Merkle-only machine (500,000
+                transfers) through ``checkpoint_ledger``, ``host_state``,
+                ``vsr.checkpoint.save`` and ``load`` into a fresh machine on
+                the card: digest, roots, commitment root, lookups and host
+                state equal; the save and load walls printed.
+Then a ``{"kernels": [...]}`` line (K1-K26, K2's claim and write entries
+and the grouped commit's replay), and as
+the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
 """
 
@@ -3680,7 +3715,8 @@ COMMIT_TRANSFERS = 500_000
 ROOT_CHECK_EVERY = 20
 SCRUB_SIZES_LOG2 = (8, 15, 25)  # scrub_kernels' pad sizes
 
-FLAGSHIP_PATH = ("bench_gen", "probe", "insert", "validate", "balance")
+FLAGSHIP_PATH = ("bench_gen", "probe", "insert", "validate", "balance",
+                 "group_words")
 COMMIT_PATH = ("scrub_fold", "merkle_build", "merkle_touch", "probe")
 # K20 writes fourteen u64 and five u32 columns a lane.
 GEN_BYTES_PER_LANE = 14 * 8 + 5 * 4
@@ -4335,8 +4371,599 @@ def phase_commitments(dev, n_transfers: int, seed: int) -> dict:
         "counters": {"scrub_checks": m.scrub_checks,
                      "merkle_updates": m.merkle_updates,
                      "merkle_rebuilds": m.merkle_rebuilds},
-        "launches": launches, "kernels": results,
+        "launches": launches, "kernels": results, "machine": lean,
     }
+
+
+# ---------------------------------------------------------------------------
+# phases 21-23: the commit pipeline and persistence
+# ---------------------------------------------------------------------------
+
+PIPE_RUNS = (1, 2, 17, 32)  # run lengths held against the eager and plain
+PIPELINE_PATH = ("group_dispatch", "group_step", "group_finish", "probe",
+                 "validate", "balance", "insert")
+PIPE_FAULT_BATCHES = 6  # mirror-armed deferred batches before the degrade
+
+
+def restore_tables(dst, src) -> None:
+    """Copy ``src``'s accounts and transfers tables into ``dst``'s buffers
+    in place (a captured graph keeps ``dst``'s addresses)."""
+    for name in ("accounts", "transfers"):
+        d, s = getattr(dst, name), getattr(src, name)
+        for a, b in ((d.key_lo, s.key_lo), (d.key_hi, s.key_hi),
+                     (d.tombstone, s.tombstone), (d.count, s.count),
+                     (d.probe_overflow, s.probe_overflow)):
+            a.copy_(b)
+        for c in d.cols:
+            d.cols[c].copy_(s.cols[c])
+
+
+def stage_run(rng, layout, host, k, xids, xhi, ts0):
+    """Fill the pinned staging set ``host`` with a run of ``k`` batches,
+    counts 8,190 and less: flagship batches (bench.py's generator, on the
+    ledger's 10,000 accounts) alternating with the phase-kernels mix (ids
+    of the table's rows, duplicates, unknown accounts, pendings, chains; its
+    batches reuse the run's ids, so they see the earlier ones' inserts);
+    returns the counts and timestamps of all GROUP_K rows."""
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    cols, counts, tss = layout.arrays(host.numpy())
+    host.zero_()
+    ts = ts0
+    for j in range(k):
+        n = COUNT - (j * 611) % 3000
+        b = (gen_batch_np(int(rng.integers(0, 1000)), LANES, COUNT,
+                          N_ACCOUNTS, 1 << 32) if j % 2 == 0
+             else transfer_batch(rng, LANES, COUNT, xids, xhi))[:n]
+        for name, col in cols.items():
+            col[j, :n] = b[name]
+        ts += n
+        counts[j], tss[j] = n, ts
+    tss[k:] = ts
+    return [int(c) for c in counts], [int(t) for t in tss]
+
+
+def phase_pipeline_kernels(seed: int, dev, kern: dict) -> dict:
+    """K24-K26 against their plain versions, K1-K4 and K20 in the forms a
+    captured graph launches (device words, preallocated outputs and
+    scratch) against their host-int forms, and one replay of the grouped
+    commit's graph against GROUP_K eager steps and the plain loop, byte for
+    byte: codes [GROUP_K, 8192], every table array and the run's overflow
+    word, on the phase-kernels ledger (rows, same-home clusters,
+    tombstones), for runs of ``PIPE_RUNS`` batches (flagship batches and
+    the phase-kernels mix); a run of zero-count steps leaves the ledger
+    byte-identical.  Timed:
+    K24-K26, each form, one replay, the eager run."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda, group
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    rng = np.random.default_rng(seed + 21)
+    acc = make_accounts_table(rng, dev)
+    xfr, xids, xhi = make_transfers_table(rng, dev)
+    base = sm.Ledger(acc, xfr, ht.make_table(1 << 10, sm.POSTED_COLS, dev),
+                     sm.make_history(1 << 10, dev))
+    K = group.GROUP_K
+    layout = group.StagingLayout(K, LANES)
+    host = torch.zeros(layout.nbytes, dtype=torch.uint8, pin_memory=True)
+    graph = group.GroupGraph(clone_ledger(base), K, LANES)
+    gled = graph._ledger
+    errs = dict.fromkeys(("group_dispatch", "group_step", "group_finish",
+                          "group_words"), 0)
+    checked = []
+    ts0 = 10 ** 15
+    plain_s = replay_ms = eager_ms = None
+    for k in PIPE_RUNS:
+        counts, tss = stage_run(rng, layout, host, k, xids, xhi, ts0)
+        ts0 = tss[-1] + 1
+        restore_tables(gled, base)
+        codes_g, ovf_g, _lo, _hi = graph.run(host)
+        torch.cuda.synchronize()
+        got = {"codes": to_np(codes_g), "overflow": to_np(ovf_g),
+               **ledger_np(gled)}
+        led_e = clone_ledger(base)
+        dev_cols = layout.tensors(host.to(dev))[0]
+        _l, codes_e, ovf_e, _a, _b = group.group_dispatch_steps(
+            led_e, dev_cols, counts, tss)
+        want_e = {"codes": to_np(codes_e), "overflow": to_np(ovf_e),
+                  **ledger_np(led_e)}
+        del led_e
+        led_p = clone_ledger(base, torch.device("cpu"))
+        cpu_cols = layout.tensors(host.clone())[0]
+        t0 = time.perf_counter()
+        _l, codes_p, ovf_p, _a, _b = group.group_dispatch_steps(
+            led_p, cpu_cols, counts, tss)
+        if k == K:
+            plain_s = time.perf_counter() - t0
+        want_p = {"codes": to_np(codes_p), "overflow": to_np(ovf_p),
+                  **ledger_np(led_p)}
+        del led_p
+        e = max(max_abs_err(f"group replay vs eager (run of {k})", got,
+                            want_e),
+                max_abs_err(f"group replay vs plain (run of {k})", got,
+                            want_p))
+        errs["group_dispatch"] = max(errs["group_dispatch"], e)
+        checked.append({"run": k, "counts": counts[:k],
+                        "codes_nonzero": int((got["codes"][:k] != 0).sum())})
+    # Zero-count steps leave every ledger array byte-identical.
+    cols, counts_np, _t = layout.arrays(host.numpy())
+    counts_np[:] = 0
+    restore_tables(gled, base)
+    before = ledger_np(gled)
+    graph.run(host)
+    torch.cuda.synchronize()
+    errs["group_dispatch"] = max(errs["group_dispatch"], max_abs_err(
+        "zero-count run", ledger_np(gled), before))
+
+    # The run of GROUP_K again, timed: one replay (the ledger restored
+    # before each, outside the events) and the eager form.
+    counts, tss = stage_run(rng, layout, host, K, xids, xhi, ts0)
+    dev_host = host.to(dev)
+
+    def event_ms(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            restore_tables(gled, base)
+            graph.stage.copy_(dev_host)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return sorted(out)[len(out) // 2]
+
+    replay_ms = event_ms(graph.captured.replay)
+    eager_cols = layout.tensors(dev_host)[0]
+    eager_ms = event_ms(lambda: group.group_dispatch_steps(
+        gled, eager_cols, counts, tss))
+    h2d_ms = loop_ms(lambda: graph.stage.copy_(host, non_blocking=True),
+                     n=10)
+
+    # K24 against its plain version, steps of a run and a padding step.
+    stacked, cw, tw = graph.stacked, graph.counts, graph.timestamps
+    graph.stage.copy_(dev_host)
+    run_ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    for j in (0, 1, K - 1):
+        for flag in (False, True):
+            table_ovf = torch.tensor(flag, device=dev)
+            run_ovf.fill_(1 if j == 1 else 0)
+            pv, pts, pp, po = group.group_step_plain(
+                cw, tw, j, stacked["flags"][j], table_ovf, run_ovf.clone())
+            sc = graph.steps
+            _cuda.group_step(cw, tw, j, stacked["flags"][j], sc.valid, sc.ts,
+                             sc.pending, table_ovf, run_ovf)
+            errs["group_step"] = max(errs["group_step"], max_abs_err(
+                f"K24 step {j} (table flag {flag})",
+                {"valid": to_np(sc.valid), "ts": to_np(sc.ts),
+                 "pending": to_np(sc.pending), "ovf": to_np(run_ovf)},
+                {"valid": to_np(pv), "ts": to_np(pts), "pending": to_np(pp),
+                 "ovf": to_np(po)}))
+    flags0 = stacked["flags"][0]
+    sc = graph.steps
+    k24_ms = timed(lambda: _cuda.group_step(
+        cw, tw, 0, flags0, sc.valid, sc.ts, sc.pending,
+        gled.transfers.probe_overflow, sc.run_ovf))
+    k24_plain = timed(lambda: group.group_step_plain(
+        cw, tw, 0, flags0, gled.transfers.probe_overflow, sc.run_ovf))
+
+    # K25 against its plain version, then timed.
+    for flag in (False, True):
+        for prev in (0, 1):
+            table_ovf = torch.tensor(flag, device=dev)
+            run_ovf.fill_(prev)
+            want = group.group_finish_plain(table_ovf, run_ovf.clone())
+            _cuda.group_finish(table_ovf, run_ovf)
+            errs["group_finish"] = max(errs["group_finish"],
+                                       max_abs_err(
+                f"K25 (table flag {flag}, word {prev})",
+                {"ovf": to_np(run_ovf)}, {"ovf": to_np(want)}))
+    k25_ms = timed(lambda: _cuda.group_finish(gled.transfers.probe_overflow,
+                                              sc.run_ovf))
+    k25_plain = timed(lambda: group.group_finish_plain(
+        gled.transfers.probe_overflow, sc.run_ovf))
+
+    # The fast path's kernels in the forms the graph launches (K1 and K3
+    # reading the count and timestamp from device words into preallocated
+    # outputs, K4 and K2 on preallocated scratch) against their host-int
+    # forms at step 0 of the run, on the base ledger.
+    soa = {name: col[0] for name, col in stacked.items()}
+    c0, t0_ = counts[0], tss[0]
+    cw0, tw0 = cw[0:1], tw[0:1]
+    s = group.FastSteps(base, K, LANES, dev)
+    names = sm.TRANSFER_EXISTS_COLS
+    look = ht.lookup(xfr, soa["id_lo"], soa["id_hi"], sm.MAX_PROBE, count=c0,
+                     cols=names)
+    probe_out = (s.ex_found, s.ex_slot, [s.ex[c] for c in names])
+    _cuda.probe(xfr.key_lo, xfr.key_hi, xfr.tombstone, xfr.cols,
+                soa["id_lo"], soa["id_hi"], sm.MAX_PROBE, 0, LANES, names,
+                count_word=cw0, out=probe_out)
+    forms = {}
+    forms["probe"] = max_abs_err(
+        "K1 reading its count from a device word",
+        {"found": to_np(s.ex_found), "slot": to_np(s.ex_slot),
+         **{c: to_np(s.ex[c]) for c in names}},
+        {"found": to_np(look.found), "slot": to_np(look.slot),
+         **{c: to_np(look.cols[c]) for c in names}})
+    ctx = transfer_ctx(acc, xfr, soa, ht, sm)
+    kc, ko = sm.transfer_codes(soa, ctx, c0, t0_)
+    ctx_cols = {"dr_found": ctx.dr_found, "cr_found": ctx.cr_found,
+                "dr_ledger": ctx.dr["ledger"], "cr_ledger": ctx.cr["ledger"],
+                "ex_found": ctx.ex_found}
+    vcols = ([soa[c] for c in sm.TRANSFER_BATCH_COLS]
+             + [ctx_cols[c] for c in sm.TRANSFER_CTX_COLS]
+             + [ctx.e[c] for c in names])
+    vout = (s.codes[0], s.ok, s.vscratch)
+    _cuda.validate("transfers", vcols, 0, count_word=cw0, ts_word=tw0,
+                   out=vout)
+    forms["validate"] = max_abs_err(
+        "K3 reading its count and timestamp from device words",
+        {"codes": to_np(s.codes[0]), "ok": to_np(s.ok)},
+        {"codes": to_np(kc), "ok": to_np(ko)})
+    pend = (soa["flags"] & sm.TF_PENDING) != 0
+    ak, ag = clone_table(acc), clone_table(acc)
+    sm.apply_balances(ak, ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"],
+                      pend)
+    s.limbs.fill_(-1)  # the wrapper zeroes its scratch
+    _cuda.balance(ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"], pend,
+                  [ag.cols[c] for c in sm.BALANCE_COLS],
+                  scratch=(s.limbs, s.taken))
+    forms["balance"] = max_abs_err("K4 on preallocated scratch",
+                                   table_np(ag), table_np(ak))
+    rows = sm.transfer_rows(soa, c0, t0_)
+    iscratch = (s.claimed, s.claim0, s.claim1, s.cnt)
+    tk, tg = clone_table(xfr), clone_table(xfr)
+    _t, ck = ht.insert(tk, soa["id_lo"], soa["id_hi"], ko, rows, sm.MAX_PROBE)
+    s.cnt.fill_(-1)
+    _cuda.insert(tg.key_lo, tg.key_hi, tg.tombstone, tg.cols, tg.count,
+                 tg.probe_overflow, soa["id_lo"], soa["id_hi"], ko, rows,
+                 sm.MAX_PROBE, 0, scratch=iscratch)
+    forms["insert"] = max_abs_err(
+        "K2 on preallocated scratch", {"claimed": to_np(s.claimed),
+                                       **table_np(tg)},
+        {"claimed": to_np(ck), **table_np(tk)})
+    del ak, ag, tk, tg
+    torch.cuda.synchronize()
+    form_times = {
+        "probe": pair_times(
+            timed(lambda: _cuda.probe(
+                xfr.key_lo, xfr.key_hi, xfr.tombstone, xfr.cols,
+                soa["id_lo"], soa["id_hi"], sm.MAX_PROBE, 0, LANES, names,
+                count_word=cw0, out=probe_out)),
+            timed(lambda: ht.lookup_plain(xfr, soa["id_lo"], soa["id_hi"],
+                                          sm.MAX_PROBE, 0, c0, names))),
+        "validate": pair_times(
+            timed(lambda: _cuda.validate("transfers", vcols, 0,
+                                         count_word=cw0, ts_word=tw0,
+                                         out=vout)),
+            timed(lambda: sm.transfer_codes_plain(soa, ctx, c0, t0_))),
+        "balance": pair_times(
+            timed(lambda t: _cuda.balance(
+                ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"], pend,
+                [t.cols[c] for c in sm.BALANCE_COLS],
+                scratch=(s.limbs, s.taken)),
+                setup=lambda: (clone_table(acc),)),
+            timed(lambda t: sm.apply_balance_plan(t, sm.balance_plan(
+                ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"], pend,
+                t.capacity)), setup=lambda: (clone_table(acc),))),
+        "insert": pair_times(
+            timed(lambda t: _cuda.insert(
+                t.key_lo, t.key_hi, t.tombstone, t.cols, t.count,
+                t.probe_overflow, soa["id_lo"], soa["id_hi"], ko, rows,
+                sm.MAX_PROBE, 0, scratch=iscratch),
+                reps=10, setup=lambda: (clone_table(xfr),)),
+            timed(lambda t: ht.insert_plain(t, soa["id_lo"], soa["id_hi"],
+                                            ko, rows, sm.MAX_PROBE),
+                  reps=10, setup=lambda: (clone_table(xfr),))),
+    }
+    forms = {name: dict(max_abs_err=err, **form_times[name],
+                        bound_ms=kern[name]["bound"][0])
+             for name, err in forms.items()}
+    if any(f["max_abs_err"] for f in forms.values()):
+        raise AssertionError(f"device-word forms disagree: {forms}")
+
+    # K26 and K20 reading its batch index from a device word, at the bench
+    # twin's shapes: 8,192 lanes, the twin's k, its count and timestamps.
+    from tigerbeetle_tpu_torch import bench
+    from tigerbeetle_tpu_torch.utils import benchgen
+
+    twin_k = bench.plan(10_000_000, COUNT)[1]
+    ts0 = N_ACCOUNTS  # the plain shape's (bench.py's ts0 for 10,000 accounts)
+    words = [torch.zeros(twin_k, dtype=torch.int64, device=dev)
+             for _ in range(3)]
+    bases = (0, twin_k, bench.plan(10_000_000, COUNT)[0] - twin_k,
+             (1 << 32) // COUNT + 1)
+    for b0 in bases:
+        base = torch.tensor([b0], dtype=torch.int64, device=dev)
+        want = group.group_words_plain(base.clone(), COUNT, ts0, twin_k)
+        _cuda.group_words(base, COUNT, ts0, *words)
+        errs["group_words"] = max(errs["group_words"], max_abs_err(
+            f"K26 (base {b0}, k {twin_k})",
+            dict(zip(("base", "bidx", "counts", "timestamps"),
+                     map(to_np, [base] + words))),
+            dict(zip(("base", "bidx", "counts", "timestamps"),
+                     map(to_np, want)))))
+    gen = benchgen.empty_soa(LANES, dev)
+    gen_cols = [gen[c] for c in benchgen.GEN_COLS]
+    for j in (0, 1, twin_k - 1):
+        _cuda.bench_gen(gen_cols, benchgen.MODE_PLAIN, 0, COUNT, N_ACCOUNTS,
+                        bench.FIRST_TID, b_word=words[0][j:j + 1])
+        b = int(words[0][j])
+        forms.setdefault("bench_gen", {"max_abs_err": 0})
+        forms["bench_gen"]["max_abs_err"] = max(
+            forms["bench_gen"]["max_abs_err"], max_abs_err_card(
+                f"K20 reading batch {b} from a device word",
+                gen, benchgen.gen_batch_plain(
+                    benchgen.MODE_PLAIN, b, LANES, COUNT, N_ACCOUNTS,
+                    bench.FIRST_TID, dev)))
+    forms["bench_gen"].update(pair_times(
+        timed(lambda: _cuda.bench_gen(
+            gen_cols, benchgen.MODE_PLAIN, 0, COUNT, N_ACCOUNTS,
+            bench.FIRST_TID, b_word=words[0][0:1])),
+        timed(lambda: benchgen.gen_batch_plain(
+            benchgen.MODE_PLAIN, 7, LANES, COUNT, N_ACCOUNTS,
+            bench.FIRST_TID, dev))))
+    base = torch.zeros(1, dtype=torch.int64, device=dev)
+    k26_ms = timed(lambda: _cuda.group_words(base, COUNT, ts0, *words))
+    k26_plain = timed(lambda: group.group_words_plain(base, COUNT, ts0,
+                                                      twin_k))
+
+    results = {}
+    step_bytes = 4 * LANES + LANES * (1 + 8 + 1) + 16 + 4
+    results["group_step"] = dict(
+        max_abs_err=errs["group_step"], **pair_times(k24_ms, k24_plain),
+        library_ms=None, bound=bound(step_bytes, 4 * LANES),
+        shape=f"one step of {LANES} lanes")
+    results["group_finish"] = dict(
+        max_abs_err=errs["group_finish"], **pair_times(k25_ms, k25_plain),
+        library_ms=None, bound=bound(1 + 4 + 4, 1),
+        shape="one flag byte and the run's word")
+    results["group_words"] = dict(
+        max_abs_err=errs["group_words"], **pair_times(k26_ms, k26_plain),
+        library_ms=None, bound=bound(8 + 8 + 3 * 8 * twin_k, 4 * twin_k),
+        shape=f"the bench twin's k = {twin_k} steps")
+    # One replay's bound: GROUP_K steps, each the fast path's three probes,
+    # ladder, balances and insert at the phase-kernels shapes, then K25.
+    step_ms = (3 * kern["probe"]["bound"][0] + kern["validate"]["bound"][0]
+               + kern["balance"]["bound"][0] + kern["insert"]["bound"][0]
+               + results["group_step"]["bound"][0])
+    results["group_dispatch"] = dict(
+        max_abs_err=errs["group_dispatch"], ms=replay_ms,
+        plain_ms=plain_s * 1e3, ms_from="cuda events around one replay "
+        "(median of 5, the ledger restored before each)",
+        plain_ms_from="host clock, the plain loop on CPU copies",
+        eager_ms=eager_ms, h2d_ms=h2d_ms,
+        library_ms=None,
+        bound=(K * step_ms + results["group_finish"]["bound"][0], "bytes"),
+        bound_from="GROUP_K x (3 K1 + K3 + K4 + K2 + K24 bounds) + K25",
+        shape=f"a run of {K} batches of up to {COUNT} events, 8,192 lanes")
+    return {"checked": checked, "graph_nodes": graph.captured.nodes,
+            "results": results, "forms": forms}
+
+
+def pipeline_accounts(m):
+    from tigerbeetle_tpu_torch import types
+
+    for start in range(0, N_ACCOUNTS, COUNT):
+        ids = range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)
+        if m.create_accounts(types.accounts_array(
+                [types.account(id=i, ledger=1, code=10) for i in ids])):
+            raise AssertionError("pipeline: account creation failed")
+
+
+def check_closed_form(m, debits, credits, what):
+    rows = m.lookup_accounts(list(range(1, N_ACCOUNTS + 1)))
+    if len(rows) != N_ACCOUNTS:
+        raise AssertionError(f"{what}: lookup lost accounts")
+    order = rows["id_lo"].astype(np.int64)
+    for name, want in (("debits_posted", debits), ("credits_posted", credits)):
+        if not np.array_equal(rows[name + "_lo"], want[order]) or \
+                rows[name + "_hi"].any():
+            raise AssertionError(f"{what}: {name} differs from the closed form")
+
+
+def phase_pipeline(dev, n_transfers: int, main_run: dict) -> dict:
+    """The commit pipeline at full width: 10,000 accounts, then the
+    flagship's ``n_transfers`` in 8,190-event batches, ``lazy_index``, the
+    transfers table sized up front (2^25 slots: no growth, one capture at
+    warmup).  (a) runs of GROUP_K through ``commit_group_fast(deferred=
+    True)`` at depth 2 (one run in flight while the next is staged); (b)
+    ``commit_fast_deferred`` batch by batch at depth 2; (c) a mirror-armed
+    machine: one injected fault in a deferred run, recovered through
+    ``_recover_inflight``, then ``device_fault_limit`` consecutive faults,
+    after which the host engine commits the rest.  Every code as the
+    blocking path's (none fail); digest and balances equal phase main's.
+    The submits run under ``torch.cuda.set_sync_debug_mode("error")``; the
+    device idle share of (a) and (b) from CUDA events around each lane
+    closure."""
+    import torch
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import _cuda, group
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    n_batches = (n_transfers + COUNT - 1) // COUNT
+    batches = [gen_batch_np(b, COUNT, COUNT, N_ACCOUNTS, 1 << 32)[
+        :min(COUNT, n_transfers - b * COUNT)] for b in range(n_batches)]
+    debits = np.zeros(N_ACCOUNTS + 1, np.uint64)
+    credits = np.zeros(N_ACCOUNTS + 1, np.uint64)
+    for b in batches:
+        np.add.at(debits, b["debit_account_id_lo"].astype(np.int64),
+                  b["amount_lo"])
+        np.add.at(credits, b["credit_account_id_lo"].astype(np.int64),
+                  b["amount_lo"])
+    cfg = LedgerConfig(lazy_index=True, transfers_capacity_log2=25)
+    out = {"batches": n_batches, "transfers": n_transfers,
+           "main_transfers_per_s": main_run["transfers_per_s"]}
+    launches = None
+    for mode in ("group", "single"):
+        gc.collect()
+        m = TorchStateMachine(cfg, batch_lanes=LANES, device=dev)
+        m.pipeline_depth = 2
+        m.group_device_commit = True
+        pipeline_accounts(m)
+        m.warmup()
+        torch.cuda.synchronize()
+        captures0 = group.CAPTURES
+        m.lane_events = []
+        if mode == "group":
+            _cuda.reset_counts()
+        runs = ([batches[i:i + m.GROUP_K]
+                 for i in range(0, n_batches, m.GROUP_K)]
+                if mode == "group" else [[b] for b in batches])
+        inflight = None
+        results = []
+        wait_s = 0.0
+        t0 = time.perf_counter()
+        for run in runs:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tss = [m.prepare("create_transfers", len(b)) for b in run]
+                if len(run) >= 2:
+                    h = m.commit_group_fast(run, tss, deferred=True)
+                else:
+                    h = m.commit_fast_deferred(run[0], tss[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if h is None:
+                raise AssertionError(f"pipeline {mode}: a run was refused")
+            if inflight is not None:
+                results += inflight.resolve()
+                wait_s += inflight.join_wait_s
+            inflight = h
+        results += inflight.resolve()
+        wall = time.perf_counter() - t0
+        if mode == "group":
+            launches = _cuda.counts()
+        if any(results) or len(results) != n_batches:
+            raise AssertionError(f"pipeline {mode}: codes differ from the "
+                                 "blocking path's (which had none)")
+        digest = m.digest()
+        if digest != main_run["digest"]:
+            raise AssertionError(f"pipeline {mode}: digest differs from main's")
+        check_closed_form(m, debits, credits, f"pipeline {mode}")
+        span = sum(s.elapsed_time(e) for s, e in m.lane_events)
+        out[mode] = {
+            "transfers_per_s": n_transfers / wall, "wall_s": wall,
+            "runs": len(runs), "resolve_wait_s": wait_s,
+            "closure_span_ms": span,
+            "device_idle_share": 1 - span / (wall * 1e3),
+            "idle_share_from": "CUDA events around each lane closure: their "
+                               "span bounds the busy time from above (a "
+                               "graph replay keeps the card busy; eager "
+                               "launches leave gaps while the lane thread "
+                               "queues them), so the share is a lower bound",
+            "captures_after_warmup": group.CAPTURES - captures0,
+        }
+        if group.CAPTURES != captures0:
+            raise AssertionError(f"pipeline {mode}: a capture after warmup")
+        del m
+    gc.collect()
+
+    # (c) the fault funnels at full width, then the host engine.
+    m = TorchStateMachine(LedgerConfig(lazy_index=True), batch_lanes=LANES,
+                          device=dev)
+    m.retry_tick_s = 0
+    m.scrub_interval = 1 << 20  # a mirror, no check due in this run
+    if not m.scrub_arm():
+        raise AssertionError("pipeline faults: the machine did not arm")
+    pipeline_accounts(m)
+    results = []
+    inflight = []
+    t0 = time.perf_counter()
+    events = []
+    for b, batch in enumerate(batches):
+        ts = m.prepare("create_transfers", len(batch))
+        h = m.commit_fast_deferred(batch, ts)
+        if h is None:  # degraded: the host engine commits (blocking)
+            results.append(m.commit_batch("create_transfers", batch, ts))
+            continue
+        inflight.append(h)
+        if b == 2:
+            m.inject_device_faults(1)  # at the read-back of batch 1
+            events.append("fault at batch 1's resolve (2 in flight)")
+        if b == PIPE_FAULT_BATCHES - 1:
+            m.inject_device_faults(m.device_fault_limit)
+            events.append(f"{m.device_fault_limit} faults at batch "
+                          f"{b - 1}'s resolve")
+        if len(inflight) == 2:
+            results += inflight.pop(0).resolve()
+    for h in inflight:
+        results += h.resolve()
+    wall_c = time.perf_counter() - t0
+    if any(results) or len(results) != n_batches:
+        raise AssertionError("pipeline faults: codes differ")
+    if not m.degraded_to_host_engine or m.device_recoveries < 1:
+        raise AssertionError("pipeline faults: no recovery and degrade")
+    if m.digest() != main_run["digest"]:
+        raise AssertionError("pipeline faults: digest differs from main's")
+    check_closed_form(m, debits, credits, "pipeline faults")
+    out["faults"] = {"events": events, "device_recoveries":
+                     m.device_recoveries, "degraded": True,
+                     "wall_s": wall_c, "transfers_per_s": n_transfers / wall_c}
+    out["launches"] = launches
+    return out
+
+
+def phase_persistence(dev, lean) -> dict:
+    """The commitments phase's Merkle-only machine (500,000 flagship
+    transfers): ``checkpoint_ledger`` and ``host_state``, saved with
+    ``vsr.checkpoint.save`` and loaded into a fresh machine on the card,
+    Merkle armed there from the restored state: digest, roots, commitment
+    root and lookups equal."""
+    import tempfile
+
+    import torch
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.vsr import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/data"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _p, cs = checkpoint.save(path, 7, lean.checkpoint_ledger(),
+                                 {"host_state": lean.host_state()})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ledger, meta = checkpoint.load(path, 7, cs, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in __import__("pathlib").Path(
+            tmp).iterdir())
+    m = TorchStateMachine(LedgerConfig(lazy_index=True), batch_lanes=LANES,
+                          device=dev)
+    m.ledger = ledger
+    m.scrub_interval = 1
+    m.merkle_enabled = True
+    m.scrub_paranoid = False
+    m.restore_host_state(meta["host_state"])
+    m.scrub_arm()  # armed from the restored, verified state
+    if not m.merkle_armed:
+        raise AssertionError("persistence: the restored machine did not arm")
+    checks = {
+        "digest": (m.digest(), lean.digest()),
+        "merkle_roots": (m.merkle_roots(), lean.merkle_roots()),
+        "commitment_root": (m.commitment_root(), lean.commitment_root()),
+    }
+    for what, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"persistence: {what} {got} != {want}")
+    ids = list(range(1, N_ACCOUNTS + 1))
+    if m.lookup_accounts(ids).tobytes() != lean.lookup_accounts(ids).tobytes():
+        raise AssertionError("persistence: account lookups differ")
+    tids = [(1 << 32) + i * 37 for i in range(8192)]
+    if m.lookup_transfers(tids).tobytes() != \
+            lean.lookup_transfers(tids).tobytes():
+        raise AssertionError("persistence: transfer lookups differ")
+    if m.host_state() != lean.host_state():
+        raise AssertionError("persistence: host state differs")
+    return {"save_s": save_s, "load_s": load_s, "snapshot_bytes": nbytes,
+            "transfers": int(m.ledger.transfers.count.item()),
+            "checked": sorted(checks) + ["lookups", "host_state"]}
 
 
 def main() -> int:
@@ -4358,6 +4985,8 @@ def main() -> int:
     # The bench twin's depth: bench.py's 10,000,000 transfers.
     p.add_argument("--bench-transfers", type=int, default=10_000_000)
     p.add_argument("--commit-transfers", type=int, default=COMMIT_TRANSFERS)
+    # The pipeline phase's depth: the flagship's 10,000,000 transfers.
+    p.add_argument("--pipeline-transfers", type=int, default=10_000_000)
     args = p.parse_args()
 
     import torch
@@ -4507,6 +5136,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     com = phase_commitments(dev, args.commit_transfers, args.seed)
+    lean = com.pop("machine")
     emit({"phase": "commitments", "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi,
           "cut": {"transfers": [2_000_000, args.commit_transfers],
@@ -4523,6 +5153,32 @@ def main() -> int:
         raise AssertionError(
             f"kernels not launched on the commitments path: {missing}")
 
+    t0 = time.perf_counter()
+    pk = phase_pipeline_kernels(args.seed, dev, kern)
+    emit({"phase": "pipeline_kernels", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "checked": pk["checked"],
+          "graph_nodes": pk["graph_nodes"],
+          "graph_forms": pk["forms"],
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in pk["results"].items()},
+          "bounds_ms": {k: v["bound"] for k, v in pk["results"].items()}})
+    kern.update(pk["results"])
+
+    t0 = time.perf_counter()
+    pipe = phase_pipeline(dev, args.pipeline_transfers, main_run)
+    emit({"phase": "pipeline", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, **pipe})
+    missing = [k for k in PIPELINE_PATH if pipe["launches"][k] == 0]
+    if missing:
+        raise AssertionError(
+            f"kernels not launched on the pipeline path: {missing}")
+
+    t0 = time.perf_counter()
+    per = phase_persistence(dev, lean)
+    del lean
+    emit({"phase": "persistence", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, **per})
+
     # max_abs_err: index_kernels' cases and the queries phase's full-size
     # comparisons (the deepest carried level, the rebuilt level, K15 over
     # the whole pyramid, K16 over the whole log).
@@ -4534,7 +5190,10 @@ def main() -> int:
     # of seq_kernels (its device function runs inside K6/K7's rollbacks),
     # K9-K12 and K2's claim/write entries from the general path's two-phase
     # run (the limits run launched each of them too), K13-K16 from the
-    # queries phase, K17-K19 from the tiered phase.
+    # queries phase, K17-K19 from the tiered phase, K20 and K26 from the
+    # bench twin's plain shape, K21-K23 from the commitments phase, K24,
+    # K25 and the grouped commit's replays from the pipeline phase's
+    # grouped runs.
     paths = {name: ("main", launches) for name in MAIN_PATH}
     paths.update({name: ("sequential", seq_launches)
                   for name in ("seq_transfers", "seq_accounts")})
@@ -4545,9 +5204,13 @@ def main() -> int:
                   for name in INDEX_PATH if name != "probe"})
     paths.update({name: ("tiered", trun["launches"]) for name in
                   ("bloom_check", "evict_threshold", "evict_extract")})
-    paths["bench_gen"] = ("flagship (bench twin, plain)", flag["launches"])
+    paths.update({name: ("flagship (bench twin, plain)", flag["launches"])
+                  for name in ("bench_gen", "group_words")})
     paths.update({name: ("commitments", com["launches"]) for name in
                   ("scrub_fold", "merkle_build", "merkle_touch")})
+    paths.update({name: ("pipeline (a), grouped runs", pipe["launches"])
+                  for name in ("group_dispatch", "group_step",
+                               "group_finish")})
     rows = []
     for name, k in _cuda.KERNELS.items():
         r = kern[name]

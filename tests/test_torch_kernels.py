@@ -727,7 +727,14 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "tigerbeetle_tpu_torch.ops.scan_builder",
             "tigerbeetle_tpu_torch.ops.scrub", "tigerbeetle_tpu_torch.ops.merkle",
             "tigerbeetle_tpu_torch.bench",
-            "tigerbeetle_tpu_torch.vsr.timeout"} <= set(mods)
+            "tigerbeetle_tpu_torch.vsr.timeout",
+            "tigerbeetle_tpu_torch.ops.group",
+            "tigerbeetle_tpu_torch.host_engine",
+            "tigerbeetle_tpu_torch.sanitize",
+            "tigerbeetle_tpu_torch.vsr.checkpoint",
+            "tigerbeetle_tpu_torch.vsr.overload",
+            "tigerbeetle_tpu_torch.lsm.forest",
+            "tigerbeetle_tpu_torch.utils.ewah"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -859,6 +866,7 @@ _TWINS = {
         "mix64_np", "_limbs", "_wrap_sum", "mirror_digests", "_join",
         "_grown", "_pad_pow2", "_account_arrays", "_transfer_arrays",
         "_posted_arrays", "_history_arrays", "model_from_ledger",
+        "build_host_ledger",
         "SimulatedDeviceFault", "DeviceStateUnrecoverable"),
     "ops/merkle.py": (
         "_np_row_accounts", "_np_row_transfers", "_np_row_posted",
@@ -898,3 +906,241 @@ def test_numpy_twin_equals_its_source(path, name):
         assert got.splitlines()[0] == want.splitlines()[0]
         return
     assert body(got) == body(want)
+
+
+# -- K24 and the grouped commit's graph (ops/group.py) ----------------------------
+
+
+def _group_ledger(device, rng):
+    """A small ledger on ``device``: 16 accounts, 300 transfers."""
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    m = TorchStateMachine(LedgerConfig(accounts_capacity_log2=10,
+                                       transfers_capacity_log2=12),
+                          batch_lanes=256, device=device)
+    m.create_accounts(types.accounts_array(
+        [types.account(id=i + 1, ledger=1, code=10) for i in range(16)]))
+    b = np.zeros(250, dtype=types.TRANSFER_DTYPE)
+    b["id_lo"] = 1000 + np.arange(250)
+    b["debit_account_id_lo"] = 1 + rng.integers(0, 16, 250)
+    b["credit_account_id_lo"] = 1 + (b["debit_account_id_lo"] + 2) % 16
+    b["amount_lo"], b["ledger"], b["code"] = 5, 1, 10
+    m.create_transfers(b)
+    return m
+
+
+def _stage(layout, rng, k):
+    from tigerbeetle_tpu_torch.ops import group
+
+    buf = torch.zeros(layout.nbytes, dtype=torch.uint8)
+    cols, counts, tss = layout.arrays(buf.numpy())
+    ts = 10 ** 9
+    for j in range(k):
+        n = int(rng.integers(1, layout.lanes + 1))
+        cols["id_lo"][j, :n] = 900 + rng.integers(0, 1500, n)  # some exist
+        cols["debit_account_id_lo"][j, :n] = 1 + rng.integers(0, 17, n)
+        cols["credit_account_id_lo"][j, :n] = 1 + rng.integers(0, 16, n)
+        cols["amount_lo"][j, :n] = rng.integers(0, 50, n)
+        cols["flags"][j, :n] = np.where(rng.random(n) < 0.2, 2, 0)
+        cols["ledger"][j, :n], cols["code"][j, :n] = 1, 10
+        ts += n
+        counts[j], tss[j] = n, ts
+    tss[k:] = ts
+    return buf, [int(c) for c in counts], [int(t) for t in tss], group
+
+
+@pytest.mark.parametrize("k", [1, 2, 17, 32])
+def test_group_graph_replay_matches_eager_and_plain(cuda_device, k):
+    """One replay of the grouped commit's graph against GROUP_K eager steps
+    on the card and the plain loop on CPU copies: codes [32, 256], the
+    run's overflow word and every ledger array, byte for byte; padding
+    steps apply nothing."""
+    from tigerbeetle_tpu_torch.ops import group
+
+    rng = np.random.default_rng(k)
+    m = _group_ledger(cuda_device, rng)
+    layout = group.StagingLayout(group.GROUP_K, 256)
+    buf, counts, tss, _g = _stage(layout, rng, k)
+    base = convert.ledger_to_numpy(m.ledger)
+    graph = group.GroupGraph(convert.ledger_from_numpy(base, cuda_device),
+                             group.GROUP_K, 256)
+    codes_g, ovf_g, _lo, _hi = graph.run(buf.pin_memory())
+    eager = convert.ledger_from_numpy(base, cuda_device)
+    _l, codes_e, ovf_e, _a, _b = group.group_dispatch_steps(
+        eager, layout.tensors(buf.to(cuda_device))[0], counts, tss)
+    plain = convert.ledger_from_numpy(base, torch.device("cpu"))
+    _l, codes_p, ovf_p, _a, _b = group.group_dispatch_steps(
+        plain, layout.tensors(buf.clone())[0], counts, tss)
+    assert torch.equal(codes_g.cpu(), codes_e.cpu())
+    assert torch.equal(codes_g.cpu(), codes_p)
+    assert ovf_g.tolist() == ovf_e.tolist() == ovf_p.tolist()
+    got = convert.ledger_to_numpy(graph._ledger)
+    for want in (convert.ledger_to_numpy(eager),
+                 convert.ledger_to_numpy(plain)):
+        for name in ("accounts", "transfers"):
+            for key in ("key_lo", "key_hi", "tombstone", "count"):
+                np.testing.assert_array_equal(got[name][key], want[name][key])
+            for c in want[name]["cols"]:
+                np.testing.assert_array_equal(got[name]["cols"][c],
+                                              want[name]["cols"][c])
+
+
+def test_group_step_matches_plain(cuda_device):
+    from tigerbeetle_tpu_torch.ops import group
+
+    counts = torch.tensor([5, 256, 0], dtype=torch.int64, device=cuda_device)
+    tss = torch.tensor([100, 1 << 40, -7], dtype=torch.int64,
+                       device=cuda_device)
+    flags = torch.arange(256, dtype=torch.int32, device=cuda_device) % 7
+    valid = torch.empty(256, dtype=torch.bool, device=cuda_device)
+    ts = torch.empty(256, dtype=torch.int64, device=cuda_device)
+    pending = torch.empty(256, dtype=torch.bool, device=cuda_device)
+    for j in range(3):
+        for flag in (False, True):
+            table = torch.tensor(flag, device=cuda_device)
+            word = torch.ones(1, dtype=torch.int32, device=cuda_device)
+            want = group.group_step_plain(counts, tss, j, flags, table,
+                                          word.clone())
+            _cuda.group_step(counts, tss, j, flags, valid, ts, pending, table,
+                             word)
+            for a, b in zip((valid, ts, pending, word), want):
+                assert torch.equal(a, b)
+
+
+def test_device_word_forms_match_host_int_forms(cuda_device):
+    """The forms the grouped commit's graph launches, step by step on one
+    ledger: K1 and K3 reading the count and timestamp from device words
+    into preallocated outputs, K4 and K2 on preallocated scratch, against
+    the fast path's host-int forms (a padding step of count 0 included);
+    K25 and K26 against their plain versions; K20 reading its batch index
+    from a device word against its plain version."""
+    from tigerbeetle_tpu_torch.ops import group
+    from tigerbeetle_tpu_torch.utils import benchgen
+
+    rng = np.random.default_rng(5)
+    m = _group_ledger(cuda_device, rng)
+    layout = group.StagingLayout(4, 256)
+    buf, counts, tss, _g = _stage(layout, rng, 3)
+    stacked, cw, tw = layout.tensors(buf.to(cuda_device))
+    ref = convert.ledger_from_numpy(convert.ledger_to_numpy(m.ledger),
+                                    cuda_device)
+    got = convert.ledger_from_numpy(convert.ledger_to_numpy(m.ledger),
+                                    cuda_device)
+    s = group.FastSteps(got, 4, 256, cuda_device)
+    names = sm.TRANSFER_EXISTS_COLS
+    for j in range(4):
+        soa = {n: c[j] for n, c in stacked.items()}
+        c, t = counts[j], tss[j]
+        xr, xg = ref.transfers, got.transfers
+        want = ht.lookup(xr, soa["id_lo"], soa["id_hi"], sm.MAX_PROBE,
+                         count=c, cols=names)
+        found, slot, ovf, cols = _cuda.probe(
+            xg.key_lo, xg.key_hi, xg.tombstone, xg.cols, soa["id_lo"],
+            soa["id_hi"], sm.MAX_PROBE, 0, 256, names,
+            count_word=cw[j:j + 1],
+            out=(s.ex_found, s.ex_slot, [s.ex[n] for n in names]))
+        assert ovf is None and found is s.ex_found
+        assert torch.equal(found, want.found) and torch.equal(slot, want.slot)
+        for n in names:
+            assert torch.equal(cols[n], want.cols[n])
+        dr = ht.lookup(ref.accounts, soa["debit_account_id_lo"],
+                       soa["debit_account_id_hi"], sm.MAX_PROBE, count=c,
+                       cols=("ledger",))
+        cr = ht.lookup(ref.accounts, soa["credit_account_id_lo"],
+                       soa["credit_account_id_hi"], sm.MAX_PROBE, count=c,
+                       cols=("ledger",))
+        ctx = sm.TransferCtx(dr.found, cr.found, dr.slot, cr.slot, dr.cols,
+                             cr.cols, want.found, want.cols)
+        kc, ko = sm.transfer_codes(soa, ctx, c, t)
+        ctx_cols = {"dr_found": dr.found, "cr_found": cr.found,
+                    "dr_ledger": dr.cols["ledger"],
+                    "cr_ledger": cr.cols["ledger"], "ex_found": want.found}
+        vcols = ([soa[n] for n in sm.TRANSFER_BATCH_COLS]
+                 + [ctx_cols[n] for n in sm.TRANSFER_CTX_COLS]
+                 + [want.cols[n] for n in names])
+        codes, ok = _cuda.validate("transfers", vcols, 0, count_word=cw[j:j + 1],
+                                   ts_word=tw[j:j + 1],
+                                   out=(s.codes[j], s.ok, s.vscratch))
+        assert torch.equal(codes, kc) and torch.equal(ok, ko)
+        pend = (soa["flags"] & sm.TF_PENDING) != 0
+        sm.apply_balances(ref.accounts, dr.slot, cr.slot, ko,
+                          soa["amount_lo"], pend)
+        s.limbs.fill_(-1)  # the wrapper zeroes its scratch
+        s.taken.fill_(-1)
+        _cuda.balance(dr.slot, cr.slot, ko, soa["amount_lo"], pend,
+                      [got.accounts.cols[n] for n in sm.BALANCE_COLS],
+                      scratch=(s.limbs, s.taken))
+        rows = sm.transfer_rows(soa, c, t)
+        ck = ht.insert(xr, soa["id_lo"], soa["id_hi"], ko, rows,
+                       sm.MAX_PROBE)[1]
+        s.cnt.fill_(-1)
+        cg = _cuda.insert(xg.key_lo, xg.key_hi, xg.tombstone, xg.cols,
+                          xg.count, xg.probe_overflow, soa["id_lo"],
+                          soa["id_hi"], ko, rows, sm.MAX_PROBE, 0,
+                          scratch=(s.claimed, s.claim0, s.claim1, s.cnt))
+        assert torch.equal(cg, ck)
+        for name in ("accounts", "transfers"):
+            tables_equal(getattr(got, name), getattr(ref, name))
+    # K25 and K26 against their plain versions.
+    for table_flag in (False, True):
+        for prev in (0, 1):
+            table = torch.tensor(table_flag, device=cuda_device)
+            word = torch.tensor([prev], dtype=torch.int32, device=cuda_device)
+            want_word = group.group_finish_plain(table, word.clone())
+            _cuda.group_finish(table, word)
+            assert torch.equal(word, want_word)
+    for b0, count, ts0 in ((0, 8190, 10_000), (7, 3, 1 << 62),
+                           ((1 << 64) - 2, 8190, 5)):
+        base = torch.tensor([b0], dtype=torch.int64, device=cuda_device) \
+            if b0 < (1 << 63) else torch.tensor([b0 - (1 << 64)],
+                                                dtype=torch.int64,
+                                                device=cuda_device)
+        want = group.group_words_plain(base.clone(), count, ts0, 5)
+        z = [torch.zeros(5, dtype=torch.int64, device=cuda_device)
+             for _ in range(3)]
+        _cuda.group_words(base, count, ts0, *z)
+        for a, b in zip([base] + z, want):
+            assert torch.equal(a, b)
+    cols = benchgen.empty_soa(256, cuda_device)
+    for b in (0, 3, (1 << 32) // 200 + 1):
+        word = torch.tensor([b], dtype=torch.int64, device=cuda_device)
+        _cuda.bench_gen([cols[n] for n in benchgen.GEN_COLS],
+                        benchgen.MODE_PLAIN, 0, 200, 64, 1 << 32, b_word=word)
+        want = benchgen.gen_batch_plain(benchgen.MODE_PLAIN, b, 256, 200, 64,
+                                        1 << 32, cuda_device)
+        for n in want:
+            assert torch.equal(cols[n], want[n]), n
+
+
+def test_capture_tripwire_on_the_card(cuda_device, monkeypatch):
+    """warmup captures the grouped commit's graph; a growth's recapture is
+    absorbed; a capture nothing explains raises under TB_SANITIZE_STRICT."""
+    from tigerbeetle_tpu_torch import sanitize as san
+    from tigerbeetle_tpu_torch.ops import group
+
+    monkeypatch.setenv("TB_SANITIZE", "1")
+    monkeypatch.setenv("TB_SANITIZE_STRICT", "1")
+    m = _group_ledger(cuda_device, np.random.default_rng(1))
+    m.group_device_commit = True
+    c0 = group.CAPTURES
+    m.warmup()
+    assert group.CAPTURES == c0 + 1 and m._group_graph is not None
+
+    def run(first, n=8):
+        rows = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+        rows["id_lo"] = first + np.arange(n)
+        rows["debit_account_id_lo"], rows["credit_account_id_lo"] = 1, 2
+        rows["amount_lo"], rows["ledger"], rows["code"] = 1, 1, 10
+        batches = [rows, rows.copy()]
+        batches[1]["id_lo"] += n
+        tss = [m.prepare("create_transfers", n) for _ in batches]
+        return m.commit_group_fast(batches, tss)
+
+    assert run(5000) == [[], []]
+    assert group.CAPTURES == c0 + 1  # the same graph served the run
+    m._group_graph = None  # forget the graph: the next run recaptures
+    with pytest.raises(san.SanitizeError, match="capture tripwire"):
+        run(6000)
+    m._grow_if_needed(transfers=1 << 12)  # a growth: its capture is allowed
+    assert run(7000) == [[], []]

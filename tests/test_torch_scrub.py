@@ -224,12 +224,14 @@ def test_bare_runtime_error_is_not_a_device_fault(monkeypatch):
 
 
 def test_consecutive_faults_name_the_missing_host_engine():
-    """device_fault_limit consecutive faults: the reference degrades to the
-    host engine, which the port has not yet (ROADMAP A6)."""
+    """device_fault_limit consecutive faults: the port degrades to the host
+    engine, as the reference does (a RuntimeWarning naming it), and the
+    engine commits the batch."""
     m = make_machine(scrub_interval=8)
     m.inject_device_faults(m.device_fault_limit)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        m.create_transfers(batch(1000, 8))
+    with pytest.warns(RuntimeWarning, match="degraded to the native host"):
+        assert m.create_transfers(batch(1000, 8)) == []
+    assert m.degraded_to_host_engine and m._engine is not None
 
 
 # -- tests/test_scrub.py restated against the port -------------------------------

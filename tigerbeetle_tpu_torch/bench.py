@@ -17,7 +17,13 @@ card) and the commit (``state_machine.create_transfers_fast``, or
 ``transfer_full.create_transfers_full_impl`` for ``--two-phase`` and
 ``--limits``), with the failure word accumulated on the card (a flagged
 general-kernel batch adds ``1 << 32``) and one synchronize per dispatch, as
-``block_until_ready`` does.  On the card the timed loop runs under
+``block_until_ready`` does.  On the card a plain-shape dispatch is one
+replay of a captured CUDA graph of its ``k`` batches, as ``bench.py``'s
+``multi`` is one ``fori_loop`` dispatch (``bench.py:2245-2254``): K26 sets
+the batch indexes and timestamps from a device word, then per batch K20
+reads its batch index from a device word and the fast path's kernels read
+the count and timestamp from device words (``ops/group.py``); the graphs
+are captured before the timed loop.  On the card the timed loop runs under
 ``torch.cuda.set_sync_debug_mode("error")``: any hidden host read raises.
 After the timing: failures 0, no probe overflow, debits equal credits, and
 (unless ``--skip-parity``) the parity check of ``run_parity_check``
@@ -31,8 +37,9 @@ warm-up dispatch, outside the timed loop (null on the CPU, where there is
 no card to measure).
 
 Left out, with the slices that bring them: bench.py's end-to-end client,
-tracer, kernel-profile and harness-contention extras (ROADMAP A12), and
-CUDA graphs of a dispatch (A8).
+tracer, kernel-profile and harness-contention extras (ROADMAP A12).  The
+two-phase and limits shapes stay eager: the general kernel reads its count
+and timestamp as host ints and routes on its flags word.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ import torch
 
 from . import convert, types
 from .device import resolve as resolve_device
+from .ops import _cuda
+from .ops import group
 from .ops import state_machine as sm
 from .ops import transfer_full as tf
 from .utils import benchgen
@@ -212,6 +221,11 @@ class _Loop:
         self.soa = benchgen.empty_soa(args.lanes, device)
         self.active = torch.arange(args.lanes, device=device) < args.count
         self.fails = torch.zeros((), dtype=torch.int64, device=device)
+        # The plain shape on the card: one captured graph per dispatch
+        # length, sharing the device word of the next batch index.
+        self.graphs: Dict[int, "_DispatchGraph"] = {}
+        self.base = torch.zeros(1, dtype=torch.int64, device=device)
+        self.next_b: Optional[int] = None
 
     def step(self, b: int) -> None:
         a = self.args
@@ -228,9 +242,66 @@ class _Loop:
                 self.ledger, self.soa, a.count, ts)
             self.fails += _sum_fails(codes, self.active)
 
+    def graphed(self) -> bool:
+        return self.soa["id_lo"].is_cuda and not self.full
+
+    def prepare(self, k: int) -> None:
+        """Capture the graph of a ``k``-batch dispatch (outside any timed
+        or sync-checked region: a capture synchronizes the card)."""
+        if self.graphed() and k > 0 and k not in self.graphs:
+            self.graphs[k] = _DispatchGraph(self, k)
+
     def multi(self, b0: int, k: int) -> None:
-        for b in range(b0, b0 + k):
-            self.step(b)
+        if not self.graphed():
+            for b in range(b0, b0 + k):
+                self.step(b)
+            return
+        if k == 0:
+            return
+        self.prepare(k)
+        if b0 != self.next_b:
+            self.base.fill_(b0)
+        self.graphs[k].captured.replay()
+        self.next_b = b0 + k
+
+
+class _DispatchGraph:
+    """A plain-shape dispatch of ``k`` batches as one CUDA graph: K26
+    (batch ``base + j``, count, timestamp ``ts0 + (base + j + 1) * count``;
+    ``base`` then advances by ``k``), and per batch K20 from its device
+    word, the fast path's steps with device words and the failure word's
+    update."""
+
+    def __init__(self, loop: _Loop, k: int) -> None:
+        a = loop.args
+        dev = loop.soa["id_lo"].device
+        self.loop, self.k = loop, k
+        self.steps = group.FastSteps(loop.ledger, k, a.lanes, dev)
+        z = lambda: torch.zeros(k, dtype=torch.int64, device=dev)  # noqa: E731
+        self.bidx, self.counts, self.tss = z(), z(), z()
+        self.captured = group.CapturedGraph(self._record, self._warm, dev)
+
+    def _record(self, live: bool = True) -> None:
+        loop, a = self.loop, self.loop.args
+        if live:
+            _cuda.group_words(loop.base, a.count, loop.ts0, self.bidx,
+                              self.counts, self.tss)
+        cols = [loop.soa[c] for c in benchgen.GEN_COLS]
+        for j in range(self.k):
+            _cuda.bench_gen(cols, benchgen.MODE_PLAIN, 0, a.count,
+                            a.accounts, FIRST_TID, b_word=self.bidx[j:j + 1])
+            self.steps.step(loop.ledger, j, loop.soa, self.counts, self.tss)
+            if live:
+                loop.fails += _sum_fails(self.steps.codes[j], loop.active)
+
+    def _warm(self) -> None:
+        """One eager pass that applies nothing (counts 0, words entry on
+        scratch words), loading every kernel before the capture."""
+        self.counts.zero_()
+        self._record(live=False)
+        scratch = torch.zeros_like(self.loop.base)
+        _cuda.group_words(scratch, 0, 0, self.bidx, self.counts, self.tss)
+        self.counts.zero_()
 
 
 def _barrier(device, strict: bool) -> None:
@@ -290,8 +361,10 @@ def run(args) -> Tuple[Dict, sm.Ledger]:
     else:
         loop.multi(k - window, window)
     warmup_s = time.perf_counter() - t0
-    fails_warmup = loop.fails
-    loop.fails = torch.zeros_like(fails_warmup)
+    # The failure word keeps its buffer (a captured graph adds into it).
+    fails_warmup = loop.fails.clone()
+    loop.fails.zero_()
+    loop.prepare(k)
 
     dispatch_s = []
     if cuda:

@@ -35,10 +35,12 @@ struct GenCols {
   uint32_t* c32[GEN_U32];
 };
 
-__global__ void bench_gen_kernel(GenCols c, int mode, ull b, int64_t lanes,
+__global__ void bench_gen_kernel(GenCols c, int mode, ull b,
+                                 const ull* __restrict__ b_word, int64_t lanes,
                                  ull count, ull n, ull first_tid) {
   const int64_t lane = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
+  if (b_word) b = *b_word;  // the device-word entry (a captured graph)
   const ull l = (ull)lane;
   const ull base = b * count;
   const ull half = count / 2;
@@ -90,9 +92,11 @@ __global__ void bench_gen_kernel(GenCols c, int mode, ull b, int64_t lanes,
 
 // `cols`: the fourteen u64 columns, then the five u32 columns, each of
 // `lanes` elements.  Requires 2 <= n and count <= lanes (the wrapper checks).
+// When `b_word` is not null the batch index is read from that u64 device
+// word when the kernel runs (the bench twin's captured graph), not from `b`.
 extern "C" int tb_bench_gen(void* const* cols, int64_t lanes, int mode,
-                            uint64_t b, uint64_t count, uint64_t n,
-                            uint64_t first_tid, void* stream) {
+                            uint64_t b, const void* b_word, uint64_t count,
+                            uint64_t n, uint64_t first_tid, void* stream) {
   if (mode < 0 || mode > 2 || n < 2) return (int)cudaErrorInvalidValue;
   GenCols c;
   for (int k = 0; k < GEN_U64; ++k) c.c64[k] = (uint64_t*)cols[k];
@@ -101,6 +105,7 @@ extern "C" int tb_bench_gen(void* const* cols, int64_t lanes, int mode,
   const int threads = 256;
   const int64_t blocks = (lanes + threads - 1) / threads;
   bench_gen_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      c, mode, (ull)b, lanes, (ull)count, (ull)n, (ull)first_tid);
+      c, mode, (ull)b, (const ull*)b_word, lanes, (ull)count, (ull)n,
+      (ull)first_tid);
   return (int)cudaGetLastError();
 }

@@ -178,9 +178,18 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
   if (threadIdx.x == 0 && total) atomicAdd(a.count, total);
 }
 
+// A batch of at most INSERT_LANES_PER_BLOCK lanes (every fast-path batch)
+// runs as an ordinary one-block launch, with __syncthreads as its barrier:
+// stream capture takes it whatever the CUDA version's support for captured
+// cooperative launches, and it skips the occupancy queries.  A larger one
+// (`grow`) is a cooperative launch on as many blocks as are resident.
 static int launch_insert(InsertArgs& a) {
   if (a.n == 0) return 0;
   if (a.n > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (a.n <= INSERT_LANES_PER_BLOCK) {
+    insert_kernel<<<1, INSERT_THREADS, 0, a.stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)

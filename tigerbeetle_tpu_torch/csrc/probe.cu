@@ -29,6 +29,7 @@ __global__ void probe_kernel(const uint64_t* __restrict__ tkey_lo,
                              const uint64_t* __restrict__ key_lo,
                              const uint64_t* __restrict__ key_hi, int64_t n,
                              int64_t valid_count,
+                             const uint64_t* __restrict__ count_word,
                              const uint8_t* __restrict__ lane_mask,
                              uint8_t* __restrict__ found_out,
                              int64_t* __restrict__ slot_out,
@@ -52,7 +53,8 @@ __global__ void probe_kernel(const uint64_t* __restrict__ tkey_lo,
       done = true;
     }
   }
-  if (!done) atomicOr(overflow, 1);
+  if (!done && overflow) atomicOr(overflow, 1);
+  if (count_word) valid_count = (int64_t)*count_word;
   const bool f = found && i < valid_count && (!lane_mask || lane_mask[i]);
   found_out[i] = f ? 1 : 0;
   slot_out[i] = (int64_t)slot;
@@ -65,11 +67,16 @@ __global__ void probe_kernel(const uint64_t* __restrict__ tkey_lo,
   }
 }
 
+// `valid_count` is read from the u64 device word `count_word` when that is
+// not null (the grouped commit's CUDA graph: one captured launch serves
+// every run); `overflow` may be null (the fast path reads the table's flag,
+// not the probe's).
 extern "C" int tb_probe(const void* tkey_lo, const void* tkey_hi,
                         const void* tomb, int64_t capacity, int hash_shift,
                         int64_t max_probe, const void* key_lo,
                         const void* key_hi, int64_t n, int64_t valid_count,
-                        const void* lane_mask, void* found, void* slot, void* overflow, int ncols,
+                        const void* count_word, const void* lane_mask,
+                        void* found, void* slot, void* overflow, int ncols,
                         const void* const* src, void* const* dst,
                         const int* width, void* stream) {
   ColList cols;
@@ -82,7 +89,8 @@ extern "C" int tb_probe(const void* tkey_lo, const void* tkey_hi,
       (const uint64_t*)tkey_lo, (const uint64_t*)tkey_hi, (const uint8_t*)tomb,
       (uint64_t)(capacity - 1), hash_shift, max_probe,
       (const uint64_t*)key_lo, (const uint64_t*)key_hi, n, valid_count,
-      (const uint8_t*)lane_mask, (uint8_t*)found, (int64_t*)slot, (int*)overflow, cols);
+      (const uint64_t*)count_word, (const uint8_t*)lane_mask, (uint8_t*)found,
+      (int64_t*)slot, (int*)overflow, cols);
   return (int)cudaGetLastError();
 }
 

@@ -223,9 +223,14 @@ struct Transfers {
 template <class V>
 __global__ void __launch_bounds__(VALIDATE_THREADS, 1)
     validate_kernel(Ptrs P, int64_t n, int64_t count, uint64_t batch_ts,
+                    const uint64_t* __restrict__ count_word,
+                    const uint64_t* __restrict__ ts_word,
                     uint32_t* __restrict__ codes, uint8_t* __restrict__ ok,
                     int* __restrict__ scratch, int64_t hsize) {
   __shared__ int sh[VALIDATE_THREADS];
+  // From device words when given (the grouped commit's CUDA graph).
+  if (count_word) count = (int64_t)*count_word;
+  if (ts_word) batch_ts = *ts_word;
   int* hkey = scratch;
   int* hwin = scratch + hsize;
   int* grp = scratch + 2 * hsize;
@@ -310,6 +315,7 @@ __global__ void __launch_bounds__(VALIDATE_THREADS, 1)
 
 static int launch_validate(int variant, int nptrs, const void* const* ptrs,
                            int64_t n, int64_t count, uint64_t batch_ts,
+                           const void* count_word, const void* ts_word,
                            void* codes, void* ok, void* scratch, int64_t hsize,
                            void* stream) {
   const int want = variant == 0 ? (int)A_NPTRS : (int)T_NPTRS;
@@ -322,10 +328,14 @@ static int launch_validate(int variant, int nptrs, const void* const* ptrs,
   if (n == 0) return 0;
   if (variant == 0) {
     validate_kernel<Accounts><<<1, VALIDATE_THREADS, 0, (cudaStream_t)stream>>>(
-        P, n, count, batch_ts, (uint32_t*)codes, (uint8_t*)ok, (int*)scratch, hsize);
+        P, n, count, batch_ts, (const uint64_t*)count_word,
+        (const uint64_t*)ts_word, (uint32_t*)codes, (uint8_t*)ok, (int*)scratch,
+        hsize);
   } else {
     validate_kernel<Transfers><<<1, VALIDATE_THREADS, 0, (cudaStream_t)stream>>>(
-        P, n, count, batch_ts, (uint32_t*)codes, (uint8_t*)ok, (int*)scratch, hsize);
+        P, n, count, batch_ts, (const uint64_t*)count_word,
+        (const uint64_t*)ts_word, (uint32_t*)codes, (uint8_t*)ok, (int*)scratch,
+        hsize);
   }
   return (int)cudaGetLastError();
 }
@@ -333,14 +343,19 @@ static int launch_validate(int variant, int nptrs, const void* const* ptrs,
 extern "C" int tb_validate_accounts(int nptrs, const void* const* ptrs, int64_t n,
                                     int64_t count, void* codes, void* ok,
                                     void* scratch, int64_t hsize, void* stream) {
-  return launch_validate(0, nptrs, ptrs, n, count, 0, codes, ok, scratch, hsize,
-                         stream);
+  return launch_validate(0, nptrs, ptrs, n, count, 0, nullptr, nullptr, codes,
+                         ok, scratch, hsize, stream);
 }
 
+// `count_word` and `ts_word`, when not null, are u64 device words the
+// batch's count and timestamp are read from when the kernel runs (the
+// grouped commit's CUDA graph).
 extern "C" int tb_validate_transfers(int nptrs, const void* const* ptrs,
                                      int64_t n, int64_t count,
-                                     uint64_t batch_ts, void* codes, void* ok,
-                                     void* scratch, int64_t hsize, void* stream) {
-  return launch_validate(1, nptrs, ptrs, n, count, batch_ts, codes, ok, scratch,
-                         hsize, stream);
+                                     uint64_t batch_ts, const void* count_word,
+                                     const void* ts_word, void* codes,
+                                     void* ok, void* scratch, int64_t hsize,
+                                     void* stream) {
+  return launch_validate(1, nptrs, ptrs, n, count, batch_ts, count_word,
+                         ts_word, codes, ok, scratch, hsize, stream);
 }

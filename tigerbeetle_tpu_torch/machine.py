@@ -39,6 +39,26 @@ after rebuilding the ledger from the host mirror, and advances the mirror
 and the commitment forest (K1 and K23) after each success.  Roots, proofs
 and digests equal the JAX machine's.
 
+The commit pipeline (``commit_fast_deferred``, ``commit_group_fast``,
+``DeviceCommitHandle``; ``TB_PIPELINE``, ``TB_GROUP_COMMIT``): deferred
+dispatches run in order on one dispatch-lane thread, on a CUDA stream of its
+own, and a handle's ``resolve`` makes the one device-to-host read of its
+codes.  A grouped run of up to ``GROUP_K`` fast-path batches is staged into
+one pinned buffer and committed on the card by one replay of a captured
+CUDA graph (``ops/group.py``: K24, K1-K4 reading the batch's count and
+timestamp from device words, K25); on CPU tensors the plain loop runs
+instead.  Every blocking path first joins the lane (``ledger``'s getter),
+so it never races an in-flight run.  A device fault at a resolve
+quarantines the lane and re-commits every pending run from the host
+mirror; ``device_fault_limit`` consecutive faults, or one CUDA error that
+left the context unusable, degrade the machine to the host engine
+(``host_engine.py``, the native C++ engine over a numpy ledger), which
+then commits every batch, as ``host_engine=True`` does from the start.  A
+failure of the port's own kernels (``CudaKernelError``) is re-dispatched on
+the device but never degrades: at the limit it raises.  ``checkpoint_ledger``,
+``host_state`` and ``restore_host_state`` are the persistence surface
+(``vsr/checkpoint.py``, ``lsm/forest.py``).
+
 Routes this slice does not port raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them; none gives a wrong answer or falls back
 quietly.
@@ -46,19 +66,25 @@ quietly.
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import random as _random
+import threading
 import time as _time
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import convert, types
+from . import sanitize as _san
 from .config import LedgerConfig
 from .device import resolve as resolve_device
 from .obs.metrics import registry as _obs
+from .ops import _cuda
 from .ops import cold as cold_mod
+from .ops import group as group_mod
 from .ops import hash_table as ht
 from .ops import index as ix
 from .ops import merkle as merkle_ops
@@ -88,35 +114,165 @@ _SLOW_TRANSFER_FLAGS = (
     | types.TransferFlags.LINKED
 )
 U64_MAX = (1 << 64) - 1
+# The CUDA runtime's error class (a member of DEVICE_FAULT_TYPES), where the
+# installed torch has it.
+_ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", None)
 # Largest reply of a query: (message_size_max - header) / row size.
 QUERY_ROWS_MAX = ((1 << 20) - 256) // 128
 
 # Entry points of TpuStateMachine that this slice does not port, with the
-# ROADMAP queue-A slice that brings each (the deferred-path fault funnels
-# too); the names in _UNPORTED_PROPERTIES are properties there and raise as
-# properties here, on read and on write.
+# ROADMAP queue-A slice that brings each; the names in _UNPORTED_PROPERTIES
+# are properties there and raise as properties here, on read and on write.
 _UNPORTED = {
-    "commit_fast_deferred": "A8 (commit pipeline)",
-    "commit_group_fast": "A8 (commit pipeline)",
-    "warmup": "A8 (commit pipeline)",
-    "pipeline_depth": "A8 (commit pipeline)",
-    "group_device_commit": "A8 (commit pipeline)",
-    "fuse_batches": "A8 (commit pipeline)",
-    "GROUP_K": "A8 (commit pipeline)",
-    "_device_fault_at_resolve": "A8 (commit pipeline)",
-    "_recover_inflight": "A8 (commit pipeline)",
     "reshard_begin": "A11 (sharding)",
     "reshard_active": "A11 (sharding)",
     "reshard_step": "A11 (sharding)",
     "reshard_abort": "A11 (sharding)",
-    "host_state": "A6 (persistence)",
-    "restore_host_state": "A6 (persistence)",
-    "checkpoint_ledger": "A6 (persistence)",
 }
-_UNPORTED_PROPERTIES = frozenset({
-    "pipeline_depth", "group_device_commit", "fuse_batches", "GROUP_K",
-    "reshard_active",
-})
+_UNPORTED_PROPERTIES = frozenset({"reshard_active"})
+
+
+def _overflow_any(overflow) -> bool:
+    """True if any probe-overflow flag fired (a scalar, an array of flags,
+    or a tuple of either)."""
+    if isinstance(overflow, (list, tuple)):
+        return any(_overflow_any(o) for o in overflow)
+    return bool(np.any(np.asarray(overflow)))
+
+
+def pipeline_depth_default() -> int:
+    """Commit-pipeline depth (TB_PIPELINE env; default 2).  Depth 1 (and
+    TB_PIPELINE=0, "off") disables deferral entirely: the serving path is
+    then the blocking path.  Depth >= 2 runs one commit group in flight;
+    deeper values are reserved (currently equivalent to 2)."""
+    env = os.environ.get("TB_PIPELINE", "")
+    if env.isdigit():
+        return max(1, int(env))  # 0 == off == depth 1
+    return 2
+
+
+class DeviceCommitHandle:
+    """An in-flight fast-path device commit (one batch or a grouped run).
+
+    ``result`` is the dispatch's (codes, overflow[, event]) device tuple
+    (the dispatch already ran on the calling thread) or a Future of one:
+    deferred dispatches run on the machine's one dispatch-lane thread, on
+    the lane's CUDA stream, and ``event`` marks the end of their device
+    work on it.
+
+    ``resolve()`` joins the dispatch, makes the ONE deferred device-to-host
+    read (codes and the probe-overflow word together) and runs the host
+    bookkeeping that needs the codes (result compression, the commit
+    timestamp), returning per-batch (index, result) lists.  ``join_wait_s``
+    records how long the join blocked.  Handles resolve in dispatch order.
+    """
+
+    __slots__ = ("_machine", "_result", "_stacked", "_counts",
+                 "_timestamps", "_stage", "_resolved", "join_wait_s",
+                 "_batches", "_recovered", "_deferred")
+
+    def __init__(self, machine, result, counts, timestamps,
+                 stacked: bool, stage=None, batches=None,
+                 deferred: bool = False) -> None:
+        self._machine = machine
+        self._result = result
+        self._stacked = stacked      # True: leading per-batch dim
+        self._counts = counts
+        self._timestamps = timestamps
+        self._stage = stage          # staging set to release on resolve
+        self._resolved = False
+        self._deferred = deferred    # counted in the machine's in-flight depth
+        self.join_wait_s = 0.0
+        # Host copies of the dispatched batches: the device fault domain
+        # re-commits a quarantined run from these (machine._recover_inflight);
+        # None when the fault domain is off.
+        self._batches = batches
+        # Per-batch results of a recovery re-commit; resolve() returns them
+        # instead of touching the dead dispatch.
+        self._recovered = None
+
+    def __len__(self) -> int:
+        return len(self._counts)
+
+    def discard(self) -> None:
+        """Abort path: quiesce the dispatch (join it, swallow its error) and
+        release the staging set; an orphaned closure left running on the
+        lane would keep mutating machine.ledger behind the caller."""
+        if self._resolved:
+            return
+        self._resolved = True
+        self._machine._deferred_done(self)
+        self._machine._inflight_untrack(self)
+        if hasattr(self._result, "result"):
+            try:
+                self._result.result()
+            except Exception:  # noqa: BLE001 - abort quiesce
+                pass
+        if self._stage is not None:
+            self._machine._lane_drain()  # its copy may still be queued
+            self._machine._stage_release(self._stage)
+            self._stage = None
+
+    def resolve(self) -> List[List[Tuple[int, int]]]:
+        assert not self._resolved, "commit handle resolved twice"
+        self._resolved = True
+        m = self._machine
+        m._deferred_done(self)
+        if self._recovered is not None:
+            # A device-fault recovery already re-committed this run through
+            # the blocking path (machine._recover_inflight).
+            return self._recovered
+        try:
+            if hasattr(self._result, "result"):
+                t0 = _time.perf_counter()
+                self._result = self._result.result()
+                self.join_wait_s = _time.perf_counter() - t0
+                if _obs.enabled:
+                    _obs.histogram("pipeline.resolve_wait_us", "us").observe(
+                        self.join_wait_s * 1e6)
+            codes_dev, overflow_dev = self._result[:2]
+            if len(self._result) > 2:
+                # A lane dispatch on the card: order this stream after it.
+                torch.cuda.current_stream(m.device).wait_event(
+                    self._result[2])
+            host, overflow = m._d2h_codes(codes_dev.reshape(-1), overflow_dev)
+            codes = host.reshape(codes_dev.shape)
+        except DEVICE_FAULT_TYPES as err:
+            # Dispatch-lane funnel: the dispatch (or its read-back) failed;
+            # quarantine the lane and re-commit every pending run from the
+            # mirror.  Raises the original error when the fault domain is
+            # off.
+            m._device_fault_at_resolve(err)
+            assert self._recovered is not None
+            return self._recovered
+        finally:
+            m._inflight_untrack(self)
+            if self._stage is not None:
+                # The dispatch completed or failed for good: its host-to-
+                # device copy is over, so the staging set goes back.
+                m._stage_release(self._stage)
+                self._stage = None
+        if _overflow_any(overflow):
+            # Load-factor management keeps this unreachable; losing inserts
+            # silently is the one unacceptable outcome, so fail loud.
+            raise RuntimeError("transfers probe overflow during fast insert")
+        if _obs.enabled:
+            _obs.counter("pipeline.resolves").inc()
+        # Index maintenance already ran inside the dispatch closure.
+        out = []
+        for j, (count, ts) in enumerate(zip(self._counts, self._timestamps)):
+            row = codes[j] if self._stacked else codes
+            out.append(m._compress(row, count))
+            m._update_commit_timestamp(row, count, ts)
+        m._device_fault_streak = 0
+        if m.scrub_armed:
+            # The scrub cadence advances in resolve (== op) order; the
+            # forest already advanced inside the dispatch closure.
+            m._scrub_commits += len(self._counts)
+        if m._scrub_mirror is not None and self._batches is not None:
+            for b, ts in zip(self._batches, self._timestamps):
+                m._mirror_apply("create_transfers", b, ts)
+        return out
 
 
 class TorchStateMachine:
@@ -139,19 +295,63 @@ class TorchStateMachine:
             shards = int(env) if env.isdigit() else 0
         if shards:
             raise NotImplementedError("sharding is not ported yet (ROADMAP A11)")
-        if host_engine:
-            raise NotImplementedError(
-                "the host engine is not ported yet (ROADMAP A6)"
-            )
         cfg = ledger_config or LedgerConfig()
         self.config = cfg
         self.batch_lanes = batch_lanes
         self.force_sequential = force_sequential
         self.device = resolve_device(device)
-        self._ledger = sm.make_ledger(
-            cfg.accounts_capacity, cfg.transfers_capacity,
-            cfg.posted_capacity, cfg.history_capacity, device=self.device,
-        )
+        # The commit pipeline: the dispatch lane (one worker thread, a CUDA
+        # stream of its own), the future of its last submitted closure (the
+        # blocking paths join it before touching the ledger), the pooled
+        # staging sets by run length, the grouped commit's CUDA graph and
+        # the in-flight bookkeeping of the fault funnels.
+        self._lane = None
+        self._lane_stream = None
+        self._lane_tail = None
+        self._lane_tls = threading.local()
+        self._stage_pool: dict = {}
+        self._group_graph = None
+        self._group_device_commit: Optional[bool] = None  # lazy (TB_GROUP_COMMIT)
+        self._pipeline_depth: Optional[int] = None  # lazy (TB_PIPELINE)
+        self._fuse_batches: Optional[bool] = None  # lazy (TB_FUSE)
+        self._inflight_handles: List[DeviceCommitHandle] = []
+        self._deferred_inflight = 0
+        # A list to time the lane's device work (off when None): each
+        # deferred closure on the card appends its (start, end) CUDA events,
+        # whose elapsed times sum to the device's busy time.
+        self.lane_events: Optional[list] = None
+        # TB_SANITIZE: poison released staging sets, and trip on CUDA-graph
+        # captures after warmup that no growth explains.
+        self._sanitize = _san.enabled()
+        self._sanitize_capture_base: Optional[int] = None
+        self._sanitize_grace = False
+        # Host data-plane mode (host_engine.py): commits run in the native
+        # engine over a numpy ledger, which is the authority; the device
+        # ledger is made from it when a query, digest or checkpoint reads it.
+        self._engine = None
+        self._host_led = None
+        self._device_stale = False
+        self._index_stale = False
+        self.degraded_to_host_engine = False
+        if host_engine:
+            from .host_engine import HostEngine, HostLedger
+
+            assert not force_sequential, (
+                "host engine is already sequential-exact")
+            assert hot_transfers_capacity_max is None, (
+                "tiering runs on the device path")
+            self._host_led = HostLedger(
+                cfg.accounts_capacity, cfg.transfers_capacity,
+                cfg.posted_capacity, cfg.history_capacity,
+            )
+            self._engine = HostEngine(self._host_led, cfg.max_probe)
+            self._device_stale = True
+            self._ledger = None
+        else:
+            self._ledger = sm.make_ledger(
+                cfg.accounts_capacity, cfg.transfers_capacity,
+                cfg.posted_capacity, cfg.history_capacity, device=self.device,
+            )
         self.prepare_timestamp = 0
         self.commit_timestamp = 0
         # Host-side upper bounds on live rows (growth without device syncs).
@@ -238,12 +438,31 @@ class TorchStateMachine:
 
     @property
     def ledger(self) -> sm.Ledger:
-        """The device-resident ledger."""
+        """The device-resident ledger.  Off the dispatch lane, reading it
+        first joins the lane (its last closure, and on the card its stream),
+        so no blocking path races an in-flight run.  In host-engine mode the
+        numpy ledger is the authority: the device view is made from it on
+        the first read after engine commits."""
+        if self._lane_tail is not None and not self._on_lane():
+            self._lane_join()
+        if self._engine is not None and self._device_stale:
+            self._ledger = self._host_led.to_device(self.device)
+            self._device_stale = False
         return self._ledger
 
     @ledger.setter
     def ledger(self, value: sm.Ledger) -> None:
+        if self._lane_tail is not None and not self._on_lane():
+            self._lane_join()
         self._ledger = value
+        if self._engine is not None:
+            # An external swap (checkpoint restore, state sync): the host
+            # ledger must mirror the new authority exactly.
+            from .host_engine import HostLedger
+
+            self._host_led = HostLedger.from_device(value)
+            self._engine.ledger = self._host_led
+            self._device_stale = False
 
     @property
     def waves_enabled(self) -> bool:
@@ -270,6 +489,13 @@ class TorchStateMachine:
         parts = [codes] + [w.reshape(-1).to(torch.int32) for w in words]
         host = torch.cat(parts).cpu().numpy()
         n = codes.shape[0]
+        if (self._sanitize and self._sanitize_capture_base is not None
+                and self._deferred_inflight == 0):
+            # Every commit funnels through this read-back: a post-warmup
+            # capture is caught one read-back after it happened.  Checked
+            # only with the pipeline quiescent (a running closure may be
+            # mid-growth, its grace flag not yet set).
+            self._sanitize_capture_check("serving commit path")
         return host[:n].view(np.uint32), host[n:]
 
     def prepare(self, operation: str, count: int, wall_clock_ns: int = 0) -> int:
@@ -336,6 +562,8 @@ class TorchStateMachine:
         count = len(batch)
         if count == 0:
             return []
+        if self._engine is not None:
+            return self._engine_commit("create_accounts", batch, timestamp)
         any_linked = bool((batch["flags"] & types.AccountFlags.LINKED).any())
         if self.force_sequential or (
             any_linked and self._has_intra_batch_dup_ids(batch)
@@ -383,6 +611,8 @@ class TorchStateMachine:
         count = len(batch)
         if count == 0:
             return []
+        if self._engine is not None:
+            return self._engine_commit("create_transfers", batch, timestamp)
         self._note_balance_bound(batch)
         if self.force_sequential:
             return self._sequential("create_transfers", batch, timestamp)
@@ -436,10 +666,370 @@ class TorchStateMachine:
         self._transfers_bound += count
         if words[0]:
             raise RuntimeError("transfers probe overflow during fast insert")
-        self._index_append(soa, codes_dev, count)
+        self._index_append(soa["id_lo"], soa["id_hi"], codes_dev, count)
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
+
+    # -- the commit pipeline ------------------------------------------------------
+
+    # Fixed run length of the grouped dispatch: one captured graph per
+    # ledger layout; runs pad with zero-count batches, which apply nothing.
+    GROUP_K = group_mod.GROUP_K
+
+    @property
+    def group_device_commit(self) -> bool:
+        """Grouped device commit (TB_GROUP_COMMIT=0/1, or the setter).  By
+        default on for a CUDA machine, where a run of GROUP_K batches is one
+        graph replay, and off on the CPU, where the plain loop pays every
+        padding step."""
+        if self._group_device_commit is None:
+            env = os.environ.get("TB_GROUP_COMMIT")
+            self._group_device_commit = (
+                env == "1" if env in ("0", "1")
+                else self.device.type == "cuda"
+            )
+        return self._group_device_commit
+
+    @group_device_commit.setter
+    def group_device_commit(self, value: bool) -> None:
+        self._group_device_commit = value
+
+    @property
+    def fuse_batches(self) -> bool:
+        """Cross-batch conflict fusion (TB_FUSE env, default off, or the
+        setter), read by the replica's dispatch lane."""
+        if self._fuse_batches is None:
+            from .vsr import overload
+
+            self._fuse_batches = overload.fusion_enabled()
+        return self._fuse_batches
+
+    @fuse_batches.setter
+    def fuse_batches(self, value: bool) -> None:
+        self._fuse_batches = bool(value)
+
+    @property
+    def pipeline_depth(self) -> int:
+        """Deferred read-back depth (TB_PIPELINE env, default 2, or the
+        setter), 1 or 2: depth 1 disables deferral, depth 2 pipelines one
+        commit group.  The reference reserves deeper values (equivalent to
+        2 there); the port holds them at 2 until a deeper pipeline exists."""
+        if self._pipeline_depth is None:
+            self._pipeline_depth = min(2, pipeline_depth_default())
+        return self._pipeline_depth
+
+    @pipeline_depth.setter
+    def pipeline_depth(self, value: int) -> None:
+        self._pipeline_depth = min(2, max(1, int(value)))
+
+    def _on_lane(self) -> bool:
+        return getattr(self._lane_tls, "on_lane", False)
+
+    def _dispatch_lane(self):
+        """The one-worker FIFO executor deferred dispatches run on (one
+        worker == dispatch order == op order; growth rides each closure so
+        the ledger chain never interleaves).  On the card it runs them on a
+        stream of its own, so the serving thread's copies and reads do not
+        queue behind them."""
+        if self._lane is None:
+            self._lane = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="tb-dispatch")
+            if self.device.type == "cuda" and self._lane_stream is None:
+                self._lane_stream = torch.cuda.Stream(self.device)
+        return self._lane
+
+    def _lane_dispatch(self, dispatch, deferred: bool):
+        """Run (deferred=False) or submit (deferred=True) a commit closure.
+        A submitted closure runs on the lane thread and, on the card, on the
+        lane's stream after the submitting stream's work so far; its result
+        carries an event marking the end of its device work."""
+        if not deferred:
+            return dispatch()
+        lane = self._dispatch_lane()
+        cuda = self.device.type == "cuda"
+        after = None
+        if cuda:
+            after = torch.cuda.Event()
+            after.record(torch.cuda.current_stream(self.device))
+        stream = self._lane_stream
+
+        def run():
+            self._lane_tls.on_lane = True
+            if not cuda:
+                return dispatch()
+            timing = self.lane_events
+            with torch.cuda.stream(stream):
+                stream.wait_event(after)
+                if timing is not None:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(stream)
+                out = dispatch()
+                done = torch.cuda.Event(enable_timing=timing is not None)
+                done.record(stream)
+            if timing is not None:
+                timing.append((start, done))
+            return (*out, done)
+
+        fut = lane.submit(run)
+        self._lane_tail = fut
+        return fut
+
+    def _lane_drain(self) -> None:
+        """Wait on the host for the lane stream's queued work: a staging set
+        goes back on the free-list only after its copy ran.  A failed
+        device cannot run it; its error surfaces at the resolve or the
+        next commit, not here."""
+        if self._lane_stream is not None:
+            try:
+                self._lane_stream.synchronize()
+            except DEVICE_FAULT_TYPES:  # noqa: BLE001 - the fault funnels own it
+                pass
+
+    def _lane_join(self) -> None:
+        """Wait for the lane's last closure (its error, if any, surfaces at
+        its handle's resolve) and, on the card, order the current stream
+        after the lane's stream."""
+        fut, self._lane_tail = self._lane_tail, None
+        if fut is None:
+            return
+        concurrent.futures.wait([fut])
+        if self._lane_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._lane_stream)
+
+    def _stage_acquire(self, k: int) -> dict:
+        """One staging set for a run of ``k`` batches (an
+        ``ops.group.StagingLayout`` byte buffer, pinned on the card), from
+        the free-list or new: a set must not be refilled while a dispatch
+        that reads it is in flight; DeviceCommitHandle.resolve releases it
+        back here."""
+        pool = self._stage_pool.setdefault(k, [])
+        if pool:
+            return pool.pop()
+        layout = group_mod.StagingLayout(k, self.batch_lanes)
+        buf = torch.zeros(layout.nbytes, dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        cols, counts, tss = layout.arrays(buf.numpy())
+        return {"k": k, "layout": layout, "buf": buf, "cols": cols,
+                "counts": counts, "timestamps": tss, "dirty": [0] * k}
+
+    def _stage_release(self, stage: dict) -> None:
+        if self._sanitize:
+            # Anything still reading this set after release sees 0xA5
+            # garbage; every lane is dirty, so the next occupant zeroes it.
+            _san.poison([stage["buf"].numpy()])
+            stage["dirty"] = [self.batch_lanes] * stage["k"]
+        self._stage_pool.setdefault(stage["k"], []).append(stage)
+
+    def _stage_group(self, batches: List[np.ndarray], timestamps: List[int],
+                     k: int) -> dict:
+        """Stack a run's batches into a staging set of ``k`` rows (counts 0
+        and the last timestamp in the padding rows); dirty-row tracking
+        zeroes only the lanes the previous occupant wrote."""
+        stage = self._stage_acquire(k)
+        cols, dirty = stage["cols"], stage["dirty"]
+        lens = [len(batches[j]) if j < len(batches) else 0 for j in range(k)]
+        for name, buf in cols.items():
+            for j in range(k):
+                n = lens[j]
+                if dirty[j] > n:
+                    buf[j, n:dirty[j]] = 0
+                if n:
+                    buf[j, :n] = batches[j][name]
+        stage["dirty"] = lens
+        stage["counts"][:] = lens
+        stage["timestamps"][:] = list(timestamps) + [timestamps[-1]] * (
+            k - len(timestamps))
+        return stage
+
+    def _staged_columns(self, stage: dict) -> dict:
+        """The staged run's columns {name: [k, lanes]} on the machine's
+        device: on the card one asynchronous copy of the pinned set on the
+        current stream (the lane's), on the CPU views of it."""
+        buf = stage["buf"]
+        if self.device.type == "cuda":
+            buf = buf.to(self.device, non_blocking=True)
+        return stage["layout"].tensors(buf)[0]
+
+    def _group_graph_for(self, ledger: sm.Ledger) -> group_mod.GroupGraph:
+        """The grouped commit's graph for this ledger layout, captured anew
+        when a table was reallocated (growth, a restore): the old graph and
+        its buffers go first."""
+        key = (self.GROUP_K, self.batch_lanes) + group_mod.ledger_key(ledger)
+        graph = self._group_graph
+        if graph is None or graph.key != key:
+            self._group_graph = None
+            graph = group_mod.GroupGraph(ledger, self.GROUP_K,
+                                         self.batch_lanes)
+            self._group_graph = graph
+        return graph
+
+    def _inflight_untrack(self, handle) -> None:
+        try:
+            self._inflight_handles.remove(handle)
+        except ValueError:
+            pass  # never tracked (fault domain off) or already recovered
+
+    def _deferred_done(self, handle) -> None:
+        if handle._deferred:
+            handle._deferred = False
+            self._deferred_inflight = max(0, self._deferred_inflight - 1)
+
+    def _deferred_submitted(self, lanes: int) -> None:
+        """Commit-lane occupancy of one deferred dispatch (serving thread,
+        at submit)."""
+        self._deferred_inflight += 1
+        if _obs.enabled:
+            _obs.counter("pipeline.dispatches").inc()
+            _obs.histogram("pipeline.inflight", "handles").observe(
+                self._deferred_inflight)
+            _obs.counter("pipeline.lanes").inc(lanes)
+
+    def commit_group_fast(self, batches: List[np.ndarray],
+                          timestamps: List[int], deferred: bool = False):
+        """Commit a RUN of fast-path-eligible create_transfers batches in
+        ONE device dispatch with ONE device-to-host codes read: on the card
+        one replay of the grouped commit's CUDA graph (ops/group.py), on
+        the CPU the plain loop.
+
+        Returns per-batch results index-aligned with ``batches``, or None
+        when the run is not groupable (the caller commits batch by batch).
+        Each batch carries its own prepare timestamp, so the results equal
+        committing the run batch by batch.  ``deferred=True`` returns a
+        DeviceCommitHandle instead: the run is in flight on the dispatch
+        lane and the caller resolves it, in dispatch order."""
+        if (
+            not self.group_device_commit
+            or self._engine is not None
+            or self.force_sequential
+            or not (2 <= len(batches) <= self.GROUP_K)
+        ):
+            return None
+        counts = [len(b) for b in batches]
+        if any(c == 0 or c > self.batch_lanes for c in counts):
+            return None
+        # Eligibility is order-dependent (the balance bound grows per
+        # batch); on a mid-run refusal restore the entry bound, since the
+        # per-batch fallback notes every batch itself.
+        bound0 = self._balance_bound
+        for b in batches:
+            self._note_balance_bound(b)
+            if not self._fast_path_ok(b):
+                self._balance_bound = bound0
+                return None
+        if timestamps[-1] > self.prepare_timestamp:
+            self.prepare_timestamp = timestamps[-1]
+        self._scrub_maybe_check()  # no-op unless armed, due and lane idle
+        k = len(batches)
+        stage = self._stage_group(batches, timestamps, self.GROUP_K)
+        # Row bounds advance at submit, and the closure's growth target is
+        # snapshotted here, so it never depends on how far the serving
+        # thread raced ahead.
+        need = self._transfers_bound + sum(counts)
+        self._transfers_bound = need
+        merkle_closure = (self._merkle_forest is not None
+                          and not self.merkle_async)
+
+        def dispatch():
+            # Growth, dispatch and index maintenance stay one unit so the
+            # FIFO lane keeps the ledger chain in order.
+            self._grow_if_needed(transfers_need=need)
+            if self.device.type == "cuda":
+                graph = self._group_graph_for(self.ledger)
+                codes, overflow, id_lo, id_hi = graph.run(stage["buf"])
+            else:
+                (self.ledger, codes, overflow, id_lo, id_hi) = \
+                    group_mod.group_dispatch_steps(
+                        self.ledger, self._staged_columns(stage),
+                        [int(c) for c in stage["counts"]],
+                        [int(t) for t in stage["timestamps"]])
+            for j in range(k):
+                self._index_append(id_lo[j], id_hi[j], codes[j],
+                                          counts[j])
+            if merkle_closure:
+                # The commitment update rides the ledger chain, batch by
+                # batch.
+                for j in range(k):
+                    self._merkle_update_transfers_batches([batches[j]])
+            return codes, overflow
+
+        armed_mirror = self._scrub_mirror is not None
+        armed = armed_mirror or self._merkle_forest is not None
+        result = self._lane_dispatch(dispatch, deferred)
+        handle = DeviceCommitHandle(
+            self, result, counts, list(timestamps), stacked=True, stage=stage,
+            batches=list(batches) if armed_mirror else None,
+            deferred=deferred,
+        )
+        if self._merkle_forest is not None and not merkle_closure:
+            for b in batches:
+                self._merkle_lane_enqueue("create_transfers", b)
+        if deferred:
+            self._deferred_submitted(sum(counts))
+        if armed:
+            self._inflight_handles.append(handle)
+        if deferred:
+            return handle
+        return handle.resolve()  # ONE read-back for the whole group
+
+    def commit_fast_deferred(
+        self, batch: np.ndarray, timestamp: int
+    ) -> Optional[DeviceCommitHandle]:
+        """Dispatch ONE fast-path create_transfers batch on the dispatch
+        lane and return its deferred read-back handle, or None when the
+        batch is not fast-path eligible (the caller falls back to the
+        blocking commit_batch).  The same kernels, codes and bookkeeping as
+        ``_commit_fast``; only the read-back moves: the probed variant
+        carries the overflow flag in a fresh tensor, so resolve() reads it
+        after later dispatches."""
+        count = len(batch)
+        if (
+            self._engine is not None
+            or self.force_sequential
+            or count == 0
+            or count > self.batch_lanes
+        ):
+            return None
+        bound0 = self._balance_bound
+        self._note_balance_bound(batch)
+        if not self._fast_path_ok(batch):
+            self._balance_bound = bound0
+            return None
+        if timestamp > self.prepare_timestamp:
+            self.prepare_timestamp = timestamp
+        self._scrub_maybe_check()  # no-op unless armed, due and lane idle
+        stage = self._stage_group([batch], [timestamp], 1)
+        need = self._transfers_bound + count
+        self._transfers_bound = need
+        merkle_closure = (self._merkle_forest is not None
+                          and not self.merkle_async)
+
+        def dispatch():
+            self._grow_if_needed(transfers_need=need)
+            soa = {name: col[0] for name, col in
+                   self._staged_columns(stage).items()}
+            (self.ledger, codes, overflow, id_lo, id_hi) = \
+                sm.create_transfers_fast_probed(self.ledger, soa, count,
+                                                timestamp)
+            self._index_append(id_lo, id_hi, codes, count)
+            if merkle_closure:
+                self._merkle_update_transfers_batches([batch])
+            return codes, overflow
+
+        armed_mirror = self._scrub_mirror is not None
+        armed = armed_mirror or self._merkle_forest is not None
+        fut = self._lane_dispatch(dispatch, True)
+        handle = DeviceCommitHandle(
+            self, fut, [count], [timestamp], stacked=False, stage=stage,
+            batches=[batch] if armed_mirror else None, deferred=True,
+        )
+        if self._merkle_forest is not None and not merkle_closure:
+            self._merkle_lane_enqueue("create_transfers", batch)
+        self._deferred_submitted(count)
+        if armed:
+            self._inflight_handles.append(handle)
+        return handle
 
     # -- the general kernel -----------------------------------------------------
 
@@ -509,7 +1099,7 @@ class TorchStateMachine:
         self._transfers_bound += count
         self._posted_bound += pv_count
         self._history_bound += hist_count
-        self._index_append(soa, codes_dev, count)
+        self._index_append(soa["id_lo"], soa["id_hi"], codes_dev, count)
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
@@ -603,7 +1193,7 @@ class TorchStateMachine:
         if operation == "create_accounts":
             self._scan_append_accounts(soa, codes_dev, count)
         else:
-            self._index_append(soa, codes_dev, count)
+            self._index_append(soa["id_lo"], soa["id_hi"], codes_dev, count)
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
@@ -627,6 +1217,9 @@ class TorchStateMachine:
         commitment forest rebuilds from the grown layout at the next update
         or check."""
         self._merkle_mark_dirty()
+        if self._sanitize and self._sanitize_capture_base is not None:
+            # A new capacity makes a new graph: its capture is legitimate.
+            self._sanitize_grace = True
         return ht.grow(table, capacity)
 
     @staticmethod
@@ -639,6 +1232,7 @@ class TorchStateMachine:
     def _grow_if_needed(
         self, accounts: int = 0, transfers: int = 0, posted: int = 0,
         history: int = 0, evict_ok: bool = True,
+        transfers_need: Optional[int] = None,
     ) -> None:
         """Keep every table's load factor under 0.5 using host-side row
         bounds (no device sync; bounds only overestimate), and the history
@@ -646,7 +1240,10 @@ class TorchStateMachine:
         through kernel K2.  At the hot ceiling the transfers table spills
         its oldest rows instead of growing (unless ``evict_ok`` is False, as
         in a rehydration mid-commit: then its load may rise until the next
-        eviction between batches)."""
+        eviction between batches).  ``transfers_need`` is a row target the
+        deferred closures snapshot at submit: they run on the lane while the
+        serving thread advances the bound, so a live read would make the
+        growth moment timing-dependent."""
         led = self.ledger
         cap = self._target_capacity(
             led.accounts.capacity, self._accounts_bound + accounts
@@ -654,7 +1251,9 @@ class TorchStateMachine:
         if cap != led.accounts.capacity:
             led.accounts = self._table_grow(led.accounts, cap)
         cap = self._target_capacity(
-            led.transfers.capacity, self._transfers_bound + transfers
+            led.transfers.capacity,
+            transfers_need if transfers_need is not None
+            else self._transfers_bound + transfers,
         )
         if cap != led.transfers.capacity:
             hot_max = self.hot_transfers_capacity_max
@@ -733,6 +1332,7 @@ class TorchStateMachine:
         Deterministic given the ledger state; called at checkpoint
         boundaries by the replica, or directly under memory pressure.
         Returns the number of rows evicted."""
+        assert self._engine is None, "tiering runs on the device path"
         return self._evict_cold_impl(frac)
 
     def _evict_cold_impl(self, frac: Optional[float] = None) -> int:
@@ -785,22 +1385,23 @@ class TorchStateMachine:
         """The committed lanes, on the device: code 0 below ``count``."""
         return (codes_dev == 0) & (self._lane_ids < count)
 
-    def _index_append(self, soa: dict, codes_dev: torch.Tensor,
-                      count: int) -> None:
-        """Append a committed create_transfers batch to the transfer index
-        and the materialized transfer field indexes; with ``lazy_index``
-        (bulk ingest) mark them stale instead, and the next query rebuilds
-        them from the table in one go."""
+    def _index_append(self, id_lo: torch.Tensor, id_hi: torch.Tensor,
+                      codes_dev: torch.Tensor, count: int) -> None:
+        """Append a committed create_transfers batch (its id columns) to the
+        transfer index and the materialized transfer field indexes; with
+        ``lazy_index`` (bulk ingest) mark them stale instead, and the next
+        query rebuilds them from the table in one go.  The deferred
+        closures run it on the lane, right after their kernels, where
+        ``self.ledger`` is the one their dispatch left."""
         if self.config.lazy_index:
             if not self.index.stale:
                 self.index.reset()
             self.scans_transfers.reset()
             return
         ok = self._ok_mask(codes_dev, count)
-        self.index.append_batch(self.ledger, soa["id_lo"], soa["id_hi"], ok)
+        self.index.append_batch(self.ledger, id_lo, id_hi, ok)
         if self.scans_transfers.indexes:
-            self.scans_transfers.append_batch(
-                self.ledger, soa["id_lo"], soa["id_hi"], ok)
+            self.scans_transfers.append_batch(self.ledger, id_lo, id_hi, ok)
 
     def _scan_append_accounts(self, soa: dict, codes_dev: torch.Tensor,
                               count: int) -> None:
@@ -824,6 +1425,8 @@ class TorchStateMachine:
         """Found accounts as an ACCOUNT_DTYPE array (misses omitted)."""
         if not ids:
             return np.zeros(0, dtype=types.ACCOUNT_DTYPE)
+        if self._engine is not None:
+            return self._engine.lookup_accounts(ids)
         found, cols = sm.lookup_accounts(self.ledger, *self._ids(ids))
         host = {k: convert.tensor_to_array(v) for k, v in cols.items()}
         host["reserved"] = np.zeros(len(ids), np.uint32)
@@ -836,6 +1439,9 @@ class TorchStateMachine:
         store."""
         if not ids:
             return np.zeros(0, dtype=types.TRANSFER_DTYPE)
+        if self._engine is not None:
+            found, rows = self._engine.lookup_transfers(ids)
+            return rows[found]  # no cold tier in host mode
         lo, hi = self._ids(ids)
         found, cols = sm.lookup_transfers(self.ledger, lo, hi)
         host = convert.tensors_to_arrays({"_found": found, **cols})
@@ -893,6 +1499,7 @@ class TorchStateMachine:
         window = self._filter_window(filt)
         if window is None:
             return np.zeros(0, dtype=types.TRANSFER_DTYPE)
+        self._index_fresh()
         acct_lo, acct_hi, ts_min, ts_max, descending, limit = window
         flags = int(filt["flags"])
         # Candidate cap: the power of two covering the largest reply.
@@ -957,6 +1564,7 @@ class TorchStateMachine:
         """Composed index scan over transfers: any ``ops.scan_builder``
         expression (prefix conditions on any indexed field, union /
         intersection / difference to any depth), timestamp-ordered."""
+        self._index_fresh()
         ts_min, ts_max = self._scan_window(timestamp_min, timestamp_max)
         limit = min(limit, QUERY_ROWS_MAX)
         tid_lo, tid_hi = self.scans_transfers.evaluate(
@@ -976,6 +1584,7 @@ class TorchStateMachine:
         limit: int = QUERY_ROWS_MAX, reversed: bool = False,
     ) -> np.ndarray:
         """Composed index scan over accounts (one batched lookup)."""
+        self._index_fresh()
         ts_min, ts_max = self._scan_window(timestamp_min, timestamp_max)
         limit = min(limit, QUERY_ROWS_MAX)
         tid_lo, tid_hi = self.scans_accounts.evaluate(
@@ -1138,8 +1747,8 @@ class TorchStateMachine:
         """Deferred commitment lane (TB_MERKLE_ASYNC=1 env, or the setter):
         committed batches queue their touched-row records and
         ``merkle_settle`` refreshes the paths wherever a maintained root is
-        observed.  The port has no dispatch thread: the queue is drained on
-        the caller's thread."""
+        observed.  The deferred and grouped commits queue their records at
+        submit; a settle runs on the serving thread with the lane idle."""
         if self._merkle_async is None:
             self._merkle_async = os.environ.get("TB_MERKLE_ASYNC", "") == "1"
         return self._merkle_async
@@ -1156,8 +1765,9 @@ class TorchStateMachine:
         verified point: genesis, a checked restore, the end of a recovery).
         Returns False, arming nothing, when scrub_interval is 0.  Mirror
         mode seeds the host mirror; Merkle mode builds the forest (K22) and
-        keeps the mirror only when ``scrub_paranoid``."""
-        if self.scrub_interval <= 0:
+        keeps the mirror only when ``scrub_paranoid``.  No-op in host-engine
+        mode, where the numpy ledger is already the authority."""
+        if self._engine is not None or self.scrub_interval <= 0:
             self._scrub_mirror = None
             self._merkle_forest = None
             return False
@@ -1210,7 +1820,10 @@ class TorchStateMachine:
     def inject_sdc_bitflip(self, rng) -> bool:
         """Flip one seeded bit of a live account's balance column on the
         device (tests and simulation only), as the reference picks it.
-        Returns False when no live account exists yet."""
+        Returns False when no live account exists yet (or in host-engine
+        mode, with no device ledger to corrupt)."""
+        if self._engine is not None:
+            return False
         a = self.ledger.accounts
         live = np.flatnonzero(
             (convert.tensor_to_array(a.key_lo) != 0)
@@ -1251,7 +1864,9 @@ class TorchStateMachine:
         reads device state, dispatch retry with jittered exponential backoff
         on device faults, and the mirror and forest advanced after success.
         One armed check and nothing else when the fault domain is off."""
-        if not self.scrub_armed or len(batch) == 0:
+        if not self.scrub_armed or self._engine is not None or (
+            len(batch) == 0
+        ):
             return impl(batch, timestamp)
         while True:
             try:
@@ -1260,22 +1875,31 @@ class TorchStateMachine:
                 self._device_fault_streak = 0
                 break
             except DEVICE_FAULT_TYPES as err:
-                self._on_blocking_device_fault(err)
+                recovered = self._on_blocking_device_fault(
+                    operation, batch, timestamp, err)
+                if recovered is not None:
+                    return recovered  # degraded: the host engine committed
         self._scrub_commits += 1
         self._mirror_apply(operation, batch, timestamp)
         self._merkle_apply(operation, batch)
         return results
 
-    def _on_blocking_device_fault(self, err) -> None:
+    def _on_blocking_device_fault(self, operation, batch, timestamp, err):
         """One failed blocking dispatch: quarantine, rebuild the ledger from
-        the mirror and back off (the caller retries).  At
-        ``device_fault_limit`` consecutive failures the reference degrades
-        to the host engine, which the port does not have yet."""
+        the mirror and back off (the caller retries), or, at
+        ``device_fault_limit`` consecutive failures, degrade to the host
+        engine and commit there.  Returns the results when degraded, None
+        when the caller should retry."""
         if _obs.enabled:
             _obs.counter("device_recovery.dispatch_faults").inc()
         self._device_fault_streak += 1
-        if self._device_fault_streak >= self.device_fault_limit:
+        if self._device_fault_streak >= self.device_fault_limit or (
+            self._context_lost(err)
+        ):
             self._degrade_to_host_engine(err)
+            results = self._engine_commit(operation, batch, timestamp)
+            self._device_fault_streak = 0
+            return results
         self.quarantine()
         self._rematerialize_from_mirror()
         self._retry_backoff()
@@ -1283,10 +1907,115 @@ class TorchStateMachine:
         if _obs.enabled:
             _obs.counter("device_recovery.recoveries").inc()
             _obs.counter("device_recovery.redispatches").inc()
+        return None
+
+    def _device_fault_at_resolve(self, err) -> None:
+        """Deferred-path funnel: the oldest in-flight handle's dispatch (or
+        its read-back) failed.  Quarantine the whole lane and re-commit
+        EVERY pending run from the mirror through the blocking path (which
+        owns retry, backoff and the degrade), storing each handle's results
+        for its resolve()."""
+        if _obs.enabled:
+            _obs.counter("device_recovery.dispatch_faults").inc()
+        if self._scrub_mirror is None:
+            if self._merkle_forest is not None:
+                # Merkle-only mode has no in-process authority to re-commit
+                # from: escalate to the durable-state rebuild (checkpoint +
+                # WAL replay) instead of leaking the raw device error.
+                self._merkle_dirty = True
+                raise DeviceStateUnrecoverable(
+                    "deferred dispatch failed with no mirror armed "
+                    "(merkle mode recovers via checkpoint + WAL replay)"
+                ) from err
+            raise err
+        self._device_fault_streak += 1
+        if self._device_fault_streak >= self.device_fault_limit or (
+            self._context_lost(err)
+        ):
+            # Let the re-commits below run on the host engine directly.
+            self._degrade_to_host_engine(err)
+        self._retry_backoff()
+        self._recover_inflight()
+
+    def _context_lost(self, err) -> bool:
+        """Whether ``err``, a CUDA error the runtime reported
+        (``torch.AcceleratorError``), left the device unusable: a sticky
+        error (an illegal address, a trap) fails every later launch, copy
+        and allocation in this process, so no re-dispatch can help and the
+        funnels hand over to the host engine at once.  One small allocation
+        and, on the card, a synchronize tell.  An injected fault and a
+        failure of the port's own kernels (``CudaKernelError``) are not
+        such errors."""
+        if not isinstance(_ACCELERATOR_ERROR, type) or not isinstance(
+                err, _ACCELERATOR_ERROR):
+            return False
+        try:
+            torch.zeros(1, device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except DEVICE_FAULT_TYPES:
+            return True
+        return False
+
+    def _recover_inflight(self) -> None:
+        """Quarantine, rebuild from the mirror, then re-commit every pending
+        deferred run's batches in FIFO (== op) order through the guarded
+        blocking path.
+
+        On the card this re-dispatch can only help a fault that left the
+        CUDA context usable (a failed launch, an injected fault).  A sticky
+        error (an illegal address, a trap) poisons the context for the rest
+        of the process: every later launch, copy and allocation fails.
+        ``_context_lost`` tells such a fault, and the funnel then degrades
+        to the host engine, which needs no device, before calling this:
+        with the engine in place nothing here touches the device (the
+        quarantine re-allocates nothing, the re-commits run on the
+        engine)."""
+        pending = list(self._inflight_handles)
+        self._inflight_handles = []
+        self.quarantine(reallocate=self._engine is None)
+        try:
+            if self._engine is None:
+                self._rematerialize_from_mirror()
+            for handle in pending:
+                if hasattr(handle._result, "result"):
+                    try:
+                        handle._result.result()  # quiesce the dead future
+                    except Exception:  # noqa: BLE001 - quiesced fault
+                        pass
+                assert handle._batches is not None, (
+                    "deferred handle tracked without batch retention")
+                handle._recovered = [
+                    self._commit_create_transfers(b, ts)
+                    for b, ts in zip(handle._batches, handle._timestamps)
+                ]
+                if handle._stage is not None:
+                    self._stage_release(handle._stage)
+                    handle._stage = None
+        except BaseException:
+            # Recovery itself failed (e.g. escalating to the durable-state
+            # rebuild): quiesce the handles not yet recovered and release
+            # their staging sets, so nothing leaks.
+            for handle in pending:
+                if handle._recovered is not None:
+                    continue
+                if hasattr(handle._result, "result"):
+                    try:
+                        handle._result.result()
+                    except Exception:  # noqa: BLE001 - quiesced fault
+                        pass
+                if handle._stage is not None:
+                    self._stage_release(handle._stage)
+                    handle._stage = None
+            raise
+        self.device_recoveries += 1
+        if _obs.enabled:
+            _obs.counter("device_recovery.recoveries").inc()
 
     def _scrub_maybe_check(self) -> None:
-        if self.scrub_due:
-            self.scrub_check()
+        if not self.scrub_due or self._inflight_handles:
+            return
+        self.scrub_check()
 
     def _scrub_digests_match(self, got, want) -> bool:
         return int(got[0]) == want[0] and int(got[2]) == want[2] and (
@@ -1304,6 +2033,7 @@ class TorchStateMachine:
         mirror_armed = model is not None and not self._scrub_suspect
         if self._merkle_forest is None and not mirror_armed:
             return True
+        assert not self._inflight_handles, "scrub requires a settled pipeline"
         self._scrub_commits = 0
         self.scrub_checks += 1
         if _obs.enabled:
@@ -1462,6 +2192,9 @@ class TorchStateMachine:
         every point a maintained root is observed."""
         if not self._merkle_pending:
             return
+        assert self._deferred_inflight == 0, (
+            "merkle_settle with the dispatch lane busy: settle barriers run "
+            "only at drained points")
         pending, self._merkle_pending = self._merkle_pending, []
         if self._merkle_forest is None:
             return  # disarmed while records were queued
@@ -1546,7 +2279,7 @@ class TorchStateMachine:
         to; equal to merkle_roots() on a clean forest)."""
         if self._merkle_forest is None:
             return None
-        if self._merkle_pending:
+        if self._merkle_pending and self._deferred_inflight == 0:
             self.merkle_settle()
         return merkle_ops.np_ledger_roots(self.ledger)
 
@@ -1555,7 +2288,7 @@ class TorchStateMachine:
         audit anchor a replica stamps into every reply header), or 0 when
         commitments are not armed or the deferred lane holds records
         (clients skip a 0)."""
-        if self._merkle_forest is None:
+        if self._merkle_forest is None or self._engine is not None:
             return 0
         if self._merkle_pending:
             return 0
@@ -1569,7 +2302,7 @@ class TorchStateMachine:
         ``posted`` (the fulfillment of pending transfer ``ident``, keyed by
         its timestamp).  None when the row does not exist in the pad or
         Merkle mode is off."""
-        if self._merkle_forest is None:
+        if self._merkle_forest is None or self._engine is not None:
             return None
         if kind not in merkle_ops.PROOF_KINDS:
             raise ValueError(f"unknown proof kind {kind!r}")
@@ -1620,12 +2353,26 @@ class TorchStateMachine:
 
     # -- recovery ----------------------------------------------------------------
 
-    def quarantine(self) -> None:
-        """Quarantine the device pipeline: after a failed or corrupted
-        dispatch every cached device buffer is suspect.  The port has no
-        dispatch lane or staging pool yet (ROADMAP A8); it drops its cached
-        buffers (the lane index vector and the Bloom filter's device copy)
-        and makes them anew."""
+    def quarantine(self, reallocate: bool = True) -> None:
+        """Quarantine the device pipeline: drain the dispatch lane (joining
+        any running closure, then waiting on the host for its stream) and
+        drop every cached device buffer, which a failed or corrupted
+        dispatch chain makes suspect: the staging sets, the grouped
+        commit's graph, the lane index vector and the Bloom filter's device
+        copy (the last two made anew unless ``reallocate`` is False).  With
+        ``reallocate=False`` (the degrade to the host engine) nothing here
+        touches the device, which a sticky CUDA error has made unusable."""
+        fut, self._lane_tail = self._lane_tail, None
+        if fut is not None:
+            concurrent.futures.wait([fut])
+        lane, self._lane = self._lane, None
+        if lane is not None:
+            lane.shutdown(wait=True)
+        self._lane_drain()
+        self._stage_pool.clear()
+        self._group_graph = None
+        if not reallocate:
+            return
         self._lane_ids = torch.arange(self.batch_lanes, device=self.device)
         if self._bloom_np is not None:
             self._bloom_dev = convert.bloom_to_tensor(self._bloom_np,
@@ -1708,14 +2455,251 @@ class TorchStateMachine:
             _time.sleep(ticks * self.retry_tick_s)
 
     def _degrade_to_host_engine(self, err) -> None:
-        """The reference serves from the native host engine after
-        ``device_fault_limit`` consecutive failures; the port has no host
-        engine yet."""
-        raise NotImplementedError(
-            "TorchStateMachine cannot degrade to the host engine after "
-            f"{self.device_fault_limit} consecutive device faults: the host "
-            "engine is not ported yet (ROADMAP A6)"
-        ) from err
+        """After ``device_fault_limit`` consecutive dispatch failures, or a
+        CUDA error that left the context unusable (``_context_lost``): stop
+        trusting the device and serve from the native host engine over a
+        ledger built from the mirror (a RuntimeWarning, not a wedge).
+        Nothing here touches the device.
+
+        A failure of the port's own kernels (``CudaKernelError``: a launch,
+        a graph capture or replay) never degrades: it is a fault of the
+        port, not of the card, and moving the work to the CPU would hide
+        it.  It raises here, past the funnels."""
+        from .host_engine import HostEngine, engine_available
+
+        if isinstance(err, _cuda.CudaKernelError):
+            raise err
+        model = self._scrub_mirror
+        if model is None or self._scrub_suspect:
+            raise DeviceStateUnrecoverable(
+                "device failing and mirror unavailable") from err
+        if self._tiering or self.cold.count or (
+            self.hot_transfers_capacity_max is not None
+        ):
+            raise DeviceStateUnrecoverable(
+                "device failing under tiering: host engine cannot take over"
+            ) from err
+        if not engine_available():
+            raise DeviceStateUnrecoverable(
+                "device failing and the native host engine is unavailable"
+            ) from err
+        self.quarantine(reallocate=False)
+        self._host_led = scrub_ops.build_host_ledger(model, self.config)
+        self._engine = HostEngine(self._host_led, self.config.max_probe)
+        self._resync_host_state_from_mirror(model)
+        self._index_stale = True
+        self._device_stale = True
+        self._ledger = None  # made anew for queries and checkpoints
+        self.scrub_disarm()  # the host ledger is the authority now
+        self.degraded_to_host_engine = True
+        if _obs.enabled:
+            _obs.counter("device_recovery.degraded").inc()
+        warnings.warn(
+            f"device dispatch failed {self.device_fault_limit} consecutive "
+            f"times ({err!r}); degraded to the native host engine "
+            "(device path disabled for this process)",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+    # -- host-engine mode (host_engine.py) ---------------------------------------
+
+    def _engine_grow(
+        self, accounts: int = 0, transfers: int = 0, posted: int = 0,
+        history: int = 0,
+    ) -> None:
+        """Load-factor management of the host tables (``_grow_if_needed``'s
+        policy on the same host-side bounds)."""
+        led = self._host_led
+        for which, need in (
+            ("accounts", self._accounts_bound + accounts),
+            ("transfers", self._transfers_bound + transfers),
+            ("posted", self._posted_bound + posted),
+        ):
+            cap = self._target_capacity(getattr(led, which).capacity, need)
+            if cap != getattr(led, which).capacity:
+                self._engine.grow(which, cap)
+        if history and self._history_bound + history > led.history_capacity:
+            led.grow_history(self._history_bound + history)
+
+    def _engine_commit(
+        self, operation: str, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
+        count = len(batch)
+        if count == 0:
+            return []
+        # Invalidate the derived views BEFORE the commit: a partial
+        # application must not leave queries serving the old device ledger.
+        self._device_stale = True
+        self._index_stale = True
+        if operation == "create_accounts":
+            if bool((batch["flags"] & types.AccountFlags.HISTORY).any()):
+                self._history_accounts_possible = True
+            if bool((batch["flags"] & _LIMIT_FLAGS).any()):
+                self._limit_accounts_possible = True
+            self._engine_grow(accounts=count)
+            codes = self._engine.create_accounts(batch, timestamp)
+            self._accounts_bound += count
+        else:
+            pv_count, hist_count = self._transfer_growth_counts(batch)
+            self._engine_grow(
+                transfers=count, posted=pv_count, history=hist_count)
+            codes = self._engine.create_transfers(batch, timestamp)
+            self._transfers_bound += count
+            self._posted_bound += pv_count
+            self._history_bound += hist_count
+        results = self._compress(codes, count)
+        self._update_commit_timestamp(codes, count, timestamp)
+        return results
+
+    def _index_fresh(self) -> None:
+        """Engine commits bypass the per-batch index append: reset the
+        derived indexes (the next query rebuilds them from the refreshed
+        ledger)."""
+        if self._engine is not None and self._index_stale:
+            self.index.reset()
+            self.scans_transfers.reset()
+            self.scans_accounts.reset()
+            self._index_stale = False
+
+    # -- warmup and the capture tripwire ------------------------------------------
+
+    def warmup(self) -> None:
+        """Run every serving commit kernel once on zero-count batches
+        (results discarded, state untouched) so the first request pays no
+        first-use cost: on the card the kernel library loads and the
+        grouped commit's graph is captured here.  Under TB_SANITIZE the end
+        of warmup arms the capture tripwire.  In host-engine mode it
+        pre-faults the numpy tables instead."""
+        try:
+            self._warmup_impl()
+        finally:
+            self._sanitize_arm_tripwire()
+
+    def _warmup_impl(self) -> None:
+        if self._engine is not None:
+            self._host_led.prefault()
+            return
+        soa_a = self._pad_soa(np.zeros(0, dtype=types.ACCOUNT_DTYPE))
+        self.ledger, codes_a = sm.create_accounts(self.ledger, soa_a, 0, 1)
+        soa_t = self._pad_soa(np.zeros(0, dtype=types.TRANSFER_DTYPE))
+        cold_checked = self._cold_certified(False) if self._tiering else None
+        # Both serving variants of the general kernel for the current
+        # history flag (dispatch selects has_postvoid per batch).
+        reads = [codes_a]
+        for has_postvoid in (False, True):
+            r = tf.create_transfers_full_impl(
+                self.ledger, soa_t, 0, 1, self._bloom_dev, cold_checked,
+                max_passes=self.config.jacobi_max_passes,
+                has_postvoid=has_postvoid,
+                has_history=self._history_accounts_possible,
+                use_waves=self.waves_enabled,
+            )
+            self.ledger = r[0]
+            reads.append(r[1])
+        if self._fast_path_ok(np.zeros(0, dtype=types.TRANSFER_DTYPE)):
+            self.ledger, codes_f = sm.create_transfers_fast(
+                self.ledger, soa_t, 0, 1)
+            reads.append(codes_f)
+            if self.group_device_commit and self.device.type == "cuda":
+                # Capture the grouped commit's graph now, not mid-run.
+                self._group_graph_for(self.ledger)
+        torch.cat([c.reshape(-1) for c in reads]).cpu()
+
+    def _sanitize_arm_tripwire(self) -> None:
+        """TB_SANITIZE: baseline the capture count at a legitimate capture
+        point (the end of warmup)."""
+        if not self._sanitize:
+            return
+        self._sanitize_capture_base = group_mod.CAPTURES
+        self._sanitize_grace = False
+
+    def _sanitize_capture_check(self, where: str) -> None:
+        cur = group_mod.CAPTURES
+        if self._sanitize_grace:
+            # First read-back after a growth: its capture is a new layout.
+            self._sanitize_grace = False
+            self._sanitize_capture_base = cur
+            return
+        delta = cur - self._sanitize_capture_base
+        if delta > 0:
+            self._sanitize_capture_base = cur
+            _san.capture_trip(where, delta, strict_ok=not (
+                self._scrub_mirror is not None
+                or self._merkle_forest is not None))
+
+    # -- persistence (vsr/checkpoint.py) ------------------------------------------
+
+    def checkpoint_ledger(self) -> sm.Ledger:
+        """The ledger snapshot checkpoints serialize (the single-device
+        layout, which is the only one the port has)."""
+        return self.ledger
+
+    def host_state(self) -> dict:
+        """Host-tracked state that must survive restarts (checkpointed
+        beside the device ledger)."""
+        return {
+            "prepare_timestamp": self.prepare_timestamp,
+            "commit_timestamp": self.commit_timestamp,
+            "accounts_bound": self._accounts_bound,
+            "transfers_bound": self._transfers_bound,
+            "posted_bound": self._posted_bound,
+            "history_bound": self._history_bound,
+            "history_accounts_possible": self._history_accounts_possible,
+            "limit_accounts_possible": self._limit_accounts_possible,
+            "balance_bound": min(self._balance_bound, _BOUND_CLAMP),
+            "cold_manifest": self.cold.manifest(),
+            "bloom_log2": self._bloom_log2,
+        }
+
+    def restore_host_state(self, state: dict) -> None:
+        self.prepare_timestamp = int(state["prepare_timestamp"])
+        self.commit_timestamp = int(state["commit_timestamp"])
+        # Floor the bounds at the live counts, so checkpoints that predate
+        # bound tracking still grow correctly (one read-back at restart).
+        led = self.ledger
+        counts = convert.tensor_to_array(torch.stack([
+            led.accounts.count, led.transfers.count, led.posted.count,
+            led.history.count]))
+        self._accounts_bound = max(int(state.get("accounts_bound", 0)),
+                                   int(counts[0]))
+        self._transfers_bound = max(int(state.get("transfers_bound", 0)),
+                                    int(counts[1]))
+        self._posted_bound = max(int(state.get("posted_bound", 0)),
+                                 int(counts[2]))
+        self._history_bound = max(int(state.get("history_bound", 0)),
+                                  int(counts[3]))
+        self._history_accounts_possible = bool(
+            state.get("history_accounts_possible", True))
+        # Absent fields (older checkpoints) default to "fast path off".
+        self._limit_accounts_possible = bool(
+            state.get("limit_accounts_possible", True))
+        self._balance_bound = int(state.get("balance_bound", _BOUND_CLAMP))
+        manifest = state.get("cold_manifest", [])
+        if manifest:
+            self._tiering = True
+            self.cold.load_manifest(manifest)
+            self._bloom_log2 = int(state.get("bloom_log2", self._bloom_log2))
+            self._bloom_np = self.cold.rebuild_bloom(self._bloom_log2)
+            self._bloom_dev = convert.bloom_to_tensor(self._bloom_np,
+                                                      self.device)
+        elif self.cold.runs:
+            # Restored to a pre-eviction checkpoint: drop stale in-memory
+            # cold state (the files stay; older checkpoints may name them).
+            self.cold.clear()
+            self._bloom_np = np.zeros(((1 << self._bloom_log2) // 32,),
+                                      np.uint32)
+            self._bloom_dev = convert.bloom_to_tensor(self._bloom_np,
+                                                      self.device)
+        # The ledger was just swapped: the derived indexes rebuild on use.
+        self.index.reset()
+        self.scans_transfers.reset()
+        self.scans_accounts.reset()
+        self._index_stale = False
+        if self.scrub_armed:
+            # The caller verified the new ledger's digest: reseed the mirror
+            # and/or rebuild the forest from it.
+            self.scrub_arm()
 
 
 def _unique_pairs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:

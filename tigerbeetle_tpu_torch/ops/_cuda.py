@@ -40,6 +40,20 @@ add one to their kernel's ``launches`` each time they launch it.
 | scrub_fold    | csrc/scrub.cu      | ops/scrub.py:151 scrub_digest (+ :108-147 row_hash_*, _fold_*) |
 | merkle_build  | csrc/merkle_build.cu | ops/merkle.py:125 build_forest_impl (+ :106 tree_from_leaves, :151 verify_roots_impl) |
 | merkle_touch  | csrc/merkle_touch.cu | ops/merkle.py:183 touch_tree (+ :169 _leaf_at, :280 gather_path) |
+| group_step    | csrc/group.cu      | machine.py:78 _group_fast_dispatch_impl (a step's lanes and the run's overflow word) |
+| group_finish  | csrc/group.cu      | machine.py:102 the run's overflow word after the last step |
+| group_words   | csrc/group.cu      | bench.py:2245 multi's batch index b0 + i (+ :2229 its timestamp) |
+| group_dispatch | (a CUDA graph)    | machine.py:78 _group_fast_dispatch_impl: GROUP_K steps, one replay |
+
+The grouped commit's graph (``ops/group.py``) and the bench twin's read a
+batch's count and timestamp from u64 device words, so one captured launch
+sequence serves every run: ``probe``, ``validate`` (transfers) and
+``bench_gen`` take such words (``count_word``, ``ts_word``, ``b_word``), and
+``probe``, ``validate``, ``balance`` and ``insert`` take preallocated
+outputs and scratch (a graph bakes every pointer).  ``group_dispatch`` is
+not a kernel of its own: it counts the replays of the grouped commit's
+graph, each of which launches the kernels above (their counts grow by the
+graph's nodes at every replay, not at capture).
 
 The general kernel's launches (K9-K12) take their pointers as one array in
 the order of the kernel's pointer enum (``FULL_PASS_LAYOUT`` and
@@ -133,6 +147,14 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/ops/merkle.py:125"),
         Kernel("merkle_touch", "tigerbeetle_tpu_torch/csrc/merkle_touch.cu",
                "tigerbeetle_tpu/ops/merkle.py:183"),
+        Kernel("group_step", "tigerbeetle_tpu_torch/csrc/group.cu",
+               "tigerbeetle_tpu/machine.py:78"),
+        Kernel("group_finish", "tigerbeetle_tpu_torch/csrc/group.cu",
+               "tigerbeetle_tpu/machine.py:102"),
+        Kernel("group_words", "tigerbeetle_tpu_torch/csrc/group.cu",
+               "bench.py:2245"),
+        Kernel("group_dispatch", "tigerbeetle_tpu_torch/csrc/group.cu",
+               "tigerbeetle_tpu/machine.py:78"),
     )
 }
 
@@ -221,12 +243,12 @@ _M64 = (1 << 64) - 1
 def _bind(lib: ctypes.CDLL) -> None:
     sigs = {
         "tb_probe": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _I64, _I64,
-                     _P, _P, _P, _P, _INT, _P, _P, _P, _P],
+                     _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
         "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
                       _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
         "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _P],
         "tb_validate_transfers": [_INT, _P, _I64, _I64, ctypes.c_uint64,
-                                  _P, _P, _P, _I64, _P],
+                                  _P, _P, _P, _P, _P, _I64, _P],
         "tb_balance": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P],
         "tb_digest": [_P, _P, _P, _I64, _P, _P],
         "tb_seq_transfers": [_P, _INT, _P, _INT, _I64, _P, _INT, _I64,
@@ -262,11 +284,14 @@ def _bind(lib: ctypes.CDLL) -> None:
                                _P, _P, _P],
         "tb_evict_extract": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P,
                              _P, _INT, _P, _P, _P, _P, _P],
-        "tb_bench_gen": [_P, _I64, _INT, _U64, _U64, _U64, _U64, _P],
+        "tb_bench_gen": [_P, _I64, _INT, _U64, _P, _U64, _U64, _U64, _P],
         "tb_scrub_fold": [_P, _P, ctypes.POINTER(ctypes.c_int64), _P, _P],
         "tb_merkle_build": [_INT, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
         "tb_merkle_touch": [_INT, _P, _P, _P, _I64, _P, _P, _P, _I64, _P],
         "tb_merkle_path": [_P, _I64, _I64, _INT, _P, _P],
+        "tb_group_step": [_P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P],
+        "tb_group_finish": [_P, _P, _P],
+        "tb_group_words": [_P, _INT, _U64, _U64, _P, _P, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -308,6 +333,11 @@ def _check(t: torch.Tensor, dtype: torch.dtype, n: Optional[int] = None,
         raise ValueError(f"{what} must have {n} elements, got {t.numel()}")
 
 
+def _word(t: torch.Tensor, what: str) -> None:
+    """A u64 device word: a one-element int64 view of a CUDA tensor."""
+    _check(t, torch.int64, 1, what)
+
+
 def _ptr_array(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * max(1, len(tensors)))(
         *[t.data_ptr() for t in tensors]
@@ -343,11 +373,17 @@ _U64_OR_U32 = (torch.int64, torch.int32, torch.bool)
 
 def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
           key_lo, key_hi, max_probe: int, hash_shift: int, count: int,
-          names: Sequence[str], mask: Optional[torch.Tensor] = None,
-          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+          names: Sequence[str], mask: Optional[torch.Tensor] = None, *,
+          count_word: Optional[torch.Tensor] = None,
+          out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                              Sequence[torch.Tensor]]] = None,
+          ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                      Dict[str, torch.Tensor]]:
     """Kernel K1: (found, slot, overflow, gathered columns); ``found`` is
-    masked to lanes below ``count`` and to ``mask`` when given."""
+    masked to lanes below ``count`` (read from the u64 device word
+    ``count_word`` when given) and to ``mask`` when given.  ``out``, a
+    (found, slot, columns) triple, takes the outputs in place; no overflow
+    word is made then (None: the fast path reads the table's flag)."""
     lib = library()
     cap = tkey_lo.numel()
     n = key_lo.numel()
@@ -358,27 +394,39 @@ def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
     _check(key_hi, torch.int64, n, "key_hi")
     if mask is not None:
         _check(mask, torch.bool, n, "mask")
+    if count_word is not None:
+        _word(count_word, "count word")
     src = [table_cols[name] for name in names]
     for name, s in zip(names, src):
         if s.dtype not in _U64_OR_U32:
             raise TypeError(f"column {name}: unsupported dtype {s.dtype}")
         _check(s, s.dtype, cap, f"column {name}")
     dev = key_lo.device
-    found = torch.empty(n, dtype=torch.bool, device=dev)
-    slot = torch.empty(n, dtype=torch.int64, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    dst = [torch.empty(n, dtype=s.dtype, device=dev) for s in src]
+    if out is None:
+        found = torch.empty(n, dtype=torch.bool, device=dev)
+        slot = torch.empty(n, dtype=torch.int64, device=dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        dst = [torch.empty(n, dtype=s.dtype, device=dev) for s in src]
+    else:
+        found, slot, dst = out[0], out[1], list(out[2])
+        overflow = None
+        _check(found, torch.bool, n, "found")
+        _check(slot, torch.int64, n, "slot")
+        for name, s, d in zip(names, src, dst):
+            _check(d, s.dtype, n, f"output {name}")
     widths = (ctypes.c_int * max(1, len(src)))(*[_width(s) for s in src])
     err = lib.tb_probe(
         tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
         hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(), n,
-        count, None if mask is None else mask.data_ptr(), found.data_ptr(),
-        slot.data_ptr(), overflow.data_ptr(),
+        count, None if count_word is None else count_word.data_ptr(),
+        None if mask is None else mask.data_ptr(), found.data_ptr(),
+        slot.data_ptr(), None if overflow is None else overflow.data_ptr(),
         len(src), _ptr_array(src), _ptr_array(dst), widths, _stream(key_lo),
     )
     _raise_on(err, "probe")
     KERNELS["probe"].launches += 1
-    return found, slot, overflow[0] != 0, dict(zip(names, dst))
+    return (found, slot, None if overflow is None else overflow[0] != 0,
+            dict(zip(names, dst)))
 
 
 # -- K2 insert -------------------------------------------------------------
@@ -387,9 +435,12 @@ def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
 def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
            count: torch.Tensor, probe_overflow: torch.Tensor,
            key_lo, key_hi, insert_mask, rows: Dict[str, torch.Tensor],
-           max_probe: int, hash_shift: int) -> torch.Tensor:
+           max_probe: int, hash_shift: int,
+           scratch: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
     """Kernel K2: inserts in place; returns the claimed slots (C where
-    unplaced)."""
+    unplaced).  ``scratch``, preallocated (claimed int64[n], claim0 and
+    claim1 int32[C], cnt int32[3]; cnt is zeroed here), serves a captured
+    graph."""
     lib = library()
     cap = tkey_lo.numel()
     n = key_lo.numel()
@@ -413,10 +464,18 @@ def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
         src.append(s)
         dst.append(d)
     dev = key_lo.device
-    claimed = torch.empty(n, dtype=torch.int64, device=dev)
-    claim0 = torch.empty(cap, dtype=torch.int32, device=dev)
-    claim1 = torch.empty(cap, dtype=torch.int32, device=dev)
-    cnt = torch.zeros(3, dtype=torch.int32, device=dev)
+    if scratch is None:
+        claimed = torch.empty(n, dtype=torch.int64, device=dev)
+        claim0 = torch.empty(cap, dtype=torch.int32, device=dev)
+        claim1 = torch.empty(cap, dtype=torch.int32, device=dev)
+        cnt = torch.zeros(3, dtype=torch.int32, device=dev)
+    else:
+        claimed, claim0, claim1, cnt = scratch
+        _check(claimed, torch.int64, n, "claimed")
+        _check(claim0, torch.int32, cap, "claim0")
+        _check(claim1, torch.int32, cap, "claim1")
+        _check(cnt, torch.int32, 3, "cnt")
+        cnt.zero_()
     widths = (ctypes.c_int * max(1, len(src)))(*[_width(s) for s in src])
     err = lib.tb_insert(
         tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
@@ -443,21 +502,41 @@ def hash_size(n: int) -> int:
 
 
 def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
-             batch_timestamp: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+             batch_timestamp: int = 0, *,
+             count_word: Optional[torch.Tensor] = None,
+             ts_word: Optional[torch.Tensor] = None,
+             out: Optional[Tuple[torch.Tensor, ...]] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K3 (``variant`` "accounts" or "transfers"): (codes int32[N],
     ok bool[N]).  ``columns`` follow the order of the kernel's column enum
-    (state_machine's ``*_COLS`` tuples)."""
+    (state_machine's ``*_COLS`` tuples).  For transfers, ``count_word`` and
+    ``ts_word`` (u64 device words, given together) replace ``count`` and
+    ``batch_timestamp``; ``out``, preallocated (codes, ok, scratch
+    int32[2 * hash_size(n) + 3 * n]), serves a captured graph."""
     lib = library()
     n = columns[0].numel()
     for k, c in enumerate(columns):
         if c.dtype not in _U64_OR_U32:
             raise TypeError(f"validate column {k}: unsupported dtype {c.dtype}")
         _check(c, c.dtype, n, f"validate column {k}")
+    if (count_word is None) != (ts_word is None) or (
+            count_word is not None and variant != "transfers"):
+        raise ValueError("count_word and ts_word go together, on transfers")
+    if count_word is not None:
+        _word(count_word, "count word")
+        _word(ts_word, "timestamp word")
     dev = columns[0].device
     hsize = hash_size(n)
-    codes = torch.empty(n, dtype=torch.int32, device=dev)
-    ok = torch.empty(n, dtype=torch.bool, device=dev)
-    scratch = torch.empty(2 * hsize + 3 * n, dtype=torch.int32, device=dev)
+    if out is None:
+        codes = torch.empty(n, dtype=torch.int32, device=dev)
+        ok = torch.empty(n, dtype=torch.bool, device=dev)
+        scratch = torch.empty(2 * hsize + 3 * n, dtype=torch.int32,
+                              device=dev)
+    else:
+        codes, ok, scratch = out
+        _check(codes, torch.int32, n, "codes")
+        _check(ok, torch.bool, n, "ok")
+        _check(scratch, torch.int32, 2 * hsize + 3 * n, "validate scratch")
     ptrs = _ptr_array(columns)
     stream = _stream(columns[0])
     if variant == "accounts":
@@ -468,6 +547,8 @@ def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
     elif variant == "transfers":
         err = lib.tb_validate_transfers(
             len(columns), ptrs, n, count, batch_timestamp & ((1 << 64) - 1),
+            None if count_word is None else count_word.data_ptr(),
+            None if ts_word is None else ts_word.data_ptr(),
             codes.data_ptr(), ok.data_ptr(), scratch.data_ptr(), hsize, stream,
         )
     else:
@@ -481,11 +562,15 @@ def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
 
 
 def balance(dr_slot, cr_slot, ok, amount_lo, pending,
-            balance_cols: Sequence[torch.Tensor]) -> None:
+            balance_cols: Sequence[torch.Tensor],
+            scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            ) -> None:
     """Kernel K4: adds every accepted transfer's amount to its debit and
     credit accounts' balance columns, in place.  ``balance_cols`` are the
     eight u64 columns debits_pending lo/hi, debits_posted lo/hi,
-    credits_pending lo/hi, credits_posted lo/hi."""
+    credits_pending lo/hi, credits_posted lo/hi.  ``scratch``, preallocated
+    (limbs int64[C * 8], taken int32[C]; zeroed here), serves a captured
+    graph."""
     lib = library()
     n = ok.numel()
     _check(dr_slot, torch.int64, n, "dr_slot")
@@ -499,8 +584,15 @@ def balance(dr_slot, cr_slot, ok, amount_lo, pending,
     for c in balance_cols:
         _check(c, torch.int64, cap, "balance column")
     dev = ok.device
-    limbs = torch.zeros(cap * 8, dtype=torch.int64, device=dev)
-    taken = torch.zeros(cap, dtype=torch.int32, device=dev)
+    if scratch is None:
+        limbs = torch.zeros(cap * 8, dtype=torch.int64, device=dev)
+        taken = torch.zeros(cap, dtype=torch.int32, device=dev)
+    else:
+        limbs, taken = scratch
+        _check(limbs, torch.int64, cap * 8, "limbs")
+        _check(taken, torch.int32, cap, "taken")
+        limbs.zero_()
+        taken.zero_()
     err = lib.tb_balance(
         dr_slot.data_ptr(), cr_slot.data_ptr(), ok.data_ptr(),
         amount_lo.data_ptr(), pending.data_ptr(), n, limbs.data_ptr(),
@@ -1306,10 +1398,12 @@ def evict_extract(key_lo, key_hi, tomb, cols: Dict[str, torch.Tensor],
 
 
 def bench_gen(cols: Sequence[torch.Tensor], mode: int, b: int, count: int,
-              n_accounts: int, first_tid: int) -> None:
+              n_accounts: int, first_tid: int, *,
+              b_word: Optional[torch.Tensor] = None) -> None:
     """Kernel K20: overwrites the transfer SoA ``cols`` (utils/benchgen.py
     ``GEN_COLS`` order: fourteen int64 columns, then five int32) with batch
-    ``b`` of generator ``mode``."""
+    ``b`` of generator ``mode``, or batch ``b_word[0]`` when that u64 device
+    word is given (the bench twin's captured graph)."""
     lib = library()
     if len(cols) != 19:
         raise ValueError("bench_gen needs the nineteen transfer columns")
@@ -1317,10 +1411,14 @@ def bench_gen(cols: Sequence[torch.Tensor], mode: int, b: int, count: int,
     for k, c in enumerate(cols):
         _check(c, torch.int64 if k < 14 else torch.int32, lanes,
                f"bench_gen column {k}")
+    if b_word is not None:
+        _word(b_word, "batch word")
     if not 0 <= count <= lanes or n_accounts < 2:
         raise ValueError("bench_gen: bad count or n_accounts")
-    err = lib.tb_bench_gen(_ptr_array(cols), lanes, mode, b & _M64, count,
-                           n_accounts, first_tid & _M64, _stream(cols[0]))
+    err = lib.tb_bench_gen(_ptr_array(cols), lanes, mode, b & _M64,
+                           None if b_word is None else b_word.data_ptr(),
+                           count, n_accounts, first_tid & _M64,
+                           _stream(cols[0]))
     _raise_on(err, "bench_gen")
     KERNELS["bench_gen"].launches += 1
 
@@ -1433,3 +1531,66 @@ def merkle_path(heap: torch.Tensor, slot: int, levels: int) -> torch.Tensor:
     _raise_on(err, "merkle_path")
     KERNELS["merkle_touch"].launches += 1
     return out
+
+
+# -- K24: the grouped commit's own steps (ops/group.py's CUDA graph) ----------------
+
+
+def group_step(counts: torch.Tensor, timestamps: torch.Tensor, j: int,
+               flags: torch.Tensor, valid: torch.Tensor, ts: torch.Tensor,
+               pending: torch.Tensor, table_overflow: torch.Tensor,
+               run_overflow: torch.Tensor) -> None:
+    """Kernel K24, step ``j`` of a run: the lane mask, lane timestamps and
+    pending mask from the run's u64 count and timestamp words, and the
+    table's probe_overflow ORed into the run's word (reset at step 0)."""
+    lib = library()
+    k = counts.numel()
+    n = flags.numel()
+    _check(counts, torch.int64, k, "counts")
+    _check(timestamps, torch.int64, k, "timestamps")
+    if not 0 <= j < k:
+        raise ValueError(f"step {j} outside 0..{k - 1}")
+    _check(flags, torch.int32, n, "flags")
+    _check(valid, torch.bool, n, "valid")
+    _check(ts, torch.int64, n, "ts")
+    _check(pending, torch.bool, n, "pending")
+    _check(table_overflow, torch.bool, 1, "table probe_overflow")
+    _check(run_overflow, torch.int32, 1, "run overflow")
+    err = lib.tb_group_step(
+        counts.data_ptr(), timestamps.data_ptr(), j, n, flags.data_ptr(),
+        valid.data_ptr(), ts.data_ptr(), pending.data_ptr(),
+        table_overflow.data_ptr(), run_overflow.data_ptr(), _stream(flags))
+    _raise_on(err, "group_step")
+    KERNELS["group_step"].launches += 1
+
+
+def group_finish(table_overflow: torch.Tensor,
+                 run_overflow: torch.Tensor) -> None:
+    """Kernel K25, the last launch of a run: the table's probe_overflow
+    ORed into the run's word after the last step's insert."""
+    lib = library()
+    _check(table_overflow, torch.bool, 1, "table probe_overflow")
+    _check(run_overflow, torch.int32, 1, "run overflow")
+    err = lib.tb_group_finish(table_overflow.data_ptr(),
+                              run_overflow.data_ptr(), _stream(run_overflow))
+    _raise_on(err, "group_finish")
+    KERNELS["group_finish"].launches += 1
+
+
+def group_words(base: torch.Tensor, count: int, ts0: int, bidx: torch.Tensor,
+                counts: torch.Tensor, timestamps: torch.Tensor) -> None:
+    """Kernel K26, the bench twin's step words: for the k =
+    ``bidx.numel()`` steps of a replay, batch ``base + j``, count ``count``
+    and timestamp ``ts0 + (base + j + 1) * count``; then ``base`` advances
+    by k."""
+    lib = library()
+    k = bidx.numel()
+    _word(base, "base word")
+    for t, what in ((bidx, "bidx"), (counts, "counts"),
+                    (timestamps, "timestamps")):
+        _check(t, torch.int64, k, what)
+    err = lib.tb_group_words(base.data_ptr(), k, count & _M64, ts0 & _M64,
+                             bidx.data_ptr(), counts.data_ptr(),
+                             timestamps.data_ptr(), _stream(base))
+    _raise_on(err, "group_words")
+    KERNELS["group_words"].launches += 1

@@ -23,7 +23,10 @@ dispatch funnels retry and recover from: ``SimulatedDeviceFault`` (an
 injected fault, ``machine.inject_device_faults``), ``torch.AcceleratorError``
 (a CUDA error the runtime reports: an illegal address, a lost device) where
 the installed torch has it, and ``ops._cuda.CudaKernelError`` (a
-hand-written kernel's launch or run failed).  Never bare ``RuntimeError``:
+hand-written kernel's launch, or a graph's capture or replay, failed).  The
+funnels re-dispatch a ``CudaKernelError`` on the device but never degrade
+it to the host engine: at the fault limit it raises.  Never bare
+``RuntimeError``:
 the machine's own integrity errors (probe overflow, a digest mismatch) must
 not route into dispatch retry.
 
@@ -536,3 +539,53 @@ def materialize_ledger(model, ledger_config, device=None) -> sm.Ledger:
     return sm.Ledger(
         accounts=accounts, transfers=transfers, posted=posted, history=history
     )
+
+
+def build_host_ledger(model, ledger_config):
+    """HostLedger (native engine numpy ledger) with the mirror's content —
+    the degrade-to-host_engine target.  Pure host-side: the probe-insert
+    runs in numpy/python (mix64 home slot + linear probe, the exact
+    hash_table.py discipline), so a failing device is never touched."""
+    from ..host_engine import HostLedger
+
+    cfg = ledger_config
+    acc_lo, acc_hi, acc_rows = _account_arrays(model)
+    tr_lo, tr_hi, tr_rows = _transfer_arrays(model)
+    po_lo, po_hi, po_rows = _posted_arrays(model)
+    hist_cols, hist_n = _history_arrays(model)
+
+    hist_cap = cfg.history_capacity
+    while hist_cap < hist_n:
+        hist_cap *= 2
+    led = HostLedger(
+        _grown(cfg.accounts_capacity, len(acc_lo)),
+        _grown(cfg.transfers_capacity, len(tr_lo)),
+        _grown(cfg.posted_capacity, len(po_lo)),
+        history_capacity=hist_cap,
+    )
+
+    def fill(table, key_lo, key_hi, rows):
+        cap = table.capacity
+        mask = np.uint64(cap - 1)
+        occupied = np.zeros(cap, bool)
+        home = mix64_np(key_lo, key_hi) & mask
+        cols = table.cols  # device-column-name views into the AoS rows
+        for i in range(len(key_lo)):
+            slot = int(home[i])
+            while occupied[slot]:
+                slot = (slot + 1) & int(mask)
+            occupied[slot] = True
+            table.rows["key_lo"][slot] = key_lo[i]
+            table.rows["key_hi"][slot] = key_hi[i]
+            for name, col in rows.items():
+                cols[name][slot] = col[i]
+        table.count = len(key_lo)
+
+    fill(led.accounts, acc_lo, acc_hi, acc_rows)
+    fill(led.transfers, tr_lo, tr_hi, tr_rows)
+    fill(led.posted, po_lo, po_hi, po_rows)
+    for name in led.history:
+        if hist_n:
+            led.history[name][:hist_n] = hist_cols[name]
+    led.history_count = hist_n
+    return led
