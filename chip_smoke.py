@@ -171,7 +171,36 @@ Phases, each printing one JSON line:
                 ``vsr.checkpoint.save`` and ``load`` into a fresh machine on
                 the card: digest, roots, commitment root, lookups and host
                 state equal; the save and load walls printed.
-Then a ``{"kernels": [...]}`` line (K1-K26, K2's claim and write entries
+ 24. vopr_kernels - the batched VOPR's kernels (``sim/vopr_tpu.py``)
+                against their plain versions on CUDA tensors, byte for
+                byte: K27 ``vopr_draw`` on 4,096 keys (R 3 and 5, S 8 and
+                32, p_sdc 0 and 0.3), K28 ``vopr_step`` on 1,024 clusters x
+                50 steps for the clean model and each of the nine bugs, K29
+                ``vopr_run``'s flags and final states at 512 x 200 for the
+                clean HARSH model and each bug, and a K29 run past
+                ``VOPR_SHARED_MAX_OPS`` (the canonical lists in device
+                memory); then each at its path's shape (K27 on 4,096
+                keys, K28 on 4,096 clusters at max_ops 402, K29's flags and
+                final states on a batch of 8,192 x 200 under HARSH_FAULTS)
+                byte for byte against its plain version, and timed beside
+                it (the plain versions with CUDA events around their calls)
+                and beside its bound;
+ 25. vopr     - at the sources' sizes: (a) cli.py's ``vopr --tpu`` default
+                (4,096 clusters x 400 steps, clean) through ``run_sharded``:
+                0 violations; (b) tools/vopr_scale.py's run through the twin
+                ``sim.vopr_scale`` (batches of 8,192 x 200 under
+                HARSH_FAULTS, >= 100,000 schedules): 0 violations, the
+                schedules per minute and the wall of each batch; (c) each
+                bug at tests/test_vopr.py's shapes (256 x 300, seed 1):
+                caught, each count the JAX package's
+                (``VOPR_BUG_VIOLATIONS``); (d) 4,096 clusters x 20,000
+                steps, clean, the canonical lists in device memory: 0
+                violations; (e) the step-locked route (``draw_faults`` then
+                ``step``, K27 then K28, each step) at (a)'s shape, whose
+                last step's faults and state equal the plain versions' on
+                the same inputs and whose final state equals K29's.  K29's
+                launches are read from (b), K27's and K28's from (e).
+Then a ``{"kernels": [...]}`` line (K1-K29, K2's claim and write entries
 and the grouped commit's replay), and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
@@ -191,6 +220,9 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_OPS_PER_S = 67e12  # the slowest CUDA-core rate the data sheet lists (FP32)
+# INT32 on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz (the VOPR's
+# kernels are integer work).
+H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def emit(obj) -> None:
@@ -453,9 +485,9 @@ def pair_times(kernel: dict, plain: dict) -> dict:
             "plain_ms_from": plain["device_ms_from"]}
 
 
-def bound(bytes_, ops):
+def bound(bytes_, ops, ops_per_s=H100_OPS_PER_S):
     b_ms = bytes_ / H100_BYTES_PER_S * 1e3
-    o_ms = ops / H100_OPS_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -4966,6 +4998,304 @@ def phase_persistence(dev, lean) -> dict:
             "checked": sorted(checks) + ["lookups", "host_state"]}
 
 
+
+# ---------------------------------------------------------------------------
+# phases 24-25: the batched VOPR (sim/vopr_tpu.py, K27-K29)
+# ---------------------------------------------------------------------------
+
+# The JAX package's violation count for each injected bug at
+# tests/test_vopr.py's shapes (seed 1, 256 clusters x 300 steps);
+# tests/test_torch_vopr_run.py holds these to the JAX package.
+VOPR_BUG_VIOLATIONS = {
+    "commit_quorum": 256, "canonical_by_op": 85, "no_truncate": 244,
+    "corrupt_serve": 46, "wal_wrap": 191, "split_brain": 241,
+    "amputate_vouch": 1, "join_keep_stale": 247, "scrub_off": 256,
+}
+VOPR_SCALE = dict(schedules=100_000, steps=200, batch=8192)  # tools/vopr_scale.py
+VOPR_CLI = dict(clusters=4096, steps=400)  # cli.py vopr --tpu defaults
+VOPR_LONG = dict(clusters=4096, steps=20_000)
+VOPR_CHECK_CLUSTERS = dict(draw=4096, step=1024, run=512)
+VOPR_CHECK_STEPS = dict(step=50, run=200)
+# One threefry-2x32 hash: 4 adds and xors of the key schedule, 20 rounds of
+# add, rotate and xor, 5 injections of three adds.
+THREEFRY_OPS = 80
+
+
+def vopr_draw_ops(R: int) -> int:
+    """Integer operations of one key's draws: 30 + 14R threefry hashes
+    (split 10, split 4, fold_in, split 2, ten (R,) Bernoulli gates and the
+    repartition gate, two (R,) and two scalar randints of a split and two
+    64-bit draws a value), plus a compare a gate and four 64-bit remainders
+    a randint value."""
+    return (30 + 14 * R) * THREEFRY_OPS + 11 * R + 4 * 4 * (2 * R + 2)
+
+
+def vopr_step_ops(R: int, S: int) -> int:
+    """Integer operations of one cluster-step of the model (not of the
+    kernel's redundant copies): the (r, donor, slot) checksum scan, 7 a
+    triple (R^2 S); 60 a ring element (R S) over the crash, scrub, install,
+    append, repair, prefix, commit and oracle phases; 15 a replica pair
+    (connectivity, perceived views, participants, ranks); 100 a replica."""
+    return 7 * R * R * S + 60 * R * S + 15 * R * R + 100 * R
+
+
+def vopr_state_bytes(R: int, S: int, max_ops: int) -> int:
+    return 4 * 9 * R + 12 * R * S + 4 * max_ops + 2
+
+
+def vopr_states_equal(a, b, what: str) -> int:
+    """0 when every field of two ClusterStates is byte-identical (on the
+    card); raises otherwise."""
+    return max_abs_err_card(what, dict(zip(a._fields, a)),
+                            dict(zip(b._fields, b)))
+
+
+def phase_vopr_kernels(seed: int, dev) -> dict:
+    """K27-K29 against their plain versions on CUDA tensors, byte for byte:
+    K27 on 4,096 keys for R in {3, 5}, S in {8, 32}, p_sdc in {0, 0.3}; K28
+    on 1,024 clusters x 50 steps (its faults from K27) for the clean model
+    and each bug; K29's flags and every final state at 512 clusters x 200
+    steps for the clean HARSH model and each bug; one long run (canonical
+    lists past shared memory, in device memory).  Then each kernel at its
+    path's shape, byte for byte against its plain version on the same
+    inputs, and timed beside it and beside its bound."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.sim import prng
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    checked = {"draw": 0, "step": 0, "run": 0, "long": 0}
+    keys = prng.split(prng.PRNGKey(seed, dev), VOPR_CHECK_CLUSTERS["draw"])
+    for R in (3, 5):
+        for S in (8, 32):
+            for p_sdc in (0.0, 0.3):
+                probs = dict(vt.HARSH_FAULTS, p_sdc=p_sdc)
+                got = vt.draw_faults(keys, R, S, **probs)
+                want = vt.draw_faults_plain(keys, R, S, **probs)
+                max_abs_err_card(f"K27 R={R} S={S} p_sdc={p_sdc}", got, want)
+                checked["draw"] += 1
+    bugs = (None,) + vt.BUGS
+    n, steps = VOPR_CHECK_CLUSTERS["step"], VOPR_CHECK_STEPS["step"]
+    for bug in bugs:
+        R, S, probs = vt.BUG_CONFIGS[bug]
+        max_ops = steps + 2
+        state = vt.make_state(R, S, max_ops, n, dev)
+        key = prng.split(prng.PRNGKey(seed + 1, dev), n)
+        for i in range(steps):
+            ks = prng.split(key, 2)
+            key, sub = ks[:, 0], ks[:, 1]
+            faults = vt.draw_faults(sub, R, S, **probs)
+            got = vt.step(state, faults=faults, n_replicas=R, slots=S,
+                          max_ops=max_ops, bug=bug)
+            want = vt.step_plain(state, faults, n_replicas=R, slots=S,
+                                 max_ops=max_ops, bug=bug)
+            vopr_states_equal(got, want, f"K28 {bug} step {i}")
+            state = got
+        checked["step"] += 1
+    n, steps = VOPR_CHECK_CLUSTERS["run"], VOPR_CHECK_STEPS["run"]
+    caught = {}
+    for bug in bugs:
+        R, S, probs = vt.BUG_CONFIGS[bug]
+        flags, got = vt.run(seed, n, steps, R, S, bug, device=dev,
+                            final_state=True, **probs)
+        want = vt.run_plain(seed, 0, n, steps, R, S, bug, dev, **probs)
+        vopr_states_equal(got, want, f"K29 {bug}")
+        if not np.array_equal(flags, want.violated.cpu().numpy()):
+            raise AssertionError(f"K29 {bug}: flags differ from the plain loop")
+        caught[str(bug)] = int(flags.sum())
+        checked["run"] += 1
+    long_steps = _cuda.VOPR_SHARED_MAX_OPS + 100
+    flags, got = vt.run(seed, 4, long_steps, device=dev, final_state=True,
+                        **vt.HARSH_FAULTS)
+    want = vt.run_plain(seed, 0, 4, long_steps, 3, 32, None, dev,
+                        **vt.HARSH_FAULTS)
+    vopr_states_equal(got, want, "K29 long run")
+    if not np.array_equal(flags, want.violated.cpu().numpy()):
+        raise AssertionError("K29 long run: flags differ from the plain loop")
+    checked["long"] = long_steps
+
+    # At the paths' shapes, byte for byte and timed: K27 and K28 at the
+    # step-locked route's 4,096 clusters (R=3, S=32, max_ops 402), K29 at
+    # tools/vopr_scale.py's batch (8,192 x 200 under HARSH_FAULTS).  The
+    # plain versions are timed with CUDA events around their calls (a
+    # plain version's host work is its time on the card).
+    R, S = 3, 32
+    nc, max_ops = VOPR_CLI["clusters"], VOPR_CLI["steps"] + 2
+    harsh = dict(vt.HARSH_FAULTS)
+    tkeys = prng.split(prng.PRNGKey(seed + 2, dev), nc)
+    step_kw = dict(n_replicas=R, slots=S, max_ops=max_ops)
+    with uncounted():
+        faults = vt.draw_faults(tkeys, R, S, **harsh)
+        max_abs_err_card("K27 at 4,096 keys", faults,
+                         vt.draw_faults_plain(tkeys, R, S, **harsh))
+        state = vt.make_state(R, S, max_ops, nc, dev)
+        for _ in range(20):  # a state with rings, commits and a canon
+            state = vt.step(state, faults=faults, **step_kw)
+        vopr_states_equal(vt.step(state, faults=faults, **step_kw),
+                          vt.step_plain(state, faults, **step_kw),
+                          "K28 at 4,096 clusters")
+        k27 = timed(lambda: vt.draw_faults(tkeys, R, S, **harsh))
+        k27_plain = loop_ms(
+            lambda: vt.draw_faults_plain(tkeys, R, S, **harsh), n=10)
+        k28 = timed(lambda: vt.step(state, faults=faults, **step_kw))
+        k28_plain = loop_ms(
+            lambda: vt.step_plain(state, faults, **step_kw), n=10)
+        b, bs = VOPR_SCALE["batch"], VOPR_SCALE["steps"]
+        # The wrapper's launch without the flags' read-back, so that calls
+        # queue behind the spin.
+        k29 = timed(lambda: vt._run_block(seed, 0, b, bs, R, S, None, dev,
+                                          False, harsh), reps=10)
+        flags, got = vt._run_block(seed, 0, b, bs, R, S, None, dev, True,
+                                   harsh)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = vt.run_plain(seed, 0, b, bs, R, S, None, dev, **harsh)
+        end.record()
+        end.synchronize()
+        k29_plain = start.elapsed_time(end)
+        vopr_states_equal(got, want, "K29 at 8,192 x 200")
+        if not torch.equal(flags, want.violated):
+            raise AssertionError("K29 at 8,192 x 200: flags differ")
+        del got, want
+        checked["path_shapes"] = ["K27 4,096 keys", "K28 4,096 clusters",
+                                  "K29 8,192 x 200 HARSH"]
+
+    def times(kernel, plain_ms):
+        return dict(ms=kernel["device_ms"], plain_ms=plain_ms,
+                    call_ms=kernel["call_ms"], ms_from=kernel["device_ms_from"],
+                    plain_ms_from="cuda events around the plain calls")
+
+    draw_bytes = 8 + 30 * R + 17
+    results = {
+        "vopr_draw": dict(
+            max_abs_err=0, **times(k27, k27_plain), library_ms=None,
+            bound=bound(nc * draw_bytes, nc * vopr_draw_ops(R),
+                        H100_INT32_OPS_PER_S),
+            shape=f"{nc} keys, R={R}, S={S}"),
+        "vopr_step": dict(
+            max_abs_err=0, **times(k28, k28_plain), library_ms=None,
+            bound=bound(nc * (2 * vopr_state_bytes(R, S, max_ops)
+                              + draw_bytes - 8),
+                        nc * vopr_step_ops(R, S), H100_INT32_OPS_PER_S),
+            shape=f"{nc} clusters, R={R}, S={S}, max_ops {max_ops}"),
+        "vopr_run": dict(
+            max_abs_err=0, **times(k29, k29_plain), library_ms=None,
+            bound=bound(b, b * bs * (vopr_draw_ops(R) + 2 * THREEFRY_OPS
+                                     + vopr_step_ops(R, S)),
+                        H100_INT32_OPS_PER_S),
+            shape=f"{b} clusters x {bs} steps, R={R}, S={S}, HARSH_FAULTS"),
+    }
+    return {"checked": checked, "caught_at_check_size": caught,
+            "results": results}
+
+
+def phase_vopr(dev, seed: int, smi: str) -> dict:
+    """The VOPR at its sources' sizes, through the port's entry points:
+    (a) cli.py's ``vopr --tpu`` default, 4,096 clusters x 400 steps, clean:
+    0 violations; (b) tools/vopr_scale.py's run through the twin
+    (``sim.vopr_scale``), batches of 8,192 x 200 under HARSH_FAULTS until
+    100,000 schedules: 0 violations; (c) each bug at tests/test_vopr.py's
+    shapes: caught, with the JAX package's count; (d) 4,096 clusters x
+    20,000 steps, clean, the canonical lists in device memory: 0
+    violations; (e) the step-locked route (``draw_faults`` then ``step``
+    each step, as tools/vopr_crossval.py drives it) at (a)'s shape: its
+    last step equals the plain versions' on the same inputs, and its final
+    state equals K29's.  K29's launches are read from (b), K27's and
+    K28's from (e)."""
+    import io
+
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.sim import prng, vopr_scale
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    out = {"nvidia_smi": smi}
+    nc, steps = VOPR_CLI["clusters"], VOPR_CLI["steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = vt.run_sharded(seed, nc, steps, devices=[dev])
+    out["a_cli_default"] = {"clusters": len(v), "steps": steps,
+                            "violations": int(v.sum()),
+                            "wall_s": time.perf_counter() - t0}
+    if v.sum() != 0 or len(v) != nc:
+        raise AssertionError(f"vopr (a): {int(v.sum())} clean violations")
+
+    _cuda.reset_counts()
+    log = io.StringIO()
+    rec = vopr_scale.scale(VOPR_SCALE["schedules"], VOPR_SCALE["steps"],
+                           VOPR_SCALE["batch"], dev, log=log)
+    out["launches_b"] = _cuda.counts()
+    out["b_scale"] = rec
+    if rec["violations"] != 0 or rec["schedules"] < VOPR_SCALE["schedules"]:
+        raise AssertionError(f"vopr (b): {rec['violations']} violations")
+    if out["launches_b"]["vopr_run"] == 0:
+        raise AssertionError("vopr (b): K29 was not launched")
+
+    counts = {}
+    t0 = time.perf_counter()
+    for bug in vt.BUGS:
+        R, S, probs = vt.BUG_CONFIGS[bug]
+        counts[bug] = int(vt.run(1, 256, 300, R, S, bug, device=dev,
+                                 **probs).sum())
+    out["c_bugs"] = {"violations": counts, "jax_package": VOPR_BUG_VIOLATIONS,
+                     "wall_s": time.perf_counter() - t0}
+    if counts != VOPR_BUG_VIOLATIONS:
+        raise AssertionError(f"vopr (c): counts {counts} differ from the "
+                             f"JAX package's {VOPR_BUG_VIOLATIONS}")
+
+    nl, sl = VOPR_LONG["clusters"], VOPR_LONG["steps"]
+    # The run's own device memory: its peak above what earlier phases
+    # still hold (their garbage collected first).
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v = vt.run(seed, nl, sl, device=dev)
+    wall = time.perf_counter() - t0
+    out["d_long"] = {"clusters": nl, "steps": sl, "violations": int(v.sum()),
+                     "wall_s": wall, "cluster_steps_per_s": nl * sl / wall,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated()
+                     - held, "device_bytes_held_before": held}
+    if v.sum() != 0:
+        raise AssertionError(f"vopr (d): {int(v.sum())} clean violations")
+
+    R, S, max_ops = 3, 32, steps + 2
+    _cuda.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = vt.make_state(R, S, max_ops, nc, dev)
+    key = vt.cluster_keys(seed, 0, nc, dev)
+    step_kw = dict(n_replicas=R, slots=S, max_ops=max_ops)
+    for _ in range(steps):
+        ks = prng.split(key, 2)
+        key, sub = ks[:, 0], ks[:, 1]
+        faults = vt.draw_faults(sub, R, S)
+        prev, state = state, vt.step(state, faults=faults, **step_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches_e"] = _cuda.counts()
+    # The last step, where the canonical lists are longest, against the
+    # plain versions on the same inputs.
+    max_abs_err_card("vopr (e): K27 at the last step", faults,
+                     vt.draw_faults_plain(sub, R, S))
+    vopr_states_equal(state, vt.step_plain(prev, faults, **step_kw),
+                      "vopr (e): K28 at the last step")
+    del prev
+    with uncounted():
+        _flags, ref = vt.run(seed, nc, steps, device=dev, final_state=True)
+    vopr_states_equal(state, ref, "vopr (e): step-locked vs K29")
+    out["e_step_locked"] = {"clusters": nc, "steps": steps, "wall_s": wall,
+                            "violations": int(state.violated.sum()),
+                            "equals_k29_final_state": True}
+    for name in ("vopr_draw", "vopr_step"):
+        if out["launches_e"][name] == 0:
+            raise AssertionError(f"vopr (e): {name} was not launched")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5179,6 +5509,20 @@ def main() -> int:
     emit({"phase": "persistence", "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi, **per})
 
+    t0 = time.perf_counter()
+    vk = phase_vopr_kernels(args.seed, dev)
+    emit({"phase": "vopr_kernels", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "checked": vk["checked"],
+          "caught_at_check_size": vk["caught_at_check_size"],
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in vk["results"].items()},
+          "bounds_ms": {k: v["bound"] for k, v in vk["results"].items()}})
+    kern.update(vk["results"])
+
+    t0 = time.perf_counter()
+    vo = phase_vopr(dev, args.seed, smi)
+    emit({"phase": "vopr", "seconds": time.perf_counter() - t0, **vo})
+
     # max_abs_err: index_kernels' cases and the queries phase's full-size
     # comparisons (the deepest carried level, the rebuilt level, K15 over
     # the whole pyramid, K16 over the whole log).
@@ -5193,7 +5537,8 @@ def main() -> int:
     # queries phase, K17-K19 from the tiered phase, K20 and K26 from the
     # bench twin's plain shape, K21-K23 from the commitments phase, K24,
     # K25 and the grouped commit's replays from the pipeline phase's
-    # grouped runs.
+    # grouped runs, K29 from the vopr phase's scale run (b), K27 and K28
+    # from its step-locked route (e) (K29 runs their device functions).
     paths = {name: ("main", launches) for name in MAIN_PATH}
     paths.update({name: ("sequential", seq_launches)
                   for name in ("seq_transfers", "seq_accounts")})
@@ -5211,6 +5556,9 @@ def main() -> int:
     paths.update({name: ("pipeline (a), grouped runs", pipe["launches"])
                   for name in ("group_dispatch", "group_step",
                                "group_finish")})
+    paths["vopr_run"] = ("vopr (b), tools/vopr_scale.py's run", vo["launches_b"])
+    paths.update({name: ("vopr (e), the step-locked route", vo["launches_e"])
+                  for name in ("vopr_draw", "vopr_step")})
     rows = []
     for name, k in _cuda.KERNELS.items():
         r = kern[name]

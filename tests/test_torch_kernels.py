@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K19 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K29 against their plain PyTorch versions
 on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere;
 this file imports no JAX, so it runs on a machine without it:
 
@@ -734,7 +734,11 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "tigerbeetle_tpu_torch.vsr.checkpoint",
             "tigerbeetle_tpu_torch.vsr.overload",
             "tigerbeetle_tpu_torch.lsm.forest",
-            "tigerbeetle_tpu_torch.utils.ewah"} <= set(mods)
+            "tigerbeetle_tpu_torch.utils.ewah",
+            "tigerbeetle_tpu_torch.sim.vopr_tpu",
+            "tigerbeetle_tpu_torch.sim.prng",
+            "tigerbeetle_tpu_torch.sim.vopr_scale",
+            "tigerbeetle_tpu_torch.vsr.consensus"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -1144,3 +1148,140 @@ def test_capture_tripwire_on_the_card(cuda_device, monkeypatch):
         run(6000)
     m._grow_if_needed(transfers=1 << 12)  # a growth: its capture is allowed
     assert run(7000) == [[], []]
+
+
+# -- K27-K29: the batched VOPR ------------------------------------------------------
+
+
+def _states_equal(a, b, what):
+    for name, x, y in zip(a._fields, a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y), f"{what}: {name}"
+
+
+def test_vopr_draw_matches_plain(cuda_device):
+    """K27 draws every fault array as its plain version does, byte for
+    byte, for R 1-6 and S up to the kernels' bound."""
+    from tigerbeetle_tpu_torch.sim import prng
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    keys = prng.split(prng.PRNGKey(17, cuda_device), 4096)
+    for R in range(1, 7):
+        for S in (1, 8, 32, vt.MAX_SLOTS):
+            for probs in ({}, dict(vt.HARSH_FAULTS, p_sdc=0.3)):
+                n = _cuda.KERNELS["vopr_draw"].launches
+                got = vt.draw_faults(keys, R, S, **probs)
+                assert _cuda.KERNELS["vopr_draw"].launches == n + 1
+                want = vt.draw_faults_plain(keys, R, S, **probs)
+                for name in vt.FAULT_FIELDS:
+                    assert torch.equal(got[name], want[name]), (R, S, name)
+
+
+@pytest.mark.parametrize("bug", [None, "commit_quorum", "canonical_by_op",
+                                 "no_truncate", "corrupt_serve", "wal_wrap",
+                                 "split_brain", "amputate_vouch",
+                                 "join_keep_stale", "scrub_off"])
+def test_vopr_step_matches_plain(cuda_device, bug):
+    """K28 steps 256 clusters as step_plain does, every field after every
+    one of 40 steps, on the same state and faults."""
+    from tigerbeetle_tpu_torch.sim import prng
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    R, S, probs = vt.BUG_CONFIGS[bug]
+    n, steps = 256, 40
+    max_ops = steps + 2
+    state = vt.make_state(R, S, max_ops, n, cuda_device)
+    key = prng.split(prng.PRNGKey(3, cuda_device), n)
+    for i in range(steps):
+        ks = prng.split(key, 2)
+        key, sub = ks[:, 0], ks[:, 1]
+        faults = vt.draw_faults(sub, R, S, **probs)
+        got = vt.step(state, faults=faults, n_replicas=R, slots=S,
+                      max_ops=max_ops, bug=bug)
+        want = vt.step_plain(state, faults, n_replicas=R, slots=S,
+                             max_ops=max_ops, bug=bug)
+        _states_equal(got, want, f"step {i}")
+        state = want
+
+
+@pytest.mark.parametrize("bug", [None, "corrupt_serve", "split_brain"])
+def test_vopr_run_matches_plain(cuda_device, bug):
+    """K29's flags and final states equal the plain schedule loop's."""
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    R, S, probs = vt.BUG_CONFIGS[bug]
+    flags, state = vt.run(1, 128, 120, R, S, bug, device=cuda_device,
+                          final_state=True, **probs)
+    want = vt.run_plain(1, 0, 128, 120, R, S, bug, cuda_device, **probs)
+    _states_equal(state, want, "final state")
+    assert np.array_equal(flags, want.violated.cpu().numpy())
+    assert np.array_equal(vt.run(1, 128, 120, R, S, bug, device=cuda_device,
+                                 **probs), flags)
+
+
+def test_vopr_run_long_horizon_matches_plain(cuda_device):
+    """A run whose canonical list passes the shared-memory bound keeps it in
+    device memory, with the same flags and final states."""
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    steps = _cuda.VOPR_SHARED_MAX_OPS + 60
+    flags, state = vt.run(2, 4, steps, device=cuda_device, final_state=True,
+                          **vt.HARSH_FAULTS)
+    want = vt.run_plain(2, 0, 4, steps, 3, 32, None, cuda_device,
+                        **vt.HARSH_FAULTS)
+    _states_equal(state, want, "long run")
+    assert int(state.commit.max()) > 0
+    assert np.array_equal(vt.run(2, 4, steps, device=cuda_device,
+                                 **vt.HARSH_FAULTS), flags)
+
+
+def test_vopr_step_and_run_at_the_largest_shape(cuda_device):
+    """K28 and K29 launch at R=6 and S=MAX_SLOTS (a block of MAX_SLOTS
+    threads at the step's largest register count) and equal the plain
+    versions there, every field."""
+    from tigerbeetle_tpu_torch.sim import prng
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    R, S, n, steps = vt.MAX_REPLICAS, vt.MAX_SLOTS, 64, 30
+    probs = dict(vt.HARSH_FAULTS, p_sdc=0.3)
+    max_ops = steps + 2
+    state = vt.make_state(R, S, max_ops, n, cuda_device)
+    key = prng.split(prng.PRNGKey(4, cuda_device), n)
+    for i in range(steps):
+        ks = prng.split(key, 2)
+        key, sub = ks[:, 0], ks[:, 1]
+        faults = vt.draw_faults(sub, R, S, **probs)
+        got = vt.step(state, faults=faults, n_replicas=R, slots=S,
+                      max_ops=max_ops)
+        want = vt.step_plain(state, faults, n_replicas=R, slots=S,
+                             max_ops=max_ops)
+        _states_equal(got, want, f"step {i}")
+        state = want
+    assert int(state.commit.max()) > 0
+    flags, state = vt.run(4, n, steps, R, S, device=cuda_device,
+                          final_state=True, **probs)
+    want = vt.run_plain(4, 0, n, steps, R, S, None, cuda_device, **probs)
+    _states_equal(state, want, "final state")
+    assert np.array_equal(flags, want.violated.cpu().numpy())
+
+
+def test_vopr_run_sharded_on_every_card_equals_run(cuda_device):
+    """run_sharded over every visible card (one block of clusters each,
+    padded to a multiple of the card count) against run on one card."""
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    n_cards = torch.cuda.device_count()
+    for bug, n, R in ((None, 1001, 3), ("commit_quorum", 1001, 3),
+                      ("split_brain", 409, 5)):
+        kw = dict(bug=bug, n_replicas=R, **vt.HARSH_FAULTS)
+        got = vt.run_sharded(5, n, 80, **kw)
+        assert len(got) % n_cards == 0 and len(got) >= n
+        want = vt.run(5, len(got), 80, device=cuda_device, **kw)
+        assert np.array_equal(got, want)
+        if bug is None:
+            assert not got.any()
+        if bug == "commit_quorum":
+            assert got.any()
+    one = vt.run_sharded(5, 300, 80, devices=[cuda_device],
+                         bug="commit_quorum")
+    assert np.array_equal(one, vt.run(5, 300, 80, bug="commit_quorum",
+                                      device=cuda_device))

@@ -254,3 +254,44 @@ def index_from_numpy(arrays: Dict[str, Any], idx: Any) -> Any:
     idx.occupied = list(arrays["occupied"])
     idx.stale = bool(arrays["stale"])
     return idx
+
+
+def cluster_state_from_numpy(state: Any, device):
+    """A VOPR ``ClusterState`` of numpy arrays (the JAX package's, through
+    ``np.asarray`` of each field; a NamedTuple or any sequence in field
+    order, or a mapping by field name), one cluster or a batch, as the
+    port's ``sim.vopr_tpu.ClusterState`` on ``device``: u32 fields as int32
+    bits, i32 and bool as they are."""
+    from .sim import vopr_tpu
+
+    if isinstance(state, dict):
+        fields = [state[k] for k in vopr_tpu.STATE_FIELDS]
+    else:
+        fields = list(state)
+    if len(fields) != len(vopr_tpu.STATE_FIELDS):
+        raise ValueError("a ClusterState has 15 fields")
+    out = []
+    for name, a in zip(vopr_tpu.STATE_FIELDS, fields):
+        a = np.array(a, order="C")  # a copy; 0-d stays 0-d
+        want = np.uint32 if name in ("log", "log_hdr", "canonical") else (
+            np.bool_ if name in ("part_active", "violated") else np.int32)
+        if a.dtype != want:
+            raise TypeError(f"{name}: {a.dtype}, expected {np.dtype(want)}")
+        if want == np.uint32:
+            a = a.view(np.int32)
+        out.append(torch.from_numpy(a).to(device))
+    return vopr_tpu.ClusterState(*out)
+
+
+def cluster_state_to_numpy(state: Any) -> Dict[str, np.ndarray]:
+    """Inverse of ``cluster_state_from_numpy``: a dict of numpy arrays by
+    field name (u32 fields as uint32), which ``ClusterState(**d)`` of the
+    JAX package takes."""
+    from .sim import vopr_tpu
+
+    out = {}
+    for name, t in zip(vopr_tpu.STATE_FIELDS, state):
+        a = t.detach().cpu().numpy()
+        out[name] = a.view(np.uint32) if name in (
+            "log", "log_hdr", "canonical") else a
+    return out

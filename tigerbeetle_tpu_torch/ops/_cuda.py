@@ -44,6 +44,9 @@ add one to their kernel's ``launches`` each time they launch it.
 | group_finish  | csrc/group.cu      | machine.py:102 the run's overflow word after the last step |
 | group_words   | csrc/group.cu      | bench.py:2245 multi's batch index b0 + i (+ :2229 its timestamp) |
 | group_dispatch | (a CUDA graph)    | machine.py:78 _group_fast_dispatch_impl: GROUP_K steps, one replay |
+| vopr_draw     | csrc/vopr_draw.cu  | sim/vopr_tpu.py:160 draw_faults (vmapped over keys) |
+| vopr_step     | csrc/vopr_step.cu  | sim/vopr_tpu.py:217 step (vmapped over clusters, :738) |
+| vopr_run      | csrc/vopr_run.cu   | sim/vopr_tpu.py:702 _one_cluster_fn, :724 run, :741 run_sharded (+ :737 the keys) |
 
 The grouped commit's graph (``ops/group.py``) and the bench twin's read a
 batch's count and timestamp from u64 device words, so one captured launch
@@ -54,6 +57,11 @@ outputs and scratch (a graph bakes every pointer).  ``group_dispatch`` is
 not a kernel of its own: it counts the replays of the grouped commit's
 graph, each of which launches the kernels above (their counts grow by the
 graph's nodes at every replay, not at capture).
+
+The VOPR's kernels (K27-K29) share ``csrc/vopr.cuh`` (the state layout,
+the draws and the step) and ``csrc/threefry.cuh`` (JAX's threefry); their
+pointers pass as arrays in the order of ``sim/vopr_tpu.py``'s
+``FAULT_FIELDS`` and ``STATE_FIELDS`` (the C enums; a CPU test compares).
 
 The general kernel's launches (K9-K12) take their pointers as one array in
 the order of the kernel's pointer enum (``FULL_PASS_LAYOUT`` and
@@ -77,9 +85,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# --split-compile=0 spreads one source's optimisation over threads: the
+# VOPR sources hold six instantiations of an unrolled step each.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "--split-compile=0",
 )
 
 
@@ -155,6 +165,12 @@ KERNELS: Dict[str, Kernel] = {
                "bench.py:2245"),
         Kernel("group_dispatch", "tigerbeetle_tpu_torch/csrc/group.cu",
                "tigerbeetle_tpu/machine.py:78"),
+        Kernel("vopr_draw", "tigerbeetle_tpu_torch/csrc/vopr_draw.cu",
+               "tigerbeetle_tpu/sim/vopr_tpu.py:160"),
+        Kernel("vopr_step", "tigerbeetle_tpu_torch/csrc/vopr_step.cu",
+               "tigerbeetle_tpu/sim/vopr_tpu.py:217"),
+        Kernel("vopr_run", "tigerbeetle_tpu_torch/csrc/vopr_run.cu",
+               "tigerbeetle_tpu/sim/vopr_tpu.py:724"),
     )
 }
 
@@ -292,6 +308,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tb_group_step": [_P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P],
         "tb_group_finish": [_P, _P, _P],
         "tb_group_words": [_P, _INT, _U64, _U64, _P, _P, _P, _P],
+        "tb_vopr_draw": [_P, _I64, _INT, _INT, _P, _P, _P],
+        "tb_vopr_step": [_I64, _INT, _INT, _INT, _INT, _P, _P, _P, _P],
+        "tb_vopr_run": [ctypes.c_uint32, ctypes.c_uint32, _U64, _I64, _INT,
+                        _INT, _INT, _P, _INT, _P, _P, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -1594,3 +1614,148 @@ def group_words(base: torch.Tensor, count: int, ts0: int, bidx: torch.Tensor,
                              timestamps.data_ptr(), _stream(base))
     _raise_on(err, "group_words")
     KERNELS["group_words"].launches += 1
+
+
+# -- K27-K29: the batched VOPR (sim/vopr_tpu.py) --------------------------------
+
+# K29 keeps the canonical list in shared memory up to this many ops
+# (csrc/vopr.cuh VOPR_SHARED_MAX_OPS) and in a device buffer beyond.
+VOPR_SHARED_MAX_OPS = 1024
+
+
+def _vopr_probs(probs: Sequence[float]):
+    from ..sim import vopr_tpu as vt
+
+    if len(probs) != len(vt.PROBS):
+        raise ValueError(f"{len(vt.PROBS)} probabilities, in PROBS order")
+    return (ctypes.c_double * len(probs))(*[float(p) for p in probs])
+
+
+def _vopr_state_check(fields: Sequence[torch.Tensor], n: int, R: int, S: int,
+                      max_ops: int, what: str) -> None:
+    from ..sim import vopr_tpu as vt
+
+    if len(fields) != len(vt.STATE_FIELDS):
+        raise ValueError(f"{what}: {len(vt.STATE_FIELDS)} state fields")
+    for name, t in zip(vt.STATE_FIELDS, fields):
+        if name in ("part_active", "violated"):
+            dtype, numel = torch.bool, n
+        elif name in ("log", "log_hdr", "log_op"):
+            dtype, numel = torch.int32, n * R * S
+        elif name == "canonical":
+            dtype, numel = torch.int32, n * max_ops
+        else:
+            dtype, numel = torch.int32, n * R
+        _check(t, dtype, numel, f"{what} {name}")
+        if t.shape[0] != n:
+            raise ValueError(f"{what} {name}: leading dimension {n} expected")
+
+
+def _vopr_state_empty(n: int, R: int, S: int, max_ops: int, dev,
+                      canonical: Optional[torch.Tensor] = None):
+    from ..sim import vopr_tpu as vt
+
+    out = []
+    for name in vt.STATE_FIELDS:
+        if name in ("part_active", "violated"):
+            out.append(torch.empty(n, dtype=torch.bool, device=dev))
+        elif name in ("log", "log_hdr", "log_op"):
+            out.append(torch.empty(n, R, S, dtype=torch.int32, device=dev))
+        elif name == "canonical":
+            out.append(canonical if canonical is not None else torch.empty(
+                n, max_ops, dtype=torch.int32, device=dev))
+        else:
+            out.append(torch.empty(n, R, dtype=torch.int32, device=dev))
+    return out
+
+
+def vopr_draw(keys: torch.Tensor, n_replicas: int, slots: int,
+              probs: Sequence[float]) -> Dict[str, torch.Tensor]:
+    """Kernel K27: ``draw_faults`` for each of the (N, 2) keys (u32 words
+    as int32 bits): the dict of ``sim/vopr_tpu.FAULT_FIELDS``, each leading
+    with N, in the reference's dtypes."""
+    from ..sim import vopr_tpu as vt
+
+    lib = library()
+    vt._check_shape(n_replicas, slots)
+    n = keys.shape[0] if keys.dim() == 2 else -1
+    if keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError("keys must have shape (N, 2)")
+    _check(keys, torch.int32, 2 * n, "keys")
+    dev = keys.device
+    out = {}
+    for name in vt.FAULT_FIELDS:
+        shape = (n,) if name in vt._SCALAR_FAULTS else (n, n_replicas)
+        out[name] = torch.empty(shape, dtype=vt.FAULT_DTYPES.get(
+            name, torch.bool), device=dev)
+    ptrs = _ptr_array([out[name] for name in vt.FAULT_FIELDS])
+    err = lib.tb_vopr_draw(keys.data_ptr(), n, n_replicas, slots,
+                           _vopr_probs(probs), ptrs, _stream(keys))
+    _raise_on(err, "vopr_draw")
+    KERNELS["vopr_draw"].launches += 1
+    return out
+
+
+def vopr_step(state: Sequence[torch.Tensor], faults: Sequence[torch.Tensor],
+              n_replicas: int, slots: int, max_ops: int,
+              bug: int) -> List[torch.Tensor]:
+    """Kernel K28: one step of a batch of N clusters (the fields of
+    ``sim/vopr_tpu.ClusterState`` in order, each leading with N) under the
+    faults of ``FAULT_FIELDS`` (K27's layout); the new state's fields."""
+    from ..sim import vopr_tpu as vt
+
+    lib = library()
+    vt._check_shape(n_replicas, slots)
+    R, S = n_replicas, slots
+    n = state[0].shape[0]
+    _vopr_state_check(state, n, R, S, max_ops, "state")
+    if len(faults) != len(vt.FAULT_FIELDS):
+        raise ValueError(f"{len(vt.FAULT_FIELDS)} fault arrays")
+    for name, t in zip(vt.FAULT_FIELDS, faults):
+        numel = n if name in vt._SCALAR_FAULTS else n * R
+        _check(t, vt.FAULT_DTYPES.get(name, torch.bool), numel,
+               f"faults {name}")
+    if not 0 <= bug <= len(vt.BUGS):
+        raise ValueError(f"bug code {bug}")
+    out = _vopr_state_empty(n, R, S, max_ops, state[0].device)
+    err = lib.tb_vopr_step(n, R, S, max_ops, bug, _ptr_array(state),
+                           _ptr_array(out), _ptr_array(faults),
+                           _stream(state[0]))
+    _raise_on(err, "vopr_step")
+    KERNELS["vopr_step"].launches += 1
+    return out
+
+
+def vopr_run(seed_key: Tuple[int, int], start: int, count: int, n_steps: int,
+             n_replicas: int, slots: int, probs: Sequence[float], bug: int,
+             dev, final_state: bool = False):
+    """Kernel K29: ``count`` whole schedules of ``n_steps`` on ``dev``, the
+    clusters ``start`` .. ``start + count - 1`` of the seed key's split.
+    (violated (count,) bool, the final state's fields or None).  The
+    canonical lists sit in shared memory up to ``VOPR_SHARED_MAX_OPS`` ops
+    (n_steps + 2), in a zeroed (count, n_steps + 2) device buffer beyond."""
+    from ..sim import vopr_tpu as vt
+
+    lib = library()
+    vt._check_shape(n_replicas, slots)
+    if count < 0 or start < 0 or n_steps < 0:
+        raise ValueError("count, start and n_steps must be >= 0")
+    if not 0 <= bug <= len(vt.BUGS):
+        raise ValueError(f"bug code {bug}")
+    R, S = n_replicas, slots
+    max_ops = n_steps + 2
+    violated = torch.empty(count, dtype=torch.bool, device=dev)
+    canon = None
+    if max_ops > VOPR_SHARED_MAX_OPS or final_state:
+        canon = torch.zeros(count, max_ops, dtype=torch.int32, device=dev)
+    out = _vopr_state_empty(count, R, S, max_ops, dev, canon) \
+        if final_state else None
+    err = lib.tb_vopr_run(
+        seed_key[0] & 0xFFFFFFFF, seed_key[1] & 0xFFFFFFFF, start & _M64,
+        count, n_steps, R, S, _vopr_probs(probs), bug, violated.data_ptr(),
+        _ptr_array(out) if out is not None else None,
+        canon.data_ptr() if max_ops > VOPR_SHARED_MAX_OPS else None,
+        _stream(violated))
+    _raise_on(err, "vopr_run")
+    KERNELS["vopr_run"].launches += 1
+    return violated, out

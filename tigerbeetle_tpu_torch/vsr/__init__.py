@@ -1,2 +1,2 @@
-"""Replication-side helpers of the port (so far the checksum and the
-retry backoff timer)."""
+"""Replication-side helpers of the port (so far the checksum, the retry
+backoff timer, checkpoints, the fusion gate and the quorum sizes)."""
