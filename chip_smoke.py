@@ -200,7 +200,31 @@ Phases, each printing one JSON line:
                 last step's faults and state equal the plain versions' on
                 the same inputs and whose final state equals K29's.  K29's
                 launches are read from (b), K27's and K28's from (e).
-Then a ``{"kernels": [...]}`` line (K1-K29, K2's claim and write entries
+ 26. shard_kernels - K30 ``shard_gather`` and K31 ``shard_combine``
+                (``parallel/sharded.py``), and the slot-base forms of K4 and
+                K10's apply launch, against their plain versions on the card,
+                byte for byte: 8,190 lanes of the flagship mix (debit and
+                credit accounts, ids half stored), the main phase's tables
+                (accounts 2^16, transfers 2^25 holding 10,000,000 rows) over
+                2, 4 and 8 shards, with and without the overflow words, a
+                lane mask; then each timed at 8 shards (K31 beside
+                ``torch.stack(partials).sum(0)``);
+ 27. sharded  - bench.py's shard-sweep mix (``run_shard_sweep``: plain
+                batches, every fourth pair a pending batch and the batch
+                posting it) at the flagship's width (10,000 accounts, 8,190
+                events a batch, ``--sharded-transfers`` 2,000,000) through a
+                single-device machine and ``TorchStateMachine(shards=s)`` for
+                s = 2 and 8 over ``device.force_virtual(8, "cuda")``, Merkle
+                on: every batch's codes equal, then every table's rows
+                (sorted by key: where keys collided each machine's slots
+                follow its own insertion order, as in the JAX package), the
+                digest, the folded scrub lanes, and the maintained per-shard
+                Merkle roots against a fresh build; a
+                grouped and deferred 4-shard run (1,000,000 transfers) with
+                the blocking path's codes; a 2 -> 4 split while serving the
+                same batches, cut over to the 4-shard machine's state.  K30's
+                and K31's launches are read from the 2-shard run.
+Then a ``{"kernels": [...]}`` line (K1-K31, K2's claim and write entries
 and the grouped commit's replay), and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
@@ -5296,6 +5320,496 @@ def phase_vopr(dev, seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: sharding (parallel/sharded.py: K30, K31, the slot-base K4/K10)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4, 8)
+# The main phase's tables after its 10,000,000 transfers: accounts 2^16
+# slots, transfers 2^25 slots (load <= 0.5), over 2, 4 and 8 shards.
+SHARD_ACCOUNTS_LOG2 = 16
+SHARD_TRANSFERS_LOG2 = 25
+SHARD_FILL = 10_000_000
+SHARDED_PATH = ("shard_gather", "shard_combine", "probe", "insert",
+                "validate", "balance", "claim", "write_claimed", "full_index",
+                "full_legs", "full_pass", "full_waves")
+SHARDED_TRANSFERS = 2_000_000  # each of the 2- and 8-shard machines
+SHARDED_GROUP_TRANSFERS = 1_000_000  # the grouped/deferred 4-shard machine
+SHARDED_SPLIT_AT = 40  # batches the 2 -> 4 split's machine commits first
+SHARDED_SPLIT_SERVE = 4  # batches it serves between migration steps
+SHARDED_SPLIT_CHUNK = 1 << 15  # rows a migration chunk
+# The sharded phase's tables, sized up front (sharded_machine): 2,000,000
+# transfers at load <= 0.5, and ~500,000 posts at the sharded machines'
+# posted target of twice the rows.
+SHARDED_TRANSFERS_LOG2 = 22
+SHARDED_POSTED_LOG2 = 21
+
+
+def shard_fill(rng, dev, n_shards: int, log2: int, col_specs, keys, rows):
+    """``n_shards`` local tables of 2^log2 / n slots each holding their own
+    of ``keys`` (inserted on the card by K2 with the mesh's hash shift)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+
+    local = (1 << log2) // n_shards
+    tables = [ht.make_table(local, col_specs, dev) for _ in range(n_shards)]
+    zeros = torch.zeros_like(keys)
+    own = tsh.owners(keys, zeros, n_shards)
+    for s in range(n_shards):
+        ht.insert(tables[s], keys, zeros, own == s, rows, sm.MAX_PROBE,
+                  hash_shift=n_shards.bit_length() - 1)
+        if bool(tables[s].probe_overflow):
+            raise AssertionError("shard_kernels: a fill overflowed")
+    return tables
+
+
+def rand_cols(col_specs, n, dev, gen):
+    import torch
+
+    out = {}
+    for name, dt in col_specs.items():
+        hi = (1 << 62) if dt == torch.int64 else (1 << 31) - 1
+        out[name] = torch.randint(0, hi, (n,), dtype=dt, device=dev,
+                                  generator=gen)
+    return out
+
+
+def phase_shard_kernels(seed: int, dev) -> dict:
+    """K30 and K31, and the slot-base forms of K4 and K10, against their
+    plain versions on the card, byte for byte, at the path's shapes (8,190
+    lanes of the flagship mix, the main phase's capacities over 2, 4 and 8
+    shards); each timed at 8 shards."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+    from tigerbeetle_tpu_torch.parallel import mesh as tmesh
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    rng = np.random.default_rng(seed + 30)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 30)
+    checked = []
+    out = {}
+    # The transfers rows (the main phase holds 10,000,000) and the accounts.
+    xkeys = t64((1 << 45) + np.arange(SHARD_FILL, dtype=np.uint64)
+                * np.uint64(7919), dev)
+    xrows = rand_cols(sm.TRANSFER_COLS, SHARD_FILL, dev, gen)
+    akeys = t64(np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64), dev)
+    arows = rand_cols(sm.ACCOUNT_COLS, N_ACCOUNTS, dev, gen)
+    batch = gen_batch_np(7, LANES, COUNT, N_ACCOUNTS, 1 << 40)
+    # Half the lanes name stored transfers, the rest new ids; zeros pad.
+    q = np.zeros(LANES, np.uint64)
+    q[:COUNT] = batch["id_lo"]
+    hit = rng.random(COUNT) < 0.5
+    q[:COUNT][hit] = ((1 << 45) + rng.integers(0, SHARD_FILL, int(hit.sum()))
+                      .astype(np.uint64) * np.uint64(7919))
+    qlo, qhi = t64(q, dev), torch.zeros(LANES, dtype=torch.int64, device=dev)
+    dr = np.zeros(LANES, np.uint64)
+    cr = np.zeros(LANES, np.uint64)
+    dr[:COUNT] = batch["debit_account_id_lo"]
+    cr[:COUNT] = batch["credit_account_id_lo"]
+    drlo, crlo = t64(dr, dev), t64(cr, dev)
+    mask = torch.from_numpy(rng.random(LANES) < 0.9).to(dev)
+    amount = np.zeros(LANES, np.uint64)
+    amount[:COUNT] = batch["amount_lo"]
+    amt = t64(amount, dev)
+    pend = torch.from_numpy(rng.random(LANES) < 0.3).to(dev)
+    xnames = tuple(sm.TRANSFER_COLS)
+    anames = tf._ACCOUNT_VIEW_COLS
+    for n_shards in SHARD_COUNTS:
+        xt = shard_fill(rng, dev, n_shards, SHARD_TRANSFERS_LOG2,
+                        sm.TRANSFER_COLS, xkeys, xrows)
+        at = shard_fill(rng, dev, n_shards, SHARD_ACCOUNTS_LOG2,
+                        sm.ACCOUNT_COLS, akeys, arows)
+        ids = range(n_shards)
+        # One round as the fast path gathers it: the debit and credit
+        # accounts and the ids, with and without the overflow words.
+        offs, m = [], 0
+        for rows in ((2 + len(anames)) * LANES,) * 2 + (
+                (2 + len(xnames)) * LANES,):
+            offs.append(m)
+            m += rows
+        launches = (
+            (at, drlo, anames, None), (at, crlo, anames, mask),
+            (xt, qlo, xnames, None))
+        for want_overflow in (False, True):
+            got = torch.zeros(n_shards, m + 3, dtype=torch.int64, device=dev)
+            want = torch.zeros_like(got)
+            for k, (tabs, lo, names, msk) in enumerate(launches):
+                _cuda.shard_gather(tabs, ids, n_shards, lo, qhi, names,
+                                   sm.MAX_PROBE, COUNT, msk, got, offs[k],
+                                   m + k, want_overflow)
+                tsh.shard_gather_plain(tabs, ids, n_shards, lo, qhi, names,
+                                       sm.MAX_PROBE, COUNT, msk, want,
+                                       offs[k], m + k, want_overflow)
+            err = max_abs_err_card(f"shard_gather {n_shards} shards",
+                                   {"partial": got}, {"partial": want})
+            comb = _cuda.shard_combine(got)
+            err = max(err, max_abs_err_card(
+                f"shard_combine {n_shards} shards",
+                {"sum": comb}, {"sum": tmesh.shard_combine_plain(want)}))
+            checked.append(f"K30+K31 {n_shards} shards overflow={want_overflow}")
+        found = comb[offs[2]:offs[2] + LANES] != 0
+        n_found = int(found.sum())
+        if n_found < COUNT // 3:
+            raise AssertionError("shard_kernels: too few ids found")
+        # K4's slot-base form on each shard, on the round's global slots.
+        dslot = comb[offs[0] + LANES:offs[0] + 2 * LANES]
+        cslot = comb[offs[1] + LANES:offs[1] + 2 * LANES]
+        ok = (comb[offs[0]:offs[0] + LANES] != 0) & (
+            comb[offs[1]:offs[1] + LANES] != 0)
+        local = at[0].capacity
+        gcap = local * n_shards
+        for s in range(n_shards):
+            tk, tp = clone_table(at[s]), clone_table(at[s])
+            tsh.apply_balances_local(tk, dslot, cslot, ok, amt, pend,
+                                     s * local, gcap)
+            tsh.apply_balances_local_plain(tp, dslot, cslot, ok, amt, pend,
+                                           s * local, gcap)
+            max_abs_err_card(f"balance slot base, shard {s}/{n_shards}",
+                             {k: v for k, v in tk.cols.items()},
+                             {k: v for k, v in tp.cols.items()})
+        # K10's apply launch in its slot-base form: unique run tails.
+        s_slot = torch.from_numpy(rng.permutation(gcap)[:2 * LANES]).to(dev)
+        scat = torch.from_numpy(rng.random(2 * LANES) < 0.6).to(dev)
+        incl = {c: torch.randint(0, 1 << 62, (2 * LANES,), dtype=torch.int64,
+                                 device=dev, generator=gen)
+                for c in tf._BAL_COLS}
+        gate = torch.zeros(1, dtype=torch.int32, device=dev)
+        for s in range(n_shards):
+            tk, tp = clone_table(at[s]), clone_table(at[s])
+            tsh._scatter_local(tk, gate, scat, s_slot, incl, s * local)
+            tsh._scatter_local_plain(tp, torch.tensor(True, device=dev), scat,
+                                     s_slot, incl, s * local)
+            max_abs_err_card(f"full_legs slot base, shard {s}/{n_shards}",
+                             {k: v for k, v in tk.cols.items()},
+                             {k: v for k, v in tp.cols.items()})
+        checked.append(f"K4, K10 slot base, every shard of {n_shards}")
+        if n_shards != SHARD_COUNTS[-1]:
+            del xt, at
+            torch.cuda.empty_cache()
+            continue
+        # Timed at 8 shards: the transfers gather of the fast path (owner
+        # probes only), K31 on the round's partial, and one shard's K4 and
+        # K10 slot-base launches.
+        part = torch.zeros(n_shards, (2 + len(xnames)) * LANES + 1,
+                           dtype=torch.int64, device=dev)
+
+        def k30():
+            _cuda.shard_gather(xt, ids, n_shards, qlo, qhi, xnames,
+                               sm.MAX_PROBE, COUNT, None, part, 0,
+                               part.shape[1] - 1, False)
+
+        def k30_plain():
+            tsh.shard_gather_plain(xt, ids, n_shards, qlo, qhi, xnames,
+                                   sm.MAX_PROBE, COUNT, None, part, 0,
+                                   part.shape[1] - 1, False)
+
+        n_nz = int((q != 0).sum())
+        col_bytes = sum(xrows[c].element_size() for c in xnames)
+        # The keys; one probe window (17 B: key pair and tombstone) per
+        # lane at its owner; the found rows' columns; the partial written.
+        g_bytes = 16 * LANES + 17 * n_nz + n_found * col_bytes \
+            + part.numel() * 8
+        with uncounted():
+            t_k30 = timed(k30)
+            t_k30p = timed(k30_plain, reps=5)
+        out["shard_gather"] = dict(
+            max_abs_err=0, **pair_times(t_k30, t_k30p), library_ms=None,
+            bound=bound(g_bytes, 30 * n_shards * LANES),
+            shape=f"{LANES} lanes ({n_found} found), transfers 2^"
+                  f"{SHARD_TRANSFERS_LOG2} over {n_shards} shards holding "
+                  f"{SHARD_FILL} rows, {len(xnames)} columns; checked over "
+                  "2, 4 and 8 shards, accounts and transfers, masks, the "
+                  "overflow words")
+        parts = list(got)
+        # The partial (22 MB) fits the 50 MB L2, where K30 leaves it on the
+        # path: the warm time is the path's, the cold one (L2 flushed
+        # before each call) the one the bytes bound speaks of.
+        with uncounted():
+            warm = timed(lambda: _cuda.shard_combine(got))
+            k31 = cold_l2_ms(lambda: _cuda.shard_combine(got))
+            k31p = cold_l2_ms(lambda: tmesh.shard_combine_plain(got))
+            lib = cold_l2_ms(lambda: torch.stack(parts).sum(0))
+        out["shard_combine"] = dict(
+            max_abs_err=0, ms=k31, plain_ms=k31p, warm_ms=warm["device_ms"],
+            ms_from="cuda events, L2 flushed before each call",
+            library_ms=lib,
+            bound=bound(got.numel() * 8 + got.shape[1] * 8, got.numel()),
+            shape=f"{n_shards} partials of {got.shape[1]} words (the fast "
+                  "path's round: debit and credit accounts, ids); library: "
+                  "torch.stack(partials).sum(0)")
+        s = n_shards - 1
+        n_ok = int(ok.sum())
+        with uncounted():
+            t_b = timed(lambda t: tsh.apply_balances_local(
+                t, dslot, cslot, ok, amt, pend, s * local, gcap),
+                setup=lambda: (clone_table(at[s]),))
+            t_bp = timed(lambda t: tsh.apply_balances_local_plain(
+                t, dslot, cslot, ok, amt, pend, s * local, gcap),
+                setup=lambda: (clone_table(at[s]),))
+            t_l = timed(lambda t: tsh._scatter_local(
+                t, gate, scat, s_slot, incl, s * local),
+                setup=lambda: (clone_table(at[s]),))
+            t_lp = timed(lambda t: tsh._scatter_local_plain(
+                t, torch.tensor(True, device=dev), scat, s_slot, incl,
+                s * local), setup=lambda: (clone_table(at[s]),))
+        in_range = int(((s_slot >= s * local) & (s_slot < (s + 1) * local)
+                        & scat).sum())
+        out["balance_slot_base"] = dict(
+            **pair_times(t_b, t_bp),
+            bound=bound(LANES + n_ok * 25 + 2 * n_ok * 64 // n_shards,
+                        30 * n_ok),
+            shape=f"one shard of {n_shards} (accounts 2^{SHARD_ACCOUNTS_LOG2}"
+                  f" / {n_shards}), {n_ok} accepted lanes")
+        out["full_legs_slot_base"] = dict(
+            **pair_times(t_l, t_lp),
+            bound=bound(2 * LANES * 9 + in_range * 8 * 8 * 2, 2 * LANES),
+            shape=f"one shard of {n_shards}, {2 * LANES} legs, "
+                  f"{in_range} tails in its range")
+        del xt, at, part, got, want
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"results": out, "checked": checked}
+
+
+def shard_sweep_batches(n_transfers: int) -> list:
+    """bench.py:1149 run_shard_sweep's mix at the flagship's width: uniform
+    plain batches of the flagship generator, every fourth pair a pending
+    batch followed by a batch posting each of its pendings."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    batches, pend = [], None
+    for b in range((n_transfers + COUNT - 1) // COUNT):
+        kind = b % 4
+        if kind == 3 and pend is not None:
+            ids, base = pend
+            batch = np.zeros(COUNT, dtype=types.TRANSFER_DTYPE)
+            batch["id_lo"] = base + (1 << 22) + np.arange(COUNT,
+                                                          dtype=np.uint64)
+            batch["pending_id_lo"] = ids
+            batch["ledger"] = 1
+            batch["code"] = 10
+            batch["flags"] = types.TransferFlags.POST_PENDING_TRANSFER
+            pend = None
+        elif kind == 2:
+            base = (1 << 41) + b * COUNT
+            batch = gen_batch_np(b, COUNT, COUNT, N_ACCOUNTS, base)
+            batch["flags"] = types.TransferFlags.PENDING
+            pend = (batch["id_lo"].copy(), base)
+        else:
+            batch = gen_batch_np(b, COUNT, COUNT, N_ACCOUNTS,
+                                 (1 << 40) + b * COUNT)
+        batches.append(batch)
+    return batches
+
+
+def sharded_machine(dev, shards: int):
+    """A machine of ``shards`` (0: the single device) with 10,000 accounts,
+    its tables sized up front for the phase's transfers and posts, so that
+    no machine grows: a sharded machine sizes its posted table twice (per
+    shard, the reference's rule), and the canonical arrays compare only at
+    equal capacities.  Growth under shards is held against the JAX package
+    in tests/test_torch_sharded_machine.py."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    cfg = LedgerConfig(lazy_index=True,
+                       transfers_capacity_log2=SHARDED_TRANSFERS_LOG2,
+                       posted_capacity_log2=SHARDED_POSTED_LOG2)
+    m = TorchStateMachine(cfg, batch_lanes=LANES, device=dev, shards=shards)
+    if m.shards != shards:
+        raise AssertionError(f"sharded: asked {shards} shards, got {m.shards}")
+    for start in range(0, N_ACCOUNTS, COUNT):
+        ids = range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)
+        if m.create_accounts(types.accounts_array(
+                [types.account(id=i, ledger=1, code=10) for i in ids])) != []:
+            raise AssertionError("sharded: account creation failed")
+    return m
+
+
+def ledger_rows(m) -> dict:
+    """The content of a machine's canonical ledger, layout aside: each
+    pad's live rows (every per-slot array) sorted by key, its count and
+    capacity, and the history log as it is.  Two machines that placed the
+    same rows in another insertion order (a single device, a mesh of
+    another shard count) hold them in other slots where keys collided:
+    the canonical view is canonical for a shard count, as the JAX
+    package's is."""
+    from tigerbeetle_tpu_torch.vsr import checkpoint as tck
+
+    arrays = tck.ledger_to_arrays(m.checkpoint_ledger())
+    out = {k: v for k, v in arrays.items() if k.startswith("history/")}
+    for pad in ("accounts", "transfers", "posted"):
+        lo, hi = arrays[f"{pad}/key_lo"], arrays[f"{pad}/key_hi"]
+        live = ((lo | hi) != 0) & ~arrays[f"{pad}/tombstone"]
+        order = np.lexsort((lo[live], hi[live]))
+        for k, v in arrays.items():
+            if k.startswith(pad + "/") and v.shape == lo.shape:
+                out[k] = v[live][order]
+        out[f"{pad}/count"] = arrays[f"{pad}/count"]
+        out[f"{pad}/capacity"] = np.array(len(lo))
+    return out
+
+
+def content_equal(what: str, a, b) -> None:
+    x, y = ledger_rows(a), ledger_rows(b)
+    if sorted(x) != sorted(y):
+        raise AssertionError(f"{what}: the ledgers differ in arrays")
+    max_abs_err(what, x, {k: y[k] for k in x})
+    if a.digest() != b.digest():
+        raise AssertionError(f"{what}: digests differ")
+
+
+def phase_sharded(dev, n_transfers: int, n_group: int) -> dict:
+    """bench.py's shard-sweep mix at the flagship's width through
+    ``TorchStateMachine(shards=s)`` on 8 virtual devices over the card,
+    against a single-device machine, batch by batch and at the end (the
+    rows of every table, the digest, the scrub folds; the Merkle subtrees
+    against a fresh build); a grouped and deferred 4-shard run; a 2 -> 4
+    split while serving."""
+    import torch
+    from tigerbeetle_tpu_torch import device as tdev
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import scrub as scrub_ops
+
+    batches = shard_sweep_batches(n_transfers)
+    t0 = time.perf_counter()
+    single = sharded_machine(dev, 0)
+    want = [single.create_transfers(b) for b in batches]
+    torch.cuda.synchronize()
+    out = {"batches": len(batches), "transfers": sum(map(len, batches)),
+           "single_device_tx_s": sum(map(len, batches))
+           / (time.perf_counter() - t0),
+           "fails": sum(map(len, want))}
+    single_fold = to_np(scrub_ops.scrub_digest(single.ledger))
+    tdev.force_virtual(8, dev)
+    try:
+        launches = None
+        for s in (2, 8):
+            m = sharded_machine(dev, s)
+            m.merkle_enabled = True
+            m.scrub_interval = 1 << 30  # Merkle updates on every commit, no checks
+            m.scrub_paranoid = False
+            if not m.scrub_arm():
+                raise AssertionError("sharded: Merkle did not arm")
+            m.warmup()
+            if s == 2:
+                _cuda.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for j, b in enumerate(batches):
+                if m.create_transfers(b) != want[j]:
+                    raise AssertionError(f"sharded {s}: batch {j} codes differ")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if s == 2:
+                launches = _cuda.counts()
+            lanes = m._d2h_u64(m._shard_steps["scrub"](m.ledger))
+            with np.errstate(over="ignore"):
+                folded = lanes.sum(axis=0, dtype=np.uint64)
+            if not np.array_equal(folded, single_fold):
+                raise AssertionError(f"sharded {s}: scrub lanes do not fold")
+            # The per-shard subtrees, touched by K1 and K23 on every
+            # commit, against a fresh K22 build of each shard.
+            if not m.scrub_check():
+                raise AssertionError(f"sharded {s}: Merkle roots disagree")
+            content_equal(f"sharded {s}", m, single)
+            out[f"shards_{s}"] = {
+                "tx_s": out["transfers"] / wall, "wall_s": wall,
+                "shard_lanes_cross": m.shard_lanes_cross,
+                "shard_lanes_total": m.shard_lanes_total,
+                "seq_fallbacks": m.shard_seq_fallbacks,
+                "capacities": [m.ledger.accounts.capacity,
+                               m.ledger.transfers.capacity,
+                               m.ledger.posted.capacity],
+            }
+            del m
+            torch.cuda.empty_cache()
+        # Grouped and deferred at 4 shards: runs of the fast-path batches
+        # (plain, pending) as grouped deferred runs, single batches deferred,
+        # the posts blocking; codes as the blocking path's.
+        k_group = (n_group + COUNT - 1) // COUNT
+        g = sharded_machine(dev, 4)
+        g.group_device_commit = True
+        g.warmup()
+        t0 = time.perf_counter()
+        j = 0
+        grouped = deferred = 0
+        while j < k_group:
+            run = []
+            while j + len(run) < k_group and not (
+                    batches[j + len(run)]["flags"][0]
+                    & 4):  # POST_PENDING_TRANSFER
+                run.append(batches[j + len(run)])
+            if len(run) >= 2 and (j // 4) % 2 == 0:
+                tss = [g.prepare("create_transfers", len(b), 0) for b in run]
+                h = g.commit_group_fast(run, tss, deferred=True)
+                if h is None or h.resolve() != want[j:j + len(run)]:
+                    raise AssertionError(f"sharded grouped: run at {j}")
+                grouped += len(run)
+                j += len(run)
+            elif run:
+                # Every other run: each batch deferred on its own, all in
+                # flight before the first resolve.
+                hs = []
+                for b in run:
+                    ts = g.prepare("create_transfers", len(b), 0)
+                    hs.append(g.commit_fast_deferred(b, ts))
+                for h in hs:
+                    if h is None or h.resolve()[0] != want[j]:
+                        raise AssertionError(f"sharded deferred: batch {j}")
+                    deferred += 1
+                    j += 1
+            else:
+                if g.create_transfers(batches[j]) != want[j]:
+                    raise AssertionError(f"sharded grouped: post batch {j}")
+                j += 1
+        torch.cuda.synchronize()
+        out["grouped_4"] = {"batches": k_group, "grouped": grouped,
+                            "deferred": deferred,
+                            "tx_s": sum(len(b) for b in batches[:k_group])
+                            / (time.perf_counter() - t0)}
+        # The 2 -> 4 split while serving the same batches; it must cut over
+        # to the grouped 4-shard machine's state.
+        live = sharded_machine(dev, 2)
+        for b in range(SHARDED_SPLIT_AT):
+            if live.create_transfers(batches[b]) != want[b]:
+                raise AssertionError(f"split: batch {b} before the split")
+        t0 = time.perf_counter()
+        if not live.reshard_begin(4, chunk_rows=SHARDED_SPLIT_CHUNK):
+            raise AssertionError("split: refused")
+        # A batch served after each step of the first rounds, then the
+        # drain: every served batch dirties moved rows, which a catch-up
+        # round (a fresh snapshot and its trees) ships again.
+        served = SHARDED_SPLIT_AT
+        while live.reshard_active:
+            live.reshard_step(4)
+            if served < min(k_group, SHARDED_SPLIT_AT + SHARDED_SPLIT_SERVE):
+                if live.create_transfers(batches[served]) != want[served]:
+                    raise AssertionError(f"split: batch {served} served")
+                served += 1
+        for b in range(served, k_group):
+            if live.create_transfers(batches[b]) != want[b]:
+                raise AssertionError(f"split: batch {b} after the cutover")
+        if live.shards != 4 or live.reshard_stats["splits_completed"] != 1:
+            raise AssertionError(f"split: {live.reshard_stats}")
+        content_equal("split vs the 4-shard machine", live, g)
+        out["split_2_to_4"] = {
+            **live.reshard_stats, "served_during": served - SHARDED_SPLIT_AT,
+            "wall_s": time.perf_counter() - t0}
+    finally:
+        tdev.force_virtual(0, dev)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5317,6 +5831,8 @@ def main() -> int:
     p.add_argument("--commit-transfers", type=int, default=COMMIT_TRANSFERS)
     # The pipeline phase's depth: the flagship's 10,000,000 transfers.
     p.add_argument("--pipeline-transfers", type=int, default=10_000_000)
+    # The sharded phase's depth: each of the 2- and 8-shard machines.
+    p.add_argument("--sharded-transfers", type=int, default=SHARDED_TRANSFERS)
     args = p.parse_args()
 
     import torch
@@ -5523,6 +6039,26 @@ def main() -> int:
     vo = phase_vopr(dev, args.seed, smi)
     emit({"phase": "vopr", "seconds": time.perf_counter() - t0, **vo})
 
+    t0 = time.perf_counter()
+    shk = phase_shard_kernels(args.seed, dev)
+    emit({"phase": "shard_kernels", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, "checked": shk["checked"],
+          "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                      for k, v in shk["results"].items()},
+          "bounds_ms": {k: v["bound"] for k, v in shk["results"].items()}})
+    kern.update({k: v for k, v in shk["results"].items()
+                 if k in _cuda.KERNELS})
+
+    t0 = time.perf_counter()
+    shd = phase_sharded(dev, args.sharded_transfers,
+                        min(SHARDED_GROUP_TRANSFERS, args.sharded_transfers))
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi, **shd})
+    missing = [k for k in SHARDED_PATH if shd["launches"][k] == 0]
+    if missing:
+        raise AssertionError(
+            f"kernels not launched on the sharded path: {missing}")
+
     # max_abs_err: index_kernels' cases and the queries phase's full-size
     # comparisons (the deepest carried level, the rebuilt level, K15 over
     # the whole pyramid, K16 over the whole log).
@@ -5557,6 +6093,8 @@ def main() -> int:
                   for name in ("group_dispatch", "group_step",
                                "group_finish")})
     paths["vopr_run"] = ("vopr (b), tools/vopr_scale.py's run", vo["launches_b"])
+    paths.update({name: ("sharded (2 shards)", shd["launches"])
+                  for name in ("shard_gather", "shard_combine")})
     paths.update({name: ("vopr (e), the step-locked route", vo["launches_e"])
                   for name in ("vopr_draw", "vopr_step")})
     rows = []

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K29 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K31 against their plain PyTorch versions
 on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere;
 this file imports no JAX, so it runs on a machine without it:
 
@@ -738,7 +738,10 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "tigerbeetle_tpu_torch.sim.vopr_tpu",
             "tigerbeetle_tpu_torch.sim.prng",
             "tigerbeetle_tpu_torch.sim.vopr_scale",
-            "tigerbeetle_tpu_torch.vsr.consensus"} <= set(mods)
+            "tigerbeetle_tpu_torch.vsr.consensus",
+            "tigerbeetle_tpu_torch.vsr.statesync",
+            "tigerbeetle_tpu_torch.parallel.mesh",
+            "tigerbeetle_tpu_torch.parallel.sharded"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -1285,3 +1288,202 @@ def test_vopr_run_sharded_on_every_card_equals_run(cuda_device):
                          bug="commit_quorum")
     assert np.array_equal(one, vt.run(5, 300, 80, bug="commit_quorum",
                                       device=cuda_device))
+
+
+# -- K30, K31 and the slot-base forms of K4 and K10 (parallel/sharded.py) -----------
+
+
+def _shard_tables(dev, n_shards, local, rng):
+    """One local table a shard, filled to about a third with the shard's own
+    keys (inserted with the mesh's hash shift), tombstones on shard 0 and the
+    last shard full (every probe there runs out)."""
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+
+    shift = n_shards.bit_length() - 1
+    specs = {"val": torch.int64, "tag": torch.int32}
+    tables = [ht.make_table(local, specs, dev) for _ in range(n_shards)]
+    cand = np.unique(rng.integers(1, 1 << 62, 40 * local * n_shards,
+                                  dtype=np.uint64))
+    own = tsh.mix64_np(cand, np.zeros_like(cand)) & np.uint64(n_shards - 1)
+    keys = {}
+    for s in range(n_shards):
+        k = cand[own == s][:local if s == n_shards - 1 else local // 3]
+        keys[s] = k
+        lo = convert.array_to_tensor(k, dev)
+        ht.insert(tables[s], lo, torch.zeros_like(lo),
+                  torch.ones(len(k), dtype=torch.bool, device=dev),
+                  {"val": lo * 5, "tag": lo.to(torch.int32)},
+                  max_probe=local, hash_shift=shift)
+    slots = torch.arange(0, local, 7, device=dev)
+    ht.remove_to_tombstone(tables[0], slots,
+                           torch.ones_like(slots, dtype=torch.bool))
+    return tables, keys
+
+
+@pytest.mark.parametrize("n_shards", [2, 8, 16])
+def test_shard_gather_and_combine_match_plain(cuda_device, n_shards):
+    """K30 (all of a device's shards in one launch, in chunks of 8) and K31
+    against their plain versions on the same card tensors, byte for byte:
+    owned, unowned, missing and zero keys, a lane mask, a count, and the
+    overflow words with and without want_overflow."""
+    from tigerbeetle_tpu_torch.parallel import mesh as tmesh
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+
+    rng = np.random.default_rng(n_shards)
+    local = 1 << 10
+    tables, keys = _shard_tables(cuda_device, n_shards, local, rng)
+    n = 8192
+    q = np.concatenate([np.concatenate(list(keys.values())),
+                        rng.integers(1, 1 << 62, n, dtype=np.uint64)])[:n]
+    q[rng.integers(0, n, 200)] = 0
+    rng.shuffle(q)
+    lo = convert.array_to_tensor(q, cuda_device)
+    hi = torch.zeros_like(lo)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    names = ("val", "tag")
+    for want_overflow in (False, True):
+        for m, count in ((None, n), (mask, n - 100)):
+            m_rows = (2 + len(names)) * n + 3
+            got = torch.zeros(n_shards, m_rows, dtype=torch.int64,
+                              device=cuda_device)
+            want = torch.zeros_like(got)
+            _cuda.shard_gather(tables, range(n_shards), n_shards, lo, hi,
+                               names, 16, count, m, got, 1, m_rows - 1,
+                               want_overflow)
+            tsh.shard_gather_plain(tables, range(n_shards), n_shards, lo, hi,
+                                   names, 16, count, m, want, 1, m_rows - 1,
+                                   want_overflow)
+            assert torch.equal(got, want), (want_overflow, count)
+            assert bool(got[n_shards - 1, -1]) == want_overflow
+            assert torch.equal(_cuda.shard_combine(got),
+                               tmesh.shard_combine_plain(want))
+
+
+def test_balance_and_legs_apply_slot_base_match_plain(cuda_device):
+    """K4 and K10's apply launch in their slot-base forms: each shard's
+    columns take exactly the legs of its global slot range, as the plain
+    localized plan writes them."""
+    from tigerbeetle_tpu_torch.ops import transfer_full as ttf
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+
+    rng = np.random.default_rng(4)
+    n_shards, local, n = 4, 1 << 8, 2048
+    cap = n_shards * local
+    dr = torch.from_numpy(rng.integers(0, cap, n)).to(cuda_device)
+    cr = torch.from_numpy(rng.integers(0, cap, n)).to(cuda_device)
+    ok = torch.from_numpy(rng.random(n) < 0.8).to(cuda_device)
+    amt = torch.from_numpy(rng.integers(1, 1 << 40, n)).to(cuda_device)
+    pend = torch.from_numpy(rng.random(n) < 0.3).to(cuda_device)
+    cols = sm.BALANCE_COLS
+    for s in range(n_shards):
+        start = {c: torch.from_numpy(rng.integers(0, 1 << 60, local)).to(
+            cuda_device) for c in cols}
+        got = ht.Table(*(torch.zeros(local, dtype=torch.int64,
+                                     device=cuda_device),) * 2,
+                       torch.zeros(local, dtype=torch.bool,
+                                   device=cuda_device),
+                       {c: v.clone() for c, v in start.items()},
+                       torch.zeros((), dtype=torch.int64, device=cuda_device),
+                       torch.zeros((), dtype=torch.bool, device=cuda_device))
+        want = table_to(got, "cpu")
+        tsh.apply_balances_local(got, dr, cr, ok, amt, pend, s * local, cap)
+        tsh.apply_balances_local(want, dr.cpu(), cr.cpu(), ok.cpu(),
+                                 amt.cpu(), pend.cpu(), s * local, cap)
+        tables_equal(table_to(got, "cpu"), want)
+    # K10's apply: unique run-tail slots over the global range.
+    s_slot = torch.from_numpy(rng.permutation(cap)[:n // 2]).to(cuda_device)
+    scat = torch.from_numpy(rng.random(n // 2) < 0.7).to(cuda_device)
+    incl = {c: torch.from_numpy(rng.integers(0, 1 << 62, n // 2)).to(
+        cuda_device) for c in ttf._BAL_COLS}
+    for gate in (0, 4):
+        for s in range(n_shards):
+            got = ht.make_table(local, {c: torch.int64 for c in cols},
+                                cuda_device)
+            want = table_to(got, "cpu")
+            word = torch.full((1,), gate, dtype=torch.int32,
+                              device=cuda_device)
+            tsh._scatter_local(got, word, scat, s_slot, incl, s * local)
+            tsh._scatter_local(want, torch.tensor(gate == 0), scat.cpu(),
+                               s_slot.cpu(),
+                               {c: v.cpu() for c, v in incl.items()},
+                               s * local)
+            tables_equal(table_to(got, "cpu"), want)
+
+
+def test_sharded_machine_on_card_matches_cpu(cuda_device):
+    """A 4-shard machine on one card (``force_virtual(4, "cuda")``) and one
+    on the CPU, through the same accounts, plain, pending and post batches,
+    a split to 8 shards and the scrub lanes: equal results, canonical
+    arrays and digests, with K30 and K31 launched."""
+    from tigerbeetle_tpu_torch import device as tdev
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.vsr import checkpoint as tck
+
+    rng = np.random.default_rng(9)
+    cfg = LedgerConfig(accounts_capacity_log2=12, transfers_capacity_log2=14,
+                       posted_capacity_log2=12)
+    before = _cuda.counts()
+    tdev.force_virtual(8, "cuda")
+    tdev.force_virtual(8, "cpu")
+    try:
+        gpu = TorchStateMachine(cfg, batch_lanes=1024, shards=4)
+        cpu = TorchStateMachine(cfg, batch_lanes=1024, device="cpu", shards=4)
+        pend_ids = []
+        accounts = _accounts(rng, 500, 1)
+        assert gpu.create_accounts(accounts) == cpu.create_accounts(accounts)
+        for b in range(6):
+            batch = _transfers(np.random.default_rng(b), 1000,
+                               10 ** 6 * (b + 1), 500, linked=0.0)
+            if b % 3 == 1:
+                batch["flags"] = types.TransferFlags.PENDING
+                pend_ids = batch["id_lo"].copy()
+            elif b % 3 == 2:
+                batch["flags"] = types.TransferFlags.POST_PENDING_TRANSFER
+                batch["pending_id_lo"] = pend_ids
+                batch["amount_lo"] = 0
+                for c in ("debit_account_id_lo", "credit_account_id_lo"):
+                    batch[c] = 0
+            assert gpu.create_transfers(batch) == cpu.create_transfers(batch)
+        for m in (gpu, cpu):
+            assert m.reshard_begin(8, chunk_rows=256)
+            while m.reshard_active:
+                m.reshard_step(16)
+            assert m.shards == 8
+        assert gpu.digest() == cpu.digest()
+        a, b = (tck.ledger_to_arrays(m.checkpoint_ledger())
+                for m in (gpu, cpu))
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        for m in (gpu, cpu):
+            m.scrub_interval = 1
+            assert m.scrub_arm() and m.scrub_check()
+    finally:
+        tdev.force_virtual(0, "cuda")
+        tdev.force_virtual(0, "cpu")
+    after = _cuda.counts()
+    for name in ("shard_gather", "shard_combine", "balance", "full_legs"):
+        assert after[name] > before[name], name
+
+
+def test_psum_across_cards_with_nccl(cuda_device):
+    """A mesh over every card: the per-card K31 sums all-reduced with NCCL
+    equal the plain sum of every shard's partial.  Needs two or more
+    cards."""
+    from tigerbeetle_tpu_torch.parallel import mesh as tmesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices: the NCCL route of psum "
+                    "runs only across cards")
+    devs = [torch.device("cuda", i) for i in range(cards)
+            for _ in range(2)]
+    n = 1 << (len(devs).bit_length() - 1)
+    m = tmesh.Mesh(devs[:n])
+    rng = np.random.default_rng(3)
+    host = rng.integers(-(1 << 62), 1 << 62, (n, 4099))
+    parts = [torch.from_numpy(host[list(shards)]).to(d)
+             for d, shards in m.groups]
+    want = torch.from_numpy(host).sum(0)
+    for got in m.psum(parts):
+        assert torch.equal(got.cpu(), want)

@@ -22,7 +22,6 @@ from tigerbeetle_tpu.testing import model as M
 from tigerbeetle_tpu.testing.workload import WorkloadGen
 from tigerbeetle_tpu.types import AccountFlags, TransferFlags as F
 from tigerbeetle_tpu_torch import convert
-from tigerbeetle_tpu_torch import machine as tmachine
 from tigerbeetle_tpu_torch.machine import TorchStateMachine
 from tigerbeetle_tpu_torch.ops import state_machine as tsm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
@@ -184,17 +183,6 @@ def test_state_carried_from_the_jax_machine_commits_identically():
     t.ledger = convert.ledger_from_numpy(convert.ledger_arrays(j.ledger), "cpu")
     commit3(t, j, ref, "create_transfers", gen.transfers_batch(60), 300)
     assert_same_tables(t, j)
-
-
-UNPORTED_INIT = {
-    "shards": dict(shards=2),
-}
-
-
-@pytest.mark.parametrize("route", sorted(UNPORTED_INIT))
-def test_unported_constructor_routes_raise(route):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        TorchStateMachine(CFG, device="cpu", **UNPORTED_INIT[route])
 
 
 def _transfer(**kw):
@@ -396,41 +384,74 @@ def test_converted_ledger_with_pending_posted_and_history_continues():
     assert t.balances_snapshot() == ref.balances_snapshot()
 
 
-@pytest.mark.parametrize("name", sorted(tmachine._UNPORTED))
-def test_unported_entry_points_raise(name):
-    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        getattr(t, name)()
-
-
 @pytest.mark.parametrize(
     "name", sorted(n for n in dir(TpuStateMachine) if not n.startswith("_")))
 def test_every_public_reference_name_resolves_on_the_port(name):
     """Each public name of TpuStateMachine (read from the class) is on
-    TorchStateMachine: ported, or raising NotImplementedError that names
-    its ROADMAP slice, on read and, for a property, on write."""
+    TorchStateMachine, and is of the same kind (a property there is a
+    property here)."""
     assert hasattr(TorchStateMachine, name), name
-    if name not in tmachine._UNPORTED:
-        return
-    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        getattr(t, name)()
-    if name in tmachine._UNPORTED_PROPERTIES:
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            setattr(t, name, 1)
+    assert isinstance(getattr(TorchStateMachine, name), property) == \
+        isinstance(getattr(TpuStateMachine, name), property), name
 
 
-def test_tb_shards_env_raises_naming_a11(monkeypatch):
+@pytest.fixture
+def eight_cpu_shards():
+    from tigerbeetle_tpu_torch import device as tdev
+
+    tdev.force_virtual(8, "cpu")
+    try:
+        yield
+    finally:
+        tdev.force_virtual(0, "cpu")
+
+
+@pytest.mark.parametrize("how", ["env", "argument"])
+def test_tb_shards_engages_a_sharded_machine(monkeypatch, eight_cpu_shards,
+                                             how):
     """TB_SHARDS asks for sharding when shards is not given, as in the
-    reference; the port has none yet and says so."""
-    monkeypatch.setenv("TB_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TorchStateMachine(batch_lanes=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TorchStateMachine(batch_lanes=64, device="cpu", shards=4)
-    monkeypatch.setenv("TB_SHARDS", "0")
-    TorchStateMachine(batch_lanes=64, device="cpu")
-    TorchStateMachine(batch_lanes=64, device="cpu", shards=0)
+    reference (tests/test_sharded_machine.py:90): per-shard count vectors."""
+    if how == "env":
+        monkeypatch.setenv("TB_SHARDS", "2")
+        t = TorchStateMachine(CFG, batch_lanes=64, device="cpu")
+    else:
+        monkeypatch.delenv("TB_SHARDS", raising=False)
+        t = TorchStateMachine(CFG, batch_lanes=64, device="cpu", shards=2)
+    assert t.shards == 2 and t._ledger_is_sharded
+    assert tuple(t.ledger.accounts.count.shape) == (2,)
+    assert t.create_accounts(types.accounts_array(
+        [types.account(id=i + 1, ledger=1, code=10) for i in range(8)])) == []
+
+
+@pytest.mark.parametrize("env,arg", [("0", None), (None, 0), ("2", 0),
+                                     ("x", None)])
+def test_shards_off_is_the_single_device_path(monkeypatch, eight_cpu_shards,
+                                              env, arg):
+    """TB_SHARDS=0, shards=0 (which overrides the env) and a non-digit
+    TB_SHARDS leave the machine single-device: scalar counts, no mesh."""
+    if env is None:
+        monkeypatch.delenv("TB_SHARDS", raising=False)
+    else:
+        monkeypatch.setenv("TB_SHARDS", env)
+    t = TorchStateMachine(CFG, batch_lanes=64, device="cpu", shards=arg)
+    assert t.shards == 0 and t._shard_mesh is None
+    assert not t._ledger_is_sharded and t.ledger.accounts.count.dim() == 0
+
+
+def test_shards_above_the_devices_warn_and_run_single_device(monkeypatch):
+    """More shards than ``device.devices()`` gives the reference's
+    RuntimeWarning and a single-device machine on the same device
+    (tigerbeetle_tpu/machine.py:360-368); so does host_engine with shards
+    (:343-357)."""
+    monkeypatch.delenv("TB_SHARDS", raising=False)
+    with pytest.warns(RuntimeWarning, match="only 1 device"):
+        t = TorchStateMachine(CFG, batch_lanes=64, device="cpu", shards=2)
+    assert t.shards == 0 and t.device == torch.device("cpu")
+    assert t.ledger.accounts.count.dim() == 0
+    with pytest.warns(RuntimeWarning, match="host engine"):
+        h = TorchStateMachine(CFG, batch_lanes=64, device="cpu", shards=2,
+                              host_engine=True)
+    assert h.shards == 0
 
 
 def test_kernel_failures_raise_cuda_kernel_error(monkeypatch):

@@ -325,7 +325,8 @@ def test_forest_files_equal_the_jax_packages(tmp_path):
                          convert.ledger_arrays(jled))
 
 
-@pytest.mark.parametrize("path", ["utils/ewah.py", "lsm/__init__.py"])
+@pytest.mark.parametrize("path", ["utils/ewah.py", "lsm/__init__.py",
+                                  "vsr/statesync.py"])
 def test_copies_equal_their_sources_apart_from_imports_and_docstring(path):
     def body(p):
         text = (ROOT / p).read_text()

@@ -194,6 +194,81 @@ def forest_to_numpy(forest: Any) -> Dict[str, np.ndarray]:
     return {name: tensor_to_array(getattr(forest, name)) for name in TABLES}
 
 
+# -- the sharded ledger (parallel/sharded.py) -------------------------------------
+#
+# A JAX ledger sharded on P(AXIS) reads with ``np.asarray`` as the
+# concatenation of its shards: table arrays of the global capacity, and
+# ``count``/``probe_overflow`` of one element a shard.  The port holds the
+# same content as one local table per shard.
+
+
+def sharded_ledger_from_numpy(arrays: Dict[str, Any], mesh) -> Any:
+    """A port ``ShardedLedger`` over ``mesh`` from the exchange dict of a
+    sharded ledger (``ledger_arrays`` of a JAX one)."""
+    from .parallel import sharded
+
+    n = mesh.size
+
+    def table(d):
+        local = len(d["key_lo"]) // n
+        parts = []
+        for s, dev in enumerate(mesh.devices):
+            cut = slice(s * local, (s + 1) * local)
+            parts.append(ht.Table(
+                key_lo=array_to_tensor(d["key_lo"][cut], dev),
+                key_hi=array_to_tensor(d["key_hi"][cut], dev),
+                tombstone=array_to_tensor(d["tombstone"][cut], dev),
+                cols={k: array_to_tensor(v[cut], dev)
+                      for k, v in d["cols"].items()},
+                count=array_to_tensor(np.asarray(d["count"])[s], dev),
+                probe_overflow=array_to_tensor(
+                    np.asarray(d["probe_overflow"])[s], dev),
+            ))
+        return sharded.ShardedTable(parts)
+
+    h = arrays["history"]
+    return sharded.ShardedLedger(
+        mesh=mesh, **{name: table(arrays[name]) for name in TABLES},
+        history=sm.History(
+            cols={k: array_to_tensor(v, mesh.primary)
+                  for k, v in h["cols"].items()},
+            count=array_to_tensor(h["count"], mesh.primary),
+        ),
+    )
+
+
+def sharded_ledger_to_numpy(ledger: Any) -> Dict[str, Any]:
+    """The exchange dict of a port ``ShardedLedger``: the JAX layout (the
+    shards' arrays concatenated, count and probe_overflow one a shard)."""
+
+    def table(t):
+        parts = [table_to_numpy(p) for p in t.parts]
+        return {
+            "key_lo": np.concatenate([p["key_lo"] for p in parts]),
+            "key_hi": np.concatenate([p["key_hi"] for p in parts]),
+            "tombstone": np.concatenate([p["tombstone"] for p in parts]),
+            "cols": {k: np.concatenate([p["cols"][k] for p in parts])
+                     for k in parts[0]["cols"]},
+            "count": np.stack([p["count"] for p in parts]),
+            "probe_overflow": np.stack([p["probe_overflow"] for p in parts]),
+        }
+
+    out = {name: table(getattr(ledger, name)) for name in TABLES}
+    out["history"] = {
+        "cols": {k: tensor_to_array(v) for k, v in ledger.history.cols.items()},
+        "count": tensor_to_array(ledger.history.count),
+    }
+    return out
+
+
+def sharded_forest_to_numpy(forest: Any) -> Dict[str, np.ndarray]:
+    """The three heaps of a port ``ShardedForest`` in the JAX layout (the
+    shards' heaps concatenated)."""
+    return {name: np.concatenate([tensor_to_array(getattr(f, name))
+                                  for f in forest.parts])
+            for name in TABLES}
+
+
 # -- the cold tier's Bloom filter ---------------------------------------------
 
 

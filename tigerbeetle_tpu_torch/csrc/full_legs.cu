@@ -238,14 +238,20 @@ extern "C" int tb_full_legs(const void* const* ptrs, int nptrs, int64_t n,
 
 // The apply's balance scatter: where the batch commits (*gate == 0), the
 // last live leg of each slot run writes its account's four inclusive
-// fields (8 columns in ledger order).  Slots of run tails are unique.
+// fields (8 columns in ledger order).  Slots of run tails are unique.  In
+// the slot-base form (one shard of a sharded ledger,
+// tigerbeetle_tpu/parallel/sharded.py:439-450) the slots are global and a
+// tail writes only when its slot lies in [slot_base, slot_base + cap), at
+// slot - slot_base of the shard's columns; the single device passes base 0.
 __global__ void full_legs_apply_kernel(const int* __restrict__ gate, int n2,
                                        const uint8_t* __restrict__ scat,
                                        const int64_t* __restrict__ s_slot,
+                                       int64_t slot_base, uint64_t cap,
                                        Ptrs incl, Ptrs cols) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n2 || *gate != 0 || !scat[j]) return;
-  const int64_t slot = s_slot[j];
+  const uint64_t slot = (uint64_t)(s_slot[j] - slot_base);
+  if (slot >= cap) return;  // another shard's account
   for (int c = 0; c < 8; ++c) {
     static_cast<uint64_t*>(const_cast<void*>(cols.p[c]))[slot] =
         static_cast<const uint64_t*>(incl.p[c])[j];
@@ -254,6 +260,7 @@ __global__ void full_legs_apply_kernel(const int* __restrict__ gate, int n2,
 
 extern "C" int tb_full_legs_apply(const void* gate, int64_t n2,
                                   const void* scat, const void* s_slot,
+                                  int64_t slot_base, int64_t cap,
                                   const void* const* incl,
                                   const void* const* cols, void* stream) {
   Ptrs v, c;
@@ -265,6 +272,6 @@ extern "C" int tb_full_legs_apply(const void* gate, int64_t n2,
   full_legs_apply_kernel<<<(unsigned)((n2 + threads - 1) / threads), threads, 0,
                            (cudaStream_t)stream>>>(
       (const int*)gate, (int)n2, (const uint8_t*)scat, (const int64_t*)s_slot,
-      v, c);
+      slot_base, (uint64_t)cap, v, c);
   return (int)cudaGetLastError();
 }

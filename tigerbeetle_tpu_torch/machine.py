@@ -59,9 +59,16 @@ the device but never degrades: at the limit it raises.  ``checkpoint_ledger``,
 ``host_state`` and ``restore_host_state`` are the persistence surface
 (``vsr/checkpoint.py``, ``lsm/forest.py``).
 
-Routes this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them; none gives a wrong answer or falls back
-quietly.
+Sharded mode (``shards`` >= 2 or ``TB_SHARDS``; ``parallel/sharded.py``):
+the tables are partitioned over a mesh of shards (``device.devices()``;
+``device.force_virtual(n, d)`` puts n shards on one device), every commit
+gathers through kernels K30 and K31, validates once per device and applies
+owner-locally; batches the sharded kernels route (history accounts, linked
+duplicates, the cold tier) run in the sequential window (unshard, the
+sequential path, reshard).  Queries, lookups and checkpoints read the
+canonical single-device view, and an online N -> 2N split
+(``reshard_begin``/``reshard_step``) ships the moved rows through the
+verified state-sync codec while the old layout keeps serving.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ import numpy as np
 import torch
 
 from . import convert, types
+from . import device as device_mod
 from . import sanitize as _san
 from .config import LedgerConfig
 from .device import resolve as resolve_device
@@ -96,7 +104,10 @@ from .ops import state_machine as sm
 from .ops import transfer_full as tf
 from .ops.scrub import (
     DEVICE_FAULT_TYPES, DeviceStateUnrecoverable, SimulatedDeviceFault,
+    mix64_np,
 )
+from .parallel import sharded as shard_mod
+from .parallel.mesh import Mesh
 from .u128 import i64, u64
 
 _LIMIT_FLAGS = (
@@ -119,18 +130,6 @@ U64_MAX = (1 << 64) - 1
 _ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", None)
 # Largest reply of a query: (message_size_max - header) / row size.
 QUERY_ROWS_MAX = ((1 << 20) - 256) // 128
-
-# Entry points of TpuStateMachine that this slice does not port, with the
-# ROADMAP queue-A slice that brings each; the names in _UNPORTED_PROPERTIES
-# are properties there and raise as properties here, on read and on write.
-_UNPORTED = {
-    "reshard_begin": "A11 (sharding)",
-    "reshard_active": "A11 (sharding)",
-    "reshard_step": "A11 (sharding)",
-    "reshard_abort": "A11 (sharding)",
-}
-_UNPORTED_PROPERTIES = frozenset({"reshard_active"})
-
 
 def _overflow_any(overflow) -> bool:
     """True if any probe-overflow flag fired (a scalar, an array of flags,
@@ -288,18 +287,73 @@ class TorchStateMachine:
         hot_transfers_capacity_max: Optional[int] = None,
         host_engine: bool = False,
     ) -> None:
-        if shards is None:
-            # As the reference: TB_SHARDS asks for sharding when shards is
-            # not given.
-            env = os.environ.get("TB_SHARDS", "")
-            shards = int(env) if env.isdigit() else 0
-        if shards:
-            raise NotImplementedError("sharding is not ported yet (ROADMAP A11)")
         cfg = ledger_config or LedgerConfig()
         self.config = cfg
         self.batch_lanes = batch_lanes
         self.force_sequential = force_sequential
         self.device = resolve_device(device)
+        # Sharded mode (parallel/sharded.py): ``shards`` None defers to
+        # TB_SHARDS; 0 is the single-device path, which takes no sharded
+        # branch.
+        if shards is None:
+            env = os.environ.get("TB_SHARDS", "")
+            shards = int(env) if env.isdigit() else 0
+        self.shards = 0
+        self._shard_mesh: Optional[Mesh] = None
+        self._shard_steps = None
+        self._merkle_steps_cache = None
+        self._canon = None  # the cached canonical (single-layout) view
+        self._canon_tree = None  # (canon ledger, {pad: host heap})
+        self._ledger_is_sharded = False
+        self.shard_lanes_total = 0  # plain-int counters
+        self.shard_lanes_cross = 0
+        self.shard_seq_fallbacks = 0
+        # Per-shard attempted-insert bounds (accounts, transfers): hash skew
+        # can overfill one shard's C/n region while the global count sits
+        # under C/2, so growth sizes off the peak shard too.
+        self._shard_insert_bounds: dict = {}
+        # Online shard split: volatile migration state (None: no split in
+        # flight), never checkpointed.
+        self._reshard: Optional[dict] = None
+        self.reshard_stats = {
+            "splits_started": 0, "splits_completed": 0, "abandons": 0,
+            "restarts": 0, "catchup_rounds": 0, "chunks": 0,
+            "chunk_retries": 0, "bytes_migrated": 0, "bytes_full": 0,
+        }
+        if shards >= 2 and host_engine:
+            # Sharding runs on the device path: a process-wide TB_SHARDS
+            # must not take down a host-engine server.
+            warnings.warn(
+                f"TB_SHARDS={shards} ignored: "
+                "the host engine is the commit authority here",
+                RuntimeWarning, stacklevel=2,
+            )
+            shards = 0
+        if shards >= 2:
+            assert shards & (shards - 1) == 0, "TB_SHARDS must be a power of 2"
+            devs = device_mod.devices(self.device)
+            if len(devs) < shards:
+                # Degrade to the single-device path on the same device
+                # rather than wedge, as the reference does.
+                warnings.warn(
+                    f"TB_SHARDS={shards} but only {len(devs)} device(s) "
+                    "visible; running single-device",
+                    RuntimeWarning, stacklevel=2,
+                )
+            else:
+                for cap in (cfg.accounts_capacity, cfg.transfers_capacity,
+                            cfg.posted_capacity):
+                    assert cap % shards == 0, "capacity not shard-divisible"
+                self.shards = shards
+                self._shard_mesh = Mesh(devs[:shards])
+                self._shard_steps = shard_mod.machine_steps(
+                    self._shard_mesh, cfg.jacobi_max_passes)
+                self._shard_insert_bounds = {
+                    "accounts": np.zeros(shards, np.int64),
+                    "transfers": np.zeros(shards, np.int64),
+                }
+                if _obs.enabled:
+                    _obs.gauge("sharding.shards").set(shards)
         # The commit pipeline: the dispatch lane (one worker thread, a CUDA
         # stream of its own), the future of its last submitted closure (the
         # blocking paths join it before touching the ledger), the pooled
@@ -347,6 +401,13 @@ class TorchStateMachine:
             self._engine = HostEngine(self._host_led, cfg.max_probe)
             self._device_stale = True
             self._ledger = None
+        elif self._shard_mesh is not None:
+            self._ledger = shard_mod.make_sharded_ledger(
+                self._shard_mesh, cfg.accounts_capacity,
+                cfg.transfers_capacity, cfg.posted_capacity,
+                history_capacity=cfg.history_capacity,
+            )
+            self._ledger_is_sharded = True
         else:
             self._ledger = sm.make_ledger(
                 cfg.accounts_capacity, cfg.transfers_capacity,
@@ -454,7 +515,16 @@ class TorchStateMachine:
     def ledger(self, value: sm.Ledger) -> None:
         if self._lane_tail is not None and not self._on_lane():
             self._lane_join()
+        if (self._ledger_is_sharded and value is not None
+                and not isinstance(value, shard_mod.ShardedLedger)):
+            # An external install of a single-layout ledger (checkpoint
+            # restore, state sync, recovery) while sharded: re-place it
+            # into the owner-partitioned layout.  The sequential window
+            # turns _ledger_is_sharded off, so its ledgers pass through.
+            value = shard_mod.shard_ledger(value, self._shard_mesh)
+            self._refresh_shard_bounds(value)
         self._ledger = value
+        self._canon = None
         if self._engine is not None:
             # An external swap (checkpoint restore, state sync): the host
             # ledger must mirror the new authority exactly.
@@ -463,6 +533,20 @@ class TorchStateMachine:
             self._host_led = HostLedger.from_device(value)
             self._engine.ledger = self._host_led
             self._device_stale = False
+
+    def _query_ledger(self) -> sm.Ledger:
+        """The single-layout ledger queries, lookups and checkpoints read:
+        the ledger itself, or, sharded, a cached canonical unsharding of it
+        (content-exact, the single-device probe layout), made again after
+        a commit invalidates it."""
+        if not self._ledger_is_sharded:
+            return self.ledger
+        if self._canon is None:
+            self._canon = shard_mod.unshard_ledger(self.ledger,
+                                                   self._shard_mesh)
+            if _obs.enabled:
+                _obs.counter("sharding.unshards").inc()
+        return self._canon
 
     @property
     def waves_enabled(self) -> bool:
@@ -569,18 +653,24 @@ class TorchStateMachine:
             any_linked and self._has_intra_batch_dup_ids(batch)
         ):
             return self._sequential("create_accounts", batch, timestamp)
+        self._note_shard_inserts("accounts", batch, count)
         self._grow_if_needed(accounts=count)
         if bool((batch["flags"] & types.AccountFlags.HISTORY).any()):
             self._history_accounts_possible = True
         if bool((batch["flags"] & _LIMIT_FLAGS).any()):
             self._limit_accounts_possible = True
         soa = self._pad_soa(batch)
-        self.ledger, codes_dev = sm.create_accounts(self.ledger, soa, count,
-                                                    timestamp)
+        if self._ledger_is_sharded:
+            # The same codes; owner-local inserts, one overflow flag a shard.
+            self.ledger, codes_dev = self._shard_steps["accounts"](
+                self.ledger, soa, count, timestamp)
+        else:
+            self.ledger, codes_dev = sm.create_accounts(self.ledger, soa,
+                                                        count, timestamp)
         codes, words = self._d2h_codes(codes_dev,
                                        self.ledger.accounts.probe_overflow)
         self._accounts_bound += count
-        if words[0]:
+        if words.any():
             # Load-factor management keeps this unreachable; losing inserts
             # silently is the one unacceptable outcome, so fail loud.
             raise RuntimeError("accounts probe overflow during insert")
@@ -616,9 +706,116 @@ class TorchStateMachine:
         self._note_balance_bound(batch)
         if self.force_sequential:
             return self._sequential("create_transfers", batch, timestamp)
+        if self._ledger_is_sharded:
+            return self._sharded_commit_transfers(batch, timestamp, count)
         if self._fast_path_ok(batch):
             return self._commit_fast(batch, timestamp, count)
         return self._commit_full(batch, timestamp, count)
+
+    # -- sharded commits (parallel/sharded.py) ---------------------------------
+
+    def _sharded_commit_transfers(
+        self, batch: np.ndarray, timestamp: int, count: int
+    ) -> List[Tuple[int, int]]:
+        """The sharded commit path: each shard probes its local tables for
+        the whole batch, one psum a round carries every leg's context to
+        every device, validation runs once a device and balances and
+        inserts apply owner-locally.  Codes and balances equal the
+        single-device kernels'; batches the general step routes (FLAG_SEQ:
+        history accounts, deep cascades) and every batch of a tiered machine
+        (the sharded kernels carry no Bloom filter) run in the sequential
+        window."""
+        if self._tiering or self.cold.count:
+            return self._sequential("create_transfers", batch, timestamp)
+        self._note_cross_shard(batch, count)
+        self._note_shard_inserts("transfers", batch, count)
+        if self._fast_path_ok(batch):
+            self._grow_if_needed(transfers=count)
+            soa = self._pad_soa(batch)
+            self.ledger, codes_dev = self._shard_steps["fast"](
+                self.ledger, soa, count, timestamp)
+            codes, words = self._d2h_codes(
+                codes_dev, self.ledger.transfers.probe_overflow)
+            self._transfers_bound += count
+            if words.any():
+                raise RuntimeError(
+                    "transfers probe overflow during fast insert")
+            if _obs.enabled:
+                _obs.counter("sharding.batches").inc()
+            self._index_append(soa["id_lo"], soa["id_hi"], codes_dev, count)
+            results = self._compress(codes, count)
+            self._update_commit_timestamp(codes, count, timestamp)
+            return results
+        pv_count, hist_count = self._transfer_growth_counts(batch)
+        self._grow_if_needed(transfers=count, posted=pv_count,
+                             history=hist_count)
+        soa = self._pad_soa(batch)
+        use_waves = self.waves_enabled
+        step = self._shard_steps["full_waves" if use_waves else "full"]
+        for _attempt in range(8):
+            r = step(self.ledger, soa, count, timestamp)
+            self.ledger = r[0]
+            codes, words = self._d2h_codes(*r[1:])
+            kflags = int(words[0])
+            if kflags == 0:
+                if _obs.enabled:
+                    _obs.counter("sharding.batches").inc()
+                return self._full_commit_success(
+                    soa, r[1], codes, count, pv_count, hist_count, timestamp,
+                    words[1:] if use_waves else None)
+            if kflags & tf.FLAG_SEQ:
+                return self._sequential("create_transfers", batch, timestamp)
+            # No FLAG_COLD on the mesh path: the rest are growth requests.
+            self._grow_flagged(kflags)
+        raise RuntimeError(
+            "sharded transfer kernel could not place batch after growth")
+
+    def _note_shard_inserts(self, which: str, batch: np.ndarray,
+                            count: int) -> Optional[np.ndarray]:
+        """Advance the per-shard attempted-insert bound of ``which`` by
+        this batch's id owners (rejected lanes count too), before the
+        growth decision; returns the per-shard counts (None off the mesh)."""
+        if self._shard_mesh is None or count == 0:
+            return None
+        owners = (
+            mix64_np(batch["id_lo"][:count].astype(np.uint64),
+                     batch["id_hi"][:count].astype(np.uint64))
+            & np.uint64(self.shards - 1)
+        ).astype(np.int64)
+        counts = np.bincount(owners, minlength=self.shards)
+        self._shard_insert_bounds[which] += counts
+        return counts
+
+    def _refresh_shard_bounds(self, ledger) -> None:
+        """Floor the per-shard bounds at the live per-shard counts (an
+        external install, the sequential window, a recovery)."""
+        if self._shard_mesh is None:
+            return
+        self._shard_insert_bounds = {
+            "accounts": convert.tensor_to_array(
+                ledger.accounts.count).astype(np.int64),
+            "transfers": convert.tensor_to_array(
+                ledger.transfers.count).astype(np.int64),
+        }
+
+    def _note_cross_shard(self, batch: np.ndarray, count: int) -> None:
+        """Cross-shard accounting on the host: a lane whose debit and credit
+        accounts have different owners settles through the psum's leg
+        exchange.  Post/void lanes carry zero account ids on both sides and
+        count as same-shard."""
+        mask = np.uint64(self.shards - 1)
+        dr = mix64_np(batch["debit_account_id_lo"].astype(np.uint64),
+                      batch["debit_account_id_hi"].astype(np.uint64)) & mask
+        cr = mix64_np(batch["credit_account_id_lo"].astype(np.uint64),
+                      batch["credit_account_id_hi"].astype(np.uint64)) & mask
+        cross = int((dr != cr).sum())
+        self.shard_lanes_total += count
+        self.shard_lanes_cross += cross
+        if _obs.enabled:
+            _obs.counter("sharding.lanes").inc(count)
+            _obs.counter("sharding.cross_shard_lanes").inc(cross)
+            _obs.histogram("sharding.cross_shard_pct", "%").observe(
+                100 * cross // max(count, 1))
 
     def _note_balance_bound(self, batch: np.ndarray) -> None:
         """Over-approximate the largest possible single balance field after
@@ -670,6 +867,279 @@ class TorchStateMachine:
         results = self._compress(codes, count)
         self._update_commit_timestamp(codes, count, timestamp)
         return results
+
+    # -- the online shard split ---------------------------------------------------
+    #
+    # An N -> 2N split executed while serving: the old layout keeps
+    # committing; between batches the machine ships the owner-changed rows
+    # through the vsr/statesync codec (each chunk verified against the
+    # source's Merkle tree), catches up changed slots in delta rounds, and
+    # cuts over only after the staged state passes the whole-state checksum
+    # gate and the new layout's per-shard scrub lanes fold to the canonical
+    # digest.  Any verification failure abandons the split and serving
+    # goes on in the old layout.  Migration state is volatile: a crash
+    # mid-migration restarts on the old layout.
+
+    @property
+    def reshard_active(self) -> bool:
+        return self._reshard is not None
+
+    def reshard_begin(
+        self, target_shards: int, *, verify: bool = True,
+        chunk_rows: int = 512, corrupt_chunks=(), corrupt_persistent=False,
+    ) -> bool:
+        """Arm an online N -> 2N shard split.  True when the migration is
+        armed (idempotent while one is in flight); False, counted and
+        warned, when this machine cannot split.  ``corrupt_chunks`` and
+        ``corrupt_persistent`` inject faults: flip a byte of the numbered
+        migration chunks, once or on every retry."""
+        if self._reshard is not None:
+            return True
+        reason = None
+        n_devices = len(device_mod.devices(self.device))
+        if self.shards < 2 or self._shard_mesh is None:
+            reason = "machine is not in sharded mode"
+        elif target_shards != self.shards * 2:
+            reason = f"{self.shards} -> {target_shards} is not a doubling"
+        elif self._engine is not None:
+            reason = "host engine is the commit authority"
+        elif self._tiering or self.cold.count:
+            reason = "cold tier active (evicted rows have no leaves)"
+        elif n_devices < target_shards:
+            reason = (f"{target_shards} shards need {target_shards} "
+                      f"devices, have {n_devices}")
+        else:
+            for cap in (self.config.accounts_capacity,
+                        self.config.transfers_capacity,
+                        self.config.posted_capacity):
+                if cap % target_shards:
+                    reason = "capacity not divisible by the target shards"
+        if reason is not None:
+            self.reshard_stats["abandons"] += 1
+            if _obs.enabled:
+                _obs.counter("reconfig.reshard_abandoned").inc()
+            warnings.warn(
+                f"shard split refused: {reason} (serving continues on the "
+                f"current layout)", RuntimeWarning, stacklevel=2,
+            )
+            return False
+        self.reshard_stats["splits_started"] += 1
+        self._reshard = {
+            "target": int(target_shards), "verify": bool(verify),
+            "chunk_rows": int(chunk_rows), "round": 0, "queue": [],
+            "src": None, "trees": None, "wire": None,
+            "shipped_leaves": None, "shipped_mask": None, "chunks_sent": 0,
+            "corrupt_chunks": set(int(c) for c in corrupt_chunks),
+            "corrupt_persistent": bool(corrupt_persistent),
+        }
+        if _obs.enabled:
+            _obs.counter("reconfig.reshard_started").inc()
+            _obs.gauge("reconfig.reshard_active").set(1)
+        return True
+
+    def reshard_abort(self) -> None:
+        """Operator abort: drop the migration, keep serving the old layout
+        untouched."""
+        if self._reshard is not None:
+            self._reshard_abandon("operator abort")
+
+    def reshard_step(self, max_chunks: int = 8) -> str:
+        """Advance an active split by up to ``max_chunks`` verified chunks;
+        call between commit batches.  Returns 'idle' (no split),
+        'migrating', 'done' (cut over in this step) or 'abandoned'."""
+        rs = self._reshard
+        if rs is None:
+            return "idle"
+        from .vsr import statesync as _ss
+
+        for _ in range(max_chunks):
+            rs = self._reshard
+            if rs is None:
+                return "abandoned"
+            if not rs["queue"]:
+                status = self._reshard_advance()
+                if status != "migrating":
+                    return status
+                continue
+            pad, slots = rs["queue"].pop(0)
+            tree = rs["trees"][pad]
+            cap = _ss.pad_capacity(rs["src"], pad)
+            chunk_id = rs["chunks_sent"]
+            rows = None
+            for attempt in (0, 1):
+                corrupt = chunk_id in rs["corrupt_chunks"] and (
+                    attempt == 0 or rs["corrupt_persistent"])
+                body = _ss.ship_chunk(rs["src"], tree, pad, slots,
+                                      corrupt=corrupt)
+                if not rs["verify"]:
+                    # The scrub-off negative control: install unaudited.
+                    rows = _ss.unpack_rows(rs["src"], pad, slots, body)
+                    break
+                rows = _ss.verify_chunk(rs["src"], tree, pad, slots, body)
+                if rows is not None:
+                    break
+                self.reshard_stats["chunk_retries"] += 1
+                if _obs.enabled:
+                    _obs.counter("reconfig.chunk_retries").inc()
+            if rows is None:
+                return self._reshard_abandon(
+                    f"chunk {chunk_id} ({pad}) failed verification twice")
+            for k in _ss.per_slot_keys(rs["src"], pad):
+                rs["wire"][pad][k][slots] = rows[k]
+            # The SOURCE leaf is recorded as shipped even unaudited: with
+            # verification off a corrupted chunk stays divergent up to the
+            # cutover, for the auditor to catch.
+            rs["shipped_leaves"][pad][slots] = tree[cap + slots]
+            rs["shipped_mask"][pad][slots] = True
+            rs["chunks_sent"] += 1
+            self.reshard_stats["chunks"] += 1
+            self.reshard_stats["bytes_migrated"] += len(body)
+            if _obs.enabled:
+                _obs.counter("reconfig.bytes_migrated").inc(len(body))
+        return "migrating"
+
+    def _reshard_snapshot(self):
+        """A fresh canonical flat-array snapshot and its trees (the state
+        sync responder's view of this machine's live state)."""
+        from .vsr import checkpoint as _ckpt
+        from .vsr import statesync as _ss
+
+        arrays = _ckpt.ledger_to_arrays(self.checkpoint_ledger())
+        return arrays, _ss.build_trees(arrays)
+
+    def _reshard_advance(self) -> str:
+        """Queue drained: take a fresh snapshot, queue the moved slots whose
+        leaves changed since their last shipment (a delta round), or cut
+        over when a round comes back empty."""
+        from .vsr import statesync as _ss
+
+        rs = self._reshard
+        arrays, trees = self._reshard_snapshot()
+        if rs["src"] is not None and any(
+            _ss.pad_capacity(arrays, pad) != _ss.pad_capacity(rs["src"], pad)
+            for pad in _ss.PADS
+        ):
+            # A table grew mid-migration: leaf indexes are incomparable
+            # across capacities, so the split restarts (counted; the old
+            # layout served throughout).
+            self.reshard_stats["restarts"] += 1
+            if _obs.enabled:
+                _obs.counter("reconfig.reshard_restarts").inc()
+            rs["wire"] = None
+        if rs["wire"] is None:
+            rs["wire"] = {
+                pad: {k: np.zeros_like(arrays[k])
+                      for k in _ss.per_slot_keys(arrays, pad)}
+                for pad in _ss.PADS
+            }
+            rs["shipped_leaves"] = {
+                pad: np.zeros(_ss.pad_capacity(arrays, pad), np.uint64)
+                for pad in _ss.PADS
+            }
+            rs["shipped_mask"] = {
+                pad: np.zeros(_ss.pad_capacity(arrays, pad), bool)
+                for pad in _ss.PADS
+            }
+            rs["round"] = 0
+            # The full-transfer baseline the differential protocol is
+            # judged against: every live row of every pad.
+            self.reshard_stats["bytes_full"] = sum(
+                int(((arrays[f"{pad}/key_lo"] | arrays[f"{pad}/key_hi"])
+                     != 0).sum()) * _ss.row_bytes(arrays, pad)
+                for pad in _ss.PADS
+            )
+        queue = []
+        for pad in _ss.PADS:
+            cap = _ss.pad_capacity(arrays, pad)
+            moved = shard_mod.split_moved_mask(
+                arrays[f"{pad}/key_lo"], arrays[f"{pad}/key_hi"], self.shards)
+            leaves = trees[pad][cap:]
+            need = moved & (~rs["shipped_mask"][pad]
+                            | (leaves != rs["shipped_leaves"][pad]))
+            for piece in _ss.chunk_slots(np.nonzero(need)[0],
+                                         rs["chunk_rows"]):
+                queue.append((pad, piece))
+        rs["src"], rs["trees"] = arrays, trees
+        if not queue:
+            return self._reshard_cutover(arrays, trees)
+        rs["queue"] = queue
+        if rs["round"] > 0:
+            self.reshard_stats["catchup_rounds"] += 1
+        rs["round"] += 1
+        return "migrating"
+
+    def _reshard_cutover(self, arrays, trees) -> str:
+        """The cutover rule: the staged state (the rows that stayed, which
+        never left their device, and the verified wire rows) must pass the
+        whole-state checksum gate, and the NEW layout's per-shard scrub
+        lanes must fold to the canonical digest, before the swap.  A gate
+        failure abandons; the old layout was never touched."""
+        from .vsr import checkpoint as _ckpt
+        from .vsr import statesync as _ss
+
+        rs = self._reshard
+        staged = {k: v.copy() for k, v in arrays.items()}
+        for pad in _ss.PADS:
+            moved = shard_mod.split_moved_mask(
+                arrays[f"{pad}/key_lo"], arrays[f"{pad}/key_hi"], self.shards)
+            slots = np.nonzero(moved)[0]
+            for k in _ss.per_slot_keys(arrays, pad):
+                staged[k][slots] = rs["wire"][pad][k][slots]
+        if rs["verify"] and (
+                _ss.arrays_checksum(staged) != _ss.arrays_checksum(arrays)):
+            return self._reshard_abandon("whole-state checksum gate failed")
+        digest_want = _ss.np_digest(arrays)
+        devs = device_mod.devices(self.device)
+        new_mesh = Mesh(devs[:rs["target"]])
+        new_steps = shard_mod.machine_steps(new_mesh,
+                                            self.config.jacobi_max_passes)
+        sharded_led = shard_mod.shard_ledger(
+            _ckpt.arrays_to_ledger(staged, new_mesh.primary), new_mesh)
+        # The per-shard commitment gate: the 2N scrub lanes (wrap-add
+        # partial folds, one a shard) must sum to the canonical digest.
+        lanes = convert.tensor_to_array(new_steps["scrub"](sharded_led))
+        with np.errstate(over="ignore"):
+            got = int(lanes[:, 0].sum(dtype=np.uint64))
+        if rs["verify"] and got != digest_want:
+            return self._reshard_abandon(
+                "per-shard commitment roots do not fold to the canonical "
+                "digest")
+        old_shards = self.shards
+        self.shards = rs["target"]
+        self._shard_mesh = new_mesh
+        self._shard_steps = new_steps
+        self._merkle_steps_cache = None
+        self._ledger = sharded_led  # already placed on the new mesh
+        self._ledger_is_sharded = True
+        self._canon = None
+        self._refresh_shard_bounds(sharded_led)
+        self._merkle_mark_dirty()
+        self.reshard_stats["splits_completed"] += 1
+        audited = rs["verify"]
+        self._reshard = None
+        if _obs.enabled:
+            _obs.counter("reconfig.reshard_completed").inc()
+            _obs.gauge("reconfig.reshard_active").set(0)
+            _obs.gauge("sharding.shards").set(self.shards)
+        if audited:
+            # Converter sanity on the audited path only: with verification
+            # off an installed divergence is the auditor's to catch.
+            assert int(self.digest()) == digest_want, (
+                f"post-cutover digest diverged after {old_shards} -> "
+                f"{self.shards} split")
+        return "done"
+
+    def _reshard_abandon(self, reason: str) -> str:
+        self.reshard_stats["abandons"] += 1
+        self._reshard = None
+        if _obs.enabled:
+            _obs.counter("reconfig.reshard_abandoned").inc()
+            _obs.gauge("reconfig.reshard_active").set(0)
+        warnings.warn(
+            f"shard split abandoned: {reason} (serving continues on the "
+            f"{self.shards}-shard layout)", RuntimeWarning, stacklevel=3,
+        )
+        return "abandoned"
 
     # -- the commit pipeline ------------------------------------------------------
 
@@ -876,15 +1346,24 @@ class TorchStateMachine:
             handle._deferred = False
             self._deferred_inflight = max(0, self._deferred_inflight - 1)
 
-    def _deferred_submitted(self, lanes: int) -> None:
+    def _deferred_submitted(self, lanes: int, owners=None) -> None:
         """Commit-lane occupancy of one deferred dispatch (serving thread,
-        at submit)."""
+        at submit).  Sharded, the pipeline.shard.* series: every shard runs
+        every batch, so ``inflight`` is the per-shard lane depth, and the
+        per-shard lane counters (``owners``, the host-side owner counts)
+        show the insert skew."""
         self._deferred_inflight += 1
-        if _obs.enabled:
-            _obs.counter("pipeline.dispatches").inc()
-            _obs.histogram("pipeline.inflight", "handles").observe(
-                self._deferred_inflight)
-            _obs.counter("pipeline.lanes").inc(lanes)
+        if not _obs.enabled:
+            return
+        prefix = "pipeline.shard." if self.shards else "pipeline."
+        _obs.counter(prefix + "dispatches").inc()
+        _obs.histogram(prefix + "inflight", "handles").observe(
+            self._deferred_inflight)
+        _obs.counter(prefix + "lanes").inc(lanes)
+        if owners is not None:
+            for s, c in enumerate(owners.tolist()):
+                if c:
+                    _obs.counter(f"pipeline.shard.lanes.{s}").inc(c)
 
     def commit_group_fast(self, batches: List[np.ndarray],
                           timestamps: List[int], deferred: bool = False):
@@ -921,6 +1400,9 @@ class TorchStateMachine:
         if timestamps[-1] > self.prepare_timestamp:
             self.prepare_timestamp = timestamps[-1]
         self._scrub_maybe_check()  # no-op unless armed, due and lane idle
+        if self._ledger_is_sharded:
+            return self._commit_group_fast_sharded(batches, timestamps,
+                                                   counts, deferred)
         k = len(batches)
         stage = self._stage_group(batches, timestamps, self.GROUP_K)
         # Row bounds advance at submit, and the closure's growth target is
@@ -973,6 +1455,63 @@ class TorchStateMachine:
             return handle
         return handle.resolve()  # ONE read-back for the whole group
 
+    def _commit_group_fast_sharded(self, batches, timestamps, counts,
+                                   deferred: bool):
+        """The grouped commit over the mesh: the run's batches are padded on
+        the serving thread, then ONE dispatch closure drives the sharded
+        ``fast_probed`` step batch by batch (the ledger threaded through,
+        growth snapshotted at submit) with ONE read-back of the codes and
+        the per-shard overflow flags for the whole run.  The results equal
+        committing the run batch by batch on the blocking sharded path."""
+        k = len(batches)
+        owner_sum = np.zeros(self.shards, np.int64)
+        for b, c in zip(batches, counts):
+            self._note_cross_shard(b, c)
+            owner_sum += self._note_shard_inserts("transfers", b, c)
+        soas = [self._pad_soa(b) for b in batches]
+        total = sum(counts)
+        need = self._transfers_bound + total
+        self._transfers_bound = need
+        snap = {name: v.copy() for name, v in self._shard_insert_bounds.items()}
+        step = self._shard_steps["fast_probed"]
+        merkle_closure = (self._merkle_forest is not None
+                          and not self.merkle_async)
+
+        def dispatch():
+            self._grow_if_needed(transfers_need=need, shard_bounds=snap)
+            codes_out, ovf_out = [], []
+            for j in range(k):
+                self.ledger, codes, overflow = step(
+                    self.ledger, soas[j], counts[j], timestamps[j])
+                self._index_append(soas[j]["id_lo"], soas[j]["id_hi"], codes,
+                                   counts[j])
+                if merkle_closure:
+                    self._merkle_update_transfers_batches([batches[j]])
+                codes_out.append(codes)
+                ovf_out.append(overflow)
+            if _obs.enabled:
+                _obs.counter("sharding.batches").inc(k)
+            return torch.stack(codes_out), torch.stack(ovf_out)
+
+        armed_mirror = self._scrub_mirror is not None
+        armed = armed_mirror or self._merkle_forest is not None
+        result = self._lane_dispatch(dispatch, deferred)
+        handle = DeviceCommitHandle(
+            self, result, list(counts), list(timestamps), stacked=True,
+            batches=list(batches) if armed_mirror else None,
+            deferred=deferred,
+        )
+        if self._merkle_forest is not None and not merkle_closure:
+            for b in batches:
+                self._merkle_lane_enqueue("create_transfers", b)
+        if deferred:
+            self._deferred_submitted(total, owner_sum)
+        if armed:
+            self._inflight_handles.append(handle)
+        if deferred:
+            return handle
+        return handle.resolve()  # ONE read-back for the whole run
+
     def commit_fast_deferred(
         self, batch: np.ndarray, timestamp: int
     ) -> Optional[DeviceCommitHandle]:
@@ -999,23 +1538,45 @@ class TorchStateMachine:
         if timestamp > self.prepare_timestamp:
             self.prepare_timestamp = timestamp
         self._scrub_maybe_check()  # no-op unless armed, due and lane idle
-        stage = self._stage_group([batch], [timestamp], 1)
+        owners = stage = None
+        if self._ledger_is_sharded:
+            self._note_cross_shard(batch, count)
+            owners = self._note_shard_inserts("transfers", batch, count)
+            soa = self._pad_soa(batch)  # padded on the serving thread
+        else:
+            stage = self._stage_group([batch], [timestamp], 1)
         need = self._transfers_bound + count
         self._transfers_bound = need
         merkle_closure = (self._merkle_forest is not None
                           and not self.merkle_async)
+        if self._ledger_is_sharded:
+            snap = {name: v.copy()
+                    for name, v in self._shard_insert_bounds.items()}
+            step = self._shard_steps["fast_probed"]
 
-        def dispatch():
-            self._grow_if_needed(transfers_need=need)
-            soa = {name: col[0] for name, col in
-                   self._staged_columns(stage).items()}
-            (self.ledger, codes, overflow, id_lo, id_hi) = \
-                sm.create_transfers_fast_probed(self.ledger, soa, count,
-                                                timestamp)
-            self._index_append(id_lo, id_hi, codes, count)
-            if merkle_closure:
-                self._merkle_update_transfers_batches([batch])
-            return codes, overflow
+            def dispatch():
+                # The overflow flags ride a fresh output of the step.
+                self._grow_if_needed(transfers_need=need, shard_bounds=snap)
+                self.ledger, codes, overflow = step(self.ledger, soa, count,
+                                                    timestamp)
+                self._index_append(soa["id_lo"], soa["id_hi"], codes, count)
+                if merkle_closure:
+                    self._merkle_update_transfers_batches([batch])
+                if _obs.enabled:
+                    _obs.counter("sharding.batches").inc()
+                return codes, overflow
+        else:
+            def dispatch():
+                self._grow_if_needed(transfers_need=need)
+                soa = {name: col[0] for name, col in
+                       self._staged_columns(stage).items()}
+                (self.ledger, codes, overflow, id_lo, id_hi) = \
+                    sm.create_transfers_fast_probed(self.ledger, soa, count,
+                                                    timestamp)
+                self._index_append(id_lo, id_hi, codes, count)
+                if merkle_closure:
+                    self._merkle_update_transfers_batches([batch])
+                return codes, overflow
 
         armed_mirror = self._scrub_mirror is not None
         armed = armed_mirror or self._merkle_forest is not None
@@ -1026,7 +1587,7 @@ class TorchStateMachine:
         )
         if self._merkle_forest is not None and not merkle_closure:
             self._merkle_lane_enqueue("create_transfers", batch)
-        self._deferred_submitted(count)
+        self._deferred_submitted(count, owners)
         if armed:
             self._inflight_handles.append(handle)
         return handle
@@ -1130,8 +1691,8 @@ class TorchStateMachine:
         at the hot ceiling the transfers table spills instead."""
         led = self.ledger
         if kflags & tf.FLAG_GROW_ACCOUNTS:
-            led.accounts = self._table_grow(led.accounts,
-                                            led.accounts.capacity * 2)
+            led.accounts = self._table_grow(
+                led.accounts, led.accounts.capacity * 2, "accounts")
         if kflags & tf.FLAG_GROW_TRANSFERS:
             hot_max = self.hot_transfers_capacity_max
             if hot_max is not None and led.transfers.capacity >= hot_max:
@@ -1139,14 +1700,45 @@ class TorchStateMachine:
                 # room by spilling (the caller resets the certificate).
                 self.evict_cold()
             else:
-                led.transfers = self._table_grow(led.transfers,
-                                                 led.transfers.capacity * 2)
+                led.transfers = self._table_grow(
+                    led.transfers, led.transfers.capacity * 2, "transfers")
         if kflags & tf.FLAG_GROW_POSTED:
-            led.posted = self._table_grow(led.posted, led.posted.capacity * 2)
+            led.posted = self._table_grow(
+                led.posted, led.posted.capacity * 2, "posted")
 
     # -- the sequential path ----------------------------------------------------
 
     def _sequential(
+        self, operation: str, batch: np.ndarray, timestamp: int
+    ) -> List[Tuple[int, int]]:
+        """The sequential path; on a sharded ledger in the sequential
+        window: the ledger is pulled into the canonical single-device
+        layout, the sequential path runs on it unchanged (growth, bounds
+        and index bookkeeping included: ``_ledger_is_sharded`` is off for
+        the window) and the result is placed back onto the mesh.  O(rows)
+        host conversions; routed batches are rare by design."""
+        if not self._ledger_is_sharded:
+            return self._sequential_impl(operation, batch, timestamp)
+        self.shard_seq_fallbacks += 1
+        if _obs.enabled:
+            _obs.counter("sharding.seq_fallbacks").inc()
+        canon = shard_mod.unshard_ledger(self.ledger, self._shard_mesh)
+        self._ledger_is_sharded = False
+        self._ledger = canon
+        try:
+            return self._sequential_impl(operation, batch, timestamp)
+        finally:
+            self._end_canonical_window()
+
+    def _end_canonical_window(self) -> None:
+        """End of the sequential (or eviction) window: place the canonical
+        ledger back onto the mesh."""
+        self._ledger = shard_mod.shard_ledger(self.ledger, self._shard_mesh)
+        self._ledger_is_sharded = True
+        self._canon = None
+        self._refresh_shard_bounds(self._ledger)
+
+    def _sequential_impl(
         self, operation: str, batch: np.ndarray, timestamp: int
     ) -> List[Tuple[int, int]]:
         """Exact in-order execution through ops/scan_path (kernels K6 and
@@ -1212,15 +1804,37 @@ class TorchStateMachine:
 
     # -- growth ----------------------------------------------------------------
 
-    def _table_grow(self, table: ht.Table, capacity: int) -> ht.Table:
-        """ht.grow (one K2 rehash).  Growth moves every slot, so the
-        commitment forest rebuilds from the grown layout at the next update
-        or check."""
+    def _table_grow(self, table, capacity: int, name: str = ""):
+        """ht.grow (one K2 rehash), or on a sharded table (``name`` the
+        table's) the host re-placement at the new capacity (owners are the low hash bits, so
+        rows never change shard; only the local homes do).  Growth moves
+        every slot, so the commitment forest rebuilds from the grown layout
+        at the next update or check."""
         self._merkle_mark_dirty()
+        self._canon = None
         if self._sanitize and self._sanitize_capture_base is not None:
             # A new capacity makes a new graph: its capture is legitimate.
             self._sanitize_grace = True
+        if isinstance(table, shard_mod.ShardedTable):
+            if _obs.enabled:
+                _obs.counter("sharding.grows").inc()
+            return shard_mod.grow_sharded_table(table, name, capacity,
+                                                self._shard_mesh)
         return ht.grow(table, capacity)
+
+    def _shard_peak_floor(self, which: str, cap: int, bounds=None) -> int:
+        """Sharded, the capacity must also keep the peak shard's attempted
+        inserts under half its C/n region (hash skew can overfill one shard
+        while the global count looks fine, and a fast-path overflow is
+        fatal).  ``bounds``: a submit-time snapshot of the per-shard bounds
+        (the deferred closures')."""
+        if bounds is None:
+            bounds = self._shard_insert_bounds
+        if self._ledger_is_sharded and which in bounds:
+            peak = int(bounds[which].max())
+            while peak * 2 > cap // self.shards:
+                cap *= 2
+        return cap
 
     @staticmethod
     def _target_capacity(capacity: int, needed_rows: int) -> int:
@@ -1232,7 +1846,7 @@ class TorchStateMachine:
     def _grow_if_needed(
         self, accounts: int = 0, transfers: int = 0, posted: int = 0,
         history: int = 0, evict_ok: bool = True,
-        transfers_need: Optional[int] = None,
+        transfers_need: Optional[int] = None, shard_bounds=None,
     ) -> None:
         """Keep every table's load factor under 0.5 using host-side row
         bounds (no device sync; bounds only overestimate), and the history
@@ -1243,18 +1857,19 @@ class TorchStateMachine:
         eviction between batches).  ``transfers_need`` is a row target the
         deferred closures snapshot at submit: they run on the lane while the
         serving thread advances the bound, so a live read would make the
-        growth moment timing-dependent."""
+        growth moment timing-dependent; ``shard_bounds`` is its per-shard
+        twin."""
         led = self.ledger
-        cap = self._target_capacity(
+        cap = self._shard_peak_floor("accounts", self._target_capacity(
             led.accounts.capacity, self._accounts_bound + accounts
-        )
+        ), shard_bounds)
         if cap != led.accounts.capacity:
-            led.accounts = self._table_grow(led.accounts, cap)
-        cap = self._target_capacity(
+            led.accounts = self._table_grow(led.accounts, cap, "accounts")
+        cap = self._shard_peak_floor("transfers", self._target_capacity(
             led.transfers.capacity,
             transfers_need if transfers_need is not None
             else self._transfers_bound + transfers,
-        )
+        ), shard_bounds)
         if cap != led.transfers.capacity:
             hot_max = self.hot_transfers_capacity_max
             if hot_max is not None and cap > hot_max and (
@@ -1266,12 +1881,18 @@ class TorchStateMachine:
                 if hot_max is not None:
                     cap = min(cap, max(hot_max, led.transfers.capacity))
                 if cap != led.transfers.capacity:
-                    led.transfers = self._table_grow(led.transfers, cap)
-        cap = self._target_capacity(
-            led.posted.capacity, self._posted_bound + posted
-        )
+                    led.transfers = self._table_grow(led.transfers, cap,
+                                                     "transfers")
+        posted_need = self._posted_bound + posted
+        if self._ledger_is_sharded:
+            # Posted keys (pending timestamps) are not host-computable per
+            # shard: a 2x target (global load <= 0.25) keeps the peak shard
+            # under 0.5 but at negligible skew, and the general step's
+            # claim overflow still grows and retries.
+            posted_need *= 2
+        cap = self._target_capacity(led.posted.capacity, posted_need)
         if cap != led.posted.capacity:
-            led.posted = self._table_grow(led.posted, cap)
+            led.posted = self._table_grow(led.posted, cap, "posted")
         if history and self._history_bound + history > led.history.capacity:
             led.history = sm.grow_history(
                 led.history, self._history_bound + history
@@ -1333,6 +1954,16 @@ class TorchStateMachine:
         boundaries by the replica, or directly under memory pressure.
         Returns the number of rows evicted."""
         assert self._engine is None, "tiering runs on the device path"
+        if self._ledger_is_sharded:
+            # Eviction is a canonical-layout concern: the eviction runs
+            # unchanged in the window the sequential path uses.
+            canon = shard_mod.unshard_ledger(self.ledger, self._shard_mesh)
+            self._ledger_is_sharded = False
+            self._ledger = canon
+            try:
+                return self._evict_cold_impl(frac)
+            finally:
+                self._end_canonical_window()
         return self._evict_cold_impl(frac)
 
     def _evict_cold_impl(self, frac: Optional[float] = None) -> int:
@@ -1392,8 +2023,9 @@ class TorchStateMachine:
         ``lazy_index`` (bulk ingest) mark them stale instead, and the next
         query rebuilds them from the table in one go.  The deferred
         closures run it on the lane, right after their kernels, where
-        ``self.ledger`` is the one their dispatch left."""
-        if self.config.lazy_index:
+        ``self.ledger`` is the one their dispatch left.  A sharded machine
+        always marks them stale: the query path reads the canonical view."""
+        if self.config.lazy_index or self._shard_mesh is not None:
             if not self.index.stale:
                 self.index.reset()
             self.scans_transfers.reset()
@@ -1407,7 +2039,7 @@ class TorchStateMachine:
                               count: int) -> None:
         if not self.scans_accounts.indexes:
             return
-        if self.config.lazy_index:
+        if self.config.lazy_index or self._shard_mesh is not None:
             self.scans_accounts.reset()
             return
         self.scans_accounts.append_batch(
@@ -1427,7 +2059,8 @@ class TorchStateMachine:
             return np.zeros(0, dtype=types.ACCOUNT_DTYPE)
         if self._engine is not None:
             return self._engine.lookup_accounts(ids)
-        found, cols = sm.lookup_accounts(self.ledger, *self._ids(ids))
+        found, cols = sm.lookup_accounts(self._query_ledger(),
+                                         *self._ids(ids))
         host = {k: convert.tensor_to_array(v) for k, v in cols.items()}
         host["reserved"] = np.zeros(len(ids), np.uint32)
         rows = types.from_soa(host, types.ACCOUNT_DTYPE)
@@ -1443,7 +2076,7 @@ class TorchStateMachine:
             found, rows = self._engine.lookup_transfers(ids)
             return rows[found]  # no cold tier in host mode
         lo, hi = self._ids(ids)
-        found, cols = sm.lookup_transfers(self.ledger, lo, hi)
+        found, cols = sm.lookup_transfers(self._query_ledger(), lo, hi)
         host = convert.tensors_to_arrays({"_found": found, **cols})
         found = host.pop("_found")
         rows = types.from_soa(host, types.TRANSFER_DTYPE)
@@ -1505,7 +2138,7 @@ class TorchStateMachine:
         # Candidate cap: the power of two covering the largest reply.
         k = 1 << (QUERY_ROWS_MAX - 1).bit_length()
         valid, tid_lo, tid_hi = self.index.query(
-            self.ledger, acct_lo, acct_hi, ts_min, ts_max,
+            self._query_ledger(), acct_lo, acct_hi, ts_min, ts_max,
             bool(flags & types.AccountFilterFlags.DEBITS),
             bool(flags & types.AccountFilterFlags.CREDITS),
             k, descending)
@@ -1519,7 +2152,8 @@ class TorchStateMachine:
         repeats of an id (a rebuild can index a rehydrated transfer from
         both the hot table and its cold run), and the hits missing from the
         hot table resolved from the cold store, in place."""
-        found, cols = sm.lookup_transfers(self.ledger, tid_lo, tid_hi)
+        found, cols = sm.lookup_transfers(self._query_ledger(), tid_lo,
+                                          tid_hi)
         host = convert.tensors_to_arrays(
             {"_valid": valid, "_found": found, "_tl": tid_lo, "_th": tid_hi,
              **cols})
@@ -1568,7 +2202,7 @@ class TorchStateMachine:
         ts_min, ts_max = self._scan_window(timestamp_min, timestamp_max)
         limit = min(limit, QUERY_ROWS_MAX)
         tid_lo, tid_hi = self.scans_transfers.evaluate(
-            expr, self.ledger, ts_min, ts_max, limit, bool(reversed))
+            expr, self._query_ledger(), ts_min, ts_max, limit, bool(reversed))
         n = len(tid_lo)
         if n == 0:
             return np.zeros(0, dtype=types.TRANSFER_DTYPE)
@@ -1588,7 +2222,7 @@ class TorchStateMachine:
         ts_min, ts_max = self._scan_window(timestamp_min, timestamp_max)
         limit = min(limit, QUERY_ROWS_MAX)
         tid_lo, tid_hi = self.scans_accounts.evaluate(
-            expr, self.ledger, ts_min, ts_max, limit, bool(reversed))
+            expr, self._query_ledger(), ts_min, ts_max, limit, bool(reversed))
         ids = [int(lo) | (int(hi) << 64) for lo, hi in zip(tid_lo, tid_hi)]
         if not ids:
             return np.zeros(0, dtype=types.ACCOUNT_DTYPE)
@@ -1635,9 +2269,10 @@ class TorchStateMachine:
         ):
             return np.zeros(0, dtype=types.ACCOUNT_BALANCE_DTYPE)
         flags = int(filt["flags"])
-        k = min(self.ledger.history.capacity, QUERY_ROWS_MAX)
+        qled = self._query_ledger()
+        k = min(qled.history.capacity, QUERY_ROWS_MAX)
         valid, rows = query.scan_history(
-            self.ledger, acct_lo, acct_hi, ts_min, ts_max,
+            qled, acct_lo, acct_hi, ts_min, ts_max,
             bool(flags & types.AccountFilterFlags.DEBITS),
             bool(flags & types.AccountFilterFlags.CREDITS),
             descending, k)
@@ -1652,7 +2287,7 @@ class TorchStateMachine:
     def balances_snapshot(self) -> List[Tuple[int, int, int, int, int, int]]:
         """(id, dp, dpo, cp, cpo, ts) sorted by id — comparable with
         ReferenceStateMachine.balances_snapshot()."""
-        a = self.ledger.accounts
+        a = self._query_ledger().accounts
         key_lo = convert.tensor_to_array(a.key_lo)
         key_hi = convert.tensor_to_array(a.key_hi)
         live = (key_lo != 0) | (key_hi != 0)
@@ -1678,6 +2313,8 @@ class TorchStateMachine:
         )
 
     def digest(self) -> int:
+        if self._ledger_is_sharded:
+            return u64(shard_mod.ledger_digest(self.ledger).item())
         return u64(sm.ledger_digest(self.ledger).item())
 
     # -- the device fault domain (ops/scrub.py) --------------------------------
@@ -1778,7 +2415,7 @@ class TorchStateMachine:
             self._merkle_forest = None
             keep_mirror = True
         self._scrub_mirror = scrub_ops.model_from_ledger(
-            self.ledger,
+            self._query_ledger(),
             cold_rows=[np.asarray(r) for r in self.cold.runs],
             prepare_timestamp=self.prepare_timestamp,
             commit_timestamp=self.commit_timestamp,
@@ -1825,17 +2462,23 @@ class TorchStateMachine:
         if self._engine is not None:
             return False
         a = self.ledger.accounts
-        live = np.flatnonzero(
-            (convert.tensor_to_array(a.key_lo) != 0)
-            | (convert.tensor_to_array(a.key_hi) != 0)
-        )
+        # Sharded, the slot is global (the parts' concatenation), as the
+        # reference's sharded array indexes it.
+        parts = getattr(a, "parts", [a])
+        key_lo = np.concatenate([convert.tensor_to_array(p.key_lo)
+                                 for p in parts])
+        key_hi = np.concatenate([convert.tensor_to_array(p.key_hi)
+                                 for p in parts])
+        live = np.flatnonzero((key_lo != 0) | (key_hi != 0))
         if live.size == 0:
             return False
         slot = int(live[rng.randrange(live.size)])
         col = self._SDC_COLS[rng.randrange(len(self._SDC_COLS))]
         bit = rng.randrange(64)
-        arr = a.cols[col]
-        arr[slot] = arr[slot] ^ i64(1 << bit)
+        local = parts[0].capacity
+        arr = parts[slot // local].cols[col]
+        arr[slot % local] = arr[slot % local] ^ i64(1 << bit)
+        self._canon = None  # the corruption must be visible to queries too
         return True
 
     def _mirror_apply(self, operation: str, batch: np.ndarray,
@@ -2100,15 +2743,34 @@ class TorchStateMachine:
     def _scrub_fold_digests(self) -> np.ndarray:
         """The (accounts, transfers, posted) folds, K21 on the card, through
         the read-back funnel (one copy)."""
+        if self._ledger_is_sharded:
+            # Per-shard lanes (n, 3), one read-back; the folds are
+            # wrap-adds over disjoint partitions, so their sum is the
+            # single-device fold (and a lane names a mismatching shard).
+            lanes = self._d2h_u64(self._shard_steps["scrub"](self.ledger))
+            if _obs.enabled:
+                _obs.counter("sharding.scrub_lane_checks").inc()
+            with np.errstate(over="ignore"):
+                return lanes.sum(axis=0, dtype=np.uint64)
         return self._d2h_u64(scrub_ops.scrub_digest(self.ledger))
 
     # -- Merkle commitments (ops/merkle.py) -------------------------------------
+
+    def _merkle_steps(self) -> dict:
+        """The sharded Merkle steps of this mesh (cached process-wide)."""
+        if self._merkle_steps_cache is None:
+            self._merkle_steps_cache = shard_mod.merkle_steps(
+                self._shard_mesh)
+        return self._merkle_steps_cache
 
     def _merkle_rebuild(self) -> None:
         """Full forest rebuild from the current ledger (K22), paid at arm
         points and after non-incremental mutations (growth, the sequential
         path, tier moves, recovery).  It subsumes every queued touch."""
-        self._merkle_forest = merkle_ops.build_forest(self.ledger)
+        if self._ledger_is_sharded:
+            self._merkle_forest = self._merkle_steps()["build"](self.ledger)
+        else:
+            self._merkle_forest = merkle_ops.build_forest(self.ledger)
         self._merkle_dirty = False
         self._merkle_pending.clear()
         self.merkle_rebuilds += 1
@@ -2130,9 +2792,15 @@ class TorchStateMachine:
         (2, 3) read-back."""
         self.merkle_settle()  # the check observes settled roots only
         self._merkle_rebuild_if_dirty()
-        lanes = self._d2h_u64(
-            merkle_ops.verify_roots(self._merkle_forest, self.ledger))
-        ok = bool((lanes[0] == lanes[1]).all())
+        if self._ledger_is_sharded:
+            # Per-shard (n, 2, 3) lanes, which also name a shard.
+            lanes = self._d2h_u64(self._merkle_steps()["verify"](
+                self._merkle_forest, self.ledger))
+            ok = bool((lanes[:, 0, :] == lanes[:, 1, :]).all())
+        else:
+            lanes = self._d2h_u64(
+                merkle_ops.verify_roots(self._merkle_forest, self.ledger))
+            ok = bool((lanes[0] == lanes[1]).all())
         if _obs.enabled:
             _obs.counter("merkle.checks").inc()
         if not ok:
@@ -2171,9 +2839,14 @@ class TorchStateMachine:
             batch["id_hi"].astype(np.uint64),
             self._MERKLE_MIN_LANES,
         )
-        self._merkle_forest = merkle_ops.update_accounts(
-            self._merkle_forest, self.ledger, lo, hi, max_probe=sm.MAX_PROBE,
-        )
+        if self._ledger_is_sharded:
+            self._merkle_forest = self._merkle_steps()["update_accounts"](
+                self._merkle_forest, self.ledger, lo, hi)
+        else:
+            self._merkle_forest = merkle_ops.update_accounts(
+                self._merkle_forest, self.ledger, lo, hi,
+                max_probe=sm.MAX_PROBE,
+            )
         self.merkle_updates += 1
         if _obs.enabled:
             _obs.counter("merkle.updates").inc()
@@ -2254,11 +2927,18 @@ class TorchStateMachine:
             pend[0].astype(np.uint64), pend[1].astype(np.uint64),
             self._MERKLE_MIN_LANES,
         )
-        self._merkle_forest = merkle_ops.update_transfers(
-            self._merkle_forest, self.ledger, id_lo, id_hi,
-            acc_lo, acc_hi, pend_lo, pend_hi,
-            max_probe=sm.MAX_PROBE, has_postvoid=has_pv,
-        )
+        if self._ledger_is_sharded:
+            step = self._merkle_steps()[
+                "update_transfers_pv" if has_pv else "update_transfers"]
+            self._merkle_forest = step(
+                self._merkle_forest, self.ledger, id_lo, id_hi,
+                acc_lo, acc_hi, pend_lo, pend_hi)
+        else:
+            self._merkle_forest = merkle_ops.update_transfers(
+                self._merkle_forest, self.ledger, id_lo, id_hi,
+                acc_lo, acc_hi, pend_lo, pend_hi,
+                max_probe=sm.MAX_PROBE, has_postvoid=has_pv,
+            )
         self.merkle_updates += 1
         if _obs.enabled:
             _obs.counter("merkle.updates").inc()
@@ -2270,7 +2950,15 @@ class TorchStateMachine:
             return None
         self.merkle_settle()
         self._merkle_rebuild_if_dirty()
-        triple = self._d2h_u64(merkle_ops.forest_roots(self._merkle_forest))
+        if self._ledger_is_sharded:
+            # The wrap-sum fold of the per-shard subtree roots.
+            lanes = self._d2h_u64(
+                self._merkle_steps()["roots"](self._merkle_forest))
+            with np.errstate(over="ignore"):
+                triple = lanes.sum(axis=0, dtype=np.uint64)
+        else:
+            triple = self._d2h_u64(
+                merkle_ops.forest_roots(self._merkle_forest))
         return (int(triple[0]), int(triple[1]), int(triple[2]))
 
     def merkle_canonical_roots(self) -> Optional[Tuple[int, int, int]]:
@@ -2281,7 +2969,7 @@ class TorchStateMachine:
             return None
         if self._merkle_pending and self._deferred_inflight == 0:
             self.merkle_settle()
-        return merkle_ops.np_ledger_roots(self.ledger)
+        return merkle_ops.np_ledger_roots(self._query_ledger())
 
     def commitment_root(self) -> int:
         """The accounts-pad commitment root of the committed state (the
@@ -2293,7 +2981,63 @@ class TorchStateMachine:
         if self._merkle_pending:
             return 0
         self._merkle_rebuild_if_dirty()
+        if self._ledger_is_sharded:
+            # The canonical root lives in the host tree cache get_proof
+            # fills; building it costs an unshard and an O(capacity) hash
+            # pass, never paid per reply: 0 (skipped by clients) unless
+            # the cache is fresh.
+            cached = self._canon_tree
+            if (self._canon is None or cached is None
+                    or cached[0] is not self._canon
+                    or "accounts" not in cached[1]):
+                return 0
+            return int(cached[1]["accounts"][1])
         return u64(self._merkle_forest.accounts[1].item())
+
+    def _canon_tree_nodes(self, pad_name: str) -> np.ndarray:
+        """The cached host heap over the canonical layout of ``pad_name``
+        (sharded proofs and ``commitment_root``), invalidated with the
+        canonical view itself."""
+        canon = self._query_ledger()
+        cached = self._canon_tree
+        if cached is None or cached[0] is not canon:
+            self._canon_tree = cached = (canon, {})
+        nodes = cached[1].get(pad_name)
+        if nodes is None:
+            nodes = merkle_ops.np_tree(
+                merkle_ops.np_table_leaves(getattr(canon, pad_name),
+                                           pad_name))
+            cached[1][pad_name] = nodes
+        return nodes
+
+    def _canon_proof_path(self, lo: np.uint64, hi: np.uint64,
+                          pad_name: str = "accounts"):
+        """A proof path from the cached host tree over the canonical layout
+        of ``pad_name`` (sharded: the live per-shard subtrees commit to the
+        sharded layout; proofs and checkpoints anchor to the canonical
+        one).  (slot, siblings, root), or None when the key is absent."""
+        nodes = self._canon_tree_nodes(pad_name)
+        table = getattr(self._query_ledger(), pad_name)
+        cap = len(nodes) // 2
+        key_lo = convert.tensor_to_array(table.key_lo)
+        key_hi = convert.tensor_to_array(table.key_hi)
+        tomb = convert.tensor_to_array(table.tombstone)
+        slot = int(mix64_np(np.asarray([lo]), np.asarray([hi]))[0]) & (cap - 1)
+        probes = 0
+        while not (key_lo[slot] == lo and key_hi[slot] == hi):
+            if key_lo[slot] == 0 and key_hi[slot] == 0 and not bool(
+                    tomb[slot]):
+                return None  # absent from the canonical pad
+            slot = (slot + 1) & (cap - 1)
+            probes += 1
+            if probes > cap:
+                return None
+        idx = cap + slot
+        siblings = np.empty(max(0, cap.bit_length() - 1), np.uint64)
+        for level in range(len(siblings)):
+            siblings[level] = nodes[idx ^ 1]
+            idx >>= 1
+        return slot, siblings, int(nodes[1])
 
     def get_proof(self, ident: int, kind: str = "accounts") -> Optional[bytes]:
         """Root-anchored Merkle inclusion proof of one row, verifiable with
@@ -2327,19 +3071,26 @@ class TorchStateMachine:
             lo = np.uint64(int(rows[0]["timestamp"]))
             hi = np.uint64(0)
         self._merkle_rebuild_if_dirty()
-        table = getattr(self.ledger, kind)
-        k_lo, k_hi = self._id_tensors(np.array([lo], np.uint64),
-                                      np.array([hi], np.uint64), 8)
-        look = ht.lookup(table, k_lo, k_hi, sm.MAX_PROBE)
-        if not bool(look.found[0]):
-            return None
-        slot = int(look.slot[0])
-        levels = max(0, table.capacity.bit_length() - 1)
-        leaf_dev, sib_dev, root_dev = merkle_ops.gather_path(
-            self._merkle_forest.pad(kind), slot, levels)
-        path = convert.tensor_to_array(torch.cat(
-            [sib_dev, root_dev.reshape(1)]))
-        siblings, root = path[:levels], int(path[levels])
+        if self._ledger_is_sharded:
+            path = self._canon_proof_path(lo, hi, kind)
+            if path is None:
+                return None
+            slot, siblings, root = path
+            table = getattr(self._query_ledger(), kind)
+        else:
+            table = getattr(self.ledger, kind)
+            k_lo, k_hi = self._id_tensors(np.array([lo], np.uint64),
+                                          np.array([hi], np.uint64), 8)
+            look = ht.lookup(table, k_lo, k_hi, sm.MAX_PROBE)
+            if not bool(look.found[0]):
+                return None
+            slot = int(look.slot[0])
+            levels = max(0, table.capacity.bit_length() - 1)
+            _leaf, sib_dev, root_dev = merkle_ops.gather_path(
+                self._merkle_forest.pad(kind), slot, levels)
+            path = convert.tensor_to_array(torch.cat(
+                [sib_dev, root_dev.reshape(1)]))
+            siblings, root = path[:levels], int(path[levels])
         if kind == "posted":
             prow = np.zeros((), merkle_ops.PROOF_POSTED_DTYPE)
             prow["pending_timestamp"] = lo
@@ -2424,10 +3175,22 @@ class TorchStateMachine:
         empty ledger, derived state cleared.  The prepare clock is kept:
         issued prepare timestamps must stay monotone."""
         cfg = self.config
-        self.ledger = sm.make_ledger(
-            cfg.accounts_capacity, cfg.transfers_capacity,
-            cfg.posted_capacity, cfg.history_capacity, device=self.device,
-        )
+        if self._shard_mesh is not None:
+            self.ledger = shard_mod.make_sharded_ledger(
+                self._shard_mesh, cfg.accounts_capacity,
+                cfg.transfers_capacity, cfg.posted_capacity,
+                history_capacity=cfg.history_capacity,
+            )
+            self._ledger_is_sharded = True
+            self._shard_insert_bounds = {
+                "accounts": np.zeros(self.shards, np.int64),
+                "transfers": np.zeros(self.shards, np.int64),
+            }
+        else:
+            self.ledger = sm.make_ledger(
+                cfg.accounts_capacity, cfg.transfers_capacity,
+                cfg.posted_capacity, cfg.history_capacity, device=self.device,
+            )
         self._merkle_mark_dirty()
         self.commit_timestamp = 0
         self._accounts_bound = self._transfers_bound = 0
@@ -2490,6 +3253,7 @@ class TorchStateMachine:
         self._index_stale = True
         self._device_stale = True
         self._ledger = None  # made anew for queries and checkpoints
+        self._ledger_is_sharded = False  # ... in the single-device layout
         self.scrub_disarm()  # the host ledger is the authority now
         self.degraded_to_host_engine = True
         if _obs.enabled:
@@ -2580,6 +3344,25 @@ class TorchStateMachine:
         if self._engine is not None:
             self._host_led.prefault()
             return
+        if self._ledger_is_sharded:
+            # The sharded commit steps (accounts, fast, the probed twin the
+            # deferred and grouped commits dispatch, the general step for
+            # the current waves setting) on zero-count batches.
+            steps = self._shard_steps
+            soa_a = self._pad_soa(np.zeros(0, dtype=types.ACCOUNT_DTYPE))
+            self.ledger, codes_a = steps["accounts"](self.ledger, soa_a, 0, 1)
+            soa_t = self._pad_soa(np.zeros(0, dtype=types.TRANSFER_DTYPE))
+            self.ledger, codes_f = steps["fast"](self.ledger, soa_t, 0, 1)
+            reads = [codes_a, codes_f]
+            if self.pipeline_depth > 1 or self.group_device_commit:
+                r = steps["fast_probed"](self.ledger, soa_t, 0, 1)
+                reads.append(r[1])
+            r = steps["full_waves" if self.waves_enabled else "full"](
+                self.ledger, soa_t, 0, 1)
+            self.ledger = r[0]
+            reads.append(r[1])
+            torch.cat([c.reshape(-1) for c in reads]).cpu()
+            return
         soa_a = self._pad_soa(np.zeros(0, dtype=types.ACCOUNT_DTYPE))
         self.ledger, codes_a = sm.create_accounts(self.ledger, soa_a, 0, 1)
         soa_t = self._pad_soa(np.zeros(0, dtype=types.TRANSFER_DTYPE))
@@ -2631,9 +3414,10 @@ class TorchStateMachine:
     # -- persistence (vsr/checkpoint.py) ------------------------------------------
 
     def checkpoint_ledger(self) -> sm.Ledger:
-        """The ledger snapshot checkpoints serialize (the single-device
-        layout, which is the only one the port has)."""
-        return self.ledger
+        """The ledger snapshot checkpoints serialize: the canonical
+        single-device layout, so a checkpoint restores into any shard
+        count."""
+        return self._query_ledger()
 
     def host_state(self) -> dict:
         """Host-tracked state that must survive restarts (checkpointed
@@ -2658,9 +3442,10 @@ class TorchStateMachine:
         # Floor the bounds at the live counts, so checkpoints that predate
         # bound tracking still grow correctly (one read-back at restart).
         led = self.ledger
+        # Sharded tables count per shard: the sums.
         counts = convert.tensor_to_array(torch.stack([
-            led.accounts.count, led.transfers.count, led.posted.count,
-            led.history.count]))
+            led.accounts.count.sum(), led.transfers.count.sum(),
+            led.posted.count.sum(), led.history.count]))
         self._accounts_bound = max(int(state.get("accounts_bound", 0)),
                                    int(counts[0]))
         self._transfers_bound = max(int(state.get("transfers_bound", 0)),
@@ -2712,18 +3497,3 @@ def _unique_pairs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     first[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
     return np.stack([hi[first], lo[first]], axis=1)
 
-
-def _unported(name: str, where: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"TorchStateMachine.{name} is not ported yet (ROADMAP {where})"
-        )
-
-    method.__name__ = name
-    if name in _UNPORTED_PROPERTIES:
-        return property(method, method)
-    return method
-
-
-for _name, _where in _UNPORTED.items():
-    setattr(TorchStateMachine, _name, _unported(_name, _where))

@@ -47,6 +47,8 @@ add one to their kernel's ``launches`` each time they launch it.
 | vopr_draw     | csrc/vopr_draw.cu  | sim/vopr_tpu.py:160 draw_faults (vmapped over keys) |
 | vopr_step     | csrc/vopr_step.cu  | sim/vopr_tpu.py:217 step (vmapped over clusters, :738) |
 | vopr_run      | csrc/vopr_run.cu   | sim/vopr_tpu.py:702 _one_cluster_fn, :724 run, :741 run_sharded (+ :737 the keys) |
+| shard_gather  | csrc/shard_gather.cu | parallel/sharded.py:142 _ShardGather (the owner-masked local probe and gather) |
+| shard_combine | csrc/shard_combine.cu | parallel/sharded.py:156 _ShardGather's psum (+ :367 any_shard), within a card |
 
 The grouped commit's graph (``ops/group.py``) and the bench twin's read a
 batch's count and timestamp from u64 device words, so one captured launch
@@ -171,6 +173,10 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/sim/vopr_tpu.py:217"),
         Kernel("vopr_run", "tigerbeetle_tpu_torch/csrc/vopr_run.cu",
                "tigerbeetle_tpu/sim/vopr_tpu.py:724"),
+        Kernel("shard_gather", "tigerbeetle_tpu_torch/csrc/shard_gather.cu",
+               "tigerbeetle_tpu/parallel/sharded.py:142"),
+        Kernel("shard_combine", "tigerbeetle_tpu_torch/csrc/shard_combine.cu",
+               "tigerbeetle_tpu/parallel/sharded.py:156"),
     )
 }
 
@@ -265,7 +271,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _P],
         "tb_validate_transfers": [_INT, _P, _I64, _I64, ctypes.c_uint64,
                                   _P, _P, _P, _P, _P, _I64, _P],
-        "tb_balance": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P],
+        "tb_balance": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
         "tb_digest": [_P, _P, _P, _I64, _P, _P],
         "tb_seq_transfers": [_P, _INT, _P, _INT, _I64, _P, _INT, _I64,
                              _P, _INT, _I64, _P, _INT, _I64, _I64, _I64,
@@ -279,7 +285,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                              _INT, _P, _INT, _P, _P, _P, _P],
         "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
         "tb_full_legs": [_P, _INT, _I64, _INT, ctypes.c_uint64, _INT, _P],
-        "tb_full_legs_apply": [_P, _I64, _P, _P, _P, _P, _P],
+        "tb_full_legs_apply": [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P],
         "tb_full_waves": [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_uint64,
                           _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
         "tb_full_pass": [_P, _INT, _INT, _INT, _I64, _I64, ctypes.c_uint64,
@@ -312,6 +318,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         "tb_vopr_step": [_I64, _INT, _INT, _INT, _INT, _P, _P, _P, _P],
         "tb_vopr_run": [ctypes.c_uint32, ctypes.c_uint32, _U64, _I64, _INT,
                         _INT, _INT, _P, _INT, _P, _P, _P, _P],
+        "tb_shard_gather": [_INT, ctypes.POINTER(ctypes.c_int64), _I64, _INT,
+                            _I64, _P, _P, _P, _INT, _P, _P, _I64, _P, _P,
+                            _I64, _I64, _P, _P, _I64, _P, _INT, _P],
+        "tb_shard_combine": [_P, _I64, _I64, _P, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -584,13 +594,15 @@ def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
 def balance(dr_slot, cr_slot, ok, amount_lo, pending,
             balance_cols: Sequence[torch.Tensor],
             scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            ) -> None:
+            slot_base: int = 0) -> None:
     """Kernel K4: adds every accepted transfer's amount to its debit and
     credit accounts' balance columns, in place.  ``balance_cols`` are the
     eight u64 columns debits_pending lo/hi, debits_posted lo/hi,
     credits_pending lo/hi, credits_posted lo/hi.  ``scratch``, preallocated
     (limbs int64[C * 8], taken int32[C]; zeroed here), serves a captured
-    graph."""
+    graph.  ``slot_base`` (one shard of a sharded ledger): the slots are
+    global, and only the legs in [slot_base, slot_base + C) apply, at
+    slot - slot_base."""
     lib = library()
     n = ok.numel()
     _check(dr_slot, torch.int64, n, "dr_slot")
@@ -615,8 +627,9 @@ def balance(dr_slot, cr_slot, ok, amount_lo, pending,
         taken.zero_()
     err = lib.tb_balance(
         dr_slot.data_ptr(), cr_slot.data_ptr(), ok.data_ptr(),
-        amount_lo.data_ptr(), pending.data_ptr(), n, limbs.data_ptr(),
-        taken.data_ptr(), _ptr_array(balance_cols), _stream(ok),
+        amount_lo.data_ptr(), pending.data_ptr(), n, slot_base, cap,
+        limbs.data_ptr(), taken.data_ptr(), _ptr_array(balance_cols),
+        _stream(ok),
     )
     _raise_on(err, "balance")
     KERNELS["balance"].launches += 1
@@ -992,9 +1005,12 @@ def full_legs(start_bal: Dict[str, torch.Tensor], cap_sentinel: int, ok,
 
 
 def full_legs_apply(gate, scat, s_slot, incl: Sequence[torch.Tensor],
-                    cols: Sequence[torch.Tensor]) -> None:
+                    cols: Sequence[torch.Tensor], slot_base: int = 0) -> None:
     """K10's apply launch: where ``gate`` (int32[1]) is 0, each run tail
-    (``scat``) writes its eight inclusive balance columns at its slot."""
+    (``scat``) writes its eight inclusive balance columns at its slot.
+    ``slot_base`` (one shard of a sharded ledger): the slots are global, and
+    only the tails in [slot_base, slot_base + C) write, at slot -
+    slot_base."""
     lib = library()
     n2 = scat.numel()
     _check(gate, torch.int32, 1, "gate")
@@ -1006,8 +1022,9 @@ def full_legs_apply(gate, scat, s_slot, incl: Sequence[torch.Tensor],
     for c in cols:
         _check(c, torch.int64, cap, "balance column")
     err = lib.tb_full_legs_apply(gate.data_ptr(), n2, scat.data_ptr(),
-                                 s_slot.data_ptr(), _ptr_array(incl),
-                                 _ptr_array(cols), _stream(scat))
+                                 s_slot.data_ptr(), slot_base, cap,
+                                 _ptr_array(incl), _ptr_array(cols),
+                                 _stream(scat))
     _raise_on(err, "full_legs")
     KERNELS["full_legs"].launches += 1
 
@@ -1759,3 +1776,80 @@ def vopr_run(seed_key: Tuple[int, int], start: int, count: int, n_steps: int,
     _raise_on(err, "vopr_run")
     KERNELS["vopr_run"].launches += 1
     return violated, out
+
+
+# -- K30 shard_gather, K31 shard_combine -------------------------------------------
+
+
+def shard_gather(tables: Sequence, shard_ids: Sequence[int], n_shards: int,
+                 key_lo, key_hi, names: Sequence[str], max_probe: int,
+                 count: int, mask: Optional[torch.Tensor], out: torch.Tensor,
+                 offset: int, ovf_index: int, want_overflow: bool) -> None:
+    """Kernel K30: for each local shard j (``tables[j]``, an ``ht.Table`` of
+    C/n slots, index ``shard_ids[j]`` in a mesh of ``n_shards``), writes
+    row j of ``out`` (int64[S, M], u64 bits) from ``offset``: found, the
+    global slot and the ``names`` columns (u32 zero-extended), each n lanes,
+    zero where j does not own the key or does not find it; and, when
+    ``want_overflow``, 1 at ``out[j, ovf_index]`` (zero on entry) if a
+    lane's local probe, owned or not, ran ``max_probe`` steps."""
+    lib = library()
+    nlocal = len(tables)
+    n = key_lo.numel()
+    _check(key_lo, torch.int64, n, "key_lo")
+    _check(key_hi, torch.int64, n, "key_hi")
+    if mask is not None:
+        _check(mask, torch.bool, n, "mask")
+    _check(out, torch.int64, None, "partial")
+    if out.dim() != 2 or out.shape[0] != nlocal:
+        raise ValueError("partial must be int64[local shards, M]")
+    m = out.shape[1]
+    if offset < 0 or offset + (2 + len(names)) * n > m or not (
+            0 <= ovf_index < m):
+        raise ValueError("partial too short for this gather")
+    if nlocal == 0:
+        return
+    cap = tables[0].capacity
+    klo, khi, tomb, cols = [], [], [], []
+    for t in tables:
+        _check(t.key_lo, torch.int64, cap, "table key_lo")
+        _check(t.key_hi, torch.int64, cap, "table key_hi")
+        _check(t.tombstone, torch.bool, cap, "table tombstone")
+        klo.append(t.key_lo)
+        khi.append(t.key_hi)
+        tomb.append(t.tombstone)
+        for name in names:
+            c = t.cols[name]
+            if c.dtype not in (torch.int64, torch.int32):
+                raise TypeError(f"column {name}: unsupported dtype {c.dtype}")
+            _check(c, c.dtype, cap, f"column {name}")
+            cols.append(c)
+    widths = (ctypes.c_int * max(1, len(names)))(
+        *[_width(tables[0].cols[name]) for name in names])
+    ids = (ctypes.c_int64 * nlocal)(*[int(s) for s in shard_ids])
+    base = out.data_ptr()
+    err = lib.tb_shard_gather(
+        nlocal, ids, n_shards, n_shards.bit_length() - 1, cap,
+        _ptr_array(klo), _ptr_array(khi), _ptr_array(tomb), len(names),
+        _ptr_array(cols), widths, max_probe, key_lo.data_ptr(),
+        key_hi.data_ptr(), n, count, None if mask is None else mask.data_ptr(),
+        base + 8 * offset, m, base + 8 * ovf_index, int(want_overflow),
+        _stream(key_lo),
+    )
+    _raise_on(err, "shard_gather")
+    KERNELS["shard_gather"].launches += 1
+
+
+def shard_combine(partial: torch.Tensor) -> torch.Tensor:
+    """Kernel K31: int64[M], the wrap-sum over dim 0 of an int64[S, M]
+    partial."""
+    lib = library()
+    _check(partial, torch.int64, None, "partial")
+    if partial.dim() != 2:
+        raise ValueError("partial must be int64[S, M]")
+    s, m = partial.shape
+    out = torch.empty(m, dtype=torch.int64, device=partial.device)
+    err = lib.tb_shard_combine(partial.data_ptr(), s, m, out.data_ptr(),
+                               _stream(partial))
+    _raise_on(err, "shard_combine")
+    KERNELS["shard_combine"].launches += 1
+    return out
