@@ -135,7 +135,7 @@ Phases, each printing one JSON line:
                 batches and at the end, 100 account and 100 transfer proofs
                 verify, one SDC flip detected and recovered (digest equal to
                 the twin's), one injected device fault recovered (codes
-                equal).  Cut to ``--commit-transfers`` (500,000) and a root
+                equal).  Cut to ``--commit-transfers`` (250,000) and a root
                 check every 20 batches (printed): the mirror is a Python
                 oracle.  K21-K23 timed here, and their launches read here.
  21. pipeline_kernels - the commit pipeline's kernels (``ops/group.py``):
@@ -166,7 +166,7 @@ Phases, each printing one JSON line:
                 main's; the submits under the sync debug mode "error"; the
                 device idle share from CUDA events around each lane
                 closure.  The pipeline kernels' launches are read from (a);
- 23. persistence - the commitments phase's Merkle-only machine (500,000
+ 23. persistence - the commitments phase's Merkle-only machine (250,000
                 transfers) through ``checkpoint_ledger``, ``host_state``,
                 ``vsr.checkpoint.save`` and ``load`` into a fresh machine on
                 the card: digest, roots, commitment root, lookups and host
@@ -207,23 +207,29 @@ Phases, each printing one JSON line:
                 credit accounts, ids half stored), the main phase's tables
                 (accounts 2^16, transfers 2^25 holding 10,000,000 rows) over
                 2, 4 and 8 shards, with and without the overflow words, a
-                lane mask; then each timed at 8 shards (K31 beside
-                ``torch.stack(partials).sum(0)``);
+                lane mask, the partials starting as garbage but for the
+                overflow words; then each timed at 8 shards (K31 beside
+                ``partial.sum(0)`` and ``torch.stack(partials).sum(0)``;
+                K30's bound the function's bytes, not the partial's);
  27. sharded  - bench.py's shard-sweep mix (``run_shard_sweep``: plain
                 batches, every fourth pair a pending batch and the batch
                 posting it) at the flagship's width (10,000 accounts, 8,190
                 events a batch, ``--sharded-transfers`` 2,000,000) through a
                 single-device machine and ``TorchStateMachine(shards=s)`` for
                 s = 2 and 8 over ``device.force_virtual(8, "cuda")``, Merkle
-                on: every batch's codes equal, then every table's rows
+                on, every machine from the default capacities, growing: every
+                batch's codes equal, then every table's rows
                 (sorted by key: where keys collided each machine's slots
                 follow its own insertion order, as in the JAX package), the
                 digest, the folded scrub lanes, and the maintained per-shard
                 Merkle roots against a fresh build; a
                 grouped and deferred 4-shard run (1,000,000 transfers) with
                 the blocking path's codes; a 2 -> 4 split while serving the
-                same batches, cut over to the 4-shard machine's state.  K30's
-                and K31's launches are read from the 2-shard run.
+                same batches (one after every migration step until the
+                cutover, at least two catch-up rounds), cut over to the
+                4-shard machine's state.  The launch counts are reset and
+                read around each of the four runs; K30's and K31's row takes
+                the 8-shard run's.
 Then a ``{"kernels": [...]}`` line (K1-K31, K2's claim and write entries
 and the grouped commit's replay), and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
@@ -3766,8 +3772,10 @@ def phase_tiered(dev, n_transfers: int) -> dict:
 # The commitments phase's depth and root-check cadence, cut from the
 # flagship's 2,000,000 transfers and a check every 100 batches: the paranoid
 # mode's host mirror (testing/model.py, a Python oracle) costs about 0.4 s
-# a batch, and its digests about 1 us a transfer at every check.
-COMMIT_TRANSFERS = 500_000
+# a batch, and its digests about 1 us a transfer at every check.  250,000
+# (31 batches: the SDC flip at 10, the fault at 20, root checks at 20 and
+# 31) keeps the whole script near 720 s with the sharding phases.
+COMMIT_TRANSFERS = 250_000
 ROOT_CHECK_EVERY = 20
 SCRUB_SIZES_LOG2 = (8, 15, 25)  # scrub_kernels' pad sizes
 
@@ -5336,13 +5344,7 @@ SHARDED_PATH = ("shard_gather", "shard_combine", "probe", "insert",
 SHARDED_TRANSFERS = 2_000_000  # each of the 2- and 8-shard machines
 SHARDED_GROUP_TRANSFERS = 1_000_000  # the grouped/deferred 4-shard machine
 SHARDED_SPLIT_AT = 40  # batches the 2 -> 4 split's machine commits first
-SHARDED_SPLIT_SERVE = 4  # batches it serves between migration steps
 SHARDED_SPLIT_CHUNK = 1 << 15  # rows a migration chunk
-# The sharded phase's tables, sized up front (sharded_machine): 2,000,000
-# transfers at load <= 0.5, and ~500,000 posts at the sharded machines'
-# posted target of twice the rows.
-SHARDED_TRANSFERS_LOG2 = 22
-SHARDED_POSTED_LOG2 = 21
 
 
 def shard_fill(rng, dev, n_shards: int, log2: int, col_specs, keys, rows):
@@ -5437,8 +5439,14 @@ def phase_shard_kernels(seed: int, dev) -> dict:
             (at, drlo, anames, None), (at, crlo, anames, mask),
             (xt, qlo, xnames, None))
         for want_overflow in (False, True):
-            got = torch.zeros(n_shards, m + 3, dtype=torch.int64, device=dev)
-            want = torch.zeros_like(got)
+            # K30 writes every lane of its rows (the path allocates the
+            # partial unzeroed): only the overflow words start at zero, and
+            # each side starts from its own garbage elsewhere.
+            got = torch.full((n_shards, m + 3), -1, dtype=torch.int64,
+                             device=dev)
+            want = torch.full_like(got, -2)
+            got[:, m:] = 0
+            want[:, m:] = 0
             for k, (tabs, lo, names, msk) in enumerate(launches):
                 _cuda.shard_gather(tabs, ids, n_shards, lo, qhi, names,
                                    sm.MAX_PROBE, COUNT, msk, got, offs[k],
@@ -5496,7 +5504,7 @@ def phase_shard_kernels(seed: int, dev) -> dict:
         # Timed at 8 shards: the transfers gather of the fast path (owner
         # probes only), K31 on the round's partial, and one shard's K4 and
         # K10 slot-base launches.
-        part = torch.zeros(n_shards, (2 + len(xnames)) * LANES + 1,
+        part = torch.empty(n_shards, (2 + len(xnames)) * LANES + 1,
                            dtype=torch.int64, device=dev)
 
         def k30():
@@ -5511,16 +5519,20 @@ def phase_shard_kernels(seed: int, dev) -> dict:
 
         n_nz = int((q != 0).sum())
         col_bytes = sum(xrows[c].element_size() for c in xnames)
-        # The keys; one probe window (17 B: key pair and tombstone) per
-        # lane at its owner; the found rows' columns; the partial written.
+        # What the gather needs, whatever the shard count: the keys read;
+        # one probe window (17 B: key pair and tombstone) a nonzero lane at
+        # its owner; the found rows' columns read; and the answer written
+        # once, a lane's found byte, global slot and columns at their
+        # widths.  The shards' zero rows of the partial are this design's,
+        # not the function's, and count for nothing.
         g_bytes = 16 * LANES + 17 * n_nz + n_found * col_bytes \
-            + part.numel() * 8
+            + LANES * (1 + 8 + col_bytes)
         with uncounted():
             t_k30 = timed(k30)
             t_k30p = timed(k30_plain, reps=5)
         out["shard_gather"] = dict(
             max_abs_err=0, **pair_times(t_k30, t_k30p), library_ms=None,
-            bound=bound(g_bytes, 30 * n_shards * LANES),
+            bound=bound(g_bytes, 30 * LANES),
             shape=f"{LANES} lanes ({n_found} found), transfers 2^"
                   f"{SHARD_TRANSFERS_LOG2} over {n_shards} shards holding "
                   f"{SHARD_FILL} rows, {len(xnames)} columns; checked over "
@@ -5534,15 +5546,17 @@ def phase_shard_kernels(seed: int, dev) -> dict:
             warm = timed(lambda: _cuda.shard_combine(got))
             k31 = cold_l2_ms(lambda: _cuda.shard_combine(got))
             k31p = cold_l2_ms(lambda: tmesh.shard_combine_plain(got))
-            lib = cold_l2_ms(lambda: torch.stack(parts).sum(0))
+            lib = cold_l2_ms(lambda: got.sum(0))
+            lib_stack = cold_l2_ms(lambda: torch.stack(parts).sum(0))
         out["shard_combine"] = dict(
             max_abs_err=0, ms=k31, plain_ms=k31p, warm_ms=warm["device_ms"],
             ms_from="cuda events, L2 flushed before each call",
-            library_ms=lib,
+            library_ms=lib, library_stack_ms=lib_stack,
             bound=bound(got.numel() * 8 + got.shape[1] * 8, got.numel()),
             shape=f"{n_shards} partials of {got.shape[1]} words (the fast "
                   "path's round: debit and credit accounts, ids); library: "
-                  "torch.stack(partials).sum(0)")
+                  "partial.sum(0), one call (library_stack_ms: "
+                  "torch.stack(partials).sum(0) from the shards' rows)")
         s = n_shards - 1
         n_ok = int(ok.sum())
         with uncounted():
@@ -5611,18 +5625,14 @@ def shard_sweep_batches(n_transfers: int) -> list:
 
 def sharded_machine(dev, shards: int):
     """A machine of ``shards`` (0: the single device) with 10,000 accounts,
-    its tables sized up front for the phase's transfers and posts, so that
-    no machine grows: a sharded machine sizes its posted table twice (per
-    shard, the reference's rule), and the canonical arrays compare only at
-    equal capacities.  Growth under shards is held against the JAX package
-    in tests/test_torch_sharded_machine.py."""
+    at the default capacities: its tables grow as the phase commits (under
+    shards, the host re-placement and each shard's peak floor; the posted
+    table at twice the rows)."""
     from tigerbeetle_tpu_torch import types
     from tigerbeetle_tpu_torch.config import LedgerConfig
     from tigerbeetle_tpu_torch.machine import TorchStateMachine
 
-    cfg = LedgerConfig(lazy_index=True,
-                       transfers_capacity_log2=SHARDED_TRANSFERS_LOG2,
-                       posted_capacity_log2=SHARDED_POSTED_LOG2)
+    cfg = LedgerConfig(lazy_index=True)
     m = TorchStateMachine(cfg, batch_lanes=LANES, device=dev, shards=shards)
     if m.shards != shards:
         raise AssertionError(f"sharded: asked {shards} shards, got {m.shards}")
@@ -5636,12 +5646,13 @@ def sharded_machine(dev, shards: int):
 
 def ledger_rows(m) -> dict:
     """The content of a machine's canonical ledger, layout aside: each
-    pad's live rows (every per-slot array) sorted by key, its count and
-    capacity, and the history log as it is.  Two machines that placed the
-    same rows in another insertion order (a single device, a mesh of
-    another shard count) hold them in other slots where keys collided:
-    the canonical view is canonical for a shard count, as the JAX
-    package's is."""
+    pad's live rows (every per-slot array) sorted by key, its count, and
+    the history log as it is.  Two machines that placed the same rows in
+    another insertion order (a single device, a mesh of another shard
+    count) hold them in other slots where keys collided: the canonical
+    view is canonical for a shard count, as the JAX package's is.  Nor is
+    the capacity content: a sharded machine grows its posted table at
+    twice the rows, and a shard's peak can grow a table early."""
     from tigerbeetle_tpu_torch.vsr import checkpoint as tck
 
     arrays = tck.ledger_to_arrays(m.checkpoint_ledger())
@@ -5654,7 +5665,6 @@ def ledger_rows(m) -> dict:
             if k.startswith(pad + "/") and v.shape == lo.shape:
                 out[k] = v[live][order]
         out[f"{pad}/count"] = arrays[f"{pad}/count"]
-        out[f"{pad}/capacity"] = np.array(len(lo))
     return out
 
 
@@ -5673,7 +5683,9 @@ def phase_sharded(dev, n_transfers: int, n_group: int) -> dict:
     against a single-device machine, batch by batch and at the end (the
     rows of every table, the digest, the scrub folds; the Merkle subtrees
     against a fresh build); a grouped and deferred 4-shard run; a 2 -> 4
-    split while serving."""
+    split while serving.  Every machine starts at the default capacities
+    and grows.  The launch counts are set to 0 before each of the four
+    runs and read after it."""
     import torch
     from tigerbeetle_tpu_torch import device as tdev
     from tigerbeetle_tpu_torch.ops import _cuda
@@ -5689,9 +5701,12 @@ def phase_sharded(dev, n_transfers: int, n_group: int) -> dict:
            / (time.perf_counter() - t0),
            "fails": sum(map(len, want))}
     single_fold = to_np(scrub_ops.scrub_digest(single.ledger))
+    out["single_capacities"] = [single.ledger.accounts.capacity,
+                                single.ledger.transfers.capacity,
+                                single.ledger.posted.capacity]
+    launches = {}
     tdev.force_virtual(8, dev)
     try:
-        launches = None
         for s in (2, 8):
             m = sharded_machine(dev, s)
             m.merkle_enabled = True
@@ -5700,17 +5715,15 @@ def phase_sharded(dev, n_transfers: int, n_group: int) -> dict:
             if not m.scrub_arm():
                 raise AssertionError("sharded: Merkle did not arm")
             m.warmup()
-            if s == 2:
-                _cuda.reset_counts()
             torch.cuda.synchronize()
+            _cuda.reset_counts()
             t0 = time.perf_counter()
             for j, b in enumerate(batches):
                 if m.create_transfers(b) != want[j]:
                     raise AssertionError(f"sharded {s}: batch {j} codes differ")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            if s == 2:
-                launches = _cuda.counts()
+            launches[f"shards_{s}"] = _cuda.counts()
             lanes = m._d2h_u64(m._shard_steps["scrub"](m.ledger))
             with np.errstate(over="ignore"):
                 folded = lanes.sum(axis=0, dtype=np.uint64)
@@ -5739,6 +5752,8 @@ def phase_sharded(dev, n_transfers: int, n_group: int) -> dict:
         g = sharded_machine(dev, 4)
         g.group_device_commit = True
         g.warmup()
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
         t0 = time.perf_counter()
         j = 0
         grouped = deferred = 0
@@ -5772,34 +5787,45 @@ def phase_sharded(dev, n_transfers: int, n_group: int) -> dict:
                     raise AssertionError(f"sharded grouped: post batch {j}")
                 j += 1
         torch.cuda.synchronize()
+        launches["grouped_4"] = _cuda.counts()
         out["grouped_4"] = {"batches": k_group, "grouped": grouped,
                             "deferred": deferred,
                             "tx_s": sum(len(b) for b in batches[:k_group])
-                            / (time.perf_counter() - t0)}
+                            / (time.perf_counter() - t0),
+                            "capacities": [g.ledger.accounts.capacity,
+                                           g.ledger.transfers.capacity,
+                                           g.ledger.posted.capacity]}
         # The 2 -> 4 split while serving the same batches; it must cut over
         # to the grouped 4-shard machine's state.
         live = sharded_machine(dev, 2)
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
         for b in range(SHARDED_SPLIT_AT):
             if live.create_transfers(batches[b]) != want[b]:
                 raise AssertionError(f"split: batch {b} before the split")
         t0 = time.perf_counter()
         if not live.reshard_begin(4, chunk_rows=SHARDED_SPLIT_CHUNK):
             raise AssertionError("split: refused")
-        # A batch served after each step of the first rounds, then the
-        # drain: every served batch dirties moved rows, which a catch-up
-        # round (a fresh snapshot and its trees) ships again.
+        # A batch served after every step while there are batches left:
+        # every served batch dirties moved rows, which a catch-up round (a
+        # fresh snapshot and its trees) ships again.
         served = SHARDED_SPLIT_AT
         while live.reshard_active:
             live.reshard_step(4)
-            if served < min(k_group, SHARDED_SPLIT_AT + SHARDED_SPLIT_SERVE):
+            if live.reshard_active and served < k_group:
                 if live.create_transfers(batches[served]) != want[served]:
                     raise AssertionError(f"split: batch {served} served")
                 served += 1
         for b in range(served, k_group):
             if live.create_transfers(batches[b]) != want[b]:
                 raise AssertionError(f"split: batch {b} after the cutover")
+        torch.cuda.synchronize()
+        launches["split_2_to_4"] = _cuda.counts()
         if live.shards != 4 or live.reshard_stats["splits_completed"] != 1:
             raise AssertionError(f"split: {live.reshard_stats}")
+        if live.reshard_stats["catchup_rounds"] < 2:
+            raise AssertionError("split: fewer than two catch-up rounds "
+                                 f"served through: {live.reshard_stats}")
         content_equal("split vs the 4-shard machine", live, g)
         out["split_2_to_4"] = {
             **live.reshard_stats, "served_during": served - SHARDED_SPLIT_AT,
@@ -6054,10 +6080,13 @@ def main() -> int:
                         min(SHARDED_GROUP_TRANSFERS, args.sharded_transfers))
     emit({"phase": "sharded", "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi, **shd})
-    missing = [k for k in SHARDED_PATH if shd["launches"][k] == 0]
-    if missing:
-        raise AssertionError(
-            f"kernels not launched on the sharded path: {missing}")
+    for run, names in (("shards_2", SHARDED_PATH), ("shards_8", SHARDED_PATH),
+                       ("grouped_4", ("shard_gather", "shard_combine")),
+                       ("split_2_to_4", ("shard_gather", "shard_combine"))):
+        missing = [k for k in names if shd["launches"][run][k] == 0]
+        if missing:
+            raise AssertionError(
+                f"kernels not launched on the sharded {run} run: {missing}")
 
     # max_abs_err: index_kernels' cases and the queries phase's full-size
     # comparisons (the deepest carried level, the rebuilt level, K15 over
@@ -6074,7 +6103,9 @@ def main() -> int:
     # bench twin's plain shape, K21-K23 from the commitments phase, K24,
     # K25 and the grouped commit's replays from the pipeline phase's
     # grouped runs, K29 from the vopr phase's scale run (b), K27 and K28
-    # from its step-locked route (e) (K29 runs their device functions).
+    # from its step-locked route (e) (K29 runs their device functions),
+    # K30 and K31 from the sharded phase's 8-shard run (their ms: 8 shards
+    # over the main phase's tables, ms_shape).
     paths = {name: ("main", launches) for name in MAIN_PATH}
     paths.update({name: ("sequential", seq_launches)
                   for name in ("seq_transfers", "seq_accounts")})
@@ -6093,7 +6124,8 @@ def main() -> int:
                   for name in ("group_dispatch", "group_step",
                                "group_finish")})
     paths["vopr_run"] = ("vopr (b), tools/vopr_scale.py's run", vo["launches_b"])
-    paths.update({name: ("sharded (2 shards)", shd["launches"])
+    paths.update({name: ("sharded (8 shards, tables grown from the "
+                         "defaults)", shd["launches"]["shards_8"])
                   for name in ("shard_gather", "shard_combine")})
     paths.update({name: ("vopr (e), the step-locked route", vo["launches_e"])
                   for name in ("vopr_draw", "vopr_step")})
@@ -6109,6 +6141,8 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "launches_path": path,
         })
+        if name in ("shard_gather", "shard_combine"):
+            rows[-1]["ms_shape"] = r["shape"]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -307,8 +307,11 @@ def test_shard_gather_plain_owner_miss_and_overflow():
     n = len(q)
     names = ("v", "w")
     for want_overflow in (False, True):
-        out = torch.zeros(n_shards, (2 + len(names)) * n + 1,
-                          dtype=torch.int64)
+        # Every lane of a shard's rows is written: only the overflow word
+        # starts at zero (GatherRound.run allocates no zeroed partial).
+        out = torch.full((n_shards, (2 + len(names)) * n + 1), -7,
+                         dtype=torch.int64)
+        out[:, -1] = 0
         tsh.shard_gather_plain(tables, range(n_shards), n_shards, lo, hi,
                                names, 4, n - 1, None, out, 0, out.shape[1] - 1,
                                want_overflow)

@@ -226,8 +226,11 @@ class GatherRound:
         m += len(self.requests)
         partials = []
         for g, (dev, shards) in enumerate(mesh.groups):
-            partial = torch.zeros(len(shards), m, dtype=torch.int64,
+            # K30 writes every lane of its rows; only the overflow words
+            # start at zero.
+            partial = torch.empty(len(shards), m, dtype=torch.int64,
                                   device=dev)
+            partial[:, ovf0:].zero_()
             for k, r in enumerate(self.requests):
                 lo, hi = r.keys[g]
                 count = lo.numel() if r.count is None else r.count
