@@ -8,7 +8,10 @@ Phases, each printing one JSON line:
   2. build    - builds the CUDA kernels from csrc/ (nvcc, sm_90a);
   3. kernels  - each kernel K1-K5 against its plain PyTorch version on the
                 same CUDA tensors at main-path shapes: outputs must be
-                byte-identical; times both;
+                byte-identical; times both; K4 also on carry-heavy balances
+                (a few units below 2^64), with every leg on one debit and
+                one credit account, and in its slot-base form over 2, 4 and
+                8 shards, and timed again on an accounts table of 2^21;
   4. parity   - TorchStateMachine on the card against the scalar oracle
                 (testing/model.py) on small seeded batches;
   5. main     - the main path at full size: 10,000 accounts, then 10,000,000
@@ -16,24 +19,29 @@ Phases, each printing one JSON line:
                 bench.py defaults), balances against a closed form, and the
                 digest against its plain version.  K1-K5's launch counts are
                 read from this phase;
-  6. seq_kernels - K6 seq_transfers, K7 seq_accounts and K8 tombstone
-                against their plain versions on the same inputs, byte for
-                byte: tables that hold rows, same-home clusters and
-                tombstones (made on the card through K2 and K8, whose
-                launches there are K8's count), batches of 2,048 lanes of
-                the testing/seqmix.py event mix; then K7 and K6 at the
-                sequential path's shapes (8,190 accounts, two-phase
-                batches), where they are timed and bounded.  The plain K6/K7
-                run on CPU copies (a Python loop over the events); plain K8
-                on the card;
+  6. seq_kernels - K6 seq_transfers (K32 seq_prepass, then the sequencer),
+                K32 alone, K7 seq_accounts and K8 tombstone against their
+                plain versions on the same inputs, byte for byte: tables
+                that hold rows, same-home clusters and tombstones (made on
+                the card through K2 and K8, whose launches there are K8's
+                count), batches of 2,048 lanes of the testing/seqmix.py
+                event mix; K32 and K6 on testing/seqtraps.py's three cases
+                at 8,190 events (ids re-used after rollbacks in clusters
+                the batch filled, pushed placements, pendings made and
+                posted in the batch with colliding posted keys, the probe
+                cap) against the split plain form; then K7, K32 and K6 at
+                the sequential path's shapes (8,190 accounts, two-phase
+                batches), where they are timed and bounded (K6's sequencer
+                alone and with K32).  The plain K6/K7/K32 run on CPU copies
+                (a Python loop over the events); plain K8 on the card;
   7. seq_parity - a force_sequential TorchStateMachine on the card against
                 the scalar oracle at full width (8,190 events per batch);
   8. sequential - the sequential path at full width: a force_sequential
                 machine, 10,000 accounts, then bench.py's --two-phase shape
                 (4,095 pendings and 4,095 posts of them per batch) for
                 ``--seq-transfers`` transfers (2,000,000: cut from
-                bench.py's 10,000,000 to keep the script near five minutes);
-                K6/K7's launch counts are read from this phase;
+                bench.py's 10,000,000 to keep the script near ten minutes);
+                K6/K7/K32's launch counts are read from this phase;
   9. full_kernels - the general kernel: K9 full_index, K10 full_legs, K12
                 full_waves against their plain versions on the card, byte
                 for byte, and create_transfers_full_impl (K1, K2's claim and
@@ -230,7 +238,7 @@ Phases, each printing one JSON line:
                 4-shard machine's state.  The launch counts are reset and
                 read around each of the four runs; K30's and K31's row takes
                 the 8-shard run's.
-Then a ``{"kernels": [...]}`` line (K1-K31, K2's claim and write entries
+Then a ``{"kernels": [...]}`` line (K1-K32, K2's claim and write entries
 and the grouped commit's replay), and as
 the last line ``{"ok": true, "device": {...}}``.  Any mismatch or exception exits non-zero
 before the last line is printed.  Imports nothing of JAX.
@@ -680,6 +688,7 @@ def transfer_batch(rng, n, count, existing_ids, existing_hi, linked_all=False):
 def phase_kernels(seed: int, dev) -> dict:
     import torch
     from tigerbeetle_tpu_torch import convert, types
+    from tigerbeetle_tpu_torch.ops import _cuda
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import state_machine as sm
 
@@ -858,6 +867,10 @@ def phase_kernels(seed: int, dev) -> dict:
     limbs = torch.stack([amt[tok] & 0xFFFFFFFF, (amt[tok] >> 32) & 0xFFFFFFFF],
                         1).repeat(2, 1)
     scratch = torch.zeros((acc.capacity, 2), dtype=torch.int64, device=dev)
+    errs = max(errs, balance_cases(rng, acc, ctx, tok, amt, pend))
+    big = balance_table_2e21(rng, acc, ctx, dev)
+    big_scratch = torch.zeros((big["cap"], 2), dtype=torch.int64, device=dev)
+    big_legs = torch.cat([big["dr"][tok], big["cr"][tok]])
     results["balance"] = dict(
         max_abs_err=errs,
         **pair_times(
@@ -869,9 +882,17 @@ def phase_kernels(seed: int, dev) -> dict:
                 setup=lambda: (clone_table(acc),))),
         library_ms=timed(lambda: scratch.index_add_(0, legs, limbs))["device_ms"],
         bound=bound(bal_bytes, 30 * n_ok),
+        ms_accounts_2e21=timed(lambda: _cuda.balance(
+            big["dr"], big["cr"], tok, amt, pend, big["cols"]))["device_ms"],
+        library_ms_accounts_2e21=timed(
+            lambda: big_scratch.index_add_(0, big_legs, limbs))["device_ms"],
         shape=f"{LANES} lanes ({n_ok} accepted, {touched} accounts touched), "
-              "accounts table 2^16; library: one index_add_ of the leg limbs",
+              "accounts table 2^16; library: one index_add_ of the leg limbs; "
+              "ms_accounts_2e21: the same legs spread over a 2^21-slot table; "
+              "checked: carry-heavy balances, one hot account, slot base over "
+              "2, 4 and 8 shards",
     )
+    del big, big_scratch
 
     # -- K5 digest -----------------------------------------------------------
     led = sm.Ledger(accounts=acc, transfers=xfr, posted=None, history=None)
@@ -892,6 +913,73 @@ def phase_kernels(seed: int, dev) -> dict:
     )
     torch.cuda.synchronize()
     return results
+
+
+def balance_cases(rng, acc, ctx, tok, amt, pend) -> int:
+    """K4 against its plain version, byte for byte, on the inputs the fast
+    path gives it with the balances set a few units below 2^64 (most legs
+    carry into the hi word), with every leg on one debit and one credit
+    account (warp aggregation), and in its slot-base form over 2, 4 and 8
+    shards on the carry-heavy balances."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+
+    carry = clone_table(acc)
+    for c in sm.BALANCE_COLS:
+        if c.endswith("_lo"):
+            carry.cols[c].copy_(t64(np.uint64((1 << 64) - 1) - rng.integers(
+                0, 64, acc.capacity, dtype=np.uint64), acc.key_lo.device))
+    hot_dr = torch.full_like(ctx.dr_slot, int(ctx.dr_slot[tok][0]))
+    hot_cr = torch.full_like(ctx.cr_slot, int(ctx.cr_slot[tok][0]))
+    if int(hot_dr[0]) == int(hot_cr[0]):
+        hot_cr = torch.full_like(ctx.cr_slot, int(ctx.cr_slot[tok][1]))
+    errs = 0
+    for what, base, dr, cr in (("carry-heavy", carry, ctx.dr_slot, ctx.cr_slot),
+                               ("one hot account", acc, hot_dr, hot_cr),
+                               ("hot and carry-heavy", carry, hot_dr, hot_cr)):
+        k, p = clone_table(base), clone_table(base)
+        sm.apply_balances(k, dr, cr, tok, amt, pend)
+        sm.apply_balance_plan(p, sm.balance_plan(dr, cr, tok, amt, pend,
+                                                 p.capacity))
+        errs = max(errs, max_abs_err(f"balance ({what})", table_np(k),
+                                     table_np(p)))
+    cap = acc.capacity
+    for n_shards in (2, 4, 8):
+        local = cap // n_shards
+        for s in range(n_shards):
+            part = {c: v[s * local:(s + 1) * local].clone()
+                    for c, v in carry.cols.items() if c in sm.BALANCE_COLS}
+            k = ht.Table(carry.key_lo[:local].clone(),
+                         carry.key_hi[:local].clone(),
+                         carry.tombstone[:local].clone(), part,
+                         carry.count.clone(), carry.probe_overflow.clone())
+            p = clone_table(k)
+            tsh.apply_balances_local(k, ctx.dr_slot, ctx.cr_slot, tok, amt,
+                                     pend, s * local, cap)
+            tsh.apply_balances_local_plain(p, ctx.dr_slot, ctx.cr_slot, tok,
+                                           amt, pend, s * local, cap)
+            errs = max(errs, max_abs_err(
+                f"balance (slot base, shard {s} of {n_shards})", table_np(k),
+                table_np(p)))
+    return errs
+
+
+def balance_table_2e21(rng, acc, ctx, dev) -> dict:
+    """The timed legs' accounts spread over a table of 2^21 slots (each
+    touched slot of the 2^16 table mapped to its own random slot), with
+    the eight balance columns: K4's time there shows whether it grows with
+    the accounts capacity."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    cap = 1 << 21
+    perm = torch.from_numpy(rng.permutation(cap)[:acc.capacity]).to(dev)
+    cols = [torch.from_numpy(rand_u64(rng, cap, 1 << 60).view(np.int64)).to(dev)
+            for _ in sm.BALANCE_COLS]
+    return {"cap": cap, "dr": perm[ctx.dr_slot], "cr": perm[ctx.cr_slot],
+            "cols": cols}
 
 
 def transfer_ctx(acc, xfr, soa, ht, sm):
@@ -1146,7 +1234,8 @@ def phase_main(dev, n_transfers: int, snapshot_batches: int = 0) -> dict:
 SEQ_LANES = 2048
 SEQ_ACCOUNTS = 400  # accounts the transfer mix draws from
 MAIN_PATH = ("probe", "insert", "validate", "balance", "digest")
-SEQ_PATH = ("probe", "insert", "digest", "seq_transfers", "seq_accounts")
+SEQ_PATH = ("probe", "insert", "digest", "seq_prepass", "seq_transfers",
+            "seq_accounts")
 
 
 class PlainTrace:
@@ -1309,6 +1398,16 @@ class SeqPair:
 
         before = clone_ledger(self.gpu)
         sg, sc = self.soa(batch, self.gpu.device), self.soa(batch, "cpu")
+        pre = {}
+        if op == "create_transfers_seq":  # K32 against its plain version
+            t0 = time.perf_counter()
+            pp = tsp.seq_prepass_plain(self.cpu, sc, len(batch), ts)
+            pre["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            pk = tsp.seq_prepass(self.gpu, sg, len(batch), ts)
+            pre["err"] = max_abs_err(f"seq_prepass at ts {ts}",
+                                     {k: to_np(v) for k, v in pk.items()},
+                                     {k: to_np(v) for k, v in pp.items()})
+            pre["bytes"] = prepass_bytes(self.cpu, sc, len(batch), pp)
         _, kc, kov = getattr(tsp, op)(self.gpu, sg, len(batch), ts)
         with PlainTrace() as trace:
             t0 = time.perf_counter()
@@ -1330,7 +1429,72 @@ class SeqPair:
             "bytes": in_bytes + 4 * self.lanes + trace.table_bytes(),
             "chain_per_event": 1 + (trace.steps + trace.gathers) / len(batch),
             "probe_steps": trace.steps, "row_gathers": trace.gathers,
+            "prepass": pre,
         }
+
+
+def prepass_bytes(led, soa, count: int, pre) -> int:
+    """What K32's function must move at least on this batch: the active
+    events' batch columns, read once; 17 B (key and tombstone) for each
+    slot its probes visit (ids and pending ids in the transfers table, the
+    legs' account ids in the accounts table, the posted keys in the posted
+    table; a candidate's legs are its creator's, found without a probe);
+    the rows it gathers, at their columns' widths (a pending's, an existing
+    transfer's, a found leg's flags and ledger, a posted row's value); the
+    balances of each distinct account once; and its answers at their own
+    widths: an active event's bits (2 B), static code (1 B), id group (2 B)
+    and id slot and step (4 + 2 B); a post or void's pending slot and group
+    (4 + 2 B); a leg's slot and dense index (4 + 2 B); a posted key's slot,
+    step and group (4 + 2 + 2 B); a distinct account's slot (4 B).  Not
+    counted: the record's copy of the event's columns, its unused words,
+    the inactive lanes' records and the dense arrays' unused entries, which
+    are this design's layout and not the function's work."""
+    from tigerbeetle_tpu_torch.ops import scan_path as tsp
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    rec = to_np(pre["rec"])[:count]
+    bits = rec[:, tsp.R["bits"]]
+
+    def has(b):
+        return (bits & np.uint64(b)) != 0
+
+    xnp, anp, pnp = table_np(led.transfers), table_np(led.accounts), table_np(led.posted)
+    postvoid = (rec[:, tsp.R["v_flags"]] & np.uint64(tsp.TF_POST | tsp.TF_VOID)) != 0
+    steps = probe_steps(xnp, rec[:, tsp.R["v_id_lo"]], rec[:, tsp.R["v_id_hi"]],
+                        led.transfers.capacity, tsp.MAX_PROBE)
+    steps += probe_steps(xnp, rec[postvoid, tsp.R["v_pending_lo"]],
+                         rec[postvoid, tsp.R["v_pending_hi"]],
+                         led.transfers.capacity, tsp.MAX_PROBE)
+    probed = has(tsp.RB_LEGS) & ~has(tsp.RB_PCAND)
+    for side in ("dr", "cr"):
+        steps += probe_steps(anp, np.where(postvoid, rec[:, tsp.R["p_" + side + "_lo"]],
+                                           rec[:, tsp.R["v_" + side + "_lo"]])[probed],
+                             np.where(postvoid, rec[:, tsp.R["p_" + side + "_hi"]],
+                                      rec[:, tsp.R["v_" + side + "_hi"]])[probed],
+                             led.accounts.capacity, tsp.MAX_PROBE)
+    keyed = has(tsp.RB_KKEY)
+    steps += probe_steps(pnp, rec[keyed, tsp.R["key"]],
+                         np.zeros(int(keyed.sum()), np.uint64),
+                         led.posted.capacity, tsp.MAX_PROBE)
+
+    def width(table, spec):
+        return sum(table.cols[c].element_size() for _f, col, high in spec
+                   for c in (col, high) if c is not None)
+
+    leg_width = sum(led.accounts.cols[c].element_size() for c in ("flags", "ledger"))
+    legs_found = int((has(tsp.RB_DRF) & probed).sum() + (has(tsp.RB_CRF) & probed).sum())
+    gathered = (int(has(tsp.RB_PFOUND).sum()) * width(led.transfers, tsp._REC_P)
+                + int(has(tsp.RB_EFOUND).sum()) * width(led.transfers, tsp._REC_E)
+                + legs_found * leg_width
+                + int(has(tsp.RB_KFOUND).sum()) * led.posted.cols["fulfillment"].element_size())
+    accounts = int((to_np(pre["dslot"]) != -1).sum())
+    balances = accounts * sum(led.accounts.cols[c].element_size()
+                              for c in sm.BALANCE_COLS)
+    answers = (count * (2 + 1 + 2 + 4 + 2) + int(postvoid.sum()) * (4 + 2)
+               + int(has(tsp.RB_LEGS).sum()) * 2 * (4 + 2)
+               + int(keyed.sum()) * (4 + 2 + 2) + accounts * 4)
+    batch_bytes = sum(c.element_size() for c in soa.values()) * count
+    return batch_bytes + 17 * steps + gathered + balances + answers
 
 
 def seq_timing(r: dict, reps: int = 10) -> dict:
@@ -1348,13 +1512,70 @@ def seq_timing(r: dict, reps: int = 10) -> dict:
             "events": r["count"]}
 
 
+def sequencer_timing(r: dict, whole_ms: float, prepass_ms: float,
+                     reps: int = 10) -> dict:
+    """K6's sequencer launch alone on the batch of run ``r``: the
+    profiler's device time of ``seq_transfers_kernel`` over calls of the
+    path's K6 (K32, then the sequencer), each on a copy of the ledger as it
+    was before that batch, made before the profiled window; a window in
+    which the profiler recorded no sequencer launch is taken again, longer.
+    If it records none again, K6's time less K32's (``whole_ms``,
+    ``prepass_ms``, both by CUDA events), and the result says so."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tigerbeetle_tpu_torch.ops import scan_path as tsp
+
+    def run(led):
+        tsp.create_transfers_seq(led, r["soa"], r["count"], r["ts"])
+
+    run(clone_ledger(r["before"]))
+    for n in (reps, 3 * reps):
+        ledgers = [clone_ledger(r["before"]) for _ in range(n)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for led in ledgers:
+                run(led)
+            torch.cuda.synchronize()
+        us = calls = 0
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.key.startswith("seq_transfers_kernel")):
+                us += e.self_device_time_total
+                calls += e.count
+        del ledgers
+        if calls:
+            return {"device_ms": us / 1e3 / calls,
+                    "from": f"profiler, seq_transfers_kernel ({calls} of "
+                            f"{n} launches recorded)"}
+    return {"device_ms": whole_ms - prepass_ms,
+            "from": "K6 less K32, CUDA events (the profiler recorded no "
+                    "sequencer launch)"}
+
+
+def mixed_times(r: dict) -> dict:
+    """K6 on a mixed batch, with its sequencer alone."""
+    whole = seq_timing(r)
+    seq = sequencer_timing(r, whole["ms"], prepass_timing(r)["device_ms"])
+    return dict(whole, sequencer_ms=seq["device_ms"], sequencer_ms_from=seq["from"])
+
+
+def prepass_timing(r: dict) -> dict:
+    """K32 alone on the batch of run ``r`` (it only reads the ledger)."""
+    from tigerbeetle_tpu_torch.ops import scan_path as tsp
+
+    return timed(lambda: tsp.seq_prepass(r["before"], r["soa"], r["count"],
+                                         r["ts"]))
+
+
 def phase_seq_kernels(seed: int, dev) -> dict:
     import torch
-    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch import convert, types
     from tigerbeetle_tpu_torch.ops import _cuda
     from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import scan_path as tsp
     from tigerbeetle_tpu_torch.ops import state_machine as sm
-    from tigerbeetle_tpu_torch.testing import seqmix
+    from tigerbeetle_tpu_torch.testing import seqmix, seqtraps
     from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
 
     rng = np.random.default_rng(seed + 2)
@@ -1401,19 +1622,76 @@ def phase_seq_kernels(seed: int, dev) -> dict:
     if path.codes_seen != {0}:
         raise AssertionError(f"seq_kernels: path codes {path.codes_seen}")
 
+    # -- the split form's traps at 8,190 events (testing/seqtraps.py): K32
+    #    and K6 on the card against the split plain form on CPU copies --
+    traps = {}
+    for trap in seqtraps.TRAPS:
+        case = seqtraps.trap_case(trap, COUNT, dev)
+        gled = case["ledger"]
+        cled = clone_ledger(gled, "cpu")
+        sg = convert.batch_to_tensors(case["batch"], LANES, dev)
+        sc = convert.batch_to_tensors(case["batch"], LANES, "cpu")
+        count, ts = case["count"], case["ts"]
+        pk = tsp.seq_prepass(gled, sg, count, ts)
+        pp = tsp.seq_prepass_plain(cled, sc, count, ts)
+        perr = max_abs_err(f"seq_prepass ({trap})",
+                           {k: to_np(v) for k, v in pk.items()},
+                           {k: to_np(v) for k, v in pp.items()})
+        _, kc, kov = tsp.create_transfers_seq(gled, sg, count, ts)
+        _, pc, pov = tsp.create_transfers_seq_split_plain(cled, sc, count, ts)
+        err = max_abs_err(f"seq_transfers ({trap})",
+                          {"codes": to_np(kc), "overflow": to_np(kov),
+                           **ledger_np(gled)},
+                          {"codes": to_np(pc), "overflow": to_np(pov),
+                           **ledger_np(cled)})
+        if bool(kov) != (trap == "probe_cap"):
+            raise AssertionError(f"seq_kernels: {trap} overflow {bool(kov)}")
+        traps[trap] = {"events": count, "prepass_err": perr, "err": err,
+                       "overflow": bool(kov),
+                       "codes": sorted(set(to_np(kc)[:count].tolist()))}
+        del case, gled, cled
+
     results = {}
-    for name, runs, at_path in (("seq_accounts", acc_runs, path_acc),
-                                ("seq_transfers", tr_runs, path_tr[1])):
-        row = seq_timing(at_path)
-        results[name] = dict(
-            max_abs_err=max(x["err"] for x in runs + [at_path]),
-            ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
-            plain_where="cpu (Python loop over the events, host wall ms)",
-            library_ms=None, bound=row["bound"],
-            chain_per_event=row["chain_per_event"],
-            shape=f"{row['events']} events of the sequential path's shape",
-            mixed_2048=seq_timing(runs[1]),
-        )
+    row = seq_timing(path_acc)
+    results["seq_accounts"] = dict(
+        max_abs_err=max(x["err"] for x in acc_runs + [path_acc]),
+        ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
+        plain_where="cpu (Python loop over the events, host wall ms)",
+        library_ms=None, bound=row["bound"],
+        chain_per_event=row["chain_per_event"],
+        shape=f"{row['events']} events of the sequential path's shape",
+        mixed_2048=seq_timing(acc_runs[1]),
+    )
+    at_path = path_tr[1]
+    whole = seq_timing(at_path)
+    pre = prepass_timing(at_path)
+    seq = sequencer_timing(at_path, whole["ms"], pre["device_ms"])
+    results["seq_transfers"] = dict(
+        max_abs_err=max([x["err"] for x in tr_runs + [at_path]]
+                        + [t["err"] for t in traps.values()]),
+        ms=seq["device_ms"], call_ms=whole["call_ms"],
+        ms_with_prepass=whole["ms"], plain_ms=whole["plain_ms"],
+        plain_where="cpu (the serial plain loop over the events, host wall ms)",
+        library_ms=None, bound=whole["bound"],
+        chain_per_event=whole["chain_per_event"],
+        ms_from=seq["from"],
+        shape=f"{whole['events']} events of the sequential path's shape; ms: "
+              "the sequencer launch alone; ms_with_prepass and call_ms: K32 "
+              "and the sequencer, as the path calls them",
+        mixed_2048=mixed_times(tr_runs[1]),
+        traps=traps,
+    )
+    results["seq_prepass"] = dict(
+        max_abs_err=max([x["prepass"]["err"] for x in tr_runs + [at_path]]
+                        + [t["prepass_err"] for t in traps.values()]),
+        ms=pre["device_ms"], call_ms=pre["call_ms"],
+        plain_ms=at_path["prepass"]["plain_ms"],
+        plain_where="cpu (vectorized probes, Python joins; host wall ms)",
+        library_ms=None, bound=bound(at_path["prepass"]["bytes"], 0),
+        shape=f"{at_path['count']} events of the sequential path's shape "
+              "(three launches: probe, join, link)",
+        mixed_2048_ms=prepass_timing(tr_runs[1])["device_ms"],
+    )
 
     # -- K8: random slots (some out of range, some repeated), some invalid --
     xfr = gpu.transfers
@@ -4671,11 +4949,9 @@ def phase_pipeline_kernels(seed: int, dev, kern: dict) -> dict:
     ak, ag = clone_table(acc), clone_table(acc)
     sm.apply_balances(ak, ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"],
                       pend)
-    s.limbs.fill_(-1)  # the wrapper zeroes its scratch
     _cuda.balance(ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"], pend,
-                  [ag.cols[c] for c in sm.BALANCE_COLS],
-                  scratch=(s.limbs, s.taken))
-    forms["balance"] = max_abs_err("K4 on preallocated scratch",
+                  [ag.cols[c] for c in sm.BALANCE_COLS])
+    forms["balance"] = max_abs_err("K4 as the graph launches it (no scratch)",
                                    table_np(ag), table_np(ak))
     rows = sm.transfer_rows(soa, c0, t0_)
     iscratch = (s.claimed, s.claim0, s.claim1, s.cnt)
@@ -4707,8 +4983,7 @@ def phase_pipeline_kernels(seed: int, dev, kern: dict) -> dict:
         "balance": pair_times(
             timed(lambda t: _cuda.balance(
                 ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"], pend,
-                [t.cols[c] for c in sm.BALANCE_COLS],
-                scratch=(s.limbs, s.taken)),
+                [t.cols[c] for c in sm.BALANCE_COLS]),
                 setup=lambda: (clone_table(acc),)),
             timed(lambda t: sm.apply_balance_plan(t, sm.balance_plan(
                 ctx.dr_slot, ctx.cr_slot, ko, soa["amount_lo"], pend,
@@ -5840,9 +6115,10 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--transfers", type=int, default=10_000_000)
-    # Cut from bench.py's --two-phase size (10,000,000, under a minute on one
-    # H100 at K6's ~34 ms per 8,190-event batch) to keep the whole script
-    # near five minutes; the general path's two phases run bench.py's size.
+    # Cut from bench.py's --two-phase size (10,000,000) to keep the whole
+    # script near ten minutes and the path's rate comparable with the
+    # earlier runs' at this depth; the general path's two phases run
+    # bench.py's size.
     p.add_argument("--seq-transfers", type=int, default=2_000_000)
     # bench.py's depth for the general path's two full-size shapes.
     p.add_argument("--full-transfers", type=int, default=10_000_000)
@@ -6095,7 +6371,7 @@ def main() -> int:
         kern[name]["max_abs_err"] = max(idxk["results"][name]["max_abs_err"], err)
 
     # Each kernel's launches come from the path it serves: K1-K5 from the
-    # main path, K6/K7 from the sequential path, K8 from making the tables
+    # main path, K6/K7/K32 from the sequential path, K8 from making the tables
     # of seq_kernels (its device function runs inside K6/K7's rollbacks),
     # K9-K12 and K2's claim/write entries from the general path's two-phase
     # run (the limits run launched each of them too), K13-K16 from the
@@ -6108,7 +6384,7 @@ def main() -> int:
     # over the main phase's tables, ms_shape).
     paths = {name: ("main", launches) for name in MAIN_PATH}
     paths.update({name: ("sequential", seq_launches)
-                  for name in ("seq_transfers", "seq_accounts")})
+                  for name in ("seq_prepass", "seq_transfers", "seq_accounts")})
     paths["tombstone"] = ("seq_kernels tables", seqk["prep_launches"])
     paths.update({name: ("full_twophase", full_launches["twophase"])
                   for name in FULL_PATH if name != "probe"})
@@ -6143,6 +6419,10 @@ def main() -> int:
         })
         if name in ("shard_gather", "shard_combine"):
             rows[-1]["ms_shape"] = r["shape"]
+        for key in ("ms_accounts_2e21", "library_ms_accounts_2e21",
+                    "ms_with_prepass"):
+            if key in r:
+                rows[-1][key] = r[key]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

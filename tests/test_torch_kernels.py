@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K31 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K32 against their plain PyTorch versions
 on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere;
 this file imports no JAX, so it runs on a machine without it:
 
@@ -181,6 +181,69 @@ def _padded_soa(batch, lanes, dev):
     return convert.soa_to_tensors(types.to_soa(padded), dev)
 
 
+def _prepass_equal(gpu, cpu, batch, lanes, ts, dev):
+    """K32 on the card ledger and its plain version on the CPU copy: every
+    record word, dense balance and dense slot."""
+    k = sp.seq_prepass(gpu, _padded_soa(batch, lanes, dev), len(batch), ts)
+    p = sp.seq_prepass_plain(cpu, _padded_soa(batch, lanes, "cpu"), len(batch),
+                             ts)
+    for name in ("rec", "bal", "dslot"):
+        assert torch.equal(k[name].cpu(), p[name]), name
+
+
+def _ledgers_equal(got, want, what):
+    got, want = convert.ledger_to_numpy(got), convert.ledger_to_numpy(want)
+    for name in want:
+        for k, v in want[name].items():
+            if k == "cols":
+                for c in v:
+                    np.testing.assert_array_equal(got[name]["cols"][c], v[c],
+                                                  err_msg=f"{what} {name}/{c}")
+            else:
+                np.testing.assert_array_equal(got[name][k], v,
+                                              err_msg=f"{what} {name}/{k}")
+
+
+@pytest.mark.parametrize("trap", ["cluster_reuse", "posted_collisions",
+                                  "join_collisions", "probe_cap"])
+def test_sequential_traps_on_card_match_split_plain(cuda_device, trap):
+    """testing/seqtraps.py's cases, where K32's pre-batch answers go stale
+    inside the batch: K32 and K6 on the card against the split plain form
+    (pre-pass, then sequencer) on the CPU, byte for byte."""
+    from tigerbeetle_tpu_torch.testing import seqtraps
+
+    lanes = 2048
+    case = seqtraps.trap_case(trap, lanes, cuda_device)
+    gpu = case["ledger"]
+    cpu = convert.ledger_from_numpy(convert.ledger_to_numpy(gpu), "cpu")
+    batch, count, ts = case["batch"], case["count"], case["ts"]
+    _prepass_equal(gpu, cpu, batch, lanes, ts, cuda_device)
+    _, kc, kov = sp.create_transfers_seq(
+        gpu, _padded_soa(batch, lanes, cuda_device), count, ts)
+    _, pc, pov = sp.create_transfers_seq_split_plain(
+        cpu, _padded_soa(batch, lanes, "cpu"), count, ts)
+    assert torch.equal(kc.cpu(), pc)
+    assert bool(kov) == bool(pov) == (trap == "probe_cap")
+    _ledgers_equal(gpu, cpu, trap)
+
+
+def test_sequential_transfers_refuse_a_batch_wider_than_the_overlay(cuda_device):
+    """K6's sequencer holds SEQ_MAX_N events: a wider batch raises before
+    any launch and leaves the ledger as it was."""
+    lanes = _cuda.SEQ_MAX_N + 1
+    gpu = sm.make_ledger(1 << 10, 1 << 11, 1 << 10, 1 << 10, device=cuda_device)
+    before = convert.ledger_to_numpy(gpu)
+    launches = _cuda.counts()
+    batch = types.transfers_array([types.transfer(
+        id=1, debit_account_id=1, credit_account_id=2, amount=1, ledger=1,
+        code=1)])
+    with pytest.raises(_cuda.CudaKernelError, match="lanes"):
+        sp.create_transfers_seq(gpu, _padded_soa(batch, lanes, cuda_device), 1,
+                                10 ** 9)
+    assert _cuda.counts() == launches
+    _ledgers_equal(gpu, convert.ledger_from_numpy(before, "cpu"), "refused")
+
+
 def test_sequential_kernels_on_card_match_plain_on_cpu(cuda_device):
     """K7 and K6 on the card and their plain versions on the CPU, batch by
     batch from the same ledger: the same codes, the same overflow flag and
@@ -197,6 +260,8 @@ def test_sequential_kernels_on_card_match_plain_on_cpu(cuda_device):
               for b in range(4)]
     steps += [("create_transfers_seq", mix.batch(lanes), (1 << 64) - 10 ** 10)]
     for op, batch, ts in steps:
+        if op == "create_transfers_seq":  # K32 against its plain version
+            _prepass_equal(gpu, cpu, batch, lanes, ts, cuda_device)
         _, kc, kov = getattr(sp, op)(gpu, _padded_soa(batch, lanes, cuda_device),
                                      len(batch), ts)
         _, pc, pov = getattr(sp, op)(cpu, _padded_soa(batch, lanes, "cpu"),
@@ -1073,11 +1138,8 @@ def test_device_word_forms_match_host_int_forms(cuda_device):
         pend = (soa["flags"] & sm.TF_PENDING) != 0
         sm.apply_balances(ref.accounts, dr.slot, cr.slot, ko,
                           soa["amount_lo"], pend)
-        s.limbs.fill_(-1)  # the wrapper zeroes its scratch
-        s.taken.fill_(-1)
         _cuda.balance(dr.slot, cr.slot, ko, soa["amount_lo"], pend,
-                      [got.accounts.cols[n] for n in sm.BALANCE_COLS],
-                      scratch=(s.limbs, s.taken))
+                      [got.accounts.cols[n] for n in sm.BALANCE_COLS])
         rows = sm.transfer_rows(soa, c, t)
         ck = ht.insert(xr, soa["id_lo"], soa["id_hi"], ko, rows,
                        sm.MAX_PROBE)[1]
@@ -1407,6 +1469,71 @@ def test_balance_and_legs_apply_slot_base_match_plain(cuda_device):
                                s_slot.cpu(),
                                {c: v.cpu() for c, v in incl.items()},
                                s * local)
+            tables_equal(table_to(got, "cpu"), want)
+
+
+def _balance_inputs(rng, case, n, cap, dev):
+    """K4's inputs: legs over ``cap`` slots, amounts below 2^64 (P3)."""
+    dr = rng.integers(0, cap, n)
+    cr = (dr + 1 + rng.integers(0, cap - 1, n)) % cap
+    if case == "hot":  # every leg on one debit and one credit account
+        dr[:], cr[:] = 7, 9
+    amt = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(dev)
+            for a in (dr, cr, amt)] + [
+        torch.from_numpy(rng.random(n) < 0.9).to(dev),
+        torch.from_numpy(rng.random(n) < 0.3).to(dev)]
+
+
+@pytest.mark.parametrize("case", ["carry", "hot"])
+def test_balance_carries_and_hot_accounts_match_plain(cuda_device, case):
+    """K4 (one launch of 64-bit atomics, wraps carried into the hi word,
+    warp-aggregated on hot words) against the plain plan, byte for byte:
+    balances a few units below 2^64 so most legs carry, and a batch whose
+    legs all hit one debit and one credit account; the slot-base form over
+    2, 4 and 8 shards on the same inputs."""
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+
+    rng = np.random.default_rng(12)
+    n, cap = 8190, 1 << 12
+    dr, cr, amt, ok, pend = _balance_inputs(rng, case, n, cap, cuda_device)
+    start = {}
+    for c in sm.BALANCE_COLS:
+        if c.endswith("_lo"):
+            v = np.uint64((1 << 64) - 1) - rng.integers(0, 63, cap,
+                                                        dtype=np.uint64)
+        else:
+            v = rng.integers(0, 1 << 40, cap, dtype=np.uint64)
+        start[c] = torch.from_numpy(v.view(np.int64)).to(cuda_device)
+
+    def table(local):
+        z = torch.zeros(local, dtype=torch.int64, device=cuda_device)
+        return ht.Table(z, z.clone(), torch.zeros(local, dtype=torch.bool,
+                                                  device=cuda_device),
+                        {}, torch.zeros((), dtype=torch.int64,
+                                        device=cuda_device),
+                        torch.zeros((), dtype=torch.bool, device=cuda_device))
+
+    got = table(cap)
+    got.cols.update({c: v.clone() for c, v in start.items()})
+    want = table_to(got, "cpu")
+    sm.apply_balances(got, dr, cr, ok, amt, pend)
+    sm.apply_balances(want, dr.cpu(), cr.cpu(), ok.cpu(), amt.cpu(),
+                      pend.cpu())
+    tables_equal(table_to(got, "cpu"), want)
+    carried = (got.cols["debits_posted_hi"] != start["debits_posted_hi"])
+    assert int(carried.sum()) >= (1 if case == "hot" else 100)
+    for n_shards in (2, 4, 8):
+        local = cap // n_shards
+        for s in range(n_shards):
+            got = table(local)
+            got.cols.update({c: v[s * local:(s + 1) * local].clone()
+                             for c, v in start.items()})
+            want = table_to(got, "cpu")
+            tsh.apply_balances_local(got, dr, cr, ok, amt, pend, s * local,
+                                     cap)
+            tsh.apply_balances_local(want, dr.cpu(), cr.cpu(), ok.cpu(),
+                                     amt.cpu(), pend.cpu(), s * local, cap)
             tables_equal(table_to(got, "cpu"), want)
 
 

@@ -298,3 +298,51 @@ def test_ledger_round_trip_is_lossless():
     arrays = convert.ledger_arrays(p.j)
     back = convert.ledger_to_numpy(convert.ledger_from_numpy(arrays, CPU))
     assert_ledgers_equal(arrays, back)
+
+
+@pytest.mark.parametrize("case", ["carry", "hot"])
+def test_balance_plan_carries_and_hot_account_match_jax(case):
+    """K4's plain version (``apply_balances`` on CPU tensors) against JAX's
+    ``balance_plan`` + ``apply_balance_plan``: balances a few units below
+    2^64 so that most legs carry into the hi word, and a batch whose legs
+    all hit one debit and one credit account (K4's warp-aggregated case)."""
+    from tigerbeetle_tpu.ops import hash_table as jht
+    from tigerbeetle_tpu_torch.ops import hash_table as tht
+
+    rng = np.random.default_rng(21)
+    n, cap = 2048, 1 << 10
+    dr = rng.integers(0, cap, n).astype(np.uint64)
+    cr = ((dr + 1 + rng.integers(0, cap - 1, n).astype(np.uint64))
+          % np.uint64(cap))
+    if case == "hot":
+        dr[:], cr[:] = 3, 5
+    amt = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    ok = rng.random(n) < 0.9
+    pend = rng.random(n) < 0.3
+    cols = {}
+    for c in tsm.BALANCE_COLS:
+        if c.endswith("_lo"):
+            cols[c] = (np.uint64((1 << 64) - 1)
+                       - rng.integers(0, 64, cap, dtype=np.uint64))
+        else:
+            cols[c] = rng.integers(0, 1 << 40, cap, dtype=np.uint64)
+    jt = jht.make_table(cap, {c: jnp.uint64 for c in cols})
+    jt = jt.replace(cols={c: jnp.asarray(v) for c, v in cols.items()})
+    jt = jsm.apply_balance_plan(jt, jsm.balance_plan(
+        jnp.asarray(dr), jnp.asarray(cr), jnp.asarray(ok), jnp.asarray(amt),
+        jnp.asarray(pend), cap))
+    tt = tht.make_table(cap, {c: torch.int64 for c in cols}, CPU)
+    for c, v in cols.items():
+        tt.cols[c].copy_(convert.array_to_tensor(v, CPU))
+
+    def t64(a):
+        return convert.array_to_tensor(a, CPU)
+
+    tsm.apply_balances(tt, t64(dr), t64(cr), torch.from_numpy(ok), t64(amt),
+                       torch.from_numpy(pend))
+    for c in cols:
+        np.testing.assert_array_equal(convert.tensor_to_array(tt.cols[c]),
+                                      np.asarray(jt.cols[c]), err_msg=c)
+    hi = convert.tensor_to_array(tt.cols["debits_posted_hi"])
+    assert int((hi != cols["debits_posted_hi"]).sum()) >= (
+        1 if case == "hot" else 100)

@@ -1,5 +1,5 @@
-// K6 seq_transfers and K7 seq_accounts: the sequential commit path, one
-// launch per batch.
+// K6 seq_transfers (with its pre-pass K32 seq_prepass) and K7 seq_accounts:
+// the sequential commit path.
 //
 // Replaces tigerbeetle_tpu/ops/scan_path.py:187 `create_transfers_seq` (with
 // :307 `_transfer_logic`, :552 `_apply_transfer`, :629
@@ -10,8 +10,7 @@
 //
 // The semantics are serial: every event sees the writes of the events
 // before it (a post of a pending transfer made earlier in the batch, an id
-// re-used after a rollback).  So one thread runs the whole batch in event
-// order, exactly as the JAX lax.scan does:
+// re-used after a rollback), exactly as the JAX lax.scan runs them:
 //  - the event's probes and row gathers (accounts by debit and credit id,
 //    transfers by id and by pending id, posted by the pending's timestamp);
 //  - the precedence ladders in the JAX order (regular path, post/void path,
@@ -32,22 +31,91 @@
 // 0, and so does this kernel, but it also sets the `overflow` word, which
 // the machine reads with the codes and raises on.
 //
-// What bounds it on the H100: latency.  The bytes are small (a few hundred
-// per event), but each event is a chain of dependent reads: the event's
-// columns, then each probe step (home slot, then the next while the slot
-// holds another key), then the row gathers, then the writes the next event
-// may read.  With L2 hits at ~0.2-0.3 us and device-memory misses at
-// ~0.5-0.8 us, 8-10 dependent reads per event give 15-60 ms per 8,190-event
-// batch.  The design takes the simplest form that is right (one thread, no
-// cross-thread ordering to get wrong); overlapping the independent probes of
-// one event, or prefetching the next event, is later work.
+// K6 is two steps, so that the probes leave the serial chain.
+//
+// 1. K32, the pre-pass, one thread an event on every SM, three launches:
+//    probe every event's id, pending id, accounts and posted key against
+//    the tables as they were before the batch, gather the rows found, and
+//    write one 512-B record an event (SeqRecField); join the batch with
+//    itself through a hash in device memory (ids to their lowest event,
+//    account slots to their lowest leg, posted keys to their lowest
+//    occurrence; keys compared in full, so the join is exact), which gives
+//    each distinct account slot a dense index and
+//    each post or void of a pending the batch creates that event's columns
+//    as its candidate row; copy each dense account's balances.
+// 2. The sequencer, one block: lane 0 of warp 0 walks the events in order;
+//    eight stager warps copy the records of the next SEQ_D events into a
+//    ring in shared memory (cp.async, mbarriers a slot) and with them the
+//    few words the batch itself may have changed: the legs' dense balances
+//    and the key and tombstone words at the pre-batch free slots, read from
+//    L2 once the effects of event e - SEQ_D are stored.  The sequencer
+//    trusts a pre-batch answer only where the batch cannot have changed it,
+//    and the overlay says where it did:
+//    - accounts never move within a transfers batch: the slots, flags and
+//      ledgers of the record hold, and the ladder's checks that read only
+//      them and the event come precomputed (R_SCODE); the balances are the
+//      staged copy unless an event of the window (e - SEQ_D, e) wrote them
+//      (forwarded from its request in the ring) or a rollback ran there
+//      (read back from device memory);
+//    - a key found before the batch stays where it was (K6 never moves or
+//      removes a row stored before the batch); a key not found is found now
+//      only if an event of its id group inserted it and no rollback
+//      tombstoned it since (ins_last, ins_slot's live bit); its row is the
+//      candidate's columns (a pending this batch created) or is read from
+//      the table (any other in-batch row);
+//    - the posted row of a pending likewise, through the posted-key groups;
+//    - an insert goes to the pre-batch free slot if that slot is still
+//      truly empty (its staged words, and no insert there in the window:
+//      recent_t / recent_p), else the walk goes on from it through the table
+//      in device memory.
+//    The sequencer writes no device memory on the fast path: each event's
+//    decisions go into its ring slot's request, and a writer warp composes
+//    the rows from the request and the record and stores them, in event
+//    order; the slot's `empty` barrier then says every effect of the events
+//    up to it is stored, which is what a stager waits for and what the
+//    sequencer waits for (flush_before) before it reads device memory on a
+//    slow path.  Only a linked event's undo record is written: a rollback
+//    reads the records of a chain, whose events are all linked.
+//    What the pre-pass could not foresee is walked in device memory, never
+//    guessed: a pending row inserted by another event of its group than the
+//    candidate (its record and row read back), a posted insert whose key no
+//    group holds (every later posted lookup then walks the table).  A
+//    capped insert writes slot 0, which may hold a row the records refer
+//    to: the sequencer writes the dense balances back and runs the rest of
+//    the batch in serial mode, the one-thread loop this kernel always had
+//    (serial_event).  The entry point refuses a batch wider than the
+//    overlay (SEQ_MAX_N, the machine's default lanes) and a transfers or
+//    posted table of more than 2^30 slots (the overlay's 32-bit slot words
+//    keep two flag bits; a transfers table of 2^30 slots of over 100 B does
+//    not fit on an 80 GB card).
+//    Where each piece lives: the ring (records, staged words, requests),
+//    the window's inserted slots, the id and posted-key groups' latest
+//    inserters, the inserted slots with their live bits, the last writer of
+//    each dense account and the raw codes in shared memory (about 160 KB at
+//    SEQ_MAX_N = 8,192); the records, the dense balances and the undo log in
+//    device memory, L2-resident (4 MB, 1 MB and 1.5 MB at 8,192 events),
+//    because 16,384 dense accounts of 64 B do not fit one SM.  After the
+//    walk the block writes the dense balances back and the final codes out.
+//
+// What bounds it on the H100: the sequencer's one thread.  With no device
+// memory on its chain (the stagers and the writer keep ahead of it), an
+// event costs about 3,300 SM cycles of its own dependent shared-memory
+// loads and integer work (the overlay's lookups, the ladder's u128 checks,
+// the request): 13.6 ms for 8,190 events of the sequential path's two-phase
+// shape on an H100 80GB HBM3 at 700 W.  K32 is bound by its probes' random
+// reads, in parallel.
 #include "common.cuh"
+#include "seq_sync.cuh"
 #include "tombstone.cuh"
 
 #define SEQ_MAX_PROBE 4096  // ops/state_machine.py MAX_PROBE
 #define SEQ_SENT (1ull << 63)
 #define NS_PER_S 1000000000ull
-#define UNDO_WORDS 21  // acc slots 2, old balances 2 x 8, tr, posted, hist
+#define UNDO_WORDS 23  // acc slots 2, old balances 2 x 8, tr, posted, hist,
+                       // the legs' dense indices 2
+#define SEQ_NONE (~0ull)  // no group, no dense index
+#define SEQ_MAX_N 8192    // the largest batch the sequencer's overlay holds
+#define SEQ_MAX_SLOTS (1ll << 30)  // the largest transfers or posted table
 
 typedef unsigned __int128 u128;
 
@@ -97,6 +165,45 @@ enum HistoryCol {
   H_TIMESTAMP,
   H_N
 };
+
+// K32's record of one event (u64 words; must match
+// tigerbeetle_tpu_torch/ops/scan_path.py SEQ_REC_FIELDS, a CPU test
+// compares).  The pre-batch answers of its probes, the rows they found, the
+// joins within the batch and the event's own columns.  Two u32 fields share
+// a word where the name says so (the first in the low half).
+enum SeqRecField {
+  R_BITS, R_ID_GRP, R_PEND_GRP, R_KGRP,
+  R_ESLOT, R_ET, R_PSLOT,
+  R_DR_SLOT, R_CR_SLOT, R_DR_DENSE, R_CR_DENSE, R_DR_FL, R_CR_FL,
+  R_KEY, R_KSLOT, R_KT, R_KVAL,
+  R_P_FLAGS_TIMEOUT, R_P_LEDGER_CODE, R_P_UD32, R_P_TS, R_P_UD64,
+  R_P_UD128_LO, R_P_UD128_HI, R_P_AMOUNT_LO, R_P_AMOUNT_HI,
+  R_P_DR_LO, R_P_DR_HI, R_P_CR_LO, R_P_CR_HI,
+  R_E_FLAGS_TIMEOUT, R_E_CODE_UD32, R_E_DR_LO, R_E_DR_HI, R_E_CR_LO,
+  R_E_CR_HI, R_E_AMOUNT_LO, R_E_AMOUNT_HI, R_E_PENDING_LO, R_E_PENDING_HI,
+  R_E_UD128_LO, R_E_UD128_HI, R_E_UD64,
+  R_V_ID_LO, R_V_ID_HI, R_V_DR_LO, R_V_DR_HI, R_V_CR_LO, R_V_CR_HI,
+  R_V_AMOUNT_LO, R_V_AMOUNT_HI, R_V_PENDING_LO, R_V_PENDING_HI,
+  R_V_UD128_LO, R_V_UD128_HI, R_V_UD64, R_V_UD32_TIMEOUT, R_V_LEDGER_CODE,
+  R_V_FLAGS, R_V_TIMESTAMP,
+  R_SCODE,  // the ladder's first code that reads no state the batch changes
+  R_N
+};
+#define REC_WORDS 64  // R_N rounded up: 512 B, 32 copies of 16 B
+
+// R_BITS (scan_path.py SEQ_REC_BITS).
+#define RB_ACTIVE 1ull     // the event is in the batch (e < count)
+#define RB_EFOUND 2ull     // its id was stored before the batch (at R_ESLOT)
+#define RB_ECAP 4ull       // its id's probe found no empty slot (MAX_PROBE)
+#define RB_PFOUND 8ull     // its pending was stored before the batch
+#define RB_PCAND 16ull     // the P row is the pending the batch creates
+#define RB_PCLAMP 32ull    // ... with a balancing flag: its amount may be clamped
+#define RB_LEGS 64ull      // the account legs R_DR_* / R_CR_* hold
+#define RB_DRF 128ull      // the debit account exists (else slot 0)
+#define RB_CRF 256ull      // the credit account exists
+#define RB_KKEY 512ull     // R_KEY holds a posted key probed before the batch
+#define RB_KFOUND 1024ull  // ... found (R_KVAL its fulfillment)
+#define RB_KCAP 2048ull    // ... whose probe found no empty slot
 
 // Account flags (tigerbeetle.zig:42-57) and transfer flags (:107-120).
 #define AF_LINKED 1u
@@ -175,18 +282,52 @@ static __device__ bool probe_key(const DevTable& T, uint64_t lo, uint64_t hi,
   return false;
 }
 
+// The first truly empty slot of a probe sequence from step t0 on (0 with
+// *capped set when none is left within MAX_PROBE steps).
+static __device__ uint64_t free_from(const DevTable& T, uint64_t home,
+                                     uint64_t t0, bool* capped) {
+  for (uint64_t t = t0; t < SEQ_MAX_PROBE; ++t) {
+    const uint64_t cur = (home + t) & T.mask;
+    if (!T.tomb[cur] && T.key_lo[cur] == 0 && T.key_hi[cur] == 0) {
+      *capped = false;
+      return cur;
+    }
+  }
+  *capped = true;
+  return 0;
+}
+
 // _sprobe_free alone (for a key that is present and is inserted again,
 // which only a posted row whose fulfillment is neither 1 nor 2 allows).
 static __device__ uint64_t sprobe_free(const DevTable& T, uint64_t lo,
                                        uint64_t hi, bool* capped) {
+  return free_from(T, mix64(lo, hi) & T.mask, 0, capped);
+}
+
+// The pre-pass's probe: probe_key's walk, with the step it ended at.
+// Returns whether the key was found; *slot is its slot, else the first truly
+// empty slot (0 when capped); *t the step (SEQ_MAX_PROBE when capped).
+static __device__ bool probe_full(const DevTable& T, uint64_t lo, uint64_t hi,
+                                  uint64_t* slot, uint64_t* t_end,
+                                  bool* capped) {
+  const bool null = lo == 0 && hi == 0;
   const uint64_t home = mix64(lo, hi) & T.mask;
   *capped = false;
   for (int t = 0; t < SEQ_MAX_PROBE; ++t) {
     const uint64_t cur = (home + (uint64_t)t) & T.mask;
-    if (!T.tomb[cur] && T.key_lo[cur] == 0 && T.key_hi[cur] == 0) return cur;
+    if (T.tomb[cur]) continue;
+    const uint64_t a = T.key_lo[cur], b = T.key_hi[cur];
+    const bool empty = a == 0 && b == 0;
+    if (empty || (!null && a == lo && b == hi)) {
+      *slot = cur;
+      *t_end = (uint64_t)t;
+      return !empty;
+    }
   }
+  *slot = 0;
+  *t_end = SEQ_MAX_PROBE;
   *capped = true;
-  return 0;
+  return false;
 }
 
 // _set_row's key part: the key, no tombstone, count + 1 (the columns are
@@ -281,7 +422,599 @@ static __device__ void chain_codes(int32_t* codes, const uint32_t* flags,
 }
 
 // ---------------------------------------------------------------------------
-// K6 seq_transfers
+// One event's inputs and the two ladders, shared by the sequencer's fast
+// mode and its serial mode
+// ---------------------------------------------------------------------------
+
+struct Ev {  // one event's columns
+  uint64_t id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi, amt_lo, amt_hi, pend_lo,
+      pend_hi, ud128_lo, ud128_hi, ud64, ts;
+  uint32_t ud32, timeout, ledger, code, flags;
+};
+
+struct Row {  // the fields of a stored transfer the ladders read
+  uint32_t flags, timeout, ledger, code, ud32;
+  uint64_t ts, ud64, ud128_lo, ud128_hi;
+  u128 amount, dr_id, cr_id, pending_id;
+};
+
+struct Acct {  // an account the event operates on
+  bool found;
+  uint64_t slot;  // 0 where not found (as probe_key leaves it)
+  uint32_t flags, ledger;
+  Bal b;  // zero where not found
+};
+
+struct Gathered {
+  bool p_found;  // the pending transfer (post/void only)
+  Row p;
+  Acct dr, cr;
+  bool e_found;  // a stored transfer with the event's id
+  Row e;
+  bool posted_found;  // the posted row keyed by the pending's timestamp
+  uint32_t posted_val;
+};
+
+static __device__ Row row_at(const DevTable& X, uint64_t s) {
+  Row r;
+  r.flags = C32(X, TT_FLAGS)[s];
+  r.timeout = C32(X, TT_TIMEOUT)[s];
+  r.ledger = C32(X, TT_LEDGER)[s];
+  r.code = C32(X, TT_CODE)[s];
+  r.ud32 = C32(X, TT_USER_DATA_32)[s];
+  r.ts = C64(X, TT_TIMESTAMP)[s];
+  r.ud64 = C64(X, TT_USER_DATA_64)[s];
+  r.ud128_lo = C64(X, TT_USER_DATA_128_LO)[s];
+  r.ud128_hi = C64(X, TT_USER_DATA_128_HI)[s];
+  r.amount = mk128(C64(X, TT_AMOUNT_LO)[s], C64(X, TT_AMOUNT_HI)[s]);
+  r.dr_id = mk128(C64(X, TT_DEBIT_ACCOUNT_ID_LO)[s], C64(X, TT_DEBIT_ACCOUNT_ID_HI)[s]);
+  r.cr_id = mk128(C64(X, TT_CREDIT_ACCOUNT_ID_LO)[s], C64(X, TT_CREDIT_ACCOUNT_ID_HI)[s]);
+  r.pending_id = mk128(C64(X, TT_PENDING_ID_LO)[s], C64(X, TT_PENDING_ID_HI)[s]);
+  return r;
+}
+
+// The precedence ladders (state_machine.zig:1239-1368 create_transfer,
+// :1391-1498 post_or_void_pending_transfer), in two parts.  static_code:
+// the checks that read only the event and whether its accounts exist and
+// their ledgers, none of which a transfers batch changes (K32 evaluates
+// them into R_SCODE); 0 where all pass.
+static __device__ uint32_t static_code(const Ev& v, bool dr_found,
+                                       bool cr_found, uint32_t dr_ledger,
+                                       uint32_t cr_ledger) {
+  const uint32_t flags = v.flags;
+  const u128 tid = mk128(v.id_lo, v.id_hi);
+  const bool post = flags & TF_POST, void_ = flags & TF_VOID;
+  const bool pending_f = flags & TF_PENDING;
+  const bool bal_dr = flags & TF_BALANCING_DEBIT;
+  const bool bal_cr = flags & TF_BALANCING_CREDIT;
+  const u128 t_amount = mk128(v.amt_lo, v.amt_hi);
+  const u128 pend_id = mk128(v.pend_lo, v.pend_hi);
+  const u128 t_dr_id = mk128(v.dr_lo, v.dr_hi);
+  const u128 t_cr_id = mk128(v.cr_lo, v.cr_hi);
+  if (flags & TF_PADDING) return 4;
+  if (tid == 0) return 5;
+  if (tid == U128_MAX) return 6;
+  if (!(post || void_)) {
+    if (t_dr_id == 0) return 8;
+    if (t_dr_id == U128_MAX) return 9;
+    if (t_cr_id == 0) return 10;
+    if (t_cr_id == U128_MAX) return 11;
+    if (t_dr_id == t_cr_id) return 12;
+    if (pend_id != 0) return 13;
+    if (!pending_f && v.timeout != 0) return 17;
+    if (!bal_dr && !bal_cr && t_amount == 0) return 18;
+    if (v.ledger == 0) return 19;
+    if (v.code == 0) return 20;
+    if (!dr_found) return 21;
+    if (!cr_found) return 22;
+    if (dr_ledger != cr_ledger) return 23;
+    if (v.ledger != dr_ledger) return 24;
+    return 0;
+  }
+  if (post && void_) return 7;
+  if (pending_f || bal_dr || bal_cr) return 7;
+  if (pend_id == 0) return 14;
+  if (pend_id == U128_MAX) return 15;
+  if (pend_id == tid) return 16;
+  if (v.timeout != 0) return 17;
+  return 0;
+}
+
+// The rest of the ladders, for an event static_code passed, over its
+// gathered inputs: the code, and in *eff the amount an accepted event
+// applies.  Each check runs only when the ones before it passed.
+static __device__ uint32_t dynamic_code(const Ev& v, uint64_t ev_ts,
+                                        const Gathered& g, u128* eff) {
+  const uint32_t flags = v.flags;
+  const bool post = flags & TF_POST, void_ = flags & TF_VOID;
+  const bool pending_f = flags & TF_PENDING;
+  const bool bal_dr = flags & TF_BALANCING_DEBIT;
+  const bool bal_cr = flags & TF_BALANCING_CREDIT;
+  const u128 t_amount = mk128(v.amt_lo, v.amt_hi);
+  const u128 pend_id = mk128(v.pend_lo, v.pend_hi);
+  const u128 t_dr_id = mk128(v.dr_lo, v.dr_hi);
+  const u128 t_cr_id = mk128(v.cr_lo, v.cr_hi);
+  const Row& e = g.e;
+  const Row& p = g.p;
+  *eff = 0;
+
+  if (!(post || void_)) {
+    if (g.e_found) {
+      // create_transfer_exists (state_machine.zig:1370-1389).
+      if (flags != e.flags) return 36;
+      if (t_dr_id != e.dr_id) return 37;
+      if (t_cr_id != e.cr_id) return 38;
+      if (t_amount != e.amount) return 39;
+      if (pend_id != e.pending_id) return 40;
+      if (v.ud128_lo != e.ud128_lo || v.ud128_hi != e.ud128_hi) return 41;
+      if (v.ud64 != e.ud64) return 42;
+      if (v.ud32 != e.ud32) return 43;
+      if (v.timeout != e.timeout) return 44;
+      if (v.code != e.code) return 45;
+      return 46;
+    }
+    const Bal& drb = g.dr.b;
+    const Bal& crb = g.cr.b;
+    u128 amount = t_amount;
+    if (bal_dr || bal_cr) {  // the balancing clamps (:1286-1306)
+      const u128 amount0 = t_amount == 0 ? (u128)~0ull : t_amount;
+      const u128 amount1 =
+          bal_dr ? min128(amount0, sub_saturate(drb.cpo, drb.dpo + drb.dp)) : amount0;
+      if (bal_dr && amount1 == 0) return 54;
+      amount = bal_cr ? min128(amount1, sub_saturate(crb.dpo, crb.cpo + crb.cp)) : amount1;
+      if (bal_cr && amount == 0) return 55;
+    }
+    if (pending_f && add_overflows(amount, drb.dp)) return 47;
+    if (pending_f && add_overflows(amount, crb.cp)) return 48;
+    if (add_overflows(amount, drb.dpo)) return 49;
+    if (add_overflows(amount, crb.cpo)) return 50;
+    const u128 dr_total = drb.dp + drb.dpo;
+    const u128 cr_total = crb.cp + crb.cpo;
+    if (add_overflows(amount, dr_total)) return 51;
+    if (add_overflows(amount, cr_total)) return 52;
+    if (ev_ts + (uint64_t)v.timeout * NS_PER_S < ev_ts) return 53;
+    if ((g.dr.flags & AF_DEBITS_MUST_NOT_EXCEED_CREDITS) && dr_total + amount > drb.cpo)
+      return 54;
+    if ((g.cr.flags & AF_CREDITS_MUST_NOT_EXCEED_DEBITS) && cr_total + amount > crb.dpo)
+      return 55;
+    *eff = amount;
+    return 0;
+  }
+  if (!g.p_found) return 25;
+  if (!(p.flags & TF_PENDING)) return 26;
+  if (t_dr_id != 0 && t_dr_id != p.dr_id) return 27;
+  if (t_cr_id != 0 && t_cr_id != p.cr_id) return 28;
+  if (v.ledger != 0 && v.ledger != p.ledger) return 29;
+  if (v.code != 0 && v.code != p.code) return 30;
+  const u128 pv_amount = t_amount != 0 ? t_amount : p.amount;
+  if (pv_amount > p.amount) return 31;
+  if (void_ && pv_amount < p.amount) return 32;
+  if (g.e_found) {
+    // post_or_void_pending_transfer_exists (state_machine.zig:1500-1561): a
+    // zero field of the event compares the stored row with the pending
+    // transfer instead.
+    if (flags != e.flags) return 36;
+    if (t_amount == 0 ? e.amount != p.amount : t_amount != e.amount) return 39;
+    if (pend_id != e.pending_id) return 40;
+    if ((v.ud128_lo == 0 && v.ud128_hi == 0)
+            ? (e.ud128_lo != p.ud128_lo || e.ud128_hi != p.ud128_hi)
+            : (v.ud128_lo != e.ud128_lo || v.ud128_hi != e.ud128_hi))
+      return 41;
+    if (v.ud64 == 0 ? e.ud64 != p.ud64 : v.ud64 != e.ud64) return 42;
+    if (v.ud32 == 0 ? e.ud32 != p.ud32 : v.ud32 != e.ud32) return 43;
+    return 46;
+  }
+  if (g.posted_found && g.posted_val == 1) return 33;
+  if (g.posted_found && g.posted_val == 2) return 34;
+  if (p.timeout != 0 && ev_ts >= p.ts + (uint64_t)p.timeout * NS_PER_S) return 35;
+  *eff = pv_amount;
+  return 0;
+}
+
+// Both parts: the whole ladder.
+static __device__ uint32_t ladder(const Ev& v, uint64_t ev_ts,
+                                  const Gathered& g, u128* eff) {
+  *eff = 0;
+  const uint32_t c = static_code(v, g.dr.found, g.cr.found, g.dr.ledger, g.cr.ledger);
+  return c ? c : dynamic_code(v, ev_ts, g, eff);
+}
+
+// The new balances of an accepted event (state_machine.zig:1330-1338,
+// :1481-1491).
+static __device__ void new_balances(const Ev& v, const Gathered& g, u128 eff,
+                                    Bal* ndr, Bal* ncr) {
+  const bool post = v.flags & TF_POST;
+  const bool postvoid = post || (v.flags & TF_VOID);
+  *ndr = g.dr.b;
+  *ncr = g.cr.b;
+  if (postvoid) {
+    // Release pending; a post adds posted.
+    const u128 posted_amt = post ? eff : (u128)0;
+    ndr->dp = g.dr.b.dp - g.p.amount;
+    ndr->dpo = g.dr.b.dpo + posted_amt;
+    ncr->cp = g.cr.b.cp - g.p.amount;
+    ncr->cpo = g.cr.b.cpo + posted_amt;
+  } else if (v.flags & TF_PENDING) {
+    ndr->dp = g.dr.b.dp + eff;
+    ncr->cp = g.cr.b.cp + eff;
+  } else {
+    ndr->dpo = g.dr.b.dpo + eff;
+    ncr->cpo = g.cr.b.cpo + eff;
+  }
+}
+
+// The transfer row an accepted event stores at slot s (the key and count
+// are the caller's).
+static __device__ void write_row(const DevTable& X, uint64_t s, const Ev& v,
+                                 const Gathered& g, u128 eff, uint64_t ev_ts) {
+  const bool postvoid = v.flags & (TF_POST | TF_VOID);
+  const Row& p = g.p;
+  const u128 row_dr = postvoid ? p.dr_id : mk128(v.dr_lo, v.dr_hi);
+  const u128 row_cr = postvoid ? p.cr_id : mk128(v.cr_lo, v.cr_hi);
+  const bool ud128_zero = v.ud128_lo == 0 && v.ud128_hi == 0;
+  C64(X, TT_DEBIT_ACCOUNT_ID_LO)[s] = lo64(row_dr);
+  C64(X, TT_DEBIT_ACCOUNT_ID_HI)[s] = hi64(row_dr);
+  C64(X, TT_CREDIT_ACCOUNT_ID_LO)[s] = lo64(row_cr);
+  C64(X, TT_CREDIT_ACCOUNT_ID_HI)[s] = hi64(row_cr);
+  C64(X, TT_AMOUNT_LO)[s] = lo64(eff);
+  C64(X, TT_AMOUNT_HI)[s] = hi64(eff);
+  C64(X, TT_PENDING_ID_LO)[s] = v.pend_lo;
+  C64(X, TT_PENDING_ID_HI)[s] = v.pend_hi;
+  C64(X, TT_USER_DATA_128_LO)[s] = (postvoid && ud128_zero) ? p.ud128_lo : v.ud128_lo;
+  C64(X, TT_USER_DATA_128_HI)[s] = (postvoid && ud128_zero) ? p.ud128_hi : v.ud128_hi;
+  C64(X, TT_USER_DATA_64)[s] = (postvoid && v.ud64 == 0) ? p.ud64 : v.ud64;
+  C32(X, TT_USER_DATA_32)[s] = (postvoid && v.ud32 == 0) ? p.ud32 : v.ud32;
+  C32(X, TT_TIMEOUT)[s] = postvoid ? 0u : v.timeout;
+  C32(X, TT_LEDGER)[s] = postvoid ? p.ledger : v.ledger;
+  C32(X, TT_CODE)[s] = postvoid ? p.code : v.code;
+  C32(X, TT_FLAGS)[s] = v.flags;
+  C64(X, TT_TIMESTAMP)[s] = ev_ts;
+}
+
+// History append (state_machine.zig:1342-1364): a side without the flag
+// stays zero.  The host grows the log first; a row past the capacity would
+// be dropped while count still advances.
+static __device__ void write_history(uint64_t* const* hist, int64_t hist_cap,
+                                     long long h, const Gathered& g,
+                                     const u128 ids[2], const uint64_t* w,
+                                     const uint64_t* wc, uint64_t ev_ts) {
+  if (h >= hist_cap) return;
+  const bool on[2] = {(g.dr.flags & AF_HISTORY) != 0, (g.cr.flags & AF_HISTORY) != 0};
+  const uint64_t* words[2] = {w, wc};
+  for (int side = 0; side < 2; ++side) {
+    const int base = side * 10;
+    hist[base + 0][h] = on[side] ? lo64(ids[side]) : 0;
+    hist[base + 1][h] = on[side] ? hi64(ids[side]) : 0;
+    for (int k = 0; k < 8; ++k) hist[base + 2 + k][h] = on[side] ? words[side][k] : 0;
+  }
+  hist[H_TIMESTAMP][h] = ev_ts;
+}
+
+// ---------------------------------------------------------------------------
+// K32 seq_prepass: the pre-batch probes of every event, in parallel
+// ---------------------------------------------------------------------------
+
+// An event's columns from its K32 record.
+static __device__ void ev_from_rec(const uint64_t* r, Ev* v) {
+  v->id_lo = r[R_V_ID_LO];
+  v->id_hi = r[R_V_ID_HI];
+  v->dr_lo = r[R_V_DR_LO];
+  v->dr_hi = r[R_V_DR_HI];
+  v->cr_lo = r[R_V_CR_LO];
+  v->cr_hi = r[R_V_CR_HI];
+  v->amt_lo = r[R_V_AMOUNT_LO];
+  v->amt_hi = r[R_V_AMOUNT_HI];
+  v->pend_lo = r[R_V_PENDING_LO];
+  v->pend_hi = r[R_V_PENDING_HI];
+  v->ud128_lo = r[R_V_UD128_LO];
+  v->ud128_hi = r[R_V_UD128_HI];
+  v->ud64 = r[R_V_UD64];
+  v->ts = r[R_V_TIMESTAMP];
+  v->ud32 = (uint32_t)r[R_V_UD32_TIMEOUT];
+  v->timeout = (uint32_t)(r[R_V_UD32_TIMEOUT] >> 32);
+  v->ledger = (uint32_t)r[R_V_LEDGER_CODE];
+  v->code = (uint32_t)(r[R_V_LEDGER_CODE] >> 32);
+  v->flags = (uint32_t)r[R_V_FLAGS];
+}
+
+// The joins' hash tables, open addressing in device memory.  An entry is
+// claimed by the first value inserted for its key (`own` = that value + 1)
+// and holds the lowest value of the key (`val`).  A key is not stored: it
+// is read back from the claimant's record and compared in full, so two
+// keys never share an entry.
+struct JoinHash {
+  ull* own;  // 0 = empty
+  ull* val;
+  uint64_t mask;
+};
+
+enum JoinKind {
+  J_ID,   // transfer ids; value: the event
+  J_ACC,  // account slots; value: the leg, 2e + side
+  J_PST   // posted keys; value: 2e (a found pending's timestamp) or 2e + 1
+          // (the pending event e creates, at ts_base + e)
+};
+
+struct SeqPreArgs {
+  const void* batch[TB_N];
+  DevTable acc, xfr, pst;
+  int64_t n, count;
+  uint64_t ts_base;
+  uint64_t* rec;    // n x REC_WORDS
+  uint64_t* bal;    // 2n x 8: dense balances
+  uint64_t* dslot;  // 2n: a dense index's account slot, SEQ_NONE if unused
+  ull* hash;        // claimants [hash_n], then values [hash_n]
+  int64_t hash_n;
+  JoinHash hid, hacc, hpst;
+};
+
+// Whether value v of join `kind` has the key (lo, hi).  The words read are
+// written by the probe launch and not changed by the join or link launches
+// (a leg is joined only where the probe launch set RB_LEGS, and a posted
+// key 2e only where it set RB_PFOUND; link rewrites neither).
+static __device__ __forceinline__ bool join_is(const SeqPreArgs& A, int kind,
+                                               ull v, uint64_t lo,
+                                               uint64_t hi) {
+  if (kind == J_ID) {
+    const uint64_t* r = A.rec + v * REC_WORDS;
+    return r[R_V_ID_LO] == lo && r[R_V_ID_HI] == hi;
+  }
+  if (kind == J_ACC)
+    return A.rec[(v >> 1) * REC_WORDS + ((v & 1) ? R_CR_SLOT : R_DR_SLOT)] == lo;
+  return ((v & 1) ? A.ts_base + (v >> 1)
+                  : A.rec[(v >> 1) * REC_WORDS + R_P_TS]) == lo;
+}
+
+static __device__ void hash_insert(const SeqPreArgs& A, const JoinHash& H,
+                                   int kind, uint64_t lo, uint64_t hi, ull v) {
+  for (uint64_t h = mix64(lo, hi) & H.mask;; h = (h + 1) & H.mask) {
+    const ull old = atomicCAS(H.own + h, 0ull, v + 1);
+    if (old == 0 || join_is(A, kind, old - 1, lo, hi)) {
+      atomicMin(H.val + h, v);
+      return;
+    }
+  }
+}
+
+static __device__ ull hash_find(const SeqPreArgs& A, const JoinHash& H,
+                                int kind, uint64_t lo, uint64_t hi) {
+  for (uint64_t h = mix64(lo, hi) & H.mask;; h = (h + 1) & H.mask) {
+    const ull o = H.own[h];
+    if (o == 0) return SEQ_NONE;
+    if (join_is(A, kind, o - 1, lo, hi)) return H.val[h];
+  }
+}
+
+#define EVB64(k) (static_cast<const uint64_t*>(A.batch[k])[e])
+#define EVB32(k) (static_cast<const uint32_t*>(A.batch[k])[e])
+
+static __device__ void gather_p(const DevTable& X, uint64_t s, uint64_t* r) {
+  r[R_P_FLAGS_TIMEOUT] = (uint64_t)C32(X, TT_FLAGS)[s] | ((uint64_t)C32(X, TT_TIMEOUT)[s] << 32);
+  r[R_P_LEDGER_CODE] = (uint64_t)C32(X, TT_LEDGER)[s] | ((uint64_t)C32(X, TT_CODE)[s] << 32);
+  r[R_P_UD32] = C32(X, TT_USER_DATA_32)[s];
+  r[R_P_TS] = C64(X, TT_TIMESTAMP)[s];
+  r[R_P_UD64] = C64(X, TT_USER_DATA_64)[s];
+  r[R_P_UD128_LO] = C64(X, TT_USER_DATA_128_LO)[s];
+  r[R_P_UD128_HI] = C64(X, TT_USER_DATA_128_HI)[s];
+  r[R_P_AMOUNT_LO] = C64(X, TT_AMOUNT_LO)[s];
+  r[R_P_AMOUNT_HI] = C64(X, TT_AMOUNT_HI)[s];
+  r[R_P_DR_LO] = C64(X, TT_DEBIT_ACCOUNT_ID_LO)[s];
+  r[R_P_DR_HI] = C64(X, TT_DEBIT_ACCOUNT_ID_HI)[s];
+  r[R_P_CR_LO] = C64(X, TT_CREDIT_ACCOUNT_ID_LO)[s];
+  r[R_P_CR_HI] = C64(X, TT_CREDIT_ACCOUNT_ID_HI)[s];
+}
+
+static __device__ void gather_e(const DevTable& X, uint64_t s, uint64_t* r) {
+  r[R_E_FLAGS_TIMEOUT] = (uint64_t)C32(X, TT_FLAGS)[s] | ((uint64_t)C32(X, TT_TIMEOUT)[s] << 32);
+  r[R_E_CODE_UD32] = (uint64_t)C32(X, TT_CODE)[s] | ((uint64_t)C32(X, TT_USER_DATA_32)[s] << 32);
+  r[R_E_DR_LO] = C64(X, TT_DEBIT_ACCOUNT_ID_LO)[s];
+  r[R_E_DR_HI] = C64(X, TT_DEBIT_ACCOUNT_ID_HI)[s];
+  r[R_E_CR_LO] = C64(X, TT_CREDIT_ACCOUNT_ID_LO)[s];
+  r[R_E_CR_HI] = C64(X, TT_CREDIT_ACCOUNT_ID_HI)[s];
+  r[R_E_AMOUNT_LO] = C64(X, TT_AMOUNT_LO)[s];
+  r[R_E_AMOUNT_HI] = C64(X, TT_AMOUNT_HI)[s];
+  r[R_E_PENDING_LO] = C64(X, TT_PENDING_ID_LO)[s];
+  r[R_E_PENDING_HI] = C64(X, TT_PENDING_ID_HI)[s];
+  r[R_E_UD128_LO] = C64(X, TT_USER_DATA_128_LO)[s];
+  r[R_E_UD128_HI] = C64(X, TT_USER_DATA_128_HI)[s];
+  r[R_E_UD64] = C64(X, TT_USER_DATA_64)[s];
+}
+
+// The posted table's pre-batch answer for key (key, 0).
+static __device__ void probe_posted(const DevTable& P, uint64_t key,
+                                    uint64_t* r, uint64_t* bits) {
+  uint64_t slot, t;
+  bool capped;
+  *bits |= RB_KKEY;
+  r[R_KEY] = key;
+  if (probe_full(P, key, 0, &slot, &t, &capped)) {
+    *bits |= RB_KFOUND;
+    r[R_KVAL] = C32(P, 0)[slot];
+  }
+  if (capped) *bits |= RB_KCAP;
+  r[R_KSLOT] = slot;
+  r[R_KT] = t;
+}
+
+// Launch 1: clear the join hash and the dense arrays; probe every active
+// event against the pre-batch tables.
+__global__ void seq_pre_probe(SeqPreArgs A) {
+  const int64_t span = max(max(A.hash_n, 2 * A.n), A.n);
+  for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < span;
+       t += (int64_t)gridDim.x * blockDim.x) {
+    if (t < A.hash_n) {
+      A.hash[t] = 0;
+      A.hash[A.hash_n + t] = SEQ_NONE;
+    }
+    if (t < 2 * A.n) {
+      for (int k = 0; k < 8; ++k) A.bal[t * 8 + k] = 0;
+      A.dslot[t] = SEQ_NONE;
+    }
+    if (t >= A.n) continue;
+    const int64_t e = t;
+    uint64_t* r = A.rec + e * REC_WORDS;
+    for (int k = 0; k < REC_WORDS; ++k) r[k] = 0;
+    if (e >= A.count) continue;  // an inactive lane's record stays zero
+    r[R_ID_GRP] = r[R_PEND_GRP] = r[R_KGRP] = SEQ_NONE;
+    r[R_DR_DENSE] = r[R_CR_DENSE] = SEQ_NONE;
+    r[R_V_ID_LO] = EVB64(TB_ID_LO);
+    r[R_V_ID_HI] = EVB64(TB_ID_HI);
+    r[R_V_DR_LO] = EVB64(TB_DEBIT_ACCOUNT_ID_LO);
+    r[R_V_DR_HI] = EVB64(TB_DEBIT_ACCOUNT_ID_HI);
+    r[R_V_CR_LO] = EVB64(TB_CREDIT_ACCOUNT_ID_LO);
+    r[R_V_CR_HI] = EVB64(TB_CREDIT_ACCOUNT_ID_HI);
+    r[R_V_AMOUNT_LO] = EVB64(TB_AMOUNT_LO);
+    r[R_V_AMOUNT_HI] = EVB64(TB_AMOUNT_HI);
+    r[R_V_PENDING_LO] = EVB64(TB_PENDING_ID_LO);
+    r[R_V_PENDING_HI] = EVB64(TB_PENDING_ID_HI);
+    r[R_V_UD128_LO] = EVB64(TB_USER_DATA_128_LO);
+    r[R_V_UD128_HI] = EVB64(TB_USER_DATA_128_HI);
+    r[R_V_UD64] = EVB64(TB_USER_DATA_64);
+    r[R_V_UD32_TIMEOUT] = (uint64_t)EVB32(TB_USER_DATA_32) | ((uint64_t)EVB32(TB_TIMEOUT) << 32);
+    r[R_V_LEDGER_CODE] = (uint64_t)EVB32(TB_LEDGER) | ((uint64_t)EVB32(TB_CODE) << 32);
+    r[R_V_FLAGS] = EVB32(TB_FLAGS);
+    r[R_V_TIMESTAMP] = EVB64(TB_TIMESTAMP);
+    const uint32_t flags = EVB32(TB_FLAGS);
+    const bool postvoid = flags & (TF_POST | TF_VOID);
+    uint64_t bits = RB_ACTIVE;
+    uint64_t slot, t_end;
+    bool capped;
+    // The event's id.
+    if (probe_full(A.xfr, r[R_V_ID_LO], r[R_V_ID_HI], &slot, &t_end, &capped)) {
+      bits |= RB_EFOUND;
+      gather_e(A.xfr, slot, r);
+    }
+    if (capped) bits |= RB_ECAP;
+    r[R_ESLOT] = slot;
+    r[R_ET] = t_end;
+    // The pending transfer, its accounts and its posted key.
+    uint64_t ids[4] = {r[R_V_DR_LO], r[R_V_DR_HI], r[R_V_CR_LO], r[R_V_CR_HI]};
+    bool legs = !postvoid;
+    if (postvoid && probe_full(A.xfr, r[R_V_PENDING_LO], r[R_V_PENDING_HI], &slot,
+                               &t_end, &capped)) {
+      bits |= RB_PFOUND;
+      r[R_PSLOT] = slot;
+      gather_p(A.xfr, slot, r);
+      ids[0] = r[R_P_DR_LO];
+      ids[1] = r[R_P_DR_HI];
+      ids[2] = r[R_P_CR_LO];
+      ids[3] = r[R_P_CR_HI];
+      legs = true;
+      probe_posted(A.pst, r[R_P_TS], r, &bits);
+    }
+    if (legs) {
+      bits |= RB_LEGS;
+      for (int side = 0; side < 2; ++side) {
+        uint64_t aslot, free_slot;
+        bool acapped;
+        const bool found = probe_key(A.acc, ids[2 * side], ids[2 * side + 1],
+                                     &aslot, &free_slot, &acapped);
+        if (found) {
+          bits |= side ? RB_CRF : RB_DRF;
+          r[side ? R_CR_FL : R_DR_FL] = (uint64_t)C32(A.acc, AT_FLAGS)[aslot] |
+                                        ((uint64_t)C32(A.acc, AT_LEDGER)[aslot] << 32);
+        }
+        r[side ? R_CR_SLOT : R_DR_SLOT] = aslot;
+      }
+    }
+    r[R_BITS] = bits;
+    Ev v;
+    ev_from_rec(r, &v);
+    r[R_SCODE] = static_code(v, bits & RB_DRF, bits & RB_CRF,
+                             (uint32_t)(r[R_DR_FL] >> 32),
+                             (uint32_t)(r[R_CR_FL] >> 32));
+  }
+}
+
+// Launch 2: the joins' keys: every active event's id (value: the event),
+// every account leg's slot (value: the leg, 2e + side), and every posted
+// key an event may look up (value: 2e for a found pending's timestamp,
+// 2e + 1 for a pending the event creates, at ts_base + e).
+__global__ void seq_pre_join(SeqPreArgs A) {
+  const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (e >= A.count) return;
+  const uint64_t* r = A.rec + e * REC_WORDS;
+  const uint64_t bits = r[R_BITS];
+  const uint32_t flags = (uint32_t)r[R_V_FLAGS];
+  hash_insert(A, A.hid, J_ID, r[R_V_ID_LO], r[R_V_ID_HI], (ull)e);
+  if (bits & RB_LEGS) {
+    hash_insert(A, A.hacc, J_ACC, r[R_DR_SLOT], 0, (ull)(2 * e));
+    hash_insert(A, A.hacc, J_ACC, r[R_CR_SLOT], 0, (ull)(2 * e + 1));
+  }
+  if (bits & RB_PFOUND) {
+    hash_insert(A, A.hpst, J_PST, r[R_P_TS], 0, (ull)(2 * e));
+  } else if ((flags & TF_PENDING) && !(flags & (TF_POST | TF_VOID))) {
+    hash_insert(A, A.hpst, J_PST, A.ts_base + (uint64_t)e, 0,
+                (ull)(2 * e + 1));
+  }
+}
+
+// Launch 3: read the joins back.  Each event gets its id's group (the
+// lowest event with that id) and its pending id's group; a post or void
+// whose pending the batch itself creates takes that event's columns as its
+// candidate pending row, its account legs and its posted key; every leg
+// gets its dense index (the lowest leg on its slot), whose owner copies the
+// account's pre-batch balances; every posted key its group.
+__global__ void seq_pre_link(SeqPreArgs A) {
+  const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (e >= A.count) return;
+  uint64_t* r = A.rec + e * REC_WORDS;
+  uint64_t bits = r[R_BITS];
+  const uint32_t flags = (uint32_t)r[R_V_FLAGS];
+  // Every key looked up here but the pending id was inserted by this event
+  // (or, for a candidate's legs and posted key, by the candidate), so those
+  // finds never miss.
+  r[R_ID_GRP] = hash_find(A, A.hid, J_ID, r[R_V_ID_LO], r[R_V_ID_HI]);
+  if (flags & (TF_POST | TF_VOID)) {
+    const ull c = hash_find(A, A.hid, J_ID, r[R_V_PENDING_LO], r[R_V_PENDING_HI]);
+    if (c != SEQ_NONE) {
+      const uint64_t* rc = A.rec + c * REC_WORDS;
+      r[R_PEND_GRP] = c;
+      const uint32_t cflags = (uint32_t)rc[R_V_FLAGS];
+      if (!(bits & RB_PFOUND) && (cflags & TF_PENDING) &&
+          !(cflags & (TF_POST | TF_VOID))) {
+        bits |= RB_PCAND | RB_LEGS | (rc[R_BITS] & (RB_DRF | RB_CRF));
+        if (cflags & (TF_BALANCING_DEBIT | TF_BALANCING_CREDIT)) bits |= RB_PCLAMP;
+        r[R_P_FLAGS_TIMEOUT] = (uint64_t)cflags | (rc[R_V_UD32_TIMEOUT] & 0xFFFFFFFF00000000ull);
+        r[R_P_LEDGER_CODE] = rc[R_V_LEDGER_CODE];
+        r[R_P_UD32] = rc[R_V_UD32_TIMEOUT] & 0xFFFFFFFFull;
+        r[R_P_TS] = A.ts_base + (uint64_t)c;
+        r[R_P_UD64] = rc[R_V_UD64];
+        r[R_P_UD128_LO] = rc[R_V_UD128_LO];
+        r[R_P_UD128_HI] = rc[R_V_UD128_HI];
+        r[R_P_AMOUNT_LO] = rc[R_V_AMOUNT_LO];
+        r[R_P_AMOUNT_HI] = rc[R_V_AMOUNT_HI];
+        r[R_P_DR_LO] = rc[R_V_DR_LO];
+        r[R_P_DR_HI] = rc[R_V_DR_HI];
+        r[R_P_CR_LO] = rc[R_V_CR_LO];
+        r[R_P_CR_HI] = rc[R_V_CR_HI];
+        r[R_DR_SLOT] = rc[R_DR_SLOT];
+        r[R_CR_SLOT] = rc[R_CR_SLOT];
+        r[R_DR_FL] = rc[R_DR_FL];
+        r[R_CR_FL] = rc[R_CR_FL];
+        probe_posted(A.pst, r[R_P_TS], r, &bits);
+      }
+    }
+  }
+  if (bits & RB_LEGS) {
+    for (int side = 0; side < 2; ++side) {
+      const uint64_t slot = r[side ? R_CR_SLOT : R_DR_SLOT];
+      const ull d = hash_find(A, A.hacc, J_ACC, slot, 0);
+      r[side ? R_CR_DENSE : R_DR_DENSE] = d;
+      if (d == (ull)(2 * e + side)) {  // this leg owns its dense index
+        for (int k = 0; k < 8; ++k) A.bal[d * 8 + k] = C64(A.acc, AT_DEBITS_PENDING_LO + k)[slot];
+        A.dslot[d] = slot;
+      }
+    }
+  }
+  if (bits & RB_KKEY) {
+    r[R_KGRP] = hash_find(A, A.hpst, J_PST, r[R_KEY], 0);
+  }
+  r[R_BITS] = bits;
+}
+
+// ---------------------------------------------------------------------------
+// K6 seq_transfers: the sequencer
 // ---------------------------------------------------------------------------
 
 struct SeqTransferArgs {
@@ -295,349 +1028,912 @@ struct SeqTransferArgs {
   uint64_t* undo;  // n records of UNDO_WORDS
   int32_t* codes;
   int* overflow;
+  const uint64_t* rec;    // the pre-pass's records
+  uint64_t* bal;          // dense balances (the pre-pass's, then current)
+  const uint64_t* dslot;  // a dense index's account slot
 };
 
-#define EV64(k) (static_cast<const uint64_t*>(A.batch[k])[i])
-#define EV32(k) (static_cast<const uint32_t*>(A.batch[k])[i])
+struct Chain {
+  int64_t start;
+  bool broken;
+};
 
-__global__ void seq_transfers_kernel(SeqTransferArgs A) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  const uint64_t ts_base = A.timestamp - (uint64_t)A.count + 1;
-  int64_t chain_start = -1;
-  bool chain_broken = false;
-  for (int64_t i = 0; i < A.n; ++i) {
-    uint64_t* undo = A.undo + i * UNDO_WORDS;
-    undo[0] = undo[1] = undo[18] = undo[19] = SEQ_SENT;
-    undo[20] = 0;
-    const bool active = i < A.count;
-    const uint32_t flags = EV32(TB_FLAGS);
-    const bool linked = active && (flags & TF_LINKED);
-    if (linked && chain_start < 0) chain_start = i;  // state_machine.zig:1022
-    const bool in_chain = chain_start >= 0;
-    const bool chain_open_err = linked && i == A.count - 1;
-    const uint64_t ev_ts = ts_base + (uint64_t)i;
+static __device__ void ev_from_batch(const SeqTransferArgs& A, int64_t e, Ev* v) {
+  v->id_lo = EVB64(TB_ID_LO);
+  v->id_hi = EVB64(TB_ID_HI);
+  v->dr_lo = EVB64(TB_DEBIT_ACCOUNT_ID_LO);
+  v->dr_hi = EVB64(TB_DEBIT_ACCOUNT_ID_HI);
+  v->cr_lo = EVB64(TB_CREDIT_ACCOUNT_ID_LO);
+  v->cr_hi = EVB64(TB_CREDIT_ACCOUNT_ID_HI);
+  v->amt_lo = EVB64(TB_AMOUNT_LO);
+  v->amt_hi = EVB64(TB_AMOUNT_HI);
+  v->pend_lo = EVB64(TB_PENDING_ID_LO);
+  v->pend_hi = EVB64(TB_PENDING_ID_HI);
+  v->ud128_lo = EVB64(TB_USER_DATA_128_LO);
+  v->ud128_hi = EVB64(TB_USER_DATA_128_HI);
+  v->ud64 = EVB64(TB_USER_DATA_64);
+  v->ts = EVB64(TB_TIMESTAMP);
+  v->ud32 = EVB32(TB_USER_DATA_32);
+  v->timeout = EVB32(TB_TIMEOUT);
+  v->ledger = EVB32(TB_LEDGER);
+  v->code = EVB32(TB_CODE);
+  v->flags = EVB32(TB_FLAGS);
+}
 
-    // execute()-level preemptions (state_machine.zig:1021-1041): where one
-    // fires, the logic's code is discarded and nothing is applied.
-    uint32_t code = 0;
-    if (active) {
-      if (chain_open_err) code = 2;
-      else if (chain_broken) code = 1;
-      else if (EV64(TB_TIMESTAMP) != 0) code = 3;
-    }
-    if (active && code == 0) {
-      // -- _transfer_logic ---------------------------------------------------
-      const uint64_t tid_lo = EV64(TB_ID_LO), tid_hi = EV64(TB_ID_HI);
-      const u128 tid = mk128(tid_lo, tid_hi);
-      const bool post = flags & TF_POST, void_ = flags & TF_VOID;
-      const bool postvoid = post || void_;
-      const bool pending_f = flags & TF_PENDING;
-      const bool bal_dr = flags & TF_BALANCING_DEBIT;
-      const bool bal_cr = flags & TF_BALANCING_CREDIT;
-      const u128 t_amount = mk128(EV64(TB_AMOUNT_LO), EV64(TB_AMOUNT_HI));
-      const uint64_t pend_lo = EV64(TB_PENDING_ID_LO), pend_hi = EV64(TB_PENDING_ID_HI);
-      const u128 pend_id = mk128(pend_lo, pend_hi);
-      const u128 t_dr_id = mk128(EV64(TB_DEBIT_ACCOUNT_ID_LO), EV64(TB_DEBIT_ACCOUNT_ID_HI));
-      const u128 t_cr_id = mk128(EV64(TB_CREDIT_ACCOUNT_ID_LO), EV64(TB_CREDIT_ACCOUNT_ID_HI));
-      const uint32_t ev_timeout = EV32(TB_TIMEOUT), ev_ledger = EV32(TB_LEDGER);
-      const uint32_t ev_code = EV32(TB_CODE);
-      const uint64_t ev_ud128_lo = EV64(TB_USER_DATA_128_LO), ev_ud128_hi = EV64(TB_USER_DATA_128_HI);
-      const uint64_t ev_ud64 = EV64(TB_USER_DATA_64);
-      const uint32_t ev_ud32 = EV32(TB_USER_DATA_32);
-      uint64_t scratch;
-      bool scratch_capped;
 
-      // Pending transfer (post/void only; the regular path never reads it).
-      uint64_t p_slot = 0;
-      const bool p_found = postvoid && probe_key(A.xfr, pend_lo, pend_hi, &p_slot,
-                                                 &scratch, &scratch_capped);
-      uint32_t p_flags = 0, p_timeout = 0, p_ledger = 0, p_code = 0, p_ud32 = 0;
-      uint64_t p_ts = 0, p_ud64 = 0, p_ud128_lo = 0, p_ud128_hi = 0;
-      u128 p_amount = 0, p_dr_id = 0, p_cr_id = 0;
-      if (p_found) {
-        const DevTable& X = A.xfr;
-        p_flags = C32(X, TT_FLAGS)[p_slot];
-        p_timeout = C32(X, TT_TIMEOUT)[p_slot];
-        p_ledger = C32(X, TT_LEDGER)[p_slot];
-        p_code = C32(X, TT_CODE)[p_slot];
-        p_ud32 = C32(X, TT_USER_DATA_32)[p_slot];
-        p_ts = C64(X, TT_TIMESTAMP)[p_slot];
-        p_ud64 = C64(X, TT_USER_DATA_64)[p_slot];
-        p_ud128_lo = C64(X, TT_USER_DATA_128_LO)[p_slot];
-        p_ud128_hi = C64(X, TT_USER_DATA_128_HI)[p_slot];
-        p_amount = mk128(C64(X, TT_AMOUNT_LO)[p_slot], C64(X, TT_AMOUNT_HI)[p_slot]);
-        p_dr_id = mk128(C64(X, TT_DEBIT_ACCOUNT_ID_LO)[p_slot], C64(X, TT_DEBIT_ACCOUNT_ID_HI)[p_slot]);
-        p_cr_id = mk128(C64(X, TT_CREDIT_ACCOUNT_ID_LO)[p_slot], C64(X, TT_CREDIT_ACCOUNT_ID_HI)[p_slot]);
+// Serial mode: one event as the one-thread kernel always ran it, every probe
+// and row a walk of the tables in device memory (which hold the batch's
+// earlier writes), the balances in the accounts table, the counts in
+// device memory.  Event i is active (i < count): serial mode begins only
+// after a capped insert.  Returns the raw code.
+static __device__ uint32_t serial_event(const SeqTransferArgs& A, int64_t i,
+                                        Chain* ch) {
+  const int64_t e = i;
+  uint64_t* undo = A.undo + i * UNDO_WORDS;
+  undo[0] = undo[1] = undo[18] = undo[19] = SEQ_SENT;
+  undo[20] = 0;
+  Ev v;
+  ev_from_batch(A, e, &v);
+  const bool linked = v.flags & TF_LINKED;
+  if (linked && ch->start < 0) ch->start = i;  // state_machine.zig:1022
+  const bool in_chain = ch->start >= 0;
+  const bool chain_open_err = linked && i == A.count - 1;
+  const uint64_t ev_ts = A.timestamp - (uint64_t)A.count + 1 + (uint64_t)i;
+
+  // execute()-level preemptions (state_machine.zig:1021-1041): where one
+  // fires, the logic's code is discarded and nothing is applied.
+  uint32_t code = 0;
+  if (chain_open_err) code = 2;
+  else if (ch->broken) code = 1;
+  else if (v.ts != 0) code = 3;
+  if (code == 0) {
+    const bool postvoid = v.flags & (TF_POST | TF_VOID);
+    Gathered g = {};
+    uint64_t scratch;
+    bool scratch_capped;
+    uint64_t p_slot = 0;
+    g.p_found = postvoid && probe_key(A.xfr, v.pend_lo, v.pend_hi, &p_slot, &scratch,
+                                      &scratch_capped);
+    if (g.p_found) g.p = row_at(A.xfr, p_slot);
+    const u128 dr_id = postvoid ? g.p.dr_id : mk128(v.dr_lo, v.dr_hi);
+    const u128 cr_id = postvoid ? g.p.cr_id : mk128(v.cr_lo, v.cr_hi);
+    g.dr.found = probe_key(A.acc, lo64(dr_id), hi64(dr_id), &g.dr.slot, &scratch,
+                           &scratch_capped);
+    g.cr.found = probe_key(A.acc, lo64(cr_id), hi64(cr_id), &g.cr.slot, &scratch,
+                           &scratch_capped);
+    g.dr.b = load_bal(A.acc, g.dr.slot, g.dr.found);
+    g.cr.b = load_bal(A.acc, g.cr.slot, g.cr.found);
+    g.dr.flags = g.dr.found ? C32(A.acc, AT_FLAGS)[g.dr.slot] : 0;
+    g.cr.flags = g.cr.found ? C32(A.acc, AT_FLAGS)[g.cr.slot] : 0;
+    g.dr.ledger = g.dr.found ? C32(A.acc, AT_LEDGER)[g.dr.slot] : 0;
+    g.cr.ledger = g.cr.found ? C32(A.acc, AT_LEDGER)[g.cr.slot] : 0;
+    uint64_t e_slot, t_free;
+    bool t_capped;
+    g.e_found = probe_key(A.xfr, v.id_lo, v.id_hi, &e_slot, &t_free, &t_capped);
+    if (g.e_found) g.e = row_at(A.xfr, e_slot);
+    uint64_t posted_slot = 0, posted_free = 0;
+    bool posted_capped = false;
+    g.posted_found = postvoid && probe_key(A.pst, g.p.ts, 0, &posted_slot,
+                                           &posted_free, &posted_capped);
+    g.posted_val = g.posted_found ? C32(A.pst, 0)[posted_slot] : 0;
+    u128 eff;
+    code = ladder(v, ev_ts, g, &eff);
+
+    if (code == 0) {  // _apply_transfer
+      Bal ndr, ncr;
+      new_balances(v, g, eff, &ndr, &ncr);
+      uint64_t w[8], wc[8];
+      undo[0] = g.dr.slot;
+      undo[1] = g.cr.slot;
+      bal_words(g.dr.b, undo + 2);
+      bal_words(g.cr.b, undo + 10);
+      bal_words(ndr, w);
+      store_words(A.acc, g.dr.slot, w);
+      bal_words(ncr, wc);
+      store_words(A.acc, g.cr.slot, wc);
+      // Transfer insert at the first truly empty slot of its probe.
+      const uint64_t s = t_capped ? 0 : t_free;
+      if (t_capped) *A.overflow = 1;
+      write_row(A.xfr, s, v, g, eff, ev_ts);
+      set_key(A.xfr, s, v.id_lo, v.id_hi);
+      undo[18] = s;
+      if (postvoid) {
+        bool capped = posted_capped;
+        uint64_t ps = posted_free;
+        if (g.posted_found) ps = sprobe_free(A.pst, g.p.ts, 0, &capped);
+        if (capped) {
+          ps = 0;
+          *A.overflow = 1;
+        }
+        C32(A.pst, 0)[ps] = (v.flags & TF_POST) ? 1u : 2u;
+        set_key(A.pst, ps, g.p.ts, 0);
+        undo[19] = ps;
+      } else if ((g.dr.flags & AF_HISTORY) || (g.cr.flags & AF_HISTORY)) {
+        const long long h = *A.hist_count;
+        const u128 ids[2] = {dr_id, cr_id};
+        write_history(A.hist, A.hist_cap, h, g, ids, w, wc, ev_ts);
+        *A.hist_count = h + 1;
+        undo[20] = 1;
       }
-      const bool p_is_pending = p_flags & TF_PENDING;
-
-      // The accounts operated on.
-      const u128 dr_id = postvoid ? p_dr_id : t_dr_id;
-      const u128 cr_id = postvoid ? p_cr_id : t_cr_id;
-      uint64_t dr_slot, cr_slot;
-      const bool dr_found = probe_key(A.acc, lo64(dr_id), hi64(dr_id), &dr_slot,
-                                      &scratch, &scratch_capped);
-      const bool cr_found = probe_key(A.acc, lo64(cr_id), hi64(cr_id), &cr_slot,
-                                      &scratch, &scratch_capped);
-      const Bal drb = load_bal(A.acc, dr_slot, dr_found);
-      const Bal crb = load_bal(A.acc, cr_slot, cr_found);
-      const uint32_t dr_flags = dr_found ? C32(A.acc, AT_FLAGS)[dr_slot] : 0;
-      const uint32_t cr_flags = cr_found ? C32(A.acc, AT_FLAGS)[cr_slot] : 0;
-      const uint32_t dr_ledger = dr_found ? C32(A.acc, AT_LEDGER)[dr_slot] : 0;
-      const uint32_t cr_ledger = cr_found ? C32(A.acc, AT_LEDGER)[cr_slot] : 0;
-
-      // Existing transfer with our id; its free slot is the insert slot.
-      uint64_t e_slot, t_free;
-      bool t_capped;
-      const bool e_found = probe_key(A.xfr, tid_lo, tid_hi, &e_slot, &t_free, &t_capped);
-
-      // Posted groove, keyed by the pending's timestamp (post/void only).
-      uint64_t posted_slot = 0, posted_free = 0;
-      bool posted_capped = false;
-      const bool posted_found =
-          postvoid && probe_key(A.pst, p_ts, 0, &posted_slot, &posted_free, &posted_capped);
-      const uint32_t posted_val = posted_found ? C32(A.pst, 0)[posted_slot] : 0;
-
-      // -- regular path (state_machine.zig:1239-1368) -----------------------
-      const u128 amount0 = ((bal_dr || bal_cr) && t_amount == 0) ? (u128)~0ull : t_amount;
-      const u128 avail_dr = sub_saturate(drb.cpo, drb.dpo + drb.dp);
-      const u128 amount1 = bal_dr ? min128(amount0, avail_dr) : amount0;
-      const bool exceeds_credits_bal = bal_dr && amount1 == 0;
-      const u128 avail_cr = sub_saturate(crb.dpo, crb.cpo + crb.cp);
-      const u128 amount = bal_cr ? min128(amount1, avail_cr) : amount1;
-      const bool exceeds_debits_bal = bal_cr && !exceeds_credits_bal && amount == 0;
-
-      const u128 dr_total = drb.dp + drb.dpo;
-      const u128 cr_total = crb.cp + crb.cpo;
-      const uint64_t ts_sum = ev_ts + (uint64_t)ev_timeout * NS_PER_S;
-      const bool exceeds_credits_lim =
-          (dr_flags & AF_DEBITS_MUST_NOT_EXCEED_CREDITS) && dr_total + amount > drb.cpo;
-      const bool exceeds_debits_lim =
-          (cr_flags & AF_CREDITS_MUST_NOT_EXCEED_DEBITS) && cr_total + amount > crb.dpo;
-
-      uint32_t c;
-      if (!postvoid) {
-        if (flags & TF_PADDING) c = 4;
-        else if (tid == 0) c = 5;
-        else if (tid == U128_MAX) c = 6;
-        else if (t_dr_id == 0) c = 8;
-        else if (t_dr_id == U128_MAX) c = 9;
-        else if (t_cr_id == 0) c = 10;
-        else if (t_cr_id == U128_MAX) c = 11;
-        else if (t_dr_id == t_cr_id) c = 12;
-        else if (pend_id != 0) c = 13;
-        else if (!pending_f && ev_timeout != 0) c = 17;
-        else if (!bal_dr && !bal_cr && t_amount == 0) c = 18;
-        else if (ev_ledger == 0) c = 19;
-        else if (ev_code == 0) c = 20;
-        else if (!dr_found) c = 21;
-        else if (!cr_found) c = 22;
-        else if (dr_ledger != cr_ledger) c = 23;
-        else if (ev_ledger != dr_ledger) c = 24;
-        else if (e_found) {
-          // create_transfer_exists (state_machine.zig:1370-1389).
-          const DevTable& X = A.xfr;
-          const uint64_t s = e_slot;
-          if (flags != C32(X, TT_FLAGS)[s]) c = 36;
-          else if (t_dr_id != mk128(C64(X, TT_DEBIT_ACCOUNT_ID_LO)[s], C64(X, TT_DEBIT_ACCOUNT_ID_HI)[s])) c = 37;
-          else if (t_cr_id != mk128(C64(X, TT_CREDIT_ACCOUNT_ID_LO)[s], C64(X, TT_CREDIT_ACCOUNT_ID_HI)[s])) c = 38;
-          else if (t_amount != mk128(C64(X, TT_AMOUNT_LO)[s], C64(X, TT_AMOUNT_HI)[s])) c = 39;
-          else if (pend_id != mk128(C64(X, TT_PENDING_ID_LO)[s], C64(X, TT_PENDING_ID_HI)[s])) c = 40;
-          else if (ev_ud128_lo != C64(X, TT_USER_DATA_128_LO)[s] || ev_ud128_hi != C64(X, TT_USER_DATA_128_HI)[s]) c = 41;
-          else if (ev_ud64 != C64(X, TT_USER_DATA_64)[s]) c = 42;
-          else if (ev_ud32 != C32(X, TT_USER_DATA_32)[s]) c = 43;
-          else if (ev_timeout != C32(X, TT_TIMEOUT)[s]) c = 44;
-          else if (ev_code != C32(X, TT_CODE)[s]) c = 45;
-          else c = 46;
-        }
-        else if (exceeds_credits_bal) c = 54;
-        else if (exceeds_debits_bal) c = 55;
-        else if (pending_f && add_overflows(amount, drb.dp)) c = 47;
-        else if (pending_f && add_overflows(amount, crb.cp)) c = 48;
-        else if (add_overflows(amount, drb.dpo)) c = 49;
-        else if (add_overflows(amount, crb.cpo)) c = 50;
-        else if (add_overflows(amount, dr_total)) c = 51;
-        else if (add_overflows(amount, cr_total)) c = 52;
-        else if (ts_sum < ev_ts) c = 53;
-        else if (exceeds_credits_lim) c = 54;
-        else if (exceeds_debits_lim) c = 55;
-        else c = 0;
-      } else {
-        // -- post/void path (state_machine.zig:1391-1498) -------------------
-        const u128 pv_amount = t_amount != 0 ? t_amount : p_amount;
-        const uint64_t expiry_ns = (uint64_t)p_timeout * NS_PER_S;
-        const bool expired = p_timeout != 0 && ev_ts >= p_ts + expiry_ns;
-        if (flags & TF_PADDING) c = 4;
-        else if (tid == 0) c = 5;
-        else if (tid == U128_MAX) c = 6;
-        else if (post && void_) c = 7;
-        else if (pending_f || bal_dr || bal_cr) c = 7;
-        else if (pend_id == 0) c = 14;
-        else if (pend_id == U128_MAX) c = 15;
-        else if (pend_id == tid) c = 16;
-        else if (ev_timeout != 0) c = 17;
-        else if (!p_found) c = 25;
-        else if (!p_is_pending) c = 26;
-        else if (t_dr_id != 0 && t_dr_id != p_dr_id) c = 27;
-        else if (t_cr_id != 0 && t_cr_id != p_cr_id) c = 28;
-        else if (ev_ledger != 0 && ev_ledger != p_ledger) c = 29;
-        else if (ev_code != 0 && ev_code != p_code) c = 30;
-        else if (pv_amount > p_amount) c = 31;
-        else if (void_ && pv_amount < p_amount) c = 32;
-        else if (e_found) {
-          // post_or_void_pending_transfer_exists (state_machine.zig:1500-1561):
-          // a zero field of the event compares the stored row with the
-          // pending transfer instead.
-          const DevTable& X = A.xfr;
-          const uint64_t s = e_slot;
-          const u128 e_amount = mk128(C64(X, TT_AMOUNT_LO)[s], C64(X, TT_AMOUNT_HI)[s]);
-          const uint64_t e_ud128_lo = C64(X, TT_USER_DATA_128_LO)[s];
-          const uint64_t e_ud128_hi = C64(X, TT_USER_DATA_128_HI)[s];
-          const uint64_t e_ud64 = C64(X, TT_USER_DATA_64)[s];
-          const uint32_t e_ud32 = C32(X, TT_USER_DATA_32)[s];
-          const bool amount_ne = t_amount == 0 ? e_amount != p_amount : t_amount != e_amount;
-          const bool ud128_ne = (ev_ud128_lo == 0 && ev_ud128_hi == 0)
-                                    ? (e_ud128_lo != p_ud128_lo || e_ud128_hi != p_ud128_hi)
-                                    : (ev_ud128_lo != e_ud128_lo || ev_ud128_hi != e_ud128_hi);
-          const bool ud64_ne = ev_ud64 == 0 ? e_ud64 != p_ud64 : ev_ud64 != e_ud64;
-          const bool ud32_ne = ev_ud32 == 0 ? e_ud32 != p_ud32 : ev_ud32 != e_ud32;
-          if (flags != C32(X, TT_FLAGS)[s]) c = 36;
-          else if (amount_ne) c = 39;
-          else if (pend_id != mk128(C64(X, TT_PENDING_ID_LO)[s], C64(X, TT_PENDING_ID_HI)[s])) c = 40;
-          else if (ud128_ne) c = 41;
-          else if (ud64_ne) c = 42;
-          else if (ud32_ne) c = 43;
-          else c = 46;
-        }
-        else if (posted_found && posted_val == 1) c = 33;
-        else if (posted_found && posted_val == 2) c = 34;
-        else if (expired) c = 35;
-        else c = 0;
-      }
-      code = c;
-
-      // -- _apply_transfer -------------------------------------------------
-      if (c == 0) {
-        const u128 pv_amount = t_amount != 0 ? t_amount : p_amount;
-        const u128 eff = postvoid ? pv_amount : amount;
-        Bal ndr = drb, ncr = crb;
-        if (postvoid) {
-          // Release pending; a post adds posted (state_machine.zig:1481-1491).
-          const u128 posted_amt = post ? eff : (u128)0;
-          ndr.dp = drb.dp - p_amount;
-          ndr.dpo = drb.dpo + posted_amt;
-          ncr.cp = crb.cp - p_amount;
-          ncr.cpo = crb.cpo + posted_amt;
-        } else if (pending_f) {
-          ndr.dp = drb.dp + eff;
-          ncr.cp = crb.cp + eff;
-        } else {
-          ndr.dpo = drb.dpo + eff;
-          ncr.cpo = crb.cpo + eff;
-        }
-        uint64_t w[8];
-        undo[0] = dr_slot;
-        undo[1] = cr_slot;
-        bal_words(drb, undo + 2);
-        bal_words(crb, undo + 10);
-        bal_words(ndr, w);
-        store_words(A.acc, dr_slot, w);
-        uint64_t wc[8];
-        bal_words(ncr, wc);
-        store_words(A.acc, cr_slot, wc);
-
-        // Transfer insert at the first truly empty slot of its probe.
-        const uint64_t t_slot = t_capped ? 0 : t_free;
-        if (t_capped) *A.overflow = 1;
-        {
-          const DevTable& X = A.xfr;
-          const uint64_t s = t_slot;
-          const u128 row_dr = postvoid ? p_dr_id : t_dr_id;
-          const u128 row_cr = postvoid ? p_cr_id : t_cr_id;
-          const bool ud128_zero = ev_ud128_lo == 0 && ev_ud128_hi == 0;
-          C64(X, TT_DEBIT_ACCOUNT_ID_LO)[s] = lo64(row_dr);
-          C64(X, TT_DEBIT_ACCOUNT_ID_HI)[s] = hi64(row_dr);
-          C64(X, TT_CREDIT_ACCOUNT_ID_LO)[s] = lo64(row_cr);
-          C64(X, TT_CREDIT_ACCOUNT_ID_HI)[s] = hi64(row_cr);
-          C64(X, TT_AMOUNT_LO)[s] = lo64(eff);
-          C64(X, TT_AMOUNT_HI)[s] = hi64(eff);
-          C64(X, TT_PENDING_ID_LO)[s] = pend_lo;
-          C64(X, TT_PENDING_ID_HI)[s] = pend_hi;
-          C64(X, TT_USER_DATA_128_LO)[s] = (postvoid && ud128_zero) ? p_ud128_lo : ev_ud128_lo;
-          C64(X, TT_USER_DATA_128_HI)[s] = (postvoid && ud128_zero) ? p_ud128_hi : ev_ud128_hi;
-          C64(X, TT_USER_DATA_64)[s] = (postvoid && ev_ud64 == 0) ? p_ud64 : ev_ud64;
-          C32(X, TT_USER_DATA_32)[s] = (postvoid && ev_ud32 == 0) ? p_ud32 : ev_ud32;
-          C32(X, TT_TIMEOUT)[s] = postvoid ? 0u : ev_timeout;
-          C32(X, TT_LEDGER)[s] = postvoid ? p_ledger : ev_ledger;
-          C32(X, TT_CODE)[s] = postvoid ? p_code : ev_code;
-          C32(X, TT_FLAGS)[s] = flags;
-          C64(X, TT_TIMESTAMP)[s] = ev_ts;
-          set_key(X, s, tid_lo, tid_hi);
-          undo[18] = s;
-        }
-
-        if (postvoid) {
-          bool capped = posted_capped;
-          uint64_t s = posted_free;
-          if (posted_found) s = sprobe_free(A.pst, p_ts, 0, &capped);
-          if (capped) {
-            s = 0;
-            *A.overflow = 1;
-          }
-          C32(A.pst, 0)[s] = post ? 1u : 2u;
-          set_key(A.pst, s, p_ts, 0);
-          undo[19] = s;
-        } else if ((dr_flags & AF_HISTORY) || (cr_flags & AF_HISTORY)) {
-          // History append (state_machine.zig:1342-1364): a side without
-          // the flag stays zero.  The host grows the log first; a row past
-          // the capacity would be dropped while count still advances.
-          const long long h = *A.hist_count;
-          if (h < A.hist_cap) {
-            const bool on[2] = {(dr_flags & AF_HISTORY) != 0, (cr_flags & AF_HISTORY) != 0};
-            const u128 ids[2] = {dr_id, cr_id};
-            const uint64_t* words[2] = {w, wc};
-            for (int side = 0; side < 2; ++side) {
-              const int base = side * 10;
-              A.hist[base + 0][h] = on[side] ? lo64(ids[side]) : 0;
-              A.hist[base + 1][h] = on[side] ? hi64(ids[side]) : 0;
-              for (int k = 0; k < 8; ++k) A.hist[base + 2 + k][h] = on[side] ? words[side][k] : 0;
-            }
-            A.hist[H_TIMESTAMP][h] = ev_ts;
-          }
-          *A.hist_count = h + 1;
-          undo[20] = 1;
-        }
-      }
-    }
-    A.codes[i] = (int32_t)code;
-
-    // Chain break: roll back chain_start..i-1 in reverse
-    // (state_machine.zig:1051-1066).
-    if (active && code != 0 && in_chain && !chain_broken) {
-      for (int64_t j = i - 1; j >= chain_start; --j) {
-        const uint64_t* u = A.undo + j * UNDO_WORDS;
-        for (int leg = 1; leg >= 0; --leg) {
-          if (u[leg] < SEQ_SENT) store_words(A.acc, u[leg], u + 2 + 8 * leg);
-        }
-        if (u[18] < SEQ_SENT) tombstone_row(A.xfr, u[18]);
-        if (u[19] < SEQ_SENT) tombstone_row(A.pst, u[19]);
-        *A.hist_count -= (long long)u[20];
-      }
-      chain_broken = true;
-    }
-    // Chain termination (state_machine.zig:1074-1082).
-    if (in_chain && (!linked || chain_open_err)) {
-      chain_start = -1;
-      chain_broken = false;
     }
   }
-  chain_codes(A.codes, static_cast<const uint32_t*>(A.batch[TB_FLAGS]),
-              TF_LINKED, A.n, A.count);
+  A.codes[i] = (int32_t)code;
+
+  // Chain break: roll back chain_start..i-1 in reverse
+  // (state_machine.zig:1051-1066).
+  if (code != 0 && in_chain && !ch->broken) {
+    for (int64_t j = i - 1; j >= ch->start; --j) {
+      const uint64_t* u = A.undo + j * UNDO_WORDS;
+      for (int leg = 1; leg >= 0; --leg) {
+        if (u[leg] < SEQ_SENT) store_words(A.acc, u[leg], u + 2 + 8 * leg);
+      }
+      if (u[18] < SEQ_SENT) tombstone_row(A.xfr, u[18]);
+      if (u[19] < SEQ_SENT) tombstone_row(A.pst, u[19]);
+      *A.hist_count -= (long long)u[20];
+    }
+    ch->broken = true;
+  }
+  // Chain termination (state_machine.zig:1074-1082).
+  if (in_chain && (!linked || chain_open_err)) {
+    ch->start = -1;
+    ch->broken = false;
+  }
+  return code;
+}
+
+// The sequencer block: warp 0's lane 0 walks the events; SEQ_W stager warps
+// stage them into a ring of SEQ_D slots, stager i the events e with
+// e % SEQ_W == i (event e in slot e % SEQ_D); the writer warp stores each
+// event's effects to device memory, in event order, from the slot's request.
+// A slot's three mbarriers: full (the stager filled it), done (the
+// sequencer wrote the request), empty (the writer stored it, so every
+// effect of the events up to this one is in device memory).  Warps 4 and 8
+// share warp 0's scheduler and only wait at the end, so that no warp takes
+// issue slots from the sequencer; the stagers and the writer sleep between
+// their barrier tries.
+#define SEQ_D 16
+#define SEQ_W 8
+#define SEQ_WRITER 11
+#define SEQ_THREADS (32 * 12)
+#define NONE16 0xFFFFu
+#define NONE32 0xFFFFFFFFu
+#define ALIVE 0x80000000u
+#define VOIDED 0x40000000u
+
+// Cycle counters of the sequencer's block, compiled in only where
+// SEQ_CYCLES is defined (tools/seq_cycles.py builds such a copy of the
+// library; the port's own has none): clock64 spans, summed over a launch
+// and read with tb_seq_cycles.  The sequencer's phases nest CY_FLUSH (its
+// waits for the writer before a read of device memory).
+#ifdef SEQ_CYCLES
+enum SeqCycle {
+  CY_WAIT,        // the sequencer waiting for a staged record
+  CY_GATHER,      // fast_event up to the ladder: the pending row, the
+                  // accounts' balances, the stored transfer, the posted row
+  CY_LADDER,      // dynamic_code
+  CY_APPLY,       // the request: new balances, placement, overlay writes
+  CY_ROLLBACK,    // a chain's rollback
+  CY_FLUSH,       // waits for the writer inside the phases above
+  CY_FLUSHES,     // how many such waits (a count, not cycles)
+  CY_SERIAL,      // serial mode's events
+  CY_STAGE_WAIT,  // stager warps waiting for a ring slot (summed over warps)
+  CY_STAGE_WORK,  // stager warps copying a record and its staged words
+  CY_WRITE_WAIT,  // the writer waiting for a request
+  CY_WRITE_WORK,  // the writer storing a request
+  CY_LOOP,        // the sequencer's whole walk (its clock, for the rate)
+  CY_N
+};
+__device__ unsigned long long seq_cycles[CY_N];
+#define CY_NOW(t) const long long t = clock64()
+#define CY_ADD(acc, k, t) ((acc)[k] += (unsigned long long)(clock64() - (t)))
+#define CY_DECL(acc) unsigned long long acc[CY_N] = {}
+#define CY_PUBLISH(acc)                                        \
+  for (int k_ = 0; k_ < CY_N; ++k_)                            \
+    if ((acc)[k_]) atomicAdd(&seq_cycles[k_], (acc)[k_])
+#else
+#define CY_NOW(t)
+#define CY_ADD(acc, k, t)
+#define CY_DECL(acc)
+#define CY_PUBLISH(acc)
+#endif
+
+// Staged mutable words (Stage::mut): the dense balances of the event's
+// debit and credit legs, and the key and tombstone words at its two
+// pre-batch free slots (transfers, posted), read after event e - SEQ_D.
+enum StagedWord {
+  M_DR = 0, M_CR = 8, M_EKEY_LO = 16, M_EKEY_HI, M_ETOMB, M_KKEY_LO, M_KKEY_HI,
+  M_KTOMB
+};
+
+// An event's writes (Stage::req): what the sequencer decided; the writer
+// warp composes the rows from these and the slot's record, and stores them.
+// The requests of the window's events are also the window the sequencer
+// forwards from (what event w wrote is in slot w % SEQ_D until event
+// w + SEQ_D takes the slot).
+enum ReqWord {
+  Q_FLAGS,            // QF_* below
+  Q_DD, Q_CD,         // the legs' dense indices
+  Q_W = 4,            // the debit leg's new balances, 8 words (16-B aligned)
+  Q_WC = 12,          // the credit leg's, 8 words
+  Q_TSLOT = 20, Q_EFF_LO, Q_EFF_HI,  // the transfer's slot and amount
+  Q_PSLOT, Q_PKEY,    // the posted row's slot and key
+  Q_HIDX,             // the history row's index
+  // The pending row's fields, where it is not the record's (QF_PSLOW).
+  Q_P_DR_LO, Q_P_DR_HI, Q_P_CR_LO, Q_P_CR_HI, Q_P_UD128_LO, Q_P_UD128_HI,
+  Q_P_UD64, Q_P_UD32, Q_P_LEDGER, Q_P_CODE,
+  Q_UNDO,             // the undo record, UNDO_WORDS (linked events only)
+  Q_N = Q_UNDO + UNDO_WORDS
+};
+#define QF_APPLIED 1ull
+#define QF_POSTED 2ull
+#define QF_HIST 4ull
+#define QF_UNDO 8ull
+#define QF_PSLOW 16ull
+
+struct __align__(16) Stage {
+  uint64_t rec[REC_WORDS];
+  uint64_t mut[32];
+  uint64_t req[Q_N + 1];
+};
+// bal_of reads eight balance words as four 16-B loads.
+static_assert(Q_W % 2 == 0 && Q_WC % 2 == 0 && M_CR % 2 == 0 &&
+                  REC_WORDS % 2 == 0 && sizeof(Stage) % 16 == 0 &&
+                  SEQ_D % 2 == 0,
+              "words read in 16-B pairs must be 16-B aligned");
+
+struct SeqShared {
+  uint64_t full[SEQ_D], done[SEQ_D], empty[SEQ_D];  // mbarriers
+  // The transfer and posted slots event e inserted at [e % SEQ_D] (SEQ_SENT
+  // where none): the window's inserts, as 16-B pairs.
+  uint64_t recent_t[SEQ_D], recent_p[SEQ_D];
+  Stage ring[SEQ_D];
+  uint32_t ins_slot[SEQ_MAX_N];  // transfer slot event j inserted | ALIVE
+  uint32_t pst_slot[SEQ_MAX_N];  // posted slot event j inserted | ALIVE | VOIDED
+  uint16_t lastw[2 * SEQ_MAX_N]; // last event that wrote a dense account
+  uint16_t ins_last[SEQ_MAX_N];  // per id group: its latest inserting event
+  uint16_t pst_last[SEQ_MAX_N];  // per posted-key group: its latest inserting event
+  uint8_t scode[SEQ_MAX_N];      // raw code | 0x80 where linked
+  int wrote_back;
+};
+
+static __device__ __forceinline__ Bal bal_of(const uint64_t* w) {
+  const ulonglong2* v = reinterpret_cast<const ulonglong2*>(w);
+  const ulonglong2 a = v[0], b = v[1], c = v[2], d = v[3];
+  Bal r;
+  r.dp = mk128(a.x, a.y);
+  r.dpo = mk128(b.x, b.y);
+  r.cp = mk128(c.x, c.y);
+  r.cpo = mk128(d.x, d.y);
+  return r;
+}
+
+// The sequencer's registers.
+struct SeqState {
+  Chain ch;
+  uint64_t xcount, pcount;
+  long long h;
+  int64_t last_rb;  // event of the last rollback, -1 before any
+  int64_t stored;   // events whose effects are known stored (-1: none)
+  bool serial;      // a capped insert switched the rest of the batch
+  bool pst_dirty;   // a posted insert the posted-key groups do not know
+#ifdef SEQ_CYCLES
+  unsigned long long cy[CY_N];
+#endif
+};
+
+// Make every effect of the events before e visible in device memory before
+// the sequencer reads it there (a slow path): wait for the writer.
+static __device__ void flush_before(SeqShared& S, int64_t e, SeqState& q) {
+  const int64_t x = e - 1;
+  if (x <= q.stored) return;
+  CY_NOW(t0);
+  mbar_wait(&S.empty[x % SEQ_D], (uint32_t)((x / SEQ_D) & 1));
+  q.stored = x;
+  CY_ADD(q.cy, CY_FLUSH, t0);
+#ifdef SEQ_CYCLES
+  q.cy[CY_FLUSHES] += 1;
+#endif
+}
+
+// The current balances of dense account d at event e: the staged copy
+// (read after the effects of event e - SEQ_D were stored) unless an event
+// of the window (e - SEQ_D, e) wrote d (forwarded from the window) or a
+// rollback ran in the window (read from device memory).
+static __device__ Bal cur_bal(const SeqTransferArgs& A, SeqShared& S,
+                              int64_t e, uint32_t d, const uint64_t* staged,
+                              SeqState& q) {
+  if (!(q.last_rb >= 0 && e - q.last_rb < SEQ_D)) {
+    const uint32_t w = S.lastw[d];
+    if (w != NONE16 && e - (int64_t)w < SEQ_D) {
+      const uint64_t* wq = S.ring[w % SEQ_D].req;
+      return bal_of(wq[Q_CD] == d ? wq + Q_WC : wq + Q_W);
+    }
+    if (staged) return bal_of(staged);
+  }
+  flush_before(S, e, q);
+  return bal_of(A.bal + (uint64_t)d * 8);
+}
+
+// Whether an event of the window inserted at `slot` (the current event's
+// entry holds SEQ_SENT until it inserts).
+static __device__ bool inserted_in_window(const SeqShared& S, uint64_t slot,
+                                          bool posted) {
+  const ulonglong2* v =
+      reinterpret_cast<const ulonglong2*>(posted ? S.recent_p : S.recent_t);
+  bool hit = false;
+#pragma unroll
+  for (int k = 0; k < SEQ_D / 2; ++k) {
+    const ulonglong2 x = v[k];
+    hit |= (x.x == slot) | (x.y == slot);
+  }
+  return hit;
+}
+
+// The insert slot of a key whose pre-batch probe ended at the truly empty
+// slot f0 after t0 steps: f0 while it is still truly empty (its staged words
+// say so and no event of the window inserted there), else the walk on from
+// f0 through the table in device memory.
+static __device__ uint64_t place(const DevTable& T, SeqShared& S, int64_t e,
+                                 uint64_t lo, uint64_t hi, uint64_t f0,
+                                 uint64_t t0, const uint64_t* staged,
+                                 bool posted, SeqState& q, bool* capped) {
+  if (staged[0] == 0 && staged[1] == 0 && staged[2] == 0 &&
+      !inserted_in_window(S, f0, posted)) {
+    *capped = false;
+    return f0;
+  }
+  flush_before(S, e, q);
+  return free_from(T, mix64(lo, hi) & T.mask, t0, capped);
+}
+
+static __device__ __forceinline__ void put_bal(uint64_t* dst, const uint64_t* w) {
+  for (int k = 0; k < 8; ++k) dst[k] = w[k];
+}
+
+// Fast mode: one event from its staged record and the overlay; its writes
+// go into the slot's request.
+static __device__ uint32_t fast_event(const SeqTransferArgs& A, SeqShared& S,
+                                      int64_t e, Stage& st, SeqState& q) {
+  const uint64_t* __restrict__ r = st.rec;
+  uint64_t* req = st.req;
+  req[Q_FLAGS] = 0;
+  S.recent_t[e % SEQ_D] = S.recent_p[e % SEQ_D] = SEQ_SENT;
+  Ev v;
+  ev_from_rec(r, &v);
+  const bool linked = v.flags & TF_LINKED;
+  // Only a linked event's undo record is ever read (a chain's events are
+  // all linked), so only a linked event's is written.
+  uint64_t* undo = req + Q_UNDO;
+  if (linked) {
+    undo[0] = undo[1] = undo[18] = undo[19] = SEQ_SENT;
+    undo[20] = 0;
+    req[Q_FLAGS] = QF_UNDO;
+  }
+  if (linked && q.ch.start < 0) q.ch.start = e;
+  const bool in_chain = q.ch.start >= 0;
+  const bool chain_open_err = linked && e == A.count - 1;
+  const uint64_t ev_ts = A.timestamp - (uint64_t)A.count + 1 + (uint64_t)e;
+  const uint64_t bits = r[R_BITS];
+  uint32_t code = 0;
+  if (chain_open_err) code = 2;
+  else if (q.ch.broken) code = 1;
+  else if (v.ts != 0) code = 3;
+  else code = (uint32_t)r[R_SCODE];  // the static checks, from K32
+  CY_NOW(t_gather);
+  if (code == 0) {
+    const bool postvoid = v.flags & (TF_POST | TF_VOID);
+    Gathered g = {};
+    const uint64_t* legs = r;  // whose account legs: this record or j's
+    bool p_slow = false;
+    // The pending transfer: found before the batch, or the live row of the
+    // latest event of its id group that inserted one.
+    if (postvoid && (bits & RB_PFOUND)) {
+      g.p_found = true;
+    } else if (postvoid && r[R_PEND_GRP] != SEQ_NONE) {
+      const uint32_t grp = (uint32_t)r[R_PEND_GRP];
+      const uint32_t j = S.ins_last[grp];
+      if (j != NONE16 && (S.ins_slot[j] & ALIVE)) {
+        g.p_found = true;
+        const uint64_t ps = S.ins_slot[j] & ~ALIVE;
+        if (j == grp && (bits & RB_PCAND)) {
+          if (bits & RB_PCLAMP) {  // the stored amount may be clamped
+            flush_before(S, e, q);
+            g.p.amount = mk128(C64(A.xfr, TT_AMOUNT_LO)[ps], C64(A.xfr, TT_AMOUNT_HI)[ps]);
+          }
+        } else {
+          p_slow = true;
+          flush_before(S, e, q);
+          g.p = row_at(A.xfr, ps);
+          legs = A.rec + (uint64_t)j * REC_WORDS;
+        }
+      }
+    }
+    if (g.p_found && !p_slow) {
+      g.p.flags = (uint32_t)r[R_P_FLAGS_TIMEOUT];
+      g.p.timeout = (uint32_t)(r[R_P_FLAGS_TIMEOUT] >> 32);
+      g.p.ledger = (uint32_t)r[R_P_LEDGER_CODE];
+      g.p.code = (uint32_t)(r[R_P_LEDGER_CODE] >> 32);
+      g.p.ud32 = (uint32_t)r[R_P_UD32];
+      g.p.ts = r[R_P_TS];
+      g.p.ud64 = r[R_P_UD64];
+      g.p.ud128_lo = r[R_P_UD128_LO];
+      g.p.ud128_hi = r[R_P_UD128_HI];
+      if (!(bits & RB_PCLAMP))
+        g.p.amount = mk128(r[R_P_AMOUNT_LO], r[R_P_AMOUNT_HI]);
+      g.p.dr_id = mk128(r[R_P_DR_LO], r[R_P_DR_HI]);
+      g.p.cr_id = mk128(r[R_P_CR_LO], r[R_P_CR_HI]);
+    }
+    // The accounts: slots and flags from the pre-pass, balances current.
+    uint32_t dd = NONE32, cd = NONE32;
+    const uint64_t lbits = legs[R_BITS];
+    if ((lbits & RB_LEGS) && (!postvoid || g.p_found)) {
+      dd = (uint32_t)legs[R_DR_DENSE];
+      cd = (uint32_t)legs[R_CR_DENSE];
+      g.dr.found = lbits & RB_DRF;
+      g.cr.found = lbits & RB_CRF;
+      g.dr.slot = legs[R_DR_SLOT];
+      g.cr.slot = legs[R_CR_SLOT];
+      g.dr.flags = (uint32_t)legs[R_DR_FL];
+      g.dr.ledger = (uint32_t)(legs[R_DR_FL] >> 32);
+      g.cr.flags = (uint32_t)legs[R_CR_FL];
+      g.cr.ledger = (uint32_t)(legs[R_CR_FL] >> 32);
+      if (g.dr.found)
+        g.dr.b = cur_bal(A, S, e, dd, p_slow ? nullptr : st.mut + M_DR, q);
+      if (g.cr.found)
+        g.cr.b = cur_bal(A, S, e, cd, p_slow ? nullptr : st.mut + M_CR, q);
+    }
+    // A stored transfer with this id: before the batch, or the live row of
+    // the latest event of the id group that inserted one.
+    if (bits & RB_EFOUND) {
+      g.e_found = true;
+      g.e.flags = (uint32_t)r[R_E_FLAGS_TIMEOUT];
+      g.e.timeout = (uint32_t)(r[R_E_FLAGS_TIMEOUT] >> 32);
+      g.e.code = (uint32_t)r[R_E_CODE_UD32];
+      g.e.ud32 = (uint32_t)(r[R_E_CODE_UD32] >> 32);
+      g.e.dr_id = mk128(r[R_E_DR_LO], r[R_E_DR_HI]);
+      g.e.cr_id = mk128(r[R_E_CR_LO], r[R_E_CR_HI]);
+      g.e.amount = mk128(r[R_E_AMOUNT_LO], r[R_E_AMOUNT_HI]);
+      g.e.pending_id = mk128(r[R_E_PENDING_LO], r[R_E_PENDING_HI]);
+      g.e.ud128_lo = r[R_E_UD128_LO];
+      g.e.ud128_hi = r[R_E_UD128_HI];
+      g.e.ud64 = r[R_E_UD64];
+    } else {
+      const uint32_t j = S.ins_last[(uint32_t)r[R_ID_GRP]];
+      if (j != NONE16 && (S.ins_slot[j] & ALIVE)) {
+        g.e_found = true;
+        flush_before(S, e, q);
+        g.e = row_at(A.xfr, S.ins_slot[j] & ~ALIVE);
+      }
+    }
+    // The posted row of the pending's timestamp.
+    const bool pst_walk = postvoid && g.p_found && (p_slow || q.pst_dirty);
+    if (pst_walk) {
+      uint64_t posted_slot, posted_free;
+      bool posted_capped;
+      flush_before(S, e, q);
+      g.posted_found = probe_key(A.pst, g.p.ts, 0, &posted_slot, &posted_free, &posted_capped);
+      g.posted_val = g.posted_found ? C32(A.pst, 0)[posted_slot] : 0;
+    } else if (postvoid && g.p_found) {
+      if (bits & RB_KFOUND) {
+        g.posted_found = true;
+        g.posted_val = (uint32_t)r[R_KVAL];
+      } else {
+        const uint32_t j = S.pst_last[r[R_KGRP] >> 1];
+        if (j != NONE16 && (S.pst_slot[j] & ALIVE)) {
+          g.posted_found = true;
+          g.posted_val = (S.pst_slot[j] & VOIDED) ? 2 : 1;
+        }
+      }
+    }
+    u128 eff;
+    CY_ADD(q.cy, CY_GATHER, t_gather);
+    CY_NOW(t_ladder);
+    code = dynamic_code(v, ev_ts, g, &eff);
+    CY_ADD(q.cy, CY_LADDER, t_ladder);
+
+    CY_NOW(t_apply);
+    if (code == 0) {  // _apply_transfer, as the slot's request
+      Bal ndr, ncr;
+      new_balances(v, g, eff, &ndr, &ncr);
+      uint64_t* w = req + Q_W;
+      uint64_t* wc = req + Q_WC;
+      bal_words(ndr, w);
+      bal_words(ncr, wc);
+      req[Q_DD] = dd;
+      req[Q_CD] = cd;
+      if (linked) {
+        undo[0] = g.dr.slot;
+        undo[1] = g.cr.slot;
+        undo[21] = dd;
+        undo[22] = cd;
+        bal_words(g.dr.b, undo + 2);
+        bal_words(g.cr.b, undo + 10);
+      }
+      S.lastw[dd] = (uint16_t)e;
+      S.lastw[cd] = (uint16_t)e;
+      // Transfer insert at the first truly empty slot of its probe.
+      bool capped = bits & RB_ECAP;
+      uint64_t s = 0;
+      if (!capped)
+        s = place(A.xfr, S, e, v.id_lo, v.id_hi, r[R_ESLOT], r[R_ET],
+                  st.mut + M_EKEY_LO, false, q, &capped);
+      if (capped) {
+        s = 0;
+        *A.overflow = 1;
+        q.serial = true;
+      }
+      req[Q_TSLOT] = s;
+      req[Q_EFF_LO] = lo64(eff);
+      req[Q_EFF_HI] = hi64(eff);
+      uint64_t flags = req[Q_FLAGS] | QF_APPLIED;
+      if (p_slow) {  // the pending row's fields the transfer row copies
+        flags |= QF_PSLOW;
+        req[Q_P_DR_LO] = lo64(g.p.dr_id);
+        req[Q_P_DR_HI] = hi64(g.p.dr_id);
+        req[Q_P_CR_LO] = lo64(g.p.cr_id);
+        req[Q_P_CR_HI] = hi64(g.p.cr_id);
+        req[Q_P_UD128_LO] = g.p.ud128_lo;
+        req[Q_P_UD128_HI] = g.p.ud128_hi;
+        req[Q_P_UD64] = g.p.ud64;
+        req[Q_P_UD32] = g.p.ud32;
+        req[Q_P_LEDGER] = g.p.ledger;
+        req[Q_P_CODE] = g.p.code;
+      }
+      q.xcount += 1;
+      if (linked) undo[18] = s;
+      S.recent_t[e % SEQ_D] = s;
+      S.ins_slot[e] = (uint32_t)s | ALIVE;
+      S.ins_last[(uint32_t)r[R_ID_GRP]] = (uint16_t)e;
+      if (postvoid) {
+        uint64_t ps = 0;
+        bool pcapped = false;
+        if (pst_walk || (bits & RB_KFOUND)) {
+          flush_before(S, e, q);
+          ps = sprobe_free(A.pst, g.p.ts, 0, &pcapped);
+          q.pst_dirty |= pst_walk;
+        } else if (bits & RB_KCAP) {
+          pcapped = true;
+        } else {
+          ps = place(A.pst, S, e, g.p.ts, 0, r[R_KSLOT], r[R_KT],
+                     st.mut + M_KKEY_LO, true, q, &pcapped);
+        }
+        if (pcapped) {
+          ps = 0;
+          *A.overflow = 1;
+          q.serial = true;
+        }
+        const bool post = v.flags & TF_POST;
+        req[Q_PSLOT] = ps;
+        req[Q_PKEY] = g.p.ts;
+        flags |= QF_POSTED;
+        q.pcount += 1;
+        if (linked) undo[19] = ps;
+        S.recent_p[e % SEQ_D] = ps;
+        S.pst_slot[e] = (uint32_t)ps | ALIVE | (post ? 0u : VOIDED);
+        if (!pst_walk) S.pst_last[r[R_KGRP] >> 1] = (uint16_t)e;
+      } else if ((g.dr.flags & AF_HISTORY) || (g.cr.flags & AF_HISTORY)) {
+        // History append (state_machine.zig:1342-1364); a row past the
+        // capacity is dropped while count still advances.
+        if (q.h < A.hist_cap) {
+          req[Q_HIDX] = (uint64_t)q.h;
+          flags |= QF_HIST;
+        }
+        q.h += 1;
+        if (linked) undo[20] = 1;
+      }
+      req[Q_FLAGS] = flags;
+    }
+    CY_ADD(q.cy, CY_APPLY, t_apply);
+  }
+
+  // Chain break: roll back chain_start..e-1 in reverse, in the dense
+  // balances and the overlay, once the writer has stored their effects.
+  if (code != 0 && in_chain && !q.ch.broken) {
+    CY_NOW(t_rb);
+    flush_before(S, e, q);
+    for (int64_t j = e - 1; j >= q.ch.start; --j) {
+      const uint64_t* u = A.undo + j * UNDO_WORDS;
+      if (u[1] < SEQ_SENT) put_bal(A.bal + u[22] * 8, u + 10);
+      if (u[0] < SEQ_SENT) put_bal(A.bal + u[21] * 8, u + 2);
+      if (u[18] < SEQ_SENT) {
+        tombstone_slot(A.xfr.key_lo, A.xfr.key_hi, A.xfr.tomb, u[18]);
+        q.xcount -= 1;
+        S.ins_slot[j] &= ~ALIVE;
+      }
+      if (u[19] < SEQ_SENT) {
+        tombstone_slot(A.pst.key_lo, A.pst.key_hi, A.pst.tomb, u[19]);
+        q.pcount -= 1;
+        S.pst_slot[j] &= ~ALIVE;
+      }
+      q.h -= (long long)u[20];
+    }
+    q.ch.broken = true;
+    q.last_rb = e;
+    CY_ADD(q.cy, CY_ROLLBACK, t_rb);
+  }
+  if (in_chain && (!linked || chain_open_err)) {
+    q.ch.start = -1;
+    q.ch.broken = false;
+  }
+  return code;
+}
+
+// Word k of the transfer row event e stores (write_row's values), from its
+// record r and request q.
+static __device__ uint64_t row_word(int k, const uint64_t* r,
+                                    const uint64_t* q, uint64_t ev_ts) {
+  const bool pv = r[R_V_FLAGS] & (TF_POST | TF_VOID);
+  const bool ps = q[Q_FLAGS] & QF_PSLOW;
+  const uint32_t ud32 = (uint32_t)r[R_V_UD32_TIMEOUT];
+  const bool ud128_zero = r[R_V_UD128_LO] == 0 && r[R_V_UD128_HI] == 0;
+  switch (k) {
+    case TT_DEBIT_ACCOUNT_ID_LO: return pv ? (ps ? q[Q_P_DR_LO] : r[R_P_DR_LO]) : r[R_V_DR_LO];
+    case TT_DEBIT_ACCOUNT_ID_HI: return pv ? (ps ? q[Q_P_DR_HI] : r[R_P_DR_HI]) : r[R_V_DR_HI];
+    case TT_CREDIT_ACCOUNT_ID_LO: return pv ? (ps ? q[Q_P_CR_LO] : r[R_P_CR_LO]) : r[R_V_CR_LO];
+    case TT_CREDIT_ACCOUNT_ID_HI: return pv ? (ps ? q[Q_P_CR_HI] : r[R_P_CR_HI]) : r[R_V_CR_HI];
+    case TT_AMOUNT_LO: return q[Q_EFF_LO];
+    case TT_AMOUNT_HI: return q[Q_EFF_HI];
+    case TT_PENDING_ID_LO: return r[R_V_PENDING_LO];
+    case TT_PENDING_ID_HI: return r[R_V_PENDING_HI];
+    case TT_USER_DATA_128_LO:
+      return (pv && ud128_zero) ? (ps ? q[Q_P_UD128_LO] : r[R_P_UD128_LO]) : r[R_V_UD128_LO];
+    case TT_USER_DATA_128_HI:
+      return (pv && ud128_zero) ? (ps ? q[Q_P_UD128_HI] : r[R_P_UD128_HI]) : r[R_V_UD128_HI];
+    case TT_USER_DATA_64:
+      return (pv && r[R_V_UD64] == 0) ? (ps ? q[Q_P_UD64] : r[R_P_UD64]) : r[R_V_UD64];
+    case TT_USER_DATA_32:
+      return (pv && ud32 == 0) ? (ps ? q[Q_P_UD32] : (uint32_t)r[R_P_UD32]) : ud32;
+    case TT_TIMEOUT: return pv ? 0 : r[R_V_UD32_TIMEOUT] >> 32;
+    case TT_LEDGER:
+      return pv ? (ps ? q[Q_P_LEDGER] : (uint32_t)r[R_P_LEDGER_CODE])
+                : (uint32_t)r[R_V_LEDGER_CODE];
+    case TT_CODE:
+      return pv ? (ps ? q[Q_P_CODE] : r[R_P_LEDGER_CODE] >> 32) : r[R_V_LEDGER_CODE] >> 32;
+    case TT_FLAGS: return r[R_V_FLAGS];
+    default: return ev_ts;  // TT_TIMESTAMP
+  }
+}
+
+// Word k of the history row event e appends (state_machine.zig:1342-1364:
+// a side without the history flag stays zero).
+static __device__ uint64_t hist_word(int k, const uint64_t* r,
+                                     const uint64_t* q, uint64_t ev_ts) {
+  if (k == H_TIMESTAMP) return ev_ts;
+  const int side = k / 10, j = k % 10;
+  if (!((uint32_t)r[side ? R_CR_FL : R_DR_FL] & AF_HISTORY)) return 0;
+  if (j < 2) return r[(side ? R_V_CR_LO : R_V_DR_LO) + j];
+  return q[(side ? Q_WC : Q_W) + j - 2];
+}
+
+// The writer warp: the request of event e, composed with its record and
+// stored by the 32 lanes.
+static __device__ void store_request(const SeqTransferArgs& A, int64_t e,
+                                     const Stage& st, int lane) {
+  const uint64_t* q = st.req;
+  const uint64_t* r = st.rec;
+  const uint64_t flags = q[Q_FLAGS];
+  if (flags & QF_APPLIED) {
+    const uint64_t ev_ts = A.timestamp - (uint64_t)A.count + 1 + (uint64_t)e;
+    const uint64_t dd = q[Q_DD], cd = q[Q_CD];
+    // Both legs on one account: the credit leg's words are the last ones.
+    if (lane < 8 && dd != cd) A.bal[dd * 8 + lane] = q[Q_W + lane];
+    if (lane >= 8 && lane < 16) A.bal[cd * 8 + lane - 8] = q[Q_WC + lane - 8];
+    const uint64_t s = q[Q_TSLOT];
+    for (int k = lane - 16; k < TT_N + 3; k += 32) {
+      if (k < 0) continue;
+      if (k < TT_N) {
+        const uint64_t v = row_word(k, r, q, ev_ts);
+        if (k == TT_USER_DATA_32 || k == TT_TIMEOUT || k == TT_LEDGER ||
+            k == TT_CODE || k == TT_FLAGS)
+          C32(A.xfr, k)[s] = (uint32_t)v;
+        else
+          C64(A.xfr, k)[s] = v;
+      } else if (k == TT_N) {
+        A.xfr.key_lo[s] = r[R_V_ID_LO];
+      } else if (k == TT_N + 1) {
+        A.xfr.key_hi[s] = r[R_V_ID_HI];
+      } else {
+        A.xfr.tomb[s] = 0;
+      }
+    }
+    if (flags & QF_POSTED) {
+      const uint64_t ps = q[Q_PSLOT];
+      if (lane == 4) A.pst.key_lo[ps] = q[Q_PKEY];
+      if (lane == 5) A.pst.key_hi[ps] = 0;
+      if (lane == 6) A.pst.tomb[ps] = 0;
+      if (lane == 7) C32(A.pst, 0)[ps] = (r[R_V_FLAGS] & TF_POST) ? 1u : 2u;
+    }
+    if ((flags & QF_HIST) && lane < H_N) A.hist[lane][q[Q_HIDX]] = hist_word(lane, r, q, ev_ts);
+  }
+  if ((flags & QF_UNDO) && lane < UNDO_WORDS)
+    A.undo[e * UNDO_WORDS + lane] = q[Q_UNDO + lane];
+}
+
+// Write the dense balances back to the accounts table: threads t, t +
+// stride, ... of the caller.
+static __device__ void write_back(const SeqTransferArgs& A, int64_t t,
+                                  int64_t stride) {
+  for (int64_t d = t; d < 2 * A.n; d += stride) {
+    const uint64_t slot = A.dslot[d];
+    if (slot == SEQ_NONE) continue;
+    store_words(A.acc, slot, A.bal + d * 8);
+  }
+}
+
+// _chain_codes over the raw codes in shared memory (sc[i] & 0x7F, linked
+// where 0x80), as chain_codes does over device memory.
+static __device__ void chain_codes_shared(uint8_t* sc, int64_t n,
+                                          int64_t count) {
+  auto linked = [&](int64_t i) { return i < count && (sc[i] & 0x80) != 0; };
+  auto code_o = [&](int64_t i) {
+    return (i == count - 1 && linked(i)) ? 2 : (sc[i] & 0x7F);
+  };
+  int64_t i = 0;
+  while (i < n) {
+    if (!linked(i)) {
+      ++i;
+      continue;
+    }
+    const int64_t s = i;
+    int64_t e = s;
+    while (e < n - 1 && linked(e)) ++e;
+    int64_t f = -1;
+    for (int64_t j = s; j <= e && f < 0; ++j)
+      if (code_o(j) != 0) f = j;
+    for (int64_t j = s; j <= e; ++j) {
+      int c;
+      if (f < 0 || j == f) c = code_o(j);
+      else if (j < f) c = 1;
+      else c = (j == count - 1 && linked(j)) ? 2 : 1;
+      sc[j] = (uint8_t)((sc[j] & 0x80) | c);
+    }
+    i = e + 1;
+  }
+}
+
+__global__ void __launch_bounds__(SEQ_THREADS)
+seq_transfers_kernel(SeqTransferArgs A) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  SeqShared& S = *reinterpret_cast<SeqShared*>(seq_dyn_smem());
+  for (int64_t k = threadIdx.x; k < 2 * SEQ_MAX_N; k += blockDim.x) {
+    S.lastw[k] = NONE16;
+    if (k < SEQ_MAX_N) {
+      S.ins_last[k] = NONE16;
+      S.pst_last[k] = NONE16;
+      S.scode[k] = 0;
+    }
+  }
+  if (threadIdx.x < SEQ_D) {
+    mbar_init(&S.full[threadIdx.x], 32);
+    mbar_init(&S.done[threadIdx.x], 1);
+    mbar_init(&S.empty[threadIdx.x], 32);
+    S.ring[threadIdx.x].req[Q_FLAGS] = 0;
+    S.recent_t[threadIdx.x] = S.recent_p[threadIdx.x] = SEQ_SENT;
+  }
+  if (threadIdx.x == 0) S.wrote_back = 0;
+  __syncthreads();
+
+  if (warp < SEQ_WRITER && warp % 4 != 0) {
+    // A stager: copy the record in (cp.async), then read the words the
+    // sequencer may have changed, once event e - SEQ_D's effects are stored.
+    CY_DECL(cy);
+    for (int64_t e = warp - 1 - warp / 4; e < A.count; e += SEQ_W) {
+      const int s = (int)(e % SEQ_D);
+      Stage& st = S.ring[s];
+      const int64_t k = e / SEQ_D;
+      CY_NOW(t_wait);
+      if (k > 0) mbar_wait(&S.empty[s], (uint32_t)((k - 1) & 1), 256);
+      CY_ADD(cy, CY_STAGE_WAIT, t_wait);
+      CY_NOW(t_work);
+      cp_async16(&st.rec[2 * lane], A.rec + e * REC_WORDS + 2 * lane);
+      cp_async_wait_all();
+      __syncwarp();
+      const uint64_t bits = st.rec[R_BITS];
+      uint64_t val = 0;
+      if (lane < 16) {
+        const uint64_t d = st.rec[lane < 8 ? R_DR_DENSE : R_CR_DENSE];
+        if ((bits & RB_LEGS) && d != SEQ_NONE) val = ld_cg_u64(A.bal + d * 8 + (lane & 7));
+      } else if (lane < 19) {
+        if (!(bits & (RB_EFOUND | RB_ECAP))) {
+          const uint64_t slot = st.rec[R_ESLOT];
+          val = lane == M_EKEY_LO ? ld_cg_u64(A.xfr.key_lo + slot)
+              : lane == M_EKEY_HI ? ld_cg_u64(A.xfr.key_hi + slot)
+                                  : ld_cg_u8(A.xfr.tomb + slot);
+        }
+      } else if (lane < 22) {
+        if ((bits & RB_KKEY) && !(bits & (RB_KFOUND | RB_KCAP))) {
+          const uint64_t slot = st.rec[R_KSLOT];
+          val = lane == M_KKEY_LO ? ld_cg_u64(A.pst.key_lo + slot)
+              : lane == M_KKEY_HI ? ld_cg_u64(A.pst.key_hi + slot)
+                                  : ld_cg_u8(A.pst.tomb + slot);
+        }
+      }
+      st.mut[lane] = val;
+      mbar_arrive(&S.full[s]);
+      CY_ADD(cy, CY_STAGE_WORK, t_work);
+    }
+    if (lane == 0) CY_PUBLISH(cy);
+  } else if (warp == SEQ_WRITER) {
+    // The writer: each event's request, in event order.
+    CY_DECL(cy);
+    for (int64_t e = 0; e < A.count; ++e) {
+      const int s = (int)(e % SEQ_D);
+      CY_NOW(t_wait);
+      mbar_wait(&S.done[s], (uint32_t)((e / SEQ_D) & 1), 64);
+      CY_ADD(cy, CY_WRITE_WAIT, t_wait);
+      CY_NOW(t_work);
+      store_request(A, e, S.ring[s], lane);
+      __syncwarp();
+      mbar_arrive(&S.empty[s]);
+      CY_ADD(cy, CY_WRITE_WORK, t_work);
+    }
+    if (lane == 0) CY_PUBLISH(cy);
+  } else if (warp == 0 && lane == 0) {
+    SeqState q;
+    q.ch.start = -1;
+    q.ch.broken = false;
+    q.xcount = (uint64_t)*A.xfr.count;
+    q.pcount = (uint64_t)*A.pst.count;
+    q.h = *A.hist_count;
+    q.last_rb = -1;
+    q.stored = -1;
+    q.serial = false;
+    q.pst_dirty = false;
+#ifdef SEQ_CYCLES
+    for (int k = 0; k < CY_N; ++k) q.cy[k] = 0;
+#endif
+    CY_NOW(t_loop);
+    for (int64_t e = 0; e < A.count; ++e) {
+      const int s = (int)(e % SEQ_D);
+      Stage& st = S.ring[s];
+      CY_NOW(t_wait);
+      mbar_wait(&S.full[s], (uint32_t)((e / SEQ_D) & 1));
+      CY_ADD(q.cy, CY_WAIT, t_wait);
+      uint32_t code;
+      bool switched = false;
+      if (!q.serial) {
+        code = fast_event(A, S, e, st, q);
+        switched = q.serial;
+      } else {
+        CY_NOW(t_serial);
+        st.req[Q_FLAGS] = 0;
+        code = serial_event(A, e, &q.ch);
+        CY_ADD(q.cy, CY_SERIAL, t_serial);
+      }
+      const uint32_t flags = (uint32_t)st.rec[R_V_FLAGS];
+      S.scode[e] = (uint8_t)(code | ((flags & TF_LINKED) ? 0x80u : 0u));
+      mbar_arrive(&S.done[s]);
+      if (switched) {  // a capped insert: the rest as the serial kernel
+        flush_before(S, e + 1, q);
+        *A.xfr.count = (long long)q.xcount;
+        *A.pst.count = (long long)q.pcount;
+        *A.hist_count = q.h;
+        write_back(A, 0, 1);
+        S.wrote_back = 1;
+      }
+    }
+    if (!S.wrote_back) {
+      *A.xfr.count = (long long)q.xcount;
+      *A.pst.count = (long long)q.pcount;
+      *A.hist_count = q.h;
+    }
+    chain_codes_shared(S.scode, A.n, A.count);
+    CY_ADD(q.cy, CY_LOOP, t_loop);
+    CY_PUBLISH(q.cy);
+  }
+  __syncthreads();
+  for (int64_t i = threadIdx.x; i < A.n; i += blockDim.x)
+    A.codes[i] = (int32_t)(S.scode[i] & 0x7F);  // the chain pass may
+                                                // reach past count
+  if (!S.wrote_back) write_back(A, threadIdx.x, blockDim.x);
 }
 
 // ---------------------------------------------------------------------------
 // K7 seq_accounts
 // ---------------------------------------------------------------------------
+
+#define EV64(k) (static_cast<const uint64_t*>(A.batch[k])[i])
+#define EV32(k) (static_cast<const uint32_t*>(A.batch[k])[i])
 
 struct SeqAccountArgs {
   const void* batch[AB_N];
@@ -756,16 +2052,74 @@ static int pack_table(DevTable* T, const void* const* t, int nptrs, int ncols,
   return 0;
 }
 
+static bool pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// K32: `rec` u64[n * REC_WORDS], `bal` u64[2n * 8], `dslot` u64[2n],
+// `hash` u64[2 * (h_id + h_acc + h_pst)] (each a power of two of at least
+// 2n, 4n and 2n entries); all written here.
+extern "C" int tb_seq_prepass(const void* const* batch, int nbatch,
+                              const void* const* acc, int nacc, int64_t acc_cap,
+                              const void* const* xfr, int nxfr, int64_t xfr_cap,
+                              const void* const* pst, int npst, int64_t pst_cap,
+                              int64_t n, int64_t count, uint64_t timestamp,
+                              void* rec, void* bal, void* dslot, void* hash,
+                              int64_t h_id, int64_t h_acc, int64_t h_pst,
+                              void* stream) {
+  SeqPreArgs A;
+  if (nbatch != TB_N || n <= 0 || count > n || !pow2(h_id) || !pow2(h_acc) ||
+      !pow2(h_pst) || h_id < 2 * n || h_acc < 4 * n || h_pst < 2 * n)
+    return (int)cudaErrorInvalidValue;
+  int err = pack_table(&A.acc, acc, nacc, AT_N, acc_cap);
+  if (!err) err = pack_table(&A.xfr, xfr, nxfr, TT_N, xfr_cap);
+  if (!err) err = pack_table(&A.pst, pst, npst, 1, pst_cap);
+  if (err) return err;
+  for (int k = 0; k < TB_N; ++k) A.batch[k] = batch[k];
+  A.n = n;
+  A.count = count;
+  A.ts_base = timestamp - (uint64_t)count + 1;
+  A.rec = (uint64_t*)rec;
+  A.bal = (uint64_t*)bal;
+  A.dslot = (uint64_t*)dslot;
+  A.hash = (ull*)hash;
+  A.hash_n = h_id + h_acc + h_pst;
+  const JoinHash regions[3] = {
+      {A.hash, A.hash + A.hash_n, (uint64_t)(h_id - 1)},
+      {A.hash + h_id, A.hash + A.hash_n + h_id, (uint64_t)(h_acc - 1)},
+      {A.hash + h_id + h_acc, A.hash + A.hash_n + h_id + h_acc,
+       (uint64_t)(h_pst - 1)}};
+  A.hid = regions[0];
+  A.hacc = regions[1];
+  A.hpst = regions[2];
+  const int threads = 256;
+  const int64_t span = A.hash_n > 2 * n ? A.hash_n : 2 * n;
+  const unsigned blocks0 = (unsigned)((span + threads - 1) / threads);
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  seq_pre_probe<<<blocks0, threads, 0, s>>>(A);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  seq_pre_join<<<blocks, threads, 0, s>>>(A);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  seq_pre_link<<<blocks, threads, 0, s>>>(A);
+  return (int)cudaGetLastError();
+}
+
+// K6: K32's outputs, then the undo log u64[n * UNDO_WORDS], the codes
+// int32[n] and the overflow word int32[1] (zero on entry).  At most
+// SEQ_MAX_N lanes and SEQ_MAX_SLOTS transfer and posted slots.
 extern "C" int tb_seq_transfers(const void* const* batch, int nbatch,
                                 const void* const* acc, int nacc, int64_t acc_cap,
                                 const void* const* xfr, int nxfr, int64_t xfr_cap,
                                 const void* const* pst, int npst, int64_t pst_cap,
                                 const void* const* hist, int nhist, int64_t hist_cap,
                                 int64_t n, int64_t count, uint64_t timestamp,
+                                const void* rec, void* bal, const void* dslot,
                                 void* undo, void* codes, void* overflow,
                                 void* stream) {
   SeqTransferArgs A;
-  if (nbatch != TB_N || nhist != H_N + 1 || n <= 0 || count > n)
+  if (nbatch != TB_N || nhist != H_N + 1 || n <= 0 || count > n ||
+      n > SEQ_MAX_N || xfr_cap > SEQ_MAX_SLOTS || pst_cap > SEQ_MAX_SLOTS)
     return (int)cudaErrorInvalidValue;
   int err = pack_table(&A.acc, acc, nacc, AT_N, acc_cap);
   if (!err) err = pack_table(&A.xfr, xfr, nxfr, TT_N, xfr_cap);
@@ -781,8 +2135,30 @@ extern "C" int tb_seq_transfers(const void* const* batch, int nbatch,
   A.undo = (uint64_t*)undo;
   A.codes = (int32_t*)codes;
   A.overflow = (int*)overflow;
-  seq_transfers_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(A);
+  A.rec = (const uint64_t*)rec;
+  A.bal = (uint64_t*)bal;
+  A.dslot = (const uint64_t*)dslot;
+  const int smem = (int)sizeof(SeqShared);
+  cudaError_t e = cudaFuncSetAttribute(
+      seq_transfers_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  seq_transfers_kernel<<<1, SEQ_THREADS, smem, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
+}
+
+// The sequencer's cycle counters summed since the last call (SeqCycle
+// order, CY_N words), then cleared; waits for the card.  A library built
+// without SEQ_CYCLES has none and says so.
+extern "C" int tb_seq_cycles(unsigned long long* out) {
+#ifdef SEQ_CYCLES
+  cudaError_t e = cudaMemcpyFromSymbol(out, seq_cycles, sizeof(seq_cycles));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[CY_N] = {};
+  return (int)cudaMemcpyToSymbol(seq_cycles, zero, sizeof(zero));
+#else
+  (void)out;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 extern "C" int tb_seq_accounts(const void* const* batch, int nbatch,

@@ -22,6 +22,7 @@ add one to their kernel's ``launches`` each time they launch it.
 | digest   | csrc/digest.cu         | ops/state_machine.py:828 ledger_digest     |
 | seq_transfers | csrc/sequential.cu | ops/scan_path.py:187 create_transfers_seq |
 | seq_accounts  | csrc/sequential.cu | ops/scan_path.py:690 create_accounts_seq  |
+| seq_prepass   | csrc/sequential.cu | ops/scan_path.py:79 _slookup, :85 _sprobe_free, the row gathers of :307 _transfer_logic (K6's pre-batch probes, in parallel) |
 | tombstone     | csrc/tombstone.cu  | ops/hash_table.py:379 remove_to_tombstone |
 | claim         | csrc/insert.cu     | ops/hash_table.py:114 claim_slots (claim only) |
 | write_claimed | csrc/insert.cu     | ops/hash_table.py:286 write_rows           |
@@ -54,9 +55,9 @@ The grouped commit's graph (``ops/group.py``) and the bench twin's read a
 batch's count and timestamp from u64 device words, so one captured launch
 sequence serves every run: ``probe``, ``validate`` (transfers) and
 ``bench_gen`` take such words (``count_word``, ``ts_word``, ``b_word``), and
-``probe``, ``validate``, ``balance`` and ``insert`` take preallocated
-outputs and scratch (a graph bakes every pointer).  ``group_dispatch`` is
-not a kernel of its own: it counts the replays of the grouped commit's
+``probe``, ``validate`` and ``insert`` take preallocated outputs and
+scratch (a graph bakes every pointer; ``balance`` needs none).
+``group_dispatch`` is not a kernel of its own: it counts the replays of the grouped commit's
 graph, each of which launches the kernels above (their counts grow by the
 graph's nodes at every replay, not at capture).
 
@@ -123,6 +124,8 @@ KERNELS: Dict[str, Kernel] = {
                "tigerbeetle_tpu/ops/scan_path.py:187"),
         Kernel("seq_accounts", "tigerbeetle_tpu_torch/csrc/sequential.cu",
                "tigerbeetle_tpu/ops/scan_path.py:690"),
+        Kernel("seq_prepass", "tigerbeetle_tpu_torch/csrc/sequential.cu",
+               "tigerbeetle_tpu/ops/scan_path.py:79"),
         Kernel("tombstone", "tigerbeetle_tpu_torch/csrc/tombstone.cu",
                "tigerbeetle_tpu/ops/hash_table.py:379"),
         Kernel("claim", "tigerbeetle_tpu_torch/csrc/insert.cu",
@@ -262,68 +265,75 @@ _U64 = ctypes.c_uint64
 _M64 = (1 << 64) - 1
 
 
+# Each C entry point's argument types (all return an int error code).
+_SIGNATURES = {
+    "tb_probe": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _I64, _I64,
+                 _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
+    "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
+                  _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
+    "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _P],
+    "tb_validate_transfers": [_INT, _P, _I64, _I64, ctypes.c_uint64,
+                              _P, _P, _P, _P, _P, _I64, _P],
+    "tb_balance": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
+    "tb_digest": [_P, _P, _P, _I64, _P, _P],
+    "tb_seq_prepass": [_P, _INT, _P, _INT, _I64, _P, _INT, _I64,
+                       _P, _INT, _I64, _I64, _I64, ctypes.c_uint64,
+                       _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "tb_seq_transfers": [_P, _INT, _P, _INT, _I64, _P, _INT, _I64,
+                         _P, _INT, _I64, _P, _INT, _I64, _I64, _I64,
+                         ctypes.c_uint64, _P, _P, _P, _P, _P, _P, _P],
+    "tb_seq_cycles": [_P],
+    "tb_seq_accounts": [_P, _INT, _P, _INT, _I64, _I64, _I64,
+                        ctypes.c_uint64, _P, _P, _P, _P],
+    "tb_tombstone": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
+    "tb_claim": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64, _P, _P,
+                 _P, _P, _P, _INT, _P],
+    "tb_write_claimed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _P,
+                         _INT, _P, _INT, _P, _P, _P, _P],
+    "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
+    "tb_full_legs": [_P, _INT, _I64, _INT, ctypes.c_uint64, _INT, _P],
+    "tb_full_legs_apply": [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P],
+    "tb_full_waves": [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_uint64,
+                      _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tb_full_pass": [_P, _INT, _INT, _INT, _I64, _I64, ctypes.c_uint64,
+                     _INT, _INT, _INT, _I64, _P],
+    "tb_full_hist": [_P, _P, _I64, _P, _P, _I64, _P, _P],
+    "tb_run_sort": [_P, _P, _INT, _P, _I64, _I64, _P,
+                    ctypes.POINTER(ctypes.c_int64), _P],
+    "tb_run_merge": [_P, _P, _INT, _P],
+    "tb_index_window": [_P, _P, _INT, _U64, _U64, _U64, _U64, _I64, _INT,
+                        _P, _P, _P, _P],
+    "tb_index_union": [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64,
+                       _P, _P, _P, _P],
+    "tb_history_scan": [_P, _P, _I64, _I64, _U64, _U64, _U64, _U64, _INT,
+                        _INT, _INT, _P, _P, _P, _P, _P],
+    "tb_bloom_check": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I64, _P, _P, _INT, _P],
+    "tb_evict_threshold": [_P, _P, _P, _P, _I64, _P, _U64, _U64, _P, _P,
+                           _P, _P, _P],
+    "tb_evict_extract": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P,
+                         _P, _INT, _P, _P, _P, _P, _P],
+    "tb_bench_gen": [_P, _I64, _INT, _U64, _P, _U64, _U64, _U64, _P],
+    "tb_scrub_fold": [_P, _P, ctypes.POINTER(ctypes.c_int64), _P, _P],
+    "tb_merkle_build": [_INT, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
+    "tb_merkle_touch": [_INT, _P, _P, _P, _I64, _P, _P, _P, _I64, _P],
+    "tb_merkle_path": [_P, _I64, _I64, _INT, _P, _P],
+    "tb_group_step": [_P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P],
+    "tb_group_finish": [_P, _P, _P],
+    "tb_group_words": [_P, _INT, _U64, _U64, _P, _P, _P, _P],
+    "tb_vopr_draw": [_P, _I64, _INT, _INT, _P, _P, _P],
+    "tb_vopr_step": [_I64, _INT, _INT, _INT, _INT, _P, _P, _P, _P],
+    "tb_vopr_run": [ctypes.c_uint32, ctypes.c_uint32, _U64, _I64, _INT,
+                    _INT, _INT, _P, _INT, _P, _P, _P, _P],
+    "tb_shard_gather": [_INT, ctypes.POINTER(ctypes.c_int64), _I64, _INT,
+                        _I64, _P, _P, _P, _INT, _P, _P, _I64, _P, _P,
+                        _I64, _I64, _P, _P, _I64, _P, _INT, _P],
+    "tb_shard_combine": [_P, _I64, _I64, _P, _P],
+}
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    sigs = {
-        "tb_probe": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _I64, _I64,
-                     _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
-        "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
-                      _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
-        "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _P],
-        "tb_validate_transfers": [_INT, _P, _I64, _I64, ctypes.c_uint64,
-                                  _P, _P, _P, _P, _P, _I64, _P],
-        "tb_balance": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
-        "tb_digest": [_P, _P, _P, _I64, _P, _P],
-        "tb_seq_transfers": [_P, _INT, _P, _INT, _I64, _P, _INT, _I64,
-                             _P, _INT, _I64, _P, _INT, _I64, _I64, _I64,
-                             ctypes.c_uint64, _P, _P, _P, _P],
-        "tb_seq_accounts": [_P, _INT, _P, _INT, _I64, _I64, _I64,
-                            ctypes.c_uint64, _P, _P, _P, _P],
-        "tb_tombstone": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
-        "tb_claim": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64, _P, _P,
-                     _P, _P, _P, _INT, _P],
-        "tb_write_claimed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _P,
-                             _INT, _P, _INT, _P, _P, _P, _P],
-        "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
-        "tb_full_legs": [_P, _INT, _I64, _INT, ctypes.c_uint64, _INT, _P],
-        "tb_full_legs_apply": [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P],
-        "tb_full_waves": [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_uint64,
-                          _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-        "tb_full_pass": [_P, _INT, _INT, _INT, _I64, _I64, ctypes.c_uint64,
-                         _INT, _INT, _INT, _I64, _P],
-        "tb_full_hist": [_P, _P, _I64, _P, _P, _I64, _P, _P],
-        "tb_run_sort": [_P, _P, _INT, _P, _I64, _I64, _P,
-                        ctypes.POINTER(ctypes.c_int64), _P],
-        "tb_run_merge": [_P, _P, _INT, _P],
-        "tb_index_window": [_P, _P, _INT, _U64, _U64, _U64, _U64, _I64, _INT,
-                            _P, _P, _P, _P],
-        "tb_index_union": [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64,
-                           _P, _P, _P, _P],
-        "tb_history_scan": [_P, _P, _I64, _I64, _U64, _U64, _U64, _U64, _INT,
-                            _INT, _INT, _P, _P, _P, _P, _P],
-        "tb_bloom_check": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I64, _P, _P, _INT, _P],
-        "tb_evict_threshold": [_P, _P, _P, _P, _I64, _P, _U64, _U64, _P, _P,
-                               _P, _P, _P],
-        "tb_evict_extract": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P,
-                             _P, _INT, _P, _P, _P, _P, _P],
-        "tb_bench_gen": [_P, _I64, _INT, _U64, _P, _U64, _U64, _U64, _P],
-        "tb_scrub_fold": [_P, _P, ctypes.POINTER(ctypes.c_int64), _P, _P],
-        "tb_merkle_build": [_INT, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
-        "tb_merkle_touch": [_INT, _P, _P, _P, _I64, _P, _P, _P, _I64, _P],
-        "tb_merkle_path": [_P, _I64, _I64, _INT, _P, _P],
-        "tb_group_step": [_P, _P, _INT, _I64, _P, _P, _P, _P, _P, _P, _P],
-        "tb_group_finish": [_P, _P, _P],
-        "tb_group_words": [_P, _INT, _U64, _U64, _P, _P, _P, _P],
-        "tb_vopr_draw": [_P, _I64, _INT, _INT, _P, _P, _P],
-        "tb_vopr_step": [_I64, _INT, _INT, _INT, _INT, _P, _P, _P, _P],
-        "tb_vopr_run": [ctypes.c_uint32, ctypes.c_uint32, _U64, _I64, _INT,
-                        _INT, _INT, _P, _INT, _P, _P, _P, _P],
-        "tb_shard_gather": [_INT, ctypes.POINTER(ctypes.c_int64), _I64, _INT,
-                            _I64, _P, _P, _P, _INT, _P, _P, _I64, _P, _P,
-                            _I64, _I64, _P, _P, _I64, _P, _INT, _P],
-        "tb_shard_combine": [_P, _I64, _I64, _P, _P],
-    }
-    for name, argtypes in sigs.items():
+    for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _INT
@@ -592,17 +602,15 @@ def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
 
 
 def balance(dr_slot, cr_slot, ok, amount_lo, pending,
-            balance_cols: Sequence[torch.Tensor],
-            scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            slot_base: int = 0) -> None:
+            balance_cols: Sequence[torch.Tensor], slot_base: int = 0) -> None:
     """Kernel K4: adds every accepted transfer's amount to its debit and
-    credit accounts' balance columns, in place.  ``balance_cols`` are the
-    eight u64 columns debits_pending lo/hi, debits_posted lo/hi,
-    credits_pending lo/hi, credits_posted lo/hi.  ``scratch``, preallocated
-    (limbs int64[C * 8], taken int32[C]; zeroed here), serves a captured
-    graph.  ``slot_base`` (one shard of a sharded ledger): the slots are
-    global, and only the legs in [slot_base, slot_base + C) apply, at
-    slot - slot_base."""
+    credit accounts' balance columns, in place, in one launch with no
+    scratch (one 64-bit atomic a leg on the lo word, the wraps carried into
+    the hi word).  ``balance_cols`` are the eight u64 columns
+    debits_pending lo/hi, debits_posted lo/hi, credits_pending lo/hi,
+    credits_posted lo/hi.  ``slot_base`` (one shard of a sharded ledger):
+    the slots are global, and only the legs in [slot_base, slot_base + C)
+    apply, at slot - slot_base."""
     lib = library()
     n = ok.numel()
     _check(dr_slot, torch.int64, n, "dr_slot")
@@ -615,21 +623,10 @@ def balance(dr_slot, cr_slot, ok, amount_lo, pending,
     cap = balance_cols[0].numel()
     for c in balance_cols:
         _check(c, torch.int64, cap, "balance column")
-    dev = ok.device
-    if scratch is None:
-        limbs = torch.zeros(cap * 8, dtype=torch.int64, device=dev)
-        taken = torch.zeros(cap, dtype=torch.int32, device=dev)
-    else:
-        limbs, taken = scratch
-        _check(limbs, torch.int64, cap * 8, "limbs")
-        _check(taken, torch.int32, cap, "taken")
-        limbs.zero_()
-        taken.zero_()
     err = lib.tb_balance(
         dr_slot.data_ptr(), cr_slot.data_ptr(), ok.data_ptr(),
         amount_lo.data_ptr(), pending.data_ptr(), n, slot_base, cap,
-        limbs.data_ptr(), taken.data_ptr(), _ptr_array(balance_cols),
-        _stream(ok),
+        _ptr_array(balance_cols), _stream(ok),
     )
     _raise_on(err, "balance")
     KERNELS["balance"].launches += 1
@@ -663,7 +660,13 @@ def digest(key_lo, key_hi, cols: Sequence[torch.Tensor]) -> torch.Tensor:
 # -- K6/K7 sequential commit -----------------------------------------------
 
 # u64 words of one event's undo record in K6 (csrc/sequential.cu UNDO_WORDS).
-_UNDO_WORDS = 21
+_UNDO_WORDS = 23
+# u64 words of one event's record from K32 (csrc/sequential.cu REC_WORDS).
+SEQ_REC_WORDS = 64
+# The widest batch K6's sequencer takes and its largest transfers and
+# posted tables (csrc/sequential.cu SEQ_MAX_N, SEQ_MAX_SLOTS).
+SEQ_MAX_N = 8192
+SEQ_MAX_SLOTS = 1 << 30
 
 
 def _check_cols(cols: Sequence[torch.Tensor], dtypes: Sequence[torch.dtype],
@@ -688,16 +691,67 @@ def _check_table(t: Sequence[torch.Tensor], dtypes: Sequence[torch.dtype],
     return cap
 
 
+def _seq_hash_sizes(n: int) -> Tuple[int, int, int]:
+    """Entries of K32's three join hashes (ids, account slots, posted keys):
+    powers of two of at least 2n, 4n and 2n."""
+    def p2(x):
+        return 1 << max(6, (x - 1).bit_length())
+    return p2(2 * n), p2(4 * n), p2(2 * n)
+
+
+def seq_prepass(batch: Sequence[torch.Tensor], batch_dtypes,
+                accounts: Sequence[torch.Tensor], account_dtypes,
+                transfers: Sequence[torch.Tensor], transfer_dtypes,
+                posted: Sequence[torch.Tensor], count: int,
+                timestamp: int) -> Dict[str, torch.Tensor]:
+    """Kernel K32 (three launches): every event's probes against the tables
+    as they are before the batch, and the batch's joins with itself.
+    Returns ``rec`` int64[n, SEQ_REC_WORDS] (csrc/sequential.cu
+    SeqRecField), ``bal`` int64[2n, 8] (each dense account's balances, at
+    its lowest leg) and ``dslot`` int64[2n] (a dense index's account slot,
+    -1 where none)."""
+    lib = library()
+    n = batch[0].numel()
+    _check_cols(batch, batch_dtypes, n, "batch")
+    acc_cap = _check_table(accounts, account_dtypes, "accounts")
+    xfr_cap = _check_table(transfers, transfer_dtypes, "transfers")
+    pst_cap = _check_table(posted, (torch.int32,), "posted")
+    if not 0 <= count <= n:
+        raise ValueError(f"count {count} outside 0..{n}")
+    dev = batch[0].device
+    rec = torch.empty((n, SEQ_REC_WORDS), dtype=torch.int64, device=dev)
+    bal = torch.empty((2 * n, 8), dtype=torch.int64, device=dev)
+    dslot = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    h_id, h_acc, h_pst = _seq_hash_sizes(n)
+    hash_ = torch.empty(2 * (h_id + h_acc + h_pst), dtype=torch.int64,
+                        device=dev)
+    err = lib.tb_seq_prepass(
+        _ptr_array(batch), len(batch), _ptr_array(accounts), len(accounts),
+        acc_cap, _ptr_array(transfers), len(transfers), xfr_cap,
+        _ptr_array(posted), len(posted), pst_cap, n, count,
+        timestamp & ((1 << 64) - 1), rec.data_ptr(), bal.data_ptr(),
+        dslot.data_ptr(), hash_.data_ptr(), h_id, h_acc, h_pst,
+        _stream(batch[0]),
+    )
+    _raise_on(err, "seq_prepass")
+    KERNELS["seq_prepass"].launches += 1
+    return {"rec": rec, "bal": bal, "dslot": dslot}
+
+
 def seq_transfers(batch: Sequence[torch.Tensor], batch_dtypes,
                   accounts: Sequence[torch.Tensor], account_dtypes,
                   transfers: Sequence[torch.Tensor], transfer_dtypes,
                   posted: Sequence[torch.Tensor],
                   history: Sequence[torch.Tensor],
-                  count: int, timestamp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  count: int, timestamp: int,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K6: one sequential create_transfers batch, the ledger updated
-    in place.  Each table is key_lo, key_hi, tombstone, count and its
-    columns in the kernel's enum order; ``history`` is its 21 columns then
-    its count.  Returns (codes int32[N], overflow bool 0-dim)."""
+    in place: K32, then the sequencer.  Each table is key_lo, key_hi,
+    tombstone, count and its columns in the kernel's enum order;
+    ``history`` is its 21 columns then its count.  Raises CudaKernelError
+    for a batch wider than SEQ_MAX_N lanes or a transfers or posted table
+    of more than SEQ_MAX_SLOTS slots, which the sequencer's overlay cannot
+    hold.  Returns (codes int32[N], overflow bool 0-dim)."""
     lib = library()
     n = batch[0].numel()
     _check_cols(batch, batch_dtypes, n, "batch")
@@ -710,6 +764,13 @@ def seq_transfers(batch: Sequence[torch.Tensor], batch_dtypes,
     _check(history[-1], torch.int64, 1, "history count")
     if not 0 <= count <= n:
         raise ValueError(f"count {count} outside 0..{n}")
+    if n > SEQ_MAX_N or max(xfr_cap, pst_cap) > SEQ_MAX_SLOTS:
+        raise CudaKernelError(
+            f"seq_transfers: {n} lanes and tables of {xfr_cap} and {pst_cap} "
+            f"slots; the sequencer takes at most {SEQ_MAX_N} lanes and "
+            f"{SEQ_MAX_SLOTS} slots")
+    pre = seq_prepass(batch, batch_dtypes, accounts, account_dtypes,
+                      transfers, transfer_dtypes, posted, count, timestamp)
     dev = batch[0].device
     undo = torch.empty(n * _UNDO_WORDS, dtype=torch.int64, device=dev)
     codes = torch.empty(n, dtype=torch.int32, device=dev)
@@ -719,6 +780,7 @@ def seq_transfers(batch: Sequence[torch.Tensor], batch_dtypes,
         acc_cap, _ptr_array(transfers), len(transfers), xfr_cap,
         _ptr_array(posted), len(posted), pst_cap, _ptr_array(history),
         len(history), hist_cap, n, count, timestamp & ((1 << 64) - 1),
+        pre["rec"].data_ptr(), pre["bal"].data_ptr(), pre["dslot"].data_ptr(),
         undo.data_ptr(), codes.data_ptr(), overflow.data_ptr(),
         _stream(batch[0]),
     )

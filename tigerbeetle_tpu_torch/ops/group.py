@@ -12,8 +12,10 @@ Two forms:
   it); on CUDA tensors it is the eager form, GROUP_K launches of K1-K4 each.
 - ``GroupGraph``, the card's form: one ``torch.cuda.CUDAGraph`` per
   (GROUP_K, lanes, the ledger's table buffers) holding GROUP_K steps of K24
-  (``group_step``) and K1-K4 (``_cuda.probe``, ``validate``, ``balance``,
-  ``insert`` with preallocated outputs and scratch), K1 and K3 reading the
+  (``group_step``) and K1-K4 (``_cuda.probe``, ``validate`` and ``insert``
+  with preallocated outputs and scratch; ``balance``, one launch of atomics,
+  needs none, so nothing the graph holds grows with the accounts capacity
+  for K4), K1 and K3 reading the
   step's count and timestamp from the run's u64[GROUP_K] device words, then
   K25 (``group_finish``).  A run costs one host-to-device copy of
   the staging set into the graph's input buffer, one replay and one
@@ -162,7 +164,6 @@ class FastSteps:
 
     def __init__(self, ledger: sm.Ledger, k: int, lanes: int, device) -> None:
         self.k, self.lanes = k, lanes
-        acc_cap = ledger.accounts.capacity
         xfr_cap = ledger.transfers.capacity
 
         def z(n, dt=torch.int64):
@@ -180,8 +181,6 @@ class FastSteps:
         self.ok = z(lanes, torch.bool)
         self.codes = z((k, lanes), torch.int32)
         self.vscratch = z(2 * _cuda.hash_size(lanes) + 3 * lanes, torch.int32)
-        self.limbs = z(acc_cap * 8)
-        self.taken = z(acc_cap, torch.int32)
         self.claimed = z(lanes)
         self.claim0 = z(xfr_cap, torch.int32)
         self.claim1 = z(xfr_cap, torch.int32)
@@ -221,8 +220,7 @@ class FastSteps:
         _cuda.validate("transfers", cols, 0, count_word=cw, ts_word=tw,
                        out=(self.codes[j], self.ok, self.vscratch))
         _cuda.balance(self.dr_slot, self.cr_slot, self.ok, soa["amount_lo"],
-                      self.pending, [acc.cols[c] for c in sm.BALANCE_COLS],
-                      scratch=(self.limbs, self.taken))
+                      self.pending, [acc.cols[c] for c in sm.BALANCE_COLS])
         rows = {name: soa[name] for name in sm.TRANSFER_COLS}
         rows["timestamp"] = self.ts
         _cuda.insert(xfr.key_lo, xfr.key_hi, xfr.tombstone, xfr.cols,

@@ -10,7 +10,9 @@ package:
   later lanes compare against it with the exists ladder;
 - linked chains: segmented first-failure propagation;
 - balance updates: exact u128 sums of 32-bit limbs, applied once per
-  account.
+  account (kernel K4 instead adds each leg into the lo word with one 64-bit
+  atomic and carries the wraps into the hi word: the same sums, in one
+  launch).
 
 Preconditions, enforced by the host dispatcher (``machine.py``), which
 sends any other batch to the general kernel (``ops/transfer_full.py``), or
@@ -681,7 +683,7 @@ def apply_balances(
 ) -> ht.Table:
     """Add every accepted transfer's amount to its accounts' balances, in
     place (``balance_plan`` + ``apply_balance_plan``).  Kernel K4 on CUDA
-    tensors."""
+    tensors: one launch, no scratch."""
     if ok.is_cuda:
         _cuda.balance(dr_slot, cr_slot, ok, amt_lo, pending,
                       [accounts.cols[c] for c in BALANCE_COLS])
