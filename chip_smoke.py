@@ -12,6 +12,8 @@ Phases, each printing one JSON line:
                 (a few units below 2^64), with every leg on one debit and
                 one credit account, and in its slot-base form over 2, 4 and
                 8 shards, and timed again on an accounts table of 2^21;
+                K2 also timed at the main path's shape (a 2^25-slot table
+                holding the main run's earlier batches, its next batches);
   4. parity   - TorchStateMachine on the card against the scalar oracle
                 (testing/model.py) on small seeded batches;
   5. main     - the main path at full size: 10,000 accounts, then 10,000,000
@@ -35,7 +37,9 @@ Phases, each printing one JSON line:
                 alone and with K32).  The plain K6/K7/K32 run on CPU copies
                 (a Python loop over the events); plain K8 on the card;
   7. seq_parity - a force_sequential TorchStateMachine on the card against
-                the scalar oracle at full width (8,190 events per batch);
+                the scalar oracle at full width (8,190 events per batch),
+                and one of 16,384 lanes (K6 runs the lanes up to the
+                count);
   8. sequential - the sequential path at full width: a force_sequential
                 machine, 10,000 accounts, then bench.py's --two-phase shape
                 (4,095 pendings and 4,095 posts of them per batch) for
@@ -49,8 +53,13 @@ Phases, each printing one JSON line:
                 budgets 1, 2, 3 and 8, waves on and off: codes, kflags, the
                 wave vector and every ledger array, on 8,190-event batches of
                 the testing/fullmix.py mix and each FLAG_SEQ kind, on a ledger
-                with rows, same-home clusters and tombstones; then each
-                kernel timed and bounded on a bench.py two-phase batch;
+                with rows, same-home clusters and tombstones, and on
+                testing/fulltraps.py's batches (each batch-wide step of
+                K11 and K12 across their blocks; one of 8,150 lanes); then
+                each kernel timed and bounded on a bench.py two-phase
+                batch: K12 with and without its rounds, the whole core by
+                CUDA events beside K11's profile (its events against the
+                launches made), and K11's history append;
  10. full_parity - a default machine (general kernel), a force_sequential
                 machine (K6) and the scalar oracle on the same 8,190-event
                 batches of the mix: codes, balances, history rows, lookups,
@@ -797,6 +806,8 @@ def phase_kernels(seed: int, dev) -> dict:
         shape=f"{LANES} lanes ({n_placed} placed), table 2^20 at load 0.45; "
               "also checked: max_probe=2 overflow, grow 2^20->2^21",
     )
+    del ilo, ihi, imask, irows
+    results["insert"].update(insert_path_shape(dev))
 
     # -- K3 validate: accounts and transfers variants ------------------------
     errs = 0
@@ -913,6 +924,74 @@ def phase_kernels(seed: int, dev) -> dict:
     )
     torch.cuda.synchronize()
     return results
+
+
+# The main run's transfers table at its largest: 2^25 slots (grown from
+# 2^18) holding the transfers of every batch but the last.
+MAIN_TABLE_LOG2 = 25
+FIRST_TID = 1 << 32  # the first transfer id of bench.py's generators here
+
+
+def insert_path_shape(dev, n_main: int = 10_000_000,
+                      log2: int = MAIN_TABLE_LOG2) -> dict:
+    """K2 as the main path meets it: 8,190-event batches of bench.py's plain
+    generator inserted into a transfers table of 2^25 slots already holding
+    the main run's 1,221 earlier batches (its ids, consecutive from
+    FIRST_TID), each timed call a later batch of the run (so the table
+    gains 8,190 rows a call, 0.06 % of its load).  By CUDA events behind a
+    spin, beside its bound."""
+    import torch
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    batches = (n_main + COUNT - 1) // COUNT
+    held = (batches - 1) * COUNT
+    cap = 1 << log2
+    t = ht.make_table(cap, sm.TRANSFER_COLS, dev)
+    keys = torch.arange(FIRST_TID, FIRST_TID + held, dtype=torch.int64,
+                        device=dev)
+    zero_rows = {k: torch.zeros(held, dtype=dt, device=dev)
+                 for k, dt in sm.TRANSFER_COLS.items()}
+    ht.insert(t, keys, torch.zeros_like(keys),
+              torch.ones(held, dtype=torch.bool, device=dev), zero_rows,
+              sm.MAX_PROBE)
+    del keys, zero_rows
+    if int(t.count.item()) != held:
+        raise AssertionError("insert (path shape): the table lost rows")
+    nxt = [batches - 1]
+
+    def batch():
+        soa = convert.batch_to_tensors(
+            gen_batch_np(nxt[0], LANES, COUNT, N_ACCOUNTS, FIRST_TID), LANES,
+            dev)
+        nxt[0] += 1
+        rows = {k: soa[k] for k in sm.TRANSFER_COLS if k in soa}
+        for k, dt in sm.TRANSFER_COLS.items():
+            rows.setdefault(k, torch.zeros(LANES, dtype=dt, device=dev))
+        return (soa["id_lo"], soa["id_hi"],
+                torch.arange(LANES, device=dev) < COUNT, rows)
+
+    ilo, ihi, mask, rows = batch()
+    _, claimed = ht.insert(t, ilo, ihi, mask, rows, sm.MAX_PROBE)
+    placed = to_np(claimed)[:COUNT]
+    homes = home_np(to_np(ilo)[:COUNT], to_np(ihi)[:COUNT], cap)
+    steps = int((((placed - homes) & np.uint64(cap - 1)) + 1).sum())
+    row_bytes = sum(v.element_size() for v in t.cols.values())
+    b = bound(LANES * (16 + 1 + 8) + 17 * steps
+              + COUNT * (16 + 1 + 2 * row_bytes), 40 * LANES + 10 * steps)
+    r = timed(lambda lo, hi, mk, rw: ht.insert(t, lo, hi, mk, rw, sm.MAX_PROBE),
+              reps=10, setup=batch)
+    load = int(t.count.item()) / cap
+    del t
+    torch.cuda.empty_cache()
+    return {"ms_path_shape": r["device_ms"],
+            "ms_path_shape_from": r["device_ms_from"],
+            "bound_path_shape": b,
+            "path_shape": f"{COUNT} plain events into 2^{log2} "
+                          f"slots holding {held:,} rows ({steps} slot visits; "
+                          f"load {load:.3f} after the timed calls)"}
 
 
 def balance_cases(rng, acc, ctx, tok, amt, pend) -> int:
@@ -1766,10 +1845,55 @@ def phase_seq_parity(seed: int, dev) -> dict:
         raise AssertionError("seq_parity: lookup_transfers")
     if int(m.ledger.history.count.item()) != len(ref.history):
         raise AssertionError("seq_parity: history count")
+    wide = seq_wide_machine(rng, dev, cfg)
     return {"batches": 1 + len(walls), "events_per_batch": COUNT,
             "failed_events_matched": failed, "transfers_looked_up": len(ids),
             "history_rows": len(ref.history), "posted_rows": len(ref.posted),
-            "codes_seen": sorted(codes)}
+            "codes_seen": sorted(codes), "wide_lanes": wide}
+
+
+def seq_wide_machine(rng, dev, cfg) -> dict:
+    """C7: a force_sequential machine of 16,384 lanes (twice the
+    sequencer's overlay) on the card commits a one-transfer batch with no
+    failure, as the JAX package's machine answers, then an 8,190-event
+    batch of the mix as the scalar oracle does: K6 runs the lanes up to
+    the count."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.testing import model as M
+    from tigerbeetle_tpu_torch.testing import seqmix
+
+    lanes = 2 * _cuda.SEQ_MAX_N
+    m = TorchStateMachine(cfg, batch_lanes=lanes, device=dev,
+                          force_sequential=True)
+    ref = M.ReferenceStateMachine()
+    ab = seqmix.accounts_batch(rng, 1, COUNT, faults=False)
+    if m.create_accounts(ab, 10 ** 9) != [] or ref.create_accounts(
+            M.accounts_from_batch(ab), 10 ** 9) != []:
+        raise AssertionError("seq_parity (16,384 lanes): accounts")
+    dr, cr = (int(i) for i in ab["id_lo"][ab["flags"] == 0][:2])
+    one = types.transfers_array([types.transfer(
+        id=1 << 60, debit_account_id=dr, credit_account_id=cr, amount=1,
+        ledger=1, code=1)])
+    seq_before = _cuda.KERNELS["seq_transfers"].launches
+    got = m.create_transfers(one, 2 * 10 ** 9)
+    want = ref.create_transfers(M.transfers_from_batch(one), 2 * 10 ** 9)
+    if got != [] or want != []:
+        raise AssertionError(f"seq_parity (16,384 lanes): one transfer {got} "
+                             f"(oracle {want})")
+    mix = seqmix.TransferMix(rng, list(ref.accounts)[:SEQ_ACCOUNTS], 1 << 40)
+    tb = mix.batch(COUNT)
+    got = m.create_transfers(tb, 3 * 10 ** 9)
+    if got != ref.create_transfers(M.transfers_from_batch(tb), 3 * 10 ** 9):
+        raise AssertionError("seq_parity (16,384 lanes): the mix batch")
+    if m.balances_snapshot() != ref.balances_snapshot():
+        raise AssertionError("seq_parity (16,384 lanes): balances")
+    launched = _cuda.KERNELS["seq_transfers"].launches - seq_before
+    if launched != 2:
+        raise AssertionError(f"seq_parity (16,384 lanes): K6 launched {launched}")
+    return {"lanes": lanes, "events": [1, COUNT], "failed_events_matched":
+            len(got), "k6_launches": launched}
 
 
 # ---------------------------------------------------------------------------
@@ -1946,6 +2070,11 @@ def _sequential_run(dev, n_transfers: int, grows: list) -> dict:
 FULL_PATH = ("probe", "claim", "write_claimed", "full_index", "full_legs",
              "full_pass", "full_waves")
 FULL_ACCOUNTS = COUNT  # accounts the general mix draws from: every account
+# K11 a core and K12 a call before their multi-block redesign, as PERF.md
+# records them (NVIDIA H100 80GB HBM3, 700 W): printed in the phase's line
+# beside the new figures, never in the kernels line (not measured here).
+K11_PERF_MD_WAS_MS = 0.997
+K12_PERF_MD_WAS_MS = 0.354
 
 
 def full_prepared_ledger(rng, dev):
@@ -2088,14 +2217,57 @@ def kernel_ms(by_name, prefix):
     return total, calls
 
 
+def host_queue_ms(fn, reps: int = 20) -> float:
+    """The host's time to queue one call of ``fn``, the calls queued behind
+    a GPU spin (so no call waits on the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(100 * SPIN_CYCLES_PER_MS))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return queued
+
+
+def core_times(ledger, soa, count, ts) -> dict:
+    """The general kernel core on one batch with waves, at its pass budget
+    (K9, K12, then every K11 and K10 launch of the Jacobi loop and the aux
+    pass, as transfer_full._kernel_core queues them), and K12 alone at that
+    budget and with no relaxation round (its sort and run ids alone), each
+    by CUDA events behind a spin (``timed``); the host's time to queue one
+    core; the core's launches by kernel (the wrappers' counts), a profile
+    by kernel name, the core's plan and the kernels' inputs."""
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+
+    ctx, idx, waves, legs, valid = full_inputs(ledger, soa, count)
+    cap = ctx.accounts_capacity
+    core = lambda: tf._kernel_core(ctx, soa, count, ts, use_waves=True)  # noqa: E731
+    before = _cuda.counts()
+    plan = core()
+    made = {k: v - before[k] for k, v in _cuda.counts().items() if v > before[k]}
+    return {
+        "core": timed(core), "core_host_ms": host_queue_ms(core),
+        "k12": timed(lambda: tf._wave_schedule(*waves, valid, cap,
+                                               tf._MAX_PASSES)),
+        "k12_no_rounds": timed(lambda: tf._wave_schedule(*waves, valid, cap,
+                                                         0)),
+        "launches": made, "profile": profile_by_name(core), "plan": plan,
+        "inputs": (ctx, idx, waves, legs, valid)}
+
+
 def phase_full_kernels(seed: int, dev) -> dict:
     import torch
-    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch import convert, types
     from tigerbeetle_tpu_torch.ops import _cuda
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import state_machine as sm
     from tigerbeetle_tpu_torch.ops import transfer_full as tf
-    from tigerbeetle_tpu_torch.testing import fullmix
+    from tigerbeetle_tpu_torch.testing import fullmix, fulltraps
     from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
 
     rng = np.random.default_rng(seed + 4)
@@ -2162,12 +2334,51 @@ def phase_full_kernels(seed: int, dev) -> dict:
     if not all(k == 0 for k in routed["general"]):
         raise AssertionError(f"full_kernels: a general batch was flagged {routed}")
 
+    # -- the traps: each batch-wide step of K11 and K12 across their blocks
+    #    (testing/fulltraps.py), and a lane count that is not a multiple of
+    #    K11's block of 64 --
+    traps = {}
+    for b, (trap, lanes) in enumerate(
+            [(t, LANES) for t in fulltraps.TRAPS] + [("cross_chain", LANES - 42)]):
+        count = lanes - 2
+        batch = fulltraps.trap_batch(mix, trap, count)
+        padded = np.zeros(lanes, dtype=batch.dtype)
+        padded[:count] = batch
+        tsoa = convert.soa_to_tensors(types.to_soa(padded), dev)
+        ts = wall + 10 ** 10 * (b + 1)
+        for max_passes, waves_on in ((8, True), (2, True), (8, False)):
+            gk, gp = clone_ledger(m.ledger), clone_ledger(m.ledger)
+            rk = tf.create_transfers_full_impl(gk, tsoa, count, ts,
+                                               max_passes=max_passes,
+                                               use_waves=waves_on)
+            rp = full_plain(gp, tsoa, count, ts, max_passes=max_passes,
+                            use_waves=waves_on)
+            got = {"codes": to_np(rk[1]), "kflags": to_np(rk[2]), **ledger_np(gk)}
+            want = {"codes": to_np(rp[1]), "kflags": to_np(rp[2]), **ledger_np(gp)}
+            if waves_on:
+                got["wave"], want["wave"] = to_np(rk[3]), to_np(rp[3])
+            err = max_abs_err(f"full kernel trap {trap} ({lanes} lanes, "
+                              f"{max_passes} passes, waves {waves_on})",
+                              got, want)
+            for k in ("full_pass", "full_waves", "claim", "write_claimed"):
+                errs[k] = max(errs[k], err)
+            if (max_passes, waves_on) == (8, True):
+                # The batch must reach its trap's condition across the
+                # blocks (raises if it does not).
+                traps[f"{trap}/{lanes}"] = {
+                    "kflags": int(want["kflags"]), "wave": want["wave"].tolist(),
+                    "codes": sorted(set(want["codes"][:count].tolist())),
+                    "reached": fulltraps.trap_facts(trap, m.ledger, padded,
+                                                    count, want["codes"])}
+            del gk, gp
+
     # -- times and bounds at the path's shape: a bench.py two-phase batch --
     led = m.ledger
     batch = gen_two_phase_np(0, LANES, COUNT, COUNT, 1 << 50)
     soa = soa_of(batch, dev)
     ts = wall + 10 ** 11
-    ctx, idx, waves, legs, valid = full_inputs(led, soa, COUNT)
+    ct = core_times(led, soa, COUNT, ts)
+    ctx, idx, waves, legs, valid = ct["inputs"]
     results = {}
     ids = (soa["id_lo"], soa["id_hi"], soa["pending_id_lo"], soa["pending_id_hi"])
     stacked = torch.stack([soa["id_hi"], soa["id_lo"]], 1)
@@ -2194,21 +2405,25 @@ def phase_full_kernels(seed: int, dev) -> dict:
                     n2 * 14 * 15 // 2 + 40 * n2),
         shape=f"{n2} legs of a two-phase batch, every valid lane ok")
     del legs_out
-    wargs = (*waves, valid, ctx.accounts_capacity, tf._MAX_PASSES)
+    pw = tf._wave_schedule_plain(*waves, valid, ctx.accounts_capacity,
+                                 tf._MAX_PASSES)
+    # K12's split: the sort and run ids alone (no round) against the rounds.
     results["full_waves"] = dict(
         max_abs_err=errs["full_waves"],
-        **pair_times(timed(lambda: tf._wave_schedule(*wargs)),
-                     timed(lambda: tf._wave_schedule_plain(
-                         *waves, valid, ctx.accounts_capacity, tf._MAX_PASSES))),
+        **pair_times(ct["k12"], timed(lambda: tf._wave_schedule_plain(
+            *waves, valid, ctx.accounts_capacity, tf._MAX_PASSES))),
+        perf_md_was_ms=K12_PERF_MD_WAS_MS,
+        ms_no_rounds=ct["k12_no_rounds"]["device_ms"],
+        proved=bool(pw[0]), passes_needed=int(pw[1]),
         library_ms=None,
         bound=bound(LANES * (1 + 16 + 2 + 1 + 4) + 36 + 6, n2 * 14 * 15 // 2),
         shape=f"{LANES} lanes of a two-phase batch")
-    # K11: every launch of one kernel core (passes + aux) on this batch.
-    core = profile_by_name(lambda: tf._kernel_core(ctx, soa, COUNT, ts,
-                                                   use_waves=True))
+    # The whole kernel core (K9, K11, K12, K10 for one batch) by CUDA
+    # events behind a spin; K11's share from a profile, with the events the
+    # profiler recorded against the launches made.
+    made, core_ms, core, plan = ct["launches"], ct["core"], ct["profile"], ct["plan"]
     plain_core = timed(lambda: tf._kernel_core_plain(ctx, soa, COUNT, ts,
                                                      use_waves=True), reps=3)
-    plan = tf._kernel_core(ctx, soa, COUNT, ts, use_waves=True)
     k11_ms, k11_calls = kernel_ms(core, "full_pass_kernel")
     k10_ms, k10_calls = kernel_ms(core, "full_legs_kernel")
     passes = int(plan.passes.item())
@@ -2217,16 +2432,43 @@ def phase_full_kernels(seed: int, dev) -> dict:
            ctx.postedT_found, ctx.postedT_val, idx._asdict()]
     outs = [plan.codes, plan.ok, plan.row, plan.posted_key, plan.pv_ok,
             plan.do_hist, plan.hist_row]
+    # The profiler drops events (C4): its K11 total is scaled by the
+    # launches made over the events it recorded.
+    k11_made = made.get("full_pass", 0)
+    if k11_calls:
+        k11_core_ms = k11_ms * k11_made / k11_calls
+        k11_from = (f"profiler, {k11_calls} of {k11_made} launches a core "
+                    "recorded, total scaled by launches / events")
+    else:
+        k11_core_ms = core_ms["device_ms"]
+        k11_from = ("the whole core by cuda events (the profiler recorded no "
+                    "K11 event): an upper bound")
     results["full_pass"] = dict(
-        max_abs_err=errs["full_pass"], ms=k11_ms, plain_ms=plain_core["device_ms"],
+        max_abs_err=errs["full_pass"], ms=k11_core_ms, ms_from=k11_from,
+        ms_profiled=k11_ms, plain_ms=plain_core["device_ms"],
         call_ms=None, plain_call_ms=plain_core["call_ms"],
-        launches_per_core=k11_calls, passes=passes,
-        k10_in_core_ms=k10_ms, k10_launches_per_core=k10_calls,
+        perf_md_was_ms=K11_PERF_MD_WAS_MS,
+        launches_per_core=k11_made,
+        profiler_events_per_core=k11_calls, passes=passes,
+        k10_in_core_ms=k10_ms, k10_launches_per_core=made.get("full_legs"),
+        k10_profiler_events_per_core=k10_calls,
+        core_ms=core_ms["device_ms"], core_ms_from=core_ms["device_ms_from"],
+        core_host_ms=ct["core_host_ms"], core_launches=made,
         library_ms=None,
         bound=bound(nbytes(*ins) + nbytes(*outs), 400 * LANES * (passes + 1)),
         shape=f"{LANES} lanes of a two-phase batch: every K11 launch of one "
               f"kernel core ({passes} passes + the aux pass); plain: the whole "
               "plain kernel core (its index, legs and waves included)")
+    # K11's history append (its own launch, in the apply) on this plan's
+    # lanes, the log's count restored before each call.
+    h = led.history
+    gate = torch.zeros(1, dtype=torch.int32, device=dev)
+    results["full_pass"]["hist_append_ms"] = timed(
+        lambda c: _cuda.full_hist(gate, plan.do_hist,
+                                  [plan.hist_row[k] for k in sm.HISTORY_COLS],
+                                  [h.cols[k] for k in sm.HISTORY_COLS], c),
+        setup=lambda: (h.count.clone(),))["device_ms"]
+    results["full_pass"]["hist_append_rows"] = int(plan.do_hist.sum())
     # K2's claim and write on the transfers table.
     xfr = led.transfers
     ok = plan.ok
@@ -2284,7 +2526,7 @@ def phase_full_kernels(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     return {"results": results, "batches_checked": len(checked),
             "kflags": {kind: routed[kind] for kind in routed},
-            "core_device_ms_by_name": core}
+            "traps": traps, "core_device_ms_by_name": core}
 
 
 def legs_np(legs) -> dict:
@@ -2381,19 +2623,47 @@ def phase_full_parity(seed: int, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def full_path_setup(m, shape: str):
+    """bench.py's set-up of the general path's ``shape`` on machine ``m``:
+    N_ACCOUNTS plain accounts ("twophase"), or N_ACCOUNTS limit-flagged
+    accounts and their funding ("limits").  Returns the funding's debits
+    and credits by account id and the shape's batch generator."""
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.utils import benchgen
+
+    debits = np.zeros(N_ACCOUNTS + 2, dtype=object)
+    credits = np.zeros(N_ACCOUNTS + 2, dtype=object)
+    if shape == "limits":
+        for b in benchgen.gen_limit_accounts_np(N_ACCOUNTS, COUNT):
+            if m.create_accounts(b) != []:
+                raise AssertionError("limits: account creation failed")
+        for b in benchgen.gen_funding_np(N_ACCOUNTS, COUNT):
+            if m.create_transfers(b) != []:
+                raise AssertionError("limits: funding failed")
+            for d, c, a in zip(b["debit_account_id_lo"],
+                               b["credit_account_id_lo"], b["amount_lo"]):
+                debits[int(d)] += int(a)
+                credits[int(c)] += int(a)
+        return debits, credits, benchgen.gen_batch_np
+    for start in range(0, N_ACCOUNTS, COUNT):
+        ids = range(start + 1, min(N_ACCOUNTS, start + COUNT) + 1)
+        if m.create_accounts(types.accounts_array(
+                [types.account(id=i, ledger=1, code=10) for i in ids])) != []:
+            raise AssertionError("twophase: account creation failed")
+    return debits, credits, benchgen.gen_two_phase_np
+
+
 def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
     """bench.py's --two-phase (``shape`` "twophase") or --limits ("limits")
     through a default machine: 10,000 accounts, then ``n_transfers``
     transfers in 8,190-event batches, every batch committed by the general
     kernel with kflags 0 on its first attempt."""
     import torch
-    from tigerbeetle_tpu_torch import types
     from tigerbeetle_tpu_torch.config import LedgerConfig
     from tigerbeetle_tpu_torch.machine import TorchStateMachine
     from tigerbeetle_tpu_torch.ops import _cuda
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import state_machine as sm
-    from tigerbeetle_tpu_torch.utils import benchgen
 
     grows = []
     grow = ht.grow
@@ -2426,25 +2696,7 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
     m._grow_flagged = lambda k: flagged.append(k) or grow_flagged(k)
     ht.grow = timed_grow
     try:
-        debits = np.zeros(N_ACCOUNTS + 2, dtype=object)
-        credits = np.zeros(N_ACCOUNTS + 2, dtype=object)
-        if shape == "limits":
-            for b in benchgen.gen_limit_accounts_np(N_ACCOUNTS, batch_max):
-                if m.create_accounts(b) != []:
-                    raise AssertionError("limits: account creation failed")
-            for b in benchgen.gen_funding_np(N_ACCOUNTS, batch_max):
-                if m.create_transfers(b) != []:
-                    raise AssertionError("limits: funding failed")
-                for d, c, a in zip(b["debit_account_id_lo"],
-                                   b["credit_account_id_lo"], b["amount_lo"]):
-                    debits[int(d)] += int(a)
-                    credits[int(c)] += int(a)
-        else:
-            for start in range(0, N_ACCOUNTS, batch_max):
-                ids = range(start + 1, min(N_ACCOUNTS, start + batch_max) + 1)
-                if m.create_accounts(types.accounts_array(
-                        [types.account(id=i, ledger=1, code=10) for i in ids])) != []:
-                    raise AssertionError("twophase: account creation failed")
+        debits, credits, gen = full_path_setup(m, shape)
         setup_readbacks = len(attempts)
         dsum = np.zeros(N_ACCOUNTS + 2, np.uint64)
         csum = np.zeros(N_ACCOUNTS + 2, np.uint64)
@@ -2461,12 +2713,7 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
         passes, wave_hist, bounds = {}, np.zeros(9, np.int64), {}
         first_tid = 1 << 32
         for b in range(n_batches):
-            if shape == "limits":
-                batch = benchgen.gen_batch_np(b, LANES, batch_max, N_ACCOUNTS,
-                                              first_tid)
-            else:
-                batch = benchgen.gen_two_phase_np(b, LANES, batch_max,
-                                                  N_ACCOUNTS, first_tid)
+            batch = gen(b, LANES, batch_max, N_ACCOUNTS, first_tid)
             caps = (m.ledger.transfers.capacity, m.ledger.posted.capacity)
             if window and b == window.start:
                 prof = torch.profiler.profile(
@@ -6211,7 +6458,7 @@ def main() -> int:
     kern.update(fullk["results"])
     emit({"phase": "full_kernels", "seconds": time.perf_counter() - t0,
           "batches_checked": fullk["batches_checked"],
-          "kflags_at_8_passes": fullk["kflags"],
+          "kflags_at_8_passes": fullk["kflags"], "traps": fullk["traps"],
           "core_device_ms_by_name": fullk["core_device_ms_by_name"],
           "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                       for k, v in fullk["results"].items()}})
@@ -6420,7 +6667,8 @@ def main() -> int:
         if name in ("shard_gather", "shard_combine"):
             rows[-1]["ms_shape"] = r["shape"]
         for key in ("ms_accounts_2e21", "library_ms_accounts_2e21",
-                    "ms_with_prepass"):
+                    "ms_with_prepass", "ms_path_shape",
+                    "ms_no_rounds", "core_ms", "hist_append_ms"):
             if key in r:
                 rows[-1][key] = r[key]
     emit({"kernels": rows})

@@ -23,7 +23,7 @@ from tigerbeetle_tpu_torch.ops import query as q
 from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
-from tigerbeetle_tpu_torch.testing import fullmix, seqmix
+from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, seqmix
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -227,21 +227,41 @@ def test_sequential_traps_on_card_match_split_plain(cuda_device, trap):
     _ledgers_equal(gpu, cpu, trap)
 
 
-def test_sequential_transfers_refuse_a_batch_wider_than_the_overlay(cuda_device):
-    """K6's sequencer holds SEQ_MAX_N events: a wider batch raises before
-    any launch and leaves the ledger as it was."""
-    lanes = _cuda.SEQ_MAX_N + 1
-    gpu = sm.make_ledger(1 << 10, 1 << 11, 1 << 10, 1 << 10, device=cuda_device)
-    before = convert.ledger_to_numpy(gpu)
-    launches = _cuda.counts()
+@pytest.mark.parametrize("case", ["one_transfer", "count_above"])
+def test_sequential_transfers_refuse_a_batch_wider_than_the_overlay(
+        cuda_device, case):
+    """K6's sequencer holds SEQ_MAX_N events and runs only the lanes up to
+    the count (C7): a 16,384-lane batch of one transfer commits on the card
+    as the plain version does on the CPU; a count above SEQ_MAX_N raises
+    before any launch and leaves the ledger as it was."""
+    lanes = 2 * _cuda.SEQ_MAX_N
+    caps = (1 << 10, 1 << 11, 1 << 10, 1 << 10)
+    gpu = sm.make_ledger(*caps, device=cuda_device)
+    cpu = sm.make_ledger(*caps, device="cpu")
+    acc = types.accounts_array([types.account(id=i, ledger=1, code=10)
+                                for i in (1, 2)])
+    for led, dev in ((gpu, cuda_device), (cpu, "cpu")):
+        sp.create_accounts_seq(led, _padded_soa(acc, 64, dev), 2, 10 ** 9)
     batch = types.transfers_array([types.transfer(
         id=1, debit_account_id=1, credit_account_id=2, amount=1, ledger=1,
         code=1)])
-    with pytest.raises(_cuda.CudaKernelError, match="lanes"):
-        sp.create_transfers_seq(gpu, _padded_soa(batch, lanes, cuda_device), 1,
-                                10 ** 9)
-    assert _cuda.counts() == launches
-    _ledgers_equal(gpu, convert.ledger_from_numpy(before, "cpu"), "refused")
+    if case == "count_above":
+        before = convert.ledger_to_numpy(gpu)
+        launches = _cuda.counts()
+        with pytest.raises(_cuda.CudaKernelError,
+                           match=f"count of {_cuda.SEQ_MAX_N + 1} events"):
+            sp.create_transfers_seq(gpu, _padded_soa(batch, lanes, cuda_device),
+                                    _cuda.SEQ_MAX_N + 1, 2 * 10 ** 9)
+        assert _cuda.counts() == launches
+        _ledgers_equal(gpu, convert.ledger_from_numpy(before, "cpu"), "refused")
+        return
+    _, kc, kov = sp.create_transfers_seq(
+        gpu, _padded_soa(batch, lanes, cuda_device), 1, 2 * 10 ** 9)
+    _, pc, pov = sp.create_transfers_seq_plain(
+        cpu, _padded_soa(batch, lanes, "cpu"), 1, 2 * 10 ** 9)
+    assert kc.shape == (lanes,) and torch.equal(kc.cpu(), pc)
+    assert int(pc[0]) == 0 and not bool(kov) and not bool(pov)
+    _ledgers_equal(gpu, cpu, "one transfer")
 
 
 def test_sequential_kernels_on_card_match_plain_on_cpu(cuda_device):
@@ -472,6 +492,116 @@ def test_general_kernel_on_card_matches_plain_on_cpu(cuda_device, waves):
                         np.testing.assert_array_equal(got[name][key], v)
         res = m.create_transfers(batch, ts)
         mix.settle(i for i, _ in res)
+
+
+TRAP_LANES = 8192
+TRAP_CASES = [(t, TRAP_LANES) for t in fulltraps.TRAPS] + [
+    ("cross_chain", TRAP_LANES - 42)]  # lanes not a multiple of 64
+
+
+@pytest.fixture(scope="module")
+def trap_ledger():
+    """A CPU machine's ledger after 8,190 accounts (limit and history flags)
+    and two 8,190-event batches of the general mix, and the mix."""
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    rng = np.random.default_rng(53)
+    m = TorchStateMachine(LedgerConfig(accounts_capacity_log2=14,
+                                       transfers_capacity_log2=16,
+                                       posted_capacity_log2=14,
+                                       history_capacity_log2=15),
+                          batch_lanes=TRAP_LANES, device="cpu")
+    m.create_accounts(seqmix.accounts_batch(rng, 1, 8190, faults=False), 10)
+    mix = fullmix.GeneralMix(rng, list(range(1, 8191)), 1 << 40)
+    for b in range(2):
+        res = m.create_transfers(mix.batch(8190), 10 ** 9 * (b + 1))
+        mix.settle(i for i, _ in res)
+    return m.ledger, mix
+
+
+def trap_case(ledger, mix, trap, lanes):
+    """Trap ``trap``'s batch padded to ``lanes``, its count and SoA, checked
+    to reach its condition (fulltraps.trap_facts) against the plain
+    kernel's codes on a CPU copy of ``ledger``."""
+    count = lanes - 2
+    batch = fulltraps.trap_batch(mix, trap, count)
+    padded = np.zeros(lanes, dtype=batch.dtype)
+    padded[:count] = batch
+    soa = types.to_soa(padded)
+    rp = tf.create_transfers_full_impl(
+        ledger_to(ledger, "cpu"), convert.soa_to_tensors(soa, "cpu"), count,
+        10 ** 11, max_passes=tf._MAX_PASSES, use_waves=True)
+    facts = fulltraps.trap_facts(trap, ledger, padded, count, rp[1].numpy())
+    return count, soa, facts
+
+
+@pytest.mark.parametrize("trap,lanes", TRAP_CASES)
+def test_trap_batches_reach_their_conditions(trap_ledger, trap, lanes):
+    """At 8,190 events each trap puts its step across the kernels' blocks:
+    a split id group whose first lane fails, a chain failing in a block
+    other than its start's, a pending posted (and one posted twice) from
+    another block, a hazard run over two of K12's chunks with ``proved``
+    false, an unschedulable batch (trap_case raises otherwise)."""
+    ledger, mix = trap_ledger
+    _, _, facts = trap_case(ledger, mix, trap, lanes)
+    assert facts
+
+
+@pytest.mark.parametrize("trap,lanes", TRAP_CASES)
+def test_general_kernel_traps_across_blocks_match_plain(cuda_device,
+                                                        trap_ledger, trap,
+                                                        lanes):
+    """testing/fulltraps.py's batches, whose id groups, chains, in-batch
+    pendings, double posts and hazard chains cross the blocks of K11's and
+    K12's grids, at 8,190 events: the kernels on the card against the plain
+    versions on a CPU copy, byte for byte (codes, kflags, the wave vector,
+    every ledger array), pass budgets 1, 2 and 8, waves on and off."""
+    ledger, mix = trap_ledger
+    count, soa, _ = trap_case(ledger, mix, trap, lanes)
+    for max_passes in (1, 2, 8):
+        for waves in (True, False):
+            gk, gp = ledger_to(ledger, cuda_device), ledger_to(ledger, "cpu")
+            rk = tf.create_transfers_full_impl(
+                gk, convert.soa_to_tensors(soa, cuda_device), count,
+                10 ** 11, max_passes=max_passes, use_waves=waves)
+            rp = tf.create_transfers_full_impl(
+                gp, convert.soa_to_tensors(soa, "cpu"), count, 10 ** 11,
+                max_passes=max_passes, use_waves=waves)
+            for x, y in zip(rk[1:], rp[1:]):
+                assert torch.equal(x.cpu(), y), (trap, max_passes, waves)
+            _ledgers_equal(gk, gp, f"{trap} {max_passes} {waves}")
+
+
+def test_general_core_replays_in_a_cuda_graph(cuda_device):
+    """The kernel core of one batch (K9, K12 and the Jacobi loop's K11 and
+    K10 launches; K11 and K12 are cooperative launches) captured in a CUDA
+    graph: a replay gives the eager core's plan, byte for byte."""
+    rng = np.random.default_rng(59)
+    lanes = 512
+    led = sm.make_ledger(1 << 10, 1 << 12, 1 << 10, 1 << 10, device=cuda_device)
+    acc = seqmix.accounts_batch(rng, 1, 200, faults=False)
+    sp.create_accounts_seq(led, _padded_soa(acc, lanes, cuda_device), 200, 10)
+    mix = fullmix.GeneralMix(rng, list(range(1, 201)), 1 << 40)
+    batch = mix.batch(lanes - 10)
+    soa = _padded_soa(batch, lanes, cuda_device)
+    count = len(batch)
+    valid = torch.arange(lanes, device=cuda_device) < count
+    postvoid = ((soa["flags"] & (tf.TF_POST | tf.TF_VOID)) != 0) & valid
+    ctx = tf.build_gather_ctx(led, soa, valid, postvoid)
+    eager = tf._kernel_core(ctx, soa, count, 10 ** 9, use_waves=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tf._kernel_core(ctx, soa, count, 10 ** 9, use_waves=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for field in eager._fields:
+        a, b = getattr(eager, field), getattr(captured, field)
+        for k in (a if isinstance(a, dict) else {None: a}):
+            x = a[k] if k is not None else a
+            y = b[k] if k is not None else b
+            assert torch.equal(x, y), (field, k)
 
 
 # -- K13-K16: the transfer index and the queries ---------------------------------

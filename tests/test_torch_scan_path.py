@@ -8,6 +8,8 @@ rows, the overflow codes near 2**128 and ``grow_history``.  On the CPU the
 port runs the plain versions of kernels K6 and K7; the kernels are held
 against them on the card (tests/test_torch_kernels.py and chip_smoke.py)."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,9 +68,9 @@ class Pair:
         self.ts = 1_000
         self.form = form
 
-    def commit(self, op, batch, ts=None, overflow=False):
+    def commit(self, op, batch, ts=None, overflow=False, lanes=LANES):
         self.ts = ts if ts is not None else self.ts + 10 * len(batch) + 7
-        padded = np.zeros(LANES, dtype=batch.dtype)
+        padded = np.zeros(lanes, dtype=batch.dtype)
         padded[: len(batch)] = batch
         soa = types.to_soa(padded)
         n = len(batch)
@@ -91,9 +93,9 @@ class Pair:
     def accounts(self, rows, ts=None):
         return self.commit("create_accounts_seq", types.accounts_array(rows), ts)
 
-    def transfers(self, rows, ts=None, overflow=False):
+    def transfers(self, rows, ts=None, overflow=False, lanes=LANES):
         return self.commit("create_transfers_seq", types.transfers_array(rows),
-                           ts, overflow)
+                           ts, overflow, lanes)
 
 
 def seeded(n=6, flags=None, form="serial", jledger=None):
@@ -655,22 +657,54 @@ def test_prepass_record_layout_matches_the_cuda_enum():
 
 @pytest.mark.parametrize("lanes", [tsp.SEQ_MAX_N, tsp.SEQ_MAX_N + 1])
 def test_split_form_takes_at_most_the_overlays_lanes(lanes):
-    """The sequencer's overlay holds SEQ_MAX_N events: the split plain form
-    refuses a wider batch, as the kernel's wrapper does, and commits one of
-    exactly that width like the serial loop."""
+    """The sequencer's overlay holds SEQ_MAX_N events.  The split plain form
+    runs only the lanes up to the count (rounded up to 64), as the kernel's
+    route does, so a batch of that width or wider commits like the serial
+    loop; only a count above SEQ_MAX_N is refused (below)."""
     padded = np.zeros(lanes, dtype=types.transfers_array([tr(1)]).dtype)
     padded[0] = types.transfers_array([tr(1, amount=5)])[0]
     soa = convert.soa_to_tensors(types.to_soa(padded), CPU)
     led = [seeded().t, seeded().t]
-    if lanes > tsp.SEQ_MAX_N:
-        with pytest.raises(ValueError, match="lanes"):
-            tsp.create_transfers_seq_split_plain(led[0], soa, 1, 10 ** 9)
-        return
     _, got, _ = tsp.create_transfers_seq_split_plain(led[0], soa, 1, 10 ** 9)
     _, want, _ = tsp.create_transfers_seq_plain(led[1], soa, 1, 10 ** 9)
+    assert got.shape == (lanes,)
     assert torch.equal(got, want) and int(got[0]) == 0
     assert_ledgers_equal(convert.ledger_to_numpy(led[1]),
                          convert.ledger_to_numpy(led[0]), "ledger")
+
+
+# A machine's batch_lanes past the sequencer's overlay (C7).
+WIDE = 2 * tsp.SEQ_MAX_N
+
+
+@pytest.mark.parametrize("count", [1, 300])
+def test_split_form_on_a_batch_wider_than_the_overlay_matches_jax(count):
+    """C7: a batch of 16,384 lanes whose count fits the overlay commits on
+    the split plain form (the card's algorithm) with the JAX package's
+    codes and tables, byte for byte."""
+    rng = np.random.default_rng(72 + count)
+    p = Pair("split")
+    p.accounts(list(seqmix.accounts_batch(rng, 1, 40)), ts=10 ** 9)
+    mix = seqmix.TransferMix(rng, list(range(1, 41)), 10 ** 6)
+    codes = p.transfers(list(mix.batch(count)), ts=3 * 10 ** 9, lanes=WIDE)
+    assert len(codes) == count
+
+
+def test_split_form_refuses_a_count_above_the_overlay():
+    """A count above SEQ_MAX_N is refused before anything is written, with
+    a message that names the count."""
+    from tigerbeetle_tpu_torch.ops import _cuda
+
+    p = seeded(form="split")
+    padded = np.zeros(WIDE, dtype=types.transfers_array([tr(1)]).dtype)
+    padded[: tsp.SEQ_MAX_N + 1] = types.transfers_array([tr(1, amount=5)])[0]
+    soa = convert.soa_to_tensors(types.to_soa(padded), CPU)
+    before = copy.deepcopy(convert.ledger_to_numpy(p.t))  # a CPU view
+    with pytest.raises(_cuda.CudaKernelError,
+                       match=f"count of {tsp.SEQ_MAX_N + 1} events"):
+        tsp.create_transfers_seq_split_plain(p.t, soa, tsp.SEQ_MAX_N + 1,
+                                             10 ** 9)
+    assert_ledgers_equal(before, convert.ledger_to_numpy(p.t), "ledger")
 
 
 def _jax_ledger(arrays):

@@ -22,7 +22,7 @@ from tigerbeetle_tpu.ops import transfer_full as jtf
 from tigerbeetle_tpu.types import TransferFlags as F
 from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch.ops import transfer_full as ttf
-from tigerbeetle_tpu_torch.testing import fullmix, seqmix
+from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, seqmix
 
 LANES = 64
 CAPS = (1 << 10, 1 << 11, 1 << 10, 1 << 10)
@@ -309,6 +309,20 @@ def test_full_kernel_mixed_stream_waves_on(seed):
     assert 0 in flags
 
 
+@pytest.mark.parametrize("trap", fulltraps.TRAPS)
+def test_fulltraps_batches_match_jax(trap):
+    """testing/fulltraps.py's batches (what the card holds the multi-block
+    K11 and K12 to at 8,190 events) at the test width, after a batch of the
+    mix has left pendings in the table, waves on."""
+    p = FullPair()
+    mix = fullmix.GeneralMix(np.random.default_rng(61), list(range(1, 13)),
+                             10_000)
+    codes, kflags = p.commit(mix.batch(LANES - 4), **WAVES)
+    mix.settle(i for i, c in enumerate(codes) if c or kflags)
+    codes, _ = p.commit(fulltraps.trap_batch(mix, trap, LANES - 4), **WAVES)
+    assert len(codes) == LANES - 4
+
+
 def test_full_kernel_mixed_stream_waves_off():
     assert 0 in mixed_stream(FullPair(), 5)
 
@@ -536,3 +550,30 @@ def test_kernel_pointer_layouts_match_the_sources(source, enum, prefix, layout):
         assert idx[prefix + name.upper()] == offset, name
         offset += count
     assert idx[prefix + "NPTRS"] == offset
+
+
+@pytest.mark.parametrize("source,define,owner,name", [
+    ("full_pass.cu", "PASS_MAX_BLOCKS", "_cuda", "PASS_MAX_BLOCKS"),
+    ("full_waves.cu", "WAVE_MAX_BLOCKS", "_cuda", "WAVE_MAX_BLOCKS"),
+    ("full_pass.cu", "PASS_THREADS", "fulltraps", "PASS_BLOCK"),
+    ("full_waves.cu", "WAVE_CHUNK", "fulltraps", "WAVE_CHUNK"),
+])
+def test_grid_scratch_sizes_match_the_sources(source, define, owner, name):
+    """K11's and K12's per-block partials live in scratch the wrappers
+    size, and testing/fulltraps.py places and checks its traps by K11's
+    block and K12's chunk: these must be the sources' (FULL_THREADS,
+    FULL_MAX_LEGS and the block sizes from csrc/)."""
+    import re
+    from pathlib import Path
+
+    from tigerbeetle_tpu_torch.ops import _cuda
+
+    csrc = Path(_cuda.CSRC)
+    text = (csrc / "full_common.cuh").read_text() + (csrc / source).read_text()
+    expr = re.search(rf"#define {define} (\([^)\n]*\)|\d+)", text).group(1)
+    expr = expr.strip("()")
+    for k, v in re.findall(r"#define (\w+) (\d+)\b", text):
+        expr = re.sub(rf"\b{k}\b", v, expr)
+    assert re.fullmatch(r"[\d */]+", expr), expr
+    module = {"_cuda": _cuda, "fulltraps": fulltraps}[owner]
+    assert eval(expr) == getattr(module, name)  # integers and * / only

@@ -1,8 +1,10 @@
 // Block-wide helpers shared by the general transfer kernels K9-K12
-// (full_index.cu, full_legs.cu, full_pass.cu, full_waves.cu): one block of
-// up to 1,024 threads runs a whole batch of at most 8,192 lanes (16,384
-// legs), so a sort or a scan is a loop inside the block with __syncthreads
-// between its steps, and nothing crosses blocks.
+// (full_index.cu, full_legs.cu, full_pass.cu, full_waves.cu), for batches of
+// at most 8,192 lanes (16,384 legs).  In K9 and K10 one block of up to
+// 1,024 threads runs a whole batch, so a sort or a scan is a loop inside the
+// block with __syncthreads between its steps.  K11 and K12 are cooperative
+// launches over many blocks: they use these inside each block and cross
+// blocks at grid barriers (two-level scans, per-block partials).
 #pragma once
 
 #include "common.cuh"
@@ -136,7 +138,8 @@ static __device__ void sort_legs(uint64_t* keys, int n, const int64_t* dr_slot,
 
 // sort_legs, unless the cache (cache_keys[p], cache_slot[2n], *cache_ok;
 // all null for no cache) holds the sort of these same leg slots: then the
-// cached keys are copied in.  A sort refreshes the cache.
+// cached keys are copied in.  A sort refreshes the cache.  K10 sorts this
+// way; K12 (its own multi-block sort) leaves the cache in this format.
 static __device__ void sort_legs_cached(uint64_t* keys, int n,
                                         const int64_t* dr_slot,
                                         const uint8_t* dr_live,
@@ -173,14 +176,6 @@ static __device__ void sort_legs_cached(uint64_t* keys, int n,
     for (int j = threadIdx.x; j < p; j += blockDim.x) keys[j] = cache_keys[j];
   }
   __syncthreads();
-}
-
-// Each thread's contiguous chunk [lo, hi) of an array of m elements.
-static __device__ __forceinline__ void thread_chunk(int m, int* lo, int* hi) {
-  const int per = (m + blockDim.x - 1) / blockDim.x;
-  *lo = threadIdx.x * per;
-  *hi = *lo + per < m ? *lo + per : m;
-  if (*lo > m) *lo = m;
 }
 
 // Opt in to `bytes` of dynamic shared memory for `kernel` (once per kernel).

@@ -9,20 +9,24 @@
 // routing flags of :1209-1307, the wave-scheduler inputs of :738-794, and
 // the history append of `create_transfers_full_impl`, :1408-1424.
 //
-// Modes of one launch (one block of 1,024 threads, 8 lanes each):
+// Modes of one launch:
 //   INIT  lane constants (valid, pending, post/void, linked), the carry
 //         (ok all False, codes 0xFFFFFFFF, amounts the raw amounts), the
-//         loop control words, and the wave scheduler's inputs (hazard,
-//         unschedulable, the effective debit/credit slots) for K12;
-//   PRE   from the previous iterate: each id group's first ok lane (the
-//         winner), the in-batch pending reference of each post/void lane,
-//         and the effective accounts, written as K10's leg inputs;
+//         first pass's empty winners, each lane's linked-chain start (the
+//         flags do not change between passes), the loop control words, and
+//         the wave scheduler's inputs (hazard, unschedulable, the
+//         effective debit/credit slots) for K12;
+//   PRE   from the previous iterate's winners (each id group's first ok
+//         lane, taken by the POST before): the in-batch pending reference
+//         of each post/void lane and the effective accounts, written as
+//         K10's leg inputs;
 //   POST  after K10: the balancing clamps, the overflow and limit ladders,
 //         the composed rows, the regular and post/void ladders, the
 //         duplicate override, the double post/void grouping (keyed on the
 //         resolved pending timestamp; key 0 left out), chain codes; then
-//         either the new carry, k and the stability flag (a loop pass) or
-//         the plan's outputs, history values and FLAG_SEQ route (aux);
+//         either the new carry, the next pass's winners, k and the
+//         stability flag (a loop pass) or the plan's outputs, history
+//         values and FLAG_SEQ route (aux);
 // and, apart, the history append where the batch commits: an exclusive
 // prefix over the lanes that record history, rows past the capacity
 // dropped, the count grown by all of them.
@@ -31,15 +35,37 @@
 // seen, the budget spent, or the proved wave bound reached), so the host
 // queues `max_passes` passes and the aux pass without a read.
 //
-// Batch-wide steps use the block: the winners and the fulfilment winners
-// are atomicMin per group (groups from K9, and a batch-local hash of the
-// pending timestamps), chain starts a block max-scan, stability a block OR.
+// The grid: every launch (the history append too) is one cooperative
+// launch of ceil(n / 64) blocks of PASS_THREADS = 64 threads, 128 blocks
+// on 128 of the H100's 132 SMs at 8,192 lanes (fewer if the card holds
+// fewer at once; each thread then walks a contiguous run of lanes), one
+// lane a thread.  The batch-wide steps cross blocks at grid barriers
+// (cooperative_groups' grid.sync(); PRE has one, POST four, INIT one): the
+// winners, the fulfilment winners and the post/void hash are device-memory
+// atomics (atomicMin, atomicCAS) whose resets sit behind a barrier before
+// their uses; the chain starts are a two-level max-scan (a block scan, then
+// each block's last start from the blocks before it), done once in INIT;
+// stability, unschedulable and the routing flags are per-block ORs that
+// one thread folds after the last barrier.  What other blocks wrote in the
+// same launch is read with __ldcg (L2, never a stale L1 line).  Every
+// output is a function of the inputs alone: the atomics are integer min,
+// CAS on a hash keyed by lane-independent keys, and sums.
 //
-// What bounds it on the H100: latency, on one SM: each lane reads about
-// 110 columns and its legs' balances; 8 lanes a thread run in turn.  The
-// bytes it must move per pass (about 8 MB at 8,192 lanes with post/void)
-// take about 2.5 us at 3.35 TB/s.
+// What bounds it on the H100: latency.  Each lane reads about 110 columns
+// and its legs' balances; the bytes a pass must move (about 8 MB at 8,192
+// lanes with post/void) take about 2.5 us at 3.35 TB/s, so the grid
+// barriers and the launches hold it.  The ten launches of a core that
+// return at once (a stable pass seen) cost a launch each.
+#include <cooperative_groups.h>
+
 #include "full_common.cuh"
+
+#undef F_OK  // <unistd.h>'s access() mode, which the headers above pull in
+
+namespace cg = cooperative_groups;
+
+#define PASS_THREADS 64
+#define PASS_MAX_BLOCKS (8 * FULL_THREADS / PASS_THREADS)  // 128
 
 enum FullPtr {
   F_BATCH = 0,                 // 19 columns, TRANSFER_BATCH_COLS order
@@ -70,6 +96,7 @@ enum FullPtr {
   F_HIST,                      // 21 columns, HISTORY_COLS order
   F_ROUTE = F_HIST + 21, F_PASSES, F_WAVE_BOUND,
   F_CACHE_OK,                  // K10/K12's sort cache: invalid per batch
+  F_GRID,                      // int32[2 * PASS_MAX_BLOCKS]: per-block partials
   F_NPTRS
 };
 
@@ -240,15 +267,69 @@ static __device__ __forceinline__ u128 min128(u128 a, u128 b) {
   return a <= b ? a : b;
 }
 
+// Cross-block reads: values another block wrote in the same launch (before
+// a grid barrier) come from L2.
+static __device__ __forceinline__ uint64_t ldcg64(const void* p, int i) {
+  return (uint64_t)__ldcg(static_cast<const unsigned long long*>(p) + i);
+}
+static __device__ __forceinline__ int ldcg32(const int* p, int i) {
+  return __ldcg(p + i);
+}
+static __device__ __forceinline__ uint64_t col_cg(const Env& e, int k, bool u32,
+                                                  int i) {
+  return u32 ? (uint64_t)__ldcg(static_cast<const unsigned int*>(e.a.p[k]) + i)
+             : ldcg64(e.a.p[k], i);
+}
+
+// This thread's lanes: a contiguous run, so a block's lanes are contiguous
+// and in thread order (the chain-start scan needs that).
+struct Lanes {
+  int lo, hi;
+};
+static __device__ __forceinline__ Lanes grid_lanes(int n) {
+  const int T = gridDim.x * blockDim.x;
+  const int per = (n + T - 1) / T;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  Lanes L;
+  L.lo = g * per < n ? g * per : n;
+  L.hi = L.lo + per < n ? L.lo + per : n;
+  return L;
+}
+
+static __device__ __forceinline__ void grid_sync() { cg::this_grid().sync(); }
+
+// Per-block partials (F_GRID): the chain-start scan's and a flag word.
+static __device__ __forceinline__ int* part_scan(const Env& e) {
+  return PTR(int, F_GRID);
+}
+static __device__ __forceinline__ int* part_flags(const Env& e) {
+  return PTR(int, F_GRID) + PASS_MAX_BLOCKS;
+}
+
+// The OR of every block's flag word (after a grid barrier).
+static __device__ int fold_flags(const Env& e) {
+  int f = 0;
+  for (int b = 0; b < (int)gridDim.x; ++b) f |= ldcg32(part_flags(e), b);
+  return f;
+}
+
+// The block's OR of `v`, stored as its flag word (thread 0).
+static __device__ void block_flags(const Env& e, int v) {
+  __shared__ int sh;
+  if (threadIdx.x == 0) sh = 0;
+  __syncthreads();
+  if (v) atomicOr(&sh, v);
+  __syncthreads();
+  if (threadIdx.x == 0) part_flags(e)[blockIdx.x] = sh;
+}
+
 // ---------------------------------------------------------------------------
 
 static __device__ void mode_init(const Env& e) {
-  __shared__ int uns;
-  const int T = blockDim.x, tid = threadIdx.x;
-  if (tid == 0) uns = 0;
-  __syncthreads();
-  bool local_uns = false;
-  for (int i = tid; i < e.n; i += T) {
+  __shared__ int shint[32];
+  const Lanes L = grid_lanes(e.n);
+  int uns = 0;
+  for (int i = L.lo; i < L.hi; ++i) {
     const LaneFlags f = lane_flags(e, i);
     PTR(uint8_t, F_VALID)[i] = f.valid;
     PTR(uint8_t, F_PENDING)[i] = f.pending;
@@ -259,6 +340,7 @@ static __device__ void mode_init(const Env& e) {
     PTR(uint32_t, F_CODE_C)[i] = 0xFFFFFFFFu;
     PTR(uint64_t, F_AMT_C_LO)[i] = bcol(e, TC_AMT_LO, i);
     PTR(uint64_t, F_AMT_C_HI)[i] = bcol(e, TC_AMT_HI, i);
+    PTR(int, F_WINNER)[i] = e.n;  // the first pass: no ok lane, no winner
     if (e.use_waves) {
       const bool dr_limf =
           (PTR(const uint32_t, F_DRT + V_FLAGS)[i] & 2u) && B8(F_DRT + V_FOUND, i);
@@ -266,12 +348,12 @@ static __device__ void mode_init(const Env& e) {
           (PTR(const uint32_t, F_CRT + V_FLAGS)[i] & 4u) && B8(F_CRT + V_FOUND, i);
       bool hazard = f.valid && (f.bal_dr || f.bal_cr || dr_limf || cr_limf ||
                                 near_start(e, F_DRT, i) || near_start(e, F_CRT, i));
-      if (f.linked) local_uns = true;
+      if (f.linked) uns = 1;
       const int dv = f.postvoid ? F_PDR : F_DRT, cv = f.postvoid ? F_PCR : F_CRT;
       if (e.has_pv) {
         hazard = hazard || (f.postvoid && (near_start(e, F_PDR, i) ||
                                            near_start(e, F_PCR, i)));
-        if (f.postvoid && B8(F_PJ_HIT, i)) local_uns = true;
+        if (f.postvoid && B8(F_PJ_HIT, i)) uns = 1;
       }
       PTR(uint8_t, F_HAZARD)[i] = hazard;
       PTR(int64_t, F_WDR_SLOT)[i] = PTR(const int64_t, dv + V_SLOT)[i];
@@ -282,16 +364,44 @@ static __device__ void mode_init(const Env& e) {
           B8(cv + V_FOUND, i) && (f.postvoid || f.valid);
     }
   }
-  if (local_uns) uns = 1;
-  __syncthreads();
-  if (tid == 0) {
+  // Chain starts (ops/state_machine.py:287): the last lane at or before
+  // each lane where a chain opens; within the block by a max-scan, across
+  // blocks by each block's last start.  The flags are this thread's own
+  // lanes', just written.
+  auto is_start = [&](int j) {
+    const LaneFlags f = lane_flags(e, j);
+    return f.linked && !(j > 0 && lane_flags(e, j - 1).linked);
+  };
+  int last = -1;
+  for (int j = L.lo; j < L.hi; ++j) {
+    if (is_start(j)) last = j;
+  }
+  int top = -1;
+  int cur = block_scan_excl(last, -1, OpMax(), shint, &top);
+  int* cstart = PTR(int, F_CHAIN);
+  for (int j = L.lo; j < L.hi; ++j) {
+    if (is_start(j)) cur = j;
+    cstart[j] = cur;
+  }
+  if (threadIdx.x == 0) part_scan(e)[blockIdx.x] = top;
+  block_flags(e, uns);
+  grid_sync();
+  int before = -1;
+  for (int b = 0; b < (int)blockIdx.x; ++b) {
+    const int t = ldcg32(part_scan(e), b);
+    if (t > before) before = t;
+  }
+  for (int j = L.lo; j < L.hi; ++j) {
+    if (cstart[j] < before) cstart[j] = before;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     int* ctrl = PTR(int, F_CTRL);
     ctrl[C_K] = 0;
     ctrl[C_EVER_STABLE] = 0;
     ctrl[C_MAX_PASSES] = e.max_passes;
     PTR(int, F_CACHE_OK)[0] = 0;
     if (e.use_waves) {
-      PTR(uint8_t, F_UNSCHED)[0] = (uns || B8(F_ANY_DUP, 0)) ? 1 : 0;
+      PTR(uint8_t, F_UNSCHED)[0] = (fold_flags(e) || B8(F_ANY_DUP, 0)) ? 1 : 0;
     } else {
       PTR(uint8_t, F_PROVED)[0] = 0;
       PTR(int, F_NEEDED)[0] = 8 + 1;  // the JAX package's _MAX_PASSES + 1
@@ -300,20 +410,21 @@ static __device__ void mode_init(const Env& e) {
 }
 
 static __device__ void mode_pre(const Env& e) {
-  const int T = blockDim.x, tid = threadIdx.x, n = e.n;
+  const Lanes L = grid_lanes(e.n);
+  const int n = e.n;
   int* winner = PTR(int, F_WINNER);
   const int64_t* group = PTR(const int64_t, F_GROUP);
-  for (int i = tid; i < n; i += T) winner[i] = n;
-  __syncthreads();
-  for (int i = tid; i < n; i += T) {
+  // The winners of the previous iterate (reset to n by INIT or by the
+  // POST before): each id group's lowest ok lane.
+  for (int i = L.lo; i < L.hi; ++i) {
     if (B8(F_OK_C, i)) atomicMin(winner + group[i], i);
   }
-  __syncthreads();
-  for (int i = tid; i < n; i += T) {
+  grid_sync();
+  for (int i = L.lo; i < L.hi; ++i) {
     const LaneFlags f = lane_flags(e, i);
     int ref = -1;
     if (e.has_pv && f.postvoid && B8(F_PJ_HIT, i)) {
-      const int pw = winner[PTR(const int64_t, F_PJ_GROUP)[i]];
+      const int pw = ldcg32(winner, (int)PTR(const int64_t, F_PJ_GROUP)[i]);
       if (pw < n && pw < i && B8(F_OK_C, pw)) ref = pw;
     }
     PTR(int, F_REF)[i] = ref;
@@ -504,63 +615,45 @@ static __device__ uint32_t lane_code(const Env& e, int i) {
   return code;
 }
 
-static __device__ int fhash_insert(uint64_t* fkey, int* hkey, int hsize, int i) {
+// The post/void hash's slot of key fkey[i] (inserting lane i if the key is
+// new); other lanes' keys were written before the last grid barrier.
+static __device__ int fhash_insert(const uint64_t* fkey, int* hkey, int hsize,
+                                   int i) {
   const uint64_t k = fkey[i];
   uint64_t h = mix64(k, 0) & (uint64_t)(hsize - 1);
   for (;;) {
     const int prev = atomicCAS(hkey + h, -1, i);
-    if (prev == -1 || fkey[prev] == k) return (int)h;
+    if (prev == -1 || ldcg64(fkey, prev) == k) return (int)h;
     h = (h + 1) & (uint64_t)(hsize - 1);
   }
 }
 
+// Routing flag bits of the aux pass's per-block words.
+enum RouteBit { R_U128 = 1, R_LINKED = 2, R_INTRA = 4, R_HAZARD = 8 };
+
 static __device__ void mode_post(const Env& e, int aux) {
-  __shared__ int sh_flag[4];
-  __shared__ int shint[32];
-  const int T = blockDim.x, tid = threadIdx.x, n = e.n;
+  const Lanes L = grid_lanes(e.n);
+  const int n = e.n;
+  const int G = gridDim.x * blockDim.x;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t* code_t = PTR(uint32_t, F_CODE_T);
   int* fhkey = PTR(int, F_FHASH);
   int* fhwin = fhkey + e.hsize;
   uint64_t* fkey = PTR(uint64_t, F_FKEY);
-  for (int j = tid; j < e.hsize; j += T) {
+  const int* cstart = PTR(const int, F_CHAIN);
+  int* fail = PTR(int, F_CHAIN) + n;
+  const uint8_t* linked = PTR(const uint8_t, F_LINKED);
+  // A. Ladders and rows; the post/void keys (the resolved pending
+  //    timestamp, 0 for none); the hash and the chains' first failures
+  //    reset.
+  for (int j = g; j < e.hsize; j += G) {
     fhkey[j] = -1;
     fhwin[j] = n;
   }
-  if (tid < 4) sh_flag[tid] = 0;
-  // A. Ladders and rows.
-  for (int i = tid; i < n; i += T) code_t[i] = lane_code(e, i);
-  __syncthreads();
-
-  // B. Duplicate ids: the override replaces exactly the codes that follow
-  //    the exists check in sequential order.
-  const int* winner = PTR(const int, F_WINNER);
-  const int64_t* group = PTR(const int64_t, F_GROUP);
-  for (int i = tid; i < n; i += T) {
-    const int w = winner[group[i]];
-    if (!(w < n && i > w)) continue;
-    const LaneFlags f = lane_flags(e, i);
-    uint32_t code = code_t[i];
-    Row wr;
-    for (int c = 0; c < TC_N; ++c) wr.v[c] = col(e, F_ROW + c, tc_is_u32(c), w);
-    const bool pv = e.has_pv && f.postvoid;
-    const bool over = pv ? (code == 0 || code == 33 || code == 34 || code == 35)
-                         : (code == 0 || code == 53 || balance_code(code));
-    if (!over) continue;
-    if (pv) {
-      code = exists_postvoid(e, i, wr, resolve_p(e, i, PTR(const int, F_REF)[i]));
-    } else {
-      code = exists_regular(e, i, wr,
-                            mk(bcol(e, TC_AMT_LO, i), bcol(e, TC_AMT_HI, i)));
-    }
-    code_t[i] = code;
-  }
-  __syncthreads();
-
-  // C. Double post/void inside the batch: lanes grouped by the resolved
-  //    pending timestamp (key 0 left out); the first lane with code 0 keeps
-  //    it, later lanes with 0 or 35 get already posted (33) or voided (34).
-  if (e.has_pv) {
-    for (int i = tid; i < n; i += T) {
+  for (int i = L.lo; i < L.hi; ++i) {
+    code_t[i] = lane_code(e, i);
+    fail[i] = n;
+    if (e.has_pv) {
       const LaneFlags f = lane_flags(e, i);
       const int ref = PTR(const int, F_REF)[i];
       const bool p_found = B8(F_P_TAB_FOUND, i) || ref >= 0;
@@ -571,96 +664,111 @@ static __device__ void mode_post(const Env& e, int aux) {
       }
       fkey[i] = key;
     }
-    __syncthreads();
-    for (int i = tid; i < n; i += T) {
-      if (fkey[i] == 0) continue;
-      const int h = fhash_insert(fkey, fhkey, e.hsize, i);
-      if (code_t[i] == 0) atomicMin(fhwin + h, i);
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += T) {
-      if (fkey[i] == 0) continue;
-      const uint64_t k = fkey[i];
-      uint64_t h = mix64(k, 0) & (uint64_t)(e.hsize - 1);
-      while (fkey[fhkey[h]] != k) h = (h + 1) & (uint64_t)(e.hsize - 1);
-      const int fw = fhwin[h];
-      const uint32_t code = code_t[i];
-      if (fw < n && i > fw && (code == 0 || code == 35)) {
-        code_t[i] = B8(F_POST, fw) ? 33 : 34;
+  }
+  grid_sync();
+
+  // B. Duplicate ids: the override replaces exactly the codes that follow
+  //    the exists check in sequential order (the winner's row was composed
+  //    in A, by its own lane).  Then each post/void lane joins the hash of
+  //    its key, and a lane left with code 0 bids for its key's first
+  //    fulfilment.
+  const int* winner = PTR(const int, F_WINNER);
+  const int64_t* group = PTR(const int64_t, F_GROUP);
+  for (int i = L.lo; i < L.hi; ++i) {
+    const int w = winner[group[i]];
+    uint32_t code = code_t[i];
+    if (w < n && i > w) {
+      const LaneFlags f = lane_flags(e, i);
+      const bool pv = e.has_pv && f.postvoid;
+      const bool over = pv ? (code == 0 || code == 33 || code == 34 || code == 35)
+                           : (code == 0 || code == 53 || balance_code(code));
+      if (over) {
+        Row wr;
+        for (int c = 0; c < TC_N; ++c) wr.v[c] = col_cg(e, F_ROW + c, tc_is_u32(c), w);
+        if (pv) {
+          code = exists_postvoid(e, i, wr,
+                                 resolve_p(e, i, PTR(const int, F_REF)[i]));
+        } else {
+          code = exists_regular(e, i, wr,
+                                mk(bcol(e, TC_AMT_LO, i), bcol(e, TC_AMT_HI, i)));
+        }
+        code_t[i] = code;
       }
     }
-    __syncthreads();
+    if (e.has_pv && fkey[i] != 0) {
+      const int h = fhash_insert(fkey, fhkey, e.hsize, i);
+      if (code == 0) atomicMin(fhwin + h, i);
+    }
   }
+  grid_sync();
 
-  // D. Invalid lanes 0; linked chains (ops/state_machine.py:287).
-  uint32_t* pre_chain = PTR(uint32_t, F_PRE_CHAIN);
-  const uint8_t* linked = PTR(const uint8_t, F_LINKED);
-  for (int i = tid; i < n; i += T) {
-    if (!(i < e.count)) code_t[i] = 0;
-    pre_chain[i] = code_t[i];
-    if (i == e.count - 1 && linked[i]) code_t[i] = 2;  // chain open
+  // C. Double post/void inside the batch: the first lane with code 0 keeps
+  //    its pending, later lanes with 0 or 35 get already posted (33) or
+  //    voided (34).  D. Invalid lanes 0; each chain's first failure.
+  for (int i = L.lo; i < L.hi; ++i) {
+    uint32_t code = code_t[i];
+    if (e.has_pv && fkey[i] != 0) {
+      const uint64_t k = fkey[i];
+      uint64_t h = mix64(k, 0) & (uint64_t)(e.hsize - 1);
+      while (ldcg64(fkey, ldcg32(fhkey, (int)h)) != k)
+        h = (h + 1) & (uint64_t)(e.hsize - 1);
+      const int fw = ldcg32(fhwin, (int)h);
+      if (fw < n && i > fw && (code == 0 || code == 35)) {
+        code = B8(F_POST, fw) ? 33 : 34;
+      }
+    }
+    if (!(i < e.count)) code = 0;
+    PTR(uint32_t, F_PRE_CHAIN)[i] = code;
+    if (i == e.count - 1 && linked[i]) code = 2;  // chain open
+    code_t[i] = code;
+    const bool in_chain = linked[i] || (i > 0 && linked[i - 1]);
+    if (in_chain && code != 0) atomicMin(fail + cstart[i], i);
   }
-  int* cstart = PTR(int, F_CHAIN);
-  int* fail = cstart + n;
-  for (int i = tid; i < n; i += T) fail[i] = n;
-  __syncthreads();
-  int lo, hi;
-  thread_chunk(n, &lo, &hi);
-  auto is_start = [&](int j) { return linked[j] && !(j > 0 && linked[j - 1]); };
-  int last = -1;
-  for (int j = lo; j < hi; ++j) {
-    if (is_start(j)) last = j;
-  }
-  int cur = block_scan_excl(last, -1, OpMax(), shint);
-  for (int j = lo; j < hi; ++j) {
-    if (is_start(j)) cur = j;
-    cstart[j] = cur;
-    const bool in_chain = linked[j] || (j > 0 && linked[j - 1]);
-    if (in_chain && code_t[j] != 0) atomicMin(fail + cur, j);
-  }
-  __syncthreads();
-  for (int i = tid; i < n; i += T) {
+  grid_sync();
+
+  // D. The chains' codes (ops/state_machine.py:287).
+  for (int i = L.lo; i < L.hi; ++i) {
     const bool in_chain = linked[i] || (i > 0 && linked[i - 1]);
     if (!in_chain) continue;
-    const int f = fail[cstart[i]];
+    const int f = ldcg32(fail, cstart[i]);
     if (f >= n) continue;
     if (i < f) code_t[i] = 1;
     else if (i > f) code_t[i] = (i == e.count - 1 && linked[i]) ? 2 : 1;
   }
-  __syncthreads();
 
   int* ctrl = PTR(int, F_CTRL);
   if (!aux) {
-    // E. Stability against the previous iterate, then the new carry.
-    for (int i = tid; i < n; i += T) {
+    // E. Stability against the previous iterate, the new carry, and the
+    //    next pass's winners reset (B read this pass's before the last
+    //    barrier).
+    int unstable = 0;
+    for (int i = L.lo; i < L.hi; ++i) {
       const uint32_t code = code_t[i];
       const bool ok = code == 0 && i < e.count;
-      if (code != PTR(const uint32_t, F_CODE_C)[i]) sh_flag[0] = 1;
-      if (ok && (PTR(const uint64_t, F_ROW + TC_AMT_LO)[i] !=
-                     PTR(const uint64_t, F_AMT_C_LO)[i] ||
-                 PTR(const uint64_t, F_ROW + TC_AMT_HI)[i] !=
-                     PTR(const uint64_t, F_AMT_C_HI)[i]))
-        sh_flag[0] = 1;
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += T) {
-      const uint32_t code = code_t[i];
+      const uint64_t lo = PTR(const uint64_t, F_ROW + TC_AMT_LO)[i];
+      const uint64_t hi = PTR(const uint64_t, F_ROW + TC_AMT_HI)[i];
+      if (code != PTR(const uint32_t, F_CODE_C)[i]) unstable = 1;
+      if (ok && (lo != PTR(const uint64_t, F_AMT_C_LO)[i] ||
+                 hi != PTR(const uint64_t, F_AMT_C_HI)[i]))
+        unstable = 1;
       PTR(uint32_t, F_CODE_C)[i] = code;
-      PTR(uint8_t, F_OK_C)[i] = code == 0 && i < e.count;
-      PTR(uint64_t, F_AMT_C_LO)[i] = PTR(const uint64_t, F_ROW + TC_AMT_LO)[i];
-      PTR(uint64_t, F_AMT_C_HI)[i] = PTR(const uint64_t, F_ROW + TC_AMT_HI)[i];
+      PTR(uint8_t, F_OK_C)[i] = ok;
+      PTR(uint64_t, F_AMT_C_LO)[i] = lo;
+      PTR(uint64_t, F_AMT_C_HI)[i] = hi;
+      PTR(int, F_WINNER)[i] = n;
     }
-    if (tid == 0) {
+    block_flags(e, unstable);
+    grid_sync();
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
       ctrl[C_K] += 1;
-      ctrl[C_EVER_STABLE] = sh_flag[0] ? 0 : 1;
+      ctrl[C_EVER_STABLE] = fold_flags(e) ? 0 : 1;
     }
     return;
   }
 
   // E'. The plan: codes, ok, posted keys, history values, routing word.
-  bool any_u128 = false, any_linked = false, any_ref = false, any_pv = false;
-  bool hazard = false;
-  for (int i = tid; i < n; i += T) {
+  int route = 0;
+  for (int i = L.lo; i < L.hi; ++i) {
     const LaneFlags f = lane_flags(e, i);
     const uint32_t code = code_t[i];
     const bool ok = code == 0 && f.valid;
@@ -701,10 +809,9 @@ static __device__ void mode_post(const Env& e, int aux) {
     }
     PTR(uint64_t, F_HIST + 20)[i] = ts_of(e, i);
     if (f.valid && (bcol(e, TC_AMT_HI, i) != 0 || (f.postvoid && p_amt_hi != 0)))
-      any_u128 = true;
-    if (f.linked) any_linked = true;
-    if (ref >= 0) any_ref = true;
-    if (f.postvoid) any_pv = true;
+      route |= R_U128;
+    if (f.linked) route |= R_LINKED;
+    if (ref >= 0 || f.postvoid) route |= R_INTRA;
     const bool in_chain = f.linked || (i > 0 && linked[i - 1]);
     if (in_chain && code != 0) {
       const bool dr_limf = (PTR(const uint32_t, F_DRT + V_FLAGS)[i] & 2u) &&
@@ -712,30 +819,29 @@ static __device__ void mode_post(const Env& e, int aux) {
       const bool cr_limf = (PTR(const uint32_t, F_CRT + V_FLAGS)[i] & 4u) &&
                            B8(F_CRT + V_FOUND, i);
       if (f.bal_dr || f.bal_cr || dr_limf || cr_limf || B8(F_NEAR_OV, i) ||
-          balance_code(pre_chain[i]))
-        hazard = true;
+          balance_code(PTR(const uint32_t, F_PRE_CHAIN)[i]))
+        route |= R_HAZARD;
     }
   }
-  if (any_u128) sh_flag[0] = 1;
-  if (any_linked) sh_flag[1] = 1;
-  if (any_ref || any_pv) sh_flag[2] = 1;
-  if (hazard) sh_flag[3] = 1;
-  __syncthreads();
-  if (tid == 0) {
+  block_flags(e, route);
+  grid_sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const int fl = fold_flags(e);
     const int k = ctrl[C_K];
     const bool proved = B8(F_PROVED, 0);
     const int needed = PTR(const int, F_NEEDED)[0];
     const bool unconverged = !ctrl[C_EVER_STABLE] && !(proved && k >= needed);
-    const bool linked_x_intra = sh_flag[1] && (B8(F_ANY_DUP, 0) || sh_flag[2]);
-    const bool route = unconverged || sh_flag[0] || linked_x_intra ||
-                       sh_flag[3] || B8(F_ARITH, 0);
-    PTR(int, F_ROUTE)[0] = route ? 1 : 0;  // FLAG_SEQ
+    const bool linked_x_intra =
+        (fl & R_LINKED) && (B8(F_ANY_DUP, 0) || (fl & R_INTRA));
+    const bool route_seq = unconverged || (fl & R_U128) || linked_x_intra ||
+                           (fl & R_HAZARD) || B8(F_ARITH, 0);
+    PTR(int, F_ROUTE)[0] = route_seq ? 1 : 0;  // FLAG_SEQ
     PTR(int, F_PASSES)[0] = k;
     PTR(int, F_WAVE_BOUND)[0] = proved ? needed : 0;
   }
 }
 
-__global__ void __launch_bounds__(FULL_THREADS, 1)
+__global__ void __launch_bounds__(PASS_THREADS)
     full_pass_kernel(Env e, int mode, int aux) {
   if (mode == M_INIT) {
     mode_init(e);
@@ -743,12 +849,35 @@ __global__ void __launch_bounds__(FULL_THREADS, 1)
   }
   if (!aux && !full_should_run(PTR(const int, F_CTRL), PTR(const uint8_t, F_PROVED),
                                PTR(const int, F_NEEDED)))
-    return;
+    return;  // every thread reads the same words: the whole grid returns
   if (mode == M_PRE) {
     mode_pre(e);
   } else {
     mode_post(e, aux);
   }
+}
+
+// Blocks of a cooperative launch of `kernel` over `n` lanes: one lane a
+// thread, at most PASS_MAX_BLOCKS and what the card holds at once.
+template <class K>
+static int pass_blocks(K kernel, int n, int* resident, int* blocks) {
+  if (*resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          PASS_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    *resident = sms * per_sm;
+  }
+  int b = (n + PASS_THREADS - 1) / PASS_THREADS;
+  if (b > PASS_MAX_BLOCKS) b = PASS_MAX_BLOCKS;
+  if (b > *resident) b = *resident;
+  if (b < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *blocks = b;
+  return 0;
 }
 
 extern "C" int tb_full_pass(const void* const* ptrs, int nptrs, int mode,
@@ -759,6 +888,10 @@ extern "C" int tb_full_pass(const void* const* ptrs, int nptrs, int mode,
       count > n || hsize < 2 * n || (hsize & (hsize - 1)) ||
       mode < M_INIT || mode > M_POST)
     return (int)cudaErrorInvalidValue;
+  static int resident = 0;
+  int blocks = 0;
+  int err = pass_blocks(full_pass_kernel, (int)n, &resident, &blocks);
+  if (err) return err;
   Env e;
   for (int k = 0; k < F_NPTRS; ++k) e.a.p[k] = ptrs[k];
   e.n = (int)n;
@@ -768,28 +901,41 @@ extern "C" int tb_full_pass(const void* const* ptrs, int nptrs, int mode,
   e.max_passes = max_passes;
   e.hsize = (int)hsize;
   e.batch_ts = batch_ts;
-  full_pass_kernel<<<1, FULL_THREADS, 0, (cudaStream_t)stream>>>(e, mode, aux);
-  return (int)cudaGetLastError();
+  void* args[] = {&e, &mode, &aux};
+  return (int)cudaLaunchCooperativeKernel((const void*)full_pass_kernel,
+                                          dim3((unsigned)blocks),
+                                          dim3(PASS_THREADS), args, 0,
+                                          (cudaStream_t)stream);
 }
 
 // The history append (create_transfers_full_impl, :1408-1424): where the
 // batch commits (*gate == 0), each lane that records history writes its row
 // at count + its exclusive prefix in lane order; rows past the capacity are
-// dropped, and the count grows by every such lane.
-__global__ void __launch_bounds__(FULL_THREADS, 1)
+// dropped, and the count grows by every such lane.  The prefix is two-level:
+// a block scan, then the block totals before it (`part`, one word a block,
+// after the grid barrier).
+__global__ void __launch_bounds__(PASS_THREADS)
     full_hist_kernel(const int* __restrict__ gate,
                      const uint8_t* __restrict__ do_hist, int n, Ptrs rows,
-                     Ptrs cols, int64_t capacity, uint64_t* __restrict__ count) {
+                     Ptrs cols, int64_t capacity, uint64_t* __restrict__ count,
+                     int* __restrict__ part) {
   __shared__ int shint[32];
-  if (*gate != 0) return;
-  int lo, hi;
-  thread_chunk(n, &lo, &hi);
+  if (*gate != 0) return;  // the whole grid returns
+  const Lanes L = grid_lanes(n);
   int local = 0;
-  for (int j = lo; j < hi; ++j) local += do_hist[j] ? 1 : 0;
+  for (int j = L.lo; j < L.hi; ++j) local += do_hist[j] ? 1 : 0;
   int total = 0;
   int off = block_scan_excl(local, 0, OpSum(), shint, &total);
-  const uint64_t base = *count;
-  for (int j = lo; j < hi; ++j) {
+  if (threadIdx.x == 0) part[blockIdx.x] = total;
+  const uint64_t base = *count;  // every thread reads it before it grows
+  grid_sync();
+  int all = 0;
+  for (int b = 0; b < (int)gridDim.x; ++b) {
+    const int t = ldcg32(part, b);
+    if (b < (int)blockIdx.x) off += t;
+    all += t;
+  }
+  for (int j = L.lo; j < L.hi; ++j) {
     if (!do_hist[j]) continue;
     const uint64_t at = base + (uint64_t)off++;
     if (at >= (uint64_t)capacity) continue;
@@ -798,20 +944,27 @@ __global__ void __launch_bounds__(FULL_THREADS, 1)
           static_cast<const uint64_t*>(rows.p[c])[j];
     }
   }
-  __syncthreads();  // every thread read the count before it grows
-  if (threadIdx.x == 0) *count = base + (uint64_t)total;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *count = base + (uint64_t)all;
 }
 
 extern "C" int tb_full_hist(const void* gate, const void* do_hist, int64_t n,
                             const void* const* rows, const void* const* cols,
-                            int64_t capacity, void* count, void* stream) {
+                            int64_t capacity, void* count, void* part,
+                            void* stream) {
   if (n <= 0 || n > 8 * FULL_THREADS) return (int)cudaErrorInvalidValue;
+  static int resident = 0;
+  int blocks = 0;
+  int err = pass_blocks(full_hist_kernel, (int)n, &resident, &blocks);
+  if (err) return err;
   Ptrs r, c;
-  int err = pack_ptrs(&r, 21, rows);
+  err = pack_ptrs(&r, 21, rows);
   if (!err) err = pack_ptrs(&c, 21, cols);
   if (err) return err;
-  full_hist_kernel<<<1, FULL_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)gate, (const uint8_t*)do_hist, (int)n, r, c, capacity,
-      (uint64_t*)count);
-  return (int)cudaGetLastError();
+  int ni = (int)n;
+  void* args[] = {(void*)&gate, (void*)&do_hist, &ni, &r, &c, &capacity,
+                  &count, &part};
+  return (int)cudaLaunchCooperativeKernel((const void*)full_hist_kernel,
+                                          dim3((unsigned)blocks),
+                                          dim3(PASS_THREADS), args, 0,
+                                          (cudaStream_t)stream);
 }

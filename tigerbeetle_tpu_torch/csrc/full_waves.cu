@@ -16,130 +16,220 @@
 // the batch unschedulable); `passes_needed` is the deepest valid lane + 1;
 // the histogram counts valid lanes by depth (8 = deeper).
 //
-// One block of 1,024 threads; the keys are sorted in shared memory (the
-// same sort as K10, whose first pass sorts the same slots: the sort is left
-// in the sort cache for it); each round's running max runs in warp tiles,
-// as K10's sums do.  What bounds it on the H100: latency of the sort and of
-// up to `max_rounds` rounds on one SM; the bytes (about 0.2 MB) take well
-// under 1 us.
+// The grid: one cooperative launch of p / 1,024 blocks of 1,024 threads
+// (p = the legs rounded up to a power of two: 16 blocks on 16 SMs at 8,190
+// lanes), one sorted leg a thread.  The sort is a chunk sort and a merge
+// by rank: each block bitonic-sorts its chunk of 1,024 (slot << 15 | leg)
+// keys in shared memory and stores it; after a grid barrier each block
+// loads every sorted chunk into shared memory (128 KB at 16,384 legs) and
+// places each of its own keys at its rank, its place in its chunk plus the
+// keys of every other chunk below it (a binary search a chunk; the pad
+// keys, all ones, break ties by chunk).  The keys are distinct and the
+// leg position breaks equal slots, so this is the stable sort by slot.
+// The sort always runs and leaves the sorted keys, the slots it sorted and
+// the ok word in the sort cache for K10 (the format of full_common.cuh's
+// sort_legs_cached; INIT marks the cache invalid for every batch).  Run
+// ids are a two-level sum scan of the run heads (a block scan, then the
+// totals of the blocks before).  Each round is a two-level max scan of the
+// packed legs (a block scan; each block's carry-in the max of the blocks
+// before it), the scatter max into the lanes, and the depth update with a
+// per-block changed flag, with grid barriers between (three a round).
+//
+// What bounds it on the H100: latency: the 55 compare-exchange steps of a
+// chunk's sort, the merge's 15 binary searches of 10 steps a key in
+// shared memory, and the grid barriers (4 + 3 a round).  The bytes (about
+// 0.2 MB) take well under 1 us.
+#include <cooperative_groups.h>
+
 #include "full_common.cuh"
 
-__global__ void __launch_bounds__(FULL_THREADS, 1)
-    full_waves_kernel(const uint8_t* __restrict__ hazard,
-                      const uint8_t* __restrict__ unsched,
-                      const int64_t* __restrict__ wdr_slot,
-                      const uint8_t* __restrict__ wdr_live,
-                      const int64_t* __restrict__ wcr_slot,
-                      const uint8_t* __restrict__ wcr_live,
-                      const uint8_t* __restrict__ valid, int n, uint64_t cap,
-                      int max_rounds, uint64_t* cache_keys,
-                      uint64_t* cache_slot, int* cache_ok,
-                      uint64_t* __restrict__ run_of,
-                      int* __restrict__ prior, int* __restrict__ depth,
-                      uint8_t* __restrict__ proved, int* __restrict__ needed,
-                      int* __restrict__ hist) {
-  extern __shared__ uint64_t keys[];
-  __shared__ uint64_t wmax[32];
-  __shared__ int shint[32];
-  __shared__ int changed, hist_sh[9];
-  const int n2 = 2 * n, T = blockDim.x, tid = threadIdx.x;
-  sort_legs_cached(keys, n, wdr_slot, wdr_live, wcr_slot, wcr_live, cap,
-                   cache_keys, cache_slot, cache_ok);
+namespace cg = cooperative_groups;
 
-  // Run ids: the number of run heads up to each sorted position, less 1.
-  int lo, hi;
-  thread_chunk(n2, &lo, &hi);
-  int heads = 0;
-  for (int j = lo; j < hi; ++j)
-    heads += (j == 0 || (keys[j] >> 15) != (keys[j - 1] >> 15)) ? 1 : 0;
-  int before = block_scan_excl(heads, 0, OpSum(), shint);
-  for (int j = lo; j < hi; ++j) {
-    before += (j == 0 || (keys[j] >> 15) != (keys[j - 1] >> 15)) ? 1 : 0;
-    run_of[j] = (uint64_t)(before - 1);
+#define WAVE_CHUNK 1024  // keys a block sorts, and threads a block
+#define WAVE_MAX_BLOCKS (FULL_MAX_LEGS / WAVE_CHUNK)
+
+struct WaveArgs {
+  const uint8_t* hazard;
+  const uint8_t* unsched;
+  const int64_t* wdr_slot;
+  const uint8_t* wdr_live;
+  const int64_t* wcr_slot;
+  const uint8_t* wcr_live;
+  const uint8_t* valid;
+  int n, p, chunk;
+  uint64_t cap;
+  int max_rounds;
+  uint64_t* keys;       // [p] the sorted keys (the cache's, or scratch)
+  uint64_t* slot_out;   // [2n] each leg's slot (the cache's check, or scratch)
+  int* ok;              // the cache's ok word, or scratch
+  uint64_t* chunks;     // [p] scratch: the sorted chunks
+  int* prior;           // [n] scratch
+  int* part;            // [5 * WAVE_MAX_BLOCKS] scratch: per-block partials
+  int* depth;
+  uint8_t* proved;
+  int* needed;
+  int* hist;
+};
+
+static __device__ __forceinline__ uint64_t ldcg_u64(const uint64_t* p, int i) {
+  return (uint64_t)__ldcg(reinterpret_cast<const unsigned long long*>(p) + i);
+}
+
+// Leg j's slot: its lane's debit (j even) or credit slot, `cap` if dead.
+static __device__ __forceinline__ uint64_t leg_slot(const WaveArgs& a, int j) {
+  const int i = j >> 1;
+  const bool dr = (j & 1) == 0;
+  const bool live = dr ? a.wdr_live[i] != 0 : a.wcr_live[i] != 0;
+  return live ? (uint64_t)(dr ? a.wdr_slot[i] : a.wcr_slot[i]) : a.cap;
+}
+
+// Keys of chunk c (in shared `sh`, sorted) below `key`; with `ties`, keys
+// equal to it count as below too.
+static __device__ __forceinline__ int rank_in(const uint64_t* sh, int chunk,
+                                              uint64_t key, bool ties) {
+  int lo = 0, hi = chunk;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const uint64_t v = sh[mid];
+    if (v < key || (ties && v == key)) lo = mid + 1;
+    else hi = mid;
   }
-  for (int i = tid; i < n; i += T) depth[i] = hazard[i] ? 1 : 0;
-  if (tid < 9) hist_sh[tid] = 0;
-  __syncthreads();
+  return lo;
+}
 
-  // Relaxation rounds.  Each warp walks its own range of legs 32 at a
-  // time (coalesced): pass A takes the warp's running max; pass B the
-  // exclusive running max at every leg, carried in from the warps before.
-  const int lane = tid & 31, warp = tid >> 5, W = T >> 5;
-  const int per = (((n2 + W - 1) / W) + 31) & ~31;
-  const int base = warp * per;
-  const int end = base + per < n2 ? base + per : n2;
-  auto packed_at = [&](int j) -> uint64_t {
-    const uint64_t key = keys[j];
-    const uint64_t d = (key >> 15) < cap ? (uint64_t)depth[(key & 0x7FFF) >> 1] : 0;
-    return (run_of[j] << 32) | d;
-  };
-  auto warp_max = [&](uint64_t x) {
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint64_t t = shfl_up64(x, off);
-      if (lane >= off && t > x) x = t;
+__global__ void __launch_bounds__(WAVE_CHUNK, 1) full_waves_kernel(WaveArgs a) {
+  extern __shared__ uint64_t sh[];
+  __shared__ uint64_t wsh[32];
+  __shared__ int ish[32];
+  __shared__ int hist_sh[9];
+  __shared__ int flag_sh;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, b = blockIdx.x, B = gridDim.x;
+  const int n = a.n, n2 = 2 * n, p = a.p, chunk = a.chunk;
+  const int j = b * chunk + tid;  // this thread's chunk key, then sorted leg
+  int* part_run = a.part;                        // heads a block
+  int* part_max = a.part + WAVE_MAX_BLOCKS;      // (hi, lo) of a block's max
+  int* part_flag = a.part + 3 * WAVE_MAX_BLOCKS; // a round's changed flag
+  int* part_deep = a.part + 4 * WAVE_MAX_BLOCKS; // the deepest valid lane
+
+  // 1. Each block sorts its chunk of keys in shared memory.
+  if (tid < chunk) {
+    sh[tid] = j < n2 ? (leg_slot(a, j) << 15) | (uint64_t)j : ~0ull;
+  }
+  __syncthreads();
+  bitonic_sort(sh, chunk);
+  if (tid < chunk) a.chunks[j] = sh[tid];
+  for (int i = b * blockDim.x + tid; i < n; i += B * blockDim.x) {
+    a.depth[i] = a.hazard[i] ? 1 : 0;
+    a.prior[i] = 0;
+  }
+  if (b == 0 && tid < 9) a.hist[tid] = 0;
+  grid.sync();
+
+  // 2. Merge by rank: every sorted chunk in shared memory; each key of this
+  //    block's chunk goes to its place in the whole order.
+  for (int k = tid; k < p; k += blockDim.x) sh[k] = ldcg_u64(a.chunks, k);
+  __syncthreads();
+  if (tid < chunk) {
+    const uint64_t key = sh[b * chunk + tid];
+    int rank = tid;
+    for (int c = 0; c < B; ++c) {
+      if (c != b) rank += rank_in(sh + c * chunk, chunk, key, c < b);
     }
-    return x;
-  };
+    a.keys[rank] = key;
+  }
+  for (int i = b * blockDim.x + tid; i < n2; i += B * blockDim.x) {
+    a.slot_out[i] = leg_slot(a, i);
+  }
+  grid.sync();
+
+  // 3. This thread's sorted leg, its run head, and its run id (a two-level
+  //    sum scan of the heads).
+  uint64_t key = 0, slot = 0;
+  bool head = false;
+  if (j < n2) {
+    key = ldcg_u64(a.keys, j);
+    slot = key >> 15;
+    head = j == 0 || (ldcg_u64(a.keys, j - 1) >> 15) != slot;
+  }
+  const bool live = j < n2 && slot < a.cap;
+  const int lane = (int)((key & 0x7FFF) >> 1);
+  int heads = 0;
+  int before = block_scan_excl(head ? 1 : 0, 0, OpSum(), ish, &heads);
+  if (tid == 0) part_run[b] = heads;
+  grid.sync();
+  for (int c = 0; c < b; ++c) before += __ldcg(part_run + c);
+  const uint64_t run = (uint64_t)(before + (head ? 1 : 0) - 1);
+
+  // 4. Relaxation rounds.
   int rounds = 0;
   bool any_change = true;
-  while (any_change && rounds < max_rounds) {
-    for (int i = tid; i < n; i += T) prior[i] = 0;
-    uint64_t carry = 0;
-    for (int b = base; b < end; b += 32) {
-      const int j = b + lane;
-      const uint64_t x = warp_max(j < end ? packed_at(j) : 0);
-      const uint64_t top = __shfl_sync(0xffffffffu, (unsigned long long)x, 31);
-      if (top > carry) carry = top;
+  while (any_change && rounds < a.max_rounds) {
+    // a. The packed legs' running max: the block's, then the blocks'.
+    const uint64_t d =
+        live ? (uint64_t)(uint32_t)__ldcg(a.depth + lane) : 0;
+    const uint64_t packed = j < n2 ? (run << 32) | d : 0;
+    uint64_t top = 0;
+    uint64_t excl = block_scan_excl(packed, (uint64_t)0, OpMax(), wsh, &top);
+    if (tid == 0) {
+      part_max[2 * b] = (int)(top >> 32);
+      part_max[2 * b + 1] = (int)(uint32_t)top;
     }
-    if (lane == 0) wmax[warp] = carry;
-    __syncthreads();
-    carry = 0;
-    for (int w = 0; w < warp; ++w) carry = wmax[w] > carry ? wmax[w] : carry;
-    for (int b = base; b < end; b += 32) {
-      const int j = b + lane;
-      const uint64_t v = j < end ? packed_at(j) : 0;
-      const uint64_t incl = warp_max(v);
-      uint64_t excl = shfl_up64(incl, 1);
-      if (lane == 0) excl = 0;
-      if (carry > excl) excl = carry;  // exclusive max before leg j
-      if (j < end && (keys[j] >> 15) < cap && (excl >> 32) == run_of[j]) {
-        atomicMax(prior + (int)((keys[j] & 0x7FFF) >> 1),
-                  (int)(excl & 0xFFFFFFFFu));
-      }
-      const uint64_t top = __shfl_sync(0xffffffffu, (unsigned long long)incl, 31);
-      if (top > carry) carry = top;
+    grid.sync();
+    // b. The carry from the blocks before; each live leg's exclusive max,
+    //    where it lies in its own run, into its lane's prior.
+    for (int c = 0; c < b; ++c) {
+      const uint64_t t = ((uint64_t)(uint32_t)__ldcg(part_max + 2 * c) << 32) |
+                         (uint32_t)__ldcg(part_max + 2 * c + 1);
+      if (t > excl) excl = t;
     }
-    if (tid == 0) changed = 0;
+    if (live && (excl >> 32) == run) {
+      atomicMax(a.prior + lane, (int)(excl & 0xFFFFFFFFu));
+    }
+    grid.sync();
+    // c. The depths; the prior reset for the next round.
+    if (tid == 0) flag_sh = 0;
     __syncthreads();
-    int new_depth[8];
-    int k = 0;
-    for (int i = tid; i < n; i += T, ++k) {
-      const int d = depth[i];
-      const int nd = hazard[i] ? (d > 1 + prior[i] ? d : 1 + prior[i]) : 0;
-      if (nd != d) changed = 1;
-      if (k < 8) new_depth[k] = nd;
+    for (int i = b * blockDim.x + tid; i < n; i += B * blockDim.x) {
+      const int dd = a.depth[i];
+      const int pr = __ldcg(a.prior + i);
+      const int nd = a.hazard[i] ? (dd > 1 + pr ? dd : 1 + pr) : 0;
+      if (nd != dd) flag_sh = 1;
+      a.depth[i] = nd;
+      a.prior[i] = 0;
     }
     __syncthreads();
-    k = 0;
-    for (int i = tid; i < n; i += T, ++k) depth[i] = new_depth[k];
-    any_change = changed != 0;
+    if (tid == 0) part_flag[b] = flag_sh;
+    grid.sync();
+    any_change = false;
+    for (int c = 0; c < B; ++c) any_change |= __ldcg(part_flag + c) != 0;
     ++rounds;
-    __syncthreads();
   }
 
+  // 5. The histogram and the deepest valid lane.
+  if (tid < 9) hist_sh[tid] = 0;
+  __syncthreads();
   int deepest = 0;
-  for (int i = tid; i < n; i += T) {
-    if (!valid[i]) continue;
-    const int d = depth[i];
-    if (d > deepest) deepest = d;
-    atomicAdd(hist_sh + (d < 8 ? d : 8), 1);
+  for (int i = b * blockDim.x + tid; i < n; i += B * blockDim.x) {
+    if (!a.valid[i]) continue;
+    const int dd = __ldcg(a.depth + i);
+    if (dd > deepest) deepest = dd;
+    atomicAdd(hist_sh + (dd < 8 ? dd : 8), 1);
   }
   int top = 0;
-  block_scan_excl(deepest, 0, OpMax(), shint, &top);
-  if (tid < 9) hist[tid] = hist_sh[tid];
-  if (tid == 0) {
-    *proved = (!unsched[0] && !any_change) ? 1 : 0;
-    *needed = top + 1;
+  block_scan_excl(deepest, 0, OpMax(), ish, &top);
+  if (tid < 9 && hist_sh[tid]) atomicAdd(a.hist + tid, hist_sh[tid]);
+  if (tid == 0) part_deep[b] = top;
+  grid.sync();
+  if (b == 0 && tid == 0) {
+    int deep = 0;
+    for (int c = 0; c < B; ++c) {
+      const int t = __ldcg(part_deep + c);
+      if (t > deep) deep = t;
+    }
+    *a.proved = (!a.unsched[0] && !any_change) ? 1 : 0;
+    *a.needed = deep + 1;
+    *a.ok = 1;
   }
 }
 
@@ -162,14 +252,43 @@ extern "C" int tb_full_waves(const void* hazard, const void* unsched,
     if (err) return err;
     opted = true;
   }
-  uint64_t* run_of = (uint64_t*)scratch;    // [2n]
-  int* prior = (int*)(run_of + 2 * n);      // [n]
-  full_waves_kernel<<<1, FULL_THREADS, 8 * p, (cudaStream_t)stream>>>(
-      (const uint8_t*)hazard, (const uint8_t*)unsched,
-      (const int64_t*)wdr_slot, (const uint8_t*)wdr_live,
-      (const int64_t*)wcr_slot, (const uint8_t*)wcr_live,
-      (const uint8_t*)valid, (int)n, cap, max_rounds, (uint64_t*)cache_keys,
-      (uint64_t*)cache_slot, (int*)cache_ok, run_of, prior,
-      (int*)depth, (uint8_t*)proved, (int*)needed, (int*)hist);
-  return (int)cudaGetLastError();
+  WaveArgs a;
+  a.hazard = (const uint8_t*)hazard;
+  a.unsched = (const uint8_t*)unsched;
+  a.wdr_slot = (const int64_t*)wdr_slot;
+  a.wdr_live = (const uint8_t*)wdr_live;
+  a.wcr_slot = (const int64_t*)wcr_slot;
+  a.wcr_live = (const uint8_t*)wcr_live;
+  a.valid = (const uint8_t*)valid;
+  a.n = (int)n;
+  a.p = p;
+  a.chunk = p < WAVE_CHUNK ? p : WAVE_CHUNK;
+  a.cap = cap;
+  a.max_rounds = max_rounds;
+  // scratch: chunks [p] u64, then (no cache) keys [p] and slots [2n] u64,
+  // then prior [n] and the partials, int32.
+  uint64_t* s64 = (uint64_t*)scratch;
+  a.chunks = s64;
+  s64 += p;
+  if (cache_keys == nullptr) {
+    a.keys = s64;
+    a.slot_out = s64 + p;
+    s64 += p + 2 * n;
+  } else {
+    a.keys = (uint64_t*)cache_keys;
+    a.slot_out = (uint64_t*)cache_slot;
+  }
+  int* s32 = (int*)s64;
+  a.prior = s32;
+  a.part = s32 + n;
+  a.ok = cache_ok != nullptr ? (int*)cache_ok : a.part + 5 * WAVE_MAX_BLOCKS;
+  a.depth = (int*)depth;
+  a.proved = (uint8_t*)proved;
+  a.needed = (int*)needed;
+  a.hist = (int*)hist;
+  void* args[] = {&a};
+  const int blocks = p / a.chunk;
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)full_waves_kernel, dim3((unsigned)blocks), dim3(WAVE_CHUNK),
+      args, (size_t)8 * p, (cudaStream_t)stream);
 }

@@ -297,7 +297,7 @@ _SIGNATURES = {
                       _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tb_full_pass": [_P, _INT, _INT, _INT, _I64, _I64, ctypes.c_uint64,
                      _INT, _INT, _INT, _I64, _P],
-    "tb_full_hist": [_P, _P, _I64, _P, _P, _I64, _P, _P],
+    "tb_full_hist": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "tb_run_sort": [_P, _P, _INT, _P, _I64, _I64, _P,
                     ctypes.POINTER(ctypes.c_int64), _P],
     "tb_run_merge": [_P, _P, _INT, _P],
@@ -941,7 +941,7 @@ FULL_PASS_LAYOUT = (
     ("fhash", 1), ("chain", 1),
     ("codes", 1), ("ok", 1), ("pv_ok", 1), ("posted_key", 1), ("do_hist", 1),
     ("hist", 21), ("route", 1), ("passes", 1), ("wave_bound", 1),
-    ("cache_ok", 1),
+    ("cache_ok", 1), ("grid", 1),
 )
 LEGS_LAYOUT = (
     ("start", 8), ("ok", 1), ("amt", 1), ("pamt", 1), ("dr_slot", 1),
@@ -952,6 +952,10 @@ LEGS_LAYOUT = (
     ("cache_keys", 1), ("cache_slot", 1), ("cache_ok", 1),
 )
 FULL_MAX_LANES = 8192  # csrc/full_common.cuh: 16,384 legs in shared memory
+# csrc/full_pass.cu PASS_MAX_BLOCKS and csrc/full_waves.cu WAVE_MAX_BLOCKS:
+# the per-block partials of a K11 and a K12 launch.
+PASS_MAX_BLOCKS = 128
+WAVE_MAX_BLOCKS = 16
 # Modes of one full_pass launch (csrc/full_pass.cu Mode).
 PASS_INIT, PASS_PRE, PASS_POST = 0, 1, 2
 
@@ -1118,7 +1122,12 @@ def full_waves(hazard, unschedulable, wdr_slot, wdr_live, wcr_slot, wcr_live,
         needed = torch.empty(1, dtype=torch.int32, device=dev)
     _check(proved, torch.bool, 1, "proved")
     _check(needed, torch.int32, 1, "needed")
-    scratch = torch.empty(3 * n, dtype=torch.int64, device=dev)
+    p2 = 1 << max(1, (2 * n - 1).bit_length())
+    # csrc/full_waves.cu: the sorted chunks, (no cache) the sorted keys and
+    # slots, then the lanes' priors and the per-block partials.
+    words = p2 + (p2 + 2 * n if cache is None else 0)
+    words += (n + 5 * WAVE_MAX_BLOCKS + 1 + 1) // 2
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
     depth = torch.empty(n, dtype=torch.int32, device=dev)
     hist = torch.empty(9, dtype=torch.int32, device=dev)
     err = lib.tb_full_waves(
@@ -1162,9 +1171,11 @@ def full_hist(gate, do_hist, rows: Sequence[torch.Tensor],
     for r, c in zip(rows, cols):
         _check(r, torch.int64, n, "history row")
         _check(c, torch.int64, cap, "history column")
+    part = torch.empty(PASS_MAX_BLOCKS, dtype=torch.int32,
+                       device=do_hist.device)
     err = lib.tb_full_hist(gate.data_ptr(), do_hist.data_ptr(), n,
                            _ptr_array(rows), _ptr_array(cols), cap,
-                           count.data_ptr(), _stream(do_hist))
+                           count.data_ptr(), part.data_ptr(), _stream(do_hist))
     _raise_on(err, "full_pass")
     KERNELS["full_pass"].launches += 1
 

@@ -257,14 +257,42 @@ def create_transfers_seq(
 ) -> Tuple[Ledger, torch.Tensor, torch.Tensor]:
     """Sequential create_transfers with full semantics: updates the ledger
     in place; returns (ledger, codes int32[N], overflow bool 0-dim).
-    Kernel K6 on CUDA tensors: K32's pre-pass, then the sequencer."""
+    Kernel K6 on CUDA tensors: K32's pre-pass, then the sequencer, on the
+    first ``count`` lanes (``_k6_lanes``: any batch width, a count of at
+    most SEQ_MAX_N)."""
     if batch["id_lo"].is_cuda:
         h = ledger.history
+        n = batch["id_lo"].shape[0]
         codes, overflow = _cuda.seq_transfers(
-            *_k6_tables(ledger, batch),
+            *_k6_tables(ledger, _k6_lanes(batch, count)),
             [h.cols[c] for c in HISTORY_COLS] + [h.count], count, timestamp)
-        return ledger, codes, overflow
+        return ledger, _pad_codes(codes, n), overflow
     return create_transfers_seq_plain(ledger, batch, count, timestamp)
+
+
+def _k6_lanes(batch: Dict[str, torch.Tensor], count: int
+              ) -> Dict[str, torch.Tensor]:
+    """The lanes of ``batch`` that K6 (and its split plain form) runs: the
+    first ``count``, rounded up to a multiple of 64 and at most the batch's
+    width; the lanes past ``count`` are inactive and answer 0
+    (``_pad_codes``).  The sequencer's overlay holds SEQ_MAX_N events, so a
+    larger count raises CudaKernelError before anything is launched or
+    written."""
+    if count > SEQ_MAX_N:
+        raise _cuda.CudaKernelError(
+            f"seq_transfers: a count of {count} events; the sequencer takes "
+            f"at most {SEQ_MAX_N}")
+    n = batch["id_lo"].shape[0]
+    m = min(n, max(64, -(-count // 64) * 64))
+    return batch if m == n else {k: v[:m] for k, v in batch.items()}
+
+
+def _pad_codes(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """``codes`` of the first lanes, padded to ``n`` with the inactive
+    lanes' 0."""
+    if codes.shape[0] == n:
+        return codes
+    return torch.cat([codes, codes.new_zeros(n - codes.shape[0])])
 
 
 def _k6_tables(ledger: Ledger, batch: Dict[str, torch.Tensor]):
@@ -1220,11 +1248,15 @@ def _fast_apply(ledger: Ledger, ov: _Overlay, e: int, x, ev, eff, dense,
 
 def create_transfers_seq_split_plain(ledger, batch, count, timestamp):
     """Plain version of K6 as the card runs it: the pre-pass
-    (``seq_prepass_plain``) then the sequencer (``seq_sequencer_plain``).
-    The same results as ``create_transfers_seq_plain``, byte for byte."""
+    (``seq_prepass_plain``) then the sequencer (``seq_sequencer_plain``) on
+    the lanes ``_k6_lanes`` keeps.  The same results as
+    ``create_transfers_seq_plain``, byte for byte; a count above SEQ_MAX_N
+    raises CudaKernelError, as the card does."""
+    n = batch["id_lo"].shape[0]
+    batch = _k6_lanes(batch, count)
     pre = seq_prepass_plain(ledger, batch, count, timestamp)
     codes, overflow = seq_sequencer_plain(ledger, batch, count, timestamp, pre)
-    return ledger, codes, overflow
+    return ledger, _pad_codes(codes, n), overflow
 
 
 # ---------------------------------------------------------------------------

@@ -1136,7 +1136,8 @@ def _kernel_core_cuda(ctx: GatherCtx, batch, count: int, timestamp: int,
     specs = {"ctrl": (i32, 4), "proved": (b, 1), "needed": (i32, 1),
              "unsched": (b, 1), "route": (i32, 1), "passes": (i32, 1),
              "wave_bound": (i32, 1), "cache_ok": (i32, 1),
-             "cache_keys": (i64, p2), "cache_slot": (i64, n2)}
+             "cache_keys": (i64, p2), "cache_slot": (i64, n2),
+             "grid": (i32, 2 * _cuda.PASS_MAX_BLOCKS)}
     for name in ("valid", "pending", "post", "postvoid", "linked", "ok_c",
                  "hazard", "wdr_live", "wcr_live", "dr_live", "cr_live",
                  "near_ov", "ok", "pv_ok", "do_hist"):
@@ -1184,7 +1185,7 @@ def _kernel_core_cuda(ctx: GatherCtx, batch, count: int, timestamp: int,
             "dr_slot", "cr_slot", "dr_live", "cr_live", "pamt", "flags_dr",
             "flags_cr", "code_t", "pre_chain", "near_ov", "fkey", "fhash",
             "chain", "codes", "ok", "pv_ok", "posted_key", "do_hist", "route",
-            "passes", "wave_bound", "cache_ok")},
+            "passes", "wave_bound", "cache_ok", "grid")},
         "leg_start": leg_start, "leg_pos": [legs["leg_pos"]],
         "leg_val": legs["val"], "s_slot": [legs["s_slot"]],
         "s_live": [legs["s_live"]], "is_last": [legs["is_last"]],
