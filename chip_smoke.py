@@ -12,8 +12,14 @@ Phases, each printing one JSON line:
                 (a few units below 2^64), with every leg on one debit and
                 one credit account, and in its slot-base form over 2, 4 and
                 8 shards, and timed again on an accounts table of 2^21;
-                K2 also timed at the main path's shape (a 2^25-slot table
-                holding the main run's earlier batches, its next batches);
+                K2's insert and claim entries checked byte for byte and
+                timed at an adversarial shape (2^20 slots at load 0.45,
+                same-home groups), at the main path's shape (a 2^25-slot
+                table holding the main run's earlier batches, its next
+                batches; the claim and write entries apart) and at
+                full_twophase's (its transfers claim, then its posted
+                claim into 2^24 slots), each with the protocol's rounds
+                and deepest lane;
   4. parity   - TorchStateMachine on the card against the scalar oracle
                 (testing/model.py) on small seeded batches;
   5. main     - the main path at full size: 10,000 accounts, then 10,000,000
@@ -751,62 +757,7 @@ def phase_kernels(seed: int, dev) -> dict:
     )
 
     # -- K2 insert: 8,192 new keys, and grow 2^20 -> 2^21 ----------------
-    ins_lo = np.concatenate([same_home_groups(rng, cap, 64, 8, 1 << 39),
-                             rng.integers(1 << 63, 1 << 64, LANES - 512,
-                                          dtype=np.uint64)])
-    ins_lo = np.unique(ins_lo)
-    ins_lo = np.concatenate([ins_lo, (1 << 38) + np.arange(
-        LANES - len(ins_lo), dtype=np.uint64)])
-    rng.shuffle(ins_lo)
-    ilo = t64(ins_lo, dev)
-    ihi = torch.zeros(LANES, dtype=torch.int64, device=dev)
-    imask = torch.from_numpy(rng.random(LANES) < 0.9).to(dev)
-    irows = {k: (t64(rand_u64(rng, LANES), dev) if v.dtype == torch.int64
-                 else t32(rng.integers(0, 1 << 32, LANES), dev))
-             for k, v in xfr.cols.items()}
-    errs = 0
-    for max_probe in (sm.MAX_PROBE, 2):
-        tk, tp = clone_table(xfr), clone_table(xfr)
-        _, ck = ht.insert(tk, ilo, ihi, imask, irows, max_probe)
-        _, cp = ht.insert_plain(tp, ilo, ihi, imask, irows, max_probe)
-        errs = max(errs, max_abs_err(
-            f"insert max_probe={max_probe}",
-            {"claimed": to_np(ck), **table_np(tk)},
-            {"claimed": to_np(cp), **table_np(tp)}))
-        if max_probe == 2 and not bool(tk.probe_overflow):
-            raise AssertionError("insert: the max_probe=2 case did not overflow")
-        if max_probe == sm.MAX_PROBE:
-            placed = to_np(ck) < cap
-            homes = home_np(ins_lo, np.zeros(LANES, np.uint64), cap)
-            ins_steps = int((((to_np(ck)[placed] - homes[placed])
-                              & np.uint64(cap - 1)) + 1).sum())
-            row_bytes = sum(v.element_size() for v in xfr.cols.values())
-            n_placed = int(placed.sum())
-            ins_bytes = LANES * (16 + 1 + 8) + 17 * ins_steps \
-                + n_placed * (16 + 1 + 2 * row_bytes)
-            del tk, tp
-    grown_k = ht.grow(xfr, cap * 2)
-    grown_p = ht.insert_plain(
-        ht.make_table(cap * 2, {k: v.dtype for k, v in xfr.cols.items()}, dev),
-        xfr.key_lo, xfr.key_hi, (xfr.key_lo != 0) | (xfr.key_hi != 0),
-        xfr.cols, cap * 2)[0]
-    errs = max(errs, max_abs_err("insert (grow 2^20 -> 2^21)",
-                                 table_np(grown_k), table_np(grown_p)))
-    del grown_k, grown_p
-    results["insert"] = dict(
-        max_abs_err=errs,
-        **pair_times(
-            timed(lambda t: ht.insert(t, ilo, ihi, imask, irows, sm.MAX_PROBE),
-                  reps=10, setup=lambda: (clone_table(xfr),)),
-            timed(lambda t: ht.insert_plain(t, ilo, ihi, imask, irows,
-                                            sm.MAX_PROBE),
-                  reps=10, setup=lambda: (clone_table(xfr),))),
-        library_ms=None,
-        bound=bound(ins_bytes, 40 * LANES + 10 * ins_steps),
-        shape=f"{LANES} lanes ({n_placed} placed), table 2^20 at load 0.45; "
-              "also checked: max_probe=2 overflow, grow 2^20->2^21",
-    )
-    del ilo, ihi, imask, irows
+    results["insert"] = k2_adversarial(rng, xfr, dev)
     results["insert"].update(insert_path_shape(dev))
 
     # -- K3 validate: accounts and transfers variants ------------------------
@@ -926,10 +877,139 @@ def phase_kernels(seed: int, dev) -> dict:
     return results
 
 
+def k2_depth(claimed, lo, hi, mask, cap, overflow, max_probe) -> dict:
+    """The rounds K2's protocol ran on a batch (the deepest placed lane's
+    offset from its home, plus one; max_probe when it overflowed), that
+    offset, and the slots the placed lanes visited."""
+    c = to_np(claimed)
+    m = to_np(mask) & (c < cap)
+    off = (c[m] - home_np(to_np(lo)[m], to_np(hi)[m], cap)) \
+        & np.uint64(cap - 1)
+    deepest = int(off.max()) if len(off) else 0
+    rounds = max_probe if overflow else (deepest + 1 if len(off) else 0)
+    return {"rounds": rounds, "deepest_lane": deepest,
+            "slot_visits": int((off + np.uint64(1)).sum())}
+
+
+def k2_check(what, t, lo, hi, mask, rows, max_probe) -> tuple:
+    """K2 against its plain version on one batch, byte for byte, compared
+    on the card: the insert entry on clones of ``t`` (claimed slots, every
+    table array, count, probe_overflow), then the claim entry on ``t``
+    itself (its slots, its flag word, the marks it leaves at the claimed
+    slots, and a closed gate's revert, which must leave ``t`` as it was).
+    Returns (max_abs_err, the plain insert's claims, its overflow)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+
+    tk, tp = clone_table(t), clone_table(t)
+    _, ck = ht.insert(tk, lo, hi, mask, rows, max_probe)
+    _, cp = ht.insert_plain(tp, lo, hi, mask, rows, max_probe)
+    overflow = bool(tp.probe_overflow)
+    err = max_abs_err_card(f"insert ({what})",
+                           {"claimed": ck, **table_tensors(tk)},
+                           {"claimed": cp, **table_tensors(tp)})
+    del tk, tp
+    pc, po = ht.claim_slots_plain(t, lo, hi, mask, max_probe)
+    keys = (t.key_lo.clone(), t.key_hi.clone())
+    word = torch.full((1,), 4, dtype=torch.int32, device=lo.device)
+    kc, _ = _cuda.claim(t.key_lo, t.key_hi, t.tombstone, lo, hi, mask,
+                        max_probe, flag_word=word, flag_bit=2)
+    placed = kc < t.capacity
+    marks = (t.key_lo[kc[placed]], t.key_hi[kc[placed]])
+    want_word = torch.full_like(word, 4 | (2 if bool(po) else 0))
+    _cuda.write_claimed(t.key_lo, t.key_hi, t.tombstone, t.cols, t.count,
+                        lo, hi, kc, mask, {}, gate=torch.ones_like(word),
+                        revert=True)
+    err = max(err, max_abs_err_card(
+        f"claim ({what})",
+        {"claimed": kc, "flag_word": word, "mark_lo": marks[0],
+         "mark_hi": marks[1], "key_lo": t.key_lo, "key_hi": t.key_hi},
+        {"claimed": pc, "flag_word": want_word, "mark_lo": lo[placed],
+         "mark_hi": hi[placed], "key_lo": keys[0], "key_hi": keys[1]}))
+    return err, cp, overflow
+
+
+def k2_adversarial(rng, xfr, dev) -> dict:
+    """K2 at the adversarial shape: 8,192 new keys (64 same-home groups of
+    8 among them, 90 % masked in) into ``xfr``, make_transfers_table's
+    2^20 slots at load 0.45 (its own same-home clusters and tombstones):
+    the insert and claim entries against their plain versions at
+    max_probe MAX_PROBE and 2, grow 2^20 -> 2^21 against the plain
+    insert, both entries timed by CUDA events behind a spin, and the
+    protocol's rounds and deepest lane."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    cap = xfr.capacity
+    ins_lo = np.concatenate([same_home_groups(rng, cap, 64, 8, 1 << 39),
+                             rng.integers(1 << 63, 1 << 64, LANES - 512,
+                                          dtype=np.uint64)])
+    ins_lo = np.unique(ins_lo)
+    ins_lo = np.concatenate([ins_lo, (1 << 38) + np.arange(
+        LANES - len(ins_lo), dtype=np.uint64)])
+    rng.shuffle(ins_lo)
+    ilo = t64(ins_lo, dev)
+    ihi = torch.zeros(LANES, dtype=torch.int64, device=dev)
+    imask = torch.from_numpy(rng.random(LANES) < 0.9).to(dev)
+    irows = {k: (t64(rand_u64(rng, LANES), dev) if v.dtype == torch.int64
+                 else t32(rng.integers(0, 1 << 32, LANES), dev))
+             for k, v in xfr.cols.items()}
+    errs = 0
+    for max_probe in (sm.MAX_PROBE, 2):
+        err, cp, overflow = k2_check(f"adversarial, max_probe={max_probe}",
+                                     xfr, ilo, ihi, imask, irows, max_probe)
+        errs = max(errs, err)
+        if max_probe == 2 and not overflow:
+            raise AssertionError("insert: the max_probe=2 case did not overflow")
+        if max_probe == sm.MAX_PROBE:
+            depth = k2_depth(cp, ilo, ihi, imask, cap, overflow, max_probe)
+            ins_steps = depth["slot_visits"]
+            row_bytes = sum(v.element_size() for v in xfr.cols.values())
+            n_placed = int((cp < cap).sum())
+            ins_bytes = LANES * (16 + 1 + 8) + 17 * ins_steps \
+                + n_placed * (16 + 1 + 2 * row_bytes)
+    grown_k = ht.grow(xfr, cap * 2)
+    grown_p = ht.insert_plain(
+        ht.make_table(cap * 2, {k: v.dtype for k, v in xfr.cols.items()}, dev),
+        xfr.key_lo, xfr.key_hi, (xfr.key_lo != 0) | (xfr.key_hi != 0),
+        xfr.cols, cap * 2)[0]
+    errs = max(errs, max_abs_err("insert (grow 2^20 -> 2^21)",
+                                 table_np(grown_k), table_np(grown_p)))
+    del grown_k, grown_p
+    out = dict(
+        max_abs_err=errs,
+        **pair_times(
+            timed(lambda t: ht.insert(t, ilo, ihi, imask, irows, sm.MAX_PROBE),
+                  reps=10, setup=lambda: (clone_table(xfr),)),
+            timed(lambda t: ht.insert_plain(t, ilo, ihi, imask, irows,
+                                            sm.MAX_PROBE),
+                  reps=10, setup=lambda: (clone_table(xfr),))),
+        library_ms=None,
+        bound=bound(ins_bytes, 40 * LANES + 10 * ins_steps),
+        shape=f"{LANES} lanes ({n_placed} placed), table 2^20 at load 0.45; "
+              "also checked: max_probe=2 overflow, grow 2^20->2^21",
+        rounds=depth["rounds"], deepest_lane=depth["deepest_lane"])
+    out["claim_adversarial"] = dict(
+        ms=timed(lambda lo_, hi_: _cuda.claim(lo_, hi_, xfr.tombstone, ilo,
+                                              ihi, imask, sm.MAX_PROBE),
+                 reps=10, setup=lambda: (xfr.key_lo.clone(),
+                                         xfr.key_hi.clone()))["device_ms"],
+        bound_ms=bound(LANES * (16 + 1 + 8) + 17 * ins_steps + 16 * n_placed,
+                       40 * LANES + 10 * ins_steps)[0],
+        rounds=depth["rounds"], deepest_lane=depth["deepest_lane"])
+    return out
+
+
 # The main run's transfers table at its largest: 2^25 slots (grown from
 # 2^18) holding the transfers of every batch but the last.
 MAIN_TABLE_LOG2 = 25
 FIRST_TID = 1 << 32  # the first transfer id of bench.py's generators here
+# full_twophase's posted table at its largest: 2^24 slots holding the
+# pending timestamps of every batch but the last (4,095 a batch).
+POSTED_TABLE_LOG2 = 24
 
 
 def insert_path_shape(dev, n_main: int = 10_000_000,
@@ -938,13 +1018,24 @@ def insert_path_shape(dev, n_main: int = 10_000_000,
     generator inserted into a transfers table of 2^25 slots already holding
     the main run's 1,221 earlier batches (its ids, consecutive from
     FIRST_TID), each timed call a later batch of the run (so the table
-    gains 8,190 rows a call, 0.06 % of its load).  By CUDA events behind a
-    spin, beside its bound."""
+    gains 8,190 rows a call, 0.06 % of its load).  Then, on that table,
+    the claim entry (the rounds without the rows) and the write entry (the
+    rows at claimed slots), and the claim entry as full_twophase calls it:
+    a two-phase batch's ids into the same table (full_twophase's
+    transfers hold the same ids at its last batch), and its 4,095 posts'
+    pending timestamps into a posted table of 2^24 slots holding those of
+    every earlier batch (the machine's timestamps: 10,000 accounts, then
+    8,190 a batch, lane i of a batch at its base + 1 + i).  Each checked
+    against its plain version first, byte for byte (``k2_check``); times
+    by CUDA events behind a spin, beside their bounds; the rounds and the
+    deepest lane of each shape."""
     import torch
     from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.ops import _cuda
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import state_machine as sm
-    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+    from tigerbeetle_tpu_torch.utils.benchgen import (gen_batch_np,
+                                                       gen_two_phase_np)
 
     batches = (n_main + COUNT - 1) // COUNT
     held = (batches - 1) * COUNT
@@ -962,10 +1053,9 @@ def insert_path_shape(dev, n_main: int = 10_000_000,
         raise AssertionError("insert (path shape): the table lost rows")
     nxt = [batches - 1]
 
-    def batch():
+    def batch(gen=gen_batch_np):
         soa = convert.batch_to_tensors(
-            gen_batch_np(nxt[0], LANES, COUNT, N_ACCOUNTS, FIRST_TID), LANES,
-            dev)
+            gen(nxt[0], LANES, COUNT, N_ACCOUNTS, FIRST_TID), LANES, dev)
         nxt[0] += 1
         rows = {k: soa[k] for k in sm.TRANSFER_COLS if k in soa}
         for k, dt in sm.TRANSFER_COLS.items():
@@ -974,24 +1064,107 @@ def insert_path_shape(dev, n_main: int = 10_000_000,
                 torch.arange(LANES, device=dev) < COUNT, rows)
 
     ilo, ihi, mask, rows = batch()
-    _, claimed = ht.insert(t, ilo, ihi, mask, rows, sm.MAX_PROBE)
-    placed = to_np(claimed)[:COUNT]
-    homes = home_np(to_np(ilo)[:COUNT], to_np(ihi)[:COUNT], cap)
-    steps = int((((placed - homes) & np.uint64(cap - 1)) + 1).sum())
+    err, cp, overflow = k2_check("the main path's shape", t, ilo, ihi, mask,
+                                 rows, sm.MAX_PROBE)
+    depth = k2_depth(cp, ilo, ihi, mask, cap, overflow, sm.MAX_PROBE)
+    steps = depth["slot_visits"]
     row_bytes = sum(v.element_size() for v in t.cols.values())
     b = bound(LANES * (16 + 1 + 8) + 17 * steps
               + COUNT * (16 + 1 + 2 * row_bytes), 40 * LANES + 10 * steps)
     r = timed(lambda lo, hi, mk, rw: ht.insert(t, lo, hi, mk, rw, sm.MAX_PROBE),
               reps=10, setup=batch)
+    # The claim entry on the same table and batches; the write entry on the
+    # claims its set-up makes.  Both leave the table as an insert would.
+    rc = timed(lambda lo, hi, mk, _rw: _cuda.claim(
+        t.key_lo, t.key_hi, t.tombstone, lo, hi, mk, sm.MAX_PROBE),
+        reps=10, setup=batch)
+
+    def claimed_batch():
+        lo, hi, mk, rw = batch()
+        return lo, hi, mk, rw, _cuda.claim(t.key_lo, t.key_hi, t.tombstone,
+                                           lo, hi, mk, sm.MAX_PROBE)[0]
+
+    rw_ = timed(lambda lo, hi, mk, rw, c: _cuda.write_claimed(
+        t.key_lo, t.key_hi, t.tombstone, t.cols, t.count, lo, hi, c, mk, rw),
+        reps=10, setup=claimed_batch)
+
+    # full_twophase's claims: the transfers' ids (a two-phase batch, every
+    # lane ok) and the posts' pending timestamps into the posted table.
+    pcap = 1 << POSTED_TABLE_LOG2
+    p = ht.make_table(pcap, sm.POSTED_COLS, dev)
+    half = COUNT // 2
+    base = N_ACCOUNTS + COUNT * torch.arange(batches - 1, device=dev)
+    pkeys = (base[:, None] + 1 + torch.arange(half, device=dev)).reshape(-1)
+    ht.insert(p, pkeys, torch.zeros_like(pkeys),
+              torch.ones_like(pkeys, dtype=torch.bool),
+              {"fulfillment": torch.ones_like(pkeys, dtype=torch.int32)},
+              sm.MAX_PROBE)
+    del pkeys
+    post = torch.arange(LANES, device=dev)
+    pv_ok = (post >= half) & (post < 2 * half)
+
+    def twophase():
+        b0 = nxt[0]
+        lo, hi, mk, _rw = batch(gen_two_phase_np)
+        pkey = torch.where(pv_ok, N_ACCOUNTS + COUNT * b0 + 1 + post - half,
+                           torch.zeros_like(post))
+        return lo, hi, mk, pkey
+
+    lo2, hi2, mk2, pkey = twophase()
+    zeros = torch.zeros_like(pkey)
+    prow = {"fulfillment": torch.ones(LANES, dtype=torch.int32, device=dev)}
+    err2, cpt, ovt = k2_check("full_twophase's transfers", t, lo2, hi2, mk2,
+                              rows, sm.MAX_PROBE)
+    err3, cpp, ovp = k2_check("full_twophase's posted", p, pkey, zeros, pv_ok,
+                              prow, sm.MAX_PROBE)
+    depth_t = k2_depth(cpt, lo2, hi2, mk2, cap, ovt, sm.MAX_PROBE)
+    depth_p = k2_depth(cpp, pkey, zeros, pv_ok, pcap, ovp, sm.MAX_PROBE)
+
+    def claim_both(lo, hi, mk, pk):
+        word = torch.zeros(1, dtype=torch.int32, device=dev)
+        _cuda.claim(t.key_lo, t.key_hi, t.tombstone, lo, hi, mk,
+                    sm.MAX_PROBE, flag_word=word, flag_bit=1)
+        _cuda.claim(p.key_lo, p.key_hi, p.tombstone, pk, zeros, pv_ok,
+                    sm.MAX_PROBE, flag_word=word, flag_bit=2)
+
+    r2 = timed(claim_both, reps=10, setup=twophase)
+    rp = timed(lambda lo, hi, mk, pk: _cuda.claim(
+        p.key_lo, p.key_hi, p.tombstone, pk, zeros, pv_ok, sm.MAX_PROBE),
+        reps=10, setup=twophase)
     load = int(t.count.item()) / cap
-    del t
+    claim_b = bound(LANES * (16 + 1 + 8) + 17 * steps + 16 * COUNT,
+                    40 * LANES + 10 * steps)
+    two_b = bound(2 * LANES * (16 + 1 + 8) + 17 * (depth_t["slot_visits"]
+                                                   + depth_p["slot_visits"])
+                  + 16 * (COUNT + half),
+                  80 * LANES + 10 * (depth_t["slot_visits"]
+                                     + depth_p["slot_visits"]))
+    del t, p
     torch.cuda.empty_cache()
     return {"ms_path_shape": r["device_ms"],
             "ms_path_shape_from": r["device_ms_from"],
             "bound_path_shape": b,
+            "max_abs_err_path_shape": max(err, err2, err3),
             "path_shape": f"{COUNT} plain events into 2^{log2} "
                           f"slots holding {held:,} rows ({steps} slot visits; "
-                          f"load {load:.3f} after the timed calls)"}
+                          f"load {load:.3f} after the timed calls)",
+            "rounds_path_shape": depth["rounds"],
+            "deepest_lane_path_shape": depth["deepest_lane"],
+            "claim_path_shape": {
+                "ms": rc["device_ms"], "bound_ms": claim_b[0],
+                "write_ms": rw_["device_ms"],
+                "rounds": depth["rounds"],
+                "deepest_lane": depth["deepest_lane"]},
+            "claim_twophase_shape": {
+                "ms": r2["device_ms"], "posted_ms": rp["device_ms"],
+                "bound_ms": two_b[0],
+                "rounds": [depth_t["rounds"], depth_p["rounds"]],
+                "deepest_lane": [depth_t["deepest_lane"],
+                                 depth_p["deepest_lane"]],
+                "shape": f"{COUNT} two-phase ids into the transfers table "
+                         f"above, then {half} posts' pending timestamps into "
+                         f"2^{POSTED_TABLE_LOG2} posted slots holding "
+                         f"{(batches - 1) * half:,}"}}
 
 
 def balance_cases(rng, acc, ctx, tok, amt, pend) -> int:
@@ -5201,15 +5374,16 @@ def phase_pipeline_kernels(seed: int, dev, kern: dict) -> dict:
     forms["balance"] = max_abs_err("K4 as the graph launches it (no scratch)",
                                    table_np(ag), table_np(ak))
     rows = sm.transfer_rows(soa, c0, t0_)
-    iscratch = (s.claimed, s.claim0, s.claim1, s.cnt)
+    iscratch = s.iscratch
     tk, tg = clone_table(xfr), clone_table(xfr)
     _t, ck = ht.insert(tk, soa["id_lo"], soa["id_hi"], ko, rows, sm.MAX_PROBE)
-    s.cnt.fill_(-1)
+    for x in iscratch:  # the kernel must not rely on the scratch's contents
+        x.fill_(-1)
     _cuda.insert(tg.key_lo, tg.key_hi, tg.tombstone, tg.cols, tg.count,
                  tg.probe_overflow, soa["id_lo"], soa["id_hi"], ko, rows,
                  sm.MAX_PROBE, 0, scratch=iscratch)
     forms["insert"] = max_abs_err(
-        "K2 on preallocated scratch", {"claimed": to_np(s.claimed),
+        "K2 on preallocated scratch", {"claimed": to_np(iscratch[0]),
                                        **table_np(tg)},
         {"claimed": to_np(ck), **table_np(tk)})
     del ak, ag, tk, tg
@@ -6456,6 +6630,13 @@ def main() -> int:
     t0 = time.perf_counter()
     fullk = phase_full_kernels(args.seed, dev)
     kern.update(fullk["results"])
+    # K2's claim and write entries at the kernels phase's K2 shapes.
+    ins = kern["insert"]
+    kern["claim"].update(ms_path_shape=ins["claim_path_shape"]["ms"],
+                         ms_twophase_shape=ins["claim_twophase_shape"]["ms"],
+                         ms_adversarial=ins["claim_adversarial"]["ms"])
+    kern["write_claimed"]["ms_path_shape"] = \
+        ins["claim_path_shape"]["write_ms"]
     emit({"phase": "full_kernels", "seconds": time.perf_counter() - t0,
           "batches_checked": fullk["batches_checked"],
           "kflags_at_8_passes": fullk["kflags"], "traps": fullk["traps"],
@@ -6668,6 +6849,8 @@ def main() -> int:
             rows[-1]["ms_shape"] = r["shape"]
         for key in ("ms_accounts_2e21", "library_ms_accounts_2e21",
                     "ms_with_prepass", "ms_path_shape",
+                    "ms_twophase_shape", "ms_adversarial",
+                    "rounds_path_shape", "deepest_lane_path_shape",
                     "ms_no_rounds", "core_ms", "hist_append_ms"):
             if key in r:
                 rows[-1][key] = r[key]

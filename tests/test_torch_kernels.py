@@ -23,7 +23,7 @@ from tigerbeetle_tpu_torch.ops import query as q
 from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
-from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, seqmix
+from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, k2cases, seqmix
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +111,107 @@ def test_grow_on_many_blocks_matches_plain(cuda_device):
         (t.key_lo != 0) | (t.key_hi != 0), t.cols, cap * 2)[0]
     tables_equal(grown, plain)
     assert int(grown.count) == 29_500
+
+
+# testing/k2cases.py's traps of K2's split form, and its hash-shift case.
+K2_CASES = sorted(k2cases.CASES) + ["shift_1", "shift_2", "shift_3"]
+
+
+def _k2_case(name, dev):
+    if name.startswith("shift_"):
+        arrays, lo, mask, max_probe, shift = k2cases.shift_case(int(name[6:]))
+    else:
+        arrays, lo, mask, max_probe, shift = k2cases.CASES[name]()
+    lo = convert.array_to_tensor(np.asarray(lo, np.uint64), dev)
+    return (k2cases.table_from_arrays(arrays, dev), lo, torch.zeros_like(lo),
+            torch.from_numpy(np.asarray(mask, bool)).to(dev), max_probe, shift)
+
+
+def _k2_insert_matches_plain(t, lo, hi, mask, max_probe, shift=0):
+    rows = {"val": lo * 3, "tag": lo.to(torch.int32)}
+    a, b = ledger_table_copy(t), ledger_table_copy(t)
+    _, ca = ht.insert(a, lo, hi, mask, rows, max_probe, shift)
+    _, cb = ht.insert_plain(b, lo, hi, mask, rows, max_probe, shift)
+    assert torch.equal(ca, cb)
+    tables_equal(a, b)
+    return ca
+
+
+def _k2_claim_matches_plain(t, lo, hi, mask, max_probe, shift=0):
+    """The claim entry's slots and flag word equal the plain claim's, it
+    marks the claimed slots with their keys, a closed gate reverts the
+    marks (the table as it was) and an open one writes the plain rows."""
+    rows = {"val": lo * 3, "tag": lo.to(torch.int32)}
+    cp, op = ht.claim_slots_plain(t, lo, hi, mask, max_probe, shift)
+    for gate in (1, 0):
+        c = ledger_table_copy(t)
+        word = torch.tensor([4], dtype=torch.int32, device=lo.device)
+        ck, _ = _cuda.claim(c.key_lo, c.key_hi, c.tombstone, lo, hi, mask,
+                            max_probe, shift, flag_word=word, flag_bit=2)
+        assert torch.equal(ck, cp)
+        assert int(word[0]) == 4 | (2 if bool(op) else 0)
+        placed = ck < t.capacity
+        assert torch.equal(c.key_lo[ck[placed]], lo[placed])
+        assert torch.equal(c.key_hi[ck[placed]], hi[placed])
+        word.fill_(gate)
+        _cuda.write_claimed(c.key_lo, c.key_hi, c.tombstone, c.cols, c.count,
+                            lo, hi, ck, mask, rows, gate=word, revert=True)
+        if gate:
+            tables_equal(c, t)
+        else:
+            d = ledger_table_copy(t)
+            ht.write_rows_plain(d, lo, hi, cp, mask, rows)
+            tables_equal(c, d)
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_insert_cases_match_plain(cuda_device, case):
+    """K2's insert entry on each trap of its split form (clusters longer
+    than the window, a lane that loses slots and walks into others'
+    windows, same-home groups, tombstones in windows, homes that wrap,
+    max_probe 2, 13 and 40, masked lanes, hash shifts, n = 1 and 8,192):
+    claimed slots and every table array equal the plain insert's."""
+    t, lo, hi, mask, max_probe, shift = _k2_case(case, cuda_device)
+    claimed = _k2_insert_matches_plain(t, lo, hi, mask, max_probe, shift)
+    if case == "lost_slot_walks_on":
+        assert claimed.tolist() == k2cases.LOST_SLOT_CLAIMS
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_claim_cases_match_plain(cuda_device, case):
+    """K2's claim and write entries on each trap of its split form."""
+    t, lo, hi, mask, max_probe, shift = _k2_case(case, cuda_device)
+    _k2_claim_matches_plain(t, lo, hi, mask, max_probe, shift)
+
+
+def test_insert_at_8192_and_8193_lanes_takes_each_route(cuda_device):
+    """A batch of 8,192 lanes takes the split form (its scratch the batch's
+    size), one of 8,193 the round kernel (``grow``'s route, two int32[C]
+    claim buffers); both equal the plain insert and claim, with same-home
+    groups, tombstones and masked lanes."""
+    rng = np.random.default_rng(8)
+    cap = 1 << 15
+    t = ht.make_table(cap, COLS, cuda_device)
+    lo, rows = keyed_rows(rng, 9000, cuda_device)
+    ht.insert_plain(t, lo, torch.zeros_like(lo),
+                    torch.ones_like(lo, dtype=torch.bool), rows, cap)
+    gone = ht.lookup_plain(t, lo[:300], torch.zeros_like(lo[:300]), 64, 0,
+                           300, ())
+    ht.remove_to_tombstone(t, gone.slot, gone.found)
+    groups = convert.array_to_tensor(same_home(cap, 8, 32, 1 << 61),
+                                     cuda_device)
+    for n in (8192, 8193):
+        assert _cuda.insert_split(n, cap) == (n == 8192)
+        scratch = _cuda.insert_scratch(n, cap, cuda_device)
+        assert len(scratch) == (2 if n == 8192 else 4)
+        assert max(x.numel() for x in scratch) == (2 * n if n == 8192 else cap)
+        new = torch.cat([groups, (1 << 50) + torch.arange(
+            n - len(groups), device=cuda_device)])
+        new = new[torch.from_numpy(rng.permutation(n)).to(cuda_device)]
+        hi = torch.zeros_like(new)
+        mask = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+        _k2_insert_matches_plain(t, new, hi, mask, sm.MAX_PROBE)
+        _k2_claim_matches_plain(t, new, hi, mask, sm.MAX_PROBE)
 
 
 def _accounts(rng, n, first):
@@ -1188,6 +1289,47 @@ def test_group_graph_replay_matches_eager_and_plain(cuda_device, k):
                                               want[name]["cols"][c])
 
 
+def test_group_graph_k2_scratch_is_batch_sized(cuda_device):
+    """The grouped commit's graph holds K2's split-form scratch (claimed
+    int64[lanes], the pre-pass's int32[2 lanes]) and nothing the size of
+    the transfers table, and its replay equals the eager steps with ids
+    that share homes in the transfers table."""
+    from tigerbeetle_tpu_torch.ops import group
+
+    rng = np.random.default_rng(77)
+    m = _group_ledger(cuda_device, rng)
+    layout = group.StagingLayout(group.GROUP_K, 256)
+    buf, counts, tss, _g = _stage(layout, rng, 4)
+    cols, _c, _t = layout.arrays(buf.numpy())
+    cap = m.ledger.transfers.capacity
+    homes = same_home(cap, 12, 32, 1 << 44)  # 8 homes of 12 ids a step
+    for j in range(4):
+        take = min(counts[j], 96)
+        cols["id_lo"][j, :take] = homes[96 * j:96 * j + take]
+    base = convert.ledger_to_numpy(m.ledger)
+    graph = group.GroupGraph(convert.ledger_from_numpy(base, cuda_device),
+                             group.GROUP_K, 256)
+    scratch = graph.steps.iscratch
+    assert [x.numel() for x in scratch] == [256, 512]
+    held = [x for x in vars(graph.steps).values()
+            if isinstance(x, torch.Tensor)] + list(scratch)
+    assert all(x.numel() != cap for x in held)
+    codes_g, ovf_g, _lo, _hi = graph.run(buf.pin_memory())
+    eager = convert.ledger_from_numpy(base, cuda_device)
+    _l, codes_e, ovf_e, _a, _b = group.group_dispatch_steps(
+        eager, layout.tensors(buf.to(cuda_device))[0], counts, tss)
+    assert torch.equal(codes_g.cpu(), codes_e.cpu())
+    assert ovf_g.tolist() == ovf_e.tolist()
+    got, want = (convert.ledger_to_numpy(graph._ledger),
+                 convert.ledger_to_numpy(eager))
+    for key in ("key_lo", "key_hi", "tombstone", "count"):
+        np.testing.assert_array_equal(got["transfers"][key],
+                                      want["transfers"][key])
+    for c in want["transfers"]["cols"]:
+        np.testing.assert_array_equal(got["transfers"]["cols"][c],
+                                      want["transfers"]["cols"][c])
+
+
 def test_group_step_matches_plain(cuda_device):
     from tigerbeetle_tpu_torch.ops import group
 
@@ -1273,11 +1415,12 @@ def test_device_word_forms_match_host_int_forms(cuda_device):
         rows = sm.transfer_rows(soa, c, t)
         ck = ht.insert(xr, soa["id_lo"], soa["id_hi"], ko, rows,
                        sm.MAX_PROBE)[1]
-        s.cnt.fill_(-1)
+        for x in s.iscratch:  # the kernel must not rely on its contents
+            x.fill_(-1)
         cg = _cuda.insert(xg.key_lo, xg.key_hi, xg.tombstone, xg.cols,
                           xg.count, xg.probe_overflow, soa["id_lo"],
                           soa["id_hi"], ko, rows, sm.MAX_PROBE, 0,
-                          scratch=(s.claimed, s.claim0, s.claim1, s.cnt))
+                          scratch=s.iscratch)
         assert torch.equal(cg, ck)
         for name in ("accounts", "transfers"):
             tables_equal(getattr(got, name), getattr(ref, name))

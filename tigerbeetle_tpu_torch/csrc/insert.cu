@@ -10,100 +10,651 @@
 // tombstone) at the START of the round; among the contenders for one slot
 // the lowest lane wins (contenders always share a home); losers advance.
 // The batch stops when every lane is placed, or, leaving the rest unplaced
-// with `probe_overflow` set, once the next round would reach max_probe.  A
-// first-come atomicCAS claim does not reproduce this, so each round has two
-// phases separated by a grid-wide barrier:
-//   A  every contender does atomicMin(claim[cur], lane);
-//   B  the lane that finds its own index in claim[cur] takes the slot and
-//      writes the key there (which makes the slot occupied for later
-//      rounds); each loser resets the claim word of the slot it probes next,
-//      in the other of two claim buffers, so no claim buffer needs clearing
-//      and none is read while it is reset.
-// Phase B also counts the lanes still unplaced into one of three counters
-// (the round's, cleared two rounds ahead), and after the barrier every
-// thread reads the same count, so all threads leave the loop together.
+// with `probe_overflow` set, once the next round would reach max_probe.
 //
-// The kernel is one cooperative launch: a batch of 8,192 lanes runs in one
-// block of 1,024 threads with __syncthreads as the barrier; a large insert
-// (`grow`, up to millions of lanes) runs on as many blocks as fit on the card
-// at once and uses the cooperative grid barrier.  Values other blocks wrote
-// are read with __ldcg (L2, coherent across SMs).  Then the placed lanes
-// write their columns, clear the tombstone bit and add to `count`.
+// A batch of at most SPLIT_MAX_N lanes (every commit batch) takes the split
+// form, three ordinary launches and no scratch the size of the table:
+//   1. the pre-pass, a warp a lane over the whole card: the lane's home and
+//      its window, one bit for each of the CLAIM_WINDOW slots from the home
+//      on, set where the slot is occupied before the batch (claimed[] is
+//      set to C here);
+//   2. the resolver, one block, a thread eight lanes: the lanes grouped by
+//      home in shared memory (a hash of homes; the lane that inserts a home
+//      walks its group; a group of several gets its members in lane order),
+//      then the rounds over GROUPS: a group's slot in round t is free if
+//      its window bit is clear and the batch has not claimed it in an
+//      earlier round (a set of claimed slots in shared memory); then the
+//      group's next member takes it.  Two groups never probe one slot in
+//      the same round (their homes differ), so a round needs no contention.
+//      Round 0 runs over every group; the groups left go to a list in
+//      shared memory, which each later round rewrites with those still
+//      left (three barriers a round), so a round costs what its walkers
+//      do, not the batch.  Claims and homes enter their hashes by a plain
+//      store, checked after a barrier (atomicCAS only where another key
+//      took the entry: one SM's shared atomics are slow), and no loop over
+//      a thread's lanes is unrolled (the code fits the instruction cache).
+//      A group reads its next window from the table every CLAIM_WINDOW
+//      rounds, so max_probe holds whatever the cluster length;
+//   3. the row writes (or, in the claim entry, the marks), a thread a
+//      column of a lane over the whole card (`write_cols_kernel`).
+// What bounds it on the H100: latency.  The pre-pass is two dependent
+// reads (the key, then the window: 17 B a slot, 544 B a lane); the
+// resolver is one SM: its setup (one read of its lanes, seven barriers)
+// and three barriers a round (the deepest lane's offset + 1 rounds; most
+// groups leave in round 0), a warp's sync a round once at most 32 groups
+// are left; the writes are one scattered store a thread.
+//
+// A larger insert (`grow`, and the cold tier's rebuild, millions of lanes)
+// takes the round kernel: one cooperative launch on as many blocks as are
+// resident, each round two phases behind grid barriers: A, every contender
+// does atomicMin(claim[cur], lane); B, the lane that finds its own index
+// takes the slot and writes the key there (which makes the slot occupied
+// for later rounds), each loser resets the claim word of the slot it probes
+// next in the other of two int32[C] claim buffers.  Phase B counts the lanes
+// still unplaced into one of three counters (the round's, cleared two
+// rounds ahead); values other blocks wrote are read with __ldcg.
 //
 // The general transfer kernel claims first and writes only if its batch
 // commits (transfer_full.py:1355-1405), with no host read between: the
-// claim entry (`tb_claim`) runs the same rounds, leaving the claimed slots
-// holding their keys as the round protocol's occupancy marks, and ORs a
-// flag bit into a device word on overflow instead of the table's flag; the
-// write entry (`tb_write_claimed`) then, per placed lane, either writes the
-// row (the gate word is 0 and the lane is in the write mask) or clears the
-// mark back to key 0 (those slots were free: key 0, no tombstone), so a
-// batch that does not commit leaves every table array as it was.
-//
-// What bounds it on the H100: latency of the rounds, not bytes.  Round 0
-// places most lanes; the rounds after it touch only the cluster tails, yet
-// every round pays two barriers and a pass over the lanes.  Compacting the
-// unplaced lanes (the JAX code's narrow window) is later work.
+// claim entry (`tb_claim`) leaves each claimed slot holding its key as a
+// mark and ORs a flag bit into a device word on overflow instead of the
+// table's flag; the write entry (`tb_write_claimed`) then, per placed lane,
+// either writes the row (the gate word is 0 and the lane is in the write
+// mask) or clears the mark back to key 0 (those slots were free: key 0, no
+// tombstone), so a batch that does not commit leaves every table array as
+// it was.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
 
-#define INSERT_THREADS 1024
-#define INSERT_LANES_PER_BLOCK 8192
+#define CLAIM_WINDOW 32
+#define SPLIT_MAX_N 8192
+#define RESOLVE_THREADS 1024
+#define RESOLVE_PER_THREAD (SPLIT_MAX_N / RESOLVE_THREADS)
+#define PREPASS_THREADS 256
+#define WRITE_THREADS 256
+#define ROUNDS_THREADS 1024
+#define ROUNDS_LANES_PER_BLOCK 8192
 
-struct InsertArgs {
-  uint64_t* tkey_lo;
-  uint64_t* tkey_hi;
+static __device__ __forceinline__ bool occupied(const ull* tkey_lo,
+                                                const ull* tkey_hi,
+                                                const uint8_t* tomb,
+                                                uint64_t s) {
+  return ((tkey_lo[s] | tkey_hi[s]) != 0) | (tomb[s] != 0);
+}
+
+// -- 1. the pre-pass ---------------------------------------------------------
+
+__global__ void __launch_bounds__(PREPASS_THREADS)
+    claim_prepass_kernel(const ull* tkey_lo, const ull* tkey_hi,
+                         const uint8_t* tomb, uint64_t mask, int hash_shift,
+                         const ull* key_lo, const ull* key_hi,
+                         const uint8_t* insert_mask, int n, int* home,
+                         unsigned* window, int64_t* claimed) {
+  const int i = (int)((blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;  // whole warps
+  if (lane == 0) claimed[i] = (int64_t)(mask + 1);
+  if (!insert_mask[i]) {
+    if (lane == 0) home[i] = -1;
+    return;
+  }
+  const uint64_t h = (mix64(key_lo[i], key_hi[i]) >> hash_shift) & mask;
+  const bool occ = occupied(tkey_lo, tkey_hi, tomb, (h + lane) & mask);
+  const unsigned bits = __ballot_sync(0xffffffffu, occ);
+  if (lane == 0) {
+    home[i] = (int)h;
+    window[i] = bits;
+  }
+}
+
+// -- 2. the resolver ----------------------------------------------------------
+
+struct ResolveArgs {
+  const ull* tkey_lo;
+  const ull* tkey_hi;
+  const uint8_t* tomb;
+  uint64_t mask;
+  int64_t max_probe;
+  const int* home;
+  const unsigned* window;
+  int n;
+  int hbits;  // log2 of the shared hash's size, which is at least 2n
+  int64_t* claimed;
+  uint8_t* probe_overflow;  // insert entry
+  int* flag_word;           // claim entry
+  int flag_bit;
+};
+
+// hk int[hsize]; lhome, lwin, link and meta u32[n]; memb and list u16[n].
+static size_t resolve_smem(int n, int hbits) {
+  return ((size_t)4 << hbits) + (size_t)n * 20;
+}
+
+static __device__ __forceinline__ unsigned hash_slot(int key, int hbits) {
+  return ((unsigned)key * 0x9E3779B1u) >> (32 - hbits);
+}
+
+// Where this thread writes its `c` entries of a shared list that `*count`
+// sizes: one shared atomic a warp.  Every thread of the warp must call it.
+static __device__ __forceinline__ int warp_alloc(int c, int* count) {
+  const int lane = threadIdx.x & 31;
+  int incl = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int base = 0;
+  if (lane == 31 && incl) base = atomicAdd(count, incl);
+  return __shfl_sync(0xffffffffu, base, 31) + incl - c;
+}
+
+// Whether the claimed set (open addressing in hk, -1 empty) holds slot
+// `key`; else the empty entry where it would go.
+static __device__ __forceinline__ bool set_find(const int* hk, int hbits,
+                                                int key, unsigned* at) {
+  const unsigned m = (1u << hbits) - 1;
+  unsigned h = hash_slot(key, hbits);
+  for (;;) {
+    const int v = hk[h];
+    if (v == key) return true;
+    if (v == -1) break;
+    h = (h + 1) & m;
+  }
+  *at = h;
+  return false;
+}
+
+// Adds slot `key` to the claimed set from entry `h` on.  No other group
+// claims `key` in the same round (their homes differ) and the set never
+// empties an entry, so a find and this insert are consistent.  A round's
+// claims first try a plain store at the empty entry their find ended on
+// (hk[at] == -1, then hk[at] = key); after the barrier each is found or
+// added here: a plain store that another claim overwrote is redone.
+static __device__ __forceinline__ void set_add(int* hk, int hbits, int key,
+                                               unsigned h) {
+  const unsigned m = (1u << hbits) - 1;
+  while (atomicCAS(hk + h, -1, key) != -1) h = (h + 1) & m;
+}
+
+// The window of the CLAIM_WINDOW slots from `start` on, read from the table.
+static __device__ __noinline__ unsigned window_at(const ull* tkey_lo,
+                                                  const ull* tkey_hi,
+                                                  const uint8_t* tomb,
+                                                  uint64_t mask,
+                                                  uint64_t start) {
+  unsigned bits = 0;
+#pragma unroll 8
+  for (int k = 0; k < CLAIM_WINDOW; ++k) {
+    bits |= (unsigned)occupied(tkey_lo, tkey_hi, tomb, (start + k) & mask)
+            << k;
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(RESOLVE_THREADS, 1)
+    claim_resolve_kernel(ResolveArgs a) {
+  extern __shared__ int smem[];
+  __shared__ int cursor, nlist[3];
+  const int hsize = 1 << a.hbits, n = a.n, tid = threadIdx.x;
+  const int T = blockDim.x;
+  const unsigned hmask = (unsigned)hsize - 1;
+  // hk: the homes' hash (an entry holds the lane that inserted the home:
+  // it walks the group and its index names it), then the claimed set.
+  // Per lane i: lhome[i], lwin[i] (its window; a walker's is read again
+  // every CLAIM_WINDOW rounds), link[i] (its walker | its position in the
+  // group << 16: arrival, then rank; a walker's own entry then counts the
+  // members it has placed).  Per walker c: meta[c] (the other members,
+  // then the start of the members in memb | their count << 16).  list:
+  // the walkers left after a round.
+  int* hk = smem;
+  int* lhome = hk + hsize;
+  unsigned* lwin = reinterpret_cast<unsigned*>(lhome + n);
+  unsigned* link = lwin + n;
+  unsigned* meta = link + n;
+  uint16_t* memb = reinterpret_cast<uint16_t*>(meta + n);
+  uint16_t* list = memb + n;
+
+  // A thread's lanes are i = tid + j*T, j < RESOLVE_PER_THREAD; the loops
+  // over them are not unrolled, so that the kernel's code fits the SM's
+  // instruction cache (a form with every loop unrolled eight times ran
+  // about 140 KB of code, and its warps stalled on instruction fetches).
+  // Per-lane state lives in shared memory; a thread keeps masks of j.
+  {
+    int h[RESOLVE_PER_THREAD];  // every read in flight at once
+    unsigned w[RESOLVE_PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < RESOLVE_PER_THREAD; ++j) {
+      const int i = tid + j * T;
+      h[j] = i < n ? a.home[i] : -1;
+      w[j] = i < n ? a.window[i] : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < RESOLVE_PER_THREAD; ++j) {
+      const int i = tid + j * T;
+      if (i >= n) break;
+      lhome[i] = h[j];
+      lwin[i] = w[j];
+      meta[i] = 0;
+    }
+  }
+#pragma unroll 1
+  for (int s = tid; s < hsize; s += T) hk[s] = -1;
+  if (tid == 0) cursor = nlist[0] = nlist[1] = nlist[2] = 0;
+  __syncthreads();
+  // The homes' hash.  Shared atomics are slow on one SM, so a lane first
+  // stores itself at its home's entry if that is empty, a plain store;
+  // after the barrier the entry's lane names the group if it has the same
+  // home, and a lane that lost the entry to another home probes on with
+  // atomicCAS (the lanes of one home all see the same entry and take the
+  // same path).  Nearly every group is one lane: only a group's other
+  // members count themselves in.
+#pragma unroll 1
+  for (int i = tid; i < n; i += T) {
+    const int h = lhome[i];
+    if (h < 0) continue;
+    const unsigned e = hash_slot(h, a.hbits);
+    if (hk[e] == -1) hk[e] = i;
+  }
+  __syncthreads();
+  unsigned creator = 0;  // bit j: lane tid + j*T walks its group
+#pragma unroll 1
+  for (int i = tid, j = 0; i < n; i += T, ++j) {
+    const int h = lhome[i];
+    if (h < 0) continue;
+    unsigned s = hash_slot(h, a.hbits);
+    int prev = hk[s];
+    while (prev != i && lhome[prev] != h) {
+      s = (s + 1) & hmask;
+      prev = atomicCAS(hk + s, -1, i);
+      if (prev == -1) prev = i;
+    }
+    if (prev == i) {
+      creator |= 1u << j;
+      link[i] = (unsigned)i;
+    } else {
+      link[i] = (unsigned)prev | ((1u + atomicAdd(meta + prev, 1u)) << 16);
+    }
+  }
+  __syncthreads();
+  // A group of several members gets a range of memb, a warp's at once
+  // (every thread takes the same steps, so the warps' shuffles are whole).
+#pragma unroll 1
+  for (int base = 0, j = 0; base < n; base += T, ++j) {
+    const int i = base + tid;
+    const int cnt = (creator >> j) & 1u ? 1 + (int)meta[i] : 0;
+    int off = 0;
+    if (__any_sync(0xffffffffu, cnt > 1))  // rare: skip the shared atomic
+      off = warp_alloc(cnt > 1 ? cnt : 0, &cursor);
+    if (cnt) meta[i] = (cnt > 1 ? (unsigned)off : 0u) | ((unsigned)cnt << 16);
+  }
+  __syncthreads();
+  // Groups of several: members in arrival order, then each ranked by the
+  // count of its group's lower lanes and put in lane order.
+#pragma unroll 1
+  for (int i = tid; i < n; i += T) {
+    if (lhome[i] < 0) continue;
+    const unsigned l = link[i], m = meta[l & 0xffff];
+    if ((m >> 16) > 1) memb[(m & 0xffff) + (l >> 16)] = (uint16_t)i;
+  }
+#pragma unroll 1
+  for (int s = tid; s < hsize; s += T) hk[s] = -1;  // the claimed set
+  __syncthreads();
+#pragma unroll 1
+  for (int i = tid; i < n; i += T) {
+    if (lhome[i] < 0) continue;
+    const unsigned l = link[i], m = meta[l & 0xffff];
+    const int cnt = (int)(m >> 16), st = (int)(m & 0xffff);
+    if (cnt < 2) continue;
+    int r = 0;
+    for (int p = st; p < st + cnt; ++p) r += memb[p] < i;
+    link[i] = (l & 0xffff) | ((unsigned)r << 16);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int i = tid; i < n; i += T) {
+    if (lhome[i] < 0) continue;
+    const unsigned l = link[i], m = meta[l & 0xffff];
+    if ((m >> 16) > 1) memb[(m & 0xffff) + (l >> 16)] = (uint16_t)i;
+  }
+  const int groups = __syncthreads_or(creator != 0);
+  bool overflow = false;
+  int left = 0;
+  if (groups && a.max_probe <= 0) {
+    overflow = true;
+  } else if (groups) {
+    // Round 0: every group probes its home, which no claim of the batch
+    // holds yet.  A claim enters the set by a plain store at its entry if
+    // that is empty, checked after the barrier (set_add where another
+    // claim took the entry), as in every round.
+    unsigned keep = 0, pend = 0;
+#pragma unroll 1
+    for (int c = tid, j = 0; c < n; c += T, ++j) {
+      if (!((creator >> j) & 1u)) continue;
+      const int h = lhome[c];
+      const unsigned m = meta[c];
+      const int cnt = (int)(m >> 16);
+      unsigned placed = 0;
+      if (!(lwin[c] & 1u)) {
+        const unsigned e = hash_slot(h, a.hbits);
+        if (hk[e] == -1) hk[e] = h;
+        pend |= 1u << j;
+        a.claimed[cnt > 1 ? memb[m & 0xffff] : c] = (int64_t)h;
+        placed = 1;
+      }
+      link[c] = (unsigned)c | (placed << 16);
+      if ((int)placed < cnt) keep |= 1u << j;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int c = tid, j = 0; c < n; c += T, ++j) {
+      if (!((pend >> j) & 1u)) continue;
+      unsigned at;
+      if (!set_find(hk, a.hbits, lhome[c], &at))
+        set_add(hk, a.hbits, lhome[c], at);
+    }
+    int off = warp_alloc(__popc(keep), nlist);
+#pragma unroll 1
+    for (int c = tid, j = 0; c < n; c += T, ++j) {
+      if ((keep >> j) & 1u) list[off++] = (uint16_t)c;
+    }
+    __syncthreads();
+    left = nlist[0];
+  }
+  // Rounds 1, 2, ...: the walkers left, from the list, which is rewritten
+  // with those still left (nlist[t % 3] counts them; the counter of the
+  // round after is cleared, its last reader two barriers behind).  Once
+  // at most 32 are left, warp 0 walks them alone (the narrow phase below).
+  int t = 1;
+  for (; left > 32; ++t) {
+    if (t >= a.max_probe) {
+      overflow = true;
+      break;
+    }
+    const int wbit = t & (CLAIM_WINDOW - 1);
+    const int cur = t % 3;
+    unsigned keep = 0, pend = 0;
+#pragma unroll 1
+    for (int idx = tid, j = 0; idx < left; idx += T, ++j) {
+      const int c = list[idx];
+      const uint64_t s = ((uint64_t)lhome[c] + (uint64_t)t) & a.mask;
+      unsigned w = lwin[c];
+      if (wbit == 0) {
+        w = window_at(a.tkey_lo, a.tkey_hi, a.tomb, a.mask, s);
+        lwin[c] = w;
+      }
+      unsigned at;
+      if (((w >> wbit) & 1u) || set_find(hk, a.hbits, (int)s, &at)) {
+        keep |= 1u << j;
+        continue;
+      }
+      if (hk[at] == -1) hk[at] = (int)s;  // checked after the barrier
+      pend |= 1u << j;
+      const unsigned m = meta[c];
+      const int cnt = (int)(m >> 16);
+      if (cnt == 1) {
+        a.claimed[c] = (int64_t)s;
+      } else {
+        const int p = (int)(link[c] >> 16);
+        a.claimed[memb[(m & 0xffff) + p]] = (int64_t)s;
+        link[c] = (unsigned)c | ((unsigned)(p + 1) << 16);
+        if (p + 1 < cnt) keep |= 1u << j;
+      }
+    }
+    __syncthreads();  // the round's plain inserts are done
+    uint16_t ent[RESOLVE_PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < RESOLVE_PER_THREAD; ++j) {
+      const int idx = tid + j * T;
+      ent[j] = (keep >> j) & 1u ? list[idx] : 0;
+    }
+#pragma unroll 1
+    for (int idx = tid, j = 0; idx < left; idx += T, ++j) {
+      if (!((pend >> j) & 1u)) continue;
+      const int c = list[idx];
+      const int s = (int)(((uint64_t)lhome[c] + (uint64_t)t) & a.mask);
+      unsigned at;
+      if (!set_find(hk, a.hbits, s, &at)) set_add(hk, a.hbits, s, at);
+    }
+    __syncthreads();  // every read of the list is done
+    if ((tid & ~31) < left) {  // a warp with walkers this round
+      int off = warp_alloc(__popc(keep), nlist + cur);
+#pragma unroll
+      for (int j = 0; j < RESOLVE_PER_THREAD; ++j) {
+        if ((keep >> j) & 1u) list[off++] = ent[j];
+      }
+    }
+    if (tid == 0) nlist[(cur + 1) % 3] = 0;
+    __syncthreads();
+    left = nlist[cur];
+  }
+  // The narrow phase: a walker a lane of warp 0, a __syncwarp a round (a
+  // round of the whole block costs about 2 us in barriers and empty warps).
+  // Within a round the claims go straight to set_add: there are few.
+  if (left > 0 && !overflow) {
+    if (tid >= 32) return;
+    int c = tid < left ? list[tid] : -1;
+    for (;; ++t) {
+      if (!__any_sync(0xffffffffu, c >= 0)) break;
+      if (t >= a.max_probe) {
+        overflow = true;
+        break;
+      }
+      const int wbit = t & (CLAIM_WINDOW - 1);
+      if (c >= 0) {
+        const uint64_t s = ((uint64_t)lhome[c] + (uint64_t)t) & a.mask;
+        unsigned w = lwin[c];
+        if (wbit == 0) {
+          w = window_at(a.tkey_lo, a.tkey_hi, a.tomb, a.mask, s);
+          lwin[c] = w;
+        }
+        unsigned at;
+        if (!((w >> wbit) & 1u) && !set_find(hk, a.hbits, (int)s, &at)) {
+          set_add(hk, a.hbits, (int)s, at);
+          const unsigned m = meta[c];
+          const int cnt = (int)(m >> 16);
+          if (cnt == 1) {
+            a.claimed[c] = (int64_t)s;
+            c = -1;
+          } else {
+            const int p = (int)(link[c] >> 16);
+            a.claimed[memb[(m & 0xffff) + p]] = (int64_t)s;
+            link[c] = (unsigned)c | ((unsigned)(p + 1) << 16);
+            if (p + 1 == cnt) c = -1;
+          }
+        }
+      }
+      __syncwarp();  // this round's claims are in the set for the next
+    }
+  }
+  if (overflow && tid == 0) {
+    if (a.flag_word) {
+      atomicOr(a.flag_word, a.flag_bit);
+    } else {
+      *a.probe_overflow = 1;
+    }
+  }
+}
+
+// -- 3. the writes -----------------------------------------------------------
+
+// Per lane with a claimed slot, in MODE_ROWS: where the gate is open (null
+// or 0) and the lane is in the write mask, blockIdx.y 0 writes the keys,
+// clears the tombstone and counts the row, and blockIdx.y k > 0 copies
+// column k-1 (in a grid one block high, blockIdx.y 0 copies every column);
+// otherwise, with `revert`, blockIdx.y 0 clears the claim's mark.  In
+// MODE_MARKS (the claim entry) blockIdx.y 0 writes the keys alone.
+enum WriteMode { MODE_ROWS = 0, MODE_MARKS = 1 };
+
+__global__ void __launch_bounds__(WRITE_THREADS)
+    write_cols_kernel(ull* tkey_lo, ull* tkey_hi, uint8_t* tomb, int64_t cap,
+                      const ull* key_lo, const ull* key_hi,
+                      const int64_t* claimed, const uint8_t* write_mask,
+                      int64_t n, const int* gate, int revert, int mode,
+                      ColList rows, ull* count) {
+  __shared__ ull red64[32];
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int col = (int)blockIdx.y - 1;
+  ull placed = 0;
+  if (i < n) {
+    const int64_t c = claimed[i];
+    if (c < cap) {
+      if (mode == MODE_MARKS) {
+        tkey_lo[c] = key_lo[i];
+        tkey_hi[c] = key_hi[i];
+      } else if ((gate == nullptr || *gate == 0) && write_mask[i]) {
+        if (col < 0) {
+          tkey_lo[c] = key_lo[i];
+          tkey_hi[c] = key_hi[i];
+          tomb[c] = 0;
+          placed = 1;
+        }
+        const int k0 = gridDim.y == 1 ? 0 : col;
+        const int k1 = gridDim.y == 1 ? rows.n : col + 1;
+        for (int k = k0 < 0 ? 0 : k0; k < k1; ++k) {
+          copy_elem(rows.dst[k], c, rows.src[k], i, rows.width[k]);
+        }
+      } else if (revert && col < 0) {
+        tkey_lo[c] = 0;
+        tkey_hi[c] = 0;
+      }
+    }
+  }
+  if (mode == MODE_MARKS || col >= 0) return;  // the whole block
+  const ull total = block_sum(placed, red64);
+  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+}
+
+static int launch_writes(ull* tkey_lo, ull* tkey_hi, uint8_t* tomb,
+                         int64_t cap, const ull* key_lo, const ull* key_hi,
+                         const int64_t* claimed, const uint8_t* write_mask,
+                         int64_t n, const int* gate, int revert, int mode,
+                         const ColList& rows, ull* count, cudaStream_t stream) {
+  // A batch: a block row a column, so the card holds every store in
+  // flight.  More lanes (`grow`, the cold rebuild) fill the card alone; a
+  // row a column would read `claimed` again for every column.
+  const unsigned ys =
+      mode == MODE_MARKS || n > SPLIT_MAX_N ? 1u : (unsigned)(1 + rows.n);
+  const dim3 grid((unsigned)((n + WRITE_THREADS - 1) / WRITE_THREADS), ys);
+  write_cols_kernel<<<grid, WRITE_THREADS, 0, stream>>>(
+      tkey_lo, tkey_hi, tomb, cap, key_lo, key_hi, claimed, write_mask, n,
+      gate, revert, mode, rows, count);
+  return (int)cudaGetLastError();
+}
+
+// -- the split form's launches -------------------------------------------
+
+struct Batch {
+  ull* tkey_lo;
+  ull* tkey_hi;
   uint8_t* tomb;
+  int64_t cap;
+  int hash_shift;
+  int64_t max_probe;
+  const ull* key_lo;
+  const ull* key_hi;
+  const uint8_t* insert_mask;
+  int64_t n;
+  int64_t* claimed;
+  cudaStream_t stream;
+};
+
+static int opt_in_resolve() {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 0 && dev < 64 && opted[dev]) return 0;
+  int hbits = 1;
+  while ((1 << hbits) < 2 * SPLIT_MAX_N) ++hbits;
+  e = cudaFuncSetAttribute(claim_resolve_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)resolve_smem(SPLIT_MAX_N, hbits));
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 0 && dev < 64) opted[dev] = true;
+  return 0;
+}
+
+// Launches 1 and 2; `pre` holds n home words, then n window words.
+static int launch_claims(const Batch& b, void* pre, uint8_t* probe_overflow,
+                         int* flag_word, int flag_bit) {
+  if (b.n <= 0 || b.n > SPLIT_MAX_N || pre == nullptr ||
+      b.cap > ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  int err = opt_in_resolve();
+  if (err) return err;
+  const int n = (int)b.n;
+  int* home = (int*)pre;
+  unsigned* window = (unsigned*)(home + n);
+  const unsigned blocks =
+      (unsigned)((n * 32 + PREPASS_THREADS - 1) / PREPASS_THREADS);
+  claim_prepass_kernel<<<blocks, PREPASS_THREADS, 0, b.stream>>>(
+      b.tkey_lo, b.tkey_hi, b.tomb, (uint64_t)(b.cap - 1), b.hash_shift,
+      b.key_lo, b.key_hi, b.insert_mask, n, home, window, b.claimed);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  ResolveArgs a;
+  a.tkey_lo = b.tkey_lo;
+  a.tkey_hi = b.tkey_hi;
+  a.tomb = b.tomb;
+  a.mask = (uint64_t)(b.cap - 1);
+  a.max_probe = b.max_probe;
+  a.home = home;
+  a.window = window;
+  a.n = n;
+  a.hbits = 1;
+  while ((1 << a.hbits) < 2 * n) ++a.hbits;
+  a.claimed = b.claimed;
+  a.probe_overflow = probe_overflow;
+  a.flag_word = flag_word;
+  a.flag_bit = flag_bit;
+  claim_resolve_kernel<<<1, RESOLVE_THREADS, resolve_smem(n, a.hbits),
+                         b.stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// -- the round kernel (more than SPLIT_MAX_N lanes) -------------------------
+
+struct RoundArgs {
+  ull* tkey_lo;
+  ull* tkey_hi;
+  const uint8_t* tomb;
   uint64_t mask;
   int hash_shift;
   int64_t max_probe;
-  const uint64_t* key_lo;
-  const uint64_t* key_hi;
+  const ull* key_lo;
+  const ull* key_hi;
   const uint8_t* insert_mask;
   int64_t n;
   int64_t* claimed;
   int* claim0;
   int* claim1;
   int* cnt;  // three round counters, zero on entry
-  ull* count;
   uint8_t* probe_overflow;
-  ColList rows;
-  int claim_only;  // leave marks, skip the row writes, flag into flag_word
   int* flag_word;
   int flag_bit;
-  cudaStream_t stream;
 };
 
-static __device__ __forceinline__ uint64_t lane_home(const InsertArgs& a,
+static __device__ __forceinline__ uint64_t lane_home(const RoundArgs& a,
                                                      int64_t i) {
   return (mix64(a.key_lo[i], a.key_hi[i]) >> a.hash_shift) & a.mask;
 }
 
-static __device__ __forceinline__ bool slot_free(const InsertArgs& a,
+static __device__ __forceinline__ bool slot_free(const RoundArgs& a,
                                                  uint64_t s) {
-  return __ldcg(reinterpret_cast<const ull*>(a.tkey_lo) + s) == 0 &&
-         __ldcg(reinterpret_cast<const ull*>(a.tkey_hi) + s) == 0 &&
+  return __ldcg(a.tkey_lo + s) == 0 && __ldcg(a.tkey_hi + s) == 0 &&
          a.tomb[s] == 0;
 }
 
-__global__ void __launch_bounds__(INSERT_THREADS, 1)
-    insert_kernel(InsertArgs a) {
+__global__ void __launch_bounds__(ROUNDS_THREADS, 1)
+    claim_rounds_kernel(RoundArgs a) {
   __shared__ int red[32];
-  __shared__ ull red64[32];
-  const bool one_block = gridDim.x == 1;
   const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t cap = (int64_t)a.mask + 1;
-  auto barrier = [&]() {
-    if (one_block) {
-      __syncthreads();
-    } else {
-      cg::this_grid().sync();
-    }
-  };
+  cg::grid_group grid = cg::this_grid();
 
   int local = 0;
   for (int64_t i = tid; i < a.n; i += stride) {
@@ -115,14 +666,14 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
   }
   int s = block_sum(local, red);
   if (threadIdx.x == 0 && s) atomicAdd(a.cnt + 2, s);
-  barrier();
+  grid.sync();
 
   for (int64_t t = 0;; ++t) {
     const int remaining = __ldcg(a.cnt + (t + 2) % 3);
     if (remaining == 0) break;
     if (t >= a.max_probe) {
       if (tid == 0) {
-        if (a.claim_only) {
+        if (a.flag_word) {
           atomicOr(a.flag_word, a.flag_bit);
         } else {
           *a.probe_overflow = 1;
@@ -139,7 +690,7 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
         if (slot_free(a, cur)) atomicMin(claim + cur, (int)i);
       }
     }
-    barrier();
+    grid.sync();
     // Phase B: winners take their slot; losers prepare the next round.
     local = 0;
     for (int64_t i = tid; i < a.n; i += stride) {
@@ -147,8 +698,8 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
         const uint64_t cur = (lane_home(a, i) + (uint64_t)t) & a.mask;
         if (__ldcg(claim + cur) == (int)i) {
           a.claimed[i] = (int64_t)cur;
-          __stcg(reinterpret_cast<ull*>(a.tkey_lo) + cur, (ull)a.key_lo[i]);
-          __stcg(reinterpret_cast<ull*>(a.tkey_hi) + cur, (ull)a.key_hi[i]);
+          __stcg(a.tkey_lo + cur, a.key_lo[i]);
+          __stcg(a.tkey_hi + cur, a.key_hi[i]);
         } else {
           __stcg(next + ((cur + 1) & a.mask), INT_MAX);
           ++local;
@@ -158,153 +709,125 @@ __global__ void __launch_bounds__(INSERT_THREADS, 1)
     s = block_sum(local, red);
     if (threadIdx.x == 0 && s) atomicAdd(a.cnt + t % 3, s);
     if (tid == 0) atomicExch(a.cnt + (t + 1) % 3, 0);
-    barrier();
+    grid.sync();
   }
-
-  if (a.claim_only) return;
-  // write_rows: columns and tombstone at the placed slots, and the count.
-  ull placed = 0;
-  for (int64_t i = tid; i < a.n; i += stride) {
-    const int64_t c = a.claimed[i];
-    if (c < cap) {
-      a.tomb[c] = 0;
-      for (int k = 0; k < a.rows.n; ++k) {
-        copy_elem(a.rows.dst[k], c, a.rows.src[k], i, a.rows.width[k]);
-      }
-      ++placed;
-    }
-  }
-  const ull total = block_sum(placed, red64);
-  if (threadIdx.x == 0 && total) atomicAdd(a.count, total);
 }
 
-// A batch of at most INSERT_LANES_PER_BLOCK lanes (every fast-path batch)
-// runs as an ordinary one-block launch, with __syncthreads as its barrier:
-// stream capture takes it whatever the CUDA version's support for captured
-// cooperative launches, and it skips the occupancy queries.  A larger one
-// (`grow`) is a cooperative launch on as many blocks as are resident.
-static int launch_insert(InsertArgs& a) {
-  if (a.n == 0) return 0;
-  if (a.n > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (a.n <= INSERT_LANES_PER_BLOCK) {
-    insert_kernel<<<1, INSERT_THREADS, 0, a.stream>>>(a);
-    return (int)cudaGetLastError();
-  }
+// The round kernel's claims (the table's keys hold them as marks after it).
+static int launch_rounds(const Batch& b, void* claim0, void* claim1, void* cnt,
+                         uint8_t* probe_overflow, int* flag_word,
+                         int flag_bit) {
+  if (b.n > INT_MAX || claim0 == nullptr || claim1 == nullptr ||
+      cnt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  RoundArgs a;
+  a.tkey_lo = b.tkey_lo;
+  a.tkey_hi = b.tkey_hi;
+  a.tomb = b.tomb;
+  a.mask = (uint64_t)(b.cap - 1);
+  a.hash_shift = b.hash_shift;
+  a.max_probe = b.max_probe;
+  a.key_lo = b.key_lo;
+  a.key_hi = b.key_hi;
+  a.insert_mask = b.insert_mask;
+  a.n = b.n;
+  a.claimed = b.claimed;
+  a.claim0 = (int*)claim0;
+  a.claim1 = (int*)claim1;
+  a.cnt = (int*)cnt;
+  a.probe_overflow = probe_overflow;
+  a.flag_word = flag_word;
+  a.flag_bit = flag_bit;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, insert_kernel,
-                                                      INSERT_THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, claim_rounds_kernel, ROUNDS_THREADS, 0);
   if (e != cudaSuccess) return (int)e;
-  int64_t blocks = (a.n + INSERT_LANES_PER_BLOCK - 1) / INSERT_LANES_PER_BLOCK;
+  int64_t blocks = (b.n + ROUNDS_LANES_PER_BLOCK - 1) / ROUNDS_LANES_PER_BLOCK;
   const int64_t resident = (int64_t)sms * per_sm;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)insert_kernel, dim3((unsigned)blocks),
-                                  dim3(INSERT_THREADS), args, 0, a.stream);
+  e = cudaLaunchCooperativeKernel((const void*)claim_rounds_kernel,
+                                  dim3((unsigned)blocks), dim3(ROUNDS_THREADS),
+                                  args, 0, b.stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-static void fill_args(InsertArgs* a, void* tkey_lo, void* tkey_hi, void* tomb,
-                      int64_t capacity, int hash_shift, int64_t max_probe,
-                      const void* key_lo, const void* key_hi,
-                      const void* insert_mask, int64_t n, void* claimed,
-                      void* claim0, void* claim1, void* cnt, void* stream) {
-  a->tkey_lo = (uint64_t*)tkey_lo;
-  a->tkey_hi = (uint64_t*)tkey_hi;
-  a->tomb = (uint8_t*)tomb;
-  a->mask = (uint64_t)(capacity - 1);
-  a->hash_shift = hash_shift;
-  a->max_probe = max_probe;
-  a->key_lo = (const uint64_t*)key_lo;
-  a->key_hi = (const uint64_t*)key_hi;
-  a->insert_mask = (const uint8_t*)insert_mask;
-  a->n = n;
-  a->claimed = (int64_t*)claimed;
-  a->claim0 = (int*)claim0;
-  a->claim1 = (int*)claim1;
-  a->cnt = (int*)cnt;
-  a->stream = (cudaStream_t)stream;
+// -- entry points ------------------------------------------------------------
+
+static Batch make_batch(void* tkey_lo, void* tkey_hi, const void* tomb,
+                        int64_t capacity, int hash_shift, int64_t max_probe,
+                        const void* key_lo, const void* key_hi,
+                        const void* insert_mask, int64_t n, void* claimed,
+                        void* stream) {
+  Batch b;
+  b.tkey_lo = (ull*)tkey_lo;
+  b.tkey_hi = (ull*)tkey_hi;
+  b.tomb = (uint8_t*)const_cast<void*>(tomb);
+  b.cap = capacity;
+  b.hash_shift = hash_shift;
+  b.max_probe = max_probe;
+  b.key_lo = (const ull*)key_lo;
+  b.key_hi = (const ull*)key_hi;
+  b.insert_mask = (const uint8_t*)insert_mask;
+  b.n = n;
+  b.claimed = (int64_t*)claimed;
+  b.stream = (cudaStream_t)stream;
+  return b;
 }
 
+// The split form when `pre` is given (n <= SPLIT_MAX_N), else the round
+// kernel on claim0/claim1/cnt; then the rows.
 extern "C" int tb_insert(void* tkey_lo, void* tkey_hi, void* tomb,
                          int64_t capacity, int hash_shift, int64_t max_probe,
                          const void* key_lo, const void* key_hi,
                          const void* insert_mask, int64_t n, void* claimed,
-                         void* claim0, void* claim1, void* cnt, void* count,
-                         void* probe_overflow, int ncols,
+                         void* pre, void* claim0, void* claim1, void* cnt,
+                         void* count, void* probe_overflow, int ncols,
                          const void* const* src, void* const* dst,
                          const int* width, void* stream) {
-  InsertArgs a;
-  int err = pack_cols(&a.rows, ncols, src, dst, width);
+  ColList rows;
+  int err = pack_cols(&rows, ncols, src, dst, width);
   if (err) return err;
-  fill_args(&a, tkey_lo, tkey_hi, tomb, capacity, hash_shift, max_probe, key_lo,
-            key_hi, insert_mask, n, claimed, claim0, claim1, cnt, stream);
-  a.count = (ull*)count;
-  a.probe_overflow = (uint8_t*)probe_overflow;
-  a.claim_only = 0;
-  a.flag_word = nullptr;
-  a.flag_bit = 0;
-  return launch_insert(a);
+  if (n == 0) return 0;
+  const Batch b = make_batch(tkey_lo, tkey_hi, tomb, capacity, hash_shift,
+                             max_probe, key_lo, key_hi, insert_mask, n,
+                             claimed, stream);
+  err = pre ? launch_claims(b, pre, (uint8_t*)probe_overflow, nullptr, 0)
+            : launch_rounds(b, claim0, claim1, cnt, (uint8_t*)probe_overflow,
+                            nullptr, 0);
+  if (err) return err;
+  return launch_writes(b.tkey_lo, b.tkey_hi, b.tomb, b.cap, b.key_lo,
+                       b.key_hi, b.claimed, b.insert_mask, n, nullptr, 0,
+                       MODE_ROWS, rows, (ull*)count, b.stream);
 }
 
 extern "C" int tb_claim(void* tkey_lo, void* tkey_hi, const void* tomb,
                         int64_t capacity, int hash_shift, int64_t max_probe,
                         const void* key_lo, const void* key_hi,
                         const void* insert_mask, int64_t n, void* claimed,
-                        void* claim0, void* claim1, void* cnt, void* flag_word,
-                        int flag_bit, void* stream) {
-  InsertArgs a;
-  a.rows.n = 0;
-  fill_args(&a, tkey_lo, tkey_hi, const_cast<void*>(tomb), capacity, hash_shift,
-            max_probe, key_lo, key_hi, insert_mask, n, claimed, claim0, claim1,
-            cnt, stream);
-  a.count = nullptr;
-  a.probe_overflow = nullptr;
-  a.claim_only = 1;
-  a.flag_word = (int*)flag_word;
-  a.flag_bit = flag_bit;
-  return launch_insert(a);
-}
-
-// Per lane with a claimed slot: write the row (keys, tombstone cleared,
-// columns, the count) where the gate is open (null or 0) and the lane is in
-// the write mask; otherwise, with `revert`, clear the claim's mark.
-__global__ void write_claimed_kernel(uint64_t* tkey_lo, uint64_t* tkey_hi,
-                                     uint8_t* tomb, int64_t cap,
-                                     const uint64_t* key_lo,
-                                     const uint64_t* key_hi,
-                                     const int64_t* claimed,
-                                     const uint8_t* write_mask, int64_t n,
-                                     const int* gate, int revert, ColList rows,
-                                     ull* count) {
-  __shared__ ull red64[32];
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  ull placed = 0;
-  if (i < n) {
-    const int64_t c = claimed[i];
-    if (c < cap) {
-      const bool open = gate == nullptr || *gate == 0;
-      if (open && write_mask[i]) {
-        tkey_lo[c] = key_lo[i];
-        tkey_hi[c] = key_hi[i];
-        tomb[c] = 0;
-        for (int k = 0; k < rows.n; ++k) {
-          copy_elem(rows.dst[k], c, rows.src[k], i, rows.width[k]);
-        }
-        placed = 1;
-      } else if (revert) {
-        tkey_lo[c] = 0;
-        tkey_hi[c] = 0;
-      }
-    }
+                        void* pre, void* claim0, void* claim1, void* cnt,
+                        void* flag_word, int flag_bit, void* stream) {
+  if (n == 0) return 0;
+  const Batch b = make_batch(tkey_lo, tkey_hi, tomb, capacity, hash_shift,
+                             max_probe, key_lo, key_hi, insert_mask, n,
+                             claimed, stream);
+  if (!pre) {  // the round kernel leaves the marks itself
+    return launch_rounds(b, claim0, claim1, cnt, nullptr, (int*)flag_word,
+                         flag_bit);
   }
-  const ull total = block_sum(placed, red64);
-  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+  int err = launch_claims(b, pre, nullptr, (int*)flag_word, flag_bit);
+  if (err) return err;
+  ColList none;
+  none.n = 0;
+  return launch_writes(b.tkey_lo, b.tkey_hi, b.tomb, b.cap, b.key_lo,
+                       b.key_hi, b.claimed, nullptr, n, nullptr, 0, MODE_MARKS,
+                       none, nullptr, b.stream);
 }
 
 extern "C" int tb_write_claimed(void* tkey_lo, void* tkey_hi, void* tomb,
@@ -319,12 +842,9 @@ extern "C" int tb_write_claimed(void* tkey_lo, void* tkey_hi, void* tomb,
   int err = pack_cols(&rows, ncols, src, dst, width);
   if (err) return err;
   if (n == 0) return 0;
-  const int threads = 256;
-  write_claimed_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                         (cudaStream_t)stream>>>(
-      (uint64_t*)tkey_lo, (uint64_t*)tkey_hi, (uint8_t*)tomb, capacity,
-      (const uint64_t*)key_lo, (const uint64_t*)key_hi, (const int64_t*)claimed,
-      (const uint8_t*)write_mask, n, (const int*)gate, revert, rows,
-      (ull*)count);
-  return (int)cudaGetLastError();
+  return launch_writes((ull*)tkey_lo, (ull*)tkey_hi, (uint8_t*)tomb, capacity,
+                       (const ull*)key_lo, (const ull*)key_hi,
+                       (const int64_t*)claimed, (const uint8_t*)write_mask, n,
+                       (const int*)gate, revert, MODE_ROWS, rows, (ull*)count,
+                       (cudaStream_t)stream);
 }

@@ -56,7 +56,8 @@ batch's count and timestamp from u64 device words, so one captured launch
 sequence serves every run: ``probe``, ``validate`` (transfers) and
 ``bench_gen`` take such words (``count_word``, ``ts_word``, ``b_word``), and
 ``probe``, ``validate`` and ``insert`` take preallocated outputs and
-scratch (a graph bakes every pointer; ``balance`` needs none).
+scratch (a graph bakes every pointer; ``balance`` needs none; ``insert``'s
+is ``insert_scratch``'s, nothing the size of the table for a batch).
 ``group_dispatch`` is not a kernel of its own: it counts the replays of the grouped commit's
 graph, each of which launches the kernels above (their counts grow by the
 graph's nodes at every replay, not at capture).
@@ -270,7 +271,7 @@ _SIGNATURES = {
     "tb_probe": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _I64, _I64,
                  _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
     "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
-                  _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
+                  _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
     "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _P],
     "tb_validate_transfers": [_INT, _P, _I64, _I64, ctypes.c_uint64,
                               _P, _P, _P, _P, _P, _I64, _P],
@@ -287,7 +288,7 @@ _SIGNATURES = {
                         ctypes.c_uint64, _P, _P, _P, _P],
     "tb_tombstone": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
     "tb_claim": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64, _P, _P,
-                 _P, _P, _P, _INT, _P],
+                 _P, _P, _P, _P, _INT, _P],
     "tb_write_claimed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _P,
                          _INT, _P, _INT, _P, _P, _P, _P],
     "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
@@ -471,6 +472,56 @@ def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
 
 # -- K2 insert -------------------------------------------------------------
 
+# K2's split form (csrc/insert.cu: a pre-pass, a one-block resolver, the
+# writes) takes a batch of at most INSERT_SPLIT_MAX_N lanes into a table of
+# at most INSERT_SPLIT_MAX_SLOTS slots, with a window of INSERT_WINDOW slots
+# a lane; anything larger (``grow``, the cold tier's rebuild) takes its
+# round kernel, which needs two int32[C] claim buffers.
+INSERT_WINDOW = 32
+INSERT_SPLIT_MAX_N = 8192
+INSERT_SPLIT_MAX_SLOTS = 1 << 31
+
+
+def insert_split(n: int, cap: int) -> bool:
+    """Whether K2 runs its split form for ``n`` lanes into ``cap`` slots."""
+    return n <= INSERT_SPLIT_MAX_N and cap <= INSERT_SPLIT_MAX_SLOTS
+
+
+def insert_scratch(n: int, cap: int, device) -> Tuple[torch.Tensor, ...]:
+    """K2's scratch for ``n`` lanes into ``cap`` slots, for the insert and
+    claim entries: (claimed int64[n], the pre-pass's homes and windows
+    int32[2n]) for the split form; (claimed, claim0 and claim1 int32[cap],
+    cnt int32[3]) for the round kernel."""
+    claimed = torch.empty(n, dtype=torch.int64, device=device)
+    if insert_split(n, cap):
+        return claimed, torch.empty(2 * n, dtype=torch.int32, device=device)
+    return (claimed, torch.empty(cap, dtype=torch.int32, device=device),
+            torch.empty(cap, dtype=torch.int32, device=device),
+            torch.zeros(3, dtype=torch.int32, device=device))
+
+
+def _insert_scratch_ptrs(scratch, n: int, cap: int):
+    """Checks ``scratch`` (from ``insert_scratch``) and returns (claimed,
+    pointers of pre, claim0, claim1, cnt: None where the route has none);
+    the round kernel's counters are zeroed here."""
+    claimed = scratch[0]
+    _check(claimed, torch.int64, n, "claimed")
+    if insert_split(n, cap):
+        if len(scratch) != 2:
+            raise ValueError("K2's split form takes (claimed, pre) scratch")
+        _check(scratch[1], torch.int32, 2 * n, "pre")
+        return claimed, (scratch[1].data_ptr(), None, None, None)
+    if len(scratch) != 4:
+        raise ValueError("K2's round kernel takes (claimed, claim0, claim1, "
+                         "cnt) scratch")
+    _, claim0, claim1, cnt = scratch
+    _check(claim0, torch.int32, cap, "claim0")
+    _check(claim1, torch.int32, cap, "claim1")
+    _check(cnt, torch.int32, 3, "cnt")
+    cnt.zero_()
+    return claimed, (None, claim0.data_ptr(), claim1.data_ptr(),
+                     cnt.data_ptr())
+
 
 def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
            count: torch.Tensor, probe_overflow: torch.Tensor,
@@ -478,9 +529,11 @@ def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
            max_probe: int, hash_shift: int,
            scratch: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
     """Kernel K2: inserts in place; returns the claimed slots (C where
-    unplaced).  ``scratch``, preallocated (claimed int64[n], claim0 and
-    claim1 int32[C], cnt int32[3]; cnt is zeroed here), serves a captured
-    graph."""
+    unplaced).  A batch of at most INSERT_SPLIT_MAX_N lanes runs the split
+    form (the pre-pass, the one-block resolver over home groups, the row
+    writes: no scratch the size of the table); a larger one (``grow``) the
+    round kernel.  ``scratch`` (``insert_scratch``), preallocated, serves a
+    captured graph."""
     lib = library()
     cap = tkey_lo.numel()
     n = key_lo.numel()
@@ -503,27 +556,16 @@ def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
         _check(s, d.dtype, n, f"row {name}")
         src.append(s)
         dst.append(d)
-    dev = key_lo.device
     if scratch is None:
-        claimed = torch.empty(n, dtype=torch.int64, device=dev)
-        claim0 = torch.empty(cap, dtype=torch.int32, device=dev)
-        claim1 = torch.empty(cap, dtype=torch.int32, device=dev)
-        cnt = torch.zeros(3, dtype=torch.int32, device=dev)
-    else:
-        claimed, claim0, claim1, cnt = scratch
-        _check(claimed, torch.int64, n, "claimed")
-        _check(claim0, torch.int32, cap, "claim0")
-        _check(claim1, torch.int32, cap, "claim1")
-        _check(cnt, torch.int32, 3, "cnt")
-        cnt.zero_()
+        scratch = insert_scratch(n, cap, key_lo.device)
+    claimed, (pre, claim0, claim1, cnt) = _insert_scratch_ptrs(scratch, n, cap)
     widths = (ctypes.c_int * max(1, len(src)))(*[_width(s) for s in src])
     err = lib.tb_insert(
         tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
         hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(),
-        insert_mask.data_ptr(), n, claimed.data_ptr(), claim0.data_ptr(),
-        claim1.data_ptr(), cnt.data_ptr(), count.data_ptr(),
-        probe_overflow.data_ptr(), len(src), _ptr_array(src), _ptr_array(dst),
-        widths, _stream(key_lo),
+        insert_mask.data_ptr(), n, claimed.data_ptr(), pre, claim0, claim1,
+        cnt, count.data_ptr(), probe_overflow.data_ptr(), len(src),
+        _ptr_array(src), _ptr_array(dst), widths, _stream(key_lo),
     )
     _raise_on(err, "insert")
     KERNELS["insert"].launches += 1
@@ -844,10 +886,11 @@ def claim(tkey_lo, tkey_hi, tomb, key_lo, key_hi, insert_mask, max_probe: int,
           hash_shift: int = 0, flag_word: Optional[torch.Tensor] = None,
           flag_bit: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's claim entry: the insert slot of every masked key (C where
-    unplaced), by the insert's rounds, leaving each claimed slot holding its
-    key as a mark until ``write_claimed``; on probe overflow ``flag_bit`` is
-    ORed into ``flag_word`` (int32[1], a new zero word when None).  Returns
-    (claimed, flag_word)."""
+    unplaced), by the insert's placement (its split form, or its round
+    kernel above INSERT_SPLIT_MAX_N lanes), leaving each claimed slot
+    holding its key as a mark until ``write_claimed``; on probe overflow
+    ``flag_bit`` is ORed into ``flag_word`` (int32[1], a new zero word when
+    None).  Returns (claimed, flag_word)."""
     lib = library()
     cap = tkey_lo.numel()
     n = key_lo.numel()
@@ -861,16 +904,13 @@ def claim(tkey_lo, tkey_hi, tomb, key_lo, key_hi, insert_mask, max_probe: int,
     if flag_word is None:
         flag_word = torch.zeros(1, dtype=torch.int32, device=dev)
     _check(flag_word, torch.int32, 1, "flag_word")
-    claimed = torch.empty(n, dtype=torch.int64, device=dev)
-    claim0 = torch.empty(cap, dtype=torch.int32, device=dev)
-    claim1 = torch.empty(cap, dtype=torch.int32, device=dev)
-    cnt = torch.zeros(3, dtype=torch.int32, device=dev)
+    scratch = insert_scratch(n, cap, dev)  # held until the launch is queued
+    claimed, (pre, claim0, claim1, cnt) = _insert_scratch_ptrs(scratch, n, cap)
     err = lib.tb_claim(
         tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
         hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(),
-        insert_mask.data_ptr(), n, claimed.data_ptr(), claim0.data_ptr(),
-        claim1.data_ptr(), cnt.data_ptr(), flag_word.data_ptr(), flag_bit,
-        _stream(key_lo),
+        insert_mask.data_ptr(), n, claimed.data_ptr(), pre, claim0, claim1,
+        cnt, flag_word.data_ptr(), flag_bit, _stream(key_lo),
     )
     _raise_on(err, "claim")
     KERNELS["claim"].launches += 1

@@ -181,10 +181,7 @@ class FastSteps:
         self.ok = z(lanes, torch.bool)
         self.codes = z((k, lanes), torch.int32)
         self.vscratch = z(2 * _cuda.hash_size(lanes) + 3 * lanes, torch.int32)
-        self.claimed = z(lanes)
-        self.claim0 = z(xfr_cap, torch.int32)
-        self.claim1 = z(xfr_cap, torch.int32)
-        self.cnt = z(3, torch.int32)
+        self.iscratch = _cuda.insert_scratch(lanes, xfr_cap, device)
         self.run_ovf = z(1, torch.int32)
 
     def step(self, ledger: sm.Ledger, j: int, soa: Dict[str, torch.Tensor],
@@ -226,8 +223,7 @@ class FastSteps:
         _cuda.insert(xfr.key_lo, xfr.key_hi, xfr.tombstone, xfr.cols,
                      xfr.count, xfr.probe_overflow, soa["id_lo"],
                      soa["id_hi"], self.ok, rows, sm.MAX_PROBE, 0,
-                     scratch=(self.claimed, self.claim0, self.claim1,
-                              self.cnt))
+                     scratch=self.iscratch)
 
 
 class CapturedGraph:

@@ -22,7 +22,10 @@ tensors in place and returns the same ``Table``.
 ``lookup`` (kernel K1), ``insert`` (kernel K2), ``claim_slots`` and
 ``write_rows`` (K2's claim and write entries) and ``remove_to_tombstone``
 (kernel K8) take the hand-written CUDA kernels for CUDA tensors and their
-plain PyTorch versions, beside them here, for CPU tensors.
+plain PyTorch versions, beside them here, for CPU tensors.  K2 has two
+plain forms with the same results: ``claim_slots_plain`` (the rounds over
+lanes, the CPU route) and ``claim_slots_split_plain`` (the card's split
+form: windows, then rounds over home groups).
 """
 
 from __future__ import annotations
@@ -261,6 +264,89 @@ def claim_slots_plain(
         unplaced = unplaced & ~win
         t += 1
     return claimed, torch.tensor(overflow, device=dev)
+
+
+# K2's split form (csrc/insert.cu), for batches of at most
+# _cuda.INSERT_SPLIT_MAX_N lanes: a wide pre-pass reads each lane's window
+# of _cuda.INSERT_WINDOW slots, then one block runs the rounds over home
+# groups, the batch's claims in a set.
+
+
+def _occupied(table: Table) -> torch.Tensor:
+    return (table.key_lo != 0) | (table.key_hi != 0) | table.tombstone
+
+
+def _windows(occ: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Bit k of each result is the occupancy of slot (start + k) & (C-1)."""
+    k = torch.arange(_cuda.INSERT_WINDOW, device=start.device)
+    bits = occ[(start[:, None] + k) & (occ.shape[0] - 1)]
+    return (bits.to(torch.int64) << k).sum(1)
+
+
+def claim_prepass_plain(table: Table, key_lo, key_hi, insert_mask,
+                        hash_shift: int = 0):
+    """Plain version of K2's pre-pass: (home, window), int64[N] each.  A
+    masked lane's home, and its window: bit k set where slot home+k is
+    occupied (key nonzero or tombstone) before the batch; home -1 for a
+    lane outside the mask."""
+    home = _home(key_lo, key_hi, table.capacity, hash_shift)
+    window = _windows(_occupied(table), home)
+    return torch.where(insert_mask, home, -1), window
+
+
+def claim_resolve_plain(table: Table, home: torch.Tensor, window: torch.Tensor,
+                        max_probe: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2's resolver: (claimed int64[N], overflow).
+
+    The masked lanes form home groups, members in lane order.  In round t
+    each group with members left probes home+t; the slot is free if its
+    window bit is clear (the group's window is its first lane's, read anew
+    from the table every _cuda.INSERT_WINDOW rounds) and the batch has not
+    claimed it in an earlier round; then the group's next member takes it.
+    Within a round no two groups probe one slot (their homes differ), so
+    the round's claims are made together.  The rounds stop as the
+    protocol's do (``claim_slots_plain``)."""
+    n = home.shape[0]
+    cap = table.capacity
+    dev = home.device
+    claimed = torch.full((n,), cap, dtype=torch.int64, device=dev)
+    lanes = torch.nonzero(home >= 0).flatten()
+    if lanes.numel() == 0:
+        return claimed, torch.tensor(False, device=dev)
+    s_home, order = torch.sort(home[lanes], stable=True)
+    members = lanes[order]  # grouped by home, lane order within a group
+    g_home, g_size = torch.unique_consecutive(s_home, return_counts=True)
+    g_end = torch.cumsum(g_size, 0)
+    g_next = g_end - g_size
+    g_win = window[members[g_next]]
+    occ = _occupied(table)
+    taken = torch.zeros(cap, dtype=torch.bool, device=dev)
+    live = torch.ones_like(g_home, dtype=torch.bool)
+    t = 0
+    while bool(live.any()):
+        if t >= max_probe:
+            return claimed, torch.tensor(True, device=dev)
+        if t and t % _cuda.INSERT_WINDOW == 0:
+            g_win = torch.where(live, _windows(occ, g_home + t), g_win)
+        slot = (g_home + t) & (cap - 1)
+        bit = (g_win >> (t % _cuda.INSERT_WINDOW)) & 1
+        win = live & (bit == 0) & ~taken[slot]
+        claimed[members[g_next[win]]] = slot[win]
+        taken[slot[win]] = True
+        g_next = g_next + win.to(torch.int64)
+        live = g_next < g_end
+        t += 1
+    return claimed, torch.tensor(False, device=dev)
+
+
+def claim_slots_split_plain(table: Table, key_lo, key_hi, insert_mask,
+                            max_probe: int, hash_shift: int = 0):
+    """Plain version of K2's claim as the card runs it for a batch of at
+    most _cuda.INSERT_SPLIT_MAX_N lanes: the pre-pass, then the resolver.  The
+    same claims and overflow as ``claim_slots_plain``."""
+    home, window = claim_prepass_plain(table, key_lo, key_hi, insert_mask,
+                                       hash_shift)
+    return claim_resolve_plain(table, home, window, max_probe)
 
 
 def write_rows(
