@@ -200,14 +200,17 @@ Phases, each printing one JSON line:
                 32, p_sdc 0 and 0.3), K28 ``vopr_step`` on 1,024 clusters x
                 50 steps for the clean model and each of the nine bugs, K29
                 ``vopr_run``'s flags and final states at 512 x 200 for the
-                clean HARSH model and each bug, and a K29 run past
+                clean HARSH model and each bug, K29 runs ending inside,
+                at and past its chunks of 32 drawn steps (0, 1, 31, 33 and
+                65 steps at R=3 S=32 and R=6 S=256), and a K29 run past
                 ``VOPR_SHARED_MAX_OPS`` (the canonical lists in device
                 memory); then each at its path's shape (K27 on 4,096
                 keys, K28 on 4,096 clusters at max_ops 402, K29's flags and
                 final states on a batch of 8,192 x 200 under HARSH_FAULTS)
                 byte for byte against its plain version, and timed beside
                 it (the plain versions with CUDA events around their calls)
-                and beside its bound;
+                and beside its bound; K29's registers, local memory and
+                resident warps a SM (``_cuda.vopr_run_info``);
  25. vopr     - at the sources' sizes: (a) cli.py's ``vopr --tpu`` default
                 (4,096 clusters x 400 steps, clean) through ``run_sharded``:
                 0 violations; (b) tools/vopr_scale.py's run through the twin
@@ -3584,6 +3587,8 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
             batch = gen_batch_np(b, COUNT, COUNT, N_ACCOUNTS, 1 << 32)[:count]
             if window and b == window.start:
                 torch.cuda.synchronize()
+                launched = {k: _cuda.KERNELS[k].launches
+                            for k in ("run_sort", "run_merge")}
                 prof = torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
@@ -3596,6 +3601,8 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
             if window and b == window.stop - 1:
                 torch.cuda.synchronize()
                 prof.__exit__(None, None, None)
+                launched = {k: _cuda.KERNELS[k].launches - v
+                            for k, v in launched.items()}
             if res:
                 raise AssertionError(f"queries {label}: batch {b} failed {res[:3]}")
         torch.cuda.synchronize()
@@ -3604,11 +3611,18 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
              "transfers_per_s": n_timed / commit_s if commit_s else None,
              "index_append_host_ms_per_batch": append_s[0] * 1e3 / n_batches}
         if prof is not None:
-            by_name = {}
-            busy = device_us(prof, by_name) / 1e3
+            by_name, calls = {}, {}
+            busy = device_us(prof, by_name, calls) / 1e3
             per = {k: v / 1e3 / len(window) for k, v in by_name.items()}
+            # The profiler may drop events: the launches the window made
+            # beside the events it recorded say how far to trust a time.
             r["profile"] = {
                 "batches": len(window), "device_busy_ms_per_batch": busy / len(window),
+                "launches_in_window": launched,
+                "events_recorded": {
+                    k: sum(v for n, v in calls.items() if k in n)
+                    for k in ("run_sort", "run_merge")},
+                "n_batches": n_batches,
                 "k13_run_sort_ms_per_batch": sum(v for k, v in per.items()
                                                  if "run_sort" in k),
                 "k14_run_merge_ms_per_batch": sum(v for k, v in per.items()
@@ -5783,10 +5797,13 @@ def phase_vopr_kernels(seed: int, dev) -> dict:
     K27 on 4,096 keys for R in {3, 5}, S in {8, 32}, p_sdc in {0, 0.3}; K28
     on 1,024 clusters x 50 steps (its faults from K27) for the clean model
     and each bug; K29's flags and every final state at 512 clusters x 200
-    steps for the clean HARSH model and each bug; one long run (canonical
-    lists past shared memory, in device memory).  Then each kernel at its
-    path's shape, byte for byte against its plain version on the same
-    inputs, and timed beside it and beside its bound."""
+    steps for the clean HARSH model and each bug; runs that end inside,
+    at and past K29's chunks of 32 drawn steps (0, 1, 31, 33, 65 steps) at
+    one warp a cluster (R=3, S=32) and eight (R=6, S=256); one long run
+    (canonical lists past shared memory, in device memory).  Then each
+    kernel at its path's shape, byte for byte against its plain version on
+    the same inputs, and timed beside it and beside its bound; K29's
+    registers and resident warps a SM as the card reports them."""
     import torch
     from tigerbeetle_tpu_torch.ops import _cuda
     from tigerbeetle_tpu_torch.sim import prng
@@ -5832,6 +5849,18 @@ def phase_vopr_kernels(seed: int, dev) -> dict:
             raise AssertionError(f"K29 {bug}: flags differ from the plain loop")
         caught[str(bug)] = int(flags.sum())
         checked["run"] += 1
+    checked["chunks"] = []
+    for R, S in ((3, 32), (6, 256)):
+        probs = dict(vt.HARSH_FAULTS, p_sdc=0.3)
+        for steps in (0, 1, 31, 33, 65):
+            flags, got = vt.run(seed, 256, steps, R, S, device=dev,
+                                final_state=True, **probs)
+            want = vt.run_plain(seed, 0, 256, steps, R, S, None, dev, **probs)
+            vopr_states_equal(got, want, f"K29 R={R} S={S} {steps} steps")
+            if not np.array_equal(flags, want.violated.cpu().numpy()):
+                raise AssertionError(f"K29 R={R} S={S} {steps} steps: flags "
+                                     "differ from the plain loop")
+            checked["chunks"].append(f"R={R} S={S} {steps} steps")
     long_steps = _cuda.VOPR_SHARED_MAX_OPS + 100
     flags, got = vt.run(seed, 4, long_steps, device=dev, final_state=True,
                         **vt.HARSH_FAULTS)
@@ -5915,8 +5944,11 @@ def phase_vopr_kernels(seed: int, dev) -> dict:
                         H100_INT32_OPS_PER_S),
             shape=f"{b} clusters x {bs} steps, R={R}, S={S}, HARSH_FAULTS"),
     }
+    launch = {f"R={r} S={s_} steps={t}": _cuda.vopr_run_info(r, s_, t)
+              for r, s_, t in ((R, S, bs), (R, S, VOPR_LONG["steps"]),
+                               (6, 256, bs))}
     return {"checked": checked, "caught_at_check_size": caught,
-            "results": results}
+            "results": results, "k29_launch": launch}
 
 
 def phase_vopr(dev, seed: int, smi: str) -> dict:
@@ -6760,6 +6792,7 @@ def main() -> int:
     emit({"phase": "vopr_kernels", "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi, "checked": vk["checked"],
           "caught_at_check_size": vk["caught_at_check_size"],
+          "k29_launch": vk["k29_launch"],
           "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                       for k, v in vk["results"].items()},
           "bounds_ms": {k: v["bound"] for k, v in vk["results"].items()}})

@@ -1514,6 +1514,21 @@ def test_vopr_draw_matches_plain(cuda_device):
                     assert torch.equal(got[name], want[name]), (R, S, name)
 
 
+def test_vopr_draw_every_span_matches_plain(cuda_device):
+    """K27's division-free randint over the slots at every span S from 1
+    to MAX_SLOTS (R = 3): byte for byte the plain draws."""
+    from tigerbeetle_tpu_torch.sim import prng
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    keys = prng.split(prng.PRNGKey(23, cuda_device), 1024)
+    probs = dict(vt.HARSH_FAULTS, p_sdc=0.3)
+    for S in range(1, vt.MAX_SLOTS + 1):
+        got = vt.draw_faults(keys, 3, S, **probs)
+        want = vt.draw_faults_plain(keys, 3, S, **probs)
+        for name in vt.FAULT_FIELDS:
+            assert torch.equal(got[name], want[name]), (S, name)
+
+
 @pytest.mark.parametrize("bug", [None, "commit_quorum", "canonical_by_op",
                                  "no_truncate", "corrupt_serve", "wal_wrap",
                                  "split_brain", "amputate_vouch",
@@ -1570,6 +1585,56 @@ def test_vopr_run_long_horizon_matches_plain(cuda_device):
     assert int(state.commit.max()) > 0
     assert np.array_equal(vt.run(2, 4, steps, device=cuda_device,
                                  **vt.HARSH_FAULTS), flags)
+
+
+@pytest.mark.parametrize("R", [1, 6])
+@pytest.mark.parametrize("S", [8, 32, 64, 256])
+def test_vopr_run_chunks_match_plain(cuda_device, R, S):
+    """K29 draws its steps 32 at a time; runs that end before, at and after
+    a chunk's end (0, 1, 31, 33, 65 steps) equal the plain loop, flags
+    and every final field, for one-warp and many-warp clusters."""
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    probs = dict(vt.HARSH_FAULTS, p_sdc=0.3)
+    for steps in (0, 1, 31, 33, 65):
+        n = _cuda.KERNELS["vopr_run"].launches
+        flags, state = vt.run(6, 40, steps, R, S, device=cuda_device,
+                              final_state=True, **probs)
+        assert _cuda.KERNELS["vopr_run"].launches == n + 1
+        want = vt.run_plain(6, 0, 40, steps, R, S, None, cuda_device, **probs)
+        _states_equal(state, want, f"R={R} S={S} {steps} steps")
+        assert np.array_equal(flags, want.violated.cpu().numpy())
+        assert np.array_equal(vt.run(6, 40, steps, R, S, device=cuda_device,
+                                     **probs), flags)
+
+
+@pytest.mark.parametrize("steps", [_cuda.VOPR_SHARED_MAX_OPS - 2,
+                                   _cuda.VOPR_SHARED_MAX_OPS - 1])
+def test_vopr_run_at_the_shared_canon_boundary(cuda_device, steps):
+    """max_ops 1,024 keeps the canonical lists of a flags-only run in
+    shared memory, 1,025 in device memory; both equal the plain loop."""
+    from tigerbeetle_tpu_torch.sim import vopr_tpu as vt
+
+    kw = dict(bug="commit_quorum", **vt.HARSH_FAULTS)
+    flags = vt.run(8, 12, steps, device=cuda_device, **kw)
+    got_flags, state = vt.run(8, 12, steps, device=cuda_device,
+                              final_state=True, **kw)
+    want = vt.run_plain(8, 0, 12, steps, 3, 32, "commit_quorum", cuda_device,
+                        **vt.HARSH_FAULTS)
+    _states_equal(state, want, f"{steps} steps")
+    assert np.array_equal(flags, want.violated.cpu().numpy())
+    assert np.array_equal(got_flags, flags)
+
+
+def test_vopr_run_info_reads_the_launch(cuda_device):
+    """K29's registers and resident blocks as the card reports them."""
+    for R, S, steps, warps in ((3, 32, 200, 1), (6, 256, 1100, 8)):
+        info = _cuda.vopr_run_info(R, S, steps)
+        assert info["threads"] == 32 * warps
+        assert 0 < info["registers"] <= 255
+        assert info["blocks_per_sm"] >= 1
+        assert info["dynamic_smem_bytes"] == (0 if steps + 2 > 1024
+                                              else 4 * (steps + 2))
 
 
 def test_vopr_step_and_run_at_the_largest_shape(cuda_device):

@@ -5,6 +5,11 @@
 // so a split's key i and element i of a draw hash the counter
 // (i >> 32, i & 0xFFFFFFFF); a Bernoulli draw compares a float64 uniform
 // made from 64 bits; randint draws int64 from two 64-bit draws.
+//
+// The draws use no floating point and no 64-bit division: a Bernoulli
+// gate compares the draw's top 52 bits with an integer threshold, and a
+// randint reduces by its span with a multiplier (TfSpan); the host makes
+// both once a launch (sim/prng.py bernoulli_threshold and span_consts).
 #pragma once
 
 #include <cstdint>
@@ -60,30 +65,53 @@ static __device__ __forceinline__ uint64_t tf_bits64(TfKey k, uint64_t i) {
 }
 
 // Element i of jax.random.bernoulli(k, p, shape), p a float64: the uniform
-// is the top 52 of 64 bits as a mantissa, exactly m * 2^-52.
+// is the top 52 of 64 bits m as a mantissa, exactly m * 2^-52, and the draw
+// is (double)m * 0x1p-52 < p.  Here that compare is m < thresh, with
+// thresh = ceil(p * 2^52) clamped to [0, 2^52] (sim/prng.py
+// bernoulli_threshold; tests/test_torch_vopr_draw_ahead.py holds the two
+// forms equal).
+static const uint64_t TF_HALF = 1ull << 51;  // the threshold of p = 0.5
+
 static __device__ __forceinline__ bool tf_bernoulli(TfKey k, uint64_t i,
-                                                    double p) {
-  const uint64_t m = tf_bits64(k, i) >> 12;
-  return (double)m * 0x1p-52 < p;
+                                                    uint64_t thresh) {
+  return (tf_bits64(k, i) >> 12) < thresh;
 }
 
-// Element i of jax.random.randint(k, shape, lo, hi) as int64, given k's
-// split(k)[0] and split(k)[1] (u64 wrapping arithmetic, as
-// jax/_src/random.py _randint).
-static __device__ __forceinline__ int64_t tf_randint_split(TfKey k0, TfKey k1,
-                                                           uint64_t i,
-                                                           int64_t lo,
-                                                           int64_t hi) {
-  const uint64_t high = tf_bits64(k0, i);
-  const uint64_t low = tf_bits64(k1, i);
-  const uint64_t span = hi <= lo ? 1ull : (uint64_t)(hi - lo);
-  uint64_t mult = (1ull << 32) % span;
-  mult = (mult * mult) % span;
-  const uint64_t off = ((high % span) * mult + low % span) % span;
-  return lo + (int64_t)off;
+// A randint span d (1 <= d < 2^16) and its launch constants (sim/prng.py
+// span_consts): r32 = 2^32 mod d, mult = r32^2 mod d (= 2^64 mod d), and
+// magic = ceil(2^64 / d) mod 2^64 (0 for d = 1) for the remainder below.
+struct TfSpan {
+  uint64_t magic;
+  uint32_t d, r32, mult;
+};
+
+// x mod d for a u32 x, by one multiply and one high product (Lemire, Kaser
+// and Kurz, "Faster remainder by direct computation", 2019): exact for
+// every 32-bit x and d.
+static __device__ __forceinline__ uint32_t tf_mod32(uint32_t x,
+                                                    const TfSpan& s) {
+  return (uint32_t)__umul64hi(s.magic * x, (uint64_t)s.d);
 }
 
-static __device__ __forceinline__ int64_t tf_randint(TfKey k, uint64_t i,
-                                                     int64_t lo, int64_t hi) {
-  return tf_randint_split(tf_split(k, 0), tf_split(k, 1), i, lo, hi);
+// (hi * 2^32 + lo) mod d from the 32-bit halves.
+static __device__ __forceinline__ uint32_t tf_mod64(uint32_t hi, uint32_t lo,
+                                                    const TfSpan& s) {
+  return tf_mod32(tf_mod32(hi, s) * s.r32 + tf_mod32(lo, s), s);
+}
+
+// Element i of jax.random.randint(k, shape, 0, d) as int64, given k's
+// split(k)[0] and split(k)[1]: jax/_src/random.py _randint's
+// (high % d * (2^64 % d) + low % d) % d, each term below d^2 < 2^32.
+static __device__ __forceinline__ int tf_randint_split(TfKey k0, TfKey k1,
+                                                       uint64_t i,
+                                                       const TfSpan& s) {
+  const TfKey high = tf_hash(k0, i), low = tf_hash(k1, i);
+  return (int)tf_mod32(tf_mod64(high.a, high.b, s) * s.mult +
+                           tf_mod64(low.a, low.b, s),
+                       s);
+}
+
+static __device__ __forceinline__ int tf_randint(TfKey k, uint64_t i,
+                                                 const TfSpan& s) {
+  return tf_randint_split(tf_split(k, 0), tf_split(k, 1), i, s);
 }

@@ -28,17 +28,21 @@
 // registers; a gather by a runtime replica index is a select over R
 // (pick), never a dynamic register index.
 //
-// The draws: every thread draws the cluster's faults itself (identical
-// values: threefry is a pure function of the key), so no barrier is needed
-// to share them; within a warp that costs nothing extra.
+// The draws do not depend on the state: step t's faults come from the t-th
+// key of the cluster's key chain alone.  So vopr_step takes them drawn
+// (VoprFaults), and the kernels draw them where that is cheapest: K27 one
+// key a thread, K28 reads K27's, and K29 draws 32 steps at once, one step
+// a lane of one warp, into a ring in shared memory (vopr_run.cu).  The
+// draws use integers only (threefry.cuh): thresholds and span multipliers
+// the host computes once a launch (VoprDrawConsts).
 //
 // What bounds it on the H100: integer operations (the byte traffic of a
 // cluster is its few KB of state, read once and written once).  Per
 // cluster-step about 80 operations a threefry hash times 32 + 14R hashes,
-// plus the (r, donor, slot) checksum scan, R^2 S, and the R S element
-// phases (chip_smoke.py's vopr_ops counts them); against 132 SMs x 64
-// INT32 lanes x 1.98 GHz.  The design is latency-bound instead: a step is
-// a chain of dependent phases with ~10 barriers, and a cluster has only S
+// each done once, plus the (r, donor, slot) checksum scan, R^2 S, and the
+// R S element phases (chip_smoke.py's vopr_ops counts them); against 132
+// SMs x 64 INT32 lanes x 1.98 GHz.  The step itself is latency-bound: a
+// chain of dependent phases with ~10 barriers, and a cluster has only S
 // threads; the card is filled by running one block per cluster, thousands
 // at once.
 #pragma once
@@ -53,7 +57,8 @@
 // K29 carry __launch_bounds__(VOPR_MAX_S): 65,536 registers a block over
 // 256 threads leaves the compiler's own ceiling of 255 a thread, so the
 // bound changes no code, and a block of VOPR_MAX_S threads launches at
-// every R whatever registers the step takes.
+// every R whatever registers the step takes.  (K29's one-warp clusters
+// have their own, tighter bound: vopr_run.cu.)
 #define VOPR_MAX_S 256
 // K29 keeps the canonical list in shared memory up to this many ops.
 #define VOPR_SHARED_MAX_OPS 1024
@@ -93,9 +98,29 @@ enum VoprProb {
   P_REPARTITION, P_AMPUTATE, P_SDC, P_COUNT
 };
 
-struct VoprProbs {
-  double p[P_COUNT];
+// A launch's draw constants (sim/vopr_tpu.py draw_consts, in this order):
+// the Bernoulli threshold of each probability (threefry.cuh tf_bernoulli),
+// then the randint spans S (the slots), 4 (the partition mode) and R (the
+// lone replica).
+struct VoprDrawConsts {
+  uint64_t gate[P_COUNT];
+  TfSpan slot, mode, lone;
 };
+
+// From the host's u64 words: a threshold a probability, then (magic, d,
+// r32, mult) a span.  False when a span is not (S, 4, R).
+static inline bool vopr_draw_consts(const uint64_t* w, int R, int S,
+                                    VoprDrawConsts& c) {
+  for (int k = 0; k < P_COUNT; ++k) c.gate[k] = w[k];
+  TfSpan* spans[3] = {&c.slot, &c.mode, &c.lone};
+  const uint64_t want[3] = {(uint64_t)S, 4, (uint64_t)R};
+  for (int k = 0; k < 3; ++k) {
+    const uint64_t* x = w + P_COUNT + 4 * k;
+    if (x[1] != want[k]) return false;
+    *spans[k] = TfSpan{x[0], (uint32_t)x[1], (uint32_t)x[2], (uint32_t)x[3]};
+  }
+  return true;
+}
 
 // One cluster's draws.  Bit r of a mask is replica r; a slot outside
 // 0..S-1 (only from a caller's own faults) is -1, which no slot equals.
@@ -182,12 +207,12 @@ static __device__ __forceinline__ uint32_t vopr_entry(int view, int op) {
 }
 
 // ---------------------------------------------------------------------------
-// draw_faults (K27's device function; K29 calls it every step)
+// draw_faults (K27's device function; K29 calls it once a step, in a lane)
 // ---------------------------------------------------------------------------
 
 template <int R>
-static __device__ __forceinline__ VoprFaults vopr_draw(TfKey key, int S,
-                                                       const VoprProbs& p) {
+static __device__ __forceinline__ VoprFaults vopr_draw(TfKey key,
+                                                       const VoprDrawConsts& c) {
   // split(key, 10): crash, restart, cgate, cslot, part, append, link, vc,
   // sync, amp; split(k_part, 4): pm, pg, ps, pw; split(fold_in(key, 0x5DC)).
   const TfKey k_crash = tf_split(key, 0), k_restart = tf_split(key, 1),
@@ -201,28 +226,29 @@ static __device__ __forceinline__ VoprFaults vopr_draw(TfKey key, int S,
   const TfKey k_sdc_gate = tf_split(k_sdc, 0), k_sdc_slot = tf_split(k_sdc, 1);
   const TfKey sdc_s0 = tf_split(k_sdc_slot, 0), sdc_s1 = tf_split(k_sdc_slot, 1);
   const TfKey cs_s0 = tf_split(k_cslot, 0), cs_s1 = tf_split(k_cslot, 1);
+  const uint64_t* g = c.gate;
   VoprFaults f;
   f.sdc = f.crash = f.restart = f.corrupt_gate = f.amputate = 0;
   f.append = f.link = f.vc = f.sync = 0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const uint32_t b = 1u << r;
-    if (tf_bernoulli(k_sdc_gate, r, p.p[P_SDC])) f.sdc |= b;
-    if (tf_bernoulli(k_crash, r, p.p[P_CRASH])) f.crash |= b;
-    if (tf_bernoulli(k_restart, r, p.p[P_RESTART])) f.restart |= b;
-    if (tf_bernoulli(k_cgate, r, p.p[P_CORRUPT])) f.corrupt_gate |= b;
-    if (tf_bernoulli(k_amp, r, p.p[P_AMPUTATE])) f.amputate |= b;
-    if (tf_bernoulli(k_append, r, p.p[P_APPEND])) f.append |= b;
-    if (tf_bernoulli(k_link, r, p.p[P_LINK])) f.link |= b;
-    if (tf_bernoulli(k_vc, r, p.p[P_VIEW_CHANGE])) f.vc |= b;
-    if (tf_bernoulli(k_sync, r, 0.5)) f.sync |= b;
-    f.part_side[r] = tf_bernoulli(k_ps, r, 0.5) ? 1 : 0;
-    f.sdc_slot[r] = (int)tf_randint_split(sdc_s0, sdc_s1, r, 0, S);
-    f.corrupt_slot[r] = (int)tf_randint_split(cs_s0, cs_s1, r, 0, S);
+    if (tf_bernoulli(k_sdc_gate, r, g[P_SDC])) f.sdc |= b;
+    if (tf_bernoulli(k_crash, r, g[P_CRASH])) f.crash |= b;
+    if (tf_bernoulli(k_restart, r, g[P_RESTART])) f.restart |= b;
+    if (tf_bernoulli(k_cgate, r, g[P_CORRUPT])) f.corrupt_gate |= b;
+    if (tf_bernoulli(k_amp, r, g[P_AMPUTATE])) f.amputate |= b;
+    if (tf_bernoulli(k_append, r, g[P_APPEND])) f.append |= b;
+    if (tf_bernoulli(k_link, r, g[P_LINK])) f.link |= b;
+    if (tf_bernoulli(k_vc, r, g[P_VIEW_CHANGE])) f.vc |= b;
+    if (tf_bernoulli(k_sync, r, TF_HALF)) f.sync |= b;
+    f.part_side[r] = tf_bernoulli(k_ps, r, TF_HALF) ? 1 : 0;
+    f.sdc_slot[r] = tf_randint_split(sdc_s0, sdc_s1, r, c.slot);
+    f.corrupt_slot[r] = tf_randint_split(cs_s0, cs_s1, r, c.slot);
   }
-  f.repart = tf_bernoulli(k_pg, 0, p.p[P_REPARTITION]);
-  f.part_mode = (int)tf_randint(k_pm, 0, 0, 4);
-  f.part_lone = (int)tf_randint(k_pw, 0, 0, R);
+  f.repart = tf_bernoulli(k_pg, 0, g[P_REPARTITION]);
+  f.part_mode = tf_randint(k_pm, 0, c.mode);
+  f.part_lone = tf_randint(k_pw, 0, c.lone);
   return f;
 }
 

@@ -326,6 +326,7 @@ _SIGNATURES = {
     "tb_vopr_step": [_I64, _INT, _INT, _INT, _INT, _P, _P, _P, _P],
     "tb_vopr_run": [ctypes.c_uint32, ctypes.c_uint32, _U64, _I64, _INT,
                     _INT, _INT, _P, _INT, _P, _P, _P, _P],
+    "tb_vopr_run_info": [_INT, _INT, _INT, _INT, _P],
     "tb_shard_gather": [_INT, ctypes.POINTER(ctypes.c_int64), _I64, _INT,
                         _I64, _P, _P, _P, _INT, _P, _P, _I64, _P, _P,
                         _I64, _I64, _P, _P, _I64, _P, _INT, _P],
@@ -1753,12 +1754,11 @@ def group_words(base: torch.Tensor, count: int, ts0: int, bidx: torch.Tensor,
 VOPR_SHARED_MAX_OPS = 1024
 
 
-def _vopr_probs(probs: Sequence[float]):
+def _vopr_consts(R: int, S: int, probs: Sequence[float]):
     from ..sim import vopr_tpu as vt
 
-    if len(probs) != len(vt.PROBS):
-        raise ValueError(f"{len(vt.PROBS)} probabilities, in PROBS order")
-    return (ctypes.c_double * len(probs))(*[float(p) for p in probs])
+    words = vt.draw_consts(R, S, probs)
+    return (ctypes.c_uint64 * len(words))(*words)
 
 
 def _vopr_state_check(fields: Sequence[torch.Tensor], n: int, R: int, S: int,
@@ -1820,7 +1820,8 @@ def vopr_draw(keys: torch.Tensor, n_replicas: int, slots: int,
             name, torch.bool), device=dev)
     ptrs = _ptr_array([out[name] for name in vt.FAULT_FIELDS])
     err = lib.tb_vopr_draw(keys.data_ptr(), n, n_replicas, slots,
-                           _vopr_probs(probs), ptrs, _stream(keys))
+                           _vopr_consts(n_replicas, slots, probs), ptrs,
+                           _stream(keys))
     _raise_on(err, "vopr_draw")
     KERNELS["vopr_draw"].launches += 1
     return out
@@ -1882,13 +1883,34 @@ def vopr_run(seed_key: Tuple[int, int], start: int, count: int, n_steps: int,
         if final_state else None
     err = lib.tb_vopr_run(
         seed_key[0] & 0xFFFFFFFF, seed_key[1] & 0xFFFFFFFF, start & _M64,
-        count, n_steps, R, S, _vopr_probs(probs), bug, violated.data_ptr(),
+        count, n_steps, R, S, _vopr_consts(R, S, probs), bug,
+        violated.data_ptr(),
         _ptr_array(out) if out is not None else None,
         canon.data_ptr() if max_ops > VOPR_SHARED_MAX_OPS else None,
         _stream(violated))
     _raise_on(err, "vopr_run")
     KERNELS["vopr_run"].launches += 1
     return violated, out
+
+
+def vopr_run_info(n_replicas: int, slots: int,
+                  n_steps: int) -> Dict[str, int]:
+    """What the compiler and the card make of K29's launch at this shape:
+    registers and local memory a thread, shared memory, threads and blocks
+    resident on one SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    and the warps that makes, for a flags-only run.  Launches nothing."""
+    from ..sim import vopr_tpu as vt
+
+    vt._check_shape(n_replicas, slots)
+    lib = library()
+    out = (ctypes.c_int * 6)()
+    canon_global = n_steps + 2 > VOPR_SHARED_MAX_OPS
+    _raise_on(lib.tb_vopr_run_info(n_replicas, slots, n_steps,
+                                   int(canon_global), out), "vopr_run_info")
+    info = dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "threads", "dynamic_smem_bytes", "blocks_per_sm"), out))
+    info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
+    return info
 
 
 # -- K30 shard_gather, K31 shard_combine -------------------------------------------

@@ -35,6 +35,7 @@ modulo 2^32.  Results carry u32 words as int64 values in ``[0, 2^32)``.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -164,6 +165,31 @@ def bernoulli(key: torch.Tensor, p: float = 0.5, shape: Shape = ()):
     """``jax.random.bernoulli(key, p, shape)`` with a Python-float ``p``
     under x64: ``uniform(key, shape, float64) < p``."""
     return uniform(key, shape) < float(p)
+
+
+def bernoulli_threshold(p: float) -> int:
+    """The integer form of ``bernoulli``'s compare, for the kernels: with m
+    the top 52 bits of a 64-bit draw, ``m * 2**-52 < p`` exactly when ``m <
+    bernoulli_threshold(p)``, which is ``ceil(p * 2**52)`` clamped to [0,
+    2**52] (``p * 2**52`` is exact in float64; a NaN ``p`` never hits)."""
+    p = float(p)
+    if not p > 0.0:
+        return 0
+    if p >= 1.0:
+        return 1 << 52
+    return math.ceil(p * 2.0 ** 52)
+
+
+def span_consts(span: int) -> Tuple[int, int, int, int]:
+    """The launch constants of a randint span d in [1, 2^16) for the
+    kernels' division-free remainder (``csrc/threefry.cuh`` TfSpan):
+    (magic, d, r32, mult) with magic = ceil(2^64 / d) mod 2^64, r32 = 2^32
+    mod d and mult = r32^2 mod d = 2^64 mod d."""
+    d = int(span)
+    if not 1 <= d < 1 << 16:
+        raise ValueError("a kernel span is in [1, 2^16)")
+    r32 = (1 << 32) % d
+    return (((1 << 64) - 1) // d + 1) % (1 << 64), d, r32, r32 * r32 % d
 
 
 def _mod_u64(hi: torch.Tensor, lo: torch.Tensor, span: int) -> torch.Tensor:

@@ -32,7 +32,7 @@ them the functions raise, on either device.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +247,19 @@ def draw_faults_plain(keys: torch.Tensor, n_replicas: int, slots: int,
     out["part_lone"] = prng.randint_of_words(draw64(4 * R + 2, 1),
                                              draw64(4 * R + 3, 1), 0, R)[..., 0]
     return {name: out[name].contiguous() for name in FAULT_FIELDS}
+
+
+def draw_consts(n_replicas: int, slots: int, probs: Sequence[float]
+                ) -> Tuple[int, ...]:
+    """The kernels' draw constants (``csrc/vopr.cuh`` VoprDrawConsts) as
+    u64 words: the Bernoulli threshold of each of ``probs`` (in ``PROBS``
+    order), then the randint spans S, 4 and R (``prng.span_consts``)."""
+    if len(probs) != len(PROBS):
+        raise ValueError(f"{len(PROBS)} probabilities, in PROBS order")
+    words = [prng.bernoulli_threshold(p) for p in probs]
+    for span in (slots, 4, n_replicas):
+        words += prng.span_consts(span)
+    return tuple(words)
 
 
 def draw_faults(key: torch.Tensor, n_replicas: int, slots: int,
