@@ -8,7 +8,9 @@ Phases, each printing one JSON line:
   2. build    - builds the CUDA kernels from csrc/ (nvcc, sm_90a);
   3. kernels  - each kernel K1-K5 against its plain PyTorch version on the
                 same CUDA tensors at main-path shapes: outputs must be
-                byte-identical; times both; K4 also on carry-heavy balances
+                byte-identical; times both; K3's phases clocked
+                (tools/phase_clock.py, built beside the kernels) and its
+                accounts variant timed, the parent's times (PERF.md) beside; K4 also on carry-heavy balances
                 (a few units below 2^64), with every leg on one debit and
                 one credit account, and in its slot-base form over 2, 4 and
                 8 shards, and timed again on an accounts table of 2^21;
@@ -93,7 +95,11 @@ Phases, each printing one JSON line:
                 more matches than k and a rolled-back tail, and a 2^21-slot
                 log (K16's block-count scan over more than 1,024 blocks);
                 K13 and K14 timed at the main path's shapes, K13's one-launch
-                batch sort beside its chunks-and-K14-rounds form;
+                batch sort (one cluster a side: the launch's cluster, shared
+                memory and the clusters the card holds) beside its
+                chunks-and-K14-rounds form and one side of 1,024; K13's
+                phases clocked (tools/phase_clock.py) and the parent's time
+                (PERF.md) beside it;
  14. queries_parity - small, on the card: a default machine (the index
                 appended on the fast, general and sequential routes) against
                 the scalar oracle and a lazy_index machine: every filter
@@ -113,7 +119,8 @@ Phases, each printing one JSON line:
                 the rebuilt level (K13, K14), K15 over the whole pyramid and
                 K16 over the whole log, invalid lanes included; K15/K16
                 timed here, and K1 and K13-K16's launch counts read from
-                this phase;
+                this phase, with the entries K14's counted launches merge
+                (its bound over the path's carries);
  16. cold_kernels - K17 bloom_check, K18 evict_threshold, K19 evict_extract
                 and drop_evicted's K2 rebuild against their plain versions on
                 the card, byte for byte: filters of 2^20 and 2^28 bits (each
@@ -271,6 +278,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -283,6 +291,20 @@ H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def phase_clock():
+    """tools/phase_clock.py: K13's and K3's phases by %globaltimer, from a
+    build of their sources with TB_PHASE_CLOCK."""
+    import importlib.util
+
+    if "phase_clock" not in sys.modules:
+        path = Path(__file__).resolve().parent / "tools" / "phase_clock.py"
+        spec = importlib.util.spec_from_file_location("phase_clock", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["phase_clock"] = mod
+    return sys.modules["phase_clock"]
 
 
 def nvidia_smi() -> str:
@@ -502,16 +524,21 @@ def probe_steps(table_np_, lo, hi, cap, max_probe) -> int:
 
 class uncounted:
     """Launches made while a kernel is timed against its plain version do
-    not count toward the launches of the path being run."""
+    not count toward the launches of the path being run (``depth`` > 0
+    while one is open)."""
+
+    depth = 0
 
     def __enter__(self):
         from tigerbeetle_tpu_torch.ops import _cuda
 
         self.saved = _cuda.counts()
+        uncounted.depth += 1
 
     def __exit__(self, *exc):
         from tigerbeetle_tpu_torch.ops import _cuda
 
+        uncounted.depth -= 1
         for name, n in self.saved.items():
             _cuda.KERNELS[name].launches = n
 
@@ -703,6 +730,13 @@ def transfer_batch(rng, n, count, existing_ids, existing_hi, linked_all=False):
     return b
 
 
+# K3's and K13's times before their redesign onto the whole card, taken
+# beside the redesigned kernels in one call (PERF.md §6): printed in the
+# phase lines only.
+K3_PARENT_MS = {"transfers": 0.0762, "accounts": 0.0844}
+K13_PARENT_MS = {"both_sides_8192": 0.0592, "one_side_1024": 0.0274}
+
+
 def phase_kernels(seed: int, dev) -> dict:
     import torch
     from tigerbeetle_tpu_torch import convert, types
@@ -811,6 +845,11 @@ def phase_kernels(seed: int, dev) -> dict:
         shape=f"{LANES} lanes, transfers variant (timed); checked: accounts "
               "variant, timeout overflow, whole-batch linked chain",
         codes_seen=sorted(codes_seen),
+        accounts_ms=timed(lambda: sm.account_codes(asoa, alook.found,
+                                                   alook.cols, COUNT))["device_ms"],
+        phases_us=phase_clock().split(
+            "validate", lambda: sm.transfer_codes(tsoa, ctx, COUNT, batch_ts)),
+        parent_ms_perf_md=K3_PARENT_MS,
     )
 
     # -- K4 balance ----------------------------------------------------------
@@ -3154,7 +3193,16 @@ def phase_index_kernels(seed: int, dev) -> dict:
         full_build_2p20=dict(ms=full_ms["device_ms"], plain_ms=full_plain_ms["device_ms"],
                              call_ms=full_ms["call_ms"]),
         batch_forms=batch_forms,
+        launch=_cuda.run_sort_info(LANES),
+        phases_us=phase_clock().split(
+            "run_sort", lambda: _cuda.run_sort(sides, use, outs)),
+        one_side_1024_ms=timed(lambda: _cuda.run_sort(
+            [[c[:1024] for c in sides[0]]], use[:1024],
+            [[c[:1024] for c in outs[0]]]))["device_ms"],
+        parent_ms_perf_md=K13_PARENT_MS,
     )
+    if results["run_sort"]["launch"]["max_clusters"] < 2:
+        raise AssertionError(f"K13's cluster: {results['run_sort']['launch']}")
     del m, led
     gc.collect()
 
@@ -3548,15 +3596,10 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
     rebuild and the same queries; (b) the same transfers on HISTORY
     accounts (the general path appends a history row per transfer), then
     100 get_account_history.  Every answer is held against a numpy selection
-    over the table or log copied to the host."""
+    over the table or log copied to the host.  Also K14's bytes over the
+    phase's launches (``k14_over_path``)."""
     import torch
-    from tigerbeetle_tpu_torch import types
-    from tigerbeetle_tpu_torch.config import LedgerConfig
-    from tigerbeetle_tpu_torch.machine import TorchStateMachine
     from tigerbeetle_tpu_torch.ops import _cuda
-    from tigerbeetle_tpu_torch.ops import index as ix
-    from tigerbeetle_tpu_torch.ops import query as q
-    from tigerbeetle_tpu_torch.u128 import INT64_MIN
     from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
 
     rng = np.random.default_rng(15)
@@ -3634,6 +3677,51 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
+    # K14's work over the path: the entries each counted launch reads (and
+    # writes), for its bound over the path's carries.
+    merge_launch = _cuda._merge_launch
+    k14_entries = [0, 0]  # entries, launches
+
+    def counted_merge(cols, sizes, jobs, stream):
+        if uncounted.depth == 0:
+            for j in range(jobs):
+                la, lb, pairs = sizes[6 * j:6 * j + 3]
+                k14_entries[0] += (la + lb) * pairs
+            k14_entries[1] += 1
+        merge_launch(cols, sizes, jobs, stream)
+
+    _cuda._merge_launch = counted_merge
+    try:
+        _queries_body(out, run, dev, n_transfers, rng, flag_cycle)
+    finally:
+        _cuda._merge_launch = merge_launch
+    entries, launches = k14_entries
+    if launches != out["launches"]["run_merge"]:
+        raise AssertionError(f"K14's counted launches {launches} != "
+                             f"{out['launches']['run_merge']}")
+    # Each entry read once and written once, 40 B (five u64 columns).
+    per_launch = 80 * entries / launches if launches else 0.0
+    out["k14_over_path"] = dict(
+        launches=launches, entries_merged=entries,
+        bytes_per_launch=per_launch,
+        bound_ms_per_launch=bound(per_launch, 0)[0])
+    return out
+
+
+def _queries_body(out, run, dev, n_transfers, rng, flag_cycle):
+    """The queries phase's runs (a) and (b), their queries and the
+    rebuild, into ``out``."""
+    import torch
+    from tigerbeetle_tpu_torch import types
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import index as ix
+    from tigerbeetle_tpu_torch.ops import query as q
+    from tigerbeetle_tpu_torch.u128 import INT64_MIN
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    n_batches = out["batches"]
     # -- (a) -------------------------------------------------------------
     m = TorchStateMachine(LedgerConfig(), batch_lanes=LANES, device=dev)
     for start in range(0, N_ACCOUNTS, COUNT):
@@ -3977,7 +4065,6 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
     missing = [k for k in INDEX_PATH if out["launches"][k] == 0]
     if missing:
         raise AssertionError(f"queries: kernels not launched {missing}")
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6605,7 +6692,14 @@ def main() -> int:
           "cuda": torch.version.cuda})
     dev = torch.device("cuda")
 
-    emit({"phase": "build", "seconds": _cuda.build_seconds(),
+    # The kernels' library and the phase clock's build, nvcc all at once.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        clocked = pool.submit(phase_clock().library)
+        seconds = _cuda.build_seconds()
+        clocked.result()
+    emit({"phase": "build", "seconds": seconds,
           "library": str(_cuda.library_path().name)})
 
     t0 = time.perf_counter()

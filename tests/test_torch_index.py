@@ -20,6 +20,7 @@ from tigerbeetle_tpu.ops import state_machine as jsm
 from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch.ops import index as tix
 from tigerbeetle_tpu_torch.ops import scan_builder as tsb
+from tigerbeetle_tpu_torch.testing import k13cases
 
 CPU = torch.device("cpu")
 U64M = (1 << 64) - 1
@@ -301,3 +302,59 @@ def test_leaf_window_matches_jax(world, descending):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(convert.tensor_to_array(a),
                                           np.asarray(b))
+
+
+def _jax_sorted(cols, use, n_out):
+    """JAX's ``_sort_level`` of the run as the port's callers mask it:
+    sentinels where not ``use`` and in the padding up to ``n_out``."""
+    lvl = {}
+    for name, c in zip(tix.COLS, cols):
+        v = np.where(use, c, np.uint64(U64M))
+        lvl[name] = jnp.asarray(np.concatenate(
+            [v, np.full(n_out - len(v), U64M, np.uint64)]))
+    return jix._sort_level(lvl)
+
+
+@pytest.mark.parametrize("mode", k13cases.MODES)
+@pytest.mark.parametrize("n", k13cases.SIZES)
+def test_sort_split_form_matches_jax(n, mode):
+    """K13's own algorithm (chunks of 1,024 sorted, then merged by rank in
+    one step) in plain PyTorch against JAX's lexsort: every column, the
+    sentinels and the run length; equal keys across chunk boundaries keep
+    their input order."""
+    cols, use = k13cases.entries(n, mode)
+    got, run = tix._sort_split_plain(
+        [convert.array_to_tensor(c, CPU) for c in cols], torch.from_numpy(use), n)
+    assert run == n
+    want = _jax_sorted(cols, use, n)
+    for name in tix.COLS:
+        np.testing.assert_array_equal(convert.tensor_to_array(got[name]),
+                                      np.asarray(want[name]), err_msg=name)
+
+
+@pytest.mark.parametrize("n_in,n_out", k13cases.PADDED)
+def test_sort_split_form_of_a_padded_run_matches_jax(n_in, n_out):
+    """Entries past ``n_in`` up to ``n_out`` are sentinels; unfused, a run
+    of several chunks stays in sorted chunks of 1,024."""
+    cols, use = k13cases.entries(n_in, "ties", seed=1)
+    tcols = [convert.array_to_tensor(c, CPU) for c in cols]
+    got, run = tix._sort_split_plain(tcols, torch.from_numpy(use), n_out)
+    assert run == n_out
+    want = _jax_sorted(cols, use, n_out)
+    for name in tix.COLS:
+        np.testing.assert_array_equal(convert.tensor_to_array(got[name]),
+                                      np.asarray(want[name]), err_msg=name)
+    if n_out % 1024 == 0 and n_out > 1024:
+        chunks, run = tix._sort_split_plain(tcols, torch.from_numpy(use), n_out,
+                                            fused=False)
+        assert run == 1024
+        for k in range(0, n_out, 1024):
+            part = {name: jnp.asarray(np.concatenate(
+                [np.where(use, c, np.uint64(U64M)),
+                 np.full(n_out - n_in, U64M, np.uint64)])[k:k + 1024])
+                for name, c in zip(tix.COLS, cols)}
+            w = jix._sort_level(part)
+            for name in tix.COLS:
+                np.testing.assert_array_equal(
+                    convert.tensor_to_array(chunks[name][k:k + 1024]),
+                    np.asarray(w[name]), err_msg=f"{name} chunk {k}")

@@ -23,7 +23,8 @@ from tigerbeetle_tpu_torch.ops import query as q
 from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
-from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, k2cases, seqmix
+from tigerbeetle_tpu_torch.testing import (fullmix, fulltraps, k2cases, k3cases,
+                                           k13cases, seqmix)
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -752,6 +753,66 @@ def test_run_sort_and_merge_match_plain(cuda_device, n):
     levels_equal(got, ix._merge_plain(runs), "carry merge")
 
 
+@pytest.mark.parametrize("mode", k13cases.MODES)
+@pytest.mark.parametrize("n", k13cases.SIZES)
+def test_run_sort_cases_match_plain(cuda_device, n, mode):
+    """K13 at the cluster form's traps (one launch for both sides), byte
+    for byte against the plain lexsort and its own algorithm's plain
+    version: every column, the sorted run's length, one launch a call."""
+    cols, use = k13cases.entries(n, mode)
+    cpu = [convert.array_to_tensor(c, "cpu") for c in cols]
+    cpu2 = [c.flip(0).contiguous() for c in cpu]
+    use_t = torch.from_numpy(use)
+    outs = [[torch.empty(n, dtype=torch.int64, device=cuda_device)
+             for _ in range(5)] for _ in range(2)]
+    before = _cuda.KERNELS["run_sort"].launches
+    run = _cuda.run_sort([[c.to(cuda_device) for c in cpu],
+                          [c.to(cuda_device) for c in cpu2]],
+                         use_t.to(cuda_device), outs)
+    assert run == n and _cuda.KERNELS["run_sort"].launches == before + 1
+    for got, src in zip(outs, (cpu, cpu2)):
+        want = ix._sort_level_plain(ix._masked(src, use_t))
+        split, _run = ix._sort_split_plain(src, use_t, n)
+        levels_equal(ix.Level(torch.stack(got)), want, f"n={n} {mode}")
+        levels_equal(split, want, f"split n={n} {mode}")
+
+
+@pytest.mark.parametrize("n_in,n_out", k13cases.PADDED)
+def test_run_sort_padded_runs_match_plain(cuda_device, n_in, n_out):
+    """Entries past n_in are sentinels; fused and unfused forms."""
+    cols, use = k13cases.entries(n_in, "ties", seed=1)
+    cpu = [convert.array_to_tensor(c, "cpu") for c in cols]
+    use_t = torch.from_numpy(use)
+    want = ix._sort_level_plain(ix._masked(cpu, use_t, n_out))
+    dev = [c.to(cuda_device) for c in cpu]
+    for fused in (True, False):
+        got = ix._sort_masked([dev], use_t.to(cuda_device), n_out, fused=fused)
+        levels_equal(got[0], want, f"{n_in}->{n_out} fused={fused}")
+
+
+def test_run_sort_launch_is_one_cluster_and_allocates_nothing(cuda_device):
+    """A run of 1,025 to 8,192 entries is one cluster of a block a chunk
+    of 512, which the card can schedule (both sides at once), and the call
+    allocates no device memory; shorter and longer runs, and unfused ones,
+    take unclustered chunks of 1,024."""
+    for n in (1025, 2048, 4097, 8190, 8192):
+        info = _cuda.run_sort_info(n)
+        assert info["cluster"] == -(-n // ix.MERGE_CHUNK), (n, info)
+        assert info["max_clusters"] >= 2, (n, info)
+    for n, fused in ((1024, True), (8192, False), (1 << 15, True)):
+        assert _cuda.run_sort_info(n, fused)["cluster"] == 1
+    cols, use = k13cases.entries(8190, "random")
+    src = [convert.array_to_tensor(c, cuda_device) for c in cols]
+    use_t = torch.from_numpy(use).to(cuda_device)
+    outs = [[torch.empty(8190, dtype=torch.int64, device=cuda_device)
+             for _ in range(5)] for _ in range(2)]
+    _cuda.run_sort([src, src], use_t, outs)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _cuda.run_sort([src, src], use_t, outs)
+    assert torch.cuda.memory_allocated() == before
+
+
 def index_machine(dev, lanes=128, batches=9, history=False):
     """A port machine (on ``dev``) after plain batches, so its transfer index
     holds several levels; with ``history``, HISTORY accounts on the
@@ -1287,6 +1348,115 @@ def test_group_graph_replay_matches_eager_and_plain(cuda_device, k):
             for c in want[name]["cols"]:
                 np.testing.assert_array_equal(got[name]["cols"][c],
                                               want[name]["cols"][c])
+
+
+def test_group_graph_k3_chains_and_duplicates_across_blocks(cuda_device):
+    """The grouped commit's graph captures K3's cooperative launch: a
+    replay over batches whose linked chains and duplicate ids cross K3's
+    blocks of 128 lanes (one with a failing member) gives the eager steps'
+    and the plain loop's codes and ledger."""
+    from tigerbeetle_tpu_torch.ops import group
+
+    m = _group_ledger(cuda_device, np.random.default_rng(31))
+    layout = group.StagingLayout(group.GROUP_K, 256)
+    buf = torch.zeros(layout.nbytes, dtype=torch.uint8)
+    cols, cw, tw = layout.arrays(buf.numpy())
+    ts = 10 ** 9
+    for j, n in enumerate((256, 256, 200)):
+        lane = np.arange(n)
+        cols["id_lo"][j, :n] = 5000 + 1000 * j + lane
+        cols["debit_account_id_lo"][j, :n] = 1 + lane % 16
+        cols["credit_account_id_lo"][j, :n] = 1 + (lane + 3) % 16
+        cols["amount_lo"][j, :n] = 1 + lane % 7
+        cols["ledger"][j, :n], cols["code"][j, :n] = 1, 10
+        ts += n
+        cw[j], tw[j] = n, ts
+    tw[3:] = ts
+    b = sm.VALIDATE_BLOCK
+    cols["flags"][0, b - 10:b + 20] = 1          # a chain over the boundary
+    cols["amount_lo"][0, b + 15] = 0             # that fails in block 1
+    cols["flags"][0, 200:255] = 1                # and one that holds
+    cols["id_lo"][1, [3, b - 1, b, 2 * b - 2]] = 4242  # duplicates
+    cols["flags"][2, 150:200] = 1                # open at the batch's end
+    counts, tss = [int(c) for c in cw], [int(t) for t in tw]
+    base = convert.ledger_to_numpy(m.ledger)
+    graph = group.GroupGraph(convert.ledger_from_numpy(base, cuda_device),
+                             group.GROUP_K, 256)
+    codes_g, _ovf, _lo, _hi = graph.run(buf.pin_memory())
+    eager = convert.ledger_from_numpy(base, cuda_device)
+    codes_e = group.group_dispatch_steps(
+        eager, layout.tensors(buf.to(cuda_device))[0], counts, tss)[1]
+    plain = convert.ledger_from_numpy(base, torch.device("cpu"))
+    codes_p = group.group_dispatch_steps(
+        plain, layout.tensors(buf.clone())[0], counts, tss)[1]
+    assert torch.equal(codes_g.cpu(), codes_e.cpu())
+    assert torch.equal(codes_g.cpu(), codes_p)
+    got = codes_p.numpy()
+    assert set(got[0, b - 10:b + 20].tolist()) == {1, 18}
+    assert (got[1, [b - 1, b, 2 * b - 2]] != 0).all()
+    assert set(got[2, 150:200].tolist()) == {1, 2}
+    want = convert.ledger_to_numpy(plain)
+    have = convert.ledger_to_numpy(graph._ledger)
+    for name in ("accounts", "transfers"):
+        for key in ("key_lo", "key_hi", "count"):
+            np.testing.assert_array_equal(have[name][key], want[name][key])
+
+
+@pytest.mark.parametrize("case", k3cases.CASES)
+@pytest.mark.parametrize("n", [512, 8192])
+def test_validate_cases_match_plain(cuda_device, case, n):
+    """K3 at its grid-wide form's traps (duplicates and chains across its
+    blocks, a chain as long as the batch, a linked last lane, a count
+    below the lanes), byte for byte against the plain version and its own
+    algorithm's plain version on the CPU: codes and ok."""
+    batch, ctx, count, ts = k3cases.transfer_case(case, n)
+
+    def on(dev):
+        t = lambda a: convert.array_to_tensor(a, dev)  # noqa: E731
+        zero = torch.zeros(n, dtype=torch.int64, device=dev)
+        return (convert.soa_to_tensors(batch, dev), sm.TransferCtx(
+            t(ctx["dr_found"]), t(ctx["cr_found"]), zero, zero,
+            {"ledger": t(ctx["dr_ledger"])}, {"ledger": t(ctx["cr_ledger"])},
+            t(ctx["ex_found"]), {k: t(v) for k, v in ctx["e"].items()}))
+
+    kc, ko = sm.transfer_codes(*on(cuda_device), count, ts)
+    for fn in (sm.transfer_codes_plain, sm.transfer_codes_split_plain):
+        pc, po = fn(*on("cpu"), count, ts)
+        assert torch.equal(kc.cpu(), pc) and torch.equal(ko.cpu(), po), fn
+    batch, found, e, count = k3cases.account_case(case, n)
+    args = [(convert.soa_to_tensors(batch, d), torch.from_numpy(found).to(d),
+             convert.soa_to_tensors(e, d)) for d in (cuda_device, "cpu")]
+    kc, ko = sm.account_codes(*args[0], count)
+    for fn in (sm.account_codes_plain, sm.account_codes_split_plain):
+        pc, po = fn(*args[1], count)
+        assert torch.equal(kc.cpu(), pc) and torch.equal(ko.cpu(), po), fn
+
+
+def test_validate_refuses_a_launch_the_card_cannot_hold(cuda_device):
+    """K3's batch-wide steps wait at grid barriers, so its blocks must all
+    be resident: a cooperative launch of more blocks than the card holds
+    raises CudaKernelError and launches nothing, rather than running in
+    some other form."""
+    batch, ctx, count, ts = k3cases.transfer_case("random", 8192)
+    t = lambda a: convert.array_to_tensor(a, cuda_device)  # noqa: E731
+    soa = convert.soa_to_tensors(batch, cuda_device)
+    cols = ([soa[c] for c in sm.TRANSFER_BATCH_COLS]
+            + [t(ctx[c]) for c in sm.TRANSFER_CTX_COLS]
+            + [t(ctx["e"][c]) for c in sm.TRANSFER_EXISTS_COLS])
+    before = _cuda.KERNELS["validate"].launches
+    with pytest.raises(_cuda.CudaKernelError, match="validate failed"):
+        _cuda.validate("transfers", cols, count, ts, blocks=10_000)
+    assert _cuda.KERNELS["validate"].launches == before
+    codes, ok = _cuda.validate("transfers", cols, count, ts, blocks=64)
+    pc, po = sm.transfer_codes_plain(
+        convert.soa_to_tensors(batch, "cpu"), sm.TransferCtx(
+            *(convert.array_to_tensor(ctx[c], "cpu") for c in ("dr_found", "cr_found")),
+            None, None, {"ledger": convert.array_to_tensor(ctx["dr_ledger"], "cpu")},
+            {"ledger": convert.array_to_tensor(ctx["cr_ledger"], "cpu")},
+            convert.array_to_tensor(ctx["ex_found"], "cpu"),
+            {k: convert.array_to_tensor(v, "cpu") for k, v in ctx["e"].items()}),
+        count, ts)
+    assert torch.equal(codes.cpu(), pc) and torch.equal(ok.cpu(), po)
 
 
 def test_group_graph_k2_scratch_is_batch_sized(cuda_device):

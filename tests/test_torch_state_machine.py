@@ -18,6 +18,7 @@ from tigerbeetle_tpu.testing.workload import WorkloadGen
 from tigerbeetle_tpu.types import AccountFlags, TransferFlags as F
 from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch.ops import state_machine as tsm
+from tigerbeetle_tpu_torch.testing import k3cases
 
 LANES = 256
 CPU = torch.device("cpu")
@@ -346,3 +347,54 @@ def test_balance_plan_carries_and_hot_account_match_jax(case):
     hi = convert.tensor_to_array(tt.cols["debits_posted_hi"])
     assert int((hi != cols["debits_posted_hi"]).sum()) >= (
         1 if case == "hot" else 100)
+
+
+def _jax_transfer_codes(batch, ctx, count, ts):
+    j = {k: jnp.asarray(v) for k, v in batch.items()}
+    n = len(batch["id_lo"])
+    jctx = jsm.TransferCtx(
+        jnp.asarray(ctx["dr_found"]), jnp.asarray(ctx["cr_found"]),
+        jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32),
+        {"ledger": jnp.asarray(ctx["dr_ledger"])},
+        {"ledger": jnp.asarray(ctx["cr_ledger"])},
+        jnp.asarray(ctx["ex_found"]),
+        {k: jnp.asarray(v) for k, v in ctx["e"].items()})
+    codes, ok = jsm.transfer_codes(j, jctx, jnp.uint64(count), jnp.uint64(ts))[:2]
+    return np.asarray(codes), np.asarray(ok)
+
+
+def _torch_ctx(ctx):
+    t = lambda a: convert.array_to_tensor(a, CPU)  # noqa: E731
+    n = len(ctx["dr_found"])
+    return tsm.TransferCtx(
+        t(ctx["dr_found"]), t(ctx["cr_found"]),
+        torch.zeros(n, dtype=torch.int64), torch.zeros(n, dtype=torch.int64),
+        {"ledger": t(ctx["dr_ledger"])}, {"ledger": t(ctx["cr_ledger"])},
+        t(ctx["ex_found"]), {k: t(v) for k, v in ctx["e"].items()})
+
+
+@pytest.mark.parametrize("case", k3cases.CASES)
+def test_validate_split_form_matches_jax(case):
+    """K3's own steps (per lane, then the batch-wide steps after grid
+    barriers, chain starts by a two-level scan over blocks of 128 lanes) in
+    plain PyTorch against JAX's transfer_codes and account_codes on
+    batches that put duplicates and chains across the blocks' boundaries:
+    codes and ok, every lane."""
+    batch, ctx, count, ts = k3cases.transfer_case(case)
+    want_c, want_ok = _jax_transfer_codes(batch, ctx, count, ts)
+    tb = convert.soa_to_tensors(batch, CPU)
+    for fn in (tsm.transfer_codes_split_plain, tsm.transfer_codes_plain):
+        codes, ok = fn(tb, _torch_ctx(ctx), count, ts)
+        np.testing.assert_array_equal(convert.tensor_to_array(codes), want_c)
+        np.testing.assert_array_equal(ok.numpy(), want_ok)
+    batch, found, e, count = k3cases.account_case(case)
+    jc, jok = jsm.account_codes(
+        {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(found),
+        {k: jnp.asarray(v) for k, v in e.items()}, jnp.uint64(count))
+    codes, ok = tsm.account_codes_split_plain(
+        convert.soa_to_tensors(batch, CPU), torch.from_numpy(found),
+        convert.soa_to_tensors(e, CPU), count)
+    np.testing.assert_array_equal(convert.tensor_to_array(codes), np.asarray(jc))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    if case != "random":
+        assert len(set(convert.tensor_to_array(codes).tolist())) > 1

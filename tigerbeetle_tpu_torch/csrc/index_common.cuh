@@ -28,8 +28,7 @@ static __device__ __forceinline__ IxKey ix_load(const uint64_t* const* c,
 // The merge-path split of diagonal d: how many of the first d outputs of
 // the stable merge of sorted A (la entries) and B (lb) come from A, A first
 // on equal keys.  `b_less_a(i, j)` is true when B[j] sorts strictly before
-// A[i].  K13's in-launch merge and K14 take their block and thread splits
-// from it.
+// A[i].  K14 takes its block and thread splits from it.
 template <class Int, class BLessA>
 static __device__ __forceinline__ Int merge_split(Int la, Int lb, Int d,
                                                   BLessA b_less_a) {

@@ -272,9 +272,10 @@ _SIGNATURES = {
                  _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
     "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
                   _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
-    "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _P],
+    "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _I64,
+                             _P],
     "tb_validate_transfers": [_INT, _P, _I64, _I64, ctypes.c_uint64,
-                              _P, _P, _P, _P, _P, _I64, _P],
+                              _P, _P, _P, _P, _P, _I64, _I64, _P],
     "tb_balance": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P],
     "tb_digest": [_P, _P, _P, _I64, _P, _P],
     "tb_seq_prepass": [_P, _INT, _P, _INT, _I64, _P, _INT, _I64,
@@ -299,8 +300,9 @@ _SIGNATURES = {
     "tb_full_pass": [_P, _INT, _INT, _INT, _I64, _I64, ctypes.c_uint64,
                      _INT, _INT, _INT, _I64, _P],
     "tb_full_hist": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
-    "tb_run_sort": [_P, _P, _INT, _P, _I64, _I64, _P,
+    "tb_run_sort": [_P, _P, _INT, _P, _I64, _I64, _INT,
                     ctypes.POINTER(ctypes.c_int64), _P],
+    "tb_run_sort_info": [_I64, _INT] + [ctypes.POINTER(ctypes.c_int)] * 3,
     "tb_run_merge": [_P, _P, _INT, _P],
     "tb_index_window": [_P, _P, _INT, _U64, _U64, _U64, _U64, _I64, _INT,
                         _P, _P, _P, _P],
@@ -589,13 +591,15 @@ def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
              count_word: Optional[torch.Tensor] = None,
              ts_word: Optional[torch.Tensor] = None,
              out: Optional[Tuple[torch.Tensor, ...]] = None,
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             blocks: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K3 (``variant`` "accounts" or "transfers"): (codes int32[N],
     ok bool[N]).  ``columns`` follow the order of the kernel's column enum
     (state_machine's ``*_COLS`` tuples).  For transfers, ``count_word`` and
     ``ts_word`` (u64 device words, given together) replace ``count`` and
     ``batch_timestamp``; ``out``, preallocated (codes, ok, scratch
-    int32[2 * hash_size(n) + 3 * n]), serves a captured graph."""
+    int32[2 * hash_size(n) + 3 * n]), serves a captured graph.  ``blocks``
+    sets the cooperative launch's blocks (0: one a 128 lanes, at most what
+    the card holds at once; more than that raises)."""
     lib = library()
     n = columns[0].numel()
     for k, c in enumerate(columns):
@@ -625,14 +629,15 @@ def validate(variant: str, columns: Sequence[torch.Tensor], count: int,
     if variant == "accounts":
         err = lib.tb_validate_accounts(
             len(columns), ptrs, n, count, codes.data_ptr(), ok.data_ptr(),
-            scratch.data_ptr(), hsize, stream,
+            scratch.data_ptr(), hsize, blocks, stream,
         )
     elif variant == "transfers":
         err = lib.tb_validate_transfers(
             len(columns), ptrs, n, count, batch_timestamp & ((1 << 64) - 1),
             None if count_word is None else count_word.data_ptr(),
             None if ts_word is None else ts_word.data_ptr(),
-            codes.data_ptr(), ok.data_ptr(), scratch.data_ptr(), hsize, stream,
+            codes.data_ptr(), ok.data_ptr(), scratch.data_ptr(), hsize,
+            blocks, stream,
         )
     else:
         raise ValueError(f"unknown validate variant {variant!r}")
@@ -1241,7 +1246,8 @@ def run_sort(jobs: Sequence[Sequence[torch.Tensor]],
     into ``outs`` (n_out >= n_in entries each): whole up to 8,192 entries
     (unless ``fused`` is False), else (n_out a multiple of 1,024) in sorted
     chunks of 1,024 for K14 to merge.  Returns the length of the sorted
-    runs written."""
+    runs written.  A whole run is one cluster of a block a chunk, merged
+    by rank in shared memory: nothing is allocated here."""
     lib = library()
     n_in = jobs[0][0].numel()
     n_out = outs[0][0].numel()
@@ -1257,21 +1263,28 @@ def run_sort(jobs: Sequence[Sequence[torch.Tensor]],
         raise ValueError(f"run_sort: {n_in} entries into {n_out}")
     if (n_out > SORT_RUN_MAX or not fused) and n_out > 1024 and n_out % 1024:
         raise ValueError(f"run_sort: {n_out} entries is not a multiple of 1,024")
-    run = 1 << max(1, (n_out - 1).bit_length())
-    scratch = None
-    if fused and 1024 < n_out <= SORT_RUN_MAX:
-        scratch = torch.empty(len(jobs) * 8 * run, dtype=torch.int64,
-                              device=outs[0][0].device)
     sorted_run = ctypes.c_int64(0)
     err = lib.tb_run_sort(
         _ptr_array([c for cols in jobs for c in cols]),
         _ptr_array([c for cols in outs for c in cols]), len(jobs),
-        None if use is None else use.data_ptr(), n_in, n_out,
-        None if scratch is None else scratch.data_ptr(),
+        None if use is None else use.data_ptr(), n_in, n_out, int(fused),
         ctypes.byref(sorted_run), _stream(outs[0][0]))
     _raise_on(err, "run_sort")
     KERNELS["run_sort"].launches += 1
     return sorted_run.value
+
+
+def run_sort_info(n_out: int, fused: bool = True) -> Dict[str, int]:
+    """The launch K13 takes for a run of ``n_out`` entries: ``cluster``
+    blocks a cluster (1: the chunks are not merged), ``smem`` bytes of
+    shared memory a block, and ``max_clusters`` the card holds at once
+    (0 would mean the launch cannot be scheduled)."""
+    cluster, smem, most = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = library().tb_run_sort_info(n_out, int(fused), ctypes.byref(cluster),
+                                     ctypes.byref(smem), ctypes.byref(most))
+    _raise_on(err, "run_sort")
+    return {"cluster": cluster.value, "smem": smem.value,
+            "max_clusters": most.value}
 
 
 def _merge_launch(cols: List[torch.Tensor], sizes: List[int], jobs: int,

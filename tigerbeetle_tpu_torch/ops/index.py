@@ -83,6 +83,66 @@ def _sort_level_plain(lvl: Dict[str, torch.Tensor]) -> Level:
     return Level(torch.stack([lvl[name][order] for name in COLS]))
 
 
+SORT_CHUNK = 1024  # csrc/index_sort.cu: a sorted chunk K14 merges
+MERGE_CHUNK = 512  # csrc/index_sort.cu: a chunk of a run K13 sorts whole
+
+
+def _sort_split_plain(cols: Sequence[torch.Tensor],
+                      use: Optional[torch.Tensor], n_out: int,
+                      fused: bool = True) -> Tuple[Level, int]:
+    """Kernel K13's own steps in plain PyTorch: (the sorted run or sorted
+    chunks, the sorted runs' length).  A run of 1,025 to 8,192 entries
+    (when ``fused``) is cut into chunks of 512, each sorted by (key,
+    position), then merged by rank: an entry's output position is its index
+    in its chunk, plus the count of keys <= its key in every earlier chunk
+    and of keys < its key in every later chunk, each count a fixed-step
+    binary search.  Otherwise the run is sorted in chunks of 1,024.  The
+    padding of the last chunk (past ``n_out``) sorts last and is not
+    written."""
+    if use is None:
+        use = torch.ones_like(cols[0], dtype=torch.bool)
+    lvl = _masked(cols, use, n_out)
+    dev = lvl["ts"].device
+    merge = fused and SORT_CHUNK < n_out <= _cuda.SORT_RUN_MAX
+    size = MERGE_CHUNK if merge else SORT_CHUNK
+    chunks = -(-n_out // size)
+    if chunks > 1 and not merge and n_out % size:
+        raise ValueError(f"{n_out} entries is not a multiple of 1,024")
+    total = chunks * size
+    padded = {}
+    for name in ("acct_hi", "acct_lo", "ts"):
+        padded[name] = torch.full((total,), _M, dtype=torch.int64, device=dev)
+        padded[name][:n_out] = lvl[name]
+    order = torch.cat([
+        _lexsort_plain({k: v[c:c + size] for k, v in padded.items()}) + c
+        for c in range(0, total, size)])
+    if not merge:
+        run = n_out if chunks == 1 else size
+        return Level(torch.stack([lvl[c][order[:n_out]] for c in COLS])), run
+    # Each chunk sorted, in unsigned order as signed.
+    hi, lo, ts = (padded[k][order] ^ INT64_MIN for k in ("acct_hi", "acct_lo", "ts"))
+    own = torch.arange(total, device=dev) // size
+    rank = torch.arange(total, device=dev) % size
+    for d in range(chunks):
+        length = min(size, n_out - d * size)
+        le = own > d  # d is an earlier chunk: keys <= count
+        n = torch.zeros(total, dtype=torch.int64, device=dev)
+        step = size
+        while step:
+            p = n + step - 1
+            at = d * size + p.clamp(max=length - 1)
+            before = (hi[at] < hi) | ((hi[at] == hi) & (
+                (lo[at] < lo) | ((lo[at] == lo) & (
+                    (ts[at] < ts) | (le & (ts[at] == ts))))))
+            n = torch.where((p < length) & before, n + step, n)
+            step >>= 1
+        rank += torch.where(own == d, torch.zeros_like(n), n)
+    real = torch.arange(total, device=dev) % size < n_out - own * size
+    final = torch.empty(n_out, dtype=torch.int64, device=dev)
+    final[rank[real]] = order[real]
+    return Level(torch.stack([lvl[c][final] for c in COLS])), n_out
+
+
 def _sort_level(lvl: Dict[str, torch.Tensor]) -> Level:
     """The level's entries in (acct_hi, acct_lo, ts) order, stable."""
     if lvl["ts"].is_cuda:

@@ -145,6 +145,8 @@ BALANCE_FIELDS = (
 )
 BALANCE_COLS = tuple(f + s for f in BALANCE_FIELDS for s in ("_lo", "_hi"))
 
+VALIDATE_BLOCK = 128  # csrc/validate.cu VALIDATE_THREADS: K3's lanes a block
+
 # Column orders of kernel K3 (csrc/validate.cu's AccountCol/TransferCol
 # enums; tests compare the names).
 ACCOUNT_BATCH_COLS = (
@@ -395,12 +397,25 @@ def account_codes(
 
 def account_codes_plain(batch, found, e, count):
     """Plain PyTorch version of kernel K3, accounts variant."""
+    return _resolve(batch, _account_standalone(batch, found, e),
+                    _exists_ladder_accounts, AF_LINKED, count)
+
+
+def account_codes_split_plain(batch, found, e, count,
+                              block: int = VALIDATE_BLOCK):
+    """Kernel K3's own steps (accounts), in plain PyTorch: the same codes
+    as ``account_codes_plain``."""
+    return _resolve_split(batch, _account_standalone(batch, found, e),
+                          _exists_ladder_accounts, AF_LINKED, count, block)
+
+
+def _account_standalone(batch, found, e):
+    """Each lane's standalone ladder merged with the exists ladder where the
+    id was found (kernel K3's phase 1, accounts)."""
     n = batch["id_lo"].shape[0]
     dev = found.device
-    valid = _valid(n, count, dev)
     bid = _u128_col(batch, "id")
     flags = batch["flags"]
-    linked = ((flags & AF_LINKED) != 0) & valid
 
     exists_code = _exists_ladder_accounts(batch, e, n)
     standalone = _min_code(
@@ -419,19 +434,83 @@ def account_codes_plain(batch, found, e, count):
         (batch["ledger"] == 0, 13),
         (batch["code"] == 0, 14),
     )
-    standalone = _merge_code(
+    return _merge_code(
         standalone, torch.where(found, exists_code, torch.zeros_like(exists_code))
     )
 
+
+def _resolve(batch, standalone, ladder, linked_flag, count):
+    """Duplicates against their winners, then the chains (the plain
+    route: ids grouped by ``torch.unique``, chains by a cumulative sum)."""
+    n = standalone.shape[0]
+    valid = _valid(n, count, standalone.device)
+    bid = _u128_col(batch, "id")
+    linked = ((batch["flags"] & linked_flag) != 0) & valid
     dup = _resolve_duplicates(bid.lo, bid.hi, standalone == 0, valid)
     w = dup.winner_lane.clamp(0, n - 1)
-    intra = _exists_ladder_accounts(batch, {k: v[w] for k, v in batch.items()}, n)
+    intra = ladder(batch, {k: v[w] for k, v in batch.items()}, n)
     codes = torch.where(
         dup.after_winner, torch.where(standalone == 0, intra, standalone),
         standalone,
     )
     codes = _chain_codes(linked, codes, count)
     return codes, (codes == 0) & valid
+
+
+def _resolve_split(batch, standalone, ladder, linked_flag, count, block):
+    """``_resolve`` as kernel K3 runs it over blocks of ``block`` lanes:
+    (1) each id group's winner, the first code-0 lane below the count;
+    (2) a later code-0 lane of a group takes the exists ladder against its
+    winner, a linked batch-final lane takes 2, and each block records its
+    last chain start; (3) a lane's chain start is the last start before its
+    block (the blocks' summaries) or in it, and each chain's first failure
+    its least failing lane (a minimum by chain start); (4) the rollback."""
+    n = standalone.shape[0]
+    dev = standalone.device
+    lane = torch.arange(n, device=dev)
+    valid = lane < count
+    flags = batch["flags"]
+    linked = ((flags & linked_flag) != 0) & valid
+    prev_linked = torch.zeros_like(linked)
+    prev_linked[1:] = linked[:-1]
+    # (1) The kernel groups lanes in a batch hash table; any grouping by id
+    # gives the same groups.
+    _, grp = torch.unique(torch.stack([batch["id_hi"], batch["id_lo"]], 1),
+                          dim=0, return_inverse=True)
+    win = torch.full((n,), n, dtype=torch.int64, device=dev)
+    win.scatter_reduce_(0, grp, torch.where((standalone == 0) & valid, lane,
+                                            torch.full_like(lane, n)), "amin")
+    w = win[grp]
+    # (2)
+    later = (w < n) & (lane > w) & (standalone == 0)
+    intra = ladder(batch, {k: v[w.clamp(max=n - 1)] for k, v in batch.items()},
+                   n)
+    codes = torch.where(later, intra, standalone)
+    codes = torch.where((lane == count - 1) & linked,
+                        torch.full_like(codes, 2), codes)
+    starts = torch.where(linked & ~prev_linked, lane, torch.full_like(lane, -1))
+    blocks = -(-n // block)
+    padded = torch.full((blocks * block,), -1, dtype=torch.int64, device=dev)
+    padded[:n] = starts
+    within = torch.cummax(padded.view(blocks, block), 1).values
+    summary = within[:, -1]
+    before = torch.full((blocks,), -1, dtype=torch.int64, device=dev)
+    if blocks > 1:
+        before[1:] = torch.cummax(summary[:-1], 0).values
+    # (3)
+    cstart = torch.maximum(within, before[:, None]).reshape(-1)[:n]
+    in_chain = linked | prev_linked
+    fail = torch.full((n,), n, dtype=torch.int64, device=dev)
+    failing = in_chain & (codes != 0)
+    fail.scatter_reduce_(0, cstart.clamp(min=0)[failing], lane[failing], "amin")
+    # (4)
+    f = fail[cstart.clamp(min=0)]
+    after = torch.where((lane == count - 1) & linked, torch.full_like(codes, 2),
+                        torch.ones_like(codes))
+    rolled = torch.where(lane < f, torch.ones_like(codes),
+                         torch.where(lane == f, codes, after))
+    out = torch.where(in_chain & (f < n), rolled, codes)
+    return out, (out == 0) & valid
 
 
 def account_rows(
@@ -531,6 +610,22 @@ def transfer_codes(
 
 def transfer_codes_plain(batch, ctx, count, timestamp):
     """Plain PyTorch version of kernel K3, transfers variant."""
+    return _resolve(batch, _transfer_standalone(batch, ctx, count, timestamp),
+                    _exists_ladder_transfers, TF_LINKED, count)
+
+
+def transfer_codes_split_plain(batch, ctx, count, timestamp,
+                               block: int = VALIDATE_BLOCK):
+    """Kernel K3's own steps (transfers), in plain PyTorch: the same codes
+    as ``transfer_codes_plain``."""
+    return _resolve_split(
+        batch, _transfer_standalone(batch, ctx, count, timestamp),
+        _exists_ladder_transfers, TF_LINKED, count, block)
+
+
+def _transfer_standalone(batch, ctx, count, timestamp):
+    """Each lane's standalone ladder merged with the exists ladder where the
+    id was found (kernel K3's phase 1, transfers)."""
     n = batch["id_lo"].shape[0]
     dev = ctx.dr_found.device
     valid = _valid(n, count, dev)
@@ -538,7 +633,6 @@ def transfer_codes_plain(batch, ctx, count, timestamp):
     dr_id = _u128_col(batch, "debit_account_id")
     cr_id = _u128_col(batch, "credit_account_id")
     flags = batch["flags"]
-    linked = ((flags & TF_LINKED) != 0) & valid
     pending = (flags & TF_PENDING) != 0
 
     ts = _timestamps(count, timestamp, n, dev)
@@ -572,20 +666,10 @@ def transfer_codes_plain(batch, ctx, count, timestamp):
         (both & (batch["ledger"] != ctx.dr["ledger"]), 24),
         (timeout_overflow, 53),
     )
-    standalone = _merge_code(
+    return _merge_code(
         standalone,
         torch.where(ctx.ex_found, exists_code, torch.zeros_like(exists_code)),
     )
-
-    dup = _resolve_duplicates(tid.lo, tid.hi, standalone == 0, valid)
-    w = dup.winner_lane.clamp(0, n - 1)
-    intra = _exists_ladder_transfers(batch, {k: v[w] for k, v in batch.items()}, n)
-    codes = torch.where(
-        dup.after_winner, torch.where(standalone == 0, intra, standalone),
-        standalone,
-    )
-    codes = _chain_codes(linked, codes, count)
-    return codes, (codes == 0) & valid
 
 
 class BalancePlan(NamedTuple):

@@ -1,0 +1,139 @@
+"""Where K13 run_sort's and K3 validate's time goes, by phase, on the card.
+
+Builds csrc/index_sort.cu and csrc/validate.cu (with probe.cu, for the
+error strings) with TB_PHASE_CLOCK defined into build/phase_clock/: thread
+0 of each block (the first 64) stores %globaltimer at each of the kernel's
+phase marks (csrc/phase_clock.cuh).  ``split(kernel, fn)`` runs ``fn``
+(a call that launches the kernel once through its wrapper) on that library
+and returns the marks' times since the launch's first block started,
+averaged over the blocks, median of five launches after two; chip_smoke.py's
+kernels and index_kernels phases print it at the main path's shapes.  From
+the repository root on a machine with a CUDA card, for a flagship-shaped
+batch (both sides of 8,192 index entries) and K3 on 8,192 lanes:
+
+    python tools/phase_clock.py
+"""
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from tigerbeetle_tpu_torch.ops import _cuda  # noqa: E402
+
+# The marks of each kernel, in order (csrc/index_sort.cu, csrc/validate.cu).
+MARKS = {
+    "run_sort": ("start", "network", "cluster_barrier", "copies", "end"),
+    "validate": ("start", "cleared", "ladders_ids_winners",
+                 "duplicates_block_scan", "chain_starts_failures", "end"),
+}
+ENTRY = {"run_sort": "tb_run_sort_phases", "validate": "tb_validate_phases"}
+_LIB = None
+
+
+def library() -> ctypes.CDLL:
+    """The clocked library (built once a process)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    out = _cuda.BUILD_DIR.parent / "phase_clock"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = (*_cuda.NVCC_FLAGS, "-DTB_PHASE_CLOCK")
+    procs = [(obj, subprocess.Popen(
+        [_cuda._nvcc(), *flags, "-c", str(_cuda.CSRC / src), "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for src in ("index_sort.cu", "validate.cu", "probe.cu")
+        for obj in [out / (Path(src).stem + ".o")]]
+    for _obj, proc in procs:
+        text = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError("nvcc failed:\n" + text)
+    path = out / "libphase_clock.so"
+    subprocess.run([_cuda._nvcc(), *flags[:2], "-shared", "-o", str(path),
+                    *(str(o) for o, _p in procs)], check=True)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _cuda._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    lib.tb_error_string.argtypes = [ctypes.c_int]
+    lib.tb_error_string.restype = ctypes.c_char_p
+    for entry in ENTRY.values():
+        getattr(lib, entry + "_read").argtypes = [ctypes.c_void_p]
+    _LIB = lib
+    return lib
+
+
+def split(kernel: str, fn, reps: int = 7) -> dict:
+    """``fn`` run ``reps`` times on the clocked library: each mark's time
+    (us since the launch's first block started; mean over the clocked
+    blocks, median over the launches after the first two) and the blocks
+    that reached it."""
+    lib = library()
+    read = getattr(lib, ENTRY[kernel] + "_read")
+    clear = getattr(lib, ENTRY[kernel] + "_clear")
+    marks = MARKS[kernel]
+    saved = _cuda._LIB
+    runs = []
+    _cuda._LIB = lib
+    try:
+        for _ in range(reps):
+            if clear() != 0:
+                raise RuntimeError("phase clock: clear failed")
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * (64 * 16))()
+            if read(buf) != 0:
+                raise RuntimeError("phase clock: read failed")
+            runs.append(np.frombuffer(buf, np.uint64).reshape(64, 16)
+                        [:, :len(marks)].astype(np.int64))
+    finally:
+        _cuda._LIB = saved
+    out = {}
+    for k, name in enumerate(marks):
+        per_run = []
+        for a in runs[2:]:
+            live = a[:, 0] > 0
+            hit = live & (a[:, k] > 0)
+            if hit.any():
+                per_run.append((a[hit, k] - a[live, 0].min()).mean() / 1e3)
+        if per_run:
+            out[name] = round(float(np.median(per_run)), 3)
+    blocks = int((runs[-1][:, 0] > 0).sum())
+    return {"us_since_start": out, "blocks_clocked": blocks}
+
+
+def main() -> None:
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.testing import k3cases, k13cases
+
+    dev = torch.device("cuda")
+    cols, use = k13cases.entries(8192, "random")
+    side = [convert.array_to_tensor(c, dev) for c in cols]
+    use_t = torch.from_numpy(use).to(dev)
+    outs = [[torch.empty(8192, dtype=torch.int64, device=dev)
+             for _ in range(5)] for _ in range(2)]
+    batch, ctx, count, ts = k3cases.transfer_case("random", 8192)
+    t = lambda a: convert.array_to_tensor(a, dev)  # noqa: E731
+    soa = convert.soa_to_tensors(batch, dev)
+    vcols = ([soa[c] for c in sm.TRANSFER_BATCH_COLS]
+             + [t(ctx[c]) for c in sm.TRANSFER_CTX_COLS]
+             + [t(ctx["e"][c]) for c in sm.TRANSFER_EXISTS_COLS])
+    print(json.dumps({
+        "run_sort_both_sides_8192": split(
+            "run_sort", lambda: _cuda.run_sort([side, side], use_t, outs)),
+        "validate_transfers_8192": split(
+            "validate", lambda: _cuda.validate("transfers", vcols, count, ts)),
+    }))
+
+
+if __name__ == "__main__":
+    main()
