@@ -63,11 +63,14 @@ Phases, each printing one JSON line:
                 the testing/fullmix.py mix and each FLAG_SEQ kind, on a ledger
                 with rows, same-home clusters and tombstones, and on
                 testing/fulltraps.py's batches (each batch-wide step of
-                K11 and K12 across their blocks; one of 8,150 lanes); then
-                each kernel timed and bounded on a bench.py two-phase
-                batch: K12 with and without its rounds, the whole core by
-                CUDA events beside K11's profile (its events against the
-                launches made), and K11's history append;
+                K11 and K12 across their blocks; one of 8,150 lanes), and
+                K9 on testing/k9cases.py's traps at 8,190 and 8,192 lanes;
+                then each kernel timed and bounded on a bench.py two-phase
+                batch: K9 with its launch and phases clocked
+                (tools/phase_clock.py), K12 with and without its rounds,
+                the whole core by CUDA events beside K11's profile (its
+                events against the launches made), and K11's history
+                append;
  10. full_parity - a default machine (general kernel), a force_sequential
                 machine (K6) and the scalar oracle on the same 8,190-event
                 batches of the mix: codes, balances, history rows, lookups,
@@ -91,7 +94,8 @@ Phases, each printing one JSON line:
                 with none, some and all lanes ok, stable ties, a full build
                 of 2^20 entries, carries into levels 1-6, windows and unions
                 in both directions with the four side combinations over
-                levels that are only sentinels, a history log with fewer and
+                levels that are only sentinels, both K15 modes on
+                testing/k15cases.py's traps, a history log with fewer and
                 more matches than k and a rolled-back tail, and a 2^21-slot
                 log (K16's block-count scan over more than 1,024 blocks);
                 K13 and K14 timed at the main path's shapes, K13's one-launch
@@ -118,7 +122,9 @@ Phases, each printing one JSON line:
                 against the plain versions: the deepest carried level and
                 the rebuilt level (K13, K14), K15 over the whole pyramid and
                 K16 over the whole log, invalid lanes included; K15/K16
-                timed here, and K1 and K13-K16's launch counts read from
+                timed here (K15 also on an account with no rows, with its
+                valid rows, the windows that hold them, its launch and its
+                phases clocked), and K1 and K13-K16's launch counts read from
                 this phase, with the entries K14's counted launches merge
                 (its bound over the path's carries);
  16. cold_kernels - K17 bloom_check, K18 evict_threshold, K19 evict_extract
@@ -735,6 +741,10 @@ def transfer_batch(rng, n, count, existing_ids, existing_hi, linked_all=False):
 # phase lines only.
 K3_PARENT_MS = {"transfers": 0.0762, "accounts": 0.0844}
 K13_PARENT_MS = {"both_sides_8192": 0.0592, "one_side_1024": 0.0274}
+# K9 on a two-phase batch of 8,190 lanes and K15's limit-8,192 query over
+# the queries phase's pyramid, before their redesign (PERF.md §6).
+K9_PARENT_MS = 0.0453
+K15_PARENT_MS = {"query": 0.1177, "no_rows": 0.1164}
 
 
 def phase_kernels(seed: int, dev) -> dict:
@@ -2482,7 +2492,7 @@ def phase_full_kernels(seed: int, dev) -> dict:
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import state_machine as sm
     from tigerbeetle_tpu_torch.ops import transfer_full as tf
-    from tigerbeetle_tpu_torch.testing import fullmix, fulltraps
+    from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, k9cases
     from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
 
     rng = np.random.default_rng(seed + 4)
@@ -2597,6 +2607,15 @@ def phase_full_kernels(seed: int, dev) -> dict:
     results = {}
     ids = (soa["id_lo"], soa["id_hi"], soa["pending_id_lo"], soa["pending_id_hi"])
     stacked = torch.stack([soa["id_hi"], soa["id_lo"]], 1)
+    # K9's traps (testing/k9cases.py) at full width, byte for byte.
+    for case in k9cases.CASES:
+        for n in (COUNT, LANES):
+            args = [t64(a, dev) for a in k9cases.case(case, n)]
+            errs["full_index"] = max(errs["full_index"], max_abs_err(
+                f"full_index ({case}, {n} lanes)",
+                {f: to_np(v) for f, v in tf._build_id_index(*args)._asdict().items()},
+                {f: to_np(v) for f, v in
+                 tf._build_id_index_plain(*args)._asdict().items()}))
     results["full_index"] = dict(
         max_abs_err=errs["full_index"],
         **pair_times(timed(lambda: tf._build_id_index(*ids)),
@@ -2605,7 +2624,12 @@ def phase_full_kernels(seed: int, dev) -> dict:
                                               return_inverse=True))["device_ms"],
         bound=bound(nbytes(*ids) + LANES * (8 + 1 + 8) + 1, 20 * LANES),
         shape=f"{LANES} lanes of a two-phase batch; library: torch.unique "
-              "of the (hi, lo) id pairs with return_inverse")
+              "of the (hi, lo) id pairs with return_inverse",
+        launch=_cuda.full_index_info(LANES),
+        phases_us=phase_clock().split(
+            "full_index", lambda: tf._build_id_index(*ids)),
+        cases_checked=len(k9cases.CASES) * 2,
+        parent_ms_perf_md=K9_PARENT_MS)
     legs_out = tf._leg_balances(**legs)
     n2 = 2 * LANES
     results["full_legs"] = dict(
@@ -3096,7 +3120,7 @@ def phase_index_kernels(seed: int, dev) -> dict:
     from tigerbeetle_tpu_torch.ops import index as ix
     from tigerbeetle_tpu_torch.ops import query as q
     from tigerbeetle_tpu_torch.ops import state_machine as sm
-    from tigerbeetle_tpu_torch.testing import fullmix, seqmix
+    from tigerbeetle_tpu_torch.testing import fullmix, k15cases, seqmix
     from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
 
     rng = np.random.default_rng(seed + 13)
@@ -3289,6 +3313,24 @@ def phase_index_kernels(seed: int, dev) -> dict:
             errs15 = max(errs15, max_abs_err(
                 f"index_window window acct={acct} desc={desc}",
                 dict(zip("tlh", map(to_np, g))), dict(zip("tlh", map(to_np, p)))))
+            n_q += 1
+    # K15's traps (testing/k15cases.py), both modes.
+    for case in k15cases.CASES:
+        dr_c, cr_c, queries = k15cases.case(case)
+        lv = [[ix.Level(t64(b, dev)) for b in side] for side in (dr_c, cr_c)]
+        for qa in queries:
+            g = ix.query_transfers(*lv, *qa)
+            for fn in (ix.query_transfers_plain, ix.query_transfers_split_plain):
+                errs15 = max(errs15, max_abs_err_card(
+                    f"index_window {case} {qa} vs {fn.__name__}",
+                    dict(zip("vlh", g)), dict(zip("vlh", fn(*lv, *qa)))))
+            for side in lv:
+                if side:
+                    a = (side, qa[0], qa[1], qa[2], qa[3], qa[6], qa[7])
+                    errs15 = max(errs15, max_abs_err_card(
+                        f"index_window window {case} {qa}",
+                        dict(zip("tlh", ix._query_side(*a))),
+                        dict(zip("tlh", ix._query_side_plain(*a)))))
             n_q += 1
     checked["index_window_queries"] = n_q
     results["index_window"] = dict(max_abs_err=errs15)
@@ -3897,6 +3939,15 @@ def _queries_body(out, run, dev, n_transfers, rng, flag_cycle):
                 ms=out["a"]["profile"]["k13_run_sort_ms_per_batch"],
                 ms_from="queries (a) profile window, one launch a batch")
         n_valid = int(k15_fn()[0].sum())
+        # The windows that hold valid rows, and a query of an account with
+        # no rows (everything in closed form).
+        per_window = [int(ix._window_desc_plain(
+            lv, acct, 0, 1, U64M - 1, QUERY_K, False)[1])
+            for lv in m.index.dr_levels + m.index.cr_levels]
+        k15_empty = timed(lambda: ix.query_transfers(
+            m.index.dr_levels, m.index.cr_levels, N_ACCOUNTS + 7, 0, 1,
+            U64M - 1, True, True, QUERY_K, False))["device_ms"]
+        k15_phases = phase_clock().split("index_union", k15_fn)
     n_win = len(m.index.dr_levels) + len(m.index.cr_levels)
     deepest = max(lv.n for lv in m.index.dr_levels)
     # What the query must read: each window's binary search (24 B a step),
@@ -3908,8 +3959,12 @@ def _queries_body(out, run, dev, n_transfers, rng, flag_cycle):
                                   n_win * deepest.bit_length() * 10
                                   + n_win * QUERY_K * 4),
                       shape=f"one limit-8,190 query (k {QUERY_K}, {n_valid} rows) "
-                            f"over {n_win} levels of both sides, window and "
-                            "union launches")
+                            f"over {n_win} levels of both sides, one union "
+                            "launch",
+                      n_valid=n_valid, valid_per_window=per_window,
+                      windows_with_valid=sum(1 for v in per_window if v),
+                      no_rows_ms=k15_empty, launch=_cuda.index_window_info(),
+                      phases_us=k15_phases, parent_ms_perf_md=K15_PARENT_MS)
     # A full rebuild: reset, then the next query rebuilds both sides at
     # the table's capacity (K13 chunks, then K14 rounds).
     m.index.reset()

@@ -24,7 +24,7 @@ from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
 from tigerbeetle_tpu_torch.testing import (fullmix, fulltraps, k2cases, k3cases,
-                                           k13cases, seqmix)
+                                           k9cases, k13cases, k15cases, seqmix)
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -706,6 +706,45 @@ def test_general_core_replays_in_a_cuda_graph(cuda_device):
             assert torch.equal(x, y), (field, k)
 
 
+@pytest.mark.parametrize("case", k9cases.CASES)
+@pytest.mark.parametrize("n", k9cases.SIZES)
+def test_full_index_cases_match_plain(cuda_device, case, n):
+    """K9 over the card (a thread a lane, grid barriers) at its traps: every
+    id equal or 0, a probe chain of 512 ids that wraps the table, pending
+    ids naming id 0, a missing id and the lane's own; byte for byte
+    against the plain version on the CPU."""
+    args = [convert.array_to_tensor(a, "cpu") for a in k9cases.case(case, n)]
+    got = tf._build_id_index(*(a.to(cuda_device) for a in args))
+    want = tf._build_id_index_plain(*args)
+    for field, x, y in zip(want._fields, got, want):
+        assert torch.equal(x.cpu(), y), field
+
+
+def test_full_index_replays_in_a_cuda_graph(cuda_device):
+    """K9 captured in a CUDA graph: each replay clears its table again, so
+    new ids written in place into the captured inputs give the plain
+    version's outputs for those ids."""
+    first = [convert.array_to_tensor(a, cuda_device)
+             for a in k9cases.case("random", 8190)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tf._build_id_index(*first)
+    for case in ("one_home", "random", "all_equal"):
+        new = k9cases.case(case, 8190)
+        for t, a in zip(first, new):
+            t.copy_(convert.array_to_tensor(a, cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tf._build_id_index_plain(
+            *(convert.array_to_tensor(a, "cpu") for a in new))
+        for field, x, y in zip(want._fields, captured, want):
+            assert torch.equal(x.cpu(), y), (case, field)
+    info = _cuda.full_index_info(8190)
+    assert info["blocks"] == 64 and info["threads"] == 128
+    assert info["local_bytes"] == 0, info
+
+
 # -- K13-K16: the transfer index and the queries ---------------------------------
 
 U64M = (1 << 64) - 1
@@ -881,6 +920,55 @@ def test_build_runs_full_build_and_queries_match_plain(cuda_device):
             g = ix._query_side(dr, 2, 0, 1, U64M, 256, desc)
             for a, b in zip(g, w):
                 assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("case", k15cases.CASES)
+def test_index_query_cases_match_plain(cuda_device, case):
+    """K15 at its traps (one side unwanted, the descending wrap,
+    sentinel-only levels, no rows, runs longer than k, k = 1, only the
+    deepest level, keys of U64_MAX among the valid, more merged keys than
+    the union block stages): union mode against the plain query and its
+    own algorithm's plain version, window mode against the plain window,
+    byte for byte, invalid lanes included."""
+    dr, cr, queries = k15cases.case(case)
+
+    def levels(blocks, dev):
+        return [ix.Level(convert.array_to_tensor(b, dev)) for b in blocks]
+
+    cpu = (levels(dr, "cpu"), levels(cr, "cpu"))
+    gpu = (levels(dr, cuda_device), levels(cr, cuda_device))
+    for q in queries:
+        acct_lo, acct_hi, ts_min, ts_max, want_dr, want_cr, k, desc = q
+        got = ix.query_transfers(*gpu, *q)
+        for fn in (ix.query_transfers_plain, ix.query_transfers_split_plain):
+            want = fn(*cpu, *q)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), (fn.__name__, q)
+        for side_gpu, side_cpu in zip(gpu, cpu):
+            if not side_cpu:
+                continue
+            a = ix._query_side(side_gpu, acct_lo, acct_hi, ts_min, ts_max, k,
+                               desc)
+            b = ix._query_side_plain(side_cpu, acct_lo, acct_hi, ts_min,
+                                     ts_max, k, desc)
+            for x, y in zip(a, b):
+                assert torch.equal(x.cpu(), y), ("window", q)
+
+
+def test_index_query_refuses_too_many_windows(cuda_device):
+    """More windows than K15's launch takes (64) raise CudaKernelError and
+    count no launch; the info entry reads both kernels' launches."""
+    lvl = ix._sentinel_level(64, cuda_device)
+    before = _cuda.KERNELS["index_window"].launches
+    with pytest.raises(_cuda.CudaKernelError, match="index_window failed"):
+        _cuda.index_union([[lvl] * 40, [lvl] * 25], [True, True], 1, 0, 1,
+                          U64M - 1, 16, False)
+    with pytest.raises(_cuda.CudaKernelError, match="index_window failed"):
+        _cuda.index_window([[lvl] * 65], 1, 0, 1, U64M - 1, 16, False)
+    assert _cuda.KERNELS["index_window"].launches == before
+    info = _cuda.index_window_info()
+    assert info["union_threads"] == info["window_threads"] == 1024
+    assert info["union_local_bytes"] == 0 and info["window_local_bytes"] == 0
 
 
 def test_history_scan_matches_plain(cuda_device):
@@ -1098,7 +1186,9 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "tigerbeetle_tpu_torch.vsr.consensus",
             "tigerbeetle_tpu_torch.vsr.statesync",
             "tigerbeetle_tpu_torch.parallel.mesh",
-            "tigerbeetle_tpu_torch.parallel.sharded"} <= set(mods)
+            "tigerbeetle_tpu_torch.parallel.sharded",
+            "tigerbeetle_tpu_torch.testing.k9cases",
+            "tigerbeetle_tpu_torch.testing.k15cases"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

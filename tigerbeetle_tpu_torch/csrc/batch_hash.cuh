@@ -1,9 +1,8 @@
 // A batch-local open-addressing table of lane indices keyed by the lanes'
-// u128 ids, for grouping equal ids inside one batch (K3's duplicates, K9's
-// id groups and pending join).  `hkey` holds hsize ints (a power of two,
-// at least twice the lanes), -1 where empty; a slot is keyed by the first
-// lane that claims it with atomicCAS, and the table compares ids through
-// that lane.
+// u128 ids, for grouping equal ids inside one batch (K3's duplicates).
+// `hkey` holds hsize ints (a power of two, at least twice the lanes), -1
+// where empty; a slot is keyed by the first lane that claims it with
+// atomicCAS, and the table compares ids through that lane.
 #pragma once
 
 #include "common.cuh"
@@ -18,19 +17,6 @@ static __device__ __forceinline__ int batch_hash_insert(
   for (;;) {
     const int prev = atomicCAS(hkey + h, -1, i);
     if (prev == -1 || (key_lo[prev] == lo && key_hi[prev] == hi)) return (int)h;
-    h = (h + 1) & (uint64_t)(hsize - 1);
-  }
-}
-
-// The slot holding the id (lo, hi) once every lane is inserted, or -1.
-static __device__ __forceinline__ int batch_hash_find(
-    const int* hkey, int hsize, const uint64_t* key_lo, const uint64_t* key_hi,
-    uint64_t lo, uint64_t hi) {
-  uint64_t h = mix64(lo, hi) & (uint64_t)(hsize - 1);
-  for (;;) {
-    const int k = hkey[h];
-    if (k == -1) return -1;
-    if (key_lo[k] == lo && key_hi[k] == hi) return (int)h;
     h = (h + 1) & (uint64_t)(hsize - 1);
   }
 }

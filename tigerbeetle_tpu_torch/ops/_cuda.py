@@ -293,6 +293,7 @@ _SIGNATURES = {
     "tb_write_claimed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _P,
                          _INT, _P, _INT, _P, _P, _P, _P],
     "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
+    "tb_full_index_info": [_I64, _P],
     "tb_full_legs": [_P, _INT, _I64, _INT, ctypes.c_uint64, _INT, _P],
     "tb_full_legs_apply": [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P],
     "tb_full_waves": [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_uint64,
@@ -306,8 +307,9 @@ _SIGNATURES = {
     "tb_run_merge": [_P, _P, _INT, _P],
     "tb_index_window": [_P, _P, _INT, _U64, _U64, _U64, _U64, _I64, _INT,
                         _P, _P, _P, _P],
-    "tb_index_union": [_P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64,
-                       _P, _P, _P, _P],
+    "tb_index_union": [_P, _P, _INT, _INT, _INT, _INT, _U64, _U64, _U64,
+                       _U64, _I64, _INT, _P, _P, _P, _P],
+    "tb_index_window_info": [_P],
     "tb_history_scan": [_P, _P, _I64, _I64, _U64, _U64, _U64, _U64, _INT,
                         _INT, _INT, _P, _P, _P, _P, _P],
     "tb_bloom_check": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -579,7 +581,8 @@ def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
 
 
 def hash_size(n: int) -> int:
-    """Batch-local hash table size for ``n`` lanes (K3, K9, K11)."""
+    """Batch-local hash table size for ``n`` lanes (K3, K11; K9 takes twice
+    it)."""
     h = 2
     while h < 2 * n:
         h *= 2
@@ -1029,7 +1032,8 @@ def _check_lanes(n: int) -> None:
 
 def full_index(id_lo, id_hi, pend_lo, pend_hi):
     """Kernel K9: (group_of_lane int64[N] (the lowest lane of each id),
-    any_dup bool 0-dim, pj_hit bool[N], pj_group int64[N])."""
+    any_dup bool 0-dim, pj_hit bool[N], pj_group int64[N]).  One
+    cooperative launch of a thread a lane; a refused launch raises."""
     lib = library()
     n = id_lo.numel()
     _check_lanes(n)
@@ -1037,21 +1041,38 @@ def full_index(id_lo, id_hi, pend_lo, pend_hi):
                     (pend_hi, "pend_hi")):
         _check(t, torch.int64, n, what)
     dev = id_lo.device
-    hsize = hash_size(n)
-    scratch = torch.empty(2 * hsize + n, dtype=torch.int32, device=dev)
+    slots = full_index_slots(n)
+    scratch = torch.empty(3 * slots, dtype=torch.int32, device=dev)
     group = torch.empty(n, dtype=torch.int64, device=dev)
     any_dup = torch.empty(1, dtype=torch.bool, device=dev)
     pj_hit = torch.empty(n, dtype=torch.bool, device=dev)
     pj_group = torch.empty(n, dtype=torch.int64, device=dev)
     err = lib.tb_full_index(
         id_lo.data_ptr(), id_hi.data_ptr(), pend_lo.data_ptr(),
-        pend_hi.data_ptr(), n, scratch.data_ptr(), hsize, group.data_ptr(),
+        pend_hi.data_ptr(), n, scratch.data_ptr(), slots, group.data_ptr(),
         any_dup.data_ptr(), pj_hit.data_ptr(), pj_group.data_ptr(),
         _stream(id_lo),
     )
     _raise_on(err, "full_index")
     KERNELS["full_index"].launches += 1
     return group, any_dup[0], pj_hit, pj_group
+
+
+def full_index_slots(n: int) -> int:
+    """K9's table for ``n`` lanes: a power of two of at least 4n slots (a
+    load of 1/4 keeps the probe chains, which every block waits on, short)."""
+    return 2 * hash_size(n)
+
+
+def full_index_info(n: int) -> Dict[str, int]:
+    """What the compiler and the card make of K9's launch for ``n`` lanes:
+    registers and local memory a thread, threads a block, blocks and
+    blocks resident on one SM.  Launches nothing."""
+    _check_lanes(n)
+    out = (ctypes.c_int * 5)()
+    _raise_on(library().tb_full_index_info(n, out), "full_index")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks",
+                     "blocks_per_sm"), out))
 
 
 def legs_buffers(n: int, dev) -> Dict[str, torch.Tensor]:
@@ -1332,9 +1353,8 @@ def run_merge_rounds(src: Sequence[Sequence[torch.Tensor]],
     _merge_launch(cols, sizes, len(src), _stream(dst[0][0]))
 
 
-def _window_launch(levels: Sequence[dict], acct_lo: int, acct_hi: int,
-                   ts_min: int, ts_max: int, k: int, descending: bool):
-    lib = library()
+def _level_ptrs(levels: Sequence[dict]):
+    """The five columns' pointers of each level and the levels' lengths."""
     cols, ns = [], []
     for lvl in levels:
         n = lvl["ts"].numel()
@@ -1342,16 +1362,7 @@ def _window_launch(levels: Sequence[dict], acct_lo: int, acct_hi: int,
         _check_run(run, n, "index level")
         cols += run
         ns.append(n)
-    dev = cols[0].device
-    out = torch.empty((3, len(ns) * k), dtype=torch.int64, device=dev)
-    err = lib.tb_index_window(
-        _ptr_array(cols), (ctypes.c_int64 * len(ns))(*ns), len(ns),
-        acct_lo & _M64, acct_hi & _M64, ts_min & _M64, ts_max & _M64, k,
-        int(descending), out[0].data_ptr(), out[1].data_ptr(),
-        out[2].data_ptr(), _stream(cols[0]))
-    _raise_on(err, "index_window")
-    KERNELS["index_window"].launches += 1
-    return out
+    return cols, (ctypes.c_int64 * len(ns))(*ns), len(ns)
 
 
 def index_window(sides: Sequence[Sequence[dict]], acct_lo: int, acct_hi: int,
@@ -1359,33 +1370,48 @@ def index_window(sides: Sequence[Sequence[dict]], acct_lo: int, acct_hi: int,
     """Kernel K15, window mode: (ts, tid_lo, tid_hi), k candidates per level
     of each side's levels, concatenated level after level (``_query_side``
     of the JAX package for one side)."""
-    levels = [lvl for side in sides for lvl in side]
-    out = _window_launch(levels, acct_lo, acct_hi, ts_min, ts_max, k,
-                         descending)
+    cols, ns, nwin = _level_ptrs([lvl for side in sides for lvl in side])
+    out = torch.empty((3, nwin * k), dtype=torch.int64, device=cols[0].device)
+    err = library().tb_index_window(
+        _ptr_array(cols), ns, nwin, acct_lo & _M64, acct_hi & _M64,
+        ts_min & _M64, ts_max & _M64, k, int(descending), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), _stream(cols[0]))
+    _raise_on(err, "index_window")
+    KERNELS["index_window"].launches += 1
     return out[0], out[1], out[2]
 
 
 def index_union(sides: Sequence[Sequence[dict]], wants: Sequence[bool],
                 acct_lo: int, acct_hi: int, ts_min: int, ts_max: int, k: int,
                 descending: bool):
-    """Kernel K15, both modes: the windows of each side (one or two), then
-    their union in result order: (valid bool[k], tid_lo[k], tid_hi[k])."""
+    """Kernel K15, union mode: the query over the windows of each side (one
+    or two) in result order, (valid bool[k], tid_lo[k], tid_hi[k]), in one
+    launch that makes no candidate array."""
     if not 1 <= len(sides) == len(wants) <= 2:
         raise ValueError("index_union takes one or two sides")
-    levels = [lvl for side in sides for lvl in side]
-    cand = _window_launch(levels, acct_lo, acct_hi, ts_min, ts_max, k,
-                          descending)
-    dev = cand.device
+    cols, ns, nwin = _level_ptrs([lvl for side in sides for lvl in side])
+    dev = cols[0].device
     valid = torch.empty(k, dtype=torch.bool, device=dev)
     res = torch.empty((2, k), dtype=torch.int64, device=dev)
     err = library().tb_index_union(
-        cand[0].data_ptr(), cand[1].data_ptr(), cand[2].data_ptr(),
-        len(levels), len(sides[0]), int(bool(wants[0])),
-        int(bool(wants[-1])), int(descending), k, valid.data_ptr(),
-        res[0].data_ptr(), res[1].data_ptr(), _stream(cand))
+        _ptr_array(cols), ns, nwin, len(sides[0]), int(bool(wants[0])),
+        int(bool(wants[-1])), acct_lo & _M64, acct_hi & _M64, ts_min & _M64,
+        ts_max & _M64, k, int(descending), valid.data_ptr(),
+        res[0].data_ptr(), res[1].data_ptr(), _stream(cols[0]))
     _raise_on(err, "index_window")
     KERNELS["index_window"].launches += 1
     return valid, res[0], res[1]
+
+
+def index_window_info() -> Dict[str, int]:
+    """What the compiler makes of K15's two kernels: registers, local
+    memory a thread and threads a block of window mode and of union mode,
+    and the union block's shared memory.  Launches nothing."""
+    out = (ctypes.c_int * 7)()
+    _raise_on(library().tb_index_window_info(out), "index_window")
+    return dict(zip(("window_registers", "window_local_bytes",
+                     "window_threads", "union_registers", "union_local_bytes",
+                     "union_threads", "union_smem_bytes"), out))
 
 
 # The order of the 21 history columns in csrc/history_scan.cu.

@@ -329,6 +329,143 @@ def _query_side_plain(levels, acct_lo, acct_hi, ts_min, ts_max, k, descending):
     return torch.cat(cand_ts), torch.cat(cand_lo), torch.cat(cand_hi)
 
 
+def _key_before(lvl, idx: torch.Tensor, q, upper: bool) -> torch.Tensor:
+    """Whether each entry ``idx`` of ``lvl`` sorts before the bound of key
+    ``q`` (three u64 ints: acct_hi, acct_lo, ts): below q, or at most q
+    where ``upper``."""
+    e = [lvl[c][idx] ^ INT64_MIN for c in ("acct_hi", "acct_lo", "ts")]
+    qs = [i64(x) ^ INT64_MIN for x in q]
+    less = e[0] < qs[0]
+    less = less | ((e[0] == qs[0]) & (e[1] < qs[1]))
+    less = less | ((e[0] == qs[0]) & (e[1] == qs[1])
+                   & ((e[2] <= qs[2]) if upper else (e[2] < qs[2])))
+    return less
+
+
+def _warp_search_plain(n: int, before) -> int:
+    """Kernel K15's 32-ary warp search (csrc/index_query.cu ``warp_bounds``)
+    in plain PyTorch: the first index in [0, n) at which ``before`` (an
+    index tensor to a bool tensor, true then false) is false.  Each round
+    tests 32 pivots lo + (l + 1) step - 1 (false past the range) and keeps
+    the step after the last one still before."""
+    lo, hi = 0, n
+    lane = torch.arange(32, dtype=torch.int64)
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        p = lo + (lane + 1) * step - 1
+        inside = p < hi
+        hit = before(torch.clamp(p, max=n - 1)).cpu() & inside
+        cnt = int(hit.sum())
+        top = lo + (cnt + 1) * step - 1
+        lo += cnt * step
+        hi = min(hi, top)
+    return lo
+
+
+def _search32_plain(lvl, q_hi: int, q_lo: int, q_ts: int,
+                    upper: bool = False) -> int:
+    """The first index of sorted ``lvl`` with key >= (q_hi, q_lo, q_ts) (>
+    where ``upper``) by the 32-ary search: on a sorted level, ``_search3``'s
+    answer (a CPU test holds it to the JAX search)."""
+    dev = lvl["ts"].device
+    q = (q_hi, q_lo, q_ts)
+    return _warp_search_plain(
+        lvl["ts"].shape[0], lambda i: _key_before(lvl, i.to(dev), q, upper))
+
+
+def _window_desc_plain(lvl, acct_lo, acct_hi, ts_min, ts_max, k, descending):
+    """(start, m, r) of one window, as K15's ``window_desc``: its
+    candidates start at ``start`` (descending: below it); the first m are
+    valid, the first r of them have a sort key below U64_MAX (ts below
+    U64_MAX ascending, above 0 descending)."""
+    if descending:
+        b0 = _search32_plain(lvl, acct_hi, acct_lo, (ts_max + 1) & U64M)
+        b1 = _search32_plain(lvl, acct_hi, acct_lo, ts_min)
+        b2 = _search32_plain(lvl, acct_hi, acct_lo, max(ts_min, 1))
+        m, r = b0 - b1, b0 - b2
+    else:
+        b0 = _search32_plain(lvl, acct_hi, acct_lo, ts_min)
+        b1 = _search32_plain(lvl, acct_hi, acct_lo, ts_max, upper=True)
+        b2 = _search32_plain(lvl, acct_hi, acct_lo, min(ts_max, U64M - 1),
+                             upper=True)
+        m, r = b1 - b0, b2 - b0
+    return b0, min(max(m, 0), k), min(max(r, 0), k)
+
+
+def query_transfers_split_plain(dr_levels, cr_levels, acct_lo, acct_hi,
+                                ts_min, ts_max, want_debits, want_credits, k,
+                                descending):
+    """Kernel K15 union mode's own steps in plain PyTorch (the result of
+    ``query_transfers_plain``, a CPU test holds it to the JAX function):
+    each window's start, m and r by the 32-ary search; the prune key (the
+    smallest k-th key of a wanted window whose k candidates all have keys
+    below U64_MAX) and each wanted window's merged prefix, its first r keys
+    at or below it; each prefix entry to its index plus the count of keys
+    <= its key in earlier windows and < it in later ones, where that is
+    below k; then positions R.. k - 1 (R the sum of the r) in closed form:
+    the candidates whose key is U64_MAX in concatenation order."""
+    wins = ([(lv, bool(want_debits)) for lv in dr_levels]
+            + [(lv, bool(want_credits)) for lv in cr_levels])
+    dev = wins[0][0]["ts"].device
+    descs = [_window_desc_plain(lv, acct_lo, acct_hi, ts_min, ts_max, k,
+                                descending) for lv, _w in wins]
+    step = -1 if descending else 1
+
+    def positions(w, count):
+        start = descs[w][0] - 1 if descending else descs[w][0]
+        return start + step * torch.arange(count, dtype=torch.int64,
+                                           device=dev)
+
+    def keys(w, count):  # u64 sort keys in signed order
+        ts = wins[w][0]["ts"][positions(w, count)]
+        return (~ts if descending else ts) ^ INT64_MIN
+
+    rs = [d[2] if want else 0 for d, (_lv, want) in zip(descs, wins)]
+    kth = [int(keys(w, k)[k - 1]) for w, r in enumerate(rs) if r == k]
+    cs = []
+    for w, r in enumerate(rs):
+        if not kth:
+            cs.append(r)
+            continue
+        cut = min(kth)
+        cs.append(_warp_search_plain(
+            r, lambda i, w=w, r=r: keys(w, r)[i.to(dev)] <= cut))
+    staged = [keys(w, c) for w, c in enumerate(cs)]
+    valid = torch.zeros(k, dtype=torch.bool, device=dev)
+    out_lo = torch.zeros(k, dtype=torch.int64, device=dev)
+    out_hi = torch.zeros(k, dtype=torch.int64, device=dev)
+    for w, c in enumerate(cs):
+        if c == 0:
+            continue
+        pos = torch.arange(c, dtype=torch.int64, device=dev)
+        for v, other in enumerate(staged):
+            if v != w and cs[v]:
+                pos = pos + torch.searchsorted(other, staged[w], right=v < w)
+        keep = pos < k
+        src = positions(w, c)[keep]
+        valid[pos[keep]] = True
+        out_lo[pos[keep]] = wins[w][0]["tid_lo"][src]
+        out_hi[pos[keep]] = wins[w][0]["tid_hi"][src]
+    total_r = sum(rs)
+    if total_r < k:
+        tail = [0]
+        for r in rs:
+            tail.append(tail[-1] + k - r)
+        t = torch.arange(k - total_r, dtype=torch.int64, device=dev)
+        wof = torch.searchsorted(torch.tensor(tail[:-1], device=dev), t,
+                                 right=True) - 1
+        for w, ((lv, want), (start, m, _r)) in enumerate(zip(wins, descs)):
+            sel = wof == w
+            i = rs[w] + t[sel] - tail[w]
+            hit = i < m
+            p = (start - 1 - i if descending else start + i)[hit]
+            pos = total_r + t[sel][hit]
+            valid[pos] = want & (lv["ts"][p] != _M)
+            out_lo[pos] = lv["tid_lo"][p]
+            out_hi[pos] = lv["tid_hi"][p]
+    return valid, out_lo, out_hi
+
+
 def _query_side(levels, acct_lo: int, acct_hi: int, ts_min: int, ts_max: int,
                 k: int, descending: bool):
     """Up to k (ts, tid) candidates per level for one side, concatenated

@@ -1,15 +1,19 @@
-"""Where K13 run_sort's and K3 validate's time goes, by phase, on the card.
+"""Where K13 run_sort's, K3 validate's, K9 full_index's and K15
+index_window's (union mode) time goes, by phase, on the card.
 
-Builds csrc/index_sort.cu and csrc/validate.cu (with probe.cu, for the
-error strings) with TB_PHASE_CLOCK defined into build/phase_clock/: thread
+Builds csrc/index_sort.cu, csrc/validate.cu, csrc/full_index.cu and
+csrc/index_query.cu (with probe.cu, for the error strings) with
+TB_PHASE_CLOCK defined into build/phase_clock/: thread
 0 of each block (the first 64) stores %globaltimer at each of the kernel's
 phase marks (csrc/phase_clock.cuh).  ``split(kernel, fn)`` runs ``fn``
 (a call that launches the kernel once through its wrapper) on that library
 and returns the marks' times since the launch's first block started,
 averaged over the blocks, median of five launches after two; chip_smoke.py's
-kernels and index_kernels phases print it at the main path's shapes.  From
-the repository root on a machine with a CUDA card, for a flagship-shaped
-batch (both sides of 8,192 index entries) and K3 on 8,192 lanes:
+kernels, index_kernels, full_kernels and queries phases print it at the
+paths' shapes.  From the repository root on a machine with a CUDA card,
+for a flagship-shaped batch (both sides of 8,192 index entries), K3 and
+K9 on 8,192 lanes and K15 on a limit-8,192 query over a pyramid of
+levels 2^13-2^23 (five of eleven occupied a side, 10,000 accounts):
 
     python tools/phase_clock.py
 """
@@ -27,13 +31,22 @@ import torch  # noqa: E402
 
 from tigerbeetle_tpu_torch.ops import _cuda  # noqa: E402
 
-# The marks of each kernel, in order (csrc/index_sort.cu, csrc/validate.cu).
+# The marks of each kernel, in order (csrc/index_sort.cu, csrc/validate.cu,
+# csrc/full_index.cu, csrc/index_query.cu's union mode).
 MARKS = {
     "run_sort": ("start", "network", "cluster_barrier", "copies", "end"),
     "validate": ("start", "cleared", "ladders_ids_winners",
                  "duplicates_block_scan", "chain_starts_failures", "end"),
+    "full_index": ("start", "cleared", "inserted_with_lead",
+                   "found_and_joined"),
+    "index_union": ("start", "windows_searched", "pruned", "scanned",
+                    "staged", "ranked", "tail_written"),
 }
-ENTRY = {"run_sort": "tb_run_sort_phases", "validate": "tb_validate_phases"}
+ENTRY = {"run_sort": "tb_run_sort_phases", "validate": "tb_validate_phases",
+         "full_index": "tb_full_index_phases",
+         "index_union": "tb_index_query_phases"}
+SOURCES = ("index_sort.cu", "validate.cu", "full_index.cu", "index_query.cu",
+           "probe.cu")
 _LIB = None
 
 
@@ -48,7 +61,7 @@ def library() -> ctypes.CDLL:
     procs = [(obj, subprocess.Popen(
         [_cuda._nvcc(), *flags, "-c", str(_cuda.CSRC / src), "-o", str(obj)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-        for src in ("index_sort.cu", "validate.cu", "probe.cu")
+        for src in SOURCES
         for obj in [out / (Path(src).stem + ".o")]]
     for _obj, proc in procs:
         text = proc.communicate()[0].decode(errors="replace")
@@ -110,10 +123,30 @@ def split(kernel: str, fn, reps: int = 7) -> dict:
     return {"us_since_start": out, "blocks_clocked": blocks}
 
 
+def query_pyramid(dev):
+    """Both sides of a pyramid shaped as chip_smoke.py's queries phase
+    leaves it after 10,000,000 flagship transfers (levels 2^13-2^23, five
+    of eleven occupied), over 10,000 accounts, and a limit-8,192 query's
+    arguments on account 1."""
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.ops import index as ix
+    from tigerbeetle_tpu_torch.testing import k15cases
+
+    occupied = [False, True, True, False, False, False, True, True, False,
+                False, True]
+    dr, cr, _ts = k15cases.pyramid(np.random.default_rng(1), occupied,
+                                   fill=1.0, n_accts=10_000, base=8192)
+    side = lambda blocks: [ix.Level(convert.array_to_tensor(b, dev))  # noqa: E731
+                           for b in blocks]
+    return side(dr), side(cr), 1, 0, 1, (1 << 64) - 2, True, True, 8192, False
+
+
 def main() -> None:
     from tigerbeetle_tpu_torch import convert
     from tigerbeetle_tpu_torch.ops import state_machine as sm
-    from tigerbeetle_tpu_torch.testing import k3cases, k13cases
+    from tigerbeetle_tpu_torch.ops import index as ix
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+    from tigerbeetle_tpu_torch.testing import k3cases, k9cases, k13cases
 
     dev = torch.device("cuda")
     cols, use = k13cases.entries(8192, "random")
@@ -127,11 +160,18 @@ def main() -> None:
     vcols = ([soa[c] for c in sm.TRANSFER_BATCH_COLS]
              + [t(ctx[c]) for c in sm.TRANSFER_CTX_COLS]
              + [t(ctx["e"][c]) for c in sm.TRANSFER_EXISTS_COLS])
+    ids = [convert.array_to_tensor(a, dev)
+           for a in k9cases.case("random", 8192)]
+    query = query_pyramid(dev)
     print(json.dumps({
         "run_sort_both_sides_8192": split(
             "run_sort", lambda: _cuda.run_sort([side, side], use_t, outs)),
         "validate_transfers_8192": split(
             "validate", lambda: _cuda.validate("transfers", vcols, count, ts)),
+        "full_index_8192": split("full_index",
+                                 lambda: tf._build_id_index(*ids)),
+        "index_union_limit_8192": split(
+            "index_union", lambda: ix.query_transfers(*query)),
     }))
 
 
