@@ -21,7 +21,11 @@ Phases, each printing one JSON line:
                 batches; the claim and write entries apart) and at
                 full_twophase's (its transfers claim, then its posted
                 claim into 2^24 slots), each with the protocol's rounds
-                and deepest lane;
+                and deepest lane; K1 as the main path's batch launches it
+                (its three lookups in one launch, and the graph's form with
+                preallocated outputs and a device count word) on that
+                2^25-slot table and the 2^16-slot accounts table, beside
+                its adversarial shape, with its phases clocked;
   4. parity   - TorchStateMachine on the card against the scalar oracle
                 (testing/model.py) on small seeded batches;
   5. main     - the main path at full size: 10,000 accounts, then 10,000,000
@@ -39,11 +43,14 @@ Phases, each printing one JSON line:
                 at 8,190 events (ids re-used after rollbacks in clusters
                 the batch filled, pushed placements, pendings made and
                 posted in the batch with colliding posted keys, the probe
-                cap) against the split plain form; then K7, K32 and K6 at
-                the sequential path's shapes (8,190 accounts, two-phase
-                batches), where they are timed and bounded (K6's sequencer
-                alone and with K32).  The plain K6/K7/K32 run on CPU copies
-                (a Python loop over the events); plain K8 on the card;
+                cap) against the split plain form; K7 on
+                testing/k7cases.py's traps (new distinct ids at 16,384
+                lanes among them) against its split plain form; then K7,
+                K32 and K6 at the sequential path's shapes (8,190 accounts,
+                two-phase batches), where they are timed and bounded (K6's
+                sequencer alone and with K32; K7's phases clocked).  The
+                plain K6/K7/K32 run on CPU copies (a Python loop over the
+                events; K7's split form in numpy); plain K8 on the card;
   7. seq_parity - a force_sequential TorchStateMachine on the card against
                 the scalar oracle at full width (8,190 events per batch),
                 and one of 16,384 lanes (K6 runs the lanes up to the
@@ -745,6 +752,14 @@ K13_PARENT_MS = {"both_sides_8192": 0.0592, "one_side_1024": 0.0274}
 # the queries phase's pyramid, before their redesign (PERF.md §6).
 K9_PARENT_MS = 0.0453
 K15_PARENT_MS = {"query": 0.1177, "no_rows": 0.1164}
+# K1 (three fills, three probes and three compares a main-path batch; the
+# graph's three probes; the adversarial 15-column shape) and K7 (the
+# sequential path's 8,190 new accounts; seqmix's 2,040-event batch; 16,384
+# new accounts into a table a quarter full) before their redesign (PERF.md
+# §6).
+K1_PARENT_MS = {"three_as_create_transfers": 0.02524,
+                "graph_form_three": 0.01305, "adversarial": 0.01281}
+K7_PARENT_MS = {"path_8190": 15.83, "mixed_2040": 3.801, "new_16384": 32.15}
 
 
 def phase_kernels(seed: int, dev) -> dict:
@@ -791,21 +806,29 @@ def phase_kernels(seed: int, dev) -> dict:
     found_n = int(k.found.sum())
     b_bytes = 16 * LANES + 17 * steps + found_n * col_bytes \
         + LANES * (1 + 8 + col_bytes)
-    results["probe"] = dict(
-        max_abs_err=errs,
-        **pair_times(
-            timed(lambda: ht.lookup(xfr, klo, khi, sm.MAX_PROBE, count=COUNT,
-                                    cols=names)),
-            timed(lambda: ht.lookup_plain(xfr, klo, khi, sm.MAX_PROBE, 0,
-                                          COUNT, names))),
-        library_ms=None,
-        bound=bound(b_bytes, 40 * LANES + 10 * steps),
-        shape=f"{LANES} lanes, table 2^20 at load 0.45, {steps} slot visits",
-    )
+    adv = pair_times(
+        timed(lambda: ht.lookup(xfr, klo, khi, sm.MAX_PROBE, count=COUNT,
+                                cols=names)),
+        timed(lambda: ht.lookup_plain(xfr, klo, khi, sm.MAX_PROBE, 0,
+                                      COUNT, names)))
+    adv_clock = phase_clock().split(
+        "probe", lambda: ht.lookup(xfr, klo, khi, sm.MAX_PROBE, count=COUNT,
+                                   cols=names))
 
     # -- K2 insert: 8,192 new keys, and grow 2^20 -> 2^21 ----------------
     results["insert"] = k2_adversarial(rng, xfr, dev)
-    results["insert"].update(insert_path_shape(dev))
+    # K1 at the main path's shapes is timed on the same 2^25 table.
+    results["insert"].update(insert_path_shape(dev, probe_acc=acc))
+    k1 = results["insert"].pop("k1")
+    results["probe"] = dict(
+        k1, max_abs_err=max(errs, k1["max_abs_err"]), library_ms=None,
+        ms_adversarial=adv["ms"], plain_ms_adversarial=adv["plain_ms"],
+        bound_adversarial=bound(b_bytes, 40 * LANES + 10 * steps),
+        clock_adversarial=adv_clock,
+        shape_adversarial=f"{LANES} lanes, 15 columns, table 2^20 at load "
+                          f"0.45, half the keys stored, {steps} slot visits",
+        parent_ms=K1_PARENT_MS, info=_cuda.probe_info(),
+    )
 
     # -- K3 validate: accounts and transfers variants ------------------------
     errs = 0
@@ -1055,6 +1078,131 @@ def k2_adversarial(rng, xfr, dev) -> dict:
     return out
 
 
+def slot_visits(t, lo, hi, max_probe) -> int:
+    """The slots a lookup of these keys visits (its data-dependent reads),
+    counted on the card."""
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+
+    home = ht._home(lo, hi, t.capacity, 0)
+    done = (lo == 0) & (hi == 0)
+    visits = 0
+    for i in range(max_probe):
+        live = ~done
+        n = int(live.sum())
+        if n == 0:
+            break
+        visits += n
+        cur = (home + i) & (t.capacity - 1)
+        a, b, tb = t.key_lo[cur], t.key_hi[cur], t.tombstone[cur]
+        done = done | (~tb & (((a == lo) & (b == hi)) | ((a == 0) & (b == 0))))
+    return visits
+
+
+def probe_path_shape(dev, acc, xfr, b: int) -> dict:
+    """K1 as the main path meets it, on batch ``b`` of bench.py's plain
+    generator: the debit and credit probes of the accounts table (2^16
+    slots, ids 1..10,000, the ``ledger`` column) and the exists probe of the
+    transfers table (2^25 slots holding the main run's earlier batches, 15
+    columns, nearly every id new), as one launch of three lookups the way
+    ``_create_transfers`` makes it (no overflow flags), and as
+    ``GroupGraph`` launches it (preallocated outputs, the count in a device
+    word).  Checked against the plain lookups on the card, byte for byte;
+    times by CUDA events behind a spin; the bytes bound counts the keys,
+    17 B a visited slot, each found row's columns and the outputs."""
+    import torch
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.utils.benchgen import gen_batch_np
+
+    soa = convert.batch_to_tensors(
+        gen_batch_np(b, LANES, COUNT, N_ACCOUNTS, FIRST_TID), LANES, dev)
+    names = sm.TRANSFER_EXISTS_COLS
+    keys = [(acc, soa["debit_account_id_lo"], soa["debit_account_id_hi"],
+             ("ledger",)),
+            (acc, soa["credit_account_id_lo"], soa["credit_account_id_hi"],
+             ("ledger",)),
+            (xfr, soa["id_lo"], soa["id_hi"], names)]
+
+    def three():
+        return ht.lookup_many([ht.Lookup(t, lo, hi, c, count=COUNT)
+                               for t, lo, hi, c in keys], sm.MAX_PROBE,
+                              overflow=False)
+
+    def plain():
+        return [ht.lookup_plain(t, lo, hi, sm.MAX_PROBE, 0, COUNT, c)
+                for t, lo, hi, c in keys]
+
+    cw = torch.tensor([COUNT], dtype=torch.int64, device=dev)
+    outs = [(torch.empty(LANES, dtype=torch.bool, device=dev),
+             torch.empty(LANES, dtype=torch.int64, device=dev),
+             [torch.empty(LANES, dtype=t.cols[n].dtype, device=dev) for n in c])
+            for t, _lo, _hi, c in keys]
+
+    def graph_form():
+        ht.lookup_many([ht.Lookup(t, lo, hi, c, count=LANES, count_word=cw,
+                                  out=o)
+                        for (t, lo, hi, c), o in zip(keys, outs)],
+                       sm.MAX_PROBE, overflow=False)
+
+    errs = 0
+    graph_form()
+    for what, k, p, (_t, _lo, _hi, c), o in zip(
+            ("debit", "credit", "exists"), three(), plain(), keys, outs):
+        errs = max(errs, max_abs_err_card(
+            f"probe ({what}, the main path's shape)",
+            {"found": k.found, "slot": k.slot, **k.cols},
+            {"found": p.found, "slot": p.slot, **p.cols}))
+        errs = max(errs, max_abs_err_card(
+            f"probe ({what}, the graph's form)",
+            {"found": o[0], "slot": o[1], **dict(zip(c, o[2]))},
+            {"found": p.found, "slot": p.slot, **p.cols}))
+    visits, found_bytes, out_bytes = 0, 0, 0
+    found = []
+    for (t, lo, hi, c), p in zip(keys, plain()):
+        visits += slot_visits(t, lo, hi, sm.MAX_PROBE)
+        width = sum(t.cols[n].element_size() for n in c)
+        nf = int(p.found.sum())
+        found.append(nf)
+        found_bytes += nf * width
+        out_bytes += LANES * (1 + 8 + width)
+    k_three = timed(three)
+    k_graph = timed(graph_form)
+    k_plain = timed(plain)
+    g = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        graph_form()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    with torch.cuda.graph(g, stream=stream):
+        graph_form()
+    replay = timed(g.replay)
+    del g
+    return {
+        "max_abs_err": errs,
+        "ms": k_three["device_ms"], "call_ms": k_three["call_ms"],
+        "ms_from": k_three["device_ms_from"],
+        "plain_ms": k_plain["device_ms"],
+        "ms_graph_form": k_graph["device_ms"],
+        "ms_graph_replay": replay["device_ms"],
+        "bound": bound(3 * 16 * LANES + 17 * visits + found_bytes + out_bytes,
+                       3 * 40 * LANES + 10 * visits),
+        "clock": {w: phase_clock().split(
+            "probe", lambda lo=lo, hi=hi, t=t, c=c: ht.lookup_many(
+                [ht.Lookup(t, lo, hi, c, count=COUNT)], sm.MAX_PROBE,
+                overflow=False))
+            for w, (t, lo, hi, c) in zip(("debit", "exists"),
+                                         (keys[0], keys[2]))},
+        "shape": f"the main path's three probes of a batch, one launch: "
+                 f"debit and credit ids into 2^16 account slots (ids "
+                 f"1..10,000; found {found[0]}, {found[1]}), {COUNT} ids into "
+                 f"2^{xfr.capacity.bit_length() - 1} transfer slots holding "
+                 f"{int(xfr.count)} rows "
+                 f"(15 columns, found {found[2]}), {visits} slot visits",
+    }
+
+
 # The main run's transfers table at its largest: 2^25 slots (grown from
 # 2^18) holding the transfers of every batch but the last.
 MAIN_TABLE_LOG2 = 25
@@ -1065,7 +1213,7 @@ POSTED_TABLE_LOG2 = 24
 
 
 def insert_path_shape(dev, n_main: int = 10_000_000,
-                      log2: int = MAIN_TABLE_LOG2) -> dict:
+                      log2: int = MAIN_TABLE_LOG2, probe_acc=None) -> dict:
     """K2 as the main path meets it: 8,190-event batches of bench.py's plain
     generator inserted into a transfers table of 2^25 slots already holding
     the main run's 1,221 earlier batches (its ids, consecutive from
@@ -1103,6 +1251,8 @@ def insert_path_shape(dev, n_main: int = 10_000_000,
     del keys, zero_rows
     if int(t.count.item()) != held:
         raise AssertionError("insert (path shape): the table lost rows")
+    k1 = None if probe_acc is None else probe_path_shape(
+        dev, probe_acc, t, batches - 1)
     nxt = [batches - 1]
 
     def batch(gen=gen_batch_np):
@@ -1193,7 +1343,8 @@ def insert_path_shape(dev, n_main: int = 10_000_000,
                                      + depth_p["slot_visits"]))
     del t, p
     torch.cuda.empty_cache()
-    return {"ms_path_shape": r["device_ms"],
+    return {**({} if k1 is None else {"k1": k1}),
+            "ms_path_shape": r["device_ms"],
             "ms_path_shape_from": r["device_ms_from"],
             "bound_path_shape": b,
             "max_abs_err_path_shape": max(err, err2, err3),
@@ -1879,7 +2030,7 @@ def phase_seq_kernels(seed: int, dev) -> dict:
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import scan_path as tsp
     from tigerbeetle_tpu_torch.ops import state_machine as sm
-    from tigerbeetle_tpu_torch.testing import seqmix, seqtraps
+    from tigerbeetle_tpu_torch.testing import k7cases, seqmix, seqtraps
     from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
 
     rng = np.random.default_rng(seed + 2)
@@ -1955,16 +2106,54 @@ def phase_seq_kernels(seed: int, dev) -> dict:
                        "codes": sorted(set(to_np(kc)[:count].tolist()))}
         del case, gled, cled
 
+    # -- K7's traps (testing/k7cases.py), new distinct ids at 16,384 lanes
+    #    among them: the card against the split plain form on CPU copies --
+    k7 = {}
+    for name in k7cases.CASES:
+        n = 16384 if name in k7cases.SIZED else k7cases.LANES
+        case = k7cases.case(name, n)
+        pristine = clone_ledger(case["ledger"], dev)
+        gled = clone_ledger(pristine)
+        cled = case["ledger"]
+        sg = SeqPair(gled, case["lanes"]).soa(case["batch"], dev)
+        sc = SeqPair(cled, case["lanes"]).soa(case["batch"], "cpu")
+        _, kc, kov = tsp.create_accounts_seq(gled, sg, case["count"], case["ts"])
+        _, pc, pov = tsp.create_accounts_seq_split_plain(cled, sc, case["count"],
+                                                         case["ts"])
+        err = max_abs_err(f"seq_accounts ({name}, {n} events)",
+                          {"codes": to_np(kc), "overflow": to_np(kov),
+                           **ledger_np(gled)},
+                          {"codes": to_np(pc), "overflow": to_np(pov),
+                           **ledger_np(cled)})
+        if bool(kov) != case["overflow"]:
+            raise AssertionError(f"seq_kernels: K7 {name} overflow {bool(kov)}")
+        k7[name] = {"events": case["count"], "err": err,
+                    "codes": sorted(set(to_np(kc)[:case["count"]].tolist()))}
+        if name in k7cases.SIZED:
+            k7[name]["ms"] = timed(
+                lambda led: tsp.create_accounts_seq(led, sg, case["count"],
+                                                    case["ts"]),
+                reps=5, setup=lambda: (clone_ledger(pristine),))["device_ms"]
+        del case, pristine, gled, cled
+
     results = {}
     row = seq_timing(path_acc)
+    mixed_acc = seq_timing(acc_runs[1])
     results["seq_accounts"] = dict(
-        max_abs_err=max(x["err"] for x in acc_runs + [path_acc]),
+        max_abs_err=max([x["err"] for x in acc_runs + [path_acc]]
+                        + [v["err"] for v in k7.values()]),
         ms=row["ms"], call_ms=row["call_ms"], plain_ms=row["plain_ms"],
         plain_where="cpu (Python loop over the events, host wall ms)",
         library_ms=None, bound=row["bound"],
         chain_per_event=row["chain_per_event"],
         shape=f"{row['events']} events of the sequential path's shape",
-        mixed_2048=seq_timing(acc_runs[1]),
+        mixed_2048=mixed_acc, ms_mixed_2040=mixed_acc["ms"],
+        ms_16384=k7["new_distinct"]["ms"], traps=k7,
+        parent_ms=K7_PARENT_MS, info=_cuda.seq_accounts_info(COUNT),
+        clock=phase_clock().split(
+            "seq_accounts", lambda: tsp.create_accounts_seq(
+                clone_ledger(path_acc["before"]), path_acc["soa"],
+                path_acc["count"], path_acc["ts"])),
     )
     at_path = path_tr[1]
     whole = seq_timing(at_path)
@@ -7030,7 +7219,8 @@ def main() -> int:
         if name in ("shard_gather", "shard_combine"):
             rows[-1]["ms_shape"] = r["shape"]
         for key in ("ms_accounts_2e21", "library_ms_accounts_2e21",
-                    "ms_with_prepass", "ms_path_shape",
+                    "ms_with_prepass", "ms_path_shape", "ms_graph_form",
+                    "ms_graph_replay", "ms_mixed_2040", "ms_16384",
                     "ms_twophase_shape", "ms_adversarial",
                     "rounds_path_shape", "deepest_lane_path_shape",
                     "ms_no_rounds", "core_ms", "hist_append_ms"):

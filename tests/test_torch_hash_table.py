@@ -19,6 +19,7 @@ from tigerbeetle_tpu.ops import hash_table as jht
 from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch.ops import hash_table as tht
 from tigerbeetle_tpu_torch.ops import state_machine as tsm
+from tigerbeetle_tpu_torch.testing import k1cases
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 MAX_PROBE = 1 << 9
@@ -275,3 +276,101 @@ def test_validate_kernel_column_orders_match_the_cuda_enums():
               + ["TE_" + c.upper() for c in tsm.TRANSFER_EXISTS_COLS] + ["T_NPTRS"])
     assert enum("AccountCol") == want_a
     assert enum("TransferCol") == want_t
+
+
+# -- K1's rounds and its fused launch: testing/k1cases.py ---------------------
+
+
+def _jax_table(t):
+    return jht.Table(key_lo=jnp.asarray(t["key_lo"]), key_hi=jnp.asarray(t["key_hi"]),
+                     tombstone=jnp.asarray(t["tombstone"]),
+                     cols={k: jnp.asarray(v) for k, v in t["cols"].items()},
+                     count=jnp.asarray(t["count"]),
+                     probe_overflow=jnp.asarray(t["probe_overflow"]))
+
+
+def _port_table(t):
+    return tht.Table(convert.array_to_tensor(t["key_lo"], CPU),
+                     convert.array_to_tensor(t["key_hi"], CPU),
+                     torch.from_numpy(t["tombstone"].copy()),
+                     {k: convert.array_to_tensor(v, CPU) for k, v in t["cols"].items()},
+                     torch.tensor(int(t["count"])), torch.tensor(False))
+
+
+def _jax_lookup(t, lo, hi, max_probe, shift, count, mask, cols):
+    """The JAX package's lookup + gather_cols, masked as K1 masks ``found``:
+    (found, slot, overflow, gathered columns) as numpy."""
+    jt = _jax_table(t)
+    j = jht.lookup(jt, jnp.asarray(lo), jnp.asarray(hi), max_probe, shift)
+    valid = np.asarray(j.found) & (np.arange(len(lo)) < count)
+    if mask is not None:
+        valid &= mask
+    g = jht.gather_cols(jt, j.slot, jnp.asarray(valid))
+    return (valid, np.asarray(j.slot), bool(j.overflow),
+            {c: np.asarray(g[c]) for c in cols})
+
+
+def _assert_lookup(got, want, cols):
+    found, slot, overflow, gathered = want
+    np.testing.assert_array_equal(got.found.numpy(), found)
+    np.testing.assert_array_equal(convert.tensor_to_array(got.slot).view(np.uint64),
+                                  slot)
+    assert bool(got.overflow) == overflow
+    for c in cols:
+        np.testing.assert_array_equal(convert.tensor_to_array(got.cols[c]),
+                                      gathered[c], err_msg=c)
+
+
+@pytest.mark.parametrize("name", k1cases.CASES)
+@pytest.mark.parametrize("plain", ["split", "serial"])
+def test_k1cases_match_jax(name, plain):
+    """K1's plain forms on its trap cases against the JAX package's
+    ``lookup`` + ``gather_cols``: the split form (the card's rounds over
+    aligned groups of four slots) and the slot-a-step form, byte for byte,
+    overflow included."""
+    t, looks, max_probe = k1cases.case(name)
+    fn = tht.lookup_split_plain if plain == "split" else tht.lookup_plain
+    for lk in looks:
+        lo, hi = lk["key_lo"], lk["key_hi"]
+        mask = lk["mask"]
+        got = fn(_port_table(t), convert.array_to_tensor(lo, CPU),
+                 convert.array_to_tensor(hi, CPU), max_probe, lk["hash_shift"],
+                 lk["count"], ("val", "tag"),
+                 None if mask is None else torch.from_numpy(mask))
+        _assert_lookup(got, _jax_lookup(t, lo, hi, max_probe, lk["hash_shift"],
+                                        lk["count"], mask, ("val", "tag")),
+                       ("val", "tag"))
+    if name.startswith("max_probe"):
+        assert bool(got.overflow)
+
+
+def test_k1_fused_lookups_match_jax():
+    """``lookup_many``'s lookups of several tables in one call, two of them
+    keyed by a first lookup's gathered column, against the JAX package's
+    lookups one after another."""
+    tables, looks = k1cases.fused_case()
+    port = [_port_table(t) for t in tables]
+    specs = []
+    for lk in looks:
+        specs.append(tht.Lookup(
+            port[lk["table"]],
+            None if lk["key_lo"] is None else convert.array_to_tensor(lk["key_lo"], CPU),
+            None if lk["key_hi"] is None else convert.array_to_tensor(lk["key_hi"], CPU),
+            lk["cols"], None if lk["mask"] is None else torch.from_numpy(lk["mask"]),
+            lk["count"], keys_from=lk["keys_from"]))
+    got = tht.lookup_many(specs, k1cases.MAX_PROBE)
+    want = []
+    for lk in looks:
+        if lk["keys_from"] is None:
+            lo = lk["key_lo"]
+        else:
+            j, name, _hi = lk["keys_from"]
+            lo = want[j][3][name]
+        hi = np.zeros_like(lo) if lk["key_hi"] is None else lk["key_hi"]
+        want.append(_jax_lookup(tables[lk["table"]], lo, hi, k1cases.MAX_PROBE, 0,
+                                lk["count"], lk["mask"], ("val", "tag")))
+    for g, w, lk in zip(got, want, looks):
+        _assert_lookup(g, w, lk["cols"])
+    assert got[2].found.any() and got[3].found.any()
+    assert [g.overflow for g in tht.lookup_many(specs[:2], 4, overflow=False)] \
+        == [None, None]

@@ -23,8 +23,9 @@ from tigerbeetle_tpu_torch.ops import query as q
 from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
-from tigerbeetle_tpu_torch.testing import (fullmix, fulltraps, k2cases, k3cases,
-                                           k9cases, k13cases, k15cases, seqmix)
+from tigerbeetle_tpu_torch.testing import (fullmix, fulltraps, k1cases, k2cases,
+                                           k3cases, k7cases, k9cases, k13cases,
+                                           k15cases, seqmix)
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -94,6 +95,122 @@ def test_insert_and_probe_match_plain(cuda_device, max_probe):
     assert bool(k.overflow) == bool(p.overflow)
     for name in ("val", "tag"):
         assert torch.equal(k.cols[name], p.cols[name])
+
+
+def _k1_table(t, dev):
+    return ht.Table(convert.array_to_tensor(t["key_lo"], dev),
+                    convert.array_to_tensor(t["key_hi"], dev),
+                    torch.from_numpy(t["tombstone"].copy()).to(dev),
+                    {k: convert.array_to_tensor(v, dev) for k, v in t["cols"].items()},
+                    torch.tensor(int(t["count"]), device=dev),
+                    torch.tensor(False, device=dev))
+
+
+def _k1_equal(k, p, cols, what):
+    assert torch.equal(k.found.cpu(), p.found), what
+    assert torch.equal(k.slot.cpu(), p.slot), what
+    assert (k.overflow is None) == (p.overflow is None), what
+    if p.overflow is not None:
+        assert bool(k.overflow) == bool(p.overflow), what
+    for c in cols:
+        assert torch.equal(k.cols[c].cpu(), p.cols[c]), (what, c)
+
+
+@pytest.mark.parametrize("name", k1cases.CASES)
+def test_probe_cases_match_plain(cuda_device, name):
+    """K1 (one lookup a launch) on testing/k1cases.py's traps against both
+    plain forms on CPU copies, byte for byte, overflow included; and the
+    same lookup as the three lookups of one launch."""
+    t, looks, max_probe = k1cases.case(name)
+    for lk in looks:
+        mask = None if lk["mask"] is None else torch.from_numpy(lk["mask"])
+        args = [convert.array_to_tensor(lk["key_lo"], "cpu"),
+                convert.array_to_tensor(lk["key_hi"], "cpu"), max_probe,
+                lk["hash_shift"], lk["count"], ("val", "tag"), mask]
+        p = ht.lookup_split_plain(_k1_table(t, "cpu"), *args)
+        _k1_equal(p, ht.lookup_plain(_k1_table(t, "cpu"), *args),
+                  ("val", "tag"), name)
+        g = _k1_table(t, cuda_device)
+        gargs = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        k = ht.lookup(g, gargs[0], gargs[1], max_probe, lk["hash_shift"],
+                      lk["count"], ("val", "tag"), gargs[6])
+        _k1_equal(k, p, ("val", "tag"), name)
+        many = ht.lookup_many([ht.Lookup(g, gargs[0], gargs[1], cols, gargs[6],
+                                         lk["count"], lk["hash_shift"])
+                               for cols in (("val", "tag"), ("tag",), ())],
+                              max_probe)
+        for r, cols in zip(many, (("val", "tag"), ("tag",), ())):
+            _k1_equal(r, p, cols, name + " (fused)")
+
+
+def test_probe_fused_case_matches_plain(cuda_device):
+    """K1's one launch of five lookups over three tables, two keyed by the
+    first lookup's gathered column on the same thread, against
+    ``lookup_many``'s plain lookups one after another on CPU copies; with
+    and without the overflow flags."""
+    tables, looks = k1cases.fused_case()
+
+    def specs(dev):
+        tabs = [_k1_table(t, dev) for t in tables]
+        arr = lambda a: None if a is None else convert.array_to_tensor(a, dev)  # noqa: E731
+        return [ht.Lookup(tabs[lk["table"]], arr(lk["key_lo"]), arr(lk["key_hi"]),
+                          lk["cols"],
+                          None if lk["mask"] is None
+                          else torch.from_numpy(lk["mask"]).to(dev),
+                          lk["count"], keys_from=lk["keys_from"])
+                for lk in looks]
+
+    p = ht.lookup_many(specs("cpu"), k1cases.MAX_PROBE)
+    before = _cuda.counts()["probe"]
+    k = ht.lookup_many(specs(cuda_device), k1cases.MAX_PROBE)
+    assert _cuda.counts()["probe"] == before + 1
+    for a, b, lk in zip(k, p, looks):
+        _k1_equal(a, b, lk["cols"], "fused")
+    for a, b, lk in zip(ht.lookup_many(specs(cuda_device), k1cases.MAX_PROBE,
+                                       overflow=False), p, looks):
+        assert a.overflow is None
+        _k1_equal(a._replace(overflow=b.overflow), b, lk["cols"], "no flags")
+
+
+def test_probe_info_reads_the_launch(cuda_device):
+    info = _cuda.probe_info()
+    assert info["threads"] == 128 and info["blocks_per_sm"] >= 4
+    assert 0 < info["arg_bytes"] <= 4096 and info["registers"] > 0
+
+
+def _k7_run(c, dev, fn):
+    led = convert.ledger_from_numpy(convert.ledger_to_numpy(c["ledger"]), dev)
+    soa = _padded_soa(c["batch"], c["lanes"], dev)
+    _, codes, ovf = fn(led, soa, c["count"], c["ts"])
+    return led, codes, ovf
+
+
+K7_CASES = [(c, 64) for c in k7cases.CASES if c not in k7cases.SIZED] + \
+    [("new_distinct", n) for n in k7cases.SIZES]
+
+
+@pytest.mark.parametrize("name,n", K7_CASES)
+def test_seq_accounts_cases_match_plain(cuda_device, name, n):
+    """K7 on testing/k7cases.py's traps (new distinct ids up to 16,384
+    events) against its split plain form on a CPU copy: codes, overflow
+    and every ledger array, byte for byte; the serial plain form agrees."""
+    c = k7cases.case(name, n)
+    gk, kc, kov = _k7_run(c, cuda_device, sp.create_accounts_seq)
+    pk, pc, pov = _k7_run(c, "cpu", sp.create_accounts_seq_split_plain)
+    assert torch.equal(kc.cpu(), pc), name
+    assert bool(kov) == bool(pov) == c["overflow"]
+    _ledgers_equal(gk, pk, name)
+    sk, sc, _ = _k7_run(c, "cpu", sp.create_accounts_seq_plain)
+    assert torch.equal(sc, pc)
+    _ledgers_equal(sk, pk, name + " serial")
+
+
+def test_seq_accounts_info_reads_the_launch(cuda_device):
+    info = _cuda.seq_accounts_info(8192)
+    assert info["sequencer"]["dynamic_shared"] == 200 * 1024
+    assert info["sequencer"]["threads"] == 512
+    assert all(info[k]["registers"] > 0 for k in ("probe", "mark", "finish"))
 
 
 def test_grow_on_many_blocks_matches_plain(cuda_device):
@@ -1188,7 +1305,9 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
             "tigerbeetle_tpu_torch.parallel.mesh",
             "tigerbeetle_tpu_torch.parallel.sharded",
             "tigerbeetle_tpu_torch.testing.k9cases",
-            "tigerbeetle_tpu_torch.testing.k15cases"} <= set(mods)
+            "tigerbeetle_tpu_torch.testing.k15cases",
+            "tigerbeetle_tpu_torch.testing.k1cases",
+            "tigerbeetle_tpu_torch.testing.k7cases"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

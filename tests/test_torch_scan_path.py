@@ -25,7 +25,7 @@ from tigerbeetle_tpu.types import AccountFlags as AF, TransferFlags as F
 from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch.ops import scan_path as tsp
 from tigerbeetle_tpu_torch.ops import state_machine as tsm
-from tigerbeetle_tpu_torch.testing import seqmix, seqtraps
+from tigerbeetle_tpu_torch.testing import k7cases, seqmix, seqtraps
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 LANES = 64
@@ -45,11 +45,13 @@ def assert_ledgers_equal(want: dict, got: dict, path=""):
     np.testing.assert_array_equal(got, want, err_msg=path)
 
 
-# The port's two plain forms of K6: the serial loop (the JAX scan's mirror)
-# and the split form the card runs (K32's pre-pass, then the sequencer with
-# its overlay).
+# The port's two plain forms of K6 and of K7: the serial loop (the JAX
+# scan's mirror) and the split form the card runs (K32's pre-pass, then the
+# sequencer with its overlay; K7's pre-pass, marks and sequencer).
 FORMS = {"serial": tsp.create_transfers_seq_plain,
          "split": tsp.create_transfers_seq_split_plain}
+ACCOUNT_FORMS = {"serial": tsp.create_accounts_seq_plain,
+                 "split": tsp.create_accounts_seq_split_plain}
 
 
 @pytest.fixture(params=sorted(FORMS))
@@ -59,8 +61,8 @@ def form(request):
 
 class Pair:
     """One JAX ledger and one port ledger (converted from it) fed the same
-    batches through the two sequential paths; transfers through the plain
-    form ``form`` of K6."""
+    batches through the two sequential paths; transfers and accounts
+    through the plain form ``form`` of K6 and K7."""
 
     def __init__(self, form="serial", jledger=None):
         self.j = jledger if jledger is not None else jsm.make_ledger(*CAPS)
@@ -77,8 +79,7 @@ class Pair:
         self.j, jc = getattr(jsp, op)(
             self.j, {k: jnp.asarray(v) for k, v in soa.items()},
             jnp.uint64(n), jnp.uint64(self.ts))
-        fn = (FORMS[self.form] if op == "create_transfers_seq"
-              else getattr(tsp, op))
+        fn = (FORMS if op == "create_transfers_seq" else ACCOUNT_FORMS)[self.form]
         self.t, tc, got_overflow = fn(
             self.t, convert.soa_to_tensors(soa, CPU), n, self.ts)
         np.testing.assert_array_equal(convert.tensor_to_array(tc), np.asarray(jc))
@@ -90,8 +91,9 @@ class Pair:
         assert_ledgers_equal(convert.ledger_arrays(self.j),
                              convert.ledger_to_numpy(self.t))
 
-    def accounts(self, rows, ts=None):
-        return self.commit("create_accounts_seq", types.accounts_array(rows), ts)
+    def accounts(self, rows, ts=None, overflow=False, lanes=LANES):
+        return self.commit("create_accounts_seq", types.accounts_array(rows), ts,
+                           overflow, lanes)
 
     def transfers(self, rows, ts=None, overflow=False, lanes=LANES):
         return self.commit("create_transfers_seq", types.transfers_array(rows),
@@ -737,3 +739,54 @@ def test_seqtraps_batches_match_jax(form, trap):
                         overflow=trap == "probe_cap")
     # Every insert of probe_cap lands on slot 0 and is accepted.
     assert len(set(codes)) > (0 if trap == "probe_cap" else 2)
+
+
+# -- K7's split form: testing/k7cases.py ------------------------------------
+
+
+def _k7_pair(form, case):
+    return Pair(form, _jax_ledger(convert.ledger_to_numpy(case["ledger"])))
+
+
+@pytest.mark.parametrize("name", [c for c in k7cases.CASES
+                                  if c not in k7cases.SIZED])
+def test_k7cases_match_jax(form, name):
+    """K7's trap cases through both plain forms against the JAX package's
+    ``create_accounts_seq``: codes (the lanes past ``count`` too), every
+    array of the ledger, ``count`` and the overflow flag."""
+    case = k7cases.case(name)
+    p = _k7_pair(form, case)
+    codes = p.commit("create_accounts_seq", case["batch"], case["ts"],
+                     case["overflow"], case["lanes"])
+    if name == "codes":
+        assert sorted(set(codes)) == [0] + list(range(3, 22))
+
+
+@pytest.mark.parametrize("n", k7cases.SIZES)
+def test_k7_new_distinct_sizes_match_jax(form, n):
+    """n new distinct ids into an accounts table a quarter full, at 1,
+    8,190 and 16,384 events (K7 has no lane limit)."""
+    case = k7cases.case("new_distinct", n)
+    p = _k7_pair(form, case)
+    assert set(p.commit("create_accounts_seq", case["batch"], case["ts"],
+                        False, case["lanes"])) == {0}
+
+
+@pytest.mark.parametrize("name", k7cases.CASES)
+def test_k7cases_reach_their_traps(name):
+    """Each case sets the trap it names: the events the sequencer decides,
+    a walk that marks a later event, a capped insert that hands the batch
+    to the serial loop."""
+    facts = k7cases.trap_facts(name)
+    assert facts["reached"], facts
+
+
+def test_k7_split_form_on_the_seqmix_batches_matches_jax():
+    """The mix chip_smoke.py holds K7 to (a fresh batch, then one with
+    existing ids, chains and repeats) through the split form."""
+    rng = np.random.default_rng(33)
+    p = Pair("split")
+    p.accounts(list(seqmix.accounts_batch(rng, 1, 60)), ts=10 ** 9)
+    codes = p.accounts(list(seqmix.accounts_batch(rng, 40, 60)),
+                       ts=2 * 10 ** 9)
+    assert any(15 <= c <= 21 for c in codes)

@@ -1,99 +1,303 @@
-// K1 probe: batched linear probe of the hash table fused with the column
-// gather.
+// K1 probe: batched linear probes of the hash tables fused with their column
+// gathers, up to PROBE_MAX_DESC lookups in one launch.
 //
 // Replaces tigerbeetle_tpu/ops/hash_table.py:70 `lookup` (a lax.while_loop
 // over all lanes) with the column gather of :335 `gather_cols`, and the
 // u128.py:118 `mix64` it hashes with.
 //
-// Semantics (bit for bit the JAX function): home = (mix64(key) >> shift) &
-// (C-1); a lane probes home, home+1, ... for at most max_probe steps; it is
-// done on a slot holding its key and no tombstone (found) or on an empty
-// slot with no tombstone (absent); a lane with key 0 is done at once.
-// `found` is masked to lanes below `valid_count` and, when `lane_mask` is
-// not null, to the lanes it sets; `slot` is the matching slot
-// or 0; the gathered columns are zero where not found; `overflow` is set when
-// any lane is not done after max_probe steps.
+// Semantics of one lookup (bit for bit the JAX function): home =
+// (mix64(key) >> shift) & (C-1); a lane probes home, home+1, ... for at most
+// max_probe steps; it is done on a slot holding its key and no tombstone
+// (found) or on an empty slot with no tombstone (absent); a lane with key 0
+// is done at once.  `found` is masked to lanes below `valid_count` (or the
+// u64 device word `count_word`) and, when `lane_mask` is not null, to the
+// lanes it sets; `slot` is the matching slot or 0; the gathered columns are
+// zero where not found; the lookup's overflow byte is set when any lane is
+// not done after max_probe steps.
 //
-// What bounds it on the H100: bytes, at random addresses.  One thread per
-// lane; each probe step reads 17 B of one slot (key pair and tombstone) in
-// three 32-B sectors, so the sector traffic, not the arithmetic (one mix64 per
-// lane), is the cost.  At load <= 0.5 the expected probe length is under two
-// steps.  The design keeps one lane per thread so that the long tail of a
-// cluster costs only the lanes in it.
+// What bounds it on the H100: bytes at random addresses, and the dependent
+// round trips of each lane (a probe step's keys, then its row).  The design:
+//  - a batch's lookups share one launch: blockIdx.y picks a chain of
+//    descriptors, and a thread runs its lane through the chain in order, so
+//    a lookup whose keys are an earlier lookup's gathered columns (the
+//    general path's pending accounts and posted row) reads them back from
+//    its own stores.  The main path's three probes are one launch where
+//    they were three probes, three fills and three compares;
+//  - a probe round reads the aligned group of four slots that holds `cur`
+//    (one 32-B sector of key_lo, one of key_hi, a 4-B word of tombstones)
+//    and decides up to four slots in linear-probe order (the wrap at the
+//    mask falls between groups; tombstones are skipped, never stopped at);
+//  - a found lane loads every column of its row (up to 16 at once) before
+//    it stores any, so a row costs one round trip, not one a column;
+//  - blocks of 128 threads: a batch of 8,192 lanes and three lookups is
+//    192 blocks over the 132 SMs.
+// The overflow bytes are zeroed by one memset in the entry point, and only
+// when the caller asks for them (the main path does not).
 #include "common.cuh"
+#include "phase_clock.cuh"
 
-__global__ void probe_kernel(const uint64_t* __restrict__ tkey_lo,
-                             const uint64_t* __restrict__ tkey_hi,
-                             const uint8_t* __restrict__ tomb, uint64_t mask,
-                             int hash_shift, int64_t max_probe,
-                             const uint64_t* __restrict__ key_lo,
-                             const uint64_t* __restrict__ key_hi, int64_t n,
-                             int64_t valid_count,
-                             const uint64_t* __restrict__ count_word,
-                             const uint8_t* __restrict__ lane_mask,
-                             uint8_t* __restrict__ found_out,
-                             int64_t* __restrict__ slot_out,
-                             int* __restrict__ overflow, ColList cols) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint64_t lo = key_lo[i], hi = key_hi[i];
-  bool done = (lo == 0 && hi == 0);
-  bool found = false;
-  uint64_t slot = 0;
-  const uint64_t home = (mix64(lo, hi) >> hash_shift) & mask;
-  for (int64_t t = 0; t < max_probe && !done; ++t) {
-    const uint64_t cur = (home + (uint64_t)t) & mask;
-    const bool tb = tomb[cur] != 0;
-    const uint64_t a = tkey_lo[cur], b = tkey_hi[cur];
-    if (!tb && a == lo && b == hi) {
-      found = true;
-      slot = cur;
-      done = true;
-    } else if (!tb && a == 0 && b == 0) {
-      done = true;
-    }
-  }
-  if (!done && overflow) atomicOr(overflow, 1);
-  if (count_word) valid_count = (int64_t)*count_word;
-  const bool f = found && i < valid_count && (!lane_mask || lane_mask[i]);
-  found_out[i] = f ? 1 : 0;
-  slot_out[i] = (int64_t)slot;
-  for (int c = 0; c < cols.n; ++c) {
-    if (f) {
-      copy_elem(cols.dst[c], i, cols.src[c], (int64_t)slot, cols.width[c]);
-    } else {
-      zero_elem(cols.dst[c], i, cols.width[c]);
-    }
+#define PROBE_MAX_DESC 8
+#define PROBE_MAX_COLS 96
+#define PROBE_THREADS 128
+#define PROBE_BATCH_COLS 16  // a found lane's loads in flight at once
+
+#ifdef TB_PHASE_CLOCK
+#define PROBE_BARRIER() __syncthreads()
+#else
+#define PROBE_BARRIER() \
+  do {                  \
+  } while (0)
+#endif
+
+struct ProbeDesc {
+  const uint64_t* tkey_lo;
+  const uint64_t* tkey_hi;
+  const uint8_t* tomb;
+  uint64_t mask;  // capacity - 1
+  int hash_shift;
+  int grouped;  // the table is read four slots a round (aligned, C >= 4)
+  const uint64_t* key_lo;
+  const uint64_t* key_hi;  // null: every key_hi is 0
+  int64_t valid_count;
+  const uint64_t* count_word;  // null: valid_count holds
+  const uint8_t* lane_mask;    // null: every lane
+  uint8_t* found;
+  int64_t* slot;
+  uint8_t* overflow;  // null: not asked for
+  int col0, ncols;    // the lookup's columns in the pool
+  int next;           // the next lookup of this chain, or -1
+};
+
+struct ProbeArgs {
+  int64_t n;
+  int64_t max_probe;
+  int head[PROBE_MAX_DESC];  // each chain's first lookup
+  ProbeDesc d[PROBE_MAX_DESC];
+  const void* src[PROBE_MAX_COLS];
+  void* dst[PROBE_MAX_COLS];
+  int width[PROBE_MAX_COLS];  // bytes: 1, 4 or 8
+};
+
+static __device__ __forceinline__ uint64_t load_elem(const void* src,
+                                                     int64_t i, int width) {
+  if (width == 8) return static_cast<const uint64_t*>(src)[i];
+  if (width == 4) return static_cast<const uint32_t*>(src)[i];
+  return static_cast<const uint8_t*>(src)[i];
+}
+
+static __device__ __forceinline__ void store_elem(void* dst, int64_t i,
+                                                  int width, uint64_t v) {
+  if (width == 8) {
+    static_cast<uint64_t*>(dst)[i] = v;
+  } else if (width == 4) {
+    static_cast<uint32_t*>(dst)[i] = (uint32_t)v;
+  } else {
+    static_cast<uint8_t*>(dst)[i] = (uint8_t)v;
   }
 }
 
-// `valid_count` is read from the u64 device word `count_word` when that is
-// not null (the grouped commit's CUDA graph: one captured launch serves
-// every run); `overflow` may be null (the fast path reads the table's flag,
-// not the probe's).
-extern "C" int tb_probe(const void* tkey_lo, const void* tkey_hi,
-                        const void* tomb, int64_t capacity, int hash_shift,
-                        int64_t max_probe, const void* key_lo,
-                        const void* key_hi, int64_t n, int64_t valid_count,
-                        const void* count_word, const void* lane_mask,
-                        void* found, void* slot, void* overflow, int ncols,
+// One slot of a round: decides the lane when the slot is live.
+static __device__ __forceinline__ void probe_slot(uint64_t a, uint64_t b,
+                                                  bool tb, uint64_t lo,
+                                                  uint64_t hi, uint64_t s,
+                                                  bool* done, bool* found,
+                                                  uint64_t* slot) {
+  if (tb) return;
+  if (a == lo && b == hi) {
+    *found = true;
+    *slot = s;
+    *done = true;
+  } else if (a == 0 && b == 0) {
+    *done = true;
+  }
+}
+
+// The probe of lane i against one table: (done, found, slot).
+static __device__ void probe_lane(const ProbeDesc& D, int64_t max_probe,
+                                  uint64_t lo, uint64_t hi, bool* done_out,
+                                  bool* found_out, uint64_t* slot_out) {
+  bool done = lo == 0 && hi == 0, found = false;
+  uint64_t slot = 0;
+  const uint64_t home = (mix64(lo, hi) >> D.hash_shift) & D.mask;
+  int64_t t = 0;
+  if (D.grouped) {
+    uint64_t cur = home;
+    while (!done && t < max_probe) {
+      const uint64_t base = cur & ~3ull;
+      const ulonglong2* plo = reinterpret_cast<const ulonglong2*>(D.tkey_lo + base);
+      const ulonglong2* phi = reinterpret_cast<const ulonglong2*>(D.tkey_hi + base);
+      const ulonglong2 l0 = plo[0], l1 = plo[1], h0 = phi[0], h1 = phi[1];
+      const uint32_t tw = *reinterpret_cast<const uint32_t*>(D.tomb + base);
+      const int off = (int)(cur & 3);
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        if (o >= off && !done && t < max_probe) {
+          const uint64_t a = o == 0 ? l0.x : o == 1 ? l0.y : o == 2 ? l1.x : l1.y;
+          const uint64_t b = o == 0 ? h0.x : o == 1 ? h0.y : o == 2 ? h1.x : h1.y;
+          probe_slot(a, b, ((tw >> (8 * o)) & 0xFFu) != 0, lo, hi, base + o,
+                     &done, &found, &slot);
+          ++t;
+        }
+      }
+      cur = (base + 4) & D.mask;
+    }
+  } else {
+    for (; t < max_probe && !done; ++t) {
+      const uint64_t cur = (home + (uint64_t)t) & D.mask;
+      probe_slot(D.tkey_lo[cur], D.tkey_hi[cur], D.tomb[cur] != 0, lo, hi, cur,
+                 &done, &found, &slot);
+    }
+  }
+  *done_out = done;
+  *found_out = found;
+  *slot_out = slot;
+}
+
+// `act` is false only for the pad lanes of the clocked build, whose barriers
+// need every thread: such a lane probes key 0 and stores nothing.
+static __device__ void lookup_lane(const ProbeArgs& A, const ProbeDesc& D,
+                                   int64_t i, bool act) {
+  const uint64_t lo = act ? D.key_lo[i] : 0;
+  const uint64_t hi = act && D.key_hi ? D.key_hi[i] : 0;
+  bool done, found;
+  uint64_t slot;
+  probe_lane(D, A.max_probe, lo, hi, &done, &found, &slot);
+  PROBE_BARRIER();
+  PHASE_MARK(1);
+  if (!act) i = 0;
+  if (!done && D.overflow) *D.overflow = 1;
+  const int64_t vc = D.count_word ? (int64_t)*D.count_word : D.valid_count;
+  const bool f = found && i < vc && (!D.lane_mask || D.lane_mask[i]);
+  if (act) {
+    D.found[i] = f ? 1 : 0;
+    D.slot[i] = (int64_t)slot;
+  }
+  const int end = D.col0 + D.ncols;
+  for (int c0 = D.col0; c0 < end; c0 += PROBE_BATCH_COLS) {
+    uint64_t v[PROBE_BATCH_COLS];
+#pragma unroll
+    for (int k = 0; k < PROBE_BATCH_COLS; ++k)
+      v[k] = (f && c0 + k < end) ? load_elem(A.src[c0 + k], (int64_t)slot,
+                                             A.width[c0 + k])
+                                 : 0;
+    PROBE_BARRIER();
+    PHASE_MARK(2);
+#pragma unroll
+    for (int k = 0; k < PROBE_BATCH_COLS; ++k)
+      if (act && c0 + k < end)
+        store_elem(A.dst[c0 + k], i, A.width[c0 + k], v[k]);
+  }
+  PROBE_BARRIER();
+  PHASE_MARK(3);
+}
+
+__global__ void __launch_bounds__(PROBE_THREADS)
+    probe_kernel(const __grid_constant__ ProbeArgs A) {
+  PHASE_MARK(0);
+  const int64_t i = blockIdx.x * (int64_t)PROBE_THREADS + threadIdx.x;
+#ifndef TB_PHASE_CLOCK
+  if (i >= A.n) return;
+#endif
+  for (int k = A.head[blockIdx.y]; k >= 0; k = A.d[k].next)
+    lookup_lane(A, A.d[k], i, i < A.n);
+}
+
+// One launch of `nd` lookups (ProbeDesc order of the wrapper's arrays) over
+// `n` lanes each, in `nchains` chains: `next[k]` is the lookup run after k by
+// the same thread (-1 ends a chain), `heads` the chains' first lookups.
+// Per lookup k: its table (tkey_lo, tkey_hi, tomb, cap, hash_shift), its
+// keys (key_hi[k] may be null: zeros), valid_count / count_word / lane_mask,
+// its outputs (found, slot) and `ncols[k]` columns (src, dst, width) from
+// the pooled arrays.  `overflow`, when not null, is u8[nd]: zeroed here
+// (one memset), byte k set when a lane of lookup k ran out of probes.
+extern "C" int tb_probe(int nd, int nchains, const int* heads, const int* next,
+                        const void* const* tkey_lo, const void* const* tkey_hi,
+                        const void* const* tomb, const int64_t* cap,
+                        const int* hash_shift, int64_t max_probe,
+                        const void* const* key_lo, const void* const* key_hi,
+                        int64_t n, const int64_t* valid_count,
+                        const void* const* count_word,
+                        const void* const* lane_mask, void* const* found,
+                        void* const* slot, void* overflow, const int* ncols,
                         const void* const* src, void* const* dst,
                         const int* width, void* stream) {
-  ColList cols;
-  int err = pack_cols(&cols, ncols, src, dst, width);
-  if (err) return err;
+  if (nd <= 0 || nd > PROBE_MAX_DESC || nchains <= 0 || nchains > nd ||
+      n < 0 || max_probe < 0)
+    return (int)cudaErrorInvalidValue;
+  ProbeArgs A;
+  A.n = n;
+  A.max_probe = max_probe;
+  int total = 0;
+  for (int k = 0; k < nd; ++k) {
+    ProbeDesc& D = A.d[k];
+    if (cap[k] <= 0 || (cap[k] & (cap[k] - 1)) || next[k] >= nd ||
+        (next[k] >= 0 && next[k] <= k) || ncols[k] < 0 ||
+        total + ncols[k] > PROBE_MAX_COLS)
+      return (int)cudaErrorInvalidValue;
+    D.tkey_lo = (const uint64_t*)tkey_lo[k];
+    D.tkey_hi = (const uint64_t*)tkey_hi[k];
+    D.tomb = (const uint8_t*)tomb[k];
+    D.mask = (uint64_t)(cap[k] - 1);
+    D.hash_shift = hash_shift[k];
+    D.grouped = cap[k] >= 4 && ((uintptr_t)tkey_lo[k] & 15) == 0 &&
+                ((uintptr_t)tkey_hi[k] & 15) == 0 &&
+                ((uintptr_t)tomb[k] & 3) == 0;
+    D.key_lo = (const uint64_t*)key_lo[k];
+    D.key_hi = (const uint64_t*)key_hi[k];
+    D.valid_count = valid_count[k];
+    D.count_word = (const uint64_t*)count_word[k];
+    D.lane_mask = (const uint8_t*)lane_mask[k];
+    D.found = (uint8_t*)found[k];
+    D.slot = (int64_t*)slot[k];
+    D.overflow = overflow ? (uint8_t*)overflow + k : nullptr;
+    D.col0 = total;
+    D.ncols = ncols[k];
+    D.next = next[k];
+    for (int c = total; c < total + ncols[k]; ++c) {
+      if (width[c] != 1 && width[c] != 4 && width[c] != 8)
+        return (int)cudaErrorInvalidValue;
+      A.src[c] = src[c];
+      A.dst[c] = dst[c];
+      A.width[c] = width[c];
+    }
+    total += ncols[k];
+  }
+  for (int c = 0; c < nchains; ++c) {
+    if (heads[c] < 0 || heads[c] >= nd) return (int)cudaErrorInvalidValue;
+    A.head[c] = heads[c];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (overflow) {
+    cudaError_t e = cudaMemsetAsync(overflow, 0, (size_t)nd, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  probe_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)tkey_lo, (const uint64_t*)tkey_hi, (const uint8_t*)tomb,
-      (uint64_t)(capacity - 1), hash_shift, max_probe,
-      (const uint64_t*)key_lo, (const uint64_t*)key_hi, n, valid_count,
-      (const uint64_t*)count_word, (const uint8_t*)lane_mask, (uint8_t*)found,
-      (int64_t*)slot, (int*)overflow, cols);
+  const dim3 grid((unsigned)((n + PROBE_THREADS - 1) / PROBE_THREADS),
+                  (unsigned)nchains);
+  probe_kernel<<<grid, PROBE_THREADS, 0, s>>>(A);
   return (int)cudaGetLastError();
+}
+
+// What the compiler made of K1: registers and local memory a thread,
+// threads a block, blocks resident on one SM, the argument block's bytes.
+extern "C" int tb_probe_info(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, (const void*)probe_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, (const void*)probe_kernel, PROBE_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = PROBE_THREADS;
+  out[3] = per_sm;
+  out[4] = (int)sizeof(ProbeArgs);
+  return 0;
 }
 
 extern "C" const char* tb_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+PHASE_CLOCK_ENTRIES(tb_probe_phases)

@@ -105,6 +105,7 @@
 // shape on an H100 80GB HBM3 at 700 W.  K32 is bound by its probes' random
 // reads, in parallel.
 #include "common.cuh"
+#include "phase_clock.cuh"
 #include "seq_sync.cuh"
 #include "tombstone.cuh"
 
@@ -1931,26 +1932,367 @@ seq_transfers_kernel(SeqTransferArgs A) {
 // ---------------------------------------------------------------------------
 // K7 seq_accounts
 // ---------------------------------------------------------------------------
+//
+// K7 is K6's two steps for accounts: most of a create_accounts batch does
+// not depend on event order, so a wide pre-pass decides it and a sequencer
+// decides only what does.
+//
+// 1. The pre-pass, one thread an event over the card (two launches):
+//    - seqa_probe_kernel: the event's static code (3-14, in the ladder's
+//      order; they read only the event), and for an event that passes them
+//      its probe of the table as it was before the batch: found (the slot,
+//      and the exists code 15-21 against the stored row, which no event of
+//      the batch moves), capped, or the first truly empty slot F and its
+//      step from home.  A candidate inserter (active, static code 0, not
+//      found, not capped) puts F into a batch hash of F -> (lowest,
+//      highest) candidate (atomicMin / atomicMax: no output depends on
+//      which thread claimed the hash slot).
+//    - seqa_mark_kernel: a mark on every event the sequencer must decide:
+//      a linked event and the event that closes its chain; a capped
+//      candidate; a candidate whose F another candidate shares (an id seen
+//      twice shares its F, so this is also the in-batch join).  A marked
+//      candidate gets G1, the next pre-batch empty slot after F, and G1's
+//      candidate if it has exactly one.
+// 2. The sequencer, one block.  Its threads list the marked events and
+//    stage their records, the mask and an overlay of the batch's inserted
+//    slots (slot -> event, live, the id's high hash bits) in shared memory
+//    when they fit (about 1,500 marked events; else the records are read
+//    and the overlay kept in device memory).  Then thread 0 walks the
+//    marked events in order over the mask: the chain state and
+//    chain_open_err; the walk from F over the table as the batch has left
+//    it: an overlay slot holding a live insert of the same id (its hash
+//    bits, then the ids) is `exists` (15-21 against that event's fields), any
+//    other overlay slot, or the F of an unmarked candidate that came
+//    earlier, is taken; the first free slot is the insert's, and where it
+//    is the F of a later unmarked candidate, that candidate is marked (its
+//    slot is taken before it comes).  A failing chain event rolls the
+//    chain's inserts back in the overlay (live bit cleared) and sets the
+//    earlier members' final codes to 1.  Tombstones are never reused: a
+//    rolled-back slot stays in the overlay.  Every unmarked event keeps the
+//    pre-pass's answer and slot: no earlier event can reach its F unmarked.
+//    A walk that reaches MAX_PROBE (a capped insert, which writes slot 0),
+//    or an on-chip overlay at half its slots, ends the sequencing: the
+//    block writes what is decided, and thread 0
+//    runs the rest of the batch as the one-thread loop K7 always was
+//    (seqa_serial), then the chain pass over the raw codes.
+// 3. seqa_finish_kernel, one thread an event: the final codes and the rows
+//    (every inserted slot's columns; the key where the insert stands, the
+//    tombstone where it was rolled back), the count by one atomic a block.
+//
+// Why the sequencer is one thread: what it decides is a chain of
+// dependences through the overlay and the chain state, and it decides
+// little (at the sequential path's 8,190 new accounts about one event in
+// eight, the ones whose F another shares); with the records on chip, an
+// event is a few shared-memory probes and two stores, no device-memory
+// read on its chain (the first form read its record and the ids from L2:
+// about 1,800 cycles an event).  There is no lane limit: the overlay and
+// the mask fall back to device memory.
+//
+// What bounds it on the H100: the pre-pass's probes are random reads (one
+// dependent probe an event, in parallel); the sequencer's chain is the
+// marked events' shared-memory work, one after another.
 
 #define EV64(k) (static_cast<const uint64_t*>(A.batch[k])[i])
 #define EV32(k) (static_cast<const uint32_t*>(A.batch[k])[i])
+
+#define SEQA_THREADS 512   // the sequencer block
+#define SEQA_WIDE 256      // the pre-pass and finish blocks
+#define SEQA_SMEM (200 * 1024)  // the sequencer's shared memory
+#define SEQA_NONE 0xFFFFFFFFu   // no candidate holds this F
+#define SEQA_MULTI 0xFFFFFFFEu  // several candidates hold it
+
+// The pre-pass record: four words an event (AR_*), word 0 its bits.
+#define AR_WORDS 4
+#define AR_STATIC 0x1Full           // the static code: 0 or 3-14
+#define AR_EXISTS_SHIFT 8           // bits 8-12: a found id's exists code
+#define AR_ACTIVE (1ull << 16)      // e < count
+#define AR_LINKED (1ull << 17)      // active and linked
+#define AR_FOUND (1ull << 18)       // stored before the batch (word 1: slot)
+#define AR_CAPPED (1ull << 19)      // no empty slot within MAX_PROBE
+#define AR_CAND (1ull << 20)        // a candidate inserter (word 1: F)
+#define AR_G1 (1ull << 21)          // word 2: G1, word 3: G1's candidate
+#define AR_TF_SHIFT 32              // bits 32-44: F's step from home
+#define AR_TG1_SHIFT 48             // bits 48-60: G1's step (MAX_PROBE: none)
+#define AR_STEP 0x1FFFull
+
+// The sequencer's decision of a marked event: raw code, final code, insert.
+#define DEC_FINAL_SHIFT 8
+#define DEC_INS (1ull << 16)
+#define DEC_LIVE (1ull << 17)
+#define DEC_SLOT_SHIFT 32
+
+#ifdef TB_PHASE_CLOCK
+#define SEQA_BARRIER() __syncthreads()
+#else
+#define SEQA_BARRIER() \
+  do {                 \
+  } while (0)
+#endif
 
 struct SeqAccountArgs {
   const void* batch[AB_N];
   DevTable acc;
   int64_t n, count;
   uint64_t timestamp;
-  uint64_t* undo;  // n inserted slots
+  uint64_t* rec;   // n x AR_WORDS
+  uint64_t* dec;   // n: the marked events' decisions
+  uint64_t* undo;  // n: inserted slots (the serial loop's rollbacks)
+  uint32_t* fk;    // the F hash: F + 1 (0: free)
+  uint32_t* fmi;   // ~(lowest candidate), by atomicMax
+  uint32_t* fmx;   // highest candidate + 1
+  uint32_t hf_mask;
+  uint32_t* marks;  // ceil(n / 32) words
+  uint32_t* ovk;    // the overlay in device memory (when the shared one
+  uint32_t* ovv;    // does not fit): pow2(2n) slots, cleared by the
+  uint32_t* ovh;    // sequencer when it takes them
+  uint32_t ovg_mask;
+  int64_t* state;  // the event the serial loop took over at (n: none)
   int32_t* codes;
-  int* overflow;
+  uint8_t* overflow;
 };
 
-__global__ void seq_accounts_kernel(SeqAccountArgs A) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  const uint64_t ts_base = A.timestamp - (uint64_t)A.count + 1;
-  int64_t chain_start = -1;
-  bool chain_broken = false;
-  for (int64_t i = 0; i < A.n; ++i) {
+static __device__ __forceinline__ uint32_t seqa_hash(uint64_t x,
+                                                     uint32_t mask) {
+  return (uint32_t)((x * 0x9E3779B97F4A7C15ull) >> 32) & mask;
+}
+
+static __device__ uint32_t acc_static_code(const SeqAccountArgs& A,
+                                           int64_t i) {
+  const uint32_t flags = EV32(AB_FLAGS);
+  const u128 aid = mk128(EV64(AB_ID_LO), EV64(AB_ID_HI));
+  if (EV64(AB_TIMESTAMP) != 0) return 3;
+  if (EV32(AB_RESERVED) != 0) return 4;
+  if (flags & AF_PADDING) return 5;
+  if (aid == 0) return 6;
+  if (aid == U128_MAX) return 7;
+  if ((flags & AF_DEBITS_MUST_NOT_EXCEED_CREDITS) &&
+      (flags & AF_CREDITS_MUST_NOT_EXCEED_DEBITS))
+    return 8;
+  if (EV64(AB_DEBITS_PENDING_LO) || EV64(AB_DEBITS_PENDING_HI)) return 9;
+  if (EV64(AB_DEBITS_POSTED_LO) || EV64(AB_DEBITS_POSTED_HI)) return 10;
+  if (EV64(AB_CREDITS_PENDING_LO) || EV64(AB_CREDITS_PENDING_HI)) return 11;
+  if (EV64(AB_CREDITS_POSTED_LO) || EV64(AB_CREDITS_POSTED_HI)) return 12;
+  if (EV32(AB_LEDGER) == 0) return 13;
+  if (EV32(AB_CODE) == 0) return 14;
+  return 0;
+}
+
+// The exists code (15-21) of event i against a row holding these fields.
+static __device__ uint32_t acc_exists_code(const SeqAccountArgs& A, int64_t i,
+                                           uint32_t flags, uint64_t ud128_lo,
+                                           uint64_t ud128_hi, uint64_t ud64,
+                                           uint32_t ud32, uint32_t ledger,
+                                           uint32_t code) {
+  if (EV32(AB_FLAGS) != flags) return 15;
+  if (EV64(AB_USER_DATA_128_LO) != ud128_lo ||
+      EV64(AB_USER_DATA_128_HI) != ud128_hi)
+    return 16;
+  if (EV64(AB_USER_DATA_64) != ud64) return 17;
+  if (EV32(AB_USER_DATA_32) != ud32) return 18;
+  if (EV32(AB_LEDGER) != ledger) return 19;
+  if (EV32(AB_CODE) != code) return 20;
+  return 21;
+}
+
+// The F hash: F -> (lowest, highest) candidate.
+static __device__ void fh_insert(const SeqAccountArgs& A, uint64_t f,
+                                 uint32_t e) {
+  const uint32_t key = (uint32_t)f + 1;
+  for (uint32_t h = seqa_hash(f, A.hf_mask);; h = (h + 1) & A.hf_mask) {
+    const uint32_t prev = atomicCAS(&A.fk[h], 0u, key);
+    if (prev == 0u || prev == key) {
+      atomicMax(&A.fmi[h], ~e);
+      atomicMax(&A.fmx[h], e + 1);
+      return;
+    }
+  }
+}
+
+// The candidate whose F is x: SEQA_NONE, SEQA_MULTI or its event.
+static __device__ uint32_t fh_owner(const SeqAccountArgs& A, uint64_t x) {
+  const uint32_t key = (uint32_t)x + 1;
+  for (uint32_t h = seqa_hash(x, A.hf_mask);; h = (h + 1) & A.hf_mask) {
+    const uint32_t k = A.fk[h];
+    if (k == 0u) return SEQA_NONE;
+    if (k == key) {
+      const uint32_t lo = ~A.fmi[h], hi = A.fmx[h] - 1;
+      return lo == hi ? lo : SEQA_MULTI;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SEQA_WIDE)
+    seqa_probe_kernel(SeqAccountArgs A) {
+  PHASE_MARK(0);
+  const int64_t i = blockIdx.x * (int64_t)SEQA_WIDE + threadIdx.x;
+  if (i < A.n) {
+    uint64_t bits = 0, slot = 0;
+    if (i < A.count) {
+      bits |= AR_ACTIVE;
+      if (EV32(AB_FLAGS) & AF_LINKED) bits |= AR_LINKED;
+      const uint32_t sc = acc_static_code(A, i);
+      if (sc != 0) {
+        bits |= sc;
+      } else {
+        uint64_t t;
+        bool capped;
+        const bool found =
+            probe_full(A.acc, EV64(AB_ID_LO), EV64(AB_ID_HI), &slot, &t, &capped);
+        const DevTable& T = A.acc;
+        if (found) {
+          bits |= AR_FOUND |
+                  ((uint64_t)acc_exists_code(
+                       A, i, C32(T, AT_FLAGS)[slot],
+                       C64(T, AT_USER_DATA_128_LO)[slot],
+                       C64(T, AT_USER_DATA_128_HI)[slot],
+                       C64(T, AT_USER_DATA_64)[slot], C32(T, AT_USER_DATA_32)[slot],
+                       C32(T, AT_LEDGER)[slot], C32(T, AT_CODE)[slot])
+                   << AR_EXISTS_SHIFT);
+        } else if (capped) {
+          bits |= AR_CAPPED;
+        } else {
+          bits |= AR_CAND | (t << AR_TF_SHIFT);
+          fh_insert(A, slot, (uint32_t)i);
+        }
+      }
+    }
+    A.rec[i * AR_WORDS] = bits;
+    A.rec[i * AR_WORDS + 1] = slot;
+    // The id's high hash bits (the sequencer tells ids apart by them before
+    // it reads an id) beside G1's candidate, which the mark kernel sets.
+    A.rec[i * AR_WORDS + 3] =
+        (mix64(EV64(AB_ID_LO), EV64(AB_ID_HI)) & ~0xFFFFFFFFull) | SEQA_NONE;
+  }
+  SEQA_BARRIER();
+  PHASE_MARK(1);
+}
+
+__global__ void __launch_bounds__(SEQA_WIDE)
+    seqa_mark_kernel(SeqAccountArgs A) {
+  PHASE_MARK(2);
+  const int64_t i = blockIdx.x * (int64_t)SEQA_WIDE + threadIdx.x;
+  if (i < A.n) {
+    const uint64_t bits = A.rec[i * AR_WORDS];
+    bool mark = (bits & (AR_LINKED | AR_CAPPED)) != 0 ||
+                ((bits & AR_ACTIVE) && i > 0 &&
+                 (A.rec[(i - 1) * AR_WORDS] & AR_LINKED));
+    if (bits & AR_CAND) {
+      const uint64_t f = A.rec[i * AR_WORDS + 1];
+      if (fh_owner(A, f) == SEQA_MULTI) {
+        mark = true;
+        // G1: the next pre-batch empty slot after F, and its candidate.
+        const uint64_t t_f = (bits >> AR_TF_SHIFT) & AR_STEP;
+        const uint64_t home = (f - t_f) & A.acc.mask;
+        uint64_t t = t_f + 1, g = 0;
+        for (; t < SEQ_MAX_PROBE; ++t) {
+          g = (home + t) & A.acc.mask;
+          if (!A.acc.tomb[g] && A.acc.key_lo[g] == 0 && A.acc.key_hi[g] == 0)
+            break;
+        }
+        A.rec[i * AR_WORDS] = bits | AR_G1 | (t << AR_TG1_SHIFT);
+        A.rec[i * AR_WORDS + 2] = g;
+        A.rec[i * AR_WORDS + 3] =
+            (A.rec[i * AR_WORDS + 3] & ~0xFFFFFFFFull) |
+            (t < SEQ_MAX_PROBE ? fh_owner(A, g) : SEQA_NONE);
+      }
+    }
+    if (mark) atomicOr(&A.marks[i >> 5], 1u << (i & 31));
+  }
+  SEQA_BARRIER();
+  PHASE_MARK(3);
+}
+
+// The overlay: slot + 1 -> (event << 1 | live), and the inserted id's high
+// hash bits.
+// The sequencer's arithmetic is 32-bit (slots below 2^31, events below
+// 2^31): it runs on one thread, where every instruction is on the chain.
+struct Overlay {
+  uint32_t* key;
+  uint32_t* val;
+  uint32_t* hash;
+  uint32_t mask;  // 2^(32 - shift) - 1
+  int shift;
+
+  __device__ __forceinline__ uint32_t home(uint32_t x) const {
+    return (x * 0x9E3779B1u) >> shift;
+  }
+  __device__ uint32_t find(uint32_t x) const {  // its index, or ~0u
+    const uint32_t k = x + 1;
+    for (uint32_t h = home(x);; h = (h + 1) & mask) {
+      const uint32_t kh = key[h];
+      if (kh == k) return h;
+      if (kh == 0u) return ~0u;
+    }
+  }
+  __device__ void put(uint32_t x, uint32_t v, uint32_t id_hash) const {
+    for (uint32_t h = home(x);; h = (h + 1) & mask) {
+      if (key[h] == 0u) {
+        key[h] = x + 1;
+        val[h] = v;
+        hash[h] = id_hash;
+        return;
+      }
+    }
+  }
+};
+
+// One event's row at slot x: its columns, and its key where the insert
+// stands or the tombstone where it was rolled back.
+static __device__ void seqa_write_row(const SeqAccountArgs& A, int64_t i,
+                                      uint64_t x, bool live) {
+  const DevTable& T = A.acc;
+  for (int k = 0; k < 8; ++k)
+    C64(T, AT_DEBITS_PENDING_LO + k)[x] = EV64(AB_DEBITS_PENDING_LO + k);
+  C64(T, AT_USER_DATA_128_LO)[x] = EV64(AB_USER_DATA_128_LO);
+  C64(T, AT_USER_DATA_128_HI)[x] = EV64(AB_USER_DATA_128_HI);
+  C64(T, AT_USER_DATA_64)[x] = EV64(AB_USER_DATA_64);
+  C32(T, AT_USER_DATA_32)[x] = EV32(AB_USER_DATA_32);
+  C32(T, AT_LEDGER)[x] = EV32(AB_LEDGER);
+  C32(T, AT_CODE)[x] = EV32(AB_CODE);
+  C32(T, AT_FLAGS)[x] = EV32(AB_FLAGS);
+  C64(T, AT_TIMESTAMP)[x] = A.timestamp - (uint64_t)A.count + 1 + (uint64_t)i;
+  T.key_lo[x] = live ? EV64(AB_ID_LO) : 0;
+  T.key_hi[x] = live ? EV64(AB_ID_HI) : 0;
+  T.tomb[x] = live ? 0 : 1;
+}
+
+// Event i's code and row from its record, or its decision when marked;
+// `raw`: the code before the chain pass.  Returns whether it inserted a row
+// that stands.
+static __device__ bool seqa_finish(const SeqAccountArgs& A,
+                                   const uint32_t* marks, int64_t i, bool raw) {
+  const uint64_t bits = A.rec[i * AR_WORDS];
+  uint32_t code;
+  bool ins, live = true;
+  uint64_t x;
+  if ((marks[i >> 5] >> (i & 31)) & 1u) {
+    const uint64_t d = A.dec[i];
+    code = (uint32_t)((raw ? d : d >> DEC_FINAL_SHIFT) & 0x7F);
+    ins = (d & DEC_INS) != 0;
+    live = (d & DEC_LIVE) != 0;
+    x = d >> DEC_SLOT_SHIFT;
+  } else {
+    code = !(bits & AR_ACTIVE) ? 0
+           : (bits & AR_STATIC) ? (uint32_t)(bits & AR_STATIC)
+           : (bits & AR_FOUND) ? (uint32_t)((bits >> AR_EXISTS_SHIFT) & 0x1F)
+                               : 0;
+    ins = (bits & AR_CAND) != 0;
+    x = A.rec[i * AR_WORDS + 1];
+  }
+  // _chain_codes reaches one lane past a chain left open at count - 1.
+  if (!raw && i == A.count && i > 0 && (A.rec[(i - 1) * AR_WORDS] & AR_LINKED))
+    code = 1;
+  A.codes[i] = (int32_t)code;
+  if (ins) seqa_write_row(A, i, x, live);
+  return ins && live;
+}
+
+// The one-thread loop over events [i0, n) on the table in device memory,
+// with the chain state at i0 (K7 before the pre-pass, and still its form
+// after a capped insert); raw codes.
+static __device__ void seqa_serial(const SeqAccountArgs& A, int64_t i0,
+                                   int64_t chain_start, bool chain_broken) {
+  for (int64_t i = i0; i < A.n; ++i) {
     A.undo[i] = SEQ_SENT;
     const bool active = i < A.count;
     const uint32_t flags = EV32(AB_FLAGS);
@@ -1958,67 +2300,31 @@ __global__ void seq_accounts_kernel(SeqAccountArgs A) {
     if (linked && chain_start < 0) chain_start = i;
     const bool in_chain = chain_start >= 0;
     const bool chain_open_err = linked && i == A.count - 1;
-    const uint64_t ev_ts = ts_base + (uint64_t)i;
-
     uint32_t code = 0;
     if (!active) code = 0;
     else if (chain_open_err) code = 2;
     else if (chain_broken) code = 1;
-    else if (EV64(AB_TIMESTAMP) != 0) code = 3;
-    else {
-      // _account_logic (state_machine.zig:1198-1237).
-      const uint64_t id_lo = EV64(AB_ID_LO), id_hi = EV64(AB_ID_HI);
-      const u128 aid = mk128(id_lo, id_hi);
+    else if ((code = acc_static_code(A, i)) == 0) {
       uint64_t slot, free_slot;
       bool capped;
-      const bool found = probe_key(A.acc, id_lo, id_hi, &slot, &free_slot, &capped);
-      const uint32_t ev_ledger = EV32(AB_LEDGER), ev_code = EV32(AB_CODE);
-      const uint32_t ev_ud32 = EV32(AB_USER_DATA_32);
-      const uint64_t ev_ud64 = EV64(AB_USER_DATA_64);
-      const uint64_t ev_ud128_lo = EV64(AB_USER_DATA_128_LO), ev_ud128_hi = EV64(AB_USER_DATA_128_HI);
-      if (EV32(AB_RESERVED) != 0) code = 4;
-      else if (flags & AF_PADDING) code = 5;
-      else if (aid == 0) code = 6;
-      else if (aid == U128_MAX) code = 7;
-      else if ((flags & AF_DEBITS_MUST_NOT_EXCEED_CREDITS) &&
-               (flags & AF_CREDITS_MUST_NOT_EXCEED_DEBITS)) code = 8;
-      else if (EV64(AB_DEBITS_PENDING_LO) || EV64(AB_DEBITS_PENDING_HI)) code = 9;
-      else if (EV64(AB_DEBITS_POSTED_LO) || EV64(AB_DEBITS_POSTED_HI)) code = 10;
-      else if (EV64(AB_CREDITS_PENDING_LO) || EV64(AB_CREDITS_PENDING_HI)) code = 11;
-      else if (EV64(AB_CREDITS_POSTED_LO) || EV64(AB_CREDITS_POSTED_HI)) code = 12;
-      else if (ev_ledger == 0) code = 13;
-      else if (ev_code == 0) code = 14;
-      else if (found) {
-        const DevTable& T = A.acc;
-        if (flags != C32(T, AT_FLAGS)[slot]) code = 15;
-        else if (ev_ud128_lo != C64(T, AT_USER_DATA_128_LO)[slot] ||
-                 ev_ud128_hi != C64(T, AT_USER_DATA_128_HI)[slot]) code = 16;
-        else if (ev_ud64 != C64(T, AT_USER_DATA_64)[slot]) code = 17;
-        else if (ev_ud32 != C32(T, AT_USER_DATA_32)[slot]) code = 18;
-        else if (ev_ledger != C32(T, AT_LEDGER)[slot]) code = 19;
-        else if (ev_code != C32(T, AT_CODE)[slot]) code = 20;
-        else code = 21;
-      }
-      if (code == 0) {
-        const DevTable& T = A.acc;
+      const uint64_t id_lo = EV64(AB_ID_LO), id_hi = EV64(AB_ID_HI);
+      const DevTable& T = A.acc;
+      if (probe_key(T, id_lo, id_hi, &slot, &free_slot, &capped)) {
+        code = acc_exists_code(A, i, C32(T, AT_FLAGS)[slot],
+                               C64(T, AT_USER_DATA_128_LO)[slot],
+                               C64(T, AT_USER_DATA_128_HI)[slot],
+                               C64(T, AT_USER_DATA_64)[slot],
+                               C32(T, AT_USER_DATA_32)[slot],
+                               C32(T, AT_LEDGER)[slot], C32(T, AT_CODE)[slot]);
+      } else {
         const uint64_t s = capped ? 0 : free_slot;
         if (capped) *A.overflow = 1;
-        for (int k = 0; k < 8; ++k)
-          C64(T, AT_DEBITS_PENDING_LO + k)[s] = EV64(AB_DEBITS_PENDING_LO + k);
-        C64(T, AT_USER_DATA_128_LO)[s] = ev_ud128_lo;
-        C64(T, AT_USER_DATA_128_HI)[s] = ev_ud128_hi;
-        C64(T, AT_USER_DATA_64)[s] = ev_ud64;
-        C32(T, AT_USER_DATA_32)[s] = ev_ud32;
-        C32(T, AT_LEDGER)[s] = ev_ledger;
-        C32(T, AT_CODE)[s] = ev_code;
-        C32(T, AT_FLAGS)[s] = flags;
-        C64(T, AT_TIMESTAMP)[s] = ev_ts;
-        set_key(T, s, id_lo, id_hi);
+        seqa_write_row(A, i, s, true);
+        *T.count += 1;
         A.undo[i] = s;
       }
     }
     A.codes[i] = (int32_t)code;
-
     if (active && code != 0 && in_chain && !chain_broken) {
       for (int64_t j = i - 1; j >= chain_start; --j)
         if (A.undo[j] < SEQ_SENT) tombstone_row(A.acc, A.undo[j]);
@@ -2031,6 +2337,282 @@ __global__ void seq_accounts_kernel(SeqAccountArgs A) {
   }
   chain_codes(A.codes, static_cast<const uint32_t*>(A.batch[AB_FLAGS]),
               AF_LINKED, A.n, A.count);
+}
+
+// The next marked event after e (n when none).
+static __device__ __forceinline__ int seqa_next(const uint32_t* marks, int e,
+                                                int n) {
+  int w = (e + 1) >> 5;
+  const int words = (n + 31) >> 5;
+  if (w >= words) return n;
+  uint32_t b = marks[w] & (~0u << ((e + 1) & 31));
+  while (b == 0u) {
+    if (++w >= words) return n;
+    b = marks[w];
+  }
+  const int nx = (w << 5) + __ffs(b) - 1;
+  return nx < n ? nx : n;
+}
+
+struct SeqaRec {
+  uint64_t w[AR_WORDS];
+};
+
+static __device__ __forceinline__ SeqaRec seqa_load(const SeqAccountArgs& A,
+                                                    int64_t e) {
+  SeqaRec r;
+  const ulonglong2* p = reinterpret_cast<const ulonglong2*>(A.rec + e * AR_WORDS);
+  const ulonglong2 a = p[0], b = p[1];
+  r.w[0] = a.x;
+  r.w[1] = a.y;
+  r.w[2] = b.x;
+  r.w[3] = b.y;
+  return r;
+}
+
+#define SEQA_CAPPED (-1)
+#define SEQA_INSERT (-2)
+
+// The walk of candidate e from its F over the table as the batch has left
+// it.  Returns SEQA_INSERT (*x the slot), SEQA_CAPPED, or the event whose
+// live insert holds e's id.
+static __device__ int seqa_walk(const SeqAccountArgs& A, const Overlay& ov,
+                                uint32_t* marks, int e, const SeqaRec& r,
+                                uint32_t* x_out) {
+  const int64_t i = e;
+  const uint32_t id_hash = (uint32_t)(r.w[3] >> 32);
+  const uint64_t bits = r.w[0];
+  const uint32_t mask = (uint32_t)A.acc.mask;
+  uint32_t x = (uint32_t)r.w[1];
+  int t = (int)((bits >> AR_TF_SHIFT) & AR_STEP);
+  const uint32_t home = (x - (uint32_t)t) & mask;
+  int stage = 0;  // 0: at F, 1: at G1, 2: beyond
+  while (true) {
+    if (t >= SEQ_MAX_PROBE) return SEQA_CAPPED;
+    const uint32_t h = ov.find(x);
+    bool taken = false;
+    if (h != ~0u) {
+      const uint32_t v = ov.val[h];
+      const int j = (int)(v >> 1);
+      if ((v & 1u) && ov.hash[h] == id_hash &&
+          static_cast<const uint64_t*>(A.batch[AB_ID_LO])[j] == EV64(AB_ID_LO) &&
+          static_cast<const uint64_t*>(A.batch[AB_ID_HI])[j] == EV64(AB_ID_HI))
+        return j;
+      taken = true;
+    } else if (stage > 0) {
+      const uint32_t u = stage == 1 ? (uint32_t)r.w[3] : fh_owner(A, x);
+      if (u < SEQA_MULTI && u != (uint32_t)e &&
+          !((marks[u >> 5] >> (u & 31)) & 1u)) {
+        if (u < (uint32_t)e) {
+          taken = true;  // an unmarked candidate before e inserted there
+        } else {
+          marks[u >> 5] |= 1u << (u & 31);  // its F is taken before it comes
+        }
+      }
+    }
+    if (!taken) {
+      *x_out = x;
+      return SEQA_INSERT;
+    }
+    if (stage == 0 && (bits & AR_G1)) {
+      stage = 1;
+      x = (uint32_t)r.w[2];
+      t = (int)((bits >> AR_TG1_SHIFT) & AR_STEP);
+      continue;
+    }
+    stage = 2;
+    do {
+      if (++t >= SEQ_MAX_PROBE) return SEQA_CAPPED;
+      x = (home + (uint32_t)t) & mask;
+    } while (A.acc.tomb[x] || A.acc.key_lo[x] || A.acc.key_hi[x]);
+  }
+}
+
+// An exclusive scan of one value a thread over the block; *total gets the
+// sum.  Every thread must call it.
+static __device__ uint32_t seqa_block_scan(uint32_t v, uint32_t* warp_tot,
+                                           uint32_t* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = SEQA_THREADS / 32;
+  uint32_t x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t t = lane < warps ? warp_tot[lane] : 0u;
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, t, o);
+      if (lane >= o) t += y;
+    }
+    if (lane < warps) warp_tot[lane] = t;
+  }
+  __syncthreads();
+  *total = warp_tot[warps - 1];
+  return (warp == 0 ? 0u : warp_tot[warp - 1]) + x - v;
+}
+
+__global__ void __launch_bounds__(SEQA_THREADS)
+    seqa_sequencer_kernel(SeqAccountArgs A) {
+  extern __shared__ __align__(16) unsigned char seqa_sh[];
+  __shared__ int64_t s_from, s_chain_start;
+  __shared__ int s_chain_broken;
+  __shared__ uint32_t s_warp[SEQA_THREADS / 32];
+  PHASE_MARK(4);
+  // The statically marked events: counted, then (when their records, the
+  // list, the mask and an overlay of 4 slots an event fit SEQA_SMEM) listed
+  // in order with their records in shared memory.
+  const int64_t words = (A.n + 31) >> 5;
+  const int64_t per = (words + SEQA_THREADS - 1) / SEQA_THREADS;
+  const int64_t w0 = min(words, threadIdx.x * per), w1 = min(words, w0 + per);
+  uint32_t mine = 0;
+  for (int64_t w = w0; w < w1; ++w) mine += __popc(A.marks[w]);
+  uint32_t m;
+  const uint32_t first = seqa_block_scan(mine, s_warp, &m);
+  uint32_t ovn = 64;
+  while (ovn < 4 * m) ovn <<= 1;
+  const bool on_chip =
+      36ll * m + 4 * words + 12ll * ovn <= (long long)SEQA_SMEM;
+  const bool marks_on_chip = on_chip || 4 * words <= SEQA_SMEM;
+  SeqaRec* recs = reinterpret_cast<SeqaRec*>(seqa_sh);
+  uint32_t* list = reinterpret_cast<uint32_t*>(recs + (on_chip ? m : 0));
+  uint32_t* marks = marks_on_chip ? list + (on_chip ? m : 0) : A.marks;
+  Overlay ov;
+  if (on_chip) {
+    ov.key = marks + words;
+    ov.val = ov.key + ovn;
+    ov.hash = ov.val + ovn;
+    ov.mask = ovn - 1;
+  } else {
+    ov.key = A.ovk;
+    ov.val = A.ovv;
+    ov.hash = A.ovh;
+    ov.mask = A.ovg_mask;
+  }
+  ov.shift = 32 - __popc(ov.mask);
+  if (marks_on_chip)
+    for (int64_t w = threadIdx.x; w < words; w += SEQA_THREADS)
+      marks[w] = A.marks[w];
+  if (on_chip) {
+    uint32_t k = first;
+    for (int64_t w = w0; w < w1; ++w)
+      for (uint32_t b = A.marks[w]; b; b &= b - 1)
+        list[k++] = (uint32_t)((w << 5) + __ffs(b) - 1);
+  }
+  for (int64_t k = threadIdx.x; k <= (int64_t)ov.mask; k += SEQA_THREADS)
+    ov.key[k] = 0u;
+  __syncthreads();
+  if (on_chip)
+    for (uint32_t k = threadIdx.x; k < m; k += SEQA_THREADS)
+      recs[k] = seqa_load(A, list[k]);
+  __syncthreads();
+  PHASE_MARK(5);
+  if (threadIdx.x == 0) {
+    const int n = (int)A.n, count = (int)A.count;
+    int chain_start = -1, from = n;
+    bool broken = false;
+    uint32_t pos = 0, ov_used = 0;
+    for (int e = seqa_next(marks, -1, n); e < n; e = seqa_next(marks, e, n)) {
+      SeqaRec r;
+      if (on_chip && pos < m && list[pos] == (uint32_t)e) {
+        r = recs[pos++];
+      } else {
+        r = seqa_load(A, e);  // marked by a walk, or no room on chip
+      }
+      const uint64_t bits = r.w[0];
+      const bool active = (bits & AR_ACTIVE) != 0;
+      const bool linked = (bits & AR_LINKED) != 0;
+      if (linked && chain_start < 0) chain_start = e;
+      const bool in_chain = chain_start >= 0;
+      const bool open_err = linked && e == count - 1;
+      uint32_t code = 0;
+      uint64_t d = 0;
+      if (!active) code = 0;
+      else if (open_err) code = 2;
+      else if (broken) code = 1;
+      else if (bits & AR_STATIC) code = (uint32_t)(bits & AR_STATIC);
+      else if (bits & AR_FOUND) code = (uint32_t)((bits >> AR_EXISTS_SHIFT) & 0x1F);
+      else {
+        uint32_t x = 0;
+        // A capped probe, or an on-chip overlay at half its slots (a long
+        // run of walks that mark the next: more events than the static
+        // marks sized it for), hands the rest to the serial loop.
+        const int j = (bits & AR_CAPPED) || 2 * ov_used >= ov.mask
+                          ? SEQA_CAPPED
+                          : seqa_walk(A, ov, marks, e, r, &x);
+        if (j == SEQA_CAPPED) {
+          from = e;
+          break;
+        }
+        if (j == SEQA_INSERT) {
+          ov.put(x, (uint32_t)(e << 1) | 1u, (uint32_t)(r.w[3] >> 32));
+          ++ov_used;
+          d = DEC_INS | DEC_LIVE | ((uint64_t)x << DEC_SLOT_SHIFT);
+        } else {
+          const int64_t i = j;  // the event whose insert holds the id: its row
+          code = acc_exists_code(A, e, EV32(AB_FLAGS), EV64(AB_USER_DATA_128_LO),
+                                 EV64(AB_USER_DATA_128_HI), EV64(AB_USER_DATA_64),
+                                 EV32(AB_USER_DATA_32), EV32(AB_LEDGER),
+                                 EV32(AB_CODE));
+        }
+      }
+      A.dec[e] = d | code | ((uint64_t)code << DEC_FINAL_SHIFT);
+      A.undo[e] = (d & DEC_INS) ? (d >> DEC_SLOT_SHIFT) : SEQ_SENT;
+      if (active && code != 0 && in_chain && !broken) {
+        for (int j = e - 1; j >= chain_start; --j) {
+          uint64_t dj = A.dec[j];
+          if (dj & DEC_LIVE) {
+            const uint32_t h = ov.find((uint32_t)(dj >> DEC_SLOT_SHIFT));
+            ov.val[h] &= ~1u;
+            dj &= ~DEC_LIVE;
+          }
+          A.dec[j] = (dj & ~(0x7Full << DEC_FINAL_SHIFT)) | (1ull << DEC_FINAL_SHIFT);
+        }
+        broken = true;
+      }
+      if (in_chain && (!linked || open_err)) {
+        chain_start = -1;
+        broken = false;
+      }
+    }
+    s_from = from;
+    s_chain_start = chain_start;
+    s_chain_broken = broken;
+  }
+  __syncthreads();
+  PHASE_MARK(6);
+  const int64_t from = s_from;
+  if (from < A.n) {
+    // A capped insert (or a full on-chip overlay) at `from`: write what is
+    // decided, then the rest of the batch one event at a time.
+    unsigned long long live = 0;
+    for (int64_t i = threadIdx.x; i < from; i += SEQA_THREADS)
+      live += seqa_finish(A, marks, i, true);
+    if (live) atomicAdd(reinterpret_cast<unsigned long long*>(A.acc.count), live);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) seqa_serial(A, from, s_chain_start, s_chain_broken != 0);
+  } else if (marks_on_chip) {
+    for (int64_t k = threadIdx.x; k < words; k += SEQA_THREADS)
+      A.marks[k] = marks[k];
+  }
+  if (threadIdx.x == 0) *A.state = from;
+  PHASE_MARK(7);
+}
+
+__global__ void __launch_bounds__(SEQA_WIDE)
+    seqa_finish_kernel(SeqAccountArgs A) {
+  PHASE_MARK(8);
+  if (*A.state < A.n) return;  // the sequencer finished the batch itself
+  const int64_t i = blockIdx.x * (int64_t)SEQA_WIDE + threadIdx.x;
+  const bool live = i < A.n && seqa_finish(A, A.marks, i, false);
+  const int rows = __syncthreads_count(live);
+  if (threadIdx.x == 0 && rows)
+    atomicAdd(reinterpret_cast<unsigned long long*>(A.acc.count),
+              (unsigned long long)rows);
+  PHASE_MARK(9);
 }
 
 // ---------------------------------------------------------------------------
@@ -2161,22 +2743,140 @@ extern "C" int tb_seq_cycles(unsigned long long* out) {
 #endif
 }
 
+// K7's scratch for n events, in bytes (SeqaLayout): the records, the
+// decisions, the undo log and the overlay in device memory (cleared by the
+// sequencer when it takes it), then what the entry point zeroes (the F
+// hash, the marks, the state word and the overflow byte).
+struct SeqaLayout {
+  int64_t rec, dec, undo, ovk, ovv, ovh, zero, fk, fmi, fmx, marks, state, ovf,
+      total;
+  int64_t hf, ovg;
+};
+
+static int64_t seqa_pow2(int64_t x) {
+  int64_t p = 64;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+static void seqa_layout(int64_t n, SeqaLayout* L) {
+  L->hf = seqa_pow2(2 * n);
+  L->ovg = seqa_pow2(2 * n);
+  int64_t off = 0;
+  L->rec = off;
+  off += 8 * AR_WORDS * n;
+  L->dec = off;
+  off += 8 * n;
+  L->undo = off;
+  off += 8 * n;
+  L->ovk = off;
+  off += 4 * L->ovg;
+  L->ovv = off;
+  off += 4 * L->ovg;
+  L->ovh = off;
+  off += 4 * L->ovg;
+  L->zero = off;
+  L->fk = off;
+  off += 4 * L->hf;
+  L->fmi = off;
+  off += 4 * L->hf;
+  L->fmx = off;
+  off += 4 * L->hf;
+  L->marks = off;
+  off += 8 * ((n + 63) / 64);
+  L->state = off;
+  off += 8;
+  L->ovf = off;
+  off += 8;
+  L->total = off;
+}
+
+extern "C" int tb_seq_accounts_scratch(int64_t n, int64_t* out) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  SeqaLayout L;
+  seqa_layout(n, &L);
+  out[0] = L.total;
+  out[1] = L.ovf;
+  return 0;
+}
+
+// K7: `scratch` of tb_seq_accounts_scratch(n)[0] bytes (its overflow byte
+// at [1] is the call's overflow flag), the codes int32[n].  Five
+// operations on the stream: a memset, the two pre-pass launches, the
+// sequencer and the finish.  At most 2^31 account slots.
 extern "C" int tb_seq_accounts(const void* const* batch, int nbatch,
                                const void* const* acc, int nacc, int64_t acc_cap,
                                int64_t n, int64_t count, uint64_t timestamp,
-                               void* undo, void* codes, void* overflow,
-                               void* stream) {
+                               void* scratch, void* codes, void* stream) {
   SeqAccountArgs A;
-  if (nbatch != AB_N || n <= 0 || count > n) return (int)cudaErrorInvalidValue;
+  if (nbatch != AB_N || n <= 0 || count > n || count < 0 ||
+      acc_cap > (1ll << 31) || n >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
   int err = pack_table(&A.acc, acc, nacc, AT_N, acc_cap);
   if (err) return err;
   for (int k = 0; k < AB_N; ++k) A.batch[k] = batch[k];
   A.n = n;
   A.count = count;
   A.timestamp = timestamp;
-  A.undo = (uint64_t*)undo;
+  SeqaLayout L;
+  seqa_layout(n, &L);
+  char* base = (char*)scratch;
+  A.rec = (uint64_t*)(base + L.rec);
+  A.dec = (uint64_t*)(base + L.dec);
+  A.undo = (uint64_t*)(base + L.undo);
+  A.fk = (uint32_t*)(base + L.fk);
+  A.fmi = (uint32_t*)(base + L.fmi);
+  A.fmx = (uint32_t*)(base + L.fmx);
+  A.hf_mask = (uint32_t)(L.hf - 1);
+  A.marks = (uint32_t*)(base + L.marks);
+  A.ovk = (uint32_t*)(base + L.ovk);
+  A.ovv = (uint32_t*)(base + L.ovv);
+  A.ovh = (uint32_t*)(base + L.ovh);
+  A.ovg_mask = (uint32_t)(L.ovg - 1);
+  A.state = (int64_t*)(base + L.state);
   A.codes = (int32_t*)codes;
-  A.overflow = (int*)overflow;
-  seq_accounts_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(A);
+  A.overflow = (uint8_t*)(base + L.ovf);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(base + L.zero, 0, (size_t)(L.total - L.zero), s);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = SEQA_SMEM;
+  e = cudaFuncSetAttribute(seqa_sequencer_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((n + SEQA_WIDE - 1) / SEQA_WIDE);
+  seqa_probe_kernel<<<blocks, SEQA_WIDE, 0, s>>>(A);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  seqa_mark_kernel<<<blocks, SEQA_WIDE, 0, s>>>(A);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  seqa_sequencer_kernel<<<1, SEQA_THREADS, smem, s>>>(A);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  seqa_finish_kernel<<<blocks, SEQA_WIDE, 0, s>>>(A);
   return (int)cudaGetLastError();
 }
+
+// What the compiler made of K7's four kernels (probe, mark, sequencer,
+// finish; 5 ints each: registers, local bytes a thread, threads a block,
+// static shared bytes, max threads a block), then the sequencer's dynamic
+// shared bytes for n events.
+extern "C" int tb_seq_accounts_info(int64_t n, int* out) {
+  const void* ks[4] = {(const void*)seqa_probe_kernel,
+                       (const void*)seqa_mark_kernel,
+                       (const void*)seqa_sequencer_kernel,
+                       (const void*)seqa_finish_kernel};
+  const int threads[4] = {SEQA_WIDE, SEQA_WIDE, SEQA_THREADS, SEQA_WIDE};
+  for (int k = 0; k < 4; ++k) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, ks[k]);
+    if (err != cudaSuccess) return (int)err;
+    out[5 * k] = fa.numRegs;
+    out[5 * k + 1] = (int)fa.localSizeBytes;
+    out[5 * k + 2] = threads[k];
+    out[5 * k + 3] = (int)fa.sharedSizeBytes;
+    out[5 * k + 4] = fa.maxThreadsPerBlock;
+  }
+  (void)n;
+  out[20] = SEQA_SMEM;
+  return 0;
+}
+
+PHASE_CLOCK_ENTRIES(tb_seq_accounts_phases)

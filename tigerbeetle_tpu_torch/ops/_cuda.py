@@ -268,8 +268,9 @@ _M64 = (1 << 64) - 1
 
 # Each C entry point's argument types (all return an int error code).
 _SIGNATURES = {
-    "tb_probe": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _I64, _I64,
-                 _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
+    "tb_probe": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
+                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tb_probe_info": [_P],
     "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
                   _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
     "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _I64,
@@ -286,7 +287,9 @@ _SIGNATURES = {
                          ctypes.c_uint64, _P, _P, _P, _P, _P, _P, _P],
     "tb_seq_cycles": [_P],
     "tb_seq_accounts": [_P, _INT, _P, _INT, _I64, _I64, _I64,
-                        ctypes.c_uint64, _P, _P, _P, _P],
+                        ctypes.c_uint64, _P, _P, _P],
+    "tb_seq_accounts_scratch": [_I64, ctypes.POINTER(ctypes.c_int64)],
+    "tb_seq_accounts_info": [_I64, _P],
     "tb_tombstone": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
     "tb_claim": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64, _P, _P,
                  _P, _P, _P, _P, _INT, _P],
@@ -416,6 +419,145 @@ _U64_OR_U32 = (torch.int64, torch.int32, torch.bool)
 
 # -- K1 probe --------------------------------------------------------------
 
+PROBE_MAX_LOOKUPS = 8  # csrc/probe.cu PROBE_MAX_DESC: lookups a launch
+PROBE_MAX_COLS = 96  # csrc/probe.cu PROBE_MAX_COLS: their columns together
+
+
+@dataclasses.dataclass
+class ProbeSpec:
+    """One lookup of a fused K1 launch: a table (its key arrays, tombstones
+    and columns), the keys, the columns to gather and the mask of ``found``
+    (lanes below ``count``, or below the u64 device word ``count_word``,
+    and set in ``mask``).  ``key_hi`` None means zeros.  ``keys_from`` =
+    (k, lo_name, hi_name or None) takes the keys from lookup k's gathered
+    columns instead: the lookup then runs after k in k's chain, on the same
+    thread, which reads them back from its own stores.  ``out`` (found,
+    slot, columns) takes the outputs in place."""
+
+    tkey_lo: torch.Tensor
+    tkey_hi: torch.Tensor
+    tomb: torch.Tensor
+    table_cols: Dict[str, torch.Tensor]
+    key_lo: Optional[torch.Tensor]
+    key_hi: Optional[torch.Tensor]
+    names: Sequence[str] = ()
+    count: Optional[int] = None
+    mask: Optional[torch.Tensor] = None
+    hash_shift: int = 0
+    count_word: Optional[torch.Tensor] = None
+    out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                        Sequence[torch.Tensor]]] = None
+    keys_from: Optional[Tuple[int, str, Optional[str]]] = None
+
+
+def probe_many(specs: Sequence[ProbeSpec], max_probe: int,
+               overflow: bool = True):
+    """Kernel K1: the lookups ``specs``, of one lane count each, in one
+    launch; a list of (found, slot, overflow, gathered columns) in their
+    order.  ``overflow`` False asks for no overflow flags (each is None
+    then, and no memset is made); else each is a 0-dim bool view of one
+    byte the entry point zeroes and the kernel sets."""
+    lib = library()
+    nd = len(specs)
+    if not 0 < nd <= PROBE_MAX_LOOKUPS:
+        raise ValueError(f"K1 takes 1 to {PROBE_MAX_LOOKUPS} lookups, got {nd}")
+    first = specs[0].key_lo
+    if first is None:
+        raise ValueError("the first lookup's keys must be given")
+    n = first.numel()
+    dev = first.device
+    chain = []
+    outs = []
+    for k, sp in enumerate(specs):
+        cap = sp.tkey_lo.numel()
+        _check(sp.tkey_lo, torch.int64, cap, "table key_lo")
+        _check(sp.tkey_hi, torch.int64, cap, "table key_hi")
+        _check(sp.tomb, torch.bool, cap, "table tombstone")
+        if sp.keys_from is None:
+            _check(sp.key_lo, torch.int64, n, "key_lo")
+            if sp.key_hi is not None:
+                _check(sp.key_hi, torch.int64, n, "key_hi")
+            chain.append(k)
+        else:
+            j, lo_name, hi_name = sp.keys_from
+            if not 0 <= j < k:
+                raise ValueError(f"lookup {k}: keys from lookup {j}")
+            chain.append(chain[j])
+        if sp.mask is not None:
+            _check(sp.mask, torch.bool, n, "mask")
+        if sp.count_word is not None:
+            _word(sp.count_word, "count word")
+        src = [sp.table_cols[name] for name in sp.names]
+        for name, s in zip(sp.names, src):
+            if s.dtype not in _U64_OR_U32:
+                raise TypeError(f"column {name}: unsupported dtype {s.dtype}")
+            _check(s, s.dtype, cap, f"column {name}")
+        if sp.out is None:
+            found = torch.empty(n, dtype=torch.bool, device=dev)
+            slot = torch.empty(n, dtype=torch.int64, device=dev)
+            dst = [torch.empty(n, dtype=s.dtype, device=dev) for s in src]
+        else:
+            found, slot, dst = sp.out[0], sp.out[1], list(sp.out[2])
+            _check(found, torch.bool, n, "found")
+            _check(slot, torch.int64, n, "slot")
+            if len(dst) != len(src):
+                raise ValueError(f"lookup {k}: {len(dst)} outputs for "
+                                 f"{len(src)} columns")
+            for name, s, d in zip(sp.names, src, dst):
+                _check(d, s.dtype, n, f"output {name}")
+        outs.append((found, slot, src, dict(zip(sp.names, dst))))
+    keys = []
+    for k, sp in enumerate(specs):
+        if sp.keys_from is None:
+            keys.append((sp.key_lo, sp.key_hi))
+        else:
+            j, lo_name, hi_name = sp.keys_from
+            got = outs[j][3]
+            if lo_name not in got or (hi_name is not None and hi_name not in got):
+                raise ValueError(f"lookup {k}: lookup {j} gathers no "
+                                 f"{lo_name}/{hi_name}")
+            lo, hi = got[lo_name], None if hi_name is None else got[hi_name]
+            if lo.dtype != torch.int64 or (hi is not None
+                                           and hi.dtype != torch.int64):
+                raise TypeError(f"lookup {k}: keys must be u64 columns")
+            keys.append((lo, hi))
+    heads = sorted(set(chain))
+    nxt = [-1] * nd
+    for c in heads:
+        members = [k for k in range(nd) if chain[k] == c]
+        for a, b in zip(members, members[1:]):
+            nxt[a] = b
+    ncols = sum(len(sp.names) for sp in specs)
+    if ncols > PROBE_MAX_COLS:
+        raise ValueError(f"K1 gathers at most {PROBE_MAX_COLS} columns a "
+                         f"launch, got {ncols}")
+    src_all = [s for o in outs for s in o[2]]
+    dst_all = [d for o in outs for d in o[3].values()]
+    ovf = torch.empty(nd, dtype=torch.bool, device=dev) if overflow else None
+    ints = lambda v: (ctypes.c_int * len(v))(*v)  # noqa: E731
+    i64s = lambda v: (ctypes.c_int64 * len(v))(*v)  # noqa: E731
+    ptrs = lambda v: (ctypes.c_void_p * len(v))(  # noqa: E731
+        *[None if t is None else t.data_ptr() for t in v])
+    err = lib.tb_probe(
+        nd, len(heads), ints(heads), ints(nxt),
+        ptrs([sp.tkey_lo for sp in specs]), ptrs([sp.tkey_hi for sp in specs]),
+        ptrs([sp.tomb for sp in specs]),
+        i64s([sp.tkey_lo.numel() for sp in specs]),
+        ints([sp.hash_shift for sp in specs]), max_probe,
+        ptrs([lo for lo, _hi in keys]), ptrs([hi for _lo, hi in keys]), n,
+        i64s([n if sp.count is None else sp.count for sp in specs]),
+        ptrs([sp.count_word for sp in specs]), ptrs([sp.mask for sp in specs]),
+        ptrs([o[0] for o in outs]), ptrs([o[1] for o in outs]),
+        None if ovf is None else ovf.data_ptr(),
+        ints([len(sp.names) for sp in specs]), _ptr_array(src_all),
+        _ptr_array(dst_all), ints([_width(s) for s in src_all] or [0]),
+        _stream(first),
+    )
+    _raise_on(err, "probe")
+    KERNELS["probe"].launches += 1
+    return [(o[0], o[1], None if ovf is None else ovf[k], o[3])
+            for k, o in enumerate(outs)]
+
 
 def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
           key_lo, key_hi, max_probe: int, hash_shift: int, count: int,
@@ -425,54 +567,25 @@ def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
                               Sequence[torch.Tensor]]] = None,
           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                      Dict[str, torch.Tensor]]:
-    """Kernel K1: (found, slot, overflow, gathered columns); ``found`` is
-    masked to lanes below ``count`` (read from the u64 device word
-    ``count_word`` when given) and to ``mask`` when given.  ``out``, a
+    """Kernel K1 on one lookup: (found, slot, overflow, gathered columns);
+    ``found`` is masked to lanes below ``count`` (read from the u64 device
+    word ``count_word`` when given) and to ``mask`` when given.  ``out``, a
     (found, slot, columns) triple, takes the outputs in place; no overflow
-    word is made then (None: the fast path reads the table's flag)."""
-    lib = library()
-    cap = tkey_lo.numel()
-    n = key_lo.numel()
-    _check(tkey_lo, torch.int64, cap, "table key_lo")
-    _check(tkey_hi, torch.int64, cap, "table key_hi")
-    _check(tomb, torch.bool, cap, "table tombstone")
-    _check(key_lo, torch.int64, n, "key_lo")
-    _check(key_hi, torch.int64, n, "key_hi")
-    if mask is not None:
-        _check(mask, torch.bool, n, "mask")
-    if count_word is not None:
-        _word(count_word, "count word")
-    src = [table_cols[name] for name in names]
-    for name, s in zip(names, src):
-        if s.dtype not in _U64_OR_U32:
-            raise TypeError(f"column {name}: unsupported dtype {s.dtype}")
-        _check(s, s.dtype, cap, f"column {name}")
-    dev = key_lo.device
-    if out is None:
-        found = torch.empty(n, dtype=torch.bool, device=dev)
-        slot = torch.empty(n, dtype=torch.int64, device=dev)
-        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-        dst = [torch.empty(n, dtype=s.dtype, device=dev) for s in src]
-    else:
-        found, slot, dst = out[0], out[1], list(out[2])
-        overflow = None
-        _check(found, torch.bool, n, "found")
-        _check(slot, torch.int64, n, "slot")
-        for name, s, d in zip(names, src, dst):
-            _check(d, s.dtype, n, f"output {name}")
-    widths = (ctypes.c_int * max(1, len(src)))(*[_width(s) for s in src])
-    err = lib.tb_probe(
-        tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
-        hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(), n,
-        count, None if count_word is None else count_word.data_ptr(),
-        None if mask is None else mask.data_ptr(), found.data_ptr(),
-        slot.data_ptr(), None if overflow is None else overflow.data_ptr(),
-        len(src), _ptr_array(src), _ptr_array(dst), widths, _stream(key_lo),
-    )
-    _raise_on(err, "probe")
-    KERNELS["probe"].launches += 1
-    return (found, slot, None if overflow is None else overflow[0] != 0,
-            dict(zip(names, dst)))
+    flag is made then (None: the fast path reads the table's flag)."""
+    return probe_many([ProbeSpec(tkey_lo, tkey_hi, tomb, table_cols, key_lo,
+                                 key_hi, names, count, mask, hash_shift,
+                                 count_word, out)],
+                      max_probe, overflow=out is None)[0]
+
+
+def probe_info() -> Dict[str, int]:
+    """What the compiler and the card make of K1's kernel: registers and
+    local memory a thread, threads a block, blocks resident on one SM and
+    the launch's argument bytes.  Launches nothing."""
+    out = (ctypes.c_int * 5)()
+    _raise_on(library().tb_probe_info(out), "probe")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
+                     "arg_bytes"), out))
 
 
 # -- K2 insert -------------------------------------------------------------
@@ -844,7 +957,9 @@ def seq_accounts(batch: Sequence[torch.Tensor], batch_dtypes,
                  accounts: Sequence[torch.Tensor], account_dtypes,
                  count: int, timestamp: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K7: one sequential create_accounts batch, the accounts table
-    updated in place.  Returns (codes int32[N], overflow bool 0-dim)."""
+    updated in place: a memset of its scratch, the pre-pass (two launches),
+    the sequencer and the finish.  Returns (codes int32[N], overflow bool
+    0-dim, a view of the scratch's overflow byte)."""
     lib = library()
     n = batch[0].numel()
     _check_cols(batch, batch_dtypes, n, "batch")
@@ -852,17 +967,34 @@ def seq_accounts(batch: Sequence[torch.Tensor], batch_dtypes,
     if not 0 <= count <= n:
         raise ValueError(f"count {count} outside 0..{n}")
     dev = batch[0].device
-    undo = torch.empty(n, dtype=torch.int64, device=dev)
+    size = (ctypes.c_int64 * 2)()
+    _raise_on(lib.tb_seq_accounts_scratch(n, size), "seq_accounts")
+    scratch = torch.empty(size[0], dtype=torch.uint8, device=dev)
     codes = torch.empty(n, dtype=torch.int32, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     err = lib.tb_seq_accounts(
         _ptr_array(batch), len(batch), _ptr_array(accounts), len(accounts),
-        acc_cap, n, count, timestamp & ((1 << 64) - 1), undo.data_ptr(),
-        codes.data_ptr(), overflow.data_ptr(), _stream(batch[0]),
+        acc_cap, n, count, timestamp & ((1 << 64) - 1), scratch.data_ptr(),
+        codes.data_ptr(), _stream(batch[0]),
     )
     _raise_on(err, "seq_accounts")
     KERNELS["seq_accounts"].launches += 1
-    return codes, overflow[0] != 0
+    return codes, scratch[size[1]:size[1] + 1].view(torch.bool)[0]
+
+
+def seq_accounts_info(n: int) -> Dict[str, Dict[str, int]]:
+    """What the compiler and the card make of K7's four kernels for ``n``
+    events: registers, local memory and static shared bytes a thread or
+    block, threads a block; and the sequencer's dynamic shared bytes (its
+    records, mask and overlay when the marked events fit, as the kernel
+    decides).  Launches nothing."""
+    out = (ctypes.c_int * 21)()
+    _raise_on(library().tb_seq_accounts_info(n, out), "seq_accounts")
+    keys = ("registers", "local_bytes", "threads", "static_shared",
+            "max_threads")
+    info = {name: dict(zip(keys, out[5 * k:5 * k + 5]))
+            for k, name in enumerate(("probe", "mark", "sequencer", "finish"))}
+    info["sequencer"]["dynamic_shared"] = out[20]
+    return info
 
 
 # -- K8 tombstone ------------------------------------------------------------

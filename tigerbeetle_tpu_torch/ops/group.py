@@ -12,7 +12,7 @@ Two forms:
   it); on CUDA tensors it is the eager form, GROUP_K launches of K1-K4 each.
 - ``GroupGraph``, the card's form: one ``torch.cuda.CUDAGraph`` per
   (GROUP_K, lanes, the ledger's table buffers) holding GROUP_K steps of K24
-  (``group_step``) and K1-K4 (``_cuda.probe``, ``validate`` and ``insert``
+  (``group_step``) and K1-K4 (``lookup_many``, ``validate`` and ``insert``
   with preallocated outputs and scratch; ``balance``, one launch of atomics,
   needs none, so nothing the graph holds grows with the accounts capacity
   for K4), K1 and K3 reading the
@@ -41,6 +41,7 @@ import torch
 
 from .. import types
 from . import _cuda
+from . import hash_table as ht
 from . import state_machine as sm
 
 GROUP_K = 32
@@ -186,28 +187,29 @@ class FastSteps:
 
     def step(self, ledger: sm.Ledger, j: int, soa: Dict[str, torch.Tensor],
              counts: torch.Tensor, timestamps: torch.Tensor) -> None:
-        """Step ``j``: K24, three K1 probes, K3, K4 and K2, the count and
-        timestamp read from ``counts[j]`` and ``timestamps[j]``; the codes
-        land in ``self.codes[j]``."""
+        """Step ``j``: K24, K1 (the three probes in one launch), K3, K4
+        and K2, the count and timestamp read from ``counts[j]`` and
+        ``timestamps[j]``; the codes land in ``self.codes[j]``."""
         acc, xfr = ledger.accounts, ledger.transfers
         cw, tw = counts[j:j + 1], timestamps[j:j + 1]
         _cuda.group_step(counts, timestamps, j, soa["flags"], self.valid,
                          self.ts, self.pending, xfr.probe_overflow,
                          self.run_ovf)
         lanes = self.lanes
-        _cuda.probe(acc.key_lo, acc.key_hi, acc.tombstone, acc.cols,
-                    soa["debit_account_id_lo"], soa["debit_account_id_hi"],
-                    sm.MAX_PROBE, 0, lanes, ("ledger",), count_word=cw,
-                    out=(self.dr_found, self.dr_slot, [self.dr_ledger]))
-        _cuda.probe(acc.key_lo, acc.key_hi, acc.tombstone, acc.cols,
-                    soa["credit_account_id_lo"], soa["credit_account_id_hi"],
-                    sm.MAX_PROBE, 0, lanes, ("ledger",), count_word=cw,
-                    out=(self.cr_found, self.cr_slot, [self.cr_ledger]))
-        _cuda.probe(xfr.key_lo, xfr.key_hi, xfr.tombstone, xfr.cols,
-                    soa["id_lo"], soa["id_hi"], sm.MAX_PROBE, 0, lanes,
-                    sm.TRANSFER_EXISTS_COLS, count_word=cw,
-                    out=(self.ex_found, self.ex_slot,
-                         [self.ex[c] for c in sm.TRANSFER_EXISTS_COLS]))
+        ht.lookup_many([
+            ht.Lookup(acc, soa["debit_account_id_lo"],
+                      soa["debit_account_id_hi"], ("ledger",), count=lanes,
+                      count_word=cw,
+                      out=(self.dr_found, self.dr_slot, [self.dr_ledger])),
+            ht.Lookup(acc, soa["credit_account_id_lo"],
+                      soa["credit_account_id_hi"], ("ledger",), count=lanes,
+                      count_word=cw,
+                      out=(self.cr_found, self.cr_slot, [self.cr_ledger])),
+            ht.Lookup(xfr, soa["id_lo"], soa["id_hi"], sm.TRANSFER_EXISTS_COLS,
+                      count=lanes, count_word=cw,
+                      out=(self.ex_found, self.ex_slot,
+                           [self.ex[c] for c in sm.TRANSFER_EXISTS_COLS])),
+        ], sm.MAX_PROBE, overflow=False)
         ctx = {"dr_found": self.dr_found, "cr_found": self.cr_found,
                "dr_ledger": self.dr_ledger, "cr_ledger": self.cr_ledger,
                "ex_found": self.ex_found}

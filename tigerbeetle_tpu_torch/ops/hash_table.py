@@ -19,13 +19,16 @@ are int64 and u32 columns int32 holding the bits, ``count`` a 0-dim int64 and
 returned a new table from donated buffers, this module updates the table's
 tensors in place and returns the same ``Table``.
 
-``lookup`` (kernel K1), ``insert`` (kernel K2), ``claim_slots`` and
+``lookup`` and ``lookup_many`` (kernel K1: one launch for several
+lookups), ``insert`` (kernel K2), ``claim_slots`` and
 ``write_rows`` (K2's claim and write entries) and ``remove_to_tombstone``
 (kernel K8) take the hand-written CUDA kernels for CUDA tensors and their
 plain PyTorch versions, beside them here, for CPU tensors.  K2 has two
 plain forms with the same results: ``claim_slots_plain`` (the rounds over
 lanes, the CPU route) and ``claim_slots_split_plain`` (the card's split
-form: windows, then rounds over home groups).
+form: windows, then rounds over home groups); K1's are ``lookup_plain``
+(a slot a step, the CPU route) and ``lookup_split_plain`` (the card's
+rounds over aligned groups of four slots).
 """
 
 from __future__ import annotations
@@ -157,6 +160,111 @@ def lookup_plain(
         overflow=(~done).any(),
         cols=gather_cols(table, slot, found, cols),
     )
+
+
+class Lookup(NamedTuple):
+    """One lookup of ``lookup_many``.  ``key_hi`` None means zeros;
+    ``keys_from`` = (k, lo_name, hi_name or None) takes the keys from
+    lookup k's gathered columns (k earlier in the list); ``out`` (found,
+    slot, columns) takes the outputs in place on the card."""
+
+    table: Table
+    key_lo: Optional[torch.Tensor]
+    key_hi: Optional[torch.Tensor] = None
+    cols: Sequence[str] = ()
+    mask: Optional[torch.Tensor] = None
+    count: Optional[int] = None
+    hash_shift: int = 0
+    keys_from: Optional[Tuple[int, str, Optional[str]]] = None
+    count_word: Optional[torch.Tensor] = None
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, Sequence[torch.Tensor]]] = None
+
+
+def lookup_many(lookups: Sequence[Lookup], max_probe: int,
+                overflow: bool = True):
+    """``lookup`` for several lookups of one lane count at once: one K1
+    launch on CUDA tensors (one memset more for the overflow flags, when
+    ``overflow``), the plain version of each in turn on CPU tensors.  A
+    list of ``LookupResult``s in order; their ``overflow`` is None when not
+    asked for."""
+    first = lookups[0].key_lo
+    if first.is_cuda:
+        got = _cuda.probe_many(
+            [_cuda.ProbeSpec(lk.table.key_lo, lk.table.key_hi,
+                             lk.table.tombstone, lk.table.cols, lk.key_lo,
+                             lk.key_hi, tuple(lk.cols), lk.count, lk.mask,
+                             lk.hash_shift, lk.count_word, lk.out,
+                             lk.keys_from)
+             for lk in lookups], max_probe, overflow)
+        return [LookupResult(*r) for r in got]
+    out = []
+    for lk in lookups:
+        if lk.count_word is not None or lk.out is not None:
+            raise ValueError("count_word and out are for CUDA tensors")
+        if lk.keys_from is None:
+            lo, hi = lk.key_lo, lk.key_hi
+        else:
+            j, lo_name, hi_name = lk.keys_from
+            lo = out[j].cols[lo_name]
+            hi = None if hi_name is None else out[j].cols[hi_name]
+        if hi is None:
+            hi = torch.zeros_like(lo)
+        n = lo.shape[0]
+        r = lookup_plain(lk.table, lo, hi, max_probe, lk.hash_shift,
+                         n if lk.count is None else lk.count, tuple(lk.cols),
+                         lk.mask)
+        out.append(r if overflow else r._replace(overflow=None))
+    return out
+
+
+def lookup_split_plain(
+    table: Table,
+    key_lo: torch.Tensor,
+    key_hi: torch.Tensor,
+    max_probe: int,
+    hash_shift: int,
+    count: int,
+    cols: Sequence[str],
+    lane_mask: Optional[torch.Tensor] = None,
+) -> LookupResult:
+    """Plain version of kernel K1 as the card runs it: rounds over the
+    aligned group of four slots that holds each lane's current slot (one
+    slot a round below a capacity of 4), each deciding the group's slots
+    from the current one on in order, until every lane is done or has
+    taken ``max_probe`` steps; then the gather.  The same results as
+    ``lookup_plain``."""
+    capacity = table.capacity
+    mask = capacity - 1
+    g = 4 if capacity >= 4 else 1
+    cur = _home(key_lo, key_hi, capacity, hash_shift)
+    done = (key_lo == 0) & (key_hi == 0)
+    found = torch.zeros_like(done)
+    slot = torch.zeros_like(cur)
+    steps = torch.zeros_like(cur)
+    while True:
+        live = ~done & (steps < max_probe)
+        if not bool(live.any()):
+            break
+        base = cur & ~(g - 1)
+        off = cur & (g - 1)
+        for o in range(g):
+            visit = live & ~done & (off <= o) & (steps < max_probe)
+            s = base + o
+            t_lo, t_hi = table.key_lo[s], table.key_hi[s]
+            tomb = table.tombstone[s]
+            match = visit & ~tomb & (t_lo == key_lo) & (t_hi == key_hi)
+            empty = visit & ~tomb & (t_lo == 0) & (t_hi == 0)
+            found = found | match
+            slot = torch.where(match, s, slot)
+            done = done | match | empty
+            steps = steps + visit.to(steps.dtype)
+        cur = torch.where(live, (base + g) & mask, cur)
+    lane = torch.arange(key_lo.shape[0], device=key_lo.device)
+    found = found & (lane < count)
+    if lane_mask is not None:
+        found = found & lane_mask
+    return LookupResult(found=found, slot=slot, overflow=(~done).any(),
+                        cols=gather_cols(table, slot, found, cols))
 
 
 def gather_cols(

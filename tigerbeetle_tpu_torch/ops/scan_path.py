@@ -22,14 +22,21 @@ CUDA tensors.  K6 is two steps: K32 (``seq_prepass``) probes every event
 against the tables as they were before the batch, in parallel, and joins
 the batch with itself; then one block walks the events in order from those
 records and an overlay of the batch's own writes, reading the tables only
-where a pre-batch answer went stale.  K7 is one launch.  On CPU tensors
+where a pre-batch answer went stale.  K7 is the same two steps for
+accounts: a pre-pass over the card (each event's static code and its
+probe of the table before the batch; marks on the events whose answer may
+depend on order: chains, capped probes, first empty slots another event
+shares), then one thread walks only the marked events, and a last launch
+writes every event's code and row.  On CPU tensors
 they run the plain versions here, which loop over the events in Python with
 u128 values as Python integers, and read and write the ledger's tensors
 element by element in place; they serve the tests and the on-card check.
 K6 has two plain forms with the same results: the serial loop
 (``create_transfers_seq_plain``, the JAX scan's mirror) and the split form
 the card runs (``create_transfers_seq_split_plain``: ``seq_prepass_plain``
-then ``seq_sequencer_plain``).  Each returns
+then ``seq_sequencer_plain``); so has K7 (``create_accounts_seq_plain``
+and ``create_accounts_seq_split_plain``: ``seqa_prepass_plain`` then
+``seqa_sequencer_plain``).  Each returns
 ``(ledger, codes int32[N], overflow bool 0-dim)``: ``overflow`` is set when
 an insert's probe for a free slot reached ``MAX_PROBE`` (the reference then
 writes at slot 0, and so does this port; the machine raises on the flag).
@@ -42,9 +49,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from ..u128 import i64
+from ..utils.benchgen import mix64_np
 from . import _cuda
 from . import hash_table as ht
 from .state_machine import (
@@ -1269,7 +1278,8 @@ def create_accounts_seq(
 ) -> Tuple[Ledger, torch.Tensor, torch.Tensor]:
     """Sequential create_accounts with chain rollback: updates the accounts
     table in place; returns (ledger, codes int32[N], overflow bool 0-dim).
-    Kernel K7 on CUDA tensors, one launch per batch."""
+    Kernel K7 on CUDA tensors: a memset, the two pre-pass launches, the
+    sequencer and the finish."""
     if batch["id_lo"].is_cuda:
         codes, overflow = _cuda.seq_accounts(
             [batch[c] for c in ACCOUNT_BATCH_COLS], ACCOUNT_BATCH_DTYPES,
@@ -1280,16 +1290,35 @@ def create_accounts_seq(
 
 
 def create_accounts_seq_plain(ledger, batch, count, timestamp):
-    """Plain version of kernel K7."""
+    """Plain version of kernel K7: the serial loop."""
     n = batch["id_lo"].shape[0]
     evs = _events(batch, ACCOUNT_BATCH_COLS)
-    ts_base = (timestamp - count + 1) & M64
-    acc_ins_slot = [SENT] * n
     raw = [0] * n
+    overflow = _accounts_loop(ledger, evs, count, timestamp, 0, -1, False,
+                              [SENT] * n, raw)
+    return ledger, _account_chain_codes(batch, raw, count), torch.tensor(
+        overflow, device=batch["id_lo"].device)
+
+
+def _account_chain_codes(batch, raw: List[int], count: int) -> torch.Tensor:
+    dev = batch["id_lo"].device
+    n = len(raw)
+    lanes = torch.arange(n, device=dev)
+    linked_mask = ((batch["flags"] & AF_LINKED) != 0) & (lanes < count)
+    return _chain_codes(linked_mask,
+                        torch.tensor(raw, dtype=torch.int32, device=dev), count)
+
+
+def _accounts_loop(ledger, evs, count: int, timestamp: int, i0: int,
+                   chain_start: int, chain_broken: bool, acc_ins_slot,
+                   raw: List[int]) -> bool:
+    """Events ``i0`` on, one at a time, from the chain state at ``i0``;
+    their raw codes into ``raw``, their inserted slots into
+    ``acc_ins_slot``.  Returns whether an insert's probe was capped."""
+    ts_base = (timestamp - count + 1) & M64
     overflow = False
-    chain_start, chain_broken = -1, False
     accounts = ledger.accounts
-    for i in range(n):
+    for i in range(i0, len(evs)):
         ev = evs[i]
         active = i < count
         linked = active and (ev["flags"] & AF_LINKED) != 0
@@ -1327,13 +1356,317 @@ def create_accounts_seq_plain(ledger, batch, count, timestamp):
 
         if in_chain and (not linked or chain_open_err):
             chain_start, chain_broken = -1, False
+    return overflow
 
+
+# K7's split form (csrc/sequential.cu, seqa_*): the pre-pass record's bits.
+AR_ACTIVE, AR_LINKED, AR_FOUND = 1 << 16, 1 << 17, 1 << 18
+AR_CAPPED, AR_CAND = 1 << 19, 1 << 20
+SEQA_NONE, SEQA_MULTI = -1, -2  # no candidate holds an F; several do
+
+
+def _np_u(t: torch.Tensor):
+    """A u64/u32 column as an unsigned numpy array (a copy)."""
+    a = t.cpu().numpy()
+    return a.view(np.uint64) if a.dtype == np.int64 else (
+        a.view(np.uint32) if a.dtype == np.int32 else a.copy())
+
+
+def _account_static_codes(ev, n: int, count: int):
+    """The ladder's codes that read only the event (3-14), 0 elsewhere or
+    on lanes past ``count``."""
+    z = np.uint64(0)
+    flags = ev["flags"]
+    nonzero = lambda f: (ev[f + "_lo"] != z) | (ev[f + "_hi"] != z)  # noqa: E731
+    m64 = np.uint64(M64)
+    conds = [
+        ev["timestamp"] != z, ev["reserved"] != 0,
+        (flags & AF_PADDING) != 0, ~nonzero("id"),
+        (ev["id_lo"] == m64) & (ev["id_hi"] == m64),
+        ((flags & AF_DEBITS_MUST_NOT_EXCEED_CREDITS) != 0)
+        & ((flags & AF_CREDITS_MUST_NOT_EXCEED_DEBITS) != 0),
+        nonzero("debits_pending"), nonzero("debits_posted"),
+        nonzero("credits_pending"), nonzero("credits_posted"),
+        ev["ledger"] == 0, ev["code"] == 0,
+    ]
+    codes = np.select(conds, list(range(3, 15)), 0).astype(np.int64)
+    codes[count:] = 0
+    return codes
+
+
+def _account_exists_codes(ev, rows, idx):
+    """Codes 15-21 of events ``idx`` against the rows ``rows`` (a dict of
+    the account columns, one entry per event of ``idx``)."""
+    conds = [
+        ev["flags"][idx] != rows["flags"],
+        (ev["user_data_128_lo"][idx] != rows["user_data_128_lo"])
+        | (ev["user_data_128_hi"][idx] != rows["user_data_128_hi"]),
+        ev["user_data_64"][idx] != rows["user_data_64"],
+        ev["user_data_32"][idx] != rows["user_data_32"],
+        ev["ledger"][idx] != rows["ledger"],
+        ev["code"][idx] != rows["code"],
+    ]
+    return np.select(conds, list(range(15, 21)), 21).astype(np.int64)
+
+
+def seqa_prepass_plain(ledger: Ledger, batch: Dict[str, torch.Tensor],
+                       count: int) -> Dict[str, np.ndarray]:
+    """K7's pre-pass (``seqa_probe_kernel``, ``seqa_mark_kernel``) on the
+    table as it is before the batch: each event's bits (AR_*), its slot
+    (found) or first truly empty slot F and F's step from home, the marks,
+    and for a marked candidate G1 (the next empty slot after F), G1's step
+    (MAX_PROBE: none) and G1's candidate; ``owner`` maps an F to its
+    candidate (SEQA_MULTI: several)."""
+    acc = ledger.accounts
+    n = batch["id_lo"].shape[0]
+    ev = {c: _np_u(batch[c]) for c in ACCOUNT_BATCH_COLS}
+    klo, khi = _np_u(acc.key_lo), _np_u(acc.key_hi)
+    tomb = acc.tombstone.cpu().numpy()
+    mask = acc.capacity - 1
+    lane = np.arange(n)
+    active = lane < count
+    static = _account_static_codes(ev, n, count)
+    bits = np.where(active, AR_ACTIVE, 0).astype(np.int64)
+    linked = active & ((ev["flags"] & AF_LINKED) != 0)
+    bits |= np.where(linked, AR_LINKED, 0)
+    bits |= static
+    # The probe of the pre-batch table: found, first truly empty, or capped.
+    probe = active & (static == 0)
+    with np.errstate(over="ignore"):
+        mixed = mix64_np(ev["id_lo"] ^ (ev["id_hi"]
+                                        * np.uint64(0x9E3779B97F4A7C15)), 0)
+    home = (mixed & np.uint64(mask)).astype(np.int64)
+    slot = np.zeros(n, np.int64)
+    step = np.zeros(n, np.int64)
+    found = np.zeros(n, bool)
+    live = probe.copy()
+    for t in range(MAX_PROBE):
+        if not live.any():
+            break
+        cur = (home + t) & mask
+        tb = tomb[cur]
+        empty = live & ~tb & (klo[cur] == 0) & (khi[cur] == 0)
+        hit = live & ~tb & ~empty & (klo[cur] == ev["id_lo"]) & (khi[cur] == ev["id_hi"])
+        done = empty | hit
+        slot = np.where(done, cur, slot)
+        step = np.where(done, t, step)
+        found |= hit
+        live &= ~done
+    capped = live
+    slot[capped] = 0
+    cand = probe & ~found & ~capped
+    bits |= np.where(found, AR_FOUND, 0) | np.where(capped, AR_CAPPED, 0)
+    bits |= np.where(cand, AR_CAND, 0)
+    fi = np.flatnonzero(found)
+    rows = {c: _np_u(acc.cols[c])[slot[fi]] for c in ACCOUNT_COLS}
+    exists = np.zeros(n, np.int64)
+    exists[fi] = _account_exists_codes(ev, rows, fi)
+    bits |= exists << 8
+    # The F hash and the marks.
+    owner: Dict[int, int] = {}
+    for e in np.flatnonzero(cand).tolist():
+        f = int(slot[e])
+        owner[f] = e if f not in owner else SEQA_MULTI
+    prev_linked = np.zeros(n, bool)
+    prev_linked[1:] = linked[:-1]
+    marks = linked | capped | (active & prev_linked)
+    has_g1 = np.zeros(n, bool)
+    g1 = np.zeros(n, np.int64)
+    g1_step = np.zeros(n, np.int64)
+    g1_owner = np.full(n, SEQA_NONE, np.int64)
+    for e in np.flatnonzero(cand).tolist():
+        if owner[int(slot[e])] != SEQA_MULTI:
+            continue
+        marks[e] = True
+        t = int(step[e]) + 1
+        g = 0
+        while t < MAX_PROBE:
+            g = (int(home[e]) + t) & mask
+            if not tomb[g] and klo[g] == 0 and khi[g] == 0:
+                break
+            t += 1
+        has_g1[e], g1[e], g1_step[e] = True, g, t
+        if t < MAX_PROBE:
+            g1_owner[e] = owner.get(g, SEQA_NONE)
+    return {"bits": bits, "slot": slot, "step": step, "home": home,
+            "marks": marks, "has_g1": has_g1, "g1": g1, "g1_step": g1_step,
+            "g1_owner": g1_owner, "owner": owner, "ev": ev,
+            "pre_empty": (klo, khi, tomb)}
+
+
+def seqa_sequencer_plain(ledger: Ledger, count: int, pre) -> dict:
+    """K7's sequencer (``seqa_sequencer_kernel``'s thread 0): the marked
+    events in order, from the pre-pass and an overlay of the batch's
+    inserted slots (slot -> [event, live]).  Returns each marked event's
+    decision (raw code, final code, slot or None, live), the event the
+    serial loop takes over at (n: none) and the chain state there."""
+    bits, marks, ev = pre["bits"], pre["marks"], pre["ev"]
+    n = len(bits)
+    mask = ledger.accounts.capacity - 1
+    overlay: Dict[int, list] = {}
+    dec: Dict[int, list] = {}
+    chain_start, broken = -1, False
+    e = 0
+    while e < n:
+        if not marks[e]:
+            e += 1
+            continue
+        b = int(bits[e])
+        active, linked = bool(b & AR_ACTIVE), bool(b & AR_LINKED)
+        if linked and chain_start < 0:
+            chain_start = e
+        in_chain = chain_start >= 0
+        open_err = linked and e == count - 1
+        x = None
+        if not active:
+            code = 0
+        elif open_err:
+            code = 2
+        elif broken:
+            code = 1
+        elif b & 0x1F:
+            code = b & 0x1F
+        elif b & AR_FOUND:
+            code = (b >> 8) & 0x1F
+        elif b & AR_CAPPED:
+            return {"dec": dec, "from": e, "chain_start": chain_start,
+                    "broken": broken}
+        else:
+            got = _seqa_walk(pre, overlay, marks, e, mask)
+            if got is None:
+                return {"dec": dec, "from": e, "chain_start": chain_start,
+                        "broken": broken}
+            kind, v = got
+            if kind == "insert":
+                x = v
+                overlay[x] = [e, True]
+                code = 0
+            else:
+                rows = {c: ev[c][[v]] for c in ("flags", "user_data_128_lo",
+                                                "user_data_128_hi", "user_data_64",
+                                                "user_data_32", "ledger", "code")}
+                code = int(_account_exists_codes(ev, rows, [e])[0])
+        dec[e] = [code, code, x, x is not None]
+        if active and code != 0 and in_chain and not broken:
+            for j in range(e - 1, chain_start - 1, -1):
+                d = dec[j]
+                if d[3]:
+                    overlay[d[2]][1] = False
+                    d[3] = False
+                d[1] = 1
+            broken = True
+        if in_chain and (not linked or open_err):
+            chain_start, broken = -1, False
+        e += 1
+    return {"dec": dec, "from": n, "chain_start": chain_start, "broken": broken}
+
+
+def _seqa_walk(pre, overlay, marks, e: int, mask: int):
+    """Candidate ``e``'s walk from its F over the table as the batch has
+    left it: ("insert", slot), ("exists", the event whose live insert holds
+    its id), or None (the walk reached MAX_PROBE)."""
+    ev = pre["ev"]
+    klo, khi, tomb = pre["pre_empty"]
+    x, t = int(pre["slot"][e]), int(pre["step"][e])
+    home = int(pre["home"][e])
+    stage = 0
+    while True:
+        if t >= MAX_PROBE:
+            return None
+        taken = False
+        if x in overlay:
+            j, live = overlay[x]
+            if (live and ev["id_lo"][j] == ev["id_lo"][e]
+                    and ev["id_hi"][j] == ev["id_hi"][e]):
+                return "exists", j
+            taken = True
+        elif stage > 0:
+            u = (int(pre["g1_owner"][e]) if stage == 1
+                 else pre["owner"].get(x, SEQA_NONE))
+            if u >= 0 and u != e and not marks[u]:
+                if u < e:
+                    taken = True
+                else:
+                    marks[u] = True
+        if not taken:
+            return "insert", x
+        if stage == 0 and pre["has_g1"][e]:
+            stage, x, t = 1, int(pre["g1"][e]), int(pre["g1_step"][e])
+            continue
+        stage = 2
+        while True:
+            t += 1
+            if t >= MAX_PROBE:
+                return None
+            x = (home + t) & mask
+            if not tomb[x] and klo[x] == 0 and khi[x] == 0:
+                break
+
+
+def create_accounts_seq_split_plain(ledger, batch, count, timestamp):
+    """Plain version of K7 as the card runs it: the pre-pass
+    (``seqa_prepass_plain``), the sequencer (``seqa_sequencer_plain``),
+    then the finish: every event's code and row from its record or its
+    decision; after a capped insert, what is decided and then the serial
+    loop from there.  The same results as ``create_accounts_seq_plain``."""
+    n = batch["id_lo"].shape[0]
+    pre = seqa_prepass_plain(ledger, batch, count)
+    seq = seqa_sequencer_plain(ledger, count, pre)
+    frm = seq["from"]
+    bits, dec = pre["bits"], seq["dec"]
+    acc = ledger.accounts
+    raw = [0] * n
+    final = [0] * n
+    ins_slot = [SENT] * n
+    ins = []  # (event, slot, live)
+    for i in range(frm):
+        b = int(bits[i])
+        if pre["marks"][i]:
+            d = dec[i]
+            raw[i], final[i] = d[0], d[1]
+            if d[2] is not None:
+                ins.append((i, d[2], d[3]))
+                ins_slot[i] = d[2]
+        else:
+            c = (0 if not b & AR_ACTIVE else (b & 0x1F) or
+                 ((b >> 8) & 0x1F if b & AR_FOUND else 0))
+            raw[i] = final[i] = c
+            if b & AR_CAND:
+                ins.append((i, int(pre["slot"][i]), True))
+    ts_base = (timestamp - count + 1) & M64
+    if ins:
+        ev = pre["ev"]
+        e = np.array([i for i, _x, _l in ins], np.int64)
+        x = torch.tensor([s for _i, s, _l in ins], dtype=torch.int64)
+        live = np.array([lv for _i, _x, lv in ins], bool)
+        for c in ACCOUNT_COLS:
+            if c == "timestamp":
+                with np.errstate(over="ignore"):
+                    vals = np.uint64(ts_base) + e.astype(np.uint64)
+            else:
+                vals = ev[c][e]
+            col = acc.cols[c]
+            col[x.to(col.device)] = torch.from_numpy(
+                vals.view(np.int64) if vals.dtype == np.uint64
+                else vals.view(np.int32)).to(col.device)
+        zero = np.uint64(0)
+        for key, name in ((acc.key_lo, "id_lo"), (acc.key_hi, "id_hi")):
+            key[x.to(key.device)] = torch.from_numpy(
+                np.where(live, ev[name][e], zero).view(np.int64)).to(key.device)
+        acc.tombstone[x.to(acc.tombstone.device)] = torch.from_numpy(~live).to(
+            acc.tombstone.device)
+        acc.count += int(live.sum())
     dev = batch["id_lo"].device
-    lanes = torch.arange(n, device=dev)
-    linked_mask = ((batch["flags"] & AF_LINKED) != 0) & (lanes < count)
-    codes = _chain_codes(linked_mask,
-                         torch.tensor(raw, dtype=torch.int32, device=dev), count)
-    return ledger, codes, torch.tensor(overflow, device=dev)
+    if frm < n:
+        overflow = _accounts_loop(ledger, _events(batch, ACCOUNT_BATCH_COLS),
+                                  count, timestamp, frm, seq["chain_start"],
+                                  seq["broken"], ins_slot, raw)
+        return ledger, _account_chain_codes(batch, raw, count), torch.tensor(
+            overflow, device=dev)
+    if 0 < count < n and bits[count - 1] & AR_LINKED:
+        final[count] = 1  # _chain_codes reaches one lane past an open chain
+    return ledger, torch.tensor(final, dtype=torch.int32, device=dev), \
+        torch.tensor(False, device=dev)
 
 
 def _account_logic(ledger: Ledger, ev) -> int:

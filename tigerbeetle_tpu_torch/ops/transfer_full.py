@@ -508,31 +508,37 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
     n = batch["id_lo"].shape[0]
     dev = batch["id_lo"].device
     xfr_cols = tuple(TRANSFER_COLS)
-    ex_look = ht.lookup(ledger.transfers, batch["id_lo"], batch["id_hi"],
-                        MAX_PROBE, mask=valid, cols=xfr_cols)
-    dr_look = ht.lookup(ledger.accounts, batch["debit_account_id_lo"],
-                        batch["debit_account_id_hi"], MAX_PROBE, mask=valid,
-                        cols=_ACCOUNT_VIEW_COLS)
-    cr_look = ht.lookup(ledger.accounts, batch["credit_account_id_lo"],
-                        batch["credit_account_id_hi"], MAX_PROBE, mask=valid,
-                        cols=_ACCOUNT_VIEW_COLS)
+    looks = [
+        ht.Lookup(ledger.transfers, batch["id_lo"], batch["id_hi"], xfr_cols,
+                  mask=valid),
+        ht.Lookup(ledger.accounts, batch["debit_account_id_lo"],
+                  batch["debit_account_id_hi"], _ACCOUNT_VIEW_COLS, mask=valid),
+        ht.Lookup(ledger.accounts, batch["credit_account_id_lo"],
+                  batch["credit_account_id_hi"], _ACCOUNT_VIEW_COLS,
+                  mask=valid),
+    ]
+    if has_postvoid:
+        # The pending's row, then, on the same thread, the accounts and the
+        # fulfillment of a TABLE pending (keys zero elsewhere).
+        looks += [
+            ht.Lookup(ledger.transfers, batch["pending_id_lo"],
+                      batch["pending_id_hi"], xfr_cols, mask=postvoid),
+            ht.Lookup(ledger.accounts, None, cols=_ACCOUNT_VIEW_COLS,
+                      keys_from=(3, "debit_account_id_lo",
+                                 "debit_account_id_hi")),
+            ht.Lookup(ledger.accounts, None, cols=_ACCOUNT_VIEW_COLS,
+                      keys_from=(3, "credit_account_id_lo",
+                                 "credit_account_id_hi")),
+            ht.Lookup(ledger.posted, None, cols=("fulfillment",),
+                      keys_from=(3, "timestamp", None)),
+        ]
+    got = ht.lookup_many(looks, MAX_PROBE)
+    ex_look, dr_look, cr_look = got[:3]
     overflows = [(dr_look.overflow | cr_look.overflow, FLAG_GROW_ACCOUNTS),
                  (ex_look.overflow, FLAG_GROW_TRANSFERS)]
     if has_postvoid:
-        p_look = ht.lookup(ledger.transfers, batch["pending_id_lo"],
-                           batch["pending_id_hi"], MAX_PROBE, mask=postvoid,
-                           cols=xfr_cols)
+        p_look, pdr_look, pcr_look, posted_look = got[3:]
         p_tab = p_look.cols
-        # Accounts and fulfillment of a TABLE pending (keys zero elsewhere).
-        pdr_look = ht.lookup(ledger.accounts, p_tab["debit_account_id_lo"],
-                             p_tab["debit_account_id_hi"], MAX_PROBE,
-                             cols=_ACCOUNT_VIEW_COLS)
-        pcr_look = ht.lookup(ledger.accounts, p_tab["credit_account_id_lo"],
-                             p_tab["credit_account_id_hi"], MAX_PROBE,
-                             cols=_ACCOUNT_VIEW_COLS)
-        posted_look = ht.lookup(ledger.posted, p_tab["timestamp"],
-                                torch.zeros_like(p_tab["timestamp"]),
-                                MAX_PROBE, cols=("fulfillment",))
         p_tab_found = p_look.found
         pdr, pcr = _account_view(pdr_look), _account_view(pcr_look)
         postedT_found = posted_look.found

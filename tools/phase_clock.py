@@ -1,8 +1,9 @@
-"""Where K13 run_sort's, K3 validate's, K9 full_index's and K15
-index_window's (union mode) time goes, by phase, on the card.
+"""Where K13 run_sort's, K3 validate's, K9 full_index's, K15
+index_window's (union mode), K1 probe's and K7 seq_accounts' time goes, by
+phase, on the card.
 
-Builds csrc/index_sort.cu, csrc/validate.cu, csrc/full_index.cu and
-csrc/index_query.cu (with probe.cu, for the error strings) with
+Builds csrc/index_sort.cu, csrc/validate.cu, csrc/full_index.cu,
+csrc/index_query.cu, csrc/probe.cu and csrc/sequential.cu with
 TB_PHASE_CLOCK defined into build/phase_clock/: thread
 0 of each block (the first 64) stores %globaltimer at each of the kernel's
 phase marks (csrc/phase_clock.cuh).  ``split(kernel, fn)`` runs ``fn``
@@ -13,7 +14,13 @@ kernels, index_kernels, full_kernels and queries phases print it at the
 paths' shapes.  From the repository root on a machine with a CUDA card,
 for a flagship-shaped batch (both sides of 8,192 index entries), K3 and
 K9 on 8,192 lanes and K15 on a limit-8,192 query over a pyramid of
-levels 2^13-2^23 (five of eleven occupied a side, 10,000 accounts):
+levels 2^13-2^23 (five of eleven occupied a side, 10,000 accounts), K1 on
+8,192 keys (half stored) into a table of 2^20 slots at load 0.45 gathering
+15 columns, and K7 on 8,190 new accounts into an empty table of 2^16
+(the sequential path's shape).  K1's marks are a block's (block barriers
+in the clocked build only) and the last lookup's of a launch; K7's come
+from its four kernels (the pre-pass's probe and mark launches, the
+sequencer's one block, the finish):
 
     python tools/phase_clock.py
 """
@@ -30,6 +37,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tigerbeetle_tpu_torch.ops import _cuda  # noqa: E402
+from tigerbeetle_tpu_torch.ops import hash_table as ht  # noqa: E402
+from tigerbeetle_tpu_torch.ops import scan_path as sp  # noqa: E402
+from tigerbeetle_tpu_torch.ops import state_machine as sm  # noqa: E402
 
 # The marks of each kernel, in order (csrc/index_sort.cu, csrc/validate.cu,
 # csrc/full_index.cu, csrc/index_query.cu's union mode).
@@ -41,12 +51,17 @@ MARKS = {
                    "found_and_joined"),
     "index_union": ("start", "windows_searched", "pruned", "scanned",
                     "staged", "ranked", "tail_written"),
+    "probe": ("start", "probed", "row_loaded", "row_stored"),
+    "seq_accounts": ("start", "probed", "mark_start", "marked",
+                     "sequencer_start", "overlay_ready", "walked",
+                     "sequencer_end", "finish_start", "finished"),
 }
 ENTRY = {"run_sort": "tb_run_sort_phases", "validate": "tb_validate_phases",
          "full_index": "tb_full_index_phases",
-         "index_union": "tb_index_query_phases"}
+         "index_union": "tb_index_query_phases",
+         "probe": "tb_probe_phases", "seq_accounts": "tb_seq_accounts_phases"}
 SOURCES = ("index_sort.cu", "validate.cu", "full_index.cu", "index_query.cu",
-           "probe.cu")
+           "probe.cu", "sequential.cu")
 _LIB = None
 
 
@@ -141,9 +156,42 @@ def query_pyramid(dev):
     return side(dr), side(cr), 1, 0, 1, (1 << 64) - 2, True, True, 8192, False
 
 
+def k1_shape(dev):
+    """A transfers table of 2^20 slots at load 0.45 and 8,192 keys, half of
+    them stored."""
+    rng = np.random.default_rng(2)
+    cap = 1 << 20
+    t = ht.make_table(cap, sm.TRANSFER_COLS, dev)
+    ids = torch.from_numpy(np.unique(rng.integers(
+        1, 1 << 62, int(cap * 0.45), dtype=np.uint64)).view(np.int64)).to(dev)
+    rows = {k: ids.to(dt) for k, dt in sm.TRANSFER_COLS.items()}
+    ht.insert(t, ids, torch.zeros_like(ids), torch.ones_like(ids, dtype=torch.bool),
+              rows, sm.MAX_PROBE)
+    lo = torch.cat([ids[torch.randperm(len(ids), device=dev)[:4096]],
+                    torch.randint(1, 1 << 62, (4096,), device=dev)])
+    return t, lo, torch.zeros_like(lo)
+
+
+def k7_shape(dev):
+    """The sequential path's create_accounts batch: 8,190 new accounts
+    (ids 1..8,190) into an empty accounts table of 2^16 slots; each call
+    of the returned function makes a fresh ledger."""
+    from tigerbeetle_tpu_torch import convert, types
+
+    batch = types.accounts_array([types.account(id=i, ledger=1, code=10)
+                                  for i in range(1, 8191)])
+    padded = np.zeros(8192, dtype=batch.dtype)
+    padded[:8190] = batch
+    soa = convert.soa_to_tensors(types.to_soa(padded), dev)
+
+    def args():
+        led = sm.make_ledger(1 << 16, 1 << 18, 1 << 16, 1 << 16, device=dev)
+        return led, soa, 8190, 10 ** 9
+    return args
+
+
 def main() -> None:
     from tigerbeetle_tpu_torch import convert
-    from tigerbeetle_tpu_torch.ops import state_machine as sm
     from tigerbeetle_tpu_torch.ops import index as ix
     from tigerbeetle_tpu_torch.ops import transfer_full as tf
     from tigerbeetle_tpu_torch.testing import k3cases, k9cases, k13cases
@@ -163,6 +211,8 @@ def main() -> None:
     ids = [convert.array_to_tensor(a, dev)
            for a in k9cases.case("random", 8192)]
     query = query_pyramid(dev)
+    k1_table, k1_lo, k1_hi = k1_shape(dev)
+    k7_args = k7_shape(dev)
     print(json.dumps({
         "run_sort_both_sides_8192": split(
             "run_sort", lambda: _cuda.run_sort([side, side], use_t, outs)),
@@ -172,6 +222,11 @@ def main() -> None:
                                  lambda: tf._build_id_index(*ids)),
         "index_union_limit_8192": split(
             "index_union", lambda: ix.query_transfers(*query)),
+        "probe_8192_15_columns": split(
+            "probe", lambda: ht.lookup(k1_table, k1_lo, k1_hi, sm.MAX_PROBE,
+                                       cols=sm.TRANSFER_EXISTS_COLS)),
+        "seq_accounts_8190_new": split(
+            "seq_accounts", lambda: sp.create_accounts_seq(*k7_args())),
     }))
 
 
