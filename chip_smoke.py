@@ -21,7 +21,13 @@ Phases, each printing one JSON line:
                 batches; the claim and write entries apart) and at
                 full_twophase's (its transfers claim, then its posted
                 claim into 2^24 slots), each with the protocol's rounds
-                and deepest lane; K1 as the main path's batch launches it
+                and deepest lane; K2's round form (more than 8,192 lanes)
+                at its callers' full shapes, byte for byte against the
+                plain insert and rebuild: ``grow`` 2^24 -> 2^25 slots at
+                load 0.5 and ``drop_evicted`` at 2^23, the claim (its
+                phases clocked), the writes and the call timed beside
+                their bounds and the parent's times (PERF.md); K1 as the
+                main path's batch launches it
                 (its three lookups in one launch, and the graph's form with
                 preallocated outputs and a device count word) on that
                 2^25-slot table and the 2^16-slot accounts table, beside
@@ -31,8 +37,10 @@ Phases, each printing one JSON line:
   5. main     - the main path at full size: 10,000 accounts, then 10,000,000
                 plain transfers in 8,190-event batches (the flagship
                 bench.py defaults), balances against a closed form, and the
-                digest against its plain version.  K1-K5's launch counts are
-                read from this phase;
+                digest against its plain version; each table growth timed
+                apart (a synchronise on each side) with the allocator's
+                reserved bytes around it.  K1-K5's launch counts are read
+                from this phase;
   6. seq_kernels - K6 seq_transfers (K32 seq_prepass, then the sequencer),
                 K32 alone, K7 seq_accounts and K8 tombstone against their
                 plain versions on the same inputs, byte for byte: tables
@@ -110,7 +118,10 @@ Phases, each printing one JSON line:
                 memory and the clusters the card holds) beside its
                 chunks-and-K14-rounds form and one side of 1,024; K13's
                 phases clocked (tools/phase_clock.py) and the parent's time
-                (PERF.md) beside it;
+                (PERF.md) beside it; K14 at full size, byte for byte against
+                the plain sort and timed beside its bounds and the parent's
+                times (PERF.md): a rebuild's rounds and tail over 2^25
+                entries (10,000,000 live), the carries into levels 6 and 10;
  14. queries_parity - small, on the card: a default machine (the index
                 appended on the fast, general and sequential routes) against
                 the scalar oracle and a lazy_index machine: every filter
@@ -285,6 +296,7 @@ before the last line is printed.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -307,8 +319,8 @@ def emit(obj) -> None:
 
 
 def phase_clock():
-    """tools/phase_clock.py: K13's and K3's phases by %globaltimer, from a
-    build of their sources with TB_PHASE_CLOCK."""
+    """tools/phase_clock.py: the clocked kernels' phases by %globaltimer,
+    from a build of their sources with TB_PHASE_CLOCK."""
     import importlib.util
 
     if "phase_clock" not in sys.modules:
@@ -819,6 +831,9 @@ def phase_kernels(seed: int, dev) -> dict:
     results["insert"] = k2_adversarial(rng, xfr, dev)
     # K1 at the main path's shapes is timed on the same 2^25 table.
     results["insert"].update(insert_path_shape(dev, probe_acc=acc))
+    results["insert"]["round_form"] = round_form_shapes(dev)
+    # Typed in from PERF.md, printed in this phase's line only.
+    results["insert"]["round_form_parent_ms_perf_md"] = K2_ROUND_PARENT_MS
     k1 = results["insert"].pop("k1")
     results["probe"] = dict(
         k1, max_abs_err=max(errs, k1["max_abs_err"]), library_ms=None,
@@ -1075,6 +1090,126 @@ def k2_adversarial(rng, xfr, dev) -> dict:
         bound_ms=bound(LANES * (16 + 1 + 8) + 17 * ins_steps + 16 * n_placed,
                        40 * LANES + 10 * ins_steps)[0],
         rounds=depth["rounds"], deepest_lane=depth["deepest_lane"])
+    return out
+
+
+# K2's round kernel before its redesign, at round_form_shapes' shapes, ms
+# (PERF.md §6, T1: the earlier tree timed in the same call as this one).
+K2_ROUND_PARENT_MS = {"grow_2e25": {"claim": 5.555, "write": 3.323,
+                                    "call": 10.40, "wall": 10.50},
+                      "drop_evicted_2e23": {"claim": 1.942, "write": 0.946,
+                                            "call": 3.289, "wall": 3.337}}
+
+
+def round_form_shapes(dev) -> dict:
+    """K2's round form (more than 8,192 lanes) at its callers' shapes:
+    ``ht.grow`` of the main run's transfers table, 2^24 -> 2^25 slots at
+    load 0.5 (8,388,608 rows, ids consecutive from FIRST_TID), and the cold
+    tier's rebuild ``drop_evicted`` at the tiered run's hot ceiling, 2^23
+    slots (``evict_test_table``, the threshold of time_evict).  Each
+    checked byte for byte against the plain insert and the plain rebuild
+    on the card; then K2's insert as the call makes it (into an unwritten
+    table, written whole) and the whole call timed by CUDA events behind a
+    spin, the insert's phases clocked (tools/phase_clock.py: the claim ends
+    where the fill starts), the call's synchronised wall, the rounds, the
+    deepest lane and the bounds (the parent's times, K2_ROUND_PARENT_MS,
+    are printed beside them in the kernels phase's line)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import cold
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+
+    def wall_ms(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    def shape(t, keys_mask, cap, call, plain, mask_given):
+        specs = {k: v.dtype for k, v in t.cols.items()}
+        errs = max_abs_err_card("K2 round form", table_tensors(call()),
+                                table_tensors(plain()))
+
+        def insert():
+            # The insert as the call makes it: into an unwritten table,
+            # written whole.
+            return ht.rehash_into(cap, t.key_lo, t.key_hi, keys_mask, t.cols)
+
+        f, claimed = insert()
+        depth = k2_depth(claimed, t.key_lo, t.key_hi, keys_mask, cap,
+                         bool(f.probe_overflow), cap)
+        del f
+        n, placed = keys_mask.numel(), int((claimed < cap).sum())
+        masked = int(keys_mask.sum())
+        row_bytes = sum(c.element_size() for c in t.cols.values())
+        # The call's inputs, each read once: ``grow`` reads every old key
+        # (its mask comes from them) and the live lanes' rows;
+        # ``drop_evicted`` its keep mask and the kept lanes' keys and rows.
+        # Its output, the new table, written whole.
+        read_bytes = n + masked * (row_bytes + 16) if mask_given \
+            else n * 16 + masked * row_bytes
+        # The claim: each lane's mask and claim, a masked lane's keys, its
+        # slot's word; the fill: each placed lane's row and keys read, every
+        # slot of the new table written whole.
+        claim_bytes = n * 9 + masked * 16 + 8 * depth["slot_visits"]
+        fill_bytes = placed * (row_bytes + 16) + cap * (17 + row_bytes)
+        ins = timed(insert, reps=5)
+        clock = phase_clock().split("insert_rounds", insert)
+        # The claim ends where the fill starts (the memsets before the
+        # first mark are left out of it).
+        if "fill" not in clock["us_since_start"]:
+            raise AssertionError(f"K2's round form clock has no fill mark: "
+                                 f"{sorted(clock['us_since_start'])}")
+        claim_ms = clock["us_since_start"]["fill"] / 1e3
+        whole = timed(call, reps=5)
+        return dict(
+            max_abs_err=errs, insert_ms=ins["device_ms"], claim_ms=claim_ms,
+            write_ms=ins["device_ms"] - claim_ms, ms=whole["device_ms"],
+            wall_ms=wall_ms(call), make_table_ms=timed(
+                lambda: ht.make_table(cap, specs, dev), reps=5)["device_ms"],
+            claim_bound=bound(claim_bytes, 40 * n + 10 * depth["slot_visits"]),
+            write_bound=bound(fill_bytes, 0),
+            bound=bound(read_bytes + cap * (17 + row_bytes), 40 * n),
+            rounds=depth["rounds"], deepest_lane=depth["deepest_lane"],
+            lanes=n, placed=placed, info=_cuda.insert_rounds_info(n),
+            clock=clock)
+
+    out = {}
+    old_cap = 1 << 24
+    t = ht.make_table(old_cap, sm.TRANSFER_COLS, dev)
+    ids = FIRST_TID + torch.arange(old_cap // 2, dtype=torch.int64, device=dev)
+    rows = {k: (ids * 2654435761).to(dt) for k, dt in sm.TRANSFER_COLS.items()}
+    ht.insert(t, ids, torch.zeros_like(ids), torch.ones_like(ids, dtype=torch.bool),
+              rows, old_cap)
+    del ids, rows
+    live = (t.key_lo != 0) | (t.key_hi != 0)
+    specs = {k: v.dtype for k, v in t.cols.items()}
+    out["grow_2e25"] = shape(
+        t, live, 2 * old_cap, lambda: ht.grow(t, 2 * old_cap),
+        lambda: ht.insert_plain(ht.make_table(2 * old_cap, specs, dev),
+                                t.key_lo, t.key_hi, live, t.cols,
+                                2 * old_cap)[0], mask_given=False)
+    out["grow_2e25"]["shape"] = ("ht.grow 2^24 -> 2^25 slots, 8,388,608 rows "
+                                 "(the main run's ids)")
+    del t, live
+    torch.cuda.empty_cache()
+    cap = 1 << 23
+    t = evict_test_table(dev, cap)
+    thr = cold.eviction_threshold(t, 500, 1000)
+    keep = cold.extract_evicted(t, thr, cap, keep=True)[4]
+    out["drop_evicted_2e23"] = shape(
+        t, keep, cap, lambda: cold.drop_evicted(t, thr, keep),
+        lambda: cold.drop_evicted_plain(t, thr, keep), mask_given=True)
+    out["drop_evicted_2e23"]["shape"] = (
+        f"drop_evicted at 2^23 slots, {int(keep.sum())} of "
+        f"{int(cold._live(t).sum())} live rows kept")
+    del t, keep
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1541,6 +1676,54 @@ def phase_parity(seed: int, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def timed_grows(grows: list):
+    """While the block runs, every ``ht.grow`` is timed on the card (a
+    synchronise on each side of the rehash) and recorded in ``grows`` with
+    the allocator's reserved bytes before and after it and the time its
+    new table's allocation took (``make_table_ms``: ``ht._new_table``,
+    which ``make_table`` and ``rehash_into`` call, synchronised alike)."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+
+    grow, new_table = ht.grow, ht._new_table
+    alloc_ms = []
+
+    def timed_new_table(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = new_table(*args, **kwargs)
+        torch.cuda.synchronize()
+        alloc_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def wrapped(table, capacity, hash_shift=0):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved()
+        alloc_ms.clear()
+        ht._new_table = timed_new_table
+        t0 = time.perf_counter()
+        try:
+            out = grow(table, capacity, hash_shift)
+            torch.cuda.synchronize()
+        finally:
+            ht._new_table = new_table
+        if not alloc_ms:
+            raise AssertionError("ht.grow allocated no table")
+        grows.append({"from": table.capacity, "to": capacity,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "make_table_ms": sum(alloc_ms),
+                      "reserved_before": before,
+                      "reserved_after": torch.cuda.memory_reserved()})
+        return out
+
+    ht.grow = wrapped
+    try:
+        yield grows
+    finally:
+        ht.grow = grow
+
+
 def phase_main(dev, n_transfers: int, snapshot_batches: int = 0) -> dict:
     """The main path at full size.  With ``snapshot_batches``, the accounts
     table's keys and balance columns are copied on the card (a device copy,
@@ -1587,6 +1770,9 @@ def phase_main(dev, n_transfers: int, snapshot_batches: int = 0) -> dict:
     steady_s = 0.0
     n_steady = 0
     grow_batches_ms = []
+    # Each growth's rehash timed apart (its batch's wall is in
+    # grow_batches_ms), with the allocator's reserved bytes around it.
+    table_grows = []
     prof = None
     t_wall = time.perf_counter()
     for b in range(n_batches):
@@ -1598,7 +1784,8 @@ def phase_main(dev, n_transfers: int, snapshot_batches: int = 0) -> dict:
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
         t0 = time.perf_counter()
-        res = m.create_transfers(batch)
+        with timed_grows(table_grows):
+            res = m.create_transfers(batch)
         dt = time.perf_counter() - t0
         grew = m.ledger.transfers.capacity != cap
         if grew:
@@ -1672,7 +1859,7 @@ def phase_main(dev, n_transfers: int, snapshot_batches: int = 0) -> dict:
     return {
         "accounts": N_ACCOUNTS, "transfers": n_transfers, "batches": n_batches,
         "transfers_capacity": [caps0, m.ledger.transfers.capacity],
-        "grow_batches_ms": grow_batches_ms,
+        "grow_batches_ms": grow_batches_ms, "table_grows": table_grows,
         "commit_s_unprofiled": commit_s, "wall_s_with_host_generation": wall_s,
         "transfers_per_s": n_timed / commit_s,
         "profile": profile,
@@ -2316,33 +2503,11 @@ def seq_wide_machine(rng, dev, cfg) -> dict:
 
 
 def phase_sequential(dev, n_transfers: int) -> dict:
-    import torch
-    from tigerbeetle_tpu_torch import types
-    from tigerbeetle_tpu_torch.config import LedgerConfig
-    from tigerbeetle_tpu_torch.machine import TorchStateMachine
-    from tigerbeetle_tpu_torch.ops import hash_table as ht
-    from tigerbeetle_tpu_torch.ops import state_machine as sm
-    from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
-
     # Time every table growth on the card (a synchronize on each side of
     # each rehash; growths are rare, so the rest of the run is untouched).
     grows = []
-    grow = ht.grow
-
-    def timed_grow(table, capacity, hash_shift=0):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = grow(table, capacity, hash_shift)
-        torch.cuda.synchronize()
-        grows.append({"from": table.capacity, "to": capacity,
-                      "ms": (time.perf_counter() - t0) * 1e3})
-        return out
-
-    ht.grow = timed_grow
-    try:
+    with timed_grows(grows):
         return _sequential_run(dev, n_transfers, grows)
-    finally:
-        ht.grow = grow
 
 
 def _sequential_run(dev, n_transfers: int, grows: list) -> dict:
@@ -3184,6 +3349,7 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
                           pend["amount_lo"])
         torch.cuda.synchronize()
         launches = _cuda.counts()
+        round_form_calls = _cuda.ROUND_FORM_CALLS
     finally:
         ht.grow = grow
         del m._d2h_codes, m._grow_flagged  # the spies refer back to m
@@ -3255,6 +3421,7 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
         "wave_hist": wave_hist.tolist(), "profile": profile,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "digest": digest, "launches": launches,
+        "k2_round_form_calls": round_form_calls,
     }
 
 
@@ -3293,6 +3460,91 @@ def index_runs(rng, n_runs, n, dev):
         sides = [[t64(a, dev) for a in (acct, zero, ts, tid, zero)]
                  for acct in (dr, cr)]
         out.append((sides, use))
+    return out
+
+
+# K14 before its redesign, at merge_shapes' shapes, ms (PERF.md §6, T1:
+# the earlier tree timed in the same call as this one).
+K14_PARENT_MS = {"rebuild_rounds_2e25": 41.91, "carry_into_6": 0.3036,
+                 "carry_into_10": 3.196}
+
+
+def merge_shapes(dev) -> dict:
+    """K14 at its callers' full shapes, each checked byte for byte against
+    the plain sort on the card, then timed by CUDA events behind a spin
+    beside its bound (the parent's times, K14_PARENT_MS, are printed in
+    the index_kernels phase's line): a full
+    rebuild's merge rounds and tail after K13's chunks (one side of the
+    queries run's rebuild: 2^25 entries, 10,000,000 live, accounts of
+    10,000), and the carries into level 6 and into level 10 (the queries
+    run's deepest: 1,222 batches), both sides a launch, base 8,192."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import index as ix
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+
+    def rand(n, hi):
+        return torch.randint(1, hi, (n,), device=dev, generator=g)
+
+    def sorted_level(n):
+        live = torch.rand(n, device=dev, generator=g) < 0.99
+        acct, tid = rand(n, 10_001), rand(n, 1 << 62)
+        return ix._sort_level_plain(ix._masked(
+            [acct, torch.zeros_like(acct), rand(n, 1 << 62), tid,
+             torch.zeros_like(tid)], live))
+
+    out = {}
+    n, n_live = 1 << 25, 10_000_000
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    live[torch.randperm(n, device=dev, generator=g)[:n_live]] = True
+    acct, tid = rand(n, 10_001), rand(n, 1 << 62)
+    cols = [acct, torch.zeros_like(acct), rand(n, 1 << 62), tid,
+            torch.zeros_like(tid)]
+    chunks = [torch.empty((5, n), dtype=torch.int64, device=dev)]
+    chunk = _cuda.run_sort([cols], live, [list(chunks[0].unbind(0))])
+    got = ix._merge_rounds(chunks, chunk)[0]
+    errs = max_abs_err_card("run_merge rebuild rounds", {"level": got.block},
+                            {"level": ix._sort_level_plain(
+                                ix._masked(cols, live, n)).block})
+    del got, cols, acct, tid, live
+    t = timed(lambda: ix._merge_rounds(chunks, chunk), reps=5)
+    out["rebuild_rounds_2e25"] = dict(
+        ms=t["device_ms"], ms_from=t["device_ms_from"],
+        launches=(n // chunk).bit_length(),  # the rounds and the tail
+        # K13's chunks read once, the level written once: a live entry's
+        # five words read and written, a sentinel's two id words read and
+        # its five written (its key words are the sentinel key).
+        bound=bound(n_live * 80 + (n - n_live) * 56, 0), live=n_live,
+        sentinels=n - n_live,
+        shape=f"one side of a rebuild: 2^25 entries in chunks of {chunk}, "
+              f"{n_live} live")
+    del chunks
+    torch.cuda.empty_cache()
+    base = LANES
+    for k in (6, 10):
+        jobs = [[sorted_level(base)] + [sorted_level(base << j)
+                                         for j in range(k)] for _ in range(2)]
+        outs = [ix.Level(torch.empty((5, base << k), dtype=torch.int64,
+                                     device=dev)) for _ in range(2)]
+        ix._merge_sides(jobs, outs=outs)
+        for o, j in zip(outs, jobs):
+            errs = max(errs, max_abs_err_card(
+                f"run_merge carry into {k}", {"level": o.block},
+                {"level": ix._merge_plain(j).block}))
+        t = timed(lambda: ix._merge_sides(jobs, outs=outs), reps=5)
+        sent = sum(int((lv.block[2] == -1).sum()) for j in jobs for lv in j)
+        out[f"carry_into_{k}"] = dict(
+            ms=t["device_ms"], ms_from=t["device_ms_from"], launches=k,
+            # Both sides' entries in and out once, a sentinel's key words
+            # not read (as in the rebuild's bound).
+            bound=bound(2 * (base << k) * 80 - 24 * sent, 0), sentinels=sent,
+            shape=f"a carry into level {k}: run + levels 0..{k - 1}, "
+                  f"{base << k} entries a side, both sides a launch")
+        del jobs, outs
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = errs
     return out
 
 
@@ -3472,6 +3724,11 @@ def phase_index_kernels(seed: int, dev) -> dict:
               f"{big[0].n // 2} + {big[0].n // 2} entries in one launch",
         carries=carries,
     )
+    shapes = merge_shapes(dev)
+    results["run_merge"]["max_abs_err"] = max(errs, shapes.pop("max_abs_err"))
+    results["run_merge"]["shapes"] = shapes
+    # Typed in from PERF.md, printed in this phase's line only.
+    results["run_merge"]["shapes_parent_ms_perf_md"] = K14_PARENT_MS
     checked["run_merge_carries"] = len(carries)
 
     # -- K15: windows and unions on that pyramid (levels 1, 2, 6 occupied,
@@ -3908,32 +4165,46 @@ def phase_queries(dev, n_transfers: int, smi: str) -> dict:
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
-    # K14's work over the path: the entries each counted launch reads (and
-    # writes), for its bound over the path's carries.
-    merge_launch = _cuda._merge_launch
+    # K14's work over the path, for its bound: a carry's launch reads (and
+    # writes) its entries; a full build's rounds and tail together read
+    # K13's chunks once and write the level once, counted at the tail,
+    # where a sentinel-keyed entry's key words are not read.
+    merge_launch, merge_tail = _cuda._merge_launch, _cuda.run_merge_tail
     k14_entries = [0, 0]  # entries, launches
+    k14_tails = []  # (entries, its live prefix's length) a full build
 
-    def counted_merge(cols, sizes, jobs, stream):
+    def counted_merge(cols, sizes, jobs, stream, prefix=None):
         if uncounted.depth == 0:
-            for j in range(jobs):
+            for j in range(jobs if prefix is None else 0):
                 la, lb, pairs = sizes[6 * j:6 * j + 3]
                 k14_entries[0] += (la + lb) * pairs
             k14_entries[1] += 1
-        merge_launch(cols, sizes, jobs, stream)
+        merge_launch(cols, sizes, jobs, stream, prefix)
 
-    _cuda._merge_launch = counted_merge
+    def counted_tail(chunks, level, chunk, pchunk, pfinal):
+        if uncounted.depth == 0:
+            k14_entries[0] += sum(c[0].numel() for c in chunks)
+            k14_entries[1] += 1
+            k14_tails.extend((c[0].numel(), pf) for c, pf in zip(chunks, pfinal))
+        merge_tail(chunks, level, chunk, pchunk, pfinal)
+
+    _cuda._merge_launch, _cuda.run_merge_tail = counted_merge, counted_tail
     try:
         _queries_body(out, run, dev, n_transfers, rng, flag_cycle)
     finally:
-        _cuda._merge_launch = merge_launch
+        _cuda._merge_launch, _cuda.run_merge_tail = merge_launch, merge_tail
     entries, launches = k14_entries
     if launches != out["launches"]["run_merge"]:
         raise AssertionError(f"K14's counted launches {launches} != "
                              f"{out['launches']['run_merge']}")
-    # Each entry read once and written once, 40 B (five u64 columns).
-    per_launch = 80 * entries / launches if launches else 0.0
+    # Each entry read once and written once, 40 B (five u64 columns); a
+    # full build's sentinel-keyed entries read 16 B (their id words).
+    tail_sentinels = sum(n - int(pf.item()) for n, pf in k14_tails)
+    per_launch = (80 * entries - 24 * tail_sentinels) / launches \
+        if launches else 0.0
     out["k14_over_path"] = dict(
         launches=launches, entries_merged=entries,
+        full_build_sentinels=tail_sentinels,
         bytes_per_launch=per_launch,
         bound_ms_per_launch=bound(per_launch, 0)[0])
     return out
@@ -4507,6 +4778,7 @@ def time_evict(t, dev) -> dict:
     live = int(cold._live(t).sum())
     got = cold.extract_evicted(t, thr, cap, keep=True)
     n, keep = int(got[0]), got[4]
+    kept = int(keep.sum())
     del got
     row_bytes = sum(c.element_size() for c in t.cols.values())
     keys = torch.where(cold._live(t), t.cols["timestamp"],
@@ -4545,11 +4817,13 @@ def time_evict(t, dev) -> dict:
             **events(lambda: cold.drop_evicted(t, thr, keep),
                      lambda: cold.drop_evicted_plain(t, thr, keep), reps=5),
             library_ms=None,
-            # Every slot's keys, tombstone and columns read, and written to
-            # the fresh table.
-            bound=bound(2 * cap * (17 + row_bytes), cap * 10),
-            shape=f"2^{cap.bit_length() - 1} slots, {int(keep.sum())} kept "
-                  "rows reinserted (K2's claim and write entries)"),
+            # The keep mask and the kept rows' keys and columns read; the
+            # fresh table written whole (as round_form_shapes counts it).
+            bound=bound(cap + kept * (16 + row_bytes) + cap * (17 + row_bytes),
+                        cap * 10),
+            shape=f"2^{cap.bit_length() - 1} slots, {kept} kept "
+                  "rows reinserted (K2's insert, its round form writing the "
+                  "new table whole)"),
     }
 
 
@@ -4672,6 +4946,7 @@ def phase_tiered(dev, n_transfers: int) -> dict:
     if window.start < 0:
         window = range(0)
     launches = dict.fromkeys(_cuda.KERNELS, 0)
+    round_form_calls = 0  # K2's round form: its growths and rebuilds
     tier_s = twin_s = 0.0
     prof, prof_wall_ms = None, 0.0
     evictions, bloom_over_time, flagged = [], [], 0
@@ -4687,11 +4962,13 @@ def phase_tiered(dev, n_transfers: int) -> dict:
                     activities=[torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
             before = _cuda.counts()
+            rf0 = _cuda.ROUND_FORM_CALLS
             s = time.perf_counter()
             got = m.create_transfers(batch)
             dt = time.perf_counter() - s
             for k, v in _cuda.counts().items():
                 launches[k] += v - before[k]
+            round_form_calls += _cuda.ROUND_FORM_CALLS - rf0
             tier_s += dt
             if b in window:
                 prof_wall_ms += dt * 1e3
@@ -4805,6 +5082,7 @@ def phase_tiered(dev, n_transfers: int) -> dict:
         "accounts_max_abs_err": errs,
         "peak_device_bytes": peak, "ledger_bytes": ledger_bytes,
         "profile": profile, "launches": launches,
+        "k2_round_form_calls": round_form_calls,
     }
 
 
@@ -6966,7 +7244,9 @@ def main() -> int:
     main_run = phase_main(dev, args.transfers, twin_batches)
     launches = _cuda.counts()
     main_snapshot = main_run.pop("snapshot")
-    emit({"phase": "main", "launches": launches, **main_run})
+    # K2's round form (its growths) is counted apart from the batches' K2.
+    emit({"phase": "main", "launches": launches,
+          "k2_round_form_calls": _cuda.ROUND_FORM_CALLS, **main_run})
     missing = [k for k in MAIN_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
@@ -7223,7 +7503,8 @@ def main() -> int:
                     "ms_graph_replay", "ms_mixed_2040", "ms_16384",
                     "ms_twophase_shape", "ms_adversarial",
                     "rounds_path_shape", "deepest_lane_path_shape",
-                    "ms_no_rounds", "core_ms", "hist_append_ms"):
+                    "ms_no_rounds", "core_ms", "hist_append_ms",
+                    "round_form", "shapes"):
             if key in r:
                 rows[-1][key] = r[key]
     emit({"kernels": rows})

@@ -135,7 +135,8 @@ def test_split_constants_match_the_cuda_source():
 def test_insert_scratch_is_batch_sized_up_to_the_split_limit(n, cap):
     """K2's scratch: claimed and the pre-pass's homes and windows for a
     batch of at most 8,192 lanes, whatever the table's size; the round
-    kernel's two int32[C] claim buffers only above it."""
+    form's int32[C] claim words (a home's), its two walker lists of n
+    (lane, home) pairs and their two lengths only above it."""
     scratch = _cuda.insert_scratch(n, cap, CPU)
     assert scratch[0].shape == (n,) and scratch[0].dtype == torch.int64
     if n <= _cuda.INSERT_SPLIT_MAX_N:
@@ -143,4 +144,4 @@ def test_insert_scratch_is_batch_sized_up_to_the_split_limit(n, cap):
         assert [x.numel() for x in scratch] == [n, 2 * n]
     else:
         assert not _cuda.insert_split(n, cap)
-        assert [x.numel() for x in scratch] == [n, cap, cap, 3]
+        assert [x.numel() for x in scratch] == [n, cap, 2 * n, 2]

@@ -25,7 +25,7 @@ from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
 from tigerbeetle_tpu_torch.testing import (fullmix, fulltraps, k1cases, k2cases,
                                            k3cases, k7cases, k9cases, k13cases,
-                                           k15cases, seqmix)
+                                           k14cases, k15cases, seqmix)
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -304,9 +304,9 @@ def test_claim_cases_match_plain(cuda_device, case):
 
 def test_insert_at_8192_and_8193_lanes_takes_each_route(cuda_device):
     """A batch of 8,192 lanes takes the split form (its scratch the batch's
-    size), one of 8,193 the round kernel (``grow``'s route, two int32[C]
-    claim buffers); both equal the plain insert and claim, with same-home
-    groups, tombstones and masked lanes."""
+    size), one of 8,193 the round form (``grow``'s route, an int32[C]
+    claim word a home); both equal the plain insert and claim, with
+    same-home groups, tombstones and masked lanes."""
     rng = np.random.default_rng(8)
     cap = 1 << 15
     t = ht.make_table(cap, COLS, cuda_device)
@@ -2331,3 +2331,152 @@ def test_psum_across_cards_with_nccl(cuda_device):
     want = torch.from_numpy(host).sum(0)
     for got in m.psum(parts):
         assert torch.equal(got.cpu(), want)
+
+
+# -- K2's round form (more than 8,192 lanes) and K14's redesign ----------------
+
+
+def _round_case(name, dev):
+    arrays, lo, mask, max_probe, shift = k2cases.ROUND_CASES[name]()
+    lo = convert.array_to_tensor(np.asarray(lo, np.uint64), dev)
+    return (k2cases.table_from_arrays(arrays, dev), lo, torch.zeros_like(lo),
+            torch.from_numpy(np.asarray(mask, bool)).to(dev), max_probe, shift)
+
+
+@pytest.mark.parametrize("case", sorted(k2cases.ROUND_CASES))
+def test_insert_round_cases_match_plain(cuda_device, case):
+    """K2's round form on each of its traps (a cluster across the table's
+    end into the tail, groups larger than a warp through the grid's
+    rounds, max_probe in the rounds and in the tail, masked lanes): the
+    insert entry against the plain insert and the round form's own plain
+    version; the claim entry's slots, flag word and marks, a closed gate's
+    revert and an open one against the plain claim and writes; the insert
+    into a table none of whose arrays were written (``fill``: the claim
+    reads none of it, every slot is written) against the plain form's
+    fresh claim and fill."""
+    t, lo, hi, mask, max_probe, shift = _round_case(case, cuda_device)
+    n0 = _cuda.ROUND_FORM_CALLS
+    claimed = _k2_insert_matches_plain(t, lo, hi, mask, max_probe, shift)
+    cr, orr = ht.claim_rounds_plain(t, lo, hi, mask, max_probe, shift)
+    assert torch.equal(claimed, cr)
+    _k2_claim_matches_plain(t, lo, hi, mask, max_probe, shift)
+    c = ledger_table_copy(t)
+    ck, word = _cuda.claim(c.key_lo, c.key_hi, c.tombstone, lo, hi, mask,
+                           max_probe, shift)
+    assert torch.equal(ck, cr) and bool(word[0]) == bool(orr)
+    rows = {"val": lo * 3, "tag": lo.to(torch.int32)}
+    _cuda.write_claimed(c.key_lo, c.key_hi, c.tombstone, c.cols, c.count,
+                        lo, hi, ck, mask, rows)
+    d = ledger_table_copy(t)
+    ht.write_rows_plain(d, lo, hi, cr, mask, rows)
+    tables_equal(c, d)
+    f = ht.make_table(t.capacity, COLS, cuda_device)
+    for x in (f.key_lo, f.key_hi, *f.cols.values()):
+        x.fill_(7)  # what unwritten arrays might hold
+    f.tombstone.fill_(True)
+    fk = _cuda.insert(f.key_lo, f.key_hi, f.tombstone, f.cols, f.count,
+                      f.probe_overflow, lo, hi, mask, rows, max_probe, shift,
+                      fill=True)
+    fp = ht.make_table(t.capacity, COLS, cuda_device)
+    fc, fo = ht.claim_rounds_plain(fp, lo, hi, mask, max_probe, shift,
+                                   fresh=True)
+    assert torch.equal(fk, fc)
+    ht.write_rows_fill_plain(fp, lo, hi, fc, mask, rows)
+    fp.probe_overflow |= fo
+    tables_equal(f, fp)
+    assert _cuda.ROUND_FORM_CALLS >= n0 + 4
+
+
+def test_grow_and_drop_evicted_round_form_match_plain(cuda_device):
+    """``grow`` of a table with tombstones (16,384 lanes) and the cold
+    rebuild keeping none, some and all rows, on the card, against the
+    plain insert and the plain rebuild."""
+    from tigerbeetle_tpu_torch.ops import cold
+
+    arrays = k2cases.grow_case()
+    cap = len(arrays["key_lo"])
+    t = k2cases.table_from_arrays(arrays, cuda_device)
+    tp = k2cases.table_from_arrays(arrays, "cpu")
+    grown = ht.grow(t, 2 * cap)
+    want = ht.insert_plain(
+        ht.make_table(2 * cap, {k: v.dtype for k, v in tp.cols.items()}, "cpu"),
+        tp.key_lo, tp.key_hi, (tp.key_lo != 0) | (tp.key_hi != 0), tp.cols,
+        2 * cap)[0]
+    tables_equal(ledger_table_copy(grown, "cpu"), want)
+    for keep in ("none", "some", "all"):
+        arrays, thr, _k = k2cases.evict_case(keep)
+        t = k2cases.table_from_arrays(arrays, cuda_device)
+        tp = k2cases.table_from_arrays(arrays, "cpu")
+        thr_t = torch.tensor(int(thr), dtype=torch.int64)
+        got = cold.drop_evicted(t, thr_t.to(cuda_device))
+        tables_equal(ledger_table_copy(got, "cpu"),
+                     cold.drop_evicted_plain(tp, thr_t))
+
+
+def test_insert_rounds_info_reads_the_launch(cuda_device):
+    """The round form's cooperative launch: blocks resident on every SM,
+    its tail limit."""
+    info = _cuda.insert_rounds_info(1 << 24)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert info["blocks_per_sm"] >= 1, info
+    assert info["blocks"] == info["blocks_per_sm"] * sms, info
+    assert info["tail_max"] == _cuda.INSERT_TAIL_MAX
+
+
+def _k14_level(block, dev):
+    return ix.Level(convert.array_to_tensor(np.ascontiguousarray(block), dev))
+
+
+@pytest.mark.parametrize("mode", k14cases.CARRY_MODES)
+def test_run_merge_carries_match_plain(cuda_device, mode):
+    """K14's carries into levels 1-6 (base 512, both sides a launch, each
+    step's tiles cut by the warps' searches) against the plain
+    concatenate-and-sort and K14's own plain form."""
+    for k in range(1, 7):
+        blocks = k14cases.carry(512, k, mode)
+        cpu = [_k14_level(b, "cpu") for b in blocks]
+        dev = [_k14_level(b, cuda_device) for b in blocks]
+        flipped = [_k14_level(b, cuda_device) for b in k14cases.carry(
+            512, k, mode, seed=1)]
+        outs = [ix._sentinel_level(512 << k, cuda_device) for _ in range(2)]
+        got = ix._merge_sides([dev, flipped], outs=outs)
+        levels_equal(got[0], ix._merge_plain(cpu), f"carry into {k} {mode}")
+        levels_equal(got[0], ix._merge_sides_split_plain([cpu])[0],
+                     f"split carry into {k} {mode}")
+        levels_equal(got[1], ix._merge_plain([ix.Level(b.block.cpu())
+                                              for b in flipped]))
+
+
+@pytest.mark.parametrize("case", k14cases.PAIR_CASES)
+def test_run_merge_pairs_match_plain(cuda_device, case):
+    """One K14 launch: A or B empty, equal keys across a tile's edge,
+    sentinels beside live entries keyed by the sentinel key."""
+    a, b = (_k14_level(x, "cpu") for x in k14cases.pair(case))
+    out = [torch.empty(a.n + b.n, dtype=torch.int64, device=cuda_device)
+           for _ in range(5)]
+    _cuda.run_merge([[a[c].to(cuda_device) for c in ix.COLS]],
+                    [[b[c].to(cuda_device) for c in ix.COLS]], [out])
+    levels_equal(ix.Level(torch.stack(out)), ix._merge_plain([a, b]), case)
+
+
+@pytest.mark.parametrize("mode", k14cases.BUILD_MODES)
+@pytest.mark.parametrize("n", k14cases.BUILD_SIZES + (1 << 17,))
+def test_run_merge_build_cases_match_plain(cuda_device, n, mode):
+    """A full build on the card (K13's chunks, K14's rounds over the live
+    prefixes, its tail; both sides a launch) against the plain lexsort and
+    K14's own plain form (up to 2^14 entries), with the launches it takes:
+    one a round and one for the tail."""
+    cols, use = k14cases.entries(n, mode)
+    cpu = [convert.array_to_tensor(c, "cpu") for c in cols]
+    use_t = torch.from_numpy(use)
+    want = ix._sort_level_plain(ix._masked(cpu, use_t, n))
+    dev = [c.to(cuda_device) for c in cpu]
+    before = _cuda.KERNELS["run_merge"].launches
+    got = ix._sort_masked([dev, dev], use_t.to(cuda_device), n, fused=False)
+    rounds = (n // 1024).bit_length() - 1
+    assert _cuda.KERNELS["run_merge"].launches == before + rounds + 1
+    for g in got:
+        levels_equal(g, want, f"{mode} n={n}")
+    if n <= 1 << 14:
+        levels_equal(ix._sort_rounds_split_plain(cpu, use_t, n, fused=False),
+                     want, f"split {mode} n={n}")

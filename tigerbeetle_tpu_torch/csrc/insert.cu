@@ -45,14 +45,16 @@
 // are left; the writes are one scattered store a thread.
 //
 // A larger insert (`grow`, and the cold tier's rebuild, millions of lanes)
-// takes the round kernel: one cooperative launch on as many blocks as are
-// resident, each round two phases behind grid barriers: A, every contender
-// does atomicMin(claim[cur], lane); B, the lane that finds its own index
-// takes the slot and writes the key there (which makes the slot occupied
-// for later rounds), each loser resets the claim word of the slot it probes
-// next in the other of two int32[C] claim buffers.  Phase B counts the lanes
-// still unplaced into one of three counters (the round's, cleared two
-// rounds ahead); values other blocks wrote are read with __ldcg.
+// takes the round form: round 0 over every lane in two ordinary launches
+// (contend for the home with atomicMin on the slot's word; then the winner
+// takes it and every other masked lane joins a list of walkers), then one
+// cooperative launch over the card's resident blocks whose rounds walk
+// only the walkers left, two grid barriers a round, and whose block 0
+// finishes the last TAIL_MAX walkers alone.  Into a fresh table (`fill`:
+// `grow` and the rebuild) it reads no slot, and the rows are then written
+// whole, every slot in order.  What bounds it: round 0's random atomics
+// and reads, one a masked lane, then the rounds' latency; the fill's
+// bytes (every slot written once).
 //
 // The general transfer kernel claims first and writes only if its batch
 // commits (transfer_full.py:1355-1405), with no host read between: the
@@ -66,6 +68,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "phase_clock.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -75,8 +78,7 @@ namespace cg = cooperative_groups;
 #define RESOLVE_PER_THREAD (SPLIT_MAX_N / RESOLVE_THREADS)
 #define PREPASS_THREADS 256
 #define WRITE_THREADS 256
-#define ROUNDS_THREADS 1024
-#define ROUNDS_LANES_PER_BLOCK 8192
+#define NO_LANE 0xFFFFFFFFFFFFFFFFull
 
 static __device__ __forceinline__ bool occupied(const ull* tkey_lo,
                                                 const ull* tkey_hi,
@@ -527,14 +529,82 @@ __global__ void __launch_bounds__(WRITE_THREADS)
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
+// The rows of a fresh table (`grow`, the cold rebuild: the round form's
+// `fill`), written whole in slot order: the round form's slot words name
+// each slot's lane (NO_LANE: none), and a thread a slot writes every array
+// at s, that lane's row or zeros, so a warp's stores cover whole sectors (a
+// row written where its lane landed costs a partial sector an array, and
+// the table then needs no zeros first); its loads, a grow's or rebuild's
+// lanes in about the slots' order, go eight columns at once.
+static __device__ __forceinline__ uint64_t load_elem(const void* src,
+                                                     int64_t i, int width) {
+  if (width == 8) return static_cast<const uint64_t*>(src)[i];
+  if (width == 4) return static_cast<const uint32_t*>(src)[i];
+  return static_cast<const uint8_t*>(src)[i];
+}
+
+static __device__ __forceinline__ void store_elem(void* dst, int64_t i,
+                                                  uint64_t v, int width) {
+  if (width == 8) {
+    static_cast<uint64_t*>(dst)[i] = v;
+  } else if (width == 4) {
+    static_cast<uint32_t*>(dst)[i] = (uint32_t)v;
+  } else {
+    static_cast<uint8_t*>(dst)[i] = (uint8_t)v;
+  }
+}
+
+#define FILL_GROUP 8
+
+__global__ void __launch_bounds__(WRITE_THREADS)
+    write_fill_kernel(ull* tkey_lo, ull* tkey_hi, uint8_t* tomb, int64_t cap,
+                      const ull* key_lo, const ull* key_hi, const ull* word,
+                      const __grid_constant__ ColList rows, ull* count) {
+  __shared__ ull red64[32];
+  PHASE_MARK(5);
+  const int64_t s = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  ull placed = 0;
+  if (s < cap) {
+    const ull w = word[s];
+    const bool has = w != NO_LANE;
+    const unsigned i = (unsigned)w;
+    tkey_lo[s] = has ? key_lo[i] : 0;
+    tkey_hi[s] = has ? key_hi[i] : 0;
+    tomb[s] = 0;
+    placed = has;
+    for (int g = 0; g < rows.n; g += FILL_GROUP) {
+      uint64_t v[FILL_GROUP];
+#pragma unroll
+      for (int q = 0; q < FILL_GROUP; ++q) {
+        const int k = g + q;
+        v[q] = has && k < rows.n ? load_elem(rows.src[k], i, rows.width[k]) : 0;
+      }
+#pragma unroll
+      for (int q = 0; q < FILL_GROUP; ++q) {
+        const int k = g + q;
+        if (k < rows.n) store_elem(rows.dst[k], s, v[q], rows.width[k]);
+      }
+    }
+  }
+  const ull total = block_sum(placed, red64);
+  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+}
+
 static int launch_writes(ull* tkey_lo, ull* tkey_hi, uint8_t* tomb,
                          int64_t cap, const ull* key_lo, const ull* key_hi,
                          const int64_t* claimed, const uint8_t* write_mask,
                          int64_t n, const int* gate, int revert, int mode,
-                         const ColList& rows, ull* count, cudaStream_t stream) {
+                         const ColList& rows, ull* count, cudaStream_t stream,
+                         const ull* word = nullptr) {
+  if (word != nullptr) {  // a fresh table, written whole
+    write_fill_kernel<<<(unsigned)((cap + WRITE_THREADS - 1) / WRITE_THREADS),
+                        WRITE_THREADS, 0, stream>>>(
+        tkey_lo, tkey_hi, tomb, cap, key_lo, key_hi, word, rows, count);
+    return (int)cudaGetLastError();
+  }
   // A batch: a block row a column, so the card holds every store in
-  // flight.  More lanes (`grow`, the cold rebuild) fill the card alone; a
-  // row a column would read `claimed` again for every column.
+  // flight.  More lanes fill the card alone; a row a column would read
+  // `claimed` again for every column.
   const unsigned ys =
       mode == MODE_MARKS || n > SPLIT_MAX_N ? 1u : (unsigned)(1 + rows.n);
   const dim3 grid((unsigned)((n + WRITE_THREADS - 1) / WRITE_THREADS), ys);
@@ -615,7 +685,29 @@ static int launch_claims(const Batch& b, void* pre, uint8_t* probe_overflow,
   return (int)cudaGetLastError();
 }
 
-// -- the round kernel (more than SPLIT_MAX_N lanes) -------------------------
+// -- the round form (more than SPLIT_MAX_N lanes) ----------------------------
+//
+// Contenders for one slot in round t share a home (slot home + t), and a
+// slot's word (u64, all ones on entry) takes the lowest contender by
+// atomicMin of (t << 32 | lane): a word an earlier round set is lower than
+// any of round t's, so it stays, and the word's lane is the slot's winner
+// for good.  Round 0 is two ordinary launches over the n lanes (contend;
+// then take or join the walker list); the rest one cooperative launch
+// over the card's resident blocks that walks only the lanes left, (lane,
+// home) pairs in one of two lists, rewritten each round with those still
+// left (a block's losers appended by one atomic), two grid barriers a
+// round.  Once at most TAIL_MAX are left, block 0 finishes alone, the
+// list in shared memory and a block barrier in place of each grid one.
+// A lane contends only for a slot free at the round's start: in a table
+// that holds rows it reads the slot's keys and tombstone (a winner marks
+// its slot with its key); a fresh table (`fresh`: every slot empty, the
+// insert's `fill`) needs no read, and its words end as the map of slots
+// to lanes that the rows are written from.
+
+#define PASS_THREADS 256
+#define RESOLVE0_THREADS 1024
+#define ROUNDS_THREADS 512
+#define TAIL_MAX 2048
 
 struct RoundArgs {
   ull* tkey_lo;
@@ -629,96 +721,204 @@ struct RoundArgs {
   const uint8_t* insert_mask;
   int64_t n;
   int64_t* claimed;
-  int* claim0;
-  int* claim1;
-  int* cnt;  // three round counters, zero on entry
+  ull* word;   // [C]: (round << 32 | lane) of the slot's winner, or NO_LANE
+  int2* list0;  // (lane, home) walkers, n each
+  int2* list1;
+  int* cnt;  // the two lists' lengths, zero on entry
+  int fresh;
   uint8_t* probe_overflow;
   int* flag_word;
   int flag_bit;
 };
 
-static __device__ __forceinline__ uint64_t lane_home(const RoundArgs& a,
-                                                     int64_t i) {
-  return (mix64(a.key_lo[i], a.key_hi[i]) >> a.hash_shift) & a.mask;
+static __device__ __forceinline__ int lane_home(const RoundArgs& a,
+                                                int64_t i) {
+  return (int)((mix64(a.key_lo[i], a.key_hi[i]) >> a.hash_shift) & a.mask);
 }
 
+// Free at the start of the round: the table's keys are written by winners
+// of earlier rounds, in other blocks (read through L2).
 static __device__ __forceinline__ bool slot_free(const RoundArgs& a,
                                                  uint64_t s) {
-  return __ldcg(a.tkey_lo + s) == 0 && __ldcg(a.tkey_hi + s) == 0 &&
-         a.tomb[s] == 0;
+  return a.fresh || (__ldcg(a.tkey_lo + s) == 0 &&
+                     __ldcg(a.tkey_hi + s) == 0 && a.tomb[s] == 0);
 }
 
-__global__ void __launch_bounds__(ROUNDS_THREADS, 1)
-    claim_rounds_kernel(RoundArgs a) {
-  __shared__ int red[32];
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t cap = (int64_t)a.mask + 1;
-  cg::grid_group grid = cg::this_grid();
+static __device__ __forceinline__ void contend(const RoundArgs& a, int i,
+                                               uint64_t s, int64_t t) {
+  if (slot_free(a, s))
+    atomicMin(a.word + s, ((ull)t << 32) | (unsigned)i);
+}
 
-  int local = 0;
-  for (int64_t i = tid; i < a.n; i += stride) {
-    a.claimed[i] = cap;
-    if (a.insert_mask[i]) {
-      __stcg(a.claim0 + lane_home(a, i), INT_MAX);
-      ++local;
-    }
+// Whether lane i won slot s in round t; the winner takes it: its claim,
+// and (a table that holds rows) the key as the slot's mark.
+static __device__ __forceinline__ bool won(const RoundArgs& a, int i,
+                                           uint64_t s, int64_t t) {
+  if (__ldcg(a.word + s) != (((ull)t << 32) | (unsigned)i)) return false;
+  a.claimed[i] = (int64_t)s;
+  if (!a.fresh) {
+    __stcg(a.tkey_lo + s, a.key_lo[i]);
+    __stcg(a.tkey_hi + s, a.key_hi[i]);
   }
-  int s = block_sum(local, red);
-  if (threadIdx.x == 0 && s) atomicAdd(a.cnt + 2, s);
-  grid.sync();
+  return true;
+}
 
-  for (int64_t t = 0;; ++t) {
-    const int remaining = __ldcg(a.cnt + (t + 2) % 3);
-    if (remaining == 0) break;
+static __device__ __forceinline__ void set_overflow(const RoundArgs& a) {
+  if (a.flag_word) {
+    atomicOr(a.flag_word, a.flag_bit);
+  } else {
+    *a.probe_overflow = 1;
+  }
+}
+
+// Appends `w` (where `lose`) to `list`, one device atomic a block (a
+// warp's atomics on one counter queue behind each other at L2); every
+// thread of the block calls it.  `s_cnt` is 33 ints of shared memory.
+static __device__ __forceinline__ void block_append(bool lose, int2 w,
+                                                    int2* list, int* count,
+                                                    int* s_cnt) {
+  const unsigned ball = __ballot_sync(0xffffffffu, lose);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) s_cnt[warp] = __popc(ball);
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = (int)(blockDim.x >> 5);
+    const int c = lane < nw ? s_cnt[lane] : 0;
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    int base = 0;
+    if (lane == 0 && total) base = atomicAdd(count, total);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (lane < nw) s_cnt[lane] = base + incl - c;
+  }
+  __syncthreads();
+  if (lose) list[s_cnt[warp] + __popc(ball & ((1u << lane) - 1))] = w;
+  __syncthreads();  // s_cnt is free for the next call
+}
+
+// Round 0, contend: every lane's claim is C; a masked lane whose home is
+// free contends for it.
+__global__ void __launch_bounds__(PASS_THREADS)
+    claim_first_kernel(RoundArgs a) {
+  PHASE_MARK(0);
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  a.claimed[i] = (int64_t)a.mask + 1;
+  if (!a.insert_mask[i]) return;
+  if (a.max_probe <= 0) {
+    set_overflow(a);
+    return;
+  }
+  const int h = lane_home(a, i);
+  contend(a, (int)i, (uint64_t)h, 0);
+}
+
+// Round 0, resolve: the home's lowest contender takes it; every other
+// masked lane joins the walkers of round 1.
+__global__ void __launch_bounds__(RESOLVE0_THREADS)
+    claim_second_kernel(RoundArgs a) {
+  __shared__ int s_cnt[33];
+  PHASE_MARK(1);
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  bool lose = false;
+  int h = 0;
+  if (i < a.n && a.max_probe > 0 && a.insert_mask[i]) {
+    h = lane_home(a, i);
+    lose = !won(a, (int)i, (uint64_t)h, 0);
+  }
+  block_append(lose, make_int2((int)i, h), a.list0, a.cnt, s_cnt);
+}
+
+// Rounds 1, 2, ...: round t reads the list (t - 1) & 1 and writes its
+// losers to the other, whose length its thread 0 clears first (its last
+// reader was round t - 1's start, two grid barriers back).
+__global__ void __launch_bounds__(ROUNDS_THREADS)
+    claim_rounds_kernel(RoundArgs a) {
+  __shared__ int2 tail[2][TAIL_MAX];
+  __shared__ int tail_len[2], s_cnt[33];
+  PHASE_MARK(2);
+  cg::grid_group grid = cg::this_grid();
+  const int64_t gtid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t t = 1;
+  for (;; ++t) {
+    const int cur = (int)((t - 1) & 1);
+    const int len = __ldcg(a.cnt + cur);
+    if (len == 0) return;
     if (t >= a.max_probe) {
-      if (tid == 0) {
-        if (a.flag_word) {
-          atomicOr(a.flag_word, a.flag_bit);
-        } else {
-          *a.probe_overflow = 1;
-        }
+      if (gtid == 0) set_overflow(a);
+      return;
+    }
+    if (len <= TAIL_MAX) break;
+    const int2* from = cur ? a.list1 : a.list0;
+    int2* to = cur ? a.list0 : a.list1;
+    if (gtid == 0) atomicExch(a.cnt + (cur ^ 1), 0);
+    for (int64_t e = gtid; e < len; e += stride) {
+      const int2 w = __ldcg(from + e);
+      contend(a, w.x, ((uint64_t)w.y + (uint64_t)t) & a.mask, t);
+    }
+    grid.sync();
+    for (int64_t b0 = 0; b0 < len; b0 += stride) {
+      const int64_t e = b0 + gtid;
+      bool lose = false;
+      int2 w = make_int2(0, 0);
+      if (e < len) {
+        w = __ldcg(from + e);
+        lose = !won(a, w.x, ((uint64_t)w.y + (uint64_t)t) & a.mask, t);
       }
+      block_append(lose, w, to, a.cnt + (cur ^ 1), s_cnt);
+    }
+    grid.sync();
+  }
+  // The tail: block 0 alone, the walkers in shared memory.
+  if (blockIdx.x != 0) return;
+  PHASE_MARK(3);
+  int c = (int)((t - 1) & 1);
+  {
+    const int len = __ldcg(a.cnt + c);
+    const int2* from = c ? a.list1 : a.list0;
+    for (int e = threadIdx.x; e < len; e += blockDim.x)
+      tail[0][e] = __ldcg(from + e);
+    if (threadIdx.x == 0) tail_len[0] = len;
+    c = 0;
+  }
+  __syncthreads();
+  for (;; ++t) {
+    const int len = tail_len[c];
+    if (len == 0) break;
+    if (t >= a.max_probe) {
+      if (threadIdx.x == 0) set_overflow(a);
       break;
     }
-    int* claim = (t & 1) ? a.claim1 : a.claim0;
-    int* next = (t & 1) ? a.claim0 : a.claim1;
-    // Phase A: contend for the slot if it is free at the start of the round.
-    for (int64_t i = tid; i < a.n; i += stride) {
-      if (a.insert_mask[i] && a.claimed[i] == cap) {
-        const uint64_t cur = (lane_home(a, i) + (uint64_t)t) & a.mask;
-        if (slot_free(a, cur)) atomicMin(claim + cur, (int)i);
-      }
+    for (int e = threadIdx.x; e < len; e += blockDim.x) {
+      const int2 w = tail[c][e];
+      contend(a, w.x, ((uint64_t)w.y + (uint64_t)t) & a.mask, t);
     }
-    grid.sync();
-    // Phase B: winners take their slot; losers prepare the next round.
-    local = 0;
-    for (int64_t i = tid; i < a.n; i += stride) {
-      if (a.insert_mask[i] && a.claimed[i] == cap) {
-        const uint64_t cur = (lane_home(a, i) + (uint64_t)t) & a.mask;
-        if (__ldcg(claim + cur) == (int)i) {
-          a.claimed[i] = (int64_t)cur;
-          __stcg(a.tkey_lo + cur, a.key_lo[i]);
-          __stcg(a.tkey_hi + cur, a.key_hi[i]);
-        } else {
-          __stcg(next + ((cur + 1) & a.mask), INT_MAX);
-          ++local;
-        }
-      }
+    if (threadIdx.x == 0) tail_len[c ^ 1] = 0;
+    __syncthreads();
+    for (int e = threadIdx.x; e < len; e += blockDim.x) {
+      const int2 w = tail[c][e];
+      if (!won(a, w.x, ((uint64_t)w.y + (uint64_t)t) & a.mask, t))
+        tail[c ^ 1][atomicAdd(tail_len + (c ^ 1), 1)] = w;
     }
-    s = block_sum(local, red);
-    if (threadIdx.x == 0 && s) atomicAdd(a.cnt + t % 3, s);
-    if (tid == 0) atomicExch(a.cnt + (t + 1) % 3, 0);
-    grid.sync();
+    __syncthreads();
+    c ^= 1;
   }
+  PHASE_MARK(4);
 }
 
-// The round kernel's claims (the table's keys hold them as marks after it).
-static int launch_rounds(const Batch& b, void* claim0, void* claim1, void* cnt,
-                         uint8_t* probe_overflow, int* flag_word,
+// The round form's claims (in a table that holds rows, its keys hold them
+// as marks after it): two memsets, the two round-0 launches, the
+// cooperative rounds.
+static int launch_rounds(const Batch& b, void* word, void* lists, void* cnt,
+                         int fresh, uint8_t* probe_overflow, int* flag_word,
                          int flag_bit) {
-  if (b.n > INT_MAX || claim0 == nullptr || claim1 == nullptr ||
-      cnt == nullptr)
+  if (b.n > INT_MAX || b.cap > ((int64_t)1 << 31) || word == nullptr ||
+      lists == nullptr || cnt == nullptr)
     return (int)cudaErrorInvalidValue;
   RoundArgs a;
   a.tkey_lo = b.tkey_lo;
@@ -732,21 +932,36 @@ static int launch_rounds(const Batch& b, void* claim0, void* claim1, void* cnt,
   a.insert_mask = b.insert_mask;
   a.n = b.n;
   a.claimed = b.claimed;
-  a.claim0 = (int*)claim0;
-  a.claim1 = (int*)claim1;
+  a.word = (ull*)word;
+  a.list0 = (int2*)lists;
+  a.list1 = (int2*)lists + b.n;
   a.cnt = (int*)cnt;
+  a.fresh = fresh;
   a.probe_overflow = probe_overflow;
   a.flag_word = flag_word;
   a.flag_bit = flag_bit;
+  cudaError_t e = cudaMemsetAsync(word, 0xFF, (size_t)b.cap * 8, b.stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(cnt, 0, 2 * sizeof(int), b.stream);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned pass_blocks =
+      (unsigned)((b.n + PASS_THREADS - 1) / PASS_THREADS);
+  claim_first_kernel<<<pass_blocks, PASS_THREADS, 0, b.stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  claim_second_kernel<<<(unsigned)((b.n + RESOLVE0_THREADS - 1) /
+                                    RESOLVE0_THREADS),
+                        RESOLVE0_THREADS, 0, b.stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, claim_rounds_kernel, ROUNDS_THREADS, 0);
   if (e != cudaSuccess) return (int)e;
-  int64_t blocks = (b.n + ROUNDS_LANES_PER_BLOCK - 1) / ROUNDS_LANES_PER_BLOCK;
+  int64_t blocks = (b.n + ROUNDS_THREADS - 1) / ROUNDS_THREADS;
   const int64_t resident = (int64_t)sms * per_sm;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -754,8 +969,35 @@ static int launch_rounds(const Batch& b, void* claim0, void* claim1, void* cnt,
   e = cudaLaunchCooperativeKernel((const void*)claim_rounds_kernel,
                                   dim3((unsigned)blocks), dim3(ROUNDS_THREADS),
                                   args, 0, b.stream);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves its error behind
+    return (int)e;
+  }
   return (int)cudaGetLastError();
+}
+
+// The launch the round form takes for n lanes: registers and local bytes
+// a thread, threads a block, blocks a SM, blocks, TAIL_MAX.
+extern "C" int tb_insert_rounds_info(int64_t n, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, claim_rounds_kernel, ROUNDS_THREADS, 0);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, claim_rounds_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int64_t blocks = (n + ROUNDS_THREADS - 1) / ROUNDS_THREADS;
+  if (blocks > (int64_t)sms * per_sm) blocks = (int64_t)sms * per_sm;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = ROUNDS_THREADS;
+  out[3] = per_sm;
+  out[4] = (int)blocks;
+  out[5] = TAIL_MAX;
+  return 0;
 }
 
 // -- entry points ------------------------------------------------------------
@@ -782,43 +1024,47 @@ static Batch make_batch(void* tkey_lo, void* tkey_hi, const void* tomb,
 }
 
 // The split form when `pre` is given (n <= SPLIT_MAX_N), else the round
-// kernel on claim0/claim1/cnt; then the rows.
+// form on claim/lists/cnt; then the rows.
 extern "C" int tb_insert(void* tkey_lo, void* tkey_hi, void* tomb,
                          int64_t capacity, int hash_shift, int64_t max_probe,
                          const void* key_lo, const void* key_hi,
                          const void* insert_mask, int64_t n, void* claimed,
-                         void* pre, void* claim0, void* claim1, void* cnt,
+                         void* pre, void* claim, void* lists, void* cnt,
                          void* count, void* probe_overflow, int ncols,
                          const void* const* src, void* const* dst,
-                         const int* width, void* stream) {
+                         const int* width, int fill, void* stream) {
   ColList rows;
   int err = pack_cols(&rows, ncols, src, dst, width);
   if (err) return err;
+  if (fill && pre) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const Batch b = make_batch(tkey_lo, tkey_hi, tomb, capacity, hash_shift,
                              max_probe, key_lo, key_hi, insert_mask, n,
                              claimed, stream);
   err = pre ? launch_claims(b, pre, (uint8_t*)probe_overflow, nullptr, 0)
-            : launch_rounds(b, claim0, claim1, cnt, (uint8_t*)probe_overflow,
-                            nullptr, 0);
+            : launch_rounds(b, claim, lists, cnt, fill,
+                            (uint8_t*)probe_overflow, nullptr, 0);
   if (err) return err;
+  // `fill`: the table is fresh (no array written yet); the round form
+  // reads none of it and every slot is written, from its slot words.
   return launch_writes(b.tkey_lo, b.tkey_hi, b.tomb, b.cap, b.key_lo,
                        b.key_hi, b.claimed, b.insert_mask, n, nullptr, 0,
-                       MODE_ROWS, rows, (ull*)count, b.stream);
+                       MODE_ROWS, rows, (ull*)count, b.stream,
+                       fill ? (const ull*)claim : nullptr);
 }
 
 extern "C" int tb_claim(void* tkey_lo, void* tkey_hi, const void* tomb,
                         int64_t capacity, int hash_shift, int64_t max_probe,
                         const void* key_lo, const void* key_hi,
                         const void* insert_mask, int64_t n, void* claimed,
-                        void* pre, void* claim0, void* claim1, void* cnt,
+                        void* pre, void* claim, void* lists, void* cnt,
                         void* flag_word, int flag_bit, void* stream) {
   if (n == 0) return 0;
   const Batch b = make_batch(tkey_lo, tkey_hi, tomb, capacity, hash_shift,
                              max_probe, key_lo, key_hi, insert_mask, n,
                              claimed, stream);
   if (!pre) {  // the round kernel leaves the marks itself
-    return launch_rounds(b, claim0, claim1, cnt, nullptr, (int*)flag_word,
+    return launch_rounds(b, claim, lists, cnt, 0, nullptr, (int*)flag_word,
                          flag_bit);
   }
   int err = launch_claims(b, pre, nullptr, (int*)flag_word, flag_bit);
@@ -848,3 +1094,5 @@ extern "C" int tb_write_claimed(void* tkey_lo, void* tkey_hi, void* tomb,
                        (const int*)gate, revert, MODE_ROWS, rows, (ull*)count,
                        (cudaStream_t)stream);
 }
+
+PHASE_CLOCK_ENTRIES(tb_insert_phases)

@@ -186,8 +186,10 @@ KERNELS: Dict[str, Kernel] = {
 
 
 def reset_counts() -> None:
+    global ROUND_FORM_CALLS
     for k in KERNELS.values():
         k.launches = 0
+    ROUND_FORM_CALLS = 0
 
 
 def counts() -> Dict[str, int]:
@@ -272,7 +274,7 @@ _SIGNATURES = {
                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tb_probe_info": [_P],
     "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
-                  _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _P],
+                  _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _INT, _P],
     "tb_validate_accounts": [_INT, _P, _I64, _I64, _P, _P, _P, _I64, _I64,
                              _P],
     "tb_validate_transfers": [_INT, _P, _I64, _I64, ctypes.c_uint64,
@@ -293,6 +295,7 @@ _SIGNATURES = {
     "tb_tombstone": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P],
     "tb_claim": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64, _P, _P,
                  _P, _P, _P, _P, _INT, _P],
+    "tb_insert_rounds_info": [_I64, _P],
     "tb_write_claimed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _P,
                          _INT, _P, _INT, _P, _P, _P, _P],
     "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
@@ -307,7 +310,8 @@ _SIGNATURES = {
     "tb_run_sort": [_P, _P, _INT, _P, _I64, _I64, _INT,
                     ctypes.POINTER(ctypes.c_int64), _P],
     "tb_run_sort_info": [_I64, _INT] + [ctypes.POINTER(ctypes.c_int)] * 3,
-    "tb_run_merge": [_P, _P, _INT, _P],
+    "tb_run_merge": [_P, _P, _P, _INT, _P],
+    "tb_run_merge_tail": [_P, _P, _P, _INT, _P, _P],
     "tb_index_window": [_P, _P, _INT, _U64, _U64, _U64, _U64, _I64, _INT,
                         _P, _P, _P, _P],
     "tb_index_union": [_P, _P, _INT, _INT, _INT, _INT, _U64, _U64, _U64,
@@ -594,10 +598,19 @@ def probe_info() -> Dict[str, int]:
 # writes) takes a batch of at most INSERT_SPLIT_MAX_N lanes into a table of
 # at most INSERT_SPLIT_MAX_SLOTS slots, with a window of INSERT_WINDOW slots
 # a lane; anything larger (``grow``, the cold tier's rebuild) takes its
-# round kernel, which needs two int32[C] claim buffers.
+# round form (round 0 over every lane, then rounds over a list of the lanes
+# left, the last INSERT_TAIL_MAX of them on one block), which needs a u64
+# word a slot (the round and lane of its winner) and two walker lists of n
+# (lane, home) pairs.  Its lanes are int32: at most INSERT_ROUNDS_MAX_N.
 INSERT_WINDOW = 32
 INSERT_SPLIT_MAX_N = 8192
 INSERT_SPLIT_MAX_SLOTS = 1 << 31
+INSERT_TAIL_MAX = 2048
+INSERT_ROUNDS_MAX_N = (1 << 31) - 1
+
+# Calls of K2's round form (insert and claim entries together); the launch
+# counts of ``insert`` and ``claim`` cover both forms.
+ROUND_FORM_CALLS = 0
 
 
 def insert_split(n: int, cap: int) -> bool:
@@ -608,20 +621,27 @@ def insert_split(n: int, cap: int) -> bool:
 def insert_scratch(n: int, cap: int, device) -> Tuple[torch.Tensor, ...]:
     """K2's scratch for ``n`` lanes into ``cap`` slots, for the insert and
     claim entries: (claimed int64[n], the pre-pass's homes and windows
-    int32[2n]) for the split form; (claimed, claim0 and claim1 int32[cap],
-    cnt int32[3]) for the round kernel."""
+    int32[2n]) for the split form; (claimed, the slot words int64[cap], the
+    two walker lists int64[2n] of (lane, home) int32 pairs, their lengths
+    int32[2]) for the round form, which raises above INSERT_ROUNDS_MAX_N
+    lanes."""
+    split = insert_split(n, cap)
+    if not split and (n > INSERT_ROUNDS_MAX_N or cap > INSERT_SPLIT_MAX_SLOTS):
+        raise CudaKernelError(
+            f"K2's round form takes at most {INSERT_ROUNDS_MAX_N} lanes into "
+            f"{INSERT_SPLIT_MAX_SLOTS} slots, got {n} lanes into {cap}")
     claimed = torch.empty(n, dtype=torch.int64, device=device)
-    if insert_split(n, cap):
+    if split:
         return claimed, torch.empty(2 * n, dtype=torch.int32, device=device)
-    return (claimed, torch.empty(cap, dtype=torch.int32, device=device),
-            torch.empty(cap, dtype=torch.int32, device=device),
-            torch.zeros(3, dtype=torch.int32, device=device))
+    return (claimed, torch.empty(cap, dtype=torch.int64, device=device),
+            torch.empty(2 * n, dtype=torch.int64, device=device),
+            torch.empty(2, dtype=torch.int32, device=device))
 
 
 def _insert_scratch_ptrs(scratch, n: int, cap: int):
     """Checks ``scratch`` (from ``insert_scratch``) and returns (claimed,
-    pointers of pre, claim0, claim1, cnt: None where the route has none);
-    the round kernel's counters are zeroed here."""
+    pointers of pre, word, lists, cnt: None where the route has none).
+    The round form's slot words and lengths are set in its C entry."""
     claimed = scratch[0]
     _check(claimed, torch.int64, n, "claimed")
     if insert_split(n, cap):
@@ -630,28 +650,48 @@ def _insert_scratch_ptrs(scratch, n: int, cap: int):
         _check(scratch[1], torch.int32, 2 * n, "pre")
         return claimed, (scratch[1].data_ptr(), None, None, None)
     if len(scratch) != 4:
-        raise ValueError("K2's round kernel takes (claimed, claim0, claim1, "
-                         "cnt) scratch")
-    _, claim0, claim1, cnt = scratch
-    _check(claim0, torch.int32, cap, "claim0")
-    _check(claim1, torch.int32, cap, "claim1")
-    _check(cnt, torch.int32, 3, "cnt")
-    cnt.zero_()
-    return claimed, (None, claim0.data_ptr(), claim1.data_ptr(),
+        raise ValueError("K2's round form takes (claimed, word, lists, cnt) "
+                         "scratch")
+    _, claim, lists, cnt = scratch
+    _check(claim, torch.int64, cap, "word")
+    _check(lists, torch.int64, 2 * n, "lists")
+    _check(cnt, torch.int32, 2, "cnt")
+    return claimed, (None, claim.data_ptr(), lists.data_ptr(),
                      cnt.data_ptr())
+
+
+def _count_round_form(pre) -> None:
+    global ROUND_FORM_CALLS
+    if pre is None:
+        ROUND_FORM_CALLS += 1
+
+
+def insert_rounds_info(n: int) -> Dict[str, int]:
+    """The launch K2's round form takes for ``n`` lanes (its cooperative
+    rounds kernel): registers and local memory a thread, threads a block,
+    blocks resident on one SM, blocks launched, and the walkers the
+    one-block tail takes.  Launches nothing."""
+    out = (ctypes.c_int * 6)()
+    _raise_on(library().tb_insert_rounds_info(n, out), "insert")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
+                     "blocks", "tail_max"), out))
 
 
 def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
            count: torch.Tensor, probe_overflow: torch.Tensor,
            key_lo, key_hi, insert_mask, rows: Dict[str, torch.Tensor],
            max_probe: int, hash_shift: int,
-           scratch: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+           scratch: Optional[Tuple[torch.Tensor, ...]] = None,
+           fill: bool = False) -> torch.Tensor:
     """Kernel K2: inserts in place; returns the claimed slots (C where
     unplaced).  A batch of at most INSERT_SPLIT_MAX_N lanes runs the split
     form (the pre-pass, the one-block resolver over home groups, the row
     writes: no scratch the size of the table); a larger one (``grow``) the
-    round kernel.  ``scratch`` (``insert_scratch``), preallocated, serves a
-    captured graph."""
+    round form.  ``scratch`` (``insert_scratch``), preallocated, serves a
+    captured graph.  ``fill`` (the round form only): the table is fresh,
+    none of its arrays written yet (``make_table(..., zeroed=False)``); the
+    claim reads none of it, and every slot is written, a lane's row or
+    zeros."""
     lib = library()
     cap = tkey_lo.numel()
     n = key_lo.numel()
@@ -674,19 +714,24 @@ def insert(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
         _check(s, d.dtype, n, f"row {name}")
         src.append(s)
         dst.append(d)
+    if fill and insert_split(n, cap):
+        raise ValueError(f"K2 writes a fresh table whole only in its round "
+                         f"form (more than {INSERT_SPLIT_MAX_N} lanes), "
+                         f"got {n}")
     if scratch is None:
         scratch = insert_scratch(n, cap, key_lo.device)
-    claimed, (pre, claim0, claim1, cnt) = _insert_scratch_ptrs(scratch, n, cap)
+    claimed, (pre, claim, lists, cnt) = _insert_scratch_ptrs(scratch, n, cap)
     widths = (ctypes.c_int * max(1, len(src)))(*[_width(s) for s in src])
     err = lib.tb_insert(
         tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
         hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(),
-        insert_mask.data_ptr(), n, claimed.data_ptr(), pre, claim0, claim1,
+        insert_mask.data_ptr(), n, claimed.data_ptr(), pre, claim, lists,
         cnt, count.data_ptr(), probe_overflow.data_ptr(), len(src),
-        _ptr_array(src), _ptr_array(dst), widths, _stream(key_lo),
+        _ptr_array(src), _ptr_array(dst), widths, int(fill), _stream(key_lo),
     )
     _raise_on(err, "insert")
     KERNELS["insert"].launches += 1
+    _count_round_form(pre)
     return claimed
 
 
@@ -1028,7 +1073,7 @@ def claim(tkey_lo, tkey_hi, tomb, key_lo, key_hi, insert_mask, max_probe: int,
           flag_bit: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's claim entry: the insert slot of every masked key (C where
     unplaced), by the insert's placement (its split form, or its round
-    kernel above INSERT_SPLIT_MAX_N lanes), leaving each claimed slot
+    form above INSERT_SPLIT_MAX_N lanes), leaving each claimed slot
     holding its key as a mark until ``write_claimed``; on probe overflow
     ``flag_bit`` is ORed into ``flag_word`` (int32[1], a new zero word when
     None).  Returns (claimed, flag_word)."""
@@ -1046,15 +1091,16 @@ def claim(tkey_lo, tkey_hi, tomb, key_lo, key_hi, insert_mask, max_probe: int,
         flag_word = torch.zeros(1, dtype=torch.int32, device=dev)
     _check(flag_word, torch.int32, 1, "flag_word")
     scratch = insert_scratch(n, cap, dev)  # held until the launch is queued
-    claimed, (pre, claim0, claim1, cnt) = _insert_scratch_ptrs(scratch, n, cap)
+    claimed, (pre, claim, lists, cnt) = _insert_scratch_ptrs(scratch, n, cap)
     err = lib.tb_claim(
         tkey_lo.data_ptr(), tkey_hi.data_ptr(), tomb.data_ptr(), cap,
         hash_shift, max_probe, key_lo.data_ptr(), key_hi.data_ptr(),
-        insert_mask.data_ptr(), n, claimed.data_ptr(), pre, claim0, claim1,
+        insert_mask.data_ptr(), n, claimed.data_ptr(), pre, claim, lists,
         cnt, flag_word.data_ptr(), flag_bit, _stream(key_lo),
     )
     _raise_on(err, "claim")
     KERNELS["claim"].launches += 1
+    _count_round_form(pre)
     return claimed, flag_word
 
 
@@ -1440,10 +1486,17 @@ def run_sort_info(n_out: int, fused: bool = True) -> Dict[str, int]:
             "max_clusters": most.value}
 
 
+MERGE_TILE = 2048  # csrc/index_merge.cu: the outputs a block of K14 merges
+
+
 def _merge_launch(cols: List[torch.Tensor], sizes: List[int], jobs: int,
-                  stream: int) -> None:
+                  stream: int, prefix=None) -> None:
     arr = (ctypes.c_int64 * len(sizes))(*sizes)
-    err = library().tb_run_merge(_ptr_array(cols), arr, jobs, stream)
+    ptrs = None
+    if prefix is not None:
+        ptrs = (ctypes.c_void_p * len(prefix))(
+            *[None if t is None else t.data_ptr() for t in prefix])
+    err = library().tb_run_merge(_ptr_array(cols), arr, ptrs, jobs, stream)
     _raise_on(err, "run_merge")
     KERNELS["run_merge"].launches += 1
 
@@ -1467,14 +1520,24 @@ def run_merge(a: Sequence[Sequence[torch.Tensor]],
 
 
 def run_merge_rounds(src: Sequence[Sequence[torch.Tensor]],
-                     dst: Sequence[Sequence[torch.Tensor]], run: int) -> None:
+                     dst: Sequence[Sequence[torch.Tensor]], run: int,
+                     pin: Optional[Sequence[torch.Tensor]] = None,
+                     pout: Optional[Sequence[torch.Tensor]] = None,
+                     pchunk: Optional[Sequence[torch.Tensor]] = None) -> None:
     """K14 over adjacent pairs of sorted runs of ``run`` entries: each job's
     ``src`` (n entries, n a multiple of 2 * run) merged pairwise into
-    ``dst``, giving sorted runs of 2 * run."""
+    ``dst``, giving sorted runs of 2 * run.  With ``pout`` (int64[n / (2 *
+    run)] a job), only the runs' live prefixes (the entries before the
+    sentinel-keyed tail) are merged, from the lengths in ``pin`` (int64[n /
+    run] a job; None: each run is searched, and the lengths kept in
+    ``pchunk`` when given), and each merged run's prefix length is written
+    to ``pout``; ``dst`` past a run's prefix is not written."""
     if not 1 <= len(src) == len(dst) <= 2:
         raise ValueError("run_merge takes one or two jobs")
-    cols, sizes = [], []
-    for js, jd in zip(src, dst):
+    if pout is None and (pin is not None or pchunk is not None):
+        raise ValueError("run_merge: pin and pchunk go with pout")
+    cols, sizes, prefix = [], [], []
+    for j, (js, jd) in enumerate(zip(src, dst)):
         n = js[0].numel()
         if n % (2 * run):
             raise ValueError(f"run_merge: {n} entries in runs of {run}")
@@ -1482,7 +1545,49 @@ def run_merge_rounds(src: Sequence[Sequence[torch.Tensor]],
         _check_run(jd, n, "run_merge destination")
         cols += [*js, *(c[run:] for c in js), *jd]
         sizes += [run, run, n // (2 * run), 2 * run, 2 * run, 2 * run]
-    _merge_launch(cols, sizes, len(src), _stream(dst[0][0]))
+        if pout is not None:
+            _check(pout[j], torch.int64, n // (2 * run), "run_merge pout")
+            if pin is not None:
+                _check(pin[j], torch.int64, n // run, "run_merge pin")
+            if pchunk is not None:
+                _check(pchunk[j], torch.int64, n // run, "run_merge pchunk")
+            prefix += [None if pin is None else pin[j], pout[j],
+                       None if pchunk is None else pchunk[j]]
+    _merge_launch(cols, sizes, len(src), _stream(dst[0][0]),
+                  prefix if pout is not None else None)
+
+
+def run_merge_tail(chunks: Sequence[Sequence[torch.Tensor]],
+                   level: Sequence[Sequence[torch.Tensor]], chunk: int,
+                   pchunk: Sequence[torch.Tensor],
+                   pfinal: Sequence[torch.Tensor]) -> None:
+    """K14's last step of a full build: each job's level (its merged live
+    prefix of ``pfinal`` entries written) gets its tail, every sorted
+    chunk's sentinel-keyed entries (from ``pchunk``'s prefix lengths on)
+    in chunk order: the entries whose key is the sentinel key, in position
+    order, as a stable sort leaves them."""
+    if not 1 <= len(chunks) == len(level) == len(pchunk) == len(pfinal) <= 2:
+        raise ValueError("run_merge_tail takes one or two jobs")
+    n = chunks[0][0].numel()
+    if n % chunk:
+        raise ValueError(f"run_merge_tail: {n} entries in chunks of {chunk}")
+    cols, sizes, prefix = [], [], []
+    for jc, jl, pc, pf in zip(chunks, level, pchunk, pfinal):
+        _check_run(jc, n, "run_merge_tail chunks")
+        _check_run(jl, n, "run_merge_tail level")
+        _check(pc, torch.int64, n // chunk, "run_merge_tail pchunk")
+        _check(pf, torch.int64, 1, "run_merge_tail pfinal")
+        cols += [*jc, *jl]
+        sizes += [n // chunk, chunk]
+        prefix += [pc, pf]
+    off = torch.empty(len(chunks) * (n // chunk), dtype=torch.int64,
+                      device=chunks[0][0].device)
+    arr = (ctypes.c_int64 * len(sizes))(*sizes)
+    err = library().tb_run_merge_tail(
+        _ptr_array(cols), arr, _ptr_array(prefix), len(chunks),
+        off.data_ptr(), _stream(level[0][0]))
+    _raise_on(err, "run_merge")
+    KERNELS["run_merge"].launches += 1
 
 
 def _level_ptrs(levels: Sequence[dict]):

@@ -549,23 +549,20 @@ def drop_evicted(table: ht.Table, threshold_ts: torch.Tensor,
                  keep: Optional[torch.Tensor] = None) -> ht.Table:
     """Rebuild the hot table without the evicted rows (a fresh rehash, no
     tombstone debt): the keep mask (``keep``, from ``extract_evicted``, or
-    K19 on CUDA tensors), then K2's claim and write entries with every slot
-    as a lane and ``max_probe`` = capacity, as ``hash_table.grow`` runs."""
+    K19 on CUDA tensors), then ``hash_table.rehash_into`` (K2's insert)
+    with every slot as a lane and ``max_probe`` = capacity, as
+    ``hash_table.grow`` runs: the round form writes the new table whole.
+    With max_probe the
+    capacity no lane overflows, so the fresh table's flag stays clear, as
+    the JAX function leaves it."""
     if not table.key_lo.is_cuda:
         return drop_evicted_plain(table, threshold_ts, keep)
     if keep is None:
         keep = _cuda.evict_extract(
             table.key_lo, table.key_hi, table.tombstone, table.cols,
             threshold_ts.reshape(1), 0, keep=True)[4]
-    fresh = ht.make_table(
-        table.capacity, {k: v.dtype for k, v in table.cols.items()},
-        table.device)
-    claimed, _ = _cuda.claim(fresh.key_lo, fresh.key_hi, fresh.tombstone,
-                             table.key_lo, table.key_hi, keep, table.capacity)
-    _cuda.write_claimed(fresh.key_lo, fresh.key_hi, fresh.tombstone,
-                        fresh.cols, fresh.count, table.key_lo, table.key_hi,
-                        claimed, keep, table.cols)
-    return fresh
+    return ht.rehash_into(table.capacity, table.key_lo, table.key_hi, keep,
+                          table.cols)[0]
 
 
 def drop_evicted_plain(table: ht.Table, threshold_ts: torch.Tensor,

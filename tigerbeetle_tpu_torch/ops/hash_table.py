@@ -26,7 +26,10 @@ lookups), ``insert`` (kernel K2), ``claim_slots`` and
 plain PyTorch versions, beside them here, for CPU tensors.  K2 has two
 plain forms with the same results: ``claim_slots_plain`` (the rounds over
 lanes, the CPU route) and ``claim_slots_split_plain`` (the card's split
-form: windows, then rounds over home groups); K1's are ``lookup_plain``
+form: windows, then rounds over home groups), and for more than
+_cuda.INSERT_SPLIT_MAX_N lanes ``claim_rounds_plain`` and
+``write_rows_fill_plain`` (the card's round form and its writes of a fresh
+table whole); K1's are ``lookup_plain``
 (a slot a step, the CPU route) and ``lookup_split_plain`` (the card's
 rounds over aligned groups of four slots).
 """
@@ -65,14 +68,21 @@ class Table:
 def make_table(
     capacity: int, col_specs: Dict[str, torch.dtype], device
 ) -> Table:
+    return _new_table(capacity, col_specs, device, torch.zeros)
+
+
+def _new_table(capacity: int, col_specs: Dict[str, torch.dtype], device,
+               alloc) -> Table:
+    """A table whose arrays ``alloc`` makes: zeros (``make_table``), or
+    ``torch.empty`` for K2's round form to write whole (``rehash_into``)."""
     if capacity <= 0 or capacity & (capacity - 1):
         raise ValueError(f"capacity must be a power of two, got {capacity}")
     return Table(
-        key_lo=torch.zeros(capacity, dtype=torch.int64, device=device),
-        key_hi=torch.zeros(capacity, dtype=torch.int64, device=device),
-        tombstone=torch.zeros(capacity, dtype=torch.bool, device=device),
+        key_lo=alloc(capacity, dtype=torch.int64, device=device),
+        key_hi=alloc(capacity, dtype=torch.int64, device=device),
+        tombstone=alloc(capacity, dtype=torch.bool, device=device),
         cols={
-            name: torch.zeros(capacity, dtype=dt, device=device)
+            name: alloc(capacity, dtype=dt, device=device)
             for name, dt in col_specs.items()
         },
         count=torch.zeros((), dtype=torch.int64, device=device),
@@ -457,6 +467,79 @@ def claim_slots_split_plain(table: Table, key_lo, key_hi, insert_mask,
     return claim_resolve_plain(table, home, window, max_probe)
 
 
+# K2's round form (csrc/insert.cu), for more than _cuda.INSERT_SPLIT_MAX_N
+# lanes (``grow``, the cold tier's rebuild): round 0 over every lane, then
+# rounds over a list of the lanes left; a fresh table's rows then written
+# whole, in slot order.
+
+
+def claim_rounds_plain(table: Table, key_lo, key_hi, insert_mask,
+                       max_probe: int, hash_shift: int = 0, fresh: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2's round form: (claimed int64[N], overflow).
+
+    A word a slot, no lane on entry (the kernel's memset).  In round t each
+    walker (lane, home) whose slot home+t is free at the round's start (not
+    occupied in the table and not taken in an earlier round; ``fresh``: an
+    empty table, taken only by this batch) puts (t, lane) on the slot's
+    word by the lowest-value reduction: a word an earlier round set is
+    lower and stays, and contenders share a home.  The lane named with
+    round t on its slot's word takes the slot; the rest are the next
+    round's walkers.  Round 0's walkers are every masked lane (the
+    kernel's two launches over the batch); later rounds walk the list (the
+    kernel's cooperative launch, its last _cuda.INSERT_TAIL_MAX walkers on
+    one block, with the same steps).  The rounds stop as the protocol's do
+    (``claim_slots_plain``)."""
+    cap = table.capacity
+    n = key_lo.shape[0]
+    dev = key_lo.device
+    claimed = torch.full((n,), cap, dtype=torch.int64, device=dev)
+    word = torch.full((cap,), 1 << 62, dtype=torch.int64, device=dev)
+    occ = torch.zeros(cap, dtype=torch.bool, device=dev) if fresh \
+        else _occupied(table)
+    lane = torch.nonzero(insert_mask).flatten()
+    home = _home(key_lo, key_hi, cap, hash_shift)[lane]
+    t = 0
+    over = False
+    while lane.numel():
+        if t >= max_probe:
+            over = True
+            break
+        slot = (home + t) & (cap - 1)
+        free = ~occ[slot]
+        word.scatter_reduce_(0, slot[free], (t << 32) + lane[free], "amin")
+        win = word[slot] == (t << 32) + lane
+        claimed[lane[win]] = slot[win]
+        occ[slot[win]] = True
+        lane, home = lane[~win], home[~win]
+        t += 1
+    return claimed, torch.tensor(over, device=dev)
+
+
+def write_rows_fill_plain(table: Table, key_lo, key_hi,
+                          claimed: torch.Tensor, write_mask: torch.Tensor,
+                          rows: Dict[str, torch.Tensor]) -> Table:
+    """Plain version of K2's writes of a fresh table whole (``fill``, the
+    round form's rows for ``grow`` and the cold rebuild): each slot's lane
+    from the map of slots to lanes, then every array of every slot
+    written, that lane's row or zeros.  The same table as
+    ``write_rows_plain`` on a table of zeros."""
+    cap = table.capacity
+    lanes = torch.nonzero(write_mask & (claimed < cap)).flatten()
+    inv = torch.full((cap,), -1, dtype=torch.int64, device=claimed.device)
+    inv[claimed[lanes]] = lanes
+    has = inv >= 0
+    lane = inv.clamp(min=0)
+    table.key_lo.copy_(torch.where(has, key_lo[lane], 0))
+    table.key_hi.copy_(torch.where(has, key_hi[lane], 0))
+    table.tombstone.zero_()
+    for name, col in table.cols.items():
+        col.copy_(torch.where(has, rows[name][lane], torch.zeros_like(col)))
+    table.count.fill_(lanes.numel())
+    table.probe_overflow.zero_()
+    return table
+
+
 def write_rows(
     table: Table,
     key_lo: torch.Tensor,
@@ -537,14 +620,29 @@ def grow(table: Table, new_capacity: int, hash_shift: int = 0) -> Table:
     if new_capacity & (new_capacity - 1) or new_capacity < table.capacity:
         raise ValueError(f"bad new capacity {new_capacity}")
     live = (table.key_lo != 0) | (table.key_hi != 0)
-    fresh = make_table(
-        new_capacity, {k: v.dtype for k, v in table.cols.items()}, table.device
-    )
-    grown, _ = insert(
-        fresh, table.key_lo, table.key_hi, live, table.cols,
-        max_probe=new_capacity, hash_shift=hash_shift,
-    )
-    return grown
+    return rehash_into(new_capacity, table.key_lo, table.key_hi, live,
+                       table.cols, hash_shift)[0]
+
+
+def rehash_into(capacity: int, key_lo: torch.Tensor, key_hi: torch.Tensor,
+                mask: torch.Tensor, rows: Dict[str, torch.Tensor],
+                hash_shift: int = 0) -> Tuple[Table, torch.Tensor]:
+    """A fresh table of ``capacity`` slots holding the rows of the lanes in
+    ``mask``, ``max_probe`` the capacity (``grow``, the cold tier's
+    rebuild); returns (table, claimed slots).  On CUDA tensors of more
+    than _cuda.INSERT_SPLIT_MAX_N lanes K2's round form takes a table none
+    of whose arrays is written and writes every slot (``fill``); else the
+    table starts as zeros and ``insert`` runs."""
+    specs = {k: v.dtype for k, v in rows.items()}
+    if key_lo.is_cuda and not _cuda.insert_split(key_lo.numel(), capacity):
+        fresh = _new_table(capacity, specs, key_lo.device, torch.empty)
+        claimed = _cuda.insert(
+            fresh.key_lo, fresh.key_hi, fresh.tombstone, fresh.cols,
+            fresh.count, fresh.probe_overflow, key_lo, key_hi, mask, rows,
+            capacity, hash_shift, fill=True)
+        return fresh, claimed
+    return insert(make_table(capacity, specs, key_lo.device), key_lo, key_hi,
+                  mask, rows, max_probe=capacity, hash_shift=hash_shift)
 
 
 def remove_to_tombstone(

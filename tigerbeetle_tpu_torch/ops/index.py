@@ -23,7 +23,10 @@ tensors): ``_sort_level`` is K13 ``run_sort`` (a stable sort of a run of up
 to 8,192 entries in one launch; longer arrays in sorted chunks of 1,024,
 then K14 rounds), ``_merge`` is K14
 ``run_merge`` (stable merge-path merges of the sorted inputs, left first on
-ties, which equals the JAX concatenate-and-stable-sort), ``_query_side`` is
+ties, which equals the JAX concatenate-and-stable-sort; a full build's
+rounds merge the runs' live prefixes alone, then write the sentinel-keyed
+tail once: ``_merge_sides_split_plain``, ``_rounds_split_plain``),
+``_query_side`` is
 K15's window mode and ``query_transfers`` K15's union mode.
 """
 
@@ -158,20 +161,39 @@ def _sort_masked(jobs: Sequence[Sequence[torch.Tensor]],
     n_out), entries where ``use`` is False and entries past n_in taken as
     sentinels: K13 over chunks, then K14 rounds over the chunks (for a run
     of up to 8,192, K13 merges its chunks in the same launch unless
-    ``fused`` is False)."""
+    ``fused`` is False): ``_merge_rounds``."""
     dev = jobs[0][0].device
-    outs = [torch.empty((5, n_out), dtype=torch.int64, device=dev)
-            for _ in jobs]
-    chunk = _cuda.run_sort(jobs, use, [list(o.unbind(0)) for o in outs],
+    chunks = [torch.empty((5, n_out), dtype=torch.int64, device=dev)
+              for _ in jobs]
+    chunk = _cuda.run_sort(jobs, use, [list(o.unbind(0)) for o in chunks],
                            fused)
-    run = chunk
+    if chunk >= n_out:
+        return [Level(o) for o in chunks]
+    return _merge_rounds(chunks, chunk)
+
+
+def _merge_rounds(chunks: Sequence[torch.Tensor], chunk: int) -> List[Level]:
+    """K14's part of a sort on CUDA: each job's (5, n) block of K13's
+    sorted chunks of ``chunk`` merged into one run: rounds over the runs'
+    live prefixes, then the tail step (``_rounds_split_plain`` is its plain
+    form).  The chunks are kept until the tail is written."""
+    n_out = chunks[0].shape[1]
+    dev = chunks[0].device
+    bufs = [[torch.empty_like(o) for o in chunks] for _ in range(2)]
+    pchunk = [torch.empty(n_out // chunk, dtype=torch.int64, device=dev)
+              for _ in chunks]
+    src, pin, run, k = chunks, None, chunk, 0
     while run < n_out:
-        nxt = [torch.empty_like(o) for o in outs]
-        _cuda.run_merge_rounds([list(o.unbind(0)) for o in outs],
-                               [list(x.unbind(0)) for x in nxt], run)
-        outs = nxt
-        run *= 2
-    return [Level(o) for o in outs]
+        dst = bufs[k % 2]
+        pout = [torch.empty(n_out // (2 * run), dtype=torch.int64, device=dev)
+                for _ in chunks]
+        _cuda.run_merge_rounds([list(o.unbind(0)) for o in src],
+                               [list(o.unbind(0)) for o in dst], run, pin,
+                               pout, pchunk if pin is None else None)
+        src, pin, run, k = dst, pout, run * 2, k + 1
+    _cuda.run_merge_tail([list(o.unbind(0)) for o in chunks],
+                         [list(o.unbind(0)) for o in src], chunk, pchunk, pin)
+    return [Level(o) for o in src]
 
 
 def _side_cols(rows, id_lo, id_hi, acct_field):
@@ -258,6 +280,131 @@ def _merge_sides(jobs: Sequence[Sequence[Dict[str, torch.Tensor]]],
             o.block.copy_(a.block)
         return list(outs)
     return acc
+
+
+# K14's own steps in plain PyTorch (csrc/index_merge.cu): a pairwise merge
+# cut into tiles of _cuda.MERGE_TILE outputs at the merge-path splits that
+# a warp's 32-ary search finds; a full build's rounds over K13's chunks
+# merging the runs' live prefixes alone, then the tail written once.
+
+_GARBAGE = 0x0123456789ABCDEF  # what the card leaves past a prefix: never read
+
+
+def _first_true32_plain(lo: int, hi: int, pred) -> int:
+    """K14's 32-ary warp search (``warp_split``, ``warp_prefix``): the
+    first i in [lo, hi) where ``pred`` (an index tensor to a bool tensor,
+    false then true) holds, else hi.  Each round tests 32 pivots
+    lo + (l + 1) step - 1 (true past the range) and keeps the step before
+    the first true one."""
+    lane = torch.arange(32, dtype=torch.int64)
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        p = lo + (lane + 1) * step - 1
+        hit = (p >= hi) | pred(torch.clamp(p, max=hi - 1)).cpu()
+        if not bool(hit.any()):
+            return hi
+        f = int(torch.nonzero(hit)[0])
+        lo, hi = lo + f * step, min(hi, lo + (f + 1) * step - 1)
+    return lo
+
+
+def _ukeys(lvl) -> Tuple[torch.Tensor, ...]:
+    """(acct_hi, acct_lo, ts) with unsigned order as signed order."""
+    return tuple(lvl[c] ^ INT64_MIN for c in ("acct_hi", "acct_lo", "ts"))
+
+
+def _key_lt(x, i, y, j) -> torch.Tensor:
+    """Key x[i] < key y[j] (``_ukeys`` triples, index tensors)."""
+    xh, xl, xt = (k[i] for k in x)
+    yh, yl, yt = (k[j] for k in y)
+    return (xh < yh) | ((xh == yh) & ((xl < yl) | ((xl == yl) & (xt < yt))))
+
+
+def _merge_tiles_plain(a, b, na: int, nb: int) -> Dict[str, torch.Tensor]:
+    """The stable merge of a[:na] and b[:nb] (a first on equal keys) as
+    K14's blocks make it: each tile of _cuda.MERGE_TILE outputs from the
+    A and B ranges between its two splits, merged on its own."""
+    ka, kb = _ukeys(a), _ukeys(b)
+    total = na + nb
+    ds = list(range(0, total, _cuda.MERGE_TILE)) + [total]
+    splits = []
+    for d in ds:
+        if d in (0, total):
+            splits.append(0 if d == 0 else na)
+            continue
+        splits.append(_first_true32_plain(
+            max(0, d - nb), min(d, na),
+            lambda i: _key_lt(kb, d - 1 - i, ka, i)))
+    parts = []
+    for t in range(len(ds) - 1):
+        i0, i1 = splits[t], splits[t + 1]
+        j0, j1 = ds[t] - i0, ds[t + 1] - i1
+        staged = {c: torch.cat([a[c][i0:i1], b[c][j0:j1]]) for c in COLS}
+        order = _lexsort_plain(staged)
+        parts.append({c: staged[c][order] for c in COLS})
+    dev = a["ts"].device
+    return {c: torch.cat([p[c] for p in parts]) if parts else
+            torch.empty(0, dtype=torch.int64, device=dev) for c in COLS}
+
+
+def _merge_sides_split_plain(jobs) -> List[Level]:
+    """``_merge_sides`` by K14's steps: each job's carry a chain of tiled
+    pairwise merges (run + level 0, + level 1, ...)."""
+    out = []
+    for levels in jobs:
+        acc = levels[0]
+        for lvl in levels[1:]:
+            acc = _merge_tiles_plain(acc, lvl, acc["ts"].shape[0],
+                                     lvl["ts"].shape[0])
+        out.append(Level(torch.stack([acc[c] for c in COLS])))
+    return out
+
+
+def _rounds_split_plain(chunks: Level, chunk: int) -> Level:
+    """K14's rounds of a full build over K13's sorted chunks, in plain
+    PyTorch: each chunk's live prefix (the entries before its
+    sentinel-keyed tail) by the 32-ary search; each round merges adjacent
+    runs' prefixes by ``_merge_tiles_plain`` and leaves the rest of a run
+    unwritten; then the tail step writes every chunk's tail in chunk order
+    after the level's prefix (keys the sentinel key, ids copied)."""
+    n = chunks.n
+    blk = chunks.block
+    keys = _ukeys(chunks)
+    sent = torch.full((), _M, dtype=torch.int64) ^ INT64_MIN
+    pchunk = []
+    for c in range(n // chunk):
+        at = c * chunk
+        pchunk.append(_first_true32_plain(
+            0, chunk, lambda i: (keys[0][at + i] == sent)
+            & (keys[1][at + i] == sent) & (keys[2][at + i] == sent)))
+    cur, pin, run = blk, pchunk, chunk
+    while run < n:
+        nxt = torch.full_like(blk, _GARBAGE)
+        pout = []
+        for p in range(n // (2 * run)):
+            a0, b0 = 2 * p * run, (2 * p + 1) * run
+            a = {c: cur[k][a0:a0 + pin[2 * p]] for k, c in enumerate(COLS)}
+            b = {c: cur[k][b0:b0 + pin[2 * p + 1]] for k, c in enumerate(COLS)}
+            m = _merge_tiles_plain(a, b, pin[2 * p], pin[2 * p + 1])
+            nxt[:, a0:a0 + m["ts"].shape[0]] = torch.stack([m[c] for c in COLS])
+            pout.append(m["ts"].shape[0])
+        cur, pin, run = nxt, pout, run * 2
+    at = pin[0]
+    for c, p in enumerate(pchunk):
+        t = chunk - p
+        cur[:3, at:at + t] = _M
+        cur[3:, at:at + t] = blk[3:, c * chunk + p:(c + 1) * chunk]
+        at += t
+    return Level(cur)
+
+
+def _sort_rounds_split_plain(cols: Sequence[torch.Tensor],
+                             use: Optional[torch.Tensor], n_out: int,
+                             fused: bool = True) -> Level:
+    """``_sort_masked``'s route in plain PyTorch: K13's split form, then
+    (past one sorted run) K14's rounds and tail."""
+    lvl, run = _sort_split_plain(cols, use, n_out, fused)
+    return lvl if run >= n_out else _rounds_split_plain(lvl, run)
 
 
 def _live(t: ht.Table) -> torch.Tensor:

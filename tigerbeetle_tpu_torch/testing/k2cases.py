@@ -1,11 +1,15 @@
 """Batches and tables that set the traps of K2's split form
 (``csrc/insert.cu``: the pre-pass's windows, the resolver's rounds over
-home groups), in numpy, so that each case puts occupied slots, tombstones
-and lane homes exactly where its trap needs them.  ``CASES`` maps a name to
-a function returning (table arrays, keys, mask, max_probe, hash_shift);
-``shift_case(shift)`` builds the hash-shift case.  The CPU tests hold the
-split form's plain version against the JAX package on them, the card tests
-the kernel against its plain version."""
+home groups) and of its round form (more than 8,192 lanes: round 0 over
+the batch, the walker lists, the one-block tail), in numpy, so that each
+case puts occupied slots, tombstones and lane homes exactly where its trap
+needs them.  ``CASES`` and ``ROUND_CASES`` map a name to a function
+returning (table arrays, keys, mask, max_probe, hash_shift);
+``shift_case(shift)`` builds the hash-shift case, ``grow_case()`` a table
+with tombstones to grow and ``evict_case(keep)`` a table and the keep mask
+of a rebuild that keeps none, some or all of its rows.  The CPU tests hold
+the forms' plain versions against the JAX package on them, the card tests
+the kernels against their plain versions."""
 
 from __future__ import annotations
 
@@ -219,3 +223,113 @@ def shift_case(shift):
 # The claims of case "lost_slot_walks_on": A's second lane loses h+1, h+3,
 # h+4, h+6 and h+7 to claims of earlier rounds and lands on h+8.
 LOST_SLOT_CLAIMS = [300, 308, 301, 304, 303, 306, 307]
+
+
+# -- the round form: more than 8,192 lanes ------------------------------------
+
+RCAP = 1 << 15
+ROUND_N = 9000  # lanes of every round case (masked-out padding after the keys)
+
+
+def _round_batch(lo, mask, rng):
+    """``lo`` and ``mask`` padded to ROUND_N lanes with masked-out keys,
+    then shuffled (lane order is what breaks ties)."""
+    lo = np.asarray(lo, np.uint64)
+    mask = np.asarray(mask, bool)
+    pad = ROUND_N - len(lo)
+    assert pad >= 0, len(lo)
+    lo = np.concatenate([lo, (1 << 52) + np.arange(pad, dtype=np.uint64)])
+    mask = np.concatenate([mask, np.zeros(pad, bool)])
+    perm = rng.permutation(ROUND_N)
+    return list(lo[perm]), mask[perm]
+
+
+def _fill(k, rng, n, cap, avoid=()):
+    """``n`` keys homed at random slots outside ``avoid``."""
+    avoid = set(avoid)
+    homes = [h for h in rng.integers(0, cap, 2 * n) if int(h) not in avoid][:n]
+    return [x for h in homes for x in k.at(int(h))]
+
+
+def case_round_wrap_cluster():
+    """One occupied cluster of 600 slots across the table's end (a few
+    holes), 700 lanes homed inside it and 8,000 elsewhere: walks wrap to
+    slot 0 and run long past round 0's list into the one-block tail."""
+    rng = np.random.default_rng(21)
+    k = Keys(RCAP, 0)
+    cluster = [(RCAP - 300 + j) % RCAP for j in range(600)]
+    occupied = [s for j, s in enumerate(cluster) if j % 97]
+    lo = [x for h in rng.choice(cluster, 700) for x in k.at(int(h))]
+    lo += _fill(k, rng, 8000, RCAP, cluster)
+    lo, mask = _round_batch(lo, [True] * len(lo), rng)
+    return build(RCAP, occupied), lo, mask, RCAP, 0
+
+
+def case_round_big_groups():
+    """120 same-home groups of 33-50 lanes (more than a warp each) among
+    2,000 other lanes, into a table a fifth full: over 2,048 walkers are
+    left after round 0, so the grid's rounds run before the tail."""
+    rng = np.random.default_rng(22)
+    k = Keys(RCAP, 0)
+    roomy = np.flatnonzero(np.diff(k.starts) >= 50)
+    homes = rng.choice(roomy, 120, replace=False)
+    lo = [x for h in homes for x in k.at(int(h), int(rng.integers(33, 51)))]
+    lo += _fill(k, rng, 2000, RCAP, homes)
+    occ = rng.choice(RCAP, RCAP // 5, replace=False)
+    lo, mask = _round_batch(lo, [True] * len(lo), rng)
+    return build(RCAP, occ[:-500], tombs=occ[-500:]), lo, mask, RCAP, 0
+
+
+def case_round_max_probe():
+    """The big groups with max_probe 20: the groups outlast it."""
+    table, lo, mask, _, shift = case_round_big_groups()
+    return table, lo, mask, 20, shift
+
+
+def case_round_max_probe_tail():
+    """max_probe 3 on the wrapped cluster: the overflow in the tail."""
+    table, lo, mask, _, shift = case_round_wrap_cluster()
+    return table, lo, mask, 3, shift
+
+
+def case_round_masked():
+    """9,000 lanes, about half masked in, into a table 40 % full with
+    tombstones; some same-home pairs."""
+    rng = np.random.default_rng(23)
+    k = Keys(RCAP, 0)
+    lo = _fill(k, rng, 8500, RCAP)
+    lo += [x for h in rng.choice(RCAP, 250) for x in k.at(int(h), 2)]
+    occ = rng.choice(RCAP, int(RCAP * 0.4), replace=False)
+    lo, mask = _round_batch(lo, rng.random(len(lo)) < 0.5, rng)
+    return build(RCAP, occ[:-2000], tombs=occ[-2000:]), lo, mask, RCAP, 0
+
+
+ROUND_CASES = {f.__name__[5:]: f for f in (
+    case_round_wrap_cluster, case_round_big_groups, case_round_max_probe,
+    case_round_max_probe_tail, case_round_masked)}
+
+
+GCAP = 1 << 14
+
+
+def grow_case():
+    """A table of 2^14 slots about half full, an eighth of its slots then
+    tombstones: ``grow`` to 2^15 takes 16,384 lanes, and drops the
+    tombstones."""
+    rng = np.random.default_rng(24)
+    occ = rng.choice(GCAP, GCAP // 2, replace=False)
+    return build(GCAP, occ[:-GCAP // 8], tombs=occ[-GCAP // 8:])
+
+
+def evict_case(keep: str):
+    """A table of 2^14 slots (rows with timestamps, tombstones) and the
+    keep mask of a rebuild that keeps ``keep`` ("none", "some", "all") of
+    its live rows, with the threshold timestamp that gives it."""
+    a = grow_case()
+    rng = np.random.default_rng(25)
+    live = (a["key_lo"] | a["key_hi"]) != 0
+    live &= ~a["tombstone"]
+    ts = rng.integers(1, 1000, GCAP, dtype=np.uint64) * live
+    a["cols"] = {"timestamp": ts, "val": a["cols"]["val"]}
+    thr = {"none": 1000, "some": 500, "all": 0}[keep]
+    return a, np.uint64(thr), live & (ts > thr)

@@ -20,7 +20,11 @@ levels 2^13-2^23 (five of eleven occupied a side, 10,000 accounts), K1 on
 (the sequential path's shape).  K1's marks are a block's (block barriers
 in the clocked build only) and the last lookup's of a launch; K7's come
 from its four kernels (the pre-pass's probe and mark launches, the
-sequencer's one block, the finish):
+sequencer's one block, the finish); K2's round form's come from its
+three kernels and its fill (each of round 0's two launches starting, the
+cooperative rounds starting, block 0's one-block tail starting and ending,
+the fill's writes starting: a mark reached by no block is left out), on
+``grow`` 2^20 -> 2^21 at load 0.5 (its insert into an unwritten table):
 
     python tools/phase_clock.py
 """
@@ -55,13 +59,16 @@ MARKS = {
     "seq_accounts": ("start", "probed", "mark_start", "marked",
                      "sequencer_start", "overlay_ready", "walked",
                      "sequencer_end", "finish_start", "finished"),
+    "insert_rounds": ("round0_contend", "round0_resolve", "grid_rounds",
+                      "tail", "tail_end", "fill"),
 }
 ENTRY = {"run_sort": "tb_run_sort_phases", "validate": "tb_validate_phases",
          "full_index": "tb_full_index_phases",
          "index_union": "tb_index_query_phases",
-         "probe": "tb_probe_phases", "seq_accounts": "tb_seq_accounts_phases"}
+         "probe": "tb_probe_phases", "seq_accounts": "tb_seq_accounts_phases",
+         "insert_rounds": "tb_insert_phases"}
 SOURCES = ("index_sort.cu", "validate.cu", "full_index.cu", "index_query.cu",
-           "probe.cu", "sequential.cu")
+           "probe.cu", "sequential.cu", "insert.cu")
 _LIB = None
 
 
@@ -190,6 +197,21 @@ def k7_shape(dev):
     return args
 
 
+def grow_claim(dev, old_cap: int):
+    """A call of ``hash_table.rehash_into`` as ``grow`` makes it: every
+    slot of a table of ``old_cap`` slots at load 0.5 a lane, into an
+    unwritten table of twice the slots, written whole (K2's ``fill``)."""
+    t = ht.make_table(old_cap, sm.TRANSFER_COLS, dev)
+    ids = 1 + torch.arange(old_cap // 2, dtype=torch.int64, device=dev)
+    ht.insert(t, ids, torch.zeros_like(ids), torch.ones_like(ids, dtype=torch.bool),
+              {k: ids.to(dt) for k, dt in sm.TRANSFER_COLS.items()}, old_cap)
+    live = (t.key_lo != 0) | (t.key_hi != 0)
+
+    def fn():
+        ht.rehash_into(2 * old_cap, t.key_lo, t.key_hi, live, t.cols)
+    return fn
+
+
 def main() -> None:
     from tigerbeetle_tpu_torch import convert
     from tigerbeetle_tpu_torch.ops import index as ix
@@ -227,6 +249,8 @@ def main() -> None:
                                        cols=sm.TRANSFER_EXISTS_COLS)),
         "seq_accounts_8190_new": split(
             "seq_accounts", lambda: sp.create_accounts_seq(*k7_args())),
+        "insert_rounds_grow_2e20": split(
+            "insert_rounds", grow_claim(dev, 1 << 20)),
     }))
 
 
