@@ -140,7 +140,9 @@ Phases, each printing one JSON line:
                 against the plain versions: the deepest carried level and
                 the rebuilt level (K13, K14), K15 over the whole pyramid and
                 K16 over the whole log, invalid lanes included; K15/K16
-                timed here (K15 also on an account with no rows, with its
+                timed here (K16's one launch a query in both directions,
+                the parent's times (PERF.md) beside; K15 also on an account
+                with no rows, with its
                 valid rows, the windows that hold them, its launch and its
                 phases clocked), and K1 and K13-K16's launch counts read from
                 this phase, with the entries K14's counted launches merge
@@ -148,10 +150,19 @@ Phases, each printing one JSON line:
  16. cold_kernels - K17 bloom_check, K18 evict_threshold, K19 evict_extract
                 and drop_evicted's K2 rebuild against their plain versions on
                 the card, byte for byte: filters of 2^20 and 2^28 bits (each
-                lane's hit, and the general kernel's masked form with its
-                FLAG_COLD word), tables of 2^8, 2^23 and 2^25 slots with
-                tombstones at fractions 0.001-0.999, empty tables and the
-                C-1 clamp; each timed at the tiered path's shapes;
+                lane's hit, and the masked form with its FLAG_COLD word),
+                tables of 2^8, 2^23 and 2^25 slots with tombstones at
+                fractions 0.001-0.999, empty tables and the C-1 clamp; each
+                timed at the tiered path's shapes.  K17 as a step of K1's
+                launch (its flag word) at the tiered general path's shape
+                (``tier_shape``: 10,000,000 accounts, a 2^23 hot table at
+                the eviction point, a 2^28-bit filter of 20,000,000 evicted
+                ids): the word under every mask, with and without post/void
+                lanes, and every lookup's outputs against the plain form;
+                K1 with and without the step, ``build_gather_ctx`` (its
+                runtime calls) and K17's own launch in both forms timed,
+                warm and after an L2 flush, the parents' times (PERF.md)
+                beside;
  17. tiered   - the cold tier at full width (BASELINE.json config 4, cut in
                 depth): a tiered machine (hot ceiling 2^23 slots, in-memory
                 runs) and an untiered twin, 10,000,000 accounts each, then
@@ -161,7 +172,9 @@ Phases, each printing one JSON line:
                 resubmitted per batch (codes 46 and 39).  Every code equal
                 to the twin's; the accounts tables, lookups across the tiers
                 and 100 get_account_transfers equal; at least one merge of
-                the cold runs.  K17-K19's launch counts read from here.
+                the cold runs.  K17-K19's launch counts read from here;
+                K17's are the K1 launches that carried its step (its own
+                kernel is never launched on this path: checked).
  18. flagship - K20 bench_gen against its plain version on the card, byte
                 for byte (plain, two-phase and the tools' two-phase shape,
                 batch indexes where b * count + lane passes 2^32) and
@@ -558,6 +571,7 @@ class uncounted:
         from tigerbeetle_tpu_torch.ops import _cuda
 
         self.saved = _cuda.counts()
+        self.in_probe = _cuda.BLOOM_IN_PROBE
         uncounted.depth += 1
 
     def __exit__(self, *exc):
@@ -566,6 +580,7 @@ class uncounted:
         uncounted.depth -= 1
         for name, n in self.saved.items():
             _cuda.KERNELS[name].launches = n
+        _cuda.BLOOM_IN_PROBE = self.in_probe
 
 
 def loop_ms(fn, n=50) -> float:
@@ -4531,14 +4546,17 @@ def _queries_body(out, run, dev, n_transfers, rng, flag_cycle):
                 f"queries b: scan_history flags {flags} desc {desc} k {kk}",
                 {"valid": g[0], **g[1]}, {"valid": p[0], **p[1]}))
         out["b"]["k16_checked"] = j + 1
-    # K16 at this size: one query's kernel, its plain version, and one
-    # torch.topk of the same key.  The plain version and the library call
-    # are timed with CUDA events around back-to-back calls (a torch.sort
-    # of 2^24 keys outlasts the launches), the profiler's figures beside.
+    # K16 at this size: one query's kernel (its one launch, the error word
+    # left on the card: CUDA events behind a spin), its plain version, and
+    # one torch.topk of the same key.  The plain version and the library
+    # call are timed with CUDA events around back-to-back calls (a
+    # torch.sort of 2^24 keys outlasts the launches), the profiler's
+    # figures beside.
     acct = int(accts[0])
 
-    def k16_fn():
-        return q.scan_history(m.ledger, acct, 0, 1, U64M - 1, True, True, True, k)
+    def k16_fn(desc=True):
+        return _cuda.history_scan(h.cols, h.count, acct, 0, 1, U64M - 1, True,
+                                  True, desc, k, check=False)
 
     def k16_plain():
         return q.scan_history_plain(m.ledger, acct, 0, 1, U64M - 1, True,
@@ -4551,20 +4569,30 @@ def _queries_body(out, run, dev, n_transfers, rng, flag_cycle):
     key = torch.where(match, c["timestamp"], torch.zeros_like(c["timestamp"])) ^ INT64_MIN
     with uncounted():
         k16 = timed(k16_fn, reps=10)
+        k16_asc = timed(lambda: k16_fn(False), reps=10)
         k16_loop = loop_ms(k16_fn, n=20)
         k16p = timed(k16_plain, reps=3, warmup=1)
         k16p_loop = loop_ms(k16_plain, n=5)
         k16p_kernels = profile_by_name(k16_plain, reps=3)
         lib = timed(lambda: torch.topk(key, k), reps=10)
         lib_loop = loop_ms(lambda: torch.topk(key, k), n=10)
-    # What the query must read: the low words of both side ids of every
-    # row below count, the high words and timestamp where a low word
-    # matches, the k result rows' nine columns, and the k results written.
+    # What the function must move: the low words of both side ids of every
+    # row below count, the matching side's high word and the timestamp of
+    # a row whose low word matches, the k result rows' ten columns
+    # (timestamp, a side's eight, the debit id) read, and the k results
+    # written.  The kernel's order check reads every row's timestamp
+    # besides (then a match adds only its high word): that design's cost
+    # is printed apart.
     n_hit = int(((c["dr_id_lo"][:count] == acct)
                  | (c["cr_id_lo"][:count] == acct)).sum())
+    rows_bytes = k * 10 * 8 + k * (1 + 9 * 8)
     out["k16"] = dict(**pair_times(k16, k16p), loop_ms=k16_loop,
-                      bound=bound(count * 16 + n_hit * 24 + k * 9 * 8
-                                  + k * (1 + 9 * 8), count * 4),
+                      ms_ascending=k16_asc["device_ms"],
+                      bound=bound(count * 16 + n_hit * 16 + rows_bytes, count * 4),
+                      bound_with_order_check_ms=bound(
+                          count * 24 + n_hit * 8 + rows_bytes, count * 4)[0],
+                      launches_a_query=1,
+                      parent_ms_perf_md=K16_PARENT_MS,
                       shape=f"one history query, k {k}, log capacity {h.capacity} "
                             f"({count} rows); library: torch.topk of the key")
     out["k16"].update(
@@ -4596,6 +4624,277 @@ TIER_RESUBMITS = 256  # evicted ids resubmitted per batch, half with amount + 1
 COLD_FILTER_LOG2 = (20, 28)  # Bloom filter sizes held against the plain version
 COLD_TABLE_LOG2 = (8, 23, 25)  # table sizes held against the plain versions
 COLD_TIMED_LOG2 = 23  # the table size timed (the tiered path's ceiling)
+# The tiered general path's shape for K1's flag word (K17's step): the
+# tiered run's 10,000,000 accounts (2^25 slots), its hot table at the
+# eviction point (2^22 rows in 2^23 slots), the filter it reaches from its
+# third eviction on (2^28 bits; 12 bits an evicted id) holding 20,000,000
+# evicted ids, and TIER_RESUBMITS of them in a batch.
+TIER_ACCOUNTS_LOG2 = 25
+TIER_HOT_LOG2 = 23
+TIER_HOT_ROWS = 1 << 22
+TIER_COLD_IDS = 20_000_000
+TIER_BLOOM_LOG2 = 28
+TIER_FIRST_ID = 1 << 32
+# The parents' times at these shapes (PERF.md §6, the parents' clock P0:
+# tools/cold_history_times.py on the parent tree; NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this tree's.
+K17_PARENT_MS = {"k1_3_lookups": 0.01144, "k1_7_lookups": 0.02836,
+                 "gather_ctx_3": 0.0458, "gather_ctx_7": 0.0780,
+                 "gather_ctx_runtime_calls_3": 17, "gather_ctx_runtime_calls_7": 21,
+                 "masked_form_3": 0.00359, "masked_form_3_l2_flushed": 0.00614,
+                 "masked_form_7": 0.00452, "masked_form_7_l2_flushed": 0.00808,
+                 "out_form": 0.00322, "out_form_l2_flushed": 0.00547}
+K16_PARENT_MS = {"query_2e24_log_desc": 0.3768, "query_2e24_log_asc": 0.3767,
+                 "perf_md_row_b16d": 0.233}
+
+
+def bloom_on_card(ids_lo, bits_log2: int):
+    """The Bloom filter (int32 words) of ``ids_lo`` (id_hi 0), built on the
+    card: a byte a bit set by index_put, then packed; the words
+    ``cold.bloom_add_host`` makes."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import cold
+
+    dev = ids_lo.device
+    bits = torch.zeros(1 << bits_log2, dtype=torch.uint8, device=dev)
+    one = torch.ones((), dtype=torch.uint8, device=dev)
+    for chunk in ids_lo.split(1 << 22):
+        for pos in cold._bloom_positions(chunk, torch.zeros_like(chunk),
+                                         1 << bits_log2):
+            bits.index_put_((pos,), one)
+    shifts = torch.arange(32, device=dev, dtype=torch.int64)
+    words = (bits.view(-1, 32).to(torch.int64) << shifts).sum(1)
+    del bits
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def tier_shape(dev):
+    """The tiered general path's ledger (accounts 2^25 slots holding ids
+    1..10,000,000; hot transfers 2^23 holding 2^22 rows, every 8th a
+    pending; a posted table of 2^16), its 2^28-bit filter holding
+    20,000,000 evicted ids, and two batches of COUNT events on LANES lanes
+    with TIER_RESUBMITS evicted ids resubmitted: a plain one, and one whose
+    every other lane posts or voids a pending (half of them hot, a quarter
+    evicted, a quarter absent).  Returns (ledger, filter, plain SoA,
+    post/void SoA)."""
+    import torch
+    from tigerbeetle_tpu_torch import convert, types
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import state_machine as sm
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+
+    rng = np.random.default_rng(18)
+    i64 = torch.int64
+    ids = torch.arange(1, TIER_ACCOUNTS + 1, dtype=i64, device=dev)
+    rows = {c: torch.zeros(TIER_ACCOUNTS, dtype=dt, device=dev)
+            for c, dt in sm.ACCOUNT_COLS.items()}
+    rows["ledger"].fill_(1)
+    rows["code"].fill_(10)
+    rows["timestamp"] = ids * 1000
+    accounts = ht.rehash_into(1 << TIER_ACCOUNTS_LOG2, ids, torch.zeros_like(ids),
+                              torch.ones_like(ids, dtype=torch.bool), rows)[0]
+    del rows, ids
+    hot = (TIER_FIRST_ID + TIER_COLD_IDS
+           + torch.arange(TIER_HOT_ROWS, dtype=i64, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    rows = {c: torch.zeros(TIER_HOT_ROWS, dtype=dt, device=dev)
+            for c, dt in sm.TRANSFER_COLS.items()}
+    for side in ("debit", "credit"):
+        rows[f"{side}_account_id_lo"] = torch.randint(
+            1, TIER_ACCOUNTS + 1, (TIER_HOT_ROWS,), device=dev, generator=gen)
+    rows["amount_lo"] = torch.randint(1, 1 << 16, (TIER_HOT_ROWS,), device=dev,
+                                      generator=gen)
+    rows["ledger"].fill_(1)
+    rows["code"].fill_(10)
+    rows["flags"] = torch.where(torch.arange(TIER_HOT_ROWS, device=dev) % 8 == 0,
+                                int(tf.TF_PENDING), 0).to(torch.int32)
+    rows["timestamp"] = hot * 7
+    transfers = ht.rehash_into(1 << TIER_HOT_LOG2, hot, torch.zeros_like(hot),
+                               torch.ones_like(hot, dtype=torch.bool), rows)[0]
+    del rows
+    posted = ht.make_table(1 << 16, sm.POSTED_COLS, dev)
+    bloom = bloom_on_card(TIER_FIRST_ID + torch.arange(
+        TIER_COLD_IDS, dtype=i64, device=dev), TIER_BLOOM_LOG2)
+    b = np.zeros(COUNT, dtype=types.TRANSFER_DTYPE)
+    b["id_lo"] = TIER_FIRST_ID + TIER_COLD_IDS + TIER_HOT_ROWS + np.arange(COUNT)
+    back = rng.choice(COUNT, TIER_RESUBMITS, replace=False)
+    b["id_lo"][back] = TIER_FIRST_ID + rng.integers(0, TIER_COLD_IDS,
+                                                     TIER_RESUBMITS)
+    b["debit_account_id_lo"] = rng.integers(1, TIER_ACCOUNTS + 1, COUNT)
+    b["credit_account_id_lo"] = rng.integers(1, TIER_ACCOUNTS + 1, COUNT)
+    b["amount_lo"] = rng.integers(1, 1 << 16, COUNT)
+    b["ledger"], b["code"] = 1, 10
+    plain = convert.batch_to_tensors(b, LANES, dev)
+    half = np.arange(0, COUNT, 2)
+    b["flags"][half] = np.where(half % 4 == 0, int(tf.TF_POST), int(tf.TF_VOID))
+    b["amount_lo"][half] = 0
+    kind = rng.random(len(half))
+    b["pending_id_lo"][half] = np.where(
+        kind < 0.5, TIER_FIRST_ID + TIER_COLD_IDS
+        + rng.integers(0, TIER_HOT_ROWS // 8, len(half)) * 8,
+        np.where(kind < 0.75, TIER_FIRST_ID + rng.integers(0, TIER_COLD_IDS,
+                                                            len(half)),
+                 1 << 62))
+    twophase = convert.batch_to_tensors(b, LANES, dev)
+    ledger = sm.Ledger(accounts=accounts, transfers=transfers, posted=posted,
+                       history=sm.make_history(1 << 4, dev))
+    return ledger, bloom, plain, twophase
+
+
+def runtime_calls(fn) -> int:
+    """The CUDA runtime's launch and memset calls one call of ``fn`` makes
+    (a CPU profile: every launch passes the host, whatever the card's trace
+    records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaMemset")))
+
+
+def tier_flag_shape(dev) -> dict:
+    """K1's flag word (K17's step) at the tiered general path's shape
+    (``tier_shape``), byte for byte against its plain form on the card:
+    the word under every mask (no post/void lane and half of them; no lane,
+    one in a hundred and every lane certified), and each lookup's found,
+    slot and columns; ``build_gather_ctx``'s flags the same, its K1 one
+    launch carrying the step and K17's own kernel not launched; K17's own
+    launch in both forms against their plain versions.  Then, by
+    CUDA events behind a spin (and after a 128 MB fill that overwrites the
+    L2): K1 with and without the step, ``build_gather_ctx`` and its
+    runtime calls, K17's own launch in both forms, beside the parents'
+    times (PERF.md) and their bounds."""
+    import torch
+    from tigerbeetle_tpu_torch.ops import _cuda, cold
+    from tigerbeetle_tpu_torch.ops import hash_table as ht
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+
+    ledger, bloom, plain, twophase = tier_shape(dev)
+    valid = torch.arange(LANES, device=dev) < COUNT
+    some = torch.from_numpy(np.random.default_rng(17).random(LANES) < 0.01).to(dev)
+    errs, checked, out = 0, {}, {}
+    for name, soa, has_pv in (("3", plain, False), ("7", twophase, True)):
+        postvoid = (((soa["flags"] & (tf.TF_POST | tf.TF_VOID)) != 0) & valid)
+        looks = tf.gather_lookups(ledger, soa, valid, postvoid, True, has_pv)
+        for ci, cert in enumerate((None, some, torch.ones_like(some))):
+            with uncounted():
+                got, word = ht.lookup_flags(looks, tf.MAX_PROBE, bloom, cert,
+                                            tf.FLAG_COLD)
+            want, want_word = ht.lookup_flags_plain(looks, tf.MAX_PROBE, bloom,
+                                                    cert, tf.FLAG_COLD)
+            errs = max(errs, max_abs_err_card(
+                f"flag word, {name} lookups, certified {ci}",
+                {"word": word.reshape(1)}, {"word": want_word.reshape(1)}))
+            if ci == 0:
+                for k, (g, w) in enumerate(zip(got, want)):
+                    errs = max(errs, max_abs_err_card(
+                        f"K1 with the step, {name} lookups, lookup {k}",
+                        {"found": g.found, "slot": g.slot, **g.cols},
+                        {"found": w.found, "slot": w.slot, **w.cols}))
+            checked[f"word_{name}_certified{ci}"] = int(want_word)
+        _cuda.reset_counts()
+        ctx = tf.build_gather_ctx(ledger, soa, valid, postvoid, bloom, None,
+                                  has_postvoid=has_pv)
+        n = _cuda.counts()
+        if (n["probe"], n["bloom_check"], _cuda.BLOOM_IN_PROBE) != (1, 1, 1):
+            raise AssertionError(f"build_gather_ctx {name}: launches {n}")
+        errs = max(errs, max_abs_err_card(
+            f"build_gather_ctx flags, {name} lookups",
+            {"flags": ctx.probe_grow.reshape(1)},
+            {"flags": ht.lookup_flags_plain(looks, tf.MAX_PROBE, bloom, None,
+                                            tf.FLAG_COLD)[1].reshape(1)}))
+        found = [r.found for r in want]
+        tested = int((valid & ~found[0]).sum())
+        tested_p = int((postvoid & ~found[3]).sum()) if has_pv else 0
+        # K1's bytes (as probe_path_shape counts them: keys, 17 B a visited
+        # slot, the found rows' columns, the outputs) and the step's: four
+        # 32-B sectors of the filter a tested id.
+        k1_bytes = 0
+        for lk, w in zip(looks, want):
+            lo = lk.key_lo if lk.keys_from is None else want[lk.keys_from[0]].cols[lk.keys_from[1]]
+            hi = (lk.key_hi if lk.keys_from is None else
+                  (want[lk.keys_from[0]].cols[lk.keys_from[2]] if lk.keys_from[2]
+                   else torch.zeros_like(lo)))
+            width = sum(lk.table.cols[c].element_size() for c in lk.cols)
+            k1_bytes += (16 * LANES + 17 * slot_visits(lk.table, lo, hi, tf.MAX_PROBE)
+                         + int(w.found.sum()) * width + LANES * (1 + 8 + width))
+        step_bytes = 4 * 32 * (tested + tested_p)
+        mask_args = (bloom, soa["id_lo"], soa["id_hi"], valid, found[0],
+                     soa["pending_id_lo"], soa["pending_id_hi"],
+                     postvoid if has_pv else None, found[3] if has_pv else None,
+                     None, torch.zeros((), dtype=torch.int32, device=dev),
+                     tf.FLAG_COLD)
+        with uncounted():
+            errs = max(errs, max_abs_err_card(
+                f"bloom_flag (K17's own launch), {name} lookups' masks",
+                {"flag": cold.bloom_flag(*mask_args[:10], torch.zeros(
+                    (), dtype=torch.int32, device=dev), tf.FLAG_COLD).reshape(1)},
+                {"flag": cold.bloom_flag_plain(*mask_args).reshape(1)}))
+        with uncounted():
+            step = lambda: ht.lookup_flags(looks, tf.MAX_PROBE, bloom, None,  # noqa: E731
+                                           tf.FLAG_COLD)
+            k1 = lambda: ht.lookup_many(looks, tf.MAX_PROBE)  # noqa: E731
+            ctx_fn = lambda: tf.build_gather_ctx(  # noqa: E731
+                ledger, soa, valid, postvoid, bloom, None, has_postvoid=has_pv)
+            with_step = timed(step)
+            out[name] = {
+                "tested_ids": tested, "tested_pending_ids": tested_p,
+                "k1_with_step_ms": with_step["device_ms"],
+                "k1_with_step_ms_from": with_step["device_ms_from"],
+                "k1_ms": timed(k1)["device_ms"],
+                "k1_word_no_test_ms": timed(lambda: ht.lookup_flags(
+                    [lk._replace(cold=False) for lk in looks],
+                    tf.MAX_PROBE))["device_ms"],
+                "k1_with_step_ms_l2_flushed": cold_l2_ms(step),
+                "k1_ms_l2_flushed": cold_l2_ms(k1),
+                "gather_ctx_ms": timed(ctx_fn)["device_ms"],
+                "gather_ctx_runtime_calls": runtime_calls(ctx_fn),
+                "masked_form_ms": timed(lambda: cold.bloom_flag(*mask_args))["device_ms"],
+                "masked_form_ms_l2_flushed": cold_l2_ms(
+                    lambda: cold.bloom_flag(*mask_args)),
+                "plain_ms": timed(lambda: ht.lookup_flags_plain(
+                    looks, tf.MAX_PROBE, bloom, None, tf.FLAG_COLD),
+                    reps=3, warmup=1)["device_ms"],
+                "bound": bound(k1_bytes + step_bytes, 0),
+                "step_bound_ms": step_bytes / H100_BYTES_PER_S * 1e3,
+                "parent_ms_perf_md": {
+                    "k1": K17_PARENT_MS[f"k1_{name}_lookups"],
+                    "gather_ctx": K17_PARENT_MS[f"gather_ctx_{name}"],
+                    "gather_ctx_runtime_calls":
+                        K17_PARENT_MS[f"gather_ctx_runtime_calls_{name}"],
+                    "masked_form": K17_PARENT_MS[f"masked_form_{name}"],
+                    "masked_form_l2_flushed":
+                        K17_PARENT_MS[f"masked_form_{name}_l2_flushed"]},
+            }
+            out[name]["step_ms"] = out[name]["k1_with_step_ms"] - out[name]["k1_ms"]
+    lo, hi = plain["id_lo"], plain["id_hi"]
+    with uncounted():
+        errs = max(errs, max_abs_err_card(
+            "bloom_check 2^28, the tiered batch's ids",
+            {"hits": cold.bloom_check_impl(bloom, lo, hi)},
+            {"hits": cold.bloom_check_plain(bloom, lo, hi)}))
+        out["out_form_ms"] = timed(lambda: cold.bloom_check_impl(bloom, lo, hi))["device_ms"]
+        out["out_form_ms_l2_flushed"] = cold_l2_ms(
+            lambda: cold.bloom_check_impl(bloom, lo, hi))
+    out["out_form_bound_ms"] = bound(LANES * (16 + 4 * 32 + 1), 0)[0]
+    out["out_form_parent_ms_perf_md"] = {
+        "warm": K17_PARENT_MS["out_form"],
+        "l2_flushed": K17_PARENT_MS["out_form_l2_flushed"]}
+    out["launch"] = _cuda.probe_info()
+    out["shape"] = (f"{COUNT} events on {LANES} lanes; accounts 2^{TIER_ACCOUNTS_LOG2} "
+                    f"holding {TIER_ACCOUNTS}, hot transfers 2^{TIER_HOT_LOG2} "
+                    f"holding {TIER_HOT_ROWS}, filter 2^{TIER_BLOOM_LOG2} bits "
+                    f"holding {TIER_COLD_IDS} ids; {TIER_RESUBMITS} resubmitted")
+    del ledger, bloom
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "checked": checked, **out}
 
 
 def evict_test_table(dev, cap, live_frac=0.5, tomb_frac=1 / 16):
@@ -4646,7 +4945,6 @@ def phase_cold_kernels(seed: int, dev) -> dict:
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import state_machine as sm
     from tigerbeetle_tpu_torch.ops import transfer_full as tf
-    from tigerbeetle_tpu_torch.u128 import INT64_MIN, srl
 
     rng = np.random.default_rng(seed + 17)
     results, checked = {}, {}
@@ -4685,32 +4983,24 @@ def phase_cold_kernels(seed: int, dev) -> dict:
                     f"bloom_flag 2^{bits_log2}", {"flag": to_np(got.reshape(1))},
                     {"flag": to_np(want.reshape(1))}))
                 checked[f"flag_2^{bits_log2}_certified{ci}_pv{pv is not None}"] = int(got)
-    # Timed on the 2^28 filter in the general kernel's masked form.  Its
-    # bytes: the five masks, the ids tested (16 B each) and one 32-B sector
-    # of the filter per probe (a probe stops at the first clear bit).
-    probes, n_tested = 0, 0
-    for a_lo, a_hi, mask in ((lo, hi, valid & ~found), (plo, phi, postvoid & ~p_found)):
-        bits = torch.stack([(bloom[srl(pos, 5)] >> (pos & 31).to(torch.int32)) & 1
-                            for pos in cold._bloom_positions(
-                                a_lo, a_hi, 1 << COLD_FILTER_LOG2[-1])])
-        first_clear = torch.where(bits == 0, torch.arange(4, device=dev)[:, None],
-                                  4).min(0).values
-        probes += int((torch.clamp(first_clear + 1, max=4) * mask).sum())
-        n_tested += int(mask.sum())
-    word = torch.zeros((), dtype=torch.int32, device=dev)
-    args = (bloom, lo, hi, valid, found, plo, phi, postvoid, p_found, None,
-            word, tf.FLAG_COLD)
-    results["bloom_check"] = dict(
-        max_abs_err=errs,
-        **pair_times(timed(lambda: cold.bloom_flag(*args)),
-                     timed(lambda: cold.bloom_flag_plain(*args))),
-        library_ms=None,
-        bound=bound(5 * LANES + 16 * n_tested + 32 * probes + 4,
-                    2 * 40 * n_tested),
-        shape=f"{LANES} lanes, the general kernel's masked form on a "
-              f"2^{COLD_FILTER_LOG2[-1]}-bit filter: {n_tested} ids tested, "
-              f"{probes} probes")
     del bloom
+    # K17 on the tiered general path: a step of K1's launch (its flag
+    # word), checked and timed at that path's shape; the row's time is the
+    # K1 launch that carries it (no post/void lane, as most of the tiered
+    # run's batches), its plain time the flag word's plain form.
+    tier = tier_flag_shape(dev)
+    three = tier["3"]
+    results["bloom_check"] = dict(
+        max_abs_err=max(errs, tier["max_abs_err"]), ms=three["k1_with_step_ms"],
+        plain_ms=three["plain_ms"], ms_from=three["k1_with_step_ms_from"],
+        library_ms=None, bound=three["bound"],
+        step_ms=three["step_ms"], step_bound_ms=three["step_bound_ms"],
+        ms_7_lookups=tier["7"]["k1_with_step_ms"],
+        ms_own_out_form=tier["out_form_ms"],
+        ms_own_masked_form=three["masked_form_ms"],
+        shape="the K1 launch carrying K17's step (3 lookups), " + tier["shape"])
+    checked.update(tier.pop("checked"))
+    results["k17_tier_shape"] = tier
 
     # -- K18, K19 and drop_evicted's K2 rebuild -------------------------------
     errs18 = errs19 = errs2 = 0
@@ -4947,6 +5237,7 @@ def phase_tiered(dev, n_transfers: int) -> dict:
         window = range(0)
     launches = dict.fromkeys(_cuda.KERNELS, 0)
     round_form_calls = 0  # K2's round form: its growths and rebuilds
+    bloom_in_probe = 0  # K1 launches that carried K17's step
     tier_s = twin_s = 0.0
     prof, prof_wall_ms = None, 0.0
     evictions, bloom_over_time, flagged = [], [], 0
@@ -4962,13 +5253,14 @@ def phase_tiered(dev, n_transfers: int) -> dict:
                     activities=[torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
             before = _cuda.counts()
-            rf0 = _cuda.ROUND_FORM_CALLS
+            rf0, bp0 = _cuda.ROUND_FORM_CALLS, _cuda.BLOOM_IN_PROBE
             s = time.perf_counter()
             got = m.create_transfers(batch)
             dt = time.perf_counter() - s
             for k, v in _cuda.counts().items():
                 launches[k] += v - before[k]
             round_form_calls += _cuda.ROUND_FORM_CALLS - rf0
+            bloom_in_probe += _cuda.BLOOM_IN_PROBE - bp0
             tier_s += dt
             if b in window:
                 prof_wall_ms += dt * 1e3
@@ -5009,6 +5301,12 @@ def phase_tiered(dev, n_transfers: int) -> dict:
     missing = [k for k in TIER_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"tiered: kernels not launched {missing}")
+    # K17 runs as a step of K1's launch on the general path: every count
+    # of it is such a launch, and its own kernel is never launched.
+    if bloom_in_probe != launches["bloom_check"]:
+        raise AssertionError(
+            f"tiered: {launches['bloom_check'] - bloom_in_probe} launches of "
+            f"K17's own kernel on the general path")
     peak = torch.cuda.max_memory_allocated()
 
     # -- the checks against the twin ---------------------------------------------
@@ -5083,6 +5381,8 @@ def phase_tiered(dev, n_transfers: int) -> dict:
         "peak_device_bytes": peak, "ledger_bytes": ledger_bytes,
         "profile": profile, "launches": launches,
         "k2_round_form_calls": round_form_calls,
+        "k17_launches_in_k1": bloom_in_probe,
+        "k17_own_launches": launches["bloom_check"] - bloom_in_probe,
     }
 
 
@@ -7333,7 +7633,8 @@ def main() -> int:
           "checked": coldk["checked"],
           "kernels": {k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                       for k, v in coldk["results"].items()},
-          "bounds_ms": {k: v["bound"] for k, v in coldk["results"].items()}})
+          "bounds_ms": {k: v["bound"] for k, v in coldk["results"].items()
+                        if "bound" in v}})
     kern.update({k: v for k, v in coldk["results"].items() if k in _cuda.KERNELS})
 
     t0 = time.perf_counter()
@@ -7498,13 +7799,26 @@ def main() -> int:
         })
         if name in ("shard_gather", "shard_combine"):
             rows[-1]["ms_shape"] = r["shape"]
+        if name == "bloom_check":
+            # K17's count is of K1 launches that carried its step; its own
+            # kernel (the out and masked forms) is timed apart.
+            rows[-1].update(
+                launches_form="the K1 launches that carried K17's step "
+                              "(csrc/probe.cu's flag word)",
+                launches_in_k1=trun["k17_launches_in_k1"],
+                launches_own=trun["k17_own_launches"],
+                ms_form="the K1 launch carrying the step, tiered shape",
+                step_ms=r["step_ms"], step_bound_ms=r["step_bound_ms"],
+                ms_7_lookups=r["ms_7_lookups"],
+                ms_own_out_form=r["ms_own_out_form"],
+                ms_own_masked_form=r["ms_own_masked_form"])
         for key in ("ms_accounts_2e21", "library_ms_accounts_2e21",
                     "ms_with_prepass", "ms_path_shape", "ms_graph_form",
                     "ms_graph_replay", "ms_mixed_2040", "ms_16384",
                     "ms_twophase_shape", "ms_adversarial",
                     "rounds_path_shape", "deepest_lane_path_shape",
                     "ms_no_rounds", "core_ms", "hist_append_ms",
-                    "round_form", "shapes"):
+                    "round_form", "shapes", "bound_with_order_check_ms"):
             if key in r:
                 rows[-1][key] = r[key]
     emit({"kernels": rows})

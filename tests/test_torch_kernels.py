@@ -7,6 +7,7 @@ this file imports no JAX, so it runs on a machine without it:
 (``--noconftest`` because tests/conftest.py sets JAX up.)  The CPU tests
 hold the plain versions against the JAX package; these close the chain."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -25,7 +26,8 @@ from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
 from tigerbeetle_tpu_torch.testing import (fullmix, fulltraps, k1cases, k2cases,
                                            k3cases, k7cases, k9cases, k13cases,
-                                           k14cases, k15cases, seqmix)
+                                           k14cases, k15cases, k16cases,
+                                           k17cases, seqmix)
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -177,6 +179,7 @@ def test_probe_info_reads_the_launch(cuda_device):
     info = _cuda.probe_info()
     assert info["threads"] == 128 and info["blocks_per_sm"] >= 4
     assert 0 < info["arg_bytes"] <= 4096 and info["registers"] > 0
+    assert info["flags_registers"] > 0 and info["flags_blocks_per_sm"] >= 4
 
 
 def _k7_run(c, dev, fn):
@@ -2480,3 +2483,164 @@ def test_run_merge_build_cases_match_plain(cuda_device, n, mode):
     if n <= 1 << 14:
         levels_equal(ix._sort_rounds_split_plain(cpu, use_t, n, fused=False),
                      want, f"split {mode} n={n}")
+
+
+# -- K17 as a step of K1, K17's own launch, K16's one pass ------------------
+
+
+def _lookups_equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.found.cpu(), w.found)
+        assert torch.equal(g.slot.cpu(), w.slot)
+        for name in w.cols:
+            assert torch.equal(g.cols[name].cpu(), w.cols[name]), name
+
+
+@pytest.mark.parametrize("name", k17cases.CASES)
+def test_k1_flag_word_cases_match_plain(cuda_device, name):
+    """K1's FLAGS launch on each K17 trap: the flag word, each lookup's
+    found, slot and columns, byte for byte against the plain form on CPU
+    copies; build_gather_ctx's probe_grow the same, with K17's step
+    counted once and no launch of K17's own kernel."""
+    c = k17cases.case(name)
+    card = k17cases.inputs(c, cuda_device)
+    cpu = k17cases.inputs(c, "cpu")
+    tables_equal(table_to(card[0].transfers, "cpu"), cpu[0].transfers)
+    looks = [tf.gather_lookups(a[0], a[1], a[2], a[3], True, a[6])
+             for a in (card, cpu)]
+    got, word = ht.lookup_flags(looks[0], tf.MAX_PROBE, card[4], card[5],
+                                tf.FLAG_COLD)
+    want, want_word = ht.lookup_flags_plain(looks[1], tf.MAX_PROBE, cpu[4],
+                                            cpu[5], tf.FLAG_COLD)
+    assert int(word) == int(want_word)
+    assert bool(int(word) & tf.FLAG_COLD) == c["cold"]
+    _lookups_equal(got, want)
+    _cuda.reset_counts()
+    ctx = tf.build_gather_ctx(*card[:6], has_postvoid=card[6])
+    counts = _cuda.counts()
+    assert int(ctx.probe_grow) == int(want_word)
+    assert counts["probe"] == 1 and counts["bloom_check"] == 1
+    assert _cuda.BLOOM_IN_PROBE == 1
+
+
+def test_k1_flag_word_grow_bits_and_last_lane(cuda_device):
+    """The word's grow bits against the plain form on K1's cut-short
+    probes, and a cold hit on the last lane of the last block alone, at
+    lane counts that leave a warp partly past the lanes."""
+    for name in ("max_probe_1", "max_probe_2", "wrap"):
+        t, lks, max_probe = k1cases.case(name)
+        tables = [_k1_table(t, d) for d in (cuda_device, "cpu")]
+        words = []
+        for table, d in zip(tables, (cuda_device, "cpu")):
+            specs = [ht.Lookup(table, convert.array_to_tensor(lk["key_lo"], d),
+                               convert.array_to_tensor(lk["key_hi"], d), ("val",),
+                               None if lk["mask"] is None
+                               else torch.from_numpy(lk["mask"]).to(d),
+                               lk["count"], lk["hash_shift"], grow_bit=1 << k)
+                     for k, lk in enumerate(lks)]
+            fn = ht.lookup_flags if d != "cpu" else ht.lookup_flags_plain
+            words.append(int(fn(specs, max_probe)[1]))
+        assert words[0] == words[1] and (words[0] or name == "wrap")
+    for n in (1, 31, 33, 129, 8191):
+        c = k17cases.case("checked_none")
+        a = k17cases.inputs(c, cuda_device)
+        lo = torch.full((n,), k17cases.NEW, dtype=torch.int64, device=cuda_device)
+        lo += torch.arange(n, device=cuda_device)
+        lo[n - 1] = k17cases.EVICTED + 1
+        look = ht.Lookup(a[0].transfers, lo, torch.zeros_like(lo), ("amount_lo",),
+                         cold=True)
+        assert int(ht.lookup_flags([look], tf.MAX_PROBE, a[4], None, 16)[1]) == 16
+        lo[n - 1] = k17cases.NEW + n
+        assert int(ht.lookup_flags([look._replace(key_lo=lo)], tf.MAX_PROBE,
+                                   a[4], None, 16)[1]) == 0
+
+
+@pytest.mark.parametrize("name", k17cases.CASES)
+def test_bloom_kernel_forms_on_k17_cases_match_plain(cuda_device, name):
+    """K17's own launch, both forms, on the traps' ids and masks."""
+    from tigerbeetle_tpu_torch.ops import cold
+
+    c = k17cases.case(name)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        ledger, soa, valid, postvoid, bloom, checked, _hp = k17cases.inputs(c, dev)
+        looks = tf.gather_lookups(ledger, soa, valid, postvoid, True, True)
+        got = ht.lookup_many(looks, tf.MAX_PROBE)
+        f, pf = got[0].found, got[3].found
+        hits = cold.bloom_check_impl(bloom, soa["pending_id_lo"], soa["pending_id_hi"])
+        flag = cold.bloom_flag(bloom, soa["id_lo"], soa["id_hi"], valid, f,
+                               soa["pending_id_lo"], soa["pending_id_hi"],
+                               postvoid, pf, checked,
+                               torch.zeros((), dtype=torch.int32, device=valid.device),
+                               tf.FLAG_COLD)
+        outs.append((hits.cpu(), int(flag)))
+    assert torch.equal(outs[0][0], outs[1][0]) and outs[0][1] == outs[1][1]
+
+
+def _history_ledger(log, dev):
+    return sm.Ledger(accounts=None, transfers=None, posted=None,
+                     history=sm.History(
+                         cols={k: convert.array_to_tensor(v, dev)
+                               for k, v in log["cols"].items()},
+                         count=torch.tensor(int(log["count"]), device=dev)))
+
+
+@pytest.mark.parametrize("name", k16cases.CASES)
+def test_history_scan_cases_match_plain(cuda_device, name):
+    """K16 on each trap, every output array (the invalid positions
+    included) against the plain version and the split form at the
+    launch's block count, one launch a query and no memset."""
+    cap = 1000 if name == "odd_cap" else k16cases.CAP
+    blocks = _cuda.history_scan_launch(cap, torch.cuda.current_device())[0]
+    log, queries = k16cases.case(name, blocks)
+    card, cpu = _history_ledger(log, cuda_device), _history_ledger(log, "cpu")
+    for qy in queries:
+        _cuda.reset_counts()
+        g = q.scan_history(card, *qy)
+        assert _cuda.counts()["history_scan"] == 1
+        w = q.scan_history_plain(cpu, *qy)
+        split = q.scan_history_split_plain(cpu, *qy, blocks=blocks)
+        assert not split[2]
+        for want in (w, split):
+            assert torch.equal(g[0].cpu(), want[0]), qy
+            for col in want[1]:
+                assert torch.equal(g[1][col].cpu(), want[1][col]), (qy, col)
+
+
+def test_history_scan_unordered_log_raises_on_both_routes(cuda_device):
+    """A log whose timestamps below the count do not increase: K16's error
+    word makes scan_history raise at once, and get_account_history raise
+    from the rows' one read-back (it never calls scan_history); the
+    deferred form hands the word back set."""
+    from tigerbeetle_tpu_torch.config import LedgerConfig
+    from tigerbeetle_tpu_torch.machine import TorchStateMachine
+
+    log, queries = k16cases.case(k16cases.UNORDERED)
+    led = _history_ledger(log, cuda_device)
+    with pytest.raises(RuntimeError, match="do not increase"):
+        q.scan_history(led, *queries[0])
+    assert int(q.scan_history_deferred(led, *queries[0])[2].item()) == 1
+    m = TorchStateMachine(LedgerConfig(accounts_capacity_log2=8,
+                                       transfers_capacity_log2=8,
+                                       posted_capacity_log2=8),
+                          batch_lanes=64, device=cuda_device)
+    acc = np.zeros(40, dtype=types.ACCOUNT_DTYPE)
+    acc["id_lo"] = np.arange(1, 41)
+    acc["ledger"], acc["code"] = 1, 10
+    acc["flags"] = int(types.AccountFlags.HISTORY)
+    assert m.create_accounts(acc) == []
+    m.ledger = dataclasses.replace(m.ledger, history=led.history)
+    f = np.zeros(1, dtype=types.ACCOUNT_FILTER_DTYPE)[0]
+    f["account_id_lo"], f["limit"], f["flags"] = k16cases.ACCT, 64, 3
+    checked_at_once = q.scan_history
+    q.scan_history = None  # the machine reads the word with its rows
+    try:
+        with pytest.raises(RuntimeError, match="do not increase"):
+            m.get_account_history(f)
+        ordered, _ = k16cases.case("sides")
+        m.ledger = dataclasses.replace(
+            m.ledger, history=_history_ledger(ordered, cuda_device).history)
+        rows = m.get_account_history(f)
+    finally:
+        q.scan_history = checked_at_once
+    assert len(rows) > 0

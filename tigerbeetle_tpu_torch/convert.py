@@ -22,7 +22,7 @@ packages from the same pyramid.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,8 +60,14 @@ def tensors_to_arrays(cols: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     int64 on the device and the stack comes back at once."""
     names = list(cols)
     host = torch.stack([cols[k].to(torch.int64) for k in names]).cpu().numpy()
+    return _host_rows(host, cols)
+
+
+def _host_rows(host: np.ndarray, cols: Dict[str, torch.Tensor]
+               ) -> Dict[str, np.ndarray]:
+    """The int64 rows read back for ``cols``, in their numpy dtypes."""
     out = {}
-    for row, name in zip(host, names):
+    for row, name in zip(host, cols):
         dt = cols[name].dtype
         if dt == torch.bool:
             out[name] = row != 0
@@ -70,6 +76,19 @@ def tensors_to_arrays(cols: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         else:
             out[name] = row.view(np.uint64)
     return out
+
+
+def tensors_and_word_to_arrays(cols: Dict[str, torch.Tensor],
+                               word: Optional[torch.Tensor]
+                               ) -> Tuple[Dict[str, np.ndarray], int]:
+    """``tensors_to_arrays(cols)`` and the int of a one-element int tensor
+    ``word`` (None: 0), in the same one device-to-host copy."""
+    if word is None:
+        return tensors_to_arrays(cols), 0
+    stack = torch.stack([c.to(torch.int64) for c in cols.values()])
+    host = torch.cat([stack.reshape(-1), word.reshape(1).to(torch.int64)]
+                     ).cpu().numpy()
+    return _host_rows(host[:-1].reshape(len(cols), -1), cols), int(host[-1])
 
 
 def table_arrays(t: Any) -> Dict[str, Any]:

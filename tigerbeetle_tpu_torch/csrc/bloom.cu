@@ -1,5 +1,5 @@
 // K17 bloom_check: the cold tier's Bloom filter probe, and the general
-// kernel's FLAG_COLD bit.
+// kernel's FLAG_COLD bit outside K1.
 //
 // Replaces tigerbeetle_tpu/ops/cold.py:72 `bloom_check_impl` (with :60
 // `_bloom_positions` and u128.py:118 `mix64`) and the cold branch of
@@ -10,6 +10,10 @@
 //   cold_pend = postvoid & ~p_found  & ~checked & bloom_check(pending_id)
 //   probe_grow |= any(cold_ids | cold_pend) ? FLAG_COLD : 0
 //
+// On the general path's card route that branch is a step of K1's launch
+// (csrc/probe.cu, the flag word); this launch serves `bloom_check_impl`
+// (`out`) and `cold.bloom_flag` called on its own (`flag_word`).
+//
 // An id's BLOOM_HASHES = 4 bit positions are double-hashed from two mix64
 // values, h1 = mix64(lo, hi) and h2 = mix64(hi ^ golden, lo) | 1, as
 // (h1 + i * h2) & (bits - 1); the id hits when all four bits are set.  The
@@ -19,32 +23,19 @@
 // One thread per lane.  Every mask pointer may be null: a null `valid`
 // tests every lane, a null `found` / `p_found` / `checked` is all false and
 // a null `postvoid` tests no pending id.  With `out` the lane's hit is
-// written (bloom_check_impl); with `flag_word` each block that saw a hit ORs
-// `flag_bit` into it with one atomicOr, on the card, so the general kernel's
-// single read-back of its flag word carries FLAG_COLD.
+// written (bloom_check_impl); with `flag_word` each warp that saw a hit ORs
+// `flag_bit` into it with one atomicOr, on the card.
 //
 // What bounds it on the H100: latency.  Per tested id it reads 16 B of keys
 // and four random 4-B words of the filter (a 32-B sector each); at 8,192
-// lanes that is well under a megabyte, so a launch is a few microseconds of
-// fixed cost.
+// lanes that is well under a megabyte.  So every load a lane needs is in
+// flight at once: the keys and masks together, then the id's four words and
+// the pending id's four, with no load waiting on an earlier word's bit;
+// and the blocks are 64 threads, so that 8,192 lanes spread over 128 SMs.
 #include "common.cuh"
 
 #define BLOOM_HASHES 4
-
-static __device__ __forceinline__ bool bloom_test(const uint32_t* __restrict__ bloom,
-                                                  uint64_t bit_mask, uint64_t lo,
-                                                  uint64_t hi) {
-  const uint64_t h1 = mix64(lo, hi);
-  const uint64_t h2 = mix64(hi ^ 0x9E3779B97F4A7C15ull, lo) | 1ull;
-  bool hit = true;
-#pragma unroll
-  for (int i = 0; i < BLOOM_HASHES; ++i) {
-    const uint64_t pos = (h1 + (uint64_t)i * h2) & bit_mask;
-    const uint32_t word = __ldg(bloom + (pos >> 5));
-    hit = hit && ((word >> (uint32_t)(pos & 31)) & 1u);
-  }
-  return hit;
-}
+#define BLOOM_THREADS 64
 
 struct BloomArgs {
   const uint32_t* bloom;
@@ -64,21 +55,54 @@ struct BloomArgs {
   int flag_bit;
 };
 
-__global__ void bloom_kernel(BloomArgs a) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  bool hit = false;
-  if (i < a.n && !(a.checked && a.checked[i])) {
-    if ((a.valid == nullptr || a.valid[i]) && !(a.found && a.found[i])) {
-      hit = bloom_test(a.bloom, a.bit_mask, a.id_lo[i], a.id_hi[i]);
-    }
-    if (!hit && a.postvoid && a.postvoid[i] && !(a.p_found && a.p_found[i])) {
-      hit = bloom_test(a.bloom, a.bit_mask, a.p_lo[i], a.p_hi[i]);
-    }
+// The four words of an id's positions, loaded at once (a lane that does
+// not test it loads nothing), and the lane's hit once they are back.
+struct Probe4 {
+  uint32_t w[BLOOM_HASHES];
+  uint32_t bit[BLOOM_HASHES];
+};
+
+static __device__ __forceinline__ void bloom_load(const BloomArgs& a, bool test,
+                                                  uint64_t lo, uint64_t hi,
+                                                  Probe4* p) {
+  const uint64_t h1 = mix64(lo, hi);
+  const uint64_t h2 = mix64(hi ^ 0x9E3779B97F4A7C15ull, lo) | 1ull;
+#pragma unroll
+  for (int j = 0; j < BLOOM_HASHES; ++j) {
+    const uint64_t pos = (h1 + (uint64_t)j * h2) & a.bit_mask;
+    p->w[j] = test ? __ldg(a.bloom + (pos >> 5)) : 0u;
+    p->bit[j] = (uint32_t)(pos & 31);
   }
-  if (a.out && i < a.n) a.out[i] = hit ? 1 : 0;
-  if (a.flag_word && __syncthreads_or(hit) && threadIdx.x == 0) {
+}
+
+static __device__ __forceinline__ bool bloom_all(const Probe4& p) {
+  uint32_t all = 1u;
+#pragma unroll
+  for (int j = 0; j < BLOOM_HASHES; ++j) all &= p.w[j] >> p.bit[j];
+  return all & 1u;
+}
+
+__global__ void __launch_bounds__(BLOOM_THREADS) bloom_kernel(BloomArgs a) {
+  const int64_t i = blockIdx.x * (int64_t)BLOOM_THREADS + threadIdx.x;
+  const bool live = i < a.n;
+  const int64_t j = live ? i : 0;
+  const bool unchecked = live && !(a.checked && a.checked[j]);
+  const bool t_id = unchecked && (a.valid == nullptr || a.valid[j]) &&
+                    !(a.found && a.found[j]);
+  const bool t_p = unchecked && a.postvoid && a.postvoid[j] &&
+                   !(a.p_found && a.p_found[j]);
+  // The keys load beside the masks, not after them.
+  const uint64_t lo = live ? a.id_lo[j] : 0, hi = live ? a.id_hi[j] : 0;
+  const bool pv = live && a.postvoid;
+  const uint64_t plo = pv ? a.p_lo[j] : 0, phi = pv ? a.p_hi[j] : 0;
+  Probe4 pid, ppend;
+  bloom_load(a, t_id, lo, hi, &pid);
+  bloom_load(a, t_p, plo, phi, &ppend);
+  const bool hit = (t_id && bloom_all(pid)) || (t_p && bloom_all(ppend));
+  if (a.out && live) a.out[i] = hit ? 1 : 0;
+  // No thread has left: the whole warp takes part in the vote.
+  if (a.flag_word && __any_sync(0xffffffffu, hit) && (threadIdx.x & 31) == 0)
     atomicOr(a.flag_word, a.flag_bit);
-  }
 }
 
 extern "C" int tb_bloom_check(const void* bloom, int64_t bits,
@@ -108,8 +132,7 @@ extern "C" int tb_bloom_check(const void* bloom, int64_t bits,
   a.out = (uint8_t*)out;
   a.flag_word = (int*)flag_word;
   a.flag_bit = flag_bit;
-  const int threads = 256;
-  bloom_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                 (cudaStream_t)stream>>>(a);
+  bloom_kernel<<<(unsigned)((n + BLOOM_THREADS - 1) / BLOOM_THREADS),
+                 BLOOM_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -33,6 +33,25 @@
 //    192 blocks over the 132 SMs.
 // The overflow bytes are zeroed by one memset in the entry point, and only
 // when the caller asks for them (the main path does not).
+//
+// The flag word (the general path's K17 step).  A launch may carry
+// an int32 word beside its overflow bytes, zeroed by the same memset: a
+// lookup ORs its `grow_bit` into it when a lane runs out of probes, and a
+// lookup marked `cold` tests, on every lane under its mask, below its
+// count, not found and not certified by `checked`, its own key against
+// the cold tier's Bloom filter (replacing K17's separate launch over the
+// same lanes, tigerbeetle_tpu/ops/transfer_full.py:638-659): BLOOM_HASHES
+// = 4 bit positions double-hashed from mix64 (ops/cold.py:60
+// `_bloom_positions`), all four set is a hit, and a hit ORs `cold_bit`.
+// The four loads are issued together as soon as the probe says the lane is
+// tested, and read only after the chain's last lookup, so the round trip
+// overlaps the lookup's stores and the chain's later lookups (the
+// pending's accounts and posted row).  (Issued before the probe, for every
+// lane, they made the launch slower at the tiered shape: PERF.md §6.)
+// Each warp ORs its lanes' bits together and makes one atomicOr.  The general kernel's
+// FLAG_GROW_* and FLAG_COLD bits are then this word, on the card, with no
+// launch of its own.  It is a compile-time variant (`FLAGS`): the main
+// path's instance has no word and compiles as it did.
 #include "common.cuh"
 #include "phase_clock.cuh"
 
@@ -40,6 +59,7 @@
 #define PROBE_MAX_COLS 96
 #define PROBE_THREADS 128
 #define PROBE_BATCH_COLS 16  // a found lane's loads in flight at once
+#define BLOOM_HASHES 4
 
 #ifdef TB_PHASE_CLOCK
 #define PROBE_BARRIER() __syncthreads()
@@ -66,6 +86,8 @@ struct ProbeDesc {
   uint8_t* overflow;  // null: not asked for
   int col0, ncols;    // the lookup's columns in the pool
   int next;           // the next lookup of this chain, or -1
+  int grow_bit;       // ORed into the flag word when a lane overflows
+  int cold;           // the lanes test their key against the filter
 };
 
 struct ProbeArgs {
@@ -76,7 +98,46 @@ struct ProbeArgs {
   const void* src[PROBE_MAX_COLS];
   void* dst[PROBE_MAX_COLS];
   int width[PROBE_MAX_COLS];  // bytes: 1, 4 or 8
+  // The flag word's launches only (FLAGS):
+  const uint32_t* bloom;   // the filter's u32 words, or null
+  uint64_t bloom_mask;     // its bit count - 1
+  const uint8_t* checked;  // lanes certified not cold, or null
+  int* flag_word;
+  int cold_bit;
 };
+
+// A lane's filter test in flight: the four words loaded and the bit of
+// each (five bits apiece in `bits`).  `armed` once issued; read by
+// bloom_hit after the chain.
+struct BloomTest {
+  uint32_t w[BLOOM_HASHES];
+  uint32_t bits;
+  bool armed;
+};
+
+static __device__ __forceinline__ void bloom_issue(const ProbeArgs& A,
+                                                   uint64_t lo, uint64_t hi,
+                                                   BloomTest* bt) {
+  const uint64_t h1 = mix64(lo, hi);
+  const uint64_t h2 = mix64(hi ^ 0x9E3779B97F4A7C15ull, lo) | 1ull;
+  bt->bits = 0;
+#pragma unroll
+  for (int j = 0; j < BLOOM_HASHES; ++j) {
+    const uint64_t pos = (h1 + (uint64_t)j * h2) & A.bloom_mask;
+    bt->w[j] = __ldg(A.bloom + (pos >> 5));
+    bt->bits |= (uint32_t)(pos & 31) << (5 * j);
+  }
+  bt->armed = true;
+}
+
+static __device__ __forceinline__ bool bloom_hit(const BloomTest& bt) {
+  if (!bt.armed) return false;
+  uint32_t all = 1u;
+#pragma unroll
+  for (int j = 0; j < BLOOM_HASHES; ++j)
+    all &= bt.w[j] >> ((bt.bits >> (5 * j)) & 31);
+  return all & 1u;
+}
 
 static __device__ __forceinline__ uint64_t load_elem(const void* src,
                                                      int64_t i, int width) {
@@ -154,11 +215,15 @@ static __device__ void probe_lane(const ProbeDesc& D, int64_t max_probe,
 }
 
 // `act` is false only for the pad lanes of the clocked build, whose barriers
-// need every thread: such a lane probes key 0 and stores nothing.
-static __device__ void lookup_lane(const ProbeArgs& A, const ProbeDesc& D,
-                                   int64_t i, bool act) {
+// need every thread: such a lane probes key 0 and stores nothing.  In the
+// FLAGS variant it returns the lane's bits for the flag word and issues the
+// filter test of a `cold` lookup into `bt` (the caller reads it).
+template <bool FLAGS>
+static __device__ int lookup_lane(const ProbeArgs& A, const ProbeDesc& D,
+                                  int64_t i, bool act, BloomTest* bt) {
   const uint64_t lo = act ? D.key_lo[i] : 0;
   const uint64_t hi = act && D.key_hi ? D.key_hi[i] : 0;
+  int bits = 0;
   bool done, found;
   uint64_t slot;
   probe_lane(D, A.max_probe, lo, hi, &done, &found, &slot);
@@ -167,7 +232,15 @@ static __device__ void lookup_lane(const ProbeArgs& A, const ProbeDesc& D,
   if (!act) i = 0;
   if (!done && D.overflow) *D.overflow = 1;
   const int64_t vc = D.count_word ? (int64_t)*D.count_word : D.valid_count;
-  const bool f = found && i < vc && (!D.lane_mask || D.lane_mask[i]);
+  const bool in_mask = i < vc && (!D.lane_mask || D.lane_mask[i]);
+  const bool f = found && in_mask;
+  if constexpr (FLAGS) {
+    if (!done) bits |= D.grow_bit;
+    if (D.cold && act && in_mask && !found && !(A.checked && A.checked[i])) {
+      if (bloom_hit(*bt)) bits |= A.cold_bit;
+      bloom_issue(A, lo, hi, bt);
+    }
+  }
   if (act) {
     D.found[i] = f ? 1 : 0;
     D.slot[i] = (int64_t)slot;
@@ -189,17 +262,33 @@ static __device__ void lookup_lane(const ProbeArgs& A, const ProbeDesc& D,
   }
   PROBE_BARRIER();
   PHASE_MARK(3);
+  return bits;
 }
 
+template <bool FLAGS>
 __global__ void __launch_bounds__(PROBE_THREADS)
     probe_kernel(const __grid_constant__ ProbeArgs A) {
   PHASE_MARK(0);
   const int64_t i = blockIdx.x * (int64_t)PROBE_THREADS + threadIdx.x;
-#ifndef TB_PHASE_CLOCK
+#ifdef TB_PHASE_CLOCK
+  const unsigned live = 0xffffffffu;
+#else
+  // The warp's lanes below n: the flag word's reduction names only them,
+  // since the others leave here.
+  unsigned live = 0u;
+  if constexpr (FLAGS) live = __ballot_sync(0xffffffffu, i < A.n);
   if (i >= A.n) return;
 #endif
+  BloomTest bt;
+  bt.armed = false;
+  int bits = 0;
   for (int k = A.head[blockIdx.y]; k >= 0; k = A.d[k].next)
-    lookup_lane(A, A.d[k], i, i < A.n);
+    bits |= lookup_lane<FLAGS>(A, A.d[k], i, i < A.n, &bt);
+  if constexpr (FLAGS) {
+    if (bloom_hit(bt)) bits |= A.cold_bit;
+    bits = (int)__reduce_or_sync(live, (unsigned)bits);
+    if (bits && (threadIdx.x & 31) == __ffs(live) - 1) atomicOr(A.flag_word, bits);
+  }
 }
 
 // One launch of `nd` lookups (ProbeDesc order of the wrapper's arrays) over
@@ -210,6 +299,12 @@ __global__ void __launch_bounds__(PROBE_THREADS)
 // its outputs (found, slot) and `ncols[k]` columns (src, dst, width) from
 // the pooled arrays.  `overflow`, when not null, is u8[nd]: zeroed here
 // (one memset), byte k set when a lane of lookup k ran out of probes.
+// `flag_word`, when not null, is the int32 at byte 8 of `overflow` (which
+// is then at least 12 bytes, all zeroed by the one memset) and takes the
+// FLAGS variant: lookup k ORs `grow_bit[k]` into it on an overflow, and
+// with `cold[k]` tests its lanes' keys against `bloom` (`bloom_bits` bits,
+// a power of two, u32 words) and ORs `cold_bit` on a hit; `checked` (u8[n]
+// or null) certifies lanes.
 extern "C" int tb_probe(int nd, int nchains, const int* heads, const int* next,
                         const void* const* tkey_lo, const void* const* tkey_hi,
                         const void* const* tomb, const int64_t* cap,
@@ -220,13 +315,26 @@ extern "C" int tb_probe(int nd, int nchains, const int* heads, const int* next,
                         const void* const* lane_mask, void* const* found,
                         void* const* slot, void* overflow, const int* ncols,
                         const void* const* src, void* const* dst,
-                        const int* width, void* stream) {
+                        const int* width, void* flag_word, const int* grow_bit,
+                        const int* cold, const void* bloom, int64_t bloom_bits,
+                        const void* checked, int cold_bit, void* stream) {
   if (nd <= 0 || nd > PROBE_MAX_DESC || nchains <= 0 || nchains > nd ||
       n < 0 || max_probe < 0)
+    return (int)cudaErrorInvalidValue;
+  const bool flags = flag_word != nullptr;
+  if (flags && (overflow == nullptr || (char*)flag_word != (char*)overflow + 8))
+    return (int)cudaErrorInvalidValue;
+  if (flags && bloom &&
+      (bloom_bits < 32 || (bloom_bits & (bloom_bits - 1))))
     return (int)cudaErrorInvalidValue;
   ProbeArgs A;
   A.n = n;
   A.max_probe = max_probe;
+  A.bloom = (const uint32_t*)bloom;
+  A.bloom_mask = (uint64_t)bloom_bits - 1;
+  A.checked = (const uint8_t*)checked;
+  A.flag_word = (int*)flag_word;
+  A.cold_bit = cold_bit;
   int total = 0;
   for (int k = 0; k < nd; ++k) {
     ProbeDesc& D = A.d[k];
@@ -253,6 +361,9 @@ extern "C" int tb_probe(int nd, int nchains, const int* heads, const int* next,
     D.col0 = total;
     D.ncols = ncols[k];
     D.next = next[k];
+    D.grow_bit = flags ? grow_bit[k] : 0;
+    D.cold = flags && cold[k];
+    if (D.cold && bloom == nullptr) return (int)cudaErrorInvalidValue;
     for (int c = total; c < total + ncols[k]; ++c) {
       if (width[c] != 1 && width[c] != 4 && width[c] != 8)
         return (int)cudaErrorInvalidValue;
@@ -268,31 +379,43 @@ extern "C" int tb_probe(int nd, int nchains, const int* heads, const int* next,
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (overflow) {
-    cudaError_t e = cudaMemsetAsync(overflow, 0, (size_t)nd, s);
+    cudaError_t e = cudaMemsetAsync(overflow, 0, flags ? 12 : (size_t)nd, s);
     if (e != cudaSuccess) return (int)e;
   }
   if (n == 0) return 0;
   const dim3 grid((unsigned)((n + PROBE_THREADS - 1) / PROBE_THREADS),
                   (unsigned)nchains);
-  probe_kernel<<<grid, PROBE_THREADS, 0, s>>>(A);
+  if (flags)
+    probe_kernel<true><<<grid, PROBE_THREADS, 0, s>>>(A);
+  else
+    probe_kernel<false><<<grid, PROBE_THREADS, 0, s>>>(A);
   return (int)cudaGetLastError();
 }
 
 // What the compiler made of K1: registers and local memory a thread,
-// threads a block, blocks resident on one SM, the argument block's bytes.
+// threads a block, blocks resident on one SM, the argument block's bytes;
+// then the registers, local memory and resident blocks of the FLAGS
+// variant.
 extern "C" int tb_probe_info(int* out) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, (const void*)probe_kernel);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, (const void*)probe_kernel, PROBE_THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = PROBE_THREADS;
-  out[3] = per_sm;
-  out[4] = (int)sizeof(ProbeArgs);
+  const void* fns[2] = {(const void*)probe_kernel<false>,
+                        (const void*)probe_kernel<true>};
+  for (int v = 0; v < 2; ++v) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, fns[v]);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[v],
+                                                        PROBE_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    int* o = v == 0 ? out : out + 5;
+    o[0] = fa.numRegs;
+    o[1] = (int)fa.localSizeBytes;
+    o[2] = v == 0 ? PROBE_THREADS : per_sm;
+    if (v == 0) {
+      o[3] = per_sm;
+      o[4] = (int)sizeof(ProbeArgs);
+    }
+  }
   return 0;
 }
 

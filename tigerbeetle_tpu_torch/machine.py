@@ -2271,12 +2271,15 @@ class TorchStateMachine:
         flags = int(filt["flags"])
         qled = self._query_ledger()
         k = min(qled.history.capacity, QUERY_ROWS_MAX)
-        valid, rows = query.scan_history(
+        # K16's order check rides the rows' one read-back.
+        valid, rows, err = query.scan_history_deferred(
             qled, acct_lo, acct_hi, ts_min, ts_max,
             bool(flags & types.AccountFilterFlags.DEBITS),
             bool(flags & types.AccountFilterFlags.CREDITS),
             descending, k)
-        host = convert.tensors_to_arrays({"_valid": valid, **rows})
+        host, err = convert.tensors_and_word_to_arrays(
+            {"_valid": valid, **rows}, err)
+        query.check_order(err)
         valid = host.pop("_valid")
         host["reserved"] = np.zeros(len(valid), dtype="V56")
         out = types.from_soa(host, types.ACCOUNT_BALANCE_DTYPE)

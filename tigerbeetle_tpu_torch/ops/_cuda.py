@@ -34,7 +34,7 @@ add one to their kernel's ``launches`` each time they launch it.
 | run_merge     | csrc/index_merge.cu | ops/index.py:77 _merge (carries; full-build rounds) |
 | index_window  | csrc/index_query.cu | ops/index.py:132 _query_side (+ :111 _search3), :165 query_transfers |
 | history_scan  | csrc/history_scan.cu | ops/query.py:38 scan_history (+ :29 _top_k) |
-| bloom_check   | csrc/bloom.cu      | ops/cold.py:72 bloom_check_impl (+ transfer_full.py:638 FLAG_COLD) |
+| bloom_check   | csrc/bloom.cu; the general path's FLAG_COLD a step of probe's launch (csrc/probe.cu's flag word), counted here too | ops/cold.py:72 bloom_check_impl (+ transfer_full.py:638 FLAG_COLD) |
 | evict_threshold | csrc/evict.cu    | ops/cold.py:391 eviction_threshold         |
 | evict_extract | csrc/evict.cu      | ops/cold.py:402 extract_evicted (+ :426 drop_evicted's keep mask) |
 | bench_gen     | csrc/bench_gen.cu  | utils/benchgen.py:22 gen_plain, :54 gen_twop (bench.py:2140 gen_batch, :2169 gen_two_phase) |
@@ -186,10 +186,11 @@ KERNELS: Dict[str, Kernel] = {
 
 
 def reset_counts() -> None:
-    global ROUND_FORM_CALLS
+    global ROUND_FORM_CALLS, BLOOM_IN_PROBE
     for k in KERNELS.values():
         k.launches = 0
     ROUND_FORM_CALLS = 0
+    BLOOM_IN_PROBE = 0
 
 
 def counts() -> Dict[str, int]:
@@ -271,7 +272,8 @@ _M64 = (1 << 64) - 1
 # Each C entry point's argument types (all return an int error code).
 _SIGNATURES = {
     "tb_probe": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
-                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I64, _P, _INT, _P],
     "tb_probe_info": [_P],
     "tb_insert": [_P, _P, _P, _I64, _INT, _I64, _P, _P, _P, _I64,
                   _P, _P, _P, _P, _P, _P, _P, _INT, _P, _P, _P, _INT, _P],
@@ -318,7 +320,9 @@ _SIGNATURES = {
                        _U64, _I64, _INT, _P, _P, _P, _P],
     "tb_index_window_info": [_P],
     "tb_history_scan": [_P, _P, _I64, _I64, _U64, _U64, _U64, _U64, _INT,
-                        _INT, _INT, _P, _P, _P, _P, _P],
+                        _INT, _INT, _P, _I64, _P, _P, _P, _P],
+    "tb_history_scan_scratch": [_I64, ctypes.POINTER(ctypes.c_int64),
+                                ctypes.POINTER(ctypes.c_int64)],
     "tb_bloom_check": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I64, _P, _P, _INT, _P],
     "tb_evict_threshold": [_P, _P, _P, _P, _I64, _P, _U64, _U64, _P, _P,
@@ -452,6 +456,8 @@ class ProbeSpec:
     out: Optional[Tuple[torch.Tensor, torch.Tensor,
                         Sequence[torch.Tensor]]] = None
     keys_from: Optional[Tuple[int, str, Optional[str]]] = None
+    grow_bit: int = 0  # probe_flags: ORed into the word on an overflow
+    cold: bool = False  # probe_flags: the lanes test their key (K17's step)
 
 
 def probe_many(specs: Sequence[ProbeSpec], max_probe: int,
@@ -461,6 +467,41 @@ def probe_many(specs: Sequence[ProbeSpec], max_probe: int,
     order.  ``overflow`` False asks for no overflow flags (each is None
     then, and no memset is made); else each is a 0-dim bool view of one
     byte the entry point zeroes and the kernel sets."""
+    return _probe_launch(specs, max_probe, overflow, None)[0]
+
+
+# K1 launches that carried K17's step (``probe_flags`` with a cold lookup):
+# each is counted in KERNELS["bloom_check"] too.
+BLOOM_IN_PROBE = 0
+
+
+def probe_flags(specs: Sequence[ProbeSpec], max_probe: int,
+                bloom: Optional[torch.Tensor] = None,
+                checked: Optional[torch.Tensor] = None, cold_bit: int = 0):
+    """Kernel K1 with the flag word (its FLAGS variant): ``probe_many``'s
+    list (with overflow flags), and an int32 0-dim view of the word the
+    launch's memset zeroes, into which each lookup ORs its ``grow_bit`` on
+    an overflow and, for a lookup marked ``cold``, ``cold_bit`` when a lane
+    under its mask, below its count, not found and not certified by
+    ``checked`` has a key that hits the filter ``bloom`` (K17's test, a
+    step of this launch).  A launch with a cold lookup counts as one of
+    K17's too."""
+    global BLOOM_IN_PROBE
+    cold = any(sp.cold for sp in specs)
+    if cold:
+        if bloom is None:
+            raise ValueError("a cold lookup needs the filter")
+        _check(bloom, torch.int32, bloom.numel(), "bloom")
+    got, word = _probe_launch(specs, max_probe, True,
+                              (bloom, checked, cold_bit))
+    if cold:
+        KERNELS["bloom_check"].launches += 1
+        BLOOM_IN_PROBE += 1
+    return got, word
+
+
+def _probe_launch(specs, max_probe: int, overflow: bool, flags):
+    """One K1 launch; ``flags`` (bloom, checked, cold_bit) or None."""
     lib = library()
     nd = len(specs)
     if not 0 < nd <= PROBE_MAX_LOOKUPS:
@@ -537,7 +578,18 @@ def probe_many(specs: Sequence[ProbeSpec], max_probe: int,
                          f"launch, got {ncols}")
     src_all = [s for o in outs for s in o[2]]
     dst_all = [d for o in outs for d in o[3].values()]
-    ovf = torch.empty(nd, dtype=torch.bool, device=dev) if overflow else None
+    # With the flag word: 12 bytes, the overflow bytes then the word at 8,
+    # zeroed by the entry point's one memset.
+    buf = (torch.empty(16 if flags else nd, dtype=torch.uint8, device=dev)
+           if overflow else None)
+    ovf = None if buf is None else buf[:nd].view(torch.bool)
+    word = buf[8:12].view(torch.int32)[0] if flags else None
+    bloom = checked = None
+    cold_bit = 0
+    if flags:
+        bloom, checked, cold_bit = flags
+        if checked is not None:
+            _check(checked, torch.bool, n, "checked")
     ints = lambda v: (ctypes.c_int * len(v))(*v)  # noqa: E731
     i64s = lambda v: (ctypes.c_int64 * len(v))(*v)  # noqa: E731
     ptrs = lambda v: (ctypes.c_void_p * len(v))(  # noqa: E731
@@ -555,12 +607,18 @@ def probe_many(specs: Sequence[ProbeSpec], max_probe: int,
         None if ovf is None else ovf.data_ptr(),
         ints([len(sp.names) for sp in specs]), _ptr_array(src_all),
         _ptr_array(dst_all), ints([_width(s) for s in src_all] or [0]),
+        None if word is None else word.data_ptr(),
+        ints([sp.grow_bit for sp in specs]),
+        ints([int(bool(sp.cold)) for sp in specs]),
+        None if bloom is None else bloom.data_ptr(),
+        0 if bloom is None else bloom.numel() * 32,
+        None if checked is None else checked.data_ptr(), cold_bit,
         _stream(first),
     )
     _raise_on(err, "probe")
     KERNELS["probe"].launches += 1
     return [(o[0], o[1], None if ovf is None else ovf[k], o[3])
-            for k, o in enumerate(outs)]
+            for k, o in enumerate(outs)], word
 
 
 def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
@@ -585,11 +643,13 @@ def probe(tkey_lo, tkey_hi, tomb, table_cols: Dict[str, torch.Tensor],
 def probe_info() -> Dict[str, int]:
     """What the compiler and the card make of K1's kernel: registers and
     local memory a thread, threads a block, blocks resident on one SM and
-    the launch's argument bytes.  Launches nothing."""
-    out = (ctypes.c_int * 5)()
+    the launch's argument bytes; then the flag word's variant's registers,
+    local memory and resident blocks.  Launches nothing."""
+    out = (ctypes.c_int * 8)()
     _raise_on(library().tb_probe_info(out), "probe")
     return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
-                     "arg_bytes"), out))
+                     "arg_bytes", "flags_registers", "flags_local_bytes",
+                     "flags_blocks_per_sm"), out))
 
 
 # -- K2 insert -------------------------------------------------------------
@@ -1666,13 +1726,34 @@ HISTORY_ROW_COLS = ("timestamp",) + tuple(
                          "credits_posted") for h in ("lo", "hi"))
 
 
+HISTORY_ORDER_ERROR = (
+    "history_scan: the history log's timestamps below its count do not "
+    "increase; the kernel's top-k would be wrong")
+_HS_LAUNCH: Dict[Tuple[int, int], Tuple[int, int]] = {}
+
+
+def history_scan_launch(cap: int, device: int) -> Tuple[int, int]:
+    """K16's cooperative launch for a log of ``cap`` slots on CUDA device
+    ``device``: (blocks, the scratch's int64 words).  Launches nothing."""
+    key = (device, cap)
+    if key not in _HS_LAUNCH:
+        blocks, words = ctypes.c_int64(), ctypes.c_int64()
+        with torch.cuda.device(device):
+            _raise_on(library().tb_history_scan_scratch(
+                cap, ctypes.byref(blocks), ctypes.byref(words)), "history_scan")
+        _HS_LAUNCH[key] = (blocks.value, words.value)
+    return _HS_LAUNCH[key]
+
+
 def history_scan(cols: Dict[str, torch.Tensor], count: torch.Tensor,
                  acct_lo: int, acct_hi: int, ts_min: int, ts_max: int,
                  want_debits: bool, want_credits: bool, descending: bool,
-                 k: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Kernel K16: (valid bool[k], rows) of ``scan_history``.  Raises if the
-    log's timestamps below ``count`` do not increase (the order the kernel
-    relies on); that check reads one word back."""
+                 k: int, check: bool = True):
+    """Kernel K16: (valid bool[k], rows) of ``scan_history``, one launch.
+    The kernel writes an error word (int32[1]) that is set when the log's
+    timestamps below ``count`` do not increase (the order it relies on).
+    ``check`` reads it back and raises; ``check`` False returns (valid,
+    rows, error word) for the caller to read back with the rows."""
     lib = library()
     src = [cols[name] for name in HISTORY_COL_ORDER]
     cap = src[0].numel()
@@ -1682,9 +1763,9 @@ def history_scan(cols: Dict[str, torch.Tensor], count: torch.Tensor,
     if not 1 <= k <= cap:
         raise ValueError(f"history_scan: k {k} outside 1..{cap}")
     dev = src[0].device
-    nb = (cap + 1023) // 1024
-    scratch = torch.empty(nb + 2, dtype=torch.int64, device=dev)
-    err_word = torch.zeros(1, dtype=torch.int32, device=dev)
+    blocks, words = history_scan_launch(cap, dev.index)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    err_word = torch.empty(1, dtype=torch.int32, device=dev)
     valid = torch.empty(k, dtype=torch.bool, device=dev)
     rows = torch.empty((len(HISTORY_ROW_COLS), k), dtype=torch.int64,
                        device=dev)
@@ -1692,15 +1773,16 @@ def history_scan(cols: Dict[str, torch.Tensor], count: torch.Tensor,
         _ptr_array(src), count.data_ptr(), cap, k, acct_lo & _M64,
         acct_hi & _M64, ts_min & _M64, ts_max & _M64, int(bool(want_debits)),
         int(bool(want_credits)), int(bool(descending)), scratch.data_ptr(),
-        err_word.data_ptr(), valid.data_ptr(), _ptr_array(list(rows.unbind(0))),
-        _stream(valid))
+        blocks, err_word.data_ptr(), valid.data_ptr(),
+        _ptr_array(list(rows.unbind(0))), _stream(valid))
     _raise_on(err, "history_scan")
     KERNELS["history_scan"].launches += 1
+    out = dict(zip(HISTORY_ROW_COLS, rows.unbind(0)))
+    if not check:
+        return valid, out, err_word
     if int(err_word.item()):
-        raise RuntimeError(
-            "history_scan: the history log's timestamps below its count do "
-            "not increase; the kernel's top-k would be wrong")
-    return valid, dict(zip(HISTORY_ROW_COLS, rows.unbind(0)))
+        raise RuntimeError(HISTORY_ORDER_ERROR)
+    return valid, out
 
 
 # -- K17-K19: the cold tier ------------------------------------------------------

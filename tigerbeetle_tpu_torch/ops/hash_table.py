@@ -19,8 +19,10 @@ are int64 and u32 columns int32 holding the bits, ``count`` a 0-dim int64 and
 returned a new table from donated buffers, this module updates the table's
 tensors in place and returns the same ``Table``.
 
-``lookup`` and ``lookup_many`` (kernel K1: one launch for several
-lookups), ``insert`` (kernel K2), ``claim_slots`` and
+``lookup``, ``lookup_many`` (kernel K1: one launch for several
+lookups) and ``lookup_flags`` (K1 with a flag word on the card: the
+lookups' overflow bits and the general path's cold test, K17's step),
+``insert`` (kernel K2), ``claim_slots`` and
 ``write_rows`` (K2's claim and write entries) and ``remove_to_tombstone``
 (kernel K8) take the hand-written CUDA kernels for CUDA tensors and their
 plain PyTorch versions, beside them here, for CPU tensors.  K2 has two
@@ -31,13 +33,14 @@ _cuda.INSERT_SPLIT_MAX_N lanes ``claim_rounds_plain`` and
 ``write_rows_fill_plain`` (the card's round form and its writes of a fresh
 table whole); K1's are ``lookup_plain``
 (a slot a step, the CPU route) and ``lookup_split_plain`` (the card's
-rounds over aligned groups of four slots).
+rounds over aligned groups of four slots), and ``lookup_flags_plain``
+mirrors the flag word's steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -188,6 +191,8 @@ class Lookup(NamedTuple):
     keys_from: Optional[Tuple[int, str, Optional[str]]] = None
     count_word: Optional[torch.Tensor] = None
     out: Optional[Tuple[torch.Tensor, torch.Tensor, Sequence[torch.Tensor]]] = None
+    grow_bit: int = 0  # lookup_flags: ORed into the word when it overflows
+    cold: bool = False  # lookup_flags: its lanes test their key (K17)
 
 
 def lookup_many(lookups: Sequence[Lookup], max_probe: int,
@@ -199,14 +204,14 @@ def lookup_many(lookups: Sequence[Lookup], max_probe: int,
     asked for."""
     first = lookups[0].key_lo
     if first.is_cuda:
-        got = _cuda.probe_many(
-            [_cuda.ProbeSpec(lk.table.key_lo, lk.table.key_hi,
-                             lk.table.tombstone, lk.table.cols, lk.key_lo,
-                             lk.key_hi, tuple(lk.cols), lk.count, lk.mask,
-                             lk.hash_shift, lk.count_word, lk.out,
-                             lk.keys_from)
-             for lk in lookups], max_probe, overflow)
+        got = _cuda.probe_many(_probe_specs(lookups), max_probe, overflow)
         return [LookupResult(*r) for r in got]
+    return _lookup_many_plain(lookups, max_probe, overflow)
+
+
+def _lookup_many_plain(lookups: Sequence[Lookup], max_probe: int,
+                       overflow: bool = True) -> List[LookupResult]:
+    """``lookup_plain`` of each lookup in turn (on any device)."""
     out = []
     for lk in lookups:
         if lk.count_word is not None or lk.out is not None:
@@ -225,6 +230,75 @@ def lookup_many(lookups: Sequence[Lookup], max_probe: int,
                          lk.mask)
         out.append(r if overflow else r._replace(overflow=None))
     return out
+
+
+def _probe_specs(lookups: Sequence[Lookup]):
+    return [_cuda.ProbeSpec(lk.table.key_lo, lk.table.key_hi,
+                            lk.table.tombstone, lk.table.cols, lk.key_lo,
+                            lk.key_hi, tuple(lk.cols), lk.count, lk.mask,
+                            lk.hash_shift, lk.count_word, lk.out,
+                            lk.keys_from, lk.grow_bit, lk.cold)
+            for lk in lookups]
+
+
+def lookup_flags(lookups: Sequence[Lookup], max_probe: int,
+                 bloom: Optional[torch.Tensor] = None,
+                 checked: Optional[torch.Tensor] = None, cold_bit: int = 0
+                 ) -> Tuple[List[LookupResult], torch.Tensor]:
+    """``lookup_many`` (with overflow flags) and a flag word, int32 0-dim:
+    each lookup ORs its ``grow_bit`` into the word when it overflows, and a
+    lookup marked ``cold`` ORs ``cold_bit`` when a lane under its mask,
+    below its count, not found and not certified by ``checked`` (bool[N],
+    None: no lane) has a key that hits the Bloom filter ``bloom`` (the
+    cold tier's int32 words; ``ops/cold.py``).  On CUDA tensors one K1
+    launch whose memset zeroes the word beside the overflow bytes, K17's
+    test a step of it (the word never leaves the card); on CPU tensors
+    ``lookup_flags_plain``."""
+    if lookups[0].key_lo.is_cuda:
+        got, word = _cuda.probe_flags(_probe_specs(lookups), max_probe,
+                                      bloom, checked, cold_bit)
+        return [LookupResult(*r) for r in got], word
+    return lookup_flags_plain(lookups, max_probe, bloom, checked, cold_bit)
+
+
+def lookup_flags_plain(lookups: Sequence[Lookup], max_probe: int,
+                       bloom: Optional[torch.Tensor] = None,
+                       checked: Optional[torch.Tensor] = None,
+                       cold_bit: int = 0
+                       ) -> Tuple[List[LookupResult], torch.Tensor]:
+    """Plain version of ``lookup_flags``, in the kernel's steps (on any
+    device): each lookup, then its lanes' bits (its grow bit where it
+    overflowed; where it is cold, the filter test of its own keys on the
+    lanes its mask and count admit, not found, not certified), ORed into
+    one word."""
+    from .cold import bloom_check_plain
+
+    out = _lookup_many_plain(lookups, max_probe)
+    word = torch.zeros((), dtype=torch.int32, device=lookups[0].key_lo.device)
+    for lk, r in zip(lookups, out):
+        if lk.grow_bit:
+            word = word | (r.overflow.to(torch.int32) * lk.grow_bit)
+        if not lk.cold:
+            continue
+        if bloom is None:
+            raise ValueError("a cold lookup needs the filter")
+        if lk.keys_from is None:
+            lo, hi = lk.key_lo, lk.key_hi
+        else:
+            j, lo_name, hi_name = lk.keys_from
+            lo = out[j].cols[lo_name]
+            hi = None if hi_name is None else out[j].cols[hi_name]
+        hi = torch.zeros_like(lo) if hi is None else hi
+        n = lo.shape[0]
+        lane = torch.arange(n, device=lo.device)
+        test = (lane < (n if lk.count is None else lk.count)) & ~r.found
+        if lk.mask is not None:
+            test = test & lk.mask
+        if checked is not None:
+            test = test & ~checked
+        hit = (test & bloom_check_plain(bloom, lo, hi)).any()
+        word = word | (hit.to(torch.int32) * cold_bit)
+    return out, word
 
 
 def lookup_split_plain(

@@ -33,7 +33,7 @@ launches its hand-written kernel, or raises:
 | ``_leg_balances`` (+ the apply's balance scatter) | K10 ``csrc/full_legs.cu`` |
 | ``_kernel_core``'s passes (``_first_code``, ``_group_winner``, ``_exists_*``, the ladders, chain codes, routing, history values; + the history append) | K11 ``csrc/full_pass.cu`` |
 | ``_wave_schedule`` | K12 ``csrc/full_waves.cu`` |
-| ``build_gather_ctx`` | K1 through ``hash_table.lookup``; its cold branch K17 ``csrc/bloom.cu`` |
+| ``build_gather_ctx`` | K1 through ``hash_table.lookup_flags``: one launch, its flag word the FLAG_GROW_* bits and the cold branch (K17's step) |
 | the apply's ``claim_slots`` / ``write_rows`` | K2 claim / write entries |
 
 The port's ``IdIndex`` labels each id group by its lowest lane (the JAX
@@ -493,6 +493,47 @@ def _empty_view(n: int, dev) -> AccountView:
                        bal={c: z64 for c in _BAL_COLS})
 
 
+def gather_lookups(ledger: Ledger, batch: Dict[str, torch.Tensor],
+                   valid: torch.Tensor, postvoid: torch.Tensor,
+                   cold_test: bool, has_postvoid: bool) -> list:
+    """``build_gather_ctx``'s lookups: the transfer ids, the debit and
+    credit accounts and, with ``has_postvoid``, the pending's row, then on
+    the same thread its accounts and posted row; each with its FLAG_GROW_*
+    bit, and with ``cold_test`` the ids and pending ids tested against the
+    cold tier's filter (``hash_table.lookup_flags``)."""
+    xfr_cols = tuple(TRANSFER_COLS)
+    looks = [
+        ht.Lookup(ledger.transfers, batch["id_lo"], batch["id_hi"], xfr_cols,
+                  mask=valid, grow_bit=FLAG_GROW_TRANSFERS, cold=cold_test),
+        ht.Lookup(ledger.accounts, batch["debit_account_id_lo"],
+                  batch["debit_account_id_hi"], _ACCOUNT_VIEW_COLS, mask=valid,
+                  grow_bit=FLAG_GROW_ACCOUNTS),
+        ht.Lookup(ledger.accounts, batch["credit_account_id_lo"],
+                  batch["credit_account_id_hi"], _ACCOUNT_VIEW_COLS,
+                  mask=valid, grow_bit=FLAG_GROW_ACCOUNTS),
+    ]
+    if has_postvoid:
+        # The pending's row, then, on the same thread, the accounts and the
+        # fulfillment of a TABLE pending (keys zero elsewhere).
+        looks += [
+            ht.Lookup(ledger.transfers, batch["pending_id_lo"],
+                      batch["pending_id_hi"], xfr_cols, mask=postvoid,
+                      grow_bit=FLAG_GROW_TRANSFERS, cold=cold_test),
+            ht.Lookup(ledger.accounts, None, cols=_ACCOUNT_VIEW_COLS,
+                      keys_from=(3, "debit_account_id_lo",
+                                 "debit_account_id_hi"),
+                      grow_bit=FLAG_GROW_ACCOUNTS),
+            ht.Lookup(ledger.accounts, None, cols=_ACCOUNT_VIEW_COLS,
+                      keys_from=(3, "credit_account_id_lo",
+                                 "credit_account_id_hi"),
+                      grow_bit=FLAG_GROW_ACCOUNTS),
+            ht.Lookup(ledger.posted, None, cols=("fulfillment",),
+                      keys_from=(3, "timestamp", None),
+                      grow_bit=FLAG_GROW_POSTED),
+        ]
+    return looks
+
+
 def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
                      valid: torch.Tensor, postvoid: torch.Tensor,
                      bloom=None, cold_checked=None,
@@ -503,39 +544,23 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
     package masks them (``valid``, ``postvoid``, the pending's row found);
     its overflow covers every lane.  With ``bloom`` (the cold ids' filter)
     an id or pending id that misses the hot table, on a lane not
-    ``cold_checked``, and hits the filter ORs ``FLAG_COLD`` into the flags
-    (kernel K17 on CUDA tensors, on the card)."""
+    ``cold_checked``, and hits the filter ORs ``FLAG_COLD`` into the flags.
+    On CUDA tensors all of it is one K1 launch whose flag word is
+    ``probe_grow`` (K17's test a step of it); on CPU tensors the lookups'
+    plain versions, their overflow bits, then ``cold.bloom_flag``."""
     n = batch["id_lo"].shape[0]
     dev = batch["id_lo"].device
-    xfr_cols = tuple(TRANSFER_COLS)
-    looks = [
-        ht.Lookup(ledger.transfers, batch["id_lo"], batch["id_hi"], xfr_cols,
-                  mask=valid),
-        ht.Lookup(ledger.accounts, batch["debit_account_id_lo"],
-                  batch["debit_account_id_hi"], _ACCOUNT_VIEW_COLS, mask=valid),
-        ht.Lookup(ledger.accounts, batch["credit_account_id_lo"],
-                  batch["credit_account_id_hi"], _ACCOUNT_VIEW_COLS,
-                  mask=valid),
-    ]
-    if has_postvoid:
-        # The pending's row, then, on the same thread, the accounts and the
-        # fulfillment of a TABLE pending (keys zero elsewhere).
-        looks += [
-            ht.Lookup(ledger.transfers, batch["pending_id_lo"],
-                      batch["pending_id_hi"], xfr_cols, mask=postvoid),
-            ht.Lookup(ledger.accounts, None, cols=_ACCOUNT_VIEW_COLS,
-                      keys_from=(3, "debit_account_id_lo",
-                                 "debit_account_id_hi")),
-            ht.Lookup(ledger.accounts, None, cols=_ACCOUNT_VIEW_COLS,
-                      keys_from=(3, "credit_account_id_lo",
-                                 "credit_account_id_hi")),
-            ht.Lookup(ledger.posted, None, cols=("fulfillment",),
-                      keys_from=(3, "timestamp", None)),
-        ]
-    got = ht.lookup_many(looks, MAX_PROBE)
+    on_card = batch["id_lo"].is_cuda
+    looks = gather_lookups(ledger, batch, valid, postvoid, bloom is not None,
+                           has_postvoid)
+    if on_card:
+        # One K1 launch: its flag word is probe_grow, the overflow bits and
+        # the cold test (K17's step) ORed in on the card.
+        got, probe_grow = ht.lookup_flags(looks, MAX_PROBE, bloom,
+                                          cold_checked, FLAG_COLD)
+    else:
+        got = ht.lookup_many(looks, MAX_PROBE)
     ex_look, dr_look, cr_look = got[:3]
-    overflows = [(dr_look.overflow | cr_look.overflow, FLAG_GROW_ACCOUNTS),
-                 (ex_look.overflow, FLAG_GROW_TRANSFERS)]
     if has_postvoid:
         p_look, pdr_look, pcr_look, posted_look = got[3:]
         p_tab = p_look.cols
@@ -543,9 +568,6 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
         pdr, pcr = _account_view(pdr_look), _account_view(pcr_look)
         postedT_found = posted_look.found
         postedT_val = posted_look.cols["fulfillment"]
-        overflows += [(pdr_look.overflow | pcr_look.overflow, FLAG_GROW_ACCOUNTS),
-                      (p_look.overflow, FLAG_GROW_TRANSFERS),
-                      (posted_look.overflow, FLAG_GROW_POSTED)]
     else:
         p_tab_found = torch.zeros(n, dtype=torch.bool, device=dev)
         z64 = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -555,18 +577,21 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
         pdr = pcr = _empty_view(n, dev)
         postedT_found = p_tab_found
         postedT_val = z32
-    probe_grow = torch.zeros((), dtype=torch.int32, device=dev)
-    for ov, bit in overflows:
-        probe_grow = probe_grow | (ov.to(torch.int32) * bit)
-    if bloom is not None:
-        # Cold-tier membership: exact exists precedence needs the cold row,
-        # so a possibly-cold lane sends the batch to the host's resolution.
-        probe_grow = cold.bloom_flag(
-            bloom, batch["id_lo"], batch["id_hi"], valid, ex_look.found,
-            batch["pending_id_lo"], batch["pending_id_hi"],
-            postvoid if has_postvoid else None,
-            p_tab_found if has_postvoid else None, cold_checked, probe_grow,
-            FLAG_COLD)
+    if not on_card:
+        # The plain route: each lookup's grow bit, then the cold test.
+        probe_grow = torch.zeros((), dtype=torch.int32, device=dev)
+        for lk, r in zip(looks, got):
+            probe_grow = probe_grow | (r.overflow.to(torch.int32) * lk.grow_bit)
+        if bloom is not None:
+            # Cold-tier membership: exact exists precedence needs the cold
+            # row, so a possibly-cold lane sends the batch to the host's
+            # resolution.
+            probe_grow = cold.bloom_flag(
+                bloom, batch["id_lo"], batch["id_hi"], valid, ex_look.found,
+                batch["pending_id_lo"], batch["pending_id_hi"],
+                postvoid if has_postvoid else None,
+                p_tab_found if has_postvoid else None, cold_checked,
+                probe_grow, FLAG_COLD)
     return GatherCtx(
         ex_found=ex_look.found, e_tab=ex_look.cols, p_tab_found=p_tab_found,
         p_tab=p_tab, drT=_account_view(dr_look), crT=_account_view(cr_look),
