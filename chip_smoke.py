@@ -2669,6 +2669,11 @@ FULL_ACCOUNTS = COUNT  # accounts the general mix draws from: every account
 # beside the new figures, never in the kernels line (not measured here).
 K11_PERF_MD_WAS_MS = 0.997
 K12_PERF_MD_WAS_MS = 0.354
+# K10 before its redesign over the card, one block sorting 16,384 keys
+# itself (no cache), a launch at this phase's shape, as PERF.md records
+# it (NVIDIA H100 80GB HBM3, 700 W): printed in the phase's line beside the
+# new figures, never in the kernels line (not measured here).
+K10_PARENT_MS = 0.441
 
 
 def full_prepared_ledger(rng, dev):
@@ -2861,7 +2866,7 @@ def phase_full_kernels(seed: int, dev) -> dict:
     from tigerbeetle_tpu_torch.ops import hash_table as ht
     from tigerbeetle_tpu_torch.ops import state_machine as sm
     from tigerbeetle_tpu_torch.ops import transfer_full as tf
-    from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, k9cases
+    from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, k9cases, k10cases
     from tigerbeetle_tpu_torch.utils.benchgen import gen_two_phase_np
 
     rng = np.random.default_rng(seed + 4)
@@ -2932,6 +2937,7 @@ def phase_full_kernels(seed: int, dev) -> dict:
     #    (testing/fulltraps.py), and a lane count that is not a multiple of
     #    K11's block of 64 --
     traps = {}
+    k10_before = legs_stats_now(dev)
     for b, (trap, lanes) in enumerate(
             [(t, LANES) for t in fulltraps.TRAPS] + [("cross_chain", LANES - 42)]):
         count = lanes - 2
@@ -2965,6 +2971,7 @@ def phase_full_kernels(seed: int, dev) -> dict:
                     "reached": fulltraps.trap_facts(trap, m.ledger, padded,
                                                     count, want["codes"])}
             del gk, gp
+    k10_traps_stats = stats_since(dev, k10_before)
 
     # -- times and bounds at the path's shape: a bench.py two-phase batch --
     led = m.ledger
@@ -2999,20 +3006,60 @@ def phase_full_kernels(seed: int, dev) -> dict:
             "full_index", lambda: tf._build_id_index(*ids)),
         cases_checked=len(k9cases.CASES) * 2,
         parent_ms_perf_md=K9_PARENT_MS)
-    legs_out = tf._leg_balances(**legs)
+    # K10's traps (testing/k10cases.py) at full width against the split
+    # plain form on the card, byte for byte, with the cache each leaves.
+    for name in k10cases.CASES:
+        for n in (LANES, COUNT):
+            args, cache = k10cases.case(name, n)
+            ga, gc = k10cases.to_tensors(args, cache, dev)
+            pa, pc = k10cases.to_tensors(args, cache, dev)
+            got = legs_np(k10_call(ga, gc))
+            want = legs_np(tf._leg_balances_split_plain(**pa, cache=pc))
+            if gc is not None:
+                for k, x, y in zip(("keys", "slots", "ok"), gc, pc):
+                    got["cache." + k] = to_np(x[:2 * n] if k == "keys" else x)
+                    want["cache." + k] = to_np(y[:2 * n] if k == "keys" else y)
+            errs["full_legs"] = max(errs["full_legs"], max_abs_err(
+                f"full_legs trap {name} ({n} lanes)", got, want))
+            checked.append(("k10", name, n))
     n2 = 2 * LANES
+    fresh = legs_cache(legs)
+    k10_fresh = timed(lambda: k10_call(legs, fresh))
+
+    def stale_cache():
+        keys, slot, ok = (x.clone() for x in fresh)
+        ok.zero_()  # a new batch's cache: the launch sorts and refreshes it
+        return ((keys, slot, ok),)
+
+    k10_stale = timed(lambda c: k10_call(legs, c), setup=stale_cache)
+    k10_none = timed(lambda: k10_call(legs, None))
     results["full_legs"] = dict(
         max_abs_err=errs["full_legs"],
-        **pair_times(timed(lambda: tf._leg_balances(**legs)),
-                     timed(lambda: tf._leg_balances_plain(**legs))),
+        **pair_times(k10_fresh,
+                     timed(lambda: tf._leg_balances_split_plain(
+                         **legs, cache=tuple(x.clone() for x in fresh)),
+                           reps=5)),
+        ms_stale_cache=k10_stale["device_ms"],
+        ms_no_cache=k10_none["device_ms"],
+        ms_form="a launch that runs from a fresh sort cache (ms_stale_cache: "
+                "it sorts over the card and refreshes the cache; "
+                "ms_no_cache: it sorts, no cache)",
+        parent_ms_perf_md=K10_PARENT_MS,
         library_ms=None,
         # Inputs read once (start balances of every leg, the lane inputs),
         # outputs written once (positions, 16 values, slots, flags).
         bound=bound(nbytes(legs["start_bal"]) + LANES * 38
                     + n2 * (8 + 16 * 8 + 8 + 1 + 1) + 1,
                     n2 * 14 * 15 // 2 + 40 * n2),
-        shape=f"{n2} legs of a two-phase batch, every valid lane ok")
-    del legs_out
+        shape=f"{n2} legs of a two-phase batch, every valid lane ok",
+        launch=_cuda.full_legs_info(LANES),
+        phases_us={
+            "fresh": phase_clock().split(
+                "full_legs", lambda: k10_call(legs, fresh)),
+            "no_cache": phase_clock().split(
+                "full_legs", lambda: k10_call(legs, None))},
+        traps_checked=len(k10cases.CASES) * 2,
+        stale_launches_fulltraps=k10_traps_stats)
     pw = tf._wave_schedule_plain(*waves, valid, ctx.accounts_capacity,
                                  tf._MAX_PASSES)
     # K12's split: the sort and run ids alone (no round) against the rounds.
@@ -3145,6 +3192,46 @@ def legs_np(legs) -> dict:
         else:
             out[k] = to_np(v)
     return out
+
+
+def k10_call(legs: dict, cache):
+    """K10 on its own (``_cuda.full_legs``) on ``full_inputs``' or
+    ``k10cases``' legs, with the sort cache ``cache`` (None: it sorts)."""
+    from tigerbeetle_tpu_torch.ops import _cuda
+    from tigerbeetle_tpu_torch.ops import transfer_full as tf
+
+    a = legs
+    return tf._legs_from_buffers(_cuda.full_legs(
+        a["start_bal"], a["cap_sentinel"], a["ok_lanes"], a["amt_lo"],
+        a["pamt_lo"], a["dr_slot"], a["cr_slot"], a["dr_live"],
+        a["cr_live"], a["pending_f"], a["post"], a["postvoid"],
+        a["has_postvoid"], cache=cache))
+
+
+def legs_cache(legs: dict):
+    """The sort cache of ``legs``' slots (K12's format: sorted keys padded
+    with all ones, the legs' slots, ok 1), built on the host."""
+    from tigerbeetle_tpu_torch.testing import k10cases
+
+    dev = legs["dr_slot"].device
+    keys, slot, ok = k10cases.sort_cache(
+        to_np(legs["dr_slot"]), to_np(legs["cr_slot"]),
+        to_np(legs["dr_live"]), to_np(legs["cr_live"]), legs["cap_sentinel"])
+    return tuple(t64(x, dev) if x.dtype == np.int64 else
+                 t32(x, dev) for x in (keys, slot, ok))
+
+
+def legs_stats_now(dev) -> tuple:
+    """K10's stats pair on ``dev`` (the general core's launches that ran,
+    and those that found the sort cache stale and sorted)."""
+    from tigerbeetle_tpu_torch.ops import _cuda
+
+    return tuple(int(x) for x in _cuda.legs_stats(dev).tolist())
+
+
+def stats_since(dev, before: tuple) -> dict:
+    now = legs_stats_now(dev)
+    return {"ran": now[0] - before[0], "sorted": now[1] - before[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -3314,6 +3401,7 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
         if window.start < 0:
             window = range(0)
         _cuda.reset_counts()
+        k10_before = legs_stats_now(dev)
         commit_s = steady_s = 0.0
         n_timed = n_steady = 0
         prof_commit_ms = 0.0
@@ -3364,6 +3452,7 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
                           pend["amount_lo"])
         torch.cuda.synchronize()
         launches = _cuda.counts()
+        k10_stats = stats_since(dev, k10_before)
         round_form_calls = _cuda.ROUND_FORM_CALLS
     finally:
         ht.grow = grow
@@ -3436,6 +3525,7 @@ def phase_full_path(dev, shape: str, n_transfers: int) -> dict:
         "wave_hist": wave_hist.tolist(), "profile": profile,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "digest": digest, "launches": launches,
+        "k10_stats": k10_stats,
         "k2_round_form_calls": round_form_calls,
     }
 
@@ -5236,6 +5326,7 @@ def phase_tiered(dev, n_transfers: int) -> dict:
     if window.start < 0:
         window = range(0)
     launches = dict.fromkeys(_cuda.KERNELS, 0)
+    k10_stats = {"ran": 0, "sorted": 0}  # K10's launches: ran, sorted
     round_form_calls = 0  # K2's round form: its growths and rebuilds
     bloom_in_probe = 0  # K1 launches that carried K17's step
     tier_s = twin_s = 0.0
@@ -5254,9 +5345,12 @@ def phase_tiered(dev, n_transfers: int) -> dict:
                 prof.__enter__()
             before = _cuda.counts()
             rf0, bp0 = _cuda.ROUND_FORM_CALLS, _cuda.BLOOM_IN_PROBE
+            k10_0 = legs_stats_now(dev)
             s = time.perf_counter()
             got = m.create_transfers(batch)
             dt = time.perf_counter() - s
+            for k, v in stats_since(dev, k10_0).items():
+                k10_stats[k] += v
             for k, v in _cuda.counts().items():
                 launches[k] += v - before[k]
             round_form_calls += _cuda.ROUND_FORM_CALLS - rf0
@@ -5352,6 +5446,9 @@ def phase_tiered(dev, n_transfers: int) -> dict:
             "device_ms_per_batch_by_name": {
                 k: v / 1e3 / len(window) for k, v in sorted(
                     by_name.items(), key=lambda kv: -kv[1])[:12]},
+            # K10's part of the busy time: the legs' scan and the apply.
+            "k10_share_of_busy": sum(
+                v for k, v in by_name.items() if "full_legs" in k) / 1e3 / busy,
         }
     ledger_bytes = {
         name: sum(sum(x.numel() * x.element_size() for x in
@@ -5379,7 +5476,7 @@ def phase_tiered(dev, n_transfers: int) -> dict:
         "query_rows_mean": rows_seen / 100,
         "accounts_max_abs_err": errs,
         "peak_device_bytes": peak, "ledger_bytes": ledger_bytes,
-        "profile": profile, "launches": launches,
+        "profile": profile, "launches": launches, "k10_stats": k10_stats,
         "k2_round_form_calls": round_form_calls,
         "k17_launches_in_k1": bloom_in_probe,
         "k17_own_launches": launches["bloom_check"] - bloom_in_probe,
@@ -6975,7 +7072,13 @@ SHARD_COUNTS = (2, 4, 8)
 SHARD_ACCOUNTS_LOG2 = 16
 SHARD_TRANSFERS_LOG2 = 25
 SHARD_FILL = 10_000_000
-SHARDED_PATH = ("shard_gather", "shard_combine", "probe", "insert",
+# K31's launches in the 8-shard run before K30 wrote one row a card (a K31
+# a gather round), and K30's time at 8 shards then (a row a shard), as
+# PERF.md records them (NVIDIA H100 80GB HBM3, 700 W): printed beside the
+# new figures, never in the kernels line (not measured here).
+K31_PARENT_LAUNCHES = 358
+K30_PARENT_MS = 0.00842
+SHARDED_PATH = ("shard_gather", "probe", "insert",
                 "validate", "balance", "claim", "write_claimed", "full_index",
                 "full_legs", "full_pass", "full_waves")
 SHARDED_TRANSFERS = 2_000_000  # each of the 2- and 8-shard machines
@@ -7076,14 +7179,13 @@ def phase_shard_kernels(seed: int, dev) -> dict:
             (at, drlo, anames, None), (at, crlo, anames, mask),
             (xt, qlo, xnames, None))
         for want_overflow in (False, True):
-            # K30 writes every lane of its rows (the path allocates the
-            # partial unzeroed): only the overflow words start at zero, and
-            # each side starts from its own garbage elsewhere.
-            got = torch.full((n_shards, m + 3), -1, dtype=torch.int64,
-                             device=dev)
+            # K30 writes every lane of its row (the path allocates it
+            # unzeroed): only the overflow words start at zero, and each
+            # side starts from its own garbage elsewhere.
+            got = torch.full((m + 3,), -1, dtype=torch.int64, device=dev)
             want = torch.full_like(got, -2)
-            got[:, m:] = 0
-            want[:, m:] = 0
+            got[m:] = 0
+            want[m:] = 0
             for k, (tabs, lo, names, msk) in enumerate(launches):
                 _cuda.shard_gather(tabs, ids, n_shards, lo, qhi, names,
                                    sm.MAX_PROBE, COUNT, msk, got, offs[k],
@@ -7092,12 +7194,29 @@ def phase_shard_kernels(seed: int, dev) -> dict:
                                        sm.MAX_PROBE, COUNT, msk, want,
                                        offs[k], m + k, want_overflow)
             err = max_abs_err_card(f"shard_gather {n_shards} shards",
-                                   {"partial": got}, {"partial": want})
-            comb = _cuda.shard_combine(got)
+                                   {"row": got}, {"row": want})
+            # A device a shard, as a mesh across cards holds them: each
+            # shard's own row; K31's sum of those rows is the one row.
+            per = torch.full((n_shards, m + 3), -1, dtype=torch.int64,
+                             device=dev)
+            per[:, m:] = 0
+            for sh in ids:
+                for k, (tabs, lo, names, msk) in enumerate(launches):
+                    _cuda.shard_gather([tabs[sh]], [sh], n_shards, lo, qhi,
+                                       names, sm.MAX_PROBE, COUNT, msk,
+                                       per[sh], offs[k], m + k, want_overflow)
+            comb = _cuda.shard_combine(per)
             err = max(err, max_abs_err_card(
                 f"shard_combine {n_shards} shards",
-                {"sum": comb}, {"sum": tmesh.shard_combine_plain(want)}))
+                {"sum": comb}, {"sum": tmesh.shard_combine_plain(per)}))
+            # The summed overflow words count the shards that overflowed,
+            # the one row's OR them: both are read as != 0.
+            err = max(err, max_abs_err_card(
+                f"shard_combine of {n_shards} one-shard rows = K30's row",
+                {"row": comb[:m], "overflow": comb[m:] != 0},
+                {"row": got[:m], "overflow": got[m:] != 0}))
             checked.append(f"K30+K31 {n_shards} shards overflow={want_overflow}")
+        comb = got
         found = comb[offs[2]:offs[2] + LANES] != 0
         n_found = int(found.sum())
         if n_found < COUNT // 3:
@@ -7139,20 +7258,20 @@ def phase_shard_kernels(seed: int, dev) -> dict:
             torch.cuda.empty_cache()
             continue
         # Timed at 8 shards: the transfers gather of the fast path (owner
-        # probes only), K31 on the round's partial, and one shard's K4 and
-        # K10 slot-base launches.
-        part = torch.empty(n_shards, (2 + len(xnames)) * LANES + 1,
-                           dtype=torch.int64, device=dev)
+        # probes only) into the card's one row, K31 on the round's rows of
+        # a device a shard, and one shard's K4 and K10 slot-base launches.
+        part = torch.empty((2 + len(xnames)) * LANES + 1, dtype=torch.int64,
+                           device=dev)
 
         def k30():
             _cuda.shard_gather(xt, ids, n_shards, qlo, qhi, xnames,
                                sm.MAX_PROBE, COUNT, None, part, 0,
-                               part.shape[1] - 1, False)
+                               part.shape[0] - 1, False)
 
         def k30_plain():
             tsh.shard_gather_plain(xt, ids, n_shards, qlo, qhi, xnames,
                                    sm.MAX_PROBE, COUNT, None, part, 0,
-                                   part.shape[1] - 1, False)
+                                   part.shape[0] - 1, False)
 
         n_nz = int((q != 0).sum())
         col_bytes = sum(xrows[c].element_size() for c in xnames)
@@ -7160,8 +7279,7 @@ def phase_shard_kernels(seed: int, dev) -> dict:
         # one probe window (17 B: key pair and tombstone) a nonzero lane at
         # its owner; the found rows' columns read; and the answer written
         # once, a lane's found byte, global slot and columns at their
-        # widths.  The shards' zero rows of the partial are this design's,
-        # not the function's, and count for nothing.
+        # widths (K30 writes them as u64 words).
         g_bytes = 16 * LANES + 17 * n_nz + n_found * col_bytes \
             + LANES * (1 + 8 + col_bytes)
         with uncounted():
@@ -7169,31 +7287,35 @@ def phase_shard_kernels(seed: int, dev) -> dict:
             t_k30p = timed(k30_plain, reps=5)
         out["shard_gather"] = dict(
             max_abs_err=0, **pair_times(t_k30, t_k30p), library_ms=None,
+            parent_ms_perf_md=K30_PARENT_MS,
+            phases_us=phase_clock().lanes(k30),
             bound=bound(g_bytes, 30 * LANES),
             shape=f"{LANES} lanes ({n_found} found), transfers 2^"
                   f"{SHARD_TRANSFERS_LOG2} over {n_shards} shards holding "
-                  f"{SHARD_FILL} rows, {len(xnames)} columns; checked over "
-                  "2, 4 and 8 shards, accounts and transfers, masks, the "
-                  "overflow words")
-        parts = list(got)
-        # The partial (22 MB) fits the 50 MB L2, where K30 leaves it on the
-        # path: the warm time is the path's, the cold one (L2 flushed
-        # before each call) the one the bytes bound speaks of.
+                  f"{SHARD_FILL} rows, {len(xnames)} columns, one row for "
+                  "the card; checked over 2, 4 and 8 shards, accounts and "
+                  "transfers, masks, the overflow words, and a device a "
+                  "shard (summed by K31)")
+        parts = list(per)
+        # The rows (22 MB) fit the 50 MB L2: the warm time is a sum right
+        # after the gathers, the cold one (L2 flushed before each call) the
+        # one the bytes bound speaks of.
         with uncounted():
-            warm = timed(lambda: _cuda.shard_combine(got))
-            k31 = cold_l2_ms(lambda: _cuda.shard_combine(got))
-            k31p = cold_l2_ms(lambda: tmesh.shard_combine_plain(got))
-            lib = cold_l2_ms(lambda: got.sum(0))
+            warm = timed(lambda: _cuda.shard_combine(per))
+            k31 = cold_l2_ms(lambda: _cuda.shard_combine(per))
+            k31p = cold_l2_ms(lambda: tmesh.shard_combine_plain(per))
+            lib = cold_l2_ms(lambda: per.sum(0))
             lib_stack = cold_l2_ms(lambda: torch.stack(parts).sum(0))
         out["shard_combine"] = dict(
             max_abs_err=0, ms=k31, plain_ms=k31p, warm_ms=warm["device_ms"],
             ms_from="cuda events, L2 flushed before each call",
             library_ms=lib, library_stack_ms=lib_stack,
-            bound=bound(got.numel() * 8 + got.shape[1] * 8, got.numel()),
-            shape=f"{n_shards} partials of {got.shape[1]} words (the fast "
-                  "path's round: debit and credit accounts, ids); library: "
-                  "partial.sum(0), one call (library_stack_ms: "
-                  "torch.stack(partials).sum(0) from the shards' rows)")
+            bound=bound(per.numel() * 8 + per.shape[1] * 8, per.numel()),
+            shape=f"{n_shards} rows of {per.shape[1]} words (the fast "
+                  "path's round, a device a shard: debit and credit "
+                  "accounts, ids; on one card no gather round sums: K30 "
+                  "writes the card's one row); library: rows.sum(0), one "
+                  "call (library_stack_ms: torch.stack(rows).sum(0))")
         s = n_shards - 1
         n_ok = int(ok.sum())
         with uncounted():
@@ -7506,6 +7628,7 @@ def main() -> int:
         return 2
     from tigerbeetle_tpu_torch.ops import _cuda
 
+    _cuda.LEGS_STATS_ON = True  # the full paths and the tiered run read them
     smi = nvidia_smi()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -7598,13 +7721,14 @@ def main() -> int:
     fullp = phase_full_parity(args.seed, dev)
     emit({"phase": "full_parity", "seconds": time.perf_counter() - t0, **fullp})
 
-    full_launches = {}
+    full_launches, full_k10_stats = {}, {}
     for shape in ("twophase", "limits"):
         t0 = time.perf_counter()
         run = phase_full_path(dev, shape, args.full_transfers)
         emit({"phase": "full_" + shape, "seconds": time.perf_counter() - t0,
               "nvidia_smi": smi, **run})
         full_launches[shape] = run["launches"]
+        full_k10_stats[shape] = run["k10_stats"]
 
     t0 = time.perf_counter()
     idxk = phase_index_kernels(args.seed, dev)
@@ -7737,12 +7861,20 @@ def main() -> int:
     emit({"phase": "sharded", "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi, **shd})
     for run, names in (("shards_2", SHARDED_PATH), ("shards_8", SHARDED_PATH),
-                       ("grouped_4", ("shard_gather", "shard_combine")),
-                       ("split_2_to_4", ("shard_gather", "shard_combine"))):
+                       ("grouped_4", ("shard_gather",)),
+                       ("split_2_to_4", ("shard_gather",))):
         missing = [k for k in names if shd["launches"][run][k] == 0]
         if missing:
             raise AssertionError(
                 f"kernels not launched on the sharded {run} run: {missing}")
+    # On one card every gather round is K30's one row: no K31 (it sums only
+    # across cards' groups, which one card does not have).
+    k31 = {run: shd["launches"][run]["shard_combine"] for run in
+           ("shards_2", "shards_8", "grouped_4", "split_2_to_4")}
+    emit({"phase": "sharded", "k31_launches": k31,
+          "k31_launches_8_shards_parent_perf_md": K31_PARENT_LAUNCHES})
+    if any(k31.values()):
+        raise AssertionError(f"K31 launched on one card: {k31}")
 
     # max_abs_err: index_kernels' cases and the queries phase's full-size
     # comparisons (the deepest carried level, the rebuilt level, K15 over
@@ -7780,9 +7912,12 @@ def main() -> int:
                   for name in ("group_dispatch", "group_step",
                                "group_finish")})
     paths["vopr_run"] = ("vopr (b), tools/vopr_scale.py's run", vo["launches_b"])
-    paths.update({name: ("sharded (8 shards, tables grown from the "
-                         "defaults)", shd["launches"]["shards_8"])
-                  for name in ("shard_gather", "shard_combine")})
+    paths["shard_gather"] = ("sharded (8 shards, tables grown from the "
+                             "defaults)", shd["launches"]["shards_8"])
+    paths["shard_combine"] = ("sharded (8 shards on one card): none, a gather "
+                              "round is K30's one row a card; K31 sums only "
+                              "the groups of a mesh across cards",
+                              shd["launches"]["shards_8"])
     paths.update({name: ("vopr (e), the step-locked route", vo["launches_e"])
                   for name in ("vopr_draw", "vopr_step")})
     rows = []
@@ -7799,6 +7934,11 @@ def main() -> int:
         })
         if name in ("shard_gather", "shard_combine"):
             rows[-1]["ms_shape"] = r["shape"]
+        if name == "full_legs":
+            # K10's launches in the core: those that ran (the rest returned
+            # at once, the loop over) and those that found the cache stale.
+            rows[-1]["launches_ran"] = full_k10_stats["twophase"]["ran"]
+            rows[-1]["launches_sorted"] = full_k10_stats["twophase"]["sorted"]
         if name == "bloom_check":
             # K17's count is of K1 launches that carried its step; its own
             # kernel (the out and masked forms) is timed apart.
@@ -7818,7 +7958,8 @@ def main() -> int:
                     "ms_twophase_shape", "ms_adversarial",
                     "rounds_path_shape", "deepest_lane_path_shape",
                     "ms_no_rounds", "core_ms", "hist_append_ms",
-                    "round_form", "shapes", "bound_with_order_check_ms"):
+                    "round_form", "shapes", "bound_with_order_check_ms",
+                    "ms_form", "ms_stale_cache", "ms_no_cache"):
             if key in r:
                 rows[-1][key] = r[key]
     emit({"kernels": rows})

@@ -25,9 +25,9 @@ from tigerbeetle_tpu_torch.ops import scan_path as sp
 from tigerbeetle_tpu_torch.ops import state_machine as sm
 from tigerbeetle_tpu_torch.ops import transfer_full as tf
 from tigerbeetle_tpu_torch.testing import (fullmix, fulltraps, k1cases, k2cases,
-                                           k3cases, k7cases, k9cases, k13cases,
-                                           k14cases, k15cases, k16cases,
-                                           k17cases, seqmix)
+                                           k3cases, k7cases, k9cases, k10cases,
+                                           k13cases, k14cases, k15cases,
+                                           k16cases, k17cases, k30cases, seqmix)
 from tigerbeetle_tpu_torch.utils.benchgen import mix64_np
 
 pytestmark = pytest.mark.cuda
@@ -824,6 +824,55 @@ def test_general_core_replays_in_a_cuda_graph(cuda_device):
             x = a[k] if k is not None else a
             y = b[k] if k is not None else b
             assert torch.equal(x, y), (field, k)
+
+
+def _legs_equal(got, want, what):
+    for field, x, y in zip(want._fields, got, want):
+        if isinstance(y, tuple):
+            assert torch.equal(x.lo.cpu(), y.lo), (what, field)
+            assert torch.equal(x.hi.cpu(), y.hi), (what, field)
+        else:
+            assert torch.equal(x.cpu(), y), (what, field)
+
+
+def _full_legs(args, cache):
+    a = args
+    return tf._legs_from_buffers(_cuda.full_legs(
+        a["start_bal"], a["cap_sentinel"], a["ok_lanes"], a["amt_lo"],
+        a["pamt_lo"], a["dr_slot"], a["cr_slot"], a["dr_live"],
+        a["cr_live"], a["pending_f"], a["post"], a["postvoid"],
+        a["has_postvoid"], cache=cache))
+
+
+@pytest.mark.parametrize("n", (1, 300, 8192))
+@pytest.mark.parametrize("name", k10cases.CASES)
+def test_full_legs_cases_match_split_plain(cuda_device, name, n):
+    """K10 over the card (a sorted leg a thread in blocks of 128; one grid
+    barrier from a fresh cache, four when it sorts) at its traps
+    (testing/k10cases.py): every output and the cache it leaves, byte for
+    byte against the split plain form on the CPU; then a second launch
+    from the cache it left (the fresh path), and one with no cache."""
+    args, cache = k10cases.case(name, n)
+    ca, cc = k10cases.to_tensors(args, cache, "cpu")
+    ga, gc = k10cases.to_tensors(args, cache, cuda_device)
+    want = tf._leg_balances_split_plain(**ca, cache=cc)
+    _legs_equal(_full_legs(ga, gc), want, name)
+    if cc is not None:
+        assert torch.equal(gc[0].cpu()[:2 * n], cc[0][:2 * n])
+        assert torch.equal(gc[1].cpu(), cc[1]) and torch.equal(gc[2].cpu(), cc[2])
+        _legs_equal(_full_legs(ga, gc), want, name + " from the cache")
+    _legs_equal(_full_legs(ga, None), want, name + " with no cache")
+
+
+def test_full_legs_info_reads_the_launch(cuda_device):
+    """K10's launch at 8,192 lanes: 128 blocks of 128, every one resident
+    at once (one a SM with the stale sort's 128 KB), no local memory."""
+    info = _cuda.full_legs_info(8192)
+    assert info["threads"] == _cuda.LEG_THREADS and info["blocks"] == 128
+    assert info["shared_bytes"] == 8 * 16384
+    assert info["blocks_per_sm"] >= 1 and info["local_bytes"] == 0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert info["blocks"] <= sms * info["blocks_per_sm"]
 
 
 @pytest.mark.parametrize("case", k9cases.CASES)
@@ -2126,8 +2175,7 @@ def test_shard_gather_and_combine_match_plain(cuda_device, n_shards):
     for want_overflow in (False, True):
         for m, count in ((None, n), (mask, n - 100)):
             m_rows = (2 + len(names)) * n + 3
-            got = torch.zeros(n_shards, m_rows, dtype=torch.int64,
-                              device=cuda_device)
+            got = torch.zeros(m_rows, dtype=torch.int64, device=cuda_device)
             want = torch.zeros_like(got)
             _cuda.shard_gather(tables, range(n_shards), n_shards, lo, hi,
                                names, 16, count, m, got, 1, m_rows - 1,
@@ -2136,9 +2184,58 @@ def test_shard_gather_and_combine_match_plain(cuda_device, n_shards):
                                    names, 16, count, m, want, 1, m_rows - 1,
                                    want_overflow)
             assert torch.equal(got, want), (want_overflow, count)
-            assert bool(got[n_shards - 1, -1]) == want_overflow
-            assert torch.equal(_cuda.shard_combine(got),
-                               tmesh.shard_combine_plain(want))
+            assert bool(got[-1]) == want_overflow
+            # A device a shard: each shard's own row (zeros where it does
+            # not own the lane), as a mesh across cards has them; K31's sum
+            # of those rows is the one row.
+            per = torch.zeros(n_shards, m_rows, dtype=torch.int64,
+                              device=cuda_device)
+            for s in range(n_shards):
+                _cuda.shard_gather([tables[s]], [s], n_shards, lo, hi, names,
+                                   16, count, m, per[s], 1, m_rows - 1,
+                                   want_overflow)
+            assert bool(per[n_shards - 1, -1]) == want_overflow
+            assert torch.equal(_cuda.shard_combine(per),
+                               tmesh.shard_combine_plain(per.cpu()).to(
+                                   cuda_device))
+            # The overflow word of the sum counts the shards that overflowed;
+            # the one row's ORs them (the rounds read both as != 0).
+            comb = _cuda.shard_combine(per)
+            assert torch.equal(comb[:-1], got[:-1])
+            assert bool(comb[-1]) == bool(got[-1])
+
+
+@pytest.mark.parametrize("want_overflow", [False, True])
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("name", k30cases.CASES)
+def test_shard_gather_k30_cases_match_plain(cuda_device, name, n_shards,
+                                            want_overflow):
+    """K30's one answer row a device group at its traps
+    (testing/k30cases.py: owners on other devices, no local owner, a lane
+    mask and a count, a full table's overflow), against the plain form on
+    the CPU, byte for byte, from a row of garbage (only the overflow word
+    zeroed)."""
+    from tigerbeetle_tpu_torch.parallel import sharded as tsh
+
+    c = k30cases.case(name, n_shards)
+    gt, ct = (k30cases.to_tables(c, d) for d in (cuda_device, "cpu"))
+    lo, hi = torch.from_numpy(c["lo"]), torch.from_numpy(c["hi"])
+    mask = None if c["mask"] is None else torch.from_numpy(c["mask"])
+    width = 4 * lo.numel()
+    for shards in c["devices"]:
+        got = torch.full((width + 1,), -5, dtype=torch.int64,
+                         device=cuda_device)
+        got[-1] = 0
+        want = torch.zeros(width + 1, dtype=torch.int64)
+        _cuda.shard_gather([gt[s] for s in shards], shards, n_shards,
+                           lo.to(cuda_device), hi.to(cuda_device), ("v", "w"),
+                           sm.MAX_PROBE, c["count"],
+                           None if mask is None else mask.to(cuda_device),
+                           got, 0, width, want_overflow)
+        tsh.shard_gather_plain([ct[s] for s in shards], shards, n_shards, lo,
+                               hi, ("v", "w"), sm.MAX_PROBE, c["count"], mask,
+                               want, 0, width, want_overflow)
+        assert torch.equal(got.cpu(), want), shards
 
 
 def test_balance_and_legs_apply_slot_base_match_plain(cuda_device):
@@ -2261,7 +2358,8 @@ def test_sharded_machine_on_card_matches_cpu(cuda_device):
     """A 4-shard machine on one card (``force_virtual(4, "cuda")``) and one
     on the CPU, through the same accounts, plain, pending and post batches,
     a split to 8 shards and the scrub lanes: equal results, canonical
-    arrays and digests, with K30 and K31 launched."""
+    arrays and digests, with K30 launched and K31 not (on one card each
+    gather round's answer is K30's one row: nothing is left to sum)."""
     from tigerbeetle_tpu_torch import device as tdev
     from tigerbeetle_tpu_torch.config import LedgerConfig
     from tigerbeetle_tpu_torch.machine import TorchStateMachine
@@ -2309,8 +2407,9 @@ def test_sharded_machine_on_card_matches_cpu(cuda_device):
         tdev.force_virtual(0, "cuda")
         tdev.force_virtual(0, "cpu")
     after = _cuda.counts()
-    for name in ("shard_gather", "shard_combine", "balance", "full_legs"):
+    for name in ("shard_gather", "balance", "full_legs"):
         assert after[name] > before[name], name
+    assert after["shard_combine"] == before["shard_combine"]
 
 
 def test_psum_across_cards_with_nccl(cuda_device):

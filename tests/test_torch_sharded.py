@@ -29,6 +29,7 @@ from tigerbeetle_tpu_torch.ops import _cuda
 from tigerbeetle_tpu_torch.ops import hash_table as ht
 from tigerbeetle_tpu_torch.parallel import mesh as tmesh
 from tigerbeetle_tpu_torch.parallel import sharded as tsh
+from tigerbeetle_tpu_torch.testing import k30cases
 
 LANES = 256
 CPU = torch.device("cpu")
@@ -306,15 +307,24 @@ def test_shard_gather_plain_owner_miss_and_overflow():
     hi = torch.zeros_like(lo)
     n = len(q)
     names = ("v", "w")
+    width = (2 + len(names)) * n
     for want_overflow in (False, True):
-        # Every lane of a shard's rows is written: only the overflow word
-        # starts at zero (GatherRound.run allocates no zeroed partial).
-        out = torch.full((n_shards, (2 + len(names)) * n + 1), -7,
-                         dtype=torch.int64)
-        out[:, -1] = 0
+        # Every lane of a row is written: only the overflow word starts at
+        # zero (GatherRound.run allocates no zeroed row).  One device
+        # holding every shard writes one row; a device a shard writes that
+        # shard's own row (zeros where it does not own the lane), and the
+        # rows' sum across those devices is the one row.
+        one = torch.full((width + 1,), -7, dtype=torch.int64)
+        one[-1] = 0
         tsh.shard_gather_plain(tables, range(n_shards), n_shards, lo, hi,
-                               names, 4, n - 1, None, out, 0, out.shape[1] - 1,
+                               names, 4, n - 1, None, one, 0, width,
                                want_overflow)
+        out = torch.full((n_shards, width + 1), -7, dtype=torch.int64)
+        out[:, -1] = 0
+        for s in range(n_shards):
+            tsh.shard_gather_plain([tables[s]], [s], n_shards, lo, hi, names,
+                                   4, n - 1, None, out[s], 0, width,
+                                   want_overflow)
         rows = out[:, :-1].view(n_shards, 2 + len(names), n)
         total = tmesh.shard_combine_plain(out)
         # Only the owner of a found key answers; everything else is zero.
@@ -336,12 +346,101 @@ def test_shard_gather_plain_owner_miss_and_overflow():
         assert int(out[2, -1]) == int(want_overflow)
         assert int(total[-1]) == int(want_overflow)
         assert torch.equal(total[:-1], out[1, :-1])
+        assert torch.equal(one, total)
     # A lane mask and the count hide found rows.
-    out = torch.zeros(n_shards, 4 * n + 1, dtype=torch.int64)
+    out = torch.zeros(4 * n + 1, dtype=torch.int64)
     mask = torch.tensor([True, False, True, True, True, True])
     tsh.shard_gather_plain(tables, range(n_shards), n_shards, lo, hi, names,
                            4, 2, mask, out, 0, 4 * n, False)
-    assert out[1, :n].tolist() == [1, 0, 0, 0, 0, 0]
+    assert out[:n].tolist() == [1, 0, 0, 0, 0, 0]
+
+
+def _jax_gather(c, n_shards):
+    """JAX ``_ShardGather`` over an ``n_shards`` mesh of the case's tables:
+    found, global slot, the two columns (each psummed) and ``any_shard`` of
+    the local probes' overflow flags."""
+    from tigerbeetle_tpu.jaxenv import shard_map
+    from tigerbeetle_tpu.ops import hash_table as jht
+    from jax.sharding import PartitionSpec as P
+
+    tabs = c["tables"]
+    cat = lambda k: np.concatenate([t[k] for t in tabs])  # noqa: E731
+    table = jht.Table(
+        key_lo=jnp.asarray(cat("key_lo").view(np.uint64)),
+        key_hi=jnp.asarray(cat("key_hi").view(np.uint64)),
+        tombstone=jnp.asarray(cat("tombstone")),
+        cols={"v": jnp.asarray(cat("v").view(np.uint64)),
+              "w": jnp.asarray(cat("w").view(np.uint32))},
+        count=jnp.zeros((n_shards,), jnp.uint64),
+        probe_overflow=jnp.zeros((n_shards,), jnp.bool_))
+    mesh = JMesh(np.array(jax.devices()[:n_shards]), (jsh.AXIS,))
+    shift = n_shards.bit_length() - 1
+
+    def body(t, lo, hi):
+        g = jsh._ShardGather(t, lo, hi, n_shards, shift)
+        rows = g.rows(t)
+        ovf = jax.lax.psum(g.overflow_l.astype(jnp.uint32), jsh.AXIS) > 0
+        return g.found, g.gslot, rows["v"], rows["w"], ovf
+
+    specs = jax.tree_util.tree_map(lambda _: P(jsh.AXIS), table)
+    fn = jax.jit(shard_map(body, mesh=mesh, in_specs=(specs, P(), P()),
+                           out_specs=(P(), P(), P(), P(), P()),
+                           check_vma=False))
+    out = fn(table, jnp.asarray(c["lo"].view(np.uint64)),
+             jnp.asarray(c["hi"].view(np.uint64)))
+    return [np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("want_overflow", [False, True])
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("name", k30cases.CASES)
+def test_shard_gather_one_row_cases_match_jax(meshes, name, n_shards,
+                                              want_overflow):
+    """K30's plain form, one answer row a device group
+    (``testing/k30cases.py``), summed across the groups as NCCL sums them:
+    found, the global slot and the columns equal JAX ``_ShardGather``'s
+    psums (masked by the count and the lane mask), the overflow word its
+    ``any_shard`` when asked and zero when not; and each group's row is
+    zero on the lanes whose owner it does not hold."""
+    from tigerbeetle_tpu_torch.ops.state_machine import MAX_PROBE
+
+    c = k30cases.case(name, n_shards)
+    tables = k30cases.to_tables(c, CPU)
+    lo, hi = torch.from_numpy(c["lo"]), torch.from_numpy(c["hi"])
+    n = lo.numel()
+    mask = None if c["mask"] is None else torch.from_numpy(c["mask"])
+    names = ("v", "w")
+    width = (2 + len(names)) * n
+    own = k30cases.owners(c["lo"], c["hi"], n_shards)
+    rows = []
+    for shards in c["devices"]:
+        row = torch.full((width + 1,), -3, dtype=torch.int64)
+        row[-1] = 0
+        tsh.shard_gather_plain([tables[s] for s in shards], shards, n_shards,
+                               lo, hi, names, MAX_PROBE, c["count"], mask,
+                               row, 0, width, want_overflow)
+        foreign = ~np.isin(own, shards)
+        assert not row[:-1].view(2 + len(names), n).numpy()[:, foreign].any()
+        rows.append(row)
+    total = sum(rows[1:], rows[0]).numpy()
+    j_found, j_slot, j_v, j_w, j_ovf = _jax_gather(c, n_shards)
+    keep = j_found & (np.arange(n) < c["count"])
+    if c["mask"] is not None:
+        keep &= c["mask"]
+    seg = total[:-1].reshape(2 + len(names), n)
+    np.testing.assert_array_equal(seg[0], keep.astype(np.int64))
+    np.testing.assert_array_equal(seg[1].view(np.uint64),
+                                  np.where(keep, j_slot, 0))
+    np.testing.assert_array_equal(seg[2].view(np.uint64),
+                                  np.where(keep, j_v, 0))
+    np.testing.assert_array_equal(seg[3].view(np.uint64),
+                                  np.where(keep, j_w, 0).astype(np.uint64))
+    assert int(total[-1]) == (int(bool(j_ovf)) if want_overflow else 0)
+    if name == "overflow" and want_overflow:
+        assert bool(j_ovf)
+    assert keep.sum() > 0
+    if name == "no_local_owner":
+        assert not rows[0][:-1].any()
 
 
 def test_shard_combine_plain_wraps():

@@ -22,7 +22,7 @@ from tigerbeetle_tpu.ops import transfer_full as jtf
 from tigerbeetle_tpu.types import TransferFlags as F
 from tigerbeetle_tpu_torch import convert
 from tigerbeetle_tpu_torch.ops import transfer_full as ttf
-from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, seqmix
+from tigerbeetle_tpu_torch.testing import fullmix, fulltraps, k10cases, seqmix
 
 LANES = 64
 CAPS = (1 << 10, 1 << 11, 1 << 10, 1 << 10)
@@ -557,12 +557,17 @@ def test_kernel_pointer_layouts_match_the_sources(source, enum, prefix, layout):
     ("full_waves.cu", "WAVE_MAX_BLOCKS", "_cuda", "WAVE_MAX_BLOCKS"),
     ("full_pass.cu", "PASS_THREADS", "fulltraps", "PASS_BLOCK"),
     ("full_waves.cu", "WAVE_CHUNK", "fulltraps", "WAVE_CHUNK"),
+    ("full_legs.cu", "LEG_THREADS", "_cuda", "LEG_THREADS"),
+    ("full_legs.cu", "LEG_MAX_BLOCKS", "_cuda", "LEG_MAX_BLOCKS"),
+    ("full_legs.cu", "LEG_CHUNK", "_cuda", "LEG_CHUNK"),
+    ("full_legs.cu", "LEG_THREADS", "k10cases", "BLOCK"),
 ])
 def test_grid_scratch_sizes_match_the_sources(source, define, owner, name):
-    """K11's and K12's per-block partials live in scratch the wrappers
-    size, and testing/fulltraps.py places and checks its traps by K11's
-    block and K12's chunk: these must be the sources' (FULL_THREADS,
-    FULL_MAX_LEGS and the block sizes from csrc/)."""
+    """K10's, K11's and K12's per-block partials live in scratch the
+    wrappers size, and testing/fulltraps.py and k10cases.py place and
+    check their traps by the kernels' blocks and chunks: these must be the
+    sources' (FULL_THREADS, FULL_MAX_LEGS and the block sizes from
+    csrc/)."""
     import re
     from pathlib import Path
 
@@ -575,5 +580,6 @@ def test_grid_scratch_sizes_match_the_sources(source, define, owner, name):
     for k, v in re.findall(r"#define (\w+) (\d+)\b", text):
         expr = re.sub(rf"\b{k}\b", v, expr)
     assert re.fullmatch(r"[\d */]+", expr), expr
-    module = {"_cuda": _cuda, "fulltraps": fulltraps}[owner]
+    module = {"_cuda": _cuda, "fulltraps": fulltraps,
+              "k10cases": k10cases}[owner]
     assert eval(expr) == getattr(module, name)  # integers and * / only

@@ -1,13 +1,15 @@
 // Block-wide helpers shared by the general transfer kernels K9-K12
 // (full_index.cu, full_legs.cu, full_pass.cu, full_waves.cu), for batches of
-// at most 8,192 lanes (16,384 legs).  In K9 and K10 one block of up to
-// 1,024 threads runs a whole batch, so a sort or a scan is a loop inside the
-// block with __syncthreads between its steps.  K11 and K12 are cooperative
-// launches over many blocks: they use these inside each block and cross
-// blocks at grid barriers (two-level scans, per-block partials).
+// at most 8,192 lanes (16,384 legs).  All four are cooperative launches over
+// many blocks: they use these inside each block and cross blocks at grid
+// barriers (two-level scans, per-block partials).  The leg sort of K10 (when
+// its cache is stale) and of K12 is the chunk sort below: a block sorts a
+// chunk of keys in shared memory, and after a grid barrier every key goes to
+// its place in the whole order by its rank in the other sorted chunks.
 #pragma once
 
 #include "common.cuh"
+#include "seq_sync.cuh"
 
 typedef unsigned __int128 u128;
 
@@ -112,70 +114,89 @@ static __device__ void bitonic_sort(uint64_t* keys, int p) {
   }
 }
 
-// The sorted (slot << 15 | leg) keys of 2n legs, leg 2i the debit side and
-// 2i+1 the credit side of lane i; a dead leg sorts under slot `cap` (the
-// sentinel).  Leaves the p = ceil_pow2(2n) keys sorted in `keys` (the pad
-// is all ones).
-static __device__ void sort_legs(uint64_t* keys, int n, const int64_t* dr_slot,
-                                 const uint8_t* dr_live, const int64_t* cr_slot,
-                                 const uint8_t* cr_live, uint64_t cap) {
-  const int n2 = 2 * n, p = ceil_pow2(n2);
-  for (int j = threadIdx.x; j < p; j += blockDim.x) {
-    uint64_t key = ~0ull;
-    if (j < n2) {
-      const int i = j >> 1;
-      const bool dr = (j & 1) == 0;
-      const bool live = dr ? dr_live[i] != 0 : cr_live[i] != 0;
-      const uint64_t slot =
-          live ? (uint64_t)(dr ? dr_slot[i] : cr_slot[i]) : cap;
-      key = (slot << 15) | (uint64_t)j;
-    }
-    keys[j] = key;
-  }
-  __syncthreads();
-  bitonic_sort(keys, p);
+static __device__ __forceinline__ uint64_t ldcg_u64(const uint64_t* p, int i) {
+  return (uint64_t)__ldcg(reinterpret_cast<const unsigned long long*>(p) + i);
 }
 
-// sort_legs, unless the cache (cache_keys[p], cache_slot[2n], *cache_ok;
-// all null for no cache) holds the sort of these same leg slots: then the
-// cached keys are copied in.  A sort refreshes the cache.  K10 sorts this
-// way; K12 (its own multi-block sort) leaves the cache in this format.
-static __device__ void sort_legs_cached(uint64_t* keys, int n,
-                                        const int64_t* dr_slot,
-                                        const uint8_t* dr_live,
-                                        const int64_t* cr_slot,
-                                        const uint8_t* cr_live, uint64_t cap,
-                                        uint64_t* cache_keys,
-                                        uint64_t* cache_slot, int* cache_ok) {
-  __shared__ int changed;
-  const int n2 = 2 * n, p = ceil_pow2(n2);
-  if (cache_keys == nullptr) {
-    sort_legs(keys, n, dr_slot, dr_live, cr_slot, cr_live, cap);
-    return;
+// Keys of a sorted chunk (`sh`, `chunk` keys, a power of two) below `key`;
+// with `ties`, keys equal to it count as below too.  Branch-free halving:
+// after the steps of chunk/2 .. 1 the count is `pos` or, only when every
+// key but the last is below, chunk.
+static __device__ __forceinline__ bool below(uint64_t v, uint64_t key,
+                                             bool ties) {
+  return v < key || (ties && v == key);
+}
+static __device__ __forceinline__ int rank_in(const uint64_t* sh, int chunk,
+                                              uint64_t key, bool ties) {
+  int pos = 0;
+  for (int step = chunk >> 1; step > 0; step >>= 1) {
+    if (below(sh[pos + step - 1], key, ties)) pos += step;
   }
-  auto slot_of = [&](int j) -> uint64_t {
-    const int i = j >> 1;
-    const bool dr = (j & 1) == 0;
-    const bool live = dr ? dr_live[i] != 0 : cr_live[i] != 0;
-    return live ? (uint64_t)(dr ? dr_slot[i] : cr_slot[i]) : cap;
-  };
-  if (threadIdx.x == 0) changed = *cache_ok == 0;
-  __syncthreads();
-  bool differs = false;
-  for (int j = threadIdx.x; j < n2; j += blockDim.x) {
-    if (cache_slot[j] != slot_of(j)) differs = true;
-  }
-  if (differs) changed = 1;
-  __syncthreads();
-  if (changed) {
-    sort_legs(keys, n, dr_slot, dr_live, cr_slot, cr_live, cap);
-    for (int j = threadIdx.x; j < p; j += blockDim.x) cache_keys[j] = keys[j];
-    for (int j = threadIdx.x; j < n2; j += blockDim.x) cache_slot[j] = slot_of(j);
-    if (threadIdx.x == 0) *cache_ok = 1;
-  } else {
-    for (int j = threadIdx.x; j < p; j += blockDim.x) keys[j] = cache_keys[j];
+  return pos + (below(sh[pos], key, ties) ? 1 : 0);
+}
+
+// The chunk sort's first step: the calling block bitonic-sorts chunk c of
+// the 2n legs' (slot << 15 | leg) keys (leg j's slot from `slot_of(j)`; a
+// dead leg's is the sentinel `cap`; past 2n the pad, all ones) in shared
+// `sh` and stores it at chunks[c * chunk].  Every thread of the block calls
+// it.
+template <class SlotOf>
+static __device__ void sort_leg_chunk(uint64_t* sh, int c, int chunk, int n2,
+                                      SlotOf slot_of, uint64_t* chunks) {
+  for (int t = threadIdx.x; t < chunk; t += blockDim.x) {
+    const int j = c * chunk + t;
+    sh[t] = j < n2 ? (slot_of(j) << 15) | (uint64_t)j : ~0ull;
   }
   __syncthreads();
+  bitonic_sort(sh, chunk);
+  for (int t = threadIdx.x; t < chunk; t += blockDim.x) {
+    chunks[c * chunk + t] = sh[t];
+  }
+}
+
+// The merge's staging, after the grid barrier that follows the chunk
+// sorts: every sorted chunk (p keys, written by other blocks) into shared
+// `sh` (16-byte aligned, as `chunks` is), by 16-byte cp.async copies
+// through L2, all of a thread's in flight before it waits: one round trip,
+// where a load then a store each would make one a word (128 KB over 128
+// threads is 64 round trips a thread).  Every thread of the block calls it.
+static __device__ void stage_chunks(uint64_t* sh, const uint64_t* chunks,
+                                    int p) {
+  for (int k = 2 * threadIdx.x; k < p; k += 2 * blockDim.x) {
+    cp_async16(sh + k, chunks + k);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// The place in the whole order of the staged key at position j (chunk
+// j / chunk of `nch`): its place in its chunk plus the keys of every other
+// chunk below it.  The keys are distinct but for the pad, whose ties break
+// by chunk, so this is the stable sort by slot.
+static __device__ int chunk_rank(const uint64_t* sh, int chunk, int nch,
+                                 int j) {
+  const int c = j / chunk;
+  const uint64_t key = sh[j];
+  int rank = j - c * chunk;
+  // Four chunks' searches in lockstep: four loads in flight a step.
+  for (int o0 = 0; o0 < nch; o0 += 4) {
+    int pos[4] = {0, 0, 0, 0};
+    for (int step = chunk >> 1; step > 0; step >>= 1) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int o = o0 + q;
+        if (o < nch && below(sh[o * chunk + pos[q] + step - 1], key, o < c))
+          pos[q] += step;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int o = o0 + q;
+      if (o < nch && o != c)
+        rank += pos[q] + (below(sh[o * chunk + pos[q]], key, o < c) ? 1 : 0);
+    }
+  }
+  return rank;
 }
 
 // Opt in to `bytes` of dynamic shared memory for `kernel` (once per kernel).

@@ -26,9 +26,9 @@
 // keys of every other chunk below it (a binary search a chunk; the pad
 // keys, all ones, break ties by chunk).  The keys are distinct and the
 // leg position breaks equal slots, so this is the stable sort by slot.
-// The sort always runs and leaves the sorted keys, the slots it sorted and
-// the ok word in the sort cache for K10 (the format of full_common.cuh's
-// sort_legs_cached; INIT marks the cache invalid for every batch).  Run
+// The sort (full_common.cuh's chunk sort, shared with K10) always runs and
+// leaves the sorted keys, the slots it sorted and the ok word in the sort
+// cache for K10 (INIT marks the cache invalid for every batch).  Run
 // ids are a two-level sum scan of the run heads (a block scan, then the
 // totals of the blocks before).  Each round is a two-level max scan of the
 // packed legs (a block scan; each block's carry-in the max of the blocks
@@ -71,10 +71,6 @@ struct WaveArgs {
   int* hist;
 };
 
-static __device__ __forceinline__ uint64_t ldcg_u64(const uint64_t* p, int i) {
-  return (uint64_t)__ldcg(reinterpret_cast<const unsigned long long*>(p) + i);
-}
-
 // Leg j's slot: its lane's debit (j even) or credit slot, `cap` if dead.
 static __device__ __forceinline__ uint64_t leg_slot(const WaveArgs& a, int j) {
   const int i = j >> 1;
@@ -83,22 +79,8 @@ static __device__ __forceinline__ uint64_t leg_slot(const WaveArgs& a, int j) {
   return live ? (uint64_t)(dr ? a.wdr_slot[i] : a.wcr_slot[i]) : a.cap;
 }
 
-// Keys of chunk c (in shared `sh`, sorted) below `key`; with `ties`, keys
-// equal to it count as below too.
-static __device__ __forceinline__ int rank_in(const uint64_t* sh, int chunk,
-                                              uint64_t key, bool ties) {
-  int lo = 0, hi = chunk;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const uint64_t v = sh[mid];
-    if (v < key || (ties && v == key)) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(WAVE_CHUNK, 1) full_waves_kernel(WaveArgs a) {
-  extern __shared__ uint64_t sh[];
+  extern __shared__ __align__(16) uint64_t sh[];
   __shared__ uint64_t wsh[32];
   __shared__ int ish[32];
   __shared__ int hist_sh[9];
@@ -113,12 +95,8 @@ __global__ void __launch_bounds__(WAVE_CHUNK, 1) full_waves_kernel(WaveArgs a) {
   int* part_deep = a.part + 4 * WAVE_MAX_BLOCKS; // the deepest valid lane
 
   // 1. Each block sorts its chunk of keys in shared memory.
-  if (tid < chunk) {
-    sh[tid] = j < n2 ? (leg_slot(a, j) << 15) | (uint64_t)j : ~0ull;
-  }
-  __syncthreads();
-  bitonic_sort(sh, chunk);
-  if (tid < chunk) a.chunks[j] = sh[tid];
+  sort_leg_chunk(sh, b, chunk, n2, [&](int k) { return leg_slot(a, k); },
+                 a.chunks);
   for (int i = b * blockDim.x + tid; i < n; i += B * blockDim.x) {
     a.depth[i] = a.hazard[i] ? 1 : 0;
     a.prior[i] = 0;
@@ -128,15 +106,9 @@ __global__ void __launch_bounds__(WAVE_CHUNK, 1) full_waves_kernel(WaveArgs a) {
 
   // 2. Merge by rank: every sorted chunk in shared memory; each key of this
   //    block's chunk goes to its place in the whole order.
-  for (int k = tid; k < p; k += blockDim.x) sh[k] = ldcg_u64(a.chunks, k);
-  __syncthreads();
+  stage_chunks(sh, a.chunks, p);
   if (tid < chunk) {
-    const uint64_t key = sh[b * chunk + tid];
-    int rank = tid;
-    for (int c = 0; c < B; ++c) {
-      if (c != b) rank += rank_in(sh + c * chunk, chunk, key, c < b);
-    }
-    a.keys[rank] = key;
+    a.keys[chunk_rank(sh, chunk, B, j)] = sh[j];
   }
   for (int i = b * blockDim.x + tid; i < n2; i += B * blockDim.x) {
     a.slot_out[i] = leg_slot(a, i);

@@ -30,6 +30,15 @@ static __device__ unsigned long long
     static unsigned long long zero[PHASE_CLOCK_BLOCKS][PHASE_CLOCK_MARKS]; \
     return (int)cudaMemcpyToSymbol(tb_phase_clock, zero, sizeof(zero)); \
   }
+// Read and clear entries for a kernel's own clock array (a lane clock).
+#define PHASE_CLOCK_ARRAY_ENTRIES(name, array)                          \
+  extern "C" int name##_read(void* host) {                              \
+    return (int)cudaMemcpyFromSymbol(host, array, sizeof(array));       \
+  }                                                                     \
+  extern "C" int name##_clear() {                                       \
+    static unsigned long long zero[sizeof(array) / 8];                  \
+    return (int)cudaMemcpyToSymbol(array, zero, sizeof(array));         \
+  }
 #else
 #define PHASE_MARK(k) \
   do {                \

@@ -1,6 +1,7 @@
-// The staging primitives of K6's sequencer (sequential.cu): mbarriers in
-// shared memory, cp.async copies from device memory into shared memory, and
-// L2 loads of words another thread of the block wrote.  Kept apart from the
+// The staging primitives of K6's sequencer (sequential.cu), and the
+// cp.async copies of K10's and K12's chunk merge (full_common.cuh):
+// mbarriers in shared memory, cp.async copies from device memory into
+// shared memory, and L2 loads of words another thread of the block wrote.  Kept apart from the
 // kernel so that each is one short piece of PTX that reads on its own.
 #pragma once
 

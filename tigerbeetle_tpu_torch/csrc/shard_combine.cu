@@ -1,12 +1,10 @@
-// K31 shard_combine: the wrap-sum of the S shard partials a device holds,
-// for every row of a gather round at once.
+// K31 shard_combine: the wrap-sum of the S shard partials a device holds.
 //
-// Replaces tigerbeetle_tpu/parallel/sharded.py:156-164 (`_ShardGather`'s
-// `jax.lax.psum` of found, the global slot and each gathered column) and
-// :367 `any_shard`'s psum, within one device: the JAX package does one psum
-// a column; this sums the whole packed int64 buffer of a round (every key
-// set, every column, the overflow words) in one launch.  Across cards an
-// NCCL all-reduce of the result follows (parallel/mesh.py).
+// Replaces tigerbeetle_tpu/parallel/sharded.py:367 `any_shard`'s psum (the
+// flag words ORed as 0/1 terms) within one device, before an NCCL
+// all-reduce across cards (parallel/mesh.py `Mesh.psum`).  `_ShardGather`'s
+// psum (:156-164) needs no sum within a device: K30 writes the device's one
+// answer row itself, and only the NCCL all-reduce across cards remains.
 //
 // Semantics: out[m] = sum over s of partial[s * M + m], mod 2^64.  The terms
 // are owner-masked, so at most one is nonzero per element and the sum is

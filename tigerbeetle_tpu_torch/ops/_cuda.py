@@ -48,8 +48,8 @@ add one to their kernel's ``launches`` each time they launch it.
 | vopr_draw     | csrc/vopr_draw.cu  | sim/vopr_tpu.py:160 draw_faults (vmapped over keys) |
 | vopr_step     | csrc/vopr_step.cu  | sim/vopr_tpu.py:217 step (vmapped over clusters, :738) |
 | vopr_run      | csrc/vopr_run.cu   | sim/vopr_tpu.py:702 _one_cluster_fn, :724 run, :741 run_sharded (+ :737 the keys) |
-| shard_gather  | csrc/shard_gather.cu | parallel/sharded.py:142 _ShardGather (the owner-masked local probe and gather) |
-| shard_combine | csrc/shard_combine.cu | parallel/sharded.py:156 _ShardGather's psum (+ :367 any_shard), within a card |
+| shard_gather  | csrc/shard_gather.cu | parallel/sharded.py:142 _ShardGather (the owner-masked local probe and gather, and its psum within a card: one answer row a device) |
+| shard_combine | csrc/shard_combine.cu | parallel/sharded.py:367 any_shard's psum within a card, before NCCL across cards |
 
 The grouped commit's graph (``ops/group.py``) and the bench twin's read a
 batch's count and timestamp from u64 device words, so one captured launch
@@ -180,7 +180,7 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("shard_gather", "tigerbeetle_tpu_torch/csrc/shard_gather.cu",
                "tigerbeetle_tpu/parallel/sharded.py:142"),
         Kernel("shard_combine", "tigerbeetle_tpu_torch/csrc/shard_combine.cu",
-               "tigerbeetle_tpu/parallel/sharded.py:156"),
+               "tigerbeetle_tpu/parallel/sharded.py:367"),
     )
 }
 
@@ -303,6 +303,7 @@ _SIGNATURES = {
     "tb_full_index": [_P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P],
     "tb_full_index_info": [_I64, _P],
     "tb_full_legs": [_P, _INT, _I64, _INT, ctypes.c_uint64, _INT, _P],
+    "tb_full_legs_info": [_I64, _P],
     "tb_full_legs_apply": [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P],
     "tb_full_waves": [_P, _P, _P, _P, _P, _P, _P, _I64, ctypes.c_uint64,
                       _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -344,7 +345,7 @@ _SIGNATURES = {
     "tb_vopr_run_info": [_INT, _INT, _INT, _INT, _P],
     "tb_shard_gather": [_INT, ctypes.POINTER(ctypes.c_int64), _I64, _INT,
                         _I64, _P, _P, _P, _INT, _P, _P, _I64, _P, _P,
-                        _I64, _I64, _P, _P, _I64, _P, _INT, _P],
+                        _I64, _I64, _P, _P, _P, _INT, _P],
     "tb_shard_combine": [_P, _I64, _I64, _P, _P],
 }
 
@@ -1234,11 +1235,18 @@ LEGS_LAYOUT = (
     ("start", 8), ("ok", 1), ("amt", 1), ("pamt", 1), ("dr_slot", 1),
     ("cr_slot", 1), ("dr_live", 1), ("cr_live", 1), ("pending", 1),
     ("post", 1), ("postvoid", 1), ("leg_pos", 1), ("val", 16), ("s_slot", 1),
-    ("s_live", 1), ("is_last", 1), ("arith", 1), ("scan", 1), ("head", 1),
+    ("s_live", 1), ("is_last", 1), ("arith", 1), ("scratch", 1), ("stats", 1),
     ("ctrl", 1), ("proved", 1), ("needed", 1),
     ("cache_keys", 1), ("cache_slot", 1), ("cache_ok", 1),
 )
-FULL_MAX_LANES = 8192  # csrc/full_common.cuh: 16,384 legs in shared memory
+FULL_MAX_LANES = 8192  # csrc/full_common.cuh: 16,384 legs, leg keys < 2^15
+# csrc/full_legs.cu: K10's block (a sorted leg a thread), its most blocks
+# (the per-block aggregates and stale flags in its scratch), the words of an
+# aggregate, and the chunk its stale sort gives a block.
+LEG_THREADS = 128
+LEG_MAX_BLOCKS = 128
+LEG_AGG_WORDS = 13
+LEG_CHUNK = 1024
 # csrc/full_pass.cu PASS_MAX_BLOCKS and csrc/full_waves.cu WAVE_MAX_BLOCKS:
 # the per-block partials of a K11 and a K12 launch.
 PASS_MAX_BLOCKS = 128
@@ -1313,6 +1321,19 @@ def full_index_info(n: int) -> Dict[str, int]:
                      "blocks_per_sm"), out))
 
 
+def legs_pad(n: int) -> int:
+    """The legs of ``n`` lanes rounded up to a power of two (at least 2):
+    the sort cache's keys and K10's stale sort."""
+    return 1 << max(1, (2 * n - 1).bit_length())
+
+
+def legs_scratch_words(n: int) -> int:
+    """K10's scratch (int64 words, csrc/full_legs.cu LegScratch): the
+    per-block aggregates and stale flags, the sorted chunks, and the sorted
+    keys when there is no cache."""
+    return LEG_MAX_BLOCKS * (LEG_AGG_WORDS + 1) + 2 * legs_pad(n)
+
+
 def legs_buffers(n: int, dev) -> Dict[str, torch.Tensor]:
     """K10's outputs and scratch for ``n`` lanes."""
     n2 = 2 * n
@@ -1321,27 +1342,64 @@ def legs_buffers(n: int, dev) -> Dict[str, torch.Tensor]:
            "s_live": torch.empty(n2, dtype=torch.bool, device=dev),
            "is_last": torch.empty(n2, dtype=torch.bool, device=dev),
            "arith": torch.empty(1, dtype=torch.bool, device=dev),
-           "scan": torch.empty(12 * n2, dtype=torch.int64, device=dev),
-           "head": torch.empty(n2, dtype=torch.int32, device=dev)}
+           "scratch": torch.empty(legs_scratch_words(n), dtype=torch.int64,
+                                  device=dev)}
     vals = torch.empty((16, n2), dtype=torch.int64, device=dev)
     out["val"] = list(vals.unbind(0))
     return out
 
 
+# K10's stats pair a device: (launches that ran, launches that sorted because
+# the sort cache was stale), counted on the card by the general core's K10
+# launches (``transfer_full._kernel_core_cuda``) while ``LEGS_STATS_ON`` is
+# set; otherwise the core hands K10 no pair and it counts nothing.
+LEGS_STATS_ON = False
+_LEGS_STATS: Dict[torch.device, torch.Tensor] = {}
+
+
+def legs_stats(dev) -> Optional[torch.Tensor]:
+    """The device's K10 stats pair (int64[2], zero when first made); None
+    while a CUDA graph captures before it was made (no count then)."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if dev not in _LEGS_STATS:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        _LEGS_STATS[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return _LEGS_STATS[dev]
+
+
 def full_legs_launch(ptrs, nptrs: int, n: int, has_postvoid: bool,
                      cap_sentinel: int, aux: bool, stream: int) -> None:
-    """One K10 launch from a prepared ``LEGS_LAYOUT`` pointer array."""
+    """One K10 launch from a prepared ``LEGS_LAYOUT`` pointer array: one
+    cooperative launch of ceil(2n / 128) blocks; a refused launch raises."""
     err = library().tb_full_legs(ptrs, nptrs, n, int(has_postvoid),
                                  cap_sentinel, int(aux), stream)
     _raise_on(err, "full_legs")
     KERNELS["full_legs"].launches += 1
 
 
+def full_legs_info(n: int) -> Dict[str, int]:
+    """What the compiler and the card make of K10's launch for ``n`` lanes:
+    registers and local memory a thread, threads a block, blocks, dynamic
+    shared bytes and blocks resident on one SM.  Launches nothing."""
+    _check_lanes(n)
+    out = (ctypes.c_int * 6)()
+    _raise_on(library().tb_full_legs_info(n, out), "full_legs")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks",
+                     "shared_bytes", "blocks_per_sm"), out))
+
+
 def full_legs(start_bal: Dict[str, torch.Tensor], cap_sentinel: int, ok,
               amt_lo, pamt_lo, dr_slot, cr_slot, dr_live, cr_live, pending,
-              post, postvoid, has_postvoid: bool) -> Dict[str, torch.Tensor]:
+              post, postvoid, has_postvoid: bool,
+              cache: Optional[Sequence[torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
     """Kernel K10 on its own: the leg balances (keys of ``legs_buffers``;
-    ``val`` holds {dp, dpo, cp, cpo} x {pre, incl} x {lo, hi})."""
+    ``val`` holds {dp, dpo, cp, cpo} x {pre, incl} x {lo, hi}).  ``cache``
+    (keys int64[legs_pad(n)], slots int64[2n], ok int32[1]) is the sort
+    cache, read and, when stale, refreshed in place; None sorts."""
     n = ok.numel()
     _check_lanes(n)
     cols = [start_bal[f + s] for f in ("debits_pending", "debits_posted",
@@ -1359,6 +1417,12 @@ def full_legs(start_bal: Dict[str, torch.Tensor], cap_sentinel: int, ok,
                         (post, torch.bool, "post"),
                         (postvoid, torch.bool, "postvoid")):
         _check(t, dt, n, what)
+    if cache is None:
+        cache = (None, None, None)
+    else:
+        _check(cache[0], torch.int64, legs_pad(n), "cache keys")
+        _check(cache[1], torch.int64, 2 * n, "cache slots")
+        _check(cache[2], torch.int32, 1, "cache ok word")
     out = legs_buffers(n, ok.device)
     ptrs, nptrs = layout_array(LEGS_LAYOUT, {
         "start": cols, "ok": [ok], "amt": [amt_lo], "pamt": [pamt_lo],
@@ -1367,9 +1431,9 @@ def full_legs(start_bal: Dict[str, torch.Tensor], cap_sentinel: int, ok,
         "postvoid": [postvoid], "leg_pos": [out["leg_pos"]], "val": out["val"],
         "s_slot": [out["s_slot"]], "s_live": [out["s_live"]],
         "is_last": [out["is_last"]], "arith": [out["arith"]],
-        "scan": [out["scan"]], "head": [out["head"]], "ctrl": [None],
-        "proved": [None], "needed": [None], "cache_keys": [None],
-        "cache_slot": [None], "cache_ok": [None]})
+        "scratch": [out["scratch"]], "stats": [None], "ctrl": [None],
+        "proved": [None], "needed": [None], "cache_keys": [cache[0]],
+        "cache_slot": [cache[1]], "cache_ok": [cache[2]]})
     full_legs_launch(ptrs, nptrs, n, has_postvoid, cap_sentinel, False,
                      _stream(ok))
     return out
@@ -1427,7 +1491,7 @@ def full_waves(hazard, unschedulable, wdr_slot, wdr_live, wcr_slot, wcr_live,
         needed = torch.empty(1, dtype=torch.int32, device=dev)
     _check(proved, torch.bool, 1, "proved")
     _check(needed, torch.int32, 1, "needed")
-    p2 = 1 << max(1, (2 * n - 1).bit_length())
+    p2 = legs_pad(n)
     # csrc/full_waves.cu: the sorted chunks, (no cache) the sorted keys and
     # slots, then the lanes' priors and the per-block partials.
     words = p2 + (p2 + 2 * n if cache is None else 0)
@@ -2278,13 +2342,14 @@ def shard_gather(tables: Sequence, shard_ids: Sequence[int], n_shards: int,
                  key_lo, key_hi, names: Sequence[str], max_probe: int,
                  count: int, mask: Optional[torch.Tensor], out: torch.Tensor,
                  offset: int, ovf_index: int, want_overflow: bool) -> None:
-    """Kernel K30: for each local shard j (``tables[j]``, an ``ht.Table`` of
-    C/n slots, index ``shard_ids[j]`` in a mesh of ``n_shards``), writes
-    row j of ``out`` (int64[S, M], u64 bits) from ``offset``: found, the
-    global slot and the ``names`` columns (u32 zero-extended), each n lanes,
-    zero where j does not own the key or does not find it; and, when
-    ``want_overflow``, 1 at ``out[j, ovf_index]`` (zero on entry) if a
-    lane's local probe, owned or not, ran ``max_probe`` steps."""
+    """Kernel K30: the device's one answer row for the local shards
+    ``tables`` (``ht.Table``s of C/n slots, indices ``shard_ids`` in a mesh
+    of ``n_shards``): writes ``out`` (int64[M], u64 bits) from ``offset``:
+    found, the global slot and the ``names`` columns (u32 zero-extended),
+    each n lanes, from the lane's owner shard when it is local, zeros
+    otherwise; and, when ``want_overflow``, 1 at ``out[ovf_index]`` (zero
+    on entry) if a lane's local probe in any of the shards, owned or not,
+    ran ``max_probe`` steps."""
     lib = library()
     nlocal = len(tables)
     n = key_lo.numel()
@@ -2292,13 +2357,13 @@ def shard_gather(tables: Sequence, shard_ids: Sequence[int], n_shards: int,
     _check(key_hi, torch.int64, n, "key_hi")
     if mask is not None:
         _check(mask, torch.bool, n, "mask")
-    _check(out, torch.int64, None, "partial")
-    if out.dim() != 2 or out.shape[0] != nlocal:
-        raise ValueError("partial must be int64[local shards, M]")
-    m = out.shape[1]
+    _check(out, torch.int64, None, "answer row")
+    if out.dim() != 1:
+        raise ValueError("the answer row must be int64[M]")
+    m = out.shape[0]
     if offset < 0 or offset + (2 + len(names)) * n > m or not (
             0 <= ovf_index < m):
-        raise ValueError("partial too short for this gather")
+        raise ValueError("answer row too short for this gather")
     if nlocal == 0:
         return
     cap = tables[0].capacity
@@ -2325,7 +2390,7 @@ def shard_gather(tables: Sequence, shard_ids: Sequence[int], n_shards: int,
         _ptr_array(klo), _ptr_array(khi), _ptr_array(tomb), len(names),
         _ptr_array(cols), widths, max_probe, key_lo.data_ptr(),
         key_hi.data_ptr(), n, count, None if mask is None else mask.data_ptr(),
-        base + 8 * offset, m, base + 8 * ovf_index, int(want_overflow),
+        base + 8 * offset, base + 8 * ovf_index, int(want_overflow),
         _stream(key_lo),
     )
     _raise_on(err, "shard_gather")

@@ -50,7 +50,6 @@ import torch
 from .. import u128
 from ..u128 import U128, i64, srl, uge, ult
 from . import _cuda
-from . import cold
 from . import hash_table as ht
 from .state_machine import (
     AF_CREDITS_MUST_NOT_EXCEED_DEBITS,
@@ -401,6 +400,146 @@ def _leg_balances_plain(start_bal, cap_sentinel, ok_lanes, amt_lo, pamt_lo,
     )
 
 
+def _legs_stale(leg_slot: torch.Tensor, cache) -> bool:
+    """K10's test of the sort cache (keys, slots, ok word): stale when
+    there is none, it is marked invalid, or a leg's slot is not the one it
+    sorted."""
+    return (cache is None or int(cache[2][0]) == 0
+            or not torch.equal(cache[1], leg_slot))
+
+
+def _legs_chunk_sort(leg_slot: torch.Tensor, chunk: int) -> torch.Tensor:
+    """K10's stale sort (full_common.cuh's chunk sort): the legs' (slot <<
+    15 | leg) keys padded to a power of two, each chunk sorted on its own,
+    then every real key placed at its rank (its place in its chunk plus the
+    keys of the other chunks below it; the pad, above every key, is never
+    placed).  The sorted keys of the 2n legs."""
+    n2 = leg_slot.shape[0]
+    dev = leg_slot.device
+    p = _cuda.legs_pad(n2 // 2)
+    c = min(p, chunk)
+    pad = torch.full((p,), (1 << 63) - 1, dtype=torch.int64, device=dev)
+    pad[:n2] = (leg_slot << 15) | torch.arange(n2, device=dev)
+    chunks = torch.sort(pad.view(p // c, c), dim=1).values
+    staged = chunks.reshape(-1)[:n2]
+    pos = torch.arange(n2, device=dev)
+    own = pos // c
+    rank = pos - own * c
+    for o in range(p // c):
+        below = torch.searchsorted(chunks[o], staged)
+        rank = rank + torch.where(own == o, torch.zeros_like(below), below)
+    keys = torch.empty(n2, dtype=torch.int64, device=dev)
+    keys[rank] = staged
+    return keys
+
+
+def _leg_balances_split_plain(start_bal, cap_sentinel, ok_lanes, amt_lo,
+                              pamt_lo, dr_slot, cr_slot, dr_live, cr_live,
+                              pending_f, post, postvoid, has_postvoid=True,
+                              cache=None, block: int = _cuda.LEG_THREADS,
+                              chunk: int = _cuda.LEG_CHUNK) -> _LegBalances:
+    """Plain version of K10 in the kernel's steps: the sorted keys from
+    ``cache`` (keys, slots, ok word; refreshed in place when stale, as the
+    kernel does) or the chunk sort; each block of ``block`` sorted legs
+    scanned on its own (six streams of 32-bit limb sums, one head); the
+    blocks' aggregates folded in order into each block's carry; then the
+    four fields.  Same outputs as ``_leg_balances_plain``."""
+    n = ok_lanes.shape[0]
+    n2 = 2 * n
+    dev = ok_lanes.device
+    leg_slot = torch.where(_interleave(dr_live, cr_live),
+                           _interleave(dr_slot, cr_slot),
+                           torch.full((n2,), cap_sentinel, dtype=torch.int64,
+                                      device=dev))
+    if _legs_stale(leg_slot, cache):
+        keys = _legs_chunk_sort(leg_slot, chunk)
+        if cache is not None:
+            cache[0][:n2] = keys
+            cache[1].copy_(leg_slot)
+            cache[2].fill_(1)
+    else:
+        keys = cache[0][:n2].clone()
+
+    # Each sorted leg: its slot, leg, lane, run head and the six deltas.
+    s_slot = srl(keys, 15)
+    leg = keys & 0x7FFF
+    lane = leg >> 1
+    dr = (leg & 1) == 0
+    change = s_slot[1:] != s_slot[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    head = torch.cat([one, change])
+    is_last = torch.cat([change, one])
+    ok = ok_lanes[lane]
+    pend, pv, pst = pending_f[lane], postvoid[lane], post[lane]
+    amt, pamt = amt_lo[lane], pamt_lo[lane]
+    zero = torch.zeros_like(amt)
+    add = torch.where(ok & pend, amt, zero)
+    sub = torch.where(ok & pv, pamt, zero) if has_postvoid else zero
+    posted = torch.where(ok & ((~pend & ~pv) | pst), amt, zero)
+    d = [torch.where(dr, add, zero), torch.where(dr, sub, zero),
+         torch.where(dr, posted, zero), torch.where(dr, zero, add),
+         torch.where(dr, zero, sub), torch.where(dr, zero, posted)]
+
+    # Block scans: every stream's two 32-bit limbs at once, [12, B, block].
+    blocks = -(-n2 // block)
+    padded = blocks * block
+    limbs = torch.zeros((12, padded), dtype=torch.int64, device=dev)
+    for k, x in enumerate(d):
+        limbs[2 * k, :n2] = x & _U32MASK
+        limbs[2 * k + 1, :n2] = srl(x, 32)
+    limbs = limbs.view(12, blocks, block)
+    h = torch.zeros(padded, dtype=torch.bool, device=dev)
+    h[:n2] = head
+    h = h.view(blocks, block)
+    c = torch.cumsum(limbs, 2)
+    base = torch.cummax(torch.where(h, c - limbs, torch.zeros_like(c)),
+                        2).values
+    incl = c - base  # within the block, from its last head
+    seen = torch.cummax(h.to(torch.int64), 1).values.bool()
+    # The carries: each block's aggregate folded in block order.
+    agg_v, agg_h = incl[:, :, -1], h.any(1)
+    carry = torch.zeros((12, blocks), dtype=torch.int64, device=dev)
+    acc = torch.zeros(12, dtype=torch.int64, device=dev)
+    for b in range(blocks):
+        carry[:, b] = acc
+        acc = agg_v[:, b] if bool(agg_h[b]) else acc + agg_v[:, b]
+    incl = torch.where(seen, incl, incl + carry[:, :, None])
+    incl = incl.reshape(12, padded)[:, :n2]
+    excl = incl - limbs.reshape(12, padded)[:, :n2]
+
+    def stream(k):
+        """(exclusive, inclusive) sums of stream k as U128."""
+        return (_limbs_to_u128(excl[2 * k], excl[2 * k + 1]),
+                _limbs_to_u128(incl[2 * k], incl[2 * k + 1]))
+
+    s_live = s_slot < cap_sentinel
+    vals, bad = [], torch.zeros(n2, dtype=torch.bool, device=dev)
+    for f, (field, add_s, sub_s) in enumerate(
+            (("debits_pending", 0, 1), ("debits_posted", 2, None),
+             ("credits_pending", 3, 4), ("credits_posted", 5, None))):
+        start = U128(start_bal[field + "_lo"][leg], start_bal[field + "_hi"][leg])
+        add_e, add_i = stream(add_s)
+        if sub_s is None:
+            z = torch.zeros(n2, dtype=torch.int64, device=dev)
+            sub_e = sub_i = U128(z, z)
+        else:
+            sub_e, sub_i = stream(sub_s)
+        for a_, s_ in ((add_e, sub_e), (add_i, sub_i)):
+            added, ov = u128.add(start, a_)
+            val, neg = u128.sub(added, s_)
+            vals.append(val)
+            bad = bad | ov | neg
+    leg_pos = torch.empty(n2, dtype=torch.int64, device=dev)
+    leg_pos[leg] = torch.arange(n2, device=dev)
+    return _LegBalances(
+        leg_pos=leg_pos,
+        dp_pre=vals[0], dp_incl=vals[1], dpo_pre=vals[2], dpo_incl=vals[3],
+        cp_pre=vals[4], cp_incl=vals[5], cpo_pre=vals[6], cpo_incl=vals[7],
+        s_slot=s_slot, s_live=s_live, is_last=is_last,
+        arith_broken=(s_live & bad).any(),
+    )
+
+
 # ---------------------------------------------------------------------------
 # K12: the wave schedule
 # ---------------------------------------------------------------------------
@@ -545,21 +684,15 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
     its overflow covers every lane.  With ``bloom`` (the cold ids' filter)
     an id or pending id that misses the hot table, on a lane not
     ``cold_checked``, and hits the filter ORs ``FLAG_COLD`` into the flags.
-    On CUDA tensors all of it is one K1 launch whose flag word is
-    ``probe_grow`` (K17's test a step of it); on CPU tensors the lookups'
-    plain versions, their overflow bits, then ``cold.bloom_flag``."""
+    All of it is ``hash_table.lookup_flags``, whose flag word is
+    ``probe_grow``: on CUDA tensors one K1 launch (K17's test a step of
+    it), on CPU tensors its plain version in the kernel's steps."""
     n = batch["id_lo"].shape[0]
     dev = batch["id_lo"].device
-    on_card = batch["id_lo"].is_cuda
     looks = gather_lookups(ledger, batch, valid, postvoid, bloom is not None,
                            has_postvoid)
-    if on_card:
-        # One K1 launch: its flag word is probe_grow, the overflow bits and
-        # the cold test (K17's step) ORed in on the card.
-        got, probe_grow = ht.lookup_flags(looks, MAX_PROBE, bloom,
-                                          cold_checked, FLAG_COLD)
-    else:
-        got = ht.lookup_many(looks, MAX_PROBE)
+    got, probe_grow = ht.lookup_flags(looks, MAX_PROBE, bloom, cold_checked,
+                                      FLAG_COLD)
     ex_look, dr_look, cr_look = got[:3]
     if has_postvoid:
         p_look, pdr_look, pcr_look, posted_look = got[3:]
@@ -577,21 +710,6 @@ def build_gather_ctx(ledger: Ledger, batch: Dict[str, torch.Tensor],
         pdr = pcr = _empty_view(n, dev)
         postedT_found = p_tab_found
         postedT_val = z32
-    if not on_card:
-        # The plain route: each lookup's grow bit, then the cold test.
-        probe_grow = torch.zeros((), dtype=torch.int32, device=dev)
-        for lk, r in zip(looks, got):
-            probe_grow = probe_grow | (r.overflow.to(torch.int32) * lk.grow_bit)
-        if bloom is not None:
-            # Cold-tier membership: exact exists precedence needs the cold
-            # row, so a possibly-cold lane sends the batch to the host's
-            # resolution.
-            probe_grow = cold.bloom_flag(
-                bloom, batch["id_lo"], batch["id_hi"], valid, ex_look.found,
-                batch["pending_id_lo"], batch["pending_id_hi"],
-                postvoid if has_postvoid else None,
-                p_tab_found if has_postvoid else None, cold_checked,
-                probe_grow, FLAG_COLD)
     return GatherCtx(
         ex_found=ex_look.found, e_tab=ex_look.cols, p_tab_found=p_tab_found,
         p_tab=p_tab, drT=_account_view(dr_look), crT=_account_view(cr_look),
@@ -1161,9 +1279,7 @@ def _kernel_core_cuda(ctx: GatherCtx, batch, count: int, timestamp: int,
                           batch["pending_id_lo"], batch["pending_id_hi"])
     hsize = _cuda.hash_size(n)
     b, i32, i64 = torch.bool, torch.int32, torch.int64
-    p2 = 2
-    while p2 < n2:
-        p2 *= 2
+    p2 = _cuda.legs_pad(n)
     specs = {"ctrl": (i32, 4), "proved": (b, 1), "needed": (i32, 1),
              "unsched": (b, 1), "route": (i32, 1), "passes": (i32, 1),
              "wave_bound": (i32, 1), "cache_ok": (i32, 1),
@@ -1233,7 +1349,9 @@ def _kernel_core_cuda(ctx: GatherCtx, batch, count: int, timestamp: int,
         "leg_pos": [legs["leg_pos"]], "val": legs["val"],
         "s_slot": [legs["s_slot"]], "s_live": [legs["s_live"]],
         "is_last": [legs["is_last"]], "arith": [legs["arith"]],
-        "scan": [legs["scan"]], "head": [legs["head"]], **ctl,
+        "scratch": [legs["scratch"]],
+        "stats": [_cuda.legs_stats(dev) if _cuda.LEGS_STATS_ON else None],
+        **ctl,
         "cache_keys": [t["cache_keys"]], "cache_slot": [t["cache_slot"]],
         "cache_ok": [t["cache_ok"]]})
     stream = torch.cuda.current_stream(dev).cuda_stream

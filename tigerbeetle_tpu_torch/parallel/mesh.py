@@ -13,7 +13,9 @@ repeat identically (the replicated validation) runs once per group.
 the mesh: first within each group, by kernel K31 on the card (its plain
 version on the CPU), then, where the mesh spans several cards, across the
 groups with one in-process NCCL all-reduce (``torch.cuda.nccl``), the
-single-controller counterpart of XLA's psum.
+single-controller counterpart of XLA's psum.  ``psum_rows`` takes one row
+a group already summed over its shards (K30's answer rows) and does only
+the all-reduce across cards.
 """
 
 from __future__ import annotations
@@ -75,6 +77,18 @@ class Mesh:
             # K31 on its current stream: NCCL orders itself on those streams.
             torch.cuda.nccl.all_reduce(sums)
         return sums
+
+
+    def psum_rows(self, rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``rows[g]``: int64[M] on group g's device, the sum over its own
+        shards.  Returns, for every group, the int64[M] wrap-sum over the
+        groups, on that group's device (in place: the rows themselves)."""
+        if len(rows) != len(self.groups):
+            raise ValueError("one row per device group")
+        rows = list(rows)
+        if len(rows) > 1:
+            torch.cuda.nccl.all_reduce(rows)
+        return rows
 
 
 def shard_combine(partial: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,11 @@ Every step has the reference's three phases:
 
 - gather: every shard probes its local table for the whole batch, masked to
   the keys it owns (``_ShardGather``: kernel K30, all the shards of a device
-  in one launch, into a packed partial buffer), and one psum per round
-  combines the partials (``Mesh.psum``: kernel K31 within a device, NCCL
-  across cards), after which every device holds the full gather context;
+  in one launch, into the device's one packed answer row: a lane's answer
+  comes from its owner shard, so the sum over a device's shards is written
+  directly), and across cards one NCCL all-reduce per round sums the
+  devices' rows (``Mesh.psum_rows``), after which every device holds the
+  full gather context;
 - validate: the pure passes run replicated, once per device (the shards of
   a device would compute the same values): K3, or the general kernel's core
   K9, K11 and K12;
@@ -168,7 +170,7 @@ def _replicate(mesh: Mesh, tensors: Dict[str, torch.Tensor]) -> List[Dict]:
 
 
 # ---------------------------------------------------------------------------
-# _ShardGather: K30 + the psum (K31, NCCL)
+# _ShardGather: K30 + the psum across cards (NCCL)
 # ---------------------------------------------------------------------------
 
 
@@ -193,10 +195,10 @@ class _Request:
 
 class GatherRound:
     """One psum round of ``_ShardGather``s (sharded.py:142): each added key
-    set is one K30 launch per device group into the group's packed partial
-    buffer (int64[its shards, M]), then ONE ``Mesh.psum`` combines every
-    key set, column and overflow word of the round (where the JAX package
-    does one psum a column)."""
+    set is one K30 launch per device group into the group's packed answer
+    row (int64[M]), then ONE ``Mesh.psum_rows`` sums every key set, column
+    and overflow word of the round across the groups' cards (where the JAX
+    package does one psum a column; on one card nothing is left to sum)."""
 
     def __init__(self, mesh: Mesh) -> None:
         self.mesh = mesh
@@ -224,13 +226,12 @@ class GatherRound:
             m += (2 + len(r.names)) * r.keys[0][0].numel()
         ovf0 = m
         m += len(self.requests)
-        partials = []
+        rows = []
         for g, (dev, shards) in enumerate(mesh.groups):
-            # K30 writes every lane of its rows; only the overflow words
+            # K30 writes every lane of the row; only the overflow words
             # start at zero.
-            partial = torch.empty(len(shards), m, dtype=torch.int64,
-                                  device=dev)
-            partial[:, ovf0:].zero_()
+            row = torch.empty(m, dtype=torch.int64, device=dev)
+            row[ovf0:].zero_()
             for k, r in enumerate(self.requests):
                 lo, hi = r.keys[g]
                 count = lo.numel() if r.count is None else r.count
@@ -238,10 +239,10 @@ class GatherRound:
                 gather = (_cuda.shard_gather if lo.is_cuda
                           else shard_gather_plain)
                 gather([r.table.parts[s] for s in shards], shards, mesh.size,
-                       lo, hi, r.names, MAX_PROBE, count, mask, partial,
+                       lo, hi, r.names, MAX_PROBE, count, mask, row,
                        offsets[k], ovf0 + k, r.overflow)
-            partials.append(partial)
-        sums = mesh.psum(partials)
+            rows.append(row)
+        sums = mesh.psum_rows(rows)
         out = []
         for total in sums:
             looks = []
@@ -267,30 +268,36 @@ def shard_gather_plain(tables: Sequence[ht.Table], shard_ids: Sequence[int],
                        mask: Optional[torch.Tensor], out: torch.Tensor,
                        offset: int, ovf_index: int,
                        want_overflow: bool) -> None:
-    """Plain version of kernel K30 (the same rows of ``out``): the JAX
+    """Plain version of kernel K30 (the same answer row ``out``): the JAX
     package's per-shard ``ht.lookup`` with ``hash_shift``, masked to the
-    keys the shard owns, and ``gather_cols``."""
+    keys the shard owns, and ``gather_cols``, each lane's answer from its
+    owner shard when it is local and zeros otherwise; the overflow word
+    ORed over every local shard's probe."""
     n = key_lo.shape[0]
     shift = n_shards.bit_length() - 1
     own = owners(key_lo, key_hi, n_shards)
-    for j, (t, s) in enumerate(zip(tables, shard_ids)):
+    width = (2 + len(names)) * n
+    out[offset:offset + width] = 0
+    for t, s in zip(tables, shard_ids):
         lane_mask = own == s
         if mask is not None:
             lane_mask = lane_mask & mask
         look = ht.lookup_plain(t, key_lo, key_hi, max_probe, shift, count,
                                names, lane_mask)
-        row = out[j]
-        row[offset:offset + n] = look.found.to(torch.int64)
-        row[offset + n:offset + 2 * n] = torch.where(
-            look.found, s * t.capacity + look.slot,
-            torch.zeros_like(look.slot))
-        for c, name in enumerate(names):
+        mine = own == s
+        ans = [look.found.to(torch.int64),
+               torch.where(look.found, s * t.capacity + look.slot,
+                           torch.zeros_like(look.slot))]
+        for name in names:
             v = look.cols[name].to(torch.int64)
             if t.cols[name].dtype == torch.int32:
                 v = v & 0xFFFFFFFF  # u32 zero-extended, as K30 writes it
-            row[offset + (2 + c) * n:offset + (3 + c) * n] = v
+            ans.append(v)
+        for c, v in enumerate(ans):
+            seg = out[offset + c * n:offset + (c + 1) * n]
+            seg.copy_(torch.where(mine, v, seg))
         if want_overflow:
-            row[ovf_index] = look.overflow.to(torch.int64)
+            out[ovf_index] |= look.overflow.to(torch.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Where K13 run_sort's, K3 validate's, K9 full_index's, K15
-index_window's (union mode), K1 probe's and K7 seq_accounts' time goes, by
-phase, on the card.
+index_window's (union mode), K1 probe's, K7 seq_accounts', K2's round
+form's, K10 full_legs' and K30 shard_gather's time goes, by phase, on the
+card.
 
 Builds csrc/index_sort.cu, csrc/validate.cu, csrc/full_index.cu,
-csrc/index_query.cu, csrc/probe.cu and csrc/sequential.cu with
-TB_PHASE_CLOCK defined into build/phase_clock/: thread
+csrc/index_query.cu, csrc/probe.cu, csrc/sequential.cu, csrc/insert.cu,
+csrc/full_legs.cu and csrc/shard_gather.cu with TB_PHASE_CLOCK defined into
+build/phase_clock/: thread
 0 of each block (the first 64) stores %globaltimer at each of the kernel's
 phase marks (csrc/phase_clock.cuh).  ``split(kernel, fn)`` runs ``fn``
 (a call that launches the kernel once through its wrapper) on that library
@@ -24,7 +26,13 @@ sequencer's one block, the finish); K2's round form's come from its
 three kernels and its fill (each of round 0's two launches starting, the
 cooperative rounds starting, block 0's one-block tail starting and ending,
 the fill's writes starting: a mark reached by no block is left out), on
-``grow`` 2^20 -> 2^21 at load 0.5 (its insert into an unwritten table):
+``grow`` 2^20 -> 2^21 at load 0.5 (its insert into an unwritten table);
+K10's from a fresh sort cache (scanned, the grid barrier's verdict,
+written) and when it sorts (the chunks sorted, merged, scanned, written),
+on testing/k10cases.py's ``fresh_cache`` legs at 8,192 lanes, with the
+cache and with none; K30's are a lane's, not a block's (``lanes``: each
+answering lane's key hashed, probe done, stores issued), at
+tools/full_core_times.py's 8-shard shape (its ``gather`` part):
 
     python tools/phase_clock.py
 """
@@ -61,14 +69,21 @@ MARKS = {
                      "sequencer_end", "finish_start", "finished"),
     "insert_rounds": ("round0_contend", "round0_resolve", "grid_rounds",
                       "tail", "tail_end", "fill"),
+    "full_legs": ("start", "scanned_from_cache", "verdict", "chunks_sorted",
+                  "merged", "scanned_after_sort", "written_after_sort",
+                  "written_from_cache"),
 }
 ENTRY = {"run_sort": "tb_run_sort_phases", "validate": "tb_validate_phases",
          "full_index": "tb_full_index_phases",
          "index_union": "tb_index_query_phases",
          "probe": "tb_probe_phases", "seq_accounts": "tb_seq_accounts_phases",
-         "insert_rounds": "tb_insert_phases"}
+         "insert_rounds": "tb_insert_phases", "full_legs": "tb_full_legs_phases"}
 SOURCES = ("index_sort.cu", "validate.cu", "full_index.cu", "index_query.cu",
-           "probe.cu", "sequential.cu", "insert.cu")
+           "probe.cu", "sequential.cu", "insert.cu", "full_legs.cu",
+           "shard_gather.cu")
+# K30's lane clock (csrc/shard_gather.cu): each answering lane's marks.
+LANE_MARKS = ("hashed", "probed", "stored")
+LANE_CLOCK = 8192
 _LIB = None
 
 
@@ -101,6 +116,7 @@ def library() -> ctypes.CDLL:
     lib.tb_error_string.restype = ctypes.c_char_p
     for entry in ENTRY.values():
         getattr(lib, entry + "_read").argtypes = [ctypes.c_void_p]
+    lib.tb_shard_gather_lanes_read.argtypes = [ctypes.c_void_p]
     _LIB = lib
     return lib
 
@@ -143,6 +159,45 @@ def split(kernel: str, fn, reps: int = 7) -> dict:
             out[name] = round(float(np.median(per_run)), 3)
     blocks = int((runs[-1][:, 0] > 0).sum())
     return {"us_since_start": out, "blocks_clocked": blocks}
+
+
+def lanes(fn, reps: int = 7) -> dict:
+    """K30's lane clock: ``fn`` (a call that launches K30 once) run
+    ``reps`` times on the clocked library; over the lanes that answered,
+    each mark's time (us since the first lane hashed its key), as the
+    median and the largest over the lanes (the largest is when the last
+    lane got there), median over the launches after the first two; and
+    the lanes clocked."""
+    lib = library()
+    saved = _cuda._LIB
+    runs = []
+    _cuda._LIB = lib
+    try:
+        for _ in range(reps):
+            if lib.tb_shard_gather_lanes_clear() != 0:
+                raise RuntimeError("lane clock: clear failed")
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * (LANE_CLOCK * 4))()
+            if lib.tb_shard_gather_lanes_read(buf) != 0:
+                raise RuntimeError("lane clock: read failed")
+            runs.append(np.frombuffer(buf, np.uint64).reshape(LANE_CLOCK, 4)
+                        [:, :len(LANE_MARKS)].astype(np.int64))
+    finally:
+        _cuda._LIB = saved
+    out = {}
+    for k, name in enumerate(LANE_MARKS):
+        med, top = [], []
+        for a in runs[2:]:
+            live = a[:, 0] > 0
+            t = (a[live, k] - a[live, 0].min()) / 1e3
+            med.append(np.median(t))
+            top.append(t.max())
+        out[name] = {"median": round(float(np.median(med)), 3),
+                     "last": round(float(np.median(top)), 3)}
+    return {"us_since_first_hash": out,
+            "lanes_clocked": int((runs[-1][:, 0] > 0).sum())}
 
 
 def query_pyramid(dev):
@@ -212,11 +267,43 @@ def grow_claim(dev, old_cap: int):
     return fn
 
 
+def k30_shape(dev):
+    """A call of K30 at tools/full_core_times.py's shape (8,192 lanes
+    over 8 shards of transfers holding 10,000,000 rows, 17 columns, no
+    overflow word) into one row for the card."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parents[1]
+    mods = {}
+    for name, path in (("chip_smoke", root / "chip_smoke.py"),
+                       ("full_core_times",
+                        root / "tools" / "full_core_times.py")):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    cs = mods["chip_smoke"]
+    xt, lo, hi, names = mods["full_core_times"].k30_shape(cs, dev)
+    m = (2 + len(names)) * cs.LANES + 1
+    row = torch.empty(m, dtype=torch.int64, device=dev)
+    return lambda: _cuda.shard_gather(xt, range(len(xt)), len(xt), lo, hi,
+                                      names, sm.MAX_PROBE, cs.COUNT, None,
+                                      row, 0, m - 1, False)
+
+
+def legs_call(a, cache):
+    """K10 on its own on k10cases' tensors, with the sort cache or none."""
+    return _cuda.full_legs(
+        a["start_bal"], a["cap_sentinel"], a["ok_lanes"], a["amt_lo"],
+        a["pamt_lo"], a["dr_slot"], a["cr_slot"], a["dr_live"],
+        a["cr_live"], a["pending_f"], a["post"], a["postvoid"],
+        a["has_postvoid"], cache=cache)
+
+
 def main() -> None:
     from tigerbeetle_tpu_torch import convert
     from tigerbeetle_tpu_torch.ops import index as ix
     from tigerbeetle_tpu_torch.ops import transfer_full as tf
-    from tigerbeetle_tpu_torch.testing import k3cases, k9cases, k13cases
+    from tigerbeetle_tpu_torch.testing import k3cases, k9cases, k10cases, k13cases
 
     dev = torch.device("cuda")
     cols, use = k13cases.entries(8192, "random")
@@ -235,6 +322,9 @@ def main() -> None:
     query = query_pyramid(dev)
     k1_table, k1_lo, k1_hi = k1_shape(dev)
     k7_args = k7_shape(dev)
+    k10_args, k10_cache = k10cases.to_tensors(
+        *k10cases.case("fresh_cache", 8192), dev)
+    k30 = k30_shape(dev)
     print(json.dumps({
         "run_sort_both_sides_8192": split(
             "run_sort", lambda: _cuda.run_sort([side, side], use_t, outs)),
@@ -251,6 +341,11 @@ def main() -> None:
             "seq_accounts", lambda: sp.create_accounts_seq(*k7_args())),
         "insert_rounds_grow_2e20": split(
             "insert_rounds", grow_claim(dev, 1 << 20)),
+        "full_legs_8192_fresh_cache": split(
+            "full_legs", lambda: legs_call(k10_args, k10_cache)),
+        "full_legs_8192_no_cache": split(
+            "full_legs", lambda: legs_call(k10_args, None)),
+        "shard_gather_8_shards_lanes": lanes(k30),
     }))
 
 
